@@ -1,18 +1,25 @@
 """Architecture registry: full configs + reduced smoke configs.
 
 Copied from ``repro.configs``; only the architectures the port serves are
-registered (``deepseek-v2-mla``).
+registered: ``deepseek-v2-mla`` (paged and dense) and the dense-served GQA
+stacks ``gemma2-2b``, ``qwen2.5-3b`` and ``qwen1.5-0.5b``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepseek_v2_mla
+from repro_torch.configs import deepseek_v2_mla, gemma2_2b, qwen1_5_0_5b, qwen2_5_3b
 from repro_torch.configs.base import MLAConfig, ModelConfig
 
 REGISTRY: dict[str, ModelConfig] = {
-    c.name: c for c in [deepseek_v2_mla.CONFIG]
+    c.name: c
+    for c in [
+        gemma2_2b.CONFIG,
+        qwen1_5_0_5b.CONFIG,
+        qwen2_5_3b.CONFIG,
+        deepseek_v2_mla.CONFIG,
+    ]
 }
 
 

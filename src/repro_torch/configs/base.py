@@ -79,22 +79,27 @@ class ModelConfig:
         return [pat[i % len(pat)] for i in range(self.n_layers)]
 
     def param_count(self) -> int:
-        """Analytic parameter count of the kinds the port serves (MLA
-        attention + dense MLP); raises for the others."""
+        """Analytic parameter count, the reference's formula, for the kinds
+        the port serves (GQA or MLA attention + dense MLP); raises for the
+        others."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         for kind in self.layer_kinds():
-            if kind not in ("global", "local") or self.mla is None or self.n_experts:
+            if kind not in ("global", "local") or self.n_experts:
                 raise NotImplementedError(
-                    f"param_count covers dense MLA stacks; {self.name!r} has "
-                    f"a {kind!r} layer"
+                    f"param_count covers dense attention stacks; {self.name!r} "
+                    f"has a {kind!r} layer"
                 )
-            m = self.mla
-            n += d * self.n_heads * (m.d_nope + m.d_rope)
-            n += self.n_heads * m.d_nope * m.d_latent
-            n += d * (m.d_latent + m.d_rope)
-            n += self.n_heads * m.d_latent * m.d_vhead
-            n += self.n_heads * m.d_vhead * d
+            if self.mla is not None:
+                m = self.mla
+                n += d * self.n_heads * (m.d_nope + m.d_rope)
+                n += self.n_heads * m.d_nope * m.d_latent
+                n += d * (m.d_latent + m.d_rope)
+                n += self.n_heads * m.d_latent * m.d_vhead
+                n += self.n_heads * m.d_vhead * d
+            else:
+                hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+                n += d * (hq + 2 * hkv) * dh + hq * dh * d
             n += 3 * d * self.d_ff
             n += 2 * d  # norms
         return int(n)

@@ -24,32 +24,19 @@
 // Design.  The TPU grid walks the queue in order and carries the state in
 // VMEM; here one CTA takes (destination slot, tile of 32 query rows) and
 // loops over the slot's items itself, so slots and row tiles run in
-// parallel and large G (4096 on a prefill chunk) only adds tiles.  A
-// 512 x 576 block does not fit in shared memory, so keys are staged in
-// strips (128 keys x 32 dims for the scores, 16 keys x Dv for P·V) while the
-// block's full 32 x 512 score strip stays in shared memory: the row max, and
-// so the single per-block state update, is known before P·V.  Each warp owns
-// 4 query rows end to end (scores, softmax, state, accumulator in
-// registers), so the state update needs warp shuffles only.  Pages past
-// kv_len are never read.  This first version uses plain loads and fp32 FMA
-// loops; wgmma/TMA pipelining is later work.
+// parallel and large G (4096 on a prefill chunk) only adds tiles.  The
+// per-block work (strip staging, the one state update per block, P·V) is
+// the row body in mla_rows.cuh, shared with the contiguous kernel K4; this
+// file adds the block-table addressing.  Pages past kv_len are never read.
+// This first version uses plain loads and fp32 FMA loops; wgmma/TMA
+// pipelining is later work.
 #include <cuda_runtime.h>
 
-#include "amla.cuh"
+#include "mla_rows.cuh"
 
 namespace {
 
-constexpr int kRows = 32;                       // query rows per CTA
-constexpr int kThreads = 256;                   // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kRows / kWarps;    // 4 rows owned by each warp
-constexpr int kStrip = 128;                     // keys per score strip
-constexpr int kKeysPerLane = kStrip / 32;       // 4 keys per lane
-constexpr int kDChunk = 32;                     // key dims staged per pass
-constexpr int kVKeys = 16;                      // keys staged per P·V pass
-constexpr int kDvMax = 512;
-constexpr int kColsPerLane = kDvMax / 32;       // 16 value columns per lane
-constexpr int kBlockKMax = 512;
+using namespace mla_rows;
 
 struct Params {
   const void* q;              // (B, G, Dk) compute dtype
@@ -65,39 +52,21 @@ struct Params {
   const int* item_valid;
   float* o_part;              // (D, G, Dv)
   float* lse;                 // (D, G)
-  int G, Dk, Dv, num_pages, page_size, W, N, block_k;
-  float scale, softcap;       // softcap <= 0: off
+  Geom g;
+  int num_pages, page_size, W, N;
 };
-
-__host__ __device__ int stage_floats(int Dv) {
-  const int a = kStrip * (kDChunk + 1), b = kVKeys * Dv;
-  return a > b ? a : b;
-}
-
-size_t smem_bytes(const Params& p) {
-  return sizeof(float) *
-             (static_cast<size_t>(kRows) * p.Dk +
-              static_cast<size_t>(kRows) * p.block_k + stage_floats(p.Dv)) +
-         sizeof(long long) * kStrip + sizeof(int) * kRows;
-}
 
 template <typename TQ, typename TP, bool kAmla>
 __global__ void __launch_bounds__(kThreads, 1)
     mla_decode_queue_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);        // kRows x Dk
-  float* sS = sQ + kRows * p.Dk;                          // kRows x block_k
-  float* sStage = sS + kRows * p.block_k;                 // key strips
-  long long* sRowOff =
-      reinterpret_cast<long long*>(sStage + stage_floats(p.Dv));  // kStrip
-  int* sQPos = reinterpret_cast<int*>(sRowOff + kStrip);  // kRows
+  const Smem sm = carve(smem_raw, p.g);
   __shared__ int s_first;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int dest = blockIdx.x;
   const int row0 = blockIdx.y * kRows;
+  const int G = p.g.G, Dv = p.g.Dv;
 
   // The slot's items are contiguous; find the first one.
   if (tid == 0) s_first = -1;
@@ -110,238 +79,53 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (first < 0) {
     // No work for this slot (an empty request or the padding dump): the
     // combine never reads it, but leave a defined empty partial.
-    for (int idx = tid; idx < kRows * p.Dv; idx += kThreads) {
-      const int g = row0 + idx / p.Dv;
-      if (g < p.G) p.o_part[(static_cast<size_t>(dest) * p.G + g) * p.Dv + idx % p.Dv] = 0.0f;
+    for (int idx = tid; idx < kRows * Dv; idx += kThreads) {
+      const int g = row0 + idx / Dv;
+      if (g < G) p.o_part[(static_cast<size_t>(dest) * G + g) * Dv + idx % Dv] = 0.0f;
     }
-    if (tid < kRows && row0 + tid < p.G) {
-      p.lse[static_cast<size_t>(dest) * p.G + row0 + tid] = -INFINITY;
+    if (tid < kRows && row0 + tid < G) {
+      p.lse[static_cast<size_t>(dest) * G + row0 + tid] = -INFINITY;
     }
     return;
   }
 
   const int req = p.item_req[first];
   const int k_len = p.kv_len[req];
-  const TQ* q = static_cast<const TQ*>(p.q) + static_cast<size_t>(req) * p.G * p.Dk;
+  const TQ* q = static_cast<const TQ*>(p.q) + static_cast<size_t>(req) * G * p.g.Dk;
+  const int qmax = load_tile(sm, p.g, q, p.q_pos + static_cast<size_t>(req) * G, row0);
   const TP* pages = static_cast<const TP*>(p.pages);
   const int* bt = p.block_tables + static_cast<size_t>(req) * p.W;
+  const int page_size = p.page_size, num_pages = p.num_pages, Dk = p.g.Dk;
+  auto key_off = [=](int pos) -> long long {
+    const int pid = min(max(bt[pos / page_size], 0), num_pages - 1);
+    return (static_cast<long long>(pid) * page_size + pos % page_size) * Dk;
+  };
 
-  for (int idx = tid; idx < kRows * p.Dk; idx += kThreads) {
-    const int g = row0 + idx / p.Dk;
-    sQ[idx] = g < p.G ? amla::to_float(q[static_cast<size_t>(g) * p.Dk + idx % p.Dk]) : 0.0f;
-  }
-  for (int r = tid; r < kRows; r += kThreads) {
-    const int g = row0 + r;
-    // Rows past G (a ragged last tile) get position -1: every key masks.
-    sQPos[r] = g < p.G ? p.q_pos[static_cast<size_t>(req) * p.G + g] : -1;
-  }
-
-  // Row state of the warp's 4 rows, held redundantly by all its lanes.
-  int n0;
-  float inv_r0;
-  amla::round_scale_to_pow2(amla::kMInit, &n0, &inv_r0);
-  float m[kRowsPerWarp], l[kRowsPerWarp], gamma[kRowsPerWarp], s16[kRowsPerWarp];
-  int n[kRowsPerWarp];
-  float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = amla::kMInit;
-    l[i] = 0.0f;
-    n[i] = n0;
-    gamma[i] = 1.0f;
-    s16[i] = amla::bf16_round(inv_r0);
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = 0.0f;
-  }
-
+  RowState<kAmla> st;
+  st.init();
+  // Keys at or past min(kv_len, largest q_pos + 1) mask in every row.
+  const int end = min(k_len, qmax + 1);
   for (int t = first; t < p.N; ++t) {
     if (p.item_dest[t] != dest || !p.item_valid[t]) break;
-    const int start = p.item_block[t] * p.block_k;
-    // Keys of this block inside kv_len; the rest of the block is masked.
-    const int live = min(p.block_k, k_len - start);
-
-    // ---- scores: sS[r][col] = q_r . k_col over the live keys ----------
-    for (int ks = 0; ks < live; ks += kStrip) {
-      __syncthreads();  // the previous strip is done with sRowOff / sStage
-      for (int key = tid; key < kStrip; key += kThreads) {
-        long long off = -1;
-        if (ks + key < live) {
-          const int pos = start + ks + key;
-          const int pid = min(max(bt[pos / p.page_size], 0), p.num_pages - 1);
-          off = (static_cast<long long>(pid) * p.page_size + pos % p.page_size) * p.Dk;
-        }
-        sRowOff[key] = off;
-      }
-      float sacc[kRowsPerWarp][kKeysPerLane];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-#pragma unroll
-        for (int j = 0; j < kKeysPerLane; ++j) sacc[i][j] = 0.0f;
-      }
-      for (int d0 = 0; d0 < p.Dk; d0 += kDChunk) {
-        __syncthreads();  // sRowOff is written; the last chunk is consumed
-        for (int idx = tid; idx < kStrip * kDChunk; idx += kThreads) {
-          const int key = idx / kDChunk;
-          const int dd = idx - key * kDChunk;
-          const long long off = sRowOff[key];
-          float v = 0.0f;
-          if (off >= 0 && d0 + dd < p.Dk) v = amla::round_to<TQ>(amla::to_float(pages[off + d0 + dd]));
-          sStage[key * (kDChunk + 1) + dd] = v;
-        }
-        __syncthreads();
-        const int dlim = min(kDChunk, p.Dk - d0);
-        for (int dd = 0; dd < dlim; ++dd) {
-          float qv[kRowsPerWarp], kv[kKeysPerLane];
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) qv[i] = sQ[(warp * kRowsPerWarp + i) * p.Dk + d0 + dd];
-#pragma unroll
-          for (int j = 0; j < kKeysPerLane; ++j) kv[j] = sStage[(lane + 32 * j) * (kDChunk + 1) + dd];
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) {
-#pragma unroll
-            for (int j = 0; j < kKeysPerLane; ++j) sacc[i][j] = fmaf(qv[i], kv[j], sacc[i][j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-#pragma unroll
-        for (int j = 0; j < kKeysPerLane; ++j) {
-          const int col = ks + lane + 32 * j;
-          if (col < p.block_k) sS[(warp * kRowsPerWarp + i) * p.block_k + col] = sacc[i][j];
-        }
-      }
-    }
-    __syncwarp();  // each warp reads back only its own rows
-
-    // ---- one online-softmax + AMLA state update per row per block -----
-    int inc[kRowsPerWarp];
-    float alpha[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      float* srow = sS + (warp * kRowsPerWarp + i) * p.block_k;
-      const int qp = sQPos[warp * kRowsPerWarp + i];
-      // scale, then softcap, then clamp, then mask to -inf
-      float rmax = -INFINITY;
-      for (int col = lane; col < p.block_k; col += 32) {
-        float x = -INFINITY;
-        if (col < live && start + col <= qp) {
-          x = __fmul_rn(srow[col], p.scale);
-          if (p.softcap > 0.0f) x = __fmul_rn(p.softcap, tanhf(__fdiv_rn(x, p.softcap)));
-          x = fminf(fmaxf(x, -amla::kMClamp), amla::kMClamp);
-        }
-        srow[col] = x;
-        rmax = fmaxf(rmax, x);
-      }
-      rmax = amla::warp_max(rmax);
-      const float m_prev = m[i];
-      const float m_new = fmaxf(m_prev, rmax);
-      float psum = 0.0f;
-      for (int col = lane; col < p.block_k; col += 32) {
-        const float e = expf(__fsub_rn(srow[col], m_new));
-        srow[col] = e;
-        psum += e;
-      }
-      psum = amla::warp_sum(psum);
-      l[i] = __fadd_rn(__fmul_rn(l[i], expf(__fsub_rn(m_prev, m_new))), psum);
-      m[i] = m_new;
-      if (kAmla) {
-        int n_new;
-        float inv_r;
-        amla::round_scale_to_pow2(m_new, &n_new, &inv_r);
-        const float s = amla::bf16_round(inv_r);
-        const float g_new = __fdiv_rn(inv_r, s);
-        const float eps = __fsub_rn(__fdiv_rn(gamma[i], g_new), 1.0f);
-        inc[i] = amla::pow2_int_increment(n_new - n[i], eps);
-        n[i] = n_new;
-        gamma[i] = g_new;
-        s16[i] = s;
-        // p_v = p * S16, rounded to the matmul dtype before P·V
-        for (int col = lane; col < p.block_k; col += 32) {
-          srow[col] = amla::round_to<TQ>(__fmul_rn(srow[col], s));
-        }
-      } else {
-        alpha[i] = expf(__fsub_rn(m_prev, m_new));
-        for (int col = lane; col < p.block_k; col += 32) srow[col] = amla::round_to<TQ>(srow[col]);
-      }
-    }
-
-    // ---- rescale: MUL-by-ADD, skipped per row where the increment is 0 --
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      if (kAmla) {
-        if (inc[i] != 0) {
-#pragma unroll
-          for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = amla::apply_int_increment(acc[i][j], inc[i]);
-        }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha[i]);
-      }
-    }
-
-    // ---- P·V with V = the first Dv columns of the same rows ------------
-    for (int kc = 0; kc < live; kc += kVKeys) {
-      __syncthreads();  // every warp is done with the previous stage
-      for (int idx = tid; idx < kVKeys * p.Dv; idx += kThreads) {
-        const int key = idx / p.Dv;
-        const int c = idx - key * p.Dv;
-        float v = 0.0f;
-        if (kc + key < live) {
-          const int pos = start + kc + key;
-          const int pid = min(max(bt[pos / p.page_size], 0), p.num_pages - 1);
-          v = amla::round_to<TQ>(amla::to_float(
-              pages[(static_cast<long long>(pid) * p.page_size + pos % p.page_size) * p.Dk + c]));
-        }
-        sStage[idx] = v;
-      }
-      __syncthreads();
-      const int klim = min(kVKeys, live - kc);
-      for (int key = 0; key < klim; ++key) {
-        float pv[kRowsPerWarp];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) pv[i] = sS[(warp * kRowsPerWarp + i) * p.block_k + kc + key];
-#pragma unroll
-        for (int j = 0; j < kColsPerLane; ++j) {
-          const int c = lane + 32 * j;
-          const float v = c < p.Dv ? sStage[key * p.Dv + c] : 0.0f;
-#pragma unroll
-          for (int i = 0; i < kRowsPerWarp; ++i) acc[i][j] = fmaf(pv[i], v, acc[i][j]);
-        }
-      }
-    }
+    const int start = p.item_block[t] * p.g.block_k;
+    const int live = min(p.g.block_k, end - start);
+    if (live > 0) block_update<TQ, TP, kAmla>(st, sm, p.g, pages, start, live, key_off);
     if (p.item_last[t]) break;
   }
-
-  // ---- finalize: o = acc / (l * S16) (amla) or acc / l, 0 when empty -----
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int g = row0 + warp * kRowsPerWarp + i;
-    if (g >= p.G) continue;
-    const float denom = kAmla ? __fmul_rn(l[i], s16[i]) : l[i];
-    float* o = p.o_part + (static_cast<size_t>(dest) * p.G + g) * p.Dv;
-#pragma unroll
-    for (int j = 0; j < kColsPerLane; ++j) {
-      const int c = lane + 32 * j;
-      if (c < p.Dv) o[c] = denom > 0.0f ? __fdiv_rn(acc[i][j], denom) : 0.0f;
-    }
-    // lse in standard units (m is the true running max, l the plain mass).
-    if (lane == 0) {
-      p.lse[static_cast<size_t>(dest) * p.G + g] = l[i] > 0.0f ? __fadd_rn(m[i], logf(l[i])) : -INFINITY;
-    }
-  }
+  finalize(st, p.g, row0, p.o_part + static_cast<size_t>(dest) * G * Dv,
+           p.lse + static_cast<size_t>(dest) * G);
 }
 
 // ---- host launcher ----
 
 template <typename TQ, typename TP, bool kAmla>
 cudaError_t launch(const Params& p, int num_dest_slots, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p);
+  const size_t smem = smem_bytes(p.g);
   auto kernel = mla_decode_queue_kernel<TQ, TP, kAmla>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(num_dest_slots, (p.G + kRows - 1) / kRows);
+  const dim3 grid(num_dest_slots, (p.g.G + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -371,7 +155,7 @@ extern "C" int amla_mla_decode_paged_queue(
   }
   Params p{q, pages, block_tables, kv_len, q_pos, item_req, item_block,
            item_dest, item_first, item_last, item_valid, o_part, lse,
-           G, Dk, Dv, num_pages, page_size, W, N, block_k, scale, softcap};
+           Geom{G, Dk, Dv, block_k, scale, softcap}, num_pages, page_size, W, N};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_bf16) {

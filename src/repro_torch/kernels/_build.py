@@ -21,8 +21,11 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("mla_decode_paged.cu", "mla_decode_combine.cu")
-HEADERS = ("amla.cuh",)
+SOURCES = (
+    "mla_decode_paged.cu", "mla_decode_combine.cu", "mla_decode.cu",
+    "gqa_decode.cu", "flash_prefill.cu",
+)
+HEADERS = ("amla.cuh", "mla_rows.cuh", "gqa_rows.cuh")
 # No --use_fast_math: the AMLA state update needs the accurate expf and
 # IEEE division.  -Xptxas -v reports registers, shared memory and spills.
 NVCC_FLAGS = (
@@ -109,11 +112,18 @@ def load() -> ctypes.CDLL:
         return _lib
     _build_result = build()
     lib = ctypes.CDLL(str(_build_result.path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.amla_mla_decode_paged_queue.argtypes = [p] * 13 + [i] * 9 + [f, f] + [i] * 3 + [p]
-    lib.amla_mla_decode_paged_queue.restype = i
-    lib.amla_combine_split_partials.argtypes = [p] * 5 + [i] * 4 + [p]
-    lib.amla_combine_split_partials.restype = i
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    signatures = {
+        "amla_mla_decode_paged_queue": [p] * 13 + [i] * 9 + [f, f] + [i] * 3 + [p],
+        "amla_combine_split_partials": [p] * 5 + [i] * 4 + [p],
+        "amla_mla_decode_rows": [p] * 5 + [i] * 6 + [ll, f, f] + [i] * 3 + [p],
+        "amla_gqa_decode": [p] * 6 + [i] * 6 + [ll] * 6 + [f, f] + [i] * 3 + [p],
+        "amla_flash_prefill": [p] * 5 + [i] * 7 + [ll] * 6 + [f, f] + [i] * 4 + [p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = i
     lib.amla_error_string.argtypes = [i]
     lib.amla_error_string.restype = ctypes.c_char_p
     _lib = lib

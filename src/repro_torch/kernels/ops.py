@@ -1,10 +1,12 @@
 """Public wrappers around the port's kernels (counterpart of
-``repro/kernels/ops.py``, paged work-queue path).
+``repro/kernels/ops.py``: the contiguous MLA decode, the GQA decode /
+prefill dispatch, and the paged work-queue path).
 
 They adapt the framework's ``(B, S, H, D)`` convention to the kernels'
-row layout, fill in default positions, validate geometry with the
+row layouts, fill in default positions, validate geometry with the
 reference's messages and error classes, build the decode schedule, and
-run the queue kernel plus the split-KV combine.
+run the kernels.  Every kernel runs its CUDA version on a CUDA tensor and
+its plain PyTorch version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -13,9 +15,140 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import decode_schedule as _sched
+from repro_torch.kernels import flash_prefill as _prefill
+from repro_torch.kernels import gqa_decode as _gqa
 from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import mla_decode_combine as _combine
 from repro_torch.kernels import mla_decode_paged as _mla_paged
+
+
+def _default_pos(b, sq, kv_len, sk, device):
+    """``(kv_len (B,), q_pos (B, Sq))`` int32: queries are the last ``sq``
+    positions of the keys (all ``sk`` of them when ``kv_len`` is None)."""
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=device)
+    kv_len = torch.as_tensor(kv_len, device=device).to(torch.int32).reshape(b)
+    base = torch.clamp_min(kv_len - sq, 0)
+    q_pos = base[:, None] + torch.arange(sq, dtype=torch.int32, device=device)[None, :]
+    return kv_len, q_pos
+
+
+def _offset_pos(q_offset, sq, device):
+    """``q_offset[:, None] + arange(sq)`` as int32 on ``device``."""
+    off = torch.as_tensor(q_offset, device=device).to(torch.int32).reshape(-1)
+    return off[:, None] + torch.arange(sq, dtype=torch.int32, device=device)[None, :]
+
+
+def mla_decode(
+    q: torch.Tensor,  # (B, Sq, Hq, Dk)
+    c_kv: torch.Tensor,  # (B, S, Dk)
+    *,
+    d_v: int = 512,
+    variant: str = "amla",
+    scale: float,
+    kv_len=None,
+    causal: bool = True,
+    q_offset=None,
+    block_k: int = _mla.DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """MLA decode over a contiguous latent cache (K4); ``(B, Sq, Hq, Dv)``
+    fp32.  Rows are ``(Sq, Hq)`` flattened, every head at its token's
+    position: ``kv_len - Sq + arange(Sq)`` by default, ``q_offset +
+    arange(Sq)`` when given; ``causal=False`` lifts the causal bound.
+    Queries run in bf16; the cache is rounded to bf16 where it is read."""
+    b, sq, hq, dk = q.shape
+    dev = q.device
+    sk = c_kv.shape[1]
+    kv_len, q_pos = _default_pos(b, sq, kv_len, sk, dev)
+    if q_offset is not None:
+        q_pos = _offset_pos(q_offset, sq, dev)
+    if not causal:
+        q_pos = torch.full((b, sq), sk, dtype=torch.int32, device=dev)
+    # rows = (Sq, Hq) flattened; every head of one token shares a position.
+    rows_pos = torch.repeat_interleave(q_pos, hq, dim=1)  # (B, Sq*Hq)
+    q_rows = q.reshape(b, sq * hq, dk).to(torch.bfloat16)
+    out = _mla.mla_decode_rows(
+        q_rows, c_kv, kv_len, rows_pos, d_v=d_v, variant=variant, scale=scale,
+        block_k=block_k,
+    )
+    return out.reshape(b, sq, hq, d_v)
+
+
+def _all_zero(x) -> bool:
+    host = _host_values(x)
+    if host is not None:
+        return not np.any(host)
+    return not bool(torch.any(x != 0))
+
+
+def gqa_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, Dh)
+    k: torch.Tensor,  # (B, Sk, Hkv, Dh)
+    v: torch.Tensor,  # (B, Sk, Hkv, Dh)
+    *,
+    variant: str = "amla",
+    causal: bool = False,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float,
+    kv_len=None,
+    q_offset=None,
+    decode_threshold: int = 8,
+) -> torch.Tensor:
+    """GQA/MQA/MHA attention in ``q``'s dtype: decode-shaped calls (Sq <=
+    ``decode_threshold``) go to the decode kernel (K6), longer ones to the
+    flash prefill (K7).
+
+    ``k``/``v`` are transposed to the kernels' ``(B, Hkv, Sk, Dh)`` as
+    views; a ``(B, Hkv, Sk, Dh)`` cache passed as ``k_cache.transpose(1,
+    2)`` reaches the kernels where it lies, with no copy.  The flash
+    prefill counts query positions from 0 (the reference's kernel takes
+    no offset), so a nonzero ``q_offset`` with Sq > ``decode_threshold``
+    raises ``ValueError`` rather than return the reference's silently
+    misaligned answer.
+    """
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    dev = q.device
+    kb = k.transpose(1, 2).to(torch.bfloat16)
+    vb = v.transpose(1, 2).to(torch.bfloat16)
+    if sq <= decode_threshold:
+        kv_len_a, q_pos = _default_pos(b, sq, kv_len, sk, dev)
+        if q_offset is not None:
+            q_pos = _offset_pos(q_offset, sq, dev)
+        if not causal and sq > 1:
+            q_pos = torch.full((b, sq), sk, dtype=torch.int32, device=dev)
+        # rows within a kv head: (Sq, group) — position repeats per group.
+        rows_pos = torch.repeat_interleave(q_pos, group, dim=1)  # (B, Sq*group)
+        qr = (
+            q.reshape(b, sq, hkv, group, dh)
+            .permute(0, 2, 1, 3, 4)
+            .reshape(b, hkv, sq * group, dh)
+        )
+        out = _gqa.gqa_decode_rows(
+            qr.to(torch.bfloat16), kb, vb, kv_len_a, rows_pos, variant=variant,
+            scale=scale, softcap=softcap, window=window,
+        )
+        out = out.reshape(b, hkv, sq, group, dh).permute(0, 2, 1, 3, 4)
+        return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+    if q_offset is not None and not _all_zero(q_offset):
+        raise ValueError(
+            f"q_offset must be 0 for Sq={sq} > decode_threshold="
+            f"{decode_threshold}: the flash prefill kernel counts query "
+            "positions from 0 (the reference ignores the offset there)"
+        )
+    kv_len_a = (
+        torch.as_tensor(kv_len, device=dev).to(torch.int32).reshape(b)
+        if kv_len is not None
+        else torch.full((b,), sk, dtype=torch.int32, device=dev)
+    )
+    out = _prefill.flash_prefill(
+        q.transpose(1, 2).to(torch.bfloat16), kb, vb, kv_len_a, variant=variant,
+        scale=scale, softcap=softcap, window=window, causal=causal,
+    )
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def default_paged_block_k(page_size: int, table_width: int) -> int:

@@ -1,14 +1,22 @@
-"""Serving entry point over the paged cache backend (counterpart of
-``repro/launch/serve.py --cache paged``).
+"""Serving entry point (counterpart of ``repro/launch/serve.py``).
 
-Runs a request stream through :class:`PagedServingSession`: the full model
-decoding over a LayeredPagedKVCache via the AMLA paged kernels, with
-chunked prefill-into-pages and one decode schedule per step shared by all
-layers.  Random weights come from ``--seed``.
+Runs a request stream through one of two cache backends:
+
+* ``--cache dense`` (default; default arch ``qwen1.5-0.5b``):
+  :class:`ServingSession`, a fixed batch of ``--batch`` slots with
+  ``--max-len`` cache rows each, bucketed prefill, GQA attention through
+  the K6/K7 kernels (MLA through K4);
+* ``--cache paged`` (default arch ``deepseek-v2-mla``):
+  :class:`PagedServingSession`, the full model decoding over a
+  LayeredPagedKVCache via the AMLA paged kernels, with chunked
+  prefill-into-pages and one decode schedule per step shared by all
+  layers.
+
+Random weights come from ``--seed``.
 
 Usage:
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-mla \\
-        --smoke --requests 6 --gen-len 16 [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--cache dense|paged] \\
+        [--arch NAME] --smoke --requests 6 --gen-len 16 [--device cuda|cpu]
 
 ``--device`` defaults to ``cuda`` and the run fails without it; ``cpu``
 runs the kernels' plain PyTorch versions.
@@ -26,7 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.kv_cache import OutOfPagesError
-from repro_torch.runtime.serve_loop import PagedServingSession
+from repro_torch.runtime.serve_loop import PagedServingSession, ServingSession
 
 
 def _serve_stream(sess, pending, gen_len, requests):
@@ -93,11 +101,16 @@ def _serve_stream(sess, pending, gen_len, requests):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="deepseek-v2-mla")
+    ap.add_argument("--arch", default=None,
+                    help="default: qwen1.5-0.5b (dense) / deepseek-v2-mla (paged)")
+    ap.add_argument("--cache", choices=("dense", "paged"), default="dense",
+                    help="cache backend: contiguous per-slot caches, or the "
+                    "layered paged latent pool")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--num-pages", type=int, default=64)
     ap.add_argument("--page-size", type=int, default=32)
     ap.add_argument("--block-k", type=int, default=None)
@@ -109,19 +122,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    arch = args.arch or ("deepseek-v2-mla" if args.cache == "paged" else "qwen1.5-0.5b")
+    cfg = get_config(arch, smoke=args.smoke)
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(args.seed), device)
-    sess = PagedServingSession(
-        model,
-        params,
-        num_pages=args.num_pages,
-        page_size=args.page_size,
-        block_k=args.block_k,
-        prefill_chunk=args.prefill_chunk,
-        max_batch=args.batch,
-    )
-    print(f"serving {args.arch} with the paged cache backend on {device}")
+    if args.cache == "paged":
+        sess = PagedServingSession(
+            model,
+            params,
+            num_pages=args.num_pages,
+            page_size=args.page_size,
+            block_k=args.block_k,
+            prefill_chunk=args.prefill_chunk,
+            max_batch=args.batch,
+        )
+    else:
+        sess = ServingSession(model, params, batch_size=args.batch, max_len=args.max_len)
+    print(f"serving {arch} with the {args.cache} cache backend on {device}")
     rng = np.random.default_rng(args.seed)
     pending = [
         rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, 24))).tolist()
@@ -132,7 +149,11 @@ def main(argv=None):
         f"served {args.requests} requests, {tokens_out} decode tokens "
         f"in {dt:.1f}s ({tokens_out / max(dt, 1e-9):.1f} tok/s)"
     )
+    # Bucketed prefill keeps this O(log max_len) for a ragged prompt stream
+    # (dense), and exactly one chunk shape (paged).
     print(f"prefill compiles: {sess.prefill_compiles}")
+    if args.cache != "paged":
+        return
     stats = sess.scheduler_stats
     work = sess.work_stats()
     print(

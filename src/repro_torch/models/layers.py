@@ -40,13 +40,21 @@ def rmsnorm(params, x, *, eps=1e-6):
 
 
 # -- linear / embedding ---------------------------------------------------- #
-def dense_init(gen, d_in, d_out, *, std=None, device, dtype):
+def dense_init(gen, d_in, d_out, *, bias=False, std=None, device, dtype):
     std = std if std is not None else 1.0 / math.sqrt(d_in)
-    return {"w": truncnorm(gen, (d_in, d_out), std, device=device, dtype=dtype)}
+    p = {"w": truncnorm(gen, (d_in, d_out), std, device=device, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
+    return p
 
 
 def dense(params, x, *, dtype=torch.bfloat16):
-    return torch.matmul(x.to(dtype), params["w"].to(dtype))
+    y = torch.matmul(x.to(dtype), params["w"].to(dtype))
+    if "b" in params:
+        # fp32 bias on the product, as the reference adds it; at bf16 the
+        # product is rounded once more before the add than there.
+        y = (y.to(torch.float32) + params["b"]).to(dtype)
+    return y
 
 
 def embed_init(gen, vocab, dim, *, device, dtype):
@@ -71,7 +79,7 @@ def unembed(params, x, *, dtype=torch.bfloat16, softcap=None):
     return logits
 
 
-# -- MLP (SwiGLU) ----------------------------------------------------------- #
+# -- MLP (SwiGLU / GeGLU) -------------------------------------------------- #
 def mlp_init(gen, d_model, d_ff, *, device, dtype):
     kw = dict(device=device, dtype=dtype)
     return {
@@ -84,9 +92,12 @@ def mlp_init(gen, d_model, d_ff, *, device, dtype):
 def mlp(params, x, *, act="silu", dtype=torch.bfloat16):
     g = dense(params["gate"], x, dtype=dtype)
     u = dense(params["up"], x, dtype=dtype)
-    if act != "silu":
-        raise NotImplementedError(f"act={act!r}: the port's MLP is SwiGLU only")
-    g = torch.nn.functional.silu(g.to(torch.float32)).to(dtype)
+    if act == "silu":
+        g = torch.nn.functional.silu(g.to(torch.float32)).to(dtype)
+    elif act == "gelu":
+        g = torch.nn.functional.gelu(g.to(torch.float32), approximate="tanh").to(dtype)
+    else:
+        raise ValueError(act)
     return dense(params["down"], g * u, dtype=dtype)
 
 

@@ -1,5 +1,6 @@
 """Multi-head Latent Attention, absorbed form (counterpart of
-``repro/models/mla_layer.py``, decode pieces).
+``repro/models/mla_layer.py``: the decode pieces the paged backend
+composes, and ``mla_apply`` over a dense latent cache).
 
 The KV cache stores only the shared latent ``[c (d_latent) ; k_rope
 (d_rope)]`` per token (576 numbers at DeepSeek-V2 geometry).  Queries are
@@ -16,7 +17,9 @@ import math
 
 import torch
 
+from repro_torch.core.attention import mla_attention
 from repro_torch.models import layers
+from repro_torch.models.attention_layer import as_batch_vec, update_rows
 
 
 def mla_init(gen, cfg, *, device, dtype):
@@ -79,3 +82,50 @@ def mla_unabsorb_output(params, attn, *, cfg, dtype=torch.bfloat16):
     b, s, h = attn.shape[:3]
     o = _per_head_matmul(attn, params["w_uv"], dtype)
     return layers.dense(params["wo"], o.reshape(b, s, h * m.d_vhead), dtype=dtype)
+
+
+def init_latent_cache(cfg, batch, max_len, *, dtype, device):
+    """Zeroed dense latent cache ``{"c": (batch, max_len, d_latent +
+    d_rope)}``."""
+    m = cfg.mla
+    shape = (batch, max_len, m.d_latent + m.d_rope)
+    return {"c": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def mla_apply(
+    params,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    cfg,
+    positions: torch.Tensor,  # (B, S)
+    cache=None,
+    cache_len=None,
+    causal: bool = True,
+    dtype=torch.bfloat16,
+):
+    """Absorbed MLA over a dense latent cache, updated in place; returns
+    (y, cache).  Prefill and decode both attend through the contiguous
+    AMLA kernel (``ops.mla_decode``).  The expanded (non-absorbed) form the
+    reference uses without a cache is training-only and not ported."""
+    if cache is None:
+        raise NotImplementedError(
+            "mla_apply without a cache is the reference's expanded training "
+            "form, which is not ported yet"
+        )
+    if cache_len is None:
+        raise ValueError("a cache needs its cache_len")
+    b, s, _ = x.shape
+    c_full = mla_latents(params, x, cfg=cfg, positions=positions, dtype=dtype)
+    q_full = mla_absorbed_queries(params, x, cfg=cfg, positions=positions, dtype=dtype)
+    update_rows(cache["c"], c_full, cache_len)
+    attn = mla_attention(
+        q_full,
+        cache["c"],
+        d_v=cfg.mla.d_latent,
+        variant=cfg.attn_variant,
+        causal=causal,
+        scale=mla_scale(cfg),
+        kv_len=as_batch_vec(cache_len, b) + s,
+        q_offset=as_batch_vec(cache_len, b),
+    )  # (B, S, H, d_latent) fp32
+    return mla_unabsorb_output(params, attn, cfg=cfg, dtype=dtype), cache

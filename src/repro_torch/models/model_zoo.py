@@ -1,5 +1,6 @@
 """Model interface over the port's architectures (counterpart of
-``repro/models/model_zoo.py``: ``LanguageModel`` and its paged hooks)."""
+``repro/models/model_zoo.py``: ``LanguageModel`` with its dense-cache
+serving hooks and its paged hooks)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from repro_torch.models import transformer
 
 
 class LanguageModel:
-    """Decoder-only MLA family served over the paged cache."""
+    """Decoder-only attention stacks (GQA or MLA, global or sliding-window
+    layers, dense MLP), served over a dense or a paged cache."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -24,6 +26,39 @@ class LanguageModel:
         return transformer.lm_init(
             generator, self.cfg, device=dev, dtype=dtype or self.dtype
         )
+
+    def logits(self, params, hidden):
+        return transformer.lm_logits(params, hidden, cfg=self.cfg, dtype=self.dtype)
+
+    # -- serving: dense cache backend -------------------------------------- #
+    def init_cache(self, params, batch_size, max_len, dtype=None) -> list:
+        """Zeroed per-layer dense caches on the device of ``params``."""
+        return transformer.lm_cache_init(
+            self.cfg, batch_size, max_len, dtype=dtype or self.dtype,
+            device=params["embed"]["table"].device,
+        )
+
+    def prefill(self, params, cache, tokens, *, cache_len=None, last_pos=None):
+        """Prefill ``tokens (B, S)`` into ``cache`` (in place); returns the
+        logits ``(B, 1, V)`` at ``last_pos`` (default the last position),
+        so right-padded prompts still sample from their true last token."""
+        if cache_len is None:
+            cache_len = 0
+        hidden, cache = transformer.lm_apply(
+            params, tokens, cfg=self.cfg, cache=cache, cache_len=cache_len,
+            dtype=self.dtype,
+        )
+        pos = hidden.shape[1] - 1 if last_pos is None else int(last_pos)
+        return self.logits(params, hidden[:, pos : pos + 1]), cache
+
+    def decode_step(self, params, cache, tokens, cache_len):
+        """tokens: (B, Sq) new tokens at per-slot offsets ``cache_len``;
+        returns (logits (B, Sq, V), cache)."""
+        hidden, cache = transformer.lm_apply(
+            params, tokens, cfg=self.cfg, cache=cache, cache_len=cache_len,
+            dtype=self.dtype,
+        )
+        return self.logits(params, hidden), cache
 
     # -- serving: paged cache backend -------------------------------------- #
     def init_paged_cache(self, params, *, num_pages, page_size=None, dtype=None, spec=None):

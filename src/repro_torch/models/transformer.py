@@ -1,16 +1,24 @@
-"""Decoder-only MLA LM over the paged cache (counterpart of the paged
-backend of ``repro/models/transformer.py``).
+"""Decoder-only LM (counterpart of ``repro/models/transformer.py``): the
+dense-cache path (``lm_apply`` over per-layer caches, as the reference's
+``ServingSession`` drives it) and the paged MLA backend.
+
+Parameters are a dict: ``embed``/``unembed`` tables, ``final_norm``, and
+``layers``, a list of per-layer dicts (``ln1``, ``attn``, ``ln2``,
+``mlp``, and gemma2's ``post_ln1``/``post_ln2``) — the reference's scanned
+``groups`` unstacked, as ``per_layer_params`` does there (see
+:mod:`repro_torch.convert`).  A Python loop over that list takes the place
+of the reference's ``scan`` over layer groups.  Dense caches are a list
+with one dict per layer, updated in place.
+
+Layer kinds "global" and "local" (GQA or MLA attention, "local" with the
+config's sliding window) with a dense MLP are ported; recurrent, SSM and
+MoE layers raise ``NotImplementedError``.
 
 The paged path walks the layer stack host-side so each layer can (1)
 append its latent row(s) into the shared page pool and (2) attend through
 ``ops.mla_decode_paged`` with ONE decode schedule built per step (or per
 prefill chunk) and reused by every layer — all L layers share the block
 table and kv_len, so the (request, kv_block) work queue is identical.
-
-Parameters are a dict: ``embed``/``unembed`` tables, ``final_norm``, and
-``layers``, a list of per-layer dicts (``ln1``, ``attn``, ``ln2``,
-``mlp``) — the reference's scanned ``groups`` unstacked, as
-``per_layer_params`` does there (see :mod:`repro_torch.convert`).
 """
 
 from __future__ import annotations
@@ -23,8 +31,11 @@ import torch
 from repro_torch.kernels import decode_schedule as _sched
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.models.attention_layer import gqa_apply, gqa_init, init_kv_cache
 from repro_torch.models.mla_layer import (
+    init_latent_cache,
     mla_absorbed_queries,
+    mla_apply,
     mla_init,
     mla_latents,
     mla_scale,
@@ -41,16 +52,36 @@ def cfg_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def layer_init(gen, cfg, *, device, dtype):
-    """One MLA + dense-MLP layer (the kinds the paged path serves)."""
+def check_supported(cfg) -> None:
+    """The layer kinds and families the port builds: "global"/"local"
+    attention (GQA or MLA) with a dense MLP, in a decoder-only LM."""
+    kinds = set(cfg.layer_kinds())
+    if not kinds <= {"global", "local"}:
+        raise NotImplementedError(
+            f"config {cfg.name!r} has layer kinds {sorted(kinds)}; recurrent "
+            f"and SSM layers are not ported yet"
+        )
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"config {cfg.name!r} has a MoE MLP, which is not ported yet"
+        )
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
+
+
+def layer_init(gen, cfg, kind, *, device, dtype):
+    """One attention (GQA or MLA) + dense-MLP layer of ``kind``."""
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"{kind!r} layers are not ported yet")
+    kw = dict(device=device, dtype=dtype)
     p = {"ln1": layers.rmsnorm_init(cfg.d_model, device=device)}
-    p["attn"] = mla_init(gen, cfg, device=device, dtype=dtype)
-    if _has_mlp(cfg, "global"):
+    p["attn"] = mla_init(gen, cfg, **kw) if cfg.mla else gqa_init(gen, cfg, **kw)
+    if _has_mlp(cfg, kind):
         p["ln2"] = layers.rmsnorm_init(cfg.d_model, device=device)
-        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, **kw)
     if cfg.post_norms:
         p["post_ln1"] = layers.rmsnorm_init(cfg.d_model, device=device)
-        if _has_mlp(cfg, "global"):
+        if _has_mlp(cfg, kind):
             p["post_ln2"] = layers.rmsnorm_init(cfg.d_model, device=device)
     return p
 
@@ -58,7 +89,7 @@ def layer_init(gen, cfg, *, device, dtype):
 def lm_init(gen, cfg, *, device, dtype):
     """Random parameters, drawn tensor by tensor on ``device`` in ``dtype``
     (a full-width bf16 model is built on the card without an fp32 copy)."""
-    check_paged_compatible(cfg)
+    check_supported(cfg)
     kw = dict(device=device, dtype=dtype)
     params = {
         "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw),
@@ -66,12 +97,13 @@ def lm_init(gen, cfg, *, device, dtype):
     }
     if not cfg.tie_embeddings:
         params["unembed"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw)
-    params["layers"] = [layer_init(gen, cfg, **kw) for _ in range(cfg.n_layers)]
+    params["layers"] = [layer_init(gen, cfg, kind, **kw) for kind in cfg.layer_kinds()]
     return params
 
 
 def check_paged_compatible(cfg) -> None:
-    """Paged serving covers MLA attention-only stacks (the paper's regime)."""
+    """Paged serving covers MLA attention-only stacks (the paper's regime);
+    GQA and windowed stacks serve through the dense backend."""
     if cfg.mla is None:
         raise ValueError(
             f"config {cfg.name!r} has no MLA geometry — the paged cache "
@@ -84,19 +116,97 @@ def check_paged_compatible(cfg) -> None:
             f"paged serving needs an all-'global' attention stack; config "
             f"{cfg.name!r} has layer kinds {sorted(kinds)}"
         )
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"config {cfg.name!r} has a MoE MLP, which is not ported yet"
-        )
+    check_supported(cfg)
 
 
-def paged_embed(params, tokens, *, cfg):
+def embed_tokens(params, tokens, *, cfg):
     x = layers.embed(params["embed"], tokens, dtype=cfg_dtype(cfg))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
+# --------------------------------------------------------------------------- #
+# Dense-cache path
+# --------------------------------------------------------------------------- #
+def layer_cache_init(cfg, kind, batch, max_len, *, dtype, device):
+    """The dense cache of one layer: a latent cache for MLA, else K/V.
+    Local layers keep a linear ``max_len`` cache, as the reference does."""
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"{kind!r} layer caches are not ported yet")
+    if cfg.mla:
+        return init_latent_cache(cfg, batch, max_len, dtype=dtype, device=device)
+    return init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
+
+
+def lm_cache_init(cfg, batch, max_len, *, dtype, device) -> list:
+    """One zeroed dense cache per layer."""
+    return [
+        layer_cache_init(cfg, kind, batch, max_len, dtype=dtype, device=device)
+        for kind in cfg.layer_kinds()
+    ]
+
+
+def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
+                dtype=torch.bfloat16):
+    """Pre-norm residual block.  Returns (x, cache); the cache is updated
+    in place."""
+    if kind not in ("global", "local"):
+        raise NotImplementedError(f"{kind!r} layers are not ported yet")
+    h = layers.rmsnorm(params["ln1"], x, eps=cfg.norm_eps)
+    if cfg.mla:
+        y, cache = mla_apply(params["attn"], h, cfg=cfg, positions=positions,
+                             cache=cache, cache_len=cache_len, dtype=dtype)
+    else:
+        window = cfg.window if kind == "local" else None
+        y, cache = gqa_apply(params["attn"], h, cfg=cfg, positions=positions,
+                             window=window, cache=cache, cache_len=cache_len,
+                             dtype=dtype)
+    if cfg.post_norms:
+        y = layers.rmsnorm(params["post_ln1"], y, eps=cfg.norm_eps)
+    x = x + y
+    if _has_mlp(cfg, kind):
+        h = layers.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
+        y = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype)
+        if cfg.post_norms:
+            y = layers.rmsnorm(params["post_ln2"], y, eps=cfg.norm_eps)
+        x = x + y
+    return x, cache
+
+
+def lm_apply(params, tokens, *, cfg, positions=None, cache=None, cache_len=None,
+             dtype=None):
+    """Returns (hidden (B, S, d) after the final norm, cache).
+    Unembedding is the caller's job (:func:`lm_logits`).  ``cache_len``
+    (scalar or (B,), host array or tensor) is where the new tokens go."""
+    b, s = tokens.shape
+    dtype = dtype or cfg_dtype(cfg)
+    x = embed_tokens(params, tokens, cfg=cfg).to(dtype)
+    if positions is None:
+        base = torch.as_tensor(cache_len if cache_len is not None else 0, device=x.device)
+        steps = torch.arange(s, device=x.device)[None, :]
+        positions = (base.reshape(-1, 1).to(torch.int64) + steps).expand(b, s)
+    for l, (p_l, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
+        x, _ = layer_apply(
+            p_l, x, cfg=cfg, kind=kind, positions=positions,
+            cache=cache[l] if cache is not None else None, cache_len=cache_len,
+            dtype=dtype,
+        )
+    x = layers.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    return x, cache
+
+
+def lm_logits(params, hidden, *, cfg, dtype=None):
+    """fp32 vocab logits of ``hidden`` (final-softcapped where the config
+    says so)."""
+    table = params.get("unembed", params["embed"])
+    return layers.unembed(table, hidden, dtype=dtype or cfg_dtype(cfg),
+                          softcap=cfg.final_softcap)
+
+
+# --------------------------------------------------------------------------- #
+# Paged backend
+# --------------------------------------------------------------------------- #
 def paged_attn_inputs(p_l, x, positions, *, cfg):
     """Pre-attention half of one layer: latent rows + absorbed queries."""
     dtype = cfg_dtype(cfg)
@@ -125,8 +235,7 @@ def paged_layer_post(p_l, x, attn, *, cfg):
 def paged_logits(params, x, *, cfg):
     """Final norm + fp32 unembedding of ``x (B, S, d)``."""
     x = layers.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    table = params.get("unembed", params["embed"])
-    return layers.unembed(table, x, dtype=cfg_dtype(cfg), softcap=cfg.final_softcap)
+    return lm_logits(params, x, cfg=cfg)
 
 
 def _paged_attend(q, cache, layer, bt, kv_len, *, cfg, block_k, schedule,
@@ -204,7 +313,7 @@ def lm_prefill_paged(
         bt = torch.as_tensor(bt, device=dev)
         kv_len = torch.as_tensor(kv_len, device=dev)
         q_off = torch.full((1,), abs0, dtype=torch.int32, device=dev)
-        x = paged_embed(params, torch.as_tensor(tok, device=dev), cfg=cfg)
+        x = embed_tokens(params, torch.as_tensor(tok, device=dev), cfg=cfg)
         for l, p_l in enumerate(params["layers"]):
             lat, q = paged_attn_inputs(p_l, x, positions, cfg=cfg)
             cache.write_layer(l, plan, lat[0, :valid])
@@ -296,7 +405,7 @@ def lm_decode_step_paged(
     offs = torch.as_tensor(offs, device=dev)
     pos = torch.as_tensor(positions, device=dev)
     q_positions = pos if s > 1 else None
-    x = paged_embed(params, torch.as_tensor(tokens, device=dev), cfg=cfg)
+    x = embed_tokens(params, torch.as_tensor(tokens, device=dev), cfg=cfg)
     for l, p_l in enumerate(params["layers"]):
         lat, q = paged_attn_inputs(p_l, x, pos, cfg=cfg)
         cache.write_layer_tokens(l, pids, offs, lat.reshape(len(rids) * s, -1))

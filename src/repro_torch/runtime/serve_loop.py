@@ -1,10 +1,16 @@
-"""Paged serving session (counterpart of the core of
-``repro/runtime/serve_loop.PagedServingSession``).
+"""Serving sessions (counterpart of ``repro/runtime/serve_loop.py``'s
+``ServingSession`` and the core of its ``PagedServingSession``).
 
-The same greedy ``add_request`` / ``step`` / ``finish`` surface as the
-reference, over a :class:`~repro_torch.runtime.kv_cache.LayeredPagedKVCache`
-— one block table shared by all L layers — with decode through
-``ops.mla_decode_paged`` via ``models.transformer.lm_decode_step_paged``:
+:class:`ServingSession` is the dense backend: a fixed batch of decode
+slots, each with ``max_len`` rows of every layer's cache; a new request is
+prefilled into a free slot and every ``step`` advances all slots one
+greedy token.  GQA layers attend through K6/K7, MLA layers through K4.
+
+:class:`PagedServingSession` has the same greedy ``add_request`` /
+``step`` / ``finish`` surface over a
+:class:`~repro_torch.runtime.kv_cache.LayeredPagedKVCache` — one block
+table shared by all L layers — with decode through ``ops.mla_decode_paged``
+via ``models.transformer.lm_decode_step_paged``:
 
 * admission is by free-page count; a prompt prefills **into pages** in
   fixed chunks of ``prefill_chunk`` tokens before ``add_request`` returns
@@ -24,6 +30,130 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+class ServingSession:
+    """Single-host batched serving with slot reuse (continuous-batching-lite).
+
+    A fixed batch of decode slots; each new request is prefilled into a
+    free slot (ragged lengths handled by per-slot cache_len), every
+    ``step()`` advances all slots one token (free slots decode a dummy
+    token into their own rows, which the next prefill there clears), and
+    finished requests free their slot for the next queued prompt.  Greedy
+    sampling.
+    """
+
+    def __init__(self, model, params, *, batch_size: int, max_len: int):
+        self.model = model
+        self.params = params
+        self.batch = batch_size
+        self.max_len = max_len
+        self.device = params["embed"]["table"].device
+        self.cache = model.init_cache(params, batch_size, max_len)
+        self.cache_len = np.zeros((batch_size,), np.int32)
+        self.last_token = np.zeros((batch_size,), np.int32)
+        self.slot_rid: list[int | None] = [None] * batch_size
+        self.outputs: dict[int, list[int]] = {}
+        self._next_id = 0
+        # Bucketed prefill: prompts are right-padded to the next power of
+        # two, so a stream of ragged prompt lengths runs O(log max_len)
+        # prefill shapes (the reference's compile count).  Only attention
+        # stacks tolerate right-padding: causal masking keeps pad tokens
+        # invisible to real positions.
+        kinds = model.cfg.layer_kinds()
+        self._bucket_prompts = bool(kinds) and all(k in ("global", "local") for k in kinds)
+        self._prefill_shapes: set[int] = set()
+
+    @property
+    def active_mask(self) -> np.ndarray:
+        return np.asarray([r is not None for r in self.slot_rid])
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill shapes run (the reference's jit compiles)."""
+        return len(self._prefill_shapes)
+
+    def _bucket_len(self, plen: int) -> int:
+        if not self._bucket_prompts:
+            return plen
+        blen = 1 << max(plen - 1, 0).bit_length()
+        return max(min(blen, self.max_len), plen)
+
+    def add_request(self, prompt_tokens) -> int | None:
+        """Prefill a prompt into a free slot; returns request id or None."""
+        prompt_tokens = list(map(int, prompt_tokens))
+        plen = len(prompt_tokens)
+        if plen < 1:
+            raise ValueError(
+                "add_request needs at least one prompt token (an empty "
+                "prompt has no prefill position to decode from)"
+            )
+        if plen > self.max_len:
+            raise ValueError(
+                f"prompt of {plen} tokens exceeds this session's "
+                f"max_len={self.max_len}; raise max_len or truncate the "
+                "prompt (slots reserve exactly max_len cache rows)"
+            )
+        if None not in self.slot_rid:
+            return None
+        slot = self.slot_rid.index(None)
+        # Recycled-slot invariant: finish() zeroes the slot's decode state,
+        # so a reused slot must look factory-fresh here — decoding from a
+        # stale cache_len/last_token would splice the previous request's
+        # context into this one.
+        assert self.cache_len[slot] == 0 and self.last_token[slot] == 0, (
+            f"slot {slot} reused with stale state: cache_len="
+            f"{self.cache_len[slot]}, last_token={self.last_token[slot]}"
+        )
+        rid = self._next_id
+        self._next_id += 1
+        blen = self._bucket_len(plen)
+        padded = prompt_tokens + [0] * (blen - plen)
+        prompt = torch.tensor([padded], dtype=torch.int64, device=self.device)
+        # The prefill writes the slot's rows of every layer's cache in place,
+        # through batch-1 views, cleared first: the reference prefills a
+        # fresh zeroed batch-1 cache and copies it into the slot
+        # (_write_slot).  Pad rows beyond plen are causally invisible and
+        # overwritten by the first decode steps (cache_len = plen masks them
+        # meanwhile).
+        slot_cache = [{k: t[slot : slot + 1] for k, t in c.items()} for c in self.cache]
+        for c in slot_cache:
+            for t in c.values():
+                t.zero_()
+        self._prefill_shapes.add(blen)
+        logits, _ = self.model.prefill(
+            self.params, slot_cache, prompt, cache_len=0, last_pos=plen - 1
+        )
+        self.cache_len[slot] = plen
+        first = int(torch.argmax(logits[0, -1]))
+        self.last_token[slot] = first
+        self.slot_rid[slot] = rid
+        self.outputs[rid] = [first]
+        return rid
+
+    def step(self) -> None:
+        """One decode step for every slot (tokens kept for active ones)."""
+        if not self.active_mask.any():
+            return
+        tokens = torch.as_tensor(self.last_token, device=self.device).to(torch.int64)
+        logits, self.cache = self.model.decode_step(
+            self.params, self.cache, tokens[:, None], self.cache_len.copy()
+        )
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(np.int32)
+        act = self.active_mask
+        for slot, rid in enumerate(self.slot_rid):
+            if rid is not None:
+                self.outputs[rid].append(int(nxt[slot]))
+                self.last_token[slot] = nxt[slot]
+        self.cache_len = self.cache_len + act.astype(np.int32)
+
+    def finish(self, rid: int) -> list[int]:
+        slot = self.slot_rid.index(rid)
+        self.slot_rid[slot] = None
+        self.cache_len[slot] = 0
+        # A reused slot must never decode from the previous request's token.
+        self.last_token[slot] = 0
+        return self.outputs.pop(rid)
 
 
 def _not_ported(what: str):

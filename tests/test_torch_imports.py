@@ -46,3 +46,15 @@ def test_sources_do_not_import_jax_or_repro(path):
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
     assert not pat.search(text), path
 
+
+def test_dense_serve_without_cuda_raises():
+    """``launch.serve --cache dense`` defaults to the card and raises where
+    there is none (CUDA hidden here), unless ``--device cpu`` is given."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--cache", "dense", "--smoke",
+         "--requests", "1", "--gen-len", "1"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert "needs CUDA" in out.stderr

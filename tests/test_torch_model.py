@@ -85,7 +85,7 @@ def _walk(side, params, cache, tokens, positions, q_offset, rids, write):
         x = ref_tf._paged_embed(params["embed"], jnp.asarray(tokens), cfg=REF_CFG)
         layers = ref_tf.per_layer_params(params, REF_CFG)
     else:
-        x = tf.paged_embed(params, torch.from_numpy(tokens), cfg=CFG)
+        x = tf.embed_tokens(params, torch.from_numpy(tokens), cfg=CFG)
         layers = params["layers"]
     bt, kv = cache.block_table(rids, width=NUM_PAGES)
     outs = []

@@ -160,7 +160,9 @@ def test_admission_validation_and_unported_options(models):
 
 
 def test_launch_serve_cli_on_cpu(capsys):
-    serve.main(["--smoke", "--requests", "3", "--gen-len", "3", "--device", "cpu"])
+    # --cache dense is the default, as in the reference; this is the paged run
+    serve.main(["--cache", "paged", "--smoke", "--requests", "3", "--gen-len", "3",
+                "--device", "cpu"])
     out = capsys.readouterr().out
     assert "served 3 requests, 9 decode tokens" in out
     assert "teardown sweep: 64 pages free (clean)" in out
