@@ -9,7 +9,9 @@ root) and exits nonzero on any failure:
    version on the same inputs, bf16 and fp32, ``amla`` and ``base``:
    the paged AMLA decode kernel (K2) and the split-KV combine (K3) at full
    width (Dk 576, Dv 512, page 128, block_k 512) for a decode step and a
-   prefill chunk; the GQA decode (K6) and flash prefill (K7) kernels at
+   prefill chunk; K2 over int8 pages (K2-int8), the shared-prefix group
+   kernel (K2') with the heterogeneous combine, and the padded-grid kernel
+   (K5); the GQA decode (K6) and flash prefill (K7) kernels at
    the head geometries of gemma2-2b (8/4 x 256, window 4096, softcap 50),
    qwen2.5-3b (16/2 x 128) and qwen1.5-0.5b (16/16 x 64); the contiguous
    MLA decode (K4) at 128 heads for a decode step and a 512-token prefill.
@@ -18,8 +20,8 @@ root) and exits nonzero on any failure:
    bound, its plain version and, where one exists, a single PyTorch call.
 3. **Small references**: the smoke-size models (fp32) through the kernels
    on the card and the plain versions on the CPU — deepseek-v2-mla over
-   the paged path, gemma2-2b and deepseek-v2-mla through the dense
-   ``ServingSession`` — must agree (logits within 2e-3, same tokens).
+   the paged path (bf16 pages; int8 pages with a forked family), gemma2-2b
+   and deepseek-v2-mla through the dense ``ServingSession`` — must agree.
 4. **Dense serve phase, gemma2-2b** at its published widths (26 layers,
    random bf16 weights from a seed) through ``ServingSession(batch 4,
    max_len 8192)`` and the ``launch/serve`` stream loop: prompts of 5,
@@ -29,9 +31,18 @@ root) and exits nonzero on any failure:
    (60 layers) through ``PagedServingSession``: 4 ragged prompts, 16
    greedy tokens each, ``num_splits=2``; every prefill chunk and decode
    step of every layer must go through K2 and K3.
-6. **Dense serve phase, deepseek-v2-mla**: the same weights and prompts
+6. **Int8 shared-prefix serve phase**: the same weights through
+   ``PagedServingSession(kv_dtype="int8", prefix_sharing=True)``: an
+   1100-token system prompt, three ``admit_with_prefix`` children, a
+   513-token loner, 16 greedy steps; every decode step of every layer runs
+   the group-prefix kernel (K2'), the int8 queue kernel (K2-int8) and the
+   combine, with exact launch counts.
+7. **Dense serve phase, deepseek-v2-mla**: the same weights and prompts
    through ``ServingSession(batch 4, max_len 2048)``; every prefill and
    decode step of every layer must go through K4.
+8. **Padded decode phase**: ``PagedDecodeSession(scheduler="padded")`` at
+   full MLA attention width, 4 synthetic prompts + 16 steps through K5,
+   held against the same inputs through ``scheduler="queue"``.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments.
 """
@@ -137,18 +148,17 @@ def prefill_positions(kv_len, g, heads=128):
 
 
 def run_k2(case, variant, plain):
+    """K2 (K2-int8 when the case has scales) or its plain version."""
     from repro_torch.kernels import mla_decode_paged as mp
 
-    fn = mp._queue_rows_plain if plain else mp.mla_decode_paged_queue_rows
     kw = dict(
         d_v=DV, variant=variant, scale=1.0 / math.sqrt(192), block_k=BLOCK_K,
         num_dest_slots=case["sched"].num_dest_slots, softcap=None,
     )
+    args = (case["q"], case["pages"], case["bt"], case["kv"], case["q_pos"])
     if plain:
-        return fn(case["q"], case["pages"], case["bt"], case["kv"], case["q_pos"],
-                  case["items"], **kw)
-    return fn(case["q"], case["pages"], case["bt"], case["kv"], case["q_pos"],
-              *case["items"], **kw)
+        return mp._queue_rows_plain(*args, case["items"], case.get("scales"), **kw)
+    return mp.mla_decode_paged_queue_rows(*args, *case["items"], case.get("scales"), **kw)
 
 
 def run_k3(case, o_part, lse, plain):
@@ -526,6 +536,265 @@ def dense_kernel_phase(flush):
 
 
 # --------------------------------------------------------------------------- #
+# third-slice kernel phase: K2-int8, K2′ (+ the hetero K3), K5
+# --------------------------------------------------------------------------- #
+
+
+def int8_case(seed, kv_lens, g, dtype, num_splits, q_pos_fn):
+    """``make_case`` with the pool quantized by the cache's own write path
+    (symmetric per-row int8 + fp32 scales)."""
+    from repro_torch.runtime.kv_cache import _quantize_rows
+
+    case = make_case(seed, kv_lens, g, torch.float32, num_splits, q_pos_fn)
+    case["pages"], case["scales"] = _quantize_rows(case["pages"])
+    case["q"] = case["q"].to(dtype)
+    return case
+
+
+def family_case(seed, pool_dtype, dtype, steps=16):
+    """The int8 serve phase's decode batch after ``steps`` steps, on the
+    card: a 1100-row prefix forked three times (suffixes 7, 40, 300), every
+    family member ``steps`` rows longer, a 513-row loner (+ ``steps``).
+    The family shares 2 complete 512-row blocks: one group of 4."""
+    from repro_torch.kernels import decode_schedule as sched
+    from repro_torch.runtime.kv_cache import PagedKVCache
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    rows = lambda n: torch.randn((n, DK), generator=gen, device="cuda")
+    kv = PagedKVCache(num_pages=48, page_size=PAGE, width=DK, dtype=pool_dtype, device="cuda")
+    kv.alloc(0)
+    kv.append(0, rows(1100))
+    for rid, n in ((1, 7), (2, 40), (3, 300)):
+        kv.fork(0, rid)
+        kv.append(rid, rows(n))
+    kv.alloc(4)
+    kv.append(4, rows(513))
+    for rid in range(5):
+        kv.append(rid, rows(steps))
+    rids = list(range(5))
+    bt, kv_len = kv.block_table(rids, width=kv.num_pages)
+    ps = sched.build_prefix_schedule(kv_len, bt, page_size=PAGE, block_k=BLOCK_K, num_splits=2)
+    if ps.num_groups != 1 or ps.groups.gmax != 4:
+        raise SystemExit(f"family case: expected one group of 4, got {ps.groups}")
+    q = torch.randn((5, 128, DK), generator=gen, device="cuda").to(dtype)
+    dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+    pos = np.repeat((kv_len - 1)[:, None], 128, 1).astype(np.int32)
+    g = ps.groups
+    return dict(kv=kv, q=q, bt=dev(bt), kv_host=kv_len, kv_len=dev(kv_len), q_pos=dev(pos), ps=ps,
+                member=dev(g.group_member), rep=dev(g.group_rep), prefix_lens=dev(ps.prefix_lens),
+                pitems=[dev(a) for a in ps.prefix.prefetch_arrays()],
+                sitems=[dev(a) for a in ps.suffix.prefetch_arrays()],
+                hetero=[dev(a) for a in ps.hetero_dest_tables()])
+
+
+def run_group_prefix(fc, variant, plain):
+    """K2′ (or its plain version) over the family's shared blocks."""
+    from repro_torch.kernels import mla_decode_paged as mp
+
+    kw = dict(d_v=DV, variant=variant, scale=1.0 / math.sqrt(192), block_k=BLOCK_K,
+              num_dest_slots=fc["ps"].prefix.num_dest_slots, softcap=None)
+    args = (fc["q"], fc["kv"].pages, fc["bt"], fc["q_pos"], fc["member"], fc["rep"],
+            fc["prefix_lens"])
+    if plain:
+        return mp._group_prefix_plain(*args, fc["pitems"], fc["kv"].scales, **kw)
+    return mp.mla_decode_paged_group_prefix(*args, *fc["pitems"], fc["kv"].scales, **kw)
+
+
+def run_suffix(fc, variant, plain):
+    """The suffix pass of the same step: K2 (K2-int8 on an int8 pool)."""
+    case = dict(q=fc["q"], pages=fc["kv"].pages, bt=fc["bt"], kv=fc["kv_len"],
+                q_pos=fc["q_pos"], items=fc["sitems"], sched=fc["ps"].suffix,
+                scales=fc["kv"].scales)
+    return run_k2(case, variant, plain)
+
+
+def run_k5(case, variant, plain):
+    from repro_torch.kernels import mla_decode_paged as mp
+
+    fn = mp._padded_rows_plain if plain else mp.mla_decode_paged_rows
+    return fn(case["q"], case["pages"], case["bt"], case["kv"], case["q_pos"], d_v=DV,
+              variant=variant, scale=1.0 / math.sqrt(192), softcap=None)
+
+
+def padded_case(seed, kv_lens, dtype, width):
+    case = make_case(seed, kv_lens, 128, dtype, 1, decode_positions)
+    case["bt"] = torch.nn.functional.pad(case["bt"], (0, width - case["bt"].shape[1]))
+    return case
+
+
+def rows_bound(q, rows, row_bytes, out_bytes, keys):
+    """Least ms for a paged MLA call: q once, ``rows`` latent rows of
+    ``row_bytes`` once, the output once; 2 (Dk + Dv) operations per
+    (query row, visible key)."""
+    nbytes = q.numel() * q.element_size() + rows * row_bytes + out_bytes
+    return bound(nbytes, 2.0 * (DK + DV) * keys, q.dtype)
+
+
+def sdpa_rows(q, c, lens):
+    """One scaled_dot_product_attention call over contiguous ``c (B, S,
+    Dk)`` (``lens`` rows live per request, all visible to every row): the
+    library yardstick, timed only."""
+    kpos = torch.arange(c.shape[1], device="cuda")
+    mask = kpos[None, None, None, :] < torch.as_tensor(lens, device="cuda")[:, None, None, None]
+    f = torch.nn.functional.scaled_dot_product_attention
+    qq, k, v = q[:, None], c[:, None], c[:, None, :, :DV]
+    return lambda: f(qq, k, v, attn_mask=mask, scale=1.0 / math.sqrt(192))
+
+
+def dequant_rows(kv, rid, lo, hi, dtype):
+    """Rows [lo, hi) of ``rid`` dequantized to ``dtype`` (contiguous)."""
+    c = kv.gather_contiguous(rid)[lo:hi]
+    return c.to(dtype)
+
+
+def slice3_kernel_phase(flush):
+    """Hold K2-int8, K2′ (+ the hetero combine) and K5 against their plain
+    versions on the card, hold prefix sharing against the unshared queue,
+    then time them at the serve phases' shapes."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import ops
+
+    log("== kernel phase: K2-int8 (int8 pages), K2' (shared-prefix groups) + K3-hetero, "
+        "K5 (padded grid) vs their plain PyTorch versions ==")
+    worst = {}
+
+    def note(key, err, tol, what):
+        worst[key] = max(worst.get(key, 0.0), err)
+        log(f"  {what}: max |kernel - plain| {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            raise SystemExit(f"slice-3 kernel phase: {what} exceeds tol {tol}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for variant in ("amla", "base"):
+            tol = TOL[dtype, variant]
+            tag = f"{str(dtype)[6:]} {variant}"
+            # K2-int8 (+ K3): decode and prefill-chunk shapes, kv_len 0
+            for name, lens, g, pos_fn, ns in (
+                ("decode", [0, 1, 200, 513, 1116, 4096], 128, decode_positions, 2),
+                ("prefill", [1100], 4096, prefill_positions, 1),
+            ):
+                case = int8_case(7, lens, g, dtype, ns, pos_fn)
+                o_k, lse_k = run_k2(case, variant, plain=False)
+                o_p, lse_p = run_k2(case, variant, plain=True)
+                out_k = run_k3(case, o_k, lse_k, plain=False)
+                out_p = run_k3(case, o_p, lse_p, plain=True)
+                torch.cuda.synchronize()
+                live = sorted(set(case["sched"].item_dest[case["sched"].item_valid == 1].tolist()))
+                fin = torch.isfinite(lse_p[live])
+                if not torch.equal(fin, torch.isfinite(lse_k[live])):
+                    raise SystemExit(f"K2-int8 {name}: empty-row lse pattern differs")
+                err = max((o_k[live] - o_p[live]).abs().max().item(),
+                          (lse_k[live][fin] - lse_p[live][fin]).abs().max().item(),
+                          (out_k - out_p).abs().max().item())
+                zero = [i for i, l in enumerate(lens) if l == 0]
+                if zero and out_k[zero].abs().max().item() != 0.0:
+                    raise SystemExit("K2-int8: kv_len == 0 rows are not exact zeros")
+                note(("K2-int8", dtype, variant), err, tol,
+                     f"K2-int8 {name} G={g} kv={lens} {tag}")
+            # K2' + the suffix pass + K3-hetero, bf16 and int8 pools
+            for pool in (torch.bfloat16, torch.int8):
+                fc = family_case(8, pool, dtype)
+                o_k, lse_k = run_group_prefix(fc, variant, plain=False)
+                o_p, lse_p = run_group_prefix(fc, variant, plain=True)
+                so_k, slse_k = run_suffix(fc, variant, plain=False)
+                so_p, slse_p = run_suffix(fc, variant, plain=True)
+                out_k = mc.combine_hetero_partials([so_k, o_k], [slse_k, lse_k], *fc["hetero"])
+                out_p = mc._combine_plain(torch.cat([so_p, o_p]), torch.cat([slse_p, lse_p]),
+                                          *fc["hetero"])
+                torch.cuda.synchronize()
+                err = max((o_k - o_p).abs().max().item(), (lse_k - lse_p).abs().max().item(),
+                          (out_k - out_p).abs().max().item())
+                if not torch.isfinite(out_k).all():
+                    raise SystemExit("K2' + K3-hetero: non-finite output")
+                note(("K2'", dtype, variant), err, 2e-3 if dtype == torch.float32 else tol,
+                     f"K2' + K3-hetero {str(pool)[6:]} pool, group of 4 (G=512 stacked), {tag}")
+                # prefix sharing against the unshared queue, through ops
+                args = (fc["q"][:, None], fc["kv"].pages, fc["bt"], fc["kv_host"])
+                kw = dict(kv_scales=fc["kv"].scales, d_v=DV, variant=variant,
+                          scale=1.0 / math.sqrt(192), compute_dtype=dtype)
+                # two splits split these requests where the prefix ends, so
+                # the unshared call takes one: a different partition
+                shared = ops.mla_decode_paged(*args, prefix_sharing=True, num_splits=2, **kw)
+                unshared = ops.mla_decode_paged(*args, num_splits=1, **kw)
+                err = (shared - unshared).abs().max().item()
+                note(("shared-vs-unshared", dtype, variant), err,
+                     2e-3 if dtype == torch.float32 else tol,
+                     f"prefix_sharing=True vs unshared on the card, {str(pool)[6:]} pool, {tag}")
+                del fc
+            # K5: ragged, kv_len 0, a fragmented 24-column table
+            case = padded_case(9, [0, 37, 300, 513, 1100], dtype, 24)
+            got, want = run_k5(case, variant, plain=False), run_k5(case, variant, plain=True)
+            torch.cuda.synchronize()
+            if got[0].abs().max().item() != 0.0 or not torch.isfinite(got).all():
+                raise SystemExit("K5: kv_len == 0 rows are not exact zeros, or non-finite")
+            note(("K5", dtype, variant), (got - want).abs().max().item(), tol,
+                 f"K5 decode kv={case['kv_host'].tolist()} W=24 {tag}")
+            torch.cuda.empty_cache()
+
+    # Timing, bf16 amla, at the serve phases' shapes.
+    rows = {}
+    bf = torch.bfloat16
+    fc = family_case(10, torch.int8, bf)
+    ps = fc["ps"]
+    # K2-int8 at the int8 phase's suffix pass
+    t = time_cuda(lambda: run_suffix(fc, "amla", plain=False), 20, flush)
+    tp = time_cuda(lambda: run_suffix(fc, "amla", plain=True), 5, flush)
+    start = ps.start_blocks * BLOCK_K
+    lens = np.maximum(fc["kv_host"] - start, 0)
+    live_slots = int((ps.suffix.n_splits).sum())
+    b, by = rows_bound(fc["q"], int(lens.sum()), DK + 4, live_slots * 128 * (DV + 1) * 4,
+                       128 * float(lens.sum()))
+    c = torch.stack([torch.nn.functional.pad(
+        dequant_rows(fc["kv"], r, int(start[r]), int(fc["kv_host"][r]), bf),
+        (0, 0, 0, int(lens.max()) - int(lens[r]))) for r in range(5)])
+    tlib = time_cuda(sdpa_rows(fc["q"], c, lens), 20, flush)
+    rows["K2-int8"] = (t, tp, b, by, tlib)
+    log(f"  time K2-int8 int8 serve decode suffix pass (bf16, suffix rows {lens.tolist()}, "
+        f"2 splits): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA on a "
+        f"dequantized contiguous copy {tlib:.4f} ms)")
+    # K2' at the same step's prefix pass
+    t = time_cuda(lambda: run_group_prefix(fc, "amla", plain=False), 20, flush)
+    tp = time_cuda(lambda: run_group_prefix(fc, "amla", plain=True), 5, flush)
+    plen = int(ps.prefix_lens[0])
+    qg = fc["q"][ps.groups.group_member[0]].reshape(1, 4 * 128, DK)
+    b, by = rows_bound(qg, plen, DK + 4, 4 * 128 * (DV + 1) * 4, 4 * 128 * float(plen))
+    c = dequant_rows(fc["kv"], 0, 0, plen, bf)[None]
+    tlib = time_cuda(sdpa_rows(qg, c, [plen]), 20, flush)
+    rows["K2'"] = (t, tp, b, by, tlib)
+    log(f"  time K2' int8 serve decode prefix pass (bf16, 1 group of 4 = 512 stacked rows, "
+        f"{plen} shared rows): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA "
+        f"on a dequantized contiguous copy {tlib:.4f} ms)")
+    del fc, c
+    # K2-int8 at PR 12's K2 decode shape, beside K2 on the same bf16 rows
+    case = int8_case(11, [37 + 16, 300 + 16, 513 + 16, 1100 + 16], 128, bf, 2,
+                     lambda l, g: np.full((g,), l - 1))
+    t = time_cuda(lambda: run_k2(case, "amla", plain=False), 20, flush)
+    b, by = rows_bound(case["q"], int(case["kv_host"].sum()), DK + 4,
+                       case["sched"].num_dest_slots * 128 * (DV + 1) * 4,
+                       128 * float(case["kv_host"].sum()))
+    rows["K2-int8 at the K2 decode shape"] = (t, None, b, by, None)
+    log(f"  time K2-int8 at the K2 decode shape (bf16, kv={case['kv_host'].tolist()}, 2 "
+        f"splits): {t:.4f} ms (bound {b:.5f} ms by {by})")
+    # K5 at the padded phase's shape
+    case = padded_case(12, [37 + 16, 300 + 16, 513 + 16, 1100 + 16], bf, 24)
+    case["q_pos"] = torch.as_tensor(np.repeat((case["kv_host"] - 1)[:, None], 128, 1),
+                                    dtype=torch.int32, device="cuda")
+    case["q_pos_host"] = np.repeat((case["kv_host"] - 1)[:, None], 128, 1)
+    t = time_cuda(lambda: run_k5(case, "amla", plain=False), 20, flush)
+    tp = time_cuda(lambda: run_k5(case, "amla", plain=True), 5, flush)
+    kvs = float(case["kv_host"].sum())
+    b, by = rows_bound(case["q"], int(kvs), 2 * DK, 4 * 128 * DV * 4, 128 * kvs)
+    tlib = time_cuda(sdpa_call(case), 20, flush)
+    rows["K5"] = (t, tp, b, by, tlib)
+    log(f"  time K5 padded decode (bf16, kv={case['kv_host'].tolist()}, W=24): {t:.4f} ms "
+        f"(bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA on a contiguous copy "
+        f"{tlib:.4f} ms)")
+    for key in sorted({k[0] for k in worst}):
+        log(f"  max |kernel - plain| {key}: {max(v for k, v in worst.items() if k[0] == key):.3e}")
+    return worst, rows
+
+
+# --------------------------------------------------------------------------- #
 # serve phase
 # --------------------------------------------------------------------------- #
 
@@ -595,6 +864,197 @@ def perturbed(tree, gen, rel=2e-7):
     if not tree.is_floating_point():
         return tree
     return tree * (1 + rel * torch.randn(tree.shape, generator=gen, dtype=tree.dtype))
+
+
+def int8_prefix_logits(cfg, model, params, forced=None):
+    """The smoke model (fp32) over an int8 paged cache with a forked
+    family: a 69-token parent (2 complete 32-row blocks), two children
+    admitted at its full prefix with suffixes of 7 and 11 tokens, then 6
+    decode steps with prefix sharing (group-prefix kernel + int8 queue
+    kernel in every layer).  Returns every call's logits (on the CPU) and
+    the greedy picks; ``forced`` feeds given picks instead."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.kv_cache import CacheSpec
+
+    rng = np.random.default_rng(2)
+    parent = rng.integers(2, cfg.vocab_size, size=69).tolist()
+    suffixes = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (7, 11)]
+    cache = model.init_paged_cache(params, num_pages=48, page_size=16, spec=CacheSpec("int8"))
+    kw = dict(cfg=cfg, cache=cache, block_k=32, compute_dtype=torch.float32, table_width=48)
+    seen, picks = [], []
+    cache.alloc(0)
+    seen.append(tf.lm_prefill_paged(params, parent, rid=0, chunk=16, **kw).float().cpu())
+    for rid, suf in enumerate(suffixes, start=1):
+        cache.fork(0, rid, len(parent))
+        seen.append(tf.lm_prefill_paged(params, suf, rid=rid, start_pos=len(parent), chunk=16,
+                                        **kw).float().cpu())
+    last = [int(torch.argmax(x[0])) for x in seen]
+    for i in range(6):
+        if forced is not None:
+            last = forced[i]
+        picks.append(last)
+        out = tf.lm_decode_step_paged(params, np.asarray(last)[:, None], rids=[0, 1, 2],
+                                      num_splits=2, prefix_sharing=True, **kw)
+        seen.append(out[:, 0].float().cpu())
+        last = torch.argmax(seen[-1], dim=-1).tolist()
+    return seen, picks
+
+
+def small_int8_prefix_check():
+    """The smoke model through int8 pages and shared-prefix groups, on the
+    card and on the CPU, same weights and tokens (the CPU's greedy picks
+    fed to both): logits as close as the CPU path is to itself under
+    fp32-sized weight noise.  Quantization rounds each latent to an int8
+    step, so where the card's and the CPU's fp32 latents differ in the last
+    bit a code can land one step apart; the tolerance is therefore the
+    dense check's: 4x the CPU path's spread on weights perturbed by 2e-7
+    relative (three seeds), never below 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("deepseek-v2-mla", smoke=True)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator("cpu").manual_seed(3), "cpu")
+    diff = lambda a, b: max((x - y).abs().max().item() for x, y in zip(a, b))
+    cpu, picks = int8_prefix_logits(cfg, model, p_cpu)
+    card, _ = int8_prefix_logits(cfg, model, to_device(p_cpu, "cuda"), forced=picks)
+    noise = max(diff(cpu, int8_prefix_logits(
+        cfg, model, perturbed(p_cpu, torch.Generator("cpu").manual_seed(s)), forced=picks)[0])
+        for s in (1, 2, 3))
+    tol = max(2e-3, 4 * noise)
+    worst = diff(card, cpu)
+    same = all(torch.equal(torch.argmax(a, -1), torch.argmax(b, -1)) for a, b in zip(card, cpu))
+    log(f"small int8 + shared-prefix reference ({cfg.name}, fp32, int8 pages, a forked family "
+        f"of 3, 3 prefills + 6 steps): max |logits on card - logits of the plain CPU path| = "
+        f"{worst:.3e} (tol {tol:.3e} = max(2e-3, 4 x {noise:.3e}, the CPU path against itself "
+        f"on weights perturbed by 2e-7)); greedy picks {'equal' if same else 'DIFFER'}")
+    if not worst <= tol:
+        raise SystemExit("small int8 + shared-prefix reference check failed")
+
+
+def int8_prefix_phase(cfg, model, params):
+    """deepseek-v2-mla at published widths (the paged phase's weights)
+    through PagedServingSession(kv_dtype="int8", prefix_sharing=True): an
+    1100-token system prompt, three admit_with_prefix children (suffixes of
+    7, 40 and 300 tokens), an unrelated 513-token loner, 16 greedy steps.
+    The family shares 2 complete 512-row blocks, so every decode step runs
+    K2' (one group of 4, G = 512 stacked rows), K2-int8 on the suffixes and
+    the hetero combine in every layer."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    log(f"== int8 shared-prefix serve phase: {cfg.name} ({cfg.n_layers} layers, the paged "
+        f"phase's bf16 weights), PagedServingSession(kv_dtype='int8', prefix_sharing=True, "
+        f"num_splits=2), 48 pages of {PAGE} ==")
+    torch.cuda.reset_peak_memory_stats()
+    sess = PagedServingSession(model, params, num_pages=48, page_size=PAGE, num_splits=2,
+                               prefill_chunk=32, kv_dtype="int8", prefix_sharing=True)
+    rng = np.random.default_rng(1)
+    system = rng.integers(2, cfg.vocab_size, size=1100).tolist()
+    suffixes = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (7, 40, 300)]
+    loner = rng.integers(2, cfg.vocab_size, size=513).tolist()
+    timing = timed_session(sess)
+    grouped = []
+    step = sess.step
+
+    def recorded_step():
+        step()
+        cur = sess._scheduler.current
+        grouped.append((cur.num_groups, cur.groups.gmax))
+
+    sess.step = recorded_step
+    counters = (mp.mla_decode_paged_queue_rows, mc.combine_split_partials,
+                mp.mla_decode_paged_group_prefix)
+    for fn in counters:
+        fn.launches = 0
+    mp.mla_decode_paged_queue_rows.int8_launches = 0
+    parent = sess.add_request(system)
+    kids = [sess.admit_with_prefix(parent, suf) for suf in suffixes]
+    other = sess.add_request(loner)
+    rids = [parent, *kids, other]
+    if None in rids:
+        raise SystemExit(f"int8 shared-prefix phase: admission failed ({rids})")
+    aliased = sess.work_stats()["aliased_pages"]
+    for _ in range(16):
+        sess.step()
+    torch.cuda.synchronize()
+    k2, k3, k2p = (fn.launches for fn in counters)
+    k2i8 = mp.mla_decode_paged_queue_rows.int8_launches
+    work = sess.work_stats()
+    results = {r: list(sess.outputs[r]) for r in rids}
+    sweep = sess.close()
+    chunks, steps = work["prefill_chunks"], work["decode_steps"]
+    n_grouped = sum(1 for n, gmax in grouped if n > 0)
+    n_prompt = len(system) + sum(map(len, suffixes)) + len(loner)
+    tokens_out = 16 * len(rids)
+    L = cfg.n_layers
+    log(f"served {len(rids)} requests: prefill {n_prompt} tokens in {chunks} chunks, "
+        f"{timing['prefill']:.3f} s ({n_prompt / timing['prefill']:.1f} tok/s); decode "
+        f"{tokens_out} tokens in {steps} steps, {timing['decode']:.3f} s "
+        f"({tokens_out / timing['decode']:.2f} tok/s, {1e3 * timing['decode'] / steps:.1f} "
+        f"ms/step); aliased pages after admission {aliased}; page DMAs {work['page_dmas']} "
+        f"({work['page_dma_bytes'] / 1e6:.2f} MB at int8); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; teardown sweep "
+        f"{sweep['free_pages']} pages free")
+    log(f"groups per decode step (groups, gmax): {sorted(set(grouped))} in {n_grouped} of "
+        f"{steps} steps")
+    log(f"launches: K2-int8 {k2i8} (expected layers x (prefill chunks + decode steps) = {L} x "
+        f"({chunks} + {steps}) = {L * (chunks + steps)}), K2' {k2p} (expected layers x grouped "
+        f"steps = {L} x {n_grouped} = {L * n_grouped}), K3 {k3} (expected {L * (chunks + steps)}),"
+        f" K2 on bf16 pages {k2} (expected 0)")
+    if (k2i8 != L * (chunks + steps) or k2p != L * n_grouped or k3 != L * (chunks + steps)
+            or k2 != 0 or n_grouped != steps or k2p <= 0 or aliased <= 0
+            or set(grouped) != {(1, 4)}):
+        raise SystemExit("int8 shared-prefix phase: launch counts do not match the path")
+    for rid, out in results.items():
+        if len(out) != 17 or not all(0 <= t < cfg.vocab_size for t in out):
+            raise SystemExit(f"int8 shared-prefix phase: request {rid} returned {out}")
+    log(f"tokens: { {r: results[r][:6] for r in rids} }")
+    return k2i8, k2p, k3
+
+
+def padded_decode_phase():
+    """PagedDecodeSession at full MLA attention width (d_k 576, d_v 512,
+    128 query rows, page 128, bf16) with synthetic latents from a seed:
+    prompts of 37, 300, 513 and 1100 rows, then 16 steps, through
+    scheduler="padded" (K5) and, on the same inputs, scheduler="queue"."""
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.runtime.serve_loop import PagedDecodeSession
+
+    log("== padded decode phase: PagedDecodeSession(scheduler='padded') at MLA attention "
+        "width (d_k 576, d_v 512, 128 query rows, page 128, bf16), 4 prompts + 16 steps ==")
+    gen = torch.Generator("cuda").manual_seed(21)
+    lat = lambda n: torch.randn((n, DK), generator=gen, device="cuda").to(torch.bfloat16)
+    prompts = [lat(n) for n in (37, 300, 513, 1100)]
+    steps = [({r: lat(128) for r in range(4)}, {r: lat(1)[0] for r in range(4)})
+             for _ in range(16)]
+    outs, times = {}, {}
+    for scheduler in ("padded", "queue"):
+        sess = PagedDecodeSession(num_pages=24, page_size=PAGE, d_k=DK, d_v=DV,
+                                  scale=1.0 / math.sqrt(192), scheduler=scheduler,
+                                  dtype=torch.bfloat16, device="cuda")
+        for p in prompts:
+            if sess.admit(p) is None:
+                raise SystemExit("padded decode phase: admission failed")
+        mp.mla_decode_paged_rows.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[scheduler] = [sess.step(q, new) for q, new in steps]
+        torch.cuda.synchronize()
+        times[scheduler] = (time.perf_counter() - t0) / len(steps)
+        if scheduler == "padded":
+            k5 = mp.mla_decode_paged_rows.launches
+    err = max((a[r] - b[r]).abs().max().item()
+              for a, b in zip(outs["padded"], outs["queue"]) for r in range(4))
+    finite = all(torch.isfinite(o[r]).all() for o in outs["padded"] for r in range(4))
+    tol = TOL[torch.bfloat16, "amla"]
+    log(f"padded {1e3 * times['padded']:.3f} ms/step, queue {1e3 * times['queue']:.3f} ms/step; "
+        f"max |padded - queue| over 16 steps {err:.3e} (tol {tol:g}: bf16, the two update "
+        f"the AMLA state per page and per 512-row block); K5 launches {k5} (expected 16)")
+    if k5 != len(steps) or not err <= tol or not finite:
+        raise SystemExit("padded decode phase failed")
+    return k5, times
 
 
 def dense_session_logits(cfg, params, prompts):
@@ -672,7 +1132,8 @@ def small_dense_check():
 
 
 def timed_session(sess):
-    """Wrap add_request and step with device-synchronised host timers."""
+    """Wrap add_request (and admit_with_prefix, where the session has it)
+    and step with device-synchronised host timers."""
     timing = {"prefill": 0.0, "decode": 0.0}
 
     def timed(name, fn):
@@ -686,6 +1147,8 @@ def timed_session(sess):
         return call
 
     sess.add_request = timed("prefill", sess.add_request)
+    if hasattr(sess, "admit_with_prefix"):
+        sess.admit_with_prefix = timed("prefill", sess.admit_with_prefix)
     sess.step = timed("decode", sess.step)
     return timing
 
@@ -875,20 +1338,28 @@ def main() -> int:
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     worst, rows = kernel_phase(flush)
     dworst, drows = dense_kernel_phase(flush)
+    tworst, trows = slice3_kernel_phase(flush)
     del flush
+    torch.cuda.empty_cache()
     small_reference_check()
     small_dense_check()
+    small_int8_prefix_check()
     torch.cuda.empty_cache()
     k6, k7 = gemma_dense_phase()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     k2, k3, paged = serve_phase()
+    k2i8, k2p, k3i8 = int8_prefix_phase(*paged[:3])
     k4 = mla_dense_phase(*paged)
     del paged
+    torch.cuda.empty_cache()
+    k5, _ = padded_decode_phase()
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
     derr = lambda name: max(v for k, v in dworst.items() if k[0] == name)
+    terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     d2, d3 = rows["decode"]["k2"], rows["decode"]["k3"]
+    t8, tp, t5 = trows["K2-int8"], trows["K2'"], trows["K5"]
     t4, t6, t7 = drows["K4", "deepseek decode"], drows["K6", "gemma2-2b decode"], drows[
         "K7", "gemma2-2b prefill 2048"]
     kernels = [
@@ -897,15 +1368,30 @@ def main() -> int:
              replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2,
              max_abs_err=err("mla_decode_paged_queue_rows"), ms=d2[0], plain_ms=d2[1],
              bound_ms=d2[2], bound_by=d2[3], library_ms=d2[4]),
+        dict(name="mla_decode_paged_queue_rows[int8]", route="cuda",
+             source="src/repro_torch/csrc/mla_decode_paged.cu",
+             replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2i8,
+             max_abs_err=terr("K2-int8"), ms=t8[0], plain_ms=t8[1], bound_ms=t8[2],
+             bound_by=t8[3], library_ms=t8[4]),
+        dict(name="mla_decode_paged_group_prefix", route="cuda",
+             source="src/repro_torch/csrc/mla_decode_paged.cu",
+             replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2p,
+             max_abs_err=terr("K2'"), ms=tp[0], plain_ms=tp[1], bound_ms=tp[2],
+             bound_by=tp[3], library_ms=tp[4]),
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
-             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3,
+             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3 + k3i8,
              max_abs_err=err("combine_split_partials"), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
         dict(name="mla_decode_rows", route="cuda", source="src/repro_torch/csrc/mla_decode.cu",
              replaces="src/repro/kernels/mla_decode.py:401", launches=k4,
              max_abs_err=derr("K4"), ms=t4[0], plain_ms=t4[1], bound_ms=t4[2],
              bound_by=t4[3], library_ms=t4[4]),
+        dict(name="mla_decode_paged_rows", route="cuda",
+             source="src/repro_torch/csrc/mla_decode_paged_padded.cu",
+             replaces="src/repro/kernels/mla_decode_paged.py:261", launches=k5,
+             max_abs_err=terr("K5"), ms=t5[0], plain_ms=t5[1], bound_ms=t5[2],
+             bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source="src/repro_torch/csrc/gqa_decode.cu",
              replaces="src/repro/kernels/gqa_decode.py:147", launches=k6,
              max_abs_err=derr("K6"), ms=t6[0], plain_ms=t6[1], bound_ms=t6[2],

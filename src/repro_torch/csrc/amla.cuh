@@ -30,6 +30,9 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 
 // A value rounded to the matmul type TQ (the reference casts page strips and
 // probabilities to the query dtype before each matmul).

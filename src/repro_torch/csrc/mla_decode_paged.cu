@@ -16,6 +16,13 @@
 // columns of the same rows.  Each slot writes a normalized partial o and
 // lse = m + log l (-inf when empty), merged by mla_decode_combine.cu.
 //
+// int8 pools (K2-int8): pages hold symmetric per-row int8 latents and a
+// (P, page_size) fp32 scale pool; the kernel reads the int8 rows as they
+// are and applies each row's sigma to its score and to its probability
+// (mla_rows.cuh), as the reference's quantized queue kernel does.  The
+// group-prefix pass (K2', ops.mla_decode_paged with prefix sharing) is
+// this same kernel launched on stacked member queries.
+//
 // What bounds it on an H100.  At decode (G = 128 rows per request) it is the
 // bytes of the pages read: each live page once, 576 * 2 bytes a row in bf16,
 // at 3.35 TB/s; a prefill chunk (G = 4096 rows) is bound by its operations,
@@ -41,6 +48,7 @@ using namespace mla_rows;
 struct Params {
   const void* q;              // (B, G, Dk) compute dtype
   const void* pages;          // (P, page_size, Dk) storage dtype
+  const float* scales;        // (P, page_size) int8 dequant scales, or null
   const int* block_tables;    // (B, W)
   const int* kv_len;          // (B,)
   const int* q_pos;           // (B, G)
@@ -109,7 +117,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (p.item_dest[t] != dest || !p.item_valid[t]) break;
     const int start = p.item_block[t] * p.g.block_k;
     const int live = min(p.g.block_k, end - start);
-    if (live > 0) block_update<TQ, TP, kAmla>(st, sm, p.g, pages, start, live, key_off);
+    if (live > 0) {
+      block_update<TQ, TP, kAmla>(st, sm, p.g, pages, start, live, key_off, p.scales);
+    }
     if (p.item_last[t]) break;
   }
   finalize(st, p.g, row0, p.o_part + static_cast<size_t>(dest) * G * Dv,
@@ -141,29 +151,36 @@ cudaError_t launch_variant(const Params& p, int num_dest_slots, int amla,
 
 // Returns a cudaError_t (0 on success).  Launches on `stream`, does not
 // synchronize, allocates nothing: the caller owns every buffer.
+//
+// pages_kind: 0 fp32, 1 bf16, 2 int8 (then `scales` is the scale pool).
 extern "C" int amla_mla_decode_paged_queue(
-    const void* q, const void* pages, const int* block_tables, const int* kv_len,
+    const void* q, const void* pages, const float* scales,
+    const int* block_tables, const int* kv_len,
     const int* q_pos, const int* item_req, const int* item_block,
     const int* item_dest, const int* item_first, const int* item_last,
     const int* item_valid, float* o_part, float* lse, int G, int Dk, int Dv,
     int num_pages, int page_size, int W, int N, int num_dest_slots,
     int block_k, float scale, float softcap, int amla, int q_bf16,
-    int pages_bf16, void* stream) {
+    int pages_kind, void* stream) {
   if (Dv > kDvMax || block_k > kBlockKMax || block_k < 1 || page_size < 1 ||
-      G < 1 || Dk < 1 || num_dest_slots < 1 || (G + kRows - 1) / kRows > 65535) {
+      G < 1 || Dk < 1 || num_dest_slots < 1 || (G + kRows - 1) / kRows > 65535 ||
+      pages_kind < 0 || pages_kind > 2 || ((pages_kind == 2) != (scales != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{q, pages, block_tables, kv_len, q_pos, item_req, item_block,
+  Params p{q, pages, scales, block_tables, kv_len, q_pos, item_req, item_block,
            item_dest, item_first, item_last, item_valid, o_part, lse,
            Geom{G, Dk, Dv, block_k, scale, softcap}, num_pages, page_size, W, N};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  const int n = num_dest_slots;
   if (q_bf16) {
-    err = pages_bf16 ? launch_variant<__nv_bfloat16, __nv_bfloat16>(p, num_dest_slots, amla, s)
-                     : launch_variant<__nv_bfloat16, float>(p, num_dest_slots, amla, s);
+    err = pages_kind == 2 ? launch_variant<__nv_bfloat16, int8_t>(p, n, amla, s)
+        : pages_kind == 1 ? launch_variant<__nv_bfloat16, __nv_bfloat16>(p, n, amla, s)
+                          : launch_variant<__nv_bfloat16, float>(p, n, amla, s);
   } else {
-    err = pages_bf16 ? launch_variant<float, __nv_bfloat16>(p, num_dest_slots, amla, s)
-                     : launch_variant<float, float>(p, num_dest_slots, amla, s);
+    err = pages_kind == 2 ? launch_variant<float, int8_t>(p, n, amla, s)
+        : pages_kind == 1 ? launch_variant<float, __nv_bfloat16>(p, n, amla, s)
+                          : launch_variant<float, float>(p, n, amla, s);
   }
   return static_cast<int>(err);
 }

@@ -11,6 +11,14 @@
 // position is addressed (block table or contiguous rows), which is the
 // `key_off` functor handed to block_update.
 //
+// int8 pages (K2-int8) store symmetric per-row int8 latents with one fp32
+// scale sigma per row.  The block's sigma strip is staged beside its keys;
+// a score is multiplied by its key's sigma right after the q.k product and
+// before scale, softcap and clamp, and sigma is folded into p before P.V
+// (p * S16 * sigma for amla, p * sigma for base, then rounded to the matmul
+// dtype), in the reference's order, so the int8 values themselves feed
+// both products unscaled.
+//
 // Layout.  A 512 x 576 block does not fit in shared memory, so keys are
 // staged in strips (128 keys x 32 dims for the scores, 16 keys x Dv for
 // P·V) while the block's full 32 x block_k score strip stays in shared
@@ -50,10 +58,14 @@ __host__ __device__ inline int stage_floats(int Dv) {
   return a > b ? a : b;
 }
 
+// Floats of the block's sigma strip, even so that row_off stays 8-aligned.
+__host__ __device__ inline int sigma_floats(int block_k) { return (block_k + 1) & ~1; }
+
 inline size_t smem_bytes(const Geom& g) {
   return sizeof(float) *
              (static_cast<size_t>(kRows) * g.Dk +
-              static_cast<size_t>(kRows) * g.block_k + stage_floats(g.Dv)) +
+              static_cast<size_t>(kRows) * g.block_k + stage_floats(g.Dv) +
+              sigma_floats(g.block_k)) +
          sizeof(long long) * kStrip + sizeof(int) * kRows;
 }
 
@@ -62,6 +74,7 @@ struct Smem {
   float* q;             // kRows x Dk
   float* s;             // kRows x block_k
   float* stage;         // key strips
+  float* sigma;         // block_k per-key dequant scales (int8 pages)
   long long* row_off;   // kStrip key-row offsets of the current strip
   int* q_pos;           // kRows
 };
@@ -71,7 +84,8 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, const Geom& g) {
   sm.q = reinterpret_cast<float*>(raw);
   sm.s = sm.q + kRows * g.Dk;
   sm.stage = sm.s + kRows * g.block_k;
-  sm.row_off = reinterpret_cast<long long*>(sm.stage + stage_floats(g.Dv));
+  sm.sigma = sm.stage + stage_floats(g.Dv);
+  sm.row_off = reinterpret_cast<long long*>(sm.sigma + sigma_floats(g.block_k));
   sm.q_pos = reinterpret_cast<int*>(sm.row_off + kStrip);
   return sm;
 }
@@ -124,15 +138,26 @@ struct RowState {
 
 // One state update of the tile over the keys [start, start + live) of a
 // block (live > 0; the rest of the block is masked for every row).
-// `key_off(pos)` is the element offset of key row `pos` in `kv`.
+// `key_off(pos)` is the element offset of key row `pos` in `kv`; with
+// `scales` (int8 pages) the key's sigma is scales[key_off(pos) / Dk].
 template <typename TQ, typename TP, bool kAmla, typename KeyOff>
 __device__ __forceinline__ void block_update(RowState<kAmla>& st, const Smem& sm,
                                              const Geom& g, const TP* kv,
                                              int start, int live,
-                                             KeyOff key_off) {
+                                             KeyOff key_off,
+                                             const float* scales = nullptr) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+
+  // The block's sigma strip; 0 past live (p is 0 there), as the reference
+  // zero-fills the scale strip past kv_len.  Every warp finished reading
+  // the previous block's strip before that block's P.V barriers.
+  if (scales != nullptr) {
+    for (int col = tid; col < g.block_k; col += kThreads) {
+      sm.sigma[col] = col < live ? scales[key_off(start + col) / g.Dk] : 0.0f;
+    }
+  }
 
   // ---- scores: s[r][col] = q_r . k_col over the live keys ----------------
   for (int ks = 0; ks < live; ks += kStrip) {
@@ -194,7 +219,8 @@ __device__ __forceinline__ void block_update(RowState<kAmla>& st, const Smem& sm
     for (int col = lane; col < g.block_k; col += 32) {
       float x = -INFINITY;
       if (col < live && start + col <= qp) {
-        x = __fmul_rn(srow[col], g.scale);
+        x = scales != nullptr ? __fmul_rn(srow[col], sm.sigma[col]) : srow[col];
+        x = __fmul_rn(x, g.scale);
         if (g.softcap > 0.0f) x = __fmul_rn(g.softcap, tanhf(__fdiv_rn(x, g.softcap)));
         x = fminf(fmaxf(x, -amla::kMClamp), amla::kMClamp);
       }
@@ -224,13 +250,18 @@ __device__ __forceinline__ void block_update(RowState<kAmla>& st, const Smem& sm
       st.n[i] = n_new;
       st.gamma[i] = g_new;
       st.s16[i] = s;
-      // p_v = p * S16, rounded to the matmul dtype before P·V
+      // p_v = p * S16 (* sigma), rounded to the matmul dtype before P·V
       for (int col = lane; col < g.block_k; col += 32) {
-        srow[col] = amla::round_to<TQ>(__fmul_rn(srow[col], s));
+        float pv = __fmul_rn(srow[col], s);
+        if (scales != nullptr) pv = __fmul_rn(pv, sm.sigma[col]);
+        srow[col] = amla::round_to<TQ>(pv);
       }
     } else {
       alpha[i] = expf(__fsub_rn(m_prev, m_new));
-      for (int col = lane; col < g.block_k; col += 32) srow[col] = amla::round_to<TQ>(srow[col]);
+      for (int col = lane; col < g.block_k; col += 32) {
+        const float pv = scales != nullptr ? __fmul_rn(srow[col], sm.sigma[col]) : srow[col];
+        srow[col] = amla::round_to<TQ>(pv);
+      }
     }
   }
 

@@ -23,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = (
     "mla_decode_paged.cu", "mla_decode_combine.cu", "mla_decode.cu",
-    "gqa_decode.cu", "flash_prefill.cu",
+    "gqa_decode.cu", "flash_prefill.cu", "mla_decode_paged_padded.cu",
 )
 HEADERS = ("amla.cuh", "mla_rows.cuh", "gqa_rows.cuh")
 # No --use_fast_math: the AMLA state update needs the accurate expf and
@@ -114,7 +114,8 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_build_result.path))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     signatures = {
-        "amla_mla_decode_paged_queue": [p] * 13 + [i] * 9 + [f, f] + [i] * 3 + [p],
+        "amla_mla_decode_paged_queue": [p] * 14 + [i] * 9 + [f, f] + [i] * 3 + [p],
+        "amla_mla_decode_paged_padded": [p] * 6 + [i] * 7 + [f, f] + [i] * 3 + [p],
         "amla_combine_split_partials": [p] * 5 + [i] * 4 + [p],
         "amla_mla_decode_rows": [p] * 5 + [i] * 6 + [ll, f, f] + [i] * 3 + [p],
         "amla_gqa_decode": [p] * 6 + [i] * 6 + [ll] * 6 + [f, f] + [i] * 3 + [p],

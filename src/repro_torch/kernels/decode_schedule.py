@@ -1,15 +1,19 @@
 """Flat work-queue scheduling for AMLA decode (paper §4.2 + flash-decoding).
 
-Copied from ``repro.kernels.decode_schedule`` (the non-prefix path): plain
-host-side numpy, so the schedule arrays are identical to the reference's by
-construction.
+Copied from ``repro.kernels.decode_schedule`` (the flat work queue, the
+flat shared-prefix grouping and the work accounting; the nested trie
+grouping waits for the prefix trie): plain host-side numpy, so the
+schedule arrays are identical to the reference's by construction.
 
 * one **work item** = one §4.2 KV block (``block_k`` rows = 4 pages of 128)
   of one request — the granularity of one AMLA state update;
 * items exist only for blocks that intersect ``[0, kv_len)``;
 * long requests are optionally **split flash-decoding style** across
   ``num_splits`` destination slots, merged by the combine kernel;
-* the queue is padded to a ``queue_bucket`` multiple with inert items.
+* the queue is padded to a ``queue_bucket`` multiple with inert items;
+* requests whose block tables alias the same leading pages (forked
+  prefixes) are grouped, and their shared blocks scheduled once per group
+  (:func:`build_prefix_schedule`) for the group-prefix kernel.
 
 Destination-slot layout: request ``r`` split ``j`` accumulates into slot
 ``r * num_splits + j``, and one trailing slot is the dump for padding items.
@@ -80,12 +84,16 @@ def build_schedule(
     block_k: int = 512,
     num_splits: int = 1,
     queue_bucket: int = DEFAULT_QUEUE_BUCKET,
+    start_blocks=None,
 ) -> DecodeSchedule:
     """Compact ``(request, kv_block)`` work items from per-request lengths.
 
     A request with ``nb`` blocks is divided into ``min(num_splits, nb)``
     contiguous chunks of near-equal size (first chunks one block longer
-    when ``nb % splits != 0``).
+    when ``nb % splits != 0``).  ``start_blocks`` (per request, default 0)
+    makes this a suffix schedule: request ``r`` only contributes blocks
+    ``[start_blocks[r], nb)``; a request whose start is at or past its
+    block count gets no items and ``n_splits == 0``.
     """
     if block_k < 1:
         raise ValueError("block_k must be >= 1")
@@ -93,18 +101,24 @@ def build_schedule(
         raise ValueError("num_splits must be >= 1")
     kv_lens = np.asarray(kv_lens, np.int64).reshape(-1)
     b = int(kv_lens.shape[0])
+    if start_blocks is None:
+        start_blocks = np.zeros((b,), np.int64)
+    else:
+        start_blocks = np.asarray(start_blocks, np.int64).reshape(-1)
+        if start_blocks.shape[0] != b:
+            raise ValueError("start_blocks must match kv_lens length")
 
     req, blk, dst, fst, lst = [], [], [], [], []
     dest_table = np.zeros((b, num_splits), np.int32)
     n_splits = np.zeros((b,), np.int32)
     for r in range(b):
-        nb = max(-(-int(kv_lens[r]) // block_k), 0)
+        nb = max(-(-int(kv_lens[r]) // block_k) - int(start_blocks[r]), 0)
         k = min(num_splits, nb)
         n_splits[r] = k
         # Padding dest entries repeat the request's own last live slot.
         dest_table[r, :] = r * num_splits + max(k - 1, 0)
         base, rem = divmod(nb, max(k, 1))
-        next_block = 0
+        next_block = int(start_blocks[r])
         for j in range(k):
             dest = r * num_splits + j
             dest_table[r, j] = dest
@@ -139,13 +153,244 @@ def build_schedule(
     )
 
 
+# --------------------------------------------------------------------------- #
+# shared-prefix grouping (group-batched prefix attention)
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixGroups:
+    """Requests grouped by aliased (refcount-shared) prefix page runs.
+
+    Two requests belong together only when their block tables name the
+    same physical pages for a leading run of complete ``block_k`` blocks —
+    under ``PagedKVCache.fork``, exactly "they share a prefix".  Equal
+    content without aliasing never groups.  Every group covers blocks
+    ``[0, shared_blocks)`` (the reference's flat grouping).
+    """
+
+    group_member: np.ndarray  # (n_groups, gmax) request index, -1 padding
+    group_size: np.ndarray  # (n_groups,)
+    group_rep: np.ndarray  # (n_groups,) representative request (table row)
+    shared_blocks: np.ndarray  # (n_groups,) exclusive END block of the run
+    group_of_req: np.ndarray  # (B,) group id, -1 for ungrouped
+    slot_of_req: np.ndarray  # (B,) member slot within that group, -1
+    gmax: int  # max members over groups (stacked-query width)
+    num_groups: int
+
+
+def _common_run(sigs, members, rep, start: int) -> int:
+    """Exclusive end of the longest block run all ``members`` share with
+    ``rep`` given they already agree on ``[0, start)``."""
+    n = len(sigs[rep])
+    for m in members:
+        if m == rep:
+            continue
+        k = start
+        mlim = min(n, len(sigs[m]))
+        while k < mlim and sigs[m][k] == sigs[rep][k]:
+            k += 1
+        n = min(n, k)
+    return n
+
+
+def find_prefix_groups(
+    block_tables,
+    kv_lens,
+    *,
+    page_size: int,
+    block_k: int,
+    min_group: int = 2,
+) -> PrefixGroups:
+    """Group requests whose tables alias the same leading KV-block pages.
+
+    A block is shared by a group when every member's table points at the
+    identical page-id tuple for it and the block is complete for every
+    member (``(j+1) * block_k <= kv_len``).  Members joining on block 0 but
+    diverging later share only the common run; requests with no complete
+    first block, or whose first block fewer than ``min_group`` requests
+    alias, stay ungrouped.  (The reference's trie-topology grouping comes
+    with the prefix trie.)
+    """
+    if block_k % page_size or block_k < page_size:
+        raise ValueError(
+            f"block_k={block_k} must be a positive multiple of "
+            f"page_size={page_size}"
+        )
+    bt = np.asarray(block_tables)
+    kv = np.asarray(kv_lens, np.int64).reshape(-1)
+    b = int(kv.shape[0])
+    n_sub = block_k // page_size
+    sigs: list[list[tuple]] = []
+    for r in range(b):
+        nb_full = min(int(kv[r]) // block_k, bt.shape[1] // n_sub)
+        sigs.append(
+            [
+                tuple(bt[r, j * n_sub : (j + 1) * n_sub].tolist())
+                for j in range(nb_full)
+            ]
+        )
+    by_first: dict[tuple, list[int]] = {}
+    for r in range(b):
+        if sigs[r]:
+            by_first.setdefault(sigs[r][0], []).append(r)
+    group_list = []
+    for members in by_first.values():
+        if len(members) < max(min_group, 2):
+            continue
+        n = _common_run(sigs, members, members[0], 0)
+        if n >= 1:
+            group_list.append((members, n))
+
+    num_groups = len(group_list)
+    gmax = max((len(m) for m, _ in group_list), default=0)
+    group_member = np.full((num_groups, max(gmax, 1)), -1, np.int32)
+    group_size = np.zeros((num_groups,), np.int32)
+    group_rep = np.zeros((num_groups,), np.int32)
+    shared_blocks = np.zeros((num_groups,), np.int32)
+    group_of_req = np.full((b,), -1, np.int32)
+    slot_of_req = np.full((b,), -1, np.int32)
+    for g, (members, end) in enumerate(group_list):
+        group_size[g] = len(members)
+        group_rep[g] = members[0]
+        shared_blocks[g] = end
+        for i, r in enumerate(members):
+            group_member[g, i] = r
+            group_of_req[r] = g
+            slot_of_req[r] = i
+    return PrefixGroups(
+        group_member=group_member,
+        group_size=group_size,
+        group_rep=group_rep,
+        shared_blocks=shared_blocks,
+        group_of_req=group_of_req,
+        slot_of_req=slot_of_req,
+        gmax=gmax,
+        num_groups=num_groups,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixSchedule:
+    """Two-pass decode schedule: group-batched prefix + per-request suffix.
+
+    ``prefix`` treats each group as a virtual request of ``gmax * G``
+    stacked query rows over the shared prefix (``shared_blocks[g] *
+    block_k`` rows through the representative member's table row), one
+    item per ``(group, kv_block)``; ``suffix`` is a plain
+    :func:`build_schedule` whose ``start_blocks`` skip each grouped request
+    past its shared run.  :meth:`hetero_dest_tables` merges both passes'
+    partials in the combine kernel.
+    """
+
+    suffix: DecodeSchedule
+    prefix: DecodeSchedule | None  # over groups; None when num_groups == 0
+    groups: PrefixGroups
+    start_blocks: np.ndarray  # (B,) suffix start block per request
+    prefix_lens: np.ndarray  # (n_groups,) shared rows per group
+    block_k: int
+    # Device copies of the prefix pass's arrays (see DecodeSchedule).
+    device_arrays: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
+
+    @property
+    def num_groups(self) -> int:
+        return self.groups.num_groups
+
+    def hetero_dest_tables(self) -> tuple[np.ndarray, np.ndarray]:
+        """Combine tables over the concatenated partial array ``[suffix
+        slots ; prefix member rows]``: suffix partials occupy slots ``[0,
+        suffix.num_dest_slots)``, prefix member rows follow at
+        ``suffix.num_dest_slots + group * gmax + slot`` (the prefix pass
+        has one dest slot per group).  Returns ``(dest_table (B,
+        num_splits + 1), n_splits (B,))``."""
+        suf = self.suffix
+        b = suf.num_requests
+        d_suf = suf.num_dest_slots
+        gmax = max(self.groups.gmax, 1)
+        s_ext = suf.num_splits + 1
+        dest = np.zeros((b, s_ext), np.int32)
+        n_ext = np.zeros((b,), np.int32)
+        for r in range(b):
+            slots = [
+                int(suf.dest_table[r, j]) for j in range(int(suf.n_splits[r]))
+            ]
+            g = int(self.groups.group_of_req[r])
+            if g >= 0:
+                slots.append(d_suf + g * gmax + int(self.groups.slot_of_req[r]))
+            n_ext[r] = len(slots)
+            if not slots:  # kv_len == 0: gated off, fetch warm slot 0
+                slots = [0]
+            dest[r] = np.asarray(
+                (slots + [slots[-1]] * s_ext)[:s_ext], np.int32
+            )
+        return dest, n_ext
+
+
+def build_prefix_schedule(
+    kv_lens,
+    block_tables,
+    *,
+    page_size: int,
+    block_k: int = 512,
+    num_splits: int = 1,
+    queue_bucket: int = DEFAULT_QUEUE_BUCKET,
+    min_group: int = 2,
+) -> PrefixSchedule:
+    """Group-batched shared-prefix schedule over ``(kv_lens,
+    block_tables)``.  With no aliased prefixes it degenerates to the plain
+    schedule (empty prefix pass, suffix pass == :func:`build_schedule`)."""
+    kv = np.asarray(kv_lens, np.int64).reshape(-1)
+    groups = find_prefix_groups(
+        block_tables,
+        kv,
+        page_size=page_size,
+        block_k=block_k,
+        min_group=min_group,
+    )
+    start_blocks = np.zeros((kv.shape[0],), np.int64)
+    for g in range(groups.num_groups):
+        for i in range(int(groups.group_size[g])):
+            r = int(groups.group_member[g, i])
+            start_blocks[r] = max(start_blocks[r], int(groups.shared_blocks[g]))
+    suffix = build_schedule(
+        kv,
+        block_k=block_k,
+        num_splits=num_splits,
+        queue_bucket=queue_bucket,
+        start_blocks=start_blocks,
+    )
+    prefix_lens = groups.shared_blocks.astype(np.int64) * block_k
+    prefix = None
+    if groups.num_groups:
+        # Prefix items never split: one dest slot per group.
+        prefix = build_schedule(
+            prefix_lens,
+            block_k=block_k,
+            num_splits=1,
+            queue_bucket=queue_bucket,
+        )
+    return PrefixSchedule(
+        suffix=suffix,
+        prefix=prefix,
+        groups=groups,
+        start_blocks=start_blocks,
+        prefix_lens=prefix_lens,
+        block_k=block_k,
+    )
+
+
 class DecodeScheduler:
-    """Memoizing schedule factory for a serve loop (non-prefix path).
+    """Memoizing schedule factory for a serve loop.
 
     A request's block count changes only every ``block_k`` tokens, so one
     schedule serves many consecutive steps; ``schedule()`` rebuilds only
     when the batch's block signature or ``extra_key`` (a batch-identity
     token such as the tuple of live request ids) changes.
+    ``schedule_prefix()`` additionally keys on the page ids that grouping
+    inspects, so copy-on-write and pool churn never serve a stale group
+    structure.
     """
 
     def __init__(
@@ -154,18 +399,29 @@ class DecodeScheduler:
         block_k: int = 512,
         num_splits: int = 1,
         queue_bucket: int = DEFAULT_QUEUE_BUCKET,
+        min_group: int = 2,
     ):
         self.block_k = block_k
         self.num_splits = num_splits
         self.queue_bucket = queue_bucket
+        self.min_group = min_group
         self._key: tuple | None = None
-        self._cached: DecodeSchedule | None = None
+        self._cached: DecodeSchedule | PrefixSchedule | None = None
         self.hits = 0
         self.rebuilds = 0
 
     @property
-    def current(self) -> DecodeSchedule | None:
+    def current(self) -> DecodeSchedule | PrefixSchedule | None:
         """The most recently served schedule (for work accounting)."""
+        return self._cached
+
+    def _lookup(self, key, build):
+        if key == self._key and self._cached is not None:
+            self.hits += 1
+            return self._cached
+        self.rebuilds += 1
+        self._cached = build()
+        self._key = key
         return self._cached
 
     def schedule(self, kv_lens, extra_key=None) -> DecodeSchedule:
@@ -176,18 +432,64 @@ class DecodeScheduler:
             _block_signature(kv_lens, self.block_k),
             extra_key,
         )
-        if key == self._key and self._cached is not None:
-            self.hits += 1
-            return self._cached
-        self.rebuilds += 1
-        self._cached = build_schedule(
-            kv_lens,
-            block_k=self.block_k,
-            num_splits=self.num_splits,
-            queue_bucket=self.queue_bucket,
+        return self._lookup(
+            key,
+            lambda: build_schedule(
+                kv_lens,
+                block_k=self.block_k,
+                num_splits=self.num_splits,
+                queue_bucket=self.queue_bucket,
+            ),
         )
-        self._key = key
-        return self._cached
+
+    def schedule_prefix(
+        self, kv_lens, block_tables, *, page_size: int, extra_key=None
+    ) -> PrefixSchedule:
+        """Memoized :func:`build_prefix_schedule`: valid while block counts
+        and the page ids of each request's complete blocks are unchanged."""
+        kv_lens = np.asarray(kv_lens).reshape(-1)
+        bt = np.asarray(block_tables)
+        n_sub = max(self.block_k // page_size, 1)
+        page_sig = tuple(
+            bt[r, : (int(kv_lens[r]) // self.block_k) * n_sub].tobytes()
+            for r in range(kv_lens.shape[0])
+        )
+        key = (
+            "prefix",
+            kv_lens.shape[0],
+            _block_signature(kv_lens, self.block_k),
+            page_sig,
+            extra_key,
+        )
+        return self._lookup(
+            key,
+            lambda: build_prefix_schedule(
+                kv_lens,
+                bt,
+                page_size=page_size,
+                block_k=self.block_k,
+                num_splits=self.num_splits,
+                queue_bucket=self.queue_bucket,
+                min_group=self.min_group,
+            ),
+        )
+
+
+def padded_grid_items(kv_lens, table_width: int, page_size: int) -> dict:
+    """Work executed by the padded ``(B, W)`` grid on this batch: every
+    request walks all ``W`` table slots; a request pays its live pages plus
+    at most one extra (clamped) tail fetch."""
+    kv_lens = np.asarray(kv_lens, np.int64).reshape(-1)
+    b = int(kv_lens.shape[0])
+    pages = [-(-int(l) // page_size) for l in kv_lens]
+    live_pages = int(sum(pages))
+    page_dmas = int(sum(p + (1 if p < table_width else 0) for p in pages))
+    return {
+        "grid_steps": b * table_width,
+        "page_slots": b * table_width,
+        "page_dmas": page_dmas,
+        "live_pages": live_pages,
+    }
 
 
 def queue_grid_items(
@@ -203,6 +505,45 @@ def queue_grid_items(
         "executed_items": schedule.num_items,
         "page_dmas": live_pages,
         "live_pages": live_pages,
+        "query_rows": int(kv_lens.shape[0]) * int(query_rows),
+        "row_reads": int(kv_lens.sum()) * int(query_rows),
+    }
+
+
+def prefix_queue_grid_items(
+    ps: PrefixSchedule, kv_lens, page_size: int, *, query_rows: int = 1
+) -> dict:
+    """Work executed by the two-pass shared-prefix schedule on this batch:
+    ``prefix_page_dmas`` is paid once per group, against
+    ``unshared_prefix_page_dmas`` (the same pages times the group size)
+    that the plain queue would read."""
+    kv_lens = np.asarray(kv_lens, np.int64).reshape(-1)
+    n_sub = max(ps.block_k // page_size, 1)
+    live_pages = int(sum(-(-int(l) // page_size) for l in kv_lens))
+    suffix_pages = int(
+        sum(
+            max(-(-int(l) // page_size) - int(s) * n_sub, 0)
+            for l, s in zip(kv_lens, ps.start_blocks)
+        )
+    )
+    span = ps.groups.shared_blocks
+    prefix_pages = int(np.sum(span)) * n_sub
+    unshared_prefix_pages = int(np.sum(span * ps.groups.group_size)) * n_sub
+    grid_steps = ps.suffix.queue_len + (
+        ps.prefix.queue_len if ps.prefix is not None else 0
+    )
+    executed = ps.suffix.num_items + (
+        ps.prefix.num_items if ps.prefix is not None else 0
+    )
+    return {
+        "grid_steps": grid_steps,
+        "executed_items": executed,
+        "page_dmas": suffix_pages + prefix_pages,
+        "live_pages": live_pages,
+        "prefix_page_dmas": prefix_pages,
+        "unshared_prefix_page_dmas": unshared_prefix_pages,
+        "num_groups": ps.num_groups,
+        "grouped_requests": int(np.sum(ps.groups.group_of_req >= 0)),
         "query_rows": int(kv_lens.shape[0]) * int(query_rows),
         "row_reads": int(kv_lens.sum()) * int(query_rows),
     }

@@ -13,6 +13,8 @@ block of ``block_k`` rows:
   ``round(2^23 · (Δn + 1.5ε))`` added to its bits, skipped where it is 0;
   ``p · S16`` (rounded to the matmul dtype) feeds PV;
 * ``base``: Algorithm 1's fp32 multiply by ``exp(m - m_new)``;
+* int8 pages: scores arrive multiplied by each key's scale σ, and σ is
+  folded into the probabilities before P·V;
 * finalize: ``acc / (l · S16)`` (``amla``) or ``acc / l``, 0 when empty.
 
 The reference skips the rescale only when the increment is zero in *every*
@@ -81,8 +83,14 @@ def decode_block_update(
     d_v: int,
     variant: str,
     mm_dtype: torch.dtype,
+    kv_scale: torch.Tensor | None = None,  # (..., 1, Bk) f32, int8 pages
 ) -> None:
-    """One KV-block update of ``st``, in place."""
+    """One KV-block update of ``st``, in place.
+
+    With int8 pages ``c_blk`` holds the raw int8 rows and ``kv_scale`` their
+    per-row dequant scales: ``s`` arrives already multiplied by them, and
+    they are folded into the probabilities before P·V (``p * S16 * σ`` for
+    amla, ``p * σ`` for base), in the reference's order."""
     m_prev = st.m
     m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
     p = torch.exp(s - m_new)
@@ -96,14 +104,15 @@ def decode_block_update(
         eps = st.gamma / gamma_new - 1.0
         inc = numerics.pow2_int_increment(n_new - st.n, eps)
         st.n, st.gamma, st.s16 = n_new, gamma_new, s16
-        p_mm = (p * s16).to(mm_dtype)
+        p_v = p * s16 if kv_scale is None else p * s16 * kv_scale
+        p_mm = p_v.to(mm_dtype)
         # MUL-by-ADD rescale, skipped per row where the increment is 0.
         st.acc = torch.where(
             inc != 0, numerics.apply_int_increment(st.acc, inc), st.acc
         )
     elif variant == "base":
         st.acc = st.acc * torch.exp(m_prev - m_new)
-        p_mm = p.to(mm_dtype)
+        p_mm = (p if kv_scale is None else p * kv_scale).to(mm_dtype)
     else:
         raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
 

@@ -13,6 +13,9 @@ slots of ``dest_table[b]``.  The running max starts at :data:`BIG_NEG`, so
 an empty partial (``lse == -inf``) weighs exactly 0 and a request with no
 live split gives exact zeros.
 
+:func:`combine_hetero_partials` merges partials of several passes (the
+shared-prefix path) by concatenating them first.
+
 On a CUDA tensor :func:`combine_split_partials` launches
 ``csrc/mla_decode_combine.cu``; on a CPU tensor it runs the plain version.
 """
@@ -95,3 +98,19 @@ def combine_split_partials(
 
 
 combine_split_partials.launches = 0
+
+
+def combine_hetero_partials(
+    o_parts: list[torch.Tensor],  # each (Di, G, Dv) f32 normalized partials
+    lse_parts: list[torch.Tensor],  # each (Di, G, 1) f32
+    dest_table: torch.Tensor,  # (B, S) slot ids into the concatenated array
+    n_splits: torch.Tensor,  # (B,) live partials per request
+) -> torch.Tensor:
+    """Merge partials drawn from heterogeneous sources (a per-request
+    suffix pass and a group-batched shared-prefix pass): the arrays are
+    concatenated along the slot axis and ``dest_table`` points into the
+    concatenation (``decode_schedule.PrefixSchedule.hetero_dest_tables``
+    builds it); the merge is :func:`combine_split_partials`."""
+    o_all = o_parts[0] if len(o_parts) == 1 else torch.cat(o_parts, 0)
+    lse_all = lse_parts[0] if len(lse_parts) == 1 else torch.cat(lse_parts, 0)
+    return combine_split_partials(o_all, lse_all, dest_table, n_splits)

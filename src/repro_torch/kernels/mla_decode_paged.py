@@ -1,19 +1,29 @@
-"""Paged MLA decode: AMLA over a block-table KV cache (work-queue path).
+"""Paged MLA decode: AMLA over a block-table KV cache.
 
 Counterpart of ``repro/kernels/mla_decode_paged.py``.  The latents live in
 a shared pool of pages ``(num_pages, page_size, 576)``; each request owns
-an ordered list of physical page ids (its block table).  A host-side
-schedule (:mod:`repro_torch.kernels.decode_schedule`) lists one work item
-per (request, ``block_k``-row KV block); :func:`mla_decode_paged_queue_rows`
-walks it, runs one AMLA state update per block, and writes a normalized
-partial ``(o, lse)`` per destination slot for
-:mod:`repro_torch.kernels.mla_decode_combine` to merge.
+an ordered list of physical page ids (its block table).  Three entry
+points, as in the reference:
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/mla_decode_paged.cu``; on a CPU tensor it runs the plain PyTorch
-version beside it, which walks the same items in the same order with the
-same int32 rescale.  The int8 pool variant and the group-prefix pass of
-the reference come in a later slice.
+* :func:`mla_decode_paged_queue_rows` (K2): a host-side schedule
+  (:mod:`repro_torch.kernels.decode_schedule`) lists one work item per
+  (request, ``block_k``-row KV block); the kernel walks it, runs one AMLA
+  state update per block, and writes a normalized partial ``(o, lse)`` per
+  destination slot for :mod:`repro_torch.kernels.mla_decode_combine` to
+  merge.  With ``kv_scales`` it reads an int8 pool (K2-int8): symmetric
+  per-row int8 latents whose fp32 scales multiply the scores and are
+  folded into the probabilities.
+* :func:`mla_decode_paged_group_prefix` (K2′): shared-prefix attention
+  once per group of requests whose tables alias the same leading pages;
+  the members' query rows are stacked and K2 runs over the shared blocks.
+* :func:`mla_decode_paged_rows` (K5): the padded ``(B, W)`` baseline, one
+  AMLA update per page, bf16/fp32 pools only.
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/mla_decode_paged.cu``, ``csrc/mla_decode_paged_padded.cu``) and
+counts the launch; on a CPU tensor it runs the plain PyTorch version
+beside it, which walks the same items in the same order with the same
+int32 rescale.
 """
 
 from __future__ import annotations
@@ -34,9 +44,9 @@ DEFAULT_PAGE_SIZE = 128
 class CacheSpec:
     """Storage layout of a paged latent pool: dtype + scale granularity.
 
-    ``int8`` pools (symmetric per-row quantization with an fp32 scale pool)
-    are named here so the serving knobs keep the reference's vocabulary;
-    the caches and kernels of this slice take bf16/fp32 pools only.
+    ``int8`` pools store symmetric per-row int8 latents with a companion
+    fp32 scale pool of one scale per page row, which every read path
+    dequantizes against (``runtime.kv_cache`` writes both).
     """
 
     dtype: object = torch.bfloat16
@@ -95,7 +105,7 @@ def clamp_tail_pages(
 
 
 def _queue_rows_plain(
-    q, kv_pages, block_tables, kv_len, q_pos, items, *,
+    q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, *,
     d_v, variant, scale, block_k, num_dest_slots, softcap,
 ):
     """Plain PyTorch version of the queue kernel: the reference's grid
@@ -120,14 +130,21 @@ def _queue_rows_plain(
         req, blk = int(req_a[t]), int(blk_a[t])
         k_len = lens[req]
         start = blk * block_k
-        # Gather the block's pages; pages past kv_len are zero-filled, as
-        # the reference does in VMEM, instead of read.
+        # Gather the block's pages (and scale strips); pages past kv_len
+        # are zero-filled, as the reference does in VMEM, instead of read.
         c_blk = torch.zeros((block_k, d_k), dtype=kv_pages.dtype, device=dev)
+        sig = None
+        if kv_scales is not None:
+            sig = torch.zeros((block_k,), dtype=torch.float32, device=dev)
         for j in range(n_sub):
             if start + j * page_size < k_len:
                 pid = bt[req, blk * n_sub + j]
                 c_blk[j * page_size : (j + 1) * page_size] = kv_pages[pid]
+                if sig is not None:
+                    sig[j * page_size : (j + 1) * page_size] = kv_scales[pid]
         s = q[req].to(torch.float32) @ c_blk.to(q.dtype).to(torch.float32).T
+        if sig is not None:
+            s = s * sig[None, :]  # per-key dequant, before scale/softcap/clamp
         s = s * scale
         if softcap is not None:
             s = numerics.softcap(s, softcap)
@@ -136,7 +153,8 @@ def _queue_rows_plain(
         mask = (k_pos < k_len) & (k_pos <= q_pos[req][:, None])
         s = torch.where(mask, s, -torch.inf)
         _mla.decode_block_update(
-            st, s, c_blk, d_v=d_v, variant=variant, mm_dtype=q.dtype
+            st, s, c_blk, d_v=d_v, variant=variant, mm_dtype=q.dtype,
+            kv_scale=None if sig is None else sig[None, :],
         )
         if lst_a[t]:
             dest = int(dst_a[t])
@@ -148,27 +166,43 @@ def _queue_rows_plain(
     return o_part, lse
 
 
+def _check_on(dev, **tensors):
+    for name, t in tensors.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+
+
+_POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
 def _queue_rows_cuda(
-    q, kv_pages, block_tables, kv_len, q_pos, items, *,
+    q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, *,
     d_v, variant, scale, block_k, num_dest_slots, softcap,
 ):
     """Launch ``csrc/mla_decode_paged.cu`` on the current stream."""
     b, g, d_k = q.shape
     num_pages, page_size, _ = kv_pages.shape
     dev = q.device
-    for name, t in (("kv_pages", kv_pages), ("block_tables", block_tables),
-                    ("kv_len", kv_len), ("q_pos", q_pos)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    _check_on(dev, kv_pages=kv_pages, block_tables=block_tables, kv_len=kv_len,
+              q_pos=q_pos, kv_scales=kv_scales)
     for t in items:
         if t.device != dev:
             raise ValueError(f"work-queue arrays must be on {dev}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"q dtype {q.dtype}: the kernel takes bf16 or fp32")
-    if kv_pages.dtype not in (torch.bfloat16, torch.float32):
+    if kv_pages.dtype not in _POOL_KIND:
         raise TypeError(
-            f"kv_pages dtype {kv_pages.dtype}: the kernel takes bf16 or fp32 "
-            "pools (int8 pages come in a later slice)"
+            f"kv_pages dtype {kv_pages.dtype}: the kernel takes bf16, fp32 "
+            "or int8 (with kv_scales) pools"
+        )
+    if (kv_pages.dtype == torch.int8) != (kv_scales is not None):
+        raise ValueError("kv_scales go with int8 pools, and only with them")
+    if kv_scales is not None and (
+        kv_scales.dtype != torch.float32 or kv_scales.shape != (num_pages, page_size)
+    ):
+        raise ValueError(
+            f"kv_scales must be fp32 (num_pages={num_pages}, "
+            f"page_size={page_size}); got {kv_scales.dtype} {tuple(kv_scales.shape)}"
         )
     if d_v > 512 or d_v > d_k or block_k > 512:
         raise ValueError(
@@ -181,11 +215,15 @@ def _queue_rows_cuda(
     bt, lens, pos = i32(block_tables), i32(kv_len), i32(q_pos)
     items = [i32(t) for t in items]
     q, kv_pages = q.contiguous(), kv_pages.contiguous()
+    scales_ptr = None
+    if kv_scales is not None:
+        kv_scales = kv_scales.contiguous()
+        scales_ptr = kv_scales.data_ptr()
     o_part = torch.empty((num_dest_slots, g, d_v), dtype=torch.float32, device=dev)
     lse = torch.empty((num_dest_slots, g, 1), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.amla_mla_decode_paged_queue(
-        q.data_ptr(), kv_pages.data_ptr(), bt.data_ptr(), lens.data_ptr(),
+        q.data_ptr(), kv_pages.data_ptr(), scales_ptr, bt.data_ptr(), lens.data_ptr(),
         pos.data_ptr(), *(t.data_ptr() for t in items),
         o_part.data_ptr(), lse.data_ptr(),
         g, d_k, d_v, num_pages, page_size, bt.shape[1], items[0].shape[0],
@@ -193,12 +231,27 @@ def _queue_rows_cuda(
         0.0 if softcap is None else float(softcap),
         1 if variant == "amla" else 0,
         1 if q.dtype == torch.bfloat16 else 0,
-        1 if kv_pages.dtype == torch.bfloat16 else 0,
+        _POOL_KIND[kv_pages.dtype],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "mla_decode_paged_queue_rows")
-    mla_decode_paged_queue_rows.launches += 1
     return o_part, lse
+
+
+def _queue_rows(q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, **kw):
+    """Check the geometry, then run the kernel (CUDA ``q``) or its plain
+    version (CPU ``q``); counting the launch is the caller's."""
+    num_pages, page_size, _ = kv_pages.shape
+    block_k = kw["block_k"]
+    if block_k % page_size or block_k < page_size:
+        raise ValueError(
+            f"block_k={block_k} must be a positive multiple of "
+            f"page_size={page_size}"
+        )
+    if kw["variant"] not in ("amla", "base"):
+        raise ValueError(f"unknown variant {kw['variant']!r}; pick 'amla' or 'base'")
+    impl = _queue_rows_cuda if q.is_cuda else _queue_rows_plain
+    return impl(q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, **kw)
 
 
 def mla_decode_paged_queue_rows(
@@ -213,6 +266,7 @@ def mla_decode_paged_queue_rows(
     item_first: torch.Tensor,  # (N,) int32 │ (see decode_schedule)
     item_last: torch.Tensor,  # (N,) int32 │
     item_valid: torch.Tensor,  # (N,) int32 ┘
+    kv_scales: torch.Tensor | None = None,  # (P, page_size) f32, int8 pools
     *,
     d_v: int = 512,
     variant: str = "amla",
@@ -225,25 +279,209 @@ def mla_decode_paged_queue_rows(
     fp32 normalized partials per destination slot.  Slots without items
     hold zeros and ``lse = -inf``; the combine never reads them.
 
-    A CUDA ``q`` launches the kernel (and counts one launch in
-    ``mla_decode_paged_queue_rows.launches``); a CPU ``q`` runs the plain
-    version.  There is no fallback between the two.
+    With an int8 pool, ``kv_scales`` is its per-row fp32 scale pool.  A
+    CUDA ``q`` launches the kernel and counts one launch in
+    ``mla_decode_paged_queue_rows.launches`` (bf16/fp32 pools) or
+    ``.int8_launches`` (int8 pools); a CPU ``q`` runs the plain version.
+    There is no fallback between the two.
     """
-    num_pages, page_size, _ = kv_pages.shape
-    if block_k % page_size or block_k < page_size:
-        raise ValueError(
-            f"block_k={block_k} must be a positive multiple of "
-            f"page_size={page_size}"
-        )
-    if variant not in ("amla", "base"):
-        raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
     items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
-    impl = _queue_rows_cuda if q.is_cuda else _queue_rows_plain
-    return impl(
-        q, kv_pages, block_tables, kv_len, q_pos, items,
+    out = _queue_rows(
+        q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales,
         d_v=d_v, variant=variant, scale=scale, block_k=block_k,
         num_dest_slots=num_dest_slots, softcap=softcap,
     )
+    if q.is_cuda:
+        if kv_scales is None:
+            mla_decode_paged_queue_rows.launches += 1
+        else:
+            mla_decode_paged_queue_rows.int8_launches += 1
+    return out
 
 
 mla_decode_paged_queue_rows.launches = 0
+mla_decode_paged_queue_rows.int8_launches = 0
+
+
+def mla_decode_paged_group_prefix(
+    q: torch.Tensor,  # (B, G, Dk) per-request query rows
+    kv_pages: torch.Tensor,  # (P, page_size, Dk) page pool
+    block_tables: torch.Tensor,  # (B, W) int32
+    q_pos: torch.Tensor,  # (B, G) int32 real query positions
+    group_member: torch.Tensor,  # (n_groups, gmax) int32 request idx, -1 pad
+    group_rep: torch.Tensor,  # (n_groups,) int32 table row per group
+    prefix_lens: torch.Tensor,  # (n_groups,) int32 shared rows (block multiple)
+    item_req: torch.Tensor,  # ┐
+    item_block: torch.Tensor,  # │
+    item_dest: torch.Tensor,  # │ prefix work queue: one item per
+    item_first: torch.Tensor,  # │ (group, shared kv_block)
+    item_last: torch.Tensor,  # │
+    item_valid: torch.Tensor,  # ┘
+    kv_scales: torch.Tensor | None = None,  # (P, page_size) f32, int8 pools
+    *,
+    d_v: int = 512,
+    variant: str = "amla",
+    scale: float,
+    block_k: int,
+    num_dest_slots: int,
+    softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shared-prefix attention computed once per group over stacked queries.
+
+    Each group is one virtual request for the queue kernel: its query rows
+    are every member's ``G`` rows stacked (``gmax * G``; padded member
+    slots get ``q_pos = -1``, which masks every key), its block table is
+    the representative member's row (the shared pages are aliased, so any
+    member's row names them) and its ``kv_len`` the shared-prefix length.
+    Returns per-member partials ``(num_dest_slots * gmax, G, Dv)`` /
+    ``(..., G, 1)``: row ``dest * gmax + slot`` is member ``slot``'s
+    normalized prefix partial; padded member rows are exact zeros with
+    ``lse = -inf``.  A CUDA ``q`` launches the queue kernel once and counts
+    it in ``mla_decode_paged_group_prefix.launches`` (not in the queue
+    kernel's own counts).
+    """
+    items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
+    out = _group_prefix(
+        _queue_rows, q, kv_pages, block_tables, q_pos, group_member, group_rep,
+        prefix_lens, items, kv_scales, d_v=d_v, variant=variant, scale=scale,
+        block_k=block_k, num_dest_slots=num_dest_slots, softcap=softcap,
+    )
+    if q.is_cuda:
+        mla_decode_paged_group_prefix.launches += 1
+    return out
+
+
+mla_decode_paged_group_prefix.launches = 0
+
+
+def _group_prefix(rows_fn, q, kv_pages, block_tables, q_pos, group_member, group_rep,
+                  prefix_lens, items, kv_scales, *, num_dest_slots, **kw):
+    """Stack each group's member queries, run ``rows_fn`` (the queue
+    kernel or its plain version) once over the groups, and reshape the
+    outputs per member."""
+    b, g, d_k = q.shape
+    n_groups, gmax = group_member.shape
+    group_member = group_member.to(device=q.device, dtype=torch.long)
+    member = torch.clamp(group_member, 0, b - 1)
+    live = group_member >= 0
+    q_grp = q[member].reshape(n_groups, gmax * g, d_k)
+    pos_grp = torch.where(
+        live[:, :, None], q_pos.to(torch.int32)[member], -1
+    ).reshape(n_groups, gmax * g)
+    bt_grp = block_tables[group_rep.to(device=block_tables.device, dtype=torch.long)]
+    o_grp, lse_grp = rows_fn(
+        q_grp, kv_pages, bt_grp, prefix_lens.to(torch.int32), pos_grp, items,
+        kv_scales, num_dest_slots=num_dest_slots, **kw,
+    )
+    # (D_pref, gmax*G, .) -> per-member rows (D_pref*gmax, G, .)
+    return (
+        o_grp.reshape(num_dest_slots * gmax, g, kw["d_v"]),
+        lse_grp.reshape(num_dest_slots * gmax, g, 1),
+    )
+
+
+def _group_prefix_plain(*args, **kw):
+    """Plain version of K2′ on tensors of any device: the same stacking
+    around the queue kernel's plain version."""
+    return _group_prefix(_queue_rows_plain, *args, **kw)
+
+
+def _padded_rows_plain(q, kv_pages, block_tables, kv_len, q_pos, *,
+                       d_v, variant, scale, softcap):
+    """Plain version of K5: each request walks its ``W`` table slots, one
+    AMLA update per page that starts below its ``kv_len`` (the reference's
+    skipped tail steps cost no compute)."""
+    b, g, _ = q.shape
+    num_pages, page_size, _ = kv_pages.shape
+    w = block_tables.shape[1]
+    bt = clamp_tail_pages(block_tables, kv_len, page_size, num_pages).tolist()
+    lens = kv_len.tolist()
+    out = torch.zeros((b, g, d_v), dtype=torch.float32, device=q.device)
+    for r in range(b):
+        st = _mla.init_decode_state(g, d_v, q.device)
+        pos = q_pos[r].to(torch.int64)[:, None]
+        k_len = lens[r]
+        for i in range(w):
+            start = i * page_size
+            if start >= k_len:
+                break
+            c_blk = kv_pages[bt[r][i]].to(q.dtype)
+            s = _mla.masked_scores(
+                q[r], c_blk, start, scale=scale, softcap=softcap,
+                visible=lambda k: (k < k_len) & (k <= pos),
+            )
+            _mla.decode_block_update(st, s, c_blk, d_v=d_v, variant=variant,
+                                     mm_dtype=q.dtype)
+        out[r] = _mla.finalize_decode(st, variant=variant)
+    return out
+
+
+def _padded_rows_cuda(q, kv_pages, block_tables, kv_len, q_pos, *,
+                      d_v, variant, scale, softcap):
+    """Launch ``csrc/mla_decode_paged_padded.cu`` on the current stream."""
+    b, g, d_k = q.shape
+    num_pages, page_size, _ = kv_pages.shape
+    dev = q.device
+    _check_on(dev, kv_pages=kv_pages, block_tables=block_tables, kv_len=kv_len,
+              q_pos=q_pos)
+    for name, t in (("q", q), ("kv_pages", kv_pages)):
+        if t.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"{name} dtype {t.dtype}: the kernel takes bf16 or fp32")
+    if d_v > 512 or d_v > d_k or page_size > 512:
+        raise ValueError(
+            f"d_v={d_v}, page_size={page_size}: the kernel takes d_v <= "
+            f"min(512, d_k) and page_size <= 512"
+        )
+    if q_pos.shape != (b, g):
+        raise ValueError(f"q_pos must be (B={b}, G={g}); got {tuple(q_pos.shape)}")
+    i32 = lambda t: t.to(torch.int32).contiguous()
+    bt, lens, pos = i32(block_tables), i32(kv_len), i32(q_pos)
+    q, kv_pages = q.contiguous(), kv_pages.contiguous()
+    out = torch.empty((b, g, d_v), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    err = lib.amla_mla_decode_paged_padded(
+        q.data_ptr(), kv_pages.data_ptr(), bt.data_ptr(), lens.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), b, g, d_k, d_v, num_pages, page_size,
+        bt.shape[1], float(scale), 0.0 if softcap is None else float(softcap),
+        1 if variant == "amla" else 0,
+        1 if q.dtype == torch.bfloat16 else 0,
+        1 if kv_pages.dtype == torch.bfloat16 else 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "mla_decode_paged_rows")
+    mla_decode_paged_rows.launches += 1
+    return out
+
+
+def mla_decode_paged_rows(
+    q: torch.Tensor,  # (B, G, Dk)
+    kv_pages: torch.Tensor,  # (P, page_size, Dk) page pool (bf16 / fp32)
+    block_tables: torch.Tensor,  # (B, W) int32
+    kv_len: torch.Tensor,  # (B,) int32
+    q_pos: torch.Tensor,  # (B, G) int32
+    *,
+    d_v: int = 512,
+    variant: str = "amla",
+    scale: float,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Row-level paged decode over the padded ``(B, W)`` grid (K5);
+    ``(B, G, Dv)`` fp32.
+
+    Each request walks its ``W`` logical pages with one AMLA update per
+    page; tail entries past its last page may hold any in-range ids (they
+    are redirected to the request's own last valid page and their compute
+    is skipped).  ``kv_len == 0`` yields exact zeros.  A CUDA ``q``
+    launches the kernel (one more in ``mla_decode_paged_rows.launches``); a
+    CPU ``q`` runs the plain version.
+    """
+    if block_tables.shape[1] < 1:
+        raise ValueError("block_tables must have at least one page column")
+    if variant not in ("amla", "base"):
+        raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
+    impl = _padded_rows_cuda if q.is_cuda else _padded_rows_plain
+    return impl(q, kv_pages, block_tables, kv_len, q_pos, d_v=d_v, variant=variant,
+                scale=scale, softcap=softcap)
+
+
+mla_decode_paged_rows.launches = 0

@@ -174,11 +174,31 @@ def _validate_paged_geometry(
     otherwise reject late (or worse, read garbage)."""
     b = q.shape[0]
     num_pages, page_size, dk_pages = kv_pages.shape
-    if kv_pages.dtype == torch.int8 or kv_scales is not None:
-        raise NotImplementedError(
-            "int8 pages with kv_scales are not ported yet: the quantized "
-            "queue kernel comes in a later slice of the port"
-        )
+    if kv_pages.dtype == torch.int8:
+        if kv_scales is None:
+            raise ValueError(
+                "int8 kv_pages need their per-row fp32 scale pool: pass "
+                "kv_scales (PagedKVCache.scales) — symmetric int8 rows are "
+                "meaningless without the dequant scales"
+            )
+        if scheduler != "queue":
+            raise ValueError(
+                f"scheduler={scheduler!r} does not support int8 pages; the "
+                f"fused in-pipeline dequant lives in the work-queue kernel "
+                f"(the padded (B, W) baseline stays bf16-only)"
+            )
+    if kv_scales is not None:
+        if kv_pages.dtype != torch.int8:
+            raise ValueError(
+                f"kv_scales given but kv_pages dtype is {kv_pages.dtype} — "
+                f"scale pools accompany int8 pools only"
+            )
+        if tuple(kv_scales.shape) != (num_pages, page_size):
+            raise ValueError(
+                f"kv_scales must be (num_pages={num_pages}, "
+                f"page_size={page_size}) — one fp32 scale per page row; "
+                f"got {tuple(kv_scales.shape)}"
+            )
     if block_tables.ndim != 2 or block_tables.shape[0] != b:
         raise ValueError(
             f"block_tables must be (B={b}, W); got {tuple(block_tables.shape)} — "
@@ -282,6 +302,30 @@ def _schedule_tensors(schedule, device) -> tuple[torch.Tensor, ...]:
     return schedule.device_arrays[key]
 
 
+def _prefix_tensors(ps, device) -> tuple[torch.Tensor, ...]:
+    """A :class:`~repro_torch.kernels.decode_schedule.PrefixSchedule`'s
+    group arrays, prefix queue and combine tables on ``device``, copied
+    once per schedule and device."""
+    key = str(device)
+    if key not in ps.device_arrays:
+        g = ps.groups
+        dest, n_live = ps.hetero_dest_tables()
+        arrays = (g.group_member, g.group_rep, ps.prefix_lens, dest, n_live)
+        if ps.prefix is not None:
+            arrays += ps.prefix.prefetch_arrays()
+        ps.device_arrays[key] = tuple(
+            torch.as_tensor(a, dtype=torch.int32, device=device) for a in arrays
+        )
+    return ps.device_arrays[key]
+
+
+_PARTIALS_NEED_QUEUE = (
+    "return_partials needs the plain queue scheduler (padded and "
+    "prefix-sharing paths merge heterogeneous partial sets and do not "
+    "expose a per-row lse)"
+)
+
+
 def mla_decode_paged(
     q: torch.Tensor,  # (B, Sq, Hq, Dk)
     kv_pages: torch.Tensor,  # (P, page_size, Dk) physical page pool
@@ -301,43 +345,45 @@ def mla_decode_paged(
     num_splits: int = 1,
     schedule=None,
     prefix_sharing: bool = False,
+    min_group: int = 2,
     compute_dtype=None,
-) -> torch.Tensor:
+    return_partials: bool = False,
+):
     """MLA decode over a paged latent cache; returns ``(B, Sq, Hq, Dv)`` fp32.
 
     Query rows are ``(Sq, Hq)`` flattened, each head repeating its token's
     position: ``kv_len - Sq + arange(Sq)`` by default, ``q_offset +
-    arange(Sq)``, or explicit ``q_positions (B, Sq)``; ``causal=False``
-    lifts the causal bound.  The work queue is built host-side from
-    ``kv_len`` unless a precomputed ``schedule`` (a
-    :class:`~repro_torch.kernels.decode_schedule.DecodeSchedule` for the
-    same block counts) is passed; requests with more than one block split
-    across up to ``num_splits`` slots, merged by the combine kernel, which
-    runs on every call.  ``compute_dtype`` (default bf16) is the matmul
-    dtype; pages are read in their storage dtype and cast per element.
+    arange(Sq)``, or explicit ``q_positions (B, Sq)`` (queue scheduler
+    only); ``causal=False`` lifts the causal bound.  ``compute_dtype``
+    (default bf16) is the matmul dtype; pages are read in their storage
+    dtype and cast per element.
+
+    ``scheduler`` picks the kernel:
+
+    * ``"queue"`` (default): the work-queue kernel (K2) over a schedule
+      built host-side from ``kv_len`` unless a precomputed ``schedule`` is
+      passed; requests with more than one block split across up to
+      ``num_splits`` slots, merged by the combine kernel (K3), which runs
+      on every call.  ``prefix_sharing=True`` (or a ``PrefixSchedule`` as
+      ``schedule``) adds the group-batched prefix pass (K2′): requests
+      whose tables alias the same leading pages (groups of at least
+      ``min_group``) attend their shared blocks once per group over
+      stacked queries, and the combine merges prefix and suffix partials.
+      ``kv_scales`` selects an int8 pool (K2-int8).  ``return_partials``
+      (the per-row lse for sharded serving) raises: with the padded or
+      prefix-sharing paths the reference's ``ValueError``, on the plain
+      queue ``NotImplementedError`` until sharded serving is ported.
+    * ``"padded"``: the ``(B, W)`` baseline (K5), bf16/fp32 pools only.
 
     Value checks on ``kv_len`` / ``q_positions`` run when they are host data
     (numpy, lists or CPU tensors) and are skipped for CUDA tensors.
-    ``prefix_sharing``, ``kv_scales`` (int8 pools) and
-    ``scheduler="padded"`` belong to later slices of the port and raise
-    ``NotImplementedError``.
     """
     b, sq, hq, dk = q.shape
     dev = q.device
     compute_dtype = torch.bfloat16 if compute_dtype is None else compute_dtype
-    if scheduler == "padded":
-        raise NotImplementedError(
-            "scheduler='padded' (the (B, W) baseline kernel) is not ported "
-            "yet; it comes in a later slice of the port"
-        )
-    if scheduler != "queue":
-        raise ValueError(f"unknown scheduler {scheduler!r}")
-    if prefix_sharing:
-        raise NotImplementedError(
-            "prefix_sharing (the group-batched shared-prefix kernel) is not "
-            "ported yet; it comes in a later slice of the port"
-        )
-    _validate_paged_geometry(q, kv_pages, block_tables, kv_len, block_k, kv_scales)
+    _validate_paged_geometry(
+        q, kv_pages, block_tables, kv_len, block_k, kv_scales, scheduler
+    )
     if q_positions is not None:
         _validate_q_positions(q_positions, b, sq, kv_len, scheduler, q_offset, causal)
     lens = torch.as_tensor(kv_len, device=dev).to(torch.int32).reshape(-1)
@@ -352,36 +398,89 @@ def mla_decode_paged(
         q_pos = torch.full((b, sq), cap, dtype=torch.int32, device=dev)
     rows_pos = torch.repeat_interleave(q_pos, hq, dim=1)  # (B, Sq*Hq)
     q_rows = q.reshape(b, sq * hq, dk).to(compute_dtype)
+    bt = torch.as_tensor(block_tables, device=dev)
+
+    if return_partials and (scheduler != "queue" or prefix_sharing):
+        raise ValueError(_PARTIALS_NEED_QUEUE)
+    if scheduler == "padded":
+        if prefix_sharing:
+            raise ValueError(
+                "prefix_sharing requires scheduler='queue' (the padded "
+                "(B, W) grid walks every request independently and cannot "
+                "batch shared-prefix groups)"
+            )
+        out = _mla_paged.mla_decode_paged_rows(
+            q_rows, kv_pages, bt, lens, rows_pos, d_v=d_v, variant=variant,
+            scale=scale, softcap=softcap,
+        )
+        return out.reshape(b, sq, hq, d_v)
+    if scheduler != "queue":
+        raise ValueError(f"unknown scheduler {scheduler!r}")
 
     page_size = kv_pages.shape[1]
     if block_k is None:
         block_k = default_paged_block_k(page_size, block_tables.shape[1])
+    if isinstance(schedule, _sched.PrefixSchedule):
+        prefix_sharing = True
+    elif schedule is not None and prefix_sharing:
+        raise ValueError(
+            "prefix_sharing=True needs a decode_schedule.PrefixSchedule "
+            f"(got {type(schedule).__name__}); build one with "
+            "build_prefix_schedule or let schedule=None"
+        )
     if schedule is not None and schedule.block_k != block_k:
         raise ValueError(
             f"schedule was built for block_k={schedule.block_k}, "
             f"call requested {block_k}"
         )
+    kw = dict(d_v=d_v, variant=variant, scale=scale, block_k=block_k, softcap=softcap)
+    host_lens = None
     if schedule is None:
         host_lens = _host_values(kv_len)
         if host_lens is None:
             host_lens = lens.cpu().numpy()
+    if prefix_sharing:
+        if return_partials:
+            raise ValueError(_PARTIALS_NEED_QUEUE)
+        ps = schedule
+        if ps is None:
+            host_bt = _host_values(block_tables)
+            if host_bt is None:
+                host_bt = bt.cpu().numpy()
+            ps = _sched.build_prefix_schedule(
+                host_lens, host_bt, page_size=page_size, block_k=block_k,
+                num_splits=num_splits, min_group=min_group,
+            )
+        *items, _, _ = _schedule_tensors(ps.suffix, dev)
+        o_suf, lse_suf = _mla_paged.mla_decode_paged_queue_rows(
+            q_rows, kv_pages, bt, lens, rows_pos, *items, kv_scales,
+            num_dest_slots=ps.suffix.num_dest_slots, **kw,
+        )
+        o_parts, lse_parts = [o_suf], [lse_suf]
+        member, rep, prefix_lens, dest, n_live, *pitems = _prefix_tensors(ps, dev)
+        if ps.num_groups:
+            o_pref, lse_pref = _mla_paged.mla_decode_paged_group_prefix(
+                q_rows, kv_pages, bt, rows_pos, member, rep, prefix_lens,
+                *pitems, kv_scales, num_dest_slots=ps.prefix.num_dest_slots, **kw,
+            )
+            o_parts.append(o_pref)
+            lse_parts.append(lse_pref)
+        out = _combine.combine_hetero_partials(o_parts, lse_parts, dest, n_live)
+        return out.reshape(b, sq, hq, d_v)
+
+    if return_partials:
+        raise NotImplementedError(
+            "return_partials (per-row lse for merging shard-local results) "
+            "is not ported yet; it comes with sharded serving"
+        )
+    if schedule is None:
         schedule = _sched.build_schedule(
             host_lens, block_k=block_k, num_splits=num_splits
         )
     *items, dest_table, n_splits = _schedule_tensors(schedule, dev)
     o_part, lse = _mla_paged.mla_decode_paged_queue_rows(
-        q_rows,
-        kv_pages,
-        torch.as_tensor(block_tables, device=dev),
-        lens,
-        rows_pos,
-        *items,
-        d_v=d_v,
-        variant=variant,
-        scale=scale,
-        block_k=block_k,
-        num_dest_slots=schedule.num_dest_slots,
-        softcap=softcap,
+        q_rows, kv_pages, bt, lens, rows_pos, *items, kv_scales,
+        num_dest_slots=schedule.num_dest_slots, **kw,
     )
     out = _combine.combine_split_partials(o_part, lse, dest_table, n_splits)
     return out.reshape(b, sq, hq, d_v)

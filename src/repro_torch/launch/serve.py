@@ -10,13 +10,17 @@ Runs a request stream through one of two cache backends:
   :class:`PagedServingSession`, the full model decoding over a
   LayeredPagedKVCache via the AMLA paged kernels, with chunked
   prefill-into-pages and one decode schedule per step shared by all
-  layers.
+  layers.  ``--kv-dtype int8`` stores the latent pages as int8 with
+  per-row scales; ``--shared-prefix`` serves a forked system-prompt family
+  (a parent and two ``admit_with_prefix`` children) with group-batched
+  prefix attention instead of the request stream.
 
 Random weights come from ``--seed``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve [--cache dense|paged] \\
-        [--arch NAME] --smoke --requests 6 --gen-len 16 [--device cuda|cpu]
+        [--arch NAME] --smoke --requests 6 --gen-len 16 [--device cuda|cpu] \\
+        [--kv-dtype bf16|int8] [--shared-prefix]
 
 ``--device`` defaults to ``cuda`` and the run fails without it; ``cpu``
 runs the kernels' plain PyTorch versions.
@@ -99,6 +103,38 @@ def _serve_stream(sess, pending, gen_len, requests):
     return results, tokens_out, dt
 
 
+def _shared_prefix_demo(sess, cfg, seed, gen_len):
+    """Forked system-prompt traffic: one parent, aliased children."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(2, cfg.vocab_size, size=48).tolist()
+    parent = sess.add_request(system)
+    if parent is None:
+        raise SystemExit(
+            "shared-prefix demo: the system prompt does not fit — raise "
+            "--num-pages/--batch"
+        )
+    kids = []
+    for _ in range(2):
+        suffix = rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, 10)))
+        kid = sess.admit_with_prefix(parent, suffix.tolist())
+        if kid is None:
+            raise SystemExit(
+                "shared-prefix demo: could not admit a forked child — raise "
+                "--num-pages/--batch (needs the parent plus two children live)"
+            )
+        kids.append(kid)
+    print(
+        f"shared-prefix demo: parent {parent} + children {kids}; "
+        f"{sess.work_stats()['aliased_pages']} pages aliased across "
+        f"{cfg.n_layers} layers (zero rows copied)"
+    )
+    for _ in range(gen_len):
+        sess.step()
+    for rid in [parent] + kids:
+        out = sess.finish(rid)
+        print(f"request {rid} done: {len(out)} tokens: {out[:8]}...")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
@@ -115,12 +151,25 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=32)
     ap.add_argument("--block-k", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8"), default=None,
+                    help="paged only: latent-cache storage dtype; int8 "
+                    "stores per-row-scaled int8 pages (dequant fused into "
+                    "the kernel); default = model dtype")
+    ap.add_argument("--shared-prefix", action="store_true",
+                    help="paged only: serve a forked system-prompt family "
+                    "with group-batched prefix attention")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default) launches the CUDA kernels; cpu runs "
                     "their plain PyTorch versions")
     args = ap.parse_args(argv)
 
+    if args.cache != "paged":
+        if args.kv_dtype is not None:
+            raise SystemExit("--kv-dtype needs --cache paged (dense caches "
+                             "store activations at the model dtype)")
+        if args.shared_prefix:
+            raise SystemExit("--shared-prefix needs --cache paged")
     device = resolve_device(args.device)
     arch = args.arch or ("deepseek-v2-mla" if args.cache == "paged" else "qwen1.5-0.5b")
     cfg = get_config(arch, smoke=args.smoke)
@@ -134,11 +183,23 @@ def main(argv=None):
             page_size=args.page_size,
             block_k=args.block_k,
             prefill_chunk=args.prefill_chunk,
+            prefix_sharing=args.shared_prefix,
             max_batch=args.batch,
+            kv_dtype=args.kv_dtype,
         )
     else:
         sess = ServingSession(model, params, batch_size=args.batch, max_len=args.max_len)
     print(f"serving {arch} with the {args.cache} cache backend on {device}")
+    if args.shared_prefix:
+        _shared_prefix_demo(sess, cfg, args.seed, args.gen_len)
+        stats = sess.scheduler_stats
+        print(
+            f"scheduler: {stats['rebuilds']} rebuilds, {stats['hits']} "
+            f"reuse hits; prefill compiles: {sess.prefill_compiles}"
+        )
+        sweep = sess.close()
+        print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")
+        return
     rng = np.random.default_rng(args.seed)
     pending = [
         rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, 24))).tolist()
@@ -160,7 +221,8 @@ def main(argv=None):
         f"decode schedules: {stats['rebuilds']} built, {stats['hits']} "
         f"step reuses across {work['decode_steps']} steps x "
         f"{cfg.n_layers} layers; {work['page_dmas']} page DMAs "
-        f"({work['page_dma_bytes'] / 1e6:.2f} MB at model cache dtype)"
+        f"({work['page_dma_bytes'] / 1e6:.2f} MB at "
+        f"{args.kv_dtype or 'model'} cache dtype)"
     )
     sweep = sess.close()
     print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")

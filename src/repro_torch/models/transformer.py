@@ -245,6 +245,8 @@ def _paged_attend(q, cache, layer, bt, kv_len, *, cfg, block_k, schedule,
         cache.layer_pages(layer),
         bt,
         kv_len,
+        # int8 pools carry per-row dequant scales (None otherwise).
+        kv_scales=cache.layer_scales(layer),
         d_v=cfg.mla.d_latent,
         variant=variant,
         scale=mla_scale(cfg),
@@ -287,7 +289,9 @@ def lm_prefill_paged(
     zero-padded: its padded query rows attend like real ones and are
     dropped); each chunk's latents are appended into ``rid``'s pages layer
     by layer, and each layer attends its ``chunk * H`` query rows over the
-    request's pages with per-row causal positions.
+    request's pages with per-row causal positions.  ``start_pos > 0``
+    continues a sequence (a forked request's suffix) over the pages it
+    aliases, which it never recomputes.
     """
     check_paged_compatible(cfg)
     _check_head_shards(head_shards)
@@ -350,16 +354,14 @@ def lm_decode_step_paged(
     Appends are atomic (:class:`OutOfPagesError` before any page is
     claimed), then each layer appends its latent row(s) and attends.  The
     schedule is built once per step and shared by every layer (memoized
-    across steps when ``scheduler`` is given).  ``S > 1`` attends all rows
-    in one call with explicit per-row positions (``q_positions``).
+    across steps when ``scheduler`` is given); with ``prefix_sharing`` it
+    is a ``PrefixSchedule``, so requests that alias the same leading pages
+    attend their shared blocks once per group in every layer.  ``S > 1``
+    attends all rows in one call with explicit per-row positions
+    (``q_positions``).
     """
     check_paged_compatible(cfg)
     _check_head_shards(head_shards)
-    if prefix_sharing:
-        raise NotImplementedError(
-            "prefix_sharing (group-batched shared-prefix attention) is not "
-            "ported yet; it comes in a later slice of the port"
-        )
     if len(rids) == 0:
         raise ValueError("decode step needs at least one live request")
     tokens = np.asarray(tokens, np.int64)
@@ -394,7 +396,17 @@ def lm_decode_step_paged(
             w += m
     bt, kv_len = cache.block_table(rids, width=tw)
     if scheduler is not None:
-        schedule = scheduler.schedule(kv_len, extra_key=extra_key)
+        if prefix_sharing:
+            schedule = scheduler.schedule_prefix(
+                kv_len, bt, page_size=cache.page_size, extra_key=extra_key
+            )
+        else:
+            schedule = scheduler.schedule(kv_len, extra_key=extra_key)
+    elif prefix_sharing:
+        schedule = _sched.build_prefix_schedule(
+            kv_len, bt, page_size=cache.page_size, block_k=block_k,
+            num_splits=num_splits,
+        )
     else:
         schedule = _sched.build_schedule(kv_len, block_k=block_k, num_splits=num_splits)
 

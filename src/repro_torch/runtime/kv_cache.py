@@ -1,16 +1,23 @@
 """Paged latent-KV cache: fixed-size pages + per-request block tables.
 
-Counterpart of ``repro/runtime/kv_cache.py`` (bf16/fp32 pools).  One
-device pool holds ``num_pages`` pages of ``page_size`` latent rows (the
-576-wide ``[c ; k_rope]`` rows of MLA); requests own ordered lists of
-physical page ids, appends grab pages on demand off a FIFO free list, and
-freeing returns them.  Pages carry refcounts so ``refcount_sweep`` can
-audit the bookkeeping.  Page bookkeeping is host-side Python; only the
-pool lives on the device, and row writes are in-place ``index_put_`` /
-slice copies.
+Counterpart of ``repro/runtime/kv_cache.py``.  One device pool holds
+``num_pages`` pages of ``page_size`` latent rows (the 576-wide
+``[c ; k_rope]`` rows of MLA); requests own ordered lists of physical page
+ids, appends grab pages on demand off a FIFO free list, and freeing
+returns them.  Pages are refcounted: :meth:`PagedKVCache.fork` aliases a
+prefix of one request's pages into another without copying a row, and an
+append into a shared (partial) boundary page first gives the writer a
+private copy (copy-on-write; for the layered cache one copy covers every
+layer).
 
-Not in this slice: ``fork`` / copy-on-write, ``truncate``,
-``adopt_pages`` / retention pins, the prefix trie and int8 pools.
+An int8 :class:`CacheSpec` stores symmetric per-row int8 rows with a
+companion fp32 scale pool (``scales``): rows are quantized on write
+(:func:`_quantize_rows`, bit for bit the reference's), and page copies move
+data and scales together.
+
+Page bookkeeping is host-side Python; only the pools live on the device,
+and row writes are in-place ``index_put_`` / slice copies.  Not in this
+slice: ``truncate``, ``adopt_pages`` / retention pins and the prefix trie.
 """
 
 from __future__ import annotations
@@ -24,6 +31,29 @@ from repro_torch.core.device import resolve_device
 from repro_torch.kernels.mla_decode_paged import DEFAULT_PAGE_SIZE, CacheSpec
 
 __all__ = ["CacheSpec", "LayeredPagedKVCache", "OutOfPagesError", "PagedKVCache"]
+
+
+# fp32 1/127.  The reference's cache writes run ``_quantize_rows`` under
+# jit, where XLA turns the division by the constant 127 into a multiply by
+# its fp32 reciprocal; the scales, and so the pool bytes, follow that form.
+_INV_127 = torch.tensor(np.float32(1.0) / np.float32(127.0))
+
+
+def _quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: ``q = round(x / σ)`` with ``σ = max|row|/127``
+    (computed as ``max|row| * fp32(1/127)``, as the reference's jitted
+    writes compute it).
+
+    All-zero rows get ``σ = 1/127``; rows are widened to fp32 first, so
+    bf16 inputs quantize as their fp32 values.  Rounding is half to even,
+    as ``jnp.round``.  Returns ``(int8 rows, fp32 scales)``, the scales
+    shaped like ``rows`` minus the trailing width axis.
+    """
+    rows = rows.to(torch.float32)
+    amax = rows.abs().amax(dim=-1)
+    scl = torch.where(amax > 0, amax, torch.ones_like(amax)) * _INV_127.to(rows.device)
+    q = torch.clamp(torch.round(rows / scl[..., None]), -127, 127)
+    return q.to(torch.int8), scl
 
 
 class OutOfPagesError(RuntimeError):
@@ -53,14 +83,10 @@ class PagedKVCache:
         self.page_size = page_size
         self.width = width
         self.spec = spec if spec is not None else CacheSpec(dtype=dtype)
-        if self.spec.quantized:
-            raise NotImplementedError(
-                "int8 page pools (per-row scales, quantize-on-write) are not "
-                "ported yet; they come in a later slice of the port"
-            )
         self.dtype = self.spec.dtype
         self.device = resolve_device(device)
         self.pages = self._make_pool()
+        self.scales = self._make_scale_pool() if self.quantized else None
         # FIFO free list: freed pages are reused in release order, so a
         # long-lived session produces fragmented block tables.
         self._free: deque[int] = deque(range(num_pages))
@@ -71,6 +97,11 @@ class PagedKVCache:
 
     # -- bookkeeping ---------------------------------------------------- #
     @property
+    def quantized(self) -> bool:
+        """True when the pool stores int8 rows + a per-row scale pool."""
+        return self.spec.quantized
+
+    @property
     def num_free_pages(self) -> int:
         return len(self._free)
 
@@ -78,10 +109,20 @@ class PagedKVCache:
         return -(-n_tokens // self.page_size)
 
     def pages_needed_for_append(self, rid: int | None, n_tokens: int) -> int:
-        """New pages an append of ``n_tokens`` to ``rid`` (or a new seq) grabs."""
+        """New pages an append of ``n_tokens`` to ``rid`` (or a new seq)
+        grabs, the copy-on-write page included when the append's first rows
+        land in a page another request shares."""
         used = self._seq_len.get(rid, 0) if rid is not None else 0
         have = len(self._seq_pages.get(rid, [])) if rid is not None else 0
-        return self.pages_needed(used + n_tokens) - have
+        need = self.pages_needed(used + n_tokens) - have
+        if (
+            rid is not None
+            and n_tokens > 0
+            and used % self.page_size
+            and self._ref[self._seq_pages[rid][used // self.page_size]] > 1
+        ):
+            need += 1  # COW copy of the shared boundary page
+        return need
 
     def has_room(self, rid: int | None, n_tokens: int) -> bool:
         """Can ``n_tokens`` more rows be appended to ``rid`` (or a new seq)?"""
@@ -115,11 +156,40 @@ class PagedKVCache:
             self._release_page(pid)
         del self._seq_len[rid]
 
+    def fork(self, src: int, dst: int, prefix_len: int | None = None) -> None:
+        """Create ``dst`` sharing ``src``'s first ``prefix_len`` rows (all of
+        them by default): every page that intersects the prefix, a partial
+        boundary page included, is aliased (refcount bumped), so a fork
+        copies no rows.  The next append into a shared boundary page, by
+        either side, copies it first (:meth:`reserve`)."""
+        if dst in self._seq_pages:
+            raise KeyError(f"sequence {dst} already allocated")
+        src_len = self._seq_len[src]  # KeyError if src is not live
+        if prefix_len is None:
+            prefix_len = src_len
+        if not 0 <= prefix_len <= src_len:
+            raise ValueError(
+                f"fork prefix_len={prefix_len} outside [0, {src_len}] "
+                f"(seq {src} has {src_len} rows)"
+            )
+        shared = self._seq_pages[src][: self.pages_needed(prefix_len)]
+        for pid in shared:
+            self._ref[pid] += 1
+        self._seq_pages[dst] = list(shared)
+        self._seq_len[dst] = prefix_len
+
     def seq_len(self, rid: int) -> int:
         return self._seq_len[rid]
 
+    def seq_pages(self, rid: int) -> list[int]:
+        return list(self._seq_pages[rid])
+
+    def page_refcount(self, pid: int) -> int:
+        """Owners of physical page ``pid`` (0 = on the free list)."""
+        return int(self._ref[pid])
+
     def num_aliased_pages(self) -> int:
-        """Physical pages shared by more than one request (0 without fork)."""
+        """Physical pages currently shared by more than one request."""
         return int(np.sum(self._ref > 1))
 
     def refcount_sweep(self) -> dict:
@@ -159,8 +229,55 @@ class PagedKVCache:
             dtype=self.dtype, device=self.device,
         )
 
+    def _make_scale_pool(self) -> torch.Tensor:
+        """Per-page-row fp32 dequant scales (quantized pools only)."""
+        return torch.zeros(
+            (self.num_pages, self.page_size), dtype=torch.float32, device=self.device
+        )
+
+    def _page(self, pid: int) -> tuple:
+        """Index of page ``pid`` in the pools (every layer of a layered
+        pool)."""
+        return (pid,)
+
+    def _store(self, index: tuple, rows: torch.Tensor) -> None:
+        """Write ``rows`` at ``pages[index]`` in place; an int8 pool
+        quantizes them and writes their scales at ``scales[index]``."""
+        if self.quantized:
+            q, scl = _quantize_rows(rows)
+            self.pages[index] = q
+            self.scales[index] = scl
+        else:
+            self.pages[index] = rows.to(self.dtype)
+
+    def _pool_copy_page(self, dst_pid: int, src_pid: int) -> None:
+        """Device copy of one page, scales included (the COW fault)."""
+        for pool in (self.pages, self.scales):
+            if pool is not None:
+                pool[self._page(dst_pid)] = pool[self._page(src_pid)]
+
+    @property
+    def _row_dtype(self) -> torch.dtype:
+        """Dtype appended rows are coerced to: fp32 for a quantized pool
+        (quantization happens in the write), else the pool's."""
+        return torch.float32 if self.quantized else self.dtype
+
+    def _validate_rows(self, rows) -> torch.Tensor:
+        rows = torch.as_tensor(rows, device=self.device).to(self._row_dtype)
+        if rows.ndim != 2 or rows.shape[1] != self.width:
+            raise ValueError(f"rows must be (n, {self.width}); got {tuple(rows.shape)}")
+        return rows
+
+    def append(self, rid: int, rows) -> None:
+        """Append ``rows (n, width)`` to sequence ``rid``, allocating pages;
+        :class:`OutOfPagesError` leaves the sequence unchanged."""
+        rows = self._validate_rows(rows)
+        self.write_reserved(self.reserve(rid, rows.shape[-2]), rows)
+
     def reserve(self, rid: int, n: int) -> list[tuple[int, int, int]]:
-        """Claim room for ``n`` more rows: grab pages, advance ``seq_len``,
+        """Claim room for ``n`` more rows: grab pages, copy a shared
+        boundary page before it is written (copy-on-write, one device copy
+        covering every layer and the scales), advance ``seq_len``, and
         return the write plan as ``(page_id, offset, count)`` chunks.
         Raises :class:`OutOfPagesError` up front, leaving the sequence
         unchanged."""
@@ -178,6 +295,14 @@ class PagedKVCache:
             if pos // self.page_size == len(page_list):
                 page_list.append(self._grab_page())
             pid = page_list[pos // self.page_size]
+            if self._ref[pid] > 1:
+                # Copy-on-write: the page is aliased by a fork; only ever
+                # the (partial) boundary page.
+                new_pid = self._grab_page()
+                self._pool_copy_page(new_pid, pid)
+                self._ref[pid] -= 1
+                page_list[pos // self.page_size] = new_pid
+                pid = new_pid
             in_page = pos % self.page_size
             m = min(self.page_size - in_page, n - off)
             chunks.append((pid, in_page, m))
@@ -186,10 +311,12 @@ class PagedKVCache:
         return chunks
 
     def write_reserved(self, chunks, rows: torch.Tensor) -> None:
-        """Fill reserved chunks with ``rows (n, width)``."""
+        """Fill reserved chunks with ``rows (n, width)`` (``(L, n, width)``
+        for a layered pool)."""
         off = 0
         for pid, in_page, m in chunks:
-            self.pages[pid, in_page : in_page + m] = rows[off : off + m]
+            self._store(self._page(pid) + (slice(in_page, in_page + m),),
+                        rows[..., off : off + m, :])
             off += m
 
     def block_table(
@@ -208,6 +335,22 @@ class PagedKVCache:
             bt[i, : len(pages)] = pages
             kv[i] = self._seq_len[r]
         return bt, kv
+
+    def _gather(self, rid: int, pages: torch.Tensor, scales) -> torch.Tensor:
+        """``rid``'s rows of ``pages`` (a ``(P, page, W)`` pool) as a
+        contiguous ``(len, width)`` tensor, dequantized by ``scales``."""
+        pids = self._seq_pages[rid]
+        if not pids:
+            return torch.zeros((0, self.width), dtype=self._row_dtype, device=self.device)
+        out = torch.cat([pages[p] for p in pids])
+        if scales is not None:
+            out = out.to(torch.float32) * torch.cat([scales[p] for p in pids])[:, None]
+        return out[: self._seq_len[rid]]
+
+    def gather_contiguous(self, rid: int) -> torch.Tensor:
+        """``rid``'s rows as a contiguous ``(len, width)`` tensor (test
+        helper); a quantized pool dequantizes to fp32."""
+        return self._gather(rid, self.pages, self.scales)
 
 
 class LayeredPagedKVCache(PagedKVCache):
@@ -247,36 +390,53 @@ class LayeredPagedKVCache(PagedKVCache):
             dtype=self.dtype, device=self.device,
         )
 
-    def write_reserved(self, chunks, rows: torch.Tensor) -> None:
-        """Fill reserved chunks of every layer with ``rows (L, n, width)``."""
-        off = 0
-        for pid, in_page, m in chunks:
-            self.pages[:, pid, in_page : in_page + m] = rows[:, off : off + m]
-            off += m
+    def _make_scale_pool(self) -> torch.Tensor:
+        # Every layer's rows are quantized against their own row maxima.
+        return torch.zeros(
+            (self.num_layers, self.num_pages, self.page_size),
+            dtype=torch.float32, device=self.device,
+        )
+
+    def _page(self, pid: int) -> tuple:
+        # One COW copy or all-layer write covers every layer.
+        return (slice(None), pid)
+
+    def _validate_rows(self, rows) -> torch.Tensor:
+        rows = torch.as_tensor(rows, device=self.device).to(self._row_dtype)
+        want = (self.num_layers, self.width)
+        if rows.ndim != 3 or (rows.shape[0], rows.shape[2]) != want:
+            raise ValueError(
+                f"rows must be (L={self.num_layers}, n, {self.width}); "
+                f"got {tuple(rows.shape)}"
+            )
+        return rows
 
     def write_layer(self, layer: int, chunks, rows: torch.Tensor) -> None:
         """Fill one layer's plane of reserved chunks with ``rows (n, W)``."""
         off = 0
         for pid, in_page, m in chunks:
-            self.pages[layer, pid, in_page : in_page + m] = rows[off : off + m]
+            self._store((layer, pid, slice(in_page, in_page + m)), rows[off : off + m])
             off += m
 
     def write_layer_tokens(self, layer: int, pids, offs, rows: torch.Tensor) -> None:
         """Scatter ``rows (R, W)`` into one layer at ``(layer, pids[i],
-        offs[i])`` in place — one device call per layer per decode step.
-        ``pids``/``offs`` may be host arrays or device tensors."""
+        offs[i])`` in place — one scatter per layer per decode step (and
+        one of the scales for an int8 pool).  ``pids``/``offs`` may be host
+        arrays or device tensors."""
         pids = torch.as_tensor(pids, device=self.device).long()
         offs = torch.as_tensor(offs, device=self.device).long()
-        self.pages[layer].index_put_((pids, offs), rows.to(self.dtype))
+        self._store((layer, pids, offs), rows)
 
     def layer_pages(self, layer: int) -> torch.Tensor:
         """The ``(num_pages, page_size, width)`` pool of one layer (a view)."""
         return self.pages[layer]
 
+    def layer_scales(self, layer: int) -> torch.Tensor | None:
+        """One layer's ``(num_pages, page_size)`` scale pool (None unless
+        quantized), passed to the kernels beside :meth:`layer_pages`."""
+        return None if self.scales is None else self.scales[layer]
+
     def gather_contiguous(self, rid: int, layer: int) -> torch.Tensor:
         """``rid``'s rows of one layer as a contiguous ``(len, width)``
-        tensor (test helper)."""
-        n = self._seq_len[rid]
-        if n == 0:
-            return torch.zeros((0, self.width), dtype=self.dtype, device=self.device)
-        return torch.cat([self.pages[layer, p] for p in self._seq_pages[rid]])[:n]
+        tensor (test helper); a quantized pool dequantizes to fp32."""
+        return self._gather(rid, self.pages[layer], self.layer_scales(layer))

@@ -19,11 +19,20 @@ via ``models.transformer.lm_decode_step_paged``:
   schedule shared by all layers, memoized across steps by a
   :class:`~repro_torch.kernels.decode_schedule.DecodeScheduler`
   (``scheduler_stats`` counts steps, not layers);
+* ``fork`` / ``admit_with_prefix`` branch a live request by page aliasing
+  (copy-on-write at the next append); with ``prefix_sharing`` the family's
+  shared blocks are attended once per group in every layer;
+* ``kv_dtype="int8"`` stores the latent pages as int8 with per-row scales;
 * ``work_stats`` reports the reference's deterministic work counters.
 
+:class:`PagedDecodeSession` is the attention-level session over one
+:class:`~repro_torch.runtime.kv_cache.PagedKVCache`: callers bring absorbed
+queries and latent rows; it decodes through the queue kernel (K2, int8 and
+shared prefixes included) or the padded ``(B, W)`` kernel (K5).
+
 Speculation, the prefix trie, ``prefill_budget`` interleaving,
-suspend/resume, fork and sharding belong to later slices of the port and
-raise ``NotImplementedError`` when asked for.
+suspend/resume and sharding belong to later slices of the port and raise
+``NotImplementedError`` when asked for.
 """
 
 from __future__ import annotations
@@ -175,6 +184,7 @@ class PagedServingSession:
         block_k: int | None = None,
         num_splits: int = 1,
         prefix_sharing: bool = False,
+        min_group: int = 2,
         prefill_chunk: int = 32,
         max_batch: int | None = None,
         dtype=None,
@@ -190,8 +200,6 @@ class PagedServingSession:
         from repro_torch.runtime.kv_cache import CacheSpec
 
         _tf.check_paged_compatible(model.cfg)
-        if prefix_sharing:
-            _not_ported("prefix_sharing (group-batched shared-prefix attention)")
         if head_shards != 1:
             _not_ported("head_shards > 1 (tensor-parallel head groups)")
         if speculate != "off":
@@ -219,12 +227,15 @@ class PagedServingSession:
             self.cache.page_size, self.table_width
         )
         self.num_splits = num_splits
+        self.prefix_sharing = prefix_sharing
         self.prefill_chunk = prefill_chunk
         self.max_batch = max_batch
         # fp32 models keep fp32 kernel precision (bit-comparable greedy
         # outputs with the reference); bf16 serving uses bf16 kernels.
         self.compute_dtype = torch.float32 if self.dtype == torch.float32 else None
-        self._scheduler = DecodeScheduler(block_k=self.block_k, num_splits=num_splits)
+        self._scheduler = DecodeScheduler(
+            block_k=self.block_k, num_splits=num_splits, min_group=min_group
+        )
         self._layers = model.layer_params(params)
         self.active: list[int] = []
         self.outputs: dict[int, list[int]] = {}
@@ -268,7 +279,9 @@ class PagedServingSession:
 
     def work_stats(self) -> dict:
         """Deterministic decode-work proxies accumulated across steps
-        (the reference's keys for the features this slice serves)."""
+        (the reference's keys for the features this slice serves).
+        ``page_dma_bytes`` is dtype-aware: int8 pages count their scale
+        strips; with prefix sharing a shared block counts once per group."""
         page_dma_bytes = self.page_dmas * self.cache_spec.bytes_per_page(
             self.cache.page_size, self.cache.width
         )
@@ -372,7 +385,11 @@ class PagedServingSession:
     # -- decode ----------------------------------------------------------- #
     def step(self) -> None:
         """One greedy decode step for every live request (one schedule)."""
-        from repro_torch.kernels.decode_schedule import queue_grid_items
+        from repro_torch.kernels.decode_schedule import (
+            PrefixSchedule,
+            prefix_queue_grid_items,
+            queue_grid_items,
+        )
         from repro_torch.models import transformer as _tf
 
         rids = list(self.active)
@@ -387,6 +404,7 @@ class PagedServingSession:
             cache=self.cache,
             rids=rids,
             scheduler=self._scheduler,
+            prefix_sharing=self.prefix_sharing,
             extra_key=tuple(rids),
             table_width=self.table_width,
             block_k=self.block_k,
@@ -407,7 +425,11 @@ class PagedServingSession:
         self.query_rows += len(rids)
         self._decode_shapes.add(len(rids))
         kv = np.asarray([pre[r] + 1 for r in rids], np.int64)
-        acct = queue_grid_items(self._scheduler.current, kv, self.cache.page_size)
+        sched = self._scheduler.current
+        grid_items = (
+            prefix_queue_grid_items if isinstance(sched, PrefixSchedule) else queue_grid_items
+        )
+        acct = grid_items(sched, kv, self.cache.page_size)
         self.page_dmas += int(acct["page_dmas"]) * self.cfg.n_layers
         self.rows_attended += int(kv.sum()) * self.cfg.n_layers
 
@@ -421,10 +443,72 @@ class PagedServingSession:
         return self.outputs.pop(rid)
 
     def fork(self, rid: int, prefix_len: int | None = None) -> int:
-        _not_ported("fork (page aliasing with copy-on-write)")
+        """Branch a live request at its full history: the child aliases
+        every page (all L layers, one refcount bump) and continues with the
+        parent's pending token — greedy twins until copy-on-write
+        divergence.  To branch earlier with new tokens, use
+        :meth:`admit_with_prefix`."""
+        if rid not in self.active:
+            raise KeyError(f"request {rid} is not live")
+        if prefix_len is not None and prefix_len != self.cache.seq_len(rid):
+            raise ValueError(
+                "model-level fork shares the whole history (the pending "
+                "token is only defined there); use admit_with_prefix("
+                "parent, suffix_tokens, prefix_len) to branch earlier"
+            )
+        child = self._next_id
+        self._next_id += 1
+        self.cache.fork(rid, child)
+        self.active.append(child)
+        self.outputs[child] = list(self.outputs[rid])
+        self.last_token[child] = self.last_token[rid]
+        vt = self.work_units
+        self._lat[child] = {"admit": vt, "first": vt, "last": vt}
+        return child
 
-    def admit_with_prefix(self, parent_rid: int, suffix_tokens, prefix_len=None):
-        _not_ported("admit_with_prefix (page aliasing with copy-on-write)")
+    def admit_with_prefix(
+        self, parent_rid: int, suffix_tokens, prefix_len: int | None = None
+    ) -> int | None:
+        """Admit a request as ``fork(parent, prefix_len) + prefill(suffix)``
+        (the shared-system-prompt / n-best entry point): the prefix pages
+        are aliased and only the suffix runs through the model, attending
+        over them.  Returns None (nothing allocated) when the pool lacks
+        pages for the suffix or the batch is full."""
+        from repro_torch.models import transformer as _tf
+
+        if parent_rid not in self.active:
+            raise KeyError(f"request {parent_rid} is not live")
+        suffix = list(map(int, suffix_tokens))
+        if not suffix:
+            raise ValueError(
+                "admit_with_prefix needs at least one suffix token "
+                "(use fork() for a zero-copy full branch)"
+            )
+        if self.max_batch is not None and len(self.active) >= self.max_batch:
+            return None
+        child = self._next_id
+        self._next_id += 1
+        self.cache.fork(parent_rid, child, prefix_len)
+        if not self.cache.has_room(child, len(suffix)):
+            self.cache.free(child)
+            return None
+        start = self.cache.seq_len(child)
+        self._note_admit(child)
+        self._prefill_shapes.add((1, self.prefill_chunk))
+        logits = _tf.lm_prefill_paged(
+            self.params,
+            suffix,
+            cfg=self.cfg,
+            cache=self.cache,
+            rid=child,
+            start_pos=start,
+            chunk=self.prefill_chunk,
+            table_width=self.table_width,
+            block_k=self.block_k,
+            compute_dtype=self.compute_dtype,
+        )
+        self._count_prefill(len(suffix))
+        return self._admit(child, int(torch.argmax(logits[0])))
 
     def suspend(self, rid: int):
         _not_ported("suspend/resume (recoverable eviction by replay)")
@@ -439,3 +523,197 @@ class PagedServingSession:
             f"page leak at teardown: {report}"
         )
         return report
+
+
+class PagedDecodeSession:
+    """Continuous batching over a paged latent cache, at the attention level.
+
+    One page pool is shared by every live request: admission is by
+    free-page count, eviction returns pages at once, and a request's
+    context grows until the pool is full.  Callers bring absorbed queries
+    ``(G, d_k)`` and each new token's latent row (a full model server gets
+    them from the layer stack; examples and tests use synthetic latents).
+    :meth:`attend` is the read path; :meth:`step` appends, then attends
+    (the new token attends to itself).
+
+    ``scheduler="queue"`` decodes through the work-queue kernel (K2; int8
+    pools through K2-int8, forked families through K2′ with
+    ``prefix_sharing``), ``scheduler="padded"`` through the padded
+    ``(B, W)`` kernel (K5, bf16/fp32 pools only).  ``device`` defaults to
+    ``"cuda"`` and raises without CUDA; ``"cpu"`` runs the plain versions.
+    """
+
+    def __init__(
+        self,
+        *,
+        num_pages: int,
+        page_size: int | None = None,
+        d_k: int = 576,
+        d_v: int = 512,
+        scale: float,
+        variant: str = "amla",
+        dtype=torch.bfloat16,
+        cache_spec=None,
+        scheduler: str = "queue",
+        num_splits: int = 1,
+        block_k: int | None = None,
+        prefix_sharing: bool = False,
+        min_group: int = 2,
+        device="cuda",
+    ):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.decode_schedule import DecodeScheduler
+        from repro_torch.kernels.mla_decode_paged import DEFAULT_PAGE_SIZE
+        from repro_torch.runtime.kv_cache import PagedKVCache
+
+        self.kv = PagedKVCache(
+            num_pages=num_pages,
+            page_size=page_size or DEFAULT_PAGE_SIZE,
+            width=d_k,
+            dtype=dtype,
+            spec=cache_spec,
+            device=device,
+        )
+        if self.kv.quantized and scheduler != "queue":
+            raise ValueError(
+                "int8 cache_spec needs scheduler='queue' (the padded grid "
+                "has no fused dequant path)"
+            )
+        self.d_k, self.d_v = d_k, d_v
+        self.scale, self.variant = scale, variant
+        # Fixed table width (one request may own the whole pool): stable
+        # kernel input shapes across admits, evicts and growth.
+        self.table_width = num_pages
+        self.scheduler = scheduler
+        self.prefix_sharing = prefix_sharing and scheduler == "queue"
+        self.block_k = block_k or ops.default_paged_block_k(
+            self.kv.page_size, self.table_width
+        )
+        # One memoizing scheduler; the live-rid tuple is the identity key,
+        # so a recycled slot with an identical block count rebuilds.
+        self._scheduler = DecodeScheduler(
+            block_k=self.block_k, num_splits=num_splits, min_group=min_group
+        )
+        self.active: list[int] = []
+        self._next_id = 0
+
+    @property
+    def scheduler_stats(self) -> dict:
+        """Schedule reuse counters (see decode_schedule.DecodeScheduler)."""
+        return {"hits": self._scheduler.hits, "rebuilds": self._scheduler.rebuilds}
+
+    def _rows(self, rows) -> torch.Tensor:
+        return torch.as_tensor(rows, device=self.kv.device)
+
+    def admit(self, latent_prompt) -> int | None:
+        """Admit a request whose prompt latents are ``(S, d_k)``; its id, or
+        None when the pool lacks pages (the caller retries after an
+        eviction)."""
+        latent_prompt = self._rows(latent_prompt)
+        if not self.kv.has_room(None, latent_prompt.shape[0]):
+            return None
+        rid = self._next_id
+        self._next_id += 1
+        self.kv.alloc(rid)
+        self.kv.append(rid, latent_prompt)
+        self.active.append(rid)
+        return rid
+
+    def evict(self, rid: int) -> None:
+        """Finish or cancel ``rid``: its pages return to the pool (pages
+        aliased by forked siblings stay until their last owner goes)."""
+        if rid not in self.active:
+            raise KeyError(f"request {rid} is not live")
+        self.active.remove(rid)
+        self.kv.free(rid)
+
+    def fork(self, rid: int, prefix_len: int | None = None) -> int:
+        """Branch a live request: the child shares ``rid``'s first
+        ``prefix_len`` rows (all by default) by page aliasing; the shared
+        boundary page is copied at the first append that writes into it."""
+        if rid not in self.active:
+            raise KeyError(f"request {rid} is not live")
+        child = self._next_id
+        self._next_id += 1
+        self.kv.fork(rid, child, prefix_len)
+        self.active.append(child)
+        return child
+
+    def admit_with_prefix(
+        self, parent_rid: int, latent_suffix, prefix_len: int | None = None
+    ) -> int | None:
+        """Admit a request as ``fork(parent) + append(suffix)``;
+        ``latent_suffix`` is its own ``(S, d_k)`` rows (may be empty).
+        Returns None, with nothing left allocated, when the pool lacks
+        pages for the suffix and the boundary copy."""
+        latent_suffix = self._rows(latent_suffix)
+        if latent_suffix.ndim == 1 and latent_suffix.shape[0]:
+            latent_suffix = latent_suffix[None]  # a single (d_k,) row
+        n = int(latent_suffix.shape[0]) if latent_suffix.ndim >= 2 else 0
+        child = self.fork(parent_rid, prefix_len)
+        if n:
+            if not self.kv.has_room(child, n):
+                self.evict(child)
+                return None
+            self.kv.append(child, latent_suffix)
+        return child
+
+    def attend(self, queries: dict) -> dict:
+        """Batched paged attention for ``{rid: (G, d_k)}`` absorbed queries;
+        returns ``{rid: (G, d_v)}`` fp32.  Every queried rid must be live."""
+        from repro_torch.kernels import ops
+
+        unknown = set(queries) - set(self.active)
+        if unknown:
+            raise KeyError(f"requests not live: {sorted(unknown)}")
+        rids = [r for r in self.active if r in queries]
+        if not rids:
+            return {}
+        bt, kv_len = self.kv.block_table(rids, width=self.table_width)
+        q = torch.stack([self._rows(queries[r]) for r in rids])[:, None]
+        schedule = None
+        if self.scheduler == "queue":
+            if self.prefix_sharing:
+                schedule = self._scheduler.schedule_prefix(
+                    kv_len, bt, page_size=self.kv.page_size, extra_key=tuple(rids)
+                )
+            else:
+                schedule = self._scheduler.schedule(kv_len, extra_key=tuple(rids))
+        out = ops.mla_decode_paged(
+            q,
+            self.kv.pages,
+            torch.as_tensor(bt, device=self.kv.device),
+            kv_len,
+            kv_scales=self.kv.scales,
+            d_v=self.d_v,
+            variant=self.variant,
+            scale=self.scale,
+            scheduler=self.scheduler,
+            block_k=self.block_k if self.scheduler == "queue" else None,
+            schedule=schedule,
+        )  # (B, 1, G, d_v)
+        return {r: out[i, 0] for i, r in enumerate(rids)}
+
+    def step(self, queries: dict, new_latents: dict | None = None) -> dict:
+        """One decode step: append each request's new latent row, then
+        attend.  The appends are atomic: if the pool cannot hold all of
+        them, :class:`OutOfPagesError` is raised before any row lands."""
+        if new_latents:
+            from repro_torch.runtime.kv_cache import OutOfPagesError
+
+            rows = {}
+            for rid, r in new_latents.items():
+                r = self._rows(r)
+                rows[rid] = r[None] if r.ndim == 1 else r
+            need = sum(
+                self.kv.pages_needed_for_append(rid, r.shape[0])
+                for rid, r in rows.items()
+            )
+            if need > self.kv.num_free_pages:
+                raise OutOfPagesError(
+                    f"step needs {need} new pages for {len(rows)} appends; "
+                    f"only {self.kv.num_free_pages} free — evict and retry"
+                )
+            for rid, r in rows.items():
+                self.kv.append(rid, r)
+        return self.attend(queries)

@@ -203,3 +203,91 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def _family_cache(dtype, *, seed=3, page=128, dk=576):
+    """A CPU pool (bf16 or int8) holding a forked family over a 1100-row
+    prefix (2 complete 512-row blocks shared) with suffixes of 7, 40 and
+    300 rows, plus an unrelated 513-row request and an empty slot."""
+    from repro_torch.runtime.kv_cache import PagedKVCache
+
+    rng = np.random.default_rng(seed)
+    kv = PagedKVCache(num_pages=40, page_size=page, width=dk, dtype=dtype, device="cpu")
+    rows = lambda n: torch.from_numpy(rng.normal(0, 1, (n, dk)).astype(np.float32))
+    kv.alloc(0)
+    kv.append(0, rows(1100))
+    for rid, n in ((1, 7), (2, 40), (3, 300)):
+        kv.fork(0, rid)
+        kv.append(rid, rows(n))
+    kv.alloc(4)
+    kv.append(4, rows(513))
+    kv.alloc(5)
+    return kv, [0, 1, 2, 3, 4, 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix_sharing", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_int8_and_group_prefix_kernels_match_plain_versions(cuda_device, variant, dtype,
+                                                            prefix_sharing):
+    """K2-int8 over an int8 pool, and with prefix sharing K2′ (one group
+    of 4, G = 512 stacked rows) + the hetero combine, card vs CPU."""
+    kv, rids = _family_cache(torch.int8)
+    bt, kv_len = kv.block_table(rids, width=kv.num_pages)
+    q = _randn((len(rids), 1, 128, 576), 4, torch.float32)
+    kw = dict(d_v=512, variant=variant, scale=1 / math.sqrt(192), num_splits=2,
+              compute_dtype=dtype, prefix_sharing=prefix_sharing)
+    dev = cuda_device
+    n8, n_grp = (port_paged.mla_decode_paged_queue_rows.int8_launches,
+                 port_paged.mla_decode_paged_group_prefix.launches)
+    got = ops.mla_decode_paged(q.to(dev), kv.pages.to(dev), torch.from_numpy(bt).to(dev),
+                               kv_len, kv_scales=kv.scales.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert port_paged.mla_decode_paged_queue_rows.int8_launches == n8 + 1
+    assert port_paged.mla_decode_paged_group_prefix.launches == n_grp + int(prefix_sharing)
+    want = ops.mla_decode_paged(q, kv.pages, torch.from_numpy(bt), kv_len,
+                                kv_scales=kv.scales, **kw)
+    assert (got.cpu() - want).abs().max().item() <= TOL[dtype, variant]
+    assert got[5].abs().max().item() == 0.0 and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_sharing_on_card_matches_unshared(cuda_device, dtype):
+    """On the card, the shared-prefix path (K2′ + K2 + hetero K3) against
+    the unshared queue over the same bf16 pool."""
+    kv, rids = _family_cache(torch.bfloat16)
+    bt, kv_len = kv.block_table(rids, width=kv.num_pages)
+    dev = cuda_device
+    q = _randn((len(rids), 1, 128, 576), 5, torch.float32).to(dev)
+    kw = dict(d_v=512, scale=1 / math.sqrt(192), compute_dtype=dtype, variant="base")
+    args = (q, kv.pages.to(dev), torch.from_numpy(bt).to(dev), kv_len)
+    shared = ops.mla_decode_paged(*args, prefix_sharing=True, **kw)
+    unshared = ops.mla_decode_paged(*args, **kw)
+    assert (shared - unshared).abs().max().item() <= (2e-3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_padded_kernel_matches_plain_version(cuda_device, variant, dtype):
+    """K5: one AMLA update per page over a fragmented table of W = 12
+    columns; kv_len 0 and ragged lengths."""
+    kv_lens = [0, 37, 513, 1100]
+    q, pool, bt = _paged_inputs(6, kv_lens, b_rows=128)
+    bt = torch.nn.functional.pad(bt, (0, 12 - bt.shape[1]))
+    kw = dict(d_v=512, variant=variant, scale=1 / math.sqrt(192), compute_dtype=dtype,
+              scheduler="padded")
+    dev = cuda_device
+    k5 = port_paged.mla_decode_paged_rows.launches
+    got = ops.mla_decode_paged(q.to(dev), pool.to(dev, dtype), bt.to(dev),
+                               torch.tensor(kv_lens, device=dev), **kw)
+    torch.cuda.synchronize()
+    assert port_paged.mla_decode_paged_rows.launches == k5 + 1
+    want = ops.mla_decode_paged(q, pool.to(dtype), bt, np.asarray(kv_lens), **kw)
+    assert (got.cpu() - want).abs().max().item() <= TOL[dtype, variant]
+    assert got[0].abs().max().item() == 0.0 and torch.isfinite(got).all()
+    with pytest.raises(ValueError, match="does not support int8"):
+        ops.mla_decode_paged(q.to(dev), pool.to(dev, torch.int8), bt.to(dev), kv_lens,
+                             kv_scales=torch.ones(pool.shape[:2], device=dev), **kw)

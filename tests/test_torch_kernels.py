@@ -242,11 +242,33 @@ def test_default_block_k_and_validation_match_reference():
                              q_offset=np.asarray([0, 0]))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(prefix_sharing=True), dict(scheduler="padded"),
-    dict(kv_scales=torch.zeros((8, 16))),
-])
-def test_later_slices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ops.mla_decode_paged(torch.zeros((1, 1, 4, 80)), torch.zeros((8, 16, 80)),
-                             torch.zeros((1, 2), dtype=torch.int32), [5], scale=0.1, **kw)
+@pytest.mark.parametrize("kw,exc,match", [
+    # the padded grid derives positions from kv_len (the reference's error)
+    (dict(scheduler="padded", q_positions=np.asarray([[4]])), NotImplementedError,
+     "implemented for scheduler='queue'"),
+    # the padded grid has no dequant path
+    (dict(scheduler="padded", int8=True), ValueError, "does not support int8 pages"),
+    # prefix sharing merges heterogeneous partials: no per-row lse
+    (dict(prefix_sharing=True, return_partials=True), ValueError,
+     "return_partials needs the plain queue scheduler"),
+    (dict(scheduler="padded", prefix_sharing=True), ValueError,
+     "prefix_sharing requires scheduler='queue'"),
+], ids=["kw0", "kw1", "kw2", "kw3"])
+def test_later_slices_raise_not_implemented(kw, exc, match):
+    """The rejections that remain now that int8 pages, prefix sharing and
+    the padded grid are ported: the reference's errors, with its classes
+    and messages (the session-level features still to port raise
+    ``NotImplementedError``, see test_torch_serve.py)."""
+    int8 = kw.pop("int8", False)
+    pool = torch.zeros((8, 16, 80), dtype=torch.int8 if int8 else torch.float32)
+    extra = dict(kv_scales=torch.zeros((8, 16))) if int8 else {}
+    with pytest.raises(exc, match=match):
+        ops.mla_decode_paged(torch.zeros((1, 1, 4, 80)), pool,
+                             torch.zeros((1, 2), dtype=torch.int32), [5], scale=0.1,
+                             **extra, **kw)
+    jextra = dict(kv_scales=jnp.zeros((8, 16))) if int8 else {}
+    with pytest.raises(exc, match=match):
+        ref_ops.mla_decode_paged(
+            jnp.zeros((1, 1, 4, 80)), jnp.zeros((8, 16, 80), jnp.int8 if int8 else jnp.float32),
+            jnp.zeros((1, 2), jnp.int32), jnp.asarray([5]), scale=0.1, interpret=True,
+            **jextra, **kw)

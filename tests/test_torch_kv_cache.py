@@ -136,10 +136,14 @@ def test_admission_errors_and_double_free_match_reference():
 
 
 def test_bf16_pool_and_unported_int8_pool():
+    """bf16 is the default pool; an int8 pool (ported since) carries a
+    per-row fp32 scale pool, as the reference's does."""
     p = port.LayeredPagedKVCache(num_layers=1, num_pages=2, page_size=4, width=8, device="cpu")
-    assert p.pages.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="int8"):
-        port.PagedKVCache(num_pages=2, page_size=4, width=8, dtype=torch.int8, device="cpu")
+    assert p.pages.dtype == torch.bfloat16 and p.scales is None
+    q = port.PagedKVCache(num_pages=2, page_size=4, width=8, dtype=torch.int8, device="cpu")
+    r = ref.PagedKVCache(num_pages=2, page_size=4, width=8, dtype=jnp.int8)
+    assert q.quantized and q.pages.dtype == torch.int8
+    assert tuple(q.scales.shape) == r.scales.shape and q.scales.dtype == torch.float32
     spec = port.CacheSpec("int8")
     assert spec.quantized and spec.bytes_per_row(576) == ref.CacheSpec("int8").bytes_per_row(576)
     assert port.CacheSpec("bf16").bytes_per_page(128, 576) == ref.CacheSpec("bf16").bytes_per_page(128, 576)

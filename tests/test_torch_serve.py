@@ -152,11 +152,20 @@ def test_admission_validation_and_unported_options(models):
     with pytest.raises(KeyError):
         sess.finish(7)
     for kw in (dict(speculate="ngram"), dict(prefix_cache="trie"), dict(prefill_budget=64),
-               dict(prefix_sharing=True), dict(head_shards=2), dict(kv_dtype="int8")):
+               dict(head_shards=2)):
         with pytest.raises(NotImplementedError):
             PagedServingSession(model, params, num_pages=4, page_size=PAGE, **kw)
+    # ported since: an int8, prefix-sharing session builds (its serving is
+    # held against the reference in test_torch_prefix_sharing.py)
+    s8 = PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K,
+                             kv_dtype="int8", prefix_sharing=True)
+    assert s8.cache.quantized and s8.prefix_sharing
     with pytest.raises(NotImplementedError, match="later slice"):
-        sess.fork(0)
+        sess.suspend(0)
+    with pytest.raises(KeyError):
+        sess.admit_with_prefix(7, [3])
+    with pytest.raises(ValueError, match="at least one suffix token"):
+        sess.admit_with_prefix(0, [])
 
 
 def test_launch_serve_cli_on_cpu(capsys):
@@ -166,6 +175,20 @@ def test_launch_serve_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3 requests, 9 decode tokens" in out
     assert "teardown sweep: 64 pages free (clean)" in out
+
+
+def test_launch_serve_cli_int8_shared_prefix_demo_on_cpu(capsys):
+    serve.main(["--cache", "paged", "--smoke", "--kv-dtype", "int8", "--shared-prefix",
+                "--gen-len", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "shared-prefix demo: parent 0 + children [1, 2]" in out
+    assert "pages aliased across 2 layers (zero rows copied)" in out
+    for rid in (0, 1, 2):
+        assert f"request {rid} done: 4 tokens" in out
+    assert "teardown sweep: 64 pages free (clean)" in out
+    for flag in (["--kv-dtype", "int8"], ["--shared-prefix"]):
+        with pytest.raises(SystemExit, match=f"{flag[0]} needs --cache paged"):
+            serve.main(["--smoke", "--device", "cpu", *flag])
 
 
 @pytest.fixture
