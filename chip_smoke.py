@@ -4,13 +4,18 @@
 Runs on one NVIDIA H100 (``python3 chip_smoke.py`` from the repository
 root) and exits nonzero on any failure:
 
-1. **Build** the hand-written CUDA kernels from ``src/repro_torch/csrc``.
+1. **Build** the hand-written CUDA kernels from ``src/repro_torch/csrc``;
+   ptxas's registers and spills of the tensor-core queue kernel (bf16 K2
+   and K2') are printed, and a spill fails the run.
 2. **Kernel phase**: every kernel on the card against its plain PyTorch
    version on the same inputs, bf16 and fp32, ``amla`` and ``base``:
    the paged AMLA decode kernel (K2) and the split-KV combine (K3) at full
    width (Dk 576, Dv 512, page 128, block_k 512) for a decode step and a
-   prefill chunk; K2 over int8 pages (K2-int8), the shared-prefix group
-   kernel (K2') with the heterogeneous combine, and the padded-grid kernel
+   prefill chunk, and K2's tensor-core body (bf16 q over bf16 pages) over
+   ragged kv_len (0, 1, 15, 16, 127, 129, 511, 513, 1116), G of 1, 17, 128
+   and 512, softcap and per-row causal rows; K2 over int8 pages
+   (K2-int8), the shared-prefix group kernel (K2') with the heterogeneous
+   combine, and the padded-grid kernel
    (K5); the GQA decode (K6) and flash prefill (K7) kernels at
    the head geometries of gemma2-2b (8/4 x 256, window 4096, softcap 50),
    qwen2.5-3b (16/2 x 128) and qwen1.5-0.5b (16/16 x 64); the contiguous
@@ -30,13 +35,14 @@ root) and exits nonzero on any failure:
 5. **Paged serve phase**: ``deepseek-v2-mla`` at its published widths
    (60 layers) through ``PagedServingSession``: 4 ragged prompts, 16
    greedy tokens each, ``num_splits=2``; every prefill chunk and decode
-   step of every layer must go through K2 and K3.
-6. **Int8 shared-prefix serve phase**: the same weights through
-   ``PagedServingSession(kv_dtype="int8", prefix_sharing=True)``: an
-   1100-token system prompt, three ``admit_with_prefix`` children, a
-   513-token loner, 16 greedy steps; every decode step of every layer runs
-   the group-prefix kernel (K2'), the int8 queue kernel (K2-int8) and the
-   combine, with exact launch counts.
+   step of every layer must go through K2 (its tensor-core body) and K3.
+6. **Shared-prefix serve phases**: the same weights through
+   ``PagedServingSession(prefix_sharing=True)``, over bf16 pages and then
+   over int8 pages (``kv_dtype="int8"``): an 1100-token system prompt,
+   three ``admit_with_prefix`` children, a 513-token loner, 16 greedy
+   steps; every decode step of every layer runs the group-prefix kernel
+   (K2'), the queue kernel (K2, or K2-int8) and the combine, with exact
+   launch counts (the bf16 ones through the tensor-core body).
 7. **Dense serve phase, deepseek-v2-mla**: the same weights and prompts
    through ``ServingSession(batch 4, max_len 2048)``; every prefill and
    decode step of every layer must go through K4.
@@ -76,6 +82,8 @@ TOL = {
     (torch.bfloat16, "amla"): 1e-2,
 }
 DK, DV, PAGE, BLOCK_K = 576, 512, 128, 512
+SLEEP_CYCLES = 400_000  # ~0.2 ms of device clock before each timed call
+MMA_KERNEL = "mla_decode_queue_mma_kernel"  # bf16 K2 / K2' tensor-core body
 
 
 def log(msg: str) -> None:
@@ -85,13 +93,17 @@ def log(msg: str) -> None:
 def time_cuda(fn, iters: int, flush: torch.Tensor | None) -> float:
     """Mean ms per call on the card, CUDA events around each call, the L2
     cache overwritten between calls (the serve path reads each layer's
-    pages cold)."""
+    pages cold).  A 0.2 ms device sleep before each call lets the host
+    enqueue the wrapper's work before the first event fires, so the time
+    is the device's, not the host's enqueue (a plain version that waits
+    for the device inside still counts its host time)."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush.add_(1)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -147,13 +159,13 @@ def prefill_positions(kv_len, g, heads=128):
     return np.maximum(kv_len - g // heads, 0) + np.arange(g) // heads
 
 
-def run_k2(case, variant, plain):
+def run_k2(case, variant, plain, softcap=None):
     """K2 (K2-int8 when the case has scales) or its plain version."""
     from repro_torch.kernels import mla_decode_paged as mp
 
     kw = dict(
         d_v=DV, variant=variant, scale=1.0 / math.sqrt(192), block_k=BLOCK_K,
-        num_dest_slots=case["sched"].num_dest_slots, softcap=None,
+        num_dest_slots=case["sched"].num_dest_slots, softcap=softcap,
     )
     args = (case["q"], case["pages"], case["bt"], case["kv"], case["q_pos"])
     if plain:
@@ -216,6 +228,59 @@ def sdpa_call(case):
     return lambda: f(qq, k, v, attn_mask=mask, scale=1.0 / math.sqrt(192))
 
 
+def hold_k2_k3(case, name, dtype, variant, worst, softcap=None):
+    """K2 and K3 against their plain versions on one case: every written
+    slot's partial and lse, the combined rows (kv_len 0 exact zeros, all
+    finite), and K3 alone on the plain partials.  A bf16 case must go
+    through the tensor-core body (one more ``mma_launches``), an fp32 case
+    must not."""
+    from repro_torch.kernels import mla_decode_paged as mp
+
+    lens, g, ns = case["kv_host"].tolist(), case["q"].shape[1], case["sched"].num_splits
+    n_mma = mp.mla_decode_paged_queue_rows.mma_launches
+    o_k, lse_k = run_k2(case, variant, plain=False, softcap=softcap)
+    mma = mp.mla_decode_paged_queue_rows.mma_launches - n_mma
+    if mma != int(dtype == torch.bfloat16):
+        raise SystemExit(f"K2 {name} {dtype}: {mma} tensor-core launches, expected "
+                         f"{int(dtype == torch.bfloat16)}")
+    o_p, lse_p = run_k2(case, variant, plain=True, softcap=softcap)
+    out_k = run_k3(case, o_k, lse_k, plain=False)
+    out_p = run_k3(case, o_p, lse_p, plain=True)
+    out_k3_on_plain = run_k3(case, o_p, lse_p, plain=False)
+    torch.cuda.synchronize()
+    s = case["sched"]
+    live = sorted(set(s.item_dest[s.item_valid == 1].tolist()))
+    err_o = (o_k[live] - o_p[live]).abs().max().item()
+    fin = torch.isfinite(lse_p[live])
+    if not torch.equal(fin, torch.isfinite(lse_k[live])):
+        raise SystemExit(f"K2 {name}: empty-row lse pattern differs")
+    err_lse = (lse_k[live][fin] - lse_p[live][fin]).abs().max().item() if fin.any() else 0.0
+    if (~fin).any() and o_k[live][~fin[..., 0]].abs().max().item() != 0.0:
+        raise SystemExit(f"K2 {name}: rows without a visible key are not exact zeros")
+    err_out = (out_k - out_p).abs().max().item()
+    err_k3 = (out_k3_on_plain - out_p).abs().max().item()
+    zero_rows = [i for i, l in enumerate(lens) if l == 0]
+    if zero_rows and out_k[zero_rows].abs().max().item() != 0.0:
+        raise SystemExit(f"K2+K3 {name}: kv_len == 0 rows are not exact zeros")
+    if not torch.isfinite(out_k).all():
+        raise SystemExit(f"K2+K3 {name}: non-finite output")
+    tol = TOL[dtype, variant]
+    key2 = ("mla_decode_paged_queue_rows", dtype, variant)
+    key3 = ("combine_split_partials", dtype, variant)
+    worst[key2] = max(worst.get(key2, 0.0), err_o, err_lse, err_out)
+    worst[key3] = max(worst.get(key3, 0.0), err_k3)
+    log(f"  {name:7s} {str(dtype)[6:]:8s} {variant} G={g} splits={ns} kv={lens}"
+        f"{'' if softcap is None else f' softcap={softcap:g}'}: K2 o {err_o:.3e} lse "
+        f"{err_lse:.3e}, K2+K3 {err_out:.3e}, K3 {err_k3:.3e} (tol {tol:g})")
+    if max(err_o, err_lse, err_out, err_k3) > tol:
+        raise SystemExit(f"kernel phase: {name} {dtype} {variant} exceeds tol {tol}")
+
+
+def chunk_positions(kv_len, g, heads=32):
+    # a 4-token chunk of 32 heads ending at kv_len: row r is token r // heads
+    return np.maximum(kv_len - g // heads, 0) + np.arange(g) // heads
+
+
 def kernel_phase(flush):
     """Hold K2 and K3 against their plain versions; returns timing rows."""
     log("== kernel phase: K2 (paged AMLA decode) and K3 (split-KV combine) "
@@ -231,37 +296,20 @@ def kernel_phase(flush):
     for dtype in (torch.bfloat16, torch.float32):
         for name, lens, g, pos_fn, ns in checks:
             for variant in ("amla", "base"):
-                case = make_case(7, lens, g, dtype, ns, pos_fn)
-                o_k, lse_k = run_k2(case, variant, plain=False)
-                o_p, lse_p = run_k2(case, variant, plain=True)
-                out_k = run_k3(case, o_k, lse_k, plain=False)
-                out_p = run_k3(case, o_p, lse_p, plain=True)
-                out_k3_on_plain = run_k3(case, o_p, lse_p, plain=False)
-                torch.cuda.synchronize()
-                s = case["sched"]
-                live = sorted(set(s.item_dest[s.item_valid == 1].tolist()))
-                err_o = (o_k[live] - o_p[live]).abs().max().item()
-                fin = torch.isfinite(lse_p[live])
-                if not torch.equal(fin, torch.isfinite(lse_k[live])):
-                    raise SystemExit(f"K2 {name}: empty-row lse pattern differs")
-                err_lse = (lse_k[live][fin] - lse_p[live][fin]).abs().max().item()
-                err_out = (out_k - out_p).abs().max().item()
-                err_k3 = (out_k3_on_plain - out_p).abs().max().item()
-                zero_rows = [i for i, l in enumerate(lens) if l == 0]
-                if zero_rows and out_k[zero_rows].abs().max().item() != 0.0:
-                    raise SystemExit(f"K2+K3 {name}: kv_len == 0 rows are not exact zeros")
-                if not torch.isfinite(out_k).all():
-                    raise SystemExit(f"K2+K3 {name}: non-finite output")
-                tol = TOL[dtype, variant]
-                key2 = ("mla_decode_paged_queue_rows", dtype, variant)
-                key3 = ("combine_split_partials", dtype, variant)
-                worst[key2] = max(worst.get(key2, 0.0), err_o, err_lse, err_out)
-                worst[key3] = max(worst.get(key3, 0.0), err_k3)
-                log(f"  {name:7s} {str(dtype)[6:]:8s} {variant} G={g} splits={ns} "
-                    f"kv={lens}: K2 o {err_o:.3e} lse {err_lse:.3e}, K2+K3 {err_out:.3e}, "
-                    f"K3 {err_k3:.3e} (tol {tol:g})")
-                if max(err_o, err_lse, err_out, err_k3) > tol:
-                    raise SystemExit(f"kernel phase: {name} {dtype} {variant} exceeds tol {tol}")
+                hold_k2_k3(make_case(7, lens, g, dtype, ns, pos_fn), name, dtype, variant, worst)
+    # The tensor-core body (bf16 q over bf16 pages) around every edge of its
+    # chunks (16-key value chunks, 128-key score strips, 512-row blocks), on
+    # one row, a ragged 17-row tile, 128 rows and 512 rows (32-row tiles);
+    # then softcap with per-row causal prefill rows.
+    ragged = [0, 1, 15, 16, 127, 129, 511, 513, 1116]
+    for g in (1, 17, 128, 512):
+        for ns in (1, 2):
+            for variant in ("amla", "base"):
+                hold_k2_k3(make_case(13, ragged, g, torch.bfloat16, ns, decode_positions),
+                           "ragged", torch.bfloat16, variant, worst)
+    for variant in ("amla", "base"):
+        hold_k2_k3(make_case(14, [1116, 300, 3, 0], 128, torch.bfloat16, 2, chunk_positions),
+                   "chunk", torch.bfloat16, variant, worst, softcap=30.0)
     for (kname, dtype, variant), err in worst.items():
         log(f"  max |kernel - plain| {kname} {str(dtype)[6:]} {variant}: {err:.3e} "
             f"(tol {TOL[dtype, variant]:g})")
@@ -652,6 +700,7 @@ def slice3_kernel_phase(flush):
     versions on the card, hold prefix sharing against the unshared queue,
     then time them at the serve phases' shapes."""
     from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
     from repro_torch.kernels import ops
 
     log("== kernel phase: K2-int8 (int8 pages), K2' (shared-prefix groups) + K3-hetero, "
@@ -691,12 +740,21 @@ def slice3_kernel_phase(flush):
                     raise SystemExit("K2-int8: kv_len == 0 rows are not exact zeros")
                 note(("K2-int8", dtype, variant), err, tol,
                      f"K2-int8 {name} G={g} kv={lens} {tag}")
-            # K2' + the suffix pass + K3-hetero, bf16 and int8 pools
+            # K2' + the suffix pass + K3-hetero, bf16 and int8 pools; bf16 q
+            # over the bf16 pool runs the tensor-core body in both passes
             for pool in (torch.bfloat16, torch.int8):
                 fc = family_case(8, pool, dtype)
+                mma = dtype == torch.bfloat16 and pool == torch.bfloat16
+                n_mma = (mp.mla_decode_paged_group_prefix.mma_launches,
+                         mp.mla_decode_paged_queue_rows.mma_launches)
                 o_k, lse_k = run_group_prefix(fc, variant, plain=False)
                 o_p, lse_p = run_group_prefix(fc, variant, plain=True)
                 so_k, slse_k = run_suffix(fc, variant, plain=False)
+                got = (mp.mla_decode_paged_group_prefix.mma_launches - n_mma[0],
+                       mp.mla_decode_paged_queue_rows.mma_launches - n_mma[1])
+                if got != (int(mma), int(mma)):
+                    raise SystemExit(f"K2' {str(pool)[6:]} pool, q {dtype}: tensor-core launches "
+                                     f"(K2', suffix K2) {got}, expected {(int(mma),) * 2}")
                 so_p, slse_p = run_suffix(fc, variant, plain=True)
                 out_k = mc.combine_hetero_partials([so_k, o_k], [slse_k, lse_k], *fc["hetero"])
                 out_p = mc._combine_plain(torch.cat([so_p, o_p]), torch.cat([slse_p, lse_p]),
@@ -706,8 +764,10 @@ def slice3_kernel_phase(flush):
                           (out_k - out_p).abs().max().item())
                 if not torch.isfinite(out_k).all():
                     raise SystemExit("K2' + K3-hetero: non-finite output")
-                note(("K2'", dtype, variant), err, 2e-3 if dtype == torch.float32 else tol,
-                     f"K2' + K3-hetero {str(pool)[6:]} pool, group of 4 (G=512 stacked), {tag}")
+                note(("K2'" if pool == torch.bfloat16 else "K2' int8", dtype, variant), err,
+                     2e-3 if dtype == torch.float32 else tol,
+                     f"K2' + K3-hetero {str(pool)[6:]} pool, group of 4 (G=512 stacked), {tag}"
+                     f"{', tensor-core body' if mma else ''}")
                 # prefix sharing against the unshared queue, through ops
                 args = (fc["q"][:, None], fc["kv"].pages, fc["bt"], fc["kv_host"])
                 kw = dict(kv_scales=fc["kv"].scales, d_v=DV, variant=variant,
@@ -760,10 +820,24 @@ def slice3_kernel_phase(flush):
     b, by = rows_bound(qg, plen, DK + 4, 4 * 128 * (DV + 1) * 4, 4 * 128 * float(plen))
     c = dequant_rows(fc["kv"], 0, 0, plen, bf)[None]
     tlib = time_cuda(sdpa_rows(qg, c, [plen]), 20, flush)
-    rows["K2'"] = (t, tp, b, by, tlib)
+    rows["K2' int8"] = (t, tp, b, by, tlib)
     log(f"  time K2' int8 serve decode prefix pass (bf16, 1 group of 4 = 512 stacked rows, "
         f"{plen} shared rows): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA "
         f"on a dequantized contiguous copy {tlib:.4f} ms)")
+    del fc, c
+    # K2' at the same group shape over a bf16 pool (the tensor-core body)
+    fc = family_case(10, torch.bfloat16, bf)
+    plen = int(fc["ps"].prefix_lens[0])
+    t = time_cuda(lambda: run_group_prefix(fc, "amla", plain=False), 20, flush)
+    tp = time_cuda(lambda: run_group_prefix(fc, "amla", plain=True), 5, flush)
+    qg = fc["q"][fc["ps"].groups.group_member[0]].reshape(1, 4 * 128, DK)
+    b, by = rows_bound(qg, plen, 2 * DK, 4 * 128 * (DV + 1) * 4, 4 * 128 * float(plen))
+    c = dequant_rows(fc["kv"], 0, 0, plen, bf)[None]
+    tlib = time_cuda(sdpa_rows(qg, c, [plen]), 20, flush)
+    rows["K2'"] = (t, tp, b, by, tlib)
+    log(f"  time K2' over a bf16 pool, the same group (bf16, 512 stacked rows, {plen} shared "
+        f"rows; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, "
+        f"SDPA on a contiguous copy {tlib:.4f} ms)")
     del fc, c
     # K2-int8 at PR 12's K2 decode shape, beside K2 on the same bf16 rows
     case = int8_case(11, [37 + 16, 300 + 16, 513 + 16, 1100 + 16], 128, bf, 2,
@@ -932,24 +1006,27 @@ def small_int8_prefix_check():
         raise SystemExit("small int8 + shared-prefix reference check failed")
 
 
-def int8_prefix_phase(cfg, model, params):
+def shared_prefix_phase(cfg, model, params, kv_dtype):
     """deepseek-v2-mla at published widths (the paged phase's weights)
-    through PagedServingSession(kv_dtype="int8", prefix_sharing=True): an
+    through PagedServingSession(kv_dtype=..., prefix_sharing=True): an
     1100-token system prompt, three admit_with_prefix children (suffixes of
     7, 40 and 300 tokens), an unrelated 513-token loner, 16 greedy steps.
     The family shares 2 complete 512-row blocks, so every decode step runs
-    K2' (one group of 4, G = 512 stacked rows), K2-int8 on the suffixes and
-    the hetero combine in every layer."""
+    K2' (one group of 4, G = 512 stacked rows), the queue kernel on the
+    suffixes (K2-int8 over int8 pages, K2 over bf16 pages) and the hetero
+    combine in every layer.  Over bf16 pages every K2 and K2' launch takes
+    the tensor-core body; over int8 pages none does."""
     from repro_torch.kernels import mla_decode_combine as mc
     from repro_torch.kernels import mla_decode_paged as mp
     from repro_torch.runtime.serve_loop import PagedServingSession
 
-    log(f"== int8 shared-prefix serve phase: {cfg.name} ({cfg.n_layers} layers, the paged "
-        f"phase's bf16 weights), PagedServingSession(kv_dtype='int8', prefix_sharing=True, "
-        f"num_splits=2), 48 pages of {PAGE} ==")
+    int8 = kv_dtype == "int8"
+    log(f"== {kv_dtype} shared-prefix serve phase: {cfg.name} ({cfg.n_layers} layers, the "
+        f"paged phase's bf16 weights), PagedServingSession(kv_dtype='{kv_dtype}', "
+        f"prefix_sharing=True, num_splits=2), 48 pages of {PAGE} ==")
     torch.cuda.reset_peak_memory_stats()
     sess = PagedServingSession(model, params, num_pages=48, page_size=PAGE, num_splits=2,
-                               prefill_chunk=32, kv_dtype="int8", prefix_sharing=True)
+                               prefill_chunk=32, kv_dtype=kv_dtype, prefix_sharing=True)
     rng = np.random.default_rng(1)
     system = rng.integers(2, cfg.vocab_size, size=1100).tolist()
     suffixes = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (7, 40, 300)]
@@ -969,6 +1046,8 @@ def int8_prefix_phase(cfg, model, params):
     for fn in counters:
         fn.launches = 0
     mp.mla_decode_paged_queue_rows.int8_launches = 0
+    mp.mla_decode_paged_queue_rows.mma_launches = 0
+    mp.mla_decode_paged_group_prefix.mma_launches = 0
     parent = sess.add_request(system)
     kids = [sess.admit_with_prefix(parent, suf) for suf in suffixes]
     other = sess.add_request(loner)
@@ -981,6 +1060,8 @@ def int8_prefix_phase(cfg, model, params):
     torch.cuda.synchronize()
     k2, k3, k2p = (fn.launches for fn in counters)
     k2i8 = mp.mla_decode_paged_queue_rows.int8_launches
+    mma = (mp.mla_decode_paged_queue_rows.mma_launches,
+           mp.mla_decode_paged_group_prefix.mma_launches)
     work = sess.work_stats()
     results = {r: list(sess.outputs[r]) for r in rids}
     sweep = sess.close()
@@ -994,24 +1075,27 @@ def int8_prefix_phase(cfg, model, params):
         f"{tokens_out} tokens in {steps} steps, {timing['decode']:.3f} s "
         f"({tokens_out / timing['decode']:.2f} tok/s, {1e3 * timing['decode'] / steps:.1f} "
         f"ms/step); aliased pages after admission {aliased}; page DMAs {work['page_dmas']} "
-        f"({work['page_dma_bytes'] / 1e6:.2f} MB at int8); peak memory "
+        f"({work['page_dma_bytes'] / 1e6:.2f} MB at {kv_dtype}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; teardown sweep "
         f"{sweep['free_pages']} pages free")
     log(f"groups per decode step (groups, gmax): {sorted(set(grouped))} in {n_grouped} of "
         f"{steps} steps")
-    log(f"launches: K2-int8 {k2i8} (expected layers x (prefill chunks + decode steps) = {L} x "
-        f"({chunks} + {steps}) = {L * (chunks + steps)}), K2' {k2p} (expected layers x grouped "
-        f"steps = {L} x {n_grouped} = {L * n_grouped}), K3 {k3} (expected {L * (chunks + steps)}),"
-        f" K2 on bf16 pages {k2} (expected 0)")
-    if (k2i8 != L * (chunks + steps) or k2p != L * n_grouped or k3 != L * (chunks + steps)
-            or k2 != 0 or n_grouped != steps or k2p <= 0 or aliased <= 0
-            or set(grouped) != {(1, 4)}):
-        raise SystemExit("int8 shared-prefix phase: launch counts do not match the path")
+    queue = k2i8 if int8 else k2
+    log(f"launches: {'K2-int8' if int8 else 'K2'} {queue} (expected layers x (prefill chunks + "
+        f"decode steps) = {L} x ({chunks} + {steps}) = {L * (chunks + steps)}), K2' {k2p} "
+        f"(expected layers x grouped steps = {L} x {n_grouped} = {L * n_grouped}), K3 {k3} "
+        f"(expected {L * (chunks + steps)}), {'K2 on bf16 pages' if int8 else 'K2-int8'} "
+        f"{k2 if int8 else k2i8} (expected 0); tensor-core body: K2 {mma[0]}, K2' {mma[1]} "
+        f"(expected {(0, 0) if int8 else (queue, k2p)})")
+    if (queue != L * (chunks + steps) or k2p != L * n_grouped or k3 != L * (chunks + steps)
+            or (k2 if int8 else k2i8) != 0 or n_grouped != steps or k2p <= 0 or aliased <= 0
+            or set(grouped) != {(1, 4)} or mma != ((0, 0) if int8 else (queue, k2p))):
+        raise SystemExit(f"{kv_dtype} shared-prefix phase: launch counts do not match the path")
     for rid, out in results.items():
         if len(out) != 17 or not all(0 <= t < cfg.vocab_size for t in out):
-            raise SystemExit(f"int8 shared-prefix phase: request {rid} returned {out}")
+            raise SystemExit(f"{kv_dtype} shared-prefix phase: request {rid} returned {out}")
     log(f"tokens: { {r: results[r][:6] for r in rids} }")
-    return k2i8, k2p, k3
+    return queue, k2p, k3
 
 
 def padded_decode_phase():
@@ -1038,18 +1122,22 @@ def padded_decode_phase():
             if sess.admit(p) is None:
                 raise SystemExit("padded decode phase: admission failed")
         mp.mla_decode_paged_rows.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs[scheduler] = [sess.step(q, new) for q, new in steps]
-        torch.cuda.synchronize()
-        times[scheduler] = (time.perf_counter() - t0) / len(steps)
+        outs[scheduler], per_step = [], []
+        for q, new in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[scheduler].append(sess.step(q, new))
+            torch.cuda.synchronize()
+            per_step.append(time.perf_counter() - t0)
+        times[scheduler] = (np.mean(per_step), np.median(per_step), np.max(per_step))
         if scheduler == "padded":
             k5 = mp.mla_decode_paged_rows.launches
     err = max((a[r] - b[r]).abs().max().item()
               for a, b in zip(outs["padded"], outs["queue"]) for r in range(4))
     finite = all(torch.isfinite(o[r]).all() for o in outs["padded"] for r in range(4))
     tol = TOL[torch.bfloat16, "amla"]
-    log(f"padded {1e3 * times['padded']:.3f} ms/step, queue {1e3 * times['queue']:.3f} ms/step; "
+    ms = {k: "/".join(f"{1e3 * t:.3f}" for t in v) for k, v in times.items()}
+    log(f"padded {ms['padded']} ms/step, queue {ms['queue']} ms/step (mean/median/max); "
         f"max |padded - queue| over 16 steps {err:.3e} (tol {tol:g}: bf16, the two update "
         f"the AMLA state per page and per 512-row block); K5 launches {k5} (expected 16)")
     if k5 != len(steps) or not err <= tol or not finite:
@@ -1286,10 +1374,12 @@ def serve_phase():
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
     timing = timed_session(sess)
     mp.mla_decode_paged_queue_rows.launches = 0
+    mp.mla_decode_paged_queue_rows.mma_launches = 0
     mc.combine_split_partials.launches = 0
     results, tokens_out, dt = _serve_stream(sess, list(prompts), gen_len, len(prompts))
     torch.cuda.synchronize()
     k2, k3 = mp.mla_decode_paged_queue_rows.launches, mc.combine_split_partials.launches
+    k2_mma = mp.mla_decode_paged_queue_rows.mma_launches
     work = sess.work_stats()
     sweep = sess.close()
     chunks, steps = work["prefill_chunks"], work["decode_steps"]
@@ -1299,18 +1389,35 @@ def serve_phase():
         f"{tokens_out} tokens in {steps} steps, {timing['decode']:.3f} s "
         f"({tokens_out / timing['decode']:.2f} tok/s, "
         f"{1e3 * timing['decode'] / steps:.1f} ms/step); wall {dt:.3f} s")
-    log(f"launches: K2 mla_decode_paged_queue_rows {k2}, K3 combine_split_partials {k3}; "
-        f"expected layers x (prefill chunks + decode steps) = {cfg.n_layers} x "
-        f"({chunks} + {steps}) = {cfg.n_layers * (chunks + steps)}")
+    log(f"launches: K2 mla_decode_paged_queue_rows {k2} (tensor-core body {k2_mma}), K3 "
+        f"combine_split_partials {k3}; expected layers x (prefill chunks + decode steps) = "
+        f"{cfg.n_layers} x ({chunks} + {steps}) = {cfg.n_layers * (chunks + steps)}")
     log(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; teardown sweep "
         f"{sweep['free_pages']} pages free")
-    if k2 <= 0 or k3 <= 0 or k2 != cfg.n_layers * (chunks + steps) or k3 != k2:
+    if (k2 <= 0 or k3 <= 0 or k2 != cfg.n_layers * (chunks + steps) or k3 != k2
+            or k2_mma != k2):
         raise SystemExit("serve phase: kernel launch counts do not match the main path")
     for rid, out in results.items():
         if len(out) != gen_len + 1 or not all(0 <= t < cfg.vocab_size for t in out):
             raise SystemExit(f"serve phase: request {rid} returned {out}")
     log(f"tokens: { {r: results[r][:6] for r in sorted(results)} }")
     return k2, k3, (cfg, model, params, prompt_lens, results)
+
+
+def mma_ptxas(log_text):
+    """ptxas's spill and register lines for each instantiation of the
+    tensor-core queue kernel: [(template arguments, spill line, register
+    line)]."""
+    out = []
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and MMA_KERNEL in line:
+            args = line.split(MMA_KERNEL, 1)[1].split("EEEv", 1)[0]
+            after = lines[i + 1:i + 5]
+            spill = next((x.strip() for x in after if "spill" in x), "")
+            regs = next((x.strip() for x in after if "registers" in x), "")
+            out.append((args, spill, regs))
+    return out
 
 
 def main() -> int:
@@ -1334,6 +1441,16 @@ def main() -> int:
     for line in res.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("  " + line.strip())
+    if res.log:
+        found = mma_ptxas(res.log)
+        for args, spill, regs in found:
+            log(f"  {MMA_KERNEL}<{args}> (kM, amla): {regs}; {spill}")
+        spilled = [a for a, spill, _ in found if "0 bytes spill stores, 0 bytes spill loads" not in spill]
+        if len(found) != 4 or spilled:
+            raise SystemExit(f"build: the tensor-core queue kernel's ptxas lines show spills or "
+                             f"are missing ({len(found)} of 4 found, spilled: {spilled})")
+    else:
+        log(f"  (library already built: no ptxas lines for {MMA_KERNEL})")
 
     flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device="cuda")
     worst, rows = kernel_phase(flush)
@@ -1349,7 +1466,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     k2, k3, paged = serve_phase()
-    k2i8, k2p, k3i8 = int8_prefix_phase(*paged[:3])
+    k2b, k2pb, k3b = shared_prefix_phase(*paged[:3], "bf16")
+    k2i8, k2p, k3i8 = shared_prefix_phase(*paged[:3], "int8")
     k4 = mla_dense_phase(*paged)
     del paged
     torch.cuda.empty_cache()
@@ -1359,13 +1477,13 @@ def main() -> int:
     derr = lambda name: max(v for k, v in dworst.items() if k[0] == name)
     terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     d2, d3 = rows["decode"]["k2"], rows["decode"]["k3"]
-    t8, tp, t5 = trows["K2-int8"], trows["K2'"], trows["K5"]
+    t8, tp, tpi, t5 = trows["K2-int8"], trows["K2'"], trows["K2' int8"], trows["K5"]
     t4, t6, t7 = drows["K4", "deepseek decode"], drows["K6", "gemma2-2b decode"], drows[
         "K7", "gemma2-2b prefill 2048"]
+    mma_src = "src/repro_torch/csrc/mla_rows_mma.cuh"
     kernels = [
-        dict(name="mla_decode_paged_queue_rows", route="cuda",
-             source="src/repro_torch/csrc/mla_decode_paged.cu",
-             replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2,
+        dict(name="mla_decode_paged_queue_rows", route="cuda", source=mma_src,
+             replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2 + k2b,
              max_abs_err=err("mla_decode_paged_queue_rows"), ms=d2[0], plain_ms=d2[1],
              bound_ms=d2[2], bound_by=d2[3], library_ms=d2[4]),
         dict(name="mla_decode_paged_queue_rows[int8]", route="cuda",
@@ -1373,14 +1491,18 @@ def main() -> int:
              replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2i8,
              max_abs_err=terr("K2-int8"), ms=t8[0], plain_ms=t8[1], bound_ms=t8[2],
              bound_by=t8[3], library_ms=t8[4]),
-        dict(name="mla_decode_paged_group_prefix", route="cuda",
-             source="src/repro_torch/csrc/mla_decode_paged.cu",
-             replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2p,
+        dict(name="mla_decode_paged_group_prefix", route="cuda", source=mma_src,
+             replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2pb,
              max_abs_err=terr("K2'"), ms=tp[0], plain_ms=tp[1], bound_ms=tp[2],
              bound_by=tp[3], library_ms=tp[4]),
+        dict(name="mla_decode_paged_group_prefix[int8]", route="cuda",
+             source="src/repro_torch/csrc/mla_decode_paged.cu",
+             replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2p,
+             max_abs_err=terr("K2' int8"), ms=tpi[0], plain_ms=tpi[1], bound_ms=tpi[2],
+             bound_by=tpi[3], library_ms=tpi[4]),
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
-             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3 + k3i8,
+             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3 + k3b + k3i8,
              max_abs_err=err("combine_split_partials"), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
         dict(name="mla_decode_rows", route="cuda", source="src/repro_torch/csrc/mla_decode.cu",

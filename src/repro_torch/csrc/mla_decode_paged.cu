@@ -35,11 +35,13 @@
 // per-block work (strip staging, the one state update per block, P·V) is
 // the row body in mla_rows.cuh, shared with the contiguous kernel K4; this
 // file adds the block-table addressing.  Pages past kv_len are never read.
-// This first version uses plain loads and fp32 FMA loops; wgmma/TMA
-// pipelining is later work.
+// bf16 queries over a bf16 pool take the tensor-core, cp.async-pipelined
+// row body of mla_rows_mma.cuh (16- or 32-row tiles); fp32 and int8 pools
+// keep the scalar body of mla_rows.cuh (plain loads, fp32 FMA loops).
 #include <cuda_runtime.h>
 
 #include "mla_rows.cuh"
+#include "mla_rows_mma.cuh"
 
 namespace {
 
@@ -64,6 +66,59 @@ struct Params {
   int num_pages, page_size, W, N;
 };
 
+// The first queue item of slot `dest` (its items are contiguous), or -1.
+__device__ __forceinline__ int slot_first(const Params& p, int dest, int* s_first) {
+  if (threadIdx.x == 0) *s_first = -1;
+  __syncthreads();
+  for (int t = threadIdx.x; t < p.N; t += blockDim.x) {
+    if (p.item_dest[t] == dest && p.item_valid[t] && p.item_first[t]) *s_first = t;
+  }
+  __syncthreads();
+  return *s_first;
+}
+
+// No work for this slot (an empty request or the padding dump): the
+// combine never reads it, but leave a defined empty partial.
+__device__ __forceinline__ void empty_partial(const Params& p, int dest, int row0, int rows) {
+  const int G = p.g.G, Dv = p.g.Dv;
+  for (int idx = threadIdx.x; idx < rows * Dv; idx += blockDim.x) {
+    const int g = row0 + idx / Dv;
+    if (g < G) p.o_part[(static_cast<size_t>(dest) * G + g) * Dv + idx % Dv] = 0.0f;
+  }
+  if (static_cast<int>(threadIdx.x) < rows && row0 + static_cast<int>(threadIdx.x) < G) {
+    p.lse[static_cast<size_t>(dest) * G + row0 + threadIdx.x] = -INFINITY;
+  }
+}
+
+// Element offset of key row `pos` of a request, through its block table
+// (ids clamped into the pool, as the reference's tail redirect).
+struct PagedKeys {
+  const int* bt;
+  int page_size, num_pages, Dk;
+  __device__ __forceinline__ long long operator()(int pos) const {
+    const int pid = min(max(bt[pos / page_size], 0), num_pages - 1);
+    return (static_cast<long long>(pid) * page_size + pos % page_size) * Dk;
+  }
+};
+
+// The slot's items in queue order, from its first: each item's KV block
+// with the keys below min(kv_len, cap) that it holds (live > 0 only).
+struct QueueBlocks {
+  const int *block, *dest, *last, *valid;
+  int t, n, slot, k_len, block_k;
+  __device__ __forceinline__ bool next(int cap, int& start, int& live) {
+    while (t < n) {
+      if (dest[t] != slot || !valid[t]) break;
+      start = block[t] * block_k;
+      live = min(block_k, min(k_len, cap) - start);
+      t = last[t] ? n : t + 1;
+      if (live > 0) return true;
+    }
+    t = n;
+    return false;
+  }
+};
+
 template <typename TQ, typename TP, bool kAmla>
 __global__ void __launch_bounds__(kThreads, 1)
     mla_decode_queue_kernel(Params p) {
@@ -71,62 +126,97 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Smem sm = carve(smem_raw, p.g);
   __shared__ int s_first;
 
-  const int tid = threadIdx.x;
   const int dest = blockIdx.x;
   const int row0 = blockIdx.y * kRows;
   const int G = p.g.G, Dv = p.g.Dv;
 
-  // The slot's items are contiguous; find the first one.
-  if (tid == 0) s_first = -1;
-  __syncthreads();
-  for (int t = tid; t < p.N; t += kThreads) {
-    if (p.item_dest[t] == dest && p.item_valid[t] && p.item_first[t]) s_first = t;
-  }
-  __syncthreads();
-  const int first = s_first;
+  const int first = slot_first(p, dest, &s_first);
   if (first < 0) {
-    // No work for this slot (an empty request or the padding dump): the
-    // combine never reads it, but leave a defined empty partial.
-    for (int idx = tid; idx < kRows * Dv; idx += kThreads) {
-      const int g = row0 + idx / Dv;
-      if (g < G) p.o_part[(static_cast<size_t>(dest) * G + g) * Dv + idx % Dv] = 0.0f;
-    }
-    if (tid < kRows && row0 + tid < G) {
-      p.lse[static_cast<size_t>(dest) * G + row0 + tid] = -INFINITY;
-    }
+    empty_partial(p, dest, row0, kRows);
     return;
   }
 
   const int req = p.item_req[first];
-  const int k_len = p.kv_len[req];
   const TQ* q = static_cast<const TQ*>(p.q) + static_cast<size_t>(req) * G * p.g.Dk;
   const int qmax = load_tile(sm, p.g, q, p.q_pos + static_cast<size_t>(req) * G, row0);
   const TP* pages = static_cast<const TP*>(p.pages);
-  const int* bt = p.block_tables + static_cast<size_t>(req) * p.W;
-  const int page_size = p.page_size, num_pages = p.num_pages, Dk = p.g.Dk;
-  auto key_off = [=](int pos) -> long long {
-    const int pid = min(max(bt[pos / page_size], 0), num_pages - 1);
-    return (static_cast<long long>(pid) * page_size + pos % page_size) * Dk;
-  };
+  const PagedKeys key_off{p.block_tables + static_cast<size_t>(req) * p.W, p.page_size,
+                          p.num_pages, p.g.Dk};
 
   RowState<kAmla> st;
   st.init();
   // Keys at or past min(kv_len, largest q_pos + 1) mask in every row.
-  const int end = min(k_len, qmax + 1);
-  for (int t = first; t < p.N; ++t) {
-    if (p.item_dest[t] != dest || !p.item_valid[t]) break;
-    const int start = p.item_block[t] * p.g.block_k;
-    const int live = min(p.g.block_k, end - start);
-    if (live > 0) {
-      block_update<TQ, TP, kAmla>(st, sm, p.g, pages, start, live, key_off, p.scales);
-    }
-    if (p.item_last[t]) break;
+  QueueBlocks blocks{p.item_block, p.item_dest, p.item_last, p.item_valid, first, p.N, dest,
+                     p.kv_len[req], p.g.block_k};
+  int start, live;
+  while (blocks.next(qmax + 1, start, live)) {
+    block_update<TQ, TP, kAmla>(st, sm, p.g, pages, start, live, key_off, p.scales);
   }
   finalize(st, p.g, row0, p.o_part + static_cast<size_t>(dest) * G * Dv,
            p.lse + static_cast<size_t>(dest) * G);
 }
 
-// ---- host launcher ----
+// bf16 q over a bf16 pool: the tensor-core row body, kRows = 16 * kM.
+template <int kM, bool kAmla>
+__global__ void __launch_bounds__(mla_rows_mma::kThreads, 1)
+    mla_decode_queue_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_first;
+  constexpr int kTileRows = mla_rows_mma::Tile<kM>::kRows;
+  const int dest = blockIdx.x;
+  const int row0 = blockIdx.y * kTileRows;
+  const int G = p.g.G;
+
+  const int first = slot_first(p, dest, &s_first);
+  if (first < 0) {
+    empty_partial(p, dest, row0, kTileRows);
+    return;
+  }
+  const int req = p.item_req[first];
+  const mla_rows_mma::Geom g{G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
+  const QueueBlocks blocks{p.item_block, p.item_dest, p.item_last, p.item_valid, first,
+                           p.N, dest, p.kv_len[req], p.g.block_k};
+  mla_rows_mma::attend<kM, kAmla>(
+      smem_raw, g, static_cast<const __nv_bfloat16*>(p.q) + static_cast<size_t>(req) * G * p.g.Dk,
+      p.q_pos + static_cast<size_t>(req) * G, row0,
+      static_cast<const __nv_bfloat16*>(p.pages), blocks,
+      PagedKeys{p.block_tables + static_cast<size_t>(req) * p.W, p.page_size, p.num_pages,
+                p.g.Dk},
+      p.o_part + static_cast<size_t>(dest) * G * p.g.Dv, p.lse + static_cast<size_t>(dest) * G);
+}
+
+// ---- host launchers ----
+
+template <int kM, bool kAmla>
+cudaError_t launch_mma_tile(const Params& p, int num_dest_slots, cudaStream_t stream) {
+  const mla_rows_mma::Geom g{p.g.G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
+  const size_t smem = mla_rows_mma::smem_bytes<kM>(g);
+  auto kernel = mla_decode_queue_mma_kernel<kM, kAmla>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  constexpr int kTileRows = mla_rows_mma::Tile<kM>::kRows;
+  const dim3 grid(num_dest_slots, (p.g.G + kTileRows - 1) / kTileRows);
+  kernel<<<grid, mla_rows_mma::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// 32-row tiles once their grid alone fills the card's SMs (prefill chunks);
+// 16-row tiles below that, doubling a decode step's few CTAs.
+cudaError_t launch_mma(const Params& p, int num_dest_slots, int amla, cudaStream_t stream) {
+  if (p.g.Dk % 8 || p.g.Dv % 8) return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const bool wide = static_cast<long long>(num_dest_slots) * ((p.g.G + 31) / 32) >= sms;
+  if (wide) {
+    return amla ? launch_mma_tile<2, true>(p, num_dest_slots, stream)
+                : launch_mma_tile<2, false>(p, num_dest_slots, stream);
+  }
+  return amla ? launch_mma_tile<1, true>(p, num_dest_slots, stream)
+              : launch_mma_tile<1, false>(p, num_dest_slots, stream);
+}
 
 template <typename TQ, typename TP, bool kAmla>
 cudaError_t launch(const Params& p, int num_dest_slots, cudaStream_t stream) {
@@ -175,7 +265,7 @@ extern "C" int amla_mla_decode_paged_queue(
   const int n = num_dest_slots;
   if (q_bf16) {
     err = pages_kind == 2 ? launch_variant<__nv_bfloat16, int8_t>(p, n, amla, s)
-        : pages_kind == 1 ? launch_variant<__nv_bfloat16, __nv_bfloat16>(p, n, amla, s)
+        : pages_kind == 1 ? launch_mma(p, n, amla, s)
                           : launch_variant<__nv_bfloat16, float>(p, n, amla, s);
   } else {
     err = pages_kind == 2 ? launch_variant<float, int8_t>(p, n, amla, s)

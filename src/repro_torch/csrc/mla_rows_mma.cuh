@@ -1,0 +1,554 @@
+// Tensor-core AMLA row body for bf16 queries over bf16 latent rows.
+//
+// Replaces, for bf16 q over a bf16 page pool, the scalar row body of
+// mla_rows.cuh in the work-queue paged kernel (mla_decode_paged.cu), i.e.
+// the Pallas TPU kernels repro/kernels/mla_decode_paged.py:490
+// mla_decode_paged_queue_rows (K2) and :618 mla_decode_paged_group_prefix
+// (K2', the same launch on stacked member queries).  It computes what
+// mla_rows.cuh computes: per KV block of block_k rows ONE online-softmax
+// update per query row with the AMLA MUL-by-ADD rescale (an int32 add on
+// the fp32 accumulator's bits, skipped where it is 0; "base" multiplies),
+// in the same order: scale, softcap, clamp, mask; expf;
+// round_scale_to_pow2; p * S16 rounded to bf16 before P.V.  Only the order
+// of the fp32 sums inside the two products differs (tensor cores).
+//
+// What bounds it on an H100.  The bytes of the live latent rows, each read
+// once (1152 bytes a row at 3.35 TB/s): ~0.002 ms at the paged serve
+// phase's decode step.  Its operations, 2 * rows * keys * (Dk + Dv), take
+// about 1 us at 989 TFLOP/s there.  What cost the scalar body ~1 ms per
+// 512-row block was latency: scalar FMA loops, and staging with two
+// barriers per 32-dim strip and nothing in flight.
+//
+// Design.
+// * Both products on tensor cores: mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate) with operands loaded by ldmatrix (.trans for V, which is
+//   key-major).  Every staged row is padded by 16 bytes, so each ldmatrix
+//   phase touches 32 distinct banks.
+// * One stream of chunks per CTA through a ring of kStages buffers filled
+//   by 16-byte cp.async copies: per block its score chunks (128 keys x 64
+//   dims, strip by strip), then its value chunks (16 keys x Dv).  A block's
+//   key-row offsets are looked up through `key_off` (the block table) once,
+//   when the producer reaches the block, into shared memory, so a copy
+//   costs no lookup and no division.  The producer runs kStages - 1 chunks
+//   ahead of the consumer, across the softmax and across block boundaries,
+//   so the next strip, the block's values and the next block's keys are in
+//   flight while a chunk is multiplied; one barrier per chunk.  Key rows past `live`, query rows
+//   past G and columns past Dk are zero-filled by the copy (src-size 0): a
+//   masked key has p = 0, and 0 times stale bytes may be NaN.
+// * A CTA takes kRows = 16 * kM query rows (kM = 1 or 2, chosen by the
+//   launcher: 16-row tiles double a small decode grid, 32-row tiles halve
+//   the key traffic of a large prefill grid).  Warp w scores keys
+//   [16w, 16w + 16) of each strip for all rows into the block's fp32 score
+//   strip in shared memory, so the row max, and with it the single state
+//   update, is known before P.V.  Warp w then owns 2 * kM rows for the
+//   softmax and the state (as in mla_rows.cuh), and for P.V the value
+//   columns [64w, 64w + 64) of every row: its fp32 accumulators stay in
+//   registers across blocks (kM x 8 fragments of 4 floats a thread), and
+//   each rescales its own fragment rows (lane / 4 and lane / 4 + 8).
+//
+// On the H100 (PERF.md) the copies are in place when a chunk is consumed:
+// what remains is each chunk's copy issue, ldmatrix and mma work, which
+// every warp runs one after the other while its CTA streams a block's keys
+// and then its values (1.1 MB).  Producer warps and TMA multicast across
+// the row tiles of a slot are the next steps.
+//
+// The body is independent of the paging: the caller hands it an iterator
+// over its KV blocks and the `key_off(pos)` functor of mla_rows.cuh.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "amla.cuh"
+
+namespace mla_rows_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kStripKeys = 16 * kWarps;          // 128 keys per score strip
+constexpr int kDChunk = 64;                       // key dims per score chunk
+constexpr int kKStride = kDChunk + 8;             // bf16 per staged key row
+constexpr int kVKeys = 16;                        // keys per value chunk
+constexpr int kDvMax = 512;
+constexpr int kVStride = kDvMax + 8;              // bf16 per staged value row
+constexpr int kBlockKMax = 512;
+constexpr int kWarpNTiles = kDvMax / 8 / kWarps;  // value n-tiles per warp
+constexpr int kStageElems = kStripKeys * kKStride > kVKeys * kVStride
+                                ? kStripKeys * kKStride
+                                : kVKeys * kVStride;
+
+template <int kM>
+struct Tile {
+  static constexpr int kRows = 16 * kM;
+  static constexpr int kRowsPerWarp = kRows / kWarps;
+  // as many ring stages as fit beside the tile at Dk 576, block_k 512
+  static constexpr int kStages = kM == 1 ? 8 : 4;
+};
+
+// Row geometry and score transform of one launch (Dk, Dv multiples of 8).
+struct Geom {
+  int G, Dk, Dv, block_k;
+  float scale, softcap;  // softcap <= 0: off
+};
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// bf16 per staged query row, per P row; floats per score row.
+__host__ __device__ inline int q_stride(const Geom& g) { return round_up(g.Dk, kDChunk) + 8; }
+__host__ __device__ inline int p_cols(const Geom& g) { return round_up(g.block_k, kVKeys); }
+__host__ __device__ inline int p_stride(const Geom& g) { return p_cols(g) + 8; }
+
+template <int kM>
+inline size_t smem_bytes(const Geom& g) {
+  constexpr int kRows = Tile<kM>::kRows;
+  return 2 * (static_cast<size_t>(Tile<kM>::kStages) * kStageElems +
+              static_cast<size_t>(kRows) * (q_stride(g) + p_stride(g))) +
+         4 * (static_cast<size_t>(kRows) * (p_stride(g) + 2) + 2 * p_cols(g));
+}
+
+// The CTA's dynamic shared memory, carved (every piece 16-byte aligned).
+struct Smem {
+  bf16* ring;   // kStages x kStageElems
+  bf16* q;      // kRows x q_stride
+  bf16* p;      // kRows x p_stride: the block's p (* S16), bf16
+  float* s;     // kRows x p_stride: the block's scores
+  float* rowf;  // kRows: alpha per block (base), then the denominators
+  int* rowi;    // kRows: the int increment per block (amla)
+  int* keys;    // 2 x p_cols: key-row offsets of two blocks, in 8-element units
+};
+
+template <int kM>
+__device__ __forceinline__ Smem carve(unsigned char* raw, const Geom& g) {
+  constexpr int kRows = Tile<kM>::kRows;
+  Smem sm;
+  sm.ring = reinterpret_cast<bf16*>(raw);
+  sm.q = sm.ring + Tile<kM>::kStages * kStageElems;
+  sm.p = sm.q + kRows * q_stride(g);
+  sm.s = reinterpret_cast<float*>(sm.p + kRows * p_stride(g));
+  sm.rowf = sm.s + kRows * p_stride(g);
+  sm.rowi = reinterpret_cast<int*>(sm.rowf + kRows);
+  sm.keys = sm.rowi + kRows;
+  return sm;
+}
+
+// ---- PTX wrappers -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; copies `src_bytes` (16 or 0)
+// and zero-fills the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- end of PTX wrappers ----------------------------------------------------
+
+// The chunk stream's producer: walks the same blocks as the consumer, in
+// the same order, kStages - 1 chunks ahead.  Every call commits one copy
+// group (empty once the stream has ended), so the consumer's wait count
+// stays fixed.  Entering a block writes its key-row offsets into one of
+// two shared buffers (the other may still feed the previous block's last
+// copies): a CTA barrier must separate a call that may enter a block from
+// the next call.
+template <typename Blocks, typename KeyOff>
+struct Producer {
+  Blocks blocks;
+  KeyOff key_off;
+  const bf16* kv;
+  int* keys;  // 2 x kcap row offsets, in 8-element (16-byte) units
+  int kcap, cap, Dk, Dv, n_dc;
+  bool valid;
+  int buf, start, live, phase, ks, dc, kc;  // phase 0: score chunks, 1: value chunks
+  int koff[4];                              // this thread's key rows in the strip
+  int vkey[4], vseg[4];                     // this thread's pieces of a value chunk
+
+  __device__ __forceinline__ void init() {
+    const int segs = Dv / 8;  // <= 64, so at most 4 pieces a thread
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int idx = threadIdx.x + kThreads * j;
+      vkey[j] = idx < kVKeys * segs ? idx / segs : -1;
+      vseg[j] = idx < kVKeys * segs ? idx - vkey[j] * segs : 0;
+    }
+    buf = 1;
+    begin();
+  }
+
+  __device__ __forceinline__ void begin() {
+    valid = blocks.next(cap, start, live);
+    phase = ks = dc = kc = 0;
+    if (valid) {
+      buf ^= 1;
+      for (int k = threadIdx.x; k < live; k += kThreads) {
+        keys[buf * kcap + k] = static_cast<int>(key_off(start + k) >> 3);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void issue(bf16* stage) {
+    const int tid = threadIdx.x;
+    const int* rows = keys + buf * kcap;
+    if (valid && phase == 0) {
+      // keys ks + (tid / 8) + 32 i, dims dc * 64 + 8 (tid % 8) .. + 8
+      if (dc == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = ks + (tid >> 3) + 32 * i;
+          koff[i] = key < live ? rows[key] : -1;
+        }
+      }
+      const int dim = dc * kDChunk + (tid & 7) * 8;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = koff[i] >= 0 && dim < Dk;
+        cp_async16(stage + ((tid >> 3) + 32 * i) * kKStride + (tid & 7) * 8,
+                   ok ? kv + 8 * static_cast<long long>(koff[i]) + dim : kv, ok ? 16 : 0);
+      }
+      if (++dc == n_dc) {
+        dc = 0;
+        ks += kStripKeys;
+        if (ks >= live) phase = 1;
+      }
+    } else if (valid) {
+      // keys kc .. kc + 15, all Dv columns
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (vkey[j] >= 0) {
+          const bool ok = kc + vkey[j] < live;
+          cp_async16(stage + vkey[j] * kVStride + vseg[j] * 8,
+                     ok ? kv + 8 * static_cast<long long>(rows[kc + vkey[j]]) + vseg[j] * 8 : kv,
+                     ok ? 16 : 0);
+        }
+      }
+      kc += kVKeys;
+      if (kc >= live) begin();
+    }
+    cp_async_commit();
+  }
+};
+
+// Online-softmax state of the warp's rows, held by all its lanes.
+template <int kM>
+struct RowState {
+  static constexpr int R = Tile<kM>::kRowsPerWarp;
+  float m[R], l[R], gamma[R], s16[R];
+  int n[R], qp[R];
+};
+
+// Attend the tile of query rows [row0, row0 + kRows) of one request (q: its
+// G rows of width Dk; q_pos: their positions) over the KV blocks that
+// `blocks` yields, and write the normalized rows into `o` (G x Dv) and,
+// with `lse`, lse = m + log l (-inf when empty).
+//
+// `blocks.next(cap, start, live)` yields, in order, each block's first key
+// position and its count of live keys (> 0), keys at or past `cap` (the
+// tile's largest position + 1) left out; `key_off(pos)` is the element
+// offset of key row `pos` in `kv`.  Every thread of the CTA calls this.
+template <int kM, bool kAmla, typename Blocks, typename KeyOff>
+__device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const bf16* q,
+                                       const int* q_pos, int row0, const bf16* kv,
+                                       const Blocks& blocks, KeyOff key_off, float* o,
+                                       float* lse) {
+  constexpr int kRows = Tile<kM>::kRows;
+  constexpr int R = Tile<kM>::kRowsPerWarp;
+  constexpr int S = Tile<kM>::kStages;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int fr = lane >> 2;         // fragment row (and + 8)
+  const int fc = 2 * (lane & 3);    // fragment column pair
+  const Smem sm = carve<kM>(raw, g);
+  const int qs = q_stride(g), ps = p_stride(g);
+  const int n_dc = (qs - 8) / kDChunk;
+
+  // The tile's largest position (-1 past G): keys past it mask every row.
+  int qmax = lane < kRows && row0 + lane < g.G ? q_pos[row0 + lane] : -1;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+
+  // Query rows into shared memory (zero past G and past Dk), in the first
+  // copy group with the first chunk.
+  const int q_segs = (qs - 8) / 8;
+  for (int idx = tid; idx < kRows * q_segs; idx += kThreads) {
+    const int r = idx / q_segs;
+    const int seg = idx - r * q_segs;
+    const bool ok = row0 + r < g.G && seg * 8 < g.Dk;
+    cp_async16(sm.q + r * qs + seg * 8,
+               ok ? q + static_cast<size_t>(row0 + r) * g.Dk + seg * 8 : q, ok ? 16 : 0);
+  }
+  Producer<Blocks, KeyOff> prod{blocks, key_off, kv, sm.keys, p_cols(g), qmax + 1,
+                                g.Dk, g.Dv, n_dc};
+  prod.init();
+  for (int s = 0; s < S - 1; ++s) {
+    __syncthreads();  // the block entered last has its key rows in place
+    prod.issue(sm.ring + s * kStageElems);
+  }
+
+  RowState<kM> st;
+  {
+    int n0;
+    float inv_r0;
+    amla::round_scale_to_pow2(amla::kMInit, &n0, &inv_r0);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = row0 + warp * R + i;
+      st.m[i] = amla::kMInit;
+      st.l[i] = 0.0f;
+      st.n[i] = n0;
+      st.gamma[i] = 1.0f;
+      st.s16[i] = amla::bf16_round(inv_r0);
+      st.qp[i] = r < g.G ? q_pos[r] : -1;
+    }
+  }
+  // This warp's value n-tiles: [nt0, nt0 + cnt) of Dv / 8.
+  const int wnt = (g.Dv / 8 + kWarps - 1) / kWarps;
+  const int nt0 = warp * wnt;
+  const int cnt = max(0, min(g.Dv / 8, nt0 + wnt) - nt0);
+  float acc[kM][kWarpNTiles][4];
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int j = 0; j < kWarpNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
+
+  Blocks it = blocks;
+  int start, live, chunk = 0;
+  while (it.next(qmax + 1, start, live)) {
+    // ---- scores: s[r][col] = q_r . k_col over the live keys -------------
+    for (int ks = 0; ks < live; ks += kStripKeys) {
+      float sacc[kM][2][4];
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[mi][nj][e] = 0.0f;
+      for (int dc = 0; dc < n_dc; ++dc, ++chunk) {
+        cp_async_wait<S - 2>();
+        __syncthreads();  // chunk landed for all; the stage refilled next is consumed
+        prod.issue(sm.ring + ((chunk + S - 1) % S) * kStageElems);
+        const bf16* kst = sm.ring + (chunk % S) * kStageElems;
+#pragma unroll
+        for (int kk = 0; kk < kDChunk / 16; ++kk) {
+          uint32_t b[4];  // keys 16w .. +7 and +8 .. +15, dims kk*16 .. +15
+          ldsm_x4(b, kst + (warp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kKStride +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) {
+            uint32_t a[4];
+            ldsm_x4(a, sm.q + (mi * 16 + (lane & 15)) * qs + dc * kDChunk + kk * 16 +
+                           (lane >> 4) * 8);
+            mma_bf16(sacc[mi][0], a, b[0], b[1]);
+            mma_bf16(sacc[mi][1], a, b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          const int col = ks + warp * 16 + nj * 8 + fc;
+          if (col < live) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              *reinterpret_cast<float2*>(sm.s + (mi * 16 + h * 8 + fr) * ps + col) =
+                  make_float2(sacc[mi][nj][2 * h], sacc[mi][nj][2 * h + 1]);
+            }
+          }
+        }
+    }
+    __syncthreads();  // the block's scores are in place
+
+    // ---- one online-softmax + AMLA state update per row per block -------
+    const int pcols = round_up(live, kVKeys);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = warp * R + i;
+      float* srow = sm.s + r * ps;
+      bf16* prow = sm.p + r * ps;
+      // scale, then softcap, then clamp, then mask to -inf
+      float rmax = -INFINITY;
+      for (int col = lane; col < live; col += 32) {
+        float x = -INFINITY;
+        if (start + col <= st.qp[i]) {
+          x = __fmul_rn(srow[col], g.scale);
+          if (g.softcap > 0.0f) x = __fmul_rn(g.softcap, tanhf(__fdiv_rn(x, g.softcap)));
+          x = fminf(fmaxf(x, -amla::kMClamp), amla::kMClamp);
+        }
+        srow[col] = x;
+        rmax = fmaxf(rmax, x);
+      }
+      rmax = amla::warp_max(rmax);
+      const float m_prev = st.m[i];
+      const float m_new = fmaxf(m_prev, rmax);
+      float psum = 0.0f;
+      for (int col = lane; col < live; col += 32) {
+        const float e = expf(__fsub_rn(srow[col], m_new));
+        srow[col] = e;
+        psum += e;
+      }
+      psum = amla::warp_sum(psum);
+      st.l[i] = __fadd_rn(__fmul_rn(st.l[i], expf(__fsub_rn(m_prev, m_new))), psum);
+      st.m[i] = m_new;
+      float pscale = 1.0f;
+      if (kAmla) {
+        int n_new;
+        float inv_r;
+        amla::round_scale_to_pow2(m_new, &n_new, &inv_r);
+        const float s = amla::bf16_round(inv_r);
+        const float g_new = __fdiv_rn(inv_r, s);
+        const float eps = __fsub_rn(__fdiv_rn(st.gamma[i], g_new), 1.0f);
+        if (lane == 0) sm.rowi[r] = amla::pow2_int_increment(n_new - st.n[i], eps);
+        st.n[i] = n_new;
+        st.gamma[i] = g_new;
+        st.s16[i] = s;
+        pscale = s;
+      } else if (lane == 0) {
+        sm.rowf[r] = expf(__fsub_rn(m_prev, m_new));
+      }
+      // p_v = p * S16 (amla) or p, rounded to bf16 before P.V; 0 past live
+      for (int col = lane; col < pcols; col += 32) {
+        const float pv = col < live ? (kAmla ? __fmul_rn(srow[col], pscale) : srow[col]) : 0.0f;
+        prow[col] = __float2bfloat16_rn(pv);
+      }
+    }
+    __syncthreads();  // p and the per-row increments are in place
+
+    // ---- rescale: MUL-by-ADD on the warp's fragment rows, skipped at 0 ---
+#pragma unroll
+    for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mi * 16 + h * 8 + fr;
+        if (kAmla) {
+          const int inc = sm.rowi[r];
+          if (inc != 0) {
+#pragma unroll
+            for (int j = 0; j < kWarpNTiles; ++j) {
+              if (j < cnt) {
+                acc[mi][j][2 * h] = amla::apply_int_increment(acc[mi][j][2 * h], inc);
+                acc[mi][j][2 * h + 1] = amla::apply_int_increment(acc[mi][j][2 * h + 1], inc);
+              }
+            }
+          }
+        } else {
+          const float alpha = sm.rowf[r];
+#pragma unroll
+          for (int j = 0; j < kWarpNTiles; ++j) {
+            acc[mi][j][2 * h] = __fmul_rn(acc[mi][j][2 * h], alpha);
+            acc[mi][j][2 * h + 1] = __fmul_rn(acc[mi][j][2 * h + 1], alpha);
+          }
+        }
+      }
+
+    // ---- P.V with V = the first Dv columns of the same key rows ---------
+    for (int kc = 0; kc < live; kc += kVKeys, ++chunk) {
+      cp_async_wait<S - 2>();
+      __syncthreads();
+      prod.issue(sm.ring + ((chunk + S - 1) % S) * kStageElems);
+      const bf16* vst = sm.ring + (chunk % S) * kStageElems;
+      uint32_t a[kM][4];
+#pragma unroll
+      for (int mi = 0; mi < kM; ++mi) {
+        ldsm_x4(a[mi], sm.p + (mi * 16 + (lane & 15)) * ps + kc + (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kWarpNTiles; j += 2) {
+        if (j + 1 < cnt) {
+          uint32_t b[4];  // n-tiles j and j + 1, keys kc .. +7 and +8 .. +15
+          ldsm_x4_trans(b, vst + ((lane & 7) + ((lane >> 3) & 1) * 8) * kVStride +
+                               (nt0 + j) * 8 + (lane >> 4) * 8);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) {
+            mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
+            mma_bf16(acc[mi][j + 1], a[mi], b[2], b[3]);
+          }
+        } else if (j < cnt) {
+          uint32_t b[2];
+          ldsm_x2_trans(b, vst + (lane & 15) * kVStride + (nt0 + j) * 8);
+#pragma unroll
+          for (int mi = 0; mi < kM; ++mi) mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- finalize: o = acc / (l * S16) (amla) or acc / l, 0 when empty ----
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = warp * R + i;
+    if (lane == 0) {
+      sm.rowf[r] = kAmla ? __fmul_rn(st.l[i], st.s16[i]) : st.l[i];
+      // lse in standard units (m is the true running max, l the plain mass)
+      if (lse != nullptr && row0 + r < g.G) {
+        lse[row0 + r] = st.l[i] > 0.0f ? __fadd_rn(st.m[i], logf(st.l[i])) : -INFINITY;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int mi = 0; mi < kM; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mi * 16 + h * 8 + fr;
+      if (row0 + r >= g.G) continue;
+      const float denom = sm.rowf[r];
+      float* orow = o + static_cast<size_t>(row0 + r) * g.Dv;
+#pragma unroll
+      for (int j = 0; j < kWarpNTiles; ++j) {
+        if (j < cnt) {
+          const float x0 = acc[mi][j][2 * h], x1 = acc[mi][j][2 * h + 1];
+          *reinterpret_cast<float2*>(orow + (nt0 + j) * 8 + fc) =
+              denom > 0.0f ? make_float2(__fdiv_rn(x0, denom), __fdiv_rn(x1, denom))
+                           : make_float2(0.0f, 0.0f);
+        }
+      }
+    }
+}
+
+}  // namespace mla_rows_mma

@@ -25,7 +25,7 @@ SOURCES = (
     "mla_decode_paged.cu", "mla_decode_combine.cu", "mla_decode.cu",
     "gqa_decode.cu", "flash_prefill.cu", "mla_decode_paged_padded.cu",
 )
-HEADERS = ("amla.cuh", "mla_rows.cuh", "gqa_rows.cuh")
+HEADERS = ("amla.cuh", "mla_rows.cuh", "mla_rows_mma.cuh", "gqa_rows.cuh")
 # No --use_fast_math: the AMLA state update needs the accurate expf and
 # IEEE division.  -Xptxas -v reports registers, shared memory and spills.
 NVCC_FLAGS = (

@@ -23,7 +23,10 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/mla_decode_paged.cu``, ``csrc/mla_decode_paged_padded.cu``) and
 counts the launch; on a CPU tensor it runs the plain PyTorch version
 beside it, which walks the same items in the same order with the same
-int32 rescale.
+int32 rescale.  K2 and K2′ with a bf16 ``q`` over a bf16 pool run the
+tensor-core row body (``csrc/mla_rows_mma.cuh``) and count it in their
+``mma_launches`` as well; every other dtype pair runs the scalar body
+(``csrc/mla_rows.cuh``).
 """
 
 from __future__ import annotations
@@ -175,6 +178,12 @@ def _check_on(dev, **tensors):
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
+def _takes_mma_body(q, kv_pages) -> bool:
+    """Whether the queue kernel runs the tensor-core body (bf16 q over a
+    bf16 pool) rather than the scalar one."""
+    return q.dtype == torch.bfloat16 and kv_pages.dtype == torch.bfloat16
+
+
 def _queue_rows_cuda(
     q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, *,
     d_v, variant, scale, block_k, num_dest_slots, softcap,
@@ -215,6 +224,20 @@ def _queue_rows_cuda(
     bt, lens, pos = i32(block_tables), i32(kv_len), i32(q_pos)
     items = [i32(t) for t in items]
     q, kv_pages = q.contiguous(), kv_pages.contiguous()
+    if _takes_mma_body(q, kv_pages):
+        # the tensor-core body copies rows in 16-byte (8 x bf16) pieces
+        if d_k % 8 or d_v % 8:
+            raise ValueError(
+                f"d_k={d_k}, d_v={d_v}: bf16 q over a bf16 pool takes d_k and "
+                "d_v that are multiples of 8"
+            )
+        if q.data_ptr() % 16 or kv_pages.data_ptr() % 16:
+            raise ValueError("bf16 q and kv_pages must start on a 16-byte boundary")
+        if num_pages * page_size * d_k // 8 >= 2**31:
+            raise ValueError(
+                f"a pool of {num_pages} x {page_size} x {d_k} elements: the "
+                "tensor-core body addresses rows in 32-bit 16-byte units"
+            )
     scales_ptr = None
     if kv_scales is not None:
         kv_scales = kv_scales.contiguous()
@@ -282,8 +305,10 @@ def mla_decode_paged_queue_rows(
     With an int8 pool, ``kv_scales`` is its per-row fp32 scale pool.  A
     CUDA ``q`` launches the kernel and counts one launch in
     ``mla_decode_paged_queue_rows.launches`` (bf16/fp32 pools) or
-    ``.int8_launches`` (int8 pools); a CPU ``q`` runs the plain version.
-    There is no fallback between the two.
+    ``.int8_launches`` (int8 pools), and a launch of the tensor-core body
+    (bf16 ``q`` over a bf16 pool; ``d_k`` and ``d_v`` multiples of 8) also
+    in ``.mma_launches``; a CPU ``q`` runs the plain version.  There is no
+    fallback between the two, nor between the two bodies.
     """
     items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
     out = _queue_rows(
@@ -296,11 +321,14 @@ def mla_decode_paged_queue_rows(
             mla_decode_paged_queue_rows.launches += 1
         else:
             mla_decode_paged_queue_rows.int8_launches += 1
+        if _takes_mma_body(q, kv_pages):
+            mla_decode_paged_queue_rows.mma_launches += 1
     return out
 
 
 mla_decode_paged_queue_rows.launches = 0
 mla_decode_paged_queue_rows.int8_launches = 0
+mla_decode_paged_queue_rows.mma_launches = 0
 
 
 def mla_decode_paged_group_prefix(
@@ -338,7 +366,8 @@ def mla_decode_paged_group_prefix(
     normalized prefix partial; padded member rows are exact zeros with
     ``lse = -inf``.  A CUDA ``q`` launches the queue kernel once and counts
     it in ``mla_decode_paged_group_prefix.launches`` (not in the queue
-    kernel's own counts).
+    kernel's own counts), and in ``.mma_launches`` too when it runs the
+    tensor-core body (bf16 ``q`` over a bf16 pool).
     """
     items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
     out = _group_prefix(
@@ -348,10 +377,13 @@ def mla_decode_paged_group_prefix(
     )
     if q.is_cuda:
         mla_decode_paged_group_prefix.launches += 1
+        if _takes_mma_body(q, kv_pages):
+            mla_decode_paged_group_prefix.mma_launches += 1
     return out
 
 
 mla_decode_paged_group_prefix.launches = 0
+mla_decode_paged_group_prefix.mma_launches = 0
 
 
 def _group_prefix(rows_fn, q, kv_pages, block_tables, q_pos, group_member, group_rep,

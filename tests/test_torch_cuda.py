@@ -291,3 +291,215 @@ def test_padded_kernel_matches_plain_version(cuda_device, variant, dtype):
     with pytest.raises(ValueError, match="does not support int8"):
         ops.mla_decode_paged(q.to(dev), pool.to(dev, torch.int8), bt.to(dev), kv_lens,
                              kv_scales=torch.ones(pool.shape[:2], device=dev), **kw)
+
+
+# ---- the tensor-core body of K2 / K2′ (bf16 q over a bf16 pool) ----------
+
+RAGGED_KV = [0, 1, 15, 16, 127, 129, 511, 513, 1116]
+
+
+def _queue_case(seed, kv_lens, g, num_splits, positions):
+    """bf16 queries (B, G, 576) and a bf16 pool behind shuffled block
+    tables, the work queue of ``num_splits`` and per-row positions, on the
+    CPU."""
+    from repro_torch.kernels import decode_schedule as sched
+
+    q, pool, bt = _paged_inputs(seed, kv_lens, b_rows=g)
+    kv = np.asarray(kv_lens, np.int32)
+    s = sched.build_schedule(kv, block_k=512, num_splits=num_splits)
+    items = [torch.from_numpy(np.asarray(a, np.int32)) for a in s.prefetch_arrays()]
+    pos = torch.from_numpy(np.stack([positions(int(n), g) for n in kv]).astype(np.int32))
+    return dict(q=q[:, 0].to(torch.bfloat16), pool=pool.to(torch.bfloat16), bt=bt,
+                kv=torch.from_numpy(kv), pos=pos, items=items, sched=s)
+
+
+def _decode_rows(kv_len, g):
+    """One token at the end of the cache; every 5th row 300 earlier."""
+    pos = np.full(g, max(kv_len - 1, 0))
+    pos[::5] = np.maximum(pos[::5] - 300, 0)
+    return pos
+
+
+def _run_queue(c, dev, variant, softcap=None, pool=None):
+    """K2 on ``dev`` (the kernel on a card, the plain version on the CPU)."""
+    pool = c["pool"] if pool is None else pool
+    to = lambda t: t.to(dev)
+    return port_paged.mla_decode_paged_queue_rows(
+        to(c["q"]), to(pool), to(c["bt"]), to(c["kv"]), to(c["pos"]),
+        *(to(t) for t in c["items"]), d_v=512, variant=variant, scale=1 / math.sqrt(192),
+        block_k=512, num_dest_slots=c["sched"].num_dest_slots, softcap=softcap)
+
+
+def _assert_partials_match(c, got, want, tol):
+    """o and lse of every slot the queue writes; rows without a visible key
+    (lse -inf) in the same places, with o exactly 0."""
+    s = c["sched"]
+    live = sorted(set(s.item_dest[s.item_valid == 1].tolist()))
+    o_k, lse_k = (t.cpu()[live] for t in got)
+    o_p, lse_p = (t[live] for t in want)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(fin, torch.isfinite(lse_k))
+    assert torch.isfinite(o_k).all()
+    assert (o_k - o_p).abs().max().item() <= tol
+    assert (lse_k[fin] - lse_p[fin]).abs().max().item() <= tol
+    empty = ~fin[..., 0]
+    if empty.any():
+        assert o_k[empty].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 17, 128, 512])
+@pytest.mark.parametrize("num_splits", [1, 2])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_body_matches_plain_version(cuda_device, variant, num_splits, g):
+    """Ragged kv_len (0, 1, either side of a 16-key chunk, a 128-key strip,
+    a 512-row block, and 1116), G from one row to a ragged 17-row tile to
+    512 rows (32-row tiles), shuffled block tables: every slot's partial
+    within bf16 tolerance, kv_len 0 exact zeros, one launch counted in
+    ``launches`` and in ``mma_launches``."""
+    c = _queue_case(11, RAGGED_KV, g, num_splits, _decode_rows)
+    fn = port_paged.mla_decode_paged_queue_rows
+    n, n_mma, n8 = fn.launches, fn.mma_launches, fn.int8_launches
+    got = _run_queue(c, cuda_device, variant)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mma_launches, fn.int8_launches) == (n + 1, n_mma + 1, n8)
+    _assert_partials_match(c, got, _run_queue(c, "cpu", variant), TOL[torch.bfloat16, variant])
+    out = port_combine.combine_split_partials(
+        got[0], got[1], torch.from_numpy(c["sched"].dest_table).to(cuda_device),
+        torch.from_numpy(c["sched"].n_splits).to(cuda_device))
+    assert out[0].abs().max().item() == 0.0 and torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_body_softcap_and_causal_prefill_rows(cuda_device, variant):
+    """A 4-token prefill chunk of 32 heads (G = 128, row r is token r // 32,
+    each row its own causal limit) with softcap 30 and two splits."""
+    chunk = lambda kv_len, g: np.maximum(kv_len - 4, 0) + np.arange(g) // 32
+    c = _queue_case(12, [1116, 300, 3, 0], 128, 2, chunk)
+    got = _run_queue(c, cuda_device, variant, softcap=30.0)
+    _assert_partials_match(c, got, _run_queue(c, "cpu", variant, softcap=30.0),
+                           TOL[torch.bfloat16, variant])
+
+
+def _two_families(seed=5, page=128, dk=576):
+    """A bf16 CPU pool with two forked families: a 1100-row prefix with
+    three members (children of 7 and 40 rows) and a 600-row prefix with two
+    (a child of 300 rows), so the group of two is padded to gmax = 3."""
+    from repro_torch.runtime.kv_cache import PagedKVCache
+
+    rng = np.random.default_rng(seed)
+    kv = PagedKVCache(num_pages=40, page_size=page, width=dk, dtype=torch.bfloat16, device="cpu")
+    rows = lambda n: torch.from_numpy(rng.normal(0, 1, (n, dk)).astype(np.float32))
+    kv.alloc(0)
+    kv.append(0, rows(1100))
+    for rid, n in ((1, 7), (2, 40)):
+        kv.fork(0, rid)
+        kv.append(rid, rows(n))
+    kv.alloc(3)
+    kv.append(3, rows(600))
+    kv.fork(3, 4)
+    kv.append(4, rows(300))
+    return kv, [0, 1, 2, 3, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_body_group_prefix_with_padded_members(cuda_device, variant):
+    """K2′ over a bf16 pool: two groups (3 and 2 members, gmax 3), so the
+    smaller group's third member rows are padding: exact zeros with lse
+    -inf.  One launch in K2′'s ``launches`` and ``mma_launches``, none in
+    the queue kernel's counts."""
+    from repro_torch.kernels import decode_schedule as sched
+
+    kv, rids = _two_families()
+    bt, kv_len = kv.block_table(rids, width=kv.num_pages)
+    ps = sched.build_prefix_schedule(kv_len, bt, page_size=128, block_k=512, num_splits=2)
+    groups = ps.groups
+    assert ps.num_groups == 2 and groups.gmax == 3
+    q = _randn((len(rids), 128, 576), 9, torch.float32).to(torch.bfloat16)
+    pos = torch.from_numpy(np.repeat((kv_len - 1)[:, None], 128, 1).astype(np.int32))
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    args = [q, kv.pages, i32(bt), pos, i32(groups.group_member), i32(groups.group_rep),
+            i32(ps.prefix_lens)]
+    items = [i32(a) for a in ps.prefix.prefetch_arrays()]
+    kw = dict(d_v=512, variant=variant, scale=1 / math.sqrt(192), block_k=512,
+              num_dest_slots=ps.prefix.num_dest_slots, softcap=None)
+    grp, rows = port_paged.mla_decode_paged_group_prefix, port_paged.mla_decode_paged_queue_rows
+    before = (grp.launches, grp.mma_launches, rows.launches, rows.mma_launches)
+    o_k, lse_k = grp(*(t.to(cuda_device) for t in args), *(t.to(cuda_device) for t in items), **kw)
+    torch.cuda.synchronize()
+    assert (grp.launches, grp.mma_launches, rows.launches, rows.mma_launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    o_p, lse_p = port_paged._group_prefix_plain(*args, items, None, **kw)
+    o_k, lse_k = o_k.cpu(), lse_k.cpu()
+    s = ps.prefix
+    padded = 0
+    for t in np.flatnonzero(s.item_valid):
+        j, d = int(s.item_req[t]), int(s.item_dest[t])
+        for slot in range(groups.gmax):
+            r = d * groups.gmax + slot
+            if groups.group_member[j, slot] < 0:
+                padded += 1
+                assert o_k[r].abs().max().item() == 0.0
+                assert torch.isneginf(lse_k[r]).all()
+            else:
+                assert (o_k[r] - o_p[r]).abs().max().item() <= TOL[torch.bfloat16, variant]
+                assert (lse_k[r] - lse_p[r]).abs().max().item() <= TOL[torch.bfloat16, variant]
+    assert padded > 0
+
+
+@pytest.mark.cuda
+def test_mma_body_rejects_widths_off_a_16_byte_row(cuda_device):
+    """bf16 q over a bf16 pool needs d_k and d_v multiples of 8 and tensors
+    on 16-byte boundaries (16-byte copies); the scalar body (fp32 pool)
+    still takes d_k = 84."""
+    dev = cuda_device
+    items = [torch.tensor(a, dtype=torch.int32, device=dev) for a in ([0], [0], [0], [1], [1], [1])]
+    common = (torch.zeros((1, 2), dtype=torch.int32, device=dev),
+              torch.tensor([20], dtype=torch.int32, device=dev),
+              torch.full((1, 8), 19, dtype=torch.int32, device=dev))
+    kw = dict(scale=0.1, block_k=32, num_dest_slots=1)
+    q = torch.randn((1, 8, 84), device=dev)
+    pool = torch.randn((4, 16, 84), device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        port_paged.mla_decode_paged_queue_rows(
+            q.to(torch.bfloat16), pool.to(torch.bfloat16), *common, *items, d_v=64, **kw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        port_paged.mla_decode_paged_queue_rows(
+            q[..., :80].to(torch.bfloat16), pool[..., :80].to(torch.bfloat16), *common, *items,
+            d_v=60, **kw)
+    shifted = torch.zeros(8 * 80 + 1, device=dev, dtype=torch.bfloat16)[1:].view(1, 8, 80)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        port_paged.mla_decode_paged_queue_rows(
+            shifted, pool[..., :80].to(torch.bfloat16), *common, *items, d_v=64, **kw)
+    o, _ = port_paged.mla_decode_paged_queue_rows(q, pool, *common, *items, d_v=64, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.int8)])
+def test_scalar_body_launches_are_not_counted_as_mma(cuda_device, q_dtype, pool_dtype):
+    """fp32 pools, fp32 queries and int8 pools keep the scalar body: one
+    launch in ``launches`` (``int8_launches`` for int8), none in
+    ``mma_launches``."""
+    from repro_torch.runtime.kv_cache import _quantize_rows
+
+    c = _queue_case(13, [0, 129, 513], 17, 2, _decode_rows)
+    pool, scales = c["pool"].float().to(pool_dtype), None
+    if pool_dtype == torch.int8:
+        pool, scales = _quantize_rows(c["pool"].float())
+    c["q"] = c["q"].to(q_dtype)
+    fn = port_paged.mla_decode_paged_queue_rows
+    before = (fn.launches, fn.int8_launches, fn.mma_launches)
+    to = lambda t: t.to(cuda_device)
+    fn(to(c["q"]), to(pool), to(c["bt"]), to(c["kv"]), to(c["pos"]), *(to(t) for t in c["items"]),
+       None if scales is None else to(scales), d_v=512, scale=1 / math.sqrt(192), block_k=512,
+       num_dest_slots=c["sched"].num_dest_slots)
+    torch.cuda.synchronize()
+    int8 = pool_dtype == torch.int8
+    assert (fn.launches, fn.int8_launches, fn.mma_launches) == (
+        before[0] + (not int8), before[1] + int8, before[2])
