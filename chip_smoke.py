@@ -5,8 +5,9 @@ Runs on one NVIDIA H100 (``python3 chip_smoke.py`` from the repository
 root) and exits nonzero on any failure:
 
 1. **Build** the hand-written CUDA kernels from ``src/repro_torch/csrc``;
-   ptxas's registers and spills of the tensor-core queue kernel (bf16 K2
-   and K2') are printed, and a spill fails the run.
+   ptxas's registers and spills of every instantiation of the tensor-core
+   queue kernel (K2 and K2' with bf16 q over bf16 or int8 pages) and its
+   dynamic shared memory are printed, and a spill fails the run.
 2. **Kernel phase**: every kernel on the card against its plain PyTorch
    version on the same inputs, bf16 and fp32, ``amla`` and ``base``:
    the paged AMLA decode kernel (K2) and the split-KV combine (K3) at full
@@ -14,8 +15,8 @@ root) and exits nonzero on any failure:
    prefill chunk, and K2's tensor-core body (bf16 q over bf16 pages) over
    ragged kv_len (0, 1, 15, 16, 127, 129, 511, 513, 1116), G of 1, 17, 128
    and 512, softcap and per-row causal rows; K2 over int8 pages
-   (K2-int8), the shared-prefix group kernel (K2') with the heterogeneous
-   combine, and the padded-grid kernel
+   (K2-int8; bf16 q on the tensor-core body), the shared-prefix group
+   kernel (K2') with the heterogeneous combine, and the padded-grid kernel
    (K5); the GQA decode (K6) and flash prefill (K7) kernels at
    the head geometries of gemma2-2b (8/4 x 256, window 4096, softcap 50),
    qwen2.5-3b (16/2 x 128) and qwen1.5-0.5b (16/16 x 64); the contiguous
@@ -42,7 +43,7 @@ root) and exits nonzero on any failure:
    three ``admit_with_prefix`` children, a 513-token loner, 16 greedy
    steps; every decode step of every layer runs the group-prefix kernel
    (K2'), the queue kernel (K2, or K2-int8) and the combine, with exact
-   launch counts (the bf16 ones through the tensor-core body).
+   launch counts, every K2 and K2' through the tensor-core body.
 7. **Dense serve phase, deepseek-v2-mla**: the same weights and prompts
    through ``ServingSession(batch 4, max_len 2048)``; every prefill and
    decode step of every layer must go through K4.
@@ -82,8 +83,8 @@ TOL = {
     (torch.bfloat16, "amla"): 1e-2,
 }
 DK, DV, PAGE, BLOCK_K = 576, 512, 128, 512
-SLEEP_CYCLES = 400_000  # ~0.2 ms of device clock before each timed call
-MMA_KERNEL = "mla_decode_queue_mma_kernel"  # bf16 K2 / K2' tensor-core body
+SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock before each timed call
+MMA_KERNEL = "mla_decode_queue_mma_kernel"  # K2 / K2' tensor-core body, bf16 q
 
 
 def log(msg: str) -> None:
@@ -93,10 +94,11 @@ def log(msg: str) -> None:
 def time_cuda(fn, iters: int, flush: torch.Tensor | None) -> float:
     """Mean ms per call on the card, CUDA events around each call, the L2
     cache overwritten between calls (the serve path reads each layer's
-    pages cold).  A 0.2 ms device sleep before each call lets the host
+    pages cold).  A 2 ms device sleep before each call lets the host
     enqueue the wrapper's work before the first event fires, so the time
     is the device's, not the host's enqueue (a plain version that waits
-    for the device inside still counts its host time)."""
+    for the device inside still counts its host time); 0.2 ms did not
+    cover the group-prefix wrapper's enqueue on a slow host."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
@@ -717,13 +719,20 @@ def slice3_kernel_phase(flush):
         for variant in ("amla", "base"):
             tol = TOL[dtype, variant]
             tag = f"{str(dtype)[6:]} {variant}"
-            # K2-int8 (+ K3): decode and prefill-chunk shapes, kv_len 0
+            # K2-int8 (+ K3): decode and prefill-chunk shapes, kv_len 0; the
+            # two-split 4096-row chunk is the serve phase's 32-row-tile shape
             for name, lens, g, pos_fn, ns in (
                 ("decode", [0, 1, 200, 513, 1116, 4096], 128, decode_positions, 2),
                 ("prefill", [1100], 4096, prefill_positions, 1),
+                ("prefill", [4096], 4096, prefill_positions, 2),
             ):
                 case = int8_case(7, lens, g, dtype, ns, pos_fn)
+                n_mma = mp.mla_decode_paged_queue_rows.mma_launches
                 o_k, lse_k = run_k2(case, variant, plain=False)
+                mma = mp.mla_decode_paged_queue_rows.mma_launches - n_mma
+                if mma != int(dtype == torch.bfloat16):
+                    raise SystemExit(f"K2-int8 {name} {dtype}: {mma} tensor-core launches, "
+                                     f"expected {int(dtype == torch.bfloat16)}")
                 o_p, lse_p = run_k2(case, variant, plain=True)
                 out_k = run_k3(case, o_k, lse_k, plain=False)
                 out_p = run_k3(case, o_p, lse_p, plain=True)
@@ -739,12 +748,13 @@ def slice3_kernel_phase(flush):
                 if zero and out_k[zero].abs().max().item() != 0.0:
                     raise SystemExit("K2-int8: kv_len == 0 rows are not exact zeros")
                 note(("K2-int8", dtype, variant), err, tol,
-                     f"K2-int8 {name} G={g} kv={lens} {tag}")
+                     f"K2-int8 {name} G={g} kv={lens} {tag}"
+                     f"{', tensor-core body' if mma else ''}")
             # K2' + the suffix pass + K3-hetero, bf16 and int8 pools; bf16 q
-            # over the bf16 pool runs the tensor-core body in both passes
+            # runs the tensor-core body in both passes over either pool
             for pool in (torch.bfloat16, torch.int8):
                 fc = family_case(8, pool, dtype)
-                mma = dtype == torch.bfloat16 and pool == torch.bfloat16
+                mma = dtype == torch.bfloat16
                 n_mma = (mp.mla_decode_paged_group_prefix.mma_launches,
                          mp.mla_decode_paged_queue_rows.mma_launches)
                 o_k, lse_k = run_group_prefix(fc, variant, plain=False)
@@ -810,7 +820,7 @@ def slice3_kernel_phase(flush):
     tlib = time_cuda(sdpa_rows(fc["q"], c, lens), 20, flush)
     rows["K2-int8"] = (t, tp, b, by, tlib)
     log(f"  time K2-int8 int8 serve decode suffix pass (bf16, suffix rows {lens.tolist()}, "
-        f"2 splits): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA on a "
+        f"2 splits; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA on a "
         f"dequantized contiguous copy {tlib:.4f} ms)")
     # K2' at the same step's prefix pass
     t = time_cuda(lambda: run_group_prefix(fc, "amla", plain=False), 20, flush)
@@ -822,7 +832,7 @@ def slice3_kernel_phase(flush):
     tlib = time_cuda(sdpa_rows(qg, c, [plen]), 20, flush)
     rows["K2' int8"] = (t, tp, b, by, tlib)
     log(f"  time K2' int8 serve decode prefix pass (bf16, 1 group of 4 = 512 stacked rows, "
-        f"{plen} shared rows): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA "
+        f"{plen} shared rows; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, SDPA "
         f"on a dequantized contiguous copy {tlib:.4f} ms)")
     del fc, c
     # K2' at the same group shape over a bf16 pool (the tensor-core body)
@@ -848,7 +858,7 @@ def slice3_kernel_phase(flush):
                        128 * float(case["kv_host"].sum()))
     rows["K2-int8 at the K2 decode shape"] = (t, None, b, by, None)
     log(f"  time K2-int8 at the K2 decode shape (bf16, kv={case['kv_host'].tolist()}, 2 "
-        f"splits): {t:.4f} ms (bound {b:.5f} ms by {by})")
+        f"splits; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by})")
     # K5 at the padded phase's shape
     case = padded_case(12, [37 + 16, 300 + 16, 513 + 16, 1100 + 16], bf, 24)
     case["q_pos"] = torch.as_tensor(np.repeat((case["kv_host"] - 1)[:, None], 128, 1),
@@ -1014,8 +1024,8 @@ def shared_prefix_phase(cfg, model, params, kv_dtype):
     The family shares 2 complete 512-row blocks, so every decode step runs
     K2' (one group of 4, G = 512 stacked rows), the queue kernel on the
     suffixes (K2-int8 over int8 pages, K2 over bf16 pages) and the hetero
-    combine in every layer.  Over bf16 pages every K2 and K2' launch takes
-    the tensor-core body; over int8 pages none does."""
+    combine in every layer.  Over either pool every K2 and K2' launch takes
+    the tensor-core body."""
     from repro_torch.kernels import mla_decode_combine as mc
     from repro_torch.kernels import mla_decode_paged as mp
     from repro_torch.runtime.serve_loop import PagedServingSession
@@ -1086,10 +1096,10 @@ def shared_prefix_phase(cfg, model, params, kv_dtype):
         f"(expected layers x grouped steps = {L} x {n_grouped} = {L * n_grouped}), K3 {k3} "
         f"(expected {L * (chunks + steps)}), {'K2 on bf16 pages' if int8 else 'K2-int8'} "
         f"{k2 if int8 else k2i8} (expected 0); tensor-core body: K2 {mma[0]}, K2' {mma[1]} "
-        f"(expected {(0, 0) if int8 else (queue, k2p)})")
+        f"(expected {(queue, k2p)})")
     if (queue != L * (chunks + steps) or k2p != L * n_grouped or k3 != L * (chunks + steps)
             or (k2 if int8 else k2i8) != 0 or n_grouped != steps or k2p <= 0 or aliased <= 0
-            or set(grouped) != {(1, 4)} or mma != ((0, 0) if int8 else (queue, k2p))):
+            or set(grouped) != {(1, 4)} or mma != (queue, k2p)):
         raise SystemExit(f"{kv_dtype} shared-prefix phase: launch counts do not match the path")
     for rid, out in results.items():
         if len(out) != 17 or not all(0 <= t < cfg.vocab_size for t in out):
@@ -1406,13 +1416,16 @@ def serve_phase():
 
 def mma_ptxas(log_text):
     """ptxas's spill and register lines for each instantiation of the
-    tensor-core queue kernel: [(template arguments, spill line, register
-    line)]."""
+    tensor-core queue kernel: [((pool, kM, amla), spill line, register
+    line)], read from the mangled name (``I<pool>Li<kM>ELb<amla>E``)."""
+    pools = {"13__nv_bfloat16": "bf16", "a": "int8"}
     out = []
     lines = log_text.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and MMA_KERNEL in line:
-            args = line.split(MMA_KERNEL, 1)[1].split("EEEv", 1)[0]
+            mangled = line.split(MMA_KERNEL, 1)[1]
+            pool, rest = mangled[1:].split("Li", 1)
+            args = (pools.get(pool, pool), int(rest[0]), rest.split("Lb", 1)[1][0] == "1")
             after = lines[i + 1:i + 5]
             spill = next((x.strip() for x in after if "spill" in x), "")
             regs = next((x.strip() for x in after if "registers" in x), "")
@@ -1443,12 +1456,16 @@ def main() -> int:
             log("  " + line.strip())
     if res.log:
         found = mma_ptxas(res.log)
-        for args, spill, regs in found:
-            log(f"  {MMA_KERNEL}<{args}> (kM, amla): {regs}; {spill}")
+        lib = _build.load()
+        for (pool, k_m, amla), spill, regs in sorted(found):
+            smem = lib.amla_mla_decode_paged_queue_mma_smem(k_m, 2 if pool == "int8" else 1, 128,
+                                                            DK, DV, BLOCK_K)
+            log(f"  {MMA_KERNEL}<{pool}, kM={k_m}, amla={amla}>: {regs}; {spill}; "
+                f"smem_bytes at Dk {DK}, block_k {BLOCK_K}: {smem}")
         spilled = [a for a, spill, _ in found if "0 bytes spill stores, 0 bytes spill loads" not in spill]
-        if len(found) != 4 or spilled:
+        if len(found) != 8 or spilled:
             raise SystemExit(f"build: the tensor-core queue kernel's ptxas lines show spills or "
-                             f"are missing ({len(found)} of 4 found, spilled: {spilled})")
+                             f"are missing ({len(found)} of 8 found, spilled: {spilled})")
     else:
         log(f"  (library already built: no ptxas lines for {MMA_KERNEL})")
 
@@ -1486,8 +1503,7 @@ def main() -> int:
              replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2 + k2b,
              max_abs_err=err("mla_decode_paged_queue_rows"), ms=d2[0], plain_ms=d2[1],
              bound_ms=d2[2], bound_by=d2[3], library_ms=d2[4]),
-        dict(name="mla_decode_paged_queue_rows[int8]", route="cuda",
-             source="src/repro_torch/csrc/mla_decode_paged.cu",
+        dict(name="mla_decode_paged_queue_rows[int8]", route="cuda", source=mma_src,
              replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2i8,
              max_abs_err=terr("K2-int8"), ms=t8[0], plain_ms=t8[1], bound_ms=t8[2],
              bound_by=t8[3], library_ms=t8[4]),
@@ -1495,8 +1511,7 @@ def main() -> int:
              replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2pb,
              max_abs_err=terr("K2'"), ms=tp[0], plain_ms=tp[1], bound_ms=tp[2],
              bound_by=tp[3], library_ms=tp[4]),
-        dict(name="mla_decode_paged_group_prefix[int8]", route="cuda",
-             source="src/repro_torch/csrc/mla_decode_paged.cu",
+        dict(name="mla_decode_paged_group_prefix[int8]", route="cuda", source=mma_src,
              replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2p,
              max_abs_err=terr("K2' int8"), ms=tpi[0], plain_ms=tpi[1], bound_ms=tpi[2],
              bound_by=tpi[3], library_ms=tpi[4]),

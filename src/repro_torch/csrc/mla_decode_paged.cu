@@ -19,9 +19,9 @@
 // int8 pools (K2-int8): pages hold symmetric per-row int8 latents and a
 // (P, page_size) fp32 scale pool; the kernel reads the int8 rows as they
 // are and applies each row's sigma to its score and to its probability
-// (mla_rows.cuh), as the reference's quantized queue kernel does.  The
-// group-prefix pass (K2', ops.mla_decode_paged with prefix sharing) is
-// this same kernel launched on stacked member queries.
+// (mla_rows.cuh, mla_rows_mma.cuh), as the reference's quantized queue
+// kernel does.  The group-prefix pass (K2', ops.mla_decode_paged with
+// prefix sharing) is this same kernel launched on stacked member queries.
 //
 // What bounds it on an H100.  At decode (G = 128 rows per request) it is the
 // bytes of the pages read: each live page once, 576 * 2 bytes a row in bf16,
@@ -35,9 +35,10 @@
 // per-block work (strip staging, the one state update per block, P·V) is
 // the row body in mla_rows.cuh, shared with the contiguous kernel K4; this
 // file adds the block-table addressing.  Pages past kv_len are never read.
-// bf16 queries over a bf16 pool take the tensor-core, cp.async-pipelined
-// row body of mla_rows_mma.cuh (16- or 32-row tiles); fp32 and int8 pools
-// keep the scalar body of mla_rows.cuh (plain loads, fp32 FMA loops).
+// bf16 queries over a bf16 or an int8 pool take the tensor-core,
+// cp.async-pipelined row body of mla_rows_mma.cuh (16- or 32-row tiles);
+// fp32 queries and fp32 pools keep the scalar body of mla_rows.cuh (plain
+// loads, fp32 FMA loops).
 #include <cuda_runtime.h>
 
 #include "mla_rows.cuh"
@@ -90,15 +91,22 @@ __device__ __forceinline__ void empty_partial(const Params& p, int dest, int row
   }
 }
 
-// Element offset of key row `pos` of a request, through its block table
+// Index of key row `pos` of a request in the pool, through its block table
 // (ids clamped into the pool, as the reference's tail redirect).
-struct PagedKeys {
+struct PagedRows {
   const int* bt;
-  int page_size, num_pages, Dk;
+  int page_size, num_pages;
   __device__ __forceinline__ long long operator()(int pos) const {
     const int pid = min(max(bt[pos / page_size], 0), num_pages - 1);
-    return (static_cast<long long>(pid) * page_size + pos % page_size) * Dk;
+    return static_cast<long long>(pid) * page_size + pos % page_size;
   }
+};
+
+// Element offset of key row `pos` of a request.
+struct PagedKeys {
+  PagedRows rows;
+  int Dk;
+  __device__ __forceinline__ long long operator()(int pos) const { return rows(pos) * Dk; }
 };
 
 // The slot's items in queue order, from its first: each item's KV block
@@ -140,8 +148,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const TQ* q = static_cast<const TQ*>(p.q) + static_cast<size_t>(req) * G * p.g.Dk;
   const int qmax = load_tile(sm, p.g, q, p.q_pos + static_cast<size_t>(req) * G, row0);
   const TP* pages = static_cast<const TP*>(p.pages);
-  const PagedKeys key_off{p.block_tables + static_cast<size_t>(req) * p.W, p.page_size,
-                          p.num_pages, p.g.Dk};
+  const PagedKeys key_off{
+      {p.block_tables + static_cast<size_t>(req) * p.W, p.page_size, p.num_pages}, p.g.Dk};
 
   RowState<kAmla> st;
   st.init();
@@ -156,8 +164,9 @@ __global__ void __launch_bounds__(kThreads, 1)
            p.lse + static_cast<size_t>(dest) * G);
 }
 
-// bf16 q over a bf16 pool: the tensor-core row body, kRows = 16 * kM.
-template <int kM, bool kAmla>
+// bf16 q over a pool of TP (bf16 or int8): the tensor-core row body,
+// kRows = 16 * kM.
+template <typename TP, int kM, bool kAmla>
 __global__ void __launch_bounds__(mla_rows_mma::kThreads, 1)
     mla_decode_queue_mma_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -176,22 +185,20 @@ __global__ void __launch_bounds__(mla_rows_mma::kThreads, 1)
   const mla_rows_mma::Geom g{G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
   const QueueBlocks blocks{p.item_block, p.item_dest, p.item_last, p.item_valid, first,
                            p.N, dest, p.kv_len[req], p.g.block_k};
-  mla_rows_mma::attend<kM, kAmla>(
+  mla_rows_mma::attend<TP, kM, kAmla>(
       smem_raw, g, static_cast<const __nv_bfloat16*>(p.q) + static_cast<size_t>(req) * G * p.g.Dk,
-      p.q_pos + static_cast<size_t>(req) * G, row0,
-      static_cast<const __nv_bfloat16*>(p.pages), blocks,
-      PagedKeys{p.block_tables + static_cast<size_t>(req) * p.W, p.page_size, p.num_pages,
-                p.g.Dk},
+      p.q_pos + static_cast<size_t>(req) * G, row0, static_cast<const TP*>(p.pages), p.scales,
+      blocks, PagedRows{p.block_tables + static_cast<size_t>(req) * p.W, p.page_size, p.num_pages},
       p.o_part + static_cast<size_t>(dest) * G * p.g.Dv, p.lse + static_cast<size_t>(dest) * G);
 }
 
 // ---- host launchers ----
 
-template <int kM, bool kAmla>
+template <typename TP, int kM, bool kAmla>
 cudaError_t launch_mma_tile(const Params& p, int num_dest_slots, cudaStream_t stream) {
   const mla_rows_mma::Geom g{p.g.G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
-  const size_t smem = mla_rows_mma::smem_bytes<kM>(g);
-  auto kernel = mla_decode_queue_mma_kernel<kM, kAmla>;
+  const size_t smem = mla_rows_mma::smem_bytes<TP, kM>(g);
+  auto kernel = mla_decode_queue_mma_kernel<TP, kM, kAmla>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -202,20 +209,26 @@ cudaError_t launch_mma_tile(const Params& p, int num_dest_slots, cudaStream_t st
 }
 
 // 32-row tiles once their grid alone fills the card's SMs (prefill chunks);
-// 16-row tiles below that, doubling a decode step's few CTAs.
+// 16-row tiles below that, doubling a decode step's few CTAs.  Rows are
+// copied in 16-byte pieces and addressed by 32-bit offsets in such pieces.
+template <typename TP>
 cudaError_t launch_mma(const Params& p, int num_dest_slots, int amla, cudaStream_t stream) {
-  if (p.g.Dk % 8 || p.g.Dv % 8) return cudaErrorInvalidValue;
+  constexpr int kPiece = mla_rows_mma::Pool<TP>::kPiece;
+  if (p.g.Dk % kPiece || p.g.Dv % kPiece ||
+      static_cast<long long>(p.num_pages) * p.page_size * (p.g.Dk / kPiece) >= (1LL << 31)) {
+    return cudaErrorInvalidValue;
+  }
   int dev, sms;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const bool wide = static_cast<long long>(num_dest_slots) * ((p.g.G + 31) / 32) >= sms;
   if (wide) {
-    return amla ? launch_mma_tile<2, true>(p, num_dest_slots, stream)
-                : launch_mma_tile<2, false>(p, num_dest_slots, stream);
+    return amla ? launch_mma_tile<TP, 2, true>(p, num_dest_slots, stream)
+                : launch_mma_tile<TP, 2, false>(p, num_dest_slots, stream);
   }
-  return amla ? launch_mma_tile<1, true>(p, num_dest_slots, stream)
-              : launch_mma_tile<1, false>(p, num_dest_slots, stream);
+  return amla ? launch_mma_tile<TP, 1, true>(p, num_dest_slots, stream)
+              : launch_mma_tile<TP, 1, false>(p, num_dest_slots, stream);
 }
 
 template <typename TQ, typename TP, bool kAmla>
@@ -264,8 +277,8 @@ extern "C" int amla_mla_decode_paged_queue(
   cudaError_t err;
   const int n = num_dest_slots;
   if (q_bf16) {
-    err = pages_kind == 2 ? launch_variant<__nv_bfloat16, int8_t>(p, n, amla, s)
-        : pages_kind == 1 ? launch_mma(p, n, amla, s)
+    err = pages_kind == 2 ? launch_mma<int8_t>(p, n, amla, s)
+        : pages_kind == 1 ? launch_mma<__nv_bfloat16>(p, n, amla, s)
                           : launch_variant<__nv_bfloat16, float>(p, n, amla, s);
   } else {
     err = pages_kind == 2 ? launch_variant<float, int8_t>(p, n, amla, s)
@@ -273,4 +286,20 @@ extern "C" int amla_mla_decode_paged_queue(
                           : launch_variant<float, float>(p, n, amla, s);
   }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of the tensor-core queue kernel at a tile height of
+// 16 * kM rows over a bf16 (pages_kind 1) or int8 (2) pool, or -1.
+extern "C" long long amla_mla_decode_paged_queue_mma_smem(int kM, int pages_kind, int G, int Dk,
+                                                          int Dv, int block_k) {
+  const mla_rows_mma::Geom g{G, Dk, Dv, block_k, 1.0f, 0.0f};
+  if (pages_kind == 1) {
+    return static_cast<long long>(kM == 2 ? mla_rows_mma::smem_bytes<__nv_bfloat16, 2>(g)
+                                          : mla_rows_mma::smem_bytes<__nv_bfloat16, 1>(g));
+  }
+  if (pages_kind == 2) {
+    return static_cast<long long>(kM == 2 ? mla_rows_mma::smem_bytes<int8_t, 2>(g)
+                                          : mla_rows_mma::smem_bytes<int8_t, 1>(g));
+  }
+  return -1;
 }

@@ -125,6 +125,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i
+    lib.amla_mla_decode_paged_queue_mma_smem.argtypes = [i] * 6
+    lib.amla_mla_decode_paged_queue_mma_smem.restype = ll
     lib.amla_error_string.argtypes = [i]
     lib.amla_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -23,10 +23,10 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/mla_decode_paged.cu``, ``csrc/mla_decode_paged_padded.cu``) and
 counts the launch; on a CPU tensor it runs the plain PyTorch version
 beside it, which walks the same items in the same order with the same
-int32 rescale.  K2 and K2′ with a bf16 ``q`` over a bf16 pool run the
-tensor-core row body (``csrc/mla_rows_mma.cuh``) and count it in their
-``mma_launches`` as well; every other dtype pair runs the scalar body
-(``csrc/mla_rows.cuh``).
+int32 rescale.  K2 and K2′ with a bf16 ``q`` over a bf16 or an int8 pool
+run the tensor-core row body (``csrc/mla_rows_mma.cuh``) and count it in
+their ``mma_launches`` as well; an fp32 ``q`` or an fp32 pool runs the
+scalar body (``csrc/mla_rows.cuh``).
 """
 
 from __future__ import annotations
@@ -180,8 +180,26 @@ _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def _takes_mma_body(q, kv_pages) -> bool:
     """Whether the queue kernel runs the tensor-core body (bf16 q over a
-    bf16 pool) rather than the scalar one."""
-    return q.dtype == torch.bfloat16 and kv_pages.dtype == torch.bfloat16
+    bf16 or an int8 pool) rather than the scalar one."""
+    return q.dtype == torch.bfloat16 and kv_pages.dtype in (torch.bfloat16, torch.int8)
+
+
+def _check_mma_geometry(pool_dtype, num_pages, page_size, d_k, d_v) -> None:
+    """Raise ``ValueError`` unless the tensor-core body can address the
+    pool: it copies rows in 16-byte pieces (8 bf16 or 16 int8 elements), so
+    ``d_k`` and ``d_v`` are whole pieces, and it addresses rows by 32-bit
+    offsets in such pieces, so the pool holds fewer than 2**31 of them."""
+    unit = 16 // pool_dtype.itemsize
+    if d_k % unit or d_v % unit:
+        raise ValueError(
+            f"d_k={d_k}, d_v={d_v}: bf16 q over a {pool_dtype} pool takes d_k "
+            f"and d_v that are multiples of {unit} (16-byte rows)"
+        )
+    if num_pages * page_size * d_k // unit >= 2**31:
+        raise ValueError(
+            f"a pool of {num_pages} x {page_size} x {d_k} elements: the "
+            "tensor-core body addresses rows in 32-bit 16-byte units"
+        )
 
 
 def _queue_rows_cuda(
@@ -225,19 +243,9 @@ def _queue_rows_cuda(
     items = [i32(t) for t in items]
     q, kv_pages = q.contiguous(), kv_pages.contiguous()
     if _takes_mma_body(q, kv_pages):
-        # the tensor-core body copies rows in 16-byte (8 x bf16) pieces
-        if d_k % 8 or d_v % 8:
-            raise ValueError(
-                f"d_k={d_k}, d_v={d_v}: bf16 q over a bf16 pool takes d_k and "
-                "d_v that are multiples of 8"
-            )
+        _check_mma_geometry(kv_pages.dtype, num_pages, page_size, d_k, d_v)
         if q.data_ptr() % 16 or kv_pages.data_ptr() % 16:
             raise ValueError("bf16 q and kv_pages must start on a 16-byte boundary")
-        if num_pages * page_size * d_k // 8 >= 2**31:
-            raise ValueError(
-                f"a pool of {num_pages} x {page_size} x {d_k} elements: the "
-                "tensor-core body addresses rows in 32-bit 16-byte units"
-            )
     scales_ptr = None
     if kv_scales is not None:
         kv_scales = kv_scales.contiguous()
@@ -306,9 +314,10 @@ def mla_decode_paged_queue_rows(
     CUDA ``q`` launches the kernel and counts one launch in
     ``mla_decode_paged_queue_rows.launches`` (bf16/fp32 pools) or
     ``.int8_launches`` (int8 pools), and a launch of the tensor-core body
-    (bf16 ``q`` over a bf16 pool; ``d_k`` and ``d_v`` multiples of 8) also
-    in ``.mma_launches``; a CPU ``q`` runs the plain version.  There is no
-    fallback between the two, nor between the two bodies.
+    (bf16 ``q`` over a bf16 or an int8 pool; ``d_k`` and ``d_v`` whole
+    16-byte pieces of a pool row) also in ``.mma_launches``; a CPU ``q``
+    runs the plain version.  There is no fallback between the two, nor
+    between the two bodies.
     """
     items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
     out = _queue_rows(
@@ -367,7 +376,7 @@ def mla_decode_paged_group_prefix(
     ``lse = -inf``.  A CUDA ``q`` launches the queue kernel once and counts
     it in ``mla_decode_paged_group_prefix.launches`` (not in the queue
     kernel's own counts), and in ``.mma_launches`` too when it runs the
-    tensor-core body (bf16 ``q`` over a bf16 pool).
+    tensor-core body (bf16 ``q`` over a bf16 or an int8 pool).
     """
     items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
     out = _group_prefix(

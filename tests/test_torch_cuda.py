@@ -293,24 +293,25 @@ def test_padded_kernel_matches_plain_version(cuda_device, variant, dtype):
                              kv_scales=torch.ones(pool.shape[:2], device=dev), **kw)
 
 
-# ---- the tensor-core body of K2 / K2′ (bf16 q over a bf16 pool) ----------
+# ---- the tensor-core body of K2 / K2′ (bf16 q over a bf16 or int8 pool) --
 
 RAGGED_KV = [0, 1, 15, 16, 127, 129, 511, 513, 1116]
 
 
-def _queue_case(seed, kv_lens, g, num_splits, positions):
-    """bf16 queries (B, G, 576) and a bf16 pool behind shuffled block
+def _queue_case(seed, kv_lens, g, num_splits, positions, *, dk=576, dv=512, page=128,
+                block_k=512):
+    """bf16 queries (B, G, dk) and a bf16 pool behind shuffled block
     tables, the work queue of ``num_splits`` and per-row positions, on the
     CPU."""
     from repro_torch.kernels import decode_schedule as sched
 
-    q, pool, bt = _paged_inputs(seed, kv_lens, b_rows=g)
+    q, pool, bt = _paged_inputs(seed, kv_lens, b_rows=g, dk=dk, page=page)
     kv = np.asarray(kv_lens, np.int32)
-    s = sched.build_schedule(kv, block_k=512, num_splits=num_splits)
+    s = sched.build_schedule(kv, block_k=block_k, num_splits=num_splits)
     items = [torch.from_numpy(np.asarray(a, np.int32)) for a in s.prefetch_arrays()]
     pos = torch.from_numpy(np.stack([positions(int(n), g) for n in kv]).astype(np.int32))
     return dict(q=q[:, 0].to(torch.bfloat16), pool=pool.to(torch.bfloat16), bt=bt,
-                kv=torch.from_numpy(kv), pos=pos, items=items, sched=s)
+                kv=torch.from_numpy(kv), pos=pos, items=items, sched=s, dv=dv, block_k=block_k)
 
 
 def _decode_rows(kv_len, g):
@@ -321,13 +322,16 @@ def _decode_rows(kv_len, g):
 
 
 def _run_queue(c, dev, variant, softcap=None, pool=None):
-    """K2 on ``dev`` (the kernel on a card, the plain version on the CPU)."""
+    """K2 on ``dev`` (the kernel on a card, the plain version on the CPU);
+    K2-int8 when the case has ``scales``."""
     pool = c["pool"] if pool is None else pool
+    scales = c.get("scales")
     to = lambda t: t.to(dev)
     return port_paged.mla_decode_paged_queue_rows(
         to(c["q"]), to(pool), to(c["bt"]), to(c["kv"]), to(c["pos"]),
-        *(to(t) for t in c["items"]), d_v=512, variant=variant, scale=1 / math.sqrt(192),
-        block_k=512, num_dest_slots=c["sched"].num_dest_slots, softcap=softcap)
+        *(to(t) for t in c["items"]), None if scales is None else to(scales), d_v=c["dv"],
+        variant=variant, scale=1 / math.sqrt(192), block_k=c["block_k"],
+        num_dest_slots=c["sched"].num_dest_slots, softcap=softcap)
 
 
 def _assert_partials_match(c, got, want, tol):
@@ -347,23 +351,45 @@ def _assert_partials_match(c, got, want, tol):
         assert o_k[empty].abs().max().item() == 0.0
 
 
+def _on_pool(c, pool):
+    """The case over its bf16 pool, or over that pool quantized by the
+    cache's own write path (symmetric per-row int8 + fp32 scales)."""
+    from repro_torch.runtime.kv_cache import _quantize_rows
+
+    if pool == "int8":
+        c["pool"], c["scales"] = _quantize_rows(c["pool"].float())
+    return c
+
+
+def _hold_mma_launch(cuda_device, c, variant, softcap=None):
+    """One launch of the tensor-core body on the card against the plain
+    version: counted in ``mma_launches`` and in ``launches`` (bf16 pool)
+    or ``int8_launches`` (int8 pool)."""
+    fn = port_paged.mla_decode_paged_queue_rows
+    int8 = c.get("scales") is not None
+    before = (fn.launches, fn.int8_launches, fn.mma_launches)
+    got = _run_queue(c, cuda_device, variant, softcap=softcap)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.int8_launches, fn.mma_launches) == (
+        before[0] + (not int8), before[1] + int8, before[2] + 1)
+    _assert_partials_match(c, got, _run_queue(c, "cpu", variant, softcap=softcap),
+                           TOL[torch.bfloat16, variant])
+    return got
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
 @pytest.mark.parametrize("g", [1, 17, 128, 512])
 @pytest.mark.parametrize("num_splits", [1, 2])
 @pytest.mark.parametrize("variant", ["amla", "base"])
-def test_mma_body_matches_plain_version(cuda_device, variant, num_splits, g):
+def test_mma_body_matches_plain_version(cuda_device, variant, num_splits, g, pool):
     """Ragged kv_len (0, 1, either side of a 16-key chunk, a 128-key strip,
     a 512-row block, and 1116), G from one row to a ragged 17-row tile to
-    512 rows (32-row tiles), shuffled block tables: every slot's partial
-    within bf16 tolerance, kv_len 0 exact zeros, one launch counted in
-    ``launches`` and in ``mma_launches``."""
-    c = _queue_case(11, RAGGED_KV, g, num_splits, _decode_rows)
-    fn = port_paged.mla_decode_paged_queue_rows
-    n, n_mma, n8 = fn.launches, fn.mma_launches, fn.int8_launches
-    got = _run_queue(c, cuda_device, variant)
-    torch.cuda.synchronize()
-    assert (fn.launches, fn.mma_launches, fn.int8_launches) == (n + 1, n_mma + 1, n8)
-    _assert_partials_match(c, got, _run_queue(c, "cpu", variant), TOL[torch.bfloat16, variant])
+    512 rows (32-row tiles; rows with 1 or 15 visible keys), shuffled block
+    tables, bf16 and int8 pages: every slot's partial within bf16
+    tolerance, kv_len 0 exact zeros."""
+    c = _on_pool(_queue_case(11, RAGGED_KV, g, num_splits, _decode_rows), pool)
+    got = _hold_mma_launch(cuda_device, c, variant)
     out = port_combine.combine_split_partials(
         got[0], got[1], torch.from_numpy(c["sched"].dest_table).to(cuda_device),
         torch.from_numpy(c["sched"].n_splits).to(cuda_device))
@@ -371,25 +397,37 @@ def test_mma_body_matches_plain_version(cuda_device, variant, num_splits, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
 @pytest.mark.parametrize("variant", ["amla", "base"])
-def test_mma_body_softcap_and_causal_prefill_rows(cuda_device, variant):
+def test_mma_body_softcap_and_causal_prefill_rows(cuda_device, variant, pool):
     """A 4-token prefill chunk of 32 heads (G = 128, row r is token r // 32,
     each row its own causal limit) with softcap 30 and two splits."""
     chunk = lambda kv_len, g: np.maximum(kv_len - 4, 0) + np.arange(g) // 32
-    c = _queue_case(12, [1116, 300, 3, 0], 128, 2, chunk)
-    got = _run_queue(c, cuda_device, variant, softcap=30.0)
-    _assert_partials_match(c, got, _run_queue(c, "cpu", variant, softcap=30.0),
-                           TOL[torch.bfloat16, variant])
+    c = _on_pool(_queue_case(12, [1116, 300, 3, 0], 128, 2, chunk), pool)
+    _hold_mma_launch(cuda_device, c, variant, softcap=30.0)
 
 
-def _two_families(seed=5, page=128, dk=576):
-    """A bf16 CPU pool with two forked families: a 1100-row prefix with
-    three members (children of 7 and 40 rows) and a 600-row prefix with two
-    (a child of 300 rows), so the group of two is padded to gmax = 3."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_body_prefill_chunk_on_32_row_tiles(cuda_device, variant, pool):
+    """A 32-token prefill chunk of 128 heads (G = 4096) for two requests:
+    256 tiles of 32 rows fill the card, so the launcher takes 32-row
+    tiles."""
+    chunk = lambda kv_len, g: np.maximum(kv_len - 32, 0) + np.arange(g) // 128
+    _hold_mma_launch(cuda_device, _on_pool(_queue_case(14, [1100, 4096], 4096, 1, chunk), pool),
+                     variant)
+
+
+def _two_families(seed=5, page=128, dk=576, dtype=torch.bfloat16):
+    """A bf16 (or int8) CPU pool with two forked families: a 1100-row
+    prefix with three members (children of 7 and 40 rows) and a 600-row
+    prefix with two (a child of 300 rows), so the group of two is padded to
+    gmax = 3."""
     from repro_torch.runtime.kv_cache import PagedKVCache
 
     rng = np.random.default_rng(seed)
-    kv = PagedKVCache(num_pages=40, page_size=page, width=dk, dtype=torch.bfloat16, device="cpu")
+    kv = PagedKVCache(num_pages=40, page_size=page, width=dk, dtype=dtype, device="cpu")
     rows = lambda n: torch.from_numpy(rng.normal(0, 1, (n, dk)).astype(np.float32))
     kv.alloc(0)
     kv.append(0, rows(1100))
@@ -404,15 +442,16 @@ def _two_families(seed=5, page=128, dk=576):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("variant", ["amla", "base"])
-def test_mma_body_group_prefix_with_padded_members(cuda_device, variant):
-    """K2′ over a bf16 pool: two groups (3 and 2 members, gmax 3), so the
-    smaller group's third member rows are padding: exact zeros with lse
-    -inf.  One launch in K2′'s ``launches`` and ``mma_launches``, none in
-    the queue kernel's counts."""
+def test_mma_body_group_prefix_with_padded_members(cuda_device, variant, pool):
+    """K2′ over a bf16 or an int8 pool: two groups (3 and 2 members, gmax
+    3), so the smaller group's third member rows are padding: exact zeros
+    with lse -inf.  One launch in K2′'s ``launches`` and ``mma_launches``,
+    none in the queue kernel's counts."""
     from repro_torch.kernels import decode_schedule as sched
 
-    kv, rids = _two_families()
+    kv, rids = _two_families(dtype=pool)
     bt, kv_len = kv.block_table(rids, width=kv.num_pages)
     ps = sched.build_prefix_schedule(kv_len, bt, page_size=128, block_k=512, num_splits=2)
     groups = ps.groups
@@ -426,12 +465,15 @@ def test_mma_body_group_prefix_with_padded_members(cuda_device, variant):
     kw = dict(d_v=512, variant=variant, scale=1 / math.sqrt(192), block_k=512,
               num_dest_slots=ps.prefix.num_dest_slots, softcap=None)
     grp, rows = port_paged.mla_decode_paged_group_prefix, port_paged.mla_decode_paged_queue_rows
-    before = (grp.launches, grp.mma_launches, rows.launches, rows.mma_launches)
-    o_k, lse_k = grp(*(t.to(cuda_device) for t in args), *(t.to(cuda_device) for t in items), **kw)
+    counts = lambda: (grp.launches, grp.mma_launches, rows.launches, rows.int8_launches,
+                      rows.mma_launches)
+    before = counts()
+    scales = kv.scales
+    o_k, lse_k = grp(*(t.to(cuda_device) for t in args), *(t.to(cuda_device) for t in items),
+                     None if scales is None else scales.to(cuda_device), **kw)
     torch.cuda.synchronize()
-    assert (grp.launches, grp.mma_launches, rows.launches, rows.mma_launches) == (
-        before[0] + 1, before[1] + 1, before[2], before[3])
-    o_p, lse_p = port_paged._group_prefix_plain(*args, items, None, **kw)
+    assert counts() == (before[0] + 1, before[1] + 1, *before[2:])
+    o_p, lse_p = port_paged._group_prefix_plain(*args, items, scales, **kw)
     o_k, lse_k = o_k.cpu(), lse_k.cpu()
     s = ps.prefix
     padded = 0
@@ -483,8 +525,9 @@ def test_mma_body_rejects_widths_off_a_16_byte_row(cuda_device):
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
     (torch.float32, torch.float32), (torch.bfloat16, torch.int8)])
 def test_scalar_body_launches_are_not_counted_as_mma(cuda_device, q_dtype, pool_dtype):
-    """fp32 pools, fp32 queries and int8 pools keep the scalar body: one
-    launch in ``launches`` (``int8_launches`` for int8), none in
+    """fp32 pools and fp32 queries keep the scalar body: one launch in
+    ``launches``, none in ``mma_launches``.  bf16 queries over an int8 pool
+    take the tensor-core body: one launch in ``int8_launches`` and one in
     ``mma_launches``."""
     from repro_torch.runtime.kv_cache import _quantize_rows
 
@@ -501,5 +544,27 @@ def test_scalar_body_launches_are_not_counted_as_mma(cuda_device, q_dtype, pool_
        num_dest_slots=c["sched"].num_dest_slots)
     torch.cuda.synchronize()
     int8 = pool_dtype == torch.int8
+    mma = q_dtype == torch.bfloat16 and int8
     assert (fn.launches, fn.int8_launches, fn.mma_launches) == (
-        before[0] + (not int8), before[1] + int8, before[2])
+        before[0] + (not int8), before[1] + int8, before[2] + mma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk,dv", [(64, 48), (80, 64)])
+@pytest.mark.parametrize("g", [17, 4096])
+@pytest.mark.parametrize("num_splits", [1, 2])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_int8_mma_body_at_narrow_rows_matches_plain_version(cuda_device, variant, num_splits, g,
+                                                            dk, dv):
+    """Narrow int8 rows (d_k 64 or 80) keep more than two per-block key/σ
+    buffers in flight: 16-key blocks take the fewest chunks a block can, so
+    the producer runs several blocks ahead of the softmax that reads their σ.
+    Random rows with their own per-row scales, up to 21 blocks a request;
+    G = 4096 over several slots takes the 32-row tiles."""
+    chunk = lambda kv_len, g: np.maximum(kv_len - g // 128, 0) + np.arange(g) // 128
+    c = _queue_case(15, [0, 1, 15, 16, 100, 333], g, num_splits,
+                    _decode_rows if g == 17 else chunk, dk=dk, dv=dv, page=16, block_k=16)
+    c = _on_pool(c, "int8")
+    sigma = c["scales"].flatten()
+    assert (sigma[1:] != sigma[:-1]).float().mean().item() > 0.9  # neighbours' σ differ
+    _hold_mma_launch(cuda_device, c, variant)
