@@ -33,8 +33,9 @@
 // loops over the slot's items itself, so slots and row tiles run in
 // parallel and large G (4096 on a prefill chunk) only adds tiles.  The
 // per-block work (strip staging, the one state update per block, P·V) is
-// the row body in mla_rows.cuh, shared with the contiguous kernel K4; this
-// file adds the block-table addressing.  Pages past kv_len are never read.
+// a row body shared with the padded kernel K5 and the contiguous kernel K4;
+// this file adds the work queue (the block-table addressing is
+// paged_rows.cuh, shared with K5).  Pages past kv_len are never read.
 // bf16 queries over a bf16 or an int8 pool take the tensor-core,
 // cp.async-pipelined row body of mla_rows_mma.cuh (16- or 32-row tiles);
 // fp32 queries and fp32 pools keep the scalar body of mla_rows.cuh (plain
@@ -43,6 +44,7 @@
 
 #include "mla_rows.cuh"
 #include "mla_rows_mma.cuh"
+#include "paged_rows.cuh"
 
 namespace {
 
@@ -90,24 +92,6 @@ __device__ __forceinline__ void empty_partial(const Params& p, int dest, int row
     p.lse[static_cast<size_t>(dest) * G + row0 + threadIdx.x] = -INFINITY;
   }
 }
-
-// Index of key row `pos` of a request in the pool, through its block table
-// (ids clamped into the pool, as the reference's tail redirect).
-struct PagedRows {
-  const int* bt;
-  int page_size, num_pages;
-  __device__ __forceinline__ long long operator()(int pos) const {
-    const int pid = min(max(bt[pos / page_size], 0), num_pages - 1);
-    return static_cast<long long>(pid) * page_size + pos % page_size;
-  }
-};
-
-// Element offset of key row `pos` of a request.
-struct PagedKeys {
-  PagedRows rows;
-  int Dk;
-  __device__ __forceinline__ long long operator()(int pos) const { return rows(pos) * Dk; }
-};
 
 // The slot's items in queue order, from its first: each item's KV block
 // with the keys below min(kv_len, cap) that it holds (live > 0 only).
@@ -194,41 +178,24 @@ __global__ void __launch_bounds__(mla_rows_mma::kThreads, 1)
 
 // ---- host launchers ----
 
-template <typename TP, int kM, bool kAmla>
-cudaError_t launch_mma_tile(const Params& p, int num_dest_slots, cudaStream_t stream) {
-  const mla_rows_mma::Geom g{p.g.G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
-  const size_t smem = mla_rows_mma::smem_bytes<TP, kM>(g);
-  auto kernel = mla_decode_queue_mma_kernel<TP, kM, kAmla>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  constexpr int kTileRows = mla_rows_mma::Tile<kM>::kRows;
-  const dim3 grid(num_dest_slots, (p.g.G + kTileRows - 1) / kTileRows);
-  kernel<<<grid, mla_rows_mma::kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// 32-row tiles once their grid alone fills the card's SMs (prefill chunks);
-// 16-row tiles below that, doubling a decode step's few CTAs.  Rows are
-// copied in 16-byte pieces and addressed by 32-bit offsets in such pieces.
+// The tensor-core body over the pool, at the tile height wide_tiles picks.
 template <typename TP>
 cudaError_t launch_mma(const Params& p, int num_dest_slots, int amla, cudaStream_t stream) {
-  constexpr int kPiece = mla_rows_mma::Pool<TP>::kPiece;
-  if (p.g.Dk % kPiece || p.g.Dv % kPiece ||
-      static_cast<long long>(p.num_pages) * p.page_size * (p.g.Dk / kPiece) >= (1LL << 31)) {
+  using mla_rows_mma::launch_tiles;
+  const mla_rows_mma::Geom g{p.g.G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
+  if (!mla_rows_mma::addressable<TP>(g, static_cast<long long>(p.num_pages) * p.page_size)) {
     return cudaErrorInvalidValue;
   }
-  int dev, sms;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  bool wide;
+  const cudaError_t err = mla_rows_mma::wide_tiles(num_dest_slots, g.G, &wide);
   if (err != cudaSuccess) return err;
-  const bool wide = static_cast<long long>(num_dest_slots) * ((p.g.G + 31) / 32) >= sms;
+  const int n = num_dest_slots;
   if (wide) {
-    return amla ? launch_mma_tile<TP, 2, true>(p, num_dest_slots, stream)
-                : launch_mma_tile<TP, 2, false>(p, num_dest_slots, stream);
+    return amla ? launch_tiles<TP, 2>(mla_decode_queue_mma_kernel<TP, 2, true>, p, g, n, stream)
+                : launch_tiles<TP, 2>(mla_decode_queue_mma_kernel<TP, 2, false>, p, g, n, stream);
   }
-  return amla ? launch_mma_tile<TP, 1, true>(p, num_dest_slots, stream)
-              : launch_mma_tile<TP, 1, false>(p, num_dest_slots, stream);
+  return amla ? launch_tiles<TP, 1>(mla_decode_queue_mma_kernel<TP, 1, true>, p, g, n, stream)
+              : launch_tiles<TP, 1>(mla_decode_queue_mma_kernel<TP, 1, false>, p, g, n, stream);
 }
 
 template <typename TQ, typename TP, bool kAmla>
@@ -288,10 +255,11 @@ extern "C" int amla_mla_decode_paged_queue(
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory of the tensor-core queue kernel at a tile height of
-// 16 * kM rows over a bf16 (pages_kind 1) or int8 (2) pool, or -1.
-extern "C" long long amla_mla_decode_paged_queue_mma_smem(int kM, int pages_kind, int G, int Dk,
-                                                          int Dv, int block_k) {
+// Dynamic shared memory of a tensor-core MLA kernel (K2, K4 or K5: it
+// depends on the rows' type, the tile and the geometry only) at a tile
+// height of 16 * kM rows over bf16 (pages_kind 1) or int8 (2) rows, or -1.
+extern "C" long long amla_mla_rows_mma_smem(int kM, int pages_kind, int G, int Dk, int Dv,
+                                            int block_k) {
   const mla_rows_mma::Geom g{G, Dk, Dv, block_k, 1.0f, 0.0f};
   if (pages_kind == 1) {
     return static_cast<long long>(kM == 2 ? mla_rows_mma::smem_bytes<__nv_bfloat16, 2>(g)

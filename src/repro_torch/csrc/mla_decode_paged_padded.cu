@@ -19,17 +19,25 @@
 // pools only, as in the reference (its padded grid has no dequant path).
 //
 // What bounds it on an H100.  The bytes of the live pages (each read once
-// per 32-row tile of the request) at 3.35 TB/s at decode; operations,
+// per row tile of the request) at 3.35 TB/s at decode; operations,
 // 2 * G * keys * (Dk + Dv), for long multi-row calls.
 //
-// Design.  One CTA per (request, tile of 32 query rows) walks that
-// request's pages in order with the row body of mla_rows.cuh (shared with
-// K2 and K4): keys staged in strips, the page's 32 x page_size score strip
-// in shared memory, one state update per page, state in registers.  Plain
-// loads and fp32 FMA loops; the grid has B x ceil(G / 32) CTAs.
+// Design.  One CTA per (request, row tile) walks that request's pages in
+// order, through the block table (paged_rows.cuh, shared with K2), as
+// blocks of one page each: the page's score strip stays in shared memory
+// until its max is known, one state update per page, the accumulators in
+// registers.  bf16 queries over a bf16 pool take the tensor-core,
+// cp.async-pipelined row body of mla_rows_mma.cuh (shared with K2 and K4):
+// mma.sync products, the next page's keys in flight while one is
+// multiplied, 16-row tiles unless the grid of 32-row tiles fills the SMs.
+// fp32 queries and fp32 pools keep the scalar body of mla_rows.cuh (plain
+// loads, fp32 FMA loops, 32-row tiles).  There is no KV split: the grid
+// has B x ceil(G / tile) CTAs.
 #include <cuda_runtime.h>
 
 #include "mla_rows.cuh"
+#include "mla_rows_mma.cuh"
+#include "paged_rows.cuh"
 
 namespace {
 
@@ -58,12 +66,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const TQ* q = static_cast<const TQ*>(p.q) + static_cast<size_t>(b) * G * Dk;
   const int qmax = load_tile(sm, p.g, q, p.q_pos + static_cast<size_t>(b) * G, row0);
   const TP* pages = static_cast<const TP*>(p.pages);
-  const int* bt = p.block_tables + static_cast<size_t>(b) * p.W;
-  const int num_pages = p.num_pages;
-  auto key_off = [=](int pos) -> long long {
-    const int pid = min(max(bt[pos / page_size], 0), num_pages - 1);
-    return (static_cast<long long>(pid) * page_size + pos % page_size) * Dk;
-  };
+  const PagedKeys key_off{
+      {p.block_tables + static_cast<size_t>(b) * p.W, page_size, p.num_pages}, Dk};
 
   RowState<kAmla> st;
   st.init();
@@ -76,8 +80,47 @@ __global__ void __launch_bounds__(kThreads, 1)
   finalize(st, p.g, row0, p.o + static_cast<size_t>(b) * G * p.g.Dv, nullptr);
 }
 
+// bf16 q over a pool of TP (bf16): the tensor-core row body, kRows = 16 *
+// kM, one block per page below min(kv_len, W * page_size).
+template <typename TP, int kM, bool kAmla>
+__global__ void __launch_bounds__(mla_rows_mma::kThreads, 1)
+    mla_decode_padded_mma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int G = p.g.G, Dk = p.g.Dk, page_size = p.g.block_k;
+  const mla_rows_mma::Geom g{G, Dk, p.g.Dv, page_size, p.g.scale, p.g.softcap};
+  const int k_len = static_cast<int>(
+      min(static_cast<long long>(p.kv_len[b]), static_cast<long long>(p.W) * page_size));
+  mla_rows_mma::attend<TP, kM, kAmla>(
+      smem_raw, g, static_cast<const __nv_bfloat16*>(p.q) + static_cast<size_t>(b) * G * Dk,
+      p.q_pos + static_cast<size_t>(b) * G, blockIdx.y * mla_rows_mma::Tile<kM>::kRows,
+      static_cast<const TP*>(p.pages), nullptr, mla_rows_mma::EvenBlocks{0, k_len, page_size},
+      PagedRows{p.block_tables + static_cast<size_t>(b) * p.W, page_size, p.num_pages},
+      p.o + static_cast<size_t>(b) * G * p.g.Dv, nullptr);
+}
+
+// The tensor-core body over the pool, at the tile height wide_tiles picks.
+template <typename TP>
+cudaError_t launch_mma(const Params& p, int B, int amla, cudaStream_t stream) {
+  using mla_rows_mma::launch_tiles;
+  const mla_rows_mma::Geom g{p.g.G, p.g.Dk, p.g.Dv, p.g.block_k, p.g.scale, p.g.softcap};
+  if (!mla_rows_mma::addressable<TP>(g, static_cast<long long>(p.num_pages) * p.g.block_k)) {
+    return cudaErrorInvalidValue;
+  }
+  bool wide;
+  const cudaError_t err = mla_rows_mma::wide_tiles(B, g.G, &wide);
+  if (err != cudaSuccess) return err;
+  if (wide) {
+    return amla ? launch_tiles<TP, 2>(mla_decode_padded_mma_kernel<TP, 2, true>, p, g, B, stream)
+                : launch_tiles<TP, 2>(mla_decode_padded_mma_kernel<TP, 2, false>, p, g, B, stream);
+  }
+  return amla ? launch_tiles<TP, 1>(mla_decode_padded_mma_kernel<TP, 1, true>, p, g, B, stream)
+              : launch_tiles<TP, 1>(mla_decode_padded_mma_kernel<TP, 1, false>, p, g, B, stream);
+}
+
 template <typename TQ, typename TP, bool kAmla>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  if ((p.g.G + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(p.g);
   auto kernel = mla_decode_padded_kernel<TQ, TP, kAmla>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -103,7 +146,7 @@ extern "C" int amla_mla_decode_paged_padded(
     int page_size, int W, float scale, float softcap, int amla, int q_bf16,
     int pages_bf16, void* stream) {
   if (Dv > kDvMax || Dv > Dk || page_size > kBlockKMax || page_size < 1 || B < 1 ||
-      G < 1 || Dk < 1 || W < 1 || num_pages < 1 || (G + kRows - 1) / kRows > 65535) {
+      G < 1 || Dk < 1 || W < 1 || num_pages < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{q, pages, block_tables, kv_len, q_pos, o,
@@ -111,7 +154,7 @@ extern "C" int amla_mla_decode_paged_padded(
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q_bf16) {
-    err = pages_bf16 ? launch_variant<__nv_bfloat16, __nv_bfloat16>(p, B, amla, s)
+    err = pages_bf16 ? launch_mma<__nv_bfloat16>(p, B, amla, s)
                      : launch_variant<__nv_bfloat16, float>(p, B, amla, s);
   } else {
     err = pages_bf16 ? launch_variant<float, __nv_bfloat16>(p, B, amla, s)

@@ -1,11 +1,17 @@
 // Tensor-core AMLA row body for bf16 queries over bf16 or int8 latent rows.
 //
-// Replaces, for bf16 q over a bf16 or an int8 page pool, the scalar row body
-// of mla_rows.cuh in the work-queue paged kernel (mla_decode_paged.cu), i.e.
-// the Pallas TPU kernels repro/kernels/mla_decode_paged.py:490
-// mla_decode_paged_queue_rows (K2, and K2-int8 over int8 pages) and :618
-// mla_decode_paged_group_prefix (K2', the same launch on stacked member
-// queries).  It computes what mla_rows.cuh computes: per KV block of
+// Replaces, for bf16 q over bf16 or int8 latent rows, the scalar row body of
+// mla_rows.cuh in three kernels:
+// * the work-queue paged kernel (mla_decode_paged.cu), i.e. the Pallas TPU
+//   kernels repro/kernels/mla_decode_paged.py:490 mla_decode_paged_queue_rows
+//   (K2, and K2-int8 over int8 pages) and :618 mla_decode_paged_group_prefix
+//   (K2', the same launch on stacked member queries);
+// * the padded-grid paged kernel (mla_decode_paged_padded.cu), i.e.
+//   mla_decode_paged.py:261 mla_decode_paged_rows (K5: bf16 pages, one block
+//   per page);
+// * the contiguous-cache kernel (mla_decode.cu), i.e. repro/kernels/
+//   mla_decode.py:401 mla_decode_rows (K4: bf16 cache, block_k-row blocks).
+// It computes what mla_rows.cuh computes: per KV block of
 // block_k rows ONE online-softmax update per query row with the AMLA
 // MUL-by-ADD rescale (an int32 add on the fp32 accumulator's bits, skipped
 // where it is 0; "base" multiplies), in the same order: scale, softcap,
@@ -81,8 +87,10 @@
 //
 // The body is independent of the paging: the caller hands it an iterator
 // over its KV blocks and a `key_row(pos)` functor (the row index of key
-// position `pos` in the pool, below 2^31: the launcher keeps the pool's
-// 16-byte pieces below 2^31).
+// position `pos` from the rows' base pointer; `addressable` keeps the
+// pieces below 2^31): K2 walks its queue items through the block table,
+// K5 one page at a time through the block table, K4 block_k-row blocks of
+// contiguous rows (EvenBlocks for both).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -371,6 +379,21 @@ struct Producer {
       if (kc >= live) begin();
     }
     cp_async_commit();
+  }
+};
+
+// Blocks of `size` keys from key 0, the last one cut at min(k_len, cap):
+// K5's pages (size = page_size, k_len = min(kv_len, W * page_size)) and
+// K4's blocks (size = block_k, k_len = min(kv_len, S)).
+struct EvenBlocks {
+  int start, k_len, size;
+  __device__ __forceinline__ bool next(int cap, int& first, int& live) {
+    const int end = min(k_len, cap);
+    if (start >= end) return false;
+    first = start;
+    live = min(size, end - start);
+    start += size;
+    return true;
   }
 };
 
@@ -739,6 +762,44 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
         }
       }
     }
+}
+
+// ---- host side, shared by the launchers -------------------------------------
+
+// Whether the body can address these rows: Dk and Dv whole 16-byte pieces,
+// and `rows` rows of Dk elements (all that one base pointer reaches) below
+// 2^31 pieces, since key offsets are kept as 32-bit piece counts.
+template <typename TP>
+inline bool addressable(const Geom& g, long long rows) {
+  constexpr int kPiece = Pool<TP>::kPiece;
+  return g.Dk % kPiece == 0 && g.Dv % kPiece == 0 && rows * (g.Dk / kPiece) < (1LL << 31);
+}
+
+// 32-row tiles once their grid (`columns` x ceil(G / 32) CTAs) fills the
+// card's SMs: they halve a large grid's key traffic; below that 16-row
+// tiles double a decode step's few CTAs.
+inline cudaError_t wide_tiles(long long columns, int G, bool* wide) {
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) *wide = columns * ((G + 31) / 32) >= sms;
+  return err;
+}
+
+// Launch `kernel(p)` on columns x ceil(G / (16 kM)) CTAs of kThreads with
+// the body's dynamic shared memory.
+template <typename TP, int kM, typename P>
+inline cudaError_t launch_tiles(void (*kernel)(P), const P& p, const Geom& g, int columns,
+                                cudaStream_t stream) {
+  constexpr int kRows = Tile<kM>::kRows;
+  const int tiles = (g.G + kRows - 1) / kRows;
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<TP, kM>(g);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(columns, tiles), kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace mla_rows_mma

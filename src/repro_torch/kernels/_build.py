@@ -25,7 +25,7 @@ SOURCES = (
     "mla_decode_paged.cu", "mla_decode_combine.cu", "mla_decode.cu",
     "gqa_decode.cu", "flash_prefill.cu", "mla_decode_paged_padded.cu",
 )
-HEADERS = ("amla.cuh", "mla_rows.cuh", "mla_rows_mma.cuh", "gqa_rows.cuh")
+HEADERS = ("amla.cuh", "mla_rows.cuh", "mla_rows_mma.cuh", "paged_rows.cuh", "gqa_rows.cuh")
 # No --use_fast_math: the AMLA state update needs the accurate expf and
 # IEEE division.  -Xptxas -v reports registers, shared memory and spills.
 NVCC_FLAGS = (
@@ -125,8 +125,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i
-    lib.amla_mla_decode_paged_queue_mma_smem.argtypes = [i] * 6
-    lib.amla_mla_decode_paged_queue_mma_smem.restype = ll
+    lib.amla_mla_rows_mma_smem.argtypes = [i] * 6
+    lib.amla_mla_rows_mma_smem.restype = ll
     lib.amla_error_string.argtypes = [i]
     lib.amla_error_string.restype = ctypes.c_char_p
     _lib = lib

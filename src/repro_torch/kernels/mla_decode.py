@@ -23,14 +23,18 @@ The two differ only where the zero/underflow guard of
 ``apply_int_increment`` flushes a subnormal accumulator of a row whose own
 increment is zero.
 
-The CUDA kernels in ``csrc/mla_rows.cuh`` (K2 paged, K4 contiguous) and
+The CUDA row bodies ``csrc/mla_rows.cuh`` (scalar) and
+``csrc/mla_rows_mma.cuh`` (tensor cores), under K2, K4 and K5, and
 ``csrc/gqa_rows.cuh`` (K6, K7) run the same arithmetic per row; these
 tensor functions are their plain version.  They take any leading row
 shape: ``(G,)`` for one request, ``(B, G)`` for a batch.
 
 :func:`mla_decode_rows` is K4: on a CUDA tensor it launches
 ``csrc/mla_decode.cu``, on a CPU tensor it runs :func:`_rows_plain`, which
-walks the same blocks with the same int32 rescale.
+walks the same blocks with the same int32 rescale.  Which row body an MLA
+kernel (K2, K2′, K4, K5) runs, and the geometry the tensor-core one takes,
+is decided here once for all of them (:func:`_takes_mma_body`,
+:func:`_check_mma_geometry`, :func:`_check_mma_alignment`).
 """
 
 from __future__ import annotations
@@ -182,6 +186,47 @@ def _rows_plain(q, c_kv, kv_len, q_pos, *, d_v, variant, scale, block_k, softcap
     return finalize_decode(st, variant=variant)
 
 
+def _takes_mma_body(q, kv) -> bool:
+    """Whether an MLA kernel (K2, K2′, K4, K5) runs the tensor-core body
+    (bf16 ``q`` over bf16 or int8 rows) rather than the scalar one.  K4 and
+    K5 take no int8 rows."""
+    return q.dtype == torch.bfloat16 and kv.dtype in (torch.bfloat16, torch.int8)
+
+
+def _check_mma_geometry(kv_dtype, n_blocks, block_rows, d_k, d_v) -> None:
+    """Raise ``ValueError`` unless the tensor-core body can address the
+    rows: it copies rows in 16-byte pieces (8 bf16 or 16 int8 elements), so
+    ``d_k`` and ``d_v`` are whole pieces, and it addresses the rows one base
+    pointer reaches (a paged pool's ``num_pages x page_size``, a contiguous
+    cache's ``1 x S`` per request) by 32-bit offsets in such pieces, so they
+    hold fewer than 2**31 of them."""
+    unit = 16 // kv_dtype.itemsize
+    if d_k % unit or d_v % unit:
+        raise ValueError(
+            f"d_k={d_k}, d_v={d_v}: bf16 q over {kv_dtype} rows takes d_k "
+            f"and d_v that are multiples of {unit} (16-byte rows)"
+        )
+    if n_blocks * block_rows * d_k // unit >= 2**31:
+        raise ValueError(
+            f"rows of {n_blocks} x {block_rows} x {d_k} elements: the "
+            "tensor-core body addresses rows in 32-bit 16-byte units"
+        )
+
+
+def _check_mma_alignment(batch_stride_bytes: int = 0, **tensors) -> None:
+    """Raise ``ValueError`` unless each tensor starts on a 16-byte boundary
+    and the batch stride keeps the next request's rows on one, as the
+    tensor-core body's 16-byte copies need."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"bf16 {name} must start on a 16-byte boundary")
+    if batch_stride_bytes % 16:
+        raise ValueError(
+            f"a batch stride of {batch_stride_bytes} bytes: the tensor-core "
+            "body needs it a multiple of 16"
+        )
+
+
 def _rows_cuda(q, c_kv, kv_len, q_pos, *, d_v, variant, scale, block_k, softcap):
     """Launch ``csrc/mla_decode.cu`` on the current stream."""
     b, g, d_k = q.shape
@@ -197,12 +242,18 @@ def _rows_cuda(q, c_kv, kv_len, q_pos, *, d_v, variant, scale, block_k, softcap)
             f"d_v={d_v}, block_k={block_k}: the kernel takes d_v <= min(512, "
             f"d_k) and block_k <= 512"
         )
+    mma = _takes_mma_body(q, c_kv)
+    if mma:
+        _check_mma_geometry(c_kv.dtype, 1, c_kv.shape[1], d_k, d_v)
     if c_kv.stride(2) != 1 or c_kv.stride(1) != d_k:
         raise ValueError(
             f"c_kv strides {c_kv.stride()}: the kernel reads (S, Dk) rows "
             f"stored contiguously (any batch stride)"
         )
     q = q.contiguous()
+    if mma:
+        stride = c_kv.stride(0) * c_kv.element_size() if b > 1 else 0
+        _check_mma_alignment(stride, q=q, c_kv=c_kv)
     lens = kv_len.to(torch.int32).contiguous()
     pos = q_pos.to(torch.int32).contiguous()
     out = torch.empty((b, g, d_v), dtype=torch.float32, device=dev)
@@ -218,6 +269,7 @@ def _rows_cuda(q, c_kv, kv_len, q_pos, *, d_v, variant, scale, block_k, softcap)
     )
     _build.check(lib, err, "mla_decode_rows")
     mla_decode_rows.launches += 1
+    mla_decode_rows.mma_launches += mma
     return out
 
 
@@ -239,8 +291,12 @@ def mla_decode_rows(
     fp32 cache with bf16 queries computes what the reference computes
     after casting the cache, without a copy of it.  A CUDA ``q`` launches
     the kernel (and counts one launch in ``mla_decode_rows.launches``); a
-    CPU ``q`` runs the plain version.  There is no fallback between the
-    two.
+    CPU ``q`` runs the plain version.  A bf16 ``q`` over a bf16 cache runs
+    the tensor-core body and counts in ``.mma_launches`` as well; it takes
+    ``d_k`` and ``d_v`` in whole 16-byte pieces, a cache of fewer than 2**31
+    such pieces per request, and 16-byte aligned ``q``, cache and batch
+    stride, and raises ``ValueError`` otherwise.  There is no fallback
+    between the kernel and the plain version, nor between the two bodies.
     """
     if variant not in ("amla", "base"):
         raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
@@ -253,3 +309,4 @@ def mla_decode_rows(
 
 
 mla_decode_rows.launches = 0
+mla_decode_rows.mma_launches = 0

@@ -23,10 +23,12 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/mla_decode_paged.cu``, ``csrc/mla_decode_paged_padded.cu``) and
 counts the launch; on a CPU tensor it runs the plain PyTorch version
 beside it, which walks the same items in the same order with the same
-int32 rescale.  K2 and K2′ with a bf16 ``q`` over a bf16 or an int8 pool
-run the tensor-core row body (``csrc/mla_rows_mma.cuh``) and count it in
-their ``mma_launches`` as well; an fp32 ``q`` or an fp32 pool runs the
-scalar body (``csrc/mla_rows.cuh``).
+int32 rescale.  K2 and K2′ with a bf16 ``q`` over a bf16 or an int8 pool,
+and K5 with a bf16 ``q`` over a bf16 pool, run the tensor-core row body
+(``csrc/mla_rows_mma.cuh``) and count it in their ``mma_launches`` as
+well; an fp32 ``q`` or an fp32 pool runs the scalar body
+(``csrc/mla_rows.cuh``).  The selection and the geometry checks are
+:mod:`repro_torch.kernels.mla_decode`'s, shared with K4.
 """
 
 from __future__ import annotations
@@ -39,6 +41,11 @@ import torch
 from repro_torch.core import numerics
 from repro_torch.kernels import _build
 from repro_torch.kernels import mla_decode as _mla
+from repro_torch.kernels.mla_decode import (
+    _check_mma_alignment,
+    _check_mma_geometry,
+    _takes_mma_body,
+)
 
 DEFAULT_PAGE_SIZE = 128
 
@@ -178,30 +185,6 @@ def _check_on(dev, **tensors):
 _POOL_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def _takes_mma_body(q, kv_pages) -> bool:
-    """Whether the queue kernel runs the tensor-core body (bf16 q over a
-    bf16 or an int8 pool) rather than the scalar one."""
-    return q.dtype == torch.bfloat16 and kv_pages.dtype in (torch.bfloat16, torch.int8)
-
-
-def _check_mma_geometry(pool_dtype, num_pages, page_size, d_k, d_v) -> None:
-    """Raise ``ValueError`` unless the tensor-core body can address the
-    pool: it copies rows in 16-byte pieces (8 bf16 or 16 int8 elements), so
-    ``d_k`` and ``d_v`` are whole pieces, and it addresses rows by 32-bit
-    offsets in such pieces, so the pool holds fewer than 2**31 of them."""
-    unit = 16 // pool_dtype.itemsize
-    if d_k % unit or d_v % unit:
-        raise ValueError(
-            f"d_k={d_k}, d_v={d_v}: bf16 q over a {pool_dtype} pool takes d_k "
-            f"and d_v that are multiples of {unit} (16-byte rows)"
-        )
-    if num_pages * page_size * d_k // unit >= 2**31:
-        raise ValueError(
-            f"a pool of {num_pages} x {page_size} x {d_k} elements: the "
-            "tensor-core body addresses rows in 32-bit 16-byte units"
-        )
-
-
 def _queue_rows_cuda(
     q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, *,
     d_v, variant, scale, block_k, num_dest_slots, softcap,
@@ -238,14 +221,15 @@ def _queue_rows_cuda(
         )
     if q_pos.shape != (b, g):
         raise ValueError(f"q_pos must be (B={b}, G={g}); got {tuple(q_pos.shape)}")
+    mma = _takes_mma_body(q, kv_pages)
+    if mma:
+        _check_mma_geometry(kv_pages.dtype, num_pages, page_size, d_k, d_v)
     i32 = lambda t: t.to(torch.int32).contiguous()
     bt, lens, pos = i32(block_tables), i32(kv_len), i32(q_pos)
     items = [i32(t) for t in items]
     q, kv_pages = q.contiguous(), kv_pages.contiguous()
-    if _takes_mma_body(q, kv_pages):
-        _check_mma_geometry(kv_pages.dtype, num_pages, page_size, d_k, d_v)
-        if q.data_ptr() % 16 or kv_pages.data_ptr() % 16:
-            raise ValueError("bf16 q and kv_pages must start on a 16-byte boundary")
+    if mma:
+        _check_mma_alignment(q=q, kv_pages=kv_pages)
     scales_ptr = None
     if kv_scales is not None:
         kv_scales = kv_scales.contiguous()
@@ -475,9 +459,14 @@ def _padded_rows_cuda(q, kv_pages, block_tables, kv_len, q_pos, *,
         )
     if q_pos.shape != (b, g):
         raise ValueError(f"q_pos must be (B={b}, G={g}); got {tuple(q_pos.shape)}")
+    mma = _takes_mma_body(q, kv_pages)
+    if mma:
+        _check_mma_geometry(kv_pages.dtype, num_pages, page_size, d_k, d_v)
     i32 = lambda t: t.to(torch.int32).contiguous()
     bt, lens, pos = i32(block_tables), i32(kv_len), i32(q_pos)
     q, kv_pages = q.contiguous(), kv_pages.contiguous()
+    if mma:
+        _check_mma_alignment(q=q, kv_pages=kv_pages)
     out = torch.empty((b, g, d_v), dtype=torch.float32, device=dev)
     lib = _build.load()
     err = lib.amla_mla_decode_paged_padded(
@@ -491,6 +480,7 @@ def _padded_rows_cuda(q, kv_pages, block_tables, kv_len, q_pos, *,
     )
     _build.check(lib, err, "mla_decode_paged_rows")
     mla_decode_paged_rows.launches += 1
+    mla_decode_paged_rows.mma_launches += mma
     return out
 
 
@@ -513,8 +503,11 @@ def mla_decode_paged_rows(
     page; tail entries past its last page may hold any in-range ids (they
     are redirected to the request's own last valid page and their compute
     is skipped).  ``kv_len == 0`` yields exact zeros.  A CUDA ``q``
-    launches the kernel (one more in ``mla_decode_paged_rows.launches``); a
-    CPU ``q`` runs the plain version.
+    launches the kernel (one more in ``mla_decode_paged_rows.launches``,
+    and in ``.mma_launches`` when a bf16 ``q`` over a bf16 pool runs the
+    tensor-core body, whose geometry ``_check_mma_geometry`` holds); a CPU
+    ``q`` runs the plain version.  There is no fallback between the two,
+    nor between the two bodies.
     """
     if block_tables.shape[1] < 1:
         raise ValueError("block_tables must have at least one page column")
@@ -526,3 +519,4 @@ def mla_decode_paged_rows(
 
 
 mla_decode_paged_rows.launches = 0
+mla_decode_paged_rows.mma_launches = 0

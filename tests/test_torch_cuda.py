@@ -568,3 +568,130 @@ def test_int8_mma_body_at_narrow_rows_matches_plain_version(cuda_device, variant
     sigma = c["scales"].flatten()
     assert (sigma[1:] != sigma[:-1]).float().mean().item() > 0.9  # neighbours' σ differ
     _hold_mma_launch(cuda_device, c, variant)
+
+
+# ---- K4 and K5 on the tensor-core body (bf16 q over bf16 rows) -----------
+
+
+def _hold_mla_rows(cuda_device, fn, run, variant, *, mma=True, dtype=torch.bfloat16,
+                   zero_rows=()):
+    """One launch of K4 or K5 on the card against its plain version on the
+    CPU: counted in ``launches``, and in ``mma_launches`` when ``mma``."""
+    before = (fn.launches, fn.mma_launches)
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1] + mma)
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert (got - run("cpu")).abs().max().item() <= TOL[dtype, variant]
+    for r in zero_rows:
+        assert got[r].abs().max().item() == 0.0
+
+
+def _k4_run(q, c, kv, pos, variant, **kw):
+    """K4 over ``c[1:]`` (a batch slice of a larger cache) on ``dev``."""
+    kw = dict(d_v=512, variant=variant, scale=1 / math.sqrt(192)) | kw
+    return lambda dev: port_mla.mla_decode_rows(q.to(dev), c.to(dev)[1:], kv.to(dev),
+                                                pos.to(dev), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_k", [128, 256, 512])
+@pytest.mark.parametrize("g", [1, 17, 128])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_contiguous_body_matches_plain_version(cuda_device, variant, g, block_k):
+    """K4 on the tensor-core body over a batch-sliced cache: ragged kv_len
+    (0, either side of a 16-key chunk, a 128-key strip, a 512-row block),
+    G from one row to 128, blocks of 128, 256 and 512 rows."""
+    kv = torch.tensor(RAGGED_KV, dtype=torch.int32)
+    q = _randn((len(RAGGED_KV), g, 576), 20, torch.float32).to(torch.bfloat16)
+    c = _randn((len(RAGGED_KV) + 1, 1116, 576), 21, torch.float32).to(torch.bfloat16)
+    pos = torch.from_numpy(np.stack([_decode_rows(int(n), g) for n in RAGGED_KV]).astype(np.int32))
+    _hold_mla_rows(cuda_device, port_mla.mla_decode_rows,
+                   _k4_run(q, c, kv, pos, variant, block_k=block_k), variant, zero_rows=[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_contiguous_body_causal_prefill_on_32_row_tiles(cuda_device, variant):
+    """A causal prefill of 96 tokens x 128 heads after 200 cached rows, and
+    one of 33 tokens from the start: 12288 rows a request, so 32-row
+    tiles."""
+    sq = 96
+    kv = torch.tensor([200 + sq, 33], dtype=torch.int32)
+    pos = torch.stack([200 + torch.arange(sq * 128) // 128,
+                       torch.clamp(torch.arange(sq * 128) // 128, max=32)]).to(torch.int32)
+    q = _randn((2, sq * 128, 576), 22, torch.float32).to(torch.bfloat16)
+    c = _randn((3, 512, 576), 23, torch.float32).to(torch.bfloat16)
+    _hold_mla_rows(cuda_device, port_mla.mla_decode_rows, _k4_run(q, c, kv, pos, variant), variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dk,dv", [(64, 48), (80, 64)])
+@pytest.mark.parametrize("g", [17, 4096])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_contiguous_body_at_narrow_rows(cuda_device, variant, g, dk, dv):
+    """Narrow rows in 16-row blocks: a block takes the fewest chunks it can,
+    so the producer runs several blocks ahead (the key buffer ring holds 3-5
+    of them); G = 4096 over two requests takes the 32-row tiles."""
+    kv = torch.tensor([0, 1, 15, 16, 100, 333], dtype=torch.int32)
+    q = _randn((6, g, dk), 24, torch.float32).to(torch.bfloat16)
+    c = _randn((7, 333, dk), 25, torch.float32).to(torch.bfloat16)
+    chunk = lambda n, g: np.maximum(n - g // 128, 0) + np.arange(g) // 128
+    rows = chunk if g > 17 else _decode_rows
+    pos = torch.from_numpy(np.stack([rows(int(n), g) for n in kv]).astype(np.int32))
+    _hold_mla_rows(cuda_device, port_mla.mla_decode_rows,
+                   _k4_run(q, c, kv, pos, variant, d_v=dv, block_k=16), variant, zero_rows=[0])
+
+
+def _padded_case(seed, kv_lens, g, page, extra=3):
+    """bf16 queries and pool, and a fragmented (B, W) table whose entries
+    past each request's last page point anywhere in the pool."""
+    rng = np.random.default_rng(seed)
+    w = max(max(-(-n // page) for n in kv_lens), 1) + extra
+    num_pages = len(kv_lens) * w + 5
+    bt = rng.permutation(num_pages)[: len(kv_lens) * w].reshape(len(kv_lens), w)
+    for r, n in enumerate(kv_lens):
+        used = -(-n // page)
+        bt[r, used:] = rng.integers(0, num_pages, size=w - used)
+    pool = torch.from_numpy(rng.normal(0, 1, (num_pages, page, 576)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(0, 1, (len(kv_lens), g, 576)).astype(np.float32))
+    pos = np.stack([_decode_rows(n, g) for n in kv_lens]).astype(np.int32)
+    return (q.to(torch.bfloat16), pool.to(torch.bfloat16), torch.from_numpy(bt.astype(np.int32)),
+            torch.tensor(kv_lens, dtype=torch.int32), torch.from_numpy(pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 64, 128, 512])
+@pytest.mark.parametrize("g", [1, 17, 128])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_padded_body_matches_plain_version(cuda_device, variant, g, page):
+    """K5 on the tensor-core body, one state update per page of 16 to 512
+    rows, over ragged kv_len and a fragmented table with arbitrary tail
+    entries; kv_len 0 gives exact zeros."""
+    args = _padded_case(30, RAGGED_KV, g, page)
+    kw = dict(d_v=512, variant=variant, scale=1 / math.sqrt(192))
+    run = lambda dev: port_paged.mla_decode_paged_rows(*(t.to(dev) for t in args), **kw)
+    _hold_mla_rows(cuda_device, port_paged.mla_decode_paged_rows, run, variant, zero_rows=[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32)])
+def test_scalar_mla_bodies_are_not_counted_as_mma(cuda_device, kernel, q_dtype, kv_dtype):
+    """K4 and K5 with an fp32 query or fp32 rows keep the scalar body: one
+    launch in ``launches``, none in ``mma_launches``."""
+    q, pool, bt, kv, pos = _padded_case(31, [0, 129, 513], 17, 128)
+    q, pool = q.float().to(q_dtype), pool.float().to(kv_dtype)
+    kw = dict(d_v=512, variant="amla", scale=1 / math.sqrt(192))
+    if kernel == "K4":
+        c = pool[: 3 * 5].reshape(3, 5 * 128, 576)
+        fn = port_mla.mla_decode_rows
+        run = lambda dev: fn(q.to(dev), c.to(dev), kv.to(dev), pos.to(dev), **kw)
+    else:
+        fn = port_paged.mla_decode_paged_rows
+        run = lambda dev: fn(q.to(dev), pool.to(dev), bt.to(dev), kv.to(dev), pos.to(dev), **kw)
+    # the rows are rounded to q's dtype where they are used
+    _hold_mla_rows(cuda_device, fn, run, "amla", mma=False, dtype=q_dtype, zero_rows=[0])
