@@ -5,10 +5,11 @@ Runs on one NVIDIA H100 (``python3 chip_smoke.py`` from the repository
 root) and exits nonzero on any failure:
 
 1. **Build** the hand-written CUDA kernels from ``src/repro_torch/csrc``;
-   ptxas's registers and spills of all 16 instantiations of the
+   ptxas's registers and spills of all 24 instantiations of the
    tensor-core row body (the queue kernel K2/K2' with bf16 q over bf16 or
    int8 pages, the padded kernel K5 and the contiguous kernel K4 over bf16
-   rows; 16/32-row tiles, amla/base) and their dynamic shared memory are
+   rows, the GQA decode K6 and the flash prefill K7 over bf16 K/V;
+   16/32-row tiles, amla/base) and their dynamic shared memory are
    printed, and a spill or a missing line fails the run.
 2. **Kernel phase**: every kernel on the card against its plain PyTorch
    version on the same inputs, bf16 and fp32, ``amla`` and ``base``:
@@ -26,7 +27,9 @@ root) and exits nonzero on any failure:
    then K4 and K5 on the tensor-core body (bf16 q over bf16 rows): ragged
    kv_len, G of 1, 17 and 128, K4 over a batch-sliced cache, K5 at pages
    of 16, 64, 128 and 512 rows behind fragmented tables.  Every bf16 K2,
-   K4 and K5 call must count one tensor-core launch, every fp32 one none.
+   K4, K5, K6 and K7 call must count one tensor-core launch, every fp32
+   one none; a bf16 K6 call split over its KV blocks one combine (K3)
+   launch, held against the plain version walked in the same splits.
    Cases include kv_len 0 (rows must be exact zeros), ragged kv_len and
    contexts longer than the window.  Each kernel is timed beside its
    bound, its plain version and, where one exists, a single PyTorch call.
@@ -38,7 +41,8 @@ root) and exits nonzero on any failure:
    random bf16 weights from a seed) through ``ServingSession(batch 4,
    max_len 8192)`` and the ``launch/serve`` stream loop: prompts of 5,
    300, 1100 and 4500 tokens, 16 greedy tokens each.  K6 and K7 launch
-   counts must match the layers x calls of the path.
+   counts must match the layers x calls of the path, all on the
+   tensor-core body, with one K3 launch per split K6 call.
 5. **Paged serve phase**: ``deepseek-v2-mla`` at its published widths
    (60 layers) through ``PagedServingSession``: 4 ragged prompts, 16
    greedy tokens each, ``num_splits=2``; every prefill chunk and decode
@@ -94,12 +98,16 @@ SLEEP_CYCLES = 4_000_000  # ~2 ms of device clock before each timed call
 # The kernels on the tensor-core row body (bf16 q), with their instantiations
 # (rows' type x 16/32-row tiles x amla/base) and the block_k their shared
 # memory is printed at: K2/K2' (bf16 and int8 pools, 512-row blocks), K5 (one
-# block per 128-row page), K4 (512-row blocks of the 2048-row dense cache).
+# block per 128-row page), K4 (512-row blocks of the 2048-row dense cache),
+# K6 and K7 (bf16 K/V rows of their own, 512-key blocks, printed at Dh 256).
 MMA_KERNELS = {
     "mla_decode_queue_mma_kernel": (8, BLOCK_K),
     "mla_decode_padded_mma_kernel": (4, PAGE),
     "mla_decode_rows_mma_kernel": (4, BLOCK_K),
+    "gqa_decode_mma_kernel": (4, BLOCK_K),
+    "flash_prefill_mma_kernel": (4, BLOCK_K),
 }
+GQA_MMA_KERNELS = ("gqa_decode_mma_kernel", "flash_prefill_mma_kernel")
 
 
 def log(msg: str) -> None:
@@ -422,8 +430,9 @@ def run_gqa(case, variant, plain):
     q, k, v, kv, kw = case["q"], case["k"], case["v"], case["kv"], case["kw"]
     blk = min(512, max(k.shape[2], 128))
     if case["kernel"] == "K6":
-        if plain:
-            return gd._decode_plain(q, k, v, kv, case["pos"], variant=variant, block_k=blk, **kw)
+        if plain:  # walked in the kernel's own splits
+            return gd.attend_plain(q, k, v, kv, case["pos"], variant=variant, block_k=blk,
+                                   num_splits=gd.split_count(q, k, blk), **kw)
         return gd.gqa_decode_rows(q, k, v, kv, case["pos"], variant=variant, **kw)
     if plain:
         return fp._prefill_plain(q, k, v, kv, variant=variant, block_k=blk, causal=True, **kw)
@@ -534,21 +543,32 @@ def dense_cases(dtype):
 def dense_kernel_phase(flush):
     """Hold K4, K6 and K7 against their plain versions on the card, then
     time them at the dense serve phases' shapes."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
     from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import mla_decode_combine as mc
 
     log("== kernel phase: K6 (GQA decode), K7 (flash prefill), K4 (contiguous MLA "
         "decode) vs their plain PyTorch versions ==")
     worst = {}
+    counted = lambda: (md.mla_decode_rows.mma_launches, gd.gqa_decode_rows.mma_launches,
+                       fp.flash_prefill.mma_launches, mc.combine_split_partials.launches)
     for dtype in (torch.bfloat16, torch.float32):
         for name, case in dense_cases(dtype):
-            is_k4 = name.startswith("K4")
+            kname = name.split()[0]
+            bf = dtype == torch.bfloat16
+            splits = 1 if kname != "K6" else gd.split_count(
+                case["q"], case["k"], min(512, max(case["k"].shape[2], 128)))
             for variant in ("amla", "base"):
-                run = run_k4 if is_k4 else run_gqa
-                n_mma = md.mla_decode_rows.mma_launches
+                run = run_k4 if kname == "K4" else run_gqa
+                n0 = counted()
                 got = run(case, variant, plain=False)
-                mma = md.mla_decode_rows.mma_launches - n_mma
-                if mma != int(is_k4 and dtype == torch.bfloat16):
-                    raise SystemExit(f"{name} {dtype}: {mma} K4 tensor-core launches")
+                mma = tuple(a - b for a, b in zip(counted(), n0))
+                want_mma = (int(bf and kname == "K4"), int(bf and kname == "K6"),
+                            int(bf and kname == "K7"), int(splits > 1))
+                if mma != want_mma:
+                    raise SystemExit(f"{name} {dtype}: (K4, K6, K7) tensor-core and K3 launches "
+                                     f"{mma}, expected {want_mma}")
                 want = run(case, variant, plain=True)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
@@ -558,11 +578,11 @@ def dense_kernel_phase(flush):
                     raise SystemExit(f"{name}: rows with no visible key are not exact zeros")
                 if not torch.isfinite(got).all():
                     raise SystemExit(f"{name}: non-finite output")
-                key = name.split()[0]
-                worst[key, dtype, variant] = max(worst.get((key, dtype, variant), 0.0), err)
+                worst[kname, dtype, variant] = max(worst.get((kname, dtype, variant), 0.0), err)
                 log(f"  {name:28s} {str(dtype)[6:]:8s} {variant} kv={case['kv_host'].tolist()}: "
                     f"max |kernel - plain| {err:.3e} (tol {tol:g})"
-                    f"{', tensor-core body' if mma else ''}")
+                    f"{', tensor-core body' if any(mma[:3]) else ''}"
+                    f"{f', {splits} splits + K3' if splits > 1 else ''}")
                 if err > tol:
                     raise SystemExit(f"dense kernel phase: {name} {dtype} {variant} exceeds tol {tol}")
             del case
@@ -1410,6 +1430,7 @@ def gemma_dense_phase():
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as mc
     from repro_torch.models.model_zoo import build_model
 
     cfg = get_config("gemma2-2b")
@@ -1424,16 +1445,30 @@ def gemma_dense_phase():
     torch.cuda.synchronize()
     log(f"random bf16 weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
-    _, ((k6, _), (k7, _)), buckets, steps = dense_serve(
-        cfg, model, params, (5, 300, 1100, 4500), 16, 8192, (gd.gqa_decode_rows, fp.flash_prefill))
+    max_len, batch = 8192, 4
+    _, ((k6, k6_mma), (k7, k7_mma), (k3, _)), buckets, steps = dense_serve(
+        cfg, model, params, (5, 300, 1100, 4500), 16, max_len,
+        (gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials))
     want7 = cfg.n_layers * sum(b > 8 for b in buckets)
     want6 = cfg.n_layers * (steps + sum(b <= 8 for b in buckets))
-    log(f"launches: K6 gqa_decode_rows {k6} (expected layers x (decode steps + prefills "
-        f"with bucket <= 8) = {want6}), K7 flash_prefill {k7} (expected layers x prefills "
-        f"with bucket > 8 = {want7})")
-    if k6 <= 0 or k7 <= 0 or k6 != want6 or k7 != want7:
+    # K6 reads the whole max_len cache: a decode step has batch x Hkv CTAs of
+    # G = group rows, a bucket-8 prefill 1 x Hkv of G = 8 x group; each call
+    # split over the cache's blocks launches K3 once
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_blocks = -(-max_len // 512)
+    group = cfg.n_heads // cfg.n_kv_heads
+    split = lambda b, g: gd.decode_splits(sms, b * cfg.n_kv_heads * -(-g // 16), n_blocks) > 1
+    want3 = cfg.n_layers * (steps * split(batch, group)
+                            + sum(b <= 8 for b in buckets) * split(1, 8 * group))
+    log(f"launches: K6 gqa_decode_rows {k6}, {k6_mma} on the tensor-core body (expected "
+        f"layers x (decode steps + prefills with bucket <= 8) = {want6}); K7 flash_prefill "
+        f"{k7}, {k7_mma} on the tensor-core body (expected layers x prefills with bucket > 8 "
+        f"= {want7}); K3 combine_split_partials {k3} from the split K6 calls (expected "
+        f"{want3})")
+    if (k6 <= 0 or k7 <= 0 or (k6, k6_mma) != (want6, want6) or (k7, k7_mma) != (want7, want7)
+            or k3 != want3):
         raise SystemExit("gemma2-2b dense phase: kernel launch counts do not match the main path")
-    return k6, k7
+    return k6, k7, k3
 
 
 def mla_dense_phase(cfg, model, params, prompt_lens, paged_results):
@@ -1531,7 +1566,7 @@ def mma_ptxas(log_text):
     """ptxas's spill and register lines for each instantiation of the
     tensor-core kernels: [((kernel, pool, kM, amla), spill line, register
     line)], read from the mangled name (``I<pool>Li<kM>ELb<amla>E``)."""
-    pools = {"13__nv_bfloat16": "bf16", "a": "int8"}
+    pools = {"13__nv_bfloat16": "bf16", "a": "int8", "": "bf16"}  # K6/K7: bf16 only
     out = []
     lines = log_text.splitlines()
     for i, line in enumerate(lines):
@@ -1574,10 +1609,14 @@ def main() -> int:
         lib = _build.load()
         for (kernel, pool, k_m, amla), spill, regs in sorted(found):
             block_k = MMA_KERNELS[kernel][1]
-            smem = lib.amla_mla_rows_mma_smem(k_m, 2 if pool == "int8" else 1, 128, DK, DV,
-                                              block_k)
+            if kernel in GQA_MMA_KERNELS:
+                smem, at = lib.amla_gqa_rows_mma_smem(k_m, 256, block_k), "Dh 256"
+            else:
+                smem = lib.amla_mla_rows_mma_smem(k_m, 2 if pool == "int8" else 1, 128, DK, DV,
+                                                  block_k)
+                at = f"Dk {DK}"
             log(f"  {kernel}<{pool}, kM={k_m}, amla={amla}>: {regs}; {spill}; "
-                f"smem_bytes at Dk {DK}, block_k {block_k}: {smem}")
+                f"smem_bytes at {at}, block_k {block_k}: {smem}")
         spilled = [a for a, spill, _ in found if "0 bytes spill stores, 0 bytes spill loads" not in spill]
         counts = {k: sum(a[0] == k for a, _, _ in found) for k in MMA_KERNELS}
         want = {k: n for k, (n, _) in MMA_KERNELS.items()}
@@ -1598,7 +1637,7 @@ def main() -> int:
     small_dense_check()
     small_int8_prefix_check()
     torch.cuda.empty_cache()
-    k6, k7 = gemma_dense_phase()
+    k6, k7, k3g = gemma_dense_phase()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     k2, k3, paged = serve_phase()
@@ -1637,7 +1676,7 @@ def main() -> int:
              bound_by=tpi[3], library_ms=tpi[4]),
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
-             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3 + k3b + k3i8,
+             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3 + k3b + k3i8 + k3g,
              max_abs_err=err("combine_split_partials"), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
         dict(name="mla_decode_rows", route="cuda", source="src/repro_torch/csrc/mla_decode.cu",
@@ -1649,11 +1688,11 @@ def main() -> int:
              replaces="src/repro/kernels/mla_decode_paged.py:261", launches=k5,
              max_abs_err=max(terr("K5"), merr("K5")), ms=t5[0], plain_ms=t5[1], bound_ms=t5[2],
              bound_by=t5[3], library_ms=t5[4]),
-        dict(name="gqa_decode_rows", route="cuda", source="src/repro_torch/csrc/gqa_decode.cu",
+        dict(name="gqa_decode_rows", route="cuda", source=mma_src,
              replaces="src/repro/kernels/gqa_decode.py:147", launches=k6,
              max_abs_err=derr("K6"), ms=t6[0], plain_ms=t6[1], bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
-        dict(name="flash_prefill", route="cuda", source="src/repro_torch/csrc/flash_prefill.cu",
+        dict(name="flash_prefill", route="cuda", source=mma_src,
              replaces="src/repro/kernels/flash_prefill.py:149", launches=k7,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),

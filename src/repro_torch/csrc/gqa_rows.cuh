@@ -1,4 +1,5 @@
-// The AMLA row body shared by the GQA kernels (K6 decode, K7 prefill).
+// The scalar AMLA row body of the GQA kernels (K6 decode, K7 prefill) for
+// fp32 q, k and v; bf16 ones run the tensor-core body of mla_rows_mma.cuh.
 //
 // One CTA owns a tile of R = 8 * RPW query rows that read the same KV head
 // (b, h / group) and walks that head's KV blocks of block_k rows in order.
@@ -15,7 +16,7 @@
 // cache or a slot of it is never copied.  A 512-key block of K at Dh 256 is
 // 256 KB, above what a CTA may hold, so keys are staged in passes of 4096
 // elements (128 keys x 32 dims for the scores, 4096 / Dh keys x Dh for
-// P·V), loaded as 16-byte vectors into registers one pass ahead and
+// P·V), loaded as vectors into registers one pass ahead and
 // stored into one of two shared buffers, so each pass costs one barrier
 // and its loads overlap the previous pass's arithmetic.  The block's full
 // R x block_k score strip stays in shared memory: the row max, and so the
@@ -72,17 +73,7 @@ size_t smem_bytes(const Params& p) {
          sizeof(int) * R;
 }
 
-// 8 consecutive elements (16-byte aligned for bf16, 32-byte for fp32).
-__device__ __forceinline__ void load8(const __nv_bfloat16* src, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    out[2 * e] = f.x;
-    out[2 * e + 1] = f.y;
-  }
-}
+// 8 consecutive elements, 32-byte aligned.
 __device__ __forceinline__ void load8(const float* src, float* out) {
   const float4 a = reinterpret_cast<const float4*>(src)[0];
   const float4 b = reinterpret_cast<const float4*>(src)[1];
@@ -382,14 +373,11 @@ cudaError_t launch_typed(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Launch on `stream` for bf16 (`bf16` != 0) or fp32 inputs.
+// Launch on `stream` for fp32 inputs (bf16 ones take the tensor-core body
+// of mla_rows_mma.cuh).
 template <int RPW>
-cudaError_t launch(const Params& p, int B, int amla, int bf16, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int B, int amla, cudaStream_t stream) {
   if (!valid(p, B)) return cudaErrorInvalidValue;
-  if (bf16) {
-    return amla ? launch_typed<__nv_bfloat16, true, RPW>(p, B, stream)
-                : launch_typed<__nv_bfloat16, false, RPW>(p, B, stream);
-  }
   return amla ? launch_typed<float, true, RPW>(p, B, stream)
               : launch_typed<float, false, RPW>(p, B, stream);
 }

@@ -79,11 +79,6 @@ __global__ void __launch_bounds__(kThreads, 1) mla_decode_rows_kernel(Params p) 
   finalize(st, p.g, row0, p.o + static_cast<size_t>(b) * G * p.g.Dv, nullptr);
 }
 
-// Key position `pos` of a request is row `pos` of its cache.
-struct ContiguousRows {
-  __device__ __forceinline__ long long operator()(int pos) const { return pos; }
-};
-
 // bf16 q over a cache of TP (bf16): the tensor-core row body, kRows = 16 *
 // kM, blocks of block_k rows below min(kv_len, S).
 template <typename TP, int kM, bool kAmla>
@@ -97,7 +92,8 @@ __global__ void __launch_bounds__(mla_rows_mma::kThreads, 1)
       smem_raw, g, static_cast<const __nv_bfloat16*>(p.q) + static_cast<size_t>(b) * G * Dk,
       p.q_pos + static_cast<size_t>(b) * G, blockIdx.y * mla_rows_mma::Tile<kM>::kRows,
       static_cast<const TP*>(p.c) + b * p.c_sb, nullptr,
-      mla_rows_mma::EvenBlocks{0, min(p.kv_len[b], p.S), p.g.block_k}, ContiguousRows{},
+      mla_rows_mma::EvenBlocks{0, min(p.kv_len[b], p.S), p.g.block_k},
+      mla_rows_mma::ContiguousRows{},
       p.o + static_cast<size_t>(b) * G * p.g.Dv, nullptr);
 }
 

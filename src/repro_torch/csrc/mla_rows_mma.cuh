@@ -1,4 +1,5 @@
-// Tensor-core AMLA row body for bf16 queries over bf16 or int8 latent rows.
+// Tensor-core AMLA row body for bf16 queries over bf16 or int8 latent rows,
+// or over bf16 K and V rows of their own.
 //
 // Replaces, for bf16 q over bf16 or int8 latent rows, the scalar row body of
 // mla_rows.cuh in three kernels:
@@ -10,8 +11,15 @@
 //   mla_decode_paged.py:261 mla_decode_paged_rows (K5: bf16 pages, one block
 //   per page);
 // * the contiguous-cache kernel (mla_decode.cu), i.e. repro/kernels/
-//   mla_decode.py:401 mla_decode_rows (K4: bf16 cache, block_k-row blocks).
-// It computes what mla_rows.cuh computes: per KV block of
+//   mla_decode.py:401 mla_decode_rows (K4: bf16 cache, block_k-row blocks);
+// and, for bf16 q over bf16 K/V, the scalar body of gqa_rows.cuh in two:
+// * the GQA decode kernel (gqa_decode.cu), i.e. repro/kernels/
+//   gqa_decode.py:147 gqa_decode_rows (K6, split over its KV blocks);
+// * the flash prefill (flash_prefill.cu), i.e. repro/kernels/
+//   flash_prefill.py:149 flash_prefill (K7).
+// Over HeadRows (K6, K7) V has rows of its own, K and V rows lie at their
+// own strides, and a sliding window or non-causal rows may mask.
+// It computes what mla_rows.cuh (gqa_rows.cuh) computes: per KV block of
 // block_k rows ONE online-softmax update per query row with the AMLA
 // MUL-by-ADD rescale (an int32 add on the fp32 accumulator's bits, skipped
 // where it is 0; "base" multiplies), in the same order: scale, softcap,
@@ -56,7 +64,8 @@
 //     reads of rows 2 apart fall 8 banks apart.
 // * One stream of chunks per CTA through a ring of kStages buffers filled
 //   by 16-byte cp.async copies: per block its score chunks (128 keys x 64
-//   dims, strip by strip), then its value chunks (16 keys x Dv).  A block's
+//   dims, strip by strip), then its value chunks (16 keys x Dv; over
+//   HeadRows as many 16-key steps as a stage holds, v_keys).  A block's
 //   key-row offsets, in 16-byte pieces (and, over int8, the rows' sigma),
 //   are looked up through `key_row` (the block table) once, when the
 //   producer reaches the block, into shared memory, so a copy costs no
@@ -90,13 +99,15 @@
 // position `pos` from the rows' base pointer; `addressable` keeps the
 // pieces below 2^31): K2 walks its queue items through the block table,
 // K5 one page at a time through the block table, K4 block_k-row blocks of
-// contiguous rows (EvenBlocks for both).
+// contiguous rows, K6 its split's run of block_k-key blocks, K7 the blocks
+// from its window start (EvenBlocks for the last four).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 #include "amla.cuh"
@@ -148,13 +159,51 @@ struct Tile {
 };
 
 // Row geometry and score transform of one launch (Dk, Dv multiples of the
-// pool's 16-byte piece).
+// pool's 16-byte piece).  `window` and `causal` are read over HeadRows only:
+// the MLA kernels are causal and have no window.
 struct Geom {
   int G, Dk, Dv, block_k;
   float scale, softcap;  // softcap <= 0: off
+  int window = 0;        // > 0: key k is visible to a row at q_pos iff k > q_pos - window
+  int causal = 1;        // 0: keys past q_pos are visible too
+};
+
+// Where a launch's value rows lie.  LatentRows (K2, K4, K5): V is the first
+// Dv columns of each key row, and key rows lie Dk elements apart.
+// HeadRows (K6, K7): bf16 V rows of their own from `v`, key and value rows
+// `k_rs` and `v_rs` 16-byte pieces apart (a (b, head) of a dense cache, or a
+// transposed view of one), and the window and non-causal masks of Geom.
+struct LatentRows {};
+struct HeadRows {
+  const bf16* v;
+  int k_rs, v_rs;
+};
+template <typename Rows>
+constexpr bool kHeadRows = std::is_same<Rows, HeadRows>::value;
+
+// The positions of query rows that count from 0 (K7's prefill rows).
+struct RowPositions {
+  __device__ __forceinline__ int operator[](int r) const { return r; }
 };
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Keys per value chunk and bf16 per staged value row: 16 keys of
+// Pool::kVStride over LatentRows; over HeadRows (Dv <= 256) as many 16-key
+// steps of Dv + 8 as one stage and the producer's copy passes hold (64 keys
+// at Dv 128, 32 at 256), so a narrow head takes fewer, fuller chunks.
+template <typename TP, bool kHead>
+__host__ __device__ inline int v_keys(const Geom& g) {
+  if (!kHead) return kVKeys;
+  const int fit = stage_bytes<TP>() / (2 * (g.Dv + 8));
+  const int copies = kVKeys * (kDvMax / Pool<TP>::kPiece) / (g.Dv / Pool<TP>::kPiece);
+  const int keys = (fit < copies ? fit : copies) / kVKeys * kVKeys;
+  return keys < kVKeys ? kVKeys : keys > kStripKeys ? kStripKeys : keys;
+}
+template <typename TP, bool kHead>
+__host__ __device__ inline int v_stride(const Geom& g) {
+  return kHead ? g.Dv + 8 : Pool<TP>::kVStride;
+}
 // bf16 per staged query row, per P row; floats per score row.
 __host__ __device__ inline int q_stride(const Geom& g) { return round_up(g.Dk, kDChunk) + 8; }
 __host__ __device__ inline int p_cols(const Geom& g) { return round_up(g.block_k, kVKeys); }
@@ -169,10 +218,11 @@ __host__ __device__ inline int key_bufs(const Geom& g) {
   return 2 + (Tile<kM>::kStages - 2) / (round_up(g.Dk, kDChunk) / kDChunk + 1);
 }
 
-template <typename TP, int kM>
+template <typename TP, int kM, bool kHead = false>
 inline size_t smem_bytes(const Geom& g) {
   constexpr int kRows = Tile<kM>::kRows;
-  constexpr size_t kKeyBytes = std::is_same<TP, int8_t>::value ? 8 : 4;  // row (+ sigma)
+  // key row (+ sigma over int8, + value row over HeadRows)
+  constexpr size_t kKeyBytes = std::is_same<TP, int8_t>::value || kHead ? 8 : 4;
   return static_cast<size_t>(Tile<kM>::kStages) * stage_bytes<TP>() +
          2 * static_cast<size_t>(kRows) * (q_stride(g) + p_stride(g)) +
          4 * static_cast<size_t>(kRows) * (p_stride(g) + 2) +
@@ -189,6 +239,7 @@ struct Smem {
   int* rowi;            // kRows: the int increment per block (amla)
   int* keys;            // key_bufs x p_cols: key-row offsets, in 16-byte pieces
   float* sigma;         // key_bufs x p_cols: their sigma (int8 pools)
+  int* vals;            // the same place: value-row offsets in pieces (HeadRows)
 };
 
 template <typename TP, int kM>
@@ -203,6 +254,7 @@ __device__ __forceinline__ Smem carve(unsigned char* raw, const Geom& g) {
   sm.rowi = reinterpret_cast<int*>(sm.rowf + kRows);
   sm.keys = sm.rowi + kRows;
   sm.sigma = reinterpret_cast<float*>(sm.keys + key_bufs<kM>(g) * p_cols(g));
+  sm.vals = reinterpret_cast<int*>(sm.sigma);
   return sm;
 }
 
@@ -291,11 +343,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // live) into the next of `nb` shared buffers, the one block b uses being
 // b % nb (the others may still feed the previous block's last copies, or
 // the consumer's softmax): a CTA barrier must separate a call that may
-// enter a block from the next call.
-template <typename TP, typename Blocks, typename KeyRow>
+// enter a block from the next call.  Over HeadRows each block's value-row
+// offsets go into `vals` beside its key-row offsets.
+template <typename TP, typename Blocks, typename KeyRow, typename Rows>
 struct Producer {
   using P = Pool<TP>;
   static constexpr bool kScaled = std::is_same<TP, int8_t>::value;
+  static constexpr bool kHead = kHeadRows<Rows>;
   static constexpr int kRowPieces = kDChunk / P::kPiece;  // copies per staged key row
   static constexpr int kKeyStep = kThreads / kRowPieces;  // key rows per pass
   static constexpr int kKeyPasses = kStripKeys / kKeyStep;
@@ -306,7 +360,9 @@ struct Producer {
   const float* scales;  // int8 pools: sigma per pool row
   int* keys;            // nb x kcap key-row offsets, in 16-byte pieces
   float* sigma;         // nb x kcap sigma (int8 pools)
-  int kcap, nb, cap, Dk, Dv, n_dc;
+  Rows src;
+  int* vals;            // nb x kcap value-row offsets, in 16-byte pieces (HeadRows)
+  int kcap, nb, cap, Dk, Dv, n_dc, vkeys, vstride;
   bool valid;
   int buf, start, live, phase, ks, dc, kc;  // phase 0: score chunks, 1: value chunks
   int krow[kKeyPasses];                     // this thread's key rows in the strip
@@ -317,8 +373,8 @@ struct Producer {
 #pragma unroll
     for (int j = 0; j < kVPasses; ++j) {
       const int idx = threadIdx.x + kThreads * j;
-      vkey[j] = idx < kVKeys * segs ? idx / segs : -1;
-      vseg[j] = idx < kVKeys * segs ? idx - vkey[j] * segs : 0;
+      vkey[j] = idx < vkeys * segs ? idx / segs : -1;
+      vseg[j] = idx < vkeys * segs ? idx - vkey[j] * segs : 0;
     }
     buf = nb - 1;
     begin();
@@ -331,7 +387,12 @@ struct Producer {
       buf = buf + 1 == nb ? 0 : buf + 1;
       for (int k = threadIdx.x; k < (kScaled ? kcap : live); k += kThreads) {
         const int row = k < live ? static_cast<int>(key_row(start + k)) : 0;
-        keys[buf * kcap + k] = row * (Dk / P::kPiece);
+        if constexpr (kHead) {
+          keys[buf * kcap + k] = row * src.k_rs;
+          vals[buf * kcap + k] = row * src.v_rs;
+        } else {
+          keys[buf * kcap + k] = row * (Dk / P::kPiece);
+        }
         if (kScaled) sigma[buf * kcap + k] = k < live ? scales[row] : 0.0f;
       }
     }
@@ -365,17 +426,23 @@ struct Producer {
       }
     } else if (valid) {
       // keys kc .. kc + 15, all Dv columns
+      const TP* vb = kv;
+      const int* vrows = rows;
+      if constexpr (kHead) {
+        vb = src.v;
+        vrows = vals + buf * kcap;
+      }
 #pragma unroll
       for (int j = 0; j < kVPasses; ++j) {
         if (vkey[j] >= 0) {
           const bool ok = kc + vkey[j] < live;
           const int col = vseg[j] * P::kPiece;
-          cp_async16(stage + vkey[j] * P::kVStride + col,
-                     ok ? kv + P::kPiece * static_cast<long long>(rows[kc + vkey[j]]) + col : kv,
+          cp_async16(stage + vkey[j] * vstride + col,
+                     ok ? vb + P::kPiece * static_cast<long long>(vrows[kc + vkey[j]]) + col : vb,
                      ok ? 16 : 0);
         }
       }
-      kc += kVKeys;
+      kc += vkeys;
       if (kc >= live) begin();
     }
     cp_async_commit();
@@ -397,6 +464,12 @@ struct EvenBlocks {
   }
 };
 
+// Key position `pos` is row `pos` from the rows' base (K4's cache of a
+// request, K6's and K7's K and V of a (b, head)).
+struct ContiguousRows {
+  __device__ __forceinline__ long long operator()(int pos) const { return pos; }
+};
+
 // Online-softmax state of the warp's rows, held by all its lanes.
 template <int kM>
 struct RowState {
@@ -406,21 +479,27 @@ struct RowState {
 };
 
 // Attend the tile of query rows [row0, row0 + kRows) of one request (q: its
-// G rows of width Dk; q_pos: their positions) over the KV blocks that
+// G rows of width Dk; q_pos[r]: their positions) over the KV blocks that
 // `blocks` yields, and write the normalized rows into `o` (G x Dv) and,
 // with `lse`, lse = m + log l (-inf when empty).
 //
 // `blocks.next(cap, start, live)` yields, in order, each block's first key
 // position and its count of live keys (> 0), keys at or past `cap` (the
-// tile's largest position + 1) left out; `key_row(pos)` is the index of key
-// row `pos` in `kv` (rows of Dk elements), and over int8 rows
+// tile's largest position + 1, or no cap over non-causal HeadRows) left
+// out; `key_row(pos)` is the index of key row `pos` in `kv` (rows of Dk
+// elements over LatentRows, `src.k_rs` pieces over HeadRows, whose value
+// rows are the same indices in `src.v`), and over int8 rows
 // `scales[key_row(pos)]` its sigma.  Every thread of the CTA calls this.
-template <typename TP, int kM, bool kAmla, typename Blocks, typename KeyRow>
+template <typename TP, int kM, bool kAmla, typename Blocks, typename KeyRow, typename QPos,
+          typename Rows = LatentRows>
 __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const bf16* q,
-                                       const int* q_pos, int row0, const TP* kv,
+                                       QPos q_pos, int row0, const TP* kv,
                                        const float* scales, const Blocks& blocks,
-                                       KeyRow key_row, float* o, float* lse) {
+                                       KeyRow key_row, float* o, float* lse,
+                                       Rows src = Rows{}) {
   constexpr bool kInt8 = std::is_same<TP, int8_t>::value;
+  constexpr bool kHead = kHeadRows<Rows>;
+  static_assert(!kHead || std::is_same<TP, bf16>::value, "HeadRows are bf16");
   constexpr int kRows = Tile<kM>::kRows;
   constexpr int R = Tile<kM>::kRowsPerWarp;
   constexpr int S = Tile<kM>::kStages;
@@ -434,11 +513,13 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
   const int qs = q_stride(g), ps = p_stride(g);
   const int n_dc = (qs - 8) / kDChunk;
   const int kcap = p_cols(g), nb = key_bufs<kM>(g);
+  const int vkeys = v_keys<TP, kHead>(g), vstride = v_stride<TP, kHead>(g);
 
   // The tile's largest position (-1 past G): keys past it mask every row.
   int qmax = lane < kRows && row0 + lane < g.G ? q_pos[row0 + lane] : -1;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+  const int cap = kHead && !g.causal ? INT_MAX : qmax + 1;
 
   // Query rows into shared memory (zero past G and past Dk), in the first
   // copy group with the first chunk: as they are over bf16 keys, with the
@@ -463,8 +544,9 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
                  ok ? q + static_cast<size_t>(row0 + r) * g.Dk + seg * 8 : q, ok ? 16 : 0);
     }
   }
-  Producer<TP, Blocks, KeyRow> prod{blocks, key_row, kv, scales, sm.keys, sm.sigma, kcap, nb,
-                                    qmax + 1, g.Dk, g.Dv, n_dc};
+  Producer<TP, Blocks, KeyRow, Rows> prod{blocks, key_row, kv, scales, sm.keys, sm.sigma, src,
+                                          sm.vals, kcap, nb, cap, g.Dk, g.Dv, n_dc, vkeys,
+                                          vstride};
   prod.init();
   for (int s = 0; s < S - 1; ++s) {
     __syncthreads();  // the block entered last has its key rows in place
@@ -503,7 +585,7 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
 
   Blocks it = blocks;
   int start, live, chunk = 0;
-  for (int bi = 0; it.next(qmax + 1, start, live); ++bi) {
+  for (int bi = 0; it.next(cap, start, live); ++bi) {
     const float* sig = sm.sigma + (bi % nb) * kcap;
     // ---- scores: s[r][col] = q_r . k_col over the live keys -------------
     for (int ks = 0; ks < live; ks += kStripKeys) {
@@ -578,7 +660,12 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
       float rmax = -INFINITY;
       for (int col = lane; col < live; col += 32) {
         float x = -INFINITY;
-        if (start + col <= st.qp[i]) {
+        const int kpos = start + col;
+        bool visible = kpos <= st.qp[i];
+        if constexpr (kHead) {
+          visible = (!g.causal || visible) && (g.window <= 0 || kpos > st.qp[i] - g.window);
+        }
+        if (visible) {
           x = kInt8 ? __fmul_rn(srow[col], sig[col]) : srow[col];
           x = __fmul_rn(x, g.scale);
           if (g.softcap > 0.0f) x = __fmul_rn(g.softcap, tanhf(__fdiv_rn(x, g.softcap)));
@@ -655,18 +742,19 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
         }
       }
 
-    // ---- P.V with V = the first Dv columns of the same key rows ---------
-    for (int kc = 0; kc < live; kc += kVKeys, ++chunk) {
+    // ---- P.V, V the first Dv columns of the key rows (LatentRows) or the
+    // value rows (HeadRows), vkeys keys a chunk in steps of 16 -------------
+    for (int kc = 0; kc < live; kc += vkeys, ++chunk) {
       cp_async_wait<S - 2>();
       __syncthreads();
       prod.issue(sm.ring + ((chunk + S - 1) % S) * kStage);
       const unsigned char* vst = sm.ring + (chunk % S) * kStage;
-      uint32_t a[kM][4];
-#pragma unroll
-      for (int mi = 0; mi < kM; ++mi) {
-        ldsm_x4(a[mi], sm.p + (mi * 16 + (lane & 15)) * ps + kc + (lane >> 4) * 8);
-      }
       if (kInt8) {
+        uint32_t a[kM][4];
+#pragma unroll
+        for (int mi = 0; mi < kM; ++mi) {
+          ldsm_x4(a[mi], sm.p + (mi * 16 + (lane & 15)) * ps + kc + (lane >> 4) * 8);
+        }
         if (cnt == 0) continue;
         // keys 2(l%4), +1, +8, +9; columns 64w + 8(l/4) .. + 7 = n-tiles 0..7
         constexpr int kVS = Pool<int8_t>::kVStride;
@@ -692,24 +780,33 @@ __device__ __forceinline__ void attend(unsigned char* raw, const Geom& g, const 
 #pragma unroll
           for (int mi = 0; mi < kM; ++mi) mma_bf16(acc[mi][j], a[mi], b[0][j], b[1][j]);
       } else {
-        const bf16* vb = reinterpret_cast<const bf16*>(vst);
-        constexpr int kVS = Pool<bf16>::kVStride;
+        // 16-key steps of the chunk that hold live keys (one over LatentRows)
+        const int steps = kHead ? (min(vkeys, live - kc) + kVKeys - 1) / kVKeys : 1;
+        for (int step = 0; step < steps; ++step) {
+          const int ks = step * kVKeys;
+          uint32_t a[kM][4];
 #pragma unroll
-        for (int j = 0; j < kWarpNTiles; j += 2) {
-          if (j + 1 < cnt) {
-            uint32_t b[4];  // n-tiles j and j + 1, keys kc .. +7 and +8 .. +15
-            ldsm_x4_trans(b, vb + ((lane & 7) + ((lane >> 3) & 1) * 8) * kVS +
-                                 (nt0 + j) * 8 + (lane >> 4) * 8);
+          for (int mi = 0; mi < kM; ++mi) {
+            ldsm_x4(a[mi], sm.p + (mi * 16 + (lane & 15)) * ps + kc + ks + (lane >> 4) * 8);
+          }
+          const bf16* vb = reinterpret_cast<const bf16*>(vst) + ks * vstride;
 #pragma unroll
-            for (int mi = 0; mi < kM; ++mi) {
-              mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
-              mma_bf16(acc[mi][j + 1], a[mi], b[2], b[3]);
+          for (int j = 0; j < kWarpNTiles; j += 2) {
+            if (j + 1 < cnt) {
+              uint32_t b[4];  // n-tiles j and j + 1, keys kc + ks .. +7 and +8 .. +15
+              ldsm_x4_trans(b, vb + ((lane & 7) + ((lane >> 3) & 1) * 8) * vstride +
+                                   (nt0 + j) * 8 + (lane >> 4) * 8);
+#pragma unroll
+              for (int mi = 0; mi < kM; ++mi) {
+                mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
+                mma_bf16(acc[mi][j + 1], a[mi], b[2], b[3]);
+              }
+            } else if (j < cnt) {
+              uint32_t b[2];
+              ldsm_x2_trans(b, vb + (lane & 15) * vstride + (nt0 + j) * 8);
+#pragma unroll
+              for (int mi = 0; mi < kM; ++mi) mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
             }
-          } else if (j < cnt) {
-            uint32_t b[2];
-            ldsm_x2_trans(b, vb + (lane & 15) * kVS + (nt0 + j) * 8);
-#pragma unroll
-            for (int mi = 0; mi < kM; ++mi) mma_bf16(acc[mi][j], a[mi], b[0], b[1]);
           }
         }
       }
@@ -775,6 +872,26 @@ inline bool addressable(const Geom& g, long long rows) {
   return g.Dk % kPiece == 0 && g.Dv % kPiece == 0 && rows * (g.Dk / kPiece) < (1LL << 31);
 }
 
+// Element strides of a (B, H, S, D) tensor.
+struct Strides {
+  long long b, h, s;
+};
+
+// The same for HeadRows: q, k and v on 16-byte boundaries, k's and v's
+// strides whole 16-byte pieces, and the offsets of the last of `rows` rows
+// of a (b, head) below 2^31 pieces.
+inline bool addressable(const Geom& g, long long rows, const void* q, const void* k,
+                        Strides ks, const void* v, Strides vs) {
+  constexpr int kPiece = Pool<bf16>::kPiece;
+  const auto ok = [&](const void* t, Strides st) {
+    return reinterpret_cast<uintptr_t>(t) % 16 == 0 && st.b % kPiece == 0 &&
+           st.h % kPiece == 0 && st.s % kPiece == 0 && st.s >= 0 &&
+           rows * (st.s / kPiece) < (1LL << 31);
+  };
+  return g.Dk % kPiece == 0 && g.Dv % kPiece == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+         ok(k, ks) && ok(v, vs);
+}
+
 // 32-row tiles once their grid (`columns` x ceil(G / 32) CTAs) fills the
 // card's SMs: they halve a large grid's key traffic; below that 16-row
 // tiles double a decode step's few CTAs.
@@ -786,19 +903,19 @@ inline cudaError_t wide_tiles(long long columns, int G, bool* wide) {
   return err;
 }
 
-// Launch `kernel(p)` on columns x ceil(G / (16 kM)) CTAs of kThreads with
-// the body's dynamic shared memory.
-template <typename TP, int kM, typename P>
+// Launch `kernel(p)` on columns x ceil(G / (16 kM)) x splits CTAs of
+// kThreads with the body's dynamic shared memory (over HeadRows: kHead).
+template <typename TP, int kM, bool kHead = false, typename P>
 inline cudaError_t launch_tiles(void (*kernel)(P), const P& p, const Geom& g, int columns,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, int splits = 1) {
   constexpr int kRows = Tile<kM>::kRows;
   const int tiles = (g.G + kRows - 1) / kRows;
-  if (tiles > 65535) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<TP, kM>(g);
+  if (tiles > 65535 || splits < 1 || splits > 65535) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<TP, kM, kHead>(g);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(columns, tiles), kThreads, smem, stream>>>(p);
+  kernel<<<dim3(columns, tiles, splits), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -118,7 +118,7 @@ def load() -> ctypes.CDLL:
         "amla_mla_decode_paged_padded": [p] * 6 + [i] * 7 + [f, f] + [i] * 3 + [p],
         "amla_combine_split_partials": [p] * 5 + [i] * 4 + [p],
         "amla_mla_decode_rows": [p] * 5 + [i] * 6 + [ll, f, f] + [i] * 3 + [p],
-        "amla_gqa_decode": [p] * 6 + [i] * 6 + [ll] * 6 + [f, f] + [i] * 3 + [p],
+        "amla_gqa_decode": [p] * 7 + [i] * 7 + [ll] * 6 + [f, f] + [i] * 3 + [p],
         "amla_flash_prefill": [p] * 5 + [i] * 7 + [ll] * 6 + [f, f] + [i] * 4 + [p],
     }
     for name, argtypes in signatures.items():
@@ -127,6 +127,8 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     lib.amla_mla_rows_mma_smem.argtypes = [i] * 6
     lib.amla_mla_rows_mma_smem.restype = ll
+    lib.amla_gqa_rows_mma_smem.argtypes = [i] * 3
+    lib.amla_gqa_rows_mma_smem.restype = ll
     lib.amla_error_string.argtypes = [i]
     lib.amla_error_string.restype = ctypes.c_char_p
     _lib = lib

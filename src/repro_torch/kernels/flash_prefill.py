@@ -8,8 +8,9 @@ logit soft-capping, and ``variant={"base","amla"}``.  Query positions
 count from 0, as in the reference, which takes no query offset.
 
 On a CUDA tensor :func:`flash_prefill` launches ``csrc/flash_prefill.cu``
-(k and v read through their strides); on a CPU tensor it runs the plain
-version, :func:`repro_torch.kernels.gqa_decode.attend_plain` over the same
+(k and v read through their strides; bf16 on the tensor-core body, fp32
+on the scalar one); on a CPU tensor it runs the plain version,
+:func:`repro_torch.kernels.gqa_decode.attend_plain` over the same
 ``block_k``-key blocks with the same int32 rescale.
 """
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import gqa_decode as _gqa
+from repro_torch.kernels import mla_decode as _mla
 
 DEFAULT_BLOCK_K = 512
 
@@ -27,7 +29,10 @@ def _prefill_cuda(q, k, v, kv_len, *, variant, scale, block_k, softcap, window, 
     """Launch ``csrc/flash_prefill.cu`` on the current stream."""
     b, hq, sq, dh = q.shape
     _gqa.check_kv(q, k, v, kv_len)
+    mma = _mla._takes_mma_body(q, k)
     q = q.contiguous()
+    if mma:
+        _gqa.check_mma_rows(q, k, v)
     lens = kv_len.to(torch.int32).contiguous()
     out = torch.empty((b, hq, sq, dh), dtype=torch.float32, device=q.device)
     lib = _build.load()
@@ -41,6 +46,7 @@ def _prefill_cuda(q, k, v, kv_len, *, variant, scale, block_k, softcap, window, 
     )
     _build.check(lib, err, "flash_prefill")
     flash_prefill.launches += 1
+    flash_prefill.mma_launches += mma
     return out
 
 
@@ -71,8 +77,11 @@ def flash_prefill(
     """Flash prefill (K7); returns ``(B, Hq, Sq, Dh)`` fp32.
 
     A CUDA ``q`` launches the kernel (and counts one launch in
-    ``flash_prefill.launches``); a CPU ``q`` runs the plain version.
-    There is no fallback between the two.
+    ``flash_prefill.launches``); a CPU ``q`` runs the plain version.  A
+    bf16 ``q`` runs the tensor-core body and counts in ``.mma_launches`` as
+    well.  There is no fallback between the kernel and the plain version,
+    nor between the two bodies: rows the tensor-core body cannot address
+    raise ``ValueError``.
     """
     if variant not in ("amla", "base"):
         raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
@@ -87,3 +96,4 @@ def flash_prefill(
 
 
 flash_prefill.launches = 0
+flash_prefill.mma_launches = 0

@@ -16,47 +16,131 @@ multiply with the skippable int32 exponent add.  Sliding-window layers mask
 
 On a CUDA tensor :func:`gqa_decode_rows` launches ``csrc/gqa_decode.cu``;
 on a CPU tensor it runs :func:`attend_plain`, which walks the same blocks
-with the same int32 rescale.
+with the same int32 rescale.  bf16 ``q`` (over bf16 k and v) runs the
+kernel's tensor-core body, split over the KV blocks of each ``(b, kv
+head)`` (:func:`decode_splits`) and merged by the combine kernel (K3,
+:func:`repro_torch.kernels.mla_decode_combine.combine_split_partials`);
+``attend_plain(num_splits=...)`` walks the same splits.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import mla_decode as _mla
+from repro_torch.kernels import mla_decode_combine as _combine
 
 DEFAULT_BLOCK_K = 512
+MMA_TILE_ROWS = 16  # the tensor-core body's row tile while its grid is below the SM count
+
+
+def split_edges(kv_len, q_pos, *, s, block_k, window, causal, num_splits):
+    """``(B, num_splits + 1)`` block indices: split ``j`` of request ``b``
+    walks blocks ``[edges[b, j], edges[b, j + 1])``.  A request's live blocks
+    run from the one that holds the window start of its smallest position
+    (the reference's whole-block window skip) to the one that holds
+    ``min(kv_len, s)`` (causal: and its largest position + 1); each split
+    takes a contiguous run of them, as the kernel does."""
+    lens = kv_len.to(torch.int64).clamp(max=s)
+    pos = q_pos.to(torch.int64)
+    end = torch.minimum(lens, pos.max(dim=1).values + 1) if causal else lens
+    first = torch.zeros_like(lens)
+    if window is not None:
+        first = (pos.min(dim=1).values - window + 1).clamp_min(0) // block_k
+    n = ((end + block_k - 1) // block_k - first).clamp_min(0)
+    j = torch.arange(num_splits + 1, device=lens.device)
+    return first[:, None] + j[None, :] * n[:, None] // num_splits
 
 
 def attend_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap,
-                 window, causal=True):
+                 window, causal=True, num_splits=1):
     """Plain version of the GQA kernels: rows ``q (B, H, R, Dh)`` against
     their own heads ``k, v (B, H, S, Dh)``, positions ``q_pos (B, R)``.
     Every block below the longest kv_len takes one state update for all
-    rows (a block a row cannot see leaves its state unchanged)."""
+    rows (a block a row cannot see leaves its state unchanged, so leaving
+    out the blocks outside :func:`split_edges` changes no number).  With
+    ``num_splits > 1`` each split starts a state of its own, and the
+    normalized partials are merged by the combine's plain version, as the
+    kernel's splits are."""
     b, h, r, _ = q.shape
     d_v = v.shape[-1]
-    st = _mla.init_decode_state((b, h, r), d_v, q.device)
     lens = kv_len.to(torch.int64)[:, None, None, None]
     pos = q_pos.to(torch.int64)[:, None, :, None]
-
-    def visible(k_pos):
-        mask = k_pos < lens
-        if causal:
-            mask = mask & (k_pos <= pos)
-        if window is not None:
-            mask = mask & (k_pos > pos - window)
-        return mask
-
     n_live = min(int(kv_len.max()) if b else 0, k.shape[2])
-    for start in range(0, n_live, block_k):
-        k_blk = _mla.key_block(k, start, block_k).to(q.dtype)
-        v_blk = _mla.key_block(v, start, block_k).to(q.dtype)
-        s = _mla.masked_scores(q, k_blk, start, scale=scale, softcap=softcap,
-                               visible=visible)
-        _mla.decode_block_update(st, s, v_blk, d_v=d_v, variant=variant, mm_dtype=q.dtype)
-    return _mla.finalize_decode(st, variant=variant)
+    edges = split_edges(kv_len, q_pos, s=k.shape[2], block_k=block_k, window=window,
+                        causal=causal, num_splits=num_splits)
+    o_parts, lse_parts = [], []
+    for j in range(num_splits):
+        st = _mla.init_decode_state((b, h, r), d_v, q.device)
+        for start in range(0, n_live, block_k):
+            i = start // block_k
+            inside = ((edges[:, j] <= i) & (i < edges[:, j + 1]))[:, None, None, None]
+            if not bool(inside.any()):
+                continue
+
+            def visible(k_pos, inside=inside):
+                mask = (k_pos < lens) & inside
+                if causal:
+                    mask = mask & (k_pos <= pos)
+                if window is not None:
+                    mask = mask & (k_pos > pos - window)
+                return mask
+
+            k_blk = _mla.key_block(k, start, block_k).to(q.dtype)
+            v_blk = _mla.key_block(v, start, block_k).to(q.dtype)
+            s = _mla.masked_scores(q, k_blk, start, scale=scale, softcap=softcap,
+                                   visible=visible)
+            _mla.decode_block_update(st, s, v_blk, d_v=d_v, variant=variant, mm_dtype=q.dtype)
+        o_parts.append(_mla.finalize_decode(st, variant=variant))
+        lse_parts.append(torch.where(st.l > 0, st.m + torch.log(st.l), -torch.inf))
+    if num_splits == 1:
+        return o_parts[0]
+    dest, n_splits = split_tables(b * h, num_splits, q.device)
+    out = _combine._combine_plain(
+        torch.stack(o_parts).reshape(num_splits * b * h, r, d_v),
+        torch.stack(lse_parts).reshape(num_splits * b * h, r, 1), dest, n_splits)
+    return out.reshape(b, h, r, d_v)
+
+
+@functools.lru_cache(maxsize=None)
+def split_tables(columns: int, splits: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The combine's ``dest_table (columns, splits)`` and ``n_splits
+    (columns,)`` for partials in slot ``split * columns + column``: every
+    column (a ``(b, kv head)``) merges all of its splits, an empty one
+    weighing 0."""
+    dest = torch.arange(splits, dtype=torch.int32)[None, :] * columns + torch.arange(
+        columns, dtype=torch.int32)[:, None]
+    return dest.to(device), torch.full((columns,), splits, dtype=torch.int32, device=device)
+
+
+def decode_splits(sms: int, ctas: int, n_blocks: int) -> int:
+    """K6's split count, from host-known shapes only: 1 once its ``ctas``
+    (``B x Hkv x`` 16-row tiles) fill the ``sms``; else enough for about
+    two CTAs per SM, at most one per ``block_k`` block of the cache.  A
+    decode batch is ragged and a split with no live block exits at once, so
+    the second wave is mostly empty splits."""
+    if ctas >= sms:
+        return 1
+    return max(1, min(n_blocks, -(-2 * sms // ctas)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_count(q, k, block_k: int) -> int:
+    """The splits a CUDA launch of K6 on ``q (B, Hkv, G, Dh)`` over ``k
+    (B, Hkv, S, Dh)`` takes: :func:`decode_splits` on the tensor-core body,
+    1 on the scalar one."""
+    if not _mla._takes_mma_body(q, k):
+        return 1
+    b, hkv, g, _ = q.shape
+    ctas = b * hkv * -(-g // MMA_TILE_ROWS)
+    return decode_splits(_sm_count(q.device), ctas, -(-k.shape[2] // block_k))
 
 
 def check_kv(q, k, v, kv_len, *more):
@@ -88,33 +172,58 @@ def check_kv(q, k, v, kv_len, *more):
             )
 
 
+def check_mma_rows(q, k, v) -> None:
+    """Raise ``ValueError`` unless the tensor-core body can address ``k``
+    and ``v`` (``check_kv`` has held head dim, strides and alignment to
+    16-byte pieces): it addresses a ``(b, head)``'s rows by 32-bit offsets
+    in 16-byte pieces from that head's base, so ``S x`` sequence stride
+    stays below 2**31 pieces; and ``q`` starts on a 16-byte boundary."""
+    for name, t in (("k", k), ("v", v)):
+        if t.shape[2] * t.stride(2) // 8 >= 2**31:
+            raise ValueError(
+                f"{name} of {t.shape[2]} rows {t.stride(2)} elements apart: the "
+                "tensor-core body addresses rows in 32-bit 16-byte units"
+            )
+    _mla._check_mma_alignment(q=q)
+
+
 def kv_strides(t):
     """(batch, head, sequence) element strides of a (B, H, S, Dh) tensor."""
     return t.stride(0), t.stride(1), t.stride(2)
 
 
 def _decode_cuda(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window):
-    """Launch ``csrc/gqa_decode.cu`` on the current stream."""
+    """Launch ``csrc/gqa_decode.cu`` on the current stream (and, over more
+    than one split, the combine)."""
     b, hkv, g, dh = q.shape
     check_kv(q, k, v, kv_len, ("q_pos", q_pos))
     if q_pos.shape != (b, g):
         raise ValueError(f"q_pos must be (B={b}, G={g}); got {tuple(q_pos.shape)}")
+    mma = _mla._takes_mma_body(q, k)
     q = q.contiguous()
+    if mma:
+        check_mma_rows(q, k, v)
+    splits = split_count(q, k, block_k)
     lens = kv_len.to(torch.int32).contiguous()
     pos = q_pos.to(torch.int32).contiguous()
-    out = torch.empty((b, hkv, g, dh), dtype=torch.float32, device=q.device)
+    out = torch.empty((splits * b * hkv, g, dh), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((splits * b * hkv, g, 1), dtype=torch.float32, device=q.device)
+           if splits > 1 else None)
     lib = _build.load()
     err = lib.amla_gqa_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, hkv, g, dh, k.shape[2], block_k, *kv_strides(k),
-        *kv_strides(v), float(scale), 0.0 if softcap is None else float(softcap),
-        0 if window is None else int(window), 1 if variant == "amla" else 0,
-        1 if q.dtype == torch.bfloat16 else 0,
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, hkv, g, dh, k.shape[2],
+        block_k, splits, *kv_strides(k), *kv_strides(v), float(scale),
+        0.0 if softcap is None else float(softcap), 0 if window is None else int(window),
+        1 if variant == "amla" else 0, 1 if q.dtype == torch.bfloat16 else 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "gqa_decode_rows")
     gqa_decode_rows.launches += 1
-    return out
+    gqa_decode_rows.mma_launches += mma
+    if splits > 1:
+        out = _combine.combine_split_partials(out, lse, *split_tables(b * hkv, splits, q.device))
+    return out.view(b, hkv, g, dh)
 
 
 def _decode_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window):
@@ -139,8 +248,12 @@ def gqa_decode_rows(
     row with no visible key.
 
     A CUDA ``q`` launches the kernel (and counts one launch in
-    ``gqa_decode_rows.launches``); a CPU ``q`` runs the plain version.
-    There is no fallback between the two.
+    ``gqa_decode_rows.launches``); a CPU ``q`` runs the plain version.  A
+    bf16 ``q`` runs the tensor-core body and counts in ``.mma_launches``
+    as well; over more than one split (:func:`split_count`) it also
+    launches the combine.  There is no fallback between the kernel and the
+    plain version, nor between the two bodies: rows the tensor-core body
+    cannot address raise ``ValueError``.
     """
     if variant not in ("amla", "base"):
         raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
@@ -153,3 +266,4 @@ def gqa_decode_rows(
 
 
 gqa_decode_rows.launches = 0
+gqa_decode_rows.mma_launches = 0

@@ -24,17 +24,20 @@ The two differ only where the zero/underflow guard of
 increment is zero.
 
 The CUDA row bodies ``csrc/mla_rows.cuh`` (scalar) and
-``csrc/mla_rows_mma.cuh`` (tensor cores), under K2, K4 and K5, and
-``csrc/gqa_rows.cuh`` (K6, K7) run the same arithmetic per row; these
-tensor functions are their plain version.  They take any leading row
-shape: ``(G,)`` for one request, ``(B, G)`` for a batch.
+``csrc/mla_rows_mma.cuh`` (tensor cores), under K2, K4 and K5,
+``csrc/gqa_rows.cuh`` (scalar, K6 and K7 at fp32) and the tensor-core
+body again under K6 and K7 at bf16, run the same arithmetic per row;
+these tensor functions are their plain version.  They take any leading
+row shape: ``(G,)`` for one request, ``(B, G)`` for a batch.
 
 :func:`mla_decode_rows` is K4: on a CUDA tensor it launches
 ``csrc/mla_decode.cu``, on a CPU tensor it runs :func:`_rows_plain`, which
-walks the same blocks with the same int32 rescale.  Which row body an MLA
-kernel (K2, K2′, K4, K5) runs, and the geometry the tensor-core one takes,
-is decided here once for all of them (:func:`_takes_mma_body`,
-:func:`_check_mma_geometry`, :func:`_check_mma_alignment`).
+walks the same blocks with the same int32 rescale.  Which row body a
+kernel (K2, K2′, K4, K5; K6 and K7 too) runs, and the geometry the
+tensor-core one takes, is decided here once for all of them
+(:func:`_takes_mma_body`, :func:`_check_mma_geometry`,
+:func:`_check_mma_alignment`; the GQA kernels' strided rows have their
+own bound, ``gqa_decode.check_mma_rows``).
 """
 
 from __future__ import annotations
@@ -187,9 +190,9 @@ def _rows_plain(q, c_kv, kv_len, q_pos, *, d_v, variant, scale, block_k, softcap
 
 
 def _takes_mma_body(q, kv) -> bool:
-    """Whether an MLA kernel (K2, K2′, K4, K5) runs the tensor-core body
-    (bf16 ``q`` over bf16 or int8 rows) rather than the scalar one.  K4 and
-    K5 take no int8 rows."""
+    """Whether a kernel (K2, K2′, K4, K5, K6, K7) runs the tensor-core body
+    (bf16 ``q`` over bf16 or int8 rows) rather than the scalar one.  K4,
+    K5, K6 and K7 take no int8 rows."""
     return q.dtype == torch.bfloat16 and kv.dtype in (torch.bfloat16, torch.int8)
 
 

@@ -695,3 +695,172 @@ def test_scalar_mla_bodies_are_not_counted_as_mma(cuda_device, kernel, q_dtype, 
         run = lambda dev: fn(q.to(dev), pool.to(dev), bt.to(dev), kv.to(dev), pos.to(dev), **kw)
     # the rows are rounded to q's dtype where they are used
     _hold_mla_rows(cuda_device, fn, run, "amla", mma=False, dtype=q_dtype, zero_rows=[0])
+
+
+# ---- K6 and K7 on the tensor-core body (bf16 q over bf16 K/V) -------------
+
+
+def _hold_gqa(cuda_device, fn, run, plain, variant, *, zero_rows=(), combines=0):
+    """One bf16 launch of K6 or K7 on the card against its plain version on
+    the CPU: counted in ``launches`` and ``mma_launches``; ``combines``
+    more launches of the combine (K6 over more than one split)."""
+    k3 = port_combine.combine_split_partials
+    before = (fn.launches, fn.mma_launches, k3.launches)
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mma_launches, k3.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + combines)
+    got = got.cpu()
+    assert torch.isfinite(got).all()
+    assert (got - plain()).abs().max().item() <= TOL[torch.bfloat16, variant]
+    for r in zero_rows:
+        assert got[r].abs().max().item() == 0.0
+
+
+def _k6_case(seed, *, b, hkv, group, sq, s, dh, lens, v_layout="transposed"):
+    """bf16 q rows (B, Hkv, Sq * group, Dh) at the last Sq positions below
+    kv_len, and k, v as transposed views of (B, S, Hkv, Dh) tensors (or v
+    as a slot, rows 3.. of a (B, Hkv, S + 3, Dh) tensor: other strides than
+    k's)."""
+    bf = torch.bfloat16
+    lens = torch.tensor(lens, dtype=torch.int32)
+    q_pos = torch.clamp_min(lens - sq, 0)[:, None] + torch.arange(sq)[None, :]
+    pos = q_pos.repeat_interleave(group, dim=1).to(torch.int32)
+    q = _randn((b, hkv, sq * group, dh), seed, bf)
+    k = _randn((b, s, hkv, dh), seed + 1, bf).transpose(1, 2)
+    if v_layout == "transposed":
+        v = _randn((b, s, hkv, dh), seed + 2, bf).transpose(1, 2)
+    else:
+        v = _randn((b, hkv, s + 3, dh), seed + 2, bf)[:, :, 3:]
+    return q, k, v, lens, pos
+
+
+def _hold_k6(cuda_device, case, variant, *, window=None, softcap=None):
+    q, k, v, lens, pos = case
+    kw = dict(variant=variant, scale=1 / math.sqrt(q.shape[-1]), softcap=softcap, window=window)
+    block_k = min(512, max(k.shape[2], 128))
+    splits = port_gqa.split_count(q.to(cuda_device), k.to(cuda_device), block_k)
+    run = lambda dev: port_gqa.gqa_decode_rows(*(t.to(dev) for t in case), **kw)
+    plain = lambda: port_gqa.attend_plain(q, k, v, lens, pos, block_k=block_k,
+                                          num_splits=splits, **kw)
+    _hold_gqa(cuda_device, port_gqa.gqa_decode_rows, run, plain, variant,
+              zero_rows=[i for i, n in enumerate(lens.tolist()) if n == 0],
+              combines=int(splits > 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_gqa_decode_matches_plain_version(cuda_device, variant, group, dh):
+    """K6 on the tensor-core body, split over the KV blocks and merged by
+    the combine: head dims 64/128/256, groups 1/2/8, kv_len 0 (exact zeros)
+    and ragged lengths across 512-key blocks."""
+    case = _k6_case(40, b=3, hkv=2, group=group, sq=1, s=1300, dh=dh, lens=[0, 513, 1300])
+    _hold_k6(cuda_device, case, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_gqa_decode_window_softcap_past_the_window(cuda_device, variant):
+    """gemma2-2b's heads (4 KV heads of 256, group 2) with its window 4096
+    and softcap 50 over contexts of 0 to 5000 keys: the first blocks of the
+    longest one lie outside the window and are skipped whole."""
+    case = _k6_case(41, b=4, hkv=4, group=2, sq=1, s=5000, dh=256, lens=[0, 21, 4100, 5000])
+    _hold_k6(cuda_device, case, variant, window=4096, softcap=50.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 8])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_gqa_decode_eight_token_prefill(cuda_device, variant, group):
+    """An 8-token prefill through K6 (G = 16 and 64 rows per KV head), one
+    prompt at the start of its cache and one after 1500 cached keys."""
+    case = _k6_case(42, b=2, hkv=2, group=group, sq=8, s=2048, dh=128, lens=[8, 1508])
+    _hold_k6(cuda_device, case, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_gqa_decode_reads_k_and_v_at_their_own_strides(cuda_device, variant):
+    """k a transposed view of a (B, S, Hkv, Dh) cache and v a slot of a
+    longer (B, Hkv, S + 3, Dh) one: value rows are read at their own
+    offsets, not the keys'."""
+    case = _k6_case(43, b=2, hkv=2, group=4, sq=1, s=900, dh=128, lens=[900, 333],
+                    v_layout="slot")
+    _hold_k6(cuda_device, case, variant)
+
+
+def _hold_k7(cuda_device, variant, seed, *, b, hq, hkv, sq, s, dh, lens, window=None,
+             softcap=None, causal=True, transposed=False):
+    bf = torch.bfloat16
+    q = _randn((b, hq, sq, dh), seed, bf)
+    if transposed:  # views of (B, S, Hkv, Dh) caches, as the dense layer hands them over
+        k = _randn((b, s, hkv, dh), seed + 1, bf).transpose(1, 2)
+        v = _randn((b, s, hkv, dh), seed + 2, bf).transpose(1, 2)
+    else:
+        k = _randn((b, hkv, s, dh), seed + 1, bf)
+        v = _randn((b, hkv, s, dh), seed + 2, bf)
+    lens = torch.tensor(lens, dtype=torch.int32)
+    kw = dict(variant=variant, scale=1 / math.sqrt(dh), softcap=softcap, window=window,
+              causal=causal)
+    run = lambda dev: port_prefill.flash_prefill(*(t.to(dev) for t in (q, k, v, lens)), **kw)
+    _hold_gqa(cuda_device, port_prefill.flash_prefill, run, lambda: run("cpu"), variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_flash_prefill_matches_plain_version(cuda_device, variant, group, dh):
+    """K7 on the tensor-core body: head dims 64/128/256, groups 1/2/8 (KV
+    head h / group by index), a causal 600-token prompt over two 512-key
+    blocks and one whose kv_len stops short of its rows."""
+    _hold_k7(cuda_device, variant, 50, b=2, hq=2 * group, hkv=2, sq=600, s=600, dh=dh,
+             lens=[600, 300])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_flash_prefill_window_softcap_and_transposed_views(cuda_device, variant):
+    """gemma2's window and softcap (here a 256-key window) over a 1100-token
+    prompt, with K and V transposed views of (B, S, Hkv, Dh) caches: rows
+    past the window skip their first blocks."""
+    _hold_k7(cuda_device, variant, 51, b=1, hq=8, hkv=4, sq=1100, s=1100, dh=256, lens=[1100],
+             window=256, softcap=50.0, transposed=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("variant", ["amla", "base"])
+def test_mma_flash_prefill_not_causal(cuda_device, variant, window):
+    """K7 with ``causal=False``: every row sees every key below kv_len
+    (within the window of its position when there is one)."""
+    _hold_k7(cuda_device, variant, 52, b=2, hq=4, hkv=2, sq=200, s=700, dh=128, lens=[700, 90],
+             window=window, causal=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K6", "K7"])
+def test_fp32_gqa_kernels_keep_the_scalar_body(cuda_device, kernel):
+    """fp32 q, k and v keep the scalar body of gqa_rows.cuh: one launch in
+    ``launches``, none in ``mma_launches``, no combine."""
+    k3 = port_combine.combine_split_partials
+    if kernel == "K6":
+        fn = port_gqa.gqa_decode_rows
+        case = [t.float() if t.is_floating_point() else t for t in
+                _k6_case(44, b=2, hkv=2, group=2, sq=1, s=1300, dh=128, lens=[0, 1300])]
+        run = lambda dev: fn(*(t.to(dev) for t in case), variant="amla", scale=0.1)
+    else:
+        fn = port_prefill.flash_prefill
+        q = _randn((1, 4, 64, 64), 45, torch.float32)
+        k = _randn((1, 2, 64, 64), 46, torch.float32)
+        v = _randn((1, 2, 64, 64), 47, torch.float32)
+        lens = torch.tensor([64], dtype=torch.int32)
+        run = lambda dev: fn(q.to(dev), k.to(dev), v.to(dev), lens.to(dev), variant="amla",
+                             scale=0.125)
+    before = (fn.launches, fn.mma_launches, k3.launches)
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.mma_launches, k3.launches) == (before[0] + 1, before[1], before[2])
+    assert (got.cpu() - run("cpu")).abs().max().item() <= TOL[torch.float32, "amla"]
