@@ -116,7 +116,7 @@ def load() -> ctypes.CDLL:
     signatures = {
         "amla_mla_decode_paged_queue": [p] * 14 + [i] * 9 + [f, f] + [i] * 3 + [p],
         "amla_mla_decode_paged_padded": [p] * 6 + [i] * 7 + [f, f] + [i] * 3 + [p],
-        "amla_combine_split_partials": [p] * 5 + [i] * 4 + [p],
+        "amla_combine_split_partials": [p] * 7 + [i] * 5 + [p],
         "amla_mla_decode_rows": [p] * 5 + [i] * 6 + [ll, f, f] + [i] * 3 + [p],
         "amla_gqa_decode": [p] * 7 + [i] * 7 + [ll] * 6 + [f, f] + [i] * 3 + [p],
         "amla_flash_prefill": [p] * 5 + [i] * 7 + [ll] * 6 + [f, f] + [i] * 4 + [p],

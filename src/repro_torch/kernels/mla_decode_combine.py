@@ -13,11 +13,12 @@ slots of ``dest_table[b]``.  The running max starts at :data:`BIG_NEG`, so
 an empty partial (``lse == -inf``) weighs exactly 0 and a request with no
 live split gives exact zeros.
 
-:func:`combine_hetero_partials` merges partials of several passes (the
-shared-prefix path) by concatenating them first.
+:func:`combine_hetero_partials` merges partials of two passes (the
+shared-prefix path): the kernel reads both where they lie, the plain
+version concatenates them first.
 
-On a CUDA tensor :func:`combine_split_partials` launches
-``csrc/mla_decode_combine.cu``; on a CPU tensor it runs the plain version.
+On a CUDA tensor both launch ``csrc/mla_decode_combine.cu``; on a CPU
+tensor they run the plain version.
 """
 
 from __future__ import annotations
@@ -54,28 +55,49 @@ def _combine_plain(o_part, lse, dest_table, n_splits):
     return torch.where(w > 0, acc / safe, torch.zeros_like(acc))
 
 
-def _combine_cuda(o_part, lse, dest_table, n_splits):
-    d, g, d_v = o_part.shape
-    b, s = dest_table.shape
-    dev = o_part.device
-    if o_part.dtype != torch.float32 or lse.dtype != torch.float32:
-        raise TypeError("o_part and lse must be float32")
-    if lse.shape != (d, g, 1):
-        raise ValueError(f"lse must be (D={d}, G={g}, 1); got {tuple(lse.shape)}")
-    if d_v > 512:
-        raise ValueError(f"d_v={d_v}: the kernel takes d_v <= 512")
-    for name, t in (("lse", lse), ("dest_table", dest_table), ("n_splits", n_splits)):
+def _combine_cuda(o_parts, lse_parts, dest_table, n_splits):
+    """One launch of ``csrc/mla_decode_combine.cu`` merging the partials of
+    one or two sources (slot ``s < D0`` of the first, ``s - D0`` of the
+    second) where they lie: no concatenated copy, nothing allocated but
+    the output."""
+    if not 1 <= len(o_parts) <= 2 or len(lse_parts) != len(o_parts):
+        raise ValueError(
+            f"the kernel merges one or two sources; got {len(o_parts)} partial "
+            f"and {len(lse_parts)} lse arrays"
+        )
+    _, g, d_v = o_parts[0].shape
+    dev = o_parts[0].device
+    for i, (o, lse) in enumerate(zip(o_parts, lse_parts)):
+        if o.dtype != torch.float32 or lse.dtype != torch.float32:
+            raise TypeError("o_part and lse must be float32")
+        if o.dim() != 3 or o.shape[1:] != (g, d_v):
+            raise ValueError(
+                f"source {i} has partials {tuple(o.shape)}; every source must "
+                f"share G={g} and Dv={d_v}"
+            )
+        if lse.shape != (o.shape[0], g, 1):
+            raise ValueError(
+                f"lse must be (D={o.shape[0]}, G={g}, 1); got {tuple(lse.shape)}"
+            )
+        for name, t in (("o_part", o), ("lse", lse)):
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, o_part on {dev}")
+    for name, t in (("dest_table", dest_table), ("n_splits", n_splits)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, o_part on {dev}")
-    o_part, lse = o_part.contiguous(), lse.contiguous()
+    o_parts = [o.contiguous() for o in o_parts]
+    lse_parts = [lse.contiguous() for lse in lse_parts]
     dest_table = dest_table.to(torch.int32).contiguous()
     n_splits = n_splits.to(torch.int32).contiguous()
+    b, s = dest_table.shape
     out = torch.empty((b, g, d_v), dtype=torch.float32, device=dev)
+    second = len(o_parts) == 2
     lib = _build.load()
     err = lib.amla_combine_split_partials(
-        o_part.data_ptr(), lse.data_ptr(), dest_table.data_ptr(),
-        n_splits.data_ptr(), out.data_ptr(), b, g, d_v, s,
-        torch.cuda.current_stream(dev).cuda_stream,
+        o_parts[0].data_ptr(), lse_parts[0].data_ptr(),
+        o_parts[1].data_ptr() if second else None, lse_parts[1].data_ptr() if second else None,
+        dest_table.data_ptr(), n_splits.data_ptr(), out.data_ptr(), o_parts[0].shape[0],
+        b, g, d_v, s, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "combine_split_partials")
     combine_split_partials.launches += 1
@@ -93,8 +115,9 @@ def combine_split_partials(
     A CUDA ``o_part`` launches the kernel (one more in
     ``combine_split_partials.launches``); a CPU one runs the plain version.
     """
-    impl = _combine_cuda if o_part.is_cuda else _combine_plain
-    return impl(o_part, lse, dest_table, n_splits)
+    if o_part.is_cuda:
+        return _combine_cuda([o_part], [lse], dest_table, n_splits)
+    return _combine_plain(o_part, lse, dest_table, n_splits)
 
 
 combine_split_partials.launches = 0
@@ -107,10 +130,16 @@ def combine_hetero_partials(
     n_splits: torch.Tensor,  # (B,) live partials per request
 ) -> torch.Tensor:
     """Merge partials drawn from heterogeneous sources (a per-request
-    suffix pass and a group-batched shared-prefix pass): the arrays are
-    concatenated along the slot axis and ``dest_table`` points into the
-    concatenation (``decode_schedule.PrefixSchedule.hetero_dest_tables``
-    builds it); the merge is :func:`combine_split_partials`."""
+    suffix pass and a group-batched shared-prefix pass): ``dest_table``
+    points into the sources' concatenation along the slot axis
+    (``decode_schedule.PrefixSchedule.hetero_dest_tables`` builds it).
+
+    On CUDA tensors one or two sources are merged where they lie by one
+    kernel launch (counted in ``combine_split_partials.launches``); on CPU
+    tensors the plain version runs on the concatenation, which is the
+    reference's definition."""
+    if o_parts[0].is_cuda:
+        return _combine_cuda(o_parts, lse_parts, dest_table, n_splits)
     o_all = o_parts[0] if len(o_parts) == 1 else torch.cat(o_parts, 0)
     lse_all = lse_parts[0] if len(lse_parts) == 1 else torch.cat(lse_parts, 0)
-    return combine_split_partials(o_all, lse_all, dest_table, n_splits)
+    return _combine_plain(o_all, lse_all, dest_table, n_splits)

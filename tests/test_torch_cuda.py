@@ -864,3 +864,108 @@ def test_fp32_gqa_kernels_keep_the_scalar_body(cuda_device, kernel):
     torch.cuda.synchronize()
     assert (fn.launches, fn.mma_launches, k3.launches) == (before[0] + 1, before[1], before[2])
     assert (got.cpu() - run("cpu")).abs().max().item() <= TOL[torch.float32, "amla"]
+
+
+# --------------------------------------------------------------------------- #
+# K3, the split-KV combine: one group of lanes per piece of a row, the
+# partial rows of several splits in flight, one or two sources
+# --------------------------------------------------------------------------- #
+
+K3_TOL = 1e-5  # fp32 on the same partials: only expf ulps and fused multiply-adds differ
+
+
+def _combine_case(seed, b, g, d_v, s, *, second=0):
+    """K3's inputs on the CPU: ragged ``n_splits`` (0 and ``s`` among them),
+    a fifth of the lse ``-inf``, a request whose live splits are all empty,
+    slot ids out of order (and repeated), padding columns that repeat a
+    live slot or name one far out of range (never read); ``second`` > 0
+    puts that many more slots in a second source of its own.  Returns the
+    partials and lse of each source, the table for the kernel, the table
+    clamped into range for the plain version, and ``n_splits``."""
+    rng = np.random.default_rng(seed)
+    d = b * s + 1
+    o = rng.normal(0, 1, (d + second, g, d_v)).astype(np.float32)
+    lse = rng.normal(0, 3, (d + second, g, 1)).astype(np.float32)
+    lse[rng.random(lse.shape) < 0.2] = -np.inf
+    n = rng.integers(0, s + 1, b)
+    n[0], n[-1] = 0, s
+    dest = rng.integers(0, d + second, (b, s)).astype(np.int32)
+    pad = np.arange(s)[None, :] - n[:, None]  # >= 0 on padding columns
+    repeat = (pad >= 0) & (pad % 2 == 0) & (n[:, None] > 0)
+    dest = np.where(repeat, dest[:, :1], np.where(pad >= 0, 10**9, dest)).astype(np.int32)
+    if b > 2:
+        lse[dest[1, :n[1]]] = -np.inf
+    o, lse = torch.from_numpy(o), torch.from_numpy(lse)
+    parts = ([o[:d].clone(), o[d:].clone()], [lse[:d].clone(), lse[d:].clone()]) if second else ([o], [lse])
+    dest = torch.from_numpy(dest)
+    return (*parts, dest, dest.clamp(max=d + second - 1), torch.from_numpy(n.astype(np.int32)))
+
+
+def _hold_combine(dev, what, o_parts, lse_parts, dest, dest_plain, n_splits):
+    """One K3 launch (two sources: through ``combine_hetero_partials``) on
+    the card against the plain version on the CPU."""
+    k3 = port_combine.combine_split_partials
+    before = k3.launches
+    if len(o_parts) == 1:
+        got = k3(o_parts[0].to(dev), lse_parts[0].to(dev), dest.to(dev), n_splits.to(dev))
+    else:
+        got = port_combine.combine_hetero_partials([o.to(dev) for o in o_parts],
+                                                   [x.to(dev) for x in lse_parts],
+                                                   dest.to(dev), n_splits.to(dev))
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    want = port_combine._combine_plain(torch.cat([o.cpu() for o in o_parts]),
+                                       torch.cat(lse_parts), dest_plain, n_splits)
+    got = got.cpu()
+    err = (got - want).abs().max().item()
+    zero = (want == 0).all(-1)
+    print(f"K3 {what}: max |kernel - plain| {err:.3e} (tol {K3_TOL:g}), {int(zero.sum())} zero rows")
+    assert zero.any() and (got[zero] == 0).all()  # no live split: exact zeros
+    assert torch.isfinite(got).all() and err <= K3_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 16, 33])
+@pytest.mark.parametrize("d_v", [64, 128, 256, 512])
+def test_combine_kernel_matches_plain_version(cuda_device, d_v, splits):
+    """Dv 64 to 512 (16 lanes a row to four 32-lane groups), 1 to 33 splits
+    (past one warp of slot ids)."""
+    _hold_combine(cuda_device, f"Dv {d_v}, {splits} splits",
+                  *_combine_case(d_v + splits, 5, 3, d_v, splits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g", [(70000, 1), (3, 30000)])
+def test_combine_kernel_past_65535_rows(cuda_device, b, g):
+    """B x G above 65535 rows on the 1-D grid; B alone above the old grid's
+    65535 cap."""
+    _hold_combine(cuda_device, f"B {b} x G {g}", *_combine_case(7, b, g, 64, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_v", [128, 512])
+def test_combine_hetero_reads_two_sources_in_place(cuda_device, monkeypatch, d_v):
+    """The shared-prefix merge: a second source whose slots start at D0 > 0,
+    each source its own allocation, one launch and no concatenated copy."""
+    case = _combine_case(8, 4, 3, d_v, 3, second=6)
+    real_cat = torch.cat
+
+    def cat(tensors, *a, **k):
+        assert not any(t.is_cuda for t in tensors), "the CUDA path concatenated its sources"
+        return real_cat(tensors, *a, **k)
+
+    monkeypatch.setattr(torch, "cat", cat)
+    _hold_combine(cuda_device, f"two sources, D0 {case[0][0].shape[0]}, Dv {d_v}", *case)
+
+
+@pytest.mark.cuda
+def test_combine_kernel_on_rows_off_16_bytes(cuda_device):
+    """Partials that do not start on a 16-byte boundary (and a Dv that is
+    not a multiple of 4) take the kernel's scalar loads."""
+    o_parts, lse_parts, dest, dest_plain, n = _combine_case(9, 4, 3, 64, 4)
+    o = o_parts[0].to(cuda_device)
+    shifted = torch.empty(o.numel() + 1, device=cuda_device)
+    shifted[1:] = o.reshape(-1)
+    _hold_combine(cuda_device, "partials 4 bytes off 16", [shifted[1:].view(o.shape)],
+                  lse_parts, dest, dest_plain, n)
+    _hold_combine(cuda_device, "Dv 50", *_combine_case(10, 4, 3, 50, 4))
