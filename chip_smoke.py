@@ -35,18 +35,26 @@ root) and exits nonzero on any failure:
    bound, its plain version and, where one exists, a single PyTorch call.
 3. **Small references**: the smoke-size models (fp32) through the kernels
    on the card and the plain versions on the CPU — deepseek-v2-mla over
-   the paged path (bf16 pages; int8 pages with a forked family), gemma2-2b
-   and deepseek-v2-mla through the dense ``ServingSession`` — must agree.
+   the paged path (bf16 pages, its decode steps replayed from a CUDA graph
+   of ``PagedDecodeStep``; int8 pages with a forked family), gemma2-2b
+   and deepseek-v2-mla through the dense ``ServingSession`` (graphs) —
+   must agree.
 4. **Dense serve phase, gemma2-2b** at its published widths (26 layers,
    random bf16 weights from a seed) through ``ServingSession(batch 4,
    max_len 8192)`` and the ``launch/serve`` stream loop: prompts of 5,
    300, 1100 and 4500 tokens, 16 greedy tokens each.  K6 and K7 launch
    counts must match the layers x calls of the path, all on the
-   tensor-core body, with one K3 launch per split K6 call.
+   tensor-core body, with one K3 launch per split K6 call.  Every decode
+   step replays the session's CUDA graph (one capture); its first 3 steps
+   are held against the eager walk on the same state (greedy tokens equal,
+   the largest logit difference printed; the eager runs' launches are not
+   counted).
 5. **Paged serve phase**: ``deepseek-v2-mla`` at its published widths
    (60 layers) through ``PagedServingSession``: 4 ragged prompts, 16
    greedy tokens each, ``num_splits=2``; every prefill chunk and decode
    step of every layer must go through K2 (its tensor-core body) and K3.
+   Decode steps replay a CUDA graph per live batch size, the first 3 held
+   against the eager walk as in 4.
 6. **Shared-prefix serve phases**: the same weights through
    ``PagedServingSession(prefix_sharing=True)``, over bf16 pages and then
    over int8 pages (``kv_dtype="int8"``): an 1100-token system prompt,
@@ -56,7 +64,8 @@ root) and exits nonzero on any failure:
    launch counts, every K2 and K2' through the tensor-core body.
 7. **Dense serve phase, deepseek-v2-mla**: the same weights and prompts
    through ``ServingSession(batch 4, max_len 2048)``; every prefill and
-   decode step of every layer must go through K4's tensor-core body.
+   decode step of every layer must go through K4's tensor-core body;
+   graphs and the hold against the eager walk as in 4.
 8. **K3 phase** (run right after the kernel phases): the split-KV combine against its plain version and timed
    at the shapes of its three uses: after K2 at the paged decode step and
    prefill chunk, the two-source merge of a shared-prefix step, and K6's
@@ -73,6 +82,7 @@ Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1150,8 +1160,10 @@ def small_reference_check():
     through the plain versions on the CPU, same weights and tokens (the
     CPU run's greedy picks are fed to both): logits must agree."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_schedule import DecodeScheduler
     from repro_torch.models import transformer as tf
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.step_graph import PagedDecodeStep
 
     cfg = get_config("deepseek-v2-mla", smoke=True)
     model = build_model(cfg)
@@ -1175,19 +1187,24 @@ def small_reference_check():
                                             chunk=16, **kw)
         worst = max(worst, (outs["cuda"].cpu() - outs["cpu"]).abs().max().item())
         last.append(int(torch.argmax(outs["cpu"][0])))
+    # decode steps as PagedServingSession takes them: staged, and replayed
+    # from a CUDA graph on the card (the same walk, uncaptured, on the CPU)
+    steps = {dev: PagedDecodeStep(params, caches[dev], cfg=cfg, table_width=24, block_k=32,
+                                  num_splits=2, compute_dtype=torch.float32,
+                                  scheduler=DecodeScheduler(block_k=32, num_splits=2))
+             for dev, params in (("cpu", p_cpu), ("cuda", p_gpu))}
     for _ in range(6):
-        outs = {}
-        for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-            outs[dev] = tf.lm_decode_step_paged(
-                params, np.asarray(last)[:, None], cache=caches[dev], rids=[0, 1, 2],
-                num_splits=2, **kw)
-        worst = max(worst, (outs["cuda"].cpu() - outs["cpu"]).abs().max().item())
+        outs = {dev: step(np.asarray(last)[:, None], [0, 1, 2]).cpu()
+                for dev, step in steps.items()}
+        worst = max(worst, (outs["cuda"] - outs["cpu"]).abs().max().item())
         last = torch.argmax(outs["cpu"][:, 0], dim=-1).tolist()
     tol = 2e-3
-    log(f"small-input reference ({cfg.name}, fp32, 3 prompts + 6 steps): max |logits on "
-        f"card - logits of the plain CPU path| = {worst:.3e} (tol {tol:g}: AMLA's fp32 "
-        f"tolerance, see TOL)")
-    if not worst <= tol:
+    captures, shapes = steps["cuda"].graphs.captures, steps["cuda"].shapes
+    log(f"small-input reference ({cfg.name}, fp32, 3 prompts + 6 steps, the steps replayed "
+        f"from {captures} CUDA graph(s) on the card, keys (B, queue capacity) {shapes}): max "
+        f"|logits on card - logits of the plain CPU path| = {worst:.3e} (tol {tol:g}: AMLA's "
+        f"fp32 tolerance, see TOL)")
+    if not worst <= tol or captures != len(shapes) or captures < 1:
         raise SystemExit("small-input reference check failed")
 
 
@@ -1351,7 +1368,8 @@ def shared_prefix_phase(cfg, model, params, kv_dtype):
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; teardown sweep "
         f"{sweep['free_pages']} pages free")
     log(f"groups per decode step (groups, gmax): {sorted(set(grouped))} in {n_grouped} of "
-        f"{steps} steps")
+        f"{steps} steps; CUDA graph captures {sess.graph_captures} (expected 0: the "
+        f"shared-prefix step runs eagerly)")
     queue = k2i8 if int8 else k2
     log(f"launches: {'K2-int8' if int8 else 'K2'} {queue} (expected layers x (prefill chunks + "
         f"decode steps) = {L} x ({chunks} + {steps}) = {L * (chunks + steps)}), K2' {k2p} "
@@ -1361,7 +1379,7 @@ def shared_prefix_phase(cfg, model, params, kv_dtype):
         f"(expected {(queue, k2p)})")
     if (queue != L * (chunks + steps) or k2p != L * n_grouped or k3 != L * (chunks + steps)
             or (k2 if int8 else k2i8) != 0 or n_grouped != steps or k2p <= 0 or aliased <= 0
-            or set(grouped) != {(1, 4)} or mma != (queue, k2p)):
+            or set(grouped) != {(1, 4)} or mma != (queue, k2p) or sess.graph_captures):
         raise SystemExit(f"{kv_dtype} shared-prefix phase: launch counts do not match the path")
     for rid, out in results.items():
         if len(out) != 17 or not all(0 <= t < cfg.vocab_size for t in out):
@@ -1429,20 +1447,23 @@ def dense_session_logits(cfg, params, prompts):
 
     model = build_model(cfg)
     seen = []
-    prefill, decode = model.prefill, model.decode_step
+    prefill = model.prefill
 
     def rec_prefill(*a, **k):
         out = prefill(*a, **k)
         seen.append(out[0].float().cpu())
         return out
 
-    def rec_decode(*a, **k):
-        out = decode(*a, **k)
-        seen.append(out[0].float().cpu())
+    model.prefill = rec_prefill
+    sess = ServingSession(model, params, batch_size=2, max_len=64)
+    run = sess.step_graph.graphs.run
+
+    def rec_decode(*a, **k):  # after the replay (or the eager walk on the CPU)
+        out = run(*a, **k)
+        seen.append(out.float().cpu())
         return out
 
-    model.prefill, model.decode_step = rec_prefill, rec_decode
-    sess = ServingSession(model, params, batch_size=2, max_len=64)
+    sess.step_graph.graphs.run = rec_decode
     sess.add_request(prompts[0])
     sess.add_request(prompts[1])
     for _ in range(6):
@@ -1494,10 +1515,56 @@ def small_dense_check():
             raise SystemExit(f"small dense reference check failed for {arch}")
 
 
+def hold_against_eager(sess, steps=3):
+    """Make the first ``steps`` graph-replayed decode steps of ``sess`` run
+    the eager walk first, on the same staged inputs and state (the walk
+    rewrites the same cache rows), and compare: returns the list it fills
+    with (max |logits of the graph - of the eager walk|, greedy tokens
+    equal) per step.  The eager runs' kernel launches are taken back from
+    the counts: the counts read the replays only."""
+    from repro_torch.runtime import step_graph as sg
+
+    graphs = sess.step_graph.graphs
+    run, held = graphs.run, []
+
+    def checked(key, walk, eager=False):
+        if eager or len(held) >= steps:
+            return run(key, walk, eager=eager)
+        counts = sg.launch_counts()
+        want = run(key, walk, eager=True)
+        sg.set_launch_counts(counts)
+        got = run(key, walk)
+        held.append(((got - want).abs().max().item(),
+                     torch.equal(got.argmax(-1), want.argmax(-1))))
+        return got
+
+    graphs.run = checked
+    return held
+
+
+def report_held(what, held, sess, timing):
+    """Print the hold against the eager walk, the captures and the steady
+    decode time (the steps after the held ones, the first of which also
+    captured); fail unless the decode steps replayed graphs and their
+    tokens equal the eager walk's."""
+    worst = max((d for d, _ in held), default=float("nan"))
+    same = bool(held) and all(eq for _, eq in held)
+    steady = [s for s in timing["steps"] if s][len(held):]
+    log(f"graphs: {sess.graph_captures} CUDA graph capture(s) of the decode step "
+        f"(keys {getattr(sess.step_graph, 'shapes', ['decode'])}); first {len(held)} steps held "
+        f"against the eager walk on the same state: greedy tokens "
+        f"{'equal' if same else 'DIFFER'}, max |logits graph - eager| {worst:.3e}; steady "
+        f"decode after them {1e3 * np.mean(steady):.2f} ms/step (median "
+        f"{1e3 * np.median(steady):.2f}, {len(steady)} steps)")
+    if not same or sess.graph_captures < 1:
+        raise SystemExit(f"{what}: the decode steps did not replay graphs equal to the eager walk")
+
+
 def timed_session(sess):
     """Wrap add_request (and admit_with_prefix, where the session has it)
-    and step with device-synchronised host timers."""
-    timing = {"prefill": 0.0, "decode": 0.0}
+    and step with device-synchronised host timers; ``timing["steps"]``
+    keeps each decode step's seconds."""
+    timing = {"prefill": 0.0, "decode": 0.0, "steps": []}
 
     def timed(name, fn):
         def call(*a):
@@ -1506,6 +1573,8 @@ def timed_session(sess):
             out = fn(*a)
             torch.cuda.synchronize()
             timing[name] += time.perf_counter() - t
+            if name == "decode":
+                timing["steps"].append(time.perf_counter() - t)
             return out
         return call
 
@@ -1527,6 +1596,7 @@ def dense_serve(cfg, model, params, prompt_lens, gen_len, max_len, counters):
     sess = ServingSession(model, params, batch_size=4, max_len=max_len)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
+    held = hold_against_eager(sess)
     timing = timed_session(sess)
     steps = 0
     step = sess.step
@@ -1556,6 +1626,9 @@ def dense_serve(cfg, model, params, prompt_lens, gen_len, max_len, counters):
         if len(out) != gen_len + 1 or not all(0 <= t < cfg.vocab_size for t in out):
             raise SystemExit(f"dense serve: request {rid} returned {out}")
     log(f"tokens: { {r: results[r][:6] for r in sorted(results)} }")
+    report_held(f"{cfg.name} dense serve", held, sess, timing)
+    if sess.graph_captures != 1:
+        raise SystemExit(f"{cfg.name} dense serve: {sess.graph_captures} captures, expected 1")
     return results, launches, buckets, steps
 
 
@@ -1581,6 +1654,7 @@ def gemma_dense_phase():
     torch.cuda.synchronize()
     log(f"random bf16 weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    unembed_table_phase(model, params)
     max_len, batch = 8192, 4
     _, ((k6, k6_mma), (k7, k7_mma), (k3, _)), buckets, steps = dense_serve(
         cfg, model, params, (5, 300, 1100, 4500), 16, max_len,
@@ -1630,6 +1704,31 @@ def mla_dense_phase(cfg, model, params, prompt_lens, paged_results):
     return k4
 
 
+def unembed_table_phase(model, params):
+    """The fp32 copy of the embedding table that bf16 unembedding multiplies
+    by, made with the parameters (``model.init``): fail unless it is there,
+    on the card; print its device memory, what a logits call leaves
+    allocated (its logits only: no copy of its own), and one call's time."""
+    table = params.get("unembed", params["embed"])
+    copy, rows = table.get("table_f32"), 4096  # compared in slices: no second full copy
+    if copy is None or copy.device.type != "cuda" or not all(
+            torch.equal(copy[i:i + rows], table["table"][i:i + rows].float())
+            for i in range(0, copy.shape[0], rows)):
+        raise SystemExit(f"{model.cfg.name}: no fp32 unembedding table made with the parameters")
+    x = torch.zeros((4, 1, model.cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    logits = model.logits(params, x)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    ms = time_cuda(lambda: model.logits(params, x), 20, None)
+    log(f"fp32 unembedding table ({model.cfg.name}, vocab {model.cfg.vocab_size} x "
+        f"{model.cfg.d_model}): {copy.nbytes / 2**30:.3f} GiB on the card, made with the "
+        f"parameters (the bf16 table is {table['table'].nbytes / 2**30:.3f} GiB); a logits call "
+        f"of 4 rows leaves {grown} bytes allocated (its logits: {logits.nbytes}) and takes "
+        f"{ms:.3f} ms")
+
+
 def serve_phase():
     """deepseek-v2-mla at published widths through PagedServingSession."""
     from repro_torch.configs import get_config
@@ -1662,10 +1761,12 @@ def serve_phase():
     torch.cuda.synchronize()
     log(f"random bf16 weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    unembed_table_phase(model, params)
     sess = PagedServingSession(model, params, num_pages=num_pages, page_size=PAGE,
                                num_splits=2, prefill_chunk=32, max_batch=4)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
+    held = hold_against_eager(sess)
     timing = timed_session(sess)
     mp.mla_decode_paged_queue_rows.launches = 0
     mp.mla_decode_paged_queue_rows.mma_launches = 0
@@ -1695,6 +1796,10 @@ def serve_phase():
         if len(out) != gen_len + 1 or not all(0 <= t < cfg.vocab_size for t in out):
             raise SystemExit(f"serve phase: request {rid} returned {out}")
     log(f"tokens: { {r: results[r][:6] for r in sorted(results)} }")
+    report_held("serve phase", held, sess, timing)
+    if sess.graph_captures != len(sess.step_graph.shapes):
+        raise SystemExit("serve phase: expected one graph capture per (batch size, queue "
+                         f"capacity) decoded, {sess.step_graph.shapes}")
     return k2, k3, (cfg, model, params, prompt_lens, results)
 
 
@@ -1755,6 +1860,14 @@ def build_phase() -> None:
                          f"missing (found {counts} of {want}; spilled: {spilled})")
 
 
+def release() -> None:
+    """Free what the last phase left: its sessions (in reference cycles
+    through the timing and hold wrappers, so only a collection frees them,
+    and with them their CUDA graphs' memory pools) and the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv: list[str]) -> int:
     if argv not in ([], ["--k3-only"]):
         print("usage: chip_smoke.py [--k3-only]", file=sys.stderr)
@@ -1785,20 +1898,23 @@ def main(argv: list[str]) -> int:
     k3rows, k3err = k3_phase(flush)
     mworst = mma_rows_kernel_phase()
     del flush
-    torch.cuda.empty_cache()
+    release()
     small_reference_check()
     small_dense_check()
     small_int8_prefix_check()
-    torch.cuda.empty_cache()
+    release()
     k6, k7, k3g = gemma_dense_phase()
-    torch.cuda.empty_cache()
+    release()
     torch.cuda.reset_peak_memory_stats()
     k2, k3, paged = serve_phase()
+    release()
     k2b, k2pb, k3b = shared_prefix_phase(*paged[:3], "bf16")
+    release()
     k2i8, k2p, k3i8 = shared_prefix_phase(*paged[:3], "int8")
+    release()
     k4 = mla_dense_phase(*paged)
     del paged
-    torch.cuda.empty_cache()
+    release()
     k5, _ = padded_decode_phase()
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.models import layers
 
 
 def _tree_map(fn, tree):
@@ -27,7 +28,9 @@ def _tree_map(fn, tree):
 
 def convert_params(ref_params, cfg, *, device="cuda") -> dict:
     """Port parameters (``embed``, ``final_norm``, ``unembed``, ``layers``)
-    from a reference parameter tree, leaves kept at their dtype."""
+    from a reference parameter tree, leaves kept at their dtype (and a
+    below-fp32 unembedding table's fp32 copy made,
+    :func:`~repro_torch.models.layers.keep_fp32_table`)."""
     dev = resolve_device(device)
     to_t = lambda a: torch.from_numpy(np.array(np.asarray(a))).to(dev)
     period = len(cfg.layer_pattern)
@@ -48,4 +51,5 @@ def convert_params(ref_params, cfg, *, device="cuda") -> dict:
             f"{cfg.name!r} has {cfg.n_layers}"
         )
     out["layers"] = per_layer
+    layers.keep_fp32_table(out.get("unembed", out["embed"]))
     return out

@@ -153,6 +153,41 @@ def build_schedule(
     )
 
 
+def queue_capacity(queue_len: int, queue_bucket: int = DEFAULT_QUEUE_BUCKET) -> int:
+    """The queue length a schedule of ``queue_len`` items is padded to
+    (:func:`pad_queue`) for a CUDA graph of the decode walk: the bucket
+    times the least power of two that holds it.  So the padded queue is at
+    most twice the schedule's (every K2 CTA scans the whole queue), and a
+    batch whose requests grow passes through few lengths, each one graph."""
+    n = max(queue_bucket, 1)
+    while n < queue_len:
+        n *= 2
+    return n
+
+
+def pad_queue(schedule: DecodeSchedule, n: int) -> DecodeSchedule:
+    """``schedule`` with its queue padded to ``n`` items by the inert items
+    :func:`build_schedule` pads with (``item_valid = 0``, dest the dump
+    slot), so one queue length serves every step of a batch and the kernels
+    compute the same partials.  Not in this copy's reference: the CUDA
+    graphs of the port's decode walk keep their arrays' shapes with it."""
+    pad = n - schedule.queue_len
+    if pad < 0:
+        raise ValueError(f"a queue of {schedule.queue_len} items does not fit in {n}")
+    dump = schedule.num_requests * schedule.num_splits
+    grow = lambda a, fill: np.concatenate([a, np.full((pad,), fill, np.int32)])
+    return dataclasses.replace(
+        schedule,
+        item_req=grow(schedule.item_req, 0),
+        item_block=grow(schedule.item_block, 0),
+        item_dest=grow(schedule.item_dest, dump),
+        item_first=grow(schedule.item_first, 1),
+        item_last=grow(schedule.item_last, 0),
+        item_valid=grow(schedule.item_valid, 0),
+        device_arrays={},
+    )
+
+
 # --------------------------------------------------------------------------- #
 # shared-prefix grouping (group-batched prefix attention)
 # --------------------------------------------------------------------------- #

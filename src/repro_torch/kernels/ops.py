@@ -11,6 +11,8 @@ its plain PyTorch version on a CPU tensor.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -290,14 +292,34 @@ def _validate_q_positions(q_positions, b, sq, kv_len, scheduler, q_offset, causa
             )
 
 
-def _schedule_tensors(schedule, device) -> tuple[torch.Tensor, ...]:
-    """The schedule's queue arrays, dest table and split counts as int32
-    tensors on ``device``, copied once per schedule and device."""
+@dataclasses.dataclass(frozen=True)
+class DeviceQueue:
+    """A plain decode schedule on the device: its six queue arrays
+    (``items``), ``dest_table`` and ``n_splits`` as int32 tensors, with the
+    host facts the kernels' shapes need.  :func:`mla_decode_paged` takes one
+    as its ``schedule`` and reads it where it lies, so a caller that stages
+    each step's schedule into the same tensors (a CUDA graph of the decode
+    walk) reads no host value there."""
+
+    items: tuple[torch.Tensor, ...]  # item_req, _block, _dest, _first, _last, _valid
+    dest_table: torch.Tensor  # (B, num_splits)
+    n_splits: torch.Tensor  # (B,)
+    block_k: int
+    num_dest_slots: int
+
+
+def _schedule_tensors(schedule, device) -> DeviceQueue:
+    """A :class:`~repro_torch.kernels.decode_schedule.DecodeSchedule` as a
+    :class:`DeviceQueue` on ``device``, copied once per schedule and device
+    (a ``DeviceQueue`` is returned as it is)."""
+    if isinstance(schedule, DeviceQueue):
+        return schedule
     key = str(device)
     if key not in schedule.device_arrays:
-        arrays = (*schedule.prefetch_arrays(), schedule.dest_table, schedule.n_splits)
-        schedule.device_arrays[key] = tuple(
-            torch.as_tensor(a, dtype=torch.int32, device=device) for a in arrays
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+        schedule.device_arrays[key] = DeviceQueue(
+            tuple(i32(a) for a in schedule.prefetch_arrays()), i32(schedule.dest_table),
+            i32(schedule.n_splits), schedule.block_k, schedule.num_dest_slots,
         )
     return schedule.device_arrays[key]
 
@@ -362,7 +384,8 @@ def mla_decode_paged(
 
     * ``"queue"`` (default): the work-queue kernel (K2) over a schedule
       built host-side from ``kv_len`` unless a precomputed ``schedule`` is
-      passed; requests with more than one block split across up to
+      passed (a ``DecodeSchedule``, or a :class:`DeviceQueue` already on
+      the device); requests with more than one block split across up to
       ``num_splits`` slots, merged by the combine kernel (K3), which runs
       on every call.  ``prefix_sharing=True`` (or a ``PrefixSchedule`` as
       ``schedule``) adds the group-batched prefix pass (K2′): requests
@@ -451,9 +474,9 @@ def mla_decode_paged(
                 host_lens, host_bt, page_size=page_size, block_k=block_k,
                 num_splits=num_splits, min_group=min_group,
             )
-        *items, _, _ = _schedule_tensors(ps.suffix, dev)
         o_suf, lse_suf = _mla_paged.mla_decode_paged_queue_rows(
-            q_rows, kv_pages, bt, lens, rows_pos, *items, kv_scales,
+            q_rows, kv_pages, bt, lens, rows_pos, *_schedule_tensors(ps.suffix, dev).items,
+            kv_scales,
             num_dest_slots=ps.suffix.num_dest_slots, **kw,
         )
         o_parts, lse_parts = [o_suf], [lse_suf]
@@ -477,10 +500,10 @@ def mla_decode_paged(
         schedule = _sched.build_schedule(
             host_lens, block_k=block_k, num_splits=num_splits
         )
-    *items, dest_table, n_splits = _schedule_tensors(schedule, dev)
+    queue = _schedule_tensors(schedule, dev)
     o_part, lse = _mla_paged.mla_decode_paged_queue_rows(
-        q_rows, kv_pages, bt, lens, rows_pos, *items, kv_scales,
-        num_dest_slots=schedule.num_dest_slots, **kw,
+        q_rows, kv_pages, bt, lens, rows_pos, *queue.items, kv_scales,
+        num_dest_slots=queue.num_dest_slots, **kw,
     )
-    out = _combine.combine_split_partials(o_part, lse, dest_table, n_splits)
+    out = _combine.combine_split_partials(o_part, lse, queue.dest_table, queue.n_splits)
     return out.reshape(b, sq, hq, d_v)

@@ -1,0 +1,336 @@
+#!/usr/bin/env python3
+"""Where the time of a decode step of the PyTorch/CUDA port goes, from a
+``torch.profiler`` trace (CPU + CUDA) on the card.
+
+    python3 src/repro_torch/launch/decode_trace.py [--src DIR] [--cells ...] [--steps N]
+
+Serves the cells of ``chip_smoke.py``'s serve phases at their published
+widths (random bf16 weights from seed 0, no depth cut), each in steady
+state after its prompts are admitted:
+
+* ``paged``: deepseek-v2-mla through ``PagedServingSession(num_pages 32,
+  page 128, num_splits 2, prefill_chunk 32, max_batch 4)``, prompts of
+  37, 300, 513 and 1100 tokens;
+* ``gemma``: gemma2-2b through ``ServingSession(batch 4, max_len 8192)``,
+  prompts of 5, 300, 1100 and 4500 tokens;
+* ``dense-mla``: the paged cell's weights and prompts through
+  ``ServingSession(batch 4, max_len 2048)``;
+* ``k2-pad`` (not by default; needs this tree's ``src``): no session, K2 + K3
+  alone at a pool of realistic size, with the work queue padded as the
+  decode graphs pad it (:func:`k2_padding_cell`).
+
+Each cell runs ``--warm`` decode steps, then times ``--timed`` steps by the
+host clock (each ending in a device sync), then traces ``--steps`` steps.
+Every traced step is a window on the host clock (``decode_step`` user
+annotation, ending in a device sync); inside it the device's activity
+(kernels, copies, sets) is split into:
+
+* ``host_gap_ms``: the window minus the union of device activity (the
+  device is idle, waiting for the host);
+* ``attention_ms``: the port's hand-written kernels (K2 ``mla_decode_queue``,
+  K3 ``combine``, K4 ``mla_decode_rows``, K6 ``gqa_decode``, ...);
+* ``cublas_ms``: matrix products (kernels named ``gemm``, ``cutlass``,
+  ``nvjet``, ``xmma`` or ``cublas``);
+* ``small_ops_ms``: every other kernel (norms, RoPE, casts, indexing,
+  scatter, argmax);
+* ``copy_ms``: host/device copies and sets;
+
+each the sum of its events' durations (per step), and ``busy_share`` the
+union of device activity over the window (traced); ``lead_ms`` is the host time
+from the window's start to the first device activity (staging, launch),
+``tail_ms`` from the last device activity to the window's end (the greedy
+tokens' copy to the host and the session's bookkeeping).  The profiler
+slows the host, so the traced window is longer than a ``timed`` step.
+The timed steps carry no profiler: CUDA events around each CUDA graph
+replay give ``replay_ms_per_step``, the device time of the graphed walk,
+and ``replay_share_untraced`` its sum over the timed steps' (0 where a
+step replays no graph).  One JSON line per cell.
+
+``--src`` puts another tree's ``src`` first on the path (to trace a parent
+commit with this script, run by its path so that the ``repro_torch`` it
+lives in is not imported); by default the tree this script lives in.  The
+sessions are built through their plain constructors, so the script runs on
+any tree whose sessions take these arguments.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ATTENTION = ("mla_decode_queue", "combine_kernel", "mla_decode_rows", "gqa_decode",
+             "gqa_rows", "flash_prefill", "mla_decode_padded")
+CUBLAS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
+PAGED_PROMPTS, GEMMA_PROMPTS = (37, 300, 513, 1100), (5, 300, 1100, 4500)
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ATTENTION):
+        return "attention"
+    if any(k in low for k in CUBLAS):
+        return "cublas"
+    return "small_ops"
+
+
+def union_ms(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3
+
+
+def split_trace(path: str) -> dict:
+    """Per-step split of the device's activity inside each ``decode_step``
+    window of a chrome trace (times in µs there, ms here)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    windows = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("name") == "decode_step" and e.get("cat") == "user_annotation")
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    steps, names = [], {}
+    for w0, w1 in windows:
+        parts = {"attention": 0.0, "cublas": 0.0, "small_ops": 0.0, "copy": 0.0}
+        counts = {k: 0 for k in parts}
+        spans = []
+        for e in device:
+            a, b = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
+            if b <= a:
+                continue
+            kind = kind_of(e["name"]) if e["cat"] == "kernel" else "copy"
+            parts[kind] += (b - a) / 1e3
+            counts[kind] += 1
+            spans.append((a, b))
+            if e["cat"] == "kernel":
+                n, t = names.get(e["name"], (0, 0.0))
+                names[e["name"]] = (n + 1, t + (b - a) / 1e3)
+        wall = (w1 - w0) / 1e3
+        busy = union_ms(spans)
+        lead = (min(a for a, _ in spans) - w0) / 1e3 if spans else wall
+        tail = (w1 - max(b for _, b in spans)) / 1e3 if spans else 0.0
+        steps.append(dict(wall_ms=wall, busy_ms=busy, host_gap_ms=wall - busy,
+                          lead_ms=lead, tail_ms=tail, busy_share=busy / wall,
+                          **{f"{k}_ms": v for k, v in parts.items()},
+                          launches={k: v for k, v in counts.items()}))
+    if not steps:
+        raise SystemExit(f"no decode_step windows in {path}")
+    keys = [k for k in steps[0] if k != "launches"]
+    mean = {k: float(np.mean([s[k] for s in steps])) for k in keys}
+    mean["launches"] = {k: float(np.mean([s["launches"][k] for s in steps]))
+                        for k in steps[0]["launches"]}
+    mean["per_step"] = [{k: s[k] for k in ("wall_ms", "busy_ms", "host_gap_ms")} for s in steps]
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:12]
+    mean["top_kernels"] = [(n[:90], c / len(steps), t / len(steps)) for n, (c, t) in top]
+    return mean
+
+
+def steady_state(step, warm: int, timed: int, traced: int) -> dict:
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    times, replays = [], []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def timed_replay(graph):  # CUDA events around each graph replay of a timed step
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        replay(graph)
+        t1.record()
+        events.append((t0, t1))
+
+    torch.cuda.CUDAGraph.replay = timed_replay
+    try:
+        for _ in range(timed):
+            events = []
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            replays.append(sum(a.elapsed_time(b) for a, b in events))
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(traced):
+            with torch.profiler.record_function("decode_step"):
+                step()
+                torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        split = split_trace(path)
+    split["timed_ms_per_step"] = times
+    # untraced: the device time of the step's graph replays over its host time
+    split["replay_ms_per_step"] = replays
+    split["replay_share_untraced"] = float(np.sum(replays) / np.sum(times))
+    return split
+
+
+def prompts_for(cfg, lens):
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in lens]
+
+
+def captures_of(sess):
+    return getattr(sess, "graph_captures", None)
+
+
+def paged_cell(model, params, args):
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    sess = PagedServingSession(model, params, num_pages=32, page_size=128, num_splits=2,
+                               prefill_chunk=32, max_batch=4)
+    for p in prompts_for(model.cfg, PAGED_PROMPTS):
+        if sess.add_request(p) is None:
+            raise SystemExit("paged cell: admission failed")
+    out = steady_state(sess.step, args.warm, args.timed, args.steps)
+    out["graph_captures"] = captures_of(sess)
+    sess.close()
+    return out
+
+
+def dense_cell(model, params, prompt_lens, max_len, args):
+    from repro_torch.runtime.serve_loop import ServingSession
+
+    sess = ServingSession(model, params, batch_size=4, max_len=max_len)
+    for p in prompts_for(model.cfg, prompt_lens):
+        if sess.add_request(p) is None:
+            raise SystemExit("dense cell: admission failed")
+    out = steady_state(sess.step, args.warm, args.timed, args.steps)
+    out["graph_captures"] = captures_of(sess)
+    return out
+
+
+def k2_padding_cell(args):
+    """K2 + K3 (``ops.mla_decode_paged`` over an ``ops.DeviceQueue``, as a
+    graphed decode walk calls them in each layer) at deepseek-v2-mla's
+    latent width over a pool an H100 holds beside its weights: 3000 pages
+    of 128 bf16 rows (0.41 GiB a layer), 64 requests of 1000-8000 tokens
+    (seed 0), block_k 512, 2 splits, the block table as wide as the pool
+    (as ``PagedServingSession`` makes it).  The work queue three ways:
+    as the schedule builds it, padded to its graph capacity
+    (``decode_schedule.queue_capacity``), and padded to 64 x the pool's
+    blocks (the capacity per batch the graphs were first keyed on).  Mean
+    ms of ``--timed`` calls each by CUDA events, in the order schedule,
+    capacity, pool, pool, capacity, schedule; outputs compared bit for
+    bit with the schedule's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_schedule as sched
+    from repro_torch.kernels import ops
+    from repro_torch.models.mla_layer import mla_scale
+
+    cfg = get_config("deepseek-v2-mla")
+    num_pages, page, b, block_k, splits = 3000, 128, 64, 512, 2
+    width = cfg.mla.d_latent + cfg.mla.d_rope
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1000, 8001, size=b).astype(np.int32)
+    need = -(-lens // page)
+    if need.sum() > num_pages:
+        raise SystemExit("k2-pad: the requests do not fit in the pool")
+    perm, bt, used = rng.permutation(num_pages).astype(np.int32), np.zeros((b, num_pages),
+                                                                           np.int32), 0
+    for r, n in enumerate(need):
+        bt[r, :n] = perm[used:used + n]
+        used += n
+    gen = torch.Generator("cuda").manual_seed(0)
+    pages = torch.randn((num_pages, page, width), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+    q = torch.randn((b, 1, cfg.n_heads, width), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    bt_t, lens_t = torch.from_numpy(bt).cuda(), torch.from_numpy(lens).cuda()
+    s = sched.build_schedule(lens, block_k=block_k, num_splits=splits)
+    pool_blocks = -(-num_pages * page // block_k)
+    lengths = {"schedule": s.queue_len, "capacity": sched.queue_capacity(s.queue_len),
+               "pool": -(-b * pool_blocks // 16) * 16}
+    queues = {k: ops._schedule_tensors(s if n == s.queue_len else sched.pad_queue(s, n), "cuda")
+              for k, n in lengths.items()}
+
+    def call(queue):
+        return ops.mla_decode_paged(q, pages, bt_t, lens_t, d_v=cfg.mla.d_latent,
+                                    scale=mla_scale(cfg), block_k=block_k, num_splits=splits,
+                                    schedule=queue)
+
+    want = call(queues["schedule"])
+    equal = {k: bool(torch.equal(call(v), want)) for k, v in queues.items()}
+    times = {k: [] for k in queues}
+    for k in ("schedule", "capacity", "pool", "pool", "capacity", "schedule"):
+        call(queues[k])
+        torch.cuda.synchronize()
+        for _ in range(args.timed):
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            call(queues[k])
+            t1.record()
+            t1.synchronize()
+            times[k].append(t0.elapsed_time(t1))
+    return {"num_items": s.num_items, "queue_len": lengths, "bit_equal": equal,
+            "ms": {k: float(np.mean(v)) for k, v in times.items()},
+            "ms_runs": {k: [float(np.mean(v[:args.timed])), float(np.mean(v[args.timed:]))]
+                        for k, v in times.items()},
+            "kv_tokens": int(lens.sum()), "pages_used": int(need.sum())}
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                  os.pardir, os.pardir))
+    ap.add_argument("--cells", nargs="+", default=["paged", "gemma", "dense-mla"],
+                    choices=["paged", "gemma", "dense-mla", "k2-pad"])
+    ap.add_argument("--warm", type=int, default=3)
+    ap.add_argument("--timed", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("decode_trace: CUDA is not available; this script traces the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}; src {os.path.abspath(args.src)}", flush=True)
+    if "k2-pad" in args.cells:
+        print(json.dumps({"cell": "k2 queue padding", "label": args.label, "card": smi,
+                          **k2_padding_cell(args)}), flush=True)
+    if "gemma" in args.cells:
+        cfg = get_config("gemma2-2b")
+        model = build_model(cfg)
+        params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+        res = dense_cell(model, params, GEMMA_PROMPTS, 8192, args)
+        print(json.dumps({"cell": "gemma2-2b dense", "label": args.label, "card": smi, **res}),
+              flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+    if {"paged", "dense-mla"} & set(args.cells):
+        cfg = get_config("deepseek-v2-mla")
+        model = build_model(cfg)
+        params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+        if "paged" in args.cells:
+            res = paged_cell(model, params, args)
+            print(json.dumps({"cell": "deepseek-v2-mla paged", "label": args.label, "card": smi,
+                              **res}), flush=True)
+        if "dense-mla" in args.cells:
+            res = dense_cell(model, params, PAGED_PROMPTS, 2048, args)
+            print(json.dumps({"cell": "deepseek-v2-mla dense", "label": args.label, "card": smi,
+                              **res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -65,15 +65,28 @@ def embed(params, tokens, *, dtype=torch.bfloat16):
     return params["table"][tokens].to(dtype)
 
 
+def keep_fp32_table(params) -> dict:
+    """Give an embedding table below fp32 the fp32 copy :func:`unembed`
+    multiplies by (``params["table_f32"]``, twice the table's bytes at
+    bf16), so the table is not cast on every call.  Made where the
+    parameters are built or loaded (``transformer.lm_init``,
+    ``convert_params``); a table replaced after that needs it made again."""
+    if params["table"].dtype != torch.float32:
+        params["table_f32"] = params["table"].float()
+    return params
+
+
 def unembed(params, x, *, dtype=torch.bfloat16, softcap=None):
     """Project to fp32 vocab logits (optionally soft-capped).  The product
-    runs at ``dtype``; fp32 logits keep greedy ties as rare as the
-    reference's fp32-accumulated output."""
-    table = params["table"].to(dtype)
-    if dtype == torch.float32:
-        logits = torch.matmul(x.to(dtype), table.T)
-    else:
-        logits = torch.matmul(x.to(dtype).to(torch.float32), table.T.to(torch.float32))
+    takes ``x`` and the table at ``dtype`` and runs in fp32 (the
+    reference's bf16 dot with fp32 accumulation and output); fp32 logits
+    keep greedy ties as rare as the reference's.  A table at ``dtype``
+    multiplies through its fp32 copy where it has one
+    (:func:`keep_fp32_table`); any other is cast for the call."""
+    table = params.get("table_f32") if params["table"].dtype == dtype else None
+    if table is None:
+        table = params["table"].to(dtype).to(torch.float32)
+    logits = torch.matmul(x.to(dtype).to(torch.float32), table.T)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

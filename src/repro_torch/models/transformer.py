@@ -23,6 +23,7 @@ table and kv_len, so the (request, kv_block) work queue is identical.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -88,7 +89,9 @@ def layer_init(gen, cfg, kind, *, device, dtype):
 
 def lm_init(gen, cfg, *, device, dtype):
     """Random parameters, drawn tensor by tensor on ``device`` in ``dtype``
-    (a full-width bf16 model is built on the card without an fp32 copy)."""
+    (a full-width bf16 model is built on the card without an fp32 copy of
+    its weights; the unembedding table gets one,
+    :func:`~repro_torch.models.layers.keep_fp32_table`)."""
     check_supported(cfg)
     kw = dict(device=device, dtype=dtype)
     params = {
@@ -98,6 +101,7 @@ def lm_init(gen, cfg, *, device, dtype):
     if not cfg.tie_embeddings:
         params["unembed"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw)
     params["layers"] = [layer_init(gen, cfg, kind, **kw) for kind in cfg.layer_kinds()]
+    layers.keep_fp32_table(params.get("unembed", params["embed"]))
     return params
 
 
@@ -332,36 +336,69 @@ def lm_prefill_paged(
     return logits[:, 0] if need_logits else None
 
 
-def lm_decode_step_paged(
-    params,
-    tokens,  # (B, S) int — S new tokens per live request, rid order
+@dataclasses.dataclass
+class PagedStepPlan:
+    """Host staging of one paged decode step (numpy): the tokens, every
+    row's position, the ``(page, offset)`` each appended row lands in, the
+    block table, ``kv_len`` after the appends, and the step's schedule."""
+
+    tokens: np.ndarray  # (B, S) int64
+    positions: np.ndarray  # (B, S) int32
+    pids: np.ndarray  # (B * S,) int64
+    offs: np.ndarray  # (B * S,) int64
+    block_tables: np.ndarray  # (B, W) int32
+    kv_len: np.ndarray  # (B,) int32
+    schedule: object  # DecodeSchedule or PrefixSchedule
+    block_k: int
+
+
+@dataclasses.dataclass
+class PagedStepInputs:
+    """What the device walk of a paged decode step reads: a
+    :class:`PagedStepPlan`'s arrays as tensors on the cache's device."""
+
+    tokens: torch.Tensor
+    positions: torch.Tensor
+    pids: torch.Tensor
+    offs: torch.Tensor
+    block_tables: torch.Tensor
+    kv_len: torch.Tensor
+
+    @classmethod
+    def like(cls, plan: PagedStepPlan, device) -> "PagedStepInputs":
+        """Uninitialised tensors of ``plan``'s shapes and dtypes."""
+        return cls(**{f.name: torch.empty(getattr(plan, f.name).shape,
+                                          dtype=torch.from_numpy(getattr(plan, f.name)).dtype,
+                                          device=device)
+                      for f in dataclasses.fields(cls)})
+
+    def fill(self, plan: PagedStepPlan) -> "PagedStepInputs":
+        """Copy ``plan``'s arrays in, in place (the tensors keep their
+        addresses)."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(torch.from_numpy(getattr(plan, f.name)))
+        return self
+
+
+def stage_decode_step_paged(
+    tokens,
     *,
     cfg,
-    cache,  # runtime.kv_cache.LayeredPagedKVCache
+    cache,
     rids: list[int],
-    scheduler=None,  # kernels.decode_schedule.DecodeScheduler (memoized)
+    scheduler=None,
     extra_key=None,
     table_width: int | None = None,
     block_k: int | None = None,
     num_splits: int = 1,
-    variant: str = "amla",
-    compute_dtype=None,
-    head_shards: int = 1,
     prefix_sharing: bool = False,
-):
-    """One paged full-model decode step; returns logits ``(B, S, vocab)``.
-
-    Appends are atomic (:class:`OutOfPagesError` before any page is
-    claimed), then each layer appends its latent row(s) and attends.  The
-    schedule is built once per step and shared by every layer (memoized
-    across steps when ``scheduler`` is given); with ``prefix_sharing`` it
-    is a ``PrefixSchedule``, so requests that alias the same leading pages
-    attend their shared blocks once per group in every layer.  ``S > 1``
-    attends all rows in one call with explicit per-row positions
-    (``q_positions``).
-    """
+) -> PagedStepPlan:
+    """The host half of :func:`lm_decode_step_paged`: the checks, the
+    atomic page reservation (:class:`OutOfPagesError` before any page is
+    claimed; a shared boundary page is copied here), each appended row's
+    ``(page, offset)``, the block table, ``kv_len``, the positions and the
+    step's schedule, all on the host."""
     check_paged_compatible(cfg)
-    _check_head_shards(head_shards)
     if len(rids) == 0:
         raise ValueError("decode step needs at least one live request")
     tokens = np.asarray(tokens, np.int64)
@@ -370,7 +407,6 @@ def lm_decode_step_paged(
     s = int(tokens.shape[1])
     if s < 1:
         raise ValueError("decode step needs at least one token per request")
-    dev = cache.device
     tw = table_width or cache.num_pages
     if block_k is None:
         block_k = ops.default_paged_block_k(cache.page_size, tw)
@@ -409,22 +445,82 @@ def lm_decode_step_paged(
         )
     else:
         schedule = _sched.build_schedule(kv_len, block_k=block_k, num_splits=num_splits)
+    return PagedStepPlan(tokens, positions, pids, offs, bt, kv_len, schedule, block_k)
 
-    # Host -> device once per step; every layer reuses these tensors.
-    bt = torch.as_tensor(bt, device=dev)
-    kv_len = torch.as_tensor(kv_len, device=dev)
-    pids = torch.as_tensor(pids, device=dev)
-    offs = torch.as_tensor(offs, device=dev)
-    pos = torch.as_tensor(positions, device=dev)
-    q_positions = pos if s > 1 else None
-    x = embed_tokens(params, torch.as_tensor(tokens, device=dev), cfg=cfg)
+
+def decode_walk_paged(
+    params,
+    inputs: PagedStepInputs,
+    *,
+    cfg,
+    cache,
+    schedule,
+    block_k: int,
+    num_splits: int = 1,
+    q_positions=None,
+    variant: str = "amla",
+    compute_dtype=None,
+):
+    """The device half of :func:`lm_decode_step_paged`: embed, every layer
+    (append its latent rows at ``inputs.pids``/``offs``, attend through
+    ``ops.mla_decode_paged`` with the one ``schedule``, post-attention
+    half) and the logits ``(B, S, vocab)``.  With ``schedule`` an
+    ``ops.DeviceQueue`` and no host ``q_positions`` it reads only tensors
+    already on the device, so a CUDA graph can capture it."""
+    b, s = inputs.tokens.shape
+    x = embed_tokens(params, inputs.tokens, cfg=cfg)
     for l, p_l in enumerate(params["layers"]):
-        lat, q = paged_attn_inputs(p_l, x, pos, cfg=cfg)
-        cache.write_layer_tokens(l, pids, offs, lat.reshape(len(rids) * s, -1))
+        lat, q = paged_attn_inputs(p_l, x, inputs.positions, cfg=cfg)
+        cache.write_layer_tokens(l, inputs.pids, inputs.offs, lat.reshape(b * s, -1))
         attn = _paged_attend(
-            q, cache, l, bt, kv_len, cfg=cfg, block_k=block_k,
+            q, cache, l, inputs.block_tables, inputs.kv_len, cfg=cfg, block_k=block_k,
             schedule=schedule, q_offset=None, q_positions=q_positions,
             num_splits=num_splits, compute_dtype=compute_dtype, variant=variant,
         )
         x = paged_layer_post(p_l, x, attn, cfg=cfg)
     return paged_logits(params, x, cfg=cfg)
+
+
+def lm_decode_step_paged(
+    params,
+    tokens,  # (B, S) int — S new tokens per live request, rid order
+    *,
+    cfg,
+    cache,  # runtime.kv_cache.LayeredPagedKVCache
+    rids: list[int],
+    scheduler=None,  # kernels.decode_schedule.DecodeScheduler (memoized)
+    extra_key=None,
+    table_width: int | None = None,
+    block_k: int | None = None,
+    num_splits: int = 1,
+    variant: str = "amla",
+    compute_dtype=None,
+    head_shards: int = 1,
+    prefix_sharing: bool = False,
+):
+    """One paged full-model decode step; returns logits ``(B, S, vocab)``.
+
+    Host staging (:func:`stage_decode_step_paged`: atomic appends, the
+    block table, positions and one schedule), then the device walk
+    (:func:`decode_walk_paged`) over its arrays.  The schedule is built
+    once per step and shared by every layer (memoized across steps when
+    ``scheduler`` is given); with ``prefix_sharing`` it is a
+    ``PrefixSchedule``, so requests that alias the same leading pages
+    attend their shared blocks once per group in every layer.  ``S > 1``
+    attends all rows in one call with explicit per-row positions: the
+    host array, as the reference passes it, so their values are checked
+    (``q_positions``).  The serving sessions stage into fixed buffers and
+    replay the walk as a CUDA graph (:mod:`repro_torch.runtime.step_graph`).
+    """
+    _check_head_shards(head_shards)
+    plan = stage_decode_step_paged(
+        tokens, cfg=cfg, cache=cache, rids=rids, scheduler=scheduler, extra_key=extra_key,
+        table_width=table_width, block_k=block_k, num_splits=num_splits,
+        prefix_sharing=prefix_sharing,
+    )
+    inputs = PagedStepInputs.like(plan, cache.device).fill(plan)
+    return decode_walk_paged(
+        params, inputs, cfg=cfg, cache=cache, schedule=plan.schedule, block_k=plan.block_k,
+        num_splits=num_splits, q_positions=plan.positions if plan.tokens.shape[1] > 1 else None,
+        variant=variant, compute_dtype=compute_dtype,
+    )

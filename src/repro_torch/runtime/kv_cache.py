@@ -51,7 +51,9 @@ def _quantize_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """
     rows = rows.to(torch.float32)
     amax = rows.abs().amax(dim=-1)
-    scl = torch.where(amax > 0, amax, torch.ones_like(amax)) * _INV_127.to(rows.device)
+    # A CPU scalar tensor enters a CUDA product as a scalar: no copy to the
+    # device (which a CUDA graph could not capture).
+    scl = torch.where(amax > 0, amax, torch.ones_like(amax)) * _INV_127
     q = torch.clamp(torch.round(rows / scl[..., None]), -127, 127)
     return q.to(torch.int8), scl
 
@@ -422,7 +424,9 @@ class LayeredPagedKVCache(PagedKVCache):
         """Scatter ``rows (R, W)`` into one layer at ``(layer, pids[i],
         offs[i])`` in place — one scatter per layer per decode step (and
         one of the scales for an int8 pool).  ``pids``/``offs`` may be host
-        arrays or device tensors."""
+        arrays or device tensors; given as int64 tensors on the pool's
+        device they are used where they lie (no copy, as a CUDA graph of
+        the decode walk needs)."""
         pids = torch.as_tensor(pids, device=self.device).long()
         offs = torch.as_tensor(offs, device=self.device).long()
         self._store((layer, pids, offs), rows)

@@ -50,9 +50,16 @@ class ServingSession:
     token into their own rows, which the next prefill there clears), and
     finished requests free their slot for the next queued prompt.  Greedy
     sampling.
+
+    On a CUDA device the decode step replays a CUDA graph
+    (:class:`~repro_torch.runtime.step_graph.DenseDecodeStep`,
+    ``step_graph``; one capture, at the first step: the batch is fixed):
+    the reference jits ``decode_step``.  Prefill runs eagerly.
     """
 
     def __init__(self, model, params, *, batch_size: int, max_len: int):
+        from repro_torch.runtime.step_graph import DenseDecodeStep
+
         self.model = model
         self.params = params
         self.batch = batch_size
@@ -72,6 +79,7 @@ class ServingSession:
         kinds = model.cfg.layer_kinds()
         self._bucket_prompts = bool(kinds) and all(k in ("global", "local") for k in kinds)
         self._prefill_shapes: set[int] = set()
+        self.step_graph = DenseDecodeStep(model, params, self.cache, batch_size)
 
     @property
     def active_mask(self) -> np.ndarray:
@@ -81,6 +89,11 @@ class ServingSession:
     def prefill_compiles(self) -> int:
         """Distinct prefill shapes run (the reference's jit compiles)."""
         return len(self._prefill_shapes)
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured of the decode step (0 where none is)."""
+        return self.step_graph.graphs.captures
 
     def _bucket_len(self, plen: int) -> int:
         if not self._bucket_prompts:
@@ -144,10 +157,7 @@ class ServingSession:
         """One decode step for every slot (tokens kept for active ones)."""
         if not self.active_mask.any():
             return
-        tokens = torch.as_tensor(self.last_token, device=self.device).to(torch.int64)
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache, tokens[:, None], self.cache_len.copy()
-        )
+        logits = self.step_graph(self.last_token, self.cache_len)
         nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(np.int32)
         act = self.active_mask
         for slot, rid in enumerate(self.slot_rid):
@@ -172,7 +182,15 @@ def _not_ported(what: str):
 
 
 class PagedServingSession:
-    """Full-model greedy serving over the paged cache backend."""
+    """Full-model greedy serving over the paged cache backend.
+
+    On a CUDA device the plain-queue decode step (``prefix_sharing`` off)
+    replays a CUDA graph per live batch size and queue capacity
+    (:class:`~repro_torch.runtime.step_graph.PagedDecodeStep`,
+    ``step_graph``; ``graph_captures`` counts them), over bf16 or int8
+    pages: the reference jits the halves of each layer.  Prefill chunks
+    and the shared-prefix step (``prefix_sharing``) run eagerly.
+    """
 
     def __init__(
         self,
@@ -198,6 +216,7 @@ class PagedServingSession:
         from repro_torch.kernels.decode_schedule import DecodeScheduler
         from repro_torch.models import transformer as _tf
         from repro_torch.runtime.kv_cache import CacheSpec
+        from repro_torch.runtime.step_graph import PagedDecodeStep
 
         _tf.check_paged_compatible(model.cfg)
         if head_shards != 1:
@@ -235,6 +254,11 @@ class PagedServingSession:
         self.compute_dtype = torch.float32 if self.dtype == torch.float32 else None
         self._scheduler = DecodeScheduler(
             block_k=self.block_k, num_splits=num_splits, min_group=min_group
+        )
+        self.step_graph = PagedDecodeStep(
+            params, self.cache, cfg=self.cfg, scheduler=self._scheduler,
+            table_width=self.table_width, block_k=self.block_k, num_splits=num_splits,
+            compute_dtype=self.compute_dtype,
         )
         self._layers = model.layer_params(params)
         self.active: list[int] = []
@@ -276,6 +300,13 @@ class PagedServingSession:
     def decode_compiles(self) -> int:
         """Distinct live-batch sizes decoded."""
         return len(self._decode_shapes)
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured of the decode step: one per (live batch
+        size, queue capacity) decoded on a CUDA device
+        (``step_graph.shapes``), else 0."""
+        return self.step_graph.graphs.captures
 
     def work_stats(self) -> dict:
         """Deterministic decode-work proxies accumulated across steps
@@ -384,7 +415,8 @@ class PagedServingSession:
 
     # -- decode ----------------------------------------------------------- #
     def step(self) -> None:
-        """One greedy decode step for every live request (one schedule)."""
+        """One greedy decode step for every live request (one schedule):
+        a graph replay on a CUDA device unless ``prefix_sharing`` is on."""
         from repro_torch.kernels.decode_schedule import (
             PrefixSchedule,
             prefix_queue_grid_items,
@@ -397,20 +429,23 @@ class PagedServingSession:
             return
         tokens = np.asarray([self.last_token[r] for r in rids], np.int64)[:, None]
         pre = {r: self.cache.seq_len(r) for r in rids}
-        logits = _tf.lm_decode_step_paged(
-            self.params,
-            tokens,
-            cfg=self.cfg,
-            cache=self.cache,
-            rids=rids,
-            scheduler=self._scheduler,
-            prefix_sharing=self.prefix_sharing,
-            extra_key=tuple(rids),
-            table_width=self.table_width,
-            block_k=self.block_k,
-            num_splits=self.num_splits,
-            compute_dtype=self.compute_dtype,
-        )
+        if self.prefix_sharing:
+            logits = _tf.lm_decode_step_paged(
+                self.params,
+                tokens,
+                cfg=self.cfg,
+                cache=self.cache,
+                rids=rids,
+                scheduler=self._scheduler,
+                prefix_sharing=True,
+                extra_key=tuple(rids),
+                table_width=self.table_width,
+                block_k=self.block_k,
+                num_splits=self.num_splits,
+                compute_dtype=self.compute_dtype,
+            )
+        else:
+            logits = self.step_graph(tokens, rids)
         greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, 1)
         self.work_units += 1  # one fused decode launch
         for i, r in enumerate(rids):

@@ -1,0 +1,181 @@
+"""The serving sessions' decode steps replayed from CUDA graphs, against the
+same walk run eagerly on the card (``step_graph.graphs.enabled`` cleared
+on a session: what ``StepGraphs.run(..., eager=True)`` does for one step),
+on the smoke configs
+with random weights.  Every test is marked ``cuda`` and skips without a
+card; this file imports nothing of JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_step_graph_cuda.py
+
+Greedy tokens must be identical over 16 steps, and logits within 2e-3, the
+card checks' floor in ``chip_smoke.py`` (the graph replays the very kernels
+the eager walk launches, on the same inputs, so they are expected to agree
+bit for bit; the bound leaves room for a cuBLAS algorithm chosen
+differently under capture).  The steps cross KV blocks (a schedule
+rebuild replayed by the same graph), grab new pages (block tables that
+change between replays), finish a request and admit another (a new batch
+size: a new capture).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import mla_decode_combine as port_combine
+from repro_torch.kernels import mla_decode_paged as port_paged
+from repro_torch.models.model_zoo import build_model
+from repro_torch.runtime import step_graph
+from repro_torch.runtime.serve_loop import PagedServingSession, ServingSession
+
+TOL = 2e-3
+PAGE, BLOCK_K = 16, 32
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs and the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def record_logits(sess):
+    """Record each decode step's logits (on the CPU) as the session's
+    step graphs return them, after the replay or the eager walk."""
+    seen, run = [], sess.step_graph.graphs.run
+
+    def rec(*a, **k):
+        out = run(*a, **k)
+        seen.append(out.float().cpu())
+        return out
+
+    sess.step_graph.graphs.run = rec
+    return seen
+
+
+def params_for(arch, dtype):
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator("cuda").manual_seed(0), "cuda", dtype=dtype)
+
+
+def run_eagerly(sess):
+    """Make ``sess`` walk its decode steps eagerly on the card."""
+    sess.step_graph.graphs.enabled = False
+    return sess
+
+
+def serve_paged(model, params, graphs, **kw):
+    """Prompts of 5, 30, 62 and 17 tokens (30 and 62 cross a 32-row KV
+    block after 2 steps), 16 steps; request 0 finishes after step 6 and a
+    13-token prompt is admitted after step 10."""
+    sess = PagedServingSession(model, params, num_pages=40, page_size=PAGE, block_k=BLOCK_K,
+                               num_splits=2, prefill_chunk=16, **kw)
+    if not graphs:
+        run_eagerly(sess)
+    seen = record_logits(sess)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (5, 30, 62, 17)]
+    for p in prompts:
+        assert sess.add_request(p) is not None
+    tables = []
+    for i in range(16):
+        if i == 6:
+            sess.finish(0)
+        if i == 10:
+            assert sess.add_request(rng.integers(2, model.cfg.vocab_size, size=13).tolist())
+        sess.step()
+        tables.append(sess.cache.block_table(sess.active, width=sess.table_width))
+    return sess, seen, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_graph_matches_eager_walk(cuda_device, dtype, kv_dtype):
+    model, params = params_for("deepseek-v2-mla", dtype)
+    counts = step_graph.launch_counts()
+    graph, g_logits, tables = serve_paged(model, params, True, kv_dtype=kv_dtype)
+    g_counts = step_graph.launch_counts()
+    eager, e_logits, _ = serve_paged(model, params, False, kv_dtype=kv_dtype)
+    e_counts = step_graph.launch_counts()
+    assert graph.outputs == eager.outputs
+    assert len(g_logits) == len(e_logits) == 16
+    worst = max((a - b).abs().max().item() for a, b in zip(g_logits, e_logits))
+    print(f"max |graph - eager| = {worst:.3e}")
+    assert worst <= TOL
+    # batch sizes 4, 3, 4 at queue capacity 16: one capture each (B 4
+    # once), each graph replayed over steps whose kv_len, positions and
+    # block tables changed
+    assert graph.graph_captures == graph.decode_compiles == 2
+    assert graph.step_graph.shapes == [(4, 16), (3, 16)]
+    assert eager.graph_captures == 0
+    assert any(not np.array_equal(a[0], b[0]) for a, b in zip(tables[:5], tables[1:6]))
+    assert graph.scheduler_stats["rebuilds"] > graph.graph_captures
+    # a replay counts what the eager walk launches
+    for key in g_counts:
+        assert g_counts[key] - counts[key] == e_counts[key] - g_counts[key], key
+    queue = ("mla_decode_paged_queue_rows", "int8_launches" if kv_dtype else "launches")
+    assert g_counts[queue] - counts[queue] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-mla"])
+def test_dense_graph_matches_eager_walk(cuda_device, arch):
+    model, params = params_for(arch, torch.bfloat16)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (5, 40, 12)]
+    runs = []
+    for graphs in (True, False):
+        sess = ServingSession(model, params, batch_size=2, max_len=64)
+        if not graphs:
+            run_eagerly(sess)
+        seen = record_logits(sess)
+        sess.add_request(prompts[0])
+        sess.add_request(prompts[1])
+        for i in range(16):
+            if i == 8:
+                sess.finish(0)
+                sess.add_request(prompts[2])
+            sess.step()
+        runs.append((sess, seen))
+    (graph, g_logits), (eager, e_logits) = runs
+    assert graph.outputs == eager.outputs
+    worst = max((a - b).abs().max().item() for a, b in zip(g_logits, e_logits))
+    print(f"max |graph - eager| = {worst:.3e}")
+    assert worst <= TOL
+    assert (graph.graph_captures, eager.graph_captures) == (1, 0)
+
+
+@pytest.mark.cuda
+def test_one_graph_reads_its_buffers_at_every_replay(cuda_device):
+    graphs = step_graph.StepGraphs(cuda_device)
+    buf = torch.zeros(8, device=cuda_device)
+    walk = lambda: buf * 2 + 1
+    outs = []
+    for v in (1.0, 5.0, -3.0):
+        buf.fill_(v)
+        outs.append(graphs.run("k", walk).clone())
+    assert graphs.captures == 1
+    assert [o[0].item() for o in outs] == [3.0, 11.0, -5.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["item", "host_copy"])
+def test_a_walk_that_reads_the_host_fails_to_capture(cuda_device, bad):
+    """A host value read inside the walk (a sync, or a copy from host
+    memory) fails the warm-up under sync debug mode: the capture raises and
+    nothing runs eagerly instead; the counts are not left moved."""
+    graphs = step_graph.StepGraphs(cuda_device)
+    x = torch.ones(4, device=cuda_device)
+    walks = {
+        "item": lambda: x * x.sum().item(),
+        "host_copy": lambda: x + torch.as_tensor(np.arange(4.0, dtype=np.float32), device=x.device),
+    }
+    before = port_paged.mla_decode_paged_queue_rows.launches, port_combine.combine_split_partials.launches
+    with pytest.raises(RuntimeError):
+        graphs.run("k", walks[bad])
+    assert graphs.captures == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert (port_paged.mla_decode_paged_queue_rows.launches,
+            port_combine.combine_split_partials.launches) == before
