@@ -75,6 +75,27 @@ root) and exits nonzero on any failure:
    full MLA attention width, 4 synthetic prompts + 16 steps through K5's
    tensor-core body, held against the same inputs through
    ``scheduler="queue"``.
+10. **Nested-prefix and verify kernel phase** (after the other kernel
+    phases): K2' over the nested groups of a prefix trie (windows that
+    start past block 0), the suffix K2 and the hetero K3 at chains of 2
+    (a table num_splits + 2 wide), over bf16 and int8 pools; K2 at the
+    verify shape (4 token rows x 128 heads at explicit positions), the
+    fused call against its single-row calls; each timed beside its bound,
+    its plain version and one SDPA call.
+11. **Small trie and speculation references**: the smoke model (fp32) with
+    ``prefix_cache="trie"`` (tokens equal to the CPU path's and to trie
+    off) and ``speculate="ngram", draft_k=4`` over bf16 and int8 pages
+    (tokens and counters equal to the CPU path's, an extension of
+    ``speculate="off"``).
+12. **Trie serve phase**: deepseek-v2-mla at published widths with
+    ``prefix_cache="trie"``: template prompts that share a 1024-token
+    system prompt and two 1536-token templates, a loner, 16 steps, a late
+    admission from retained pages; trie counts equal the prompts' own,
+    three nested groups every step, exact K2/K2'/K3 counts, and a warm
+    admission equal bit for bit to a cold one.
+13. **Speculation serve phase**: the paged phase's weights and prompts with
+    ``speculate="ngram", draft_k=4``: exact rollback after every step,
+    exact K2/K3 counts, acceptance and ms per accepted token printed.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only``.
@@ -929,6 +950,222 @@ def slice3_kernel_phase(flush):
 
 
 # --------------------------------------------------------------------------- #
+# tenth-slice kernel phase: nested prefix groups and the verify shape
+# --------------------------------------------------------------------------- #
+
+
+def nested_family_case(seed, pool_dtype, dtype, steps=16):
+    """The trie serve phase's decode batch after ``steps`` steps, on the
+    card: a 1024-row system prompt S shared by four requests, S + 512 rows
+    T1 shared by A and B, S + another 512 rows T2 shared by C and D
+    (suffixes 37, 300, 40, 7), a 513-row loner, each ``steps`` rows longer.
+    Nested grouping gives three groups, [0, 2) of 4 and [2, 3) of 2 twice,
+    so A-D each merge two prefix partials: the hetero table is num_splits
+    + 2 = 4 wide."""
+    from repro_torch.kernels import decode_schedule as sched
+    from repro_torch.runtime.kv_cache import PagedKVCache
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    rows = lambda n: torch.randn((n, DK), generator=gen, device="cuda")
+    kv = PagedKVCache(num_pages=48, page_size=PAGE, width=DK, dtype=pool_dtype, device="cuda")
+    kv.alloc(0)
+    kv.append(0, rows(1024))
+    kv.fork(0, 2)
+    kv.append(0, rows(512))
+    kv.append(2, rows(512))
+    kv.fork(0, 1)
+    kv.fork(2, 3)
+    for rid, n in ((0, 37), (1, 300), (2, 40), (3, 7)):
+        kv.append(rid, rows(n))
+    kv.alloc(4)
+    kv.append(4, rows(513))
+    for rid in range(5):
+        kv.append(rid, rows(steps))
+    bt, kv_len = kv.block_table(list(range(5)), width=kv.num_pages)
+    ps = sched.build_prefix_schedule(kv_len, bt, page_size=PAGE, block_k=BLOCK_K, num_splits=2,
+                                     nested=True)
+    g = ps.groups
+    spans = sorted((int(a), int(b), int(n)) for a, b, n in
+                   zip(g.group_start, g.shared_blocks, g.group_size))
+    dest, n_live = ps.hetero_dest_tables()
+    if spans != [(0, 2, 4), (2, 3, 2), (2, 3, 2)] or dest.shape != (5, 4):
+        raise SystemExit(f"nested family: expected groups [0,2)x4, [2,3)x2 twice and a 4-wide "
+                         f"hetero table, got {spans}, {dest.shape}")
+    q = torch.randn((5, 128, DK), generator=gen, device="cuda").to(dtype)
+    dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+    pos = np.repeat((kv_len - 1)[:, None], 128, 1).astype(np.int32)
+    return dict(kv=kv, q=q, bt=dev(bt), kv_host=kv_len, kv_len=dev(kv_len), q_pos=dev(pos), ps=ps,
+                member=dev(g.group_member), rep=dev(g.group_rep), prefix_lens=dev(ps.prefix_lens),
+                pitems=[dev(a) for a in ps.prefix.prefetch_arrays()],
+                sitems=[dev(a) for a in ps.suffix.prefetch_arrays()],
+                hetero=[dev(dest), dev(n_live)])
+
+
+def verify_case(seed, dtype):
+    """K2 at the speculation phase's verify shape: the paged phase's four
+    requests after 16 steps with 4 draft rows appended, S = 4 token rows x
+    128 heads each (G = 512) at explicit positions kv_len - 4 + row // 128,
+    two splits."""
+    return make_case(seed, [37 + 16 + 4, 300 + 16 + 4, 513 + 16 + 4, 1100 + 16 + 4], 4 * 128,
+                     dtype, 2, prefill_positions)
+
+
+def nested_group_rows(fc, dtype):
+    """One SDPA yardstick call for K2' over the nested groups: each group's
+    stacked member queries over its own window's rows, padded to the
+    longest window and masked; with the window rows' bytes and visible keys
+    for the bound."""
+    ps, g = fc["ps"], fc["ps"].groups
+    gmax = g.gmax
+    qs, cs, lens = [], [], []
+    for i in range(g.num_groups):
+        members = [int(m) for m in g.group_member[i] if m >= 0]
+        q = fc["q"][members].reshape(len(members) * 128, DK)
+        qs.append(torch.nn.functional.pad(q, (0, 0, 0, gmax * 128 - q.shape[0])))
+        lo, hi = int(g.group_start[i]) * BLOCK_K, int(g.shared_blocks[i]) * BLOCK_K
+        cs.append(dequant_rows(fc["kv"], int(g.group_rep[i]), lo, hi, dtype))
+        lens.append(hi - lo)
+    width = max(lens)
+    c = torch.stack([torch.nn.functional.pad(x, (0, 0, 0, width - x.shape[0])) for x in cs])
+    keys = sum(128 * int(n) * l for n, l in zip(g.group_size, lens))
+    return torch.stack(qs), c, lens, keys
+
+
+def trie_kernel_phase(flush):
+    """Hold K2' over nested group windows (past block 0), the suffix pass
+    and the hetero K3 at chains of 2 against their plain versions, over
+    bf16 and int8 pools, amla and base, bf16 and fp32 queries; then K2 at
+    the verify shape (S = 4 rows per request at explicit positions), and
+    the fused verify call through ``ops`` against its positions' ramp and
+    its single-row calls.  Then time K2' nested, K3 at chain 2 and K2 at
+    S = 4 beside their bounds, plain versions and one SDPA call."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.kernels import ops
+
+    log("== kernel phase: K2' over nested groups + K3 at chains of 2, and K2 at the verify "
+        "shape (S = 4 rows), vs their plain PyTorch versions ==")
+    worst, rows = {}, {}
+
+    def note(key, err, tol, what):
+        worst[key] = max(worst.get(key, 0.0), err)
+        log(f"  {what}: max |kernel - plain| {err:.3e} (tol {tol:g})")
+        if not err <= tol:
+            raise SystemExit(f"tenth-slice kernel phase: {what} exceeds tol {tol}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for variant in ("amla", "base"):
+            tol = TOL[dtype, variant] if dtype == torch.bfloat16 else 2e-3
+            tag = f"{str(dtype)[6:]} {variant}"
+            for pool in (torch.bfloat16, torch.int8):
+                fc = nested_family_case(18, pool, dtype)
+                mma = dtype == torch.bfloat16
+                n_mma = (mp.mla_decode_paged_group_prefix.mma_launches,
+                         mp.mla_decode_paged_queue_rows.mma_launches)
+                o_k, lse_k = run_group_prefix(fc, variant, plain=False)
+                so_k, slse_k = run_suffix(fc, variant, plain=False)
+                got = (mp.mla_decode_paged_group_prefix.mma_launches - n_mma[0],
+                       mp.mla_decode_paged_queue_rows.mma_launches - n_mma[1])
+                if got != (int(mma), int(mma)):
+                    raise SystemExit(f"nested K2' {str(pool)[6:]} pool, q {dtype}: tensor-core "
+                                     f"launches (K2', suffix K2) {got}, expected "
+                                     f"{(int(mma),) * 2}")
+                o_p, lse_p = run_group_prefix(fc, variant, plain=True)
+                so_p, slse_p = run_suffix(fc, variant, plain=True)
+                n3 = mc.combine_split_partials.launches
+                out_k = mc.combine_hetero_partials([so_k, o_k], [slse_k, lse_k], *fc["hetero"])
+                n3 = mc.combine_split_partials.launches - n3
+                out_p = mc._combine_plain(torch.cat([so_p, o_p]), torch.cat([slse_p, lse_p]),
+                                          *fc["hetero"])
+                out_k3 = mc.combine_hetero_partials([so_p, o_p], [slse_p, lse_p], *fc["hetero"])
+                torch.cuda.synchronize()
+                live = torch.isfinite(lse_p)
+                if not torch.equal(live, torch.isfinite(lse_k)) or n3 != 1:
+                    raise SystemExit(f"nested K2': empty-row lse pattern differs, or {n3} K3 "
+                                     "launches")
+                err = max((o_k - o_p).abs().max().item(),
+                          (lse_k[live] - lse_p[live]).abs().max().item(),
+                          (out_k - out_p).abs().max().item())
+                if not torch.isfinite(out_k).all():
+                    raise SystemExit("nested K2' + K3-hetero: non-finite output")
+                note(("K2' nested", dtype, variant), err, tol,
+                     f"nested K2' (3 groups, windows [0,2) and [2,3)) + suffix K2 + K3 at "
+                     f"chains of 2, {str(pool)[6:]} pool, {tag}"
+                     f"{', tensor-core body' if mma else ''}")
+                note(("K3 chain 2", dtype, variant), (out_k3 - out_p).abs().max().item(), K3_TOL,
+                     f"K3 alone at chains of 2 (4-wide table) on the plain partials, {tag}")
+                # the nested schedule through ops against the unshared queue
+                args = (fc["q"][:, None], fc["kv"].pages, fc["bt"], fc["kv_host"])
+                kw = dict(kv_scales=fc["kv"].scales, d_v=DV, variant=variant,
+                          scale=1.0 / math.sqrt(192), compute_dtype=dtype)
+                shared = ops.mla_decode_paged(*args, schedule=fc["ps"], **kw)
+                unshared = ops.mla_decode_paged(*args, num_splits=1, **kw)
+                note(("nested-vs-unshared", dtype, variant),
+                     (shared - unshared).abs().max().item(), tol,
+                     f"nested schedule vs unshared through ops, {str(pool)[6:]} pool, {tag}")
+                del fc
+            case = verify_case(19, dtype)
+            hold_k2_k3(case, "verify", dtype, variant, worst)
+            # the fused verify call through ops: explicit positions equal to
+            # the ramp give the ramp's result bit for bit; each token row
+            # equals its single-row call at kv_len = position + 1
+            b = case["q"].shape[0]
+            q4 = case["q"].reshape(b, 4, 128, DK)
+            pos = torch.as_tensor(case["kv_host"][:, None] - 4 + np.arange(4)[None],
+                                  dtype=torch.int32)
+            kw = dict(d_v=DV, variant=variant, scale=1.0 / math.sqrt(192), block_k=BLOCK_K,
+                      num_splits=2, compute_dtype=dtype)
+            fused = ops.mla_decode_paged(q4, case["pages"], case["bt"], case["kv_host"],
+                                         q_positions=pos.numpy(), **kw)
+            ramp = ops.mla_decode_paged(q4, case["pages"], case["bt"], case["kv_host"], **kw)
+            err = 0.0
+            for j in range(4):
+                one = ops.mla_decode_paged(q4[:, j : j + 1].contiguous(), case["pages"],
+                                           case["bt"], pos[:, j].numpy() + 1, **kw)
+                err = max(err, (one[:, 0] - fused[:, j]).abs().max().item())
+            torch.cuda.synchronize()
+            if not torch.equal(fused, ramp):
+                raise SystemExit("verify: explicit q_positions differ from the derived ramp")
+            note(("verify-vs-single", dtype, variant), err, tol,
+                 f"fused 4-row verify vs 4 single-row calls through ops, {tag}")
+            torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    fc = nested_family_case(20, bf, bf)
+    t = time_cuda(lambda: run_group_prefix(fc, "amla", plain=False), 20, flush)
+    tp = time_cuda(lambda: run_group_prefix(fc, "amla", plain=True), 5, flush)
+    qg, c, lens, keys = nested_group_rows(fc, bf)
+    b, by = rows_bound(qg, sum(lens), 2 * DK, qg.shape[0] * qg.shape[1] * (DV + 1) * 4, keys)
+    tlib = time_cuda(sdpa_rows(qg, c, lens), 20, flush)
+    rows["K2' nested"] = (t, tp, b, by, tlib)
+    log(f"  time K2' over nested groups (bf16, 3 groups of 4/2/2 x 128 stacked rows, windows "
+        f"{lens} rows; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by}, plain "
+        f"{tp:.4f} ms, SDPA on the windows' contiguous rows {tlib:.4f} ms)")
+    so, slse = run_suffix(fc, "amla", plain=False)
+    o, lse = run_group_prefix(fc, "amla", plain=False)
+    merge = lambda: mc.combine_hetero_partials([so, o], [slse, lse], *fc["hetero"])
+    plain = lambda: mc._combine_plain(torch.cat([so, o]), torch.cat([slse, lse]), *fc["hetero"])
+    t, tp = time_cuda(merge, 50, flush), time_cuda(plain, 20, flush)
+    b, by = k3_bound([so, o], *fc["hetero"])
+    rows["K3 chain 2"] = (t, tp, b, by, None)
+    log(f"  time K3 hetero at chains of 2 (B=5, G=128, table 4 wide, splits "
+        f"{fc['hetero'][1].tolist()}): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms)")
+    del fc, c, qg
+    case = verify_case(21, bf)
+    t = time_cuda(lambda: run_k2(case, "amla", plain=False), 20, flush)
+    tp = time_cuda(lambda: run_k2(case, "amla", plain=True), 5, flush)
+    tlib = time_cuda(sdpa_call(case), 20, flush)
+    b, by = k2_bound(case)
+    rows["K2 verify"] = (t, tp, b, by, tlib)
+    log(f"  time K2 at the verify shape (bf16, S = 4 x 128 rows, kv={case['kv_host'].tolist()}, "
+        f"2 splits; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms, "
+        f"SDPA on a contiguous copy {tlib:.4f} ms)")
+    for key in sorted({k[0] for k in worst}):
+        log(f"  max |kernel - plain| {key}: {max(v for k, v in worst.items() if k[0] == key):.3e}")
+    return worst, rows
+
+
+# --------------------------------------------------------------------------- #
 # K3 phase: the split-KV combine at the shapes of its three uses
 # --------------------------------------------------------------------------- #
 
@@ -1293,6 +1530,315 @@ def small_int8_prefix_check():
         f"on weights perturbed by 2e-7)); greedy picks {'equal' if same else 'DIFFER'}")
     if not worst <= tol:
         raise SystemExit("small int8 + shared-prefix reference check failed")
+
+
+def smoke_stream(sess, prompts, steps):
+    """Admit ``prompts`` in waves of two with overlapping lifetimes (the
+    reference's trie test): each wave decodes 3 steps, every second wave
+    finishes the oldest two; then ``steps`` more steps and finish all.
+    Returns every request's tokens and the work counters."""
+    outs, live = {}, []
+    for wave in range(len(prompts) // 2):
+        for p in prompts[2 * wave : 2 * wave + 2]:
+            rid = sess.add_request(p)
+            if rid is None:
+                raise SystemExit("small trie / speculation check: admission failed")
+            live.append(rid)
+        for _ in range(3):
+            sess.step()
+        if wave % 2:
+            for r in live[:2]:
+                outs[r] = sess.finish(r)
+            live = live[2:]
+    for _ in range(steps):
+        sess.step()
+    for r in live:
+        outs[r] = sess.finish(r)
+    work = sess.work_stats()
+    sess.close()
+    return outs, work
+
+
+class ScriptedDrafts:
+    """A draft proposer that knows the speculate="off" streams: its first
+    ``right`` drafts are the tokens that follow, the rest are wrong, so
+    every verify step accepts exactly ``right`` drafts and rolls the rest
+    back (the n-gram drafter accepts almost nothing on a random model)."""
+
+    def __init__(self, streams, right, vocab):
+        self.streams, self.right, self.vocab = streams, right, vocab
+
+    def propose(self, history, k):
+        hist = list(history)
+        stream = next(s for s in self.streams if s[: len(hist)] == hist)
+        cont = stream[len(hist) : len(hist) + k]
+        cont += [0] * (k - len(cont))
+        return cont[: self.right] + [(t + 1) % self.vocab for t in cont[self.right :]]
+
+
+def small_trie_spec_check():
+    """The smoke model (fp32) with the prefix trie and with speculation, on
+    the card and on the CPU, same weights: the trie's greedy tokens equal
+    the CPU path's and the card's trie-off run's; speculation's (draft_k 4,
+    bf16 and int8 pages; n-gram drafts, and scripted drafts of which 2 of
+    3 are right) equal the CPU path's and extend the card's
+    speculate="off" stream."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    cfg = get_config("deepseek-v2-mla", smoke=True)
+    model = build_model(cfg)
+    params = {"cpu": model.init(torch.Generator("cpu").manual_seed(3), "cpu")}
+    params["cuda"] = to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(7)
+    template = rng.integers(2, cfg.vocab_size, size=64).tolist()
+    prompts = [template + rng.integers(2, cfg.vocab_size, size=5 + i).tolist() for i in range(8)]
+    kw = dict(num_pages=96, page_size=16, block_k=32, prefill_chunk=16)
+
+    def serve(dev, steps=4, **extra):
+        return smoke_stream(PagedServingSession(model, params[dev], **kw, **extra), prompts, steps)
+
+    on, work = serve("cuda", prefix_cache="trie")
+    cpu, cpu_work = serve("cpu", prefix_cache="trie")
+    off, _ = serve("cuda")
+    keys = ("trie_hits", "trie_misses", "prefix_tokens_reused", "prefill_chunks", "page_dmas")
+    same_work = all(work[k] == cpu_work[k] for k in keys)
+    log(f"small trie reference ({cfg.name}, fp32, 8 template prompts in staggered waves): "
+        f"greedy tokens {'equal' if on == cpu else 'DIFFER'} to the CPU path's, "
+        f"{'equal' if on == off else 'DIFFER'} to the card's trie-off run; trie hits "
+        f"{work['trie_hits']}, misses {work['trie_misses']}, reused tokens "
+        f"{work['prefix_tokens_reused']} (CPU: {[cpu_work[k] for k in keys[:3]]})")
+    if on != cpu or on != off or not same_work or work["trie_hits"] < 6:
+        raise SystemExit("small trie reference check failed")
+    spec_prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (8, 12, 30)]
+    def decode(dev, kv_dtype, steps, **extra):
+        sess = PagedServingSession(model, params[dev], kv_dtype=kv_dtype, **kw, **extra)
+        rids = [sess.add_request(p) for p in spec_prompts]
+        for _ in range(steps):
+            sess.step()
+        out = ({r: list(sess.outputs[r]) for r in rids}, sess.work_stats())
+        sess.close()
+        return out
+
+    for kv_dtype in ("bf16", "int8"):
+        off, _ = decode("cuda", kv_dtype, 32)
+        streams = [p + off[r] for r, p in enumerate(spec_prompts)]
+        for drafts in ("n-gram", "scripted, 2 of 3 right"):
+            extra = dict(speculate="ngram", draft_k=4)
+            if drafts != "n-gram":
+                extra["draft_proposer"] = ScriptedDrafts(streams, 2, cfg.vocab_size)
+            (spec, ws), (cpu, cpu_ws) = (decode(dev, kv_dtype, 8, **extra)
+                                         for dev in ("cuda", "cpu"))
+            extends = all(off[r][: len(out)] == out for r, out in spec.items())
+            log(f"small speculation reference ({cfg.name}, fp32, {kv_dtype} pages, draft_k 4, "
+                f"{drafts} drafts, 3 prompts x 8 steps): greedy tokens "
+                f"{'equal' if spec == cpu else 'DIFFER'} to the CPU path's; "
+                f"{'an extension' if extends else 'NOT an extension'} of speculate='off' on "
+                f"the card; {ws['accepted_tokens_per_step']:.3f} accepted tokens per "
+                f"request-step, query rows {ws['query_rows']} = 4 x {ws['request_steps']}")
+            if (spec != cpu or not extends or ws != cpu_ws
+                    or ws["query_rows"] != 4 * ws["request_steps"]
+                    or (drafts != "n-gram" and ws["accepted_tokens_per_step"] != 3.0)):
+                raise SystemExit(f"small speculation reference check failed ({kv_dtype} pages, "
+                                 f"{drafts} drafts)")
+
+
+def trie_serve_phase(cfg, model, params):
+    """deepseek-v2-mla at published widths (the paged phase's bf16 weights)
+    through PagedServingSession(prefix_cache="trie", num_splits=2, 64
+    pages): a 1024-token system prompt S, templates T1 = S + 512 tokens and
+    T2 = S + another 512; requests A = T1 + 37 (cold), B = T1 + 300, C = T2
+    + 40, D = T2 + 7 and a 513-token loner, 16 greedy steps, finish all,
+    then F = T1 + 100 from the retained pages.  Every decode step runs K2'
+    over three nested groups ([0, 2) x 4, [2, 3) x 2 twice), K2 on the
+    suffixes and K3 with chains of 2.  A trie-off session over the same
+    weights then admits B cold: its first token and logits row must equal
+    the trie session's bit for bit."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    log(f"== trie serve phase: {cfg.name} ({cfg.n_layers} layers, the paged phase's bf16 "
+        f"weights), PagedServingSession(prefix_cache='trie', num_splits=2), 64 pages of "
+        f"{PAGE}, block_k {BLOCK_K}, prefill_chunk 32 ==")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(2)
+    tok = lambda n: rng.integers(2, cfg.vocab_size, size=n).tolist()
+    system = tok(1024)
+    t1, t2 = system + tok(512), system + tok(512)
+    prompts = [t1 + tok(37), t1 + tok(300), t2 + tok(40), t2 + tok(7), tok(513)]
+    late = t1 + tok(100)
+    # what the prompts imply: each admission reuses the longest run of whole
+    # blocks, before its last token, that an earlier prompt's complete
+    # blocks share with it
+    want = dict(hits=0, misses=0, reused=0, chunks=0)
+    seen = []
+    for p in prompts + [late]:
+        usable = (len(p) - 1) // BLOCK_K * BLOCK_K
+        lcp = lambda a: next((i for i, (x, y) in enumerate(zip(a, p)) if x != y), min(len(a), len(p)))
+        m = max([min(lcp(a), len(a) // BLOCK_K * BLOCK_K, usable) // BLOCK_K * BLOCK_K
+                 for a in seen] + [0])
+        want["hits" if m else "misses"] += 1
+        want["reused"] += m
+        want["chunks"] += -(-(len(p) - m) // 32)
+        seen.append(p)
+
+    recorded = []
+    real_prefill = tf.lm_prefill_paged
+
+    def rec_prefill(*a, **k):
+        out = real_prefill(*a, **k)
+        recorded.append(out.float().clone())
+        return out
+
+    sess = PagedServingSession(model, params, num_pages=64, page_size=PAGE, block_k=BLOCK_K,
+                               num_splits=2, prefill_chunk=32, prefix_cache="trie")
+    timing = timed_session(sess)
+    grouped = []
+    step = sess.step
+
+    def recorded_step():
+        step()
+        cur = sess._scheduler.current
+        grouped.append((cur.num_groups, cur.groups.gmax))
+
+    sess.step = recorded_step
+    counters = (mp.mla_decode_paged_queue_rows, mc.combine_split_partials,
+                mp.mla_decode_paged_group_prefix)
+    for fn in counters:
+        fn.launches = 0
+    mp.mla_decode_paged_queue_rows.int8_launches = 0
+    mp.mla_decode_paged_queue_rows.mma_launches = 0
+    mp.mla_decode_paged_group_prefix.mma_launches = 0
+    tf.lm_prefill_paged = rec_prefill
+    try:
+        rids = [sess.add_request(p) for p in prompts]
+        b_logits = recorded[1]
+        for _ in range(16):
+            sess.step()
+        results = {r: sess.finish(r) for r in rids}
+        retained = sess.work_stats()["retained_pages"]
+        f = sess.add_request(late)
+    finally:
+        tf.lm_prefill_paged = real_prefill
+    torch.cuda.synchronize()
+    k2, k3, k2p = (fn.launches for fn in counters)
+    mma = (mp.mla_decode_paged_queue_rows.mma_launches,
+           mp.mla_decode_paged_group_prefix.mma_launches)
+    work = sess.work_stats()
+    results[f] = sess.finish(f)
+    sweep = sess.close()
+    chunks, steps, L = work["prefill_chunks"], work["decode_steps"], cfg.n_layers
+    n_prompt = sum(map(len, prompts)) + len(late)
+    tokens_out = 16 * len(prompts)
+    log(f"served {len(prompts)} + 1 requests: prefill {n_prompt} prompt tokens, "
+        f"{n_prompt - work['prefix_tokens_reused']} of them prefilled in {chunks} chunks, "
+        f"{timing['prefill']:.3f} s ({n_prompt / timing['prefill']:.1f} prompt tok/s); decode "
+        f"{tokens_out} tokens in {steps} steps, {timing['decode']:.3f} s "
+        f"({tokens_out / timing['decode']:.2f} tok/s, {1e3 * timing['decode'] / steps:.1f} "
+        f"ms/step); peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"trie: hits {work['trie_hits']}, misses {work['trie_misses']} (hit rate "
+        f"{work['trie_hit_rate']:.3f}), prefix tokens reused {work['prefix_tokens_reused']}; "
+        f"expected from the prompts: {want}; retained pages after finishing all "
+        f"{retained}; teardown sweep {sweep['free_pages']} pages free")
+    log(f"groups per decode step (groups, gmax): {sorted(set(grouped))} in {len(grouped)} "
+        f"steps; launches: K2 {k2} (expected layers x (chunks + steps) = {L} x ({chunks} + "
+        f"{steps}) = {L * (chunks + steps)}), K3 {k3} (same), K2' {k2p} (expected {L} x "
+        f"{steps} = {L * steps}); tensor-core body: K2 {mma[0]}, K2' {mma[1]}")
+    if (work["trie_hits"] != want["hits"] or work["trie_misses"] != want["misses"]
+            or work["prefix_tokens_reused"] != want["reused"] or chunks != want["chunks"]):
+        raise SystemExit("trie serve phase: trie counts differ from the prompts' own")
+    if (set(grouped) != {(3, 4)} or steps != 16 or k2 != L * (chunks + steps) or k3 != k2
+            or k2p != L * steps or mma != (k2, k2p)
+            or mp.mla_decode_paged_queue_rows.int8_launches):
+        raise SystemExit("trie serve phase: groups or launch counts do not match the path")
+    for rid, out in results.items():
+        if len(out) != (1 if rid == f else 17) or not all(0 <= t < cfg.vocab_size for t in out):
+            raise SystemExit(f"trie serve phase: request {rid} returned {out}")
+    log(f"tokens: { {r: results[r][:6] for r in sorted(results)} }")
+    del sess
+    release()
+    cold = PagedServingSession(model, params, num_pages=64, page_size=PAGE, block_k=BLOCK_K,
+                               num_splits=2, prefill_chunk=32)
+    tf.lm_prefill_paged = rec_prefill
+    try:
+        rb = cold.add_request(prompts[1])
+    finally:
+        tf.lm_prefill_paged = real_prefill
+    same = torch.equal(recorded[-1], b_logits) and cold.outputs[rb][0] == results[rids[1]][0]
+    log(f"B admitted cold by a trie-off session ({-(-len(prompts[1]) // 32)} chunks): first "
+        f"token and logits row {'equal bit for bit' if same else 'DIFFER'} to the trie "
+        f"session's (max |difference| {(recorded[-1] - b_logits).abs().max().item():.3e})")
+    cold.close()
+    if not same:
+        raise SystemExit("trie serve phase: a warm admission differs from a cold one")
+    return k2, k2p, k3
+
+
+def spec_serve_phase(cfg, model, params, prompt_lens, paged_results):
+    """The paged phase's weights and prompts through
+    PagedServingSession(speculate="ngram", draft_k=4, num_splits=2) over
+    bf16 pages, 16 steps: every step verifies 4 rows per request through K2
+    and K3 (eagerly), and rolls the rejected rows back exactly."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    log(f"== speculation serve phase: {cfg.name} ({cfg.n_layers} layers, the paged phase's "
+        f"bf16 weights and prompts {list(prompt_lens)}), PagedServingSession(speculate='ngram', "
+        f"draft_k=4, num_splits=2), 48 pages of {PAGE} ==")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
+    sess = PagedServingSession(model, params, num_pages=48, page_size=PAGE, num_splits=2,
+                               prefill_chunk=32, speculate="ngram", draft_k=4)
+    timing = timed_session(sess)
+    for fn in (mp.mla_decode_paged_queue_rows, mc.combine_split_partials):
+        fn.launches = 0
+    mp.mla_decode_paged_queue_rows.mma_launches = 0
+    rids = [sess.add_request(p) for p in prompts]
+    exact = True
+    for _ in range(16):
+        sess.step()
+        exact &= all(sess.cache.seq_len(r) == len(p) + len(sess.outputs[r]) - 1
+                     for r, p in zip(rids, prompts))
+    torch.cuda.synchronize()
+    k2, k3 = mp.mla_decode_paged_queue_rows.launches, mc.combine_split_partials.launches
+    k2_mma = mp.mla_decode_paged_queue_rows.mma_launches
+    work = sess.work_stats()
+    results = {r: list(sess.outputs[r]) for r in rids}
+    sweep = sess.close()
+    chunks, steps, L = work["prefill_chunks"], work["decode_steps"], cfg.n_layers
+    accepted = work["accepted_tokens"]  # emitted by the steps (not the prefill's first)
+    agree = [next((i for i, (a, b) in enumerate(zip(results[r], paged_results[r])) if a != b),
+                  min(len(results[r]), len(paged_results[r]))) for r in rids]
+    log(f"served {len(rids)} requests: prefill {sum(prompt_lens)} tokens in {chunks} chunks, "
+        f"{timing['prefill']:.3f} s; decode {steps} steps in {timing['decode']:.3f} s "
+        f"({1e3 * timing['decode'] / steps:.1f} ms/step), {work['accepted_tokens']} tokens "
+        f"accepted over {work['request_steps']} request-steps "
+        f"({work['accepted_tokens_per_step']:.3f} a request-step, i.e. acceptance "
+        f"{(work['accepted_tokens_per_step'] - 1) / 3:.3f} of the 3 drafts), "
+        f"{1e3 * timing['decode'] / max(accepted, 1):.2f} ms per accepted token "
+        f"({accepted / timing['decode']:.2f} tok/s); query rows {work['query_rows']}; "
+        f"rows = prompt + outputs - 1 after every step: {exact}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; teardown sweep "
+        f"{sweep['free_pages']} pages free")
+    log(f"tokens equal to speculate='off' (the paged phase's 17 a request) for the first "
+        f"{agree} of each request's {[len(results[r]) for r in rids]} (not a gate at bf16: "
+        f"the dense products run at M = 4 x 4 rows, not 4)")
+    log(f"launches: K2 {k2} (tensor-core body {k2_mma}), K3 {k3}; expected layers x (chunks "
+        f"+ steps) = {L} x ({chunks} + {steps}) = {L * (chunks + steps)}; CUDA graph "
+        f"captures {sess.graph_captures} (expected 0: verify steps run eagerly)")
+    if (not exact or k2 != L * (chunks + steps) or k3 != k2 or k2_mma != k2 or steps != 16
+            or work["query_rows"] != 4 * work["request_steps"] or sess.graph_captures):
+        raise SystemExit("speculation serve phase: rollback, rows or launch counts do not "
+                         "match the path")
+    for rid, out in results.items():
+        if len(out) < 17 or not all(0 <= t < cfg.vocab_size for t in out):
+            raise SystemExit(f"speculation serve phase: request {rid} returned {out}")
+    return k2, k3
 
 
 def shared_prefix_phase(cfg, model, params, kv_dtype):
@@ -1895,6 +2441,7 @@ def main(argv: list[str]) -> int:
     worst, rows = kernel_phase(flush)
     dworst, drows = dense_kernel_phase(flush)
     tworst, trows = slice3_kernel_phase(flush)
+    nworst, nrows = trie_kernel_phase(flush)
     k3rows, k3err = k3_phase(flush)
     mworst = mma_rows_kernel_phase()
     del flush
@@ -1902,6 +2449,7 @@ def main(argv: list[str]) -> int:
     small_reference_check()
     small_dense_check()
     small_int8_prefix_check()
+    small_trie_spec_check()
     release()
     k6, k7, k3g = gemma_dense_phase()
     release()
@@ -1912,6 +2460,10 @@ def main(argv: list[str]) -> int:
     release()
     k2i8, k2p, k3i8 = shared_prefix_phase(*paged[:3], "int8")
     release()
+    k2t, k2pt, k3t = trie_serve_phase(*paged[:3])
+    release()
+    k2s, k3s = spec_serve_phase(*paged[:4], paged[4])
+    release()
     k4 = mla_dense_phase(*paged)
     del paged
     release()
@@ -1921,6 +2473,7 @@ def main(argv: list[str]) -> int:
     derr = lambda name: max(v for k, v in dworst.items() if k[0] == name)
     terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     merr = lambda name: max(v for k, v in mworst.items() if k[0] == name)
+    nerr = lambda name: max(v for k, v in nworst.items() if k[0] == name)
     d2, d3 = rows["decode"], k3rows["(a) paged decode"]
     t8, tp, tpi, t5 = trows["K2-int8"], trows["K2'"], trows["K2' int8"], trows["K5"]
     t4, t6, t7 = drows["K4", "deepseek decode"], drows["K6", "gemma2-2b decode"], drows[
@@ -1928,16 +2481,19 @@ def main(argv: list[str]) -> int:
     mma_src = "src/repro_torch/csrc/mla_rows_mma.cuh"
     kernels = [
         dict(name="mla_decode_paged_queue_rows", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2 + k2b,
-             max_abs_err=err("mla_decode_paged_queue_rows"), ms=d2[0], plain_ms=d2[1],
+             replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2 + k2b + k2t + k2s,
+             max_abs_err=max(err("mla_decode_paged_queue_rows"),
+                             nerr("mla_decode_paged_queue_rows"), nerr("verify-vs-single")),
+             ms=d2[0], plain_ms=d2[1],
              bound_ms=d2[2], bound_by=d2[3], library_ms=d2[4]),
         dict(name="mla_decode_paged_queue_rows[int8]", route="cuda", source=mma_src,
              replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2i8,
              max_abs_err=terr("K2-int8"), ms=t8[0], plain_ms=t8[1], bound_ms=t8[2],
              bound_by=t8[3], library_ms=t8[4]),
         dict(name="mla_decode_paged_group_prefix", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2pb,
-             max_abs_err=terr("K2'"), ms=tp[0], plain_ms=tp[1], bound_ms=tp[2],
+             replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2pb + k2pt,
+             max_abs_err=max(terr("K2'"), nerr("K2' nested")), ms=tp[0], plain_ms=tp[1],
+             bound_ms=tp[2],
              bound_by=tp[3], library_ms=tp[4]),
         dict(name="mla_decode_paged_group_prefix[int8]", route="cuda", source=mma_src,
              replaces="src/repro/kernels/mla_decode_paged.py:618", launches=k2p,
@@ -1945,8 +2501,10 @@ def main(argv: list[str]) -> int:
              bound_by=tpi[3], library_ms=tpi[4]),
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
-             replaces="src/repro/kernels/mla_decode_combine.py:83", launches=k3 + k3b + k3i8 + k3g,
-             max_abs_err=max(err("combine_split_partials"), k3err), ms=d3[0], plain_ms=d3[1],
+             replaces="src/repro/kernels/mla_decode_combine.py:83",
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s,
+             max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
+                             nerr("K3 chain 2")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
         dict(name="mla_decode_rows", route="cuda", source="src/repro_torch/csrc/mla_decode.cu",
              replaces="src/repro/kernels/mla_decode.py:401", launches=k4,

@@ -1,9 +1,9 @@
 """Flat work-queue scheduling for AMLA decode (paper §4.2 + flash-decoding).
 
 Copied from ``repro.kernels.decode_schedule`` (the flat work queue, the
-flat shared-prefix grouping and the work accounting; the nested trie
-grouping waits for the prefix trie): plain host-side numpy, so the
-schedule arrays are identical to the reference's by construction.
+flat and nested shared-prefix grouping and the work accounting; not the
+sharded router or the prefill-budget planner): plain host-side numpy, so
+the schedule arrays are identical to the reference's by construction.
 
 * one **work item** = one §4.2 KV block (``block_k`` rows = 4 pages of 128)
   of one request — the granularity of one AMLA state update;
@@ -13,7 +13,9 @@ schedule arrays are identical to the reference's by construction.
 * the queue is padded to a ``queue_bucket`` multiple with inert items;
 * requests whose block tables alias the same leading pages (forked
   prefixes) are grouped, and their shared blocks scheduled once per group
-  (:func:`build_prefix_schedule`) for the group-prefix kernel.
+  (:func:`build_prefix_schedule`) for the group-prefix kernel; nested
+  grouping (the prefix trie's topology) gives every shared run its own
+  group over a ``[start, end)`` block window.
 
 Destination-slot layout: request ``r`` split ``j`` accumulates into slot
 ``r * num_splits + j``, and one trailing slot is the dump for padding items.
@@ -199,19 +201,35 @@ class PrefixGroups:
 
     Two requests belong together only when their block tables name the
     same physical pages for a leading run of complete ``block_k`` blocks —
-    under ``PagedKVCache.fork``, exactly "they share a prefix".  Equal
-    content without aliasing never groups.  Every group covers blocks
-    ``[0, shared_blocks)`` (the reference's flat grouping).
+    under ``PagedKVCache.fork`` or trie adoption, exactly "they share a
+    prefix".  Equal content without aliasing never groups.  Group ``g``
+    covers blocks ``[start_of_group(g), shared_blocks[g])``: flat grouping
+    starts every group at 0; nested grouping gives each trie node its own
+    window, and a request combines one prefix partial per group of its
+    chain (:meth:`chain_of_req`).
     """
 
     group_member: np.ndarray  # (n_groups, gmax) request index, -1 padding
     group_size: np.ndarray  # (n_groups,)
     group_rep: np.ndarray  # (n_groups,) representative request (table row)
     shared_blocks: np.ndarray  # (n_groups,) exclusive END block of the run
-    group_of_req: np.ndarray  # (B,) group id, -1 for ungrouped
+    group_of_req: np.ndarray  # (B,) deepest group id, -1 for ungrouped
     slot_of_req: np.ndarray  # (B,) member slot within that group, -1
     gmax: int  # max members over groups (stacked-query width)
     num_groups: int
+    group_start: np.ndarray | None = None  # (n_groups,) first block covered
+    req_chains: tuple | None = None  # (B,) of ((g, slot), ...), outermost first
+
+    def chain_of_req(self, r: int) -> tuple:
+        """``((group, slot), ...)`` covering request ``r``, outermost
+        first (the single flat group when chains are absent)."""
+        if self.req_chains is not None:
+            return self.req_chains[r]
+        g = int(self.group_of_req[r])
+        return () if g < 0 else ((g, int(self.slot_of_req[r])),)
+
+    def start_of_group(self, g: int) -> int:
+        return 0 if self.group_start is None else int(self.group_start[g])
 
 
 def _common_run(sigs, members, rep, start: int) -> int:
@@ -229,6 +247,34 @@ def _common_run(sigs, members, rep, start: int) -> int:
     return n
 
 
+def _nested_group_list(sigs, min_group: int) -> list[tuple]:
+    """Trie-topology grouping, ``(members, start, end)`` per inner node:
+    a bucket of requests sharing block ``start`` is one group over its
+    common run ``[start, end)``, then split by block ``end`` into deeper
+    buckets; every level honours ``min_group``.  Outer groups first."""
+    floor = max(min_group, 2)
+    out: list[tuple] = []
+    by_first: dict[tuple, list[int]] = {}
+    for r, sig in enumerate(sigs):
+        if sig:
+            by_first.setdefault(sig[0], []).append(r)
+    stack = [(members, 0) for members in by_first.values() if len(members) >= floor]
+    while stack:
+        members, start = stack.pop()
+        end = _common_run(sigs, members, members[0], start)
+        if end > start:
+            out.append((members, start, end))
+        sub: dict[tuple, list[int]] = {}
+        for m in members:
+            if len(sigs[m]) > end:
+                sub.setdefault(sigs[m][end], []).append(m)
+        for bucket in sub.values():
+            if len(bucket) >= floor:
+                stack.append((bucket, end))
+    out.sort(key=lambda t: (t[1], t[0]))
+    return out
+
+
 def find_prefix_groups(
     block_tables,
     kv_lens,
@@ -236,16 +282,18 @@ def find_prefix_groups(
     page_size: int,
     block_k: int,
     min_group: int = 2,
+    nested: bool = False,
 ) -> PrefixGroups:
     """Group requests whose tables alias the same leading KV-block pages.
 
     A block is shared by a group when every member's table points at the
     identical page-id tuple for it and the block is complete for every
-    member (``(j+1) * block_k <= kv_len``).  Members joining on block 0 but
-    diverging later share only the common run; requests with no complete
-    first block, or whose first block fewer than ``min_group`` requests
-    alias, stay ungrouped.  (The reference's trie-topology grouping comes
-    with the prefix trie.)
+    member (``(j+1) * block_k <= kv_len``).  Flat grouping: members joining
+    on block 0 but diverging later share only the common run; requests
+    with no complete first block, or whose first block fewer than
+    ``min_group`` requests alias, stay ungrouped.  ``nested=True`` recurses
+    past each divergence (:func:`_nested_group_list`) and records each
+    request's chain of groups.
     """
     if block_k % page_size or block_k < page_size:
         raise ValueError(
@@ -265,34 +313,42 @@ def find_prefix_groups(
                 for j in range(nb_full)
             ]
         )
-    by_first: dict[tuple, list[int]] = {}
-    for r in range(b):
-        if sigs[r]:
-            by_first.setdefault(sigs[r][0], []).append(r)
-    group_list = []
-    for members in by_first.values():
-        if len(members) < max(min_group, 2):
-            continue
-        n = _common_run(sigs, members, members[0], 0)
-        if n >= 1:
-            group_list.append((members, n))
+    if nested:
+        group_list = _nested_group_list(sigs, min_group)
+    else:
+        by_first: dict[tuple, list[int]] = {}
+        for r in range(b):
+            if sigs[r]:
+                by_first.setdefault(sigs[r][0], []).append(r)
+        group_list = []
+        for members in by_first.values():
+            if len(members) < max(min_group, 2):
+                continue
+            n = _common_run(sigs, members, members[0], 0)
+            if n >= 1:
+                group_list.append((members, 0, n))
 
     num_groups = len(group_list)
-    gmax = max((len(m) for m, _ in group_list), default=0)
+    gmax = max((len(m) for m, _, _ in group_list), default=0)
     group_member = np.full((num_groups, max(gmax, 1)), -1, np.int32)
     group_size = np.zeros((num_groups,), np.int32)
     group_rep = np.zeros((num_groups,), np.int32)
     shared_blocks = np.zeros((num_groups,), np.int32)
+    group_start = np.zeros((num_groups,), np.int32)
     group_of_req = np.full((b,), -1, np.int32)
     slot_of_req = np.full((b,), -1, np.int32)
-    for g, (members, end) in enumerate(group_list):
+    chains: list[list[tuple]] = [[] for _ in range(b)]
+    for g, (members, start, end) in enumerate(group_list):
         group_size[g] = len(members)
         group_rep[g] = members[0]
         shared_blocks[g] = end
+        group_start[g] = start
         for i, r in enumerate(members):
             group_member[g, i] = r
+            # the deepest covering group: groups come start-ascending
             group_of_req[r] = g
             slot_of_req[r] = i
+            chains[r].append((g, i))
     return PrefixGroups(
         group_member=group_member,
         group_size=group_size,
@@ -302,6 +358,8 @@ def find_prefix_groups(
         slot_of_req=slot_of_req,
         gmax=gmax,
         num_groups=num_groups,
+        group_start=group_start,
+        req_chains=tuple(tuple(c) for c in chains),
     )
 
 
@@ -310,19 +368,20 @@ class PrefixSchedule:
     """Two-pass decode schedule: group-batched prefix + per-request suffix.
 
     ``prefix`` treats each group as a virtual request of ``gmax * G``
-    stacked query rows over the shared prefix (``shared_blocks[g] *
-    block_k`` rows through the representative member's table row), one
-    item per ``(group, kv_block)``; ``suffix`` is a plain
-    :func:`build_schedule` whose ``start_blocks`` skip each grouped request
-    past its shared run.  :meth:`hetero_dest_tables` merges both passes'
-    partials in the combine kernel.
+    stacked query rows over its window of the shared prefix (items from
+    ``start_of_group(g)`` to ``shared_blocks[g]``, through the
+    representative member's table row), one item per ``(group,
+    kv_block)``; ``suffix`` is a plain :func:`build_schedule` whose
+    ``start_blocks`` skip each grouped request past its deepest group.
+    :meth:`hetero_dest_tables` merges both passes' partials in the combine
+    kernel.
     """
 
     suffix: DecodeSchedule
     prefix: DecodeSchedule | None  # over groups; None when num_groups == 0
     groups: PrefixGroups
     start_blocks: np.ndarray  # (B,) suffix start block per request
-    prefix_lens: np.ndarray  # (n_groups,) shared rows per group
+    prefix_lens: np.ndarray  # (n_groups,) end row of each group's window
     block_k: int
     # Device copies of the prefix pass's arrays (see DecodeSchedule).
     device_arrays: dict = dataclasses.field(
@@ -339,21 +398,23 @@ class PrefixSchedule:
         suffix.num_dest_slots)``, prefix member rows follow at
         ``suffix.num_dest_slots + group * gmax + slot`` (the prefix pass
         has one dest slot per group).  Returns ``(dest_table (B,
-        num_splits + 1), n_splits (B,))``."""
+        num_splits + max chain length), n_splits (B,))``: a request merges
+        its suffix splits and one prefix partial per group of its chain."""
         suf = self.suffix
         b = suf.num_requests
         d_suf = suf.num_dest_slots
         gmax = max(self.groups.gmax, 1)
-        s_ext = suf.num_splits + 1
+        max_chain = max((len(self.groups.chain_of_req(r)) for r in range(b)), default=0)
+        s_ext = suf.num_splits + max(max_chain, 1)
         dest = np.zeros((b, s_ext), np.int32)
         n_ext = np.zeros((b,), np.int32)
         for r in range(b):
             slots = [
                 int(suf.dest_table[r, j]) for j in range(int(suf.n_splits[r]))
             ]
-            g = int(self.groups.group_of_req[r])
-            if g >= 0:
-                slots.append(d_suf + g * gmax + int(self.groups.slot_of_req[r]))
+            for g, slot in self.groups.chain_of_req(r):
+                if self.groups.shared_blocks[g] > self.groups.start_of_group(g):
+                    slots.append(d_suf + g * gmax + int(slot))
             n_ext[r] = len(slots)
             if not slots:  # kv_len == 0: gated off, fetch warm slot 0
                 slots = [0]
@@ -372,10 +433,14 @@ def build_prefix_schedule(
     num_splits: int = 1,
     queue_bucket: int = DEFAULT_QUEUE_BUCKET,
     min_group: int = 2,
+    nested: bool = False,
 ) -> PrefixSchedule:
     """Group-batched shared-prefix schedule over ``(kv_lens,
     block_tables)``.  With no aliased prefixes it degenerates to the plain
-    schedule (empty prefix pass, suffix pass == :func:`build_schedule`)."""
+    schedule (empty prefix pass, suffix pass == :func:`build_schedule`).
+    With ``nested`` each group's prefix items cover only its own window
+    and each suffix starts past its request's deepest group, so the
+    partials of a request's chain and suffix tile ``[0, kv_len)`` once."""
     kv = np.asarray(kv_lens, np.int64).reshape(-1)
     groups = find_prefix_groups(
         block_tables,
@@ -383,6 +448,7 @@ def build_prefix_schedule(
         page_size=page_size,
         block_k=block_k,
         min_group=min_group,
+        nested=nested,
     )
     start_blocks = np.zeros((kv.shape[0],), np.int64)
     for g in range(groups.num_groups):
@@ -399,12 +465,15 @@ def build_prefix_schedule(
     prefix_lens = groups.shared_blocks.astype(np.int64) * block_k
     prefix = None
     if groups.num_groups:
-        # Prefix items never split: one dest slot per group.
+        # Prefix items never split: one dest slot per group.  Group g's
+        # virtual request has kv_len = end * block_k and starts at its
+        # window's first block.
         prefix = build_schedule(
             prefix_lens,
             block_k=block_k,
             num_splits=1,
             queue_bucket=queue_bucket,
+            start_blocks=groups.group_start.astype(np.int64),
         )
     return PrefixSchedule(
         suffix=suffix,
@@ -425,7 +494,7 @@ class DecodeScheduler:
     token such as the tuple of live request ids) changes.
     ``schedule_prefix()`` additionally keys on the page ids that grouping
     inspects, so copy-on-write and pool churn never serve a stale group
-    structure.
+    structure; ``nested`` selects the trie-topology grouping.
     """
 
     def __init__(
@@ -435,11 +504,13 @@ class DecodeScheduler:
         num_splits: int = 1,
         queue_bucket: int = DEFAULT_QUEUE_BUCKET,
         min_group: int = 2,
+        nested: bool = False,
     ):
         self.block_k = block_k
         self.num_splits = num_splits
         self.queue_bucket = queue_bucket
         self.min_group = min_group
+        self.nested = nested
         self._key: tuple | None = None
         self._cached: DecodeSchedule | PrefixSchedule | None = None
         self.hits = 0
@@ -491,6 +562,7 @@ class DecodeScheduler:
         )
         key = (
             "prefix",
+            self.nested,
             kv_lens.shape[0],
             _block_signature(kv_lens, self.block_k),
             page_sig,
@@ -506,6 +578,7 @@ class DecodeScheduler:
                 num_splits=self.num_splits,
                 queue_bucket=self.queue_bucket,
                 min_group=self.min_group,
+                nested=self.nested,
             ),
         )
 
@@ -561,7 +634,12 @@ def prefix_queue_grid_items(
             for l, s in zip(kv_lens, ps.start_blocks)
         )
     )
-    span = ps.groups.shared_blocks
+    # Each group reads only its own window: ancestors in a nested chain
+    # cover [0, start); flat groups start at 0.
+    gs = ps.groups.group_start
+    if gs is None:
+        gs = np.zeros_like(ps.groups.shared_blocks)
+    span = ps.groups.shared_blocks - gs
     prefix_pages = int(np.sum(span)) * n_sub
     unshared_prefix_pages = int(np.sum(span * ps.groups.group_size)) * n_sub
     grid_steps = ps.suffix.queue_len + (

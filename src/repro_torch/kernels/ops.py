@@ -392,6 +392,10 @@ def mla_decode_paged(
       whose tables alias the same leading pages (groups of at least
       ``min_group``) attend their shared blocks once per group over
       stacked queries, and the combine merges prefix and suffix partials.
+      A nested ``PrefixSchedule`` (the prefix trie's topology) gives each
+      group a window of blocks that may start past block 0, and a request
+      one prefix partial per group of its chain: the same two launches
+      and one combine over a wider table.
       ``kv_scales`` selects an int8 pool (K2-int8).  ``return_partials``
       (the per-row lse for sharded serving) raises: with the padded or
       prefix-sharing paths the reference's ``ValueError``, on the plain

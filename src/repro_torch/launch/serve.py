@@ -13,14 +13,19 @@ Runs a request stream through one of two cache backends:
   layers.  ``--kv-dtype int8`` stores the latent pages as int8 with
   per-row scales; ``--shared-prefix`` serves a forked system-prompt family
   (a parent and two ``admit_with_prefix`` children) with group-batched
-  prefix attention instead of the request stream.
+  prefix attention instead of the request stream; ``--prefix-cache trie``
+  reuses prompt prefixes through the radix trie (the stream's prompts then
+  open with a shared two-block template), ``--retain-pages`` caps the pages
+  it retains; ``--speculate ngram --draft-k K`` verifies ``K - 1`` n-gram
+  drafts per request per step.
 
 Random weights come from ``--seed``.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve [--cache dense|paged] \\
         [--arch NAME] --smoke --requests 6 --gen-len 16 [--device cuda|cpu] \\
-        [--kv-dtype bf16|int8] [--shared-prefix]
+        [--kv-dtype bf16|int8] [--shared-prefix] [--prefix-cache trie \\
+        [--retain-pages N]] [--speculate ngram [--draft-k K]]
 
 ``--device`` defaults to ``cuda`` and the run fails without it; ``cpu``
 runs the kernels' plain PyTorch versions.
@@ -155,9 +160,28 @@ def main(argv=None):
                     help="paged only: latent-cache storage dtype; int8 "
                     "stores per-row-scaled int8 pages (dequant fused into "
                     "the kernel); default = model dtype")
+    ap.add_argument("--speculate", choices=("off", "ngram"), default="off",
+                    help="paged only: draft-verify speculative decode; "
+                    "'ngram' drafts from each request's own history and "
+                    "verifies draft-k rows per fused step (greedy outputs "
+                    "identical to off)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="speculative rows per step (1 pending token + "
+                    "draft-k-1 drafts); >= 2")
     ap.add_argument("--shared-prefix", action="store_true",
                     help="paged only: serve a forked system-prompt family "
                     "with group-batched prefix attention")
+    ap.add_argument("--prefix-cache", choices=("off", "trie"), default="off",
+                    help="paged only: automatic longest-prefix reuse via a "
+                    "radix trie over block-aligned page runs; admissions "
+                    "alias matched blocks and prefill only the tail, "
+                    "finished prompts retain their prefix pages (LRU-"
+                    "evicted under pool pressure); the prompt stream gets a "
+                    "shared template so hits occur")
+    ap.add_argument("--retain-pages", type=int, default=None,
+                    help="prefix-cache trie: cap on pages pinned by "
+                    "retained prefixes; default unbounded (pool pressure "
+                    "still reclaims LRU subtrees)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default) launches the CUDA kernels; cpu runs "
@@ -170,6 +194,15 @@ def main(argv=None):
                              "store activations at the model dtype)")
         if args.shared_prefix:
             raise SystemExit("--shared-prefix needs --cache paged")
+        if args.speculate != "off":
+            raise SystemExit("--speculate needs --cache paged (rollback rides "
+                             "the paged pool's refcounted truncate; dense slots "
+                             "have no page bookkeeping to roll back)")
+        if args.prefix_cache != "off":
+            raise SystemExit("--prefix-cache needs --cache paged (the trie "
+                             "pins refcounted pages; dense slots have none)")
+    if args.retain_pages is not None and args.prefix_cache == "off":
+        raise SystemExit("--retain-pages needs --prefix-cache trie")
     device = resolve_device(args.device)
     arch = args.arch or ("deepseek-v2-mla" if args.cache == "paged" else "qwen1.5-0.5b")
     cfg = get_config(arch, smoke=args.smoke)
@@ -186,6 +219,10 @@ def main(argv=None):
             prefix_sharing=args.shared_prefix,
             max_batch=args.batch,
             kv_dtype=args.kv_dtype,
+            speculate=args.speculate,
+            draft_k=args.draft_k,
+            prefix_cache=args.prefix_cache,
+            retain_pages=args.retain_pages,
         )
     else:
         sess = ServingSession(model, params, batch_size=args.batch, max_len=args.max_len)
@@ -201,8 +238,13 @@ def main(argv=None):
         print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")
         return
     rng = np.random.default_rng(args.seed)
+    template = []
+    if args.prefix_cache == "trie":
+        # Template traffic: every prompt opens with the same two-block
+        # template, so admissions after the first hit the trie.
+        template = rng.integers(2, cfg.vocab_size, size=2 * sess.block_k).tolist()
     pending = [
-        rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, 24))).tolist()
+        template + rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, 24))).tolist()
         for _ in range(args.requests)
     ]
     _, tokens_out, dt = _serve_stream(sess, pending, args.gen_len, args.requests)
@@ -224,6 +266,24 @@ def main(argv=None):
         f"({work['page_dma_bytes'] / 1e6:.2f} MB at "
         f"{args.kv_dtype or 'model'} cache dtype)"
     )
+    if args.speculate != "off":
+        print(
+            f"speculative ({args.speculate}, draft_k={args.draft_k}): "
+            f"{work['accepted_tokens']} tokens over {work['request_steps']} "
+            f"request-steps = {work['accepted_tokens_per_step']:.2f} accepted/step; "
+            f"{work['page_dma_bytes_per_accepted_token'] / 1e3:.2f} KB page DMA per "
+            f"accepted token"
+        )
+    if args.prefix_cache == "trie":
+        print(
+            f"prefix cache: {work['trie_hits']}/{work['trie_admissions']} admissions "
+            f"hit ({work['trie_hit_rate']:.2f} hit rate), "
+            f"{work['prefix_tokens_reused']} prefix tokens reused "
+            f"({work['prefix_tokens_reused_per_admission']:.1f}/adm); pool: "
+            f"{work['live_pages']} live / {work['retained_pages']} retained / "
+            f"{work['free_pages']} free pages, {work['trie_evicted_pages']} evicted"
+        )
+    # Teardown leak audit: close() clears the trie and sweeps the pool.
     sweep = sess.close()
     print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")
 

@@ -16,8 +16,13 @@ companion fp32 scale pool (``scales``): rows are quantized on write
 data and scales together.
 
 Page bookkeeping is host-side Python; only the pools live on the device,
-and row writes are in-place ``index_put_`` / slice copies.  Not in this
-slice: ``truncate``, ``adopt_pages`` / retention pins and the prefix trie.
+and row writes are in-place ``index_put_`` / slice copies.  Besides the
+sequence owners a page may hold retention pins (:meth:`PagedKVCache.pin_pages`),
+taken by :class:`PrefixTrie`, the radix tree over finished prompts' complete
+KV blocks that admission matches and adopts (:meth:`PagedKVCache.adopt_pages`);
+:meth:`PagedKVCache.truncate` rolls a request back (speculative decoding's
+rejected rows).  Moving a pool to another device (the reference's
+``to_device``) belongs to sharded serving and is not ported.
 """
 
 from __future__ import annotations
@@ -30,7 +35,14 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.mla_decode_paged import DEFAULT_PAGE_SIZE, CacheSpec
 
-__all__ = ["CacheSpec", "LayeredPagedKVCache", "OutOfPagesError", "PagedKVCache"]
+__all__ = [
+    "CacheSpec",
+    "DoubleFreeError",
+    "LayeredPagedKVCache",
+    "OutOfPagesError",
+    "PagedKVCache",
+    "PrefixTrie",
+]
 
 
 # fp32 1/127.  The reference's cache writes run ``_quantize_rows`` under
@@ -62,11 +74,16 @@ class OutOfPagesError(RuntimeError):
     """Raised when an append needs more pages than the pool has free."""
 
 
+class DoubleFreeError(RuntimeError):
+    """Raised (debug mode only) when a request id is freed twice."""
+
+
 class PagedKVCache:
     """Block-table paged KV pool: alloc / reserve + write / free.
 
     ``device`` defaults to ``"cuda"`` and raises without CUDA; pass
-    ``device="cpu"`` for a CPU pool.
+    ``device="cpu"`` for a CPU pool.  With ``debug=True`` a double free
+    raises :class:`DoubleFreeError` instead of being a no-op.
     """
 
     def __init__(
@@ -78,6 +95,7 @@ class PagedKVCache:
         dtype=torch.bfloat16,
         spec: CacheSpec | None = None,
         device="cuda",
+        debug: bool = False,
     ):
         if num_pages < 1 or page_size < 1:
             raise ValueError("need at least one page of at least one row")
@@ -86,6 +104,7 @@ class PagedKVCache:
         self.width = width
         self.spec = spec if spec is not None else CacheSpec(dtype=dtype)
         self.dtype = self.spec.dtype
+        self.debug = debug
         self.device = resolve_device(device)
         self.pages = self._make_pool()
         self.scales = self._make_scale_pool() if self.quantized else None
@@ -96,6 +115,10 @@ class PagedKVCache:
         self._seq_len: dict[int, int] = {}
         # Owners per physical page: 0 = on the free list.
         self._ref = np.zeros((num_pages,), np.int32)
+        # Retention pins per page (a prefix cache's references, not a live
+        # sequence's).  Every pin is also counted in ``_ref``, so
+        # ``_ref == sequence owners + _pin`` for every page.
+        self._pin = np.zeros((num_pages,), np.int32)
 
     # -- bookkeeping ---------------------------------------------------- #
     @property
@@ -150,9 +173,16 @@ class PagedKVCache:
             self._free.append(pid)
 
     def free(self, rid: int) -> None:
-        """Release ``rid``'s pages; freeing an id that is not live is a no-op."""
+        """Release ``rid``'s pages; each returns to the free list when its
+        last owner (sequence or pin) lets go.  Freeing an id that is not
+        live is a no-op, or raises :class:`DoubleFreeError` with ``debug``."""
         pages = self._seq_pages.pop(rid, None)
         if pages is None:
+            if self.debug:
+                raise DoubleFreeError(
+                    f"free({rid}): request is not live — it was already "
+                    f"freed or never allocated"
+                )
             return
         for pid in pages:
             self._release_page(pid)
@@ -180,11 +210,97 @@ class PagedKVCache:
         self._seq_pages[dst] = list(shared)
         self._seq_len[dst] = prefix_len
 
+    # -- retention (prefix-cache) references ---------------------------- #
+    def pin_pages(self, pids) -> None:
+        """Take a retention reference on each of ``pids``: a pinned page
+        outlives its sequence owners until :meth:`unpin_pages`.  Pages must
+        be live (some owner still holds them), so a free-list page is never
+        resurrected."""
+        pids = [int(p) for p in pids]
+        for pid in pids:
+            if self._ref[pid] < 1:
+                raise ValueError(
+                    f"cannot pin page {pid}: it is on the free list (pin "
+                    "pages before their last sequence owner releases them)"
+                )
+        for pid in pids:
+            self._ref[pid] += 1
+            self._pin[pid] += 1
+
+    def unpin_pages(self, pids) -> None:
+        """Drop retention references; pages whose last owner was the pin
+        return to the free list."""
+        pids = [int(p) for p in pids]
+        for pid in pids:
+            if self._pin[pid] < 1:
+                raise ValueError(f"page {pid} holds no retention pin")
+        for pid in pids:
+            self._pin[pid] -= 1
+            self._release_page(pid)
+
+    def adopt_pages(self, rid: int, pids, n_rows: int) -> None:
+        """Register ``rid`` as a new sequence aliasing ``pids`` (a prefix-
+        cache hit): :meth:`fork` from a page list instead of a live parent.
+        ``n_rows`` must fill the pages exactly, so the next append starts
+        on a fresh page and never copies an adopted one."""
+        if rid in self._seq_pages:
+            raise KeyError(f"sequence {rid} already allocated")
+        pids = [int(p) for p in pids]
+        if n_rows != len(pids) * self.page_size:
+            raise ValueError(
+                f"adopt_pages needs page-aligned rows: {n_rows} rows do "
+                f"not fill {len(pids)} pages of {self.page_size}"
+            )
+        for pid in pids:
+            if self._ref[pid] < 1:
+                raise ValueError(f"cannot adopt page {pid}: it is on the free list")
+        for pid in pids:
+            self._ref[pid] += 1
+        self._seq_pages[rid] = list(pids)
+        self._seq_len[rid] = n_rows
+
+    def pool_occupancy(self) -> dict:
+        """Page census: ``live_pages`` some sequence references (pinned or
+        not), ``retained_pages`` held only by pins, ``free_pages``; the
+        three sum to ``num_pages``."""
+        return {
+            "live_pages": int(np.sum(self._ref > self._pin)),
+            "retained_pages": int(np.sum((self._ref > 0) & (self._ref == self._pin))),
+            "free_pages": self.num_free_pages,
+            "pinned_pages": int(np.sum(self._pin > 0)),
+        }
+
+    def truncate(self, rid: int, n: int) -> None:
+        """Roll ``rid`` back to its first ``n`` rows (speculative rollback):
+        every page wholly past the new boundary loses this request's
+        reference (a page a sibling still aliases keeps its data; a page
+        only ``rid`` held returns to the free list).  The boundary page,
+        a private copy-on-write copy included, stays; its stale rows are
+        masked by ``kv_len`` and overwritten (rows and int8 scales) by the
+        next append, so no device data moves.  Truncating to the current
+        length is a no-op; ``KeyError`` for a request that is not live,
+        ``ValueError`` for ``n`` outside ``[0, seq_len]``."""
+        cur = self._seq_len[rid]  # KeyError if rid is not live
+        if not 0 <= n <= cur:
+            raise ValueError(
+                f"truncate({rid}, {n}): new length must be in [0, {cur}] "
+                f"(rollback discards tail rows; it cannot extend a request)"
+            )
+        keep = self.pages_needed(n)
+        pages = self._seq_pages[rid]
+        for pid in pages[keep:]:
+            self._release_page(pid)
+        del pages[keep:]
+        self._seq_len[rid] = n
+
     def seq_len(self, rid: int) -> int:
         return self._seq_len[rid]
 
     def seq_pages(self, rid: int) -> list[int]:
         return list(self._seq_pages[rid])
+
+    def live_sequences(self) -> list[int]:
+        return list(self._seq_pages)
 
     def page_refcount(self, pid: int) -> int:
         """Owners of physical page ``pid`` (0 = on the free list)."""
@@ -195,17 +311,22 @@ class PagedKVCache:
         return int(np.sum(self._ref > 1))
 
     def refcount_sweep(self) -> dict:
-        """Audit the host accounting; raises AssertionError on a leak."""
-        expected = np.zeros(self.num_pages, dtype=np.int64)
+        """Audit the host accounting (``_ref`` = sequence owners + pins,
+        the free list exactly the unowned pages); raises AssertionError on
+        a leak, a double free or a duplicated free-list entry."""
+        seq_owned = np.zeros(self.num_pages, dtype=np.int64)
         for pages in self._seq_pages.values():
             for pid in pages:
-                expected[pid] += 1
+                seq_owned[pid] += 1
+        expected = seq_owned + self._pin.astype(np.int64)
         bad = np.nonzero(expected != self._ref)[0]
         assert bad.size == 0, (
             f"refcount mismatch on pages {bad.tolist()[:8]}: expected "
-            f"{expected[bad].tolist()[:8]} owners from the sequence tables, "
-            f"_ref says {self._ref[bad].tolist()[:8]}"
+            f"{expected[bad].tolist()[:8]} owners from the sequence tables + "
+            f"pins, _ref says {self._ref[bad].tolist()[:8]}"
         )
+        neg = np.nonzero(self._pin < 0)[0]
+        assert neg.size == 0, f"negative pin count on pages {neg.tolist()[:8]}"
         free = list(self._free)
         free_set = set(free)
         assert len(free) == len(free_set), (
@@ -218,7 +339,8 @@ class PagedKVCache:
             f"unowned but not free (leaked)"
         )
         return {
-            "live_pages": int(np.sum(expected > 0)),
+            "live_pages": int(np.sum(seq_owned > 0)),
+            "retained_pages": int(np.sum((seq_owned == 0) & (self._pin > 0))),
             "free_pages": len(free),
             "aliased_pages": int(np.sum(expected > 1)),
             "live_sequences": len(self._seq_pages),
@@ -377,13 +499,14 @@ class LayeredPagedKVCache(PagedKVCache):
         dtype=torch.bfloat16,
         spec: CacheSpec | None = None,
         device="cuda",
+        debug: bool = False,
     ):
         if num_layers < 1:
             raise ValueError("need at least one layer")
         self.num_layers = num_layers
         super().__init__(
             num_pages=num_pages, page_size=page_size, width=width,
-            dtype=dtype, spec=spec, device=device,
+            dtype=dtype, spec=spec, device=device, debug=debug,
         )
 
     def _make_pool(self) -> torch.Tensor:
@@ -444,3 +567,252 @@ class LayeredPagedKVCache(PagedKVCache):
         """``rid``'s rows of one layer as a contiguous ``(len, width)``
         tensor (test helper); a quantized pool dequantizes to fp32."""
         return self._gather(rid, self.pages[layer], self.layer_scales(layer))
+
+
+# --------------------------------------------------------------------------- #
+# radix prefix trie: token-keyed retention over block-aligned page runs
+# --------------------------------------------------------------------------- #
+
+
+class _TrieNode:
+    """One radix edge: a run of complete KV blocks (``blocks``, each a
+    tuple of ``block_tokens`` token ids) and the pages holding their rows
+    (``pages_per_block`` per block).  The node holds one retention pin per
+    page; children are keyed by their edge's first block."""
+
+    __slots__ = ("blocks", "pages", "children", "parent", "last_used")
+
+    def __init__(self, blocks, pages, parent):
+        self.blocks: list[tuple] = list(blocks)
+        self.pages: list[int] = list(pages)
+        self.children: dict[tuple, _TrieNode] = {}
+        self.parent: _TrieNode | None = parent
+        self.last_used = 0
+
+
+class PrefixTrie:
+    """Radix tree over cached prompt prefixes, at KV-block granularity.
+
+    Prompts retain their complete-block pages here (one retention pin per
+    page, :meth:`PagedKVCache.pin_pages`); admission matches a new prompt
+    against the tree (:meth:`match`) and adopts every matched page
+    (:meth:`PagedKVCache.adopt_pages`); a leaf-first LRU evictor reclaims
+    cold subtrees under pool pressure (:meth:`reclaim`) or the
+    ``retain_pages`` budget (:meth:`trim_to_budget`).  Matches are whole
+    blocks (``block_tokens``, a multiple of the page size), so adoption is
+    page-aligned and a hit is exactly what the nested prefix scheduler
+    groups.  ``epoch`` counts topology changes (insert, split, evict); a
+    memoizing decode scheduler keys on it.  Host-side Python, O(blocks
+    touched) per call.
+    """
+
+    def __init__(self, cache: PagedKVCache, *, block_tokens: int,
+                 retain_pages: int | None = None):
+        if block_tokens < 1 or block_tokens % cache.page_size:
+            raise ValueError(
+                f"block_tokens={block_tokens} must be a positive multiple "
+                f"of the cache page_size={cache.page_size} (trie nodes own "
+                "whole pages)"
+            )
+        if retain_pages is not None and retain_pages < 0:
+            raise ValueError(f"retain_pages must be >= 0, got {retain_pages}")
+        self.cache = cache
+        self.block_tokens = int(block_tokens)
+        self.pages_per_block = block_tokens // cache.page_size
+        self.retain_pages = retain_pages
+        self.root = _TrieNode((), (), None)
+        self.epoch = 0
+        self._clock = 0
+        self.pinned_pages = 0
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.inserted_nodes = 0
+        self.evicted_nodes = 0
+        self.evicted_pages = 0
+
+    # -- structure ------------------------------------------------------- #
+    def _blocks_of(self, tokens) -> list[tuple]:
+        bt = self.block_tokens
+        return [tuple(tokens[i * bt : (i + 1) * bt]) for i in range(len(tokens) // bt)]
+
+    def _nodes(self):
+        """Every node but the root, depth first."""
+        stack = [self.root]
+        while stack:
+            for child in stack.pop().children.values():
+                yield child
+                stack.append(child)
+
+    @property
+    def num_nodes(self) -> int:
+        return sum(1 for _ in self._nodes())
+
+    def _leaves(self) -> list[_TrieNode]:
+        return [n for n in self._nodes() if not n.children]
+
+    def _freeable(self, node: _TrieNode) -> int:
+        """Pages of ``node`` held only by pins: unpinning frees them."""
+        ref, pin = self.cache._ref, self.cache._pin
+        return sum(1 for p in node.pages if ref[p] == pin[p])
+
+    def _any_freeable(self) -> bool:
+        ref, pin = self.cache._ref, self.cache._pin
+        return bool(np.any((pin > 0) & (ref == pin)))
+
+    def _common(self, child: _TrieNode, blocks, i: int) -> int:
+        """How many of ``child``'s blocks equal ``blocks[i:]``'s first."""
+        k = 0
+        while k < len(child.blocks) and i + k < len(blocks) and child.blocks[k] == blocks[i + k]:
+            k += 1
+        return k
+
+    # -- lookup ---------------------------------------------------------- #
+    def match(self, tokens, *, touch: bool = True, count: bool = True):
+        """Longest cached prefix of ``tokens``: ``(matched_rows, pages)``.
+        A partial edge match is used as it is (no split).  ``touch``
+        refreshes the walked nodes' LRU stamps; ``count`` the hit/miss
+        counters."""
+        blocks = self._blocks_of(tokens)
+        if touch:
+            self._clock += 1
+        node, pages, i = self.root, [], 0
+        while i < len(blocks):
+            child = node.children.get(blocks[i])
+            if child is None:
+                break
+            k = self._common(child, blocks, i)
+            if touch:
+                child.last_used = self._clock
+            pages.extend(child.pages[: k * self.pages_per_block])
+            i += k
+            if k < len(child.blocks):
+                break
+            node = child
+        matched = i * self.block_tokens
+        if count:
+            if matched:
+                self.hits += 1
+                self.hit_tokens += matched
+            else:
+                self.misses += 1
+        return matched, pages
+
+    # -- retention ------------------------------------------------------- #
+    def _split(self, node: _TrieNode, k: int) -> _TrieNode:
+        """Split ``node``'s edge after ``k`` blocks; returns the new top
+        half (the pins stay as they are: the same pages, two nodes)."""
+        ppb = self.pages_per_block
+        top = _TrieNode(node.blocks[:k], node.pages[: k * ppb], node.parent)
+        top.last_used = node.last_used
+        node.parent.children[top.blocks[0]] = top
+        node.blocks = node.blocks[k:]
+        node.pages = node.pages[k * ppb :]
+        node.parent = top
+        top.children[node.blocks[0]] = node
+        self.epoch += 1
+        return top
+
+    def insert(self, tokens, pages) -> int:
+        """Retain ``tokens``' complete blocks backed by ``pages`` (the
+        sequence's leading pages, still live: pins only stack on live
+        pages).  Blocks already cached keep their pages; only the uncovered
+        tail is pinned.  Returns the pages newly pinned, then enforces the
+        ``retain_pages`` budget."""
+        ppb = self.pages_per_block
+        blocks = self._blocks_of(tokens)
+        if len(pages) < len(blocks) * ppb:
+            raise ValueError(
+                f"insert of {len(blocks)} blocks needs {len(blocks) * ppb} "
+                f"pages, got {len(pages)}"
+            )
+        self._clock += 1
+        node, i, pinned = self.root, 0, 0
+        while i < len(blocks):
+            child = node.children.get(blocks[i])
+            if child is None:
+                tail = [int(p) for p in pages[i * ppb : len(blocks) * ppb]]
+                self.cache.pin_pages(tail)
+                fresh = _TrieNode(blocks[i:], tail, node)
+                fresh.last_used = self._clock
+                node.children[blocks[i]] = fresh
+                self.pinned_pages += len(tail)
+                pinned = len(tail)
+                self.inserted_nodes += 1
+                self.epoch += 1
+                break
+            k = self._common(child, blocks, i)
+            child.last_used = self._clock
+            if k < len(child.blocks):
+                if i + k == len(blocks):
+                    break  # ends inside the edge: already covered
+                child = self._split(child, k)
+            node = child
+            i += k
+        if self.retain_pages is not None:
+            self.trim_to_budget()
+        return pinned
+
+    # -- eviction -------------------------------------------------------- #
+    def _evict_node(self, node: _TrieNode) -> int:
+        """Unpin one leaf and detach it; returns the pages freed."""
+        before = self.cache.num_free_pages
+        del node.parent.children[node.blocks[0]]
+        self.cache.unpin_pages(node.pages)
+        self.pinned_pages -= len(node.pages)
+        self.evicted_nodes += 1
+        self.evicted_pages += len(node.pages)
+        self.epoch += 1
+        return self.cache.num_free_pages - before
+
+    def reclaim(self, n_pages: int) -> int:
+        """Evict leaves until ``n_pages`` returned to the free list, or
+        nothing pinned can free a page: leaves whose pages free first,
+        oldest first; a leaf that frees nothing only to reach a freeable
+        ancestor.  Pages a live request aliases are never freed.  Returns
+        the pages freed."""
+        freed = 0
+        while freed < int(n_pages) and self._any_freeable():
+            leaves = self._leaves()
+            if not leaves:
+                break
+            victim = min(leaves, key=lambda n: (self._freeable(n) == 0, n.last_used))
+            freed += self._evict_node(victim)
+        return freed
+
+    def trim_to_budget(self) -> int:
+        """LRU-evict leaves until ``pinned_pages <= retain_pages`` (no-op
+        when unbudgeted); returns the pages freed."""
+        if self.retain_pages is None:
+            return 0
+        freed = 0
+        while self.pinned_pages > self.retain_pages:
+            leaves = self._leaves()
+            if not leaves:
+                break
+            freed += self._evict_node(min(leaves, key=lambda n: n.last_used))
+        return freed
+
+    def clear(self) -> int:
+        """Evict everything (session teardown); returns the pages freed."""
+        freed = 0
+        while True:
+            leaves = self._leaves()
+            if not leaves:
+                return freed
+            for leaf in leaves:
+                freed += self._evict_node(leaf)
+
+    # -- introspection --------------------------------------------------- #
+    def stats(self) -> dict:
+        return {
+            "pinned_pages": self.pinned_pages,
+            "num_nodes": self.num_nodes,
+            "epoch": self.epoch,
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_tokens": self.hit_tokens,
+            "inserted_nodes": self.inserted_nodes,
+            "evicted_nodes": self.evicted_nodes,
+            "evicted_pages": self.evicted_pages,
+        }

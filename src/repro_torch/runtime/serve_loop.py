@@ -22,6 +22,16 @@ via ``models.transformer.lm_decode_step_paged``:
 * ``fork`` / ``admit_with_prefix`` branch a live request by page aliasing
   (copy-on-write at the next append); with ``prefix_sharing`` the family's
   shared blocks are attended once per group in every layer;
+* ``prefix_cache="trie"`` reuses prefixes automatically: a
+  :class:`~repro_torch.runtime.kv_cache.PrefixTrie` retains every prompt's
+  complete ``block_k`` blocks, admission adopts the longest match and
+  prefills only the rest, and decode groups the aliased blocks by the
+  trie's topology (nested groups);
+* ``speculate="ngram"`` makes each step a draft-verify step: an
+  :class:`NGramProposer` drafts ``draft_k - 1`` tokens per request, one
+  ``draft_k``-row decode verifies them, the longest draft prefix equal to
+  the model's greedy picks is accepted and the rejected rows are rolled
+  back (``cache.truncate``): the tokens are those of ``speculate="off"``;
 * ``kv_dtype="int8"`` stores the latent pages as int8 with per-row scales;
 * ``work_stats`` reports the reference's deterministic work counters.
 
@@ -30,8 +40,8 @@ via ``models.transformer.lm_decode_step_paged``:
 queries and latent rows; it decodes through the queue kernel (K2, int8 and
 shared prefixes included) or the padded ``(B, W)`` kernel (K5).
 
-Speculation, the prefix trie, ``prefill_budget`` interleaving,
-suspend/resume and sharding belong to later slices of the port and raise
+``prefill_budget`` interleaving, suspend/resume and sharding
+(``head_shards > 1``) belong to the next slices of the port and raise
 ``NotImplementedError`` when asked for.
 """
 
@@ -175,21 +185,67 @@ class ServingSession:
         return self.outputs.pop(rid)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet; it comes in a later slice of the port"
-    )
+def _not_ported(what: str, when: str = "a later slice of the port"):
+    raise NotImplementedError(f"{what} is not ported yet; it comes in {when}")
+
+
+_NEXT_SLICE = ("a later slice of the port: the next one, with suspend/resume and "
+               "prefill_budget interleaving")
+
+
+class NGramProposer:
+    """Self-speculative n-gram drafter over a request's own token history.
+
+    ``propose(history, k)`` returns ``k`` draft tokens: for the longest
+    n-gram suffix of ``history`` (``max_n`` down to ``min_n``) it finds the
+    most recent earlier occurrence with a full ``k``-token continuation and
+    proposes it; failing that, the longest continuation found, padded with
+    its own last token; with no match at all, the last history token
+    repeated.  Drafts cost no model call and only cost acceptance when
+    wrong: the verify step keeps greedy decoding exact.  Any object with
+    the same ``propose(history, k)`` can replace it.
+    """
+
+    def __init__(self, max_n: int = 3, min_n: int = 1):
+        if not 1 <= min_n <= max_n:
+            raise ValueError(
+                f"need 1 <= min_n <= max_n, got min_n={min_n} max_n={max_n}"
+            )
+        self.max_n = max_n
+        self.min_n = min_n
+
+    def propose(self, history, k: int) -> list[int]:
+        if k < 1:
+            raise ValueError(f"propose needs k >= 1 draft tokens, got {k}")
+        hist = list(map(int, history))
+        if not hist:
+            return [0] * k
+        best: list[int] = []
+        for n in range(min(self.max_n, len(hist) - 1), self.min_n - 1, -1):
+            suffix = hist[-n:]
+            for i in range(len(hist) - n - 1, -1, -1):  # most recent first
+                if hist[i : i + n] == suffix:
+                    cont = hist[i + n : i + n + k]
+                    if len(cont) == k:
+                        return cont
+                    if len(cont) > len(best):
+                        best = cont
+        if best:
+            return best + [best[-1]] * (k - len(best))
+        return [hist[-1]] * k
 
 
 class PagedServingSession:
     """Full-model greedy serving over the paged cache backend.
 
-    On a CUDA device the plain-queue decode step (``prefix_sharing`` off)
-    replays a CUDA graph per live batch size and queue capacity
-    (:class:`~repro_torch.runtime.step_graph.PagedDecodeStep`,
+    On a CUDA device the plain-queue decode step (``prefix_sharing`` off,
+    ``speculate="off"``) replays a CUDA graph per live batch size and
+    queue capacity (:class:`~repro_torch.runtime.step_graph.PagedDecodeStep`,
     ``step_graph``; ``graph_captures`` counts them), over bf16 or int8
-    pages: the reference jits the halves of each layer.  Prefill chunks
-    and the shared-prefix step (``prefix_sharing``) run eagerly.
+    pages: the reference jits the halves of each layer.  Prefill chunks,
+    the shared-prefix step (``prefix_sharing``, forced on by
+    ``prefix_cache="trie"``) and the multi-row verify step
+    (``speculate="ngram"``) run eagerly.
     """
 
     def __init__(
@@ -209,24 +265,40 @@ class PagedServingSession:
         kv_dtype=None,
         head_shards: int = 1,
         speculate: str = "off",
+        draft_k: int = 4,
+        draft_proposer=None,
         prefix_cache: str = "off",
+        retain_pages: int | None = None,
         prefill_budget: int | None = None,
     ):
         from repro_torch.kernels import ops
         from repro_torch.kernels.decode_schedule import DecodeScheduler
         from repro_torch.models import transformer as _tf
-        from repro_torch.runtime.kv_cache import CacheSpec
+        from repro_torch.runtime.kv_cache import CacheSpec, PrefixTrie
         from repro_torch.runtime.step_graph import PagedDecodeStep
 
         _tf.check_paged_compatible(model.cfg)
         if head_shards != 1:
             _not_ported("head_shards > 1 (tensor-parallel head groups)")
-        if speculate != "off":
-            _not_ported(f"speculate={speculate!r} (draft-verify decode)")
-        if prefix_cache != "off":
-            _not_ported(f"prefix_cache={prefix_cache!r} (the radix prefix trie)")
         if prefill_budget is not None:
-            _not_ported("prefill_budget (chunked-prefill/decode interleaving)")
+            _not_ported("prefill_budget (chunked-prefill/decode interleaving)", _NEXT_SLICE)
+        if prefix_cache not in ("off", "trie"):
+            raise ValueError(
+                f"prefix_cache={prefix_cache!r} is not a cache policy; "
+                "pick 'off' or 'trie'"
+            )
+        if speculate not in ("off", "ngram"):
+            raise ValueError(
+                f"speculate={speculate!r} is not a draft policy; pick 'off' "
+                "or 'ngram' (or pass a custom draft_proposer with ngram)"
+            )
+        if speculate != "off" and draft_k < 2:
+            raise ValueError(
+                f"draft_k={draft_k} buys nothing: a speculative step "
+                "verifies 1 pending + (draft_k - 1) draft rows, so "
+                "draft_k >= 2 is the smallest step that amortizes anything "
+                "(use speculate='off' for plain 1-row decode)"
+            )
         self.model = model
         self.params = params
         self.cfg = model.cfg
@@ -249,11 +321,29 @@ class PagedServingSession:
         self.prefix_sharing = prefix_sharing
         self.prefill_chunk = prefill_chunk
         self.max_batch = max_batch
+        self.prefix_cache = prefix_cache
+        self.trie = None
+        if prefix_cache == "trie":
+            # A trie hit aliases complete blocks, so a warm suffix prefill
+            # starts on a block boundary; with the chunk dividing block_k it
+            # is a cold prefill's chunk boundary too (bit-identical rows).
+            if self.block_k % prefill_chunk:
+                raise ValueError(
+                    f"prefix_cache='trie' needs prefill_chunk "
+                    f"({prefill_chunk}) to divide block_k ({self.block_k}) "
+                    "so warm suffix prefills land on the same chunk "
+                    "boundaries as cold ones (bit-identical outputs)"
+                )
+            # Hits pay off only when decode groups the aliased blocks.
+            self.prefix_sharing = True
+            self.trie = PrefixTrie(self.cache, block_tokens=self.block_k,
+                                   retain_pages=retain_pages)
         # fp32 models keep fp32 kernel precision (bit-comparable greedy
         # outputs with the reference); bf16 serving uses bf16 kernels.
         self.compute_dtype = torch.float32 if self.dtype == torch.float32 else None
         self._scheduler = DecodeScheduler(
-            block_k=self.block_k, num_splits=num_splits, min_group=min_group
+            block_k=self.block_k, num_splits=num_splits, min_group=min_group,
+            nested=self.trie is not None,
         )
         self.step_graph = PagedDecodeStep(
             params, self.cache, cfg=self.cfg, scheduler=self._scheduler,
@@ -261,6 +351,17 @@ class PagedServingSession:
             compute_dtype=self.compute_dtype,
         )
         self._layers = model.layer_params(params)
+        self.speculate = speculate
+        self.draft_k = int(draft_k)
+        self._proposer = draft_proposer or (NGramProposer() if speculate != "off" else None)
+        # Token history per request (prompt + emitted) feeds the drafter;
+        # kept with speculation off too, so forked children inherit it.
+        self._prompt: dict[int, list[int]] = {}
+        # A forked child's (parent rid, shared rows): the alias point.
+        self._family: dict[int, tuple[int, int]] = {}
+        self._ballast: set[int] = set()
+        self._next_ballast = 0
+        self.trie_admissions = 0
         self.active: list[int] = []
         self.outputs: dict[int, list[int]] = {}
         self.last_token: dict[int, int] = {}
@@ -310,13 +411,21 @@ class PagedServingSession:
 
     def work_stats(self) -> dict:
         """Deterministic decode-work proxies accumulated across steps
-        (the reference's keys for the features this slice serves).
+        (the reference's keys for the features ported so far).
         ``page_dma_bytes`` is dtype-aware: int8 pages count their scale
-        strips; with prefix sharing a shared block counts once per group."""
+        strips; with prefix sharing a shared block counts once per group.
+        Under speculation ``query_rows`` counts every verify row and
+        ``accepted_tokens`` only the rows that became output."""
         page_dma_bytes = self.page_dmas * self.cache_spec.bytes_per_page(
             self.cache.page_size, self.cache.width
         )
-        sweep = self.cache.refcount_sweep()
+        occ = self.cache.pool_occupancy()
+        if self.trie is not None:
+            ts = self.trie.stats()
+            trie_hits, trie_misses = ts["hits"], ts["misses"]
+            reused, evicted = ts["hit_tokens"], ts["evicted_pages"]
+        else:
+            trie_hits = trie_misses = reused = evicted = 0
         return {
             "decode_steps": self.decode_steps,
             "request_steps": self.request_steps,
@@ -330,7 +439,16 @@ class PagedServingSession:
             "rows_attended": self.rows_attended,
             "aliased_pages": self.cache.num_aliased_pages(),
             "free_pages": self.cache.num_free_pages,
-            "live_pages": sweep["live_pages"],
+            # Pool occupancy and trie reuse (zeros with the trie off).
+            "live_pages": occ["live_pages"],
+            "retained_pages": occ["retained_pages"],
+            "trie_hits": trie_hits,
+            "trie_misses": trie_misses,
+            "trie_admissions": self.trie_admissions,
+            "trie_hit_rate": trie_hits / max(trie_hits + trie_misses, 1),
+            "prefix_tokens_reused": reused,
+            "prefix_tokens_reused_per_admission": reused / max(self.trie_admissions, 1),
+            "trie_evicted_pages": evicted,
             "work_units": self.work_units,
             "prefill_chunks": self.prefill_chunks,
             "prefill_stall_steps": self.prefill_stall_steps,
@@ -373,7 +491,12 @@ class PagedServingSession:
 
     def add_request(self, prompt_tokens) -> int | None:
         """Chunk-prefill a prompt into fresh pages; its rid, or None when
-        the pool lacks pages or the batch is full (the caller retries)."""
+        the pool lacks pages or the batch is full (the caller retries).
+
+        With ``prefix_cache="trie"`` the prompt's complete blocks before
+        its last token are matched against the trie, the matched pages
+        adopted (no copy, every layer), and only the rest prefilled; cold
+        retained subtrees are reclaimed before admission fails."""
         from repro_torch.models import transformer as _tf
 
         prompt = list(map(int, prompt_tokens))
@@ -392,31 +515,78 @@ class PagedServingSession:
             )
         if self.max_batch is not None and len(self.active) >= self.max_batch:
             return None
-        if not self.cache.has_room(None, len(prompt)):
-            return None
+        matched, tpages = 0, []
+        if self.trie is None:
+            if not self.cache.has_room(None, len(prompt)):
+                return None
+        else:
+            # The last prompt position must run through prefill (it gives
+            # the first logits row): only whole blocks before it are reused.
+            usable = ((len(prompt) - 1) // self.block_k) * self.block_k
+            matched, tpages = self.trie.match(prompt[:usable])
+            self.trie_admissions += 1
         rid = self._next_id
         self._next_id += 1
-        self.cache.alloc(rid)
+        # Adopt before any reclaim: the adoption's references keep the
+        # matched pages off the evictor's freeable list.
+        if matched:
+            self.cache.adopt_pages(rid, tpages, matched)
+        else:
+            self.cache.alloc(rid)
+        deficit = need - len(tpages) - self.cache.num_free_pages
+        if deficit > 0 and self.trie is not None:
+            self.trie.reclaim(deficit)
+        if need - len(tpages) > self.cache.num_free_pages:
+            self.cache.free(rid)  # the adoption's references drop; pins stay
+            return None
+        self._prompt[rid] = prompt
         self._note_admit(rid)
         self._prefill_shapes.add((1, self.prefill_chunk))
         logits = _tf.lm_prefill_paged(
             self.params,
-            prompt,
+            prompt[matched:],
             cfg=self.cfg,
             cache=self.cache,
             rid=rid,
+            start_pos=matched,
             chunk=self.prefill_chunk,
             table_width=self.table_width,
             block_k=self.block_k,
             compute_dtype=self.compute_dtype,
         )
-        self._count_prefill(len(prompt))
+        self._count_prefill(len(prompt) - matched)
+        if self.trie is not None:
+            # Publish the live prefix at once, so concurrent same-template
+            # admissions alias it without waiting for this request to end.
+            self._retain_prompt(rid)
         return self._admit(rid, int(torch.argmax(logits[0])))
+
+    def _retain_prompt(self, rid: int) -> None:
+        """Pin ``rid``'s complete prompt blocks into the trie (blocks
+        already covered add nothing).  Only :meth:`add_request` prompts
+        qualify: their rows were all prefill-written at chunk boundaries a
+        cold prefill shares; fork / admit_with_prefix children are not
+        retained."""
+        prompt = self._prompt.get(rid, [])
+        n_blocks = len(prompt) // self.block_k
+        if not n_blocks:
+            return
+        ppb = self.block_k // self.cache.page_size
+        self.trie.insert(prompt[: n_blocks * self.block_k],
+                         self.cache.seq_pages(rid)[: n_blocks * ppb])
 
     # -- decode ----------------------------------------------------------- #
     def step(self) -> None:
         """One greedy decode step for every live request (one schedule):
-        a graph replay on a CUDA device unless ``prefix_sharing`` is on."""
+        a graph replay on a CUDA device unless ``prefix_sharing`` is on or
+        the step verifies drafts.
+
+        With ``speculate="ngram"`` each request feeds ``[pending, d_1 ..
+        d_{k-1}]`` (drafts from the proposer) through one ``k``-row decode;
+        the longest draft prefix equal to the model's greedy picks is
+        accepted, so 1 to ``k`` tokens are emitted, exactly those of 1-row
+        decoding (row i attends only rows < i), and the rejected rows are
+        rolled back by ``cache.truncate``."""
         from repro_torch.kernels.decode_schedule import (
             PrefixSchedule,
             prefix_queue_grid_items,
@@ -427,9 +597,16 @@ class PagedServingSession:
         rids = list(self.active)
         if not rids:
             return
-        tokens = np.asarray([self.last_token[r] for r in rids], np.int64)[:, None]
+        s = self.draft_k if self.speculate != "off" else 1
+        drafts = [[] for _ in rids]
+        if s > 1:
+            drafts = [self._proposer.propose(self._prompt[r] + self.outputs[r], s - 1)
+                      for r in rids]
+        tokens = np.asarray([[self.last_token[r]] + [int(t) for t in d]
+                             for r, d in zip(rids, drafts)], np.int64)
+        # Pre-append lengths: the rollback targets and the accounting.
         pre = {r: self.cache.seq_len(r) for r in rids}
-        if self.prefix_sharing:
+        if self.prefix_sharing or s > 1:
             logits = _tf.lm_decode_step_paged(
                 self.params,
                 tokens,
@@ -437,8 +614,11 @@ class PagedServingSession:
                 cache=self.cache,
                 rids=rids,
                 scheduler=self._scheduler,
-                prefix_sharing=True,
-                extra_key=tuple(rids),
+                prefix_sharing=self.prefix_sharing,
+                # The trie epoch changes with every insert, split and
+                # eviction: aliasing can change under an unchanged live set.
+                extra_key=(tuple(rids), self.trie.epoch) if self.trie is not None
+                else tuple(rids),
                 table_width=self.table_width,
                 block_k=self.block_k,
                 num_splits=self.num_splits,
@@ -446,35 +626,48 @@ class PagedServingSession:
             )
         else:
             logits = self.step_graph(tokens, rids)
-        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, 1)
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()  # (B, s)
         self.work_units += 1  # one fused decode launch
         for i, r in enumerate(rids):
-            tok = int(greedy[i, 0])
-            self.outputs[r].append(tok)
-            self.last_token[r] = tok
+            # Accept drafts while each equals the greedy pick before it;
+            # the first greedy pick is always emitted.
+            m = 0
+            while m < s - 1 and int(drafts[i][m]) == int(greedy[i, m]):
+                m += 1
+            emitted = [int(t) for t in greedy[i, : m + 1]]
+            self.outputs[r].extend(emitted)
+            self.last_token[r] = emitted[-1]
             self._note_emit(r)
-            self.accepted_tokens += 1
-        # Work accounting: the step's schedule, replayed by all L layers.
+            if m + 1 < s:
+                # keep the pending token's row and the m accepted drafts'
+                self.cache.truncate(r, pre[r] + 1 + m)
+            self.accepted_tokens += m + 1
+        # Work accounting: the step's schedule, replayed by all L layers,
+        # at the schedule's lengths (rollback refunds pages, not reads).
         self.decode_steps += 1
         self.request_steps += len(rids)
-        self.query_rows += len(rids)
+        self.query_rows += len(rids) * s
         self._decode_shapes.add(len(rids))
-        kv = np.asarray([pre[r] + 1 for r in rids], np.int64)
+        kv = np.asarray([pre[r] + s for r in rids], np.int64)
         sched = self._scheduler.current
         grid_items = (
             prefix_queue_grid_items if isinstance(sched, PrefixSchedule) else queue_grid_items
         )
-        acct = grid_items(sched, kv, self.cache.page_size)
+        acct = grid_items(sched, kv, self.cache.page_size, query_rows=s)
         self.page_dmas += int(acct["page_dmas"]) * self.cfg.n_layers
-        self.rows_attended += int(kv.sum()) * self.cfg.n_layers
+        self.rows_attended += int(kv.sum()) * s * self.cfg.n_layers
 
     def finish(self, rid: int) -> list[int]:
-        """Retire ``rid``: its pages return to the pool; returns its tokens."""
+        """Retire ``rid``: its pages return to the pool (aliased pages when
+        their last owner goes; with the trie on, its prompt blocks stay
+        retained, pinned at admission); returns its tokens."""
         if rid not in self.active:
             raise KeyError(f"request {rid} is not live")
         self.active.remove(rid)
         self.cache.free(rid)
         self.last_token.pop(rid, None)
+        self._prompt.pop(rid, None)
+        self._family.pop(rid, None)
         return self.outputs.pop(rid)
 
     def fork(self, rid: int, prefix_len: int | None = None) -> int:
@@ -497,6 +690,8 @@ class PagedServingSession:
         self.active.append(child)
         self.outputs[child] = list(self.outputs[rid])
         self.last_token[child] = self.last_token[rid]
+        self._prompt[child] = list(self._prompt[rid])
+        self._family[child] = (rid, self.cache.seq_len(child))
         vt = self.work_units
         self._lat[child] = {"admit": vt, "first": vt, "last": vt}
         return child
@@ -528,6 +723,12 @@ class PagedServingSession:
             self.cache.free(child)
             return None
         start = self.cache.seq_len(child)
+        # The child's history: the parent's cached rows (prompt +
+        # outputs[:-1]; the last output is not a row yet) up to the prefix,
+        # then its suffix.
+        ctx = (self._prompt[parent_rid] + self.outputs[parent_rid])[:-1]
+        self._prompt[child] = ctx[:start] + suffix
+        self._family[child] = (parent_rid, start)
         self._note_admit(child)
         self._prefill_shapes.add((1, self.prefill_chunk))
         logits = _tf.lm_prefill_paged(
@@ -546,13 +747,47 @@ class PagedServingSession:
         return self._admit(child, int(torch.argmax(logits[0])))
 
     def suspend(self, rid: int):
-        _not_ported("suspend/resume (recoverable eviction by replay)")
+        _not_ported("suspend/resume (recoverable eviction by replay)", _NEXT_SLICE)
+
+    # -- pool pressure and the prefix cache ------------------------------ #
+    def hold_pages(self, n: int) -> int:
+        """Seize up to ``n`` free pages as ballast (pool-pressure fault
+        injection) under an internal negative rid; returns its handle for
+        :meth:`release_pages`."""
+        n = min(int(n), self.cache.num_free_pages)
+        self._next_ballast -= 1
+        handle = self._next_ballast  # negative: never a request's rid
+        self.cache.alloc(handle)
+        if n > 0:
+            self.cache.reserve(handle, n * self.cache.page_size)
+        self._ballast.add(handle)
+        return handle
+
+    def release_pages(self, handle: int) -> None:
+        """Return a :meth:`hold_pages` ballast's pages to the free list."""
+        if handle not in self._ballast:
+            raise KeyError(f"{handle} is not a held ballast handle")
+        self._ballast.discard(handle)
+        self.cache.free(handle)
+
+    def reclaim_retained(self, n_pages: int) -> int:
+        """Evict cold retained trie subtrees to free ``>= n_pages`` pages
+        (best effort, leaf-first LRU); the pages freed, 0 with the trie
+        off."""
+        if self.trie is None:
+            return 0
+        return self.trie.reclaim(n_pages)
 
     def close(self) -> dict:
-        """Finish every live request and audit the pool; a leaked page
-        fails here.  Returns the sweep report."""
+        """Finish every live request, release ballast, clear the trie and
+        audit the pool; a leaked page fails here.  Returns the sweep
+        report."""
         for rid in list(self.active):
             self.finish(rid)
+        for handle in list(self._ballast):
+            self.release_pages(handle)
+        if self.trie is not None:
+            self.trie.clear()
         report = self.cache.refcount_sweep()
         assert report["free_pages"] == self.cache.num_pages, (
             f"page leak at teardown: {report}"

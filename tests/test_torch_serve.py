@@ -151,15 +151,18 @@ def test_admission_validation_and_unported_options(models):
     assert sess.add_request(prompts_for(9, (PAGE,))[0]) is None
     with pytest.raises(KeyError):
         sess.finish(7)
-    for kw in (dict(speculate="ngram"), dict(prefix_cache="trie"), dict(prefill_budget=64),
-               dict(head_shards=2)):
+    for kw in (dict(prefill_budget=64), dict(head_shards=2)):
         with pytest.raises(NotImplementedError):
             PagedServingSession(model, params, num_pages=4, page_size=PAGE, **kw)
-    # ported since: an int8, prefix-sharing session builds (its serving is
-    # held against the reference in test_torch_prefix_sharing.py)
+    # ported since: an int8, prefix-sharing session, the trie and n-gram
+    # speculation build (their serving is held against the reference in
+    # test_torch_prefix_sharing.py, test_torch_prefix_trie.py and
+    # test_torch_speculative.py)
     s8 = PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K,
                              kv_dtype="int8", prefix_sharing=True)
     assert s8.cache.quantized and s8.prefix_sharing
+    for kw in (dict(speculate="ngram"), dict(prefix_cache="trie", prefill_chunk=CHUNK)):
+        PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K, **kw)
     with pytest.raises(NotImplementedError, match="later slice"):
         sess.suspend(0)
     with pytest.raises(KeyError):
@@ -189,6 +192,31 @@ def test_launch_serve_cli_int8_shared_prefix_demo_on_cpu(capsys):
     for flag in (["--kv-dtype", "int8"], ["--shared-prefix"]):
         with pytest.raises(SystemExit, match=f"{flag[0]} needs --cache paged"):
             serve.main(["--smoke", "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flags,keys", [
+    (["--prefix-cache", "trie"],
+     ["prefix cache: 2/3 admissions hit (0.67 hit rate), 128 prefix tokens reused",
+      "live / ", " retained / ", " evicted"]),
+    (["--speculate", "ngram", "--draft-k", "3"],
+     ["speculative (ngram, draft_k=3): ", " accepted/step; ", " KB page DMA per accepted token"]),
+])
+def test_launch_serve_cli_trie_and_speculation_on_cpu(capsys, flags, keys):
+    """The reference's summary lines; --page-size 16 --block-k 32 keep the
+    trie's two-block template at 64 tokens on the CPU."""
+    serve.main(["--cache", "paged", "--smoke", "--requests", "3", "--gen-len", "3",
+                "--page-size", "16", "--block-k", "32", "--prefill-chunk", "16",
+                "--device", "cpu", *flags])
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out and "teardown sweep: 64 pages free (clean)" in out
+    for key in keys:
+        assert key in out, key
+    for bad, match in ((["--speculate", "ngram"], "--speculate needs --cache paged"),
+                       (["--prefix-cache", "trie"], "--prefix-cache needs --cache paged"),
+                       (["--cache", "paged", "--retain-pages", "4"],
+                        "--retain-pages needs --prefix-cache trie")):
+        with pytest.raises(SystemExit, match=match):
+            serve.main(["--smoke", "--device", "cpu", *bad])
 
 
 @pytest.fixture
