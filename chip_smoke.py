@@ -96,6 +96,25 @@ root) and exits nonzero on any failure:
 13. **Speculation serve phase**: the paged phase's weights and prompts with
     ``speculate="ngram", draft_k=4``: exact rollback after every step,
     exact K2/K3 counts, acceptance and ms per accepted token printed.
+14. **Small interleaving and suspend references**: the smoke model (fp32)
+    admitted under ``prefill_budget`` and with requests suspended and
+    resumed by replay (one while its prefill is pending): tokens equal to
+    the phased, uninterrupted stream exactly, ``replay_mismatches`` 0, and
+    equal to the CPU path's.
+15. **SLA serve phase**: the paged phase's weights under one burst of the
+    reference's multi-tenant SLA traffic through ``ServeSupervisor``,
+    phased and with ``prefill_budget=96``: TTFT per class and per-token
+    latency (work units and host ms), graph captures; no stall chunks when
+    interleaved, equal units per token and first tokens, exact K2/K3
+    counts, a clean teardown.
+16. **Suspend / replay and chaos phase**: the same weights; suspend and
+    resume of a plain request, a forked child (re-aliased on its live
+    parent, then replayed standalone) and a prompt still pending under a
+    budget, each resumed request's rows held against a copy taken before
+    (rows prefilled on their original chunk boundaries bit-equal, the rest
+    within 1e-2 of the row's max); then ``ServeSupervisor`` fault free and
+    under pool pressure, a slow shard and an abandon: resumes = suspends
+    >= 1, the straggler flagged, no page leaked.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only``.
@@ -1841,6 +1860,461 @@ def spec_serve_phase(cfg, model, params, prompt_lens, paged_results):
     return k2, k3
 
 
+def small_interleave_suspend_check():
+    """The smoke model (fp32) on the card and on the CPU, same weights: the
+    stream admitted under ``prefill_budget`` and the streams with requests
+    suspended and resumed by replay (a decoding request twice, a prompt
+    still pending under a budget once) give the phased, uninterrupted
+    stream's tokens exactly, with ``replay_mismatches`` 0; every card
+    stream equals the CPU path's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    cfg = get_config("deepseek-v2-mla", smoke=True)
+    model = build_model(cfg)
+    params = {"cpu": model.init(torch.Generator("cpu").manual_seed(3), "cpu")}
+    params["cuda"] = to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (70, 9, 24, 40)]
+    gen = 12
+    # step -> ("suspend" | "resume", request index)
+    plans = {"phased": (None, {}), "interleaved": (48, {}),
+             "suspended": (None, {3: ("suspend", 1), 6: ("resume", 1), 8: ("suspend", 2),
+                                  9: ("resume", 2)}),
+             "pending suspended": (48, {0: ("suspend", 0), 2: ("resume", 0)})}
+
+    def stream(dev, budget, events):
+        sess = PagedServingSession(model, params[dev], num_pages=64, page_size=16, block_k=32,
+                                   prefill_chunk=16, prefill_budget=budget)
+        rids = [sess.add_request(p) for p in prompts]
+        for i in range(80):
+            if i in events:
+                what, k = events[i]
+                if what == "suspend":
+                    sess.suspend(rids[k])
+                elif not sess.resume(rids[k]):
+                    raise SystemExit("small interleave/suspend check: a resume found no room")
+            if all(len(sess.outputs.get(r, [])) > gen for r in rids):
+                break
+            sess.step()
+        out = [list(sess.outputs[r][: gen + 1]) for r in rids]
+        work = sess.work_stats()
+        sess.close()
+        return out, work
+
+    want = None
+    for name, (budget, events) in plans.items():
+        (card, work), (cpu, cpu_work) = (stream(dev, budget, events) for dev in ("cuda", "cpu"))
+        want = card if want is None else want
+        log(f"small {name} stream ({cfg.name}, fp32, prompts 70/9/24/40, budget {budget}, "
+            f"{gen} tokens each): tokens {'equal' if card == want else 'DIFFER'} to the "
+            f"phased uninterrupted stream on the card, {'equal' if card == cpu else 'DIFFER'} "
+            f"to the CPU path's; suspends {work['suspends']}, resumes {work['resumes']}, "
+            f"replay_mismatches {work['replay_mismatches']} (CPU {cpu_work['replay_mismatches']}),"
+            f" prefill_stall_steps {work['prefill_stall_steps']}")
+        if (card != want or card != cpu or work["replay_mismatches"]
+                or work["suspends"] != work["resumes"] or work["suspends"] != len(events) // 2
+                or (budget is not None and work["prefill_stall_steps"])):
+            raise SystemExit(f"small interleave/suspend check failed ({name})")
+
+
+def sla_traffic(cfg, chunk=32, seed=7):
+    """One burst of the reference's seeded multi-tenant SLA traffic
+    (``benchmarks/model_serve.py``, ``_sla_traffic``): a batch-class prompt
+    of 16-20 chunks (priority 0), five interactive prompts of chunk/4 to
+    3/2 chunk (priority 2) and one standard prompt of 3/2 to 7/2 chunks
+    (priority 1), arriving within units 0-17 of the work clock; as
+    (arrival, prompt, priority)."""
+    rng = np.random.default_rng(seed)
+    tok = lambda n: rng.integers(2, cfg.vocab_size, size=n).tolist()
+    subs = [(0, tok(int(rng.integers(16 * chunk, 20 * chunk + 1))), 0)]
+    for _ in range(5):
+        arr = int(rng.integers(0, 18))
+        subs.append((arr, tok(int(rng.integers(max(chunk // 4, 2), 3 * chunk // 2))), 2))
+    arr = int(rng.integers(0, 18))
+    subs.append((arr, tok(int(rng.integers(3 * chunk // 2 + 1, 7 * chunk // 2))), 1))
+    return subs
+
+
+class ServeClock:
+    """Host wall times of a supervised run: the work clock (plus the
+    supervisor's idle skew) sampled around every ``add_request``, ``step``
+    and ``resume``, so a work-clock unit maps to the wall time the clock
+    reached it (linear inside a call); each request's emission times; the
+    decode graphs' capture time; each resume's time; the top-2 logit gap
+    of every graphed decode row."""
+
+    def __init__(self, sup):
+        sess = sup.sess
+        self.points, self.emits, self.rid_of = [], {}, {}
+        self.capture_s, self.resume_ms, self.top2 = 0.0, [], {}
+        self.t0 = time.perf_counter()
+        unit = lambda: sess.work_units + sup._clock_skew
+
+        def wrap(fn, name):
+            def call(*a):
+                self.points.append((unit(), self.now()))
+                out = fn(*a)
+                t = self.now()
+                self.points.append((unit(), t))
+                if name == "add_request" and out is not None:
+                    self.rid_of[tuple(a[0])] = out
+                if name == "resume":
+                    self.resume_ms.append(1e3 * (t - self.points[-2][1]))
+                for r, toks in sess.outputs.items():
+                    seen = self.emits.setdefault(r, [])
+                    seen.extend([t] * (len(toks) - len(seen)))
+                return out
+            return call
+
+        for name in ("add_request", "step", "resume"):
+            setattr(sess, name, wrap(getattr(sess, name), name))
+        graphs = sess.step_graph.graphs
+        capture, run = graphs._capture, graphs.run
+
+        def timed_capture(walk):
+            t = self.now()
+            out = capture(walk)
+            self.capture_s += self.now() - t
+            return out
+
+        def gapped_run(key, walk, eager=False):
+            out = run(key, walk, eager=eager)
+            top = out[:, -1].float().topk(2, dim=-1).values.cpu()
+            for r, (a, b) in zip(sess.active, top.tolist()):
+                self.top2[r, len(sess.outputs[r])] = a - b
+            return out
+
+        graphs._capture, graphs.run = timed_capture, gapped_run
+
+    def now(self):
+        torch.cuda.synchronize()
+        return time.perf_counter() - self.t0
+
+    def wall_at(self, unit):
+        """When the work clock first reached ``unit``."""
+        for (u0, t0), (u1, t1) in zip(self.points, self.points[1:]):
+            if u1 >= unit:
+                return t0 if u0 >= unit else t0 + (unit - u0) / (u1 - u0) * (t1 - t0)
+        return self.points[-1][1]
+
+
+def supervised_run(model, params, subs, *, gen_len, plan=None, **session):
+    """``subs`` = [(arrival, prompt, priority)] through a ServeSupervisor
+    (``arrival_unit="work_units"``) over PagedServingSession(**session);
+    K2/K3 counted over the run only.  Returns the run's record."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.runtime.serve_loop import PagedServingSession, ServeSupervisor
+
+    sess = PagedServingSession(model, params, page_size=PAGE, block_k=BLOCK_K, num_splits=2,
+                               prefill_chunk=32, **session)
+    sup = ServeSupervisor(sess, gen_len=gen_len, plan=plan, arrival_unit="work_units")
+    for arr, p, pri in subs:
+        sup.submit(p, priority=pri, arrival=arr)
+    clock = ServeClock(sup)
+    for fn in (mp.mla_decode_paged_queue_rows, mc.combine_split_partials):
+        fn.launches = 0
+    mp.mla_decode_paged_queue_rows.mma_launches = 0
+    t = clock.now()
+    results = sup.run()
+    wall = clock.now() - t
+    counts = (mp.mla_decode_paged_queue_rows.launches, mc.combine_split_partials.launches,
+              mp.mla_decode_paged_queue_rows.mma_launches)
+    rec = dict(results=results, stats=sup.stats(), recs=sup.latency_records(),
+               work=sess.work_stats(), wall=wall, counts=counts, clock=clock,
+               captures=sess.graph_captures, shapes=list(sess.step_graph.shapes),
+               abandoned=set(sup.abandoned_idx), events=list(sup.events))
+    rec["sweep"] = sess.close()
+    rec["pages"] = sess.cache.num_pages
+    rec["rids"] = [clock.rid_of.get(tuple(p)) for _, p, _ in subs]
+    del sess, sup
+    release()
+    return rec
+
+
+def launches_match(rec, n_layers):
+    """K2 = K3 = tensor-core K2 = layers x (prefill chunks + decode steps)."""
+    k2, k3, mma = rec["counts"]
+    want = n_layers * (rec["work"]["prefill_chunks"] + rec["work"]["decode_steps"])
+    return k2 == k3 == mma == want, want
+
+
+def agreement(a, b):
+    """Leading tokens two streams share."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def sla_serve_phase(cfg, model, params):
+    """deepseek-v2-mla at published widths (the paged phase's bf16 weights)
+    under one burst of the reference's SLA traffic at chunk 32, seed 7,
+    through ServeSupervisor(arrival_unit="work_units") over
+    PagedServingSession(num_splits=2, 64 pages), 16 greedy tokens each:
+    once phased (prefill_budget=None), once interleaved
+    (prefill_budget=96).  Prints TTFT p50/p99 per class (work units and
+    host ms), per-token p99, stall chunks, units per output token,
+    tokens/s and graph captures; gates exact K2/K3 counts, interleaving
+    without stalls, equal units per token, equal first tokens and a clean
+    teardown."""
+    from repro_torch.runtime.serve_loop import latency_percentile
+
+    subs = sla_traffic(cfg)
+    classes = {0: "batch", 1: "standard", 2: "interactive"}
+    log(f"== SLA serve phase: {cfg.name} ({cfg.n_layers} layers, the paged phase's bf16 "
+        f"weights), ServeSupervisor(arrival_unit='work_units') over PagedServingSession("
+        f"num_splits=2), 64 pages of {PAGE}, block_k {BLOCK_K}, chunk 32; traffic (arrival "
+        f"unit, prompt tokens, priority): {[(a, len(p), pri) for a, p, pri in subs]} ==")
+    runs, L = {}, cfg.n_layers
+    for name, budget in (("phased", None), ("interleaved", 96)):
+        rec = runs[name] = supervised_run(model, params, subs, gen_len=16, num_pages=64,
+                                          prefill_budget=budget)
+        st, clock, work = rec["stats"], rec["clock"], rec["work"]
+        tokens = sum(len(v) for v in rec["results"].values())
+        rec["upt"] = (work["request_steps"] + work["prefill_chunks"]) / tokens
+        units, ms = {c: [] for c in classes}, {c: [] for c in classes}
+        for (arr, _, pri), r, lat in zip(subs, rec["rids"], rec["recs"]):
+            units[pri].append(lat["first_vt"] - lat["submit_vt"])
+            ms[pri].append(1e3 * (clock.emits[r][0] - clock.wall_at(arr)))
+        gaps_ms = [1e3 * (b - a) for r in rec["rids"] for a, b in zip(clock.emits[r],
+                                                                     clock.emits[r][1:])]
+        ok, want = launches_match(rec, L)
+        rec["ok"] = ok
+        log(f"{name}: {len(rec['results'])} requests, {tokens} tokens in {rec['wall']:.3f} s "
+            f"({tokens / rec['wall']:.2f} tok/s); {work['prefill_chunks']} prefill chunks, "
+            f"{work['decode_steps']} decode steps, {work['work_units']} work units; "
+            f"prefill_stall_steps {st['prefill_stall_steps']}; units per output token "
+            f"{rec['upt']:.4f}; graph captures {rec['captures']} (keys {rec['shapes']}) in "
+            f"{clock.capture_s:.3f} s; teardown sweep {rec['sweep']['free_pages']} of "
+            f"{rec['pages']} pages free")
+        for pri, cname in classes.items():
+            log(f"  TTFT {cname} (priority {pri}, {len(units[pri])} requests): p50/p99 "
+                f"{latency_percentile(units[pri], 50):.0f}/{latency_percentile(units[pri], 99):.0f}"
+                f" units, {latency_percentile(ms[pri], 50):.1f}/"
+                f"{latency_percentile(ms[pri], 99):.1f} ms")
+        log(f"  per-token p50/p99: {st['tpot_units_p50']:.0f}/{st['tpot_units_p99']:.0f} units, "
+            f"{latency_percentile(gaps_ms, 50):.1f}/{latency_percentile(gaps_ms, 99):.1f} ms; "
+            f"launches K2 {rec['counts'][0]} (tensor-core {rec['counts'][2]}), K3 "
+            f"{rec['counts'][1]}; expected layers x (chunks + steps) = {want}")
+    ph, il = runs["phased"], runs["interleaved"]
+    firsts = all(ph["results"][i][0] == il["results"][i][0] for i in range(len(subs)))
+    agree = [agreement(ph["results"][i], il["results"][i]) for i in range(len(subs))]
+    log(f"first tokens {'equal' if firsts else 'DIFFER'} between the runs; later tokens "
+        f"agree for the first {agree} of each request's 17 (not a gate at bf16: the decode "
+        f"products run at other batch sizes)")
+    for i, n in enumerate(agree):
+        if n < 17:
+            gap = [rec["clock"].top2.get((rec["rids"][i], n)) for rec in (ph, il)]
+            log(f"  request {i} diverges at token {n}: top-2 logit gap there "
+                f"{['%.4f' % g if g is not None else 'n/a' for g in gap]} (phased, interleaved)")
+    if not (ph["ok"] and il["ok"]):
+        raise SystemExit("SLA serve phase: K2/K3 launch counts do not match the path")
+    if il["stats"]["prefill_stall_steps"] or ph["upt"] != il["upt"] or not firsts:
+        raise SystemExit("SLA serve phase: stalls when interleaved, unequal units per token "
+                         "or unequal first tokens")
+    for rec in (ph, il):
+        if rec["sweep"]["free_pages"] != rec["pages"] or rec["abandoned"] or any(
+                len(v) != 17 for v in rec["results"].values()):
+            raise SystemExit("SLA serve phase: a request did not complete or pages leaked")
+    return tuple(sum(r["counts"][k] for r in runs.values()) for k in (0, 1))
+
+
+def pool_rows(sess, rid):
+    """Every layer's rows of ``rid``, (L, seq_len, 576), copied."""
+    return torch.stack([sess.cache.gather_contiguous(rid, l)
+                        for l in range(sess.cache.num_layers)])
+
+
+def row_diffs(before, after, lo, hi):
+    """(rows [lo, hi) bit-equal, max |difference| there)."""
+    d = (before[:, lo:hi].float() - after[:, lo:hi].float()).abs()
+    return torch.equal(before[:, lo:hi], after[:, lo:hi]), d.max().item() if d.numel() else 0.0
+
+
+def layer_rel_diffs(before, after):
+    """Per layer, the max over the rows of |difference| / max |row|."""
+    a, b = before.float(), after.float()
+    rel = (a - b).abs().amax(-1) / a.abs().amax(-1).clamp_min(1e-30)
+    return rel.amax(-1).cpu().numpy()
+
+
+def chaos_serve_phase(cfg, model, params):
+    """deepseek-v2-mla at published widths (the paged phase's bf16 weights):
+    suspend / resume by replay, then the supervisor under faults.
+
+    Direct sequence, PagedServingSession(prefill_budget=96, num_splits=2,
+    64 pages): prompts of 37, 120, 250, 513 and 1020 tokens admitted under
+    the budget, an admit_with_prefix child of the 1020-token prompt (40
+    more tokens); a plain request suspended and resumed; the child
+    suspended and resumed while its parent is live (re-aliased prefix);
+    the child suspended again and resumed after its parent finished
+    (standalone replay); a prompt suspended while its prefill is pending.
+    Each resumed request's rows are held against a copy taken before it was
+    suspended: rows prefilled on their original chunk boundaries bit-equal;
+    a row a decode step wrote is recomputed by a prefill chunk (products at
+    M = 32, not the batch), which changes its low bits in every layer it
+    passes, so at layer l it is held within 1e-2 x sqrt(l + 1) of the
+    row's max: the kernels' bf16 tolerance for one recomputed layer,
+    growing as a random walk over the layers below it.
+
+    Then ServeSupervisor over the five prompts in a 24-page pool, fault
+    free and under a FaultPlan of pool pressure (6 pages at step 2 for 6
+    steps, while three requests cross a 128-row page), a slow shard and an
+    abandon: every request not abandoned completes, resumes = suspends >=
+    1, the slow shard is flagged, the abandoned request keeps its partial
+    output, no page leaks."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+    from repro_torch.runtime.fault_injection import FaultEvent, FaultPlan
+    from repro_torch.runtime.serve_loop import PagedServingSession
+
+    log(f"== suspend / replay and chaos phase: {cfg.name} ({cfg.n_layers} layers, the paged "
+        f"phase's bf16 weights), page {PAGE}, block_k {BLOCK_K}, chunk 32, num_splits=2 ==")
+    rng = np.random.default_rng(5)
+    tok = lambda n: rng.integers(2, cfg.vocab_size, size=n).tolist()
+    lens = (37, 120, 250, 513, 1020)
+    prompts, suffix = [tok(n) for n in lens], tok(40)
+    tol, L = 1e-2, cfg.n_layers
+    bound = tol * np.sqrt(np.arange(1, L + 1))
+    sess = PagedServingSession(model, params, num_pages=64, page_size=PAGE, block_k=BLOCK_K,
+                               num_splits=2, prefill_chunk=32, prefill_budget=96)
+    resume_ms = []
+
+    def resume(rid):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        back = sess.resume(rid)
+        torch.cuda.synchronize()
+        resume_ms.append(1e3 * (time.perf_counter() - t))
+        if not back:
+            raise SystemExit(f"chaos phase: request {rid} found no room to resume")
+
+    for fn in (mp.mla_decode_paged_queue_rows, mc.combine_split_partials):
+        fn.launches = 0
+    mp.mla_decode_paged_queue_rows.mma_launches = 0
+    rids = [sess.add_request(p) for p in prompts]
+    while rids[4] not in sess.active:
+        sess.step()
+    child = sess.admit_with_prefix(rids[4], suffix)
+    if child is None or sess.prefill_pending:
+        raise SystemExit("chaos phase: admission of the family failed")
+    for _ in range(3):
+        sess.step()
+    checks = []
+
+    def held(what, rid, before, exact_ranges, n_rows):
+        after = pool_rows(sess, rid)
+        exact = [row_diffs(before, after, lo, hi) for lo, hi in exact_ranges]
+        same = all(e[0] for e in exact)
+        rel = layer_rel_diffs(before, after) if after.shape == before.shape else bound + 1
+        worst = int(np.argmax(rel))
+        log(f"  {what}: rows {list(exact_ranges)} (prefilled on their original chunk "
+            f"boundaries) {'bit-equal' if same else 'DIFFER'} (max |diff| "
+            f"{max([e[1] for e in exact] + [0.0]):.3e}); all {n_rows} rows, max |diff| / "
+            f"max |row|: layer 0 {rel[0]:.3e}, layer {L // 2} {rel[L // 2]:.3e}, layer "
+            f"{L - 1} {rel[-1]:.3e}, largest {rel[worst]:.3e} at layer {worst}; largest "
+            f"against {tol:g} x sqrt(layer + 1): {np.max(rel / bound):.3f}; replay_mismatches "
+            f"{sess.replay_mismatches}; resume {resume_ms[-1]:.1f} ms")
+        checks.append(same and bool(np.all(rel <= bound)))
+
+    # (a) a plain request
+    r = rids[1]
+    before = pool_rows(sess, r)
+    sess.suspend(r)
+    sess.step()
+    resume(r)
+    held(f"plain request {r} ({lens[1]} prompt + {before.shape[1] - lens[1]} decoded rows)",
+         r, before, [(0, lens[1])], before.shape[1])
+    # (b) the child while its parent is live: the prefix is re-aliased
+    prefix = sess._family[child][1]
+    before = pool_rows(sess, child)
+    sess.suspend(child)
+    sess.step()
+    resume(child)
+    shared = sess.cache.seq_pages(child)[: prefix // PAGE] == sess.cache.seq_pages(rids[4])[
+        : prefix // PAGE]
+    held(f"child {child} re-aliased on live parent {rids[4]} (prefix {prefix} rows, pages "
+         f"{'shared' if shared else 'NOT shared'})", child, before,
+         [(0, prefix + len(suffix))], before.shape[1])
+    checks.append(shared)
+    # (c) the child again, replayed standalone after its parent finished
+    before = pool_rows(sess, child)
+    sess.suspend(child)
+    sess.finish(rids[4])
+    resume(child)
+    held(f"child {child} replayed standalone ({before.shape[1]} rows from position 0)",
+         child, before, [(0, lens[4])], before.shape[1])
+    # (d) a prompt suspended while its prefill is pending under the budget
+    late = sess.add_request(prompts[2])
+    sess.step()
+    pending = sess.prefill_pending
+    rec = sess.suspend(late)
+    n_out = len(rec.outputs)
+    resume(late)
+    while not sess.outputs[late]:
+        sess.step()
+    same_first = sess.outputs[late][0] == sess.outputs[rids[2]][0]
+    d = row_diffs(pool_rows(sess, rids[2]), pool_rows(sess, late), 0, lens[2])
+    log(f"  request {late} suspended mid-prefill ({pending} pending, {n_out} tokens out) and resumed: first token {'equal' if same_first else 'DIFFERS'} to "
+        f"request {rids[2]}'s (the same prompt), its {lens[2]} prompt rows "
+        f"{'bit-equal' if d[0] else 'DIFFER'} to that request's; resume {resume_ms[-1]:.1f} ms")
+    checks.append(same_first and d[0] and not n_out)
+    torch.cuda.synchronize()
+    direct = (mp.mla_decode_paged_queue_rows.launches, mc.combine_split_partials.launches,
+              mp.mla_decode_paged_queue_rows.mma_launches)
+    work = sess.work_stats()
+    sweep = sess.close()
+    launches_ok, want = launches_match(dict(counts=direct, work=work), L)
+    log(f"direct sequence: suspends {work['suspends']}, resumes {work['resumes']}, replay "
+        f"prefill tokens {work['replay_prefill_tokens']}, replay_mismatches "
+        f"{work['replay_mismatches']}, prefill_stall_steps {work['prefill_stall_steps']}; "
+        f"launches K2 {direct[0]} (tensor-core {direct[2]}), K3 {direct[1]}, expected "
+        f"layers x (chunks + steps) = {want}; teardown sweep {sweep['free_pages']} pages free")
+    del sess
+    release()
+    if (not all(checks) or not launches_ok or work["suspends"] != work["resumes"]
+            or work["suspends"] != 4 or sweep["free_pages"] != 64):
+        raise SystemExit("chaos phase: a resumed request's rows or tokens do not hold")
+
+    subs = [(0, p, 0) for p in prompts]
+    plan = FaultPlan([FaultEvent(step=2, kind="pool_pressure", pages=6, duration=6),
+                      FaultEvent(step=3, kind="slow_shard", duration=2, factor=9.0),
+                      FaultEvent(step=10, kind="abandon")])
+    calm = supervised_run(model, params, subs, gen_len=16, num_pages=24)
+    chaos = supervised_run(model, params, subs, gen_len=16, num_pages=24, plan=plan)
+    st, clock = chaos["stats"], chaos["clock"]
+    agree = {i: (agreement(calm["results"][i], out), len(out))
+             for i, out in chaos["results"].items()}
+    replay_s = sum(clock.resume_ms) / 1e3
+    log(f"supervisor, fault free: {calm['stats']['completed']} completed, suspends "
+        f"{calm['stats']['suspends']}, {calm['stats']['steps']} steps, {calm['wall']:.3f} s")
+    log(f"supervisor under '{plan.describe()}': completed {st['completed']}, abandoned "
+        f"{st['abandoned']} (submissions {sorted(chaos['abandoned'])}), suspends "
+        f"{st['suspends']}, resumes {st['resumes']}, evictions {st['evictions']}, admission "
+        f"retries {st['admission_retries']}, straggler events {st['straggler_events']}, "
+        f"faults applied {st['faults_applied']} (skipped {st['faults_skipped']}), steps "
+        f"{st['steps']}, {chaos['wall']:.3f} s; replay_mismatches {st['replay_mismatches']}")
+    log(f"  replay: {st['replay_prefill_tokens']} prefill tokens in {replay_s:.3f} s of "
+        f"resumes ({st['replay_prefill_tokens'] / max(replay_s, 1e-9):.1f} tok/s); resume "
+        f"wall ms {[round(t, 1) for t in clock.resume_ms]}; tokens agreeing with the fault-"
+        f"free run (leading, of each): {agree}; events {chaos['events']}; teardown sweep "
+        f"{chaos['sweep']['free_pages']} of {chaos['pages']} pages free")
+    for rec in (calm, chaos):
+        ok, want = launches_match(rec, L)
+        if not ok:
+            raise SystemExit(f"chaos phase: K2/K3 counts {rec['counts']} != {want}")
+        if rec["sweep"]["free_pages"] != rec["pages"]:
+            raise SystemExit("chaos phase: pages leaked")
+        if any(len(out) != 17 for i, out in rec["results"].items() if i not in rec["abandoned"]):
+            raise SystemExit("chaos phase: a request that was not abandoned did not complete")
+    if (st["suspends"] < 1 or st["resumes"] != st["suspends"] or st["straggler_events"] < 1
+            or len(chaos["abandoned"]) != 1 or calm["abandoned"]
+            or not all(0 < len(chaos["results"][i]) < 17 for i in chaos["abandoned"])):
+        raise SystemExit("chaos phase: suspends, stragglers or the abandoned request do not "
+                         "hold")
+    return tuple(direct[k] + sum(r["counts"][k] for r in (calm, chaos)) for k in (0, 1))
+
+
 def shared_prefix_phase(cfg, model, params, kv_dtype):
     """deepseek-v2-mla at published widths (the paged phase's weights)
     through PagedServingSession(kv_dtype=..., prefix_sharing=True): an
@@ -2450,6 +2924,7 @@ def main(argv: list[str]) -> int:
     small_dense_check()
     small_int8_prefix_check()
     small_trie_spec_check()
+    small_interleave_suspend_check()
     release()
     k6, k7, k3g = gemma_dense_phase()
     release()
@@ -2463,6 +2938,10 @@ def main(argv: list[str]) -> int:
     k2t, k2pt, k3t = trie_serve_phase(*paged[:3])
     release()
     k2s, k3s = spec_serve_phase(*paged[:4], paged[4])
+    release()
+    k2l, k3l = sla_serve_phase(*paged[:3])
+    release()
+    k2c, k3c = chaos_serve_phase(*paged[:3])
     release()
     k4 = mla_dense_phase(*paged)
     del paged
@@ -2481,7 +2960,8 @@ def main(argv: list[str]) -> int:
     mma_src = "src/repro_torch/csrc/mla_rows_mma.cuh"
     kernels = [
         dict(name="mla_decode_paged_queue_rows", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/mla_decode_paged.py:490", launches=k2 + k2b + k2t + k2s,
+             replaces="src/repro/kernels/mla_decode_paged.py:490",
+             launches=k2 + k2b + k2t + k2s + k2l + k2c,
              max_abs_err=max(err("mla_decode_paged_queue_rows"),
                              nerr("mla_decode_paged_queue_rows"), nerr("verify-vs-single")),
              ms=d2[0], plain_ms=d2[1],
@@ -2502,7 +2982,7 @@ def main(argv: list[str]) -> int:
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
-             launches=k3 + k3b + k3i8 + k3g + k3t + k3s,
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),

@@ -1,9 +1,10 @@
 """Flat work-queue scheduling for AMLA decode (paper §4.2 + flash-decoding).
 
 Copied from ``repro.kernels.decode_schedule`` (the flat work queue, the
-flat and nested shared-prefix grouping and the work accounting; not the
-sharded router or the prefill-budget planner): plain host-side numpy, so
-the schedule arrays are identical to the reference's by construction.
+flat and nested shared-prefix grouping, the work accounting, the
+prefill-budget planner and the SLA admission order; not the sharded
+router): plain host-side numpy and Python, so the schedule arrays, slices
+and orders are identical to the reference's by construction.
 
 * one **work item** = one §4.2 KV block (``block_k`` rows = 4 pages of 128)
   of one request — the granularity of one AMLA state update;
@@ -660,3 +661,57 @@ def prefix_queue_grid_items(
         "query_rows": int(kv_lens.shape[0]) * int(query_rows),
         "row_reads": int(kv_lens.sum()) * int(query_rows),
     }
+
+
+def plan_prefill_slices(remaining, budget: int, chunk: int) -> list:
+    """Split a per-step prefill token budget over pending prompts.
+
+    ``remaining[i]`` is pending prompt i's unprefilled token count, in
+    arrival (FIFO) order.  Returns ``slices`` with ``slices[i]`` tokens to
+    prefill this step.  Every slice is a multiple of ``chunk`` except a
+    prompt's final tail, so repeated budgeted slices land on exactly the
+    chunk boundaries one monolithic prefill would (bit-identical rows).
+
+    Policy (deterministic): the oldest pending prompt claims up to one
+    chunk first (no starvation of a long prompt by short arrivals); the
+    rest of the budget goes shortest-remaining-first, ties toward older
+    arrivals.
+    """
+    if budget < 0:
+        raise ValueError(f"budget must be >= 0, got {budget}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    rem = [int(r) for r in remaining]
+    slices = [0] * len(rem)
+    left = int(budget)
+
+    def grant(i: int, amount: int) -> int:
+        r = rem[i] - slices[i]
+        take = r if r <= amount else (amount // chunk) * chunk
+        slices[i] += take
+        return take
+
+    if not rem or left <= 0:
+        return slices
+    left -= grant(0, min(chunk, left))
+    for i in sorted(range(len(rem)), key=lambda j: (rem[j] - slices[j], j)):
+        if left <= 0:
+            break
+        if rem[i] - slices[i] > 0:
+            left -= grant(i, left)
+    return slices
+
+
+def admission_order(items) -> list:
+    """SLA-aware admission order of queued submissions.
+
+    ``items`` is an iterable of ``(idx, priority, slack)``: submission
+    index, priority class (higher = more urgent) and deadline slack in
+    steps (None = no deadline).  Returns the indices highest priority
+    first, then least slack, then submission index.
+    """
+    def key(item):
+        idx, priority, slack = item
+        return (-int(priority), float("inf") if slack is None else float(slack), int(idx))
+
+    return [int(item[0]) for item in sorted(items, key=key)]

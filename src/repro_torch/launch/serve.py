@@ -17,7 +17,15 @@ Runs a request stream through one of two cache backends:
   reuses prompt prefixes through the radix trie (the stream's prompts then
   open with a shared two-block template), ``--retain-pages`` caps the pages
   it retains; ``--speculate ngram --draft-k K`` verifies ``K - 1`` n-gram
-  drafts per request per step.
+  drafts per request per step; ``--prefill-budget N`` interleaves
+  chunk-aligned prefill slices of at most ``N`` tokens a step with decode.
+
+``--chaos SEED``, ``--deadline STEPS`` or ``--priority-classes P0,P1,..``
+(all ``--cache paged``) serve the stream through the supervised loop
+(:class:`~repro_torch.runtime.serve_loop.ServeSupervisor`): a seeded
+fault plan (slow shard, pool pressure), deadlines, priority admission,
+recoverable eviction by replay; the run exits nonzero if a request is
+lost, a replay diverges or a page leaks.
 
 Random weights come from ``--seed``.
 
@@ -25,7 +33,9 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve [--cache dense|paged] \\
         [--arch NAME] --smoke --requests 6 --gen-len 16 [--device cuda|cpu] \\
         [--kv-dtype bf16|int8] [--shared-prefix] [--prefix-cache trie \\
-        [--retain-pages N]] [--speculate ngram [--draft-k K]]
+        [--retain-pages N]] [--speculate ngram [--draft-k K]] \\
+        [--prefill-budget N] [--chaos SEED] [--deadline STEPS] \\
+        [--priority-classes P0,P1,...]
 
 ``--device`` defaults to ``cuda`` and the run fails without it; ``cpu``
 runs the kernels' plain PyTorch versions.
@@ -43,7 +53,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.kv_cache import OutOfPagesError
-from repro_torch.runtime.serve_loop import PagedServingSession, ServingSession
+from repro_torch.runtime.serve_loop import PagedServingSession, ServeSupervisor, ServingSession
 
 
 def _serve_stream(sess, pending, gen_len, requests):
@@ -61,8 +71,10 @@ def _serve_stream(sess, pending, gen_len, requests):
             if rid is None:
                 break
             pending.pop(0)
-            # Phased admission emits the first token inside add_request.
-            live[rid] = gen_len
+            # Phased admission emits the first token inside add_request;
+            # under a prefill budget it arrives later as a step's delta, so
+            # the request owes one more emission.
+            live[rid] = gen_len + (0 if sess.outputs[rid] else 1)
             print(f"admitted request {rid} ({len(pending)} queued)")
         if not live and pending:
             raise SystemExit(
@@ -97,6 +109,8 @@ def _serve_stream(sess, pending, gen_len, requests):
                 done += 1
                 print(f"request {rid} done: {len(out)} tokens: {out[:8]}...")
                 del live[rid]
+        # Steps without emissions are normal while a budget slices a long
+        # prompt in; a loop that never emits again is a stall.
         idle_steps = 0 if step_emitted else idle_steps + 1
         if idle_steps > 64 + sum(len(p) for p in pending):
             raise SystemExit(
@@ -106,6 +120,72 @@ def _serve_stream(sess, pending, gen_len, requests):
             )
     dt = time.time() - t0
     return results, tokens_out, dt
+
+
+def _serve_supervised(sess, pending, args):
+    """The stream through :class:`ServeSupervisor`: a seeded
+    :class:`FaultPlan` with ``--chaos`` (generated plans never abandon, and
+    their shard loss is skipped on one session, so every request must
+    complete), ``--deadline`` and ``--priority-classes`` (round-robin over
+    the submissions).  Exits nonzero if a request is lost, a replay
+    diverges, a request is abandoned without a deadline or a page leaks."""
+    from repro_torch.runtime.fault_injection import FaultPlan
+
+    plan = None
+    if args.chaos is not None:
+        plan = FaultPlan.generate(args.chaos, num_shards=1, horizon=max(2, args.gen_len),
+                                  pool_pages=sess.cache.num_pages)
+        print(f"chaos plan (seed {args.chaos}): {plan.describe()}")
+    sup = ServeSupervisor(sess, gen_len=args.gen_len, deadline=args.deadline, plan=plan)
+    classes = args.priority_classes or [0]
+    for i, prompt in enumerate(pending):
+        sup.submit(prompt, priority=classes[i % len(classes)])
+    t0 = time.time()
+    results = sup.run()
+    dt = time.time() - t0
+    stats = sup.stats()
+    tokens_out = stats["tokens_out"]
+    for idx in sorted(results):
+        tag = "abandoned" if idx in sup.abandoned_idx else "done"
+        out = results[idx]
+        print(f"request {idx} {tag}: {len(out)} tokens: {out[:8]}...")
+    print(
+        f"served {len(results)}/{args.requests} requests, {tokens_out} decode tokens in "
+        f"{dt:.1f}s ({tokens_out / max(dt, 1e-9):.1f} tok/s) over {stats['steps']} "
+        f"supervised steps"
+    )
+    print(
+        f"supervision: {stats['faults_applied']} faults applied "
+        f"({stats['faults_skipped']} skipped), {stats['suspends']} suspends / "
+        f"{stats['resumes']} resumes, {stats['replay_prefill_tokens']} replay prefill "
+        f"tokens, {stats['evictions']} pool evictions, {stats['admission_retries']} "
+        f"admission retries, {stats['straggler_events']} straggler events, "
+        f"{stats['abandoned']} abandoned"
+    )
+    print(
+        f"latency (work units): TTFT p50/p99 {stats['ttft_units_p50']:.0f}/"
+        f"{stats['ttft_units_p99']:.0f}, per-token p50/p99 {stats['tpot_units_p50']:.0f}/"
+        f"{stats['tpot_units_p99']:.0f} over {stats['work_units']} units "
+        f"({stats['prefill_chunks']} prefill chunks, {stats['prefill_stall_steps']} "
+        f"decode-stall chunks)"
+    )
+    for event in sup.events:
+        print(f"  {event}")
+    sweep = sess.cache.refcount_sweep()
+    if sweep["live_sequences"] or sweep["live_pages"]:
+        raise SystemExit(f"page leak after drain: {sweep}")
+    # close() also clears retained trie prefixes and asserts a free pool.
+    sweep = sess.close()
+    print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")
+    if len(results) != args.requests:
+        raise SystemExit(f"lost requests: {args.requests - len(results)} of "
+                         f"{args.requests} never completed")
+    if stats["replay_mismatches"]:
+        raise SystemExit(f"{stats['replay_mismatches']} replay(s) diverged from the original "
+                         "stream (suspend/resume is supposed to be exact)")
+    if stats["abandoned"] and args.deadline is None:
+        raise SystemExit(f"{stats['abandoned']} request(s) abandoned without a --deadline: "
+                         "a generated chaos plan must complete everything")
 
 
 def _shared_prefix_demo(sess, cfg, seed, gen_len):
@@ -182,12 +262,49 @@ def main(argv=None):
                     help="prefix-cache trie: cap on pages pinned by "
                     "retained prefixes; default unbounded (pool pressure "
                     "still reclaims LRU subtrees)")
+    ap.add_argument("--prefill-budget", type=int, default=None, metavar="TOKENS",
+                    help="paged only: per-step prefill token budget; admission "
+                    "enqueues the prompt and each step interleaves chunk-aligned "
+                    "prefill slices with decode (>= --prefill-chunk; greedy "
+                    "outputs identical to phased admission)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="paged only: the supervised serve loop under a seeded "
+                    "FaultPlan (slow shard, pool pressure); every request must "
+                    "complete with its exact greedy output or the run exits nonzero")
+    ap.add_argument("--deadline", type=int, default=None, metavar="STEPS",
+                    help="paged only: per-request decode-step deadline; late "
+                    "requests are abandoned with their partial output (implies "
+                    "the supervised loop)")
+    ap.add_argument("--priority-classes", default=None, metavar="P0,P1,...",
+                    help="paged only: integer priority classes assigned "
+                    "round-robin to the requests (higher admits first; ties by "
+                    "deadline slack, then submission order); implies the "
+                    "supervised loop")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default) launches the CUDA kernels; cpu runs "
                     "their plain PyTorch versions")
     args = ap.parse_args(argv)
 
+    if args.priority_classes is not None:
+        try:
+            args.priority_classes = [int(x) for x in args.priority_classes.split(",")
+                                     if x.strip()]
+        except ValueError:
+            raise SystemExit(f"--priority-classes must be comma-separated integers, "
+                             f"got {args.priority_classes!r}")
+        if not args.priority_classes:
+            raise SystemExit("--priority-classes must name at least one class")
+    supervised = (args.chaos is not None or args.deadline is not None
+                  or args.priority_classes is not None)
+    if supervised and args.cache != "paged":
+        raise SystemExit("--chaos/--deadline/--priority-classes need --cache paged "
+                         "(recoverable eviction/replay and priority admission ride the "
+                         "paged pool's refcounted free + chunked re-prefill)")
+    if args.prefill_budget is not None and args.cache != "paged":
+        raise SystemExit("--prefill-budget needs --cache paged (budgeted prefill slices "
+                         "ride the chunked paged prefill path; dense admission is "
+                         "monolithic)")
     if args.cache != "paged":
         if args.kv_dtype is not None:
             raise SystemExit("--kv-dtype needs --cache paged (dense caches "
@@ -223,6 +340,7 @@ def main(argv=None):
             draft_k=args.draft_k,
             prefix_cache=args.prefix_cache,
             retain_pages=args.retain_pages,
+            prefill_budget=args.prefill_budget,
         )
     else:
         sess = ServingSession(model, params, batch_size=args.batch, max_len=args.max_len)
@@ -247,6 +365,9 @@ def main(argv=None):
         template + rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, 24))).tolist()
         for _ in range(args.requests)
     ]
+    if supervised:
+        _serve_supervised(sess, pending, args)
+        return
     _, tokens_out, dt = _serve_stream(sess, pending, args.gen_len, args.requests)
     print(
         f"served {args.requests} requests, {tokens_out} decode tokens "

@@ -33,19 +33,38 @@ via ``models.transformer.lm_decode_step_paged``:
   the model's greedy picks is accepted and the rejected rows are rolled
   back (``cache.truncate``): the tokens are those of ``speculate="off"``;
 * ``kv_dtype="int8"`` stores the latent pages as int8 with per-row scales;
+* ``prefill_budget=N`` interleaves prefill with decode: ``add_request``
+  only enqueues the prompt, and every ``step`` decodes the live batch,
+  then spends up to ``N`` prompt tokens on chunk-aligned slices of the
+  pending prompts (:func:`~repro_torch.kernels.decode_schedule
+  .plan_prefill_slices`), so a long prompt never stalls live decoders;
+* ``suspend`` / ``resume`` evict a request recoverably: its pages free at
+  once, the prompt and emitted tokens stay on the host
+  (:class:`SuspendedRequest`), and resume rebuilds the rows by replaying
+  them through the chunked prefill (re-aliasing a live fork parent's
+  prefix first);
 * ``work_stats`` reports the reference's deterministic work counters.
+
+:class:`ServeSupervisor` drives one session under deterministic chaos
+(:class:`~repro_torch.runtime.fault_injection.FaultPlan`): SLA-ordered
+admission with skip-ahead and backoff, deadlines, suspension of an SLA
+victim when the pool runs out, and latency percentiles on the session's
+work clock (:func:`latency_percentile`).
 
 :class:`PagedDecodeSession` is the attention-level session over one
 :class:`~repro_torch.runtime.kv_cache.PagedKVCache`: callers bring absorbed
 queries and latent rows; it decodes through the queue kernel (K2, int8 and
 shared prefixes included) or the padded ``(B, W)`` kernel (K5).
 
-``prefill_budget`` interleaving, suspend/resume and sharding
-(``head_shards > 1``) belong to the next slices of the port and raise
-``NotImplementedError`` when asked for.
+Sharding (``head_shards > 1``, several data shards) belongs to a later
+slice of the port and raises ``NotImplementedError`` when asked for; a
+supervisor's ``shard_loss`` events are skipped on the one session.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -185,12 +204,10 @@ class ServingSession:
         return self.outputs.pop(rid)
 
 
-def _not_ported(what: str, when: str = "a later slice of the port"):
+def _not_ported(what: str, when: str):
     raise NotImplementedError(f"{what} is not ported yet; it comes in {when}")
 
 
-_NEXT_SLICE = ("a later slice of the port: the next one, with suspend/resume and "
-               "prefill_budget interleaving")
 
 
 class NGramProposer:
@@ -233,6 +250,26 @@ class NGramProposer:
         if best:
             return best + [best[-1]] * (k - len(best))
         return [hist[-1]] * k
+
+
+@dataclasses.dataclass
+class SuspendedRequest:
+    """What :meth:`PagedServingSession.resume` needs to rebuild a
+    suspended request by replay: the prompt, the emitted tokens (the
+    request's live output list, not a copy) and, for a forked child, its
+    parent and the rows their shared prefix covered."""
+
+    prompt: list[int]
+    outputs: list[int]
+    parent: int | None = None
+    prefix_len: int = 0
+
+    @property
+    def tokens(self) -> list[int]:
+        """The cache rows replay must rebuild: prompt + emitted tokens but
+        the pending last one (between steps a session's rows are always
+        ``prompt + outputs[:-1]``)."""
+        return self.prompt + self.outputs[:-1]
 
 
 class PagedServingSession:
@@ -279,9 +316,15 @@ class PagedServingSession:
 
         _tf.check_paged_compatible(model.cfg)
         if head_shards != 1:
-            _not_ported("head_shards > 1 (tensor-parallel head groups)")
-        if prefill_budget is not None:
-            _not_ported("prefill_budget (chunked-prefill/decode interleaving)", _NEXT_SLICE)
+            _not_ported("head_shards > 1 (tensor-parallel head groups)",
+                        "the sharded-serving slice of the port (ROADMAP Queue 1 item 8)")
+        if prefill_budget is not None and prefill_budget < prefill_chunk:
+            raise ValueError(
+                f"prefill_budget={prefill_budget} is below prefill_chunk="
+                f"{prefill_chunk}: a budgeted step spends whole chunks "
+                "(padded model invocations), so a smaller budget could "
+                "never advance any pending prompt"
+            )
         if prefix_cache not in ("off", "trie"):
             raise ValueError(
                 f"prefix_cache={prefix_cache!r} is not a cache policy; "
@@ -321,6 +364,11 @@ class PagedServingSession:
         self.prefix_sharing = prefix_sharing
         self.prefill_chunk = prefill_chunk
         self.max_batch = max_batch
+        self.prefill_budget = None if prefill_budget is None else int(prefill_budget)
+        # Admitted prompts not yet fully prefilled (budgeted interleaving),
+        # FIFO: {"rid", "prompt", "done"}, ``done`` counting the rows written
+        # (trie-adopted blocks included).
+        self._pending: list[dict] = []
         self.prefix_cache = prefix_cache
         self.trie = None
         if prefix_cache == "trie":
@@ -384,6 +432,12 @@ class PagedServingSession:
         self.ttft_units_total = 0
         self.max_inter_token_units = 0
         self._lat: dict[int, dict] = {}
+        # Recoverable eviction (suspend / resume by replay).
+        self.suspended: dict[int, SuspendedRequest] = {}
+        self.suspends = 0
+        self.resumes = 0
+        self.replay_prefill_tokens = 0
+        self.replay_mismatches = 0
 
     # -- introspection ------------------------------------------------- #
     @property
@@ -411,7 +465,7 @@ class PagedServingSession:
 
     def work_stats(self) -> dict:
         """Deterministic decode-work proxies accumulated across steps
-        (the reference's keys for the features ported so far).
+        (the reference's keys).
         ``page_dma_bytes`` is dtype-aware: int8 pages count their scale
         strips; with prefix sharing a shared block counts once per group.
         Under speculation ``query_rows`` counts every verify row and
@@ -449,20 +503,37 @@ class PagedServingSession:
             "prefix_tokens_reused": reused,
             "prefix_tokens_reused_per_admission": reused / max(self.trie_admissions, 1),
             "trie_evicted_pages": evicted,
+            "suspends": self.suspends,
+            "resumes": self.resumes,
+            "suspended": len(self.suspended),
+            "replay_prefill_tokens": self.replay_prefill_tokens,
+            "replay_mismatches": self.replay_mismatches,
+            # Interleaving and latency proxies (the virtual work clock).
             "work_units": self.work_units,
             "prefill_chunks": self.prefill_chunks,
             "prefill_stall_steps": self.prefill_stall_steps,
+            "prefill_pending": len(self._pending),
+            "prefill_backlog_tokens": sum(len(p["prompt"]) - p["done"] for p in self._pending),
             "first_tokens": self.first_tokens,
             "ttft_units_total": self.ttft_units_total,
             "max_inter_token_units": self.max_inter_token_units,
         }
 
+    @property
+    def prefill_pending(self) -> int:
+        """Admitted prompts still waiting in the pending queue."""
+        return len(self._pending)
+
+    def resident_rids(self) -> list[int]:
+        """Every rid holding pool pages: live decoders + pending prompts."""
+        return list(self.active) + [p["rid"] for p in self._pending]
+
     # -- latency / work accounting -------------------------------------- #
-    def _count_prefill(self, n_tokens: int) -> None:
+    def _count_prefill(self, n_tokens: int, interleaved: bool = False) -> None:
         chunks = -(-n_tokens // self.prefill_chunk)
         self.prefill_chunks += chunks
         self.work_units += chunks
-        if self.active:
+        if not interleaved and self.active:
             # Synchronous prefill with live decoders stalls them.
             self.prefill_stall_steps += chunks
 
@@ -484,6 +555,8 @@ class PagedServingSession:
     # -- admission -------------------------------------------------------- #
     def _admit(self, rid: int, first_token: int) -> int:
         self.active.append(rid)
+        # The list may exist since enqueue (budgeted interleaving); a
+        # supervisor or a suspended record may hold that very object.
         self.outputs.setdefault(rid, []).append(first_token)
         self.last_token[rid] = first_token
         self._note_emit(rid)
@@ -492,6 +565,9 @@ class PagedServingSession:
     def add_request(self, prompt_tokens) -> int | None:
         """Chunk-prefill a prompt into fresh pages; its rid, or None when
         the pool lacks pages or the batch is full (the caller retries).
+        With ``prefill_budget`` set the prompt is only enqueued (after the
+        same checks): :meth:`step` prefills it in budgeted slices and its
+        first token arrives there.
 
         With ``prefix_cache="trie"`` the prompt's complete blocks before
         its last token are matched against the trie, the matched pages
@@ -541,6 +617,11 @@ class PagedServingSession:
             return None
         self._prompt[rid] = prompt
         self._note_admit(rid)
+        if self.prefill_budget is not None:
+            # The matched pages are adopted already; step() prefills the rest.
+            self.outputs[rid] = []
+            self._pending.append({"rid": rid, "prompt": prompt, "done": matched})
+            return rid
         self._prefill_shapes.add((1, self.prefill_chunk))
         logits = _tf.lm_prefill_paged(
             self.params,
@@ -579,7 +660,9 @@ class PagedServingSession:
     def step(self) -> None:
         """One greedy decode step for every live request (one schedule):
         a graph replay on a CUDA device unless ``prefix_sharing`` is on or
-        the step verifies drafts.
+        the step verifies drafts.  With ``prefill_budget`` set, the decode
+        is followed by this step's budgeted prefill slices; a prompt whose
+        last slice lands joins the live batch with its first token.
 
         With ``speculate="ngram"`` each request feeds ``[pending, d_1 ..
         d_{k-1}]`` (drafts from the proposer) through one ``k``-row decode;
@@ -596,6 +679,8 @@ class PagedServingSession:
 
         rids = list(self.active)
         if not rids:
+            if self.prefill_budget is not None and self._pending:
+                self._advance_prefill()
             return
         s = self.draft_k if self.speculate != "off" else 1
         drafts = [[] for _ in rids]
@@ -656,19 +741,76 @@ class PagedServingSession:
         acct = grid_items(sched, kv, self.cache.page_size, query_rows=s)
         self.page_dmas += int(acct["page_dmas"]) * self.cfg.n_layers
         self.rows_attended += int(kv.sum()) * s * self.cfg.n_layers
+        if self.prefill_budget is not None and self._pending:
+            self._advance_prefill()
 
-    def finish(self, rid: int) -> list[int]:
-        """Retire ``rid``: its pages return to the pool (aliased pages when
-        their last owner goes; with the trie on, its prompt blocks stay
-        retained, pinned at admission); returns its tokens."""
-        if rid not in self.active:
-            raise KeyError(f"request {rid} is not live")
-        self.active.remove(rid)
+    def _advance_prefill(self) -> None:
+        """Spend one step's prefill budget on the pending prompts, in the
+        slices :func:`~repro_torch.kernels.decode_schedule.plan_prefill_slices`
+        plans.  Each slice runs ``lm_prefill_paged`` from the rows already
+        written, so its chunk boundaries are a monolithic prefill's
+        (bit-identical rows); only a prompt's last slice computes logits.
+        A slice whose pages are not free now is skipped and retried at the
+        next step."""
+        from repro_torch.kernels.decode_schedule import plan_prefill_slices
+        from repro_torch.models import transformer as _tf
+
+        pending = list(self._pending)
+        slices = plan_prefill_slices([len(p["prompt"]) - p["done"] for p in pending],
+                                     self.prefill_budget, self.prefill_chunk)
+        for ent, take in zip(pending, slices):
+            if take <= 0:
+                continue
+            rid, prompt = ent["rid"], ent["prompt"]
+            if not self.cache.has_room(rid, take):
+                continue
+            final = ent["done"] + take == len(prompt)
+            self._prefill_shapes.add((1, self.prefill_chunk))
+            logits = _tf.lm_prefill_paged(
+                self.params,
+                prompt[ent["done"] : ent["done"] + take],
+                cfg=self.cfg,
+                cache=self.cache,
+                rid=rid,
+                start_pos=ent["done"],
+                chunk=self.prefill_chunk,
+                table_width=self.table_width,
+                block_k=self.block_k,
+                compute_dtype=self.compute_dtype,
+                need_logits=final,
+            )
+            self._count_prefill(take, interleaved=True)
+            ent["done"] += take
+            if final:
+                self._pending.remove(ent)
+                if self.trie is not None:
+                    self._retain_prompt(rid)
+                self._admit(rid, int(torch.argmax(logits[0])))
+
+    def _drop(self, rid: int) -> list[int]:
+        """Free ``rid``'s pages and host state; returns its output list."""
         self.cache.free(rid)
         self.last_token.pop(rid, None)
         self._prompt.pop(rid, None)
         self._family.pop(rid, None)
         return self.outputs.pop(rid)
+
+    def _pending_entry(self, rid: int) -> dict | None:
+        return next((p for p in self._pending if p["rid"] == rid), None)
+
+    def finish(self, rid: int) -> list[int]:
+        """Retire ``rid``: its pages return to the pool (aliased pages when
+        their last owner goes; with the trie on, its prompt blocks stay
+        retained, pinned at admission); returns its tokens.  A request
+        still mid-prefill retires with no tokens."""
+        if rid not in self.active:
+            pend = self._pending_entry(rid)
+            if pend is None:
+                raise KeyError(f"request {rid} is not live")
+            self._pending.remove(pend)
+            return self._drop(rid)
+        self.active.remove(rid)
+        return self._drop(rid)
 
     def fork(self, rid: int, prefix_len: int | None = None) -> int:
         """Branch a live request at its full history: the child aliases
@@ -746,8 +888,126 @@ class PagedServingSession:
         self._count_prefill(len(suffix))
         return self._admit(child, int(torch.argmax(logits[0])))
 
-    def suspend(self, rid: int):
-        _not_ported("suspend/resume (recoverable eviction by replay)", _NEXT_SLICE)
+    # -- recoverable eviction by replay ---------------------------------- #
+    def suspend(self, rid: int) -> SuspendedRequest:
+        """Evict ``rid`` recoverably: its pages free now (an aliased page
+        just loses one owner), the prompt and emitted tokens stay on the
+        host.  Between steps the rows are ``prompt + outputs[:-1]`` (a
+        verify step's rollback restores that), so the pending token and the
+        history are the whole decode state; :meth:`resume` replays it.  A
+        request still mid-prefill suspends too, with no tokens: its resume
+        restarts the prompt."""
+        pend = self._pending_entry(rid)
+        if pend is not None:
+            self._pending.remove(pend)
+            parent, prefix_rows = None, 0
+        elif rid in self.active:
+            self.active.remove(rid)
+            parent, prefix_rows = self._family.get(rid, (None, 0))
+        else:
+            raise KeyError(f"request {rid} is not live")
+        rec = SuspendedRequest(prompt=list(self._prompt[rid]), outputs=self.outputs[rid],
+                               parent=parent, prefix_len=prefix_rows)
+        self._drop(rid)
+        self.suspended[rid] = rec
+        self.suspends += 1
+        return rec
+
+    def resume(self, rid: int) -> bool:
+        """Re-admit a suspended request under its rid by replaying its rows
+        through the chunked prefill (a live fork parent's prefix is
+        re-aliased first, so only the suffix is recomputed); decoding goes
+        on from the same pending token.  False, with nothing allocated,
+        when the pool lacks pages.  Resume bypasses ``max_batch``."""
+        rec = self.suspended.get(rid)
+        if rec is None:
+            raise KeyError(f"request {rid} is not suspended")
+        if not self._replay(rid, rec, rec.parent):
+            return False
+        del self.suspended[rid]
+        return True
+
+    def resume_pending(self) -> list[int]:
+        """Resume every suspended request the pool has room for, in
+        ascending rid (fork parents before their children); returns the
+        rids that came back."""
+        return [rid for rid in sorted(self.suspended) if self.resume(rid)]
+
+    def adopt_suspended(self, rec: SuspendedRequest, parent: int | None = None) -> int | None:
+        """Admit another session's suspended record under a new rid;
+        ``parent`` names the prefix parent's rid in this session (None
+        replays the whole history).  Returns the rid, or None (nothing
+        allocated) when the pool lacks room."""
+        rid = self._next_id
+        self._next_id += 1
+        if not self._replay(rid, rec, parent):
+            return None
+        return rid
+
+    def discard_suspended(self, rid: int) -> list[int]:
+        """Drop a suspended request for good; returns its output so far."""
+        return self.suspended.pop(rid).outputs
+
+    def _replay(self, rid: int, rec: SuspendedRequest, parent: int | None) -> bool:
+        from repro_torch.models import transformer as _tf
+
+        kw = dict(cfg=self.cfg, cache=self.cache, rid=rid, chunk=self.prefill_chunk,
+                  table_width=self.table_width, block_k=self.block_k,
+                  compute_dtype=self.compute_dtype)
+        if not rec.outputs:
+            # Suspended mid-prefill: nothing was emitted, so the prompt
+            # restarts (re-enqueued under a budget, prefilled now otherwise).
+            prompt = list(rec.prompt)
+            if not self.cache.has_room(None, len(prompt)):
+                return False
+            self.cache.alloc(rid)
+            self._prompt[rid] = prompt
+            self.outputs[rid] = rec.outputs
+            self._note_admit(rid)
+            self.resumes += 1
+            if self.prefill_budget is not None:
+                self._pending.append({"rid": rid, "prompt": prompt, "done": 0})
+                return True
+            self._prefill_shapes.add((1, self.prefill_chunk))
+            logits = _tf.lm_prefill_paged(self.params, prompt, start_pos=0, **kw)
+            self._count_prefill(len(prompt))
+            self.replay_prefill_tokens += len(prompt)
+            if self.trie is not None:
+                self._retain_prompt(rid)
+            self._admit(rid, int(torch.argmax(logits[0])))
+            return True
+        tokens = rec.tokens
+        use_parent = parent is not None and parent in self.active
+        prefix = (min(rec.prefix_len, len(tokens), self.cache.seq_len(parent))
+                  if use_parent else 0)
+        suffix = tokens[prefix:]
+        if use_parent:
+            self.cache.fork(parent, rid, prefix)
+            if suffix and not self.cache.has_room(rid, len(suffix)):
+                self.cache.free(rid)
+                return False
+        else:
+            if not self.cache.has_room(None, len(suffix)):
+                return False
+            self.cache.alloc(rid)
+        if suffix:
+            self._prefill_shapes.add((1, self.prefill_chunk))
+            logits = _tf.lm_prefill_paged(self.params, suffix, start_pos=prefix, **kw)
+            # Replay-integrity probe: the replayed rows must re-derive the
+            # pending token the original run emitted from them.  Counted,
+            # not raised: the stream stays serviceable.
+            if int(torch.argmax(logits[0])) != int(rec.outputs[-1]):
+                self.replay_mismatches += 1
+            self.replay_prefill_tokens += len(suffix)
+            self._count_prefill(len(suffix))
+        self.active.append(rid)
+        self._prompt[rid] = list(rec.prompt)
+        self.outputs[rid] = rec.outputs
+        self.last_token[rid] = int(rec.outputs[-1])
+        if use_parent:
+            self._family[rid] = (parent, prefix)
+        self.resumes += 1
+        return True
 
     # -- pool pressure and the prefix cache ------------------------------ #
     def hold_pages(self, n: int) -> int:
@@ -779,13 +1039,14 @@ class PagedServingSession:
         return self.trie.reclaim(n_pages)
 
     def close(self) -> dict:
-        """Finish every live request, release ballast, clear the trie and
-        audit the pool; a leaked page fails here.  Returns the sweep
-        report."""
-        for rid in list(self.active):
+        """Finish every pending and live request, release ballast, drop
+        suspended records, clear the trie and audit the pool; a leaked page
+        fails here.  Returns the sweep report."""
+        for rid in self.resident_rids():
             self.finish(rid)
         for handle in list(self._ballast):
             self.release_pages(handle)
+        self.suspended.clear()
         if self.trie is not None:
             self.trie.clear()
         report = self.cache.refcount_sweep()
@@ -793,6 +1054,452 @@ class PagedServingSession:
             f"page leak at teardown: {report}"
         )
         return report
+
+
+def latency_percentile(samples, q: float) -> float:
+    """Nearest-rank percentile (inclusive) of a list of latency samples:
+    p99 of 10 samples is the largest, never a blend.  Empty input: 0.0."""
+    if not 0 <= q <= 100:
+        raise ValueError(f"percentile must be in [0, 100], got {q}")
+    xs = sorted(float(x) for x in samples)
+    if not xs:
+        return 0.0
+    rank = max(1, int(np.ceil(q / 100.0 * len(xs))))
+    return xs[rank - 1]
+
+
+class ServeSupervisor:
+    """Supervised continuous-batching serve loop over one
+    :class:`PagedServingSession`, with deterministic chaos.
+
+    Runs until every submitted request has ``gen_len`` tokens past its
+    first or was abandoned.  Between decode steps it:
+
+    * applies the due events of a
+      :class:`~repro_torch.runtime.fault_injection.FaultPlan` (slow shard,
+      pool-pressure ballast, abandon; ``shard_loss`` is skipped on one
+      session and counted in ``faults_skipped``);
+    * resumes suspended requests, after a backoff for those it evicted;
+    * admits arrived prompts in
+      :func:`~repro_torch.kernels.decode_schedule.admission_order`
+      (priority class, then deadline slack, then submission index), with
+      exponential backoff after a rejection and skip-ahead past prompts
+      that do not fit or are backing off;
+    * abandons requests past their deadline (steps since admission) with
+      their partial output, also while still mid-prefill;
+    * stamps per-request latency on the session's work clock and feeds
+      the host time of each step to a
+      :class:`~repro_torch.runtime.fault_tolerance.StragglerMonitor`;
+    * on :class:`~repro_torch.runtime.kv_cache.OutOfPagesError` reclaims
+      retained trie pages, else suspends an SLA victim, and retries.
+
+    :meth:`run` returns results keyed by submission index.
+    """
+
+    def __init__(
+        self,
+        sess,
+        *,
+        gen_len: int,
+        deadline: int | None = None,
+        plan=None,
+        max_steps: int | None = None,
+        backoff_base: int = 1,
+        backoff_cap: int = 16,
+        deadline_guard: int = 2,
+        arrival_unit: str = "steps",
+    ):
+        from repro_torch.runtime.fault_tolerance import StragglerMonitor
+
+        if not hasattr(sess, "suspended"):
+            raise ValueError(
+                "ServeSupervisor needs a paged session (suspend/resume "
+                "rides the paged pool's refcounted free/replay; dense "
+                "slot sessions have neither)"
+            )
+        if gen_len < 1:
+            raise ValueError(f"gen_len must be >= 1, got {gen_len}")
+        if deadline is not None and deadline < 1:
+            raise ValueError(f"deadline must be >= 1 steps, got {deadline}")
+        if deadline_guard < 0:
+            raise ValueError(f"deadline_guard must be >= 0 steps, got {deadline_guard}")
+        if arrival_unit not in ("steps", "work_units"):
+            raise ValueError(
+                f"arrival_unit={arrival_unit!r} is not a clock; pick "
+                "'steps' (supervisor loop iterations) or 'work_units' "
+                "(the session's virtual work clock — a synchronous prefill "
+                "visibly delays later arrivals, like wall time would)"
+            )
+        self.sess = sess
+        self.gen_len = int(gen_len)
+        self.deadline = deadline
+        self.plan = plan
+        self.max_steps = max_steps
+        self.backoff_base = max(1, int(backoff_base))
+        self.backoff_cap = max(self.backoff_base, int(backoff_cap))
+        self.deadline_guard = int(deadline_guard)
+        self.arrival_unit = arrival_unit
+        # Idle ticks advance the work-unit arrival clock by this skew:
+        # waiting for a later arrival does no session work.
+        self._clock_skew = 0
+        self.straggler = StragglerMonitor()
+        self._submitted: list[list[int]] = []
+        self._meta: list[dict] = []  # priority, deadline, arrival per submission
+        self._lat: list[dict] = []  # latency marks per submission
+        self._queue: list[list[int]] = []  # [submission index, not_before, backoff]
+        self._live: dict[int, dict] = {}  # rid -> idx, remaining, admitted, priority, deadline
+        self._results: dict[int, list[int]] = {}
+        self.abandoned_idx: set[int] = set()
+        self._ballast: list[tuple[int, int]] = []  # (release step, handle)
+        self._slow: tuple[int, float] | None = None  # (until step, factor)
+        self._resume_hold: dict[int, list[int]] = {}  # rid -> [step, backoff]
+        self._plan_applied: set[int] = set()
+        self.steps = 0
+        self.completed = 0
+        self.abandoned = 0
+        self.tokens_out = 0
+        self.admission_retries = 0
+        self.evictions = 0
+        self.reclaims = 0
+        self.faults_applied = 0
+        self.faults_skipped = 0
+        self.events: list[str] = []
+
+    def submit(self, prompt_tokens, *, priority: int = 0, deadline: int | None = None,
+               arrival: int = 0) -> int:
+        """Queue a prompt; returns its submission index (the results key).
+        ``priority`` is its class (higher admits first), ``deadline``
+        overrides the supervisor's (steps since admission), ``arrival`` is
+        when it enters the queue, on the ``arrival_unit`` clock."""
+        if deadline is not None and deadline < 1:
+            raise ValueError(f"deadline must be >= 1 steps, got {deadline}")
+        if arrival < 0:
+            raise ValueError(f"arrival step must be >= 0, got {arrival}")
+        idx = len(self._submitted)
+        self._submitted.append(list(map(int, prompt_tokens)))
+        self._meta.append({"priority": int(priority),
+                           "deadline": None if deadline is None else int(deadline),
+                           "arrival": int(arrival)})
+        self._lat.append({"submit_vt": None, "submit_step": None, "admit_vt": None,
+                          "admit_step": None, "first_vt": None, "first_step": None,
+                          "last_vt": None, "gaps": []})
+        self._queue.append([idx, 0, self.backoff_base])
+        return idx
+
+    def _vt(self) -> int:
+        """The session's virtual work clock (decode launches + prefill chunks)."""
+        return int(self.sess.work_units)
+
+    def _now(self, step: int) -> int:
+        """The arrival clock: supervisor steps, or the work clock plus idle skew."""
+        return step if self.arrival_unit == "steps" else self._vt() + self._clock_skew
+
+    def _lat_clock(self) -> int:
+        """The clock latency marks are stamped on (comparable with arrivals)."""
+        return self._vt() if self.arrival_unit == "steps" else self._vt() + self._clock_skew
+
+    def _effective_deadline(self, info: dict) -> int | None:
+        return self.deadline if info.get("deadline") is None else info["deadline"]
+
+    def _slack(self, rid: int, step: int) -> float:
+        """Steps until ``rid``'s deadline expires (inf without one)."""
+        info = self._live[rid]
+        ddl = self._effective_deadline(info)
+        return float("inf") if ddl is None else (info["admitted"] + ddl) - step
+
+    # -- the loop -------------------------------------------------------- #
+    def run(self) -> dict[int, list[int]]:
+        """Serve until every submission completed or was abandoned; returns
+        ``{submission index: tokens}``.  Raises RuntimeError when the stream
+        cannot make progress or passes the step limit."""
+        from repro_torch.runtime.kv_cache import OutOfPagesError
+
+        sess = self.sess
+        limit = self.max_steps
+        if limit is None:
+            limit = (self.gen_len + 8) * (len(self._submitted) + 4) * 4
+        while self._queue or self._live:
+            step = self.steps
+            if step >= limit:
+                raise RuntimeError(
+                    f"supervised serve stalled after {step} steps with "
+                    f"{len(self._live)} live and {len(self._queue)} queued requests"
+                )
+            self._apply_plan(step)
+            self._tick_ballast(step)
+            self._try_resume(step)
+            self._admit(step)
+            steppable = [r for r in self._live if r not in sess.suspended]
+            if not steppable:
+                self._idle_tick(step)
+                continue
+            before = {r: len(sess.outputs[r]) for r in steppable}
+            t0 = time.perf_counter()
+            oom = False
+            try:
+                # On the card the step ends in a host copy of the greedy
+                # picks, so this time includes the device's work.
+                sess.step()
+            except OutOfPagesError:
+                # Appends are atomic: every request emitted or none did.
+                oom = True
+            dt = time.perf_counter() - t0
+            if not oom:
+                if self._slow is not None:
+                    until, factor = self._slow
+                    if step < until:
+                        # Injected straggle: inflate the observation against
+                        # the monitor's own baseline (no real sleep).
+                        if self.straggler.ewma is not None:
+                            dt += factor * self.straggler.ewma
+                    else:
+                        self._slow = None
+                self.straggler.observe(step, dt)
+            for rid in list(self._live):
+                info = self._live[rid]
+                if rid in before:
+                    emitted = len(sess.outputs[rid]) - before[rid]
+                    if emitted:
+                        self.tokens_out += emitted
+                        info["remaining"] -= emitted
+                        lat = self._lat[info["idx"]]
+                        vt = self._lat_clock()
+                        if lat["first_vt"] is None:
+                            lat["first_vt"] = vt
+                            lat["first_step"] = step
+                        else:
+                            lat["gaps"].append(vt - lat["last_vt"])
+                        if emitted > 1:  # a verify step's extra tokens land at once
+                            lat["gaps"].extend([0] * (emitted - 1))
+                        lat["last_vt"] = vt
+                    if info["remaining"] <= 0:
+                        self._results[info["idx"]] = sess.finish(rid)
+                        self.completed += 1
+                        del self._live[rid]
+                        continue
+                ddl = self._effective_deadline(info)
+                if ddl is not None and step - info["admitted"] >= ddl:
+                    # Steps count whether or not the request emitted: a
+                    # prompt still mid-prefill can expire with no tokens.
+                    self._abandon(rid)
+            if oom:
+                # Retained prefix pages are the cheapest to give back; only
+                # when none are freeable is a live victim suspended.
+                reclaimed = sess.reclaim_retained(max(len(steppable), 1))
+                if reclaimed > 0:
+                    self.reclaims += 1
+                    self.events.append(f"step {self.steps}: pool full — reclaimed "
+                                       f"{reclaimed} retained page(s)")
+                else:
+                    victims = [r for r in steppable
+                               if r in self._live and r not in sess.suspended]
+                    if victims:
+                        self._suspend_victim(victims)
+            self.steps += 1
+        for _, handle in self._ballast:
+            sess.release_pages(handle)
+        self._ballast.clear()
+        return dict(self._results)
+
+    def latency_records(self) -> list[dict]:
+        """Per-submission latency records (work-clock marks + gaps)."""
+        return [dict(r, gaps=list(r["gaps"])) for r in self._lat]
+
+    def stats(self) -> dict:
+        """Supervision counters, the session's suspend/replay work and
+        nearest-rank latency percentiles on the work clock: ``ttft_units``
+        submit to first token, ``tpot_units`` the gaps between emissions."""
+        work = self.sess.work_stats()
+        ttft = [r["first_vt"] - r["submit_vt"] for r in self._lat
+                if r["first_vt"] is not None and r["submit_vt"] is not None]
+        ttft_steps = [r["first_step"] - r["submit_step"] for r in self._lat
+                      if r["first_step"] is not None and r["submit_step"] is not None]
+        gaps = [g for r in self._lat for g in r["gaps"]]
+        return {
+            "steps": self.steps,
+            "completed": self.completed,
+            "abandoned": self.abandoned,
+            "tokens_out": self.tokens_out,
+            "admission_retries": self.admission_retries,
+            "evictions": self.evictions,
+            "reclaims": self.reclaims,
+            "faults_applied": self.faults_applied,
+            "faults_skipped": self.faults_skipped,
+            "straggler_events": len(self.straggler.events),
+            "suspends": work["suspends"],
+            "resumes": work["resumes"],
+            "replay_prefill_tokens": work["replay_prefill_tokens"],
+            "replay_mismatches": work["replay_mismatches"],
+            "work_units": self._vt(),
+            "prefill_chunks": work["prefill_chunks"],
+            "prefill_stall_steps": work["prefill_stall_steps"],
+            "first_tokens": len(ttft),
+            "ttft_units_p50": latency_percentile(ttft, 50),
+            "ttft_units_p99": latency_percentile(ttft, 99),
+            "ttft_steps_p50": latency_percentile(ttft_steps, 50),
+            "ttft_steps_p99": latency_percentile(ttft_steps, 99),
+            "tpot_units_p50": latency_percentile(gaps, 50),
+            "tpot_units_p99": latency_percentile(gaps, 99),
+        }
+
+    # -- internals ------------------------------------------------------- #
+    def _admit(self, step: int, force: bool = False) -> bool:
+        from repro_torch.kernels.decode_schedule import admission_order
+
+        admitted = False
+        now = self._now(step)
+        arrived = [it for it in self._queue if self._meta[it[0]]["arrival"] <= now]
+        # Stamp queue entry once, before any admission work: TTFT starts at
+        # arrival (on the work-unit clock, the arrival itself).
+        for it in arrived:
+            lat = self._lat[it[0]]
+            if lat["submit_vt"] is None:
+                lat["submit_vt"] = (self._lat_clock() if self.arrival_unit == "steps"
+                                    else self._meta[it[0]]["arrival"])
+                lat["submit_step"] = step
+        order = admission_order(
+            # queued slack is the deadline window itself: tighter first
+            (it[0], self._meta[it[0]]["priority"],
+             self._meta[it[0]]["deadline"] if self._meta[it[0]]["deadline"] is not None
+             else self.deadline)
+            for it in arrived
+        )
+        by_idx = {it[0]: it for it in arrived}
+        for idx in order:
+            item = by_idx[idx]
+            if not force and item[1] > step:
+                continue  # backing off: skip ahead
+            rid = self.sess.add_request(self._submitted[idx])
+            if rid is None:
+                item[1] = step + item[2]
+                item[2] = min(item[2] * 2, self.backoff_cap)
+                self.admission_retries += 1
+                continue  # skip ahead: a later prompt may still fit
+            self._queue.remove(item)
+            meta = self._meta[idx]
+            synchronous = bool(self.sess.outputs[rid])  # first token emitted already
+            self._live[rid] = {
+                "idx": idx,
+                # gen_len tokens past the first, which a budgeted session
+                # emits later as a step's delta
+                "remaining": self.gen_len + (0 if synchronous else 1),
+                "admitted": step,
+                "priority": meta["priority"],
+                "deadline": meta["deadline"],
+            }
+            lat = self._lat[idx]
+            lat["admit_vt"] = self._lat_clock()
+            lat["admit_step"] = step
+            if synchronous:
+                # stamped after the prefill: its chunks are part of its TTFT
+                lat["first_vt"] = self._lat_clock()
+                lat["first_step"] = step
+                lat["last_vt"] = lat["first_vt"]
+            admitted = True
+            force = False
+        return admitted
+
+    def _try_resume(self, step: int) -> None:
+        sess = self.sess
+        # Ascending rid: fork parents before children.  Requests this
+        # supervisor evicted sit out their backoff first, so they are not
+        # resumed straight into the pressure that evicted them.
+        for rid in sorted(sess.suspended):
+            hold = self._resume_hold.get(rid)
+            if hold is not None and hold[0] > step:
+                continue
+            if sess.resume(rid):
+                self._resume_hold.pop(rid, None)
+
+    def _idle_tick(self, step: int) -> None:
+        # Nothing steppable: wait for a ballast release, a backoff or a
+        # later arrival, else fail instead of spinning.
+        if self._ballast:
+            self.steps += 1
+            return
+        if self._live:
+            if any(self._resume_hold.get(r, [0])[0] > step for r in self._live):
+                self.steps += 1
+                return
+            raise RuntimeError(
+                f"{len(self._live)} suspended request(s) cannot be resumed "
+                "— no eligible shard has room and nothing live could free pages"
+            )
+        if self._queue:
+            arrived = [it for it in self._queue
+                       if self._meta[it[0]]["arrival"] <= self._now(step)]
+            if not arrived:
+                self._clock_skew += 1  # a stream gap: idle time passes
+                self.steps += 1
+                return
+            if self._admit(step, force=True):
+                return
+            raise RuntimeError(
+                f"request of {len(self._submitted[arrived[0][0]])} tokens cannot be "
+                "admitted even with an idle session — grow the pool or truncate the prompt"
+            )
+
+    def _suspend_victim(self, steppable: list[int]) -> None:
+        # Evict by SLA: lowest priority class, then most deadline slack,
+        # then most complete, then newest.  A request within
+        # ``deadline_guard`` steps of its deadline is spared while any other
+        # candidate exists.
+        sess, step = self.sess, self.steps
+        candidates = [r for r in steppable if self._slack(r, step) > self.deadline_guard]
+        victim = max(candidates or steppable, key=lambda r: (
+            -self._live[r]["priority"], self._slack(r, step), len(sess.outputs[r]), -r))
+        sess.suspend(victim)
+        hold = self._resume_hold.setdefault(victim, [0, self.backoff_base])
+        hold[1] = min(hold[1] * 2, 32)
+        hold[0] = self.steps + hold[1]
+        self.evictions += 1
+        self.events.append(f"step {self.steps}: pool full — suspended request {victim}")
+
+    def _abandon(self, rid: int) -> None:
+        info = self._live.pop(rid)
+        sess = self.sess
+        out = sess.discard_suspended(rid) if rid in sess.suspended else sess.finish(rid)
+        self._results[info["idx"]] = out
+        self.abandoned_idx.add(info["idx"])
+        self.abandoned += 1
+        self.events.append(f"step {self.steps}: abandoned request {rid} "
+                           f"(submission {info['idx']}) with {len(out)} tokens")
+
+    def _apply_plan(self, step: int) -> None:
+        # A step index re-enters after an eviction retry; events fire once.
+        if self.plan is None or step in self._plan_applied:
+            return
+        self._plan_applied.add(step)
+        for ev in self.plan.events_at(step):
+            if ev.kind == "shard_loss":
+                # One session has no other shard to re-route to: skipped.
+                self.faults_skipped += 1
+            elif ev.kind == "slow_shard":
+                self._slow = (step + max(1, ev.duration), ev.factor)
+                self.faults_applied += 1
+                self.events.append(f"step {step}: slow shard x{ev.factor:g} for "
+                                   f"{max(1, ev.duration)} steps")
+            elif ev.kind == "pool_pressure":
+                handle = self.sess.hold_pages(ev.pages)
+                self._ballast.append((step + max(1, ev.duration), handle))
+                self.faults_applied += 1
+                self.events.append(f"step {step}: pool pressure — {ev.pages} pages held "
+                                   f"for {max(1, ev.duration)} steps")
+            elif ev.kind == "abandon":
+                if not self._live:
+                    self.faults_skipped += 1
+                    continue
+                self.faults_applied += 1
+                self._abandon(min(self._live, key=lambda r: self._live[r]["idx"]))
+
+    def _tick_ballast(self, step: int) -> None:
+        keep = []
+        for due, handle in self._ballast:
+            if due <= step:
+                self.sess.release_pages(handle)
+            else:
+                keep.append((due, handle))
+        self._ballast = keep
 
 
 class PagedDecodeSession:

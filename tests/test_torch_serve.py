@@ -151,9 +151,16 @@ def test_admission_validation_and_unported_options(models):
     assert sess.add_request(prompts_for(9, (PAGE,))[0]) is None
     with pytest.raises(KeyError):
         sess.finish(7)
-    for kw in (dict(prefill_budget=64), dict(head_shards=2)):
-        with pytest.raises(NotImplementedError):
-            PagedServingSession(model, params, num_pages=4, page_size=PAGE, **kw)
+    with pytest.raises(NotImplementedError, match="sharded-serving slice"):
+        PagedServingSession(model, params, num_pages=4, page_size=PAGE, head_shards=2)
+    # ported since: budgeted interleaving (held against the reference in
+    # test_torch_interleaved_prefill.py), whose budget must cover a chunk
+    sb = PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K,
+                             prefill_chunk=CHUNK, prefill_budget=64)
+    assert sb.prefill_budget == 64 and sb.prefill_pending == 0
+    with pytest.raises(ValueError, match="below prefill_chunk"):
+        PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K,
+                            prefill_chunk=CHUNK, prefill_budget=CHUNK - 1)
     # ported since: an int8, prefix-sharing session, the trie and n-gram
     # speculation build (their serving is held against the reference in
     # test_torch_prefix_sharing.py, test_torch_prefix_trie.py and
@@ -163,21 +170,42 @@ def test_admission_validation_and_unported_options(models):
     assert s8.cache.quantized and s8.prefix_sharing
     for kw in (dict(speculate="ngram"), dict(prefix_cache="trie", prefill_chunk=CHUNK)):
         PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K, **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sess.suspend(0)
+    # ported since: suspend/resume (test_torch_fault_tolerance.py)
+    with pytest.raises(KeyError, match="not live"):
+        sess.suspend(7)
     with pytest.raises(KeyError):
         sess.admit_with_prefix(7, [3])
     with pytest.raises(ValueError, match="at least one suffix token"):
         sess.admit_with_prefix(0, [])
 
 
-def test_launch_serve_cli_on_cpu(capsys):
-    # --cache dense is the default, as in the reference; this is the paged run
+@pytest.mark.parametrize("flags,keys", [
+    ([], ["served 3 requests, 9 decode tokens"]),
+    (["--prefill-budget", "64", "--priority-classes", "2,0,1"],
+     ["served 3/3 requests, 12 decode tokens", "0 suspends / 0 resumes",
+      "latency (work units): TTFT p50/p99 ", " 0 decode-stall chunks)"]),
+    (["--chaos", "3"],
+     ["chaos plan (seed 3): step 1: pool_pressure (shard=0 32 pages for 2); step 2: "
+      "slow_shard (shard=0 x5 for 2)", "served 3/3 requests", "2 faults applied (0 skipped)",
+      "step 1: pool pressure — 32 pages held for 2 steps"]),
+])
+def test_launch_serve_cli_on_cpu(capsys, flags, keys):
+    # --cache dense is the default, as in the reference; these are paged runs
     serve.main(["--cache", "paged", "--smoke", "--requests", "3", "--gen-len", "3",
-                "--device", "cpu"])
+                "--device", "cpu", *flags])
     out = capsys.readouterr().out
-    assert "served 3 requests, 9 decode tokens" in out
     assert "teardown sweep: 64 pages free (clean)" in out
+    for key in keys:
+        assert key in out, key
+    if flags:
+        for i in range(3):
+            assert f"request {i} done: 4 tokens" in out
+        for bad, match in ((["--priority-classes", "1,x"], "comma-separated integers"),
+                           (["--chaos", "1"], "--chaos/--deadline/--priority-classes need "
+                                              "--cache paged"),
+                           (["--prefill-budget", "64"], "--prefill-budget needs --cache paged")):
+            with pytest.raises(SystemExit, match=match):
+                serve.main(["--smoke", "--device", "cpu", *bad])
 
 
 def test_launch_serve_cli_int8_shared_prefix_demo_on_cpu(capsys):

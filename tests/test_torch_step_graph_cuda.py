@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels.decode_schedule import queue_capacity
 from repro_torch.kernels import mla_decode_combine as port_combine
 from repro_torch.kernels import mla_decode_paged as port_paged
 from repro_torch.models.model_zoo import build_model
@@ -179,3 +180,97 @@ def test_a_walk_that_reads_the_host_fails_to_capture(cuda_device, bad):
     assert torch.cuda.get_sync_debug_mode() == 0
     assert (port_paged.mla_decode_paged_queue_rows.launches,
             port_combine.combine_split_partials.launches) == before
+
+
+def serve_budgeted_and_suspended(model, params, graphs, scenario):
+    """``scenario="budget"``: prompts of 5, 30, 62 and 17 tokens admitted
+    under ``prefill_budget=32``, so they join the live batch one by one
+    (batch sizes 1..4: a capture each) while later slices land; 16 steps.
+    ``scenario="suspend"``: the same prompts phased; request 1 is suspended
+    after step 3 and resumed after step 6, and request 2 is suspended while
+    request 3 runs and resumed at step 10 (a replay rewrites the rows the
+    decode graphs read)."""
+    sess = PagedServingSession(model, params, num_pages=40, page_size=PAGE, block_k=BLOCK_K,
+                               num_splits=2, prefill_chunk=16,
+                               prefill_budget=32 if scenario == "budget" else None)
+    if not graphs:
+        run_eagerly(sess)
+    seen = record_logits(sess)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (5, 30, 62, 17)]
+    for p in prompts:
+        assert sess.add_request(p) is not None
+    for i in range(16):
+        if scenario == "suspend":
+            if i in (3, 8):
+                sess.suspend({3: 1, 8: 2}[i])
+            if i in (6, 10):
+                assert sess.resume({6: 1, 10: 2}[i])
+        sess.step()
+    return sess, seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["budget", "suspend"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_budgeted_and_resumed_sessions_replay_the_eager_walk(cuda_device, dtype, scenario):
+    model, params = params_for("deepseek-v2-mla", dtype)
+    graph, g_logits = serve_budgeted_and_suspended(model, params, True, scenario)
+    eager, e_logits = serve_budgeted_and_suspended(model, params, False, scenario)
+    assert graph.outputs == eager.outputs
+    assert len(g_logits) == len(e_logits) > 0
+    worst = max((a - b).abs().max().item() for a, b in zip(g_logits, e_logits))
+    print(f"{scenario}: {graph.graph_captures} captures {graph.step_graph.shapes}, "
+          f"max |graph - eager| = {worst:.3e}")
+    assert worst <= TOL
+    ws = graph.work_stats()
+    if scenario == "budget":
+        assert ws["prefill_stall_steps"] == 0 and graph.graph_captures >= 3
+    else:
+        assert ws["suspends"] == ws["resumes"] == 2 and ws["replay_mismatches"] == 0
+    for sess in (graph, eager):
+        sess.close()
+
+
+@pytest.mark.cuda
+def test_no_decode_graph_reads_a_pending_prompt(cuda_device):
+    """While a 96-token prompt slices in under a budget of one 16-token
+    chunk a step, the live requests decode from graphs: the staged block
+    table holds only their rows, and NaN written over every page of the
+    pending prompt after each step leaves their logits bit-equal to a run
+    without it."""
+    model, params = params_for("deepseek-v2-mla", torch.bfloat16)
+    rng = np.random.default_rng(3)
+    live_prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (7, 40)]
+    long = rng.integers(2, model.cfg.vocab_size, size=96).tolist()
+    runs = []
+    for poison in (False, True):
+        sess = PagedServingSession(model, params, num_pages=40, page_size=PAGE,
+                                   block_k=BLOCK_K, num_splits=2, prefill_chunk=16,
+                                   prefill_budget=16)
+        seen = record_logits(sess)
+        live = [sess.add_request(p) for p in live_prompts]
+        while any(not sess.outputs[r] for r in live):
+            sess.step()
+        pending = sess.add_request(long)
+        del seen[:]
+        while sess.prefill_pending:
+            sess.step()
+            if not sess.prefill_pending:
+                break
+            cap = queue_capacity(sess._scheduler.current.queue_len,
+                                 sess._scheduler.queue_bucket)
+            staged = sess.step_graph._staged[(len(sess.active), cap)][0]
+            bt, kv = sess.cache.block_table(sess.active, width=sess.table_width)
+            assert staged.block_tables.shape[0] == len(sess.active) == len(live)
+            assert torch.equal(staged.kv_len.cpu(), torch.from_numpy(kv))
+            visible = {int(p) for row, n in zip(bt, kv) for p in row[: -(-int(n) // PAGE)]}
+            assert not visible & set(sess.cache.seq_pages(pending))
+            if poison:
+                for pid in sess.cache.seq_pages(pending):
+                    sess.cache.pages[:, pid] = float("nan")
+        runs.append([s.clone() for s in seen])
+        assert all(torch.isfinite(s).all() for s in runs[-1])
+        sess.close()
+    assert len(runs[0]) >= 4
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
