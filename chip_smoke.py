@@ -116,8 +116,31 @@ root) and exits nonzero on any failure:
     under pool pressure, a slow shard and an abandon: resumes = suspends
     >= 1, the straggler flagged, no page leaked.
 
+17. **Families kernel phase** (with the other kernel phases): K6 and K7,
+    bf16 and fp32, ``amla`` and ``base``, against their plain versions at
+    the head geometries of qwen3-moe-30b-a3b (32/4 x 128), granite-moe
+    (24/8 x 64), internlm2-20b (48/8 x 128) and recurrentgemma-2b (MQA,
+    10/1 x 256, window 2048, at kv_len 0, 1, 2047, 2049 and 4500), the
+    two served in 19 at the shapes 19 gives them (8192-row caches, K7 at
+    each prefill's length), timed beside their bound, plain version and
+    one SDPA call.
+18. **Small family references**: smoke qwen3-moe, granite-moe, mamba2
+    and recurrentgemma (fp32) through the dense ``ServingSession`` on the
+    card (kernels, graphs) and on the CPU, held as in 3, with a 300-token
+    prompt past the SSD chunk and one block of the RG-LRU scan.
+19. **Families phase** (last): qwen3-moe-30b-a3b (48 layers, 30.5 B
+    parameters), mamba2-370m (48 Mamba-2 layers) and recurrentgemma-2b
+    (18 RG-LRU + 8 local-attention layers) at published widths and full
+    depth through ``ServingSession(batch 4, max_len 8192)`` and the
+    ``launch/serve`` stream loop: 4 prompts up to 4500 tokens, 16 greedy
+    tokens each; K6/K7/K3 launches equal to attention layers x calls (0
+    for mamba2), one graph per session whose first 3 steps equal the eager
+    walk bit for bit (tokens and logits), prefill tokens/s, decode
+    ms/step, peak memory, and qwen3-moe's decode beside the time to read
+    all experts' weights.
+
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
-``--k3-only``.
+``--k3-only`` (the build and phase 8).
 """
 
 from __future__ import annotations
@@ -586,18 +609,47 @@ def dense_cases(dtype):
 def dense_kernel_phase(flush):
     """Hold K4, K6 and K7 against their plain versions on the card, then
     time them at the dense serve phases' shapes."""
+    log("== kernel phase: K6 (GQA decode), K7 (flash prefill), K4 (contiguous MLA "
+        "decode) vs their plain PyTorch versions ==")
+    worst = hold_dense_cases(dense_cases)
+
+    # Timing, bf16 amla, at the serve phases' shapes: gemma2-2b decode after
+    # 16 steps (the session's whole 8192-row cache, kv = prompt + 16) and
+    # the prefill of its 1100-token prompt (bucket 2048, kv_len = bucket);
+    # deepseek-v2-mla decode after 16 steps and its 513-token prefill
+    # (bucket 1024, G = 1024 * 128).  The other geometries are timed too.
+    bf = torch.bfloat16
+    gemma = GQA_GEOMETRIES[0]
+    timed = [
+        ("K6", "gemma2-2b decode", gqa_case("K6", gemma, 4, 1, 8192, [21, 316, 1116, 4516], bf, 50)),
+        ("K7", "gemma2-2b prefill 2048", gqa_case("K7", gemma, 1, 2048, 8192, [2048], bf, 51)),
+        ("K7", "gemma2-2b prefill 8192", gqa_case("K7", gemma, 1, 8192, 8192, [8192], bf, 52)),
+        ("K4", "deepseek decode", mla_case(4, 128, 2048, [53, 316, 529, 1116],
+                                           np.repeat(np.asarray([52, 315, 528, 1115])[:, None], 128, 1), bf, 53)),
+        ("K4", "deepseek prefill 1024", mla_case(1, 1024 * 128, 2048, [1024],
+                                                 (np.arange(1024 * 128) // 128)[None, :], bf, 54)),
+    ]
+    for geom in GQA_GEOMETRIES[1:]:
+        timed.append(("K6", f"{geom[0]} decode", gqa_case("K6", geom, 4, 1, 2048, [21, 316, 1116, 2048], bf, 55)))
+        timed.append(("K7", f"{geom[0]} prefill 1024", gqa_case("K7", geom, 1, 1024, 2048, [1024], bf, 56)))
+    return worst, time_dense_rows(timed, flush)
+
+
+def hold_dense_cases(cases_of):
+    """Hold every K4/K6/K7 case of ``cases_of(dtype)`` (bf16, then fp32)
+    against its plain version, ``amla`` and ``base``, with the tensor-core
+    and K3 launch counts checked per call; returns the largest error per
+    (kernel, dtype, variant)."""
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import gqa_decode as gd
     from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import mla_decode_combine as mc
 
-    log("== kernel phase: K6 (GQA decode), K7 (flash prefill), K4 (contiguous MLA "
-        "decode) vs their plain PyTorch versions ==")
     worst = {}
     counted = lambda: (md.mla_decode_rows.mma_launches, gd.gqa_decode_rows.mma_launches,
                        fp.flash_prefill.mma_launches, mc.combine_split_partials.launches)
     for dtype in (torch.bfloat16, torch.float32):
-        for name, case in dense_cases(dtype):
+        for name, case in cases_of(dtype):
             kname = name.split()[0]
             bf = dtype == torch.bfloat16
             splits = 1 if kname != "K6" else gd.split_count(
@@ -633,26 +685,13 @@ def dense_kernel_phase(flush):
     for (kname, dtype, variant), err in sorted(worst.items(), key=str):
         log(f"  max |kernel - plain| {kname} {str(dtype)[6:]} {variant}: {err:.3e} "
             f"(tol {TOL[dtype, variant]:g})")
+    return worst
 
-    # Timing, bf16 amla, at the serve phases' shapes: gemma2-2b decode after
-    # 16 steps (the session's whole 8192-row cache, kv = prompt + 16) and
-    # the prefill of its 1100-token prompt (bucket 2048, kv_len = bucket);
-    # deepseek-v2-mla decode after 16 steps and its 513-token prefill
-    # (bucket 1024, G = 1024 * 128).  The other geometries are timed too.
-    bf = torch.bfloat16
-    gemma = GQA_GEOMETRIES[0]
-    timed = [
-        ("K6", "gemma2-2b decode", gqa_case("K6", gemma, 4, 1, 8192, [21, 316, 1116, 4516], bf, 50)),
-        ("K7", "gemma2-2b prefill 2048", gqa_case("K7", gemma, 1, 2048, 8192, [2048], bf, 51)),
-        ("K7", "gemma2-2b prefill 8192", gqa_case("K7", gemma, 1, 8192, 8192, [8192], bf, 52)),
-        ("K4", "deepseek decode", mla_case(4, 128, 2048, [53, 316, 529, 1116],
-                                           np.repeat(np.asarray([52, 315, 528, 1115])[:, None], 128, 1), bf, 53)),
-        ("K4", "deepseek prefill 1024", mla_case(1, 1024 * 128, 2048, [1024],
-                                                 (np.arange(1024 * 128) // 128)[None, :], bf, 54)),
-    ]
-    for geom in GQA_GEOMETRIES[1:]:
-        timed.append(("K6", f"{geom[0]} decode", gqa_case("K6", geom, 4, 1, 2048, [21, 316, 1116, 2048], bf, 55)))
-        timed.append(("K7", f"{geom[0]} prefill 1024", gqa_case("K7", geom, 1, 1024, 2048, [1024], bf, 56)))
+
+def time_dense_rows(timed, flush):
+    """Time each (kernel, shape, case) of ``timed`` (bf16, amla) beside its
+    bound, its plain version and one SDPA call; returns
+    {(kernel, shape): (ms, plain ms, bound ms, bound by, SDPA ms or None)}."""
     rows = {}
     for kname, shape, case in timed:
         run, bnd, lib = (run_k4, k4_bound, k4_sdpa) if kname == "K4" else (run_gqa, gqa_bound, gqa_sdpa)
@@ -667,7 +706,76 @@ def dense_kernel_phase(flush):
         rows[kname, shape] = (t, tp, b, by, tlib)
         del case
         torch.cuda.empty_cache()
-    return worst, rows
+    return rows
+
+
+# (name, Hq, Hkv, Dh, window, softcap) of the MoE, hybrid and internlm2 stacks
+FAMILY_GEOMETRIES = [
+    ("qwen3-moe-30b-a3b", 32, 4, 128, None, None),
+    ("granite-moe-3b-a800m", 24, 8, 64, None, None),
+    ("recurrentgemma-2b", 10, 1, 256, 2048, None),
+    ("internlm2-20b", 48, 8, 128, None, None),
+]
+
+
+def family_cases(dtype):
+    """K6/K7 at the families' head geometries.  The two the families phase
+    serves at full width get the shapes it gives them: qwen3-moe decode
+    over the 8192-row cache at kv_len 0, 1, 2047 and 4516 (16 splits
+    merged by K3), its 5-token prompt's bucket of 8 through K6, and the
+    buckets 512, 2048 and 8192 through K7 (kv_len = bucket);
+    recurrentgemma's MQA (G = 10 at Dh 256) over its 2048-key window at
+    kv_len 0, 1, 2047, 2049 and 4500, and its exact-length prefills (5
+    tokens through K6; 300, 1100 and 4500 through K7).  granite-moe and
+    internlm2 at kv_len 0, 1, 777 and 2048, an 8-token (bucket) prefill
+    through K6 and a 2048-token one through K7."""
+    out = []
+    for i, geom in enumerate(FAMILY_GEOMETRIES):
+        name = geom[0]
+        if geom[4]:
+            kv = [0, 1, 2047, 2049, 4500]
+            out.append((f"K6 {name} decode", gqa_case("K6", geom, 5, 1, 8192, kv, dtype, 60 + i)))
+            out.append((f"K6 {name} 5-token prefill",
+                        gqa_case("K6", geom, 2, 5, 8192, [5, 4500], dtype, 70 + i)))
+            out.append((f"K7 {name} prefill",
+                        gqa_case("K7", geom, 5, 4500, 8192, [4500, 2049, 2047, 1, 0], dtype, 80 + i)))
+            for j, sq in enumerate((300, 1100)):
+                out.append((f"K7 {name} prefill {sq}",
+                            gqa_case("K7", geom, 1, sq, 8192, [sq], dtype, 110 + 10 * j)))
+        elif name == "qwen3-moe-30b-a3b":
+            out.append((f"K6 {name} decode",
+                        gqa_case("K6", geom, 4, 1, 8192, [0, 1, 2047, 4516], dtype, 60 + i)))
+            out.append((f"K6 {name} 8-token prefill",
+                        gqa_case("K6", geom, 2, 8, 8192, [8, 4999], dtype, 70 + i)))
+            for j, sq in enumerate((512, 2048, 8192)):
+                out.append((f"K7 {name} prefill {sq}",
+                            gqa_case("K7", geom, 2, sq, 8192, [sq, 0], dtype, 130 + 10 * j)))
+        else:
+            out.append((f"K6 {name} decode",
+                        gqa_case("K6", geom, 4, 1, 2048, [0, 1, 777, 2048], dtype, 60 + i)))
+            out.append((f"K6 {name} 8-token prefill",
+                        gqa_case("K6", geom, 2, 8, 2048, [8, 1500], dtype, 70 + i)))
+            out.append((f"K7 {name} prefill",
+                        gqa_case("K7", geom, 2, 2048, 2048, [2048, 0], dtype, 80 + i)))
+    return out
+
+
+def family_kernel_phase(flush):
+    """K6 and K7 at the families' head geometries against their plain
+    versions, then timed (bf16, amla) at the families phase's shapes:
+    decode over the 8192-row cache after 16 steps, and the prefill of the
+    1100-token prompt (bucket 2048; recurrentgemma: exact, 4500 tokens)."""
+    log("== kernel phase: K6 and K7 at the MoE / hybrid / internlm2 head geometries ==")
+    worst = hold_dense_cases(family_cases)
+    bf, timed = torch.bfloat16, []
+    for i, geom in enumerate(FAMILY_GEOMETRIES):
+        name = geom[0]
+        s = 8192 if name in ("qwen3-moe-30b-a3b", "recurrentgemma-2b") else 2048
+        kv = [21, 316, 1116, 4516 if s == 8192 else 2048]
+        timed.append(("K6", f"{name} decode", gqa_case("K6", geom, 4, 1, s, kv, bf, 90 + i)))
+        sq = 4500 if geom[4] else 2048
+        timed.append(("K7", f"{name} prefill {sq}", gqa_case("K7", geom, 1, sq, s, [sq], bf, 95 + i)))
+    return worst, time_dense_rows(timed, flush)
 
 
 # --------------------------------------------------------------------------- #
@@ -2458,7 +2566,7 @@ def padded_decode_phase():
     return k5, times
 
 
-def dense_session_logits(cfg, params, prompts):
+def dense_session_logits(cfg, params, prompts, max_len=64):
     """Every prefill's and decode step's logits (on the CPU) and the greedy
     outputs of a small ServingSession run: 2 slots, 6 steps, a finish, a
     third prompt into the recycled slot, 3 more steps."""
@@ -2475,7 +2583,7 @@ def dense_session_logits(cfg, params, prompts):
         return out
 
     model.prefill = rec_prefill
-    sess = ServingSession(model, params, batch_size=2, max_len=64)
+    sess = ServingSession(model, params, batch_size=2, max_len=max_len)
     run = sess.step_graph.graphs.run
 
     def rec_decode(*a, **k):  # after the replay (or the eager walk on the CPU)
@@ -2495,9 +2603,14 @@ def dense_session_logits(cfg, params, prompts):
     return seen, dict(sess.outputs)
 
 
+SMALL_FAMILIES = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m", "mamba2-370m", "recurrentgemma-2b")
+
+
 def small_dense_check():
-    """Smoke gemma2-2b and deepseek-v2-mla (fp32 weights) through
-    ServingSession on the card and on the CPU, same weights and prompts:
+    """Smoke gemma2-2b, deepseek-v2-mla and the MoE, Mamba-2 and RG-LRU
+    hybrid families (``SMALL_FAMILIES``), fp32
+    weights, through ServingSession on the card and on the CPU, same
+    weights and prompts:
     the same greedy tokens, and every prefill's and decode step's logits as
     close as the CPU path is to itself under fp32-sized noise.
 
@@ -2505,7 +2618,11 @@ def small_dense_check():
     (``ops.gqa_attention`` and ``ops.mla_decode`` cast q, k, v and read the
     cache rounded to bf16, as the reference does), so where the card's
     fp32 products and the CPU's differ in the last bit, an attention input
-    can land one bf16 step (2^-8 relative) apart.  The tolerance is
+    can land one bf16 step (2^-8 relative) apart.  The families' second
+    prompt is 300 tokens (max_len 512), past Mamba-2's 256-step SSD chunk
+    and one block of the RG-LRU's doubling scan, so the chunked prefill
+    (the pad after softplus, the masked exp) is held card vs CPU too; the
+    others keep 40 tokens (max_len 64).  The tolerance is
     therefore 4x the largest logit difference of the CPU path against
     itself on weights perturbed by 2e-7 relative (three seeds), and never
     below 2e-3.  The kernels themselves are held to their tolerances in the
@@ -2514,20 +2631,23 @@ def small_dense_check():
     from repro_torch.models.model_zoo import build_model
 
     diff = lambda a, b: max((x - y).abs().max().item() for x, y in zip(a, b))
-    for arch in ("gemma2-2b", "deepseek-v2-mla"):
+    for arch in ("gemma2-2b", "deepseek-v2-mla", *SMALL_FAMILIES):
         cfg = get_config(arch, smoke=True)
         p_cpu = build_model(cfg).init(torch.Generator("cpu").manual_seed(5), "cpu")
         rng = np.random.default_rng(5)
-        prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (5, 40, 12)]
-        cpu, cpu_out = dense_session_logits(cfg, p_cpu, prompts)
-        card, card_out = dense_session_logits(cfg, to_device(p_cpu, "cuda"), prompts)
+        family = arch in SMALL_FAMILIES
+        lens, max_len = ((5, 300, 12), 512) if family else ((5, 40, 12), 64)
+        prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in lens]
+        cpu, cpu_out = dense_session_logits(cfg, p_cpu, prompts, max_len)
+        card, card_out = dense_session_logits(cfg, to_device(p_cpu, "cuda"), prompts, max_len)
         noise = max(
             diff(cpu, dense_session_logits(
-                cfg, perturbed(p_cpu, torch.Generator("cpu").manual_seed(s)), prompts)[0])
+                cfg, perturbed(p_cpu, torch.Generator("cpu").manual_seed(s)), prompts,
+                max_len)[0])
             for s in (1, 2, 3))
         tol = max(2e-3, 4 * noise)
         worst = diff(card, cpu)
-        log(f"small dense reference ({cfg.name}, fp32, ServingSession, 3 prompts, 9 steps): "
+        log(f"small dense reference ({cfg.name}, fp32, ServingSession, prompts {lens}, 9 steps): "
             f"max |logits on card - logits of the plain CPU path| = {worst:.3e} (tol {tol:.3e} "
             f"= max(2e-3, 4 x {noise:.3e}, the CPU path against itself on weights perturbed "
             f"by 2e-7)); greedy tokens {'equal' if card_out == cpu_out else 'DIFFER'}")
@@ -2538,7 +2658,8 @@ def small_dense_check():
 def hold_against_eager(sess, steps=3):
     """Make the first ``steps`` graph-replayed decode steps of ``sess`` run
     the eager walk first, on the same staged inputs and state (the walk
-    rewrites the same cache rows), and compare: returns the list it fills
+    rewrites the same cache rows; recurrent and SSM state, which a step
+    advances, is put back after it), and compare: returns the list it fills
     with (max |logits of the graph - of the eager walk|, greedy tokens
     equal) per step.  The eager runs' kernel launches are taken back from
     the counts: the counts read the replays only."""
@@ -2546,12 +2667,16 @@ def hold_against_eager(sess, steps=3):
 
     graphs = sess.step_graph.graphs
     run, held = graphs.run, []
+    state = getattr(sess.step_graph, "state", [])  # advanced by a step: restored
 
     def checked(key, walk, eager=False):
         if eager or len(held) >= steps:
             return run(key, walk, eager=eager)
         counts = sg.launch_counts()
+        saved = [t.clone() for t in state]
         want = run(key, walk, eager=True)
+        for t, v in zip(state, saved):
+            t.copy_(v)
         sg.set_launch_counts(counts)
         got = run(key, walk)
         held.append(((got - want).abs().max().item(),
@@ -2649,7 +2774,7 @@ def dense_serve(cfg, model, params, prompt_lens, gen_len, max_len, counters):
     report_held(f"{cfg.name} dense serve", held, sess, timing)
     if sess.graph_captures != 1:
         raise SystemExit(f"{cfg.name} dense serve: {sess.graph_captures} captures, expected 1")
-    return results, launches, buckets, steps
+    return results, launches, buckets, steps, held, timing
 
 
 def gemma_dense_phase():
@@ -2676,7 +2801,7 @@ def gemma_dense_phase():
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     unembed_table_phase(model, params)
     max_len, batch = 8192, 4
-    _, ((k6, k6_mma), (k7, k7_mma), (k3, _)), buckets, steps = dense_serve(
+    _, ((k6, k6_mma), (k7, k7_mma), (k3, _)), buckets, steps, _, _ = dense_serve(
         cfg, model, params, (5, 300, 1100, 4500), 16, max_len,
         (gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials))
     want7 = cfg.n_layers * sum(b > 8 for b in buckets)
@@ -2711,7 +2836,7 @@ def mla_dense_phase(cfg, model, params, prompt_lens, paged_results):
     log(f"== dense serve phase: {cfg.name} ({cfg.n_layers} layers, the paged phase's "
         f"weights), ServingSession(batch 4, max_len 2048) ==")
     torch.cuda.reset_peak_memory_stats()
-    results, ((k4, k4_mma),), buckets, steps = dense_serve(
+    results, ((k4, k4_mma),), buckets, steps, _, _ = dense_serve(
         cfg, model, params, prompt_lens, 16, 2048, (md.mla_decode_rows,))
     want4 = cfg.n_layers * (len(prompt_lens) + steps)
     log(f"launches: K4 mla_decode_rows {k4}, on the tensor-core body {k4_mma} (expected layers "
@@ -2722,6 +2847,97 @@ def mla_dense_phase(cfg, model, params, prompt_lens, paged_results):
     if k4 <= 0 or k4 != want4 or k4_mma != k4:
         raise SystemExit("deepseek-v2-mla dense phase: K4 launch count does not match the main path")
     return k4
+
+
+# (arch, prompt lengths) of the families phase
+FAMILY_RUNS = (
+    ("qwen3-moe-30b-a3b", (5, 300, 1100, 4500)),
+    ("mamba2-370m", (37, 300, 1100, 4500)),
+    ("recurrentgemma-2b", (5, 300, 1100, 4500)),
+)
+
+
+def families_phase():
+    """The MoE, Mamba-2 and RG-LRU hybrid families at published widths and
+    full depth (random bf16 weights, seed 0) through ServingSession(batch
+    4, max_len 8192) and the launch/serve stream loop, 16 greedy tokens a
+    request (``FAMILY_RUNS``).  Returns the K6, K7 and K3 launches."""
+    t0 = time.perf_counter()
+    totals = np.zeros(3, np.int64)
+    for arch, prompt_lens in FAMILY_RUNS:
+        totals += family_serve(arch, prompt_lens)
+        release()
+    log(f"families phase: {time.perf_counter() - t0:.1f} s")
+    return tuple(int(n) for n in totals)
+
+
+def family_serve(arch, prompt_lens, gen_len=16, max_len=8192, batch=4):
+    """One family at full width: its attention layers' K6/K7/K3 launch
+    counts must equal layers x calls (0 for an attention-free stack), the
+    decode steps replay one CUDA graph whose first 3 steps equal the eager
+    walk bit for bit (greedy tokens and logits), and a MoE stack's decode
+    time is printed beside the time to read every expert's weights (the
+    reference's ``(E, C, d)`` product reads all E every step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch)
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in ("global", "local") for k in kinds)
+    mixers = {k: kinds.count(k) for k in dict.fromkeys(kinds)}
+    extra = (f", {cfg.n_experts} experts top-{cfg.n_experts_active} x d_ff {cfg.d_ff_expert}"
+             if cfg.n_experts else f", d_ff {cfg.d_ff}")
+    if cfg.d_inner:
+        extra += f", d_inner {cfg.d_inner}" + (f", state {cfg.ssm_state} x heads of "
+                                               f"{cfg.ssm_head_dim}" if cfg.ssm_state else "")
+    log(f"== families phase: {cfg.name} d_model {cfg.d_model}, layers {mixers}, attention "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, window {cfg.window}{extra}, "
+        f"vocab {cfg.vocab_size}, bf16, {cfg.param_count() / 1e9:.2f} B params ==")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"random bf16 weights built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    unembed_table_phase(model, params)
+    _, ((k6, k6_mma), (k7, k7_mma), (k3, _)), buckets, steps, held, timing = dense_serve(
+        cfg, model, params, prompt_lens, gen_len, max_len,
+        (gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials))
+    # prefills of <= 8 tokens (bucket or exact length) attend through K6
+    want7 = n_attn * sum(b > 8 for b in buckets)
+    want6 = n_attn * (steps + sum(b <= 8 for b in buckets))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_blocks = -(-max_len // 512)
+    group = cfg.n_heads // cfg.n_kv_heads
+    split = lambda b, g: gd.decode_splits(sms, b * cfg.n_kv_heads * -(-g // 16), n_blocks) > 1
+    want3 = n_attn * (steps * split(batch, group)
+                      + sum(split(1, b * group) for b in buckets if b <= 8))
+    log(f"launches: K6 gqa_decode_rows {k6}, {k6_mma} on the tensor-core body (expected "
+        f"attention layers x (decode steps + prefills of <= 8 tokens) = {want6}); K7 "
+        f"flash_prefill {k7}, {k7_mma} on the tensor-core body (expected attention layers x "
+        f"longer prefills = {want7}); K3 combine_split_partials {k3} (expected {want3}); "
+        f"{n_attn} attention layers of {cfg.n_layers}")
+    worst = max(d for d, _ in held)
+    if cfg.n_experts:
+        weights = cfg.n_layers * cfg.n_experts * 3 * cfg.d_model * cfg.d_ff_expert * 2
+        steady = [t for t in timing["steps"] if t][len(held):]
+        log(f"MoE decode: {1e3 * timing['decode'] / steps:.2f} ms/step over all {steps} steps, "
+            f"{1e3 * np.mean(steady):.2f} ms/step steady, beside the time to read every "
+            f"expert's weights once, {weights / 2**30:.1f} GiB = "
+            f"{1e3 * weights / HBM_BYTES_PER_S:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    if ((k6, k6_mma), (k7, k7_mma), k3) != ((want6, want6), (want7, want7), want3):
+        raise SystemExit(f"{cfg.name} families phase: kernel launch counts do not match the "
+                         "main path")
+    if n_attn and (k6 <= 0 or k7 <= 0):
+        raise SystemExit(f"{cfg.name} families phase: an attention kernel never launched")
+    if worst != 0.0:
+        raise SystemExit(f"{cfg.name} families phase: graph and eager logits differ by "
+                         f"{worst:.3e} (must be 0)")
+    return k6, k7, k3
 
 
 def unembed_table_phase(model, params):
@@ -2914,6 +3130,7 @@ def main(argv: list[str]) -> int:
         return 0
     worst, rows = kernel_phase(flush)
     dworst, drows = dense_kernel_phase(flush)
+    fworst, _ = family_kernel_phase(flush)
     tworst, trows = slice3_kernel_phase(flush)
     nworst, nrows = trie_kernel_phase(flush)
     k3rows, k3err = k3_phase(flush)
@@ -2947,9 +3164,11 @@ def main(argv: list[str]) -> int:
     del paged
     release()
     k5, _ = padded_decode_phase()
+    release()
+    k6f, k7f, k3f = families_phase()
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
-    derr = lambda name: max(v for k, v in dworst.items() if k[0] == name)
+    derr = lambda name: max(v for d in (dworst, fworst) for k, v in d.items() if k[0] == name)
     terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     merr = lambda name: max(v for k, v in mworst.items() if k[0] == name)
     nerr = lambda name: max(v for k, v in nworst.items() if k[0] == name)
@@ -2982,7 +3201,7 @@ def main(argv: list[str]) -> int:
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
-             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c,
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
@@ -2996,11 +3215,11 @@ def main(argv: list[str]) -> int:
              max_abs_err=max(terr("K5"), merr("K5")), ms=t5[0], plain_ms=t5[1], bound_ms=t5[2],
              bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6,
+             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6 + k6f,
              max_abs_err=derr("K6"), ms=t6[0], plain_ms=t6[1], bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7,
+             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),
     ]

@@ -1,23 +1,42 @@
 """Architecture registry: full configs + reduced smoke configs.
 
 Copied from ``repro.configs``; only the architectures the port serves are
-registered: ``deepseek-v2-mla`` (paged and dense) and the dense-served GQA
-stacks ``gemma2-2b``, ``qwen2.5-3b`` and ``qwen1.5-0.5b``.
+registered: ``deepseek-v2-mla`` (paged and dense), the dense-served GQA
+stacks ``gemma2-2b``, ``qwen2.5-3b``, ``qwen1.5-0.5b`` and
+``internlm2-20b``, the MoE stacks ``qwen3-moe-30b-a3b`` and
+``granite-moe-3b-a800m``, the Mamba-2 stack ``mamba2-370m`` and the RG-LRU
+hybrid ``recurrentgemma-2b`` (all dense-served).  The encoder-decoder and
+vision-language families are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepseek_v2_mla, gemma2_2b, qwen1_5_0_5b, qwen2_5_3b
+from repro_torch.configs import (
+    deepseek_v2_mla,
+    gemma2_2b,
+    granite_moe_3b,
+    internlm2_20b,
+    mamba2_370m,
+    qwen1_5_0_5b,
+    qwen2_5_3b,
+    qwen3_moe_30b,
+    recurrentgemma_2b,
+)
 from repro_torch.configs.base import MLAConfig, ModelConfig
 
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
     for c in [
+        recurrentgemma_2b.CONFIG,
         gemma2_2b.CONFIG,
+        internlm2_20b.CONFIG,
         qwen1_5_0_5b.CONFIG,
         qwen2_5_3b.CONFIG,
+        mamba2_370m.CONFIG,
+        granite_moe_3b.CONFIG,
+        qwen3_moe_30b.CONFIG,
         deepseek_v2_mla.CONFIG,
     ]
 }
@@ -25,7 +44,8 @@ REGISTRY: dict[str, ModelConfig] = {
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests: few layers, narrow
-    widths, tiny vocab — preserving every structural feature."""
+    widths, tiny vocab/experts — preserving every structural feature
+    (pattern, softcaps, biases, qk-norm, MoE/MLA/SSM plumbing)."""
     period = len(cfg.layer_pattern)
     updates = dict(
         name=cfg.name + "-smoke",
@@ -39,6 +59,12 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         vocab_size=512,
         window=min(cfg.window, 32) if cfg.window else None,
     )
+    if cfg.n_experts:
+        updates.update(n_experts=8, n_experts_active=2, d_ff_expert=32)
+    if cfg.d_inner:
+        updates.update(d_inner=128)
+    if cfg.ssm_state:
+        updates.update(ssm_state=16, ssm_head_dim=16)
     if cfg.mla:
         updates["mla"] = MLAConfig(d_latent=64, d_rope=16, d_nope=32, d_vhead=32)
         updates["head_dim"] = 48

@@ -79,27 +79,39 @@ class ModelConfig:
         return [pat[i % len(pat)] for i in range(self.n_layers)]
 
     def param_count(self) -> int:
-        """Analytic parameter count, the reference's formula, for the kinds
-        the port serves (GQA or MLA attention + dense MLP); raises for the
-        others."""
+        """Analytic parameter count, the reference's formula, for the layer
+        kinds the port builds; raises for an encoder stack (not ported)."""
+        if self.encoder_layers:
+            raise NotImplementedError(
+                f"param_count does not cover {self.name!r}'s encoder stack yet")
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         for kind in self.layer_kinds():
-            if kind not in ("global", "local") or self.n_experts:
-                raise NotImplementedError(
-                    f"param_count covers dense attention stacks; {self.name!r} "
-                    f"has a {kind!r} layer"
-                )
-            if self.mla is not None:
-                m = self.mla
-                n += d * self.n_heads * (m.d_nope + m.d_rope)
-                n += self.n_heads * m.d_nope * m.d_latent
-                n += d * (m.d_latent + m.d_rope)
-                n += self.n_heads * m.d_latent * m.d_vhead
-                n += self.n_heads * m.d_vhead * d
+            if kind in ("global", "local"):
+                if self.mla is not None:
+                    m = self.mla
+                    n += d * self.n_heads * (m.d_nope + m.d_rope)
+                    n += self.n_heads * m.d_nope * m.d_latent
+                    n += d * (m.d_latent + m.d_rope)
+                    n += self.n_heads * m.d_latent * m.d_vhead
+                    n += self.n_heads * m.d_vhead * d
+                else:
+                    hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
+                    n += d * (hq + 2 * hkv) * dh + hq * dh * d
+            elif kind == "recurrent":
+                dl = self.d_inner
+                n += 2 * d * dl + dl * d + self.conv_width * dl + 3 * dl
+            elif kind == "ssm":
+                dl = self.d_inner
+                n += d * (2 * dl + 2 * self.ssm_state + dl // self.ssm_head_dim)
+                n += dl * d + self.conv_width * (dl + 2 * self.ssm_state)
+            # MLP / MoE
+            if kind == "ssm":
+                pass  # mamba blocks have no separate MLP
+            elif self.n_experts:
+                n += d * self.n_experts  # router
+                n += self.n_experts * 3 * d * self.d_ff_expert
             else:
-                hq, hkv, dh = self.n_heads, self.n_kv_heads, self.head_dim
-                n += d * (hq + 2 * hkv) * dh + hq * dh * d
-            n += 3 * d * self.d_ff
+                n += 3 * d * self.d_ff
             n += 2 * d  # norms
         return int(n)

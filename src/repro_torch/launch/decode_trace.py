@@ -15,6 +15,10 @@ state after its prompts are admitted:
   prompts of 5, 300, 1100 and 4500 tokens;
 * ``dense-mla``: the paged cell's weights and prompts through
   ``ServingSession(batch 4, max_len 2048)``;
+* ``qwen3-moe``, ``mamba2``, ``recurrentgemma`` (not by default): the
+  families phase's cells, qwen3-moe-30b-a3b (prompts of 5, 300, 1100 and
+  4500 tokens), mamba2-370m (37, 300, 1100, 4500) and recurrentgemma-2b
+  (5, 300, 1100, 4500) through ``ServingSession(batch 4, max_len 8192)``;
 * ``k2-pad`` (not by default; needs this tree's ``src``): no session, K2 + K3
   alone at a pool of realistic size, with the work queue padded as the
   decode graphs pad it (:func:`k2_padding_cell`).
@@ -70,6 +74,12 @@ ATTENTION = ("mla_decode_queue", "combine_kernel", "mla_decode_rows", "gqa_decod
              "gqa_rows", "flash_prefill", "mla_decode_padded")
 CUBLAS = ("gemm", "cutlass", "nvjet", "xmma", "cublas")
 PAGED_PROMPTS, GEMMA_PROMPTS = (37, 300, 513, 1100), (5, 300, 1100, 4500)
+# cell -> (arch, prompt lengths), served dense at max_len 8192
+FAMILY_CELLS = {
+    "qwen3-moe": ("qwen3-moe-30b-a3b", GEMMA_PROMPTS),
+    "mamba2": ("mamba2-370m", (37, 300, 1100, 4500)),
+    "recurrentgemma": ("recurrentgemma-2b", GEMMA_PROMPTS),
+}
 
 
 def kind_of(name: str) -> str:
@@ -287,7 +297,7 @@ def main(argv) -> int:
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                   os.pardir, os.pardir))
     ap.add_argument("--cells", nargs="+", default=["paged", "gemma", "dense-mla"],
-                    choices=["paged", "gemma", "dense-mla", "k2-pad"])
+                    choices=["paged", "gemma", "dense-mla", "k2-pad", *FAMILY_CELLS])
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--timed", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
@@ -316,6 +326,15 @@ def main(argv) -> int:
         print(json.dumps({"cell": "gemma2-2b dense", "label": args.label, "card": smi, **res}),
               flush=True)
         del model, params
+        torch.cuda.empty_cache()
+    for cell in (c for c in FAMILY_CELLS if c in args.cells):
+        arch, prompt_lens = FAMILY_CELLS[cell]
+        model = build_model(get_config(arch))
+        params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+        res = dense_cell(model, params, prompt_lens, 8192, args)
+        print(json.dumps({"cell": f"{arch} dense", "label": args.label, "card": smi, **res}),
+              flush=True)
+        del model, params, res
         torch.cuda.empty_cache()
     if {"paged", "dense-mla"} & set(args.cells):
         cfg = get_config("deepseek-v2-mla")

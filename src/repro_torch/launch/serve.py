@@ -5,7 +5,10 @@ Runs a request stream through one of two cache backends:
 * ``--cache dense`` (default; default arch ``qwen1.5-0.5b``):
   :class:`ServingSession`, a fixed batch of ``--batch`` slots with
   ``--max-len`` cache rows each, bucketed prefill, GQA attention through
-  the K6/K7 kernels (MLA through K4);
+  the K6/K7 kernels (MLA through K4); every registered arch, the MoE
+  (``qwen3-moe-30b-a3b``, ``granite-moe-3b-a800m``), Mamba-2
+  (``mamba2-370m``) and RG-LRU hybrid (``recurrentgemma-2b``) stacks
+  included;
 * ``--cache paged`` (default arch ``deepseek-v2-mla``):
   :class:`PagedServingSession`, the full model decoding over a
   LayeredPagedKVCache via the AMLA paged kernels, with chunked

@@ -11,8 +11,10 @@ from repro_torch.models import transformer
 
 
 class LanguageModel:
-    """Decoder-only attention stacks (GQA or MLA, global or sliding-window
-    layers, dense MLP), served over a dense or a paged cache."""
+    """Decoder-only stacks: GQA or MLA attention (global or sliding-window
+    layers), RG-LRU and Mamba-2 layers, dense or MoE MLPs; served over a
+    dense cache (K/V rows and recurrent/SSM state per slot) or, for MLA
+    attention-only stacks, a paged one."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -32,7 +34,8 @@ class LanguageModel:
 
     # -- serving: dense cache backend -------------------------------------- #
     def init_cache(self, params, batch_size, max_len, dtype=None) -> list:
-        """Zeroed per-layer dense caches on the device of ``params``."""
+        """Zeroed per-layer dense caches (K/V or latent rows, or a
+        recurrent/SSM layer's fp32 state) on the device of ``params``."""
         return transformer.lm_cache_init(
             self.cfg, batch_size, max_len, dtype=dtype or self.dtype,
             device=params["embed"]["table"].device,

@@ -1,0 +1,123 @@
+"""Mixture-of-Experts MLP (counterpart of ``repro/models/moe.py``): top-k
+routing, capacity, sort/gather dispatch, experts batched over E.
+
+Semantics are the reference's, token-dropping at capacity:
+
+* a softmax router in fp32 (bf16 inputs, fp32 product), ``top_k``, the
+  weights renormalized;
+* capacity ``ceil(n * k / E * capacity_factor)`` from the call's own token
+  count ``n`` (so a right-padded prefill's pad tokens and a decode step's
+  idle slots take capacity as real tokens do, as in the reference);
+* a *stable* sort by expert: inside an expert tokens rank in token order
+  and the ones past capacity are dropped;
+* the expert MLPs as ``(E, C, d) x (E, d, ff)`` products (``torch.bmm``)
+  with fp32 outputs from bf16 inputs, as the reference's, which read
+  every expert's weights whatever the routing;
+* the weighted combine, each token's kept expert outputs summed in
+  increasing expert order from zero: the reference's order of additions
+  on one device, and deterministic (no float atomics), so a CUDA graph's
+  replay equals the eager walk bit for bit.
+
+Nothing here reads a value back to the host (capacity comes from the
+shapes), so a decode step that runs it can be captured as a CUDA graph.
+The reference's expert-parallel sharding constraints (``mesh_ctx``) are
+not ported: on one device it takes none either.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models import layers
+
+
+def moe_init(gen, cfg, *, device, dtype):
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    kw = dict(device=device, dtype=dtype)
+    s = 1.0 / math.sqrt(d)
+    return {
+        "router": layers.truncnorm(gen, (d, e), s, **kw),
+        "gate": layers.truncnorm(gen, (e, d, ff), s, **kw),
+        "up": layers.truncnorm(gen, (e, d, ff), s, **kw),
+        "down": layers.truncnorm(gen, (e, ff, d), 1.0 / math.sqrt(ff), **kw),
+    }
+
+
+def expert_products(a, b):
+    """``(E, C, x) x (E, x, y)`` products of ``a.dtype`` inputs, fp32 out:
+    the reference's ``preferred_element_type=float32``, so that g, u and
+    the expert outputs reach ``silu(g) * u`` and the combine unrounded.  On
+    a CUDA tensor cuBLAS writes fp32 from bf16 inputs (``out_dtype``); on
+    the CPU the inputs are widened first, which rounds nothing."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def moe_apply(params, x, *, cfg, dtype=torch.bfloat16):
+    """x: (B, S, d) -> ((B, S, d), the load-balancing aux loss)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.n_experts_active
+    n = b * s
+    dev = x.device
+    xf = x.reshape(n, d)
+
+    # bf16 inputs, fp32 product: the reference's preferred_element_type
+    logits = torch.matmul(xf.to(dtype).float(), params["router"].to(dtype).float())
+    probs = torch.softmax(logits, dim=-1)  # (N, E)
+    top_w, top_i = torch.topk(probs, k, dim=-1)  # (N, k)
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+
+    # Load-balancing auxiliary loss (Switch-style).
+    me = probs.mean(0)
+    ce = torch.zeros((e,), dtype=torch.float32, device=dev).scatter_add_(
+        0, top_i.reshape(-1), torch.ones((n * k,), dtype=torch.float32, device=dev)
+    ) / (n * k)
+    aux_loss = e * torch.sum(me * ce)
+
+    capacity = max(int(math.ceil(n * k / e * cfg.capacity_factor)), 1)
+
+    # ---- sort-based dispatch ----
+    flat_expert = top_i.reshape(-1)  # (N*k,)
+    flat_w = top_w.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    se, st, sw = flat_expert[order], order // k, flat_w[order]
+    seg_start = torch.searchsorted(se, torch.arange(e, dtype=se.dtype, device=dev))
+    rank = torch.arange(n * k, device=dev) - seg_start[se]
+    keep = rank < capacity
+    slot = torch.where(keep, se * capacity + rank, e * capacity)  # drop -> tail
+
+    # slot tables (one scatter each; the tail entry absorbs the drops)
+    token_for_slot = torch.full((e * capacity + 1,), -1, dtype=torch.int64,
+                                device=dev).scatter_(0, slot, st)[:-1]
+    w_for_slot = torch.zeros((e * capacity + 1,), dtype=torch.float32,
+                             device=dev).scatter_(0, slot, sw)[:-1]
+    valid = token_for_slot >= 0
+    gather_idx = torch.clamp_min(token_for_slot, 0)
+
+    xe = xf[gather_idx].reshape(e, capacity, d)
+    xe = torch.where(valid.reshape(e, capacity, 1), xe, 0.0)
+
+    # ---- expert MLPs (batched over E) ----
+    xe_c = xe.to(dtype)
+    g = expert_products(xe_c, params["gate"].to(dtype))
+    u = expert_products(xe_c, params["up"].to(dtype))
+    h = (torch.nn.functional.silu(g) * u).to(dtype)
+    ye = expert_products(h, params["down"].to(dtype))  # (E, C, d) fp32
+
+    # ---- weighted combine, in increasing expert order per token ----
+    yw = ye.reshape(e * capacity, d) * w_for_slot[:, None]
+    # each (token, choice)'s slot, -1 where dropped; sorted, a token's
+    # slots run in increasing expert id (slot = expert * C + rank)
+    slot_of = torch.full((n * k,), -1, dtype=torch.int64, device=dev).scatter_(
+        0, order, torch.where(keep, slot, -1))
+    slots = torch.sort(slot_of.reshape(n, k), dim=1).values
+    out = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        sj = slots[:, j]
+        out = out + torch.where((sj >= 0)[:, None], yw[torch.clamp_min(sj, 0)], 0.0)
+    return out.reshape(b, s, d).to(x.dtype), aux_loss

@@ -3,16 +3,20 @@ dense-cache path (``lm_apply`` over per-layer caches, as the reference's
 ``ServingSession`` drives it) and the paged MLA backend.
 
 Parameters are a dict: ``embed``/``unembed`` tables, ``final_norm``, and
-``layers``, a list of per-layer dicts (``ln1``, ``attn``, ``ln2``,
-``mlp``, and gemma2's ``post_ln1``/``post_ln2``) — the reference's scanned
+``layers``, a list of per-layer dicts (``ln1``; ``attn``, ``rec`` or
+``ssm``; ``ln2`` and ``mlp``, dense or MoE; gemma2's ``post_ln1``/
+``post_ln2``) — the reference's scanned
 ``groups`` unstacked, as ``per_layer_params`` does there (see
 :mod:`repro_torch.convert`).  A Python loop over that list takes the place
 of the reference's ``scan`` over layer groups.  Dense caches are a list
 with one dict per layer, updated in place.
 
-Layer kinds "global" and "local" (GQA or MLA attention, "local" with the
-config's sliding window) with a dense MLP are ported; recurrent, SSM and
-MoE layers raise ``NotImplementedError``.
+Layer kinds: "global" and "local" (GQA or MLA attention, "local" with the
+config's sliding window), "recurrent" (RG-LRU, :mod:`.recurrent`) and
+"ssm" (Mamba-2, :mod:`.ssm`, no separate MLP); the MLP is dense or MoE
+(:mod:`.moe`) per config.  Recurrent and SSM layers keep a per-slot state
+cache (``h`` and ``conv``) in place of K/V.  The encoder-decoder and
+vision-language families raise ``NotImplementedError``.
 
 The paged path walks the layer stack host-side so each layer can (1)
 append its latent row(s) into the shared page pool and (2) attend through
@@ -31,7 +35,7 @@ import torch
 
 from repro_torch.kernels import decode_schedule as _sched
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.attention_layer import gqa_apply, gqa_init, init_kv_cache
 from repro_torch.models.mla_layer import (
     init_latent_cache,
@@ -42,7 +46,15 @@ from repro_torch.models.mla_layer import (
     mla_scale,
     mla_unabsorb_output,
 )
+from repro_torch.models.recurrent import (
+    init_rglru_cache,
+    rglru_block_apply,
+    rglru_block_init,
+)
+from repro_torch.models.ssm import init_ssm_cache, mamba2_block_apply, mamba2_block_init
 from repro_torch.runtime.kv_cache import OutOfPagesError
+
+LAYER_KINDS = ("global", "local", "recurrent", "ssm")
 
 
 def _has_mlp(cfg, kind):
@@ -55,31 +67,32 @@ def cfg_dtype(cfg) -> torch.dtype:
 
 def check_supported(cfg) -> None:
     """The layer kinds and families the port builds: "global"/"local"
-    attention (GQA or MLA) with a dense MLP, in a decoder-only LM."""
+    attention (GQA or MLA), "recurrent" and "ssm" layers, with a dense or
+    MoE MLP, in a decoder-only LM."""
     kinds = set(cfg.layer_kinds())
-    if not kinds <= {"global", "local"}:
-        raise NotImplementedError(
-            f"config {cfg.name!r} has layer kinds {sorted(kinds)}; recurrent "
-            f"and SSM layers are not ported yet"
-        )
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"config {cfg.name!r} has a MoE MLP, which is not ported yet"
-        )
+    if not kinds <= set(LAYER_KINDS):
+        raise ValueError(f"config {cfg.name!r} has unknown layer kinds {sorted(kinds)}")
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
 
 
 def layer_init(gen, cfg, kind, *, device, dtype):
-    """One attention (GQA or MLA) + dense-MLP layer of ``kind``."""
-    if kind not in ("global", "local"):
-        raise NotImplementedError(f"{kind!r} layers are not ported yet")
+    """One layer of ``kind``: its mixer (attention, RG-LRU or Mamba-2) and,
+    but for "ssm", a dense or MoE MLP."""
     kw = dict(device=device, dtype=dtype)
     p = {"ln1": layers.rmsnorm_init(cfg.d_model, device=device)}
-    p["attn"] = mla_init(gen, cfg, **kw) if cfg.mla else gqa_init(gen, cfg, **kw)
+    if kind in ("global", "local"):
+        p["attn"] = mla_init(gen, cfg, **kw) if cfg.mla else gqa_init(gen, cfg, **kw)
+    elif kind == "recurrent":
+        p["rec"] = rglru_block_init(gen, cfg, **kw)
+    elif kind == "ssm":
+        p["ssm"] = mamba2_block_init(gen, cfg, **kw)
+    else:
+        raise ValueError(kind)
     if _has_mlp(cfg, kind):
         p["ln2"] = layers.rmsnorm_init(cfg.d_model, device=device)
-        p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, **kw)
+        p["mlp"] = (moe.moe_init(gen, cfg, **kw) if cfg.n_experts
+                    else layers.mlp_init(gen, cfg.d_model, cfg.d_ff, **kw))
     if cfg.post_norms:
         p["post_ln1"] = layers.rmsnorm_init(cfg.d_model, device=device)
         if _has_mlp(cfg, kind):
@@ -134,10 +147,16 @@ def embed_tokens(params, tokens, *, cfg):
 # Dense-cache path
 # --------------------------------------------------------------------------- #
 def layer_cache_init(cfg, kind, batch, max_len, *, dtype, device):
-    """The dense cache of one layer: a latent cache for MLA, else K/V.
-    Local layers keep a linear ``max_len`` cache, as the reference does."""
+    """The dense cache of one layer: a latent cache for MLA, K/V for GQA
+    (local layers keep a linear ``max_len`` cache, as the reference does),
+    the fp32 state of a recurrent or SSM layer (``dtype`` and ``max_len``
+    do not apply to it, as in the reference)."""
+    if kind == "recurrent":
+        return init_rglru_cache(cfg, batch, device=device)
+    if kind == "ssm":
+        return init_ssm_cache(cfg, batch, device=device)
     if kind not in ("global", "local"):
-        raise NotImplementedError(f"{kind!r} layer caches are not ported yet")
+        raise ValueError(kind)
     if cfg.mla:
         return init_latent_cache(cfg, batch, max_len, dtype=dtype, device=device)
     return init_kv_cache(cfg, batch, max_len, dtype=dtype, device=device)
@@ -154,11 +173,15 @@ def lm_cache_init(cfg, batch, max_len, *, dtype, device) -> list:
 def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
                 dtype=torch.bfloat16):
     """Pre-norm residual block.  Returns (x, cache); the cache is updated
-    in place."""
-    if kind not in ("global", "local"):
-        raise NotImplementedError(f"{kind!r} layers are not ported yet")
+    in place.  A MoE MLP's aux loss is dropped here (serving)."""
     h = layers.rmsnorm(params["ln1"], x, eps=cfg.norm_eps)
-    if cfg.mla:
+    if kind == "recurrent":
+        y, cache = rglru_block_apply(params["rec"], h, cfg=cfg, cache=cache, dtype=dtype)
+    elif kind == "ssm":
+        y, cache = mamba2_block_apply(params["ssm"], h, cfg=cfg, cache=cache, dtype=dtype)
+    elif kind not in ("global", "local"):
+        raise ValueError(kind)
+    elif cfg.mla:
         y, cache = mla_apply(params["attn"], h, cfg=cfg, positions=positions,
                              cache=cache, cache_len=cache_len, dtype=dtype)
     else:
@@ -170,12 +193,21 @@ def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
         y = layers.rmsnorm(params["post_ln1"], y, eps=cfg.norm_eps)
     x = x + y
     if _has_mlp(cfg, kind):
-        h = layers.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
-        y = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype)
-        if cfg.post_norms:
-            y = layers.rmsnorm(params["post_ln2"], y, eps=cfg.norm_eps)
-        x = x + y
+        x = x + mlp_post(params, x, cfg=cfg, dtype=dtype)
     return x, cache
+
+
+def mlp_post(params, x, *, cfg, dtype):
+    """The MLP half of a layer (dense or MoE, sandwich-normed where the
+    config says so), without its residual add."""
+    h = layers.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
+    if cfg.n_experts:
+        y, _ = moe.moe_apply(params["mlp"], h, cfg=cfg, dtype=dtype)
+    else:
+        y = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype)
+    if cfg.post_norms:
+        y = layers.rmsnorm(params["post_ln2"], y, eps=cfg.norm_eps)
+    return y
 
 
 def lm_apply(params, tokens, *, cfg, positions=None, cache=None, cache_len=None,
@@ -221,18 +253,14 @@ def paged_attn_inputs(p_l, x, positions, *, cfg):
 
 
 def paged_layer_post(p_l, x, attn, *, cfg):
-    """Post-attention half: un-absorb, residual, MLP."""
+    """Post-attention half: un-absorb, residual, MLP (dense or MoE)."""
     dtype = cfg_dtype(cfg)
     y = mla_unabsorb_output(p_l["attn"], attn.to(dtype), cfg=cfg, dtype=dtype)
     if cfg.post_norms:
         y = layers.rmsnorm(p_l["post_ln1"], y, eps=cfg.norm_eps)
     x = x + y
     if _has_mlp(cfg, "global"):
-        h = layers.rmsnorm(p_l["ln2"], x, eps=cfg.norm_eps)
-        y = layers.mlp(p_l["mlp"], h, act=cfg.act, dtype=dtype)
-        if cfg.post_norms:
-            y = layers.rmsnorm(p_l["post_ln2"], y, eps=cfg.norm_eps)
-        x = x + y
+        x = x + mlp_post(p_l, x, cfg=cfg, dtype=dtype)
     return x
 
 

@@ -104,7 +104,10 @@ class ServingSession:
         # two, so a stream of ragged prompt lengths runs O(log max_len)
         # prefill shapes (the reference's compile count).  Only attention
         # stacks tolerate right-padding: causal masking keeps pad tokens
-        # invisible to real positions.
+        # invisible to real positions (a MoE MLP still routes them, and
+        # they take expert capacity, as in the reference); recurrent/SSM
+        # state would ingest the pads, so those stacks prefill at exact
+        # length.
         kinds = model.cfg.layer_kinds()
         self._bucket_prompts = bool(kinds) and all(k in ("global", "local") for k in kinds)
         self._prefill_shapes: set[int] = set()
@@ -161,12 +164,12 @@ class ServingSession:
         blen = self._bucket_len(plen)
         padded = prompt_tokens + [0] * (blen - plen)
         prompt = torch.tensor([padded], dtype=torch.int64, device=self.device)
-        # The prefill writes the slot's rows of every layer's cache in place,
-        # through batch-1 views, cleared first: the reference prefills a
-        # fresh zeroed batch-1 cache and copies it into the slot
-        # (_write_slot).  Pad rows beyond plen are causally invisible and
-        # overwritten by the first decode steps (cache_len = plen masks them
-        # meanwhile).
+        # The prefill writes the slot's rows of every layer's cache (K/V or
+        # latent rows, recurrent/SSM state) in place, through batch-1
+        # views, cleared first: the reference prefills a fresh zeroed
+        # batch-1 cache and copies it into the slot (_write_slot).  Pad rows
+        # beyond plen are causally invisible and overwritten by the first
+        # decode steps (cache_len = plen masks them meanwhile).
         slot_cache = [{k: t[slot : slot + 1] for k, t in c.items()} for c in self.cache]
         for c in slot_cache:
             for t in c.values():

@@ -95,11 +95,14 @@ class StepGraphs:
     """One CUDA graph per key of a session's decode walk, captured at the
     key's first step and replayed at every later one (see the module
     docstring).  ``captures`` counts them.  On a CPU device (``enabled``
-    false) :meth:`run` runs the walk eagerly."""
+    false) :meth:`run` runs the walk eagerly.  ``state`` lists tensors the
+    walk advances in place (a recurrent or SSM layer's state): they are
+    saved before the capture's warm-ups and put back after them."""
 
-    def __init__(self, device):
+    def __init__(self, device, state=()):
         self.device = torch.device(device)
         self.enabled = self.device.type == "cuda"
+        self.state = list(state)
         self._graphs: dict = {}
         self._pool = None
 
@@ -123,6 +126,10 @@ class StepGraphs:
 
     def _capture(self, walk):
         before = launch_counts()
+        # the warm-ups run the step: state that a step advances (a
+        # recurrent or SSM layer's) is put back before the capture, so the
+        # step's first replay advances it once
+        saved = [t.clone() for t in self.state]
         try:
             with torch.cuda.device(self.device):
                 side = torch.cuda.Stream()
@@ -136,6 +143,9 @@ class StepGraphs:
                     finally:
                         torch.cuda.set_sync_debug_mode(mode)
                 torch.cuda.current_stream().wait_stream(side)
+                for t, v in zip(self.state, saved):
+                    t.copy_(v)
+                del saved
                 set_launch_counts(before)
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
@@ -229,7 +239,12 @@ class DenseDecodeStep:
         dev = params["embed"]["table"].device
         self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
         self.cache_len = torch.zeros((batch,), dtype=torch.int32, device=dev)
-        self.graphs = StepGraphs(dev)
+        # the recurrent and SSM layers' state: a step advances it (a K/V
+        # row is rewritten with the same values), so it is restored around
+        # the capture's warm-ups
+        self.state = [t for c, kind in zip(cache, model.cfg.layer_kinds())
+                      if kind in ("recurrent", "ssm") for t in c.values()]
+        self.graphs = StepGraphs(dev, self.state)
 
     def __call__(self, last_token, cache_len) -> torch.Tensor:
         """Stage ``last_token (B,)`` and ``cache_len (B,)`` (host arrays)

@@ -200,14 +200,36 @@ def test_configs_and_converted_gqa_trees(pair):
 
 
 def test_backends_accept_and_reject_configs():
-    """lm_init builds GQA stacks; the paged backend still rejects them; the
-    unported kinds raise."""
+    """lm_init builds GQA stacks, and recurrent and MoE stacks with the
+    reference's parameter tree (same leaves, same shapes); the paged
+    backend still rejects non-MLA stacks; the encdec and vlm families
+    raise."""
     gemma = get_config("gemma2-2b", smoke=True)
     params = build_model(gemma).init(torch.Generator().manual_seed(0), "cpu")
     assert [set(p) >= {"ln1", "attn", "mlp", "post_ln1"} for p in params["layers"]] == [True] * 4
     with pytest.raises(ValueError, match="no MLA geometry"):
         tf.check_paged_compatible(gemma)
-    for bad in (dict(layer_pattern=("recurrent",)), dict(n_experts=4)):
-        with pytest.raises(NotImplementedError):
-            tf.lm_init(torch.Generator().manual_seed(0), dataclasses.replace(gemma, **bad),
+
+    def shapes(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from shapes(v, f"{prefix}/{k}")
+        else:
+            yield prefix, tuple(tree.shape)
+
+    for new in (dict(layer_pattern=("recurrent",), d_inner=64),
+                dict(n_experts=4, n_experts_active=2, d_ff_expert=32)):
+        cfg = dataclasses.replace(gemma, **new)
+        ours = tf.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu", dtype=torch.float32)
+        ref_cfg = dataclasses.replace(ref_get_config("gemma2-2b", smoke=True), **new)
+        theirs = ref_tf.per_layer_params(ref_tf.lm_init(jax.random.PRNGKey(0), ref_cfg), ref_cfg)
+        assert len(ours["layers"]) == len(theirs) == cfg.n_layers
+        for got, want in zip(ours["layers"], theirs):
+            assert dict(shapes(got)) == dict(shapes(want))
+        assert ("rec" if "d_inner" in new else "mlp") in ours["layers"][0]
+        with pytest.raises(ValueError, match="no MLA geometry"):
+            tf.check_paged_compatible(cfg)
+    for family in ("encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match=family):
+            tf.lm_init(torch.Generator().manual_seed(0), dataclasses.replace(gemma, family=family),
                        device="cpu", dtype=torch.float32)

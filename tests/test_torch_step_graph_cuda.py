@@ -14,7 +14,8 @@ bit for bit; the bound leaves room for a cuBLAS algorithm chosen
 differently under capture).  The steps cross KV blocks (a schedule
 rebuild replayed by the same graph), grab new pages (block tables that
 change between replays), finish a request and admit another (a new batch
-size: a new capture).
+size: a new capture).  The dense sessions run the GQA, MLA, MoE, Mamba-2
+and RG-LRU hybrid smoke stacks.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.decode_schedule import queue_capacity
 from repro_torch.kernels import mla_decode_combine as port_combine
 from repro_torch.kernels import mla_decode_paged as port_paged
+from repro_torch.models import moe
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime import step_graph
 from repro_torch.runtime.serve_loop import PagedServingSession, ServingSession
@@ -121,8 +123,12 @@ def test_paged_graph_matches_eager_walk(cuda_device, dtype, kv_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-mla"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-mla", "qwen3-moe-30b-a3b",
+                                  "granite-moe-3b-a800m", "mamba2-370m", "recurrentgemma-2b"])
 def test_dense_graph_matches_eager_walk(cuda_device, arch):
+    """Also the MoE, Mamba-2 and RG-LRU stacks: a recurrent or SSM layer's
+    state is advanced by every step, so the capture's warm-ups must leave
+    it as they found it."""
     model, params = params_for(arch, torch.bfloat16)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (5, 40, 12)]
@@ -274,3 +280,19 @@ def test_no_decode_graph_reads_a_pending_prompt(cuda_device):
         sess.close()
     assert len(runs[0]) >= 4
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_moe_bf16_products_on_card_match_cpu(cuda_device):
+    """On a CUDA tensor cuBLAS writes the fp32 expert products itself
+    (``bmm(out_dtype=float32)``): the card's bf16 ``moe_apply`` equals the
+    CPU's widened products within 1e-4 of the largest magnitude."""
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, device="cpu", dtype=torch.bfloat16)
+    x = torch.randn((2, 24, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    want, _ = moe.moe_apply(p, x, cfg=cfg, dtype=torch.bfloat16)
+    got, _ = moe.moe_apply({k: v.to(cuda_device) for k, v in p.items()}, x.to(cuda_device),
+                           cfg=cfg, dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err <= 1e-4, f"max |card - CPU| / max |CPU| = {err:.3e}"
