@@ -128,7 +128,7 @@ root) and exits nonzero on any failure:
     and recurrentgemma (fp32) through the dense ``ServingSession`` on the
     card (kernels, graphs) and on the CPU, held as in 3, with a 300-token
     prompt past the SSD chunk and one block of the RG-LRU scan.
-19. **Families phase** (last): qwen3-moe-30b-a3b (48 layers, 30.5 B
+19. **Families phase**: qwen3-moe-30b-a3b (48 layers, 30.5 B
     parameters), mamba2-370m (48 Mamba-2 layers) and recurrentgemma-2b
     (18 RG-LRU + 8 local-attention layers) at published widths and full
     depth through ``ServingSession(batch 4, max_len 8192)`` and the
@@ -138,6 +138,32 @@ root) and exits nonzero on any failure:
     walk bit for bit (tokens and logits), prefill tokens/s, decode
     ms/step, peak memory, and qwen3-moe's decode beside the time to read
     all experts' weights.
+20. **vlm / encdec kernel phase** (with the other kernel phases): K6 and K7
+    (and K3 after the split K6 calls), bf16 and fp32, ``amla`` and
+    ``base``, against their plain versions at the shapes 22 gives them:
+    qwen2-vl-7b's G = 7 rows of Dh 128 (decode over 8192 and 2048 rows,
+    the bucket-8 prompt, K7 at 512 / 2048 / 8192 and its vision prefill of
+    1024 positions), seamless-m4t-medium's 16 x 64 heads (K7 **non-causal**
+    over 1024 frames for the encoder and the prompt's cross-attention, K7
+    causal over the 256-row self cache, K6 for the decode step's self- and
+    cross-attention); timed beside their bound, plain version and one SDPA
+    call.
+21. **Small vlm / encdec references**: smoke qwen2-vl-7b (text-only
+    ``ServingSession``; the vision prefill + graphed decode steps) and
+    smoke seamless-m4t-medium (``init_cache`` + ``decode_step``), fp32,
+    on the card and on the CPU, held as in 3.
+22. **vlm / encdec phase** (last): qwen2-vl-7b (28 layers, 7.62 B
+    parameters) text-only through ``ServingSession(batch 4, max_len
+    8192)`` as in 19 (prompts 5, 300, 1100, 4500; graph = eager bit for
+    bit), then on the same weights 4 requests of 256 patch embeddings and
+    768 text tokens prefilled as one batch (``lm_apply`` over
+    ``mrope_positions`` with ``embeds_override``, the reference's
+    ``dryrun.lower_prefill`` form) and 16 graphed greedy steps (graph =
+    eager, the M-RoPE position jump printed); seamless-m4t-medium (12 +
+    12 layers) over 4 x 1024 frames: ``init_cache``, ``decode_step`` over
+    a 32-token prompt, 16 eager greedy steps.  K6/K7/K3 launches equal to
+    layers x calls per path; prefill s and tokens/s, decode ms/step,
+    peak memory.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only`` (the build and phase 8).
@@ -463,12 +489,13 @@ def bound(nbytes, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gqa_case(kernel, geom, b, sq, s, kv, dtype, seed):
+def gqa_case(kernel, geom, b, sq, s, kv, dtype, seed, causal=True):
     """Inputs of one K6 or K7 call on the card.  K6 gets q rows (B, Hkv, G,
     Dh) with G = Sq * group at the last Sq positions below kv_len, and
     k/v as transposed views of (B, S, Hkv, Dh) tensors, as the dense layer
     hands them over; K7 gets (B, Hq, Sq, Dh) queries at positions 0..Sq-1
-    and a (B, Hkv, S, Dh) cache."""
+    and a (B, Hkv, S, Dh) cache, causal or not (an encoder, a
+    cross-attention: every key below kv_len visible)."""
     name, hq, hkv, dh, window, softcap = geom
     group = hq // hkv
     kv = np.asarray(kv, np.int32)
@@ -484,7 +511,7 @@ def gqa_case(kernel, geom, b, sq, s, kv, dtype, seed):
         k = randn((b, hkv, s, dh), seed + 1, dtype)
         v = randn((b, hkv, s, dh), seed + 2, dtype)
     return dict(kernel=kernel, geom=geom, q=q, k=k, v=v, kv_host=kv, pos_host=rows_pos,
-                kv=torch.as_tensor(kv, device="cuda"),
+                causal=causal, kv=torch.as_tensor(kv, device="cuda"),
                 pos=torch.as_tensor(np.array(rows_pos), dtype=torch.int32, device="cuda"),
                 kw=dict(scale=1.0 / math.sqrt(dh), softcap=softcap, window=window))
 
@@ -500,9 +527,10 @@ def run_gqa(case, variant, plain):
             return gd.attend_plain(q, k, v, kv, case["pos"], variant=variant, block_k=blk,
                                    num_splits=gd.split_count(q, k, blk), **kw)
         return gd.gqa_decode_rows(q, k, v, kv, case["pos"], variant=variant, **kw)
+    causal = case["causal"]
     if plain:
-        return fp._prefill_plain(q, k, v, kv, variant=variant, block_k=blk, causal=True, **kw)
-    return fp.flash_prefill(q, k, v, kv, variant=variant, **kw)
+        return fp._prefill_plain(q, k, v, kv, variant=variant, block_k=blk, causal=causal, **kw)
+    return fp.flash_prefill(q, k, v, kv, variant=variant, causal=causal, **kw)
 
 
 def gqa_bound(case):
@@ -510,10 +538,11 @@ def gqa_bound(case):
     the fp32 output; 4 * Dh operations per (row, visible key)."""
     _, hq, hkv, dh, window, _ = case["geom"]
     q, isz = case["q"], case["q"].element_size()
-    keys = visible_keys(case["kv_host"], case["pos_host"], window)
+    causal = case["causal"]
+    keys = visible_keys(case["kv_host"], case["pos_host"], window, causal)
     heads_per_row = hkv if case["kernel"] == "K6" else hq
     lo = np.maximum(case["pos_host"].min(axis=1) - (window or 10**9) + 1, 0)
-    hi = np.minimum(case["kv_host"], case["pos_host"].max(axis=1) + 1)
+    hi = np.minimum(case["kv_host"], case["pos_host"].max(axis=1) + 1 if causal else 10**9)
     kv_rows = int(np.clip(hi - lo, 0, None).sum()) * hkv
     nbytes = (q.numel() * isz + 2 * kv_rows * dh * isz + q.numel() * 4
               + 4 * (case["kv_host"].size + case["pos_host"].size))
@@ -537,9 +566,11 @@ def gqa_sdpa(case):
         pos = case["pos"]
     s = case["k"].shape[2]
     kpos = torch.arange(s, device="cuda")[None, None, None, :]
-    mask = (kpos < case["kv"].long()[:, None, None, None]) & (kpos <= pos.long()[:, None, :, None])
+    mask = kpos < case["kv"].long()[:, None, None, None]
+    if case["causal"]:
+        mask = mask & (kpos <= pos.long()[:, None, :, None])
     if window:
-        mask &= kpos > pos.long()[:, None, :, None] - window
+        mask = mask & (kpos > pos.long()[:, None, :, None] - window)
     f = torch.nn.functional.scaled_dot_product_attention
     k, v = case["k"], case["v"]
     return lambda: f(q, k, v, attn_mask=mask, scale=case["kw"]["scale"], enable_gqa=True)
@@ -775,6 +806,78 @@ def family_kernel_phase(flush):
         timed.append(("K6", f"{name} decode", gqa_case("K6", geom, 4, 1, s, kv, bf, 90 + i)))
         sq = 4500 if geom[4] else 2048
         timed.append(("K7", f"{name} prefill {sq}", gqa_case("K7", geom, 1, sq, s, [sq], bf, 95 + i)))
+    return worst, time_dense_rows(timed, flush)
+
+
+# (name, Hq, Hkv, Dh, window, softcap) of the vision-language and
+# encoder-decoder stacks
+VLM_ENCDEC_GEOMETRIES = [
+    ("qwen2-vl-7b", 28, 4, 128, None, None),
+    ("seamless-m4t-medium", 16, 16, 64, None, None),
+]
+VISION_MAX_LEN, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN = 2048, 1024, 32, 256
+
+
+def vlm_encdec_cases(dtype):
+    """K6/K7 at the shapes the vlm / encdec phase gives them.  qwen2-vl-7b
+    (G = 7 rows of Dh 128 per KV head): decode over the session's
+    8192-row cache at kv_len 0, 1, 2047 and 4516 and over the vision
+    cache's 2048 rows after the 1024-position prefill, the 5-token
+    prompt's bucket of 8 through K6, K7 at the buckets 512, 2048 and 8192
+    (kv_len = bucket) and the vision prefill (1024 positions over the
+    2048-row cache).  seamless-m4t-medium (MHA 16 x 64): the encoder (K7
+    non-causal over 1024 frames, a second request's kv_len short of them),
+    the target prompt's self-attention (K7 causal, 32 tokens over the
+    256-row cache) and cross-attention (K7 non-causal, 32 queries over
+    1024 frames), and the decode step's self-attention (K6 over 256 rows)
+    and cross-attention (K6, q_pos 1023: every frame visible)."""
+    vl, sm = VLM_ENCDEC_GEOMETRIES
+    f, p, m = ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN
+    out = [
+        ("K6 qwen2-vl-7b decode", gqa_case("K6", vl, 4, 1, 8192, [0, 1, 2047, 4516], dtype, 150)),
+        ("K6 qwen2-vl-7b vision decode",
+         gqa_case("K6", vl, 4, 1, VISION_MAX_LEN, [1025, 1030, 1035, 1040], dtype, 151)),
+        ("K6 qwen2-vl-7b 8-token prefill", gqa_case("K6", vl, 2, 8, 8192, [8, 4999], dtype, 152)),
+        ("K7 qwen2-vl-7b vision prefill 1024",
+         gqa_case("K7", vl, 2, 1024, VISION_MAX_LEN, [1024, 0], dtype, 153)),
+        ("K7 seamless encoder 1024 (non-causal)",
+         gqa_case("K7", sm, 2, f, f, [f, 700], dtype, 160, causal=False)),
+        ("K7 seamless cross prompt 32 (non-causal)",
+         gqa_case("K7", sm, 2, p, f, [f, f], dtype, 161, causal=False)),
+        ("K7 seamless self prompt 32", gqa_case("K7", sm, 2, p, m, [p, 0], dtype, 162)),
+        ("K6 seamless self decode", gqa_case("K6", sm, 4, 1, m, [33, 40, 48, 1], dtype, 163)),
+        ("K6 seamless cross decode", gqa_case("K6", sm, 4, 1, f, [f] * 4, dtype, 164)),
+    ]
+    for j, sq in enumerate((512, 2048, 8192)):
+        out.append((f"K7 qwen2-vl-7b prefill {sq}",
+                    gqa_case("K7", vl, 2, sq, 8192, [sq, 0], dtype, 170 + j)))
+    return out
+
+
+def vlm_encdec_kernel_phase(flush):
+    """K6 and K7 (and K3 after the split K6 calls) at the vlm and encdec
+    shapes against their plain versions, then timed (bf16, amla) at the
+    phase's own shapes: qwen2-vl-7b decode after 16 steps over the 8192-row
+    cache, its 2048 bucket and its batch-4 vision prefill; seamless's
+    encoder, its prompt's cross- and self-attention and its decode step's
+    cross- and self-attention (batch 4)."""
+    log("== kernel phase: K6 and K7 at the vision-language (qwen2-vl-7b, G 7 x 128) and "
+        "encoder-decoder (seamless-m4t-medium, 16 x 64, non-causal over 1024 frames) shapes ==")
+    worst = hold_dense_cases(vlm_encdec_cases)
+    bf = torch.bfloat16
+    vl, sm = VLM_ENCDEC_GEOMETRIES
+    f, p, m = ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_MAX_LEN
+    timed = [
+        ("K6", "qwen2-vl-7b decode", gqa_case("K6", vl, 4, 1, 8192, [21, 316, 1116, 4516], bf, 180)),
+        ("K7", "qwen2-vl-7b prefill 2048", gqa_case("K7", vl, 1, 2048, 8192, [2048], bf, 181)),
+        ("K7", "qwen2-vl-7b vision prefill 1024",
+         gqa_case("K7", vl, 4, 1024, VISION_MAX_LEN, [1024] * 4, bf, 182)),
+        ("K7", "seamless encoder 1024", gqa_case("K7", sm, 4, f, f, [f] * 4, bf, 183, causal=False)),
+        ("K7", "seamless cross prompt 32", gqa_case("K7", sm, 4, p, f, [f] * 4, bf, 184, causal=False)),
+        ("K7", "seamless self prompt 32", gqa_case("K7", sm, 4, p, m, [p] * 4, bf, 185)),
+        ("K6", "seamless cross decode", gqa_case("K6", sm, 4, 1, f, [f] * 4, bf, 186)),
+        ("K6", "seamless self decode", gqa_case("K6", sm, 4, 1, m, [p + 16] * 4, bf, 187)),
+    ]
     return worst, time_dense_rows(timed, flush)
 
 
@@ -2630,7 +2733,6 @@ def small_dense_check():
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
 
-    diff = lambda a, b: max((x - y).abs().max().item() for x, y in zip(a, b))
     for arch in ("gemma2-2b", "deepseek-v2-mla", *SMALL_FAMILIES):
         cfg = get_config(arch, smoke=True)
         p_cpu = build_model(cfg).init(torch.Generator("cpu").manual_seed(5), "cpu")
@@ -2638,21 +2740,30 @@ def small_dense_check():
         family = arch in SMALL_FAMILIES
         lens, max_len = ((5, 300, 12), 512) if family else ((5, 40, 12), 64)
         prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in lens]
-        cpu, cpu_out = dense_session_logits(cfg, p_cpu, prompts, max_len)
-        card, card_out = dense_session_logits(cfg, to_device(p_cpu, "cuda"), prompts, max_len)
-        noise = max(
-            diff(cpu, dense_session_logits(
-                cfg, perturbed(p_cpu, torch.Generator("cpu").manual_seed(s)), prompts,
-                max_len)[0])
-            for s in (1, 2, 3))
-        tol = max(2e-3, 4 * noise)
-        worst = diff(card, cpu)
-        log(f"small dense reference ({cfg.name}, fp32, ServingSession, prompts {lens}, 9 steps): "
-            f"max |logits on card - logits of the plain CPU path| = {worst:.3e} (tol {tol:.3e} "
-            f"= max(2e-3, 4 x {noise:.3e}, the CPU path against itself on weights perturbed "
-            f"by 2e-7)); greedy tokens {'equal' if card_out == cpu_out else 'DIFFER'}")
-        if not worst <= tol or card_out != cpu_out:
-            raise SystemExit(f"small dense reference check failed for {arch}")
+        hold_card_vs_cpu(f"{cfg.name}, fp32, ServingSession, prompts {lens}, 9 steps",
+                         lambda p: dense_session_logits(cfg, p, prompts, max_len), p_cpu)
+
+
+def hold_card_vs_cpu(what, run, p_cpu):
+    """``run(params) -> (logits list, greedy outputs)`` on the CPU, on the
+    card over the same fp32 weights, and on the CPU over weights perturbed
+    by 2e-7 relative (three seeds): fail unless the card's logits are
+    within max(2e-3, 4 x the CPU path's spread against itself) of the
+    CPU's and its greedy outputs are equal."""
+    diff = lambda a, b: max((x - y).abs().max().item() for x, y in zip(a, b))
+    cpu, cpu_out = run(p_cpu)
+    card, card_out = run(to_device(p_cpu, "cuda"))
+    noise = max(diff(cpu, run(perturbed(p_cpu, torch.Generator("cpu").manual_seed(s)))[0])
+                for s in (1, 2, 3))
+    tol = max(2e-3, 4 * noise)
+    worst = diff(card, cpu)
+    same = card_out == cpu_out if not isinstance(card_out, torch.Tensor) else torch.equal(
+        card_out, cpu_out)
+    log(f"small dense reference ({what}): max |logits on card - logits of the plain CPU path| "
+        f"= {worst:.3e} (tol {tol:.3e} = max(2e-3, 4 x {noise:.3e}, the CPU path against "
+        f"itself on weights perturbed by 2e-7)); greedy tokens {'equal' if same else 'DIFFER'}")
+    if not worst <= tol or not same:
+        raise SystemExit(f"small dense reference check failed: {what}")
 
 
 def hold_against_eager(sess, steps=3):
@@ -2730,6 +2841,19 @@ def timed_session(sess):
     return timing
 
 
+def zero_counts(counters) -> None:
+    """Set the wrappers' ``launches`` (and ``mma_launches``) to 0."""
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "mma_launches"):
+            fn.mma_launches = 0
+
+
+def read_counts(counters) -> list:
+    """``[(launches, mma_launches or None)]`` of the wrappers."""
+    return [(fn.launches, getattr(fn, "mma_launches", None)) for fn in counters]
+
+
 def dense_serve(cfg, model, params, prompt_lens, gen_len, max_len, counters):
     """Serve prompts of ``prompt_lens`` through ServingSession(batch 4,
     max_len) with the launch/serve stream loop; ``counters`` (wrapper
@@ -2752,13 +2876,10 @@ def dense_serve(cfg, model, params, prompt_lens, gen_len, max_len, counters):
         step()
 
     sess.step = counted_step
-    for fn in counters:
-        fn.launches = 0
-        if hasattr(fn, "mma_launches"):
-            fn.mma_launches = 0
+    zero_counts(counters)
     results, tokens_out, dt = _serve_stream(sess, list(prompts), gen_len, len(prompts))
     torch.cuda.synchronize()
-    launches = [(fn.launches, getattr(fn, "mma_launches", None)) for fn in counters]
+    launches = read_counts(counters)
     buckets = [sess._bucket_len(n) for n in prompt_lens]
     n_prompt = sum(prompt_lens)
     log(f"served {len(results)} requests: prefill {n_prompt} tokens (buckets {buckets}) in "
@@ -2871,13 +2992,15 @@ def families_phase():
     return tuple(int(n) for n in totals)
 
 
-def family_serve(arch, prompt_lens, gen_len=16, max_len=8192, batch=4):
+def family_serve(arch, prompt_lens, gen_len=16, max_len=8192, batch=4, then=None):
     """One family at full width: its attention layers' K6/K7/K3 launch
     counts must equal layers x calls (0 for an attention-free stack), the
     decode steps replay one CUDA graph whose first 3 steps equal the eager
     walk bit for bit (greedy tokens and logits), and a MoE stack's decode
     time is printed beside the time to read every expert's weights (the
-    reference's ``(E, C, d)`` product reads all E every step)."""
+    reference's ``(E, C, d)`` product reads all E every step).  ``then(cfg,
+    model, params)``, run after on the same weights, returns K6/K7/K3
+    launches of its own, added to the session's."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import gqa_decode as gd
@@ -2937,7 +3060,273 @@ def family_serve(arch, prompt_lens, gen_len=16, max_len=8192, batch=4):
     if worst != 0.0:
         raise SystemExit(f"{cfg.name} families phase: graph and eager logits differ by "
                          f"{worst:.3e} (must be 0)")
+    if then is not None:
+        return tuple(a + b for a, b in zip((k6, k7, k3), then(cfg, model, params)))
     return k6, k7, k3
+
+
+# --------------------------------------------------------------------------- #
+# vision-language and encoder-decoder phase
+# --------------------------------------------------------------------------- #
+
+
+def vision_form(model, params, vis, tokens, steps, max_len, hold=False):
+    """The reference's vision prefill (``dryrun.lower_prefill``): ``Nv``
+    patch embeddings then text through ``lm_apply`` at
+    ``mrope_positions(B, S, Nv)`` into a batch-B dense cache at cache_len
+    0; then ``steps`` greedy decode steps through ``DenseDecodeStep`` (a
+    CUDA graph on the card) at cache_len S + i.  Returns (each call's
+    last-position logits on the CPU, the tokens (steps, B), the step,
+    prefill seconds, each step's seconds, and with ``hold`` the first 3
+    steps held against the eager walk, ``hold_against_eager``'s list)."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import vlm
+    from repro_torch.runtime.step_graph import DenseDecodeStep
+
+    b, s = tokens.shape
+    dev = tokens.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cache = model.init_cache(params, b, max_len)
+    sync()
+    t0 = time.perf_counter()
+    hidden, _ = tf.lm_apply(params, tokens, cfg=model.cfg,
+                            positions=vlm.mrope_positions(b, s, vis.shape[1], device=dev),
+                            cache=cache, cache_len=0, embeds_override=vis)
+    logits = model.logits(params, hidden[:, -1:])
+    sync()
+    prefill_s = time.perf_counter() - t0
+    seen = [logits[:, -1].float().cpu()]
+    step = DenseDecodeStep(model, params, cache, b)
+    held = hold_against_eager(SimpleNamespace(step_graph=step)) if hold else []
+    toks, times = [], []
+    for i in range(steps):
+        toks.append(seen[-1].argmax(-1).to(torch.int32))
+        sync()
+        t0 = time.perf_counter()
+        logits = step(toks[-1].numpy(), np.full((b,), s + i, np.int32))
+        seen.append(logits[:, -1].float().cpu())
+        times.append(time.perf_counter() - t0)
+    return seen, torch.stack(toks), step, prefill_s, times, held
+
+
+def encdec_form(model, params, src, prompt, steps, max_len):
+    """The reference's encoder-decoder serving form (``dryrun``'s prefill
+    and decode): ``init_cache`` (the encoder and every layer's cross K/V),
+    ``decode_step`` over the target prompt at cache_len 0, then ``steps``
+    greedy steps, eager.  Returns (each call's last-position logits on the
+    CPU, the tokens (steps, B), encode seconds, prompt seconds, each
+    step's seconds)."""
+    b, st = prompt.shape
+    dev = prompt.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    cache = model.init_cache(params, src, max_len)
+    sync()
+    t1 = time.perf_counter()
+    logits, _ = model.decode_step(params, cache, prompt,
+                                  torch.zeros((b,), dtype=torch.int32, device=dev))
+    sync()
+    t2 = time.perf_counter()
+    seen, toks, times = [logits[:, -1].float().cpu()], [], []
+    for i in range(steps):
+        toks.append(seen[-1].argmax(-1))
+        t = time.perf_counter()
+        logits, _ = model.decode_step(params, cache, toks[-1][:, None].to(dev),
+                                      torch.full((b,), st + i, dtype=torch.int32, device=dev))
+        seen.append(logits[:, -1].float().cpu())
+        sync()
+        times.append(time.perf_counter() - t)
+    return seen, torch.stack(toks), t1 - t0, t2 - t1, times
+
+
+def small_vlm_encdec_check():
+    """Smoke qwen2-vl-7b and seamless-m4t-medium (fp32) on the card and on
+    the CPU, held as the other small references (``hold_card_vs_cpu``):
+    qwen2-vl through the text-only ``ServingSession`` (prompts 5, 40 and
+    12) and through the vision prefill (16 patches + 24 text tokens,
+    batch 2) + 6 graphed decode steps; seamless through ``init_cache`` over
+    40 frames, ``decode_step`` over a 24-token prompt and 6 greedy steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("qwen2-vl-7b", smoke=True)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator("cpu").manual_seed(5), "cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (5, 40, 12)]
+    hold_card_vs_cpu(f"{cfg.name}, fp32, ServingSession text-only, prompts (5, 40, 12), 9 steps",
+                     lambda p: dense_session_logits(cfg, p, prompts, 64), p_cpu)
+    vis = torch.from_numpy(
+        (rng.standard_normal((2, cfg.vision_stub_tokens, cfg.d_model)) * 0.02).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, cfg.vision_stub_tokens + 24)))
+
+    def vision(p):
+        dev = p["embed"]["table"].device
+        seen, out, *_ = vision_form(model, p, vis.to(dev), toks.to(dev), 6, 64)
+        return seen, out
+
+    hold_card_vs_cpu(f"{cfg.name}, fp32, vision prefill 16 + 24 into a batch-2 cache, 6 graphed "
+                     "steps", vision, p_cpu)
+    cfg = get_config("seamless-m4t-medium", smoke=True)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator("cpu").manual_seed(5), "cpu")
+    src = torch.from_numpy((rng.standard_normal((2, 40, cfg.d_model)) * 0.02).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 24)))
+
+    def serving_form(p):
+        dev = p["embed"]["table"].device
+        seen, out, *_ = encdec_form(model, p, src.to(dev), prompt.to(dev), 6, 32)
+        return seen, out
+
+    hold_card_vs_cpu(f"{cfg.name}, fp32, init_cache over 40 frames, a 24-token prompt, 6 steps",
+                     serving_form, p_cpu)
+
+
+def vision_serve(cfg, model, params, batch=4, n_text=768, steps=16):
+    """qwen2-vl-7b with vision stubs, on the text-only phase's weights: 4
+    requests of 256 patch embeddings (seeded normal x 0.02, a 16 x 16
+    grid) and 768 text tokens, prefilled as one batch of 1024 positions
+    into a batch-4 cache of ``VISION_MAX_LEN`` rows, then 16 greedy graphed
+    steps; K7 = layers, K6 = layers x steps, K3 after the split K6 calls;
+    the first 3 steps held against the eager walk (max |logits| 0)."""
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.models import vlm
+
+    nv = cfg.vision_stub_tokens
+    s = nv + n_text
+    side = int(nv**0.5)
+    log(f"== vlm phase: {cfg.name} with vision stubs: {batch} requests of {nv} patches "
+        f"(grid {side} x {-(-nv // side)}) + {n_text} text tokens, one prefill of {s} "
+        f"positions, {steps} graphed steps, cache of {VISION_MAX_LEN} rows ==")
+    gen = torch.Generator("cuda").manual_seed(0)
+    vis = (torch.randn((batch, nv, cfg.d_model), generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(2, cfg.vocab_size, (batch, s)))
+    counters = (gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials)
+    zero_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    seen, toks, step, prefill_s, times, held = vision_form(
+        model, params, vis, tokens.cuda(), steps, VISION_MAX_LEN, hold=True)
+    torch.cuda.synchronize()
+    (k6, k6_mma), (k7, k7_mma), (k3, _) = read_counts(counters)
+    steady = times[len(held):]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    group = cfg.n_heads // cfg.n_kv_heads
+    split = gd.decode_splits(sms, batch * cfg.n_kv_heads * -(-group // 16),
+                             -(-VISION_MAX_LEN // 512)) > 1
+    want6, want7, want3 = cfg.n_layers * steps, cfg.n_layers, cfg.n_layers * steps * split
+    pos = vlm.mrope_positions(1, s, nv, device="cpu")[:, 0]
+    log(f"vision prefill {batch} x {s} positions in {prefill_s:.3f} s "
+        f"({batch * s / prefill_s:.1f} tok/s); decode {steps} steps, "
+        f"{1e3 * sum(times) / steps:.2f} ms/step (steady {1e3 * np.mean(steady):.2f}, median "
+        f"{1e3 * np.median(steady):.2f}, {len(steady)} steps); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"M-RoPE positions: patches (t, h, w) from (0, 0, 0) to {tuple(pos[:, nv - 1].tolist())}, "
+        f"text from {tuple(pos[:, nv].tolist())} to {tuple(pos[:, -1].tolist())}; the first "
+        f"decode step sits at cache_len {s}, not at {int(pos[0, -1]) + 1}: "
+        f"{s - int(pos[0, -1]) - 1} positions skipped (the reference's caveat, reproduced)")
+    worst = max(d for d, _ in held)
+    log(f"graphs: {step.graphs.captures} capture; first {len(held)} steps against the eager "
+        f"walk: greedy tokens {'equal' if all(e for _, e in held) else 'DIFFER'}, max |logits "
+        f"graph - eager| {worst:.3e}")
+    log(f"launches: K6 {k6} ({k6_mma} tensor-core; expected layers x steps = {want6}), K7 {k7} "
+        f"({k7_mma}; expected layers = {want7}), K3 {k3} (expected {want3}); tokens "
+        f"{toks[:6].T.tolist()}")
+    if not all(torch.isfinite(x).all() for x in seen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise SystemExit("vlm phase: non-finite logits or tokens out of range")
+    if ((k6, k6_mma), (k7, k7_mma), k3) != ((want6, want6), (want7, want7), want3):
+        raise SystemExit("vlm phase: kernel launch counts do not match the main path")
+    if worst != 0.0 or not all(e for _, e in held) or step.graphs.captures != 1:
+        raise SystemExit("vlm phase: the graphed steps are not the eager walk's")
+    return k6, k7, k3
+
+
+def encdec_serve(batch=4, steps=16):
+    """seamless-m4t-medium at published widths (12 + 12 layers, random bf16
+    weights, seed 0): 4 requests of ``ENCDEC_FRAMES`` seeded frames (x
+    0.02) and a ``ENCDEC_PROMPT``-token target prompt through
+    ``EncDecModel.init_cache`` (``ENCDEC_MAX_LEN`` rows) and
+    ``decode_step`` (the prompt at cache_len 0, then 16 greedy steps,
+    eager).  K7 = encoder layers + 2 x decoder layers (the prompt's self-
+    and cross-attention), K6 = 2 x decoder layers x steps, K3 after the
+    split K6 calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("seamless-m4t-medium")
+    log(f"== encdec phase: {cfg.name} {cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab_size}, bf16, "
+        f"{cfg.param_count() / 1e9:.3f} B params; {batch} requests of {ENCDEC_FRAMES} frames, "
+        f"a {ENCDEC_PROMPT}-token prompt, {steps} eager steps, max_len {ENCDEC_MAX_LEN} ==")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    log(f"random bf16 weights built on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    unembed_table_phase(model, params)
+    gen = torch.Generator("cuda").manual_seed(0)
+    src = (torch.randn((batch, ENCDEC_FRAMES, cfg.d_model), generator=gen, device="cuda")
+           * 0.02).to(torch.bfloat16)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, (batch, ENCDEC_PROMPT))).cuda()
+    counters = (gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials)
+    zero_counts(counters)
+    seen, toks, enc_s, prompt_s, times = encdec_form(model, params, src, prompt, steps,
+                                                     ENCDEC_MAX_LEN)
+    torch.cuda.synchronize()
+    (k6, k6_mma), (k7, k7_mma), (k3, _) = read_counts(counters)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = lambda rows: gd.decode_splits(sms, batch * cfg.n_kv_heads, -(-rows // 512)) > 1
+    want7 = cfg.encoder_layers + 2 * cfg.n_layers
+    want6 = 2 * cfg.n_layers * steps
+    want3 = cfg.n_layers * steps * (split(ENCDEC_MAX_LEN) + split(ENCDEC_FRAMES))
+    n_src = batch * ENCDEC_FRAMES
+    log(f"encoder + cross K/V of {n_src} frames in {enc_s:.3f} s ({n_src / enc_s:.1f} frames/s); "
+        f"prompt of {batch} x {ENCDEC_PROMPT} tokens in {prompt_s:.3f} s "
+        f"({batch * ENCDEC_PROMPT / prompt_s:.1f} tok/s); decode {steps} steps, "
+        f"{1e3 * sum(times) / steps:.2f} ms/step (eager; median {1e3 * np.median(times):.2f}, "
+        f"steady after the first {1e3 * np.mean(times[1:]):.2f}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"launches: K6 {k6} ({k6_mma} tensor-core; expected 2 x decoder layers x steps = "
+        f"{want6}), K7 {k7} ({k7_mma}; expected encoder layers + 2 x decoder layers = {want7}), "
+        f"K3 {k3} (expected {want3}); tokens {toks[:6].T.tolist()}")
+    if not all(torch.isfinite(x).all() for x in seen) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise SystemExit("encdec phase: non-finite logits or tokens out of range")
+    if ((k6, k6_mma), (k7, k7_mma), k3) != ((want6, want6), (want7, want7), want3):
+        raise SystemExit("encdec phase: kernel launch counts do not match the main path")
+    if k6 <= 0 or k7 <= 0:
+        raise SystemExit("encdec phase: an attention kernel never launched")
+    return k6, k7, k3
+
+
+def vlm_encdec_phase():
+    """The small references of both families, then qwen2-vl-7b text-only
+    (``family_serve``: ServingSession(batch 4, max_len 8192), prompts of
+    5, 300, 1100 and 4500 tokens) and with vision stubs on the same
+    weights (``vision_serve``), then seamless-m4t-medium
+    (``encdec_serve``).  Returns the K6, K7 and K3 launches."""
+    t0 = time.perf_counter()
+    small_vlm_encdec_check()
+    release()
+    totals = np.array(family_serve("qwen2-vl-7b", (5, 300, 1100, 4500), then=vision_serve))
+    release()
+    totals += encdec_serve()
+    release()
+    log(f"vlm / encdec phase: {time.perf_counter() - t0:.1f} s")
+    return tuple(int(n) for n in totals)
 
 
 def unembed_table_phase(model, params):
@@ -3131,6 +3520,7 @@ def main(argv: list[str]) -> int:
     worst, rows = kernel_phase(flush)
     dworst, drows = dense_kernel_phase(flush)
     fworst, _ = family_kernel_phase(flush)
+    vworst, _ = vlm_encdec_kernel_phase(flush)
     tworst, trows = slice3_kernel_phase(flush)
     nworst, nrows = trie_kernel_phase(flush)
     k3rows, k3err = k3_phase(flush)
@@ -3166,9 +3556,12 @@ def main(argv: list[str]) -> int:
     k5, _ = padded_decode_phase()
     release()
     k6f, k7f, k3f = families_phase()
+    release()
+    k6v, k7v, k3v = vlm_encdec_phase()
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
-    derr = lambda name: max(v for d in (dworst, fworst) for k, v in d.items() if k[0] == name)
+    derr = lambda name: max(v for d in (dworst, fworst, vworst) for k, v in d.items()
+                            if k[0] == name)
     terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     merr = lambda name: max(v for k, v in mworst.items() if k[0] == name)
     nerr = lambda name: max(v for k, v in nworst.items() if k[0] == name)
@@ -3201,7 +3594,7 @@ def main(argv: list[str]) -> int:
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
-             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f,
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
@@ -3215,11 +3608,11 @@ def main(argv: list[str]) -> int:
              max_abs_err=max(terr("K5"), merr("K5")), ms=t5[0], plain_ms=t5[1], bound_ms=t5[2],
              bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6 + k6f,
+             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6 + k6f + k6v,
              max_abs_err=derr("K6"), ms=t6[0], plain_ms=t6[1], bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f,
+             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f + k7v,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),
     ]

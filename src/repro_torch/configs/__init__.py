@@ -4,9 +4,11 @@ Copied from ``repro.configs``; only the architectures the port serves are
 registered: ``deepseek-v2-mla`` (paged and dense), the dense-served GQA
 stacks ``gemma2-2b``, ``qwen2.5-3b``, ``qwen1.5-0.5b`` and
 ``internlm2-20b``, the MoE stacks ``qwen3-moe-30b-a3b`` and
-``granite-moe-3b-a800m``, the Mamba-2 stack ``mamba2-370m`` and the RG-LRU
-hybrid ``recurrentgemma-2b`` (all dense-served).  The encoder-decoder and
-vision-language families are not ported yet.
+``granite-moe-3b-a800m``, the Mamba-2 stack ``mamba2-370m``, the RG-LRU
+hybrid ``recurrentgemma-2b``, the vision-language ``qwen2-vl-7b`` (all
+dense-served) and the encoder-decoder ``seamless-m4t-medium`` (served
+through ``EncDecModel.init_cache`` / ``decode_step``): all eleven of the
+reference's architectures.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from repro_torch.configs import (
     mamba2_370m,
     qwen1_5_0_5b,
     qwen2_5_3b,
+    qwen2_vl_7b,
     qwen3_moe_30b,
     recurrentgemma_2b,
+    seamless_m4t_medium,
 )
 from repro_torch.configs.base import MLAConfig, ModelConfig
 
@@ -34,7 +38,9 @@ REGISTRY: dict[str, ModelConfig] = {
         internlm2_20b.CONFIG,
         qwen1_5_0_5b.CONFIG,
         qwen2_5_3b.CONFIG,
+        seamless_m4t_medium.CONFIG,
         mamba2_370m.CONFIG,
+        qwen2_vl_7b.CONFIG,
         granite_moe_3b.CONFIG,
         qwen3_moe_30b.CONFIG,
         deepseek_v2_mla.CONFIG,
@@ -59,6 +65,8 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
         vocab_size=512,
         window=min(cfg.window, 32) if cfg.window else None,
     )
+    if cfg.encoder_layers:
+        updates["encoder_layers"] = 2
     if cfg.n_experts:
         updates.update(n_experts=8, n_experts_active=2, d_ff_expert=32)
     if cfg.d_inner:
@@ -68,6 +76,10 @@ def smoke_config(cfg: ModelConfig) -> ModelConfig:
     if cfg.mla:
         updates["mla"] = MLAConfig(d_latent=64, d_rope=16, d_nope=32, d_vhead=32)
         updates["head_dim"] = 48
+    if cfg.vision_stub_tokens:
+        updates["vision_stub_tokens"] = 16
+    if cfg.family == "vlm":
+        updates["mrope_sections"] = (2, 3, 3)  # sums to head_dim//2 = 8
     return dataclasses.replace(cfg, **updates)
 
 

@@ -79,11 +79,7 @@ class ModelConfig:
         return [pat[i % len(pat)] for i in range(self.n_layers)]
 
     def param_count(self) -> int:
-        """Analytic parameter count, the reference's formula, for the layer
-        kinds the port builds; raises for an encoder stack (not ported)."""
-        if self.encoder_layers:
-            raise NotImplementedError(
-                f"param_count does not cover {self.name!r}'s encoder stack yet")
+        """Analytic parameter count, the reference's formula."""
         d, v = self.d_model, self.vocab_size
         n = v * d if self.tie_embeddings else 2 * v * d
         for kind in self.layer_kinds():
@@ -114,4 +110,8 @@ class ModelConfig:
             else:
                 n += 3 * d * self.d_ff
             n += 2 * d  # norms
+        # encoder stack (self-attn + mlp + cross-attn KV projections)
+        for _ in range(self.encoder_layers):
+            hq, dh = self.n_heads, self.head_dim
+            n += d * 3 * hq * dh + hq * dh * d + 3 * d * self.d_ff + 2 * d
         return int(n)

@@ -7,6 +7,11 @@ every leaf under ``params["groups"][f"pos{j}"]`` has a leading
 per-layer list (as the reference's ``transformer.per_layer_params`` does)
 and turns every leaf into a tensor with ``np.asarray`` — the tree is walked
 as plain dicts and lists, so nothing here imports JAX.
+
+The encoder-decoder tree (``encdec_init``) stacks its layers with
+``vmap`` instead: ``enc_layers`` and ``dec_layers`` carry a leading
+``encoder_layers`` / ``n_layers`` axis, unstacked here into two per-layer
+lists beside ``embed`` (tied), ``enc_norm`` and ``final_norm``.
 """
 
 from __future__ import annotations
@@ -26,24 +31,37 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _unstack(tree, n, to_t) -> list:
+    """``n`` per-layer trees of a tree whose leaves are stacked along
+    their leading axis."""
+    return [_tree_map(lambda a: to_t(np.asarray(a)[i]), tree) for i in range(n)]
+
+
 def convert_params(ref_params, cfg, *, device="cuda") -> dict:
-    """Port parameters (``embed``, ``final_norm``, ``unembed``, ``layers``)
-    from a reference parameter tree, leaves kept at their dtype (and a
-    below-fp32 unembedding table's fp32 copy made,
+    """Port parameters from a reference parameter tree (``embed``,
+    ``final_norm``, ``unembed``, ``layers``; for an encoder-decoder
+    ``embed``, ``enc_norm``, ``final_norm``, ``enc_layers``,
+    ``dec_layers``), leaves kept at their dtype (and a below-fp32
+    unembedding table's fp32 copy made,
     :func:`~repro_torch.models.layers.keep_fp32_table`)."""
     dev = resolve_device(device)
     to_t = lambda a: torch.from_numpy(np.array(np.asarray(a))).to(dev)
+    if cfg.family == "encdec":
+        out = {k: _tree_map(to_t, ref_params[k]) for k in ("embed", "enc_norm", "final_norm")}
+        out["enc_layers"] = _unstack(ref_params["enc_layers"], cfg.encoder_layers, to_t)
+        out["dec_layers"] = _unstack(ref_params["dec_layers"], cfg.n_layers, to_t)
+        layers.keep_fp32_table(out["embed"])
+        return out
     period = len(cfg.layer_pattern)
     n_groups = cfg.n_layers // period
     out = {k: _tree_map(to_t, ref_params[k]) for k in ("embed", "final_norm")}
     if "unembed" in ref_params:
         out["unembed"] = _tree_map(to_t, ref_params["unembed"])
     per_layer = []
-    for g in range(n_groups):
-        for j in range(period):
-            per_layer.append(
-                _tree_map(lambda a: to_t(np.asarray(a)[g]), ref_params["groups"][f"pos{j}"])
-            )
+    if n_groups:
+        groups = [_unstack(ref_params["groups"][f"pos{j}"], n_groups, to_t)
+                  for j in range(period)]
+        per_layer = [groups[j][g] for g in range(n_groups) for j in range(period)]
     per_layer.extend(_tree_map(to_t, p) for p in ref_params.get("rem", []))
     if len(per_layer) != cfg.n_layers:
         raise ValueError(

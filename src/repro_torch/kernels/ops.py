@@ -107,7 +107,9 @@ def gqa_attention(
     prefill counts query positions from 0 (the reference's kernel takes
     no offset), so a nonzero ``q_offset`` with Sq > ``decode_threshold``
     raises ``ValueError`` rather than return the reference's silently
-    misaligned answer.
+    misaligned answer.  Non-causal windowless attention (an encoder, a
+    cross-attention) sees every key below ``kv_len`` from every position,
+    so there the offset changes nothing and is not checked.
     """
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -135,7 +137,8 @@ def gqa_attention(
         out = out.reshape(b, hkv, sq, group, dh).permute(0, 2, 1, 3, 4)
         return out.reshape(b, sq, hq, dh).to(q.dtype)
 
-    if q_offset is not None and not _all_zero(q_offset):
+    positional = causal or window is not None
+    if positional and q_offset is not None and not _all_zero(q_offset):
         raise ValueError(
             f"q_offset must be 0 for Sq={sq} > decode_threshold="
             f"{decode_threshold}: the flash prefill kernel counts query "

@@ -15,10 +15,11 @@ state after its prompts are admitted:
   prompts of 5, 300, 1100 and 4500 tokens;
 * ``dense-mla``: the paged cell's weights and prompts through
   ``ServingSession(batch 4, max_len 2048)``;
-* ``qwen3-moe``, ``mamba2``, ``recurrentgemma`` (not by default): the
-  families phase's cells, qwen3-moe-30b-a3b (prompts of 5, 300, 1100 and
-  4500 tokens), mamba2-370m (37, 300, 1100, 4500) and recurrentgemma-2b
-  (5, 300, 1100, 4500) through ``ServingSession(batch 4, max_len 8192)``;
+* ``qwen3-moe``, ``mamba2``, ``recurrentgemma``, ``qwen2-vl`` (not by
+  default): the families and vlm phases' dense cells, qwen3-moe-30b-a3b
+  (prompts of 5, 300, 1100 and 4500 tokens), mamba2-370m (37, 300, 1100,
+  4500), recurrentgemma-2b and qwen2-vl-7b (text-only; 5, 300, 1100,
+  4500) through ``ServingSession(batch 4, max_len 8192)``;
 * ``k2-pad`` (not by default; needs this tree's ``src``): no session, K2 + K3
   alone at a pool of realistic size, with the work queue padded as the
   decode graphs pad it (:func:`k2_padding_cell`).
@@ -79,6 +80,7 @@ FAMILY_CELLS = {
     "qwen3-moe": ("qwen3-moe-30b-a3b", GEMMA_PROMPTS),
     "mamba2": ("mamba2-370m", (37, 300, 1100, 4500)),
     "recurrentgemma": ("recurrentgemma-2b", GEMMA_PROMPTS),
+    "qwen2-vl": ("qwen2-vl-7b", GEMMA_PROMPTS),
 }
 
 

@@ -7,8 +7,11 @@ Runs a request stream through one of two cache backends:
   ``--max-len`` cache rows each, bucketed prefill, GQA attention through
   the K6/K7 kernels (MLA through K4); every registered arch, the MoE
   (``qwen3-moe-30b-a3b``, ``granite-moe-3b-a800m``), Mamba-2
-  (``mamba2-370m``) and RG-LRU hybrid (``recurrentgemma-2b``) stacks
-  included;
+  (``mamba2-370m``), RG-LRU hybrid (``recurrentgemma-2b``) and
+  vision-language (``qwen2-vl-7b``, text-only prompts) stacks included;
+  the encoder-decoder ``seamless-m4t-medium`` has no session (the
+  reference's launcher has no encoder-decoder path either) and exits
+  naming ``EncDecModel.init_cache`` / ``decode_step``;
 * ``--cache paged`` (default arch ``deepseek-v2-mla``):
   :class:`PagedServingSession`, the full model decoding over a
   LayeredPagedKVCache via the AMLA paged kernels, with chunked
@@ -56,7 +59,12 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.kv_cache import OutOfPagesError
-from repro_torch.runtime.serve_loop import PagedServingSession, ServeSupervisor, ServingSession
+from repro_torch.runtime.serve_loop import (
+    PagedServingSession,
+    ServeSupervisor,
+    ServingSession,
+    check_session_servable,
+)
 
 
 def _serve_stream(sess, pending, gen_len, requests):
@@ -326,6 +334,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     arch = args.arch or ("deepseek-v2-mla" if args.cache == "paged" else "qwen1.5-0.5b")
     cfg = get_config(arch, smoke=args.smoke)
+    try:
+        check_session_servable(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e))
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(args.seed), device)
     if args.cache == "paged":

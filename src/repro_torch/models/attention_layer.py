@@ -1,5 +1,6 @@
 """GQA/MQA/MHA attention layer with a dense KV cache (counterpart of
-``repro/models/attention_layer.py``), RoPE, QK-norm and sliding windows.
+``repro/models/attention_layer.py``), RoPE or M-RoPE (qwen2-vl), QK-norm,
+sliding windows, and the encoder-decoder's cross-attention.
 
 The cache is kept in the kernels' layout, ``(B, Hkv, max_len, Dh)`` — the
 reference's ``cache_layout="bhsd"`` — so the attention kernels read it
@@ -79,7 +80,7 @@ def gqa_apply(
     x: torch.Tensor,  # (B, S, d)
     *,
     cfg,
-    positions: torch.Tensor,  # (B, S) int
+    positions: torch.Tensor,  # (B, S) int, or (3, B, S) for M-RoPE
     window: int | None = None,
     cache=None,
     cache_len=None,  # (B,) or scalar, host array or tensor
@@ -97,10 +98,12 @@ def gqa_apply(
     if cfg.qk_norm:
         q = layers.rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
         k = layers.rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
-    if positions.ndim == 3:
-        raise NotImplementedError("M-RoPE (qwen2-vl) positions are not ported yet")
-    q = layers.rope(q, positions, theta=cfg.rope_theta)
-    k = layers.rope(k, positions, theta=cfg.rope_theta)
+    if positions.ndim == 3:  # M-RoPE (qwen2-vl)
+        q = layers.mrope(q, positions, sections=cfg.mrope_sections, theta=cfg.rope_theta)
+        k = layers.mrope(k, positions, sections=cfg.mrope_sections, theta=cfg.rope_theta)
+    else:
+        q = layers.rope(q, positions, theta=cfg.rope_theta)
+        k = layers.rope(k, positions, theta=cfg.rope_theta)
 
     if cache is not None:
         if cache_len is None:
@@ -130,3 +133,58 @@ def gqa_apply(
     )
     y = layers.dense(params["wo"], attn.reshape(b, s, hq * dh), dtype=dtype)
     return y, cache
+
+
+def cross_attention_init(gen, cfg, *, device, dtype):
+    d, hq, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "wq": layers.dense_init(gen, d, hq * dh, **kw),
+        "wk": layers.dense_init(gen, d, hq * dh, **kw),
+        "wv": layers.dense_init(gen, d, hq * dh, **kw),
+        "wo": layers.dense_init(gen, hq * dh, d, std=1.0 / math.sqrt(hq * dh), **kw),
+    }
+
+
+def cross_kv(params, memory, *, cfg, dtype=torch.bfloat16):
+    """``{"k", "v"}`` of shape ``(B, Ss, H, Dh)``: the cross-attention's
+    keys and values of the encoder output ``memory (B, Ss, d)``."""
+    b, ss, _ = memory.shape
+    hq, dh = cfg.n_heads, cfg.head_dim
+    return {
+        "k": layers.dense(params["wk"], memory, dtype=dtype).reshape(b, ss, hq, dh),
+        "v": layers.dense(params["wv"], memory, dtype=dtype).reshape(b, ss, hq, dh),
+    }
+
+
+def cross_attention_apply(
+    params,
+    x: torch.Tensor,  # (B, St, d) decoder states
+    memory_kv=None,  # precomputed {"k", "v"}: (B, Ss, H, Dh), the decode path
+    memory: torch.Tensor | None = None,  # (B, Ss, d) encoder output
+    *,
+    cfg,
+    memory_len=None,  # (B,) valid frames; None: all of them
+    dtype=torch.bfloat16,
+):
+    """Encoder-decoder cross-attention over a static memory: every query
+    sees every frame below ``memory_len`` (``causal=False``), through K6
+    for St <= 8 rows and K7 above.  Returns (y, memory_kv)."""
+    b, st, _ = x.shape
+    hq, dh = cfg.n_heads, cfg.head_dim
+    q = layers.dense(params["wq"], x, dtype=dtype).reshape(b, st, hq, dh)
+    if memory_kv is None:
+        if memory is None:
+            raise ValueError("cross-attention needs memory_kv or memory")
+        memory_kv = cross_kv(params, memory, cfg=cfg, dtype=dtype)
+    attn = multi_head_attention(
+        q,
+        memory_kv["k"],
+        memory_kv["v"],
+        variant=cfg.attn_variant,
+        causal=False,
+        scale=1.0 / math.sqrt(dh),
+        kv_len=memory_len,
+    )
+    y = layers.dense(params["wo"], attn.reshape(b, st, hq * dh), dtype=dtype)
+    return y, memory_kv

@@ -130,3 +130,29 @@ def rope(x, positions, *, theta: float = 10000.0):
     x1, x2 = torch.split(x.to(torch.float32), half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope(x, positions3, *, sections, theta: float = 10000.0):
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D), positions3: (3, B, S)
+    int (temporal / height / width).  The D/2 rotary frequencies are split
+    into ``sections`` (summing to D/2); each section rotates by its own
+    position component.  With t = h = w it is :func:`rope`."""
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to D/2 = {half}")
+    freqs = torch.exp(
+        -math.log(theta)
+        * torch.arange(0, half, dtype=torch.float32, device=x.device)
+        / half
+    )
+    # per-frequency position source (section membership)
+    sel = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                     for i, s in enumerate(sections)])
+    pos = positions3.to(torch.float32)[sel]  # (half, B, S)
+    ang = pos.permute(1, 2, 0) * freqs  # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.split(x.to(torch.float32), half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,20 +1,27 @@
 """Model interface over the port's architectures (counterpart of
-``repro/models/model_zoo.py``: ``LanguageModel`` with its dense-cache
-serving hooks and its paged hooks)."""
+``repro/models/model_zoo.py``): ``LanguageModel`` (decoder-only, with its
+dense-cache serving hooks and its paged hooks) and ``EncDecModel``
+(seamless-m4t), chosen by :func:`build_model` from the config's family.
+
+Batches are dicts: ``tokens`` (+ ``vision_embeds`` for vlm,
+``src_embeds`` and optionally ``src_len`` for encdec).  ``forward``
+returns the hidden states; the reference's training ``loss`` (and the
+MoE aux loss ``forward`` returns with them there) is not ported.
+"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, layers, transformer, vlm
 
 
 class LanguageModel:
     """Decoder-only stacks: GQA or MLA attention (global or sliding-window
-    layers), RG-LRU and Mamba-2 layers, dense or MoE MLPs; served over a
-    dense cache (K/V rows and recurrent/SSM state per slot) or, for MLA
-    attention-only stacks, a paged one."""
+    layers, RoPE or qwen2-vl's M-RoPE), RG-LRU and Mamba-2 layers, dense or
+    MoE MLPs; served over a dense cache (K/V rows and recurrent/SSM state
+    per slot) or, for MLA attention-only stacks, a paged one."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -28,6 +35,32 @@ class LanguageModel:
         return transformer.lm_init(
             generator, self.cfg, device=dev, dtype=dtype or self.dtype
         )
+
+    def _positions(self, batch, tokens, cache_len=None):
+        """M-RoPE positions ``(3, B, S)`` for a vlm (patches first when
+        ``batch`` holds ``vision_embeds`` and there is no ``cache_len``;
+        text-only, at ``cache_len``, otherwise), None for every other
+        family (``lm_apply``'s default).  A decode step after a vision
+        prefill positions its token at ``cache_len``, not after the
+        prompt's last text position, as the reference does."""
+        if self.cfg.family != "vlm":
+            return None
+        nv = 0
+        if "vision_embeds" in batch and cache_len is None:
+            nv = batch["vision_embeds"].shape[1]
+        return vlm.mrope_positions(tokens.shape[0], tokens.shape[1], nv, offset=cache_len,
+                                   device=tokens.device)
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Hidden states ``(B, S, d)`` after the final norm of
+        ``batch["tokens"]``, a vlm's ``vision_embeds`` over its first
+        positions."""
+        tokens = batch["tokens"]
+        hidden, _ = transformer.lm_apply(
+            params, tokens, cfg=self.cfg, positions=self._positions(batch, tokens),
+            embeds_override=batch.get("vision_embeds"), dtype=self.dtype,
+        )
+        return hidden
 
     def logits(self, params, hidden):
         return transformer.lm_logits(params, hidden, cfg=self.cfg, dtype=self.dtype)
@@ -48,8 +81,9 @@ class LanguageModel:
         if cache_len is None:
             cache_len = 0
         hidden, cache = transformer.lm_apply(
-            params, tokens, cfg=self.cfg, cache=cache, cache_len=cache_len,
-            dtype=self.dtype,
+            params, tokens, cfg=self.cfg,
+            positions=self._positions({}, tokens, cache_len=cache_len),
+            cache=cache, cache_len=cache_len, dtype=self.dtype,
         )
         pos = hidden.shape[1] - 1 if last_pos is None else int(last_pos)
         return self.logits(params, hidden[:, pos : pos + 1]), cache
@@ -58,8 +92,9 @@ class LanguageModel:
         """tokens: (B, Sq) new tokens at per-slot offsets ``cache_len``;
         returns (logits (B, Sq, V), cache)."""
         hidden, cache = transformer.lm_apply(
-            params, tokens, cfg=self.cfg, cache=cache, cache_len=cache_len,
-            dtype=self.dtype,
+            params, tokens, cfg=self.cfg,
+            positions=self._positions({}, tokens, cache_len=cache_len),
+            cache=cache, cache_len=cache_len, dtype=self.dtype,
         )
         return self.logits(params, hidden), cache
 
@@ -99,5 +134,57 @@ class LanguageModel:
         )
 
 
+class EncDecModel:
+    """Encoder-decoder family (seamless-m4t).  Served as the reference
+    serves it: :meth:`init_cache` runs the encoder over a request batch's
+    frame embeddings and precomputes the cross K/V, then
+    :meth:`decode_step` runs the target prompt (at ``cache_len`` 0) and one
+    token a step; there is no serving session."""
+
+    def __init__(self, cfg):
+        if cfg.family != "encdec" or not cfg.encoder_layers:
+            raise ValueError(f"config {cfg.name!r} is not an encoder-decoder")
+        self.cfg = cfg
+        self.dtype = transformer.cfg_dtype(cfg)
+
+    def init(self, generator: torch.Generator, device="cuda", dtype=None) -> dict:
+        """Random parameters drawn from ``generator`` (which must live on
+        ``device``) in ``dtype`` (default: the config's)."""
+        dev = resolve_device(device)
+        return encdec.encdec_init(generator, self.cfg, device=dev, dtype=dtype or self.dtype)
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Decoder hidden states ``(B, St, d)`` of ``batch["tokens"]`` over
+        the encoded ``batch["src_embeds"]`` (cross-attention bounded by
+        ``batch["src_len"]`` where given)."""
+        memory = encdec.encode(params, batch["src_embeds"], cfg=self.cfg, dtype=self.dtype)
+        hidden, _ = encdec.decode_stack(
+            params, batch["tokens"], memory, cfg=self.cfg,
+            memory_len=batch.get("src_len"), dtype=self.dtype,
+        )
+        return hidden
+
+    def logits(self, params, hidden):
+        return layers.unembed(params["embed"], hidden, dtype=self.dtype)
+
+    def init_cache(self, params, src_embeds, max_len, dtype=None) -> dict:
+        """Encode ``src_embeds (B, Ss, d)`` and precompute every layer's
+        cross K/V; zeroed self-attention caches of ``max_len`` rows."""
+        return encdec.encdec_cache_init(params, self.cfg, src_embeds, max_len,
+                                        dtype=dtype or self.dtype)
+
+    def decode_step(self, params, cache, tokens, cache_len):
+        """tokens: (B, St) at per-slot offsets ``cache_len`` (the target
+        prompt at 0, then one token a step); returns (logits (B, St, V),
+        cache), the self-attention rows written in place."""
+        hidden, cache = encdec.decode_stack(
+            params, tokens, None, cfg=self.cfg, cache=cache, cache_len=cache_len,
+            dtype=self.dtype,
+        )
+        return self.logits(params, hidden), cache
+
+
 def build_model(cfg):
+    if cfg.family == "encdec":
+        return EncDecModel(cfg)
     return LanguageModel(cfg)

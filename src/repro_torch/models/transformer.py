@@ -15,8 +15,11 @@ Layer kinds: "global" and "local" (GQA or MLA attention, "local" with the
 config's sliding window), "recurrent" (RG-LRU, :mod:`.recurrent`) and
 "ssm" (Mamba-2, :mod:`.ssm`, no separate MLP); the MLP is dense or MoE
 (:mod:`.moe`) per config.  Recurrent and SSM layers keep a per-slot state
-cache (``h`` and ``conv``) in place of K/V.  The encoder-decoder and
-vision-language families raise ``NotImplementedError``.
+cache (``h`` and ``conv``) in place of K/V.  The vision-language family
+(qwen2-vl) is this decoder with M-RoPE positions ``(3, B, S)`` and patch
+embeddings in place of the first token embeddings (``lm_apply``'s
+``positions`` and ``embeds_override``); the encoder-decoder family has a
+model of its own (:mod:`.encdec`).
 
 The paged path walks the layer stack host-side so each layer can (1)
 append its latent row(s) into the shared page pool and (2) attend through
@@ -66,14 +69,17 @@ def cfg_dtype(cfg) -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    """The layer kinds and families the port builds: "global"/"local"
-    attention (GQA or MLA), "recurrent" and "ssm" layers, with a dense or
-    MoE MLP, in a decoder-only LM."""
+    """The layer kinds and families this decoder-only LM builds:
+    "global"/"local" attention (GQA or MLA), "recurrent" and "ssm" layers,
+    with a dense or MoE MLP; the ``encdec`` family is
+    :class:`~repro_torch.models.model_zoo.EncDecModel`'s."""
     kinds = set(cfg.layer_kinds())
     if not kinds <= set(LAYER_KINDS):
         raise ValueError(f"config {cfg.name!r} has unknown layer kinds {sorted(kinds)}")
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"config {cfg.name!r} is an encoder-decoder: build it with "
+            "model_zoo.build_model (EncDecModel), not as a decoder-only LM")
 
 
 def layer_init(gen, cfg, kind, *, device, dtype):
@@ -136,8 +142,14 @@ def check_paged_compatible(cfg) -> None:
     check_supported(cfg)
 
 
-def embed_tokens(params, tokens, *, cfg):
+def embed_tokens(params, tokens, *, cfg, embeds_override=None):
+    """Token embeddings at the config's dtype; ``embeds_override (B, Nv,
+    d)`` (the vision stub's patch embeddings) replaces the first ``Nv``
+    positions before gemma-style scaling, in the reference's order."""
     x = layers.embed(params["embed"], tokens, dtype=cfg_dtype(cfg))
+    if embeds_override is not None:
+        nv = embeds_override.shape[1]
+        x = torch.cat([embeds_override.to(x.dtype), x[:, nv:]], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -210,18 +222,27 @@ def mlp_post(params, x, *, cfg, dtype):
     return y
 
 
+def default_positions(b, s, cache_len, device):
+    """``(B, S)`` positions ``cache_len + arange(S)`` (``cache_len``
+    scalar or (B,), host value or tensor; 0 when None)."""
+    base = torch.as_tensor(cache_len if cache_len is not None else 0, device=device)
+    steps = torch.arange(s, device=device)[None, :]
+    return (base.reshape(-1, 1).to(torch.int64) + steps).expand(b, s)
+
+
 def lm_apply(params, tokens, *, cfg, positions=None, cache=None, cache_len=None,
-             dtype=None):
+             embeds_override=None, dtype=None):
     """Returns (hidden (B, S, d) after the final norm, cache).
     Unembedding is the caller's job (:func:`lm_logits`).  ``cache_len``
-    (scalar or (B,), host array or tensor) is where the new tokens go."""
+    (scalar or (B,), host array or tensor) is where the new tokens go;
+    ``positions`` is ``(B, S)`` (default ``cache_len + arange(S)``) or
+    M-RoPE's ``(3, B, S)``; ``embeds_override (B, Nv, d)`` replaces the
+    first ``Nv`` token embeddings (qwen2-vl's patch embeddings)."""
     b, s = tokens.shape
     dtype = dtype or cfg_dtype(cfg)
-    x = embed_tokens(params, tokens, cfg=cfg).to(dtype)
+    x = embed_tokens(params, tokens, cfg=cfg, embeds_override=embeds_override).to(dtype)
     if positions is None:
-        base = torch.as_tensor(cache_len if cache_len is not None else 0, device=x.device)
-        steps = torch.arange(s, device=x.device)[None, :]
-        positions = (base.reshape(-1, 1).to(torch.int64) + steps).expand(b, s)
+        positions = default_positions(b, s, cache_len, x.device)
     for l, (p_l, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
         x, _ = layer_apply(
             p_l, x, cfg=cfg, kind=kind, positions=positions,

@@ -70,6 +70,21 @@ import numpy as np
 import torch
 
 
+def check_session_servable(cfg) -> None:
+    """The serving sessions hold decoder-only models; an encoder-decoder
+    has no session, in the reference either (its ``init_cache`` takes the
+    source frames, not a batch size)."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name!r} is an encoder-decoder: the serving sessions hold "
+            "decoder-only models. Serve it as the reference does, through "
+            "EncDecModel.init_cache(params, src_embeds, max_len) (the encoder "
+            "and every layer's cross K/V, once per request batch) and "
+            "EncDecModel.decode_step (the target prompt at cache_len 0, then "
+            "one token a step)"
+        )
+
+
 class ServingSession:
     """Single-host batched serving with slot reuse (continuous-batching-lite).
 
@@ -83,12 +98,16 @@ class ServingSession:
     On a CUDA device the decode step replays a CUDA graph
     (:class:`~repro_torch.runtime.step_graph.DenseDecodeStep`,
     ``step_graph``; one capture, at the first step: the batch is fixed):
-    the reference jits ``decode_step``.  Prefill runs eagerly.
+    the reference jits ``decode_step``.  Prefill runs eagerly.  A vlm is
+    served text-only, as the reference serves it (M-RoPE with t = h = w).
+    An encoder-decoder model raises ``ValueError``
+    (:func:`check_session_servable`).
     """
 
     def __init__(self, model, params, *, batch_size: int, max_len: int):
         from repro_torch.runtime.step_graph import DenseDecodeStep
 
+        check_session_servable(model.cfg)
         self.model = model
         self.params = params
         self.batch = batch_size

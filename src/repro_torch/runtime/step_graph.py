@@ -232,7 +232,9 @@ class DenseDecodeStep:
     :class:`~repro_torch.runtime.serve_loop.ServingSession`: every slot's
     last token and cache length staged into two tensors, then
     ``model.decode_step`` over them and the dense caches, replayed from one
-    CUDA graph on a CUDA device (:class:`StepGraphs`)."""
+    CUDA graph on a CUDA device (:class:`StepGraphs`).  A vlm's M-RoPE
+    positions are built in the walk from the staged ``cache_len`` tensor
+    (``vlm.mrope_positions(offset=)`` reads nothing back to the host)."""
 
     def __init__(self, model, params, cache: list, batch: int):
         self.model, self.params, self.cache = model, params, cache

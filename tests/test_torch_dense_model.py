@@ -35,7 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import convert_params
 from repro_torch.models import attention_layer, mla_layer
 from repro_torch.models import transformer as tf
-from repro_torch.models.model_zoo import build_model
+from repro_torch.models.model_zoo import EncDecModel, build_model
 
 ARCHS = ["gemma2-2b", "qwen2.5-3b", "deepseek-v2-mla"]
 MAX_LEN, PROMPT = 64, 40  # the prompt is longer than gemma2's smoke window
@@ -200,10 +200,10 @@ def test_configs_and_converted_gqa_trees(pair):
 
 
 def test_backends_accept_and_reject_configs():
-    """lm_init builds GQA stacks, and recurrent and MoE stacks with the
-    reference's parameter tree (same leaves, same shapes); the paged
-    backend still rejects non-MLA stacks; the encdec and vlm families
-    raise."""
+    """lm_init builds GQA stacks, and recurrent, MoE and vlm stacks with
+    the reference's parameter tree (same leaves, same shapes); the paged
+    backend still rejects non-MLA stacks; an encdec config builds an
+    EncDecModel, which lm_init refuses."""
     gemma = get_config("gemma2-2b", smoke=True)
     params = build_model(gemma).init(torch.Generator().manual_seed(0), "cpu")
     assert [set(p) >= {"ln1", "attn", "mlp", "post_ln1"} for p in params["layers"]] == [True] * 4
@@ -229,7 +229,12 @@ def test_backends_accept_and_reject_configs():
         assert ("rec" if "d_inner" in new else "mlp") in ours["layers"][0]
         with pytest.raises(ValueError, match="no MLA geometry"):
             tf.check_paged_compatible(cfg)
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match=family):
-            tf.lm_init(torch.Generator().manual_seed(0), dataclasses.replace(gemma, family=family),
-                       device="cpu", dtype=torch.float32)
+    vlm, ref_vlm = get_config("qwen2-vl-7b", smoke=True), ref_get_config("qwen2-vl-7b", smoke=True)
+    ours = tf.lm_init(torch.Generator().manual_seed(0), vlm, device="cpu", dtype=torch.float32)
+    theirs = ref_tf.per_layer_params(ref_tf.lm_init(jax.random.PRNGKey(0), ref_vlm), ref_vlm)
+    assert [dict(shapes(p)) for p in ours["layers"]] == [dict(shapes(p)) for p in theirs]
+    assert "unembed" in ours and "b" in ours["layers"][0]["attn"]["wq"]
+    encdec = get_config("seamless-m4t-medium", smoke=True)
+    assert isinstance(build_model(encdec), EncDecModel)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        tf.lm_init(torch.Generator().manual_seed(0), encdec, device="cpu", dtype=torch.float32)

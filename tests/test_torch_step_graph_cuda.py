@@ -14,8 +14,8 @@ bit for bit; the bound leaves room for a cuBLAS algorithm chosen
 differently under capture).  The steps cross KV blocks (a schedule
 rebuild replayed by the same graph), grab new pages (block tables that
 change between replays), finish a request and admit another (a new batch
-size: a new capture).  The dense sessions run the GQA, MLA, MoE, Mamba-2
-and RG-LRU hybrid smoke stacks.
+size: a new capture).  The dense sessions run the GQA, MLA, MoE, Mamba-2,
+RG-LRU hybrid and qwen2-vl (M-RoPE) smoke stacks.
 """
 
 import numpy as np
@@ -124,11 +124,13 @@ def test_paged_graph_matches_eager_walk(cuda_device, dtype, kv_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["gemma2-2b", "deepseek-v2-mla", "qwen3-moe-30b-a3b",
-                                  "granite-moe-3b-a800m", "mamba2-370m", "recurrentgemma-2b"])
+                                  "granite-moe-3b-a800m", "mamba2-370m", "recurrentgemma-2b",
+                                  "qwen2-vl-7b"])
 def test_dense_graph_matches_eager_walk(cuda_device, arch):
     """Also the MoE, Mamba-2 and RG-LRU stacks: a recurrent or SSM layer's
     state is advanced by every step, so the capture's warm-ups must leave
-    it as they found it."""
+    it as they found it; and qwen2-vl, whose M-RoPE positions the graph
+    builds on the card from the staged cache lengths."""
     model, params = params_for(arch, torch.bfloat16)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (5, 40, 12)]
