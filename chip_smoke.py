@@ -164,6 +164,32 @@ root) and exits nonzero on any failure:
     a 32-token prompt, 16 eager greedy steps.  K6/K7/K3 launches equal to
     layers x calls per path; prefill s and tokens/s, decode ms/step,
     peak memory.
+23. **Train phase** (after all serving): (a) the attention Function
+    (``core.attention.multi_head_attention`` on inputs that need a
+    gradient) at qwen1.5-0.5b's 16 x 64 heads over 2 x 2048 tokens, bf16
+    and fp32 inputs, amla and base, and at smoke deepseek-v2-mla's
+    expanded MLA widths (Dk 48, Dv 32: K7 at 64 with zero columns): one
+    K7 launch per call, its forward within 1e-2 (bf16) / 2e-3 (fp32) of
+    ``blockwise_attention``'s, its backward equal to
+    ``torch.autograd.grad`` through ``blockwise_attention`` on the same
+    inputs and within one bf16 step (2^-7 of the largest magnitude, fewer
+    than 1% of elements differing) of that gradient taken on the CPU; (b)
+    smoke qwen1.5-0.5b and deepseek-v2-mla, fp32, 3 remat
+    ``make_train_step`` steps, each taken on the card and on the CPU from
+    the CPU's state before it: loss, grad_norm, first moment and
+    parameters at the tolerances of ``tests/test_torch_train_loop.py``;
+    (c) qwen1.5-0.5b at full width (24
+    layers, 0.46 B fp32 master parameters from seed 0 on the card),
+    ``SyntheticLMData`` seed 0, batch 8 x 2048 tokens, remat, amla, 10
+    steps, peak lr 3e-4, warmup 2: each step's loss, grad_norm, lr and
+    ms; the steady ms/step (steps 2-10), tokens/s, peak GiB and the
+    model-FLOPs share of the bf16 peak; gates: finite losses, the last
+    below the first, K7 = 24 x 2 x 10 launches (the forward and the remat
+    recompute), all on the tensor-core body; (d) the serve handoff: the
+    final state through ``CheckpointManager(async_save=True)`` and back
+    (bit for bit), ``serving_params`` (bf16 + the fp32 table copy), 4
+    prompts x 8 greedy tokens through ``ServingSession`` equal to those
+    of the in-memory trained parameters (K7, K6, K3 launches counted).
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only`` (the build and phase 8).
@@ -3091,9 +3117,9 @@ def vision_form(model, params, vis, tokens, steps, max_len, hold=False):
     cache = model.init_cache(params, b, max_len)
     sync()
     t0 = time.perf_counter()
-    hidden, _ = tf.lm_apply(params, tokens, cfg=model.cfg,
-                            positions=vlm.mrope_positions(b, s, vis.shape[1], device=dev),
-                            cache=cache, cache_len=0, embeds_override=vis)
+    hidden, _, _ = tf.lm_apply(params, tokens, cfg=model.cfg,
+                               positions=vlm.mrope_positions(b, s, vis.shape[1], device=dev),
+                               cache=cache, cache_len=0, embeds_override=vis)
     logits = model.logits(params, hidden[:, -1:])
     sync()
     prefill_s = time.perf_counter() - t0
@@ -3428,6 +3454,338 @@ def serve_phase():
     return k2, k3, (cfg, model, params, prompt_lens, results)
 
 
+# --------------------------------------------------------------------------- #
+# train phase
+# --------------------------------------------------------------------------- #
+TRAIN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-3}  # K7 forward vs the blockwise one
+
+
+def rel_max(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def train_counters():
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as mc
+
+    return [fp.flash_prefill, gd.gqa_decode_rows, mc.combine_split_partials]
+
+
+GRAD_STEP = 2.0**-7  # one bf16 step of a tensor's largest magnitude
+
+
+def train_attention_case(name, q, k, v, kw):
+    """One attention Function call on the card: forward through the kernel
+    (one K7 launch, tensor-core body), backward through the blockwise path;
+    held against ``blockwise_attention`` and ``torch.autograd.grad``
+    through it on the same inputs (bit for bit), and against that
+    gradient taken on the CPU, which the CPU tests hold against JAX's
+    gradient of ``impl="xla"``: within GRAD_STEP of each gradient's
+    largest magnitude with fewer than 1% of elements differing, the rule
+    of ``tests/test_torch_flash_core.py`` (attention's input gradients are
+    rounded to bf16, and an fp32 sum in another order can round one
+    element a bf16 step the other way).  Returns the forward error."""
+    from repro_torch.core import attention
+    from repro_torch.kernels import flash_prefill as fp
+
+    ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref_ins = [t.detach().requires_grad_() for t in (q, k, v)]
+    zero_counts(train_counters())
+    out = attention.multi_head_attention(*ins, **kw)
+    torch.cuda.synchronize()
+    launches = fp.flash_prefill.launches, fp.flash_prefill.mma_launches
+    ref = attention.blockwise_attention(*ref_ins, **kw)
+    ct = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(9), device="cuda",
+                     dtype=out.dtype)
+    got = torch.autograd.grad(out, ins, ct)
+    want = torch.autograd.grad(ref, ref_ins, ct)
+    cpu_ins = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    cpu_want = torch.autograd.grad(attention.blockwise_attention(*cpu_ins, **kw), cpu_ins,
+                                   ct.cpu())
+    fwd = rel_max(out, ref)
+    bwd = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    cpu_err = max(float((g.cpu().float() - w.float()).abs().max() / w.float().abs().max())
+                  for g, w in zip(got, cpu_want))
+    cpu_frac = max(float((g.cpu() != w).float().mean()) for g, w in zip(got, cpu_want))
+    tol = TRAIN_TOL[q.dtype]
+    log(f"  {name}: forward (K7) vs blockwise {fwd:.3e} (tol {tol:g}); backward vs autograd "
+        f"through blockwise_attention: max |difference| {bwd:.3e} (must be 0); vs the CPU's "
+        f"gradient {cpu_err:.3e} of the max (tol {GRAD_STEP:.3e}), {cpu_frac:.2e} of elements "
+        f"differ (tol 1e-2); K7 launches {launches[0]} ({launches[1]} tensor-core)")
+    if launches != (1, 1) or not fwd <= tol or bwd != 0.0 or not all(
+            bool(torch.isfinite(g).all()) for g in got) or not (
+            cpu_err < GRAD_STEP and cpu_frac < 1e-2):
+        raise SystemExit(f"train phase (a): the attention Function failed at {name}")
+    return fwd
+
+
+def train_attention_check():
+    """(a) The training attention on the card at qwen1.5-0.5b's geometry
+    (16 x 64 heads, 2 x 2048 tokens, causal; amla and base; bf16 and fp32
+    inputs) and at smoke deepseek-v2-mla's expanded MLA widths (Dk 48, Dv
+    32, 4 heads, 2 x 256 tokens).  At the training shape (8 x 2048
+    tokens, bf16 amla): K7 timed beside its bound, its plain version and
+    SDPA; the blockwise backward beside SDPA's forward + backward (the
+    library's fused attention with its own backward, timed only).
+    Returns the worst forward error."""
+    from repro_torch.core import attention
+
+    log("== train phase (a): the attention Function vs the blockwise reference ==")
+    worst = 0.0
+    b, s, h, d = 2, 2048, 16, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        for variant in ("amla", "base"):
+            q, k, v = (randn((b, s, h, d), 40 + i, dtype) for i in range(3))
+            kw = dict(variant=variant, causal=True, scale=d ** -0.5,
+                      kv_len=np.full((b,), s, np.int32), q_offset=np.zeros((b,), np.int32))
+            worst = max(worst, train_attention_case(
+                f"qwen1.5-0.5b heads 16 x 64, {b} x {s} tokens, {dtype}, {variant}", q, k, v, kw))
+    q, k = (randn((2, 256, 4, 48), 50 + i, torch.float32) for i in range(2))
+    v = randn((2, 256, 4, 32), 52, torch.float32)
+    kw = dict(variant="amla", causal=True, scale=48 ** -0.5, kv_len=np.full((2,), 256, np.int32),
+              q_offset=np.zeros((2,), np.int32))
+    worst = max(worst, train_attention_case(
+        "smoke deepseek-v2-mla expanded (Dk 48, Dv 32: K7 at 64), fp32", q, k, v, kw))
+
+    # timed at the training shape: one layer of qwen1.5-0.5b at batch 8 x 2048
+    bt = 8
+    time_dense_rows([("K7", f"qwen1.5-0.5b train {bt} x {s}", gqa_case(
+        "K7", GQA_GEOMETRIES[2], bt, s, s, [s] * bt, torch.bfloat16, 60))], None)
+    q, k, v = (randn((bt, s, h, d), 40 + i, torch.bfloat16).requires_grad_() for i in range(3))
+    kw = dict(variant="amla", causal=True, scale=d ** -0.5, kv_len=np.full((bt,), s, np.int32),
+              q_offset=np.zeros((bt,), np.int32))
+    ct = randn((bt, s, h, d), 49, torch.bfloat16)
+    out = attention.multi_head_attention(q, k, v, **kw)
+    bwd_ms = time_cuda(lambda: torch.autograd.grad(out, (q, k, v), ct, retain_graph=True), 3,
+                       None)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (q, k, v), ct.transpose(1, 2))
+
+    sdpa_ms = time_cuda(sdpa, 10, None)
+    log(f"  the attention backward of one training layer ({bt} x {s} tokens, 16 x 64 heads, "
+        f"bf16 amla; blockwise recompute + autograd): {bwd_ms:.3f} ms; SDPA forward + "
+        f"backward {sdpa_ms:.3f} ms (timed only)")
+    return worst
+
+
+def small_train_check():
+    """(b) Smoke qwen1.5-0.5b and deepseek-v2-mla (the expanded MLA form),
+    fp32 master weights and compute, 3 remat train steps (batch 4 x 64,
+    peak lr 3e-3, warmup 1, schedule steps 1-3).  Each step is taken on
+    the card and on the CPU from the CPU's state before it (parameters
+    and AdamW moments), so each is held as one step, at the tolerances
+    of ``tests/test_torch_train_loop.py``: the loss within 1e-5 and
+    grad_norm within 1e-4 relative; the first moment within 2^-8 of each
+    leaf's largest magnitude (attention's input gradients are rounded to
+    bf16 on both sides, and a few roundings land a bf16 step apart); the
+    parameters within the step's size, 2 lr, everywhere (Adam moves an
+    element by about lr whatever its gradient, so one whose gradient is
+    rounding noise, such as the K bias's, may move the other way), and
+    after the first step, Adam's first, within 2e-3 of each leaf's
+    largest magnitude where the CPU's first moment exceeds that 2^-8.
+    Later steps are not held to that: a leaf whose whole gradient is
+    noise (the K bias's, zero in exact arithmetic: softmax ignores a
+    shift of a row's scores) has its largest first moment at the noise
+    too, and the CPU against itself, on weights perturbed by 2e-7, moves
+    such a leaf by 2.8e-2 of its largest magnitude at the second step.
+    Free-running, those noise elements would make the next step's inputs
+    differ; starting both from one state keeps each comparison to its
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+
+    def opt_to(o, dev):
+        return AdamWState(o.count.to(dev), to_device(o.mu, dev), to_device(o.nu, dev))
+
+    log("== train phase (b): smoke models, 3 train steps, card vs CPU, each from the CPU's "
+        "state ==")
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10, remat=True)
+    mu_tol, p_tol = 2.0**-8, 2e-3
+    for arch in ("qwen1.5-0.5b", "deepseek-v2-mla"):
+        cfg = get_config(arch, smoke=True)
+        model = build_model(cfg)
+        step = make_train_step(model, tc)
+        params, opt, _ = init_train_state(model, torch.Generator("cpu").manual_seed(5), "cpu")
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=0)
+        losses = ([], [])
+        l_err = n_err = mu_err = p_err = step_err = 0.0
+        for i in range(3):
+            batch = data.batch_at(i)
+            cp, co, _, cm = step(params, opt, None, batch, i + 1)
+            gp, go, _, gm = step(to_device(params, "cuda"), opt_to(opt, "cuda"), None, batch,
+                                 i + 1)
+            gp, go = to_device(gp, "cpu"), opt_to(go, "cpu")
+            lr = float(cm["lr"])
+            losses[0].append(float(gm["loss"]))
+            losses[1].append(float(cm["loss"]))
+            l_err = max(l_err, abs(float(gm["loss"]) / float(cm["loss"]) - 1))
+            n_err = max(n_err, abs(float(gm["grad_norm"]) / float(cm["grad_norm"]) - 1))
+            for a, b, mg, mc in zip(tree.leaves(gp), tree.leaves(cp), tree.leaves(go.mu),
+                                    tree.leaves(co.mu), strict=True):
+                mu_err = max(mu_err, float((mg - mc).abs().max() / mc.abs().max()))
+                d = (a - b).abs()
+                resolved = mc.abs() > mu_tol * mc.abs().max()
+                if i == 0 and bool(resolved.any()):
+                    p_err = max(p_err, float(d[resolved].max() / b.abs().max()))
+                step_err = max(step_err, float(d.max()) / (2 * lr))
+            params, opt = cp, co
+        log(f"  {cfg.name}: losses card {[round(x, 6) for x in losses[0]]}, CPU "
+            f"{[round(x, 6) for x in losses[1]]}: max relative difference {l_err:.3e} (tol 1e-5); "
+            f"grad_norm {n_err:.3e} (tol 1e-4); first moment {mu_err:.3e} of the leaf max "
+            f"(tol {mu_tol:.3e}); first step's parameters where the gradient is resolved "
+            f"{p_err:.3e} of the leaf max (tol {p_tol:g}); every step's parameters "
+            f"{step_err:.3f} x 2 lr (tol 1)")
+        if not (l_err <= 1e-5 and n_err <= 1e-4 and mu_err < mu_tol and p_err <= p_tol
+                and step_err <= 1 + 1e-4):
+            raise SystemExit(f"train phase (b): {cfg.name} on the card disagrees with the CPU")
+
+
+def train_phase(card):
+    """(c) qwen1.5-0.5b at full width: 10 train steps on the card (``card``:
+    its name and power limit, printed beside the numbers).  Returns (cfg,
+    model, params, opt, launches (K7, K6, K3))."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    b, s, steps = 8, 2048, 10
+    n = cfg.param_count()
+    log(f"== train phase (c): {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads} x {cfg.head_dim} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n / 1e9:.3f} B parameters (fp32 master, bf16 compute), batch {b} x {s}, remat, "
+        f"{cfg.attn_variant}, {steps} steps ==")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, comp = init_train_state(model, torch.Generator("cuda").manual_seed(0), "cuda")
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=0)
+    step = make_train_step(model, TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=steps,
+                                              remat=True))
+    counters = train_counters()
+    losses, times = [], []
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, comp, m = step(params, opt, comp, data.batch_at(i), i)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        log(f"  step {i}: loss {loss:.4f} grad_norm {float(m['grad_norm']):.4f} lr "
+            f"{float(m['lr']):.3e} ({1e3 * times[-1]:.1f} ms)")
+    launches = read_counts(counters)
+    (k7, k7_mma), (k6, _), (k3, _) = launches
+    ms = 1e3 * float(np.mean(times[1:]))
+    tokens = b * s
+    attn_flops = 6 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim  # causal: half of 12
+    flops = 6 * n * tokens + attn_flops
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    log(f"steady {ms:.1f} ms/step (steps 2-{steps}; first {1e3 * times[0]:.1f} ms), "
+        f"{tokens / (ms / 1e3):.1f} tokens/s, peak {peak:.2f} GiB; model FLOPs "
+        f"6 N T + causal attention = {flops / 1e12:.2f} TFLOP/step, "
+        f"{100 * share:.2f} % of the bf16 dense peak (989 TFLOP/s); card {card}")
+    want = cfg.n_layers * 2 * steps
+    log(f"launches: K7 {k7} ({k7_mma} tensor-core; expected layers x 2 x steps = {want}: the "
+        f"forward and the remat recompute), K6 {k6}, K3 {k3}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"train phase: losses {losses} not finite or not lower at the end")
+    if (k7, k7_mma, k6, k3) != (want, want, 0, 0):
+        raise SystemExit("train phase: kernel launch counts do not match the main path")
+    return cfg, model, params, opt, (k7, k6, k3)
+
+
+def train_serve_handoff(cfg, model, params, opt):
+    """(d) The trained state saved through ``CheckpointManager(async_save=
+    True)`` under ``build/train_ckpt`` (removed after) and restored (bit
+    for bit); ``serving_params`` of it (bf16 weights, the fp32 table copy
+    from the trained table) and of the in-memory parameters each serve 4
+    prompts x 8 greedy tokens through ``ServingSession`` (batch 4,
+    max_len 2048): equal tokens.  Returns the serve path's launches (K7,
+    K6, K3) of the restored tree's run."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import tree
+    from repro_torch.runtime.serve_loop import ServingSession
+    from repro_torch.runtime.train_loop import serving_params
+
+    log("== train phase (d): checkpoint, restore, serve ==")
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state = {"params": params, "opt": opt}
+    mgr = CheckpointManager(ckpt_dir, keep=1, async_save=True)
+    t0 = time.perf_counter()
+    mgr.save(10, state)
+    t_copy = time.perf_counter() - t0
+    mgr.wait()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, restored = mgr.restore_latest(state)
+    t_read = time.perf_counter() - t0
+    nbytes = sum(x.nbytes for x in tree.leaves(state))
+    same = step == 10 and all(torch.equal(a, b) for a, b in zip(tree.leaves(restored),
+                                                                 tree.leaves(state)))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"checkpoint of {nbytes / 2**30:.2f} GiB: host copy {t_copy:.1f} s, written by "
+        f"{t_write:.1f} s, restored in {t_read:.1f} s; restored == saved: {same}")
+    if not same:
+        raise SystemExit("train phase (d): the restored state differs from the saved one")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (5, 40, 300, 700)]
+    counters = train_counters()
+    outs, launches = [], None
+    for which in (restored["params"], params):
+        sp = serving_params(which, cfg)
+        sess = ServingSession(model, sp, batch_size=4, max_len=2048)
+        zero_counts(counters)
+        rids = [sess.add_request(p) for p in prompts]
+        for _ in range(7):
+            sess.step()
+        outs.append([sess.finish(r) for r in rids])
+        torch.cuda.synchronize()
+        launches = launches or read_counts(counters)
+        del sess, sp
+        release()
+    (k7, _), (k6, _), (k3, _) = launches
+    log(f"served 4 prompts x 8 greedy tokens from the restored and from the in-memory trained "
+        f"parameters: tokens equal: {outs[0] == outs[1]}; {[o[:8] for o in outs[0]]}; "
+        f"launches K7 {k7}, K6 {k6}, K3 {k3}")
+    if outs[0] != outs[1] or not all(len(o) == 8 for o in outs[0]) or min(k7, k6, k3) <= 0:
+        raise SystemExit("train phase (d): the restored parameters do not serve the trained "
+                         "model's tokens")
+    return k7, k6, k3
+
+
+def train_phases(card):
+    """(a)-(d) on ``card`` (its name and power limit).  Returns (worst
+    forward error of (a), main-path launches of K7, K6 and K3 in (c) and
+    (d))."""
+    t0 = time.perf_counter()
+    worst = train_attention_check()
+    release()
+    small_train_check()
+    release()
+    cfg, model, params, opt, (k7, k6, k3) = train_phase(card)
+    k7d, k6d, k3d = train_serve_handoff(cfg, model, params, opt)
+    del params, opt
+    release()
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return worst, (k7 + k7d, k6 + k6d, k3 + k3d)
+
+
 def mma_ptxas(log_text):
     """ptxas's spill and register lines for each instantiation of the
     tensor-core kernels: [((kernel, pool, kM, amla), spill line, register
@@ -3558,6 +3916,8 @@ def main(argv: list[str]) -> int:
     k6f, k7f, k3f = families_phase()
     release()
     k6v, k7v, k3v = vlm_encdec_phase()
+    release()
+    _, (k7tr, k6tr, k3tr) = train_phases(smi)
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
     derr = lambda name: max(v for d in (dworst, fworst, vworst) for k, v in d.items()
@@ -3594,7 +3954,7 @@ def main(argv: list[str]) -> int:
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
-             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v,
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
@@ -3608,11 +3968,11 @@ def main(argv: list[str]) -> int:
              max_abs_err=max(terr("K5"), merr("K5")), ms=t5[0], plain_ms=t5[1], bound_ms=t5[2],
              bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6 + k6f + k6v,
+             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6 + k6f + k6v + k6tr,
              max_abs_err=derr("K6"), ms=t6[0], plain_ms=t6[1], bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f + k7v,
+             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f + k7v + k7tr,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),
     ]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of a decode step of the PyTorch/CUDA port goes, from a
-``torch.profiler`` trace (CPU + CUDA) on the card.
+"""Where the time of a decode step (or a train step) of the PyTorch/CUDA port
+goes, from a ``torch.profiler`` trace (CPU + CUDA) on the card.
 
     python3 src/repro_torch/launch/decode_trace.py [--src DIR] [--cells ...] [--steps N]
 
@@ -22,7 +22,11 @@ state after its prompts are admitted:
   4500) through ``ServingSession(batch 4, max_len 8192)``;
 * ``k2-pad`` (not by default; needs this tree's ``src``): no session, K2 + K3
   alone at a pool of realistic size, with the work queue padded as the
-  decode graphs pad it (:func:`k2_padding_cell`).
+  decode graphs pad it (:func:`k2_padding_cell`);
+* ``train`` (not by default): a training step, not a decode step:
+  ``chip_smoke.py``'s train phase (c), qwen1.5-0.5b at full width, fp32
+  master parameters from seed 0, ``SyntheticLMData`` batches of 8 x 2048
+  tokens, remat, amla (:func:`train_cell`); its window is ``train_step``.
 
 Each cell runs ``--warm`` decode steps, then times ``--timed`` steps by the
 host clock (each ending in a device sync), then traces ``--steps`` steps.
@@ -103,13 +107,13 @@ def union_ms(intervals) -> float:
     return total / 1e3
 
 
-def split_trace(path: str) -> dict:
-    """Per-step split of the device's activity inside each ``decode_step``
-    window of a chrome trace (times in µs there, ms here)."""
+def split_trace(path: str, window: str = "decode_step") -> dict:
+    """Per-step split of the device's activity inside each ``window``
+    annotation of a chrome trace (times in µs there, ms here)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     windows = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                     if e.get("name") == "decode_step" and e.get("cat") == "user_annotation")
+                     if e.get("name") == window and e.get("cat") == "user_annotation")
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
               and "dur" in e]
     steps, names = [], {}
@@ -137,7 +141,7 @@ def split_trace(path: str) -> dict:
                           **{f"{k}_ms": v for k, v in parts.items()},
                           launches={k: v for k, v in counts.items()}))
     if not steps:
-        raise SystemExit(f"no decode_step windows in {path}")
+        raise SystemExit(f"no {window} windows in {path}")
     keys = [k for k in steps[0] if k != "launches"]
     mean = {k: float(np.mean([s[k] for s in steps])) for k in keys}
     mean["launches"] = {k: float(np.mean([s["launches"][k] for s in steps]))
@@ -148,7 +152,7 @@ def split_trace(path: str) -> dict:
     return mean
 
 
-def steady_state(step, warm: int, timed: int, traced: int) -> dict:
+def steady_state(step, warm: int, timed: int, traced: int, window: str = "decode_step") -> dict:
     for _ in range(warm):
         step()
     torch.cuda.synchronize()
@@ -176,13 +180,13 @@ def steady_state(step, warm: int, timed: int, traced: int) -> dict:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(traced):
-            with torch.profiler.record_function("decode_step"):
+            with torch.profiler.record_function(window):
                 step()
                 torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
-        split = split_trace(path)
+        split = split_trace(path, window)
     split["timed_ms_per_step"] = times
     # untraced: the device time of the step's graph replays over its host time
     split["replay_ms_per_step"] = replays
@@ -294,12 +298,42 @@ def k2_padding_cell(args):
             "kv_tokens": int(lens.sum()), "pages_used": int(need.sum())}
 
 
+def train_cell(args):
+    """Train steps of qwen1.5-0.5b at full width (``chip_smoke.py``'s train
+    phase (c)): the window is one whole step (data, forward, backward,
+    AdamW), ending in the loss's copy to the host; ``attention_ms`` is K7
+    (the forward and the remat recompute), the blockwise backward falls
+    in ``cublas_ms`` (its fp32 products) and ``small_ops_ms``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    params, opt, comp = init_train_state(model, torch.Generator("cuda").manual_seed(0), "cuda")
+    train_step = make_train_step(model, TrainConfig(peak_lr=3e-4, warmup_steps=2,
+                                                    total_steps=100, remat=True))
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8, seed=0)
+    state = [params, opt, comp, 0]
+
+    def step():
+        p, o, c, i = state
+        p, o, c, m = train_step(p, o, c, data.batch_at(i), i)
+        float(m["loss"])
+        state[:] = [p, o, c, i + 1]
+
+    res = steady_state(step, args.warm, args.timed, args.steps, window="train_step")
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                   os.pardir, os.pardir))
     ap.add_argument("--cells", nargs="+", default=["paged", "gemma", "dense-mla"],
-                    choices=["paged", "gemma", "dense-mla", "k2-pad", *FAMILY_CELLS])
+                    choices=["paged", "gemma", "dense-mla", "k2-pad", "train", *FAMILY_CELLS])
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--timed", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
@@ -320,6 +354,10 @@ def main(argv) -> int:
     if "k2-pad" in args.cells:
         print(json.dumps({"cell": "k2 queue padding", "label": args.label, "card": smi,
                           **k2_padding_cell(args)}), flush=True)
+    if "train" in args.cells:
+        print(json.dumps({"cell": "qwen1.5-0.5b train", "label": args.label, "card": smi,
+                          **train_cell(args)}), flush=True)
+        torch.cuda.empty_cache()
     if "gemma" in args.cells:
         cfg = get_config("gemma2-2b")
         model = build_model(cfg)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 
 def truncnorm(gen, shape, std, *, device, dtype):
@@ -156,3 +157,37 @@ def mrope(x, positions3, *, sections, theta: float = 10000.0):
     x1, x2 = torch.split(x.to(torch.float32), half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# -- losses ---------------------------------------------------------------- #
+def _chunk_nll(unembed_params, h, labels, softcap, dtype):
+    """Summed next-token NLL of one chunk (labels ``-1`` ignored)."""
+    logits = unembed(unembed_params, h, dtype=dtype, softcap=softcap).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    lab_logit = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
+    return torch.where(labels >= 0, lse - lab_logit, 0.0).sum()
+
+
+def chunked_cross_entropy(unembed_params, hidden, labels, *, n_chunks=8, softcap=None,
+                          dtype=torch.bfloat16):
+    """Mean cross-entropy of ``hidden (B, S, d)`` against ``labels (B, S)``
+    (``-1`` = ignore) without the full ``(B*S, vocab)`` logits: the
+    sequence is cut into ``n_chunks`` chunks, each computes its logits,
+    its LSE and the label logit and drops the logits.  Under autograd each
+    chunk is checkpointed (its logits made again in the backward), so only
+    one chunk's logits are alive at a time, as the reference's scan keeps
+    them."""
+    b, s, _ = hidden.shape
+    if s % n_chunks:
+        raise ValueError(f"sequence {s} is not a multiple of n_chunks={n_chunks}")
+    c = s // n_chunks
+    total, count = 0.0, 0
+    for i in range(n_chunks):
+        h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            nll = torch.utils.checkpoint.checkpoint(
+                _chunk_nll, unembed_params, h, lab, softcap, dtype, use_reentrant=False)
+        else:
+            nll = _chunk_nll(unembed_params, h, lab, softcap, dtype)
+        total, count = total + nll, count + (lab >= 0).sum()
+    return total / torch.clamp_min(count, 1)

@@ -1,6 +1,6 @@
-"""Multi-head Latent Attention, absorbed form (counterpart of
-``repro/models/mla_layer.py``: the decode pieces the paged backend
-composes, and ``mla_apply`` over a dense latent cache).
+"""Multi-head Latent Attention (counterpart of ``repro/models/mla_layer.py``:
+the absorbed decode pieces the paged backend composes, ``mla_apply`` over
+a dense latent cache, and the expanded form it takes without one).
 
 The KV cache stores only the shared latent ``[c (d_latent) ; k_rope
 (d_rope)]`` per token (576 numbers at DeepSeek-V2 geometry).  Queries are
@@ -15,9 +15,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from repro_torch.core.attention import mla_attention
+from repro_torch.core.attention import mla_attention, multi_head_attention
 from repro_torch.models import layers
 from repro_torch.models.attention_layer import as_batch_vec, update_rows
 
@@ -84,6 +85,31 @@ def mla_unabsorb_output(params, attn, *, cfg, dtype=torch.bfloat16):
     return layers.dense(params["wo"], o.reshape(b, s, h * m.d_vhead), dtype=dtype)
 
 
+def _mla_apply_expanded(params, x, *, cfg, positions, causal=True, dtype=torch.bfloat16):
+    """Non-absorbed MLA (training): K/V expanded per head, attended with
+    Dk = d_nope + d_rope and Dv = d_vhead.  Mathematically the absorbed
+    form: ``[q_nope W_uk ; q_rope] . [c ; k_rope] = [q_nope ; q_rope] .
+    [c W_uk^T ; k_rope]`` and ``P (c W_uv)`` per head."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    c = layers.dense(params["wkv_down"], x, dtype=dtype)  # (B, S, Dc)
+    k_rope = layers.dense(params["wk_rope"], x, dtype=dtype)
+    k_rope = layers.rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)  # (B, S, 1, Dr)
+    q_nope = _heads_matmul(x, params["wq_nope"], dtype)
+    q_rope = layers.rope(_heads_matmul(x, params["wq_rope"], dtype), positions,
+                         theta=cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)  # (B, S, H, Dn + Dr)
+    # einsum('bsc,hnc->bshn') and einsum('bsc,hcv->bshv'): fp32 accumulation,
+    # one rounding to ``dtype``
+    k_nope = _heads_matmul(c, params["w_uk"].permute(2, 0, 1), dtype)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.d_rope)], dim=-1)
+    v = _heads_matmul(c, params["w_uv"].permute(1, 0, 2), dtype)  # (B, S, H, d_vhead)
+    attn = multi_head_attention(q, k, v, variant=cfg.attn_variant, causal=causal,
+                                scale=mla_scale(cfg))
+    return layers.dense(params["wo"], attn.reshape(b, s, h * m.d_vhead), dtype=dtype), None
+
+
 def init_latent_cache(cfg, batch, max_len, *, dtype, device):
     """Zeroed dense latent cache ``{"c": (batch, max_len, d_latent +
     d_rope)}``."""
@@ -103,29 +129,35 @@ def mla_apply(
     causal: bool = True,
     dtype=torch.bfloat16,
 ):
-    """Absorbed MLA over a dense latent cache, updated in place; returns
-    (y, cache).  Prefill and decode both attend through the contiguous
-    AMLA kernel (``ops.mla_decode``).  The expanded (non-absorbed) form the
-    reference uses without a cache is training-only and not ported."""
-    if cache is None:
-        raise NotImplementedError(
-            "mla_apply without a cache is the reference's expanded training "
-            "form, which is not ported yet"
-        )
-    if cache_len is None:
+    """MLA over a dense latent cache (updated in place) in the absorbed
+    form; returns (y, cache).  Prefill and decode both attend through the
+    contiguous AMLA kernel (``ops.mla_decode``).  Without a cache
+    (training) it is the expanded form, :func:`_mla_apply_expanded`, as in
+    the reference, unless the config sets ``mla_absorbed_train``: then the
+    absorbed form over the layer's own latent rows."""
+    if cache is None and not cfg.mla_absorbed_train:
+        return _mla_apply_expanded(params, x, cfg=cfg, positions=positions, causal=causal,
+                                   dtype=dtype)
+    if cache is not None and cache_len is None:
         raise ValueError("a cache needs its cache_len")
     b, s, _ = x.shape
     c_full = mla_latents(params, x, cfg=cfg, positions=positions, dtype=dtype)
     q_full = mla_absorbed_queries(params, x, cfg=cfg, positions=positions, dtype=dtype)
-    update_rows(cache["c"], c_full, cache_len)
+    if cache is not None:
+        update_rows(cache["c"], c_full, cache_len)
+        c_all = cache["c"]
+        kv_len, q_offset = as_batch_vec(cache_len, b) + s, as_batch_vec(cache_len, b)
+    else:
+        c_all = c_full
+        kv_len, q_offset = np.full((b,), s, np.int32), np.zeros((b,), np.int32)
     attn = mla_attention(
         q_full,
-        cache["c"],
+        c_all,
         d_v=cfg.mla.d_latent,
         variant=cfg.attn_variant,
         causal=causal,
         scale=mla_scale(cfg),
-        kv_len=as_batch_vec(cache_len, b) + s,
-        q_offset=as_batch_vec(cache_len, b),
+        kv_len=kv_len,
+        q_offset=q_offset,
     )  # (B, S, H, d_latent) fp32
     return mla_unabsorb_output(params, attn, cfg=cfg, dtype=dtype), cache

@@ -3,10 +3,11 @@
 dense-cache serving hooks and its paged hooks) and ``EncDecModel``
 (seamless-m4t), chosen by :func:`build_model` from the config's family.
 
-Batches are dicts: ``tokens`` (+ ``vision_embeds`` for vlm,
-``src_embeds`` and optionally ``src_len`` for encdec).  ``forward``
-returns the hidden states; the reference's training ``loss`` (and the
-MoE aux loss ``forward`` returns with them there) is not ported.
+Batches are dicts: ``tokens`` (+ ``labels`` for training, ``vision_embeds``
+for vlm, ``src_embeds`` and optionally ``src_len`` for encdec).
+``forward`` returns the hidden states (the serving signature: the
+reference returns the MoE aux loss beside them, which ``loss`` adds here);
+``loss`` is the training objective, the chunked cross-entropy.
 """
 
 from __future__ import annotations
@@ -15,6 +16,15 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec, layers, transformer, vlm
+
+MOE_AUX_COEF = 0.01
+
+
+def _loss_chunks(s: int, n_loss_chunks: int) -> int:
+    """The reference's chunk count: halved until it divides ``s``."""
+    while s % n_loss_chunks:
+        n_loss_chunks //= 2
+    return max(n_loss_chunks, 1)
 
 
 class LanguageModel:
@@ -56,11 +66,30 @@ class LanguageModel:
         ``batch["tokens"]``, a vlm's ``vision_embeds`` over its first
         positions."""
         tokens = batch["tokens"]
-        hidden, _ = transformer.lm_apply(
+        hidden, _, _ = transformer.lm_apply(
             params, tokens, cfg=self.cfg, positions=self._positions(batch, tokens),
             embeds_override=batch.get("vision_embeds"), dtype=self.dtype,
         )
         return hidden
+
+    def loss(self, params, batch, *, remat=False, n_loss_chunks=8):
+        """Mean next-token cross-entropy of ``batch["labels"]`` (``-1``
+        ignored; chunked, :func:`~repro_torch.models.layers.chunked_cross_entropy`),
+        plus ``MOE_AUX_COEF`` times the summed load-balancing loss for a
+        MoE stack; ``remat`` runs each layer again in the backward."""
+        tokens = batch["tokens"]
+        hidden, _, aux = transformer.lm_apply(
+            params, tokens, cfg=self.cfg, positions=self._positions(batch, tokens),
+            embeds_override=batch.get("vision_embeds"), remat=remat, dtype=self.dtype,
+        )
+        ce = layers.chunked_cross_entropy(
+            params.get("unembed", params["embed"]), hidden, batch["labels"],
+            n_chunks=_loss_chunks(hidden.shape[1], n_loss_chunks),
+            softcap=self.cfg.final_softcap, dtype=self.dtype,
+        )
+        if self.cfg.n_experts:
+            ce = ce + MOE_AUX_COEF * aux
+        return ce
 
     def logits(self, params, hidden):
         return transformer.lm_logits(params, hidden, cfg=self.cfg, dtype=self.dtype)
@@ -80,7 +109,7 @@ class LanguageModel:
         so right-padded prompts still sample from their true last token."""
         if cache_len is None:
             cache_len = 0
-        hidden, cache = transformer.lm_apply(
+        hidden, cache, _ = transformer.lm_apply(
             params, tokens, cfg=self.cfg,
             positions=self._positions({}, tokens, cache_len=cache_len),
             cache=cache, cache_len=cache_len, dtype=self.dtype,
@@ -91,7 +120,7 @@ class LanguageModel:
     def decode_step(self, params, cache, tokens, cache_len):
         """tokens: (B, Sq) new tokens at per-slot offsets ``cache_len``;
         returns (logits (B, Sq, V), cache)."""
-        hidden, cache = transformer.lm_apply(
+        hidden, cache, _ = transformer.lm_apply(
             params, tokens, cfg=self.cfg,
             positions=self._positions({}, tokens, cache_len=cache_len),
             cache=cache, cache_len=cache_len, dtype=self.dtype,
@@ -163,6 +192,17 @@ class EncDecModel:
             memory_len=batch.get("src_len"), dtype=self.dtype,
         )
         return hidden
+
+    def loss(self, params, batch, *, remat=False, n_loss_chunks=8):
+        """Mean cross-entropy of the decoder's ``batch["labels"]`` (``-1``
+        ignored, chunked) over the tied table; ``remat`` is accepted and
+        ignored, as in the reference."""
+        del remat
+        hidden = self.forward(params, batch)
+        return layers.chunked_cross_entropy(
+            params["embed"], hidden, batch["labels"],
+            n_chunks=_loss_chunks(hidden.shape[1], n_loss_chunks), dtype=self.dtype,
+        )
 
     def logits(self, params, hidden):
         return layers.unembed(params["embed"], hidden, dtype=self.dtype)

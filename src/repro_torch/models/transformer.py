@@ -31,10 +31,12 @@ table and kv_len, so the (request, kv_block) work queue is identical.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import decode_schedule as _sched
 from repro_torch.kernels import ops
@@ -184,8 +186,10 @@ def lm_cache_init(cfg, batch, max_len, *, dtype, device) -> list:
 
 def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
                 dtype=torch.bfloat16):
-    """Pre-norm residual block.  Returns (x, cache); the cache is updated
-    in place.  A MoE MLP's aux loss is dropped here (serving)."""
+    """Pre-norm residual block.  Returns (x, cache, aux): the cache is
+    updated in place, ``aux`` is a MoE MLP's load-balancing loss (0.0 for
+    any other layer: no tensor, so a serving step launches nothing for
+    it)."""
     h = layers.rmsnorm(params["ln1"], x, eps=cfg.norm_eps)
     if kind == "recurrent":
         y, cache = rglru_block_apply(params["rec"], h, cfg=cfg, cache=cache, dtype=dtype)
@@ -204,22 +208,25 @@ def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
     if cfg.post_norms:
         y = layers.rmsnorm(params["post_ln1"], y, eps=cfg.norm_eps)
     x = x + y
+    aux = 0.0
     if _has_mlp(cfg, kind):
-        x = x + mlp_post(params, x, cfg=cfg, dtype=dtype)
-    return x, cache
+        y, aux = mlp_post(params, x, cfg=cfg, dtype=dtype)
+        x = x + y
+    return x, cache, aux
 
 
 def mlp_post(params, x, *, cfg, dtype):
     """The MLP half of a layer (dense or MoE, sandwich-normed where the
-    config says so), without its residual add."""
+    config says so), without its residual add: (y, aux), ``aux`` the MoE
+    load-balancing loss (0.0 for a dense MLP)."""
     h = layers.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
     if cfg.n_experts:
-        y, _ = moe.moe_apply(params["mlp"], h, cfg=cfg, dtype=dtype)
+        y, aux = moe.moe_apply(params["mlp"], h, cfg=cfg, dtype=dtype)
     else:
-        y = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype)
+        y, aux = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype), 0.0
     if cfg.post_norms:
         y = layers.rmsnorm(params["post_ln2"], y, eps=cfg.norm_eps)
-    return y
+    return y, aux
 
 
 def default_positions(b, s, cache_len, device):
@@ -231,26 +238,34 @@ def default_positions(b, s, cache_len, device):
 
 
 def lm_apply(params, tokens, *, cfg, positions=None, cache=None, cache_len=None,
-             embeds_override=None, dtype=None):
-    """Returns (hidden (B, S, d) after the final norm, cache).
-    Unembedding is the caller's job (:func:`lm_logits`).  ``cache_len``
-    (scalar or (B,), host array or tensor) is where the new tokens go;
-    ``positions`` is ``(B, S)`` (default ``cache_len + arange(S)``) or
-    M-RoPE's ``(3, B, S)``; ``embeds_override (B, Nv, d)`` replaces the
-    first ``Nv`` token embeddings (qwen2-vl's patch embeddings)."""
+             embeds_override=None, remat=False, dtype=None):
+    """Returns (hidden (B, S, d) after the final norm, cache, aux), ``aux``
+    the MoE load-balancing loss summed over the layers (a fp32 tensor; 0.0
+    without MoE layers; serving callers drop it).  Unembedding is the caller's job (:func:`lm_logits`, or the
+    chunked cross-entropy in training).  ``cache_len`` (scalar or (B,),
+    host array or tensor) is where the new tokens go; ``positions`` is
+    ``(B, S)`` (default ``cache_len + arange(S)``) or M-RoPE's ``(3, B,
+    S)``; ``embeds_override (B, Nv, d)`` replaces the first ``Nv`` token
+    embeddings (qwen2-vl's patch embeddings).  ``remat=True`` (no cache)
+    keeps only each layer's input for the backward and runs the layer
+    again there (``torch.utils.checkpoint``; the reference wraps each
+    layer group in ``jax.checkpoint``)."""
     b, s = tokens.shape
     dtype = dtype or cfg_dtype(cfg)
     x = embed_tokens(params, tokens, cfg=cfg, embeds_override=embeds_override).to(dtype)
     if positions is None:
         positions = default_positions(b, s, cache_len, x.device)
+    aux_total = 0.0
     for l, (p_l, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
-        x, _ = layer_apply(
-            p_l, x, cfg=cfg, kind=kind, positions=positions,
-            cache=cache[l] if cache is not None else None, cache_len=cache_len,
-            dtype=dtype,
-        )
+        kw = dict(cfg=cfg, kind=kind, positions=positions, cache_len=cache_len, dtype=dtype)
+        if remat and cache is None:
+            x, _, aux = torch.utils.checkpoint.checkpoint(
+                functools.partial(layer_apply, **kw), p_l, x, use_reentrant=False)
+        else:
+            x, _, aux = layer_apply(p_l, x, cache=cache[l] if cache is not None else None, **kw)
+        aux_total = aux_total + aux
     x = layers.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    return x, cache
+    return x, cache, aux_total
 
 
 def lm_logits(params, hidden, *, cfg, dtype=None):
@@ -281,7 +296,7 @@ def paged_layer_post(p_l, x, attn, *, cfg):
         y = layers.rmsnorm(p_l["post_ln1"], y, eps=cfg.norm_eps)
     x = x + y
     if _has_mlp(cfg, "global"):
-        x = x + mlp_post(p_l, x, cfg=cfg, dtype=dtype)
+        x = x + mlp_post(p_l, x, cfg=cfg, dtype=dtype)[0]
     return x
 
 

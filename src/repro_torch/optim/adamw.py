@@ -1,0 +1,136 @@
+"""AdamW, global-norm clipping and the cosine schedule (counterpart of
+``repro/optim/adamw.py``).
+
+Trees are the port's parameter trees (:mod:`repro_torch.core.tree`);
+the update is functional, as the reference's: it returns new parameter,
+moment and count tensors and changes none it was given.
+
+Weight decay follows the reference's rank rule, ``ndim >= 2``, applied to
+the reference's tree.  The reference stacks the layers of each scanned
+layer group along a leading axis (and the encoder-decoder's layers with
+``vmap``), so there every leaf of a stacked layer — norm scales and biases
+included — has ``ndim >= 2`` and is decayed; only unstacked leaves
+(``final_norm``, the unscanned remainder layers) escape it.  The port
+keeps layers unstacked, so :func:`reference_decay_mask` marks the leaves
+the reference decays, and :func:`adamw_update` decays by that mask.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import tree as _tree
+
+
+class AdamWState(NamedTuple):
+    count: torch.Tensor  # scalar int32
+    mu: dict
+    nu: dict
+
+
+def adamw_init(params) -> AdamWState:
+    """Zero fp32 moments shaped as ``params``, count 0 (on their device)."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    first = _tree.leaves(params)
+    dev = first[0].device if first else None
+    return AdamWState(
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        mu=_tree.tree_map(zeros, params),
+        nu=_tree.tree_map(zeros, params),
+    )
+
+
+def global_norm(tree) -> torch.Tensor:
+    """fp32 L2 norm over every leaf."""
+    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in _tree.leaves(tree)))
+
+
+def clip_by_global_norm(grads, max_norm):
+    """(grads scaled to global norm at most ``max_norm``, the norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
+    return _tree.tree_map(lambda g: g * scale, grads), norm
+
+
+def reference_decay_mask(params, cfg):
+    """A tree of bools shaped as ``params``: True where the reference's
+    ``ndim >= 2`` rule decays the leaf in its stacked tree.  A decoder-only
+    model's first ``n_layers // period * period`` layers are scanned
+    groups there (every leaf stacked); the remainder layers and the
+    top-level leaves keep their own rank.  An encoder-decoder's layers are
+    all stacked."""
+    by_rank = lambda p: p.ndim >= 2
+    if cfg.family == "encdec":
+        stacked = {"enc_layers": len(params["enc_layers"]), "dec_layers": len(params["dec_layers"])}
+    else:
+        period = len(cfg.layer_pattern)
+        stacked = {"layers": cfg.n_layers // period * period}
+    mask = {}
+    for key, sub in params.items():
+        if key in stacked:
+            mask[key] = [_tree.tree_map(lambda p: True, layer) if i < stacked[key]
+                         else _tree.tree_map(by_rank, layer) for i, layer in enumerate(sub)]
+        else:
+            mask[key] = _tree.tree_map(by_rank, sub)
+    return mask
+
+
+@torch.no_grad()
+def adamw_update(
+    grads,
+    state: AdamWState,
+    params,
+    *,
+    lr,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    clip_norm: float | None = 1.0,
+    decay=None,
+):
+    """Returns (new_params, new_state, metrics ``{"grad_norm", "lr"}``).
+    ``decay`` is a bool tree shaped as ``params`` (default: ``ndim >= 2``
+    per leaf, the reference's rule on its own tree); ``clip_norm=None``
+    clips nothing."""
+    if clip_norm is not None:
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+    else:
+        gnorm = global_norm(grads)
+    if decay is None:
+        decay = _tree.tree_map(lambda p: p.ndim >= 2, params)
+    count = state.count + 1
+    c1 = 1.0 - b1 ** count.float()
+    c2 = 1.0 - b2 ** count.float()
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+
+    def upd(g, m, v, p, dec):
+        g = g.float()
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * (g * g)
+        step = (m / c1) / (torch.sqrt(v / c2) + eps)
+        if dec:
+            step = step + weight_decay * p.float()
+        return (p.float() - lr * step).to(p.dtype), m, v
+
+    out = [upd(*x) for x in zip(_tree.leaves(grads), _tree.leaves(state.mu),
+                                _tree.leaves(state.nu), _tree.leaves(params),
+                                _tree.leaves(decay), strict=True)]
+    new_p = _tree.unflatten_like(params, [o[0] for o in out])
+    new_m = _tree.unflatten_like(params, [o[1] for o in out])
+    new_v = _tree.unflatten_like(params, [o[2] for o in out])
+    return new_p, AdamWState(count=count, mu=new_m, nu=new_v), {"grad_norm": gnorm, "lr": lr}
+
+
+def cosine_schedule(step, *, peak_lr, warmup_steps, total_steps, min_ratio=0.1) -> torch.Tensor:
+    """fp32 learning rate: linear warmup to ``peak_lr`` over
+    ``warmup_steps``, then a cosine down to ``min_ratio * peak_lr`` at
+    ``total_steps``."""
+    step = torch.as_tensor(step, dtype=torch.float32)
+    warm = peak_lr * step / max(warmup_steps, 1)
+    prog = torch.clamp((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+    cos = peak_lr * (min_ratio + (1 - min_ratio) * 0.5 * (1 + torch.cos(math.pi * prog)))
+    return torch.where(step < warmup_steps, warm, cos)

@@ -29,6 +29,7 @@ from jax.experimental.pallas import tpu as pltpu
 from repro.configs import get_config as ref_get_config
 from repro.models import attention_layer as ref_attn
 from repro.models import layers as ref_layers
+from repro.models import mla_layer as ref_mla
 from repro.models import transformer as ref_tf
 from repro.models.model_zoo import build_model as ref_build_model
 from repro_torch.configs import get_config
@@ -100,8 +101,8 @@ def walk(pair, side, tokens, caches, cache_len):
         return outs
     x = tf.embed_tokens(pair["params"], torch.from_numpy(tokens), cfg=cfg)
     for l, (p_l, kind) in enumerate(zip(pair["params"]["layers"], cfg.layer_kinds())):
-        x, _ = tf.layer_apply(p_l, x, cfg=cfg, kind=kind, positions=torch.from_numpy(positions),
-                              cache=caches[l], cache_len=cache_len, dtype=torch.float32)
+        x, _, _ = tf.layer_apply(p_l, x, cfg=cfg, kind=kind, positions=torch.from_numpy(positions),
+                                 cache=caches[l], cache_len=cache_len, dtype=torch.float32)
         outs.append(x.numpy())
     return outs
 
@@ -148,18 +149,27 @@ def test_layers_caches_and_logits_match_reference(pallas_interpret, pair):
 
 
 def test_gqa_apply_without_cache_matches_reference(pair):
-    """The cache-less path (keys are the call's own), on a local layer."""
+    """The cache-less path (keys are the call's own), on a local layer; for
+    MLA the expanded (training) form the reference takes without a cache,
+    held against the reference's blockwise ``impl="xla"`` attention (its
+    interpret-mode prefill kernel takes one width for K and V, the
+    expanded form two)."""
     cfg, ref_cfg = pair["cfg"], pair["ref_cfg"]
-    if cfg.mla:
-        with pytest.raises(NotImplementedError, match="expanded"):
-            mla_layer.mla_apply(pair["params"]["layers"][0]["attn"], torch.zeros((1, 4, cfg.d_model)),
-                                cfg=cfg, positions=torch.zeros((1, 4), dtype=torch.int64))
-        return
-    kind = cfg.layer_kinds()[0]
-    window = cfg.window if kind == "local" else None
     x = np.random.default_rng(1).normal(0, 1, (2, PROMPT, cfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(PROMPT), (2, PROMPT))
     p_ref = ref_tf.per_layer_params(pair["ref_params"], ref_cfg)[0]["attn"]
+    if cfg.mla:
+        want, _ = ref_mla.mla_apply(p_ref, jnp.asarray(x),
+                                    cfg=dataclasses.replace(ref_cfg, attn_impl="xla"),
+                                    positions=jnp.asarray(pos), dtype=jnp.float32)
+        got, cache = mla_layer.mla_apply(pair["params"]["layers"][0]["attn"], torch.from_numpy(x),
+                                         cfg=cfg, positions=torch.from_numpy(pos.copy()),
+                                         dtype=torch.float32)
+        assert cache is None
+        assert max_err(got.numpy(), want) <= TOL
+        return
+    kind = cfg.layer_kinds()[0]
+    window = cfg.window if kind == "local" else None
     want, _ = ref_attn.gqa_apply(p_ref, jnp.asarray(x), cfg=ref_cfg, positions=jnp.asarray(pos),
                                  window=window, dtype=jnp.float32)
     got, cache = attention_layer.gqa_apply(

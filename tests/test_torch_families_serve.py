@@ -141,7 +141,7 @@ def test_decode_matches_full_forward(arch):
     params = model.init(torch.Generator().manual_seed(3), "cpu")
     s = 12
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, s)))
-    hidden, _ = tf.lm_apply(params, tokens, cfg=cfg)
+    hidden, _, _ = tf.lm_apply(params, tokens, cfg=cfg)
     full = model.logits(params, hidden).numpy()
     cache = model.init_cache(params, 1, 32)
     steps = torch.cat([

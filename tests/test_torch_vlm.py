@@ -216,9 +216,9 @@ def test_vision_prefill_then_decode_matches_reference(pallas_interpret, pair):
     want = [np.asarray(ref_tf.lm_logits(rp, hidden[:, -1:], cfg=ref_cfg, dtype=jnp.float32))]
 
     cache = model.init_cache(p, b, max_len)
-    hidden, _ = tf.lm_apply(p, torch.from_numpy(tokens).long(), cfg=cfg,
-                            positions=vlm.mrope_positions(b, s, nv, device="cpu"), cache=cache,
-                            cache_len=0, embeds_override=torch.from_numpy(vis))
+    hidden, _, _ = tf.lm_apply(p, torch.from_numpy(tokens).long(), cfg=cfg,
+                               positions=vlm.mrope_positions(b, s, nv, device="cpu"), cache=cache,
+                               cache_len=0, embeds_override=torch.from_numpy(vis))
     got = [model.logits(p, hidden[:, -1:])]
     ref_tok, tok = [], []
     for i in range(steps):
