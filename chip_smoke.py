@@ -189,7 +189,33 @@ root) and exits nonzero on any failure:
     final state through ``CheckpointManager(async_save=True)`` and back
     (bit for bit), ``serving_params`` (bf16 + the fp32 table copy), 4
     prompts x 8 greedy tokens through ``ServingSession`` equal to those
-    of the in-memory trained parameters (K7, K6, K3 launches counted).
+    of the in-memory trained parameters (K7, K6, K3 launches counted);
+    (b') between (b) and (c), int8 gradient compression on the card: smoke
+    deepseek-v2-mla and recurrentgemma-2b gradient trees compressed with
+    threefry noise drawn on the card, bit for bit the CPU's, and one int8
+    ``make_train_step`` step on the card.
+24. **Head-chunk kernel phase** (with the other kernel phases): K2 and K3
+    over each half of 128 heads (``head_shards = 2``) against the matching
+    rows of the 128-head call, bit for bit, at the decode shape and at a
+    prefill chunk's 4096 rows; K2 at G = 64 against its plain version,
+    timed beside its bound, plain version and one SDPA call.
+25. **Small sharded reference**: the smoke model (fp32) through one
+    session and ``ShardedPagedServingSession`` (2 shards, then 2 shards x
+    2 head chunks) on the card and 2 shards on the CPU: greedy tokens
+    equal in all four.
+26. **Sharded serve phase** (after the paged phase, on its weights, one
+    parameter set for every shard): (a) ``ShardedPagedServingSession(
+    shards=2)`` over the paged phase's prompts and 16 + 16 pages, graphed:
+    routing, tokens and the first step's logits against the single
+    session, ms/step, balance, captures and K2 = K3 = layers x (chunks +
+    steps) per shard; (b) the same with 2 head chunks: tokens equal to
+    (a), K2 = K3 = 2 x (a); (c) ``return_partials`` across two pools merged
+    by ``combine_shard_partials`` within 2e-3 of one pool (fp32); (d)
+    ``fail_shard(1)`` after 4 steps, tokens equal to (a)'s, then
+    ``attach_shard()`` on the same parameter tensors (allocated memory
+    grows by its pool only) taking the next admission, every pool free at
+    the teardown; (e) ``ServeSupervisor`` under a ``shard_loss``: every
+    result complete, ``replay_mismatches`` 0.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only`` (the build and phase 8).
@@ -3381,7 +3407,9 @@ def unembed_table_phase(model, params):
 
 
 def serve_phase():
-    """deepseek-v2-mla at published widths through PagedServingSession."""
+    """deepseek-v2-mla at published widths through PagedServingSession.
+    Returns the K2 and K3 launches, (cfg, model, params, prompt lengths,
+    results) and the first decode step's logits per request."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import mla_decode_combine as mc
     from repro_torch.kernels import mla_decode_paged as mp
@@ -3418,6 +3446,7 @@ def serve_phase():
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
     held = hold_against_eager(sess)
+    first = record_first_logits(sess)
     timing = timed_session(sess)
     mp.mla_decode_paged_queue_rows.launches = 0
     mp.mla_decode_paged_queue_rows.mma_launches = 0
@@ -3451,7 +3480,535 @@ def serve_phase():
     if sess.graph_captures != len(sess.step_graph.shapes):
         raise SystemExit("serve phase: expected one graph capture per (batch size, queue "
                          f"capacity) decoded, {sess.step_graph.shapes}")
-    return k2, k3, (cfg, model, params, prompt_lens, results)
+    return k2, k3, (cfg, model, params, prompt_lens, results), first
+
+
+# --------------------------------------------------------------------------- #
+# sharded serving
+# --------------------------------------------------------------------------- #
+
+
+def head_chunk_kernel_check(flush):
+    """K2 over each half of the 128 heads against the matching rows of the
+    128-head call, bit for bit (a row's math does not depend on its
+    neighbours), then K3 over each half's partials against the same rows
+    of the full combine: at the serve phase's decode shape (4 requests, 2
+    splits: 16-row tiles at both G) and at a prefill chunk's (32 tokens x
+    128 heads = 4096 rows, where the 32-row tiles of G = 4096 become
+    16-row tiles at 2048), bf16, amla and base.  Then K2 at the decode
+    shape of one head chunk (G = 64) against its plain version, timed
+    beside its bound, the plain version and one SDPA call.  Returns
+    ({(kernel, dtype, variant): max |kernel - plain|}, the G = 64 timing
+    row)."""
+    log("== kernel phase: K2 and K3 over head chunks (head_shards = 2) vs the 128-head call, "
+        "bit for bit ==")
+    decode_lens = [37 + 16, 300 + 16, 513 + 16, 1100 + 16]
+    at_end = lambda l, g: np.full((g,), l - 1)
+    shapes = [("decode", decode_lens, 128, at_end, 2),
+              ("prefill", [1100], 4096, prefill_positions, 1)]
+    for name, lens, g, pos_fn, ns in shapes:
+        for variant in ("amla", "base"):
+            case = make_case(21, lens, g, torch.bfloat16, ns, pos_fn)
+            o_full, lse_full = run_k2(case, variant, plain=False)
+            out_full = run_k3(case, o_full, lse_full, plain=False)
+            same = True
+            for lo, hi in ((0, g // 2), (g // 2, g)):
+                part = dict(case, q=case["q"][:, lo:hi].contiguous(),
+                            q_pos=case["q_pos"][:, lo:hi].contiguous())
+                o, lse = run_k2(part, variant, plain=False)
+                out = run_k3(part, o, lse, plain=False)
+                same &= (torch.equal(o, o_full[:, lo:hi]) and torch.equal(lse, lse_full[:, lo:hi])
+                         and torch.equal(out, out_full[:, lo:hi]))
+            torch.cuda.synchronize()
+            log(f"  {name} {variant} G={g} -> 2 x {g // 2}: K2 partials and lse, K3 rows "
+                f"{'bit-equal' if same else 'DIFFER'} to the full call's")
+            if not same:
+                raise SystemExit(f"head chunks: K2/K3 over {g // 2} heads differ from the "
+                                 f"matching rows of the {g}-head call ({name}, {variant})")
+    worst = {}
+    case = make_case(11, decode_lens, 64, torch.bfloat16, 2, at_end)
+    for variant in ("amla", "base"):
+        hold_k2_k3(case, "chunk64", torch.bfloat16, variant, worst)
+    t2 = time_cuda(lambda: run_k2(case, "amla", plain=False), 20, flush)
+    t2p = time_cuda(lambda: run_k2(case, "amla", plain=True), 5, flush)
+    tlib = time_cuda(sdpa_call(case), 20, flush)
+    b2, by2 = k2_bound(case)
+    log(f"  time decode head chunk (bf16, G=64, kv={decode_lens}): K2 {t2:.4f} ms (bound "
+        f"{b2:.4f} ms by {by2}, plain {t2p:.4f} ms, SDPA on a contiguous copy {tlib:.4f} ms)")
+    return worst, (t2, t2p, b2, by2, tlib)
+
+
+def small_sharded_check():
+    """Smoke deepseek-v2-mla (fp32, seed 3): 4 prompts and 8 greedy steps
+    through one PagedServingSession on the card, ShardedPagedServingSession
+    on the card (2 shards; 2 shards x 2 head chunks; 2 shards with shard 1
+    failed after 3 steps, its requests replayed on shard 0, and a third
+    shard attached after 5 that takes a new admission), and the 2-shard
+    session on the CPU.  At fp32 compute a row's math does not depend on
+    the batch it is decoded in, nor on whether a prefill chunk or a decode
+    step wrote it, so the greedy tokens must be equal in all five; the
+    cards' decode steps replay graphs (one set per shard)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.serve_loop import PagedServingSession, ShardedPagedServingSession
+
+    cfg = get_config("deepseek-v2-mla", smoke=True)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator("cpu").manual_seed(3), "cpu")
+    p_gpu = to_device(p_cpu, "cuda")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (5, 40, 77, 23)]
+    kw = dict(num_pages=48, page_size=16, block_k=32, prefill_chunk=16, num_splits=2)
+
+    def run(sess, lose=False):
+        rids = [sess.add_request(p) for p in prompts]
+        for i in range(8):
+            if lose and i == 3:
+                moved = sess.fail_shard(1)["resumed"]
+                if not moved or sess.work_stats()["replay_mismatches"]:
+                    raise SystemExit("small sharded reference: the lost shard held nothing "
+                                     "or a replay diverged")
+            if lose and i == 5:
+                sess.add_request(prompts[0])  # onto the attached shard
+            sess.step()
+            if lose and i == 4:
+                sess.attach_shard()
+        out = [list(sess.outputs[r]) for r in rids]
+        pages = sum(x.cache.num_pages for x in getattr(sess, "shards", [sess]))
+        return out, sess.close()["free_pages"] == pages, sess.graph_captures
+
+    shard = lambda p, **k: ShardedPagedServingSession(model, p, shards=2, **kw, **k)
+    runs = {
+        "card, one session": run(PagedServingSession(model, p_gpu, **kw)),
+        "card, 2 shards": run(shard(p_gpu)),
+        "card, 2 shards x 2 head chunks": run(shard(p_gpu, head_shards=2)),
+        "card, 2 shards, shard 1 lost after 3 steps, a shard attached after 5": run(
+            shard(p_gpu), lose=True),
+        "CPU, 2 shards": run(shard(p_cpu)),
+    }
+    want = runs["CPU, 2 shards"][0]
+    log(f"small sharded reference ({cfg.name}, fp32, 4 prompts + 8 steps): greedy tokens "
+        + "; ".join(f"{k}: {'equal' if v[0] == want else 'DIFFER'} ({v[2]} graph captures, "
+                    f"{'every pool free' if v[1] else 'PAGES LEAKED'})"
+                    for k, v in runs.items()))
+    if any(v[0] != want or not v[1] for v in runs.values()) or any(
+            v[2] < 1 for k, v in runs.items() if k.startswith("card")):
+        raise SystemExit("small sharded reference check failed")
+
+
+def record_first_logits(sess, where=None):
+    """Keep the logits of ``sess``'s first graphed decode step, {rid: (vocab,)
+    on the CPU}; ``where`` maps the session's local rid to a global one (a
+    shard of a sharded session)."""
+    graphs = sess.step_graph.graphs
+    run, first = graphs.run, {}
+
+    def rec(key, walk, eager=False):
+        out = run(key, walk, eager=eager)
+        if not first and not eager:
+            name = where() if where is not None else {r: r for r in sess.active}
+            first.update({name[r]: out[i, 0].float().cpu() for i, r in enumerate(sess.active)})
+        return out
+
+    graphs.run = rec
+    return first
+
+
+def shard_counts(sess, counters):
+    """Per-shard launch counts of ``counters``: each shard session's
+    add_request, step and adopt_suspended are wrapped to add the
+    counters' growth over the call to their shard's row."""
+    per = [[0] * len(counters) for _ in sess.shards]
+
+    def wrap(i, fn):
+        def call(*a, **k):
+            before = [c.launches for c in counters]
+            out = fn(*a, **k)
+            for j, c in enumerate(counters):
+                per[i][j] += c.launches - before[j]
+            return out
+        return call
+
+    for i, s in enumerate(sess.shards):
+        for name in ("add_request", "step", "adopt_suspended"):
+            setattr(s, name, wrap(i, getattr(s, name)))
+    return per
+
+
+def sharded_serve(cfg, model, params, prompts, gen_len, num_pages, counters, **kw):
+    """``prompts`` through ShardedPagedServingSession(shards=2, num_pages,
+    **kw) and the launch/serve stream loop; ``counters`` set to 0 just
+    before and counted per shard.  Returns the run's record."""
+    from repro_torch.launch.serve import _serve_stream
+    from repro_torch.runtime.serve_loop import ShardedPagedServingSession
+
+    sess = ShardedPagedServingSession(model, params, shards=2, num_pages=num_pages,
+                                      page_size=PAGE, num_splits=2, prefill_chunk=32,
+                                      max_batch=4, **kw)
+    firsts = [record_first_logits(s, lambda i=i: {v[1]: g for g, v in sess._where.items()
+                                                   if v[0] == i})
+              for i, s in enumerate(sess.shards)]
+    per = shard_counts(sess, counters)
+    t = {"prefill": 0.0, "steps": []}
+    routes = [[] for _ in sess.shards]
+    add, step = sess.add_request, sess.step
+
+    def timed_add(p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = add(p)
+        torch.cuda.synchronize()
+        t["prefill"] += time.perf_counter() - t0
+        if out is not None:
+            routes[sess.shard_of(out)].append(out)
+        return out
+
+    def timed_step():
+        caps = sess.graph_captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        t["steps"].append((time.perf_counter() - t0, sess.graph_captures > caps))
+
+    sess.add_request, sess.step = timed_add, timed_step
+    zero_counts(counters)
+    results, tokens_out, dt = _serve_stream(sess, list(prompts), gen_len, len(prompts))
+    torch.cuda.synchronize()
+    work = sess.work_stats()
+    if counters[0].mma_launches != sum(r[0] for r in per):
+        raise SystemExit("sharded serve: a K2 launch missed the tensor-core body")
+    rec = dict(results=results, work=work, per=per, wall=dt, timing=t, routes=routes,
+               captures=[s.graph_captures for s in sess.shards],
+               first={k: v for f in firsts for k, v in f.items()},
+               head_shards=sess.head_shards)
+    rec["sweep"] = sess.close()
+    del sess
+    release()
+    return rec
+
+
+def report_sharded(what, rec, cfg, single_results, single_first, first_like=None):
+    """Log one sharded run: routing, tokens and first-step logits against
+    the single session's, ms/step (all, and steady: the steps that
+    captured no graph), balance, captures and K2/K3 per shard; fail unless
+    every shard's K2 = K3 = layers x (chunks + steps) x head chunks."""
+    steps = [s for s, _ in rec["timing"]["steps"]]
+    steady = [s for s, cap in rec["timing"]["steps"] if not cap]
+    work = rec["work"]
+    res = rec["results"]
+    agree = sum(agreement(single_results[r], res[r]) for r in res)
+    total = sum(len(v) for v in res.values())
+    base = single_first if first_like is None else first_like
+    dlog = max((rec["first"][r] - base[r]).abs().max().item() for r in rec["first"])
+    want = [cfg.n_layers * (st["prefill_chunks"] + st["decode_steps"]) * rec["head_shards"]
+            for st in work["per_shard"]]
+    log(f"{what}: requests per shard {rec['routes']}; tokens agreeing with the single session "
+        f"(leading, summed) {agree} of {total}; first step max |logits - "
+        f"{'single session' if first_like is None else 'data shards only'}| {dlog:.3e}; decode "
+        f"{1e3 * np.mean(steps):.1f} ms/step over {len(steps)} steps, steady "
+        f"{1e3 * np.mean(steady):.2f} ms/step (median {1e3 * np.median(steady):.2f}, "
+        f"{len(steady)} steps); prefill {rec['timing']['prefill']:.3f} s; balance "
+        f"{work['balance']['imbalance']:.3f} ({work['balance']['per_shard']} page DMAs); graph "
+        f"captures per shard {rec['captures']}; K2, K3 per shard {rec['per']}, expected layers x "
+        f"(chunks + steps) x {rec['head_shards']} = {want}; wall {rec['wall']:.3f} s; teardown "
+        f"{rec['sweep']['free_pages']} pages free")
+    for rid, out in res.items():
+        if len(out) != 17 or not all(0 <= x < cfg.vocab_size for x in out):
+            raise SystemExit(f"{what}: request {rid} returned {out}")
+    if any(k2 != w or k3 != w for (k2, k3), w in zip(rec["per"], want)) or min(
+            rec["captures"]) < 1:
+        raise SystemExit(f"{what}: K2/K3 launches per shard or graph captures do not match")
+    return dlog, agree, total
+
+
+def partials_across_pools_check():
+    """(c) One request's KV (1116 latent rows, Dk 576) split between two
+    page pools at row 600: each half attended with
+    ``ops.mla_decode_paged(return_partials=True)`` (fp32 q and pages, 128
+    heads at the last position, 2 splits), merged with
+    ``combine_shard_partials``, held against one pool holding all of it
+    within 2e-3 (the split-vs-unsplit budget of AMLA's fp32 path)."""
+    from repro_torch.core.distributed import combine_shard_partials
+    from repro_torch.kernels import ops
+
+    n, cut, g = 1116, 600, 128
+    gen = torch.Generator("cuda").manual_seed(31)
+    rows = torch.randn((n, DK), generator=gen, device="cuda")
+    q = torch.randn((1, 1, g, DK), generator=gen, device="cuda")
+
+    def pool_of(r):
+        n_pages = -(-r.shape[0] // PAGE)
+        pool = torch.zeros((n_pages + 1, PAGE, DK), device="cuda")
+        pool.view(-1, DK)[: r.shape[0]] = r
+        return pool, torch.arange(n_pages, dtype=torch.int32, device="cuda")[None]
+
+    kw = dict(d_v=DV, scale=1.0 / math.sqrt(192), block_k=BLOCK_K, num_splits=2,
+              compute_dtype=torch.float32)
+    full = ops.mla_decode_paged(q, *pool_of(rows), [n], **kw)
+    parts = [ops.mla_decode_paged(q, *pool_of(rows[lo:hi]), [hi - lo], return_partials=True,
+                                  **kw) for lo, hi in ((0, cut), (cut, n))]
+    merged = combine_shard_partials(torch.stack([o for o, _ in parts]),
+                                    torch.stack([lse for _, lse in parts]))
+    s = (q[0, 0] @ rows.T) / math.sqrt(192)
+    lse_err = max((lse[0, 0] - torch.logsumexp(s[:, lo:hi], -1)).abs().max().item()
+                  for (_, lse), (lo, hi) in zip(parts, ((0, cut), (cut, n))))
+    err = (merged - full).abs().max().item()
+    log(f"(c) return_partials across two pools (rows [0, {cut}) and [{cut}, {n}), fp32, G "
+        f"{g}): max |merged - one pool| {err:.3e} (tol 2e-3); each half's lse against a "
+        f"logsumexp of its scores {lse_err:.3e}")
+    if not err <= 2e-3 or not torch.isfinite(merged).all():
+        raise SystemExit("sharded phase (c): partials merged across two pools disagree")
+    return err
+
+
+def sharded_lifecycle(cfg, model, params, prompts, want, counters):
+    """(d) fail_shard(1) after 4 decode steps re-routes its requests to
+    shard 0, which replays their rows by chunked prefill and finishes all
+    four; 2 steps later attach_shard() opens a third shard on the same
+    parameter tensors (allocated memory grows by its pool slice only),
+    which takes the next admission; the teardown leaves every pool free.
+
+    The requests that stayed on shard 0 must give the fault-free run's
+    tokens (``want``) exactly.  A moved request's rows are held as the
+    chaos phase holds replayed rows: its prompt rows, prefilled on their
+    original chunk boundaries, bit-equal to the copy taken before the
+    loss; the rows its decode steps wrote are recomputed by a prefill
+    chunk (bf16 products at M = 32, not the shard's batch), so at layer
+    l they are held within 1e-2 x sqrt(l + 1) of the row's max, and its
+    later tokens are printed against the fault-free run's, not gated (a
+    near-tie may flip); ``replay_mismatches`` must be 0.  Token equality
+    after a shard loss is gated at fp32 compute, in the small sharded
+    reference."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.runtime.serve_loop import ShardedPagedServingSession
+
+    sess = ShardedPagedServingSession(model, params, shards=2, num_pages=64, page_size=PAGE,
+                                      num_splits=2, prefill_chunk=32)
+    zero_counts(counters)
+    rids = [sess.add_request(p) for p in prompts]
+    for _ in range(4):
+        sess.step()
+    moved = [r for r in rids if sess.shard_of(r) == 1]
+    before = {r: pool_rows(sess.shards[1], sess._where[r][1]) for r in moved}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sess.fail_shard(1)
+    torch.cuda.synchronize()
+    t_fail = time.perf_counter() - t0
+    L = cfg.n_layers
+    bound = 1e-2 * np.sqrt(np.arange(1, L + 1))
+    rows_ok, rows_log = True, []
+    for r in moved:
+        after = pool_rows(sess.shards[0], sess._where[r][1])
+        n = len(prompts[r])
+        exact, worst = row_diffs(before[r], after, 0, n)
+        rel = layer_rel_diffs(before[r], after) if after.shape == before[r].shape else bound + 1
+        rows_ok &= exact and bool(np.all(rel <= bound))
+        rows_log.append(f"request {r}: prompt rows [0, {n}) {'bit-equal' if exact else 'DIFFER'}"
+                        f" (max |diff| {worst:.3e}), all {after.shape[1]} rows' largest |diff| / "
+                        f"max |row| {rel.max():.3e} at layer {int(np.argmax(rel))} "
+                        f"({np.max(rel / bound):.3f} of 1e-2 x sqrt(layer + 1))")
+    del before
+    for _ in range(2):
+        sess.step()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    idx = sess.attach_shard()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    new = sess.shards[idx]
+    pool_bytes = new.cache.pages.nbytes
+    shared = all(a is b for a, b in zip(leaves(new.params), leaves(params), strict=True))
+    late = sess.add_request(prompts[0])
+    home = sess.shard_of(late)
+    while any(len(sess.outputs[r]) < 17 for r in rids):
+        sess.step()
+    peak_rise = torch.cuda.max_memory_allocated() - mem0
+    outs = {r: sess.finish(r)[:17] for r in rids}
+    sess.finish(late)
+    kept = all(outs[r] == want[r] for r in rids if r not in moved)
+    agree = {r: agreement(outs[r], want[r]) for r in rids}
+    counts = [c.launches for c in counters]
+    work = sess.work_stats()
+    sweep = sess.close()
+    log(f"(d) lifecycle: fail_shard(1) after 4 steps suspended {res['suspended']} and "
+        f"re-routed {res['resumed']} onto shard 0 in {t_fail:.3f} s (replay prefill "
+        f"{work['replay_prefill_tokens']} tokens, replay_mismatches {work['replay_mismatches']}); "
+        f"{'; '.join(rows_log)}; tokens of the requests shard 0 kept equal to the fault-free "
+        f"run: {kept}; leading agreement with the fault-free run (of 17) {agree}; "
+        f"attach_shard() 2 steps later -> shard {idx} on the same parameter tensors: "
+        f"{shared}, allocated +{grown / 2**20:.1f} MiB (its pool: {pool_bytes / 2**20:.1f} "
+        f"MiB), peak +{peak_rise / 2**20:.1f} MiB over the next admission (which went to "
+        f"shard {home}) and the steps to the end; health {sess.shard_health}; teardown "
+        f"{sweep['free_pages']} of 64 + {new.cache.num_pages} pages free, per shard "
+        f"{[r['free_pages'] for r in sweep['per_shard']]}")
+    if (not kept or not rows_ok or res["suspended"] != moved or res["resumed"] != moved
+            or not shared or home != idx or grown > pool_bytes + 2**20
+            or work["replay_mismatches"] or sweep["free_pages"] != 64 + new.cache.num_pages):
+        raise SystemExit("sharded phase (d): fail / attach lifecycle does not hold")
+    return counts
+
+
+def sharded_supervised(cfg, model, params, prompts, want, counters):
+    """(e) ServeSupervisor over 2 shards with a FaultPlan that loses shard
+    1 at step 3: every result complete (17 tokens), replay_mismatches 0,
+    the loss applied, no page left; the tokens' agreement with the
+    fault-free run printed."""
+    from repro_torch.runtime.fault_injection import FaultEvent, FaultPlan
+    from repro_torch.runtime.serve_loop import ServeSupervisor, ShardedPagedServingSession
+
+    sess = ShardedPagedServingSession(model, params, shards=2, num_pages=64, page_size=PAGE,
+                                      num_splits=2, prefill_chunk=32, max_batch=4)
+    plan = FaultPlan([FaultEvent(step=3, kind="shard_loss", shard=1)])
+    sup = ServeSupervisor(sess, gen_len=16, plan=plan)
+    for p in prompts:
+        sup.submit(p)
+    zero_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = sup.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [c.launches for c in counters]
+    st = sup.stats()
+    agree = {i: agreement(results[i], want[i]) for i in results}
+    sweep = sess.close()
+    log(f"(e) supervisor under '{plan.describe()}': completed {st['completed']}, faults "
+        f"applied {st['faults_applied']} (skipped {st['faults_skipped']}), suspends "
+        f"{st['suspends']}, resumes {st['resumes']}, replay prefill tokens "
+        f"{st['replay_prefill_tokens']}, replay_mismatches {st['replay_mismatches']}, steps "
+        f"{st['steps']}, {wall:.3f} s; health {sess.shard_health}; tokens agreeing with the "
+        f"fault-free run (leading, of 17): {agree}; events {sup.events}; teardown "
+        f"{sweep['free_pages']} of 64 pages free")
+    if (sorted(results) != list(range(len(prompts))) or any(len(v) != 17 for v in results.values())
+            or st["replay_mismatches"] or st["faults_applied"] != 1 or st["suspends"] < 1
+            or st["resumes"] != st["suspends"] or sweep["free_pages"] != 64):
+        raise SystemExit("sharded phase (e): the supervisor under a shard loss does not hold")
+    return counts
+
+
+def sharded_phase(cfg, model, params, prompt_lens, single_results, single_first):
+    """deepseek-v2-mla at published widths (the paged phase's bf16 weights,
+    one parameter set for every shard) through ShardedPagedServingSession:
+    (a) 2 data shards over the serve phase's prompts and 32 pages (16 a
+    shard), graphed; (b) the same with 2 head chunks a shard; (c)
+    return_partials across two pools; (d) fail / attach lifecycle; (e) the
+    supervisor under a shard loss.  Returns the K2 and K3 launches of (a),
+    (b), (d) and (e)."""
+    from repro_torch.kernels import mla_decode_combine as mc
+    from repro_torch.kernels import mla_decode_paged as mp
+
+    log(f"== sharded serve phase: {cfg.name} ({cfg.n_layers} layers, the paged phase's bf16 "
+        f"weights shared by every shard), ShardedPagedServingSession(shards=2, num_splits=2), "
+        f"page {PAGE}, chunk 32, prompts {list(prompt_lens)} ==")
+    t_phase = time.perf_counter()
+    counters = (mp.mla_decode_paged_queue_rows, mc.combine_split_partials)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in prompt_lens]
+    total = [0, 0]
+    torch.cuda.reset_peak_memory_stats()
+    a = sharded_serve(cfg, model, params, prompts, 16, 32, counters)
+    report_sharded("(a) 2 data shards", a, cfg, single_results, single_first)
+    b = sharded_serve(cfg, model, params, prompts, 16, 32, counters, head_shards=2)
+    dlog, _, _ = report_sharded("(b) 2 data shards x 2 head chunks", b, cfg, single_results,
+                                single_first, first_like=a["first"])
+    same_b = all(b["results"][r] == a["results"][r] for r in a["results"])
+    log(f"(b) tokens equal to (a): {same_b}; K2 = K3 = 2 x (a): "
+        f"{[[2 * x for x in r] for r in a['per']] == b['per']}; peak memory of (a) and (b) "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not same_b or [[2 * x for x in r] for r in a["per"]] != b["per"]:
+        raise SystemExit("sharded phase (b): head chunks changed the tokens or the counts")
+    for rec in (a, b):
+        for j in range(2):
+            total[j] += sum(r[j] for r in rec["per"])
+    partials_across_pools_check()
+    release()
+    for counts in (sharded_lifecycle(cfg, model, params, prompts, a["results"], counters),
+                   sharded_supervised(cfg, model, params, prompts, a["results"], counters)):
+        total = [x + y for x, y in zip(total, counts)]
+        release()
+    log(f"sharded serve phase: {time.perf_counter() - t_phase:.1f} s; K2 {total[0]}, K3 "
+        f"{total[1]} launches")
+    return tuple(total)
+
+
+def int8_compression_check():
+    """(b') int8 gradient compression on the card: smoke deepseek-v2-mla
+    and recurrentgemma-2b (scanned layer groups stacked, and a remainder
+    layer), random gradient trees from seed 9 compressed for 2 steps of
+    error feedback with the keys ``fold_in(PRNGKey(17), step)`` made on the
+    card; the threefry noise must be drawn on the card, and the compressed
+    gradients and residuals must equal the CPU's bit for bit.  Then one
+    int8 ``make_train_step`` step of the smoke qwen1.5-0.5b on the card:
+    a finite loss, and its residuals on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng, tree
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import compression
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+
+    log("== train phase (b'): int8 gradient compression on the card vs the CPU ==")
+    drawn = []
+    uniform = prng.uniform
+
+    def spy(key, *a, **k):
+        out = uniform(key, *a, **k)
+        drawn.append(out.device.type)
+        return out
+
+    prng.uniform = spy
+    try:
+        for arch in ("deepseek-v2-mla", "recurrentgemma-2b"):
+            cfg = get_config(arch, smoke=True)
+            params, _, _ = init_train_state(build_model(cfg), torch.Generator().manual_seed(9),
+                                            "cpu")
+            gen = torch.Generator().manual_seed(9)
+            grads = [tree.tree_map(lambda p: torch.randn(p.shape, generator=gen) * 1e-2, params)
+                     for _ in range(2)]
+            states = {dev: compression.compression_init(to_device(params, dev), "int8")
+                      for dev in ("cpu", "cuda")}
+            equal, n = True, 0
+            for step, g in enumerate(grads):
+                outs = {}
+                for dev in ("cpu", "cuda"):
+                    key = prng.fold_in(prng.prng_key(17, dev), step)
+                    drawn.clear()
+                    outs[dev], states[dev] = compression.compress_grads(
+                        to_device(g, dev), states[dev], mode="int8", rng=key, cfg=cfg)
+                    if set(drawn) != {dev}:
+                        raise SystemExit(f"train phase (b'): compression on {dev} drew its "
+                                         f"noise on {sorted(set(drawn))}")
+                for got, want in ((outs["cuda"], outs["cpu"]),
+                                  (states["cuda"].residual, states["cpu"].residual)):
+                    for a, b in zip(tree.leaves(got), tree.leaves(want), strict=True):
+                        equal &= torch.equal(a.cpu(), b)
+                        n += 1
+            log(f"  {cfg.name}: {n} compressed leaves and residuals over 2 steps, card == CPU "
+                f"bit for bit: {equal}; the card's noise drawn on the card")
+            if not equal:
+                raise SystemExit(f"train phase (b'): int8 compression on the card differs "
+                                 f"from the CPU's ({cfg.name})")
+        cfg = get_config("qwen1.5-0.5b", smoke=True)
+        model = build_model(cfg)
+        params, opt, _ = init_train_state(model, torch.Generator("cuda").manual_seed(5), "cuda")
+        comp = compression.compression_init(params, "int8")
+        drawn.clear()
+        batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                                seed=0).batch_at(0)
+        _, _, comp, m = make_train_step(model, TrainConfig(compression="int8", remat=True))(
+            params, opt, comp, batch, 3)
+        loss = float(m["loss"])
+        res_dev = {t.device.type for t in tree.leaves(comp.residual)}
+        log(f"  one int8 train step of smoke {cfg.name} on the card: loss {loss:.6f}, "
+            f"grad_norm {float(m['grad_norm']):.6f}, noise drawn on {sorted(set(drawn))}, "
+            f"residuals on {sorted(res_dev)}")
+        if not math.isfinite(loss) or set(drawn) != {"cuda"} or res_dev != {"cuda"}:
+            raise SystemExit("train phase (b'): the int8 step did not run on the card")
+    finally:
+        prng.uniform = uniform
 
 
 # --------------------------------------------------------------------------- #
@@ -3778,6 +4335,8 @@ def train_phases(card):
     release()
     small_train_check()
     release()
+    int8_compression_check()
+    release()
     cfg, model, params, opt, (k7, k6, k3) = train_phase(card)
     k7d, k6d, k3d = train_serve_handoff(cfg, model, params, opt)
     del params, opt
@@ -3882,6 +4441,7 @@ def main(argv: list[str]) -> int:
     tworst, trows = slice3_kernel_phase(flush)
     nworst, nrows = trie_kernel_phase(flush)
     k3rows, k3err = k3_phase(flush)
+    hworst, _ = head_chunk_kernel_check(flush)
     mworst = mma_rows_kernel_phase()
     del flush
     release()
@@ -3890,11 +4450,15 @@ def main(argv: list[str]) -> int:
     small_int8_prefix_check()
     small_trie_spec_check()
     small_interleave_suspend_check()
+    small_sharded_check()
     release()
     k6, k7, k3g = gemma_dense_phase()
     release()
     torch.cuda.reset_peak_memory_stats()
-    k2, k3, paged = serve_phase()
+    k2, k3, paged, first = serve_phase()
+    release()
+    k2h, k3h = sharded_phase(*paged, first)
+    del first
     release()
     k2b, k2pb, k3b = shared_prefix_phase(*paged[:3], "bf16")
     release()
@@ -3925,6 +4489,7 @@ def main(argv: list[str]) -> int:
     terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     merr = lambda name: max(v for k, v in mworst.items() if k[0] == name)
     nerr = lambda name: max(v for k, v in nworst.items() if k[0] == name)
+    herr = lambda name: max(v for k, v in hworst.items() if k[0] == name)
     d2, d3 = rows["decode"], k3rows["(a) paged decode"]
     t8, tp, tpi, t5 = trows["K2-int8"], trows["K2'"], trows["K2' int8"], trows["K5"]
     t4, t6, t7 = drows["K4", "deepseek decode"], drows["K6", "gemma2-2b decode"], drows[
@@ -3933,9 +4498,10 @@ def main(argv: list[str]) -> int:
     kernels = [
         dict(name="mla_decode_paged_queue_rows", route="cuda", source=mma_src,
              replaces="src/repro/kernels/mla_decode_paged.py:490",
-             launches=k2 + k2b + k2t + k2s + k2l + k2c,
+             launches=k2 + k2b + k2t + k2s + k2l + k2c + k2h,
              max_abs_err=max(err("mla_decode_paged_queue_rows"),
-                             nerr("mla_decode_paged_queue_rows"), nerr("verify-vs-single")),
+                             nerr("mla_decode_paged_queue_rows"), nerr("verify-vs-single"),
+                             herr("mla_decode_paged_queue_rows")),
              ms=d2[0], plain_ms=d2[1],
              bound_ms=d2[2], bound_by=d2[3], library_ms=d2[4]),
         dict(name="mla_decode_paged_queue_rows[int8]", route="cuda", source=mma_src,
@@ -3954,9 +4520,9 @@ def main(argv: list[str]) -> int:
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
-             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr,
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr + k3h,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
-                             nerr("K3 chain 2")), ms=d3[0], plain_ms=d3[1],
+                             nerr("K3 chain 2"), herr("combine_split_partials")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
         dict(name="mla_decode_rows", route="cuda", source="src/repro_torch/csrc/mla_decode.cu",
              replaces="src/repro/kernels/mla_decode.py:401", launches=k4,

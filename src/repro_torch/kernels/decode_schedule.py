@@ -1,10 +1,10 @@
 """Flat work-queue scheduling for AMLA decode (paper §4.2 + flash-decoding).
 
 Copied from ``repro.kernels.decode_schedule`` (the flat work queue, the
-flat and nested shared-prefix grouping, the work accounting, the
-prefill-budget planner and the SLA admission order; not the sharded
-router): plain host-side numpy and Python, so the schedule arrays, slices
-and orders are identical to the reference's by construction.
+flat and nested shared-prefix grouping, the work accounting, the sharded
+router and work balance, the prefill-budget planner and the SLA admission
+order): plain host-side numpy and Python, so the schedule arrays, routes,
+slices and orders are identical to the reference's by construction.
 
 * one **work item** = one §4.2 KV block (``block_k`` rows = 4 pages of 128)
   of one request — the granularity of one AMLA state update;
@@ -660,6 +660,75 @@ def prefix_queue_grid_items(
         "grouped_requests": int(np.sum(ps.groups.group_of_req >= 0)),
         "query_rows": int(kv_lens.shape[0]) * int(query_rows),
         "row_reads": int(kv_lens.sum()) * int(query_rows),
+    }
+
+
+# --------------------------------------------------------------------------- #
+# sharded-serving routing (data-parallel page pools)
+# --------------------------------------------------------------------------- #
+
+
+def route_request(
+    shard_live_blocks,
+    shard_free_pages,
+    pages_needed: int,
+    shard_ok=None,
+    shard_hit_pages=None,
+):
+    """Pick the data shard to admit a new request onto.
+
+    ``shard_live_blocks[i]`` is shard i's current decode work proxy (sum of
+    live §4.2 KV blocks across its requests — one queue item each per decode
+    step), ``shard_free_pages[i]`` its free pool pages.  Among shards that
+    can hold ``pages_needed`` pages, pick the least-loaded by live block
+    count; break ties toward more free pages, then the lowest index (so
+    an empty fleet fills deterministically shard 0, 1, ...).
+
+    ``shard_hit_pages[i]`` (optional) is the prefix-trie hit for this
+    request on shard i, in pages.  Hit pages are aliased rather than
+    allocated, so eligibility needs only ``pages_needed - hit`` free pages,
+    and ties in live blocks break toward the *longest hit* first — prefix
+    locality beats free-pool slack because the hit pages are DMA and
+    prefill the shard never pays.  Tries are shard-local, so this is the
+    only place cross-shard hit lengths compete.
+
+    ``shard_ok[i]`` (optional) masks admissibility: draining shards finish
+    their live requests but take no new ones, dead shards take nothing —
+    the shard lifecycle passes ``health == "healthy"`` here.
+
+    Returns the shard index, or None when no shard has room (caller evicts
+    or defers).
+    """
+    best = None
+    for i, (blocks, free) in enumerate(zip(shard_live_blocks, shard_free_pages)):
+        if shard_ok is not None and not shard_ok[i]:
+            continue
+        hit = int(shard_hit_pages[i]) if shard_hit_pages is not None else 0
+        if free < max(pages_needed - hit, 0):
+            continue
+        key = (int(blocks), -hit, -int(free), i)
+        if best is None or key < best[0]:
+            best = (key, i)
+    return None if best is None else best[1]
+
+
+def shard_work_balance(per_shard_items) -> dict:
+    """max/mean imbalance of a per-shard work proxy (queue items, page DMAs).
+
+    ``imbalance`` is 1.0 for a perfectly even split and rises as one shard
+    hoards the work (the reference's sharded `[MODEL-SERVE]` benchmark row
+    gates on <= 2.0 for the ragged stream).  Empty fleets report 0.0 work and imbalance 1.0.
+    """
+    items = [float(x) for x in per_shard_items]
+    total = sum(items)
+    mean = total / len(items) if items else 0.0
+    peak = max(items) if items else 0.0
+    return {
+        "per_shard": items,
+        "total": total,
+        "max": peak,
+        "mean": mean,
+        "imbalance": (peak / mean) if mean > 0 else 1.0,
     }
 
 

@@ -400,9 +400,13 @@ def mla_decode_paged(
       one prefix partial per group of its chain: the same two launches
       and one combine over a wider table.
       ``kv_scales`` selects an int8 pool (K2-int8).  ``return_partials``
-      (the per-row lse for sharded serving) raises: with the padded or
-      prefix-sharing paths the reference's ``ValueError``, on the plain
-      queue ``NotImplementedError`` until sharded serving is ported.
+      (plain queue only; the padded and prefix-sharing paths raise the
+      reference's ``ValueError``) returns ``(o, lse (B, Sq, Hq))``, the
+      per-row logsumexp of K2's slot lse over each request's live split
+      slots (plain torch, as the reference's ``jnp``), so a request whose
+      KV lies in two pools merges exactly with
+      :func:`repro_torch.core.distributed.combine_shard_partials`; an
+      empty request's lse is ``-inf``.
     * ``"padded"``: the ``(B, W)`` baseline (K5), bf16/fp32 pools only.
 
     Value checks on ``kv_len`` / ``q_positions`` run when they are host data
@@ -498,11 +502,6 @@ def mla_decode_paged(
         out = _combine.combine_hetero_partials(o_parts, lse_parts, dest, n_live)
         return out.reshape(b, sq, hq, d_v)
 
-    if return_partials:
-        raise NotImplementedError(
-            "return_partials (per-row lse for merging shard-local results) "
-            "is not ported yet; it comes with sharded serving"
-        )
     if schedule is None:
         schedule = _sched.build_schedule(
             host_lens, block_k=block_k, num_splits=num_splits
@@ -513,4 +512,18 @@ def mla_decode_paged(
         num_dest_slots=queue.num_dest_slots, **kw,
     )
     out = _combine.combine_split_partials(o_part, lse, queue.dest_table, queue.n_splits)
+    if return_partials:
+        return out.reshape(b, sq, hq, d_v), _rows_lse(lse, queue).reshape(b, sq, hq)
     return out.reshape(b, sq, hq, d_v)
+
+
+def _rows_lse(lse: torch.Tensor, queue: DeviceQueue) -> torch.Tensor:
+    """Each (request, row)'s logsumexp over its live split slots, (B, G):
+    the lse of the combined output, in the normalized-partial format
+    :func:`repro_torch.core.distributed.combine_shard_partials` merges.
+    Columns of ``dest_table`` past ``n_splits`` (which repeat the last live
+    slot) weigh 0; a request with no keys gets ``-inf``."""
+    per_split = lse.reshape(lse.shape[0], -1)[queue.dest_table.long()]  # (B, S, G)
+    cols = torch.arange(queue.dest_table.shape[1], device=lse.device)
+    live = cols[None, :] < queue.n_splits[:, None]
+    return torch.logsumexp(torch.where(live[..., None], per_split, -torch.inf), dim=1)

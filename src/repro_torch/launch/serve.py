@@ -25,13 +25,22 @@ Runs a request stream through one of two cache backends:
   it retains; ``--speculate ngram --draft-k K`` verifies ``K - 1`` n-gram
   drafts per request per step; ``--prefill-budget N`` interleaves
   chunk-aligned prefill slices of at most ``N`` tokens a step with decode.
+  ``--mesh DxM`` (paged only) serves through
+  :class:`~repro_torch.runtime.serve_loop.ShardedPagedServingSession`:
+  the pool and the decode queue split over ``D`` data shards with
+  ``M``-way head chunks each, over a
+  :func:`~repro_torch.launch.mesh.make_serving_mesh` of distinct cards
+  (every entry the CPU with ``--device cpu``); it prints the mesh, each
+  shard's work and the shards' balance.  One card runs a ``1xM`` mesh; more
+  data shards on it are logical ones (``shards=`` in the session).
 
 ``--chaos SEED``, ``--deadline STEPS`` or ``--priority-classes P0,P1,..``
 (all ``--cache paged``) serve the stream through the supervised loop
 (:class:`~repro_torch.runtime.serve_loop.ServeSupervisor`): a seeded
-fault plan (slow shard, pool pressure), deadlines, priority admission,
-recoverable eviction by replay; the run exits nonzero if a request is
-lost, a replay diverges or a page leaks.
+fault plan (shard loss on a sharded session, slow shard, pool pressure),
+deadlines, priority admission, recoverable eviction by replay; the run
+exits nonzero if a request is lost, a replay diverges or a page leaks on
+any shard.
 
 Random weights come from ``--seed``.
 
@@ -41,7 +50,7 @@ Usage:
         [--kv-dtype bf16|int8] [--shared-prefix] [--prefix-cache trie \\
         [--retain-pages N]] [--speculate ngram [--draft-k K]] \\
         [--prefill-budget N] [--chaos SEED] [--deadline STEPS] \\
-        [--priority-classes P0,P1,...]
+        [--priority-classes P0,P1,...] [--mesh DxM]
 
 ``--device`` defaults to ``cuda`` and the run fails without it; ``cpu``
 runs the kernels' plain PyTorch versions.
@@ -57,12 +66,14 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime.kv_cache import OutOfPagesError
 from repro_torch.runtime.serve_loop import (
     PagedServingSession,
     ServeSupervisor,
     ServingSession,
+    ShardedPagedServingSession,
     check_session_servable,
 )
 
@@ -136,16 +147,20 @@ def _serve_stream(sess, pending, gen_len, requests):
 def _serve_supervised(sess, pending, args):
     """The stream through :class:`ServeSupervisor`: a seeded
     :class:`FaultPlan` with ``--chaos`` (generated plans never abandon, and
-    their shard loss is skipped on one session, so every request must
-    complete), ``--deadline`` and ``--priority-classes`` (round-robin over
-    the submissions).  Exits nonzero if a request is lost, a replay
-    diverges, a request is abandoned without a deadline or a page leaks."""
+    their shard loss materialises only on a sharded session, so every
+    request must complete), ``--deadline`` and ``--priority-classes``
+    (round-robin over the submissions).  Exits nonzero if a request is
+    lost, a replay diverges, a request is abandoned without a deadline or
+    a page leaks on any shard."""
     from repro_torch.runtime.fault_injection import FaultPlan
 
+    sharded = hasattr(sess, "shards")
     plan = None
     if args.chaos is not None:
-        plan = FaultPlan.generate(args.chaos, num_shards=1, horizon=max(2, args.gen_len),
-                                  pool_pages=sess.cache.num_pages)
+        plan = FaultPlan.generate(
+            args.chaos, num_shards=sess.num_shards if sharded else 1,
+            horizon=max(2, args.gen_len),
+            pool_pages=sess._pages_per_shard if sharded else sess.cache.num_pages)
         print(f"chaos plan (seed {args.chaos}): {plan.describe()}")
     sup = ServeSupervisor(sess, gen_len=args.gen_len, deadline=args.deadline, plan=plan)
     classes = args.priority_classes or [0]
@@ -180,11 +195,15 @@ def _serve_supervised(sess, pending, args):
         f"({stats['prefill_chunks']} prefill chunks, {stats['prefill_stall_steps']} "
         f"decode-stall chunks)"
     )
+    if sharded:
+        print(f"shard health: {sess.shard_health}")
     for event in sup.events:
         print(f"  {event}")
-    sweep = sess.cache.refcount_sweep()
-    if sweep["live_sequences"] or sweep["live_pages"]:
-        raise SystemExit(f"page leak after drain: {sweep}")
+    # Leak audit: after the stream drains, every shard pool must be empty.
+    for i, cache in enumerate([s.cache for s in sess.shards] if sharded else [sess.cache]):
+        sweep = cache.refcount_sweep()
+        if sweep["live_sequences"] or sweep["live_pages"]:
+            raise SystemExit(f"page leak on shard {i} after drain: {sweep}")
     # close() also clears retained trie prefixes and asserts a free pool.
     sweep = sess.close()
     print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")
@@ -278,10 +297,16 @@ def main(argv=None):
                     "enqueues the prompt and each step interleaves chunk-aligned "
                     "prefill slices with decode (>= --prefill-chunk; greedy "
                     "outputs identical to phased admission)")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="paged only: DxM serving mesh, e.g. 2x1: the page pool "
+                    "and decode queue over D data shards with M-way head chunks "
+                    "each, one card per mesh entry (the CPU in every entry with "
+                    "--device cpu)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="paged only: the supervised serve loop under a seeded "
-                    "FaultPlan (slow shard, pool pressure); every request must "
-                    "complete with its exact greedy output or the run exits nonzero")
+                    "FaultPlan (shard loss on --mesh, slow shard, pool pressure); "
+                    "every request must complete with its exact greedy output or "
+                    "the run exits nonzero")
     ap.add_argument("--deadline", type=int, default=None, metavar="STEPS",
                     help="paged only: per-request decode-step deadline; late "
                     "requests are abandoned with their partial output (implies "
@@ -331,7 +356,16 @@ def main(argv=None):
                              "pins refcounted pages; dense slots have none)")
     if args.retain_pages is not None and args.prefix_cache == "off":
         raise SystemExit("--retain-pages needs --prefix-cache trie")
+    if args.mesh and args.cache != "paged":
+        raise SystemExit("--mesh needs --cache paged (the dense backend has no "
+                         "sharded session)")
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        try:
+            mesh = make_serving_mesh(args.mesh, device)
+        except ValueError as e:
+            raise SystemExit(str(e))
     arch = args.arch or ("deepseek-v2-mla" if args.cache == "paged" else "qwen1.5-0.5b")
     cfg = get_config(arch, smoke=args.smoke)
     try:
@@ -341,9 +375,7 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(torch.Generator(device).manual_seed(args.seed), device)
     if args.cache == "paged":
-        sess = PagedServingSession(
-            model,
-            params,
+        kw = dict(
             num_pages=args.num_pages,
             page_size=args.page_size,
             block_k=args.block_k,
@@ -357,9 +389,15 @@ def main(argv=None):
             retain_pages=args.retain_pages,
             prefill_budget=args.prefill_budget,
         )
+        sess = (PagedServingSession(model, params, **kw) if mesh is None
+                else ShardedPagedServingSession(model, params, mesh=mesh, **kw))
     else:
         sess = ServingSession(model, params, batch_size=args.batch, max_len=args.max_len)
-    print(f"serving {arch} with the {args.cache} cache backend on {device}")
+    backend = args.cache + (f" (sharded over {args.mesh})" if mesh is not None else "")
+    print(f"serving {arch} with the {backend} cache backend on {device}")
+    if mesh is not None:
+        print(f"mesh {args.mesh}: {sess.num_shards} data shards x {sess.head_shards}-way "
+              f"heads, {args.num_pages // sess.num_shards} pages per shard pool")
     if args.shared_prefix:
         _shared_prefix_demo(sess, cfg, args.seed, args.gen_len)
         stats = sess.scheduler_stats
@@ -419,7 +457,14 @@ def main(argv=None):
             f"{work['live_pages']} live / {work['retained_pages']} retained / "
             f"{work['free_pages']} free pages, {work['trie_evicted_pages']} evicted"
         )
-    # Teardown leak audit: close() clears the trie and sweeps the pool.
+    if mesh is not None:
+        bal = work["balance"]
+        for i, st in enumerate(work["per_shard"]):
+            print(f"shard {i}: {st['page_dmas']} page DMAs, {st['decode_steps']} decode "
+                  f"steps, {st['free_pages']} pages free")
+        print(f"shard work balance: max/mean = {bal['imbalance']:.2f} "
+              f"({bal['max']:.0f}/{bal['mean']:.1f} page DMAs)")
+    # Teardown leak audit: close() clears the trie and sweeps every pool.
     sweep = sess.close()
     print(f"teardown sweep: {sweep['free_pages']} pages free (clean)")
 

@@ -307,32 +307,42 @@ def paged_logits(params, x, *, cfg):
 
 
 def _paged_attend(q, cache, layer, bt, kv_len, *, cfg, block_k, schedule,
-                  q_offset, q_positions, num_splits, compute_dtype, variant):
-    return ops.mla_decode_paged(
-        q,
-        cache.layer_pages(layer),
-        bt,
-        kv_len,
-        # int8 pools carry per-row dequant scales (None otherwise).
-        kv_scales=cache.layer_scales(layer),
-        d_v=cfg.mla.d_latent,
-        variant=variant,
-        scale=mla_scale(cfg),
-        q_offset=q_offset,
-        q_positions=q_positions,
-        scheduler="queue",
-        block_k=block_k,
-        num_splits=num_splits,
-        schedule=schedule,
-        compute_dtype=compute_dtype,
-    )
-
-
-def _check_head_shards(head_shards: int) -> None:
-    if head_shards != 1:
-        raise NotImplementedError(
-            "head_shards > 1 (tensor-parallel head groups) is not ported yet"
+                  q_offset, q_positions, num_splits, compute_dtype, variant,
+                  head_shards: int = 1):
+    def attend(q_part):
+        return ops.mla_decode_paged(
+            q_part,
+            cache.layer_pages(layer),
+            bt,
+            kv_len,
+            # int8 pools carry per-row dequant scales (None otherwise).
+            kv_scales=cache.layer_scales(layer),
+            d_v=cfg.mla.d_latent,
+            variant=variant,
+            scale=mla_scale(cfg),
+            q_offset=q_offset,
+            q_positions=q_positions,
+            scheduler="queue",
+            block_k=block_k,
+            num_splits=num_splits,
+            schedule=schedule,
+            compute_dtype=compute_dtype,
         )
+
+    if head_shards <= 1:
+        return attend(q)
+    # Tensor-parallel head groups (the reference's mesh ``model`` axis):
+    # query heads are independent rows of the queue kernel (each its own
+    # softmax over the same pages), so every chunk of heads reuses the one
+    # per-(request, block) schedule and the concatenation is the unchunked
+    # call's result.  One card runs the chunks one after another: one K2
+    # and one K3 launch per chunk.
+    hq = q.shape[2]
+    if hq % head_shards:
+        raise ValueError(f"head_shards={head_shards} must divide n_heads={hq}")
+    step = hq // head_shards
+    return torch.cat(
+        [attend(q[:, :, i * step : (i + 1) * step]) for i in range(head_shards)], dim=2)
 
 
 def lm_prefill_paged(
@@ -362,7 +372,6 @@ def lm_prefill_paged(
     aliases, which it never recomputes.
     """
     check_paged_compatible(cfg)
-    _check_head_shards(head_shards)
     dev = cache.device
     tokens = np.asarray(tokens, np.int32).reshape(-1)
     s_total = int(tokens.shape[0])
@@ -393,6 +402,7 @@ def lm_prefill_paged(
                 q, cache, l, bt, kv_len, cfg=cfg, block_k=block_k,
                 schedule=schedule, q_offset=q_off, q_positions=None,
                 num_splits=1, compute_dtype=compute_dtype, variant=variant,
+                head_shards=head_shards,
             )
             x = paged_layer_post(p_l, x, attn, cfg=cfg)
         if need_logits and s0 + chunk >= s_total:
@@ -524,11 +534,13 @@ def decode_walk_paged(
     q_positions=None,
     variant: str = "amla",
     compute_dtype=None,
+    head_shards: int = 1,
 ):
     """The device half of :func:`lm_decode_step_paged`: embed, every layer
     (append its latent rows at ``inputs.pids``/``offs``, attend through
-    ``ops.mla_decode_paged`` with the one ``schedule``, post-attention
-    half) and the logits ``(B, S, vocab)``.  With ``schedule`` an
+    ``ops.mla_decode_paged`` with the one ``schedule``, per chunk of
+    ``n_heads / head_shards`` heads, post-attention half) and the logits
+    ``(B, S, vocab)``.  With ``schedule`` an
     ``ops.DeviceQueue`` and no host ``q_positions`` it reads only tensors
     already on the device, so a CUDA graph can capture it."""
     b, s = inputs.tokens.shape
@@ -540,6 +552,7 @@ def decode_walk_paged(
             q, cache, l, inputs.block_tables, inputs.kv_len, cfg=cfg, block_k=block_k,
             schedule=schedule, q_offset=None, q_positions=q_positions,
             num_splits=num_splits, compute_dtype=compute_dtype, variant=variant,
+            head_shards=head_shards,
         )
         x = paged_layer_post(p_l, x, attn, cfg=cfg)
     return paged_logits(params, x, cfg=cfg)
@@ -575,8 +588,9 @@ def lm_decode_step_paged(
     host array, as the reference passes it, so their values are checked
     (``q_positions``).  The serving sessions stage into fixed buffers and
     replay the walk as a CUDA graph (:mod:`repro_torch.runtime.step_graph`).
+    ``head_shards > 1`` attends each chunk of heads with its own K2 and
+    K3 launch over the same schedule (:func:`_paged_attend`).
     """
-    _check_head_shards(head_shards)
     plan = stage_decode_step_paged(
         tokens, cfg=cfg, cache=cache, rids=rids, scheduler=scheduler, extra_key=extra_key,
         table_width=table_width, block_k=block_k, num_splits=num_splits,
@@ -586,5 +600,5 @@ def lm_decode_step_paged(
     return decode_walk_paged(
         params, inputs, cfg=cfg, cache=cache, schedule=plan.schedule, block_k=plan.block_k,
         num_splits=num_splits, q_positions=plan.positions if plan.tokens.shape[1] > 1 else None,
-        variant=variant, compute_dtype=compute_dtype,
+        variant=variant, compute_dtype=compute_dtype, head_shards=head_shards,
     )

@@ -11,8 +11,9 @@ layer group along a leading axis (and the encoder-decoder's layers with
 ``vmap``), so there every leaf of a stacked layer — norm scales and biases
 included — has ``ndim >= 2`` and is decayed; only unstacked leaves
 (``final_norm``, the unscanned remainder layers) escape it.  The port
-keeps layers unstacked, so :func:`reference_decay_mask` marks the leaves
-the reference decays, and :func:`adamw_update` decays by that mask.
+keeps layers unstacked, so :func:`reference_leaves` maps its leaves onto
+the reference's, :func:`reference_decay_mask` marks the leaves the
+reference decays, and :func:`adamw_update` decays by that mask.
 """
 
 from __future__ import annotations
@@ -55,27 +56,51 @@ def clip_by_global_norm(grads, max_norm):
     return _tree.tree_map(lambda g: g * scale, grads), norm
 
 
-def reference_decay_mask(params, cfg):
-    """A tree of bools shaped as ``params``: True where the reference's
-    ``ndim >= 2`` rule decays the leaf in its stacked tree.  A decoder-only
-    model's first ``n_layers // period * period`` layers are scanned
-    groups there (every leaf stacked); the remainder layers and the
-    top-level leaves keep their own rank.  An encoder-decoder's layers are
-    all stacked."""
-    by_rank = lambda p: p.ndim >= 2
+class RefLeaf:
+    """One leaf of the reference's stacked tree: the paths of the port
+    leaves it holds, in stacking order (one path if it is not stacked)."""
+
+    __slots__ = ("paths", "stacked")
+
+    def __init__(self, paths, stacked):
+        self.paths, self.stacked = paths, stacked
+
+
+def reference_leaves(params, cfg) -> list[RefLeaf]:
+    """The leaves of the reference's tree for ``params``, in its
+    flattening order (dict keys sorted).  A decoder-only model's first
+    ``n_layers // period * period`` layers are scanned groups there:
+    ``groups/pos{j}`` stacks the leaf of layers ``j, j + period, ...``;
+    the remainder layers (``rem``) and the top-level leaves are not
+    stacked.  An encoder-decoder's ``enc_layers`` / ``dec_layers`` are
+    stacked whole."""
+    leaf = _tree.map_with_paths(lambda p, _: RefLeaf([p], False), params)
+
+    def stack(layers):
+        return _tree.tree_map(
+            lambda *xs: RefLeaf([x.paths[0] for x in xs], True), layers[0], *layers[1:])
+
     if cfg.family == "encdec":
-        stacked = {"enc_layers": len(params["enc_layers"]), "dec_layers": len(params["dec_layers"])}
+        ref = dict(leaf, **{k: stack(leaf[k]) for k in ("enc_layers", "dec_layers")})
     else:
         period = len(cfg.layer_pattern)
-        stacked = {"layers": cfg.n_layers // period * period}
-    mask = {}
-    for key, sub in params.items():
-        if key in stacked:
-            mask[key] = [_tree.tree_map(lambda p: True, layer) if i < stacked[key]
-                         else _tree.tree_map(by_rank, layer) for i, layer in enumerate(sub)]
-        else:
-            mask[key] = _tree.tree_map(by_rank, sub)
-    return mask
+        n = cfg.n_layers // period * period
+        ref = {k: v for k, v in leaf.items() if k != "layers"}
+        if n:
+            ref["groups"] = {f"pos{j}": stack(leaf["layers"][j:n:period]) for j in range(period)}
+        ref["rem"] = leaf["layers"][n:]
+    return _tree.leaves(ref)
+
+
+def reference_decay_mask(params, cfg):
+    """A tree of bools shaped as ``params``: True where the reference's
+    ``ndim >= 2`` rule decays the leaf in its stacked tree
+    (:func:`reference_leaves`): every stacked leaf, and an unstacked one
+    by its own rank."""
+    flat = dict(_tree.leaves_with_paths(params))
+    decay = {p: ref.stacked or flat[p].ndim >= 2
+             for ref in reference_leaves(params, cfg) for p in ref.paths}
+    return _tree.map_with_paths(lambda p, _: decay[p], params)
 
 
 @torch.no_grad()

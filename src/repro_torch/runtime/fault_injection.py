@@ -13,11 +13,11 @@ build instead of only surfacing under real faults.
 
 The plan never touches a session directly — it is pure data.  The
 supervisor maps each event onto the session's fault-tolerance surface
-(``hold_pages``, the straggler monitor, abandon), which keeps injected
-faults and real ones on exactly the same recovery path.  The port serves
-one session, so a ``shard_loss`` event is skipped there and counted in
-the supervisor's ``faults_skipped``, as the reference does for a single
-session.
+(``fail_shard``, ``hold_pages``, the straggler monitor, abandon), which
+keeps injected faults and real ones on exactly the same recovery path.
+On a single session a ``shard_loss`` event is skipped and counted in the
+supervisor's ``faults_skipped``, as the reference does; a sharded session
+fails the shard and re-routes its requests.
 """
 
 from __future__ import annotations

@@ -21,8 +21,8 @@ sequence owners a page may hold retention pins (:meth:`PagedKVCache.pin_pages`),
 taken by :class:`PrefixTrie`, the radix tree over finished prompts' complete
 KV blocks that admission matches and adopts (:meth:`PagedKVCache.adopt_pages`);
 :meth:`PagedKVCache.truncate` rolls a request back (speculative decoding's
-rejected rows).  Moving a pool to another device (the reference's
-``to_device``) belongs to sharded serving and is not ported.
+rejected rows); :meth:`PagedKVCache.to_device` moves the pools to another
+device (a shard's), leaving the bookkeeping where it is.
 """
 
 from __future__ import annotations
@@ -119,6 +119,26 @@ class PagedKVCache:
         # sequence's).  Every pin is also counted in ``_ref``, so
         # ``_ref == sequence owners + _pin`` for every page.
         self._pin = np.zeros((num_pages,), np.int32)
+
+    def to_device(self, device) -> "PagedKVCache":
+        """Move the pool (and the scale pool) to ``device``; the host
+        bookkeeping (free list, refcounts, pins) is untouched.  A no-op when
+        ``device`` is None or the pool already lives there.  A move gives
+        the pool new addresses: a session's captured decode graphs read the
+        old ones, and its :class:`~repro_torch.runtime.step_graph.PagedDecodeStep`
+        drops them before its next step (it watches ``pages``)."""
+        if device is None:
+            return self
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self.pages.device == device:
+            return self
+        self.pages = self.pages.to(device)
+        if self.scales is not None:
+            self.scales = self.scales.to(device)
+        self.device = self.pages.device
+        return self
 
     # -- bookkeeping ---------------------------------------------------- #
     @property

@@ -56,9 +56,11 @@ work clock (:func:`latency_percentile`).
 queries and latent rows; it decodes through the queue kernel (K2, int8 and
 shared prefixes included) or the padded ``(B, W)`` kernel (K5).
 
-Sharding (``head_shards > 1``, several data shards) belongs to a later
-slice of the port and raises ``NotImplementedError`` when asked for; a
-supervisor's ``shard_loss`` events are skipped on the one session.
+:class:`ShardedPagedServingSession` splits the pool over ``data`` shards,
+each a :class:`PagedServingSession` holding its own requests (routing,
+fork pinning, drain / fail / attach), with ``head_shards`` query-head
+chunks within a shard; on one card the shards are logical and share one
+parameter set.
 """
 
 from __future__ import annotations
@@ -226,12 +228,6 @@ class ServingSession:
         return self.outputs.pop(rid)
 
 
-def _not_ported(what: str, when: str):
-    raise NotImplementedError(f"{what} is not ported yet; it comes in {when}")
-
-
-
-
 class NGramProposer:
     """Self-speculative n-gram drafter over a request's own token history.
 
@@ -337,9 +333,12 @@ class PagedServingSession:
         from repro_torch.runtime.step_graph import PagedDecodeStep
 
         _tf.check_paged_compatible(model.cfg)
-        if head_shards != 1:
-            _not_ported("head_shards > 1 (tensor-parallel head groups)",
-                        "the sharded-serving slice of the port (ROADMAP Queue 1 item 8)")
+        if model.cfg.n_heads % head_shards:
+            raise ValueError(
+                f"head_shards={head_shards} must divide "
+                f"n_heads={model.cfg.n_heads} (tensor-parallel head groups "
+                "split the query head axis evenly)"
+            )
         if prefill_budget is not None and prefill_budget < prefill_chunk:
             raise ValueError(
                 f"prefill_budget={prefill_budget} is below prefill_chunk="
@@ -364,6 +363,7 @@ class PagedServingSession:
                 "draft_k >= 2 is the smallest step that amortizes anything "
                 "(use speculate='off' for plain 1-row decode)"
             )
+        self.head_shards = head_shards
         self.model = model
         self.params = params
         self.cfg = model.cfg
@@ -418,7 +418,7 @@ class PagedServingSession:
         self.step_graph = PagedDecodeStep(
             params, self.cache, cfg=self.cfg, scheduler=self._scheduler,
             table_width=self.table_width, block_k=self.block_k, num_splits=num_splits,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, head_shards=head_shards,
         )
         self._layers = model.layer_params(params)
         self.speculate = speculate
@@ -656,6 +656,7 @@ class PagedServingSession:
             table_width=self.table_width,
             block_k=self.block_k,
             compute_dtype=self.compute_dtype,
+            head_shards=self.head_shards,
         )
         self._count_prefill(len(prompt) - matched)
         if self.trie is not None:
@@ -730,6 +731,7 @@ class PagedServingSession:
                 block_k=self.block_k,
                 num_splits=self.num_splits,
                 compute_dtype=self.compute_dtype,
+                head_shards=self.head_shards,
             )
         else:
             logits = self.step_graph(tokens, rids)
@@ -799,6 +801,7 @@ class PagedServingSession:
                 table_width=self.table_width,
                 block_k=self.block_k,
                 compute_dtype=self.compute_dtype,
+                head_shards=self.head_shards,
                 need_logits=final,
             )
             self._count_prefill(take, interleaved=True)
@@ -906,6 +909,7 @@ class PagedServingSession:
             table_width=self.table_width,
             block_k=self.block_k,
             compute_dtype=self.compute_dtype,
+            head_shards=self.head_shards,
         )
         self._count_prefill(len(suffix))
         return self._admit(child, int(torch.argmax(logits[0])))
@@ -975,7 +979,7 @@ class PagedServingSession:
 
         kw = dict(cfg=self.cfg, cache=self.cache, rid=rid, chunk=self.prefill_chunk,
                   table_width=self.table_width, block_k=self.block_k,
-                  compute_dtype=self.compute_dtype)
+                  compute_dtype=self.compute_dtype, head_shards=self.head_shards)
         if not rec.outputs:
             # Suspended mid-prefill: nothing was emitted, so the prompt
             # restarts (re-enqueued under a budget, prefilled now otherwise).
@@ -1078,6 +1082,431 @@ class PagedServingSession:
         return report
 
 
+class ShardedPagedServingSession:
+    """Sharded paged serving: the page pool and the decode work queue split
+    over ``data`` shards with request routing, and tensor-parallel head
+    groups within a shard (counterpart of the reference's
+    ``ShardedPagedServingSession``).
+
+    Each ``data`` shard owns one :class:`PagedServingSession`: a
+    :class:`~repro_torch.runtime.kv_cache.LayeredPagedKVCache` slice of the
+    global pool, its own memoizing
+    :class:`~repro_torch.kernels.decode_schedule.DecodeScheduler` and
+    decode graphs, and the parameters on its device.  A request's pages
+    and its queue items live on one shard:
+
+    * **admission** routes through
+      :func:`~repro_torch.kernels.decode_schedule.route_request`: least
+      live KV blocks wins, ties toward the longest prefix-trie hit
+      (probed read-only), then more free pages, then the lowest index;
+    * **fork / admit_with_prefix** pin the child to the parent's shard:
+      page aliasing is pool-local, so a family never straddles shards;
+    * **decode** runs each shard's own schedule over its own requests
+      and its own K2 and K3 launches; ``head_shards`` chunks the query
+      heads within a shard (one K2 and one K3 per chunk).  Each row's
+      math does not depend on its batch, so at fp32 compute the greedy
+      tokens equal one session's (a bf16 product computed at another
+      batch size may round differently on the card);
+    * **lifecycle**: ``drain_shard`` stops a shard's admissions,
+      ``fail_shard`` suspends its requests and re-routes them (family
+      roots first), ``attach_shard`` adds an empty pool slice.
+
+    ``mesh=None, shards=N`` runs N logical shards on the parameters'
+    device, sharing one parameter set: what one card runs.  A ``mesh``
+    (:func:`repro_torch.launch.mesh.make_serving_mesh`) places shard
+    ``i``'s parameters and pool on the mesh's ``data`` row ``i``, its
+    ``model`` columns setting ``head_shards``.
+    """
+
+    def __init__(
+        self,
+        model,
+        params,
+        *,
+        num_pages: int,
+        mesh=None,
+        shards: int | None = None,
+        head_shards: int | None = None,
+        page_size: int | None = None,
+        block_k: int | None = None,
+        num_splits: int = 1,
+        prefix_sharing: bool = False,
+        min_group: int = 2,
+        prefill_chunk: int = 32,
+        max_batch: int | None = None,
+        dtype=None,
+        kv_dtype=None,
+        speculate: str = "off",
+        draft_k: int = 4,
+        draft_proposer=None,
+        prefix_cache: str = "off",
+        retain_pages: int | None = None,
+        prefill_budget: int | None = None,
+    ):
+        from repro_torch.runtime.sharding import serving_shard_devices
+
+        if mesh is not None and shards is not None:
+            raise ValueError("pass mesh= or shards=, not both")
+        if mesh is not None:
+            devices = serving_shard_devices(mesh)
+            n_data = len(devices)
+            n_model = int(np.prod(mesh.devices.shape)) // n_data
+        else:
+            n_data = int(shards or 1)
+            n_model = 1
+            devices = [None] * n_data
+        if n_data < 1:
+            raise ValueError(f"need at least one data shard, got {n_data}")
+        if num_pages % n_data:
+            raise ValueError(
+                f"num_pages={num_pages} must split evenly over {n_data} "
+                f"data shards (use a multiple of {n_data})"
+            )
+        self.mesh = mesh
+        self.num_shards = n_data
+        self.head_shards = int(head_shards or n_model)
+        self.max_batch = max_batch
+        self._model = model
+        self._params = params
+        self._pages_per_shard = num_pages // n_data
+        self._shard_kwargs = dict(
+            page_size=page_size,
+            block_k=block_k,
+            num_splits=num_splits,
+            prefix_sharing=prefix_sharing,
+            min_group=min_group,
+            prefill_chunk=prefill_chunk,
+            dtype=dtype,
+            kv_dtype=kv_dtype,
+            head_shards=self.head_shards,
+            # Speculation is shard-local: each shard drafts, verifies and
+            # rolls back its own requests.
+            speculate=speculate,
+            draft_k=draft_k,
+            draft_proposer=draft_proposer,
+            # The trie is shard-local (pages cannot alias across pools);
+            # the retention budget splits evenly, as the pool does.
+            prefix_cache=prefix_cache,
+            retain_pages=None if retain_pages is None else retain_pages // n_data,
+            # The budget is per shard per step.
+            prefill_budget=prefill_budget,
+        )
+        self.shards = [self._new_shard(dev) for dev in devices]
+        self.block_k = self.shards[0].block_k
+        self._page_size = self.shards[0].cache.page_size
+        # global rid -> (shard index, shard-local rid)
+        self._where: dict[int, tuple[int, int]] = {}
+        self.active: list[int] = []
+        self.outputs: dict[int, list[int]] = {}
+        self._next_id = 0
+        # Shard lifecycle: healthy shards admit, draining shards only
+        # finish what they hold, dead shards are gone.
+        self._health: list[str] = ["healthy"] * n_data
+        # Suspended records live at this level: a resume must not depend
+        # on a (possibly dead) origin shard's bookkeeping.
+        self.suspended: dict[int, SuspendedRequest] = {}
+        # child gid -> (parent gid, shared rows): family pinning for resume.
+        self._gfamily: dict[int, tuple[int, int]] = {}
+
+    def _new_shard(self, device) -> "PagedServingSession":
+        """One shard's session: a pool slice on ``device``'s replica of the
+        parameters (the same tensors when they live there already); the
+        pool is made where the replica lies."""
+        from repro_torch.runtime.elastic import serving_params_replica
+
+        return PagedServingSession(
+            self._model, serving_params_replica(self._params, device),
+            num_pages=self._pages_per_shard, **self._shard_kwargs)
+
+    # -- routing -------------------------------------------------------- #
+    def _live_blocks(self, shard: PagedServingSession) -> int:
+        # Pending (mid-prefill) rids count the blocks they already hold:
+        # their rows are queue work the moment they go live.
+        return sum(-(-shard.cache.seq_len(r) // self.block_k) for r in shard.resident_rids())
+
+    def _route(self, pages: int, hit_pages=None) -> int | None:
+        from repro_torch.kernels.decode_schedule import route_request
+
+        return route_request(
+            [self._live_blocks(s) for s in self.shards],
+            [s.cache.num_free_pages for s in self.shards],
+            pages,
+            shard_ok=[h == "healthy" for h in self._health],
+            shard_hit_pages=hit_pages,
+        )
+
+    def shard_of(self, rid: int) -> int:
+        """Which data shard holds ``rid``'s pages and queue items."""
+        return self._where[rid][0]
+
+    def _register(self, shard_idx: int, local_rid: int) -> int:
+        gid = self._next_id
+        self._next_id += 1
+        self._where[gid] = (shard_idx, local_rid)
+        self.active.append(gid)
+        # The shard's own list object: it appends generated tokens in
+        # place, so this view stays current without a copy.
+        self.outputs[gid] = self.shards[shard_idx].outputs[local_rid]
+        return gid
+
+    # -- admission / branching ------------------------------------------ #
+    def add_request(self, prompt_tokens) -> int | None:
+        """Route a prompt to the least-loaded shard and admit it there;
+        returns a global rid, or None when no shard has room."""
+        prompt = list(map(int, prompt_tokens))
+        if len(prompt) < 1:
+            raise ValueError(
+                "add_request needs at least one prompt token (an empty "
+                "prompt has no prefill position to decode from)"
+            )
+        pages = -(-len(prompt) // self._page_size)
+        if pages > self._pages_per_shard:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens needs {pages} pages but "
+                f"each of the {self.num_shards} shard pools only has "
+                f"{self._pages_per_shard}; a request lives on ONE shard — "
+                "grow num_pages or truncate the prompt"
+            )
+        if self.max_batch is not None and len(self.active) >= self.max_batch:
+            return None
+        # Probe each shard's trie read-only (no LRU touch, no hit/miss
+        # count: only the winning shard's admission counts).
+        hit_pages = None
+        if any(s.trie is not None for s in self.shards):
+            usable = ((len(prompt) - 1) // self.block_k) * self.block_k
+            hit_pages = [
+                len(s.trie.match(prompt[:usable], touch=False, count=False)[1])
+                if s.trie is not None else 0
+                for s in self.shards
+            ]
+        idx = self._route(pages, hit_pages)
+        if idx is None:
+            return None
+        local = self.shards[idx].add_request(prompt)
+        if local is None:
+            return None
+        return self._register(idx, local)
+
+    def fork(self, rid: int, prefix_len: int | None = None) -> int:
+        """Branch at full history on the parent's shard (even a draining
+        one: the family stays together)."""
+        idx, local = self._where[rid]
+        child_local = self.shards[idx].fork(local, prefix_len)
+        gid = self._register(idx, child_local)
+        self._gfamily[gid] = (rid, self.shards[idx].cache.seq_len(child_local))
+        return gid
+
+    def admit_with_prefix(self, parent_rid: int, suffix_tokens,
+                          prefix_len: int | None = None) -> int | None:
+        """Branch and prefill the suffix on the parent's shard; None when
+        that shard lacks pages (prefix pages cannot alias across pools, so
+        there is no other shard to try)."""
+        idx, local = self._where[parent_rid]
+        child_local = self.shards[idx].admit_with_prefix(local, suffix_tokens, prefix_len)
+        if child_local is None:
+            return None
+        gid = self._register(idx, child_local)
+        self._gfamily[gid] = (parent_rid, self.shards[idx]._family[child_local][1])
+        return gid
+
+    # -- decode ---------------------------------------------------------- #
+    def step(self) -> None:
+        """One greedy decode step on every shard with live or pending work
+        (a shard with only pending prompts steps too: its budgeted prefill
+        slices advance)."""
+        for shard in self.shards:
+            if shard.active or shard.prefill_pending:
+                shard.step()
+
+    def finish(self, rid: int) -> list[int]:
+        idx, local = self._where.pop(rid)
+        self.active.remove(rid)
+        self.outputs.pop(rid)
+        self._gfamily.pop(rid, None)
+        return self.shards[idx].finish(local)
+
+    # -- recoverable eviction / shard lifecycle -------------------------- #
+    @property
+    def shard_health(self) -> list[str]:
+        """Per-shard lifecycle state: healthy / draining / dead."""
+        return list(self._health)
+
+    def suspend(self, gid: int) -> SuspendedRequest:
+        """Suspend ``gid`` wherever it lives: its shard frees the pages and
+        the replay record moves up to this level, so a resume may land on
+        any shard (``outputs[gid]`` keeps aliasing the record's list)."""
+        if gid not in self.active:
+            raise KeyError(f"request {gid} is not live")
+        idx, local = self._where.pop(gid)
+        rec = self.shards[idx].suspend(local)
+        self.shards[idx].suspended.pop(local, None)
+        self.active.remove(gid)
+        self.suspended[gid] = rec
+        return rec
+
+    def resume(self, gid: int) -> bool:
+        """Re-route and replay one suspended request: onto its fork
+        parent's shard, re-aliasing the prefix, while the parent is live;
+        else where :func:`route_request` sends it.  False when no eligible
+        shard has room yet."""
+        rec = self.suspended.get(gid)
+        if rec is None:
+            raise KeyError(f"request {gid} is not suspended")
+        parent_gid, _rows = self._gfamily.get(gid, (None, 0))
+        if parent_gid is not None and parent_gid in self.active:
+            idx, parent_local = self._where[parent_gid]
+            local = self.shards[idx].adopt_suspended(rec, parent=parent_local)
+        else:
+            idx = self._route(-(-len(rec.tokens) // self._page_size))
+            if idx is None:
+                return False
+            local = self.shards[idx].adopt_suspended(rec, parent=None)
+        if local is None:
+            return False
+        del self.suspended[gid]
+        self._where[gid] = (idx, local)
+        self.active.append(gid)
+        self.outputs[gid] = self.shards[idx].outputs[local]
+        return True
+
+    def resume_pending(self) -> list[int]:
+        """Resume every suspended request that fits, ascending gid (a fork
+        parent before its children); returns the gids that came back."""
+        return [gid for gid in sorted(self.suspended) if self.resume(gid)]
+
+    def discard_suspended(self, gid: int) -> list[int]:
+        """Drop a suspended request for good; returns its output so far."""
+        rec = self.suspended.pop(gid)
+        self.outputs.pop(gid, None)
+        self._gfamily.pop(gid, None)
+        return rec.outputs
+
+    def drain_shard(self, idx: int) -> int:
+        """Stop admitting onto shard ``idx``; its live requests decode to
+        completion.  Returns how many are still draining (a dead shard
+        stays dead)."""
+        if self._health[idx] != "dead":
+            self._health[idx] = "draining"
+        return len(self.shards[idx].active)
+
+    def fail_shard(self, idx: int) -> dict:
+        """Shard loss: mark ``idx`` dead, suspend every live request it
+        held (the prompts and outputs survive on the host), then re-route
+        them at once through :meth:`resume_pending`; those that do not fit
+        stay suspended.  Returns ``{"suspended": [...], "resumed": [...]}``."""
+        if self._health[idx] == "dead":
+            return {"suspended": [], "resumed": []}
+        self._health[idx] = "dead"
+        victims = [g for g in list(self.active) if self._where[g][0] == idx]
+        for gid in victims:
+            self.suspend(gid)
+        return {"suspended": victims, "resumed": self.resume_pending()}
+
+    def attach_shard(self, device=None) -> int:
+        """Grow the fleet: an empty pool slice of every shard's size, on
+        ``device``'s replica of the parameters
+        (:func:`repro_torch.runtime.elastic.serving_params_replica`: the
+        same tensors on their own device, so a logical shard copies no
+        weight), open for routing.  Returns its index; being empty, it
+        takes the next admissions."""
+        self.shards.append(self._new_shard(device))
+        self._health.append("healthy")
+        self.num_shards += 1
+        return len(self.shards) - 1
+
+    # -- chaos hooks ------------------------------------------------------ #
+    def hold_pages(self, n: int, shard: int = 0) -> tuple[int, int]:
+        """Pool-pressure ballast on one shard
+        (:meth:`PagedServingSession.hold_pages`)."""
+        return shard, self.shards[shard].hold_pages(n)
+
+    def release_pages(self, handle: tuple[int, int]) -> None:
+        shard, h = handle
+        self.shards[shard].release_pages(h)
+
+    # -- introspection --------------------------------------------------- #
+    @property
+    def scheduler_stats(self) -> dict:
+        """Summed schedule build/reuse counters across shards."""
+        return {k: sum(s.scheduler_stats[k] for s in self.shards) for k in ("hits", "rebuilds")}
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct prefill chunk shapes across shards (1 with fixed chunks)."""
+        return len(set().union(*(s._prefill_shapes for s in self.shards)))
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured across shards (each shard keys its own)."""
+        return sum(s.graph_captures for s in self.shards)
+
+    @property
+    def work_units(self) -> int:
+        """Summed virtual work clock (decode launches + prefill chunks)."""
+        return sum(s.work_units for s in self.shards)
+
+    @property
+    def prefill_pending(self) -> int:
+        """Admitted prompts not yet prefilled, across shards."""
+        return sum(s.prefill_pending for s in self.shards)
+
+    _SUMMED = (
+        "decode_steps", "request_steps", "query_rows", "accepted_tokens", "page_dmas",
+        "page_dma_bytes", "rows_attended", "aliased_pages", "free_pages", "live_pages",
+        "retained_pages", "trie_hits", "trie_misses", "trie_admissions",
+        "prefix_tokens_reused", "trie_evicted_pages", "suspends", "resumes",
+        "replay_prefill_tokens", "replay_mismatches", "work_units", "prefill_chunks",
+        "prefill_stall_steps", "prefill_pending", "prefill_backlog_tokens", "first_tokens",
+        "ttft_units_total",
+    )
+
+    def work_stats(self) -> dict:
+        """The shards' work counters summed, ``per_shard``, and ``balance``
+        (:func:`~repro_torch.kernels.decode_schedule.shard_work_balance`
+        over per-shard page DMAs).  Ratios are recomputed from the summed
+        counters (a mean of per-shard ratios would weigh an idle shard as
+        much as a busy one)."""
+        from repro_torch.kernels.decode_schedule import shard_work_balance
+
+        per_shard = [s.work_stats() for s in self.shards]
+        agg = {k: sum(st[k] for st in per_shard) for k in self._SUMMED}
+        agg["max_inter_token_units"] = max(st["max_inter_token_units"] for st in per_shard)
+        # Suspended records wait at this level, held by no shard.
+        agg["suspended"] = len(self.suspended)
+        agg["shard_health"] = self.shard_health
+        agg["accepted_tokens_per_step"] = agg["accepted_tokens"] / max(agg["request_steps"], 1)
+        agg["page_dma_bytes_per_accepted_token"] = (
+            agg["page_dma_bytes"] / max(agg["accepted_tokens"], 1))
+        agg["trie_hit_rate"] = agg["trie_hits"] / max(agg["trie_hits"] + agg["trie_misses"], 1)
+        agg["prefix_tokens_reused_per_admission"] = (
+            agg["prefix_tokens_reused"] / max(agg["trie_admissions"], 1))
+        agg["per_shard"] = per_shard
+        agg["balance"] = shard_work_balance([st["page_dmas"] for st in per_shard])
+        return agg
+
+    def reclaim_retained(self, n_pages: int) -> int:
+        """Evict cold retained trie subtrees across shards, fullest pool
+        first, until ``n_pages`` are freed or nothing is freeable; returns
+        the pages freed."""
+        freed = 0
+        for shard in sorted(self.shards, key=lambda s: s.cache.num_free_pages):
+            if freed >= n_pages:
+                break
+            freed += shard.reclaim_retained(n_pages - freed)
+        return freed
+
+    def close(self) -> dict:
+        """Every shard's teardown audit (:meth:`PagedServingSession.close`):
+        each pool must come back fully free."""
+        self.suspended.clear()
+        reports = [s.close() for s in self.shards]
+        self.active.clear()
+        self.outputs.clear()
+        self._where.clear()
+        self._gfamily.clear()
+        return {"free_pages": sum(r["free_pages"] for r in reports), "per_shard": reports}
+
+
 def latency_percentile(samples, q: float) -> float:
     """Nearest-rank percentile (inclusive) of a list of latency samples:
     p99 of 10 samples is the largest, never a blend.  Empty input: 0.0."""
@@ -1091,16 +1520,19 @@ def latency_percentile(samples, q: float) -> float:
 
 
 class ServeSupervisor:
-    """Supervised continuous-batching serve loop over one
-    :class:`PagedServingSession`, with deterministic chaos.
+    """Supervised continuous-batching serve loop over a
+    :class:`PagedServingSession` or a :class:`ShardedPagedServingSession`,
+    with deterministic chaos.
 
     Runs until every submitted request has ``gen_len`` tokens past its
     first or was abandoned.  Between decode steps it:
 
     * applies the due events of a
-      :class:`~repro_torch.runtime.fault_injection.FaultPlan` (slow shard,
-      pool-pressure ballast, abandon; ``shard_loss`` is skipped on one
-      session and counted in ``faults_skipped``);
+      :class:`~repro_torch.runtime.fault_injection.FaultPlan` (shard loss,
+      which fails a healthy shard of a sharded session and re-routes its
+      requests but never takes the last healthy one: on one session it is
+      skipped and counted in ``faults_skipped``; slow shard; pool-pressure
+      ballast on the event's shard; abandon);
     * resumes suspended requests, after a backoff for those it evicted;
     * admits arrived prompts in
       :func:`~repro_torch.kernels.decode_schedule.admission_order`
@@ -1462,14 +1894,20 @@ class ServeSupervisor:
             )
 
     def _suspend_victim(self, steppable: list[int]) -> None:
-        # Evict by SLA: lowest priority class, then most deadline slack,
-        # then most complete, then newest.  A request within
+        # Evict from the fullest pool (a sharded session's shards each have
+        # their own), by SLA: lowest priority class, then most deadline
+        # slack, then most complete, then newest.  A request within
         # ``deadline_guard`` steps of its deadline is spared while any other
         # candidate exists.
         sess, step = self.sess, self.steps
+        if hasattr(sess, "shards"):
+            free = lambda r: sess.shards[sess.shard_of(r)].cache.num_free_pages
+        else:
+            free = lambda r: sess.cache.num_free_pages
         candidates = [r for r in steppable if self._slack(r, step) > self.deadline_guard]
         victim = max(candidates or steppable, key=lambda r: (
-            -self._live[r]["priority"], self._slack(r, step), len(sess.outputs[r]), -r))
+            -free(r), -self._live[r]["priority"], self._slack(r, step),
+            len(sess.outputs[r]), -r))
         sess.suspend(victim)
         hold = self._resume_hold.setdefault(victim, [0, self.backoff_base])
         hold[1] = min(hold[1] * 2, 32)
@@ -1492,17 +1930,36 @@ class ServeSupervisor:
         if self.plan is None or step in self._plan_applied:
             return
         self._plan_applied.add(step)
+        sess = self.sess
         for ev in self.plan.events_at(step):
             if ev.kind == "shard_loss":
-                # One session has no other shard to re-route to: skipped.
-                self.faults_skipped += 1
+                healthy = [i for i, h in enumerate(getattr(sess, "shard_health", []))
+                           if h == "healthy"]
+                if len(healthy) < 2:
+                    # Never kill the last healthy shard (one session has no
+                    # other to re-route to): the skip is counted.
+                    self.faults_skipped += 1
+                    continue
+                target = ev.shard if ev.shard in healthy else healthy[ev.shard % len(healthy)]
+                res = sess.fail_shard(target)
+                self.faults_applied += 1
+                self.events.append(f"step {step}: shard {target} lost — "
+                                   f"{len(res['suspended'])} suspended, "
+                                   f"{len(res['resumed'])} re-routed immediately")
             elif ev.kind == "slow_shard":
                 self._slow = (step + max(1, ev.duration), ev.factor)
                 self.faults_applied += 1
                 self.events.append(f"step {step}: slow shard x{ev.factor:g} for "
                                    f"{max(1, ev.duration)} steps")
             elif ev.kind == "pool_pressure":
-                handle = self.sess.hold_pages(ev.pages)
+                if hasattr(sess, "shards"):
+                    shard = ev.shard % sess.num_shards
+                    if sess.shard_health[shard] != "healthy":
+                        self.faults_skipped += 1
+                        continue
+                    handle = sess.hold_pages(ev.pages, shard=shard)
+                else:
+                    handle = sess.hold_pages(ev.pages)
                 self._ballast.append((step + max(1, ev.duration), handle))
                 self.faults_applied += 1
                 self.events.append(f"step {step}: pool pressure — {ev.pages} pages held "

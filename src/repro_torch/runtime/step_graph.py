@@ -164,15 +164,25 @@ class PagedDecodeStep:
     token per live request, over bf16, fp32 or int8 pages): host staging
     into one set of tensors per key (live batch ``B``, queue capacity),
     then the walk, replayed from a CUDA graph per key on a CUDA device
-    (:class:`StepGraphs`)."""
+    (:class:`StepGraphs`).  Under ``head_shards = h`` the walk attends each
+    of the h chunks of heads with its own K2 and K3 launch, so a graph
+    replays h of each per layer, as the eager walk launches them."""
 
     def __init__(self, params, cache, *, cfg, scheduler, table_width: int, block_k: int,
-                 num_splits: int, compute_dtype=None):
+                 num_splits: int, compute_dtype=None, head_shards: int = 1):
         self.params, self.cache, self.cfg = params, cache, cfg
         self.scheduler = scheduler
         self.table_width, self.block_k, self.num_splits = table_width, block_k, num_splits
         self.compute_dtype = compute_dtype
-        self.graphs = StepGraphs(cache.device)
+        self.head_shards = head_shards
+        self._reset()
+
+    def _reset(self) -> None:
+        """No graphs and no staged tensors, on the cache's device (at
+        construction, and after ``cache.to_device`` moved the pool: the
+        graphs captured its old addresses)."""
+        self._pool = self.cache.pages
+        self.graphs = StepGraphs(self.cache.device)
         self._staged: dict[tuple[int, int], tuple] = {}  # key -> (inputs, queue, schedule)
 
     @property
@@ -201,6 +211,8 @@ class PagedDecodeStep:
                 f"a graphed paged step takes one token per request, (B, 1); got "
                 f"{np.shape(tokens)} (multi-row steps run lm_decode_step_paged)"
             )
+        if self.cache.pages is not self._pool:
+            self._reset()
         plan = _tf.stage_decode_step_paged(
             tokens, cfg=self.cfg, cache=self.cache, rids=rids, scheduler=self.scheduler,
             extra_key=tuple(rids), table_width=self.table_width, block_k=self.block_k,
@@ -221,7 +233,7 @@ class PagedDecodeStep:
             return _tf.decode_walk_paged(
                 self.params, inputs, cfg=self.cfg, cache=self.cache, schedule=queue,
                 block_k=self.block_k, num_splits=self.num_splits,
-                compute_dtype=self.compute_dtype,
+                compute_dtype=self.compute_dtype, head_shards=self.head_shards,
             )
 
         return self.graphs.run(key, walk)

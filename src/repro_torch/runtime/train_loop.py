@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core import tree as _tree
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers
@@ -34,7 +35,7 @@ from repro_torch.optim.adamw import (
     cosine_schedule,
     reference_decay_mask,
 )
-from repro_torch.optim.compression import compress_grads, compression_init, step_generator
+from repro_torch.optim.compression import compress_grads, compression_init
 
 
 class TrainConfig(NamedTuple):
@@ -145,8 +146,8 @@ def make_train_step(model, tc: TrainConfig):
 
         if tc.compression != "none":
             grads, comp_state = compress_grads(
-                grads, comp_state, mode=tc.compression,
-                generator=step_generator(step, first.device))
+                grads, comp_state, mode=tc.compression, cfg=model.cfg,
+                rng=prng.fold_in(prng.prng_key(17, first.device), step))
         lr = cosine_schedule(step, peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps,
                              total_steps=tc.total_steps)
         params, opt_state, metrics = adamw_update(

@@ -1,7 +1,6 @@
 """The port's fault-tolerant serving against the JAX reference
-(``tests/test_fault_tolerance.py`` is the acceptance spec; its sharded,
-routing and training-supervisor cases wait for the port's sharded
-sessions and training slice).
+(``tests/test_fault_tolerance.py`` is the acceptance spec; its
+training-supervisor cases are in ``test_torch_train_loop.py``).
 
 * **Units**: ``FaultEvent`` / ``FaultPlan`` validation and ordering,
   ``FaultPlan.generate(seed)`` giving the reference's ``describe()``, and
@@ -20,6 +19,13 @@ sessions and training slice).
   backoff, deadlines, pool pressure, abandon and slow-shard plans, and a
   ``shard_loss`` event is skipped on the one session; the supervised
   launch loop prints the reference's lines.
+* **Shard lifecycle** on two logical shards
+  (``ShardedPagedServingSession``): ``drain_shard`` stops admissions and
+  keeps the live ones, ``attach_shard`` takes the next admission,
+  ``fail_shard`` re-routes a shard's requests (a fork family together,
+  re-aliasing its prefix), and the supervisor under ``shard_loss`` (never
+  the last healthy shard), per-shard pool pressure and a seeded mid-stream
+  loss gives the fault-free streams, on both packages alike.
 """
 
 import argparse
@@ -91,9 +97,22 @@ def make_pair(models, **kw):
             port_loop.PagedServingSession(model, params, **kw))
 
 
+def make_sharded_pair(models, **kw):
+    """A reference and a port two-shard session on the same weights."""
+    (ref_model, ref_params), (model, params) = models
+    kw.setdefault("num_pages", 64)
+    kw.setdefault("shards", 2)
+    kw.setdefault("page_size", PAGE)
+    kw.setdefault("block_k", BLOCK_K)
+    kw.setdefault("prefill_chunk", CHUNK)
+    return (ref_loop.ShardedPagedServingSession(ref_model, ref_params, **kw),
+            port_loop.ShardedPagedServingSession(model, params, **kw))
+
+
 def pkg(sess):
     """The package a session comes from (its serve_loop module)."""
-    return port_loop if isinstance(sess, port_loop.PagedServingSession) else ref_loop
+    port = (port_loop.PagedServingSession, port_loop.ShardedPagedServingSession)
+    return port_loop if isinstance(sess, port) else ref_loop
 
 
 def prompts_for(seed, lengths):
@@ -101,13 +120,17 @@ def prompts_for(seed, lengths):
     return [rng.integers(2, CFG.vocab_size, size=n).tolist() for n in lengths]
 
 
+def _caches(sess):
+    return [s.cache for s in sess.shards] if hasattr(sess, "shards") else [sess.cache]
+
+
 def pool_state(sess):
-    """The free list (in order) and every page's refcount."""
-    return list(sess.cache._free), sess.cache._ref.tolist()
+    """Every pool's free list (in order) and every page's refcount."""
+    return [(list(c._free), c._ref.tolist()) for c in _caches(sess)]
 
 
 def live_pages(sess):
-    return sess.cache.refcount_sweep()["live_pages"]
+    return sum(c.refcount_sweep()["live_pages"] for c in _caches(sess))
 
 
 # --------------------------------------------------------------------------- #
@@ -492,3 +515,169 @@ def test_serve_supervised_prints_the_reference_lines(pallas_interpret, models, c
         lines.append(keep)
     assert lines[1] == lines[0]
     assert "chaos plan (seed 5)" in lines[1][0] and len(lines[1]) > 6
+
+
+# --------------------------------------------------------------------------- #
+# shard lifecycle: drain / fail / attach, and the supervisor over shards
+# --------------------------------------------------------------------------- #
+
+
+def test_drain_shard_stops_admission_keeps_live(pallas_interpret, models):
+    outs = []
+    for sess in make_sharded_pair(models):
+        rids = [sess.add_request(p) for p in prompts_for(8, [10, 12])]
+        assert {sess.shard_of(r) for r in rids} == {0, 1}  # routing spread them
+        assert sess.drain_shard(1) == 1
+        assert sess.shard_health == ["healthy", "draining"]
+        more = [sess.add_request(p) for p in prompts_for(9, [8, 8])]
+        assert all(sess.shard_of(r) == 0 for r in more)  # only the healthy shard admits
+        victim = next(r for r in rids if sess.shard_of(r) == 1)
+        sess.step()
+        assert len(sess.outputs[victim]) == 2  # the draining shard still decodes
+        outs.append([sess.finish(victim)] + [list(sess.outputs[r]) for r in rids + more
+                                             if r != victim])
+        assert sess.drain_shard(1) == 0  # idempotent; now empty
+        outs.append((sess.work_stats(), pool_state(sess)))
+    assert outs[2:] == outs[:2]
+
+
+def test_attach_shard_grows_fleet_and_takes_traffic(pallas_interpret, models):
+    outs = []
+    for sess in make_sharded_pair(models):
+        for p in prompts_for(10, [10, 12]):
+            sess.add_request(p)
+        idx = sess.attach_shard()
+        assert idx == 2 and sess.num_shards == 3
+        assert sess.shard_health == ["healthy"] * 3
+        assert sess.shards[idx].cache.num_pages == sess._pages_per_shard
+        rid = sess.add_request(prompts_for(11, [9])[0])  # the empty shard wins
+        assert sess.shard_of(rid) == idx
+        sess.step()
+        assert len(sess.outputs[rid]) == 2
+        ws = sess.work_stats()
+        assert len(ws["per_shard"]) == 3 and len(ws["shard_health"]) == 3
+        outs.append((ws, pool_state(sess), sess.close()))
+    assert outs[1] == outs[0]
+
+
+def test_fail_shard_reroutes_to_survivor(pallas_interpret, models):
+    outs = []
+    for sess in make_sharded_pair(models):
+        rids = [sess.add_request(p) for p in prompts_for(12, [10, 12, 14])]
+        sess.step()
+        lost = [r for r in rids if sess.shard_of(r) == 1]
+        assert lost
+        res = sess.fail_shard(1)
+        assert res["suspended"] == lost and res["resumed"] == lost
+        assert sess.shard_health == ["healthy", "dead"]
+        assert all(sess.shard_of(r) == 0 for r in rids)
+        views = {r: sess.outputs[r] for r in rids}  # the same lists keep growing
+        sess.step()
+        assert all(len(views[r]) == 3 for r in rids)
+        assert sess.shards[1].cache.refcount_sweep()["live_pages"] == 0
+        assert sess.fail_shard(1) == {"suspended": [], "resumed": []}
+        ws = sess.work_stats()
+        assert ws["replay_mismatches"] == 0
+        outs.append(([sess.finish(r) for r in rids], ws))
+        assert live_pages(sess) == 0
+    assert outs[1] == outs[0]
+
+
+def test_fail_shard_keeps_fork_family_together(pallas_interpret, models):
+    outs = []
+    for sess in make_sharded_pair(models, num_pages=128):
+        parent = sess.add_request(prompts_for(13, [40])[0])
+        child = sess.admit_with_prefix(parent, prompts_for(14, [8])[0], 32)
+        assert sess.shard_of(child) == sess.shard_of(parent)
+        home = sess.shard_of(parent)
+        sess.step()
+        res = sess.fail_shard(home)
+        assert set(res["resumed"]) == {parent, child}
+        new_home = sess.shard_of(parent)
+        assert new_home != home and sess.shard_of(child) == new_home
+        # the prefix is aliased again on the new shard, not recomputed twice
+        assert sess.shards[new_home].cache.num_aliased_pages() > 0
+        sess.step()
+        outs.append(([sess.finish(r) for r in (parent, child)], pool_state(sess)))
+        assert live_pages(sess) == 0
+    assert outs[1] == outs[0]
+
+
+def test_supervisor_never_kills_last_healthy_shard(pallas_interpret, models):
+    outs = []
+    for sess, fi in zip(make_sharded_pair(models), (ref_fi, port_fi)):
+        plan = fi.FaultPlan([fi.FaultEvent(step=1, kind="shard_loss", shard=0),
+                             fi.FaultEvent(step=2, kind="shard_loss", shard=1)])
+        got = supervise(sess, prompts_for(21, [10, 12, 9]), gen_len=4, plan=plan)
+        st = got[1]
+        assert st["faults_applied"] == 1 and st["faults_skipped"] == 1
+        assert sess.shard_health.count("healthy") == 1
+        outs.append(got)
+    assert outs[1] == outs[0]
+
+
+def test_sharded_pool_pressure_and_victims_by_fullest_shard(pallas_interpret, models):
+    """Pool pressure on one shard of two: its ballast is held there, the
+    supervisor evicts from the fullest pool, and the streams equal the
+    calm run's; both packages alike."""
+    prompts = prompts_for(18, [15, 31, 14, 29])
+    calm = supervise(make_sharded_pair(models, num_pages=24)[1], prompts, gen_len=6)[0]
+    outs = []
+    for sess, fi in zip(make_sharded_pair(models, num_pages=24), (ref_fi, port_fi)):
+        plan = fi.FaultPlan([fi.FaultEvent(step=1, kind="pool_pressure", pages=8, duration=3,
+                                           shard=1)])
+        outs.append(supervise(sess, prompts, gen_len=6, plan=plan))
+    assert outs[1] == outs[0]
+    results, st = outs[1][:2]
+    assert st["faults_applied"] == 1 and st["suspends"] >= 1
+    assert st["resumes"] == st["suspends"] and st["replay_mismatches"] == 0
+    assert results == calm
+
+
+@pytest.mark.parametrize("kv_dtype, speculate", [(None, "off"), ("int8", "ngram")])
+def test_shard_loss_recovery_bit_identical(pallas_interpret, models, kv_dtype, speculate):
+    """A seeded plan kills one of two shards mid-stream: every live request
+    is suspended, re-routed and replayed, and completes with the fault-free
+    run's greedy tokens (the common prefix: speculation may overshoot
+    gen_len by up to draft_k - 1); no page leaks; the port's run equals the
+    reference's."""
+    prompts = prompts_for(22, [24, 17, 9, 30])
+    gen = 8
+    kw = dict(kv_dtype=kv_dtype, speculate=speculate, draft_k=3)
+    base = supervise(make_sharded_pair(models, **kw)[1], prompts, gen_len=gen)[0]
+    outs = []
+    for sess, fi in zip(make_sharded_pair(models, **kw), (ref_fi, port_fi)):
+        plan = fi.FaultPlan([fi.FaultEvent(step=3, kind="shard_loss", shard=1)])
+        outs.append(supervise(sess, prompts, gen_len=gen, plan=plan))
+        assert sess.shard_health == ["healthy", "dead"]
+    assert outs[1] == outs[0]
+    faulted, stats = outs[1][:2]
+    assert sorted(faulted) == sorted(base) == list(range(len(prompts)))
+    assert stats["abandoned"] == 0 and stats["suspends"] >= 1
+    assert stats["resumes"] == stats["suspends"] and stats["replay_mismatches"] == 0
+    for i in base:
+        n = min(len(base[i]), len(faulted[i]))
+        assert n >= gen and base[i][:n] == faulted[i][:n], f"request {i} diverged"
+
+
+def test_serve_supervised_sharded_prints_the_reference_lines(pallas_interpret, models,
+                                                             capsys):
+    """``launch/serve._serve_supervised`` over two-shard sessions of both
+    packages under a generated chaos plan of two shards: the same plan,
+    requests, counters, shard health and events."""
+    from repro.launch.serve import _serve_supervised as ref_supervised
+
+    prompts = prompts_for(23, [10, 31, 15, 20])
+    args = argparse.Namespace(chaos=3, gen_len=5, deadline=None, priority_classes=None,
+                              requests=len(prompts))
+    lines = []
+    for sess, fn in zip(make_sharded_pair(models, num_pages=32),
+                        (ref_supervised, serve._serve_supervised)):
+        fn(sess, [list(p) for p in prompts], args)
+        out = capsys.readouterr().out
+        lines.append([re.sub(r"\d+ straggler events", "N straggler events", line)
+                      for line in out.splitlines()
+                      if line.startswith(("chaos plan", "request ", "supervision:", "latency",
+                                          "shard health", "  "))])
+    assert lines[1] == lines[0]
+    assert "shard_loss" in lines[1][0] and any("lost" in x for x in lines[1])

@@ -200,7 +200,29 @@ def test_model_hooks_and_unported_paths(weights):
     cache = model.init_paged_cache(params, num_pages=4, page_size=PAGE)
     assert cache.pages.shape == (CFG.n_layers, 4, PAGE, 80) and cache.pages.dtype == torch.float32
     assert model.layer_params(params) is params["layers"]
-    with pytest.raises(NotImplementedError, match="head_shards"):
-        tf.lm_prefill_paged(params, [1, 2], cfg=CFG, cache=cache, rid=0, head_shards=2)
+    # head chunks (tensor-parallel head groups): each chunk of heads is its
+    # own K2 + K3 call over the one schedule, and a row does not depend on
+    # its neighbours, so two chunks give the unchunked logits.  On the card
+    # that holds bit for bit (chip_smoke.py); here the plain version's
+    # matmuls over 2 and 4 query rows may block differently in the CPU's
+    # BLAS (measured: the decode step's logits 1.2e-4 apart at |logit| 22),
+    # so the logits are held within 1e-5 of their largest magnitude and
+    # the greedy picks equal
+    prompt = np.random.default_rng(8).integers(2, CFG.vocab_size, size=37).tolist()
+    out = []
+    for h in (1, 2):
+        c = model.init_paged_cache(params, num_pages=NUM_PAGES, page_size=PAGE)
+        c.alloc(0)
+        kw = dict(cfg=CFG, cache=c, table_width=NUM_PAGES, block_k=BLOCK_K,
+                  compute_dtype=torch.float32, head_shards=h)
+        first = tf.lm_prefill_paged(params, prompt, rid=0, chunk=CHUNK, **kw)
+        step = tf.lm_decode_step_paged(params, np.asarray([[5]]), rids=[0], **kw)
+        out.append((first, step))
+    for a, b in zip(out[0], out[1]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+    cache.alloc(0)
+    with pytest.raises(ValueError, match="must divide n_heads"):
+        tf.lm_prefill_paged(params, [1, 2], cfg=CFG, cache=cache, rid=0, head_shards=3)
     with pytest.raises(ValueError, match="no MLA geometry"):
         tf.check_paged_compatible(dataclasses.replace(CFG, mla=None))

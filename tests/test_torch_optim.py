@@ -5,11 +5,11 @@ CPU; and the reference's weight-decay rule on its stacked tree.
 Tolerances: AdamW steps on the same fp32 inputs within 1e-6 of each
 leaf's largest magnitude (the same fp32 arithmetic; ``sqrt`` and ``pow``
 may differ in the last place); the schedule within 1e-6 relative; bf16
-compression bit for bit.  int8 compression draws its rounding noise from
-a ``torch.Generator`` (JAX's threefry bits are not reproduced), so it is
-held by its properties: values on the per-tensor grid, within one grid
-step of the input, reproducible from the seed, unbiased under error
-feedback.
+and int8 compression bit for bit (int8 draws its rounding noise from
+JAX's threefry keys, ``repro_torch.core.prng``; converted trees in
+``test_torch_prng.py``), and int8 by its properties too: values on the
+per-tensor grid, within one grid step of the input, reproducible from the
+key, unbiased under error feedback.
 
 The decay caveat the port reproduces: the reference decays by ``ndim >=
 2`` on its tree, where every leaf of a scanned layer group is stacked
@@ -30,7 +30,7 @@ from repro.optim import adamw as ref_adamw
 from repro.optim import compression as ref_comp
 from repro_torch.configs import get_config
 from repro_torch.convert import convert_opt_state, convert_params
-from repro_torch.core import tree
+from repro_torch.core import prng, tree
 from repro_torch.optim import adamw, compression
 
 STEP_TOL = 1e-6
@@ -184,7 +184,7 @@ def test_compression_error_feedback_unbiased(mode):
     total, n = torch.zeros(64), 50
     for i in range(n):
         gc, state = compression.compress_grads({"w": g_true}, state, mode=mode,
-                                               generator=compression.step_generator(i, "cpu"))
+                                               rng=prng.fold_in(prng.prng_key(17), i))
         total = total + gc["w"]
     err = torch.linalg.norm(total - n * g_true) / torch.linalg.norm(n * g_true)
     assert float(err) < 0.05, float(err)
@@ -198,7 +198,7 @@ def test_bf16_compression_matches_reference():
     for i in range(3):
         g = tree.tree_map(lambda x: x * (1 + i), random_tree(20 + i))
         gc, state = compression.compress_grads(tree.tree_map(torch.from_numpy, g), state,
-                                               mode="bf16")
+                                               mode="bf16", rng=prng.prng_key(i))
         jgc, jstate = ref_comp.compress_grads(tree.tree_map(jnp.asarray, g), jstate, mode="bf16",
                                               rng=jax.random.PRNGKey(i))
         for a, b in zip(tree.leaves(gc), jax.tree.leaves(jgc)):
@@ -210,18 +210,22 @@ def test_bf16_compression_matches_reference():
 def test_int8_compression_properties():
     g = torch.from_numpy(np.random.default_rng(4).normal(size=(32, 16)).astype(np.float32))
     state = compression.compression_init({"w": g}, "int8")
-    out, new = compression.compress_grads({"w": g}, state, mode="int8",
-                                          generator=compression.step_generator(7, "cpu"))
+    step_key = lambda step: prng.fold_in(prng.prng_key(17), step)
+    out, new = compression.compress_grads({"w": g}, state, mode="int8", rng=step_key(7))
     scale = float(g.abs().max()) / 127.0
     q = out["w"] / scale
     assert torch.allclose(q, torch.round(q), atol=1e-4)  # on the per-tensor grid
     assert float((out["w"] - g).abs().max()) <= scale * (1 + 1e-5)  # within one step
     assert torch.equal(new.residual["w"], g - out["w"])  # error feedback
-    again, _ = compression.compress_grads({"w": g}, state, mode="int8",
-                                          generator=compression.step_generator(7, "cpu"))
-    other, _ = compression.compress_grads({"w": g}, state, mode="int8",
-                                          generator=compression.step_generator(8, "cpu"))
+    again, _ = compression.compress_grads({"w": g}, state, mode="int8", rng=step_key(7))
+    other, _ = compression.compress_grads({"w": g}, state, mode="int8", rng=step_key(8))
     assert torch.equal(again["w"], out["w"]) and not torch.equal(other["w"], out["w"])
+    # the reference's draw from the same key, bit for bit
+    jout, jnew = ref_comp.compress_grads(
+        {"w": jnp.asarray(g.numpy())}, ref_comp.compression_init({"w": jnp.zeros((32, 16))}, "int8"),
+        mode="int8", rng=jax.random.fold_in(jax.random.PRNGKey(17), 7))
+    np.testing.assert_array_equal(out["w"].numpy(), np.asarray(jout["w"]))
+    np.testing.assert_array_equal(new.residual["w"].numpy(), np.asarray(jnew.residual["w"]))
     assert compression.compression_init({"w": g}, "none") is None
     with pytest.raises(ValueError, match="unknown compression mode"):
         compression.compression_init({"w": g}, "fp8")

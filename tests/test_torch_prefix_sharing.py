@@ -290,14 +290,24 @@ def test_ops_rejects_mismatched_schedule_and_partials():
 
 
 def test_return_partials_is_not_ported():
-    """Per-row partials serve sharded serving, which is not ported: the
-    plain queue raises; padded and prefix-sharing calls raise the
-    reference's ValueError (see test_ops_rejects_mismatched_schedule_and_partials)."""
-    q = torch.from_numpy(bf16ish((1, 1, 2, 64), 1))
-    pool = torch.from_numpy(bf16ish((4, 32, 64), 2))
-    with pytest.raises(NotImplementedError, match="sharded serving"):
-        ops.mla_decode_paged(q, pool, torch.zeros((1, 4), dtype=torch.int32), [40], d_v=32,
-                             scale=0.1, return_partials=True)
+    """``return_partials`` on the plain queue returns ``(o, lse)``: ``o``
+    equal to the call without it, and the per-row lse of the combined
+    output (the softmax's normaliser over the request's keys), ``-inf`` for
+    an empty request.  Padded and prefix-sharing calls raise the
+    reference's ValueError (test_ops_rejects_mismatched_schedule_and_partials)."""
+    q = torch.from_numpy(bf16ish((3, 1, 2, 64), 1))
+    pool = torch.from_numpy(bf16ish((6, 32, 64), 2))
+    bt = torch.tensor([[0, 1, 2], [3, 4, 5], [0, 0, 0]], dtype=torch.int32)
+    kw = dict(d_v=32, scale=0.1, block_k=32, num_splits=2, compute_dtype=torch.float32)
+    lens = [70, 40, 0]
+    want = ops.mla_decode_paged(q, pool, bt, lens, **kw)
+    o, lse = ops.mla_decode_paged(q, pool, bt, lens, return_partials=True, **kw)
+    assert torch.equal(o, want) and lse.shape == (3, 1, 2)
+    for b, n in enumerate(lens[:2]):
+        rows = pool[bt[b].long()].reshape(-1, 64)[:n]
+        s = (q[b, 0] @ rows.T) * 0.1  # (heads, keys), every key visible at the last row
+        assert torch.allclose(lse[b, 0], torch.logsumexp(s, dim=-1), atol=1e-5)
+    assert torch.equal(lse[2], torch.full((1, 2), -torch.inf))
 
 
 # --------------------------------------------------------------------------- #

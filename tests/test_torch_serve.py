@@ -151,8 +151,12 @@ def test_admission_validation_and_unported_options(models):
     assert sess.add_request(prompts_for(9, (PAGE,))[0]) is None
     with pytest.raises(KeyError):
         sess.finish(7)
-    with pytest.raises(NotImplementedError, match="sharded-serving slice"):
-        PagedServingSession(model, params, num_pages=4, page_size=PAGE, head_shards=2)
+    # ported since: head chunks (held against the reference in
+    # test_torch_sharded_serving.py), which must divide the heads
+    assert PagedServingSession(model, params, num_pages=4, page_size=PAGE,
+                               head_shards=2).head_shards == 2
+    with pytest.raises(ValueError, match="must divide"):
+        PagedServingSession(model, params, num_pages=4, page_size=PAGE, head_shards=3)
     # ported since: budgeted interleaving (held against the reference in
     # test_torch_interleaved_prefill.py), whose budget must cover a chunk
     sb = PagedServingSession(model, params, num_pages=4, page_size=PAGE, block_k=BLOCK_K,

@@ -29,7 +29,11 @@ from repro_torch.kernels import mla_decode_paged as port_paged
 from repro_torch.models import moe
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime import step_graph
-from repro_torch.runtime.serve_loop import PagedServingSession, ServingSession
+from repro_torch.runtime.serve_loop import (
+    PagedServingSession,
+    ServingSession,
+    ShardedPagedServingSession,
+)
 
 TOL = 2e-3
 PAGE, BLOCK_K = 16, 32
@@ -298,3 +302,65 @@ def test_moe_bf16_products_on_card_match_cpu(cuda_device):
     assert got.dtype == torch.float32
     err = (got.cpu() - want).abs().max() / want.abs().max()
     assert err <= 1e-4, f"max |card - CPU| / max |CPU| = {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sharded_head_chunks_graph_matches_eager_walk(cuda_device, dtype):
+    """Two logical shards with two head chunks each: every shard replays
+    graphs of a walk that launches K2 and K3 once per head chunk; tokens
+    and logits equal the eager walk's, and the replays count the eager
+    walk's launches."""
+    model, params = params_for("deepseek-v2-mla", dtype)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, model.cfg.vocab_size, size=n).tolist() for n in (5, 30, 62, 17)]
+    runs = []
+    for graphs in (True, False):
+        sess = ShardedPagedServingSession(model, params, shards=2, head_shards=2, num_pages=40,
+                                          page_size=PAGE, block_k=BLOCK_K, num_splits=2,
+                                          prefill_chunk=16)
+        seen = []
+        for shard in sess.shards:
+            if not graphs:
+                run_eagerly(shard)
+            seen.append(record_logits(shard))
+        rids = [sess.add_request(p) for p in prompts]
+        before = step_graph.launch_counts()
+        for _ in range(8):
+            sess.step()
+        after = step_graph.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        runs.append(([list(sess.outputs[r]) for r in rids], seen, delta,
+                     [s.graph_captures for s in sess.shards]))
+    (g_out, g_seen, g_delta, g_caps), (e_out, e_seen, e_delta, e_caps) = runs
+    assert g_out == e_out and g_delta == e_delta
+    assert min(g_caps) >= 1 and e_caps == [0, 0]
+    worst = max((a - b).abs().max().item()
+                for gs, es in zip(g_seen, e_seen) for a, b in zip(gs, es))
+    print(f"max |graph - eager| = {worst:.3e}")
+    assert worst <= TOL
+    # 2 layers x 8 steps x 2 shards x 2 head chunks
+    assert g_delta["mla_decode_paged_queue_rows", "launches"] == 2 * 8 * 2 * 2
+    assert g_delta["combine_split_partials", "launches"] == 2 * 8 * 2 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [8, 64, 256])
+def test_head_chunks_of_k2_are_bit_equal(cuda_device, g):
+    """K2 + K3 over each half of the query rows equals the matching rows of
+    the call over all of them, bit for bit (bf16 rows on the tensor-core
+    body; at G 256 the tile height changes between the full call and its
+    halves when the grid is near the SM count)."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator("cuda").manual_seed(g)
+    q = torch.randn((3, 1, g, 80), generator=gen, device="cuda").to(torch.bfloat16)
+    pool = torch.randn((24, PAGE, 80), generator=gen, device="cuda").to(torch.bfloat16)
+    bt = torch.arange(24, dtype=torch.int32, device="cuda").reshape(3, 8)
+    kw = dict(d_v=64, scale=0.1, block_k=BLOCK_K, num_splits=2)
+    lens = [100, 7, 128]
+    full, lse = ops.mla_decode_paged(q, pool, bt, lens, return_partials=True, **kw)
+    for lo, hi in ((0, g // 2), (g // 2, g)):
+        part, plse = ops.mla_decode_paged(q[:, :, lo:hi].contiguous(), pool, bt, lens,
+                                          return_partials=True, **kw)
+        assert torch.equal(part, full[:, :, lo:hi]) and torch.equal(plse, lse[:, :, lo:hi])
