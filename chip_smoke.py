@@ -216,9 +216,35 @@ root) and exits nonzero on any failure:
     grows by its pool only) taking the next admission, every pool free at
     the teardown; (e) ``ServeSupervisor`` under a ``shard_loss``: every
     result complete, ``replay_mismatches`` 0.
+27. **Split-KV kernel check** (with the other kernel phases):
+    ``core.distributed.gqa_split_kv_decode`` (K6 with ``return_partials``
+    per sequence shard, one LSE merge) at qwen2.5-3b's decode (B 4, 16 / 2
+    heads x 128, kv_len 4096 / 8192 / 16384 / 32000 of a 32768-row cache)
+    over 1, 2 and 4 logical shards, bf16 and fp32, amla and base, against
+    its plain version and the monolithic K6 (+ K3) call, per request row
+    within 5e-3 of the row's norm (and the absolute TOL); two wrong merges
+    of the same partials must fail that gate; K6 without partials
+    bit-equal to its partials merged by K3; timed beside its bound, the
+    plain version and one SDPA call.
+28. **Small seqkv reference**: smoke qwen2.5-3b (fp32) decoded under
+    ``mesh_ctx(seqkv)`` over 4 logical shards on the card and the CPU:
+    tokens equal.
+29. **seqkv phase** (after the vlm / encdec phase): qwen2.5-3b at full
+    width (36 layers, bf16, seed 0), 4 prompts of 4096-32000 tokens in a
+    ``ServingSession(batch 4, max_len 32768)``, then 16 greedy steps from
+    that cache plain and through ``jit_serve_fns``' decode (inputs placed
+    once on the 1 x 1 nccl mesh) under ``mesh_ctx(seqkv)`` over 1 x 1, 1 x
+    2 and 1 x 4 logical shards: ms/step, K6 = layers x steps x shards and
+    no K3, the first step's logits within 2e-2 of the largest plain
+    logit, at least 60 of the 64 tokens equal to plain's.  Train (c') in
+    23: 3 ``jit_train_step`` steps on the 1 x 1 nccl mesh from (c)'s
+    state, each bit-equal to ``make_train_step``'s, and
+    ``reshard_train_state`` bit-equal, timed.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
-``--k3-only`` (the build and phase 8).
+``--k3-only`` (the build and phase 8), or ``--k6-ab OTHER_TREE/src``
+(K6 without partials at phase 27's shapes from both trees, bit for bit:
+:func:`k6_ab`).
 """
 
 from __future__ import annotations
@@ -4328,8 +4354,8 @@ def train_serve_handoff(cfg, model, params, opt):
 
 def train_phases(card):
     """(a)-(d) on ``card`` (its name and power limit).  Returns (worst
-    forward error of (a), main-path launches of K7, K6 and K3 in (c) and
-    (d))."""
+    forward error of (a), main-path launches of K7, K6 and K3 in (c), (c')
+    and (d))."""
     t0 = time.perf_counter()
     worst = train_attention_check()
     release()
@@ -4338,11 +4364,471 @@ def train_phases(card):
     int8_compression_check()
     release()
     cfg, model, params, opt, (k7, k6, k3) = train_phase(card)
+    k7m, k6m, k3m = mesh_train_check(cfg, model, params, opt)
+    release()
     k7d, k6d, k3d = train_serve_handoff(cfg, model, params, opt)
     del params, opt
     release()
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
-    return worst, (k7 + k7d, k6 + k6d, k3 + k3d)
+    return worst, (k7 + k7m + k7d, k6 + k6m + k6d, k3 + k3m + k3d)
+
+
+# --------------------------------------------------------------------------- #
+# the mesh side: split-KV decode, seqkv serving, the 1 x 1 mesh factories
+# --------------------------------------------------------------------------- #
+SPLIT_KV_LENS = (4096, 8192, 16384, 32000)  # qwen2.5-3b, batch 4 over a 32768-row cache
+SPLIT_KV_SHARDS = (1, 2, 4)
+SPLIT_KV_REL = 5e-3  # tests/test_perf_paths.py's rel_err bound, here per request row
+SEQKV_MIN_TOKENS = 60  # of the seqkv phase's 4 x 16 greedy tokens equal to plain's
+
+
+def split_kv_inputs(dtype, b=4, s=32768):
+    """qwen2.5-3b's decode step (16 / 2 heads of 128): q (B, 1, 16, 128)
+    at the last position below each kv_len, a (B, 2, S, 128) cache."""
+    _, hq, hkv, dh, _, _ = GQA_GEOMETRIES[1]
+    q = randn((b, 1, hq, dh), 700, dtype)
+    k = randn((b, hkv, s, dh), 701, dtype)
+    v = randn((b, hkv, s, dh), 702, dtype)
+    lens = torch.as_tensor(SPLIT_KV_LENS, device="cuda")
+    return q, k, v, lens, dict(scale=1.0 / math.sqrt(dh), kv_len=lens, q_offset=lens - 1)
+
+
+def k6_outputs(dtype=torch.bfloat16):
+    """K6 without partials (and, over more than one split, K3) at the
+    split-KV shapes, amla and base: {variant: (B, Hkv, G, Dh) fp32}.  Run
+    under another tree's ``src`` first on ``sys.path``, it gives that tree's
+    numbers for a bit-for-bit A/B."""
+    from repro_torch.kernels import gqa_decode as gd
+
+    q, k, v, lens, kw = split_kv_inputs(dtype)
+    b, _, hq, dh = q.shape
+    hkv = k.shape[1]
+    rows = q.reshape(b, hkv, hq // hkv, dh)  # Sq = 1: row j of head h is query head h * G + j
+    pos = (lens - 1)[:, None].expand(b, hq // hkv).to(torch.int32)
+    return {var: gd.gqa_decode_rows(rows, k, v, lens, pos, variant=var, scale=kw["scale"])
+            for var in ("amla", "base")}
+
+
+class plain_k6:
+    """Within it, the split-KV decode's K6 is its plain version walked in
+    the kernel's own splits (``attend_plain`` on the card's tensors)."""
+
+    def __enter__(self):
+        from repro_torch.core import distributed as dist
+        from repro_torch.kernels import gqa_decode as gd
+
+        def plain(q, k, v, kv_len, q_pos, *, block_k, return_partials, **kw):
+            blk = min(block_k, max(k.shape[2], 128))
+            return gd.attend_plain(q, k, v, kv_len, q_pos, block_k=blk,
+                                   num_splits=gd.split_count(q, k, blk),
+                                   return_partials=return_partials, **kw)
+
+        self.dist, self.kernel = dist, dist.gqa_decode_rows
+        dist.gqa_decode_rows = plain
+
+    def __exit__(self, *exc):
+        self.dist.gqa_decode_rows = self.kernel
+
+
+def k6_ab(other_src):
+    """K6 without partials (:func:`k6_outputs`, bf16 and fp32, amla and
+    base) from another tree's ``src`` and from this one's, in the order
+    other, this, this, other, each in a process of its own with its tree's
+    ``src`` first on ``sys.path`` (each tree builds its own library under
+    its own ``build/``).  Prints the sha256 of every output; returns
+    whether all four runs are equal bit for bit."""
+    import hashlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, "build", "k6_ab")
+    os.makedirs(out_dir, exist_ok=True)
+    trees = {"other": os.path.abspath(other_src), "this": os.path.join(here, "src")}
+    log(f"== K6 A/B: {trees['other']} against {trees['this']} (other, this, this, other) ==")
+    runs = []
+    for i, name in enumerate(("other", "this", "this", "other")):
+        path = os.path.join(out_dir, f"{i}_{name}.pt")
+        code = ("import sys, torch; sys.path[:0] = [%r, %r]; import chip_smoke as c; "
+                "torch.save({f'{d} {v}': t.cpu() for d in (torch.bfloat16, torch.float32) "
+                "for v, t in c.k6_outputs(d).items()}, %r)" % (trees[name], here, path))
+        subprocess.run([sys.executable, "-c", code], check=True, cwd=here)
+        got = torch.load(path)
+        digest = {key: hashlib.sha256(t.numpy().tobytes()).hexdigest() for key, t in got.items()}
+        log(f"  run {i} ({name}): " + ", ".join(f"{k} {h[:16]}" for k, h in digest.items()))
+        runs.append(digest)
+    same = all(r == runs[0] for r in runs)
+    log(f"  K6 without partials bit-equal across the two trees and their repeats: {same}")
+    return same
+
+
+def split_kv_row_errors(got, ref):
+    """Errors scaled by each request row's own output (a row's values
+    shrink as 1 / sqrt(kv_len): ~0.01 at 32000 random keys): the worst over
+    rows b of ||got_b - ref_b|| / ||ref_b|| and of max |got_b - ref_b| /
+    max |ref_b|, and max |got - ref|."""
+    d = (got - ref).double().reshape(got.shape[0], -1)
+    r = ref.double().reshape(ref.shape[0], -1)
+    rel = (d.norm(dim=1) / r.norm(dim=1).clamp_min(1e-30)).max().item()
+    top = (d.abs().amax(dim=1) / r.abs().amax(dim=1).clamp_min(1e-30)).max().item()
+    return rel, top, d.abs().max().item()
+
+
+def split_kv_kernel_check(flush):
+    """(a) Split-KV decode (``core.distributed.gqa_split_kv_decode``: K6
+    with ``return_partials`` per sequence shard + one LSE merge) at
+    qwen2.5-3b's decode shape over 1, 2 and 4 logical shards of a 32768-row
+    cache, bf16 and fp32, amla and base: against its plain version (K6's
+    plain version in the kernel's splits, the same merge) and the
+    monolithic K6 (+ K3) call rounded to the output's dtype; K6 without
+    partials bit-equal to its partials merged by K3 (the parent's path).
+    Gate: per request row, ||err|| within SPLIT_KV_REL of ||ref|| (the
+    output's scale falls with kv_len, so an absolute bound alone would pass
+    a wrong merge at 32000 keys), and max |err| within the absolute TOL.
+    The gate must reject two wrong merges of the monolithic call's own
+    split partials (lse weights ignored, one split left out), or the check
+    fails: they show that it can.  bf16 amla timed behind the 2 ms sleep
+    beside the monolithic call, the plain version and one SDPA call.
+    Returns (worst absolute error per kind, {n: (ms, plain ms, bound ms,
+    bound by, SDPA ms)}, monolithic ms)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as comb
+    from repro_torch.launch.mesh import logical_mesh
+
+    log("== split-KV kernel check: qwen2.5-3b decode (B 4, 16 / 2 heads x 128, a "
+        f"{split_kv_inputs.__defaults__[1]}-row cache, kv_len {SPLIT_KV_LENS}) over "
+        f"{SPLIT_KV_SHARDS} logical sequence shards; gate per request row: rel "
+        f"<= {SPLIT_KV_REL:g}, max |err| <= TOL ==")
+    worst, timed = {}, {}
+    mono_ms = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, lens, kw = split_kv_inputs(dtype)
+        b, _, hq, dh = q.shape
+        hkv, g = k.shape[1], hq // k.shape[1]
+        rows = q.reshape(b, hkv, g, dh)
+        pos = (lens - 1)[:, None].expand(b, g).to(torch.int32)
+        mono = k6_outputs(dtype)
+        as_out = lambda x: x.reshape(b, hkv, 1, g, dh).transpose(1, 2).reshape(
+            b, 1, hq, dh).to(dtype).float()  # (B, Hkv, G, Dh) fp32 -> the output's rows
+        for variant in ("amla", "base"):
+            tol = TOL[(dtype, variant)]
+            o, lse = gd.gqa_decode_rows(rows, k, v, lens, pos, variant=variant,
+                                        scale=kw["scale"], return_partials=True)
+            splits = o.shape[0]
+            merged = (comb.combine_split_partials(
+                o.reshape(splits * b * hkv, g, dh), lse.reshape(splits * b * hkv, g, 1),
+                *gd.split_tables(b * hkv, splits, q.device)).view(b, hkv, g, dh)
+                if splits > 1 else o[0])
+            bits = torch.equal(merged, mono[variant])
+            want = as_out(mono[variant])
+            errs, fails = [], []
+            for n in SPLIT_KV_SHARDS:
+                mesh = logical_mesh({"data": 1, "model": n}, "cuda")
+                call = lambda: dist.gqa_split_kv_decode(q, k, v, mesh=mesh, variant=variant,
+                                                        kv_layout="bhsd", **kw)
+                got = call().float()
+                with plain_k6():
+                    ref = call().float()
+                e_plain, e_mono = split_kv_row_errors(got, ref), split_kv_row_errors(got, want)
+                errs.append((n, e_plain, e_mono))
+                for kind, e in (("plain", e_plain), ("monolithic", e_mono)):
+                    worst[kind] = max(worst.get(kind, 0.0), e[2])
+                    worst[kind, "rel"] = max(worst.get((kind, "rel"), 0.0), e[0])
+                    worst[kind, "top"] = max(worst.get((kind, "top"), 0.0), e[1])
+                if not (all(e[0] <= SPLIT_KV_REL and e[2] <= tol for e in (e_plain, e_mono))
+                        and torch.isfinite(got).all()):
+                    fails.append(n)
+                if dtype == torch.bfloat16 and variant == "amla":
+                    with plain_k6():
+                        plain_ms = time_cuda(call, 3, flush)
+                    ms = time_cuda(call, 20, flush)
+                    timed[n] = (ms, plain_ms, *split_kv_bound(q, lens), split_kv_sdpa(q, k, v, kw,
+                                                                                     flush))
+            log(f"  {str(dtype).split('.')[1]} {variant}: K6 at {splits} splits; without "
+                f"partials == its partials merged by K3 bit for bit: {bits}; per shard count "
+                "n: (rel, max |err| / max |ref|, max |err|) against plain; against the "
+                "monolithic K6: "
+                + "; ".join(f"{n}: ({a[0]:.2e}, {a[1]:.2e}, {a[2]:.3e}); ({m[0]:.2e}, "
+                            f"{m[1]:.2e}, {m[2]:.3e})" for n, a, m in errs)
+                + f" (rel {SPLIT_KV_REL:g}, tol {tol:g})")
+            if splits > 1:  # wrong merges of the same partials must fail the gate
+                live = lse > dist.EMPTY_LSE
+                dropped = lse.clone()
+                dropped[0] = -math.inf
+                for what, l_bad in (("lse weights ignored", torch.where(live, 0.0, lse)),
+                                    ("split 0 left out", dropped)):
+                    bad = split_kv_row_errors(as_out(dist.combine_shard_partials(o, l_bad)),
+                                              want)
+                    log(f"    control, {what}: rel {bad[0]:.3e}, max |err| / max |ref| "
+                        f"{bad[1]:.3e}, max |err| {bad[2]:.3e}: "
+                        f"{'rejected' if bad[0] > SPLIT_KV_REL else 'PASSES the gate'}")
+                    worst["control rel"] = min(worst.get("control rel", math.inf), bad[0])
+                    if bad[0] <= SPLIT_KV_REL:
+                        raise SystemExit(f"split-KV kernel check: a merge with {what} passes "
+                                         "the gate; the check cannot fail a wrong merge")
+            if fails:
+                raise SystemExit(f"split-KV kernel check: {dtype} {variant} over {fails} "
+                                 "shards outside the gate (readings above)")
+            if not bits:
+                raise SystemExit("split-KV kernel check: K6 without partials differs from its "
+                                 "partials merged by K3")
+            if dtype == torch.bfloat16 and variant == "amla":
+                mono_ms = time_cuda(lambda: gd.gqa_decode_rows(
+                    rows, k, v, lens, pos, variant=variant, scale=kw["scale"]), 20, flush)
+        del q, k, v, mono
+        release()
+    for n, (ms, plain_ms, bms, by, sdpa) in timed.items():
+        log(f"  bf16 amla over {n} shard(s): {ms:.4f} ms (K6 x {n} + merge; plain "
+            f"{plain_ms:.3f} ms; bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f} % of it; one "
+            f"SDPA call {sdpa:.4f} ms); the monolithic K6 + K3 call {mono_ms:.4f} ms")
+    log("  worst over dtypes, variants and shard counts: "
+        + ", ".join(f"{k if isinstance(k, str) else ' '.join(k)} {v:.3e}"
+                    for k, v in worst.items()))
+    return worst, timed, mono_ms
+
+
+def split_kv_bound(q, lens):
+    """The K and V rows below kv_len of each (b, kv head) read once (bf16),
+    q, the fp32 output; 4 x Dh operations per (query head, visible key)."""
+    b, _, hq, dh = q.shape
+    hkv = GQA_GEOMETRIES[1][2]
+    keys = int(lens.sum())
+    nbytes = (q.numel() * q.element_size() + 2 * keys * hkv * dh * q.element_size()
+              + q.numel() * 4 + 4 * b)
+    return bound(nbytes, 4.0 * dh * keys * hq, q.dtype)
+
+
+def split_kv_sdpa(q, k, v, kw, flush):
+    """One scaled_dot_product_attention call on the same rows (GQA by
+    enable_gqa, kv_len as a boolean mask), timed as a yardstick."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)  # (B, Hq, 1, Dh)
+    mask = torch.arange(k.shape[2], device="cuda")[None, None, None, :] < kw["kv_len"][
+        :, None, None, None]
+    return time_cuda(lambda: f(qt, k, v, attn_mask=mask, scale=kw["scale"], enable_gqa=True),
+                     20, flush)
+
+
+def seqkv_decode(model, params, cache, tokens, cache_len, steps, decode, mesh):
+    """``steps`` greedy decode steps from ``tokens`` / ``cache_len`` (host
+    arrays) through ``decode`` (``model.decode_step`` or a compiled decode),
+    under ``mesh_ctx(mesh, "seqkv")`` when ``mesh`` is given.  Returns
+    (tokens per step (B, steps) list, first step's logits on the CPU, ms per
+    step)."""
+    import contextlib
+
+    from repro_torch.runtime.mesh_ctx import mesh_ctx
+
+    ctx = mesh_ctx(mesh, "seqkv") if mesh is not None else contextlib.nullcontext()
+    out, first, times = [], None, []
+    tok, lens = np.array(tokens), np.array(cache_len)
+    with ctx:
+        for _ in range(steps):
+            t = torch.as_tensor(tok[:, None], dtype=torch.int64, device=cache[0]["k"].device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = decode(params, cache, t, lens)
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if first is None:
+                first = logits[:, -1].float().cpu()
+            out.append(nxt.tolist())
+            tok, lens = nxt, lens + 1
+    return out, first, times
+
+
+def small_seqkv_check():
+    """Smoke qwen2.5-3b (fp32 weights, seed 6): 4 ragged prompts into a
+    ServingSession (max_len 64), then 8 greedy steps under
+    ``mesh_ctx(seqkv)`` over 4 logical shards, on the card and on the CPU:
+    equal tokens (attention takes bf16 inputs on both, as in the plain
+    path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.serve_loop import ServingSession
+
+    cfg = get_config("qwen2.5-3b", smoke=True)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator("cpu").manual_seed(6), "cpu")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).tolist() for n in (5, 40, 17, 60)]
+    outs = {}
+    for where, dev in (("card", "cuda"), ("CPU", "cpu")):
+        params = p_cpu if dev == "cpu" else to_device(p_cpu, "cuda")
+        sess = ServingSession(model, params, batch_size=4, max_len=64)
+        for p in prompts:
+            sess.add_request(p)
+        outs[where] = seqkv_decode(model, params, sess.cache, sess.last_token, sess.cache_len, 3,
+                                 model.decode_step, logical_mesh({"data": 1, "model": 4}, dev))[0]
+    log(f"small seqkv reference ({cfg.name}, fp32, prompts 5/40/17/60, 3 steps over 4 logical "
+        f"sequence shards): tokens card {outs['card']}, CPU {outs['CPU']}: "
+        f"{'equal' if outs['card'] == outs['CPU'] else 'DIFFER'}")
+    if outs["card"] != outs["CPU"]:
+        raise SystemExit("small seqkv reference: the card's tokens differ from the CPU's")
+
+
+def seqkv_phase(card):
+    """(b) qwen2.5-3b at full width (36 layers, 16 / 2 heads x 128, bf16
+    weights from seed 0): 4 prompts of 4096, 8192, 16384 and 32000 tokens
+    prefilled into a ServingSession (batch 4, max_len 32768), the cache
+    kept; then 16 greedy steps from that cache plain (``decode_step``: K6 +
+    K3) and through ``jit_serve_fns``' decode (on the parameters and cache
+    placed once on the 1 x 1 nccl mesh, as the reference's caller puts
+    them on their shardings before the jitted calls) under
+    ``mesh_ctx(seqkv)`` over the debug mesh and logical 1 x 2,
+    1 x 4 meshes, and over the debug mesh through ``decode_step`` itself
+    (no placement: what the split-KV path costs without it).  Gates: the
+    first step's logits within 2e-2 of plain relative to the largest plain
+    logit (``tests/test_perf_paths.py``'s bound, read as the port's model
+    tests read theirs: the bf16 model's logits reach ~570, and a one-ulp
+    bf16 flip of an attention output moves them by its noise, not by a
+    share of each logit), at least SEQKV_MIN_TOKENS of the 4 x 16 greedy
+    tokens equal to plain's (every step of the run), K6 = layers x steps x
+    shards and no K3 on the seqkv runs.  Returns (K6, K3) of the seqkv
+    runs, the main path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as comb
+    from repro_torch.launch.mesh import init_local_process_group, logical_mesh, make_debug_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.core import tree
+    from repro_torch.runtime.serve_loop import ServingSession, jit_serve_fns
+    from repro_torch.runtime.sharding import local_run, place
+
+    cfg = get_config("qwen2.5-3b")
+    steps = 16
+    log(f"== seqkv phase: {cfg.name} {cfg.n_layers} layers, {cfg.n_heads} / {cfg.n_kv_heads} "
+        f"heads x {cfg.head_dim}, d_model {cfg.d_model}, {cfg.param_count() / 1e9:.2f} B "
+        f"parameters (bf16, seed 0); ServingSession(batch 4, max_len 32768), prompts "
+        f"{SPLIT_KV_LENS}, {steps} decode steps per run; card {card} ==")
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    sess = ServingSession(model, params, batch_size=4, max_len=32768)
+    rng = np.random.default_rng(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in SPLIT_KV_LENS:
+        sess.add_request(rng.integers(2, cfg.vocab_size, size=n).tolist())
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache = sess.cache
+    kept = [{k: t.clone() for k, t in c.items()} for c in cache]
+    gib = sum(t.nbytes for c in kept for t in c.values()) / 2**30
+    log(f"prefill of {sum(SPLIT_KV_LENS)} tokens: {t_prefill:.2f} s; the cache {gib:.2f} GiB a "
+        f"copy; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    init_local_process_group("cuda")
+    debug = make_debug_mesh("cuda")
+    _, compile_decode, sh = jit_serve_fns(model, debug, params, cache, policy="seqkv")
+    decode = compile_decode(torch.zeros((4, 1), dtype=torch.int64))
+    local_run(debug, (params, cache), (sh["params"], sh["cache"]))  # makes the DeviceMesh
+    t0 = time.perf_counter()
+    placed = place((params, cache), (sh["params"], sh["cache"]))
+    t_place = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    local_run(debug, placed, (sh["params"], sh["cache"]))
+    log(f"placing the {len(tree.leaves(params))} parameter and {len(tree.leaves(cache))} cache "
+        f"tensors on the 1 x 1 mesh (DTensor views of them, no copy): {t_place:.1f} ms of host "
+        f"time; a call on the placed trees reads their local shards in "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    counters = (gd.gqa_decode_rows, comb.combine_split_partials)
+    runs = {"plain": (model.decode_step, None),
+            "seqkv 1 x 1, decode_step (not placed)": (model.decode_step, debug),
+            "seqkv 1 x 1 (debug mesh)": (decode, debug),
+            "seqkv 1 x 2 (logical)": (decode, logical_mesh({"data": 1, "model": 2}, "cuda")),
+            "seqkv 1 x 4 (logical)": (decode, logical_mesh({"data": 1, "model": 4}, "cuda"))}
+    res = {}
+    for name, (fn, mesh) in runs.items():
+        for c, k in zip(cache, kept):  # the placed cache's shards are views of these
+            for key in c:
+                c[key].copy_(k[key])
+        zero_counts(counters)
+        p_run, c_run = placed if fn is decode else (params, cache)
+        toks, first, times = seqkv_decode(model, p_run, c_run, sess.last_token, sess.cache_len,
+                                          steps, fn, mesh)
+        torch.cuda.synchronize()
+        res[name] = (toks, first, times, read_counts(counters),
+                     1 if mesh is None else mesh.shape["model"])
+    plain_toks, plain_first = res["plain"][0], res["plain"][1]
+    k6_main = k3_main = 0
+    for name, (toks, first, times, ((k6, _), (k3, _)), n) in res.items():
+        d = (first - plain_first).abs().max().item()
+        top = plain_first.abs().max().item()
+        agree = sum(a == b for x, y in zip(toks, plain_toks) for a, b in zip(x, y))
+        ok = d <= 2e-2 * max(1.0, top) and agree >= SEQKV_MIN_TOKENS
+        log(f"{name}: {np.mean(times[2:]):.2f} ms/step steady (steps 3-{steps}; first "
+            f"{times[0]:.1f} ms); K6 {k6}, K3 {k3}; first step max |logits - plain| "
+            f"{d:.3e} = {d / max(1.0, top):.2e} of max |plain| {top:.2f} (tol 2e-2); "
+            f"tokens agreeing with plain {agree} of {4 * steps} (at least "
+            f"{SEQKV_MIN_TOKENS}): {ok}")
+        if name == "plain":
+            continue
+        k6_main, k3_main = k6_main + k6, k3_main + k3
+        if not ok or (k6, k3) != (cfg.n_layers * steps * n, 0):
+            raise SystemExit(f"seqkv phase: {name} disagrees with plain decode (logits or "
+                             f"tokens) or its K6 / K3 launches ({k6}, {k3}) are not layers x "
+                             "steps x shards and 0")
+    del sess, kept, cache, placed
+    release()
+    return k6_main, k3_main
+
+
+def mesh_train_check(cfg, model, params, opt):
+    """(c') qwen1.5-0.5b at full width from the train phase's state: 3
+    steps through ``jit_train_step`` on the 1 x 1 nccl mesh (the inputs
+    placed by the tp_fsdp shardings, the step on the local shards), each
+    bit-equal to ``make_train_step``'s from the same state; then
+    ``reshard_train_state`` 1 x 1 -> 1 x 1 (host-staged) bit-equal, timed.
+    Returns the jit steps' (K7, K6, K3) launches."""
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import init_local_process_group, make_debug_mesh
+    from repro_torch.runtime.elastic import reshard_train_state
+    from repro_torch.runtime.train_loop import TrainConfig, jit_train_step, make_train_step
+
+    log("== train phase (c'): jit_train_step on the 1 x 1 nccl mesh, 3 steps, and "
+        "reshard_train_state ==")
+    init_local_process_group("cuda")
+    mesh = make_debug_mesh("cuda")
+    tc = TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=20, remat=True)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8, seed=1)
+    compile_for, _ = jit_train_step(model, tc, mesh, params)
+    step = compile_for(data.batch_at(0))
+    plain = make_train_step(model, tc)
+    counters = train_counters()
+    launches = [0, 0, 0]
+    state = (params, opt, None)
+    for i in range(3):
+        batch = data.batch_at(i)
+        zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = step(*state, batch, 10 + i)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = [a + c for a, (c, _) in zip(launches, read_counts(counters))]
+        want = plain(*state, batch, 10 + i)
+        same = all(torch.equal(a, b) for a, b in zip(tree.leaves(got), tree.leaves(want)))
+        log(f"  step {10 + i}: loss {float(got[3]['loss']):.4f}, {ms:.1f} ms through the "
+            f"placed step; == make_train_step's bit for bit: {same}")
+        if not same:
+            raise SystemExit("train phase (c'): jit_train_step differs from make_train_step")
+        state = got[:3]
+        del want
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, o2 = reshard_train_state(state[0], state[1], mesh, mesh)
+    torch.cuda.synchronize()
+    t_reshard = time.perf_counter() - t0
+    same = all(torch.equal(b.to_local(), a)
+               for a, b in zip(tree.leaves(state[:2]), tree.leaves((p2, o2))))
+    nbytes = sum(x.nbytes for x in tree.leaves(state[:2]))
+    log(f"  reshard_train_state 1 x 1 -> 1 x 1 of {nbytes / 2**30:.2f} GiB (host-staged): "
+        f"{t_reshard:.2f} s; bit-equal: {same}; launches of the placed steps K7 {launches[0]}, "
+        f"K6 {launches[1]}, K3 {launches[2]}")
+    if not same or launches[0] != cfg.n_layers * 2 * 3:
+        raise SystemExit("train phase (c'): the resharded state differs or K7 did not run "
+                         "layers x 2 x steps times")
+    return tuple(launches)
 
 
 def mma_ptxas(log_text):
@@ -4411,8 +4897,8 @@ def release() -> None:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--k3-only"]):
-        print("usage: chip_smoke.py [--k3-only]", file=sys.stderr)
+    if not (argv in ([], ["--k3-only"]) or (len(argv) == 2 and argv[0] == "--k6-ab")):
+        print("usage: chip_smoke.py [--k3-only | --k6-ab OTHER_TREE/src]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an H100",
@@ -4420,6 +4906,8 @@ def main(argv: list[str]) -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+    if argv[:1] == ["--k6-ab"]:  # K6 without partials against another tree's, bit for bit
+        return 0 if k6_ab(argv[1]) else 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
@@ -4442,6 +4930,7 @@ def main(argv: list[str]) -> int:
     nworst, nrows = trie_kernel_phase(flush)
     k3rows, k3err = k3_phase(flush)
     hworst, _ = head_chunk_kernel_check(flush)
+    sworst, _, _ = split_kv_kernel_check(flush)
     mworst = mma_rows_kernel_phase()
     del flush
     release()
@@ -4451,6 +4940,7 @@ def main(argv: list[str]) -> int:
     small_trie_spec_check()
     small_interleave_suspend_check()
     small_sharded_check()
+    small_seqkv_check()
     release()
     k6, k7, k3g = gemma_dense_phase()
     release()
@@ -4481,7 +4971,11 @@ def main(argv: list[str]) -> int:
     release()
     k6v, k7v, k3v = vlm_encdec_phase()
     release()
+    k6q, k3q = seqkv_phase(smi)
+    release()
     _, (k7tr, k6tr, k3tr) = train_phases(smi)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
     derr = lambda name: max(v for d in (dworst, fworst, vworst) for k, v in d.items()
@@ -4520,7 +5014,8 @@ def main(argv: list[str]) -> int:
         dict(name="combine_split_partials", route="cuda",
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
-             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr + k3h,
+             launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr + k3h
+             + k3q,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2"), herr("combine_split_partials")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
@@ -4534,8 +5029,10 @@ def main(argv: list[str]) -> int:
              max_abs_err=max(terr("K5"), merr("K5")), ms=t5[0], plain_ms=t5[1], bound_ms=t5[2],
              bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/gqa_decode.py:147", launches=k6 + k6f + k6v + k6tr,
-             max_abs_err=derr("K6"), ms=t6[0], plain_ms=t6[1], bound_ms=t6[2],
+             replaces="src/repro/kernels/gqa_decode.py:147",
+             launches=k6 + k6f + k6v + k6tr + k6q,
+             max_abs_err=max(derr("K6"), sworst["plain"]), ms=t6[0], plain_ms=t6[1],
+             bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
              replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f + k7v + k7tr,

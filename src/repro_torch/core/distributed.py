@@ -1,23 +1,38 @@
-"""Merging attention partials across shards (counterpart of
-``repro/core/distributed.py``'s ``combine_partials`` and
-``combine_shard_partials``).
+"""Distributed attention (counterpart of ``repro/core/distributed.py``):
+sequence-parallel (split-KV) decode over a mesh axis, and the merges of
+attention partials across shards.
 
-A request whose KV is split between shards (or between two page pools of
-one card) is attended shard by shard; each shard returns its partial,
-and one log-sum-exp merge reconciles them:
+For long contexts the KV cache is sharded along its *sequence* axis.  Each
+shard runs the decode kernel (K6, :func:`repro_torch.kernels.gqa_decode
+.gqa_decode_rows` with ``return_partials=True``) over its local keys and
+returns normalized partials and their log-sum-exp; one merge reconciles
+them:
 
     M = max_s lse_s
     O = sum_s exp(lse_s - M) * o_s  /  sum_s exp(lse_s - M)
 
-The merge runs once per step, outside any kernel, in plain torch, as the
-reference's does in ``jnp``.  The reference's sequence-parallel decodes
-over a mesh (``seq_parallel_decode``, ``gqa_split_kv_decode``,
-``seq_parallel_decode_batched``) are not ported here.
+This is the distributed form of the paper's online softmax: the per-shard
+inner loop keeps AMLA's MUL-by-ADD rescaling, while the one-shot merge uses
+exact FP (it happens once per decode step, so the per-block traffic
+argument does not apply to it).  The merge runs outside any kernel, in
+plain torch, as the reference's does in ``jnp``.
+
+The decodes are single-controller, like JAX's ``shard_map``: one body per
+entry of the sequence axis (and per batch block over ``batch_axes``), each
+on its entry's device, the partials gathered to the query's device and
+merged once.  Entries may repeat one device: logical shards on one card,
+or on the CPU, where K6's plain version runs.  A mesh of several cards
+waits for a machine that has them.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+from repro_torch.kernels.gqa_decode import DEFAULT_BLOCK_K, gqa_decode_rows
 
 # An lse at or below this marks a shard that saw no valid key (the
 # kernels' BIG_NEG, about -3e38, or -inf).
@@ -59,3 +74,147 @@ def combine_shard_partials(o_parts, lse_parts) -> torch.Tensor:
     den = torch.sum(w, dim=0)
     safe = torch.where(den > 0, den, 1.0)
     return torch.where(den[..., None] > 0, num / safe[..., None], 0.0)
+
+
+def _entry_device(mesh, index: dict[str, int]) -> torch.device:
+    """The device of the mesh entry at ``index`` (axis name -> position;
+    axes it does not name at 0)."""
+    return mesh.devices[tuple(index.get(a, 0) for a in mesh.axis_names)]
+
+
+def _split_kv_rows(q, k, v, kv_len, q_pos, *, mesh, seq_axis, batch_axes, variant, scale,
+                   window, softcap, block_size):
+    """Rows ``q (B, H, G, D)`` against ``k (B, H, S, D)``, ``v (B, H, S,
+    Dv)`` with S sharded over ``seq_axis`` and B over ``batch_axes``;
+    ``kv_len (B,)`` and ``q_pos (B, G)`` in global positions.  Returns the
+    merged ``(B, H, G, Dv)`` fp32 on ``q``'s device."""
+    b = q.shape[0]
+    s_total = k.shape[2]
+    n_shards = mesh.shape[seq_axis]
+    if s_total % n_shards:
+        raise ValueError(f"a sequence of {s_total} keys does not split over {n_shards} shards")
+    s_local = s_total // n_shards
+    batch_sizes = [mesh.shape[a] for a in batch_axes]
+    n_blocks = math.prod(batch_sizes)
+    if b % n_blocks:
+        raise ValueError(f"a batch of {b} does not split over {n_blocks} blocks of {batch_axes}")
+    bl = b // n_blocks
+    dev = q.device
+    kv_len = torch.as_tensor(kv_len, device=dev).to(torch.int64).reshape(b)
+    q_pos = torch.as_tensor(q_pos, device=dev).to(torch.int64)
+    out = []
+    for blk in range(n_blocks):
+        rows = slice(blk * bl, (blk + 1) * bl)
+        where = dict(zip(batch_axes, np.unravel_index(blk, batch_sizes) if batch_axes else ()))
+        o_parts, lse_parts = [], []
+        for j in range(n_shards):
+            shard_dev = _entry_device(mesh, {**where, seq_axis: j})
+            start = j * s_local
+            keys = slice(start, start + s_local)
+            # global positions shifted into this shard's frame
+            local_len = torch.clamp(kv_len[rows] - start, 0, s_local).to(torch.int32)
+            o, lse = gqa_decode_rows(
+                q[rows].to(shard_dev), k[rows, :, keys].to(shard_dev),
+                v[rows, :, keys].to(shard_dev), local_len.to(shard_dev),
+                (q_pos[rows] - start).to(torch.int32).to(shard_dev), variant=variant,
+                scale=scale, block_k=block_size, softcap=softcap, window=window,
+                return_partials=True)
+            o_parts.append(o.to(dev))
+            lse_parts.append(lse.to(dev))
+        out.append(combine_shard_partials(torch.cat(o_parts), torch.cat(lse_parts)))
+    return torch.cat(out)
+
+
+def gqa_split_kv_decode(
+    q: torch.Tensor,  # (B, Sq, Hq, Dh) decode queries
+    k: torch.Tensor,  # (B, S, Hkv, Dh), or (B, Hkv, S, Dh) with kv_layout="bhsd"
+    v: torch.Tensor,
+    *,
+    mesh,
+    seq_axis: str = "model",
+    batch_axes=("data",),
+    variant: str = "amla",
+    scale: float,
+    kv_len,  # (B,) global valid keys
+    q_offset,  # (B,) global position of q[:, 0]
+    window: int | None = None,
+    softcap: float | None = None,
+    block_size: int = DEFAULT_BLOCK_K,
+    kv_layout: str = "bshd",
+) -> torch.Tensor:
+    """Split-KV GQA decode over a mesh axis with one LSE merge; returns
+    ``(B, Sq, Hq, Dh)`` in ``q``'s dtype.
+
+    The cache's sequence is cut into ``mesh.shape[seq_axis]`` slices (views:
+    a ``bhsd`` cache is read where it lies); each shard runs K6 over its
+    slice with the window and softcap, at its keys' own frame (positions
+    ``q_pos - start``, ``local_len = clip(kv_len - start, 0, S / n)``), so a
+    shard no query reaches weighs 0 in the merge, and a row no shard sees
+    comes out as exact zeros.  ``q``, ``k`` and ``v`` go to K6 in their
+    dtype (bf16 or fp32 throughout)."""
+    b, sq, hq, dh = q.shape
+    if kv_layout == "bhsd":
+        kr, vr = k, v
+    else:
+        kr, vr = k.transpose(1, 2), v.transpose(1, 2)  # (B, Hkv, S, Dh) views
+    hkv = kr.shape[1]
+    group = hq // hkv
+    qr = q.reshape(b, sq, hkv, group, dh).transpose(1, 2).reshape(b, hkv, sq * group, dh)
+    offs = torch.as_tensor(q_offset, device=q.device).to(torch.int64).reshape(b)
+    q_pos = offs[:, None] + torch.arange(sq, device=q.device)[None, :]
+    out = _split_kv_rows(
+        qr, kr, vr, kv_len, torch.repeat_interleave(q_pos, group, dim=1), mesh=mesh,
+        seq_axis=seq_axis, batch_axes=tuple(batch_axes or ()), variant=variant, scale=scale,
+        window=window, softcap=softcap, block_size=block_size)
+    dv = vr.shape[-1]
+    out = out.reshape(b, hkv, sq, group, dv).transpose(1, 2)
+    return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def seq_parallel_decode_batched(
+    q: torch.Tensor,  # (B, G, Dk)
+    k: torch.Tensor,  # (B, S_total, Dk), S sharded along axis_name
+    v: torch.Tensor,  # (B, S_total, Dv)
+    *,
+    mesh,
+    axis_name: str = "data",
+    variant: str = "amla",
+    scale: float,
+    kv_len=None,  # (B,)
+    block_size: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """Split-KV decode of ``G`` rows per request against one head's keys,
+    every key below ``kv_len`` visible (non-causal: the rows' position is
+    the sequence length, as ``ops.gqa_attention`` gives it); returns ``(B,
+    G, Dv)`` fp32.  Through K6 with one kv head, which takes ``Dk == Dv``:
+    other widths raise ``ValueError`` on CUDA (the CPU's plain version
+    takes them)."""
+    b, g, _ = q.shape
+    s_total = k.shape[1]
+    if kv_len is None:
+        kv_len = torch.full((b,), s_total, dtype=torch.int64, device=q.device)
+    q_pos = torch.full((b, g), s_total, dtype=torch.int64, device=q.device)
+    out = _split_kv_rows(
+        q[:, None], k[:, None], v[:, None], kv_len, q_pos, mesh=mesh, seq_axis=axis_name,
+        batch_axes=(), variant=variant, scale=scale, window=None, softcap=None,
+        block_size=block_size)
+    return out[:, 0]
+
+
+def seq_parallel_decode(
+    q: torch.Tensor,  # (G, Dk) decode queries of one kv-head group
+    k: torch.Tensor,  # (S_total, Dk) sharded along axis_name
+    v: torch.Tensor,  # (S_total, Dv)
+    *,
+    mesh,
+    axis_name: str = "data",
+    variant: str = "amla",
+    scale: float,
+    kv_len=None,  # scalar total valid keys
+    block_size: int = DEFAULT_BLOCK_K,
+) -> torch.Tensor:
+    """:func:`seq_parallel_decode_batched` of one request: ``(G, Dv)``."""
+    lens = None if kv_len is None else torch.as_tensor(kv_len).reshape(1)
+    return seq_parallel_decode_batched(
+        q[None], k[None], v[None], mesh=mesh, axis_name=axis_name, variant=variant,
+        scale=scale, kv_len=lens, block_size=block_size)[0]

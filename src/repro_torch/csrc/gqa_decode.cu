@@ -27,13 +27,16 @@
 // smallest q_pos (the reference's whole-block window skip) to the block
 // that holds min(kv_len, S, largest q_pos + 1), and walks the `split`-th of
 // `splits` contiguous runs of them, block edges multiples of block_k from
-// key 0 as in the reference.  With splits > 1 it writes a normalized
-// partial and its lse (-inf when its run is empty) into slot split * B *
-// Hkv + b * Hkv + h, which the combine (K3, mla_decode_combine.cu) merges;
-// the split boundaries depend only on kv_len, the positions and the shapes,
-// so the plain version walks the same splits.  fp32 q or fp32 K/V keep the
-// scalar body of gqa_rows.cuh (one CTA per (b, h, 8 rows), fp32 FMA loops,
-// no split).
+// key 0 as in the reference.  It writes a normalized partial and, with an
+// lse buffer (required over more than one split; optional at one, for a
+// caller that merges partials itself, such as the split-KV decode over a
+// sequence-sharded cache), its lse (-inf when its run is empty) into slot
+// split * B * Hkv + b * Hkv + h, which the combine (K3,
+// mla_decode_combine.cu) merges; the split boundaries depend only on
+// kv_len, the positions and the shapes, so the plain version walks the
+// same splits.  fp32 q or fp32 K/V keep the scalar body of gqa_rows.cuh
+// (one CTA per (b, h, 8 rows), fp32 FMA loops, no split, the lse on
+// request).
 #include <cuda_runtime.h>
 
 #include "gqa_rows.cuh"
@@ -118,7 +121,7 @@ cudaError_t launch_mma(MmaParams p, int B, long long k_ss, long long v_ss, int a
   constexpr int kPiece = mla_rows_mma::Pool<bf16>::kPiece;
   if (!mla_rows_mma::addressable(p.g, p.S, p.q, p.k, {p.k_sb, p.k_sh, k_ss}, p.v,
                                  {p.v_sb, p.v_sh, v_ss}) ||
-      p.splits < 1 || (p.splits > 1) != (p.lse != nullptr)) {
+      p.splits < 1 || (p.splits > 1 && p.lse == nullptr)) {
     return cudaErrorInvalidValue;
   }
   p.k_rs = static_cast<int>(k_ss / kPiece);
@@ -140,10 +143,11 @@ cudaError_t launch_mma(MmaParams p, int B, long long k_ss, long long v_ss, int a
 
 // Returns a cudaError_t (0 on success).  Launches on `stream`, does not
 // synchronize, allocates nothing: the caller owns every buffer.  bf16
-// (`is_bf16` != 0) runs the tensor-core body on `splits` splits: with splits
-// > 1, `o` and `lse` are the (splits, B, Hkv, G, Dh) and (splits, B, Hkv,
-// G) partials; with 1, `o` is the output and `lse` null.  fp32 takes
-// splits = 1 and a null `lse`.
+// (`is_bf16` != 0) runs the tensor-core body on `splits` splits: `o` and
+// `lse` are the (splits, B, Hkv, G, Dh) and (splits, B, Hkv, G) partials,
+// and with splits = 1 `lse` may be null (then `o` is the output).  fp32
+// takes splits = 1 and writes `lse` (B, Hkv, G) when it is not null.  A
+// partial's lse is m + log l, -inf where its rows saw no key.
 extern "C" int amla_gqa_decode(const void* q, const void* k, const void* v,
                                const int* kv_len, const int* q_pos, float* o, float* lse,
                                int B, int Hkv, int G, int Dh, int S, int block_k, int splits,
@@ -166,9 +170,9 @@ extern "C" int amla_gqa_decode(const void* q, const void* k, const void* v,
                       kv_len, q_pos, o, lse, g, Hkv, S, splits, k_sb, k_sh, v_sb, v_sh, 0, 0};
     return static_cast<int>(launch_mma(p, B, k_ss, v_ss, amla, s));
   }
-  if (splits != 1 || lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
   const gqa::Params p{q, k, v, o, kv_len, q_pos, Hkv, G, 1, Dh, S, block_k,
-                      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, softcap, window, 1};
+                      k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, softcap, window, 1, lse};
   return static_cast<int>(gqa::launch<1>(p, B, amla, s));
 }
 

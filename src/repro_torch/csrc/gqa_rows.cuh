@@ -9,7 +9,8 @@
 // softmax update with the AMLA MUL-by-ADD rescale (an int32 add on the
 // fp32 accumulator's bits, skipped where it is zero; "base" multiplies
 // instead), and P·V accumulates.  Output rows are normalized fp32, exact
-// zeros for a row that saw no key.
+// zeros for a row that saw no key; with `lse`, each row's m + log l too
+// (-inf for a row that saw no key), the partial's weight in a merge.
 //
 // Layout.  Keys are read where they lie: K and V are (B, Hkv, S, Dh) with
 // any batch/head/sequence strides and unit stride along Dh, so a dense
@@ -63,6 +64,7 @@ struct Params {
   float scale, softcap;  // softcap <= 0: off
   int window;            // <= 0: off
   int causal;
+  float* lse = nullptr;  // null, or (B, H, R): m + log l per row (-inf when empty)
 };
 
 template <int RPW>
@@ -342,6 +344,11 @@ __global__ void __launch_bounds__(kThreads, 1) gqa_rows_kernel(Params p) {
   for (int i = 0; i < RPW; ++i) {
     const int r = row0 + warp * RPW + i;
     if (r >= p.R) continue;
+    // lse in standard units (m is the running max, l the plain mass)
+    if (p.lse != nullptr && lane == 0) {
+      p.lse[(static_cast<size_t>(b) * p.H + h) * p.R + r] =
+          l[i] > 0.0f ? __fadd_rn(m[i], logf(l[i])) : -INFINITY;
+    }
     const float denom = kAmla ? __fmul_rn(l[i], s16[i]) : l[i];
 #pragma unroll
     for (int j = 0; j < kColsPerLane; ++j) {

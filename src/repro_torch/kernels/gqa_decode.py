@@ -56,7 +56,7 @@ def split_edges(kv_len, q_pos, *, s, block_k, window, causal, num_splits):
 
 
 def attend_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap,
-                 window, causal=True, num_splits=1):
+                 window, causal=True, num_splits=1, return_partials=False):
     """Plain version of the GQA kernels: rows ``q (B, H, R, Dh)`` against
     their own heads ``k, v (B, H, S, Dh)``, positions ``q_pos (B, R)``.
     Every block below the longest kv_len takes one state update for all
@@ -64,7 +64,9 @@ def attend_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap,
     out the blocks outside :func:`split_edges` changes no number).  With
     ``num_splits > 1`` each split starts a state of its own, and the
     normalized partials are merged by the combine's plain version, as the
-    kernel's splits are."""
+    kernel's splits are; ``return_partials=True`` returns them unmerged
+    instead, ``(num_splits, B, H, R, Dh)`` and their lse ``(num_splits, B,
+    H, R)`` (-inf where a split saw no key)."""
     b, h, r, _ = q.shape
     d_v = v.shape[-1]
     lens = kv_len.to(torch.int64)[:, None, None, None]
@@ -96,6 +98,8 @@ def attend_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap,
             _mla.decode_block_update(st, s, v_blk, d_v=d_v, variant=variant, mm_dtype=q.dtype)
         o_parts.append(_mla.finalize_decode(st, variant=variant))
         lse_parts.append(torch.where(st.l > 0, st.m + torch.log(st.l), -torch.inf))
+    if return_partials:
+        return torch.stack(o_parts), torch.stack(lse_parts)[..., 0]
     if num_splits == 1:
         return o_parts[0]
     dest, n_splits = split_tables(b * h, num_splits, q.device)
@@ -192,9 +196,10 @@ def kv_strides(t):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
-def _decode_cuda(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window):
+def _decode_cuda(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window,
+                 return_partials=False):
     """Launch ``csrc/gqa_decode.cu`` on the current stream (and, over more
-    than one split, the combine)."""
+    than one split and without ``return_partials``, the combine)."""
     b, hkv, g, dh = q.shape
     check_kv(q, k, v, kv_len, ("q_pos", q_pos))
     if q_pos.shape != (b, g):
@@ -208,7 +213,7 @@ def _decode_cuda(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, wi
     pos = q_pos.to(torch.int32).contiguous()
     out = torch.empty((splits * b * hkv, g, dh), dtype=torch.float32, device=q.device)
     lse = (torch.empty((splits * b * hkv, g, 1), dtype=torch.float32, device=q.device)
-           if splits > 1 else None)
+           if splits > 1 or return_partials else None)
     lib = _build.load()
     err = lib.amla_gqa_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), pos.data_ptr(),
@@ -221,14 +226,18 @@ def _decode_cuda(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, wi
     _build.check(lib, err, "gqa_decode_rows")
     gqa_decode_rows.launches += 1
     gqa_decode_rows.mma_launches += mma
+    if return_partials:
+        return out.view(splits, b, hkv, g, dh), lse.view(splits, b, hkv, g)
     if splits > 1:
         out = _combine.combine_split_partials(out, lse, *split_tables(b * hkv, splits, q.device))
     return out.view(b, hkv, g, dh)
 
 
-def _decode_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window):
+def _decode_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window,
+                  return_partials=False):
     return attend_plain(q, k, v, kv_len, q_pos, variant=variant, scale=scale,
-                        block_k=block_k, softcap=softcap, window=window)
+                        block_k=block_k, softcap=softcap, window=window,
+                        return_partials=return_partials)
 
 
 def gqa_decode_rows(
@@ -243,9 +252,15 @@ def gqa_decode_rows(
     block_k: int = DEFAULT_BLOCK_K,
     softcap: float | None = None,
     window: int | None = None,
-) -> torch.Tensor:
+    return_partials: bool = False,
+):
     """GQA decode (K6); returns ``(B, Hkv, G, Dh)`` fp32, exact zeros for a
-    row with no visible key.
+    row with no visible key.  With ``return_partials=True`` it returns
+    each split's normalized rows ``(splits, B, Hkv, G, Dh)`` and their lse
+    ``(splits, B, Hkv, G)`` (-inf where a split saw no key) for the caller
+    to merge (:func:`repro_torch.core.distributed.combine_shard_partials`):
+    no combine launch; ``splits`` is :func:`split_count`'s on CUDA, 1 on
+    the CPU.
 
     A CUDA ``q`` launches the kernel (and counts one launch in
     ``gqa_decode_rows.launches``); a CPU ``q`` runs the plain version.  A
@@ -262,7 +277,8 @@ def gqa_decode_rows(
     block_k = min(block_k, max(k.shape[2], 128))
     impl = _decode_cuda if q.is_cuda else _decode_plain
     return impl(q, k, v, kv_len, q_pos, variant=variant, scale=scale,
-                block_k=block_k, softcap=softcap, window=window)
+                block_k=block_k, softcap=softcap, window=window,
+                return_partials=return_partials)
 
 
 gqa_decode_rows.launches = 0

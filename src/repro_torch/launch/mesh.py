@@ -1,15 +1,20 @@
-"""The serving mesh (counterpart of ``repro/launch/mesh.py``'s
-``parse_mesh_spec`` and ``make_serving_mesh``).
+"""Meshes (counterpart of ``repro/launch/mesh.py``): the training and
+dry-run meshes ``make_production_mesh`` and ``make_debug_mesh``, and the
+serving mesh ``parse_mesh_spec`` / ``make_serving_mesh``.
 
-A ``(data, model)`` mesh for sharded paged serving: ``data`` counts page
-pool shards (each owns a slice of the request stream), ``model`` counts
-tensor-parallel head groups within a shard.  Serving places whole
-sessions from one controller, so the mesh is a plain value with the faces
-of a JAX ``Mesh`` that serving reads (``devices``, ``axis_names``,
-``shape``) and no process group.  On the CPU every entry is the one CPU
-device (the counterpart of the reference's forced host devices); on CUDA
-the entries are distinct cards.  The reference's ``make_production_mesh``
-and ``make_debug_mesh`` (training's meshes) are not ported here.
+A :class:`Mesh` is a plain value with the faces of a JAX ``Mesh`` that the
+spec functions and the sessions read (``devices``, ``axis_names``,
+``shape``).  Single-controller code (the sharded serving sessions, the
+split-KV decode of :mod:`repro_torch.core.distributed`) runs one body per
+entry on that entry's device; entries may repeat one device (logical
+shards on one card, every entry on the CPU).  Placing tensors across
+ranks goes through :meth:`Mesh.device_mesh`, a
+``torch.distributed.DeviceMesh`` of the same shape and axis names, which
+exists only when the process group's world size equals the mesh's size:
+the production meshes (256 or 512 entries) are layouts that the spec
+functions read here, and run only on a machine with that many cards.
+:func:`init_local_process_group` makes the one-rank group that a 1 x 1
+mesh places on (a ``HashStore``, so no port is opened).
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ AXES = ("data", "model")
 
 
 @dataclasses.dataclass(frozen=True)
-class ServingMesh:
-    """``devices``: a ``(data, model)`` object array of ``torch.device``."""
+class Mesh:
+    """``devices``: an object array of ``torch.device``, one axis per name."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...] = AXES
@@ -35,6 +40,75 @@ class ServingMesh:
     def shape(self) -> dict[str, int]:
         """Axis name -> size, as a JAX ``Mesh.shape``."""
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def device_mesh(self):
+        """The ``torch.distributed.DeviceMesh`` over ranks ``0 .. size - 1``
+        of the default process group, with this mesh's shape and axis
+        names (made once per process group).  Raises ``RuntimeError``
+        unless a process group of world size ``size`` is initialized."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+
+        world = dist.get_world_size() if dist.is_initialized() else None
+        if world != self.size:
+            raise RuntimeError(
+                f"placing tensors on a {'x'.join(map(str, self.devices.shape))} mesh needs "
+                f"a process group of world size {self.size}; "
+                + ("none is initialized" if world is None else f"this one has {world}")
+                + " (init_local_process_group() for a 1 x 1 mesh)")
+        key = (dist.group.WORLD, self.devices.flat[0].type, self.devices.shape, self.axis_names)
+        if key not in _DEVICE_MESHES:
+            _DEVICE_MESHES[key] = init_device_mesh(
+                key[1], tuple(self.devices.shape), mesh_dim_names=self.axis_names)
+        return _DEVICE_MESHES[key]
+
+
+_DEVICE_MESHES: dict = {}
+
+
+def init_local_process_group(device="cuda") -> None:
+    """A world-size-1 default process group on a ``torch.distributed
+    .HashStore`` (gloo for the CPU, nccl for CUDA), unless one exists: what
+    a 1 x 1 mesh places on.  Opens no port."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+
+
+def _mesh(shape, axes, device) -> Mesh:
+    """A ``shape`` mesh over ``device``'s kind: rank ``i``'s card is
+    ``cuda:i`` modulo the cards this host sees (one process per card), or
+    the CPU in every entry."""
+    dev = resolve_device(device)
+    devs = np.empty(shape, dtype=object)
+    if dev.type == "cpu":
+        devs.fill(torch.device("cpu"))
+    else:
+        local = torch.cuda.device_count()
+        for i in range(devs.size):
+            devs.flat[i] = torch.device("cuda", i % local)
+    return Mesh(devs, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """``(data 16, model 16)``, or ``(pod 2, data 16, model 16)`` with
+    ``multi_pod``: 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else AXES
+    return _mesh(shape, axes, device)
+
+
+def make_debug_mesh(device="cuda") -> Mesh:
+    """1 x 1 ``(data, model)`` mesh for one-device runs of the same code
+    paths."""
+    return _mesh((1, 1), AXES, device)
 
 
 def parse_mesh_spec(spec: str) -> tuple[int, int]:
@@ -52,24 +126,29 @@ def parse_mesh_spec(spec: str) -> tuple[int, int]:
     return dims[0], dims[1]
 
 
-def make_serving_mesh(spec: str = "1x1", device="cuda") -> ServingMesh:
-    """A ``(data, model)`` mesh of ``spec`` over ``device``'s kind: distinct
-    cards ``cuda:0 ..`` (raising, with a remediation hint, when fewer are
-    visible than the spec needs), or the CPU in every entry."""
+def make_serving_mesh(spec: str = "1x1", device="cuda") -> Mesh:
+    """A ``(data, model)`` mesh of ``spec`` for sharded paged serving
+    (``data`` counts page-pool shards, ``model`` head groups within a
+    shard) over ``device``'s kind: distinct cards ``cuda:0 ..`` (raising,
+    with a remediation hint, when fewer are visible than the spec needs),
+    or the CPU in every entry."""
     data, model = parse_mesh_spec(spec)
     kind = resolve_device(device).type
-    devs = np.empty((data, model), dtype=object)
-    if kind == "cpu":
-        devs.fill(torch.device("cpu"))
-        return ServingMesh(devs)
-    avail = torch.cuda.device_count()
-    if avail < data * model:
+    if kind == "cuda" and torch.cuda.device_count() < data * model:
         raise ValueError(
-            f"mesh {spec!r} needs {data * model} devices but only {avail} "
-            "are visible; on one card run logical shards instead "
-            "(ShardedPagedServingSession(shards=, head_shards=) with "
+            f"mesh {spec!r} needs {data * model} devices but only "
+            f"{torch.cuda.device_count()} are visible; on one card run logical shards "
+            "instead (ShardedPagedServingSession(shards=, head_shards=) with "
             "mesh=None), or pick a smaller mesh"
         )
-    for i in range(data * model):
-        devs.flat[i] = torch.device(kind, i)
-    return ServingMesh(devs)
+    return _mesh((data, model), AXES, kind)
+
+
+def logical_mesh(shape: dict[str, int], device="cuda") -> Mesh:
+    """A mesh of ``shape`` (axis name -> size) whose every entry is
+    ``device``: logical shards on one card (or the CPU), run one body after
+    another by single-controller code.  It places nothing across ranks."""
+    dev = resolve_device(device)
+    devs = np.empty(tuple(shape.values()), dtype=object)
+    devs.fill(dev)
+    return Mesh(devs, tuple(shape))

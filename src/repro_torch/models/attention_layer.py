@@ -7,8 +7,16 @@ reference's ``cache_layout="bhsd"`` — so the attention kernels read it
 where it lies (``ops.gqa_attention`` takes it as a transposed view, with
 no copy), and new rows are written into it in place.  The attention math
 runs through :func:`repro_torch.core.attention.multi_head_attention`: the
-CUDA kernels for CUDA tensors, their plain versions for CPU tensors.  The
-reference's ``seqkv`` mesh branch (split-KV across devices) is not ported.
+CUDA kernels for CUDA tensors, their plain versions for CPU tensors.
+
+Under ``mesh_ctx(mesh, "seqkv")`` a decode step (a cache, at most 8 new
+tokens, the cache's length divisible by ``mesh.shape["model"]``) takes
+the reference's split-KV branch instead:
+:func:`repro_torch.core.distributed.gqa_split_kv_decode` over the cache's
+sequence sharded on ``model`` (the batch on the data axes when it
+divides), K6 per shard and one LSE merge.  On one card the shards are
+logical (a :func:`repro_torch.launch.mesh.logical_mesh`); multi-card runs
+wait for a machine with several cards.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.attention import multi_head_attention
+from repro_torch.core.distributed import gqa_split_kv_decode
 from repro_torch.models import layers
+from repro_torch.runtime import mesh_ctx
 
 
 def gqa_init(gen, cfg, *, device, dtype):
@@ -118,6 +128,28 @@ def gqa_apply(
         k_all, v_all = k, v
         kv_len = np.full((b,), s, np.int32)
         q_offset = np.zeros((b,), np.int32)
+
+    mesh = mesh_ctx.current_mesh()
+    if (
+        cache is not None
+        and mesh is not None
+        and mesh_ctx.current_policy() == "seqkv"
+        and s <= 8
+        and cache["k"].shape[2] % mesh.shape["model"] == 0
+    ):
+        dax = mesh_ctx.data_axes_in_ctx()
+        bshard = b % math.prod(mesh.shape[a] for a in dax) == 0
+        # bf16 rows into K6, as ops.gqa_attention gives them; the cache
+        # (B, Hkv, max_len, Dh) is passed where it lies
+        attn = gqa_split_kv_decode(
+            q.to(torch.bfloat16), cache["k"].to(torch.bfloat16),
+            cache["v"].to(torch.bfloat16), mesh=mesh, seq_axis="model",
+            batch_axes=dax if bshard else (), variant=cfg.attn_variant,
+            scale=cfg.attn_scale or 1.0 / math.sqrt(dh), kv_len=kv_len,
+            q_offset=q_offset, window=window, softcap=cfg.attn_softcap, kv_layout="bhsd",
+        ).to(q.dtype)
+        y = layers.dense(params["wo"], attn.reshape(b, s, hq * dh), dtype=dtype)
+        return y, cache
 
     attn = multi_head_attention(
         q,

@@ -20,8 +20,17 @@ Semantics are the reference's, token-dropping at capacity:
 
 Nothing here reads a value back to the host (capacity comes from the
 shapes), so a decode step that runs it can be captured as a CUDA graph.
-The reference's expert-parallel sharding constraints (``mesh_ctx``) are
-not ported: on one device it takes none either.
+
+Under ``mesh_ctx(mesh, "tp_fsdp")`` with the experts divisible by
+``mesh.shape["model"]`` the dispatched tokens, the expert outputs and the
+combined tokens take the reference's expert-parallel placements
+(:func:`repro_torch.runtime.sharding.with_sharding_constraint`): a
+constraint changes no value, and on the plain tensors the model computes
+on it moves nothing, so the expert math is one path with or without a
+mesh.  No path gives the model a ``DTensor`` yet (``jit_train_step`` and
+``jit_serve_fns`` run it on the local shards, since the kernels read
+``data_ptr()``), so today these constraints act on nothing; they stand
+where the reference's do, for the multi-card steps.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import math
 import torch
 
 from repro_torch.models import layers
+from repro_torch.runtime import mesh_ctx, sharding
 
 
 def moe_init(gen, cfg, *, device, dtype):
@@ -102,12 +112,25 @@ def moe_apply(params, x, *, cfg, dtype=torch.bfloat16):
     xe = xf[gather_idx].reshape(e, capacity, d)
     xe = torch.where(valid.reshape(e, capacity, 1), xe, 0.0)
 
+    # Expert parallelism: EP over "model" x capacity-DP over the data axes.
+    mesh = mesh_ctx.current_mesh()
+    ep = (mesh is not None and mesh_ctx.current_policy() == "tp_fsdp"
+          and e % mesh.shape["model"] == 0)
+    if ep:
+        cap_ax = mesh_ctx.data_axes_in_ctx()
+        if capacity % max(1, math.prod(mesh.shape[a] for a in cap_ax)):
+            cap_ax = None
+        ep_sh = sharding.NamedSharding(mesh, sharding.P("model", cap_ax, None))
+        xe = sharding.with_sharding_constraint(xe, ep_sh)
+
     # ---- expert MLPs (batched over E) ----
     xe_c = xe.to(dtype)
     g = expert_products(xe_c, params["gate"].to(dtype))
     u = expert_products(xe_c, params["up"].to(dtype))
     h = (torch.nn.functional.silu(g) * u).to(dtype)
     ye = expert_products(h, params["down"].to(dtype))  # (E, C, d) fp32
+    if ep:
+        ye = sharding.with_sharding_constraint(ye, ep_sh)
 
     # ---- weighted combine, in increasing expert order per token ----
     yw = ye.reshape(e * capacity, d) * w_for_slot[:, None]
@@ -120,4 +143,7 @@ def moe_apply(params, x, *, cfg, dtype=torch.bfloat16):
     for j in range(k):
         sj = slots[:, j]
         out = out + torch.where((sj >= 0)[:, None], yw[torch.clamp_min(sj, 0)], 0.0)
+    if ep:  # the combined tokens back on the data axes
+        out = sharding.with_sharding_constraint(
+            out, sharding.NamedSharding(mesh, sharding.P(mesh_ctx.data_axes_in_ctx(), None)))
     return out.reshape(b, s, d).to(x.dtype), aux_loss

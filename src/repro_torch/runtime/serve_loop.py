@@ -61,6 +61,13 @@ each a :class:`PagedServingSession` holding its own requests (routing,
 fork pinning, drain / fail / attach), with ``head_shards`` query-head
 chunks within a shard; on one card the shards are logical and share one
 parameter set.
+
+:func:`jit_serve_fns` is the reference's sharded prefill / decode factory
+around ``model.prefill`` and ``model.decode_step``: the parameter, cache
+and token shardings over a mesh, and functions that place their inputs by
+them and run on the local shards (a one-rank mesh here).  Under
+``mesh_ctx(mesh, "seqkv")`` the decode step takes the attention layer's
+split-KV branch.
 """
 
 from __future__ import annotations
@@ -70,6 +77,42 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.runtime import sharding
+
+
+def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
+                  policy="tp_fsdp"):
+    """Returns ``(compile_prefill, compile_decode, shardings)``;
+    ``shardings`` has keys ``params`` and ``cache``.  ``compile_decode
+    (tokens_like)`` gives ``decode(params, cache, tokens, cache_len) ->
+    (logits, cache)`` and ``compile_prefill(tokens_like)`` gives
+    ``prefill(params, cache, tokens, **kw) -> (logits, cache)``: each
+    places its parameters, cache and tokens by the shardings and calls the
+    model on the local shards (on a one-rank mesh the tensors themselves,
+    so the cache is written in place, as the model writes it).  ``cache_len``
+    is the replicated host value and passes as it is.  ``params_like`` and
+    ``cache_like`` are read for their shapes only."""
+    pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=model.cfg)
+    cfn = sharding.cache_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
+    bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
+    param_sh = sharding.make_shardings(mesh, params_like, pfn)
+    cache_sh = sharding.make_shardings(mesh, cache_like, cfn)
+
+    def compiler(call):
+        def compile_for(tokens_like):
+            shs = (param_sh, cache_sh, sharding.make_shardings(mesh, tokens_like, bfn))
+
+            def run(params, cache, tokens, *args, **kw):
+                p, c, t = sharding.local_run(mesh, (params, cache, tokens), shs)
+                return call(p, c, t, *args, **kw)
+
+            return run
+
+        return compile_for
+
+    return (compiler(model.prefill), compiler(model.decode_step),
+            {"params": param_sh, "cache": cache_sh})
 
 
 def check_session_servable(cfg) -> None:

@@ -1,20 +1,369 @@
-"""Serving-shard placement (counterpart of ``repro/runtime/sharding.py``'s
-``serving_shard_devices`` and ``shard_put``).
+"""Sharding policy (counterpart of ``repro/runtime/sharding.py``): DP
+(pod) x FSDP (data) x TP/EP (model) + the split-KV fallbacks, as partition
+specs over a :class:`~repro_torch.launch.mesh.Mesh`, and the serving-shard
+placement of sharded paged serving.
+
+Every parameter / optimizer / cache / batch leaf maps to a
+:class:`PartitionSpec` over the production mesh:
+
+    single-pod:  (data=16, model=16)          = 256 cards
+    multi-pod:   (pod=2, data=16, model=16)   = 512 cards
+
+Rules (the reference's):
+  * 2-D weights (d_in, d_out): FSDP on d_in over ``data``, TP on d_out over
+    ``model``, each only where the dim divides the axis;
+  * embedding tables (vocab, d): vocab TP over ``model``, FSDP over ``data``;
+  * MoE experts (E, d, ff): EP over ``model`` when E divides it, else
+    TP-within-expert on ff;
+  * MLA projections: head-dim TP when n_heads divides ``model``;
+  * KV caches: batch over ``data`` when divisible, else the *sequence* over
+    ``data``; under ``seqkv`` the sequence over ``model`` (split-KV decode);
+  * ``pod`` carries pure DP: parameters replicated across pods.
+
+The reference stacks the layers of each scanned group (and the
+encoder-decoder's layers, and its caches) on a leading axis and applies
+each rule to the trailing dims.  The port keeps one tree entry per layer
+(``layers/3/attn/wq/w``, a per-layer cache list), so its leaves are never
+stacked: each gets the spec of the reference leaf that holds it with the
+stacking axis dropped, the rule applied to the leaf's own shape (a path
+holding ``layers`` is not read as stacked here, as it is there).
+
+:func:`place` maps a spec onto a ``torch.distributed.DeviceMesh``'s
+placements (``Shard(i)`` for each mesh axis that names tensor dim ``i``,
+else ``Replicate()``), which exists for a mesh as large as the process
+group (a 1 x 1 mesh on one rank here; multi-card runs wait for a machine
+with several cards).
 
 Sharded paged serving routes each request (its pages and queue items) to
-ONE ``data`` shard; pools never straddle shards, so placement is a copy of
-a whole tree onto the shard's anchor device, not a sharding of the pool.
-The ``model`` axis carries tensor-parallel head groups within a shard
-(the head-chunk loop in ``models.transformer``).  The reference's
-partition specs, ``make_shardings`` and the rest of its training-side
-sharding are not ported here.
+ONE ``data`` shard; pools never straddle shards, so that placement is a
+copy of a whole tree onto the shard's anchor device
+(:func:`serving_shard_devices`, :func:`shard_put`), not a sharding.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
+
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core import tree as _tree
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: ``None`` (replicated), an axis name, or a
+    tuple of names (the dim split over those axes, in order).  A one-name
+    tuple is kept as the bare name and an empty one as ``None``, as JAX's
+    ``PartitionSpec`` reads them."""
+
+    def __new__(cls, *entries):
+        norm = [(e[0] if len(e) == 1 else e or None) if isinstance(e, tuple) else e
+                for e in entries]
+        return super().__new__(cls, norm)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    mesh: object
+    spec: PartitionSpec
+
+
+def data_axes(multi_pod: bool):
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def _shardable(dim: int, axis_size: int) -> bool:
+    # exact divisibility only, as the reference's jit argument shardings
+    return dim % axis_size == 0
+
+
+def path_str(path) -> str:
+    """A port tree path as a ``/``-joined name (NamedTuple fields by name)."""
+    return "/".join(str(k[1] if isinstance(k, tuple) else k) for k in path)
+
+
+def param_spec_fn(mesh, *, multi_pod: bool, fsdp: bool = True, policy: str = "tp_fsdp",
+                  cfg=None):
+    """Returns ``fn(path, leaf) -> PartitionSpec`` (``leaf``: anything with
+    a ``.shape``).  ``policy`` selects the layout:
+
+      tp_fsdp   TP over "model" + FSDP over "data"          (baseline)
+      fsdp      no TP; FSDP over "data" only; "model" becomes extra DP
+      fsdp2d    no TP; FSDP over the flattened ("data", "model") axes
+      dp        fully replicated parameters
+      tp, seqkv serving layouts: TP weights, no FSDP
+    """
+    model_n = mesh.shape["model"]
+    data_n = mesh.shape["data"]
+    if policy == "dp":
+        return lambda path, leaf: P(*((None,) * len(leaf.shape)))
+    if policy == "fsdp2d":
+        flat_n = data_n * model_n
+
+        def rule2d(path, leaf):
+            dims = tuple(leaf.shape)
+            spec = [None] * len(dims)
+            # shard the largest shardable dim over the flattened axes
+            for i in sorted(range(len(dims)), key=lambda i: -dims[i]):
+                if dims[i] % flat_n == 0:
+                    spec[i] = ("data", "model")
+                    break
+                if dims[i] % data_n == 0 and spec[i] is None:
+                    spec[i] = "data"
+                    break
+            return P(*spec)
+
+        return rule2d
+    if policy == "fsdp":
+        fsdp, use_tp = True, False
+    elif policy in ("tp", "seqkv"):
+        # parameters stay resident per card instead of being re-gathered
+        # every decode step
+        fsdp, use_tp = False, True
+    else:
+        use_tp = True
+    dspec = "data" if fsdp else None
+    if not use_tp:
+        model_n = 10**9  # nothing divides this => no "model" sharding
+
+    def rule(path, leaf):
+        name = path_str(path)
+        dims = tuple(leaf.shape)
+        nd = len(dims)
+        if nd in (0, 1):
+            spec: tuple = (None,) * nd
+        elif nd == 2:
+            d0, d1 = dims
+            if "table" in name:  # embedding: vocab TP + FSDP(d)
+                if _shardable(d0, model_n):
+                    spec = ("model", dspec if fsdp and _shardable(d1, data_n) else None)
+                elif _shardable(d1, model_n * data_n) and fsdp:
+                    # awkward vocab: the model dim over both axes instead
+                    spec = (None, ("data", "model"))
+                else:
+                    spec = (None, "model" if _shardable(d1, model_n) else None)
+            else:
+                tp_ok = _shardable(d1, model_n)
+                # Megatron GQA rule: K/V projections shard over heads only
+                # when kv-heads divide the TP axis (slicing inside a head
+                # would reduce the scores every KV block)
+                if (tp_ok and cfg is not None and re.search(r"/w[kv]($|/)", name)
+                        and cfg.n_kv_heads % model_n != 0):
+                    tp_ok = False
+                spec = (dspec if fsdp and _shardable(d0, data_n) else None,
+                        "model" if tp_ok else None)
+        elif nd == 3:
+            d0, d1, d2 = dims
+            if any(k in name for k in ("mlp/gate", "mlp/up", "mlp/down")):
+                # MoE experts (E, din, dout)
+                if d0 % model_n == 0:
+                    spec = ("model", None, None)  # EP only: d/ff are contraction dims
+                elif "down" in name:  # TP within each expert; (E, ff, d)
+                    spec = (None, "model" if _shardable(d1, model_n) else None,
+                            dspec if fsdp and _shardable(d2, data_n) else None)
+                else:  # gate/up: (E, d, ff)
+                    spec = (None, dspec if fsdp and _shardable(d1, data_n) else None,
+                            "model" if _shardable(d2, model_n) else None)
+            elif "wq_nope" in name or "wq_rope" in name:
+                spec = (dspec if fsdp and _shardable(d0, data_n) else None,
+                        "model" if d1 % model_n == 0 else None, None)
+            elif "w_uk" in name or "w_uv" in name:
+                spec = ("model" if d0 % model_n == 0 else None, None, None)
+            else:
+                spec = (dspec if fsdp and _shardable(d0, data_n) else None, None,
+                        "model" if _shardable(d2, model_n) else None)
+        else:
+            spec = (None,) * nd
+        return P(*spec)
+
+    return rule
+
+
+def batch_spec_fn(mesh, *, multi_pod: bool, policy: str = "tp_fsdp"):
+    """Input batches: leading batch dim over the data-parallel axes (and
+    over "model" too under the non-TP policies, where it carries DP)."""
+    dax = data_axes(multi_pod)
+    if policy in ("fsdp", "fsdp2d", "dp"):
+        dax = dax + ("model",)
+    total = 1
+    for a in dax:
+        total *= mesh.shape[a]
+
+    def rule(path, leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return P()
+        b = shape[0]
+        first = dax if b % total == 0 else None
+        if first is None and b % (total // mesh.shape[dax[-1]]) == 0:
+            first = dax[:-1]  # fall back to fewer axes
+        return P(first, *([None] * (len(shape) - 1)))
+
+    return rule
+
+
+def cache_spec_fn(mesh, *, multi_pod: bool, policy: str = "tp_fsdp"):
+    """KV / recurrent / SSM caches (per layer here).
+
+    Policies:
+      tp_fsdp  batch over data; head/latent width over model (forces the
+               decode attention to gather the whole cache every step: the
+               paper-faithful naive baseline).
+      seqkv    batch over data; the cache SEQUENCE over model (split-KV:
+               each card attends to S / n keys, reconciled by one LSE merge
+               of the softmax partials).
+      fsdp/fsdp2d/dp   batch over (data, model) when divisible.
+
+    The sequence axis is the largest non-terminal dim past the batch, so
+    the rule holds for ``(B, Hkv, S, Dh)`` and ``(B, S, D)`` alike.
+    """
+    dax = data_axes(multi_pod)
+    if policy in ("fsdp", "fsdp2d", "dp"):
+        dax = dax + ("model",)
+    total = 1
+    for a in dax:
+        total *= mesh.shape[a]
+    model_n = mesh.shape["model"] if policy == "tp_fsdp" else 10**9
+
+    def rule(path, leaf):
+        name = path_str(path)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        if nd < 1:
+            return P(*spec)
+        batch_shardable = shape[0] % total == 0
+        if batch_shardable:
+            spec[0] = dax
+        if shape[-1] % model_n == 0 and shape[-1] >= model_n:
+            spec[-1] = "model"  # width
+        elif nd >= 3 and shape[1] % model_n == 0 and "h" in name:
+            spec[1] = "model"  # ssm heads
+        if nd >= 3:
+            seq_axis = max(range(1, nd - 1), key=lambda i: shape[i])
+            # sequence-parallel fallback over data when the batch is not
+            if not batch_shardable and shape[seq_axis] % total == 0 and spec[seq_axis] is None:
+                spec[seq_axis] = dax
+            if policy == "seqkv":
+                mdl = mesh.shape["model"]
+                if shape[seq_axis] % mdl == 0 and spec[seq_axis] is None:
+                    spec[seq_axis] = "model"
+        return P(*spec)
+
+    return rule
+
+
+def tree_specs(tree, spec_fn):
+    return _tree.map_with_paths(spec_fn, tree)
+
+
+def tree_shardings(tree, mesh, spec_fn):
+    return _tree.map_with_paths(lambda path, leaf: NamedSharding(mesh, spec_fn(path, leaf)), tree)
+
+
+def make_shardings(mesh, tree, spec_fn):
+    return tree_shardings(tree, mesh, spec_fn)
+
+
+def placements(spec: PartitionSpec, axis_names) -> list:
+    """DTensor placements of ``spec`` over a mesh with ``axis_names``:
+    ``Shard(i)`` for each mesh axis that tensor dim ``i`` names, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for ax in axis_names:
+        dims = [i for i, e in enumerate(spec) if e == ax or (isinstance(e, tuple) and ax in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return out
+
+
+def full_value(t):
+    """A ``DTensor``'s full value (gathered), or ``t`` itself."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def place_one(t: torch.Tensor, sh: NamedSharding, _where=None):
+    """``t`` (the full value, on every rank) as a DTensor of ``sh``: this
+    rank's shard taken as a view (no copy, no communication); a DTensor
+    already placed so is returned as it is (as JAX's ``device_put`` of a
+    placed array moves nothing).  ``_where``: the mesh's ``(DeviceMesh,
+    this rank's coordinate)`` when known."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    dm, coord = _where or _mesh_where(sh.mesh)
+    pl = placements(sh.spec, sh.mesh.axis_names)
+    if isinstance(t, DTensor) and t.device_mesh is dm and list(t.placements) == pl:
+        return t
+    t = full_value(t)
+    local = t
+    for axis, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local = torch.chunk(local, dm.size(axis), dim=p.dim)[coord[axis]]
+    return DTensor.from_local(local, dm, pl, run_check=False, shape=t.shape, stride=t.stride())
+
+
+def _mesh_where(mesh):
+    dm = mesh.device_mesh()
+    return dm, dm.get_coordinate()
+
+
+def place(tree, shardings):
+    """Every tensor of ``tree`` as a ``DTensor`` placed by the matching
+    :class:`NamedSharding` of ``shardings`` (a tree of the same structure);
+    raises unless the mesh is as large as the process group."""
+    flat = dict(_tree.leaves_with_paths(shardings))
+    where = {}
+
+    def one(path, t):
+        sh = flat[path]
+        if id(sh.mesh) not in where:
+            where[id(sh.mesh)] = _mesh_where(sh.mesh)
+        return place_one(t, sh, where[id(sh.mesh)])
+
+    return _tree.map_with_paths(one, tree)
+
+
+def with_sharding_constraint(t, sh: NamedSharding):
+    """``t`` placed as ``sh`` asks, values unchanged: a ``DTensor`` is
+    redistributed to ``sh``'s placements; a plain tensor (the whole value
+    on its device, what the model computes on) needs no move and is
+    returned as it is."""
+    if not hasattr(t, "redistribute"):
+        return t
+    return t.redistribute(sh.mesh.device_mesh(), placements(sh.spec, sh.mesh.axis_names))
+
+
+def local_shards(tree):
+    """The local tensor of every ``DTensor`` in ``tree``."""
+    return _tree.tree_map(lambda d: d.to_local(), tree)
+
+
+def local_run(mesh, args, shardings):
+    """``args`` placed by ``shardings`` on ``mesh`` (on this rank's device
+    of it) and read back as their local shards: on a one-rank mesh the
+    tensors themselves (views, no copy).  Raises ``NotImplementedError`` on
+    a mesh of several ranks, where the local shards are slices and the
+    step would need collectives; ``RuntimeError`` unless the process
+    group's world size equals the mesh's size."""
+    dm = mesh.device_mesh()
+    if dm.size() > 1:
+        raise NotImplementedError(
+            f"a step over a mesh of {dm.size()} ranks (sharded leaves, the "
+            "gradient reduction) runs on a machine with that many cards; "
+            "here a one-rank mesh (make_debug_mesh) runs")
+    return local_shards(place(args, shardings))
+
+
+# --------------------------------------------------------------------------- #
+# serving-shard placement (data-parallel paged pools)
+# --------------------------------------------------------------------------- #
 
 
 def serving_shard_devices(mesh) -> list:
@@ -34,4 +383,4 @@ def shard_put(tree, device):
     if device is None:
         return tree
     device = torch.device(device)
-    return tree_map(lambda t: t.to(device), tree)
+    return _tree.tree_map(lambda t: t.to(device), tree)

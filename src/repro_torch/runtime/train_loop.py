@@ -14,8 +14,15 @@ the serving tree from trained parameters.
 
 Attention's forward is the card's flash prefill kernel (K7; K6 + K3 for
 sequences of 8 or fewer) and its backward autograd through the
-reference's blockwise path (:mod:`repro_torch.core.attention`).  The
-reference's ``jit_train_step`` (shardings over a mesh) is not ported.
+reference's blockwise path (:mod:`repro_torch.core.attention`).
+
+:func:`jit_train_step` is the reference's sharded step factory: the
+shardings of every parameter, moment, residual and batch leaf over a mesh
+(:mod:`repro_torch.runtime.sharding`), and a step that places its inputs
+by them and runs :func:`make_train_step`'s step on the local shards.  A
+mesh of one rank (``make_debug_mesh``) runs here; a step over several
+ranks (sharded leaves, the gradient reduction) waits for a machine with
+several cards and raises.
 """
 
 from __future__ import annotations
@@ -30,12 +37,14 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.transformer import cfg_dtype
 from repro_torch.optim.adamw import (
+    AdamWState,
     adamw_init,
     adamw_update,
     cosine_schedule,
     reference_decay_mask,
 )
-from repro_torch.optim.compression import compress_grads, compression_init
+from repro_torch.optim.compression import CompressionState, compress_grads, compression_init
+from repro_torch.runtime import sharding
 
 
 class TrainConfig(NamedTuple):
@@ -157,3 +166,45 @@ def make_train_step(model, tc: TrainConfig):
         return params, opt_state, comp_state, metrics
 
     return train_step
+
+
+def jit_train_step(model, tc: TrainConfig, mesh, params_like, *, multi_pod: bool = False,
+                   donate: bool = True, policy: str = "tp_fsdp"):
+    """The train step sharded over ``mesh`` against ``params_like`` (only
+    its shapes are read: meta tensors do).  Returns ``(compile_for,
+    shardings)``, ``shardings`` with keys ``params``, ``opt``, ``comp`` and
+    ``batch_fn``; ``compile_for(batch_like)`` gives a step with
+    :func:`make_train_step`'s signature that places ``params``,
+    ``opt_state``, ``comp_state`` and ``batch`` by them and returns plain
+    tensors (the local shards of the result).
+
+    ``donate`` is the reference's buffer donation; the port's step is
+    functional (it writes none of its inputs and returns new tensors), so
+    there is nothing to donate and the flag changes nothing.  Microbatches
+    are strided over the batch as :func:`make_train_step` takes them."""
+    del donate
+    pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=model.cfg)
+    bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
+    param_sh = sharding.make_shardings(mesh, params_like, pfn)
+    opt_sh = AdamWState(count=sharding.NamedSharding(mesh, sharding.P()), mu=param_sh,
+                        nu=param_sh)
+    comp_sh = None if tc.compression == "none" else CompressionState(residual=param_sh)
+    step_fn = make_train_step(model, tc)
+
+    def batch_shardings(batch_like):
+        return sharding.make_shardings(mesh, batch_like, bfn)
+
+    def compile_for(batch_like):
+        b_sh = batch_shardings(batch_like)
+
+        def step(params, opt_state, comp_state, batch, step):
+            mesh.device_mesh()  # raises unless the process group fits the mesh
+            dev = mesh.devices.flat[torch.distributed.get_rank()]
+            args = (params, opt_state, comp_state, _to_batch(batch, dev))
+            placed = sharding.local_run(mesh, args, (param_sh, opt_sh, comp_sh, b_sh))
+            return step_fn(*placed, step)
+
+        return step
+
+    return compile_for, {"params": param_sh, "opt": opt_sh, "comp": comp_sh,
+                         "batch_fn": batch_shardings}

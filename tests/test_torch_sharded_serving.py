@@ -21,7 +21,7 @@
   aliasing, fork families on one shard, admission churn, validation, and
   ``work_stats()`` (per shard, balance, ratios) equal to the reference's;
   ``head_shards=2``, speculation and budgeted prefill on the sharded
-  session; a ``ServingMesh`` of CPU entries; the placement helpers, which
+  session; a ``Mesh`` of CPU entries; the placement helpers, which
   copy no tensor that already lives on its device; ``to_device``; and
   the serve driver's ``--mesh 2x1 --device cpu``.
 
@@ -535,7 +535,7 @@ def test_serving_mesh_on_the_cpu_and_its_shard_devices():
     with pytest.raises(ValueError, match="needs a mesh"):
         sharding.serving_shard_devices(None)
     with pytest.raises(ValueError, match="lack 'data'"):
-        sharding.serving_shard_devices(port_mesh.ServingMesh(mesh.devices, ("x", "model")))
+        sharding.serving_shard_devices(port_mesh.Mesh(mesh.devices, ("x", "model")))
 
 
 def test_mesh_session_places_shards_and_chunks_heads(models, ref_churn):
