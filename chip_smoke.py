@@ -33,6 +33,10 @@ root) and exits nonzero on any failure:
    Cases include kv_len 0 (rows must be exact zeros), ragged kv_len and
    contexts longer than the window.  Each kernel is timed beside its
    bound, its plain version and, where one exists, a single PyTorch call.
+   Every bound in this script is the wrapper's own charge for the call
+   (its cost function, the one the dry run counts, read under an
+   ``OpCounter``: :func:`charged`) at the card's peaks for the operands'
+   dtype (``roofline.analysis.kernel_bound``).
 3. **Small references**: the smoke-size models (fp32) through the kernels
    on the card and the plain versions on the CPU — deepseek-v2-mla over
    the paged path (bf16 pages, its decode steps replayed from a CUDA graph
@@ -178,6 +182,10 @@ root) and exits nonzero on any failure:
     ``make_train_step`` steps, each taken on the card and on the CPU from
     the CPU's state before it: loss, grad_norm, first moment and
     parameters at the tolerances of ``tests/test_torch_train_loop.py``;
+    (b'') smoke qwen3-moe-30b-a3b at bf16 compute, whose expert products'
+    gradient on the card is ``moe._WideProducts``': one MoE layer's
+    expert weight gradients and one train step (loss, grad_norm, the
+    experts' first moments) against the CPU's (:func:`moe_train_check`);
     (c) qwen1.5-0.5b at full width (24
     layers, 0.46 B fp32 master parameters from seed 0 on the card),
     ``SyntheticLMData`` seed 0, batch 8 x 2048 tokens, remat, amla, 10
@@ -240,6 +248,18 @@ root) and exits nonzero on any failure:
     23: 3 ``jit_train_step`` steps on the 1 x 1 nccl mesh from (c)'s
     state, each bit-equal to ``make_train_step``'s, and
     ``reshard_train_state`` bit-equal, timed.
+30. **Roofline phase** (``repro_torch.roofline``): one untimed step of
+    the train phase's cell (qwen1.5-0.5b, 8 x 2048, remat) and of the
+    dense deepseek-v2-mla decode step (batch 4, the cache filled to its
+    2048 rows) counted by ``OpCounter`` on the card and, at the same
+    shapes, on meta-device stand-ins: flops and bytes equal within 1e-6,
+    both counts and every kernel's charge printed; the three roofline
+    terms of each, the dominant one and the measured ms over the bound
+    (the train phase's steady ms/step; the eager decode step timed here),
+    the train cell's model-FLOPs share, and the decode cell's memory term
+    at least its weights' bytes over 3.35 TB/s; then ``python -m
+    repro_torch.launch.dryrun --archs qwen1.5-0.5b --shapes decode_32k
+    --meshes single`` on the card's host: exit 0, ``[OK]``, ``0 failed``.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only`` (the build and phase 8), or ``--k6-ab OTHER_TREE/src``
@@ -260,8 +280,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 # Kernel vs plain version on the same inputs (outputs are O(1)).
 # fp32 "base": only summation order and expf-vs-torch.exp ulps differ.
 # fp32 "amla": the 1.5*eps mantissa compensation of the int32 rescale is an
@@ -388,22 +406,35 @@ def run_k3(case, o_part, lse, plain):
     return fn(o_part, lse, case["dest"], case["n_splits"])
 
 
+QUEUE, GROUP = "mla_decode_paged_queue_rows", "mla_decode_paged_group_prefix"
+COMBINE = "combine_split_partials"
+
+
+def charged(fn, name):
+    """``(flops, bytes)`` that the wrapper ``name`` charges (its own cost
+    function, the dry run's) for the work of one call of ``fn``, read under
+    a counter; the launches it makes come after every launch-count check
+    and before the main path's counts are set to 0."""
+    from repro_torch.roofline.op_cost import OpCounter
+
+    with OpCounter() as c:
+        fn()
+    torch.cuda.synchronize()
+    return c.charges[name].flops, c.charges[name].bytes
+
+
+def bound(cost, dtype):
+    """(least ms, what bounds it) for a charge ``cost`` = ``(flops,
+    bytes)`` at the card's peaks for ``dtype``
+    (``roofline.analysis.kernel_bound``)."""
+    from repro_torch.roofline import analysis
+
+    return analysis.kernel_bound(*cost, dtype)
+
+
 def k2_bound(case):
-    """Least time for K2's work: bytes (each input once, outputs once) over
-    the memory rate vs operations the causal mask leaves over the peak."""
-    q, pages = case["q"], case["pages"]
-    isz = pages.element_size()
-    kv, pos = case["kv_host"], case["q_pos_host"]
-    g = q.shape[1]
-    d = case["sched"].num_dest_slots
-    nbytes = (q.numel() * q.element_size() + int(kv.sum()) * DK * isz
-              + 4 * (case["bt"].numel() + kv.size + pos.size
-                     + sum(t.numel() for t in case["items"]))
-              + 4 * d * g * (DV + 1))
-    keys = np.minimum(kv[:, None], pos + 1) * (kv[:, None] > 0)
-    ops = 2.0 * float(keys.sum()) * (DK + DV)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[q.dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """K2's bound: the queue wrapper's charge for the case."""
+    return bound(charged(lambda: run_k2(case, "amla", plain=False), QUEUE), case["q"].dtype)
 
 
 def sdpa_call(case):
@@ -551,22 +582,6 @@ def randn(shape, seed, dtype):
     return torch.randn(shape, generator=g, device="cuda", dtype=torch.float32).to(dtype)
 
 
-def visible_keys(kv, q_pos, window, causal=True):
-    """(B, R) count of keys each row sees: k < kv_len, k <= q_pos (causal),
-    k > q_pos - window."""
-    kv = np.asarray(kv, np.int64)[:, None]
-    pos = np.asarray(q_pos, np.int64)
-    hi = np.minimum(kv, pos + 1) if causal else np.broadcast_to(kv, pos.shape)
-    lo = np.maximum(pos - window + 1, 0) if window else np.zeros_like(pos)
-    return np.clip(hi - lo, 0, None)
-
-
-def bound(nbytes, ops, dtype):
-    """(least ms, what bounds it) for moving ``nbytes`` and doing ``ops``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def gqa_case(kernel, geom, b, sq, s, kv, dtype, seed, causal=True):
     """Inputs of one K6 or K7 call on the card.  K6 gets q rows (B, Hkv, G,
     Dh) with G = Sq * group at the last Sq positions below kv_len, and
@@ -612,19 +627,9 @@ def run_gqa(case, variant, plain):
 
 
 def gqa_bound(case):
-    """K6/K7: q, the K and V rows some row of a head group sees (once),
-    the fp32 output; 4 * Dh operations per (row, visible key)."""
-    _, hq, hkv, dh, window, _ = case["geom"]
-    q, isz = case["q"], case["q"].element_size()
-    causal = case["causal"]
-    keys = visible_keys(case["kv_host"], case["pos_host"], window, causal)
-    heads_per_row = hkv if case["kernel"] == "K6" else hq
-    lo = np.maximum(case["pos_host"].min(axis=1) - (window or 10**9) + 1, 0)
-    hi = np.minimum(case["kv_host"], case["pos_host"].max(axis=1) + 1 if causal else 10**9)
-    kv_rows = int(np.clip(hi - lo, 0, None).sum()) * hkv
-    nbytes = (q.numel() * isz + 2 * kv_rows * dh * isz + q.numel() * 4
-              + 4 * (case["kv_host"].size + case["pos_host"].size))
-    return bound(nbytes, 4.0 * dh * float(keys.sum()) * heads_per_row, q.dtype)
+    """K6/K7's bound: the wrapper's charge for the case."""
+    name = "gqa_decode_rows" if case["kernel"] == "K6" else "flash_prefill"
+    return bound(charged(lambda: run_gqa(case, "amla", plain=False), name), case["q"].dtype)
 
 
 def gqa_sdpa(case):
@@ -674,14 +679,9 @@ def run_k4(case, variant, plain):
 
 
 def k4_bound(case):
-    """K4: q, the latent rows some row sees (once), the fp32 output;
-    2 * (Dk + Dv) operations per (row, visible key)."""
-    q, isz = case["q"], case["q"].element_size()
-    keys = visible_keys(case["kv_host"], case["pos_host"], None)
-    rows = np.minimum(case["kv_host"], case["pos_host"].max(axis=1) + 1)
-    nbytes = (q.numel() * isz + int(rows.sum()) * DK * isz + q.shape[0] * q.shape[1] * DV * 4
-              + 4 * (case["kv_host"].size + case["pos_host"].size))
-    return bound(nbytes, 2.0 * (DK + DV) * float(keys.sum()), q.dtype)
+    """K4's bound: the wrapper's charge for the case."""
+    return bound(charged(lambda: run_k4(case, "amla", plain=False), "mla_decode_rows"),
+                 case["q"].dtype)
 
 
 def k4_sdpa(case):
@@ -1046,14 +1046,6 @@ def padded_case(seed, kv_lens, dtype, width):
     return case
 
 
-def rows_bound(q, rows, row_bytes, out_bytes, keys):
-    """Least ms for a paged MLA call: q once, ``rows`` latent rows of
-    ``row_bytes`` once, the output once; 2 (Dk + Dv) operations per
-    (query row, visible key)."""
-    nbytes = q.numel() * q.element_size() + rows * row_bytes + out_bytes
-    return bound(nbytes, 2.0 * (DK + DV) * keys, q.dtype)
-
-
 def sdpa_rows(q, c, lens):
     """One scaled_dot_product_attention call over contiguous ``c (B, S,
     Dk)`` (``lens`` rows live per request, all visible to every row): the
@@ -1190,9 +1182,7 @@ def slice3_kernel_phase(flush):
     tp = time_cuda(lambda: run_suffix(fc, "amla", plain=True), 5, flush)
     start = ps.start_blocks * BLOCK_K
     lens = np.maximum(fc["kv_host"] - start, 0)
-    live_slots = int((ps.suffix.n_splits).sum())
-    b, by = rows_bound(fc["q"], int(lens.sum()), DK + 4, live_slots * 128 * (DV + 1) * 4,
-                       128 * float(lens.sum()))
+    b, by = bound(charged(lambda: run_suffix(fc, "amla", plain=False), QUEUE), bf)
     c = torch.stack([torch.nn.functional.pad(
         dequant_rows(fc["kv"], r, int(start[r]), int(fc["kv_host"][r]), bf),
         (0, 0, 0, int(lens.max()) - int(lens[r]))) for r in range(5)])
@@ -1206,7 +1196,7 @@ def slice3_kernel_phase(flush):
     tp = time_cuda(lambda: run_group_prefix(fc, "amla", plain=True), 5, flush)
     plen = int(ps.prefix_lens[0])
     qg = fc["q"][ps.groups.group_member[0]].reshape(1, 4 * 128, DK)
-    b, by = rows_bound(qg, plen, DK + 4, 4 * 128 * (DV + 1) * 4, 4 * 128 * float(plen))
+    b, by = bound(charged(lambda: run_group_prefix(fc, "amla", plain=False), GROUP), bf)
     c = dequant_rows(fc["kv"], 0, 0, plen, bf)[None]
     tlib = time_cuda(sdpa_rows(qg, c, [plen]), 20, flush)
     rows["K2' int8"] = (t, tp, b, by, tlib)
@@ -1220,7 +1210,7 @@ def slice3_kernel_phase(flush):
     t = time_cuda(lambda: run_group_prefix(fc, "amla", plain=False), 20, flush)
     tp = time_cuda(lambda: run_group_prefix(fc, "amla", plain=True), 5, flush)
     qg = fc["q"][fc["ps"].groups.group_member[0]].reshape(1, 4 * 128, DK)
-    b, by = rows_bound(qg, plen, 2 * DK, 4 * 128 * (DV + 1) * 4, 4 * 128 * float(plen))
+    b, by = bound(charged(lambda: run_group_prefix(fc, "amla", plain=False), GROUP), bf)
     c = dequant_rows(fc["kv"], 0, 0, plen, bf)[None]
     tlib = time_cuda(sdpa_rows(qg, c, [plen]), 20, flush)
     rows["K2'"] = (t, tp, b, by, tlib)
@@ -1232,9 +1222,7 @@ def slice3_kernel_phase(flush):
     case = int8_case(11, [37 + 16, 300 + 16, 513 + 16, 1100 + 16], 128, bf, 2,
                      lambda l, g: np.full((g,), l - 1))
     t = time_cuda(lambda: run_k2(case, "amla", plain=False), 20, flush)
-    b, by = rows_bound(case["q"], int(case["kv_host"].sum()), DK + 4,
-                       case["sched"].num_dest_slots * 128 * (DV + 1) * 4,
-                       128 * float(case["kv_host"].sum()))
+    b, by = k2_bound(case)
     rows["K2-int8 at the K2 decode shape"] = (t, None, b, by, None)
     log(f"  time K2-int8 at the K2 decode shape (bf16, kv={case['kv_host'].tolist()}, 2 "
         f"splits; tensor-core body): {t:.4f} ms (bound {b:.5f} ms by {by})")
@@ -1245,8 +1233,7 @@ def slice3_kernel_phase(flush):
     case["q_pos_host"] = np.repeat((case["kv_host"] - 1)[:, None], 128, 1)
     t = time_cuda(lambda: run_k5(case, "amla", plain=False), 20, flush)
     tp = time_cuda(lambda: run_k5(case, "amla", plain=True), 5, flush)
-    kvs = float(case["kv_host"].sum())
-    b, by = rows_bound(case["q"], int(kvs), 2 * DK, 4 * 128 * DV * 4, 128 * kvs)
+    b, by = bound(charged(lambda: run_k5(case, "amla", plain=False), "mla_decode_paged_rows"), bf)
     tlib = time_cuda(sdpa_call(case), 20, flush)
     rows["K5"] = (t, tp, b, by, tlib)
     log(f"  time K5 padded decode (bf16, kv={case['kv_host'].tolist()}, W=24): {t:.4f} ms "
@@ -1321,8 +1308,7 @@ def verify_case(seed, dtype):
 def nested_group_rows(fc, dtype):
     """One SDPA yardstick call for K2' over the nested groups: each group's
     stacked member queries over its own window's rows, padded to the
-    longest window and masked; with the window rows' bytes and visible keys
-    for the bound."""
+    longest window and masked."""
     ps, g = fc["ps"], fc["ps"].groups
     gmax = g.gmax
     qs, cs, lens = [], [], []
@@ -1335,8 +1321,7 @@ def nested_group_rows(fc, dtype):
         lens.append(hi - lo)
     width = max(lens)
     c = torch.stack([torch.nn.functional.pad(x, (0, 0, 0, width - x.shape[0])) for x in cs])
-    keys = sum(128 * int(n) * l for n, l in zip(g.group_size, lens))
-    return torch.stack(qs), c, lens, keys
+    return torch.stack(qs), c, lens
 
 
 def trie_kernel_phase(flush):
@@ -1442,8 +1427,8 @@ def trie_kernel_phase(flush):
     fc = nested_family_case(20, bf, bf)
     t = time_cuda(lambda: run_group_prefix(fc, "amla", plain=False), 20, flush)
     tp = time_cuda(lambda: run_group_prefix(fc, "amla", plain=True), 5, flush)
-    qg, c, lens, keys = nested_group_rows(fc, bf)
-    b, by = rows_bound(qg, sum(lens), 2 * DK, qg.shape[0] * qg.shape[1] * (DV + 1) * 4, keys)
+    qg, c, lens = nested_group_rows(fc, bf)
+    b, by = bound(charged(lambda: run_group_prefix(fc, "amla", plain=False), GROUP), bf)
     tlib = time_cuda(sdpa_rows(qg, c, lens), 20, flush)
     rows["K2' nested"] = (t, tp, b, by, tlib)
     log(f"  time K2' over nested groups (bf16, 3 groups of 4/2/2 x 128 stacked rows, windows "
@@ -1454,7 +1439,7 @@ def trie_kernel_phase(flush):
     merge = lambda: mc.combine_hetero_partials([so, o], [slse, lse], *fc["hetero"])
     plain = lambda: mc._combine_plain(torch.cat([so, o]), torch.cat([slse, lse]), *fc["hetero"])
     t, tp = time_cuda(merge, 50, flush), time_cuda(plain, 20, flush)
-    b, by = k3_bound([so, o], *fc["hetero"])
+    b, by = bound(charged(merge, COMBINE), torch.float32)
     rows["K3 chain 2"] = (t, tp, b, by, None)
     log(f"  time K3 hetero at chains of 2 (B=5, G=128, table 4 wide, splits "
         f"{fc['hetero'][1].tolist()}): {t:.4f} ms (bound {b:.5f} ms by {by}, plain {tp:.4f} ms)")
@@ -1500,17 +1485,6 @@ def k3_inputs_of(fn):
     finally:
         mc.combine_split_partials = real
     return got[-1]
-
-
-def k3_bound(o_parts, dest_table, n_splits):
-    """K3: every live partial row (Dv fp32 and its lse) read once, the
-    tables read once, the (B, G, Dv) output written once; 3 Dv operations
-    per live (row, split)."""
-    g, d_v = o_parts[0].shape[1:]
-    b, s = dest_table.shape
-    live = int(n_splits.clamp(max=s).sum())
-    nbytes = 4 * (live * g * (d_v + 1) + b * g * d_v + b * (1 + s))
-    return bound(nbytes, 3.0 * live * g * d_v, torch.float32)
 
 
 def k3_cases():
@@ -1597,7 +1571,7 @@ def k3_phase(flush):
         t = time_cuda(merge, 50, flush)
         tk = kernel_device_ms(merge, "combine_kernel", flush)
         tp = time_cuda(plain, 20, flush)
-        b, by = k3_bound(o_parts, dest, n_splits)
+        b, by = bound(charged(merge, COMBINE), torch.float32)
         g, d_v = o_parts[0].shape[1:]
         log(f"  time K3 {shape} (B={dest.shape[0]}, G={g}, Dv={d_v}, splits "
             f"{sorted(set(n_splits.tolist()))} of {dest.shape[1]}, sources "
@@ -3084,6 +3058,7 @@ def family_serve(arch, prompt_lens, gen_len=16, max_len=8192, batch=4, then=None
     from repro_torch.kernels import gqa_decode as gd
     from repro_torch.kernels import mla_decode_combine as mc
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline import analysis
 
     cfg = get_config(arch)
     kinds = cfg.layer_kinds()
@@ -3129,7 +3104,7 @@ def family_serve(arch, prompt_lens, gen_len=16, max_len=8192, batch=4, then=None
         log(f"MoE decode: {1e3 * timing['decode'] / steps:.2f} ms/step over all {steps} steps, "
             f"{1e3 * np.mean(steady):.2f} ms/step steady, beside the time to read every "
             f"expert's weights once, {weights / 2**30:.1f} GiB = "
-            f"{1e3 * weights / HBM_BYTES_PER_S:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+            f"{1e3 * weights / analysis.HBM_BW:.2f} ms at {analysis.HBM_BW / 1e12:.2f} TB/s")
     if ((k6, k6_mma), (k7, k7_mma), k3) != ((want6, want6), (want7, want7), want3):
         raise SystemExit(f"{cfg.name} families phase: kernel launch counts do not match the "
                          "main path")
@@ -4233,13 +4208,88 @@ def small_train_check():
             raise SystemExit(f"train phase (b): {cfg.name} on the card disagrees with the CPU")
 
 
+MOE_LAYER_TOL = 2.0**-7  # expert weight gradients, one layer, same inputs (bf16-rounded)
+MOE_STEP_TOL = (2e-3, 2e-2, 5e-2)  # a train step from one state: loss, grad_norm, expert moments
+
+
+def moe_train_check():
+    """(b'') Smoke qwen3-moe-30b-a3b at bf16 compute over fp32 master
+    weights, whose expert products take bf16 inputs to fp32 outputs: on
+    the card through ``moe._WideProducts`` (cuBLAS's ``out_dtype``
+    product, with a hand-written gradient, since PyTorch has none), on the
+    CPU through the widened product, whose gradient
+    ``tests/test_torch_moe.py`` holds against ``jax.grad`` of the
+    reference.  (1) One MoE layer, the same bf16 weights, fp32 input and
+    cotangent on both: each expert weight's gradient within MOE_LAYER_TOL
+    of its largest magnitude (both round it to bf16).  (2) One train step
+    from one state on each: the loss and grad_norm within MOE_STEP_TOL
+    relative, and the expert leaves' first moments (0.1 x the clipped
+    gradient) within MOE_STEP_TOL in norm (attention differs by bf16
+    roundings between the kernels and the CPU, which may move a token to
+    another expert)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+
+    log("== train phase (b''): smoke qwen3-moe-30b-a3b at bf16 compute, expert gradients, "
+        "card vs CPU ==")
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b", smoke=True), dtype="bfloat16")
+    model = build_model(cfg)
+    params, opt, _ = init_train_state(model, torch.Generator("cpu").manual_seed(5), "cpu")
+    gen = torch.Generator("cpu").manual_seed(6)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    cot = torch.randn((4, 64, cfg.d_model), generator=gen)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev, torch.bfloat16).requires_grad_() for k, v in
+             params["layers"][0]["mlp"].items()}
+        out, aux = moe.moe_apply(p, x.to(dev), cfg=cfg, dtype=torch.bfloat16)
+        (torch.sum(out * cot.to(dev)) + aux).backward()
+        grads.append({k: v.grad.float().cpu() for k, v in p.items()})
+    layer_err = {k: float((grads[1][k] - grads[0][k]).abs().max() / grads[0][k].abs().max())
+                 for k in ("gate", "up", "down", "router")}
+
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10, remat=True)
+    step = make_train_step(model, tc)
+    batch = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                            seed=0).batch_at(0)
+    _, co, _, cm = step(params, opt, None, batch, 1)
+    gopt = AdamWState(opt.count.cuda(), to_device(opt.mu, "cuda"), to_device(opt.nu, "cuda"))
+    _, go, _, gm = step(to_device(params, "cuda"), gopt, None, batch, 1)
+    l_err = abs(float(gm["loss"]) / float(cm["loss"]) - 1)
+    n_err = abs(float(gm["grad_norm"]) / float(cm["grad_norm"]) - 1)
+    experts = [(mc, mg.cpu()) for (path, mc), mg in
+               zip(tree.leaves_with_paths(co.mu), tree.leaves(go.mu), strict=True)
+               if "mlp" in str(path) and mc.dim() == 3]  # the experts' gate, up, down
+    mu_err = max(float((mg - mc).norm() / mc.norm()) for mc, mg in experts)
+    log("  one MoE layer: expert gradients card vs CPU, max |diff| / max |CPU| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in layer_err.items()) + f" (tol {MOE_LAYER_TOL:.3e})")
+    log(f"  one train step: loss card {float(gm['loss']):.6f} CPU {float(cm['loss']):.6f} "
+        f"(rel {l_err:.3e}, tol {MOE_STEP_TOL[0]:g}); grad_norm rel {n_err:.3e} (tol "
+        f"{MOE_STEP_TOL[1]:g}); expert first moments |diff| / |CPU| {mu_err:.3e} (tol "
+        f"{MOE_STEP_TOL[2]:g})")
+    if not (max(layer_err.values()) <= MOE_LAYER_TOL and l_err <= MOE_STEP_TOL[0]
+            and n_err <= MOE_STEP_TOL[1] and mu_err <= MOE_STEP_TOL[2]
+            and len(experts) == 3 * cfg.n_layers):
+        raise SystemExit("train phase (b''): MoE expert gradients on the card disagree with the "
+                         "CPU")
+
+
 def train_phase(card):
     """(c) qwen1.5-0.5b at full width: 10 train steps on the card (``card``:
     its name and power limit, printed beside the numbers).  Returns (cfg,
-    model, params, opt, launches (K7, K6, K3))."""
-    from repro_torch.configs import get_config
+    model, params, opt, launches (K7, K6, K3), the step's TrainConfig, its
+    data and its steady ms/step)."""
+    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline import analysis
     from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
 
     cfg = get_config("qwen1.5-0.5b")
@@ -4272,13 +4322,13 @@ def train_phase(card):
     (k7, k7_mma), (k6, _), (k3, _) = launches
     ms = 1e3 * float(np.mean(times[1:]))
     tokens = b * s
-    attn_flops = 6 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim  # causal: half of 12
-    flops = 6 * n * tokens + attn_flops
+    flops = analysis.model_flops(cfg, ShapeConfig("chip_train", s, b, "train"))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    share = flops / (ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    share = flops / (ms / 1e3) / analysis.PEAK_FLOPS
     log(f"steady {ms:.1f} ms/step (steps 2-{steps}; first {1e3 * times[0]:.1f} ms), "
         f"{tokens / (ms / 1e3):.1f} tokens/s, peak {peak:.2f} GiB; model FLOPs "
-        f"6 N T + causal attention = {flops / 1e12:.2f} TFLOP/step, "
+        f"(roofline.analysis.model_flops: 6 N T + causal attention) = "
+        f"{flops / 1e12:.2f} TFLOP/step, "
         f"{100 * share:.2f} % of the bf16 dense peak (989 TFLOP/s); card {card}")
     want = cfg.n_layers * 2 * steps
     log(f"launches: K7 {k7} ({k7_mma} tensor-core; expected layers x 2 x steps = {want}: the "
@@ -4287,7 +4337,7 @@ def train_phase(card):
         raise SystemExit(f"train phase: losses {losses} not finite or not lower at the end")
     if (k7, k7_mma, k6, k3) != (want, want, 0, 0):
         raise SystemExit("train phase: kernel launch counts do not match the main path")
-    return cfg, model, params, opt, (k7, k6, k3)
+    return cfg, model, params, opt, (k7, k6, k3), (step, data, ms)
 
 
 def train_serve_handoff(cfg, model, params, opt):
@@ -4361,9 +4411,13 @@ def train_phases(card):
     release()
     small_train_check()
     release()
+    moe_train_check()
+    release()
     int8_compression_check()
     release()
-    cfg, model, params, opt, (k7, k6, k3) = train_phase(card)
+    cfg, model, params, opt, (k7, k6, k3), train_cell = train_phase(card)
+    roofline_train_cell(cfg, model, params, opt, *train_cell, card)
+    release()
     k7m, k6m, k3m = mesh_train_check(cfg, model, params, opt)
     release()
     k7d, k6d, k3d = train_serve_handoff(cfg, model, params, opt)
@@ -4371,6 +4425,141 @@ def train_phases(card):
     release()
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return worst, (k7 + k7m + k7d, k6 + k6m + k6d, k3 + k3m + k3d)
+
+
+# --------------------------------------------------------------------------- #
+# the roofline: one step counted on the card and on meta, bounds beside times
+# --------------------------------------------------------------------------- #
+ROOFLINE_REL = 1e-6  # card count against meta count, flops and bytes
+
+
+def counted(fn):
+    """``(fn(), the OpCounter it ran under)``."""
+    from repro_torch.roofline.op_cost import OpCounter
+
+    with OpCounter() as c:
+        out = fn()
+    return out, c
+
+
+def hold_counts(what, card_c, meta_c, card):
+    """Print the card's and the meta count (every kernel wrapper's charge
+    beside them) and fail unless flops and bytes agree within
+    ROOFLINE_REL and the same kernels were charged."""
+    for where, c in (("card", card_c), ("meta", meta_c)):
+        charges = "; ".join(f"{k} x{c.launches[k]}: {v.flops:.6e} flops, {v.bytes:.6e} bytes"
+                            for k, v in sorted(c.charges.items()))
+        log(f"  {what}, {where} count: {c.cost.flops:.6e} flops, {c.cost.bytes:.6e} bytes "
+            f"(+ casts {c.cost.cast_bytes:.6e}), {c.n_ops} aten ops; kernel charges: {charges}")
+    rel = max(abs(card_c.cost.flops - meta_c.cost.flops) / meta_c.cost.flops,
+              abs(card_c.cost.bytes - meta_c.cost.bytes) / meta_c.cost.bytes)
+    same = sorted(card_c.launches.items()) == sorted(meta_c.launches.items())
+    log(f"  {what}: card count = meta count within {rel:.3e} (gate {ROOFLINE_REL:g}); the same "
+        f"kernel launches charged: {same}; card {card}")
+    if rel > ROOFLINE_REL or not same:
+        raise SystemExit(f"roofline phase: {what}'s card count differs from its meta count")
+
+
+def report_bound(what, cost, ms, mf, card):
+    """The three roofline terms of one card's ``cost``, the dominant one,
+    and ``ms`` over the bound; returns the terms."""
+    from repro_torch.roofline import analysis
+
+    t = analysis.roofline_from_cost(cost, model_flops_total=mf, n_chips=1)
+    log(f"  {what} roofline (one card, datasheet peaks): compute {1e3 * t.compute_s:.3f} ms, "
+        f"memory {1e3 * t.memory_s:.3f} ms, collective {1e3 * t.collective_s:.3f} ms; dominant "
+        f"{t.dominant}, bound {1e3 * t.bound_time_s:.3f} ms; measured {ms:.3f} ms = "
+        f"{ms / (1e3 * t.bound_time_s):.2f} x the bound; useful flops {t.useful_ratio:.3f}; "
+        f"card {card}")
+    return t
+
+
+def roofline_train_cell(cfg, model, params, opt, step, data, ms, card):
+    """(a), (b) for the train phase's cell: one more step from its state
+    (untimed, its result dropped) counted on the card, the same step on
+    meta parameters and batch, the roofline beside the steady ms/step."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline import analysis
+
+    log("== roofline phase (a, b): the train cell, qwen1.5-0.5b 8 x 2048, remat ==")
+    batch = {k: torch.as_tensor(v).long().cuda() for k, v in data.batch_at(10).items()}
+    torch.cuda.synchronize()
+    _, card_c = counted(lambda: step(params, opt, None, batch, 10))
+    torch.cuda.synchronize()
+    pm = model.init(None, "meta", dtype=torch.float32)
+    om = adamw_init(pm)
+    mb = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    t0 = time.perf_counter()
+    _, meta_c = counted(lambda: step(pm, om, None, mb, 10))
+    log(f"  meta count in {time.perf_counter() - t0:.1f} s of host time")
+    hold_counts("train step", card_c, meta_c, card)
+    b, s = batch["tokens"].shape
+    mf = analysis.model_flops(cfg, ShapeConfig("chip_train", s, b, "train"))
+    report_bound("train step", meta_c.cost, ms, mf, card)
+    log(f"  model FLOPs {mf / 1e12:.2f} TFLOP/step: "
+        f"{100 * mf / (ms / 1e3) / analysis.PEAK_FLOPS:.2f} % of the bf16 dense peak at the "
+        f"measured {ms:.1f} ms/step; card {card}")
+
+
+def roofline_decode_cell(cfg, model, params, card):
+    """(a), (b) for the dense deepseek-v2-mla decode step at batch 4 over
+    a 2048-row cache filled to its length (every key live on both sides):
+    counted on the card (the paged phase's weights) and on meta; the
+    eager step timed (2 warm-ups, then 5 with a sync each)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.roofline import analysis
+
+    b, s = 4, 2048
+    log(f"== roofline phase (a, b): the dense {cfg.name} decode step, batch {b}, cache of "
+        f"{s} rows filled ==")
+    cache = model.init_cache(params, b, s)
+    tokens = torch.randint(2, cfg.vocab_size, (b, 1), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(5))
+    decode = lambda p, c, t: model.decode_step(p, c, t, s - 1)
+    torch.cuda.synchronize()
+    _, card_c = counted(lambda: decode(params, cache, tokens))
+    times = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(params, cache, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * float(np.median(times[2:]))
+    del cache
+    pm = model.init(None, "meta")
+    cm = model.init_cache(pm, b, s)
+    tm = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    _, meta_c = counted(lambda: decode(pm, cm, tm))
+    hold_counts("decode step", card_c, meta_c, card)
+    mf = analysis.model_flops(cfg, ShapeConfig("chip_decode", s, b, "decode"))
+    t = report_bound("decode step (eager, median of 5)", meta_c.cost, ms, mf, card)
+    floor = cfg.param_count() * 2 / analysis.HBM_BW
+    log(f"  memory term {1e3 * t.memory_s:.3f} ms against the weights' read, "
+        f"{cfg.param_count() / 1e9:.2f} B bf16 parameters at 3.35 TB/s = {1e3 * floor:.3f} ms")
+    if t.memory_s < floor:
+        raise SystemExit("roofline phase: the decode step's memory term is below its weights' read")
+
+
+def dryrun_cli_check(card):
+    """(c) The dry-run CLI on the card's host: one full-width cell counted
+    on meta stand-ins."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--archs", "qwen1.5-0.5b",
+           "--shapes", "decode_32k", "--meshes", "single",
+           "--out", os.path.join(root, "build", "dryrun_torch")]
+    log(f"== roofline phase (c): {' '.join(cmd[1:])} ==")
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith(("[OK]", "[FAIL]", "dry-run complete")):
+            log(f"  {line}")
+    log(f"  exit {r.returncode}, {wall:.1f} s wall; card {card}")
+    if r.returncode != 0 or "[OK]" not in r.stdout or " 0 failed" not in r.stdout:
+        raise SystemExit(f"roofline phase (c): the dry run failed: {r.stderr[-1500:]}")
 
 
 # --------------------------------------------------------------------------- #
@@ -4541,8 +4730,8 @@ def split_kv_kernel_check(flush):
                     with plain_k6():
                         plain_ms = time_cuda(call, 3, flush)
                     ms = time_cuda(call, 20, flush)
-                    timed[n] = (ms, plain_ms, *split_kv_bound(q, lens), split_kv_sdpa(q, k, v, kw,
-                                                                                     flush))
+                    timed[n] = (ms, plain_ms, *bound(charged(call, "gqa_decode_rows"), dtype),
+                                split_kv_sdpa(q, k, v, kw, flush))
             log(f"  {str(dtype).split('.')[1]} {variant}: K6 at {splits} splits; without "
                 f"partials == its partials merged by K3 bit for bit: {bits}; per shard count "
                 "n: (rel, max |err| / max |ref|, max |err|) against plain; against the "
@@ -4584,17 +4773,6 @@ def split_kv_kernel_check(flush):
         + ", ".join(f"{k if isinstance(k, str) else ' '.join(k)} {v:.3e}"
                     for k, v in worst.items()))
     return worst, timed, mono_ms
-
-
-def split_kv_bound(q, lens):
-    """The K and V rows below kv_len of each (b, kv head) read once (bf16),
-    q, the fp32 output; 4 x Dh operations per (query head, visible key)."""
-    b, _, hq, dh = q.shape
-    hkv = GQA_GEOMETRIES[1][2]
-    keys = int(lens.sum())
-    nbytes = (q.numel() * q.element_size() + 2 * keys * hkv * dh * q.element_size()
-              + q.numel() * 4 + 4 * b)
-    return bound(nbytes, 4.0 * dh * keys * hq, q.dtype)
 
 
 def split_kv_sdpa(q, k, v, kw, flush):
@@ -4963,6 +5141,7 @@ def main(argv: list[str]) -> int:
     k2c, k3c = chaos_serve_phase(*paged[:3])
     release()
     k4 = mla_dense_phase(*paged)
+    roofline_decode_cell(*paged[:3], smi)
     del paged
     release()
     k5, _ = padded_decode_phase()
@@ -4976,6 +5155,7 @@ def main(argv: list[str]) -> int:
     _, (k7tr, k6tr, k3tr) = train_phases(smi)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
+    dryrun_cli_check(smi)
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
     derr = lambda name: max(v for d in (dworst, fworst, vworst) for k, v in d.items()

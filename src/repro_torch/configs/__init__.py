@@ -28,7 +28,29 @@ from repro_torch.configs import (
     recurrentgemma_2b,
     seamless_m4t_medium,
 )
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.base import (
+    LM_SHAPES,
+    LONG_CONTEXT_ARCHS,
+    MLAConfig,
+    ModelConfig,
+    ShapeConfig,
+    runnable_shapes,
+)
+
+# The ten assigned architectures (+ the paper's own geometry as a bonus).
+ASSIGNED = [
+    "recurrentgemma-2b",
+    "gemma2-2b",
+    "internlm2-20b",
+    "qwen1.5-0.5b",
+    "qwen2.5-3b",
+    "seamless-m4t-medium",
+    "mamba2-370m",
+    "qwen2-vl-7b",
+    "granite-moe-3b-a800m",
+    "qwen3-moe-30b-a3b",
+]
+BONUS = ["deepseek-v2-mla"]
 
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
@@ -92,4 +114,16 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return smoke_config(cfg) if smoke else cfg
 
 
-__all__ = ["REGISTRY", "ModelConfig", "MLAConfig", "get_config", "smoke_config"]
+__all__ = [
+    "ASSIGNED",
+    "BONUS",
+    "LM_SHAPES",
+    "LONG_CONTEXT_ARCHS",
+    "REGISTRY",
+    "ModelConfig",
+    "MLAConfig",
+    "ShapeConfig",
+    "get_config",
+    "runnable_shapes",
+    "smoke_config",
+]

@@ -1,4 +1,5 @@
-"""Config dataclasses (copied from ``repro.configs.base``)."""
+"""Config dataclasses + the assigned input-shape grid (copied from
+``repro.configs.base``)."""
 
 from __future__ import annotations
 
@@ -115,3 +116,45 @@ class ModelConfig:
             hq, dh = self.n_heads, self.head_dim
             n += d * 3 * hq * dh + hq * dh * d + 3 * d * self.d_ff + 2 * d
         return int(n)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        full = self.param_count()
+        inactive = (
+            len(self.layer_kinds())
+            * (self.n_experts - self.n_experts_active)
+            * 3
+            * self.d_model
+            * self.d_ff_expert
+        )
+        return int(full - inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+    s_q: int = 1  # decode query length (2 = MTP)
+
+
+LM_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# Archs whose attention is sub-quadratic end-to-end (SSM / hybrid-local):
+# only these run long_500k.
+LONG_CONTEXT_ARCHS = {"recurrentgemma-2b", "mamba2-370m"}
+
+
+def runnable_shapes(cfg: ModelConfig) -> list[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.name in LONG_CONTEXT_ARCHS:
+        names.append("long_500k")
+    return names

@@ -42,6 +42,11 @@ def as_fp32(i: torch.Tensor) -> torch.Tensor:
     return i.to(torch.int32).view(torch.float32)
 
 
+def biased_exponent(x: torch.Tensor) -> torch.Tensor:
+    """Extract the biased 8-bit exponent field E of an FP32 tensor."""
+    return (as_int32(x) >> MANTISSA_BITS) & 0xFF
+
+
 def pow2_mul_by_add(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """``x * 2**n`` via INT32 addition on the FP32 bit pattern (Eq. 8/9).
 

@@ -11,7 +11,9 @@ On a CUDA tensor :func:`flash_prefill` launches ``csrc/flash_prefill.cu``
 (k and v read through their strides; bf16 on the tensor-core body, fp32
 on the scalar one); on a CPU tensor it runs the plain version,
 :func:`repro_torch.kernels.gqa_decode.attend_plain` over the same
-``block_k``-key blocks with the same int32 rescale.
+``block_k``-key blocks with the same int32 rescale; on a meta tensor it
+returns the output by shape.  Under a counter each launch charges
+:func:`prefill_cost`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import gqa_decode as _gqa
 from repro_torch.kernels import mla_decode as _mla
+from repro_torch.roofline import op_cost
 
 DEFAULT_BLOCK_K = 512
 
@@ -50,6 +53,23 @@ def _prefill_cuda(q, k, v, kv_len, *, variant, scale, block_k, softcap, window, 
     return out
 
 
+def _prefill_meta(q, k, v, kv_len, **_):
+    return torch.empty(q.shape, device=q.device)
+
+
+def prefill_cost(q, k, v, kv_len, *, window, causal):
+    """K7's charge (``gqa_decode.attention_cost``): query positions count
+    from 0; keys below ``kv_len`` (a host read), or below the cache
+    length on meta."""
+    b, hq, sq, _ = q.shape
+    s = k.shape[2]
+    lens = (torch.full((b,), s, dtype=torch.int64) if q.is_meta
+            else kv_len.to("cpu", torch.int64))
+    pos = torch.arange(sq, dtype=torch.int64).expand(b, sq)
+    pairs, seen = _gqa.visible_keys(lens, pos, s=s, window=window, causal=causal)
+    return _gqa.attention_cost(q, k, v, pairs, seen, heads_per_kv=hq // k.shape[1])
+
+
 def _prefill_plain(q, k, v, kv_len, *, variant, scale, block_k, softcap, window, causal):
     b, hq, sq, _ = q.shape
     group = hq // k.shape[1]
@@ -77,7 +97,8 @@ def flash_prefill(
     """Flash prefill (K7); returns ``(B, Hq, Sq, Dh)`` fp32.
 
     A CUDA ``q`` launches the kernel (and counts one launch in
-    ``flash_prefill.launches``); a CPU ``q`` runs the plain version.  A
+    ``flash_prefill.launches``); a CPU ``q`` runs the plain version; a
+    meta ``q`` returns the output by shape.  A
     bf16 ``q`` runs the tensor-core body and counts in ``.mma_launches`` as
     well.  There is no fallback between the kernel and the plain version,
     nor between the two bodies: rows the tensor-core body cannot address
@@ -90,9 +111,14 @@ def flash_prefill(
     if q.shape[1] % k.shape[1]:
         raise ValueError(f"Hq={q.shape[1]} is not a multiple of Hkv={k.shape[1]}")
     block_k = min(block_k, max(k.shape[2], 128))
-    impl = _prefill_cuda if q.is_cuda else _prefill_plain
-    return impl(q, k, v, kv_len, variant=variant, scale=scale, block_k=block_k,
-                softcap=softcap, window=window, causal=causal)
+    impl = _prefill_cuda if q.is_cuda else _prefill_meta if q.is_meta else _prefill_plain
+    kw = dict(variant=variant, scale=scale, block_k=block_k, softcap=softcap, window=window,
+              causal=causal)
+    if not op_cost.counting():
+        return impl(q, k, v, kv_len, **kw)
+    with op_cost.kernel("flash_prefill",
+                        lambda: prefill_cost(q, k, v, kv_len, window=window, causal=causal)):
+        return impl(q, k, v, kv_len, **kw)
 
 
 flash_prefill.launches = 0

@@ -21,6 +21,11 @@ kernel's tensor-core body, split over the KV blocks of each ``(b, kv
 head)`` (:func:`decode_splits`) and merged by the combine kernel (K3,
 :func:`repro_torch.kernels.mla_decode_combine.combine_split_partials`);
 ``attend_plain(num_splits=...)`` walks the same splits.
+
+A meta ``q`` (the dry run, :mod:`repro_torch.launch.dryrun`) returns an
+output of the kernel's shape and dtype and reads no value; under a
+counter (:mod:`repro_torch.roofline.op_cost`) every launch charges
+:func:`decode_cost`, and a meta launch splits by the H100's 132 SMs.
 """
 
 from __future__ import annotations
@@ -32,9 +37,47 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import mla_decode as _mla
 from repro_torch.kernels import mla_decode_combine as _combine
+from repro_torch.roofline import op_cost
 
 DEFAULT_BLOCK_K = 512
 MMA_TILE_ROWS = 16  # the tensor-core body's row tile while its grid is below the SM count
+H100_SMS = 132  # the SM count a meta launch splits by
+
+
+def visible_keys(kv_len, q_pos, *, s, window, causal=True):
+    """``(pairs (B,), seen (B,))`` int64 of rows at positions ``q_pos (B,
+    R)`` over ``s`` cache rows: the (row, key) pairs a request's rows see
+    (keys below ``min(kv_len, s)``, causal: at most the row's position,
+    window: past ``position - window``) and the keys any of its rows sees
+    (the span from the lowest window start to the highest key seen)."""
+    lens = kv_len.to(torch.int64).clamp(max=s)[:, None]
+    pos = q_pos.to(torch.int64)
+    hi = torch.minimum(lens, pos + 1) if causal else lens.expand(pos.shape)
+    lo = (pos - window + 1).clamp_min(0) if window is not None else torch.zeros_like(pos)
+    pairs = (hi - lo).clamp_min(0).sum(dim=1)
+    seen = (hi.max(dim=1).values - lo.min(dim=1).values).clamp_min(0)
+    return pairs, seen
+
+
+def meta_visible_keys(b, rows, *, s, window):
+    """:func:`visible_keys` by shape alone, as the dry run reads a decode
+    step: every key below the cache length ``s`` is live and each row sits
+    at the last position, so it sees ``min(s, window)`` keys."""
+    n = s if window is None else min(s, window)
+    return torch.full((b,), rows * n, dtype=torch.int64), torch.full((b,), n, dtype=torch.int64)
+
+
+def attention_cost(q, k, v, pairs, seen, *, heads_per_kv=1):
+    """``(flops, bytes)`` of a GQA kernel launch (K6, K7): 4 * Dh
+    operations per (row, visible key), and q, the K and V rows seen by
+    each ``(b, kv head)`` and the fp32 output read or written once.
+    ``pairs`` counts one head's rows; ``heads_per_kv`` q heads share a kv
+    head's rows."""
+    hkv, dh = k.shape[1], q.shape[-1]
+    rows_pairs = int(pairs.sum()) * hkv * heads_per_kv
+    kv_bytes = int(seen.sum()) * hkv * dh * (k.element_size() + v.element_size())
+    q_bytes = q.numel() * q.element_size()
+    return 4.0 * dh * rows_pairs, q_bytes + kv_bytes + q.numel() * 4
 
 
 def split_edges(kv_len, q_pos, *, s, block_k, window, causal, num_splits):
@@ -233,6 +276,39 @@ def _decode_cuda(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, wi
     return out.view(b, hkv, g, dh)
 
 
+def _decode_meta(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window,
+                  return_partials=False):
+    """The kernel's outputs by shape (the CUDA path's split rule at
+    :data:`H100_SMS`), reading no value; more than one split merges
+    through the combine's meta branch, as a launch runs K3."""
+    b, hkv, g, dh = q.shape
+    splits = 1
+    if _mla._takes_mma_body(q, k):
+        ctas = b * hkv * -(-g // MMA_TILE_ROWS)
+        splits = decode_splits(H100_SMS, ctas, -(-k.shape[2] // block_k))
+    if return_partials:
+        return (torch.empty((splits, b, hkv, g, dh), device=q.device),
+                torch.empty((splits, b, hkv, g), device=q.device))
+    out = torch.empty((splits * b * hkv, g, dh), device=q.device)
+    if splits > 1:
+        lse = torch.empty((splits * b * hkv, g, 1), device=q.device)
+        dest = torch.empty((b * hkv, splits), dtype=torch.int32, device=q.device)
+        n = torch.empty((b * hkv,), dtype=torch.int32, device=q.device)
+        out = _combine.combine_split_partials(out, lse, dest, n)
+    return out.view(b, hkv, g, dh)
+
+
+def decode_cost(q, k, v, kv_len, q_pos, *, window):
+    """K6's charge (:func:`attention_cost`): visible keys from ``kv_len``
+    and ``q_pos`` (a host read), or by shape on meta."""
+    b, _, g, _ = q.shape
+    if q.is_meta:
+        pairs, seen = meta_visible_keys(b, g, s=k.shape[2], window=window)
+    else:
+        pairs, seen = visible_keys(kv_len, q_pos, s=k.shape[2], window=window)
+    return attention_cost(q, k, v, pairs, seen)
+
+
 def _decode_plain(q, k, v, kv_len, q_pos, *, variant, scale, block_k, softcap, window,
                   return_partials=False):
     return attend_plain(q, k, v, kv_len, q_pos, variant=variant, scale=scale,
@@ -263,7 +339,8 @@ def gqa_decode_rows(
     the CPU.
 
     A CUDA ``q`` launches the kernel (and counts one launch in
-    ``gqa_decode_rows.launches``); a CPU ``q`` runs the plain version.  A
+    ``gqa_decode_rows.launches``); a CPU ``q`` runs the plain version; a
+    meta ``q`` returns outputs by shape.  A
     bf16 ``q`` runs the tensor-core body and counts in ``.mma_launches``
     as well; over more than one split (:func:`split_count`) it also
     launches the combine.  There is no fallback between the kernel and the
@@ -275,10 +352,14 @@ def gqa_decode_rows(
     if window is not None and window < 1:
         raise ValueError(f"window={window} must be a positive key count")
     block_k = min(block_k, max(k.shape[2], 128))
-    impl = _decode_cuda if q.is_cuda else _decode_plain
-    return impl(q, k, v, kv_len, q_pos, variant=variant, scale=scale,
-                block_k=block_k, softcap=softcap, window=window,
-                return_partials=return_partials)
+    impl = _decode_cuda if q.is_cuda else _decode_meta if q.is_meta else _decode_plain
+    kw = dict(variant=variant, scale=scale, block_k=block_k, softcap=softcap, window=window,
+              return_partials=return_partials)
+    if not op_cost.counting():
+        return impl(q, k, v, kv_len, q_pos, **kw)
+    with op_cost.kernel("gqa_decode_rows",
+                        lambda: decode_cost(q, k, v, kv_len, q_pos, window=window)):
+        return impl(q, k, v, kv_len, q_pos, **kw)
 
 
 gqa_decode_rows.launches = 0

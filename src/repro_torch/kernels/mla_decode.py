@@ -37,7 +37,10 @@ kernel (K2, K2′, K4, K5; K6 and K7 too) runs, and the geometry the
 tensor-core one takes, is decided here once for all of them
 (:func:`_takes_mma_body`, :func:`_check_mma_geometry`,
 :func:`_check_mma_alignment`; the GQA kernels' strided rows have their
-own bound, ``gqa_decode.check_mma_rows``).
+own bound, ``gqa_decode.check_mma_rows``).  A meta ``q`` (the dry run)
+returns K4's output by shape; under a counter
+(:mod:`repro_torch.roofline.op_cost`) each K4 launch charges
+:func:`rows_cost`.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import torch
 
 from repro_torch.core import numerics
 from repro_torch.kernels import _build
+from repro_torch.roofline import op_cost
 
 DEFAULT_BLOCK_K = 512
 SUB_K = 128  # the reference's preload sub-tile; block_k is a multiple of it
@@ -189,6 +193,23 @@ def _rows_plain(q, c_kv, kv_len, q_pos, *, d_v, variant, scale, block_k, softcap
     return finalize_decode(st, variant=variant)
 
 
+def rows_cost(q, c_kv, kv_len, q_pos, *, d_v):
+    """K4's charge: 2 * (Dk + Dv) operations per (row, visible key), and q,
+    the latent rows seen by each request and the fp32 output read or
+    written once.  Visible keys come from ``kv_len`` and ``q_pos`` (a host
+    read); on meta every key below the cache length is live."""
+    from repro_torch.kernels import gqa_decode as _gqa
+
+    b, g, d_k = q.shape
+    s = c_kv.shape[1]
+    if q.is_meta:
+        pairs, seen = _gqa.meta_visible_keys(b, g, s=s, window=None)
+    else:
+        pairs, seen = _gqa.visible_keys(kv_len, q_pos, s=s, window=None)
+    nbytes = q.numel() * q.element_size() + int(seen.sum()) * d_k * c_kv.element_size()
+    return 2.0 * (d_k + d_v) * int(pairs.sum()), nbytes + b * g * d_v * 4
+
+
 def _takes_mma_body(q, kv) -> bool:
     """Whether a kernel (K2, K2′, K4, K5, K6, K7) runs the tensor-core body
     (bf16 ``q`` over bf16 or int8 rows) rather than the scalar one.  K4,
@@ -294,7 +315,8 @@ def mla_decode_rows(
     fp32 cache with bf16 queries computes what the reference computes
     after casting the cache, without a copy of it.  A CUDA ``q`` launches
     the kernel (and counts one launch in ``mla_decode_rows.launches``); a
-    CPU ``q`` runs the plain version.  A bf16 ``q`` over a bf16 cache runs
+    CPU ``q`` runs the plain version; a meta ``q`` returns the output by
+    shape.  A bf16 ``q`` over a bf16 cache runs
     the tensor-core body and counts in ``.mma_launches`` as well; it takes
     ``d_k`` and ``d_v`` in whole 16-byte pieces, a cache of fewer than 2**31
     such pieces per request, and 16-byte aligned ``q``, cache and batch
@@ -304,11 +326,17 @@ def mla_decode_rows(
     if variant not in ("amla", "base"):
         raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
     block_k = contiguous_block_k(block_k, c_kv.shape[1])
-    impl = _rows_cuda if q.is_cuda else _rows_plain
-    return impl(
-        q, c_kv, kv_len, q_pos, d_v=d_v, variant=variant, scale=scale,
-        block_k=block_k, softcap=softcap,
-    )
+    impl = _rows_cuda if q.is_cuda else _rows_meta if q.is_meta else _rows_plain
+    kw = dict(d_v=d_v, variant=variant, scale=scale, block_k=block_k, softcap=softcap)
+    if not op_cost.counting():
+        return impl(q, c_kv, kv_len, q_pos, **kw)
+    with op_cost.kernel("mla_decode_rows", lambda: rows_cost(q, c_kv, kv_len, q_pos, d_v=d_v)):
+        return impl(q, c_kv, kv_len, q_pos, **kw)
+
+
+def _rows_meta(q, c_kv, kv_len, q_pos, *, d_v, **_):
+    """K4's output by shape (a meta ``q``)."""
+    return torch.empty((*q.shape[:2], d_v), device=q.device)
 
 
 mla_decode_rows.launches = 0

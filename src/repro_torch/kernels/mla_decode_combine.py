@@ -18,7 +18,9 @@ shared-prefix path): the kernel reads both where they lie, the plain
 version concatenates them first.
 
 On a CUDA tensor both launch ``csrc/mla_decode_combine.cu``; on a CPU
-tensor they run the plain version.
+tensor they run the plain version; on a meta tensor they return the
+output by shape.  Under a counter (:mod:`repro_torch.roofline.op_cost`)
+each launch charges :func:`combine_cost`.
 """
 
 from __future__ import annotations
@@ -26,10 +28,46 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline import op_cost
 
 # Finite stand-in for -inf in the running max so that fully-empty slots
 # (lse == -inf) contribute exp(-inf - BIG_NEG) == 0 instead of NaN.
 BIG_NEG = -3.0e38
+
+
+def combine_cost(o_part, dest_table, n_splits):
+    """K3's charge: 3 * Dv operations per (row, live split), and the live
+    partials with their lse and the fp32 output read or written once.
+    Live splits come from ``n_splits`` (a host read); on meta every slot of
+    the table is live."""
+    _, g, d_v = o_part.shape
+    b, s = dest_table.shape
+    live = b * s if o_part.is_meta else int(n_splits.to(torch.int64).clamp(max=s).sum())
+    return 3.0 * d_v * g * live, (live * g * (d_v + 1) + b * g * d_v) * 4
+
+
+def _combine(o_parts, lse_parts, dest_table, n_splits):
+    """One K3 launch over one or two sources (the kernel), their
+    concatenation (the plain version), or the output by shape (meta)."""
+    o0 = o_parts[0]
+    if not op_cost.counting():
+        return _combine_any(o_parts, lse_parts, dest_table, n_splits)
+    with op_cost.kernel("combine_split_partials",
+                        lambda: combine_cost(o0, dest_table, n_splits)):
+        return _combine_any(o_parts, lse_parts, dest_table, n_splits)
+
+
+def _combine_any(o_parts, lse_parts, dest_table, n_splits):
+    """The launch on ``o_parts[0]``'s device: the kernel, the output by
+    shape, or the plain version over the sources' concatenation."""
+    o0 = o_parts[0]
+    if o0.is_cuda:
+        return _combine_cuda(o_parts, lse_parts, dest_table, n_splits)
+    if o0.is_meta:
+        return torch.empty((dest_table.shape[0], *o0.shape[1:]), device=o0.device)
+    o_all = o0 if len(o_parts) == 1 else torch.cat(o_parts, 0)
+    lse_all = lse_parts[0] if len(lse_parts) == 1 else torch.cat(lse_parts, 0)
+    return _combine_plain(o_all, lse_all, dest_table, n_splits)
 
 
 def _combine_plain(o_part, lse, dest_table, n_splits):
@@ -113,11 +151,10 @@ def combine_split_partials(
     """Merge per-slot split-KV partials into ``(B, G, Dv)`` fp32 outputs.
 
     A CUDA ``o_part`` launches the kernel (one more in
-    ``combine_split_partials.launches``); a CPU one runs the plain version.
+    ``combine_split_partials.launches``); a CPU one runs the plain version;
+    a meta one returns the output by shape.
     """
-    if o_part.is_cuda:
-        return _combine_cuda([o_part], [lse], dest_table, n_splits)
-    return _combine_plain(o_part, lse, dest_table, n_splits)
+    return _combine([o_part], [lse], dest_table, n_splits)
 
 
 combine_split_partials.launches = 0
@@ -138,8 +175,4 @@ def combine_hetero_partials(
     kernel launch (counted in ``combine_split_partials.launches``); on CPU
     tensors the plain version runs on the concatenation, which is the
     reference's definition."""
-    if o_parts[0].is_cuda:
-        return _combine_cuda(o_parts, lse_parts, dest_table, n_splits)
-    o_all = o_parts[0] if len(o_parts) == 1 else torch.cat(o_parts, 0)
-    lse_all = lse_parts[0] if len(lse_parts) == 1 else torch.cat(lse_parts, 0)
-    return _combine_plain(o_all, lse_all, dest_table, n_splits)
+    return _combine(o_parts, lse_parts, dest_table, n_splits)

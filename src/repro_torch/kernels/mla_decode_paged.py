@@ -28,7 +28,10 @@ and K5 with a bf16 ``q`` over a bf16 pool, run the tensor-core row body
 (``csrc/mla_rows_mma.cuh``) and count it in their ``mma_launches`` as
 well; an fp32 ``q`` or an fp32 pool runs the scalar body
 (``csrc/mla_rows.cuh``).  The selection and the geometry checks are
-:mod:`repro_torch.kernels.mla_decode`'s, shared with K4.
+:mod:`repro_torch.kernels.mla_decode`'s, shared with K4.  Under a
+counter (:mod:`repro_torch.roofline.op_cost`) each launch charges
+:func:`queue_cost` (K2, K2′: from the host work queue) or
+:func:`padded_cost` (K5).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from repro_torch.kernels.mla_decode import (
     _check_mma_geometry,
     _takes_mma_body,
 )
+from repro_torch.roofline import op_cost
 
 DEFAULT_PAGE_SIZE = 128
 
@@ -112,6 +116,44 @@ def clamp_tail_pages(
     col = torch.arange(w, device=bt.device)[None, :]
     bt = torch.where(col < pages_used[:, None], bt, last_page)
     return torch.clamp(bt, 0, num_pages - 1)
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.int64).numpy()
+
+
+def queue_cost(q, kv_pages, kv_len, q_pos, items, kv_scales, *, d_v, block_k,
+               num_dest_slots):
+    """K2's charge (K2′'s over its stacked rows), from the host work queue:
+    2 * (Dk + Dv) operations per (row, visible key) of each valid item's
+    block, and q, the pool rows each item reads below its request's
+    ``kv_len`` (their int8 scales too) and the fp32 partials and lse read
+    or written once."""
+    _, g, d_k = q.shape
+    req, blk, _, _, _, valid = (_host(t) for t in items)
+    lens, pos = _host(kv_len), _host(q_pos)
+    live = valid != 0
+    req, start = req[live], blk[live] * block_k
+    end = np.minimum(start + block_k, lens[req])
+    rows = np.clip(end - start, 0, None)
+    vis = np.clip(np.minimum(end[:, None], pos[req] + 1) - start[:, None], 0, None)
+    row_bytes = d_k * kv_pages.element_size() + (4 if kv_scales is not None else 0)
+    nbytes = (q.numel() * q.element_size() + int(rows.sum()) * row_bytes
+              + num_dest_slots * g * (d_v + 1) * 4)
+    return 2.0 * (d_k + d_v) * int(vis.sum()), nbytes
+
+
+def padded_cost(q, kv_pages, block_tables, kv_len, q_pos, *, d_v):
+    """K5's charge: 2 * (Dk + Dv) operations per (row, visible key), and q,
+    each request's rows below its ``kv_len`` and the fp32 output read or
+    written once."""
+    b, g, d_k = q.shape
+    lens = np.minimum(_host(kv_len), block_tables.shape[1] * kv_pages.shape[1])
+    pos = _host(q_pos)
+    vis = np.clip(np.minimum(lens[:, None], pos + 1), 0, None)
+    nbytes = (q.numel() * q.element_size() + int(lens.sum()) * d_k * kv_pages.element_size()
+              + b * g * d_v * 4)
+    return 2.0 * (d_k + d_v) * int(vis.sum()), nbytes
 
 
 def _queue_rows_plain(
@@ -304,11 +346,15 @@ def mla_decode_paged_queue_rows(
     between the two bodies.
     """
     items = (item_req, item_block, item_dest, item_first, item_last, item_valid)
-    out = _queue_rows(
-        q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales,
-        d_v=d_v, variant=variant, scale=scale, block_k=block_k,
-        num_dest_slots=num_dest_slots, softcap=softcap,
-    )
+    kw = dict(d_v=d_v, variant=variant, scale=scale, block_k=block_k,
+              num_dest_slots=num_dest_slots, softcap=softcap)
+    if not op_cost.counting():
+        out = _queue_rows(q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, **kw)
+    else:
+        cost = lambda: queue_cost(q, kv_pages, kv_len, q_pos, items, kv_scales, d_v=d_v,
+                                  block_k=block_k, num_dest_slots=num_dest_slots)
+        with op_cost.kernel("mla_decode_paged_queue_rows", cost):
+            out = _queue_rows(q, kv_pages, block_tables, kv_len, q_pos, items, kv_scales, **kw)
     if q.is_cuda:
         if kv_scales is None:
             mla_decode_paged_queue_rows.launches += 1
@@ -394,10 +440,15 @@ def _group_prefix(rows_fn, q, kv_pages, block_tables, q_pos, group_member, group
         live[:, :, None], q_pos.to(torch.int32)[member], -1
     ).reshape(n_groups, gmax * g)
     bt_grp = block_tables[group_rep.to(device=block_tables.device, dtype=torch.long)]
-    o_grp, lse_grp = rows_fn(
-        q_grp, kv_pages, bt_grp, prefix_lens.to(torch.int32), pos_grp, items,
-        kv_scales, num_dest_slots=num_dest_slots, **kw,
-    )
+    args = (q_grp, kv_pages, bt_grp, prefix_lens.to(torch.int32), pos_grp, items, kv_scales)
+    if not op_cost.counting():
+        o_grp, lse_grp = rows_fn(*args, num_dest_slots=num_dest_slots, **kw)
+    else:
+        cost = lambda: queue_cost(q_grp, kv_pages, prefix_lens, pos_grp, items, kv_scales,
+                                  d_v=kw["d_v"], block_k=kw["block_k"],
+                                  num_dest_slots=num_dest_slots)
+        with op_cost.kernel("mla_decode_paged_group_prefix", cost):
+            o_grp, lse_grp = rows_fn(*args, num_dest_slots=num_dest_slots, **kw)
     # (D_pref, gmax*G, .) -> per-member rows (D_pref*gmax, G, .)
     return (
         o_grp.reshape(num_dest_slots * gmax, g, kw["d_v"]),
@@ -514,8 +565,12 @@ def mla_decode_paged_rows(
     if variant not in ("amla", "base"):
         raise ValueError(f"unknown variant {variant!r}; pick 'amla' or 'base'")
     impl = _padded_rows_cuda if q.is_cuda else _padded_rows_plain
-    return impl(q, kv_pages, block_tables, kv_len, q_pos, d_v=d_v, variant=variant,
-                scale=scale, softcap=softcap)
+    kw = dict(d_v=d_v, variant=variant, scale=scale, softcap=softcap)
+    if not op_cost.counting():
+        return impl(q, kv_pages, block_tables, kv_len, q_pos, **kw)
+    with op_cost.kernel("mla_decode_paged_rows",
+                        lambda: padded_cost(q, kv_pages, block_tables, kv_len, q_pos, d_v=d_v)):
+        return impl(q, kv_pages, block_tables, kv_len, q_pos, **kw)
 
 
 mla_decode_paged_rows.launches = 0

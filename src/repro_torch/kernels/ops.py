@@ -77,9 +77,13 @@ def mla_decode(
 
 
 def _all_zero(x) -> bool:
+    """Whether every value of ``x`` is 0: read on the host, or on the
+    card (a sync); a meta tensor has no values and passes."""
     host = _host_values(x)
     if host is not None:
         return not np.any(host)
+    if x.is_meta:
+        return True
     return not bool(torch.any(x != 0))
 
 
@@ -166,9 +170,10 @@ def default_paged_block_k(page_size: int, table_width: int) -> int:
 def _host_values(x) -> np.ndarray | None:
     """Host copy of ``x`` for value checks, or None for device data (the
     checks then skip, as they do for a traced array in the reference —
-    reading a device tensor back would stall the stream)."""
+    reading a device tensor back would stall the stream) and for a meta
+    tensor, which has no values."""
     if isinstance(x, torch.Tensor):
-        return None if x.is_cuda else x.numpy()
+        return x.numpy() if x.device.type == "cpu" else None
     return np.asarray(x)
 
 

@@ -55,16 +55,39 @@ def moe_init(gen, cfg, *, device, dtype):
     }
 
 
+class _WideProducts(torch.autograd.Function):
+    """``bmm`` of low-precision inputs with fp32 output, differentiable:
+    PyTorch has no derivative for ``bmm(..., out_dtype=)``.  The gradient
+    is the widened product's (``bmm(a.float(), b.float())``): fp32 products
+    of the fp32 cotangent, rounded to each input's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cpu":  # no CPU kernel for out_dtype
+            return torch.bmm(a.float(), b.float())
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def expert_products(a, b):
     """``(E, C, x) x (E, x, y)`` products of ``a.dtype`` inputs, fp32 out:
     the reference's ``preferred_element_type=float32``, so that g, u and
     the expert outputs reach ``silu(g) * u`` and the combine unrounded.  On
-    a CUDA tensor cuBLAS writes fp32 from bf16 inputs (``out_dtype``); on
-    the CPU the inputs are widened first, which rounds nothing."""
+    a CUDA tensor cuBLAS writes fp32 from bf16 inputs (``out_dtype``, through
+    :class:`_WideProducts` for its gradient), and a meta one (the dry run)
+    takes the same path; on the CPU the inputs are widened first, which
+    rounds nothing."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
+    if a.device.type != "cpu":
+        return _WideProducts.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

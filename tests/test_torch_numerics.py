@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import numerics as ref
 from repro_torch.core import numerics as port
@@ -113,3 +114,54 @@ def test_bf16_round_and_softcap():
         np.asarray(ref.softcap(jnp.asarray(x), 30.0)),
         rtol=2e-7, atol=1e-6,
     )
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_biased_exponent_bit_exact(seed):
+    """The exponent field of 10^4 seeded fp32 values, with both zeros,
+    subnormals, both infinities and NaNs, equals the reference's."""
+    x = _accumulators(np.random.default_rng(seed), 10_000 - 8)
+    x = np.concatenate([x, np.array([np.inf, -np.inf, np.nan, -np.nan], np.float32)])
+    got = port.biased_exponent(torch.from_numpy(x)).numpy()
+    want = np.asarray(ref.biased_exponent(jnp.asarray(x)))
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert got[-4:].tolist() == [255] * 4 and got[x == 0].tolist() == [0] * int((x == 0).sum())
+
+
+@given(
+    f=st.floats(min_value=2.0**-100, max_value=2.0**100, allow_nan=False,
+                allow_infinity=False, width=32),
+    sign=st.sampled_from([1.0, -1.0]),
+    n=st.integers(min_value=-60, max_value=60),
+)
+@settings(max_examples=300, deadline=None)
+def test_lemma_3_1_through_biased_exponent(f, sign, n):
+    """The reference's Lemma 3.1 property (``test_numerics.py``) on the
+    port: where ``0 < E + n < 255`` (E from ``biased_exponent``, equal to
+    the reference's), ``pow2_mul_by_add`` is ``x * 2**n`` bit for bit."""
+    x = np.float32(sign * f)
+    e = int(port.biased_exponent(torch.tensor(x)))
+    assert e == int(ref.biased_exponent(jnp.float32(x)))
+    if not (0 < e + n < 255):
+        return
+    got = port.pow2_mul_by_add(torch.tensor(x), torch.tensor(n, dtype=torch.int32))
+    want = np.float32(x) * np.float32(2.0) ** np.int32(n)
+    assert got.numpy().astype(np.float32).tobytes() == np.float32(want).tobytes()
+
+
+@given(
+    f=st.floats(min_value=2.0**-100, max_value=2.0**100, allow_nan=False, width=32),
+    n=st.integers(min_value=-300, max_value=-120),
+)
+@settings(max_examples=100, deadline=None)
+def test_pow2_underflow_through_biased_exponent(f, n):
+    """The reference's underflow property: where ``E + n <= 0`` the
+    guarded primitive returns 0."""
+    x = np.float32(f)
+    e = int(port.biased_exponent(torch.tensor(x)))
+    assert e == int(ref.biased_exponent(jnp.float32(x)))
+    if e + n > 0:
+        return
+    got = port.pow2_mul_by_add(torch.tensor(x), torch.tensor(n, dtype=torch.int32))
+    assert float(got) == 0.0
