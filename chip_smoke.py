@@ -4863,7 +4863,9 @@ def seqkv_phase(card):
     share of each logit), at least SEQKV_MIN_TOKENS of the 4 x 16 greedy
     tokens equal to plain's (every step of the run), K6 = layers x steps x
     shards and no K3 on the seqkv runs.  Returns (K6, K3) of the seqkv
-    runs, the main path."""
+    runs, the main path, and what the ranks phase starts from: the
+    parameters, the prefilled cache, the next tokens and lengths, and the
+    logical 1 x 2 run's tokens and first logits."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import gqa_decode as gd
     from repro_torch.kernels import mla_decode_combine as comb
@@ -4945,9 +4947,12 @@ def seqkv_phase(card):
             raise SystemExit(f"seqkv phase: {name} disagrees with plain decode (logits or "
                              f"tokens) or its K6 / K3 launches ({k6}, {k3}) are not layers x "
                              "steps x shards and 0")
-    del sess, kept, cache, placed
+    logical = res["seqkv 1 x 2 (logical)"]
+    handoff = dict(params=params, cache=kept, tokens=np.array(sess.last_token),
+                   cache_len=np.array(sess.cache_len), tokens_out=logical[0], first=logical[1])
+    del sess, cache, placed
     release()
-    return k6_main, k3_main
+    return k6_main, k3_main, handoff
 
 
 def mesh_train_check(cfg, model, params, opt):
@@ -4955,7 +4960,8 @@ def mesh_train_check(cfg, model, params, opt):
     steps through ``jit_train_step`` on the 1 x 1 nccl mesh (the inputs
     placed by the tp_fsdp shardings, the step on the local shards), each
     bit-equal to ``make_train_step``'s from the same state; then
-    ``reshard_train_state`` 1 x 1 -> 1 x 1 (host-staged) bit-equal, timed.
+    ``reshard_train_state`` 1 x 1 -> 1 x 1 (each leaf whole already: placed as
+    it is) bit-equal, timed.
     Returns the jit steps' (K7, K6, K3) launches."""
     from repro_torch.core import tree
     from repro_torch.data.pipeline import SyntheticLMData
@@ -5000,13 +5006,291 @@ def mesh_train_check(cfg, model, params, opt):
     same = all(torch.equal(b.to_local(), a)
                for a, b in zip(tree.leaves(state[:2]), tree.leaves((p2, o2))))
     nbytes = sum(x.nbytes for x in tree.leaves(state[:2]))
-    log(f"  reshard_train_state 1 x 1 -> 1 x 1 of {nbytes / 2**30:.2f} GiB (host-staged): "
+    log(f"  reshard_train_state 1 x 1 -> 1 x 1 of {nbytes / 2**30:.2f} GiB (no copy): "
         f"{t_reshard:.2f} s; bit-equal: {same}; launches of the placed steps K7 {launches[0]}, "
         f"K6 {launches[1]}, K3 {launches[2]}")
     if not same or launches[0] != cfg.n_layers * 2 * 3:
         raise SystemExit("train phase (c'): the resharded state differs or K7 did not run "
                          "layers x 2 x steps times")
     return tuple(launches)
+
+
+# --------------------------------------------------------------------------- #
+# ranks: the sharded steps over a process group, two ranks on the one card
+# --------------------------------------------------------------------------- #
+RANKS_TIMEOUT = 600.0  # s for the ranks phase's two processes; then they are killed
+RANK_TRAIN_REL = 1e-5  # loss and grad_norm of a rank step against the one-rank step
+RANK_PARAM_TOL = 2e-3  # tests/test_torch_train_loop.py's PARAM_TOL
+RANK_TRAIN_STEPS = 3
+
+
+def _rank_main(rank, world, store_path, seqkv, train, out):
+    """One rank of the ranks phase (a spawned process on ``cuda:0`` in a
+    gloo group): (a) the seqkv decode from this rank's half of the cache,
+    (b) the train steps under each policy.  Puts ``(rank, results)`` or
+    ``(rank, traceback)`` on ``out``."""
+    import traceback
+
+    try:
+        out.put((rank, _rank_phases(rank, world, store_path, seqkv, train)))
+    except Exception:  # the parent fails the phase with this traceback
+        out.put((rank, traceback.format_exc()))
+
+
+def _rank_phases(rank, world, store_path, seqkv, train):
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as comb
+    from repro_torch.launch.mesh import init_process_group, rank_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.serve_loop import jit_serve_fns
+    from repro_torch.runtime.train_loop import jit_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_process_group("gloo", rank=rank, world_size=world,
+                             store=dist.FileStore(store_path, world))
+    res = {"device": str(dev)}
+    counters = (gd.gqa_decode_rows, comb.combine_split_partials, fp.flash_prefill)
+
+    # (a) seqkv decode: this rank's half of every layer's cache sequence
+    cfg = get_config("qwen2.5-3b")
+    model = build_model(cfg)
+    mesh = rank_mesh("1x2", "cuda")
+    params, full = seqkv["params"], seqkv["cache"]
+    _, compile_decode, sh = jit_serve_fns(model, mesh, params, full, policy="seqkv")
+    flat_sh = dict(tree.leaves_with_paths(sh["cache"]))
+    cache = tree.map_with_paths(
+        lambda path, t: sharding.from_local(sharding.shard_one(t, flat_sh[path]).clone(),
+                                            flat_sh[path], t.shape), full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    decode = compile_decode(torch.zeros((4, 1), dtype=torch.int64, device=dev))
+    toks, first, times = seqkv_decode(model, params, cache, seqkv["tokens"], seqkv["cache_len"],
+                                      16, decode, mesh)
+    torch.cuda.synchronize()
+    local = sum(c[k].to_local().nbytes for c in cache for k in c)
+    res["a"] = dict(tokens=toks, first=first, times=times, launches=read_counts(counters),
+                    peak=torch.cuda.max_memory_allocated() / 2**30, cache_gib=local / 2**30,
+                    rows=tuple(cache[0]["k"].to_local().shape))
+    del cache, decode, params, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) training on 2 x 1 ranks; rank 0 holds each step against the
+    # one-rank step from the same (gathered) state and batch
+    from repro_torch.runtime.train_loop import make_train_step
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg)
+    mesh = rank_mesh("2x1", "cuda")
+    one_rank = make_train_step(model, train["tc"])
+    res["b"] = {}
+    for policy in ("fsdp", "tp_fsdp"):
+        compile_for, sh = jit_train_step(model, train["tc"], mesh, train["params"],
+                                         policy=policy)
+        step = compile_for(train["batches"][0])
+        state = (train["params"], train["opt"], None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times, held, launches = [], [], [], [0, 0, 0]
+        for i, batch in enumerate(train["batches"]):
+            before = [tree.tree_map(sharding.full_value, t) for t in state[:2]]  # gathered
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            *state, m = step(*state, batch, 10 + i)
+            metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            launches = [x + c for x, (c, _) in zip(launches, read_counts(counters))]
+            after = tree.tree_map(sharding.full_value, state[0])
+            if rank == 0:  # the peer waits in the next collective meanwhile
+                held.append(_hold_rank_step(one_rank, before, after, metrics[-1], batch, 10 + i))
+            del before, after
+        local = sum(x.to_local().nbytes for x in tree.leaves(state[:2]))
+        res["b"][policy] = dict(metrics=metrics, times=times, launches=launches, held=held,
+                                peak=torch.cuda.max_memory_allocated() / 2**30,
+                                state_gib=local / 2**30)
+        del state, step, compile_for
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return res
+
+
+def _spawn_ranks(world, args, timeout):
+    """``world`` processes of :func:`_rank_main` (spawn start mode) on a
+    ``FileStore`` under ``build/``; returns each rank's results, or exits
+    nonzero with a rank's traceback, or after ``timeout`` seconds (every
+    rank killed)."""
+    import queue
+    import shutil
+    import tempfile
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    store_dir = tempfile.mkdtemp(dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                  "build"))
+    path = os.path.join(store_dir, "store")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, path, *args, out), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, value = out.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise SystemExit(f"ranks phase: the ranks did not finish in {timeout} s "
+                                 "(killed)") from None
+            if isinstance(value, str):
+                raise SystemExit(f"ranks phase: rank {rank} failed:\n{value}")
+            results[rank] = value
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+            if p.exitcode != 0:
+                raise SystemExit(f"ranks phase: {p.name} exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return [results[r] for r in range(world)]
+
+
+def _hold_rank_step(one_rank, before, after, m, batch, step):
+    """A rank step (the whole state ``before``, its new parameters
+    ``after``, gathered; metrics ``m``) against ``make_train_step`` on one
+    rank from the same state and batch: the relative errors of the loss
+    and ``grad_norm``, and the parameters' differences by
+    ``tests/test_torch_train_loop.py``'s rule: where the one-rank first
+    moment exceeds 2^-8 of its leaf's largest, against 2e-3 of the
+    leaf's largest parameter; everywhere, against 2 lr (Adam moves a
+    noise-level element by about lr either way)."""
+    from repro_torch.core import tree
+
+    p1, o1, _, m1 = one_rank(*before, None, batch, step)
+    resolved = anywhere = 0.0
+    for a, b, g in zip(tree.leaves(after), tree.leaves(p1), tree.leaves(o1.mu), strict=True):
+        d = (a - b).abs()
+        big = g.abs() > 2.0**-8 * g.abs().max()
+        if big.any():
+            resolved = max(resolved, float(d[big].max() / b.abs().max()))
+        anywhere = max(anywhere, float(d.max()) / (2 * float(m1["lr"])))
+    rel = {k: abs(m[k] - float(m1[k])) / abs(float(m1[k])) for k in ("loss", "grad_norm")}
+    return dict(rel, resolved=resolved, anywhere=anywhere,
+                one_rank={k: float(v) for k, v in m1.items()})
+
+
+def rank_train_state(steps=RANK_TRAIN_STEPS):
+    """qwen1.5-0.5b at full width: the ranks' initial state (fp32 master
+    from seed 0, as ``init_train_state`` makes it), the step's
+    TrainConfig (remat) and ``steps`` global batches of 8 x 2048 from
+    seed 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state
+
+    cfg = get_config("qwen1.5-0.5b")
+    params, opt, _ = init_train_state(build_model(cfg), torch.Generator("cuda").manual_seed(0),
+                                      "cuda")
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8, seed=1)
+    return dict(tc=TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=20, remat=True),
+                params=params, opt=opt, batches=[data.batch_at(i) for i in range(steps)],
+                n_layers=cfg.n_layers)
+
+
+def ranks_phase(card, seqkv):
+    """Two ranks on ``cuda:0`` in a gloo group (NCCL refuses two ranks on
+    one device), spawned, running the sharded steps rank-locally; the
+    card's name and power limit ``card`` printed beside every number.
+
+    (a) qwen2.5-3b at full width under ``seqkv`` on a 1 x 2 mesh of ranks:
+    each rank holds its half of the seqkv phase's 32k cache (every layer's
+    K/V rows ``[r x 16384, (r + 1) x 16384)``, copied from the parent's
+    cache through CUDA IPC) and runs 16 greedy decode steps through
+    ``jit_serve_fns`` (the parameters the parent's, through CUDA IPC):
+    K6 once per layer over its slice, the partials all-gathered.  Gates:
+    the first step's logits bit-equal to the one-process logical 1 x 2
+    run's from the same cache bits, 64 of 64 tokens equal to its, K6 =
+    layers x steps on each rank and no K3.
+
+    (b) qwen1.5-0.5b at full width on 2 x 1 ranks under ``fsdp`` and
+    ``tp_fsdp``, the global batch 8 x 2048, 3 steps through
+    ``jit_train_step`` (the first from full tensors, the next two from the
+    ranks' own shards, gathered).  Rank 0 holds every step against
+    ``make_train_step`` on one rank from the same state and batch
+    (:func:`_hold_rank_step`).  Gates: loss and ``grad_norm`` within
+    ``RANK_TRAIN_REL``, the parameters by ``RANK_PARAM_TOL`` where the
+    gradient is resolved and within 2 lr everywhere, the same metrics on
+    both ranks, K7 = layers x 2 x steps on each rank.
+
+    Every line is printed before a failed gate stops the run.  The step
+    times are gloo on one card: the collectives move through host memory
+    and the two ranks share the card's SMs; they are not a multi-card
+    number.  Returns the ranks' (K6, K7, K3) launches."""
+    n_layers = len(seqkv["params"]["layers"])
+    log(f"== ranks phase: 2 ranks on cuda:0 (spawned, gloo), card {card} ==")
+    t0 = time.perf_counter()
+    train = rank_train_state()
+    ranks = _spawn_ranks(2, (seqkv, train), RANKS_TIMEOUT)
+    log(f"two ranks spawned, ran (a) and (b) and exited in {time.perf_counter() - t0:.1f} s")
+    k6 = k7 = k3 = 0
+    steps = len(seqkv["tokens_out"])
+    failed = []
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        (k6a, _), (k3a, _), (k7a, _) = a["launches"]
+        same_first = torch.equal(a["first"], seqkv["first"])
+        agree = sum(x == y for s, t in zip(a["tokens"], seqkv["tokens_out"])
+                    for x, y in zip(s, t))
+        log(f"(a) rank {r} ({res['device']}): cache rows {a['rows']} ({a['cache_gib']:.2f} GiB "
+            f"held), {np.mean(a['times'][2:]):.2f} ms/step steady (steps 3-{steps}; first "
+            f"{a['times'][0]:.1f} ms), peak {a['peak']:.2f} GiB; first-step logits bit-equal "
+            f"to the logical 1 x 2 run: {same_first} (max |diff| "
+            f"{(a['first'] - seqkv['first']).abs().max().item():.3e}); tokens equal "
+            f"{agree} of {4 * steps}; K6 {k6a}, K3 {k3a}; card {card}")
+        if not same_first or agree != 4 * steps or (k6a, k3a, k7a) != (n_layers * steps, 0, 0):
+            failed.append(f"(a) rank {r}: not the logical 1 x 2 run's logits / tokens, or "
+                          f"launches K6 {k6a}, K3 {k3a}, K7 {k7a} not layers x steps, 0, 0")
+        k6, k3 = k6 + k6a, k3 + k3a
+        for policy, b in res["b"].items():
+            k7b, k6b, k3b = b["launches"][2], b["launches"][0], b["launches"][1]
+            log(f"(b) rank {r} {policy}: " + "; ".join(
+                f"loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f}" for m in b["metrics"])
+                + f"; {', '.join(f'{t:.1f}' for t in b['times'])} ms/step, peak "
+                f"{b['peak']:.2f} GiB, params + moments held {b['state_gib']:.2f} GiB; K7 "
+                f"{k7b}, K6 {k6b}, K3 {k3b}; card {card}")
+            for i, h in enumerate(b["held"]):
+                log(f"    step {i}: one rank from the same state: loss "
+                    f"{h['one_rank']['loss']:.6f} grad_norm {h['one_rank']['grad_norm']:.6f}; "
+                    f"relative: loss {h['loss']:.2e}, grad_norm {h['grad_norm']:.2e} (tol "
+                    f"{RANK_TRAIN_REL}); params where the gradient is resolved "
+                    f"{h['resolved']:.2e} of the leaf max (tol {RANK_PARAM_TOL}), everywhere "
+                    f"{h['anywhere']:.3f} x 2 lr (tol 1)")
+                if (max(h["loss"], h["grad_norm"]) > RANK_TRAIN_REL
+                        or h["resolved"] > RANK_PARAM_TOL or h["anywhere"] > 1 + 1e-4):
+                    failed.append(f"(b) {policy} step {i}: outside the one-rank step's bounds")
+            if (k7b != train["n_layers"] * 2 * RANK_TRAIN_STEPS or (k6b, k3b) != (0, 0)
+                    or b["metrics"] != ranks[0]["b"][policy]["metrics"]
+                    or (r == 0) != (len(b["held"]) == RANK_TRAIN_STEPS)):
+                failed.append(f"(b) rank {r} {policy}: metrics differ from rank 0's or K7 "
+                              f"{k7b} is not layers x 2 x steps (K6 {k6b}, K3 {k3b})")
+            k6, k7, k3 = k6 + k6b, k7 + k7b, k3 + k3b
+    if failed:
+        raise SystemExit("ranks phase: " + "; ".join(failed))
+    del train
+    return k6, k7, k3
 
 
 def mma_ptxas(log_text):
@@ -5150,7 +5434,10 @@ def main(argv: list[str]) -> int:
     release()
     k6v, k7v, k3v = vlm_encdec_phase()
     release()
-    k6q, k3q = seqkv_phase(smi)
+    k6q, k3q, handoff = seqkv_phase(smi)
+    release()
+    k6r, k7r, k3r = ranks_phase(smi, handoff)
+    del handoff
     release()
     _, (k7tr, k6tr, k3tr) = train_phases(smi)
     if torch.distributed.is_initialized():
@@ -5195,7 +5482,7 @@ def main(argv: list[str]) -> int:
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
              launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr + k3h
-             + k3q,
+             + k3q + k3r,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2"), herr("combine_split_partials")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
@@ -5210,12 +5497,13 @@ def main(argv: list[str]) -> int:
              bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source=mma_src,
              replaces="src/repro/kernels/gqa_decode.py:147",
-             launches=k6 + k6f + k6v + k6tr + k6q,
+             launches=k6 + k6f + k6v + k6tr + k6q + k6r,
              max_abs_err=max(derr("K6"), sworst["plain"]), ms=t6[0], plain_ms=t6[1],
              bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
-             replaces="src/repro/kernels/flash_prefill.py:149", launches=k7 + k7f + k7v + k7tr,
+             replaces="src/repro/kernels/flash_prefill.py:149",
+             launches=k7 + k7f + k7v + k7tr + k7r,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),
     ]

@@ -17,12 +17,19 @@ exact FP (it happens once per decode step, so the per-block traffic
 argument does not apply to it).  The merge runs outside any kernel, in
 plain torch, as the reference's does in ``jnp``.
 
-The decodes are single-controller, like JAX's ``shard_map``: one body per
-entry of the sequence axis (and per batch block over ``batch_axes``), each
-on its entry's device, the partials gathered to the query's device and
-merged once.  Entries may repeat one device: logical shards on one card,
-or on the CPU, where K6's plain version runs.  A mesh of several cards
-waits for a machine that has them.
+The decodes run in one of two ways.  Single-controller, like JAX's
+``shard_map``: one body per entry of the sequence axis (and per batch
+block over ``batch_axes``), each on its entry's device, the partials
+gathered to the query's device and merged once; entries may repeat one
+device (logical shards on one card, or on the CPU, where K6's plain
+version runs).  Or rank-local (``ranks=True``, one process per mesh entry
+in a ``torch.distributed`` group): each rank holds only its own slice of
+the sequence, runs K6 once on it, and the partials are all-gathered over
+the sequence axis in coordinate order, so the merge sees what the
+single-controller walk concatenates and gives the same bits.
+
+The collectives (:func:`all_gather_dim`, :func:`all_reduce_sum`) run over
+the per-axis groups of the mesh's ``DeviceMesh``.
 """
 
 from __future__ import annotations
@@ -76,6 +83,100 @@ def combine_shard_partials(o_parts, lse_parts) -> torch.Tensor:
     return torch.where(den[..., None] > 0, num / safe[..., None], 0.0)
 
 
+def axis_index(axes, mesh) -> tuple[int, int]:
+    """This rank's position among the ranks that ``axes`` (mesh axis
+    names, major to minor) span, and their count: the flattened
+    coordinate, row-major, as ``torch.chunk`` over each axis in turn
+    places a shard."""
+    dm = mesh.device_mesh()
+    coord = dm.get_coordinate()
+    idx, n = 0, 1
+    for ax in spec_axes(axes):
+        i = mesh.axis_names.index(ax)
+        idx, n = idx * dm.size(i) + coord[i], n * dm.size(i)
+    return idx, n
+
+
+def spec_axes(entry) -> tuple:
+    """A partition-spec entry's mesh axes as a tuple (a bare name, a
+    tuple of names, or ``None`` for none)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def gather_group(t, dim, group):
+    """``t``'s pieces from every rank of ``group`` concatenated along
+    ``dim`` in group-rank order (a ``DeviceMesh`` axis group's ranks are in
+    coordinate order).  A gloo group takes CUDA tensors here too (checked
+    on the card with torch 2.11, though torch's table lists only
+    ``broadcast`` and ``all_reduce`` for them) and moves them through host
+    memory."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, axes, *, mesh) -> torch.Tensor:
+    """``t``'s pieces from every rank along ``axes`` (mesh axis names,
+    major to minor) concatenated along ``dim`` in coordinate order: the
+    inverse of ``torch.chunk`` over each axis in turn
+    (:func:`repro_torch.runtime.sharding.place_one`'s order), so the
+    minor axis is gathered first.  Not differentiable
+    (:func:`gather_rows` is)."""
+    for ax in reversed(spec_axes(axes)):
+        t = gather_group(t, dim, mesh.device_mesh().get_group(ax))
+    return t
+
+
+def all_reduce_sum(t: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """The sum of ``t`` over the ranks along ``axes`` (a new tensor, the
+    same bits on every rank of a group)."""
+    import torch.distributed as dist
+
+    t = t.clone()
+    for ax in spec_axes(axes):
+        group = mesh.device_mesh().get_group(ax)
+        if dist.get_world_size(group) > 1:
+            dist.all_reduce(t, group=group)
+    return t
+
+
+def take_shard(t: torch.Tensor, dim: int, axes, *, mesh) -> torch.Tensor:
+    """This rank's piece of ``t`` along ``dim`` over ``axes`` (a view):
+    what :func:`all_gather_dim` puts back together."""
+    idx, n = axis_index(axes, mesh)
+    return torch.chunk(t, n, dim=dim)[idx] if n > 1 else t
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`all_gather_dim` along dim 0 whose backward is the adjoint:
+    the cotangent summed over the ranks, this rank's rows kept."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return all_gather_dim(x, 0, axes, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_sum(g.contiguous(), ctx.axes, mesh=ctx.mesh)
+        return take_shard(g, 0, ctx.axes, mesh=ctx.mesh), None, None
+
+
+def gather_rows(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """Every rank's rows of ``x`` along ``axes`` (dim 0), differentiable:
+    a layer that must see the whole batch (the MoE dispatch) runs on this
+    and keeps its own rows after (:func:`take_shard`)."""
+    return _GatherRows.apply(x, spec_axes(axes), mesh)
+
+
 def _entry_device(mesh, index: dict[str, int]) -> torch.device:
     """The device of the mesh entry at ``index`` (axis name -> position;
     axes it does not name at 0)."""
@@ -83,11 +184,17 @@ def _entry_device(mesh, index: dict[str, int]) -> torch.device:
 
 
 def _split_kv_rows(q, k, v, kv_len, q_pos, *, mesh, seq_axis, batch_axes, variant, scale,
-                   window, softcap, block_size):
+                   window, softcap, block_size, ranks=False):
     """Rows ``q (B, H, G, D)`` against ``k (B, H, S, D)``, ``v (B, H, S,
     Dv)`` with S sharded over ``seq_axis`` and B over ``batch_axes``;
     ``kv_len (B,)`` and ``q_pos (B, G)`` in global positions.  Returns the
-    merged ``(B, H, G, Dv)`` fp32 on ``q``'s device."""
+    merged ``(B, H, G, Dv)`` fp32 on ``q``'s device.  With ``ranks``,
+    ``k`` and ``v`` are this rank's slice of the sequence (``S`` its
+    length) and ``q`` this rank's rows; ``batch_axes`` is not read."""
+    if ranks:
+        return _split_kv_rank(q, k, v, kv_len, q_pos, mesh=mesh, seq_axis=seq_axis,
+                              variant=variant, scale=scale, window=window, softcap=softcap,
+                              block_size=block_size)
     b = q.shape[0]
     s_total = k.shape[2]
     n_shards = mesh.shape[seq_axis]
@@ -125,6 +232,25 @@ def _split_kv_rows(q, k, v, kv_len, q_pos, *, mesh, seq_axis, batch_axes, varian
     return torch.cat(out)
 
 
+def _split_kv_rank(q, k, v, kv_len, q_pos, *, mesh, seq_axis, variant, scale, window, softcap,
+                   block_size):
+    """One rank's part of :func:`_split_kv_rows`: K6 once over its slice
+    (``start = coordinate x S_local``), at the frame and lengths the
+    single-controller walk gives that shard, the partials all-gathered
+    over ``seq_axis`` and merged by the same call."""
+    s_local = k.shape[2]
+    start = axis_index((seq_axis,), mesh)[0] * s_local
+    dev = q.device
+    kv_len = torch.as_tensor(kv_len, device=dev).to(torch.int64).reshape(q.shape[0])
+    q_pos = torch.as_tensor(q_pos, device=dev).to(torch.int64)
+    o, lse = gqa_decode_rows(
+        q, k, v, torch.clamp(kv_len - start, 0, s_local).to(torch.int32),
+        (q_pos - start).to(torch.int32), variant=variant, scale=scale, block_k=block_size,
+        softcap=softcap, window=window, return_partials=True)
+    return combine_shard_partials(all_gather_dim(o, 0, (seq_axis,), mesh=mesh),
+                                  all_gather_dim(lse, 0, (seq_axis,), mesh=mesh))
+
+
 def gqa_split_kv_decode(
     q: torch.Tensor,  # (B, Sq, Hq, Dh) decode queries
     k: torch.Tensor,  # (B, S, Hkv, Dh), or (B, Hkv, S, Dh) with kv_layout="bhsd"
@@ -141,9 +267,12 @@ def gqa_split_kv_decode(
     softcap: float | None = None,
     block_size: int = DEFAULT_BLOCK_K,
     kv_layout: str = "bshd",
+    ranks: bool = False,
 ) -> torch.Tensor:
     """Split-KV GQA decode over a mesh axis with one LSE merge; returns
-    ``(B, Sq, Hq, Dh)`` in ``q``'s dtype.
+    ``(B, Sq, Hq, Dh)`` in ``q``'s dtype.  With ``ranks`` the mesh is one
+    of processes and ``k`` / ``v`` hold this rank's sequence slice only
+    (:func:`_split_kv_rank`).
 
     The cache's sequence is cut into ``mesh.shape[seq_axis]`` slices (views:
     a ``bhsd`` cache is read where it lies); each shard runs K6 over its
@@ -165,7 +294,7 @@ def gqa_split_kv_decode(
     out = _split_kv_rows(
         qr, kr, vr, kv_len, torch.repeat_interleave(q_pos, group, dim=1), mesh=mesh,
         seq_axis=seq_axis, batch_axes=tuple(batch_axes or ()), variant=variant, scale=scale,
-        window=window, softcap=softcap, block_size=block_size)
+        window=window, softcap=softcap, block_size=block_size, ranks=ranks)
     dv = vr.shape[-1]
     out = out.reshape(b, hkv, sq, group, dv).transpose(1, 2)
     return out.reshape(b, sq, hq, dv).to(q.dtype)

@@ -14,7 +14,11 @@ exists only when the process group's world size equals the mesh's size:
 the production meshes (256 or 512 entries) are layouts that the spec
 functions read here, and run only on a machine with that many cards.
 :func:`init_local_process_group` makes the one-rank group that a 1 x 1
-mesh places on (a ``HashStore``, so no port is opened).
+mesh places on (a ``HashStore``, so no port is opened);
+:func:`init_process_group` joins a group of several ranks (one process
+each, as ``torchrun`` starts them) and :func:`rank_mesh` lays a mesh over
+its ranks, on which the sharded steps run rank-locally
+(:func:`repro_torch.runtime.sharding.local_run`).
 """
 
 from __future__ import annotations
@@ -80,6 +84,56 @@ def init_local_process_group(device="cuda") -> None:
         return
     backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+
+
+def init_process_group(backend: str, *, rank: int | None = None,
+                       world_size: int | None = None, store=None,
+                       device="cuda") -> torch.device:
+    """Join the default process group as ``rank`` of ``world_size`` and
+    return this rank's device: ``cuda:{LOCAL_RANK % device_count}``, or
+    the CPU when ``device`` says so.  What is not given is read from
+    torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, and
+    ``MASTER_ADDR`` / ``MASTER_PORT`` for the rendezvous unless a
+    ``store`` is given, e.g. a ``torch.distributed.FileStore``).
+
+    ``backend`` is never chosen here: ``"nccl"`` for one card per rank,
+    ``"gloo"`` for the CPU and for ranks that share one card (NCCL refuses
+    two ranks on one device)."""
+    import os
+
+    import torch.distributed as dist
+
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend {backend!r}: pick 'nccl' or 'gloo'")
+    rank = int(os.environ["RANK"]) if rank is None else rank
+    world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank))
+                           % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    kw = {"store": store}
+    if store is None:
+        kw = {"init_method": f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"}
+    dist.init_process_group(backend, rank=rank, world_size=world_size, **kw)
+    return dev
+
+
+def rank_mesh(spec: str, device="cuda") -> Mesh:
+    """A ``DxM`` ``(data, model)`` mesh over the process group's ranks,
+    row-major (rank ``r`` at ``np.unravel_index(r, (D, M))``, as
+    ``init_device_mesh`` lays them): entry ``r`` is ``cuda:{r %
+    device_count}`` (several ranks may share a card) or the CPU.  Raises
+    unless the group's world size is ``D * M``."""
+    import torch.distributed as dist
+
+    shape = parse_mesh_spec(spec)
+    world = dist.get_world_size() if dist.is_initialized() else None
+    if world != shape[0] * shape[1]:
+        raise RuntimeError(f"mesh {spec!r} needs a process group of world size "
+                           f"{shape[0] * shape[1]}; " + ("none is initialized" if world is None
+                                                         else f"this one has {world}"))
+    return _mesh(shape, AXES, device)
 
 
 def _mesh(shape, axes, device) -> Mesh:

@@ -5,6 +5,14 @@ kernels' plain PyTorch versions).  With ``--ckpt-dir`` the steps run under
 :class:`~repro_torch.runtime.fault_tolerance.TrainingSupervisor`, which
 resumes from the newest committed checkpoint there.
 
+When the caller has a process group of several ranks up
+(:func:`repro_torch.launch.mesh.init_process_group`), each rank generates
+its own shard of every batch (``SyntheticLMData(num_shards=world_size,
+shard_id=rank)``, the reference's ``jax.process_count()`` /
+``jax.process_index()``), the global batch is their concatenation in rank
+order, and the steps run rank-locally through ``jit_train_step`` on a
+``world_size x 1`` mesh of the ranks (the gradient all-reduced over them).
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke \\
         --steps 100 --batch 8 --seq 128 --device cpu [--ckpt-dir DIR]
@@ -16,15 +24,23 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.core.distributed import all_gather_dim
 from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.launch.mesh import rank_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.compression import compression_init
 from repro_torch.runtime.fault_tolerance import TrainingSupervisor
-from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+from repro_torch.runtime.train_loop import (
+    TrainConfig,
+    init_train_state,
+    jit_train_step,
+    make_train_step,
+)
 
 
 def main(argv=None):
@@ -47,6 +63,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if world > 1 else 0
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg)
     tc = TrainConfig(
@@ -60,8 +78,22 @@ def main(argv=None):
     params, opt, _ = init_train_state(model, torch.Generator(dev).manual_seed(args.seed), dev)
     comp = compression_init(params, tc.compression)
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                           global_batch=args.batch, seed=args.seed)
-    raw_step = make_train_step(model, tc)
+                           global_batch=args.batch, seed=args.seed, num_shards=world,
+                           shard_id=rank)
+    if world > 1:
+        if args.ckpt_dir:
+            raise SystemExit("--ckpt-dir: checkpoints of a state sharded over ranks are not "
+                             "supported; run one process to checkpoint")
+        mesh = rank_mesh(f"{world}x1", dev.type)
+        compile_for, _ = jit_train_step(model, tc, mesh, params)
+
+        def raw_step(p, o, c, batch, step):
+            # the global batch: every rank's shard, in rank order
+            batch = {k: all_gather_dim(torch.as_tensor(v, device=dev), 0, ("data",), mesh=mesh)
+                     for k, v in batch.items()}
+            return compile_for(batch)(p, o, c, batch, step)
+    else:
+        raw_step = make_train_step(model, tc)
 
     def step_fn(state, batch, step):
         p, o, c, m = raw_step(state["params"], state["opt"], state["comp"], batch, step)
@@ -71,7 +103,7 @@ def main(argv=None):
     t0 = time.time()
 
     def log(s, m):
-        if s % args.log_every == 0:
+        if s % args.log_every == 0 and rank == 0:
             print(f"step {s:5d} loss {float(m['loss']):.4f} "
                   f"gnorm {float(m['grad_norm']):.3f} lr {float(m['lr']):.2e}", flush=True)
 
@@ -97,8 +129,9 @@ def main(argv=None):
 
     dt = time.time() - t0
     first, final = float(history[0][1]["loss"]), float(history[-1][1]["loss"])
-    print(f"done: {len(history)} steps in {dt:.1f}s "
-          f"({dt / max(len(history), 1) * 1e3:.0f} ms/step), loss {first:.4f} -> {final:.4f}")
+    if rank == 0:
+        print(f"done: {len(history)} steps in {dt:.1f}s "
+              f"({dt / max(len(history), 1) * 1e3:.0f} ms/step), loss {first:.4f} -> {final:.4f}")
     return history
 
 

@@ -14,9 +14,15 @@ tokens, the cache's length divisible by ``mesh.shape["model"]``) takes
 the reference's split-KV branch instead:
 :func:`repro_torch.core.distributed.gqa_split_kv_decode` over the cache's
 sequence sharded on ``model`` (the batch on the data axes when it
-divides), K6 per shard and one LSE merge.  On one card the shards are
-logical (a :func:`repro_torch.launch.mesh.logical_mesh`); multi-card runs
-wait for a machine with several cards.
+divides), K6 per shard and one LSE merge.  In one process the shards are
+logical (a :func:`repro_torch.launch.mesh.logical_mesh`).  Inside a step
+run rank-locally on a mesh of processes
+(:func:`repro_torch.runtime.mesh_ctx.on_ranks`) the cache holds this
+rank's slice of the sequence only (rows ``start = coordinate x S_local``
+on): a new row is written where this rank holds its position, a decode
+step runs K6 once over the slice and all-gathers the partials over
+``model``, and a prefill from position 0 attends over the prompt's own
+K/V (K7, as in one process) and keeps its slice of the rows.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.attention import multi_head_attention
-from repro_torch.core.distributed import gqa_split_kv_decode
+from repro_torch.core.distributed import axis_index, gqa_split_kv_decode
 from repro_torch.models import layers
 from repro_torch.runtime import mesh_ctx
 
@@ -56,7 +62,7 @@ def init_kv_cache(cfg, batch, max_len, *, dtype, device):
     }
 
 
-def update_rows(buf, new, cache_len) -> None:
+def update_rows(buf, new, cache_len, *, start: int = 0, total: int | None = None) -> None:
     """Write ``new (B, s, ...)`` into ``buf (B, max_len, ...)`` at rows
     ``cache_len ...``, in place; a start past ``max_len - s`` is clamped,
     as the reference's dynamic-update-slice clamps it.
@@ -64,8 +70,21 @@ def update_rows(buf, new, cache_len) -> None:
     A scalar ``cache_len`` (one position for the whole batch, as in a
     prefill) is one slice ``copy_``; per-example offsets (ragged decode)
     are one indexed write.
+
+    With ``total``, ``buf`` is the slice of a ``total``-row sequence that
+    begins at row ``start`` (one rank's, under ``seqkv``): the positions
+    are clamped against ``total``, and only the rows that fall inside the
+    slice are written, at ``position - start``.
     """
     b, s = new.shape[:2]
+    if total is not None:
+        pos = torch.as_tensor(as_batch_vec(cache_len, b), device=buf.device).to(torch.int64)
+        rows = (torch.clamp(pos, 0, total - s)[:, None] - start
+                + torch.arange(s, device=buf.device)[None, :])
+        inside = (rows >= 0) & (rows < buf.shape[1])
+        bi = torch.arange(b, device=buf.device)[:, None].expand(b, s)
+        buf[bi[inside], rows[inside]] = new[inside].to(buf.dtype)
+        return
     max_len = buf.shape[1]
     if np.ndim(cache_len) == 0:
         start = min(max(int(cache_len), 0), max_len - s)
@@ -115,28 +134,36 @@ def gqa_apply(
         q = layers.rope(q, positions, theta=cfg.rope_theta)
         k = layers.rope(k, positions, theta=cfg.rope_theta)
 
+    mesh = mesh_ctx.current_mesh()
+    seqkv = cache is not None and mesh is not None and mesh_ctx.current_policy() == "seqkv"
+    # under seqkv on ranks this rank's cache is its slice of the sequence
+    slice_only = seqkv and mesh_ctx.on_ranks()
     if cache is not None:
         if cache_len is None:
             raise ValueError("a cache needs its cache_len")
         # (B, max_len, Hkv, Dh) views of the (B, Hkv, max_len, Dh) cache
         k_all, v_all = cache["k"].transpose(1, 2), cache["v"].transpose(1, 2)
-        update_rows(k_all, k, cache_len)
-        update_rows(v_all, v, cache_len)
+        if slice_only:
+            s_local = cache["k"].shape[2]
+            where = dict(start=axis_index(("model",), mesh)[0] * s_local,
+                         total=s_local * mesh.shape["model"])
+        else:
+            where = {}
+        update_rows(k_all, k, cache_len, **where)
+        update_rows(v_all, v, cache_len, **where)
         kv_len = as_batch_vec(cache_len, b) + s
         q_offset = as_batch_vec(cache_len, b)
+        if slice_only and s > 8:
+            # a prompt (more than 8 rows) starts at position 0: the prefill
+            # kernel takes no offset (ops.gqa_attention raises), so the
+            # prompt's own K/V are every key it sees
+            k_all, v_all = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
     else:
         k_all, v_all = k, v
         kv_len = np.full((b,), s, np.int32)
         q_offset = np.zeros((b,), np.int32)
 
-    mesh = mesh_ctx.current_mesh()
-    if (
-        cache is not None
-        and mesh is not None
-        and mesh_ctx.current_policy() == "seqkv"
-        and s <= 8
-        and cache["k"].shape[2] % mesh.shape["model"] == 0
-    ):
+    if seqkv and s <= 8 and (slice_only or cache["k"].shape[2] % mesh.shape["model"] == 0):
         dax = mesh_ctx.data_axes_in_ctx()
         bshard = b % math.prod(mesh.shape[a] for a in dax) == 0
         # bf16 rows into K6, as ops.gqa_attention gives them; the cache
@@ -147,6 +174,7 @@ def gqa_apply(
             batch_axes=dax if bshard else (), variant=cfg.attn_variant,
             scale=cfg.attn_scale or 1.0 / math.sqrt(dh), kv_len=kv_len,
             q_offset=q_offset, window=window, softcap=cfg.attn_softcap, kv_layout="bhsd",
+            ranks=slice_only,
         ).to(q.dtype)
         y = layers.dense(params["wo"], attn.reshape(b, s, hq * dh), dtype=dtype)
         return y, cache

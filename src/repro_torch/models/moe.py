@@ -27,10 +27,18 @@ combined tokens take the reference's expert-parallel placements
 (:func:`repro_torch.runtime.sharding.with_sharding_constraint`): a
 constraint changes no value, and on the plain tensors the model computes
 on it moves nothing, so the expert math is one path with or without a
-mesh.  No path gives the model a ``DTensor`` yet (``jit_train_step`` and
-``jit_serve_fns`` run it on the local shards, since the kernels read
-``data_ptr()``), so today these constraints act on nothing; they stand
-where the reference's do, for the multi-card steps.
+mesh.  No path gives the model a ``DTensor`` (``jit_train_step`` and
+``jit_serve_fns`` run it on plain tensors, since the kernels read
+``data_ptr()``), so these constraints act on nothing; they stand where
+the reference's do.
+
+Capacity and drops are taken over the call's tokens, so inside a step run
+rank-locally with the batch rows split over ranks
+(:func:`repro_torch.runtime.mesh_ctx.rank_rows`) the layer all-gathers
+its input over those axes before routing (differentiably:
+:func:`repro_torch.core.distributed.gather_rows`), routes and computes
+every token as one process would, and keeps this rank's rows after the
+combine.  The experts' compute is replicated across ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import math
 
 import torch
 
+from repro_torch.core.distributed import gather_rows, take_shard
 from repro_torch.models import layers
 from repro_torch.runtime import mesh_ctx, sharding
 
@@ -93,6 +102,9 @@ def expert_products(a, b):
 
 def moe_apply(params, x, *, cfg, dtype=torch.bfloat16):
     """x: (B, S, d) -> ((B, S, d), the load-balancing aux loss)."""
+    rows = mesh_ctx.rank_rows()
+    if rows:  # route the whole batch, as one process does
+        x = gather_rows(x, rows, mesh=mesh_ctx.current_mesh())
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_active
     n = b * s
@@ -169,4 +181,7 @@ def moe_apply(params, x, *, cfg, dtype=torch.bfloat16):
     if ep:  # the combined tokens back on the data axes
         out = sharding.with_sharding_constraint(
             out, sharding.NamedSharding(mesh, sharding.P(mesh_ctx.data_axes_in_ctx(), None)))
-    return out.reshape(b, s, d).to(x.dtype), aux_loss
+    out = out.reshape(b, s, d).to(x.dtype)
+    if rows:
+        out = take_shard(out, 0, rows, mesh=mesh_ctx.current_mesh())
+    return out, aux_loss

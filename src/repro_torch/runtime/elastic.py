@@ -3,12 +3,13 @@ a training state onto a different mesh, and replicate serving parameters
 onto an attached shard.
 
 When the cluster grows or shrinks, the same sharding *policy* evaluated
-against the new mesh gives the target layout; resharding stages each leaf
-on the host (its full value) and places it with the new mesh's specs
-(:func:`repro_torch.runtime.sharding.place`).  The data-parallel batch is
-kept by the caller adjusting ``grad_accum``.  A placement needs a process
-group as large as the new mesh: a 1 x 1 mesh on one rank here; meshes of
-several cards wait for a machine that has them.
+against the new mesh gives the target layout: each leaf is made whole
+(a placed ``DTensor``'s shards gathered over the ranks by its own
+placements; a plain tensor is the full value already) and this rank's
+slice of it under the new mesh's specs is placed there
+(:mod:`repro_torch.runtime.sharding`).  Both meshes span the process
+group (a 1 x 1 mesh on one rank, or two shapes of the same ranks).  The
+data-parallel batch is kept by the caller adjusting ``grad_accum``.
 """
 
 from __future__ import annotations
@@ -19,18 +20,14 @@ from repro_torch.runtime import sharding
 
 
 def reshard_tree(tree, new_mesh, spec_fn):
-    """Every leaf of ``tree`` (a tensor or a placed ``DTensor``) staged on
-    the host (its full value) and placed on ``new_mesh`` by ``spec_fn``:
-    a tree of ``DTensor``s on this rank's device of the new mesh."""
-    import torch.distributed as dist
-
-    new_mesh.device_mesh()  # raises unless the process group fits the mesh
-    dev = new_mesh.devices.flat[dist.get_rank()]
+    """Every leaf of ``tree`` (a tensor, or a placed ``DTensor``, gathered
+    by its own placements) placed on ``new_mesh`` by ``spec_fn``: a tree
+    of ``DTensor``s of this rank's shards there."""
 
     def move(path, leaf):
-        host = sharding.full_value(leaf).detach().to("cpu")
-        target = sharding.NamedSharding(new_mesh, spec_fn(path, leaf))
-        return sharding.place_one(host.to(dev), target)
+        full = sharding.full_value(leaf)
+        new = sharding.NamedSharding(new_mesh, spec_fn(path, full))
+        return sharding.from_local(sharding.shard_one(full, new), new, full.shape)
 
     return _tree.map_with_paths(move, tree)
 
@@ -47,14 +44,13 @@ def serving_params_replica(params, device=None):
 def reshard_train_state(params, opt_state, old_mesh, new_mesh, *, multi_pod=False):
     """``(params, opt_state)`` resharded onto ``new_mesh`` under the
     ``tp_fsdp`` parameter specs (moments as their parameters, the count
-    replicated); the leaves come back as ``DTensor``s."""
+    replicated); the leaves come back as ``DTensor``s of this rank's
+    shards on the new mesh.  ``old_mesh`` is not read: a placed leaf
+    carries its own layout."""
     del old_mesh
     pfn = sharding.param_spec_fn(new_mesh, multi_pod=multi_pod)
     rep = lambda path, leaf: sharding.P()
-    params = reshard_tree(params, new_mesh, pfn)
-    opt_state = AdamWState(
-        count=reshard_tree(opt_state.count, new_mesh, rep),
-        mu=reshard_tree(opt_state.mu, new_mesh, pfn),
-        nu=reshard_tree(opt_state.nu, new_mesh, pfn),
-    )
-    return params, opt_state
+    return (reshard_tree(params, new_mesh, pfn),
+            AdamWState(count=reshard_tree(opt_state.count, new_mesh, rep),
+                       mu=reshard_tree(opt_state.mu, new_mesh, pfn),
+                       nu=reshard_tree(opt_state.nu, new_mesh, pfn)))

@@ -5,27 +5,35 @@ Model code (the attention layer's split-KV branch, the MoE dispatch's
 expert-parallel placement) sometimes needs the concrete mesh; threading it
 through every config would contaminate pure-model signatures, so the
 launch factories and callers set it here around execution.
+
+``rank_rows`` says how the current call runs: ``None`` for one process
+(the whole batch, a cache whose every leaf is whole or a logical mesh's),
+or, inside a step run rank-locally on a mesh of processes
+(:func:`repro_torch.runtime.sharding.local_run`), the mesh axes over
+which the batch rows are split across ranks (``()`` when every rank holds
+every row).  The step factories set it for the call; model code reads it
+through :func:`on_ranks` and :func:`rank_rows`.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
 
-_CURRENT: dict = {"mesh": None, "policy": "tp_fsdp", "multi_pod": False}
+_CURRENT: dict = {"mesh": None, "policy": "tp_fsdp", "multi_pod": False, "rank_rows": None}
 
 
-def set_mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False):
-    _CURRENT.update(mesh=mesh, policy=policy, multi_pod=multi_pod)
+def set_mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None):
+    _CURRENT.update(mesh=mesh, policy=policy, multi_pod=multi_pod, rank_rows=rank_rows)
 
 
 def clear_mesh_ctx():
-    _CURRENT.update(mesh=None, policy="tp_fsdp", multi_pod=False)
+    _CURRENT.update(mesh=None, policy="tp_fsdp", multi_pod=False, rank_rows=None)
 
 
 @contextmanager
-def mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False):
+def mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None):
     prev = dict(_CURRENT)
-    set_mesh_ctx(mesh, policy, multi_pod)
+    set_mesh_ctx(mesh, policy, multi_pod, rank_rows)
     try:
         yield
     finally:
@@ -38,6 +46,17 @@ def current_mesh():
 
 def current_policy() -> str:
     return _CURRENT["policy"]
+
+
+def on_ranks() -> bool:
+    """True inside a step that runs rank-locally on a mesh of processes."""
+    return _CURRENT["rank_rows"] is not None
+
+
+def rank_rows() -> tuple:
+    """The mesh axes the batch rows are split over across ranks (``()``
+    outside a rank-local step)."""
+    return _CURRENT["rank_rows"] or ()
 
 
 def data_axes_in_ctx():

@@ -65,9 +65,9 @@ parameter set.
 :func:`jit_serve_fns` is the reference's sharded prefill / decode factory
 around ``model.prefill`` and ``model.decode_step``: the parameter, cache
 and token shardings over a mesh, and functions that place their inputs by
-them and run on the local shards (a one-rank mesh here).  Under
-``mesh_ctx(mesh, "seqkv")`` the decode step takes the attention layer's
-split-KV branch.
+them and run on the local shards, on a one-rank mesh or rank-locally on a
+mesh of processes.  Under ``mesh_ctx(mesh, "seqkv")`` the decode step
+takes the attention layer's split-KV branch.
 """
 
 from __future__ import annotations
@@ -78,7 +78,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.runtime import sharding
+from repro_torch.core import tree as _tree
+from repro_torch.core.distributed import all_gather_dim, take_shard
+from repro_torch.runtime import mesh_ctx, sharding
 
 
 def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
@@ -92,7 +94,13 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
     model on the local shards (on a one-rank mesh the tensors themselves,
     so the cache is written in place, as the model writes it).  ``cache_len``
     is the replicated host value and passes as it is.  ``params_like`` and
-    ``cache_like`` are read for their shapes only."""
+    ``cache_like`` are read for their shapes only.
+
+    On a mesh of several ranks every rank calls the function with the
+    same arguments, each leaf a full value or a placed ``DTensor``, and
+    the call runs rank-locally (:func:`_serve_on_ranks`): it returns what
+    the one-process call returns, the whole batch's logits on every rank,
+    and writes the cache's updated rows into each rank's own shard."""
     pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=model.cfg)
     cfn = sharding.cache_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
     bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
@@ -104,6 +112,9 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
             shs = (param_sh, cache_sh, sharding.make_shardings(mesh, tokens_like, bfn))
 
             def run(params, cache, tokens, *args, **kw):
+                if mesh.device_mesh().size() > 1:
+                    return _serve_on_ranks(call, mesh, policy, multi_pod, shs,
+                                           (params, cache, tokens), args, kw)
                 p, c, t = sharding.local_run(mesh, (params, cache, tokens), shs)
                 return call(p, c, t, *args, **kw)
 
@@ -113,6 +124,65 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
 
     return (compiler(model.prefill), compiler(model.decode_step),
             {"params": param_sh, "cache": cache_sh})
+
+
+def _serve_on_ranks(call, mesh, policy, multi_pod, shardings, inputs, args, kw):
+    """One rank's share of a sharded prefill / decode call.
+
+    * Parameters are made whole at the call (the FSDP gather done all at
+      once; it covers tensor-parallel leaves too: the compute is
+      replicated over ``model``).
+    * Tokens, and a per-row ``cache_len``, are this rank's batch rows, by
+      the tokens' batch spec (its axes ``rows``).
+    * Cache leaves are this rank's rows; their other sharded dims are
+      gathered (the ``tp_fsdp`` width: every step gathers the cache, the
+      reference's naive baseline), except the ``seqkv`` sequence, which
+      stays this rank's slice.  The rows the call writes go back into
+      this rank's shard in place.
+    * The logits are all-gathered over ``rows``: every rank returns the
+      whole batch's, as the reference returns its global array.
+    """
+    param_sh, cache_sh, tok_sh = shardings
+    params, cache, tokens = inputs
+    rows = sharding.spec_axes(tok_sh.spec[0]) if tok_sh.spec else ()
+    b = tokens.shape[0]
+
+    def own_rows(x):  # a per-row host array or tensor: this rank's rows
+        if isinstance(x, np.ndarray) and x.ndim >= 1 and x.shape[0] == b:
+            return take_shard(torch.from_numpy(x), 0, rows, mesh=mesh).numpy()
+        if isinstance(x, torch.Tensor) and x.ndim >= 1 and x.shape[0] == b:
+            return take_shard(x, 0, rows, mesh=mesh)
+        return x
+
+    p_full = sharding.whole_tree(params, param_sh)
+    c_local = sharding.local_shards(sharding.place(cache, cache_sh))
+    flat_sh = dict(_tree.leaves_with_paths(cache_sh))
+    seq_local = {"model"} if policy == "seqkv" else set()
+    work = {}
+
+    def to_work(path, local):
+        sh = flat_sh[path]
+        same_rows = sharding.spec_axes(sh.spec[0]) == rows
+        keep = (set(rows) if same_rows else set()) | seq_local
+        t = sharding.gather_one(local, sh, keep)
+        if not same_rows:
+            t = take_shard(t, 0, rows, mesh=mesh)
+        work[path] = (local, t, keep, same_rows)
+        return t
+
+    c_work = _tree.map_with_paths(to_work, c_local)
+    tok = take_shard(tokens, 0, rows, mesh=mesh)
+    args = tuple(own_rows(a) for a in args)
+    if "cache_len" in kw:
+        kw = dict(kw, cache_len=own_rows(kw["cache_len"]))
+    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows):
+        logits, _ = call(p_full, c_work, tok, *args, **kw)
+    for path, (local, t, keep, same_rows) in work.items():
+        if t is local:  # written in place
+            continue
+        full_rows = t if same_rows else all_gather_dim(t, 0, rows, mesh=mesh)
+        local.copy_(sharding.shard_one(full_rows, flat_sh[path], keep))
+    return all_gather_dim(logits, 0, rows, mesh=mesh), cache
 
 
 def check_session_servable(cfg) -> None:

@@ -31,8 +31,13 @@ holding ``layers`` is not read as stacked here, as it is there).
 :func:`place` maps a spec onto a ``torch.distributed.DeviceMesh``'s
 placements (``Shard(i)`` for each mesh axis that names tensor dim ``i``,
 else ``Replicate()``), which exists for a mesh as large as the process
-group (a 1 x 1 mesh on one rank here; multi-card runs wait for a machine
-with several cards).
+group: a 1 x 1 mesh on one rank, or a mesh of several ranks (one process
+each, :func:`repro_torch.launch.mesh.rank_mesh`).  Rank ``r`` sits at
+``np.unravel_index(r, mesh shape)``.  On several ranks the sharded steps
+run rank-locally: each rank gathers what it needs whole
+(:func:`gather_tree`, the exact inverse of :func:`place_one`'s
+``torch.chunk`` order), computes its own batch rows and keeps its own
+shard of every result (:func:`shard_tree`).
 
 Sharded paged serving routes each request (its pages and queue items) to
 ONE ``data`` shard; pools never straddle shards, so that placement is a
@@ -48,6 +53,7 @@ import re
 import torch
 
 from repro_torch.core import tree as _tree
+from repro_torch.core.distributed import all_gather_dim, gather_group, spec_axes, take_shard
 
 
 class PartitionSpec(tuple):
@@ -285,8 +291,19 @@ def placements(spec: PartitionSpec, axis_names) -> list:
 
 
 def full_value(t):
-    """A ``DTensor``'s full value (gathered), or ``t`` itself."""
-    return t.full_tensor() if hasattr(t, "full_tensor") else t
+    """A ``DTensor``'s full value, gathered by its own placements (the
+    inverse of :func:`place_one`'s chunks: the minor mesh axis first; on
+    one rank its local tensor itself), or ``t`` itself."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    dm, local = t.device_mesh, t.to_local()
+    for axis in reversed(range(dm.ndim)):
+        p = t.placements[axis]
+        if isinstance(p, Shard):
+            local = gather_group(local, p.dim, dm.get_group(axis))
+    return local
 
 
 def place_one(t: torch.Tensor, sh: NamedSharding, _where=None):
@@ -348,17 +365,75 @@ def local_shards(tree):
 def local_run(mesh, args, shardings):
     """``args`` placed by ``shardings`` on ``mesh`` (on this rank's device
     of it) and read back as their local shards: on a one-rank mesh the
-    tensors themselves (views, no copy).  Raises ``NotImplementedError`` on
-    a mesh of several ranks, where the local shards are slices and the
-    step would need collectives; ``RuntimeError`` unless the process
-    group's world size equals the mesh's size."""
-    dm = mesh.device_mesh()
-    if dm.size() > 1:
-        raise NotImplementedError(
-            f"a step over a mesh of {dm.size()} ranks (sharded leaves, the "
-            "gradient reduction) runs on a machine with that many cards; "
-            "here a one-rank mesh (make_debug_mesh) runs")
+    tensors themselves (views, no copy); on several ranks this rank's
+    slices (views of a full value, or a placed ``DTensor``'s own shard),
+    which the step gathers where it needs them whole.  ``RuntimeError``
+    unless the process group's world size equals the mesh's size."""
     return local_shards(place(args, shardings))
+
+
+def _kept(entry, keep) -> bool:
+    """A dim stays as it is when every axis that shards it is in ``keep``."""
+    return set(spec_axes(entry)) <= set(keep)
+
+
+def gather_one(local: torch.Tensor, sh: NamedSharding, keep=()) -> torch.Tensor:
+    """``local`` (this rank's shard under ``sh``) made whole along every
+    sharded dim, except a dim whose axes all lie in ``keep``."""
+    for dim, entry in enumerate(sh.spec):
+        if entry is not None and not _kept(entry, keep):
+            local = all_gather_dim(local, dim, spec_axes(entry), mesh=sh.mesh)
+    return local
+
+
+def shard_one(full: torch.Tensor, sh: NamedSharding, keep=()) -> torch.Tensor:
+    """This rank's slice of ``full`` under ``sh`` (a view; the same as
+    :func:`place_one`'s local shard), dims whose axes lie in ``keep`` left
+    as they are: the inverse of :func:`gather_one` with that ``keep``."""
+    for dim, entry in enumerate(sh.spec):
+        if entry is not None and not _kept(entry, keep):
+            full = take_shard(full, dim, spec_axes(entry), mesh=sh.mesh)
+    return full
+
+
+def gather_tree(local, shardings, keep=()):
+    """Every leaf of ``local`` (this rank's shards) whole along every
+    sharded dim except those over the axes in ``keep`` (the batch axes,
+    which stay this rank's rows)."""
+    flat = dict(_tree.leaves_with_paths(shardings))
+    return _tree.map_with_paths(lambda p, t: gather_one(t, flat[p], keep), local)
+
+
+def shard_tree(full, shardings, keep=()):
+    """This rank's slices of every leaf of ``full`` (views), as
+    :func:`place` would hold them; dims over the axes in ``keep`` are
+    left as they are."""
+    flat = dict(_tree.leaves_with_paths(shardings))
+    return _tree.map_with_paths(lambda p, t: shard_one(t, flat[p], keep), full)
+
+
+def whole_tree(tree, shardings):
+    """The full values a rank-local step computes on, from its caller's
+    ``tree``: a placed ``DTensor``'s shard gathered (:func:`gather_one`),
+    a plain tensor (the full value on every rank, as :func:`place_one`
+    reads it) as it is, without moving it."""
+    from torch.distributed.tensor import DTensor
+
+    flat = dict(_tree.leaves_with_paths(shardings))
+    return _tree.map_with_paths(
+        lambda p, t: gather_one(t.to_local(), flat[p]) if isinstance(t, DTensor) else t, tree)
+
+
+def from_local(local: torch.Tensor, sh: NamedSharding, shape):
+    """``local`` (this rank's shard of a value of ``shape`` under ``sh``)
+    as a ``DTensor``: no copy, no communication."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, sh.mesh.device_mesh(),
+                              placements(sh.spec, sh.mesh.axis_names), run_check=False,
+                              shape=shape, stride=stride)
 
 
 # --------------------------------------------------------------------------- #

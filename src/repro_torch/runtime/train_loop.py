@@ -19,10 +19,10 @@ reference's blockwise path (:mod:`repro_torch.core.attention`).
 :func:`jit_train_step` is the reference's sharded step factory: the
 shardings of every parameter, moment, residual and batch leaf over a mesh
 (:mod:`repro_torch.runtime.sharding`), and a step that places its inputs
-by them and runs :func:`make_train_step`'s step on the local shards.  A
-mesh of one rank (``make_debug_mesh``) runs here; a step over several
-ranks (sharded leaves, the gradient reduction) waits for a machine with
-several cards and raises.
+by them and runs :func:`make_train_step`'s step on the local shards (a
+mesh of one rank), or runs rank-locally on a mesh of processes
+(:func:`_train_on_ranks`: this rank's batch rows, the gradient all-reduced
+over the data-parallel ranks, the update on this rank's shards).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core import tree as _tree
+from repro_torch.core.distributed import all_reduce_sum, axis_index
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.transformer import cfg_dtype
@@ -40,11 +41,13 @@ from repro_torch.optim.adamw import (
     AdamWState,
     adamw_init,
     adamw_update,
+    clip_by_global_norm,
     cosine_schedule,
+    global_norm,
     reference_decay_mask,
 )
 from repro_torch.optim.compression import CompressionState, compress_grads, compression_init
-from repro_torch.runtime import sharding
+from repro_torch.runtime import mesh_ctx, sharding
 
 
 class TrainConfig(NamedTuple):
@@ -122,50 +125,80 @@ def make_train_step(model, tc: TrainConfig):
     if tc.grad_accum < 1:
         raise ValueError(f"grad_accum={tc.grad_accum} must be positive")
 
-    def loss_and_grads(params, batch):
-        flat = [p.detach().requires_grad_() for p in _tree.leaves(params)]
-        loss = model.loss(_tree.unflatten_like(params, flat), batch, remat=tc.remat,
-                          n_loss_chunks=tc.n_loss_chunks)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
-        return loss.detach(), grads
-
     def train_step(params, opt_state, comp_state, batch, step):
         check_trainable(params)
         first = _tree.leaves(params)[0]
         batch = _to_batch(batch, first.device)
-        a = tc.grad_accum
-        if a == 1:
-            loss, grads = loss_and_grads(params, batch)
-        else:
-            # STRIDED microbatching: microbatch m takes rows [m::a], so every
-            # data shard contributes rows to every microbatch (the reference's
-            # split; a contiguous one changes which rows meet).
-            if next(iter(batch.values())).shape[0] % a:
-                raise ValueError(f"batch does not split into grad_accum={a} microbatches")
-            loss, grads = 0.0, None
-            for m in range(a):
-                l, g = loss_and_grads(params, {k: v[m::a] for k, v in batch.items()})
-                loss = loss + l
-                grads = [x.float() for x in g] if grads is None else [
-                    x + y.float() for x, y in zip(grads, g)]
-            loss = loss / a
-            grads = [g / a for g in grads]
-        grads = _tree.unflatten_like(params, grads)
-
-        if tc.compression != "none":
-            grads, comp_state = compress_grads(
-                grads, comp_state, mode=tc.compression, cfg=model.cfg,
-                rng=prng.fold_in(prng.prng_key(17, first.device), step))
+        losses, grads = _accumulated_grads(model, tc, params, batch)
+        grads, comp_state = _compressed(model, tc, grads, comp_state, step, first.device)
         lr = cosine_schedule(step, peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps,
                              total_steps=tc.total_steps)
         params, opt_state, metrics = adamw_update(
             grads, opt_state, params, lr=lr, weight_decay=tc.weight_decay,
             clip_norm=tc.clip_norm, decay=reference_decay_mask(params, model.cfg))
-        metrics["loss"] = loss
+        metrics["loss"] = _mean(losses)
         return params, opt_state, comp_state, metrics
 
     return train_step
+
+
+def _loss_and_grads(model, tc, params, batch, weight=None):
+    """The loss (``model.loss``, the mean over ``batch``'s valid labels)
+    and the gradient of ``weight x`` that loss (of the loss itself when
+    ``weight`` is None) for every leaf of ``params``."""
+    flat = [p.detach().requires_grad_() for p in _tree.leaves(params)]
+    loss = model.loss(_tree.unflatten_like(params, flat), batch, remat=tc.remat,
+                      n_loss_chunks=tc.n_loss_chunks)
+    grads = torch.autograd.grad(loss if weight is None else loss * weight, flat,
+                                allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+    return loss.detach(), grads
+
+
+def _microbatches(batch, a):
+    """STRIDED microbatching: microbatch m takes rows [m::a], so every
+    data shard contributes rows to every microbatch (the reference's split;
+    a contiguous one changes which rows meet)."""
+    if next(iter(batch.values())).shape[0] % a:
+        raise ValueError(f"batch does not split into grad_accum={a} microbatches")
+    return [{k: v[m::a] for k, v in batch.items()} for m in range(a)]
+
+
+def _accumulated_grads(model, tc, params, batch, weights=None):
+    """(each microbatch's loss, the gradient tree) of one step's batch:
+    the mean over the ``grad_accum`` microbatches of their gradients,
+    ``weights[m]`` scaling microbatch m's (:func:`_loss_and_grads`)."""
+    a = tc.grad_accum
+    weights = [None] * a if weights is None else weights
+    if a == 1:
+        loss, grads = _loss_and_grads(model, tc, params, batch, weights[0])
+        return [loss], _tree.unflatten_like(params, grads)
+    losses, grads = [], None
+    for mb, w in zip(_microbatches(batch, a), weights):
+        l, g = _loss_and_grads(model, tc, params, mb, w)
+        losses.append(l)
+        grads = [x.float() for x in g] if grads is None else [
+            x + y.float() for x, y in zip(grads, g)]
+    return losses, _tree.unflatten_like(params, [g / a for g in grads])
+
+
+def _mean(losses):
+    """The step's loss: the microbatches' mean (one microbatch's as it is)."""
+    if len(losses) == 1:
+        return losses[0]
+    loss = 0.0
+    for l in losses:
+        loss = loss + l
+    return loss / len(losses)
+
+
+def _compressed(model, tc, grads, comp_state, step, device):
+    """The gradients through the step's compression (none, bf16 or int8
+    with error feedback), the key drawn from ``step`` as the reference's."""
+    if tc.compression == "none":
+        return grads, comp_state
+    return compress_grads(grads, comp_state, mode=tc.compression, cfg=model.cfg,
+                          rng=prng.fold_in(prng.prng_key(17, device), step))
 
 
 def jit_train_step(model, tc: TrainConfig, mesh, params_like, *, multi_pod: bool = False,
@@ -181,7 +214,14 @@ def jit_train_step(model, tc: TrainConfig, mesh, params_like, *, multi_pod: bool
     ``donate`` is the reference's buffer donation; the port's step is
     functional (it writes none of its inputs and returns new tensors), so
     there is nothing to donate and the flag changes nothing.  Microbatches
-    are strided over the batch as :func:`make_train_step` takes them."""
+    are strided over the batch as :func:`make_train_step` takes them.
+
+    On a mesh of several ranks every rank calls the step with the same
+    arguments (the global batch; each state leaf a full value or a placed
+    ``DTensor``) and it runs rank-locally (:func:`_train_on_ranks`): the
+    metrics are the one-process step's, equal on every rank, and the new
+    parameters, moments and residuals come back as ``DTensor``s of this
+    rank's shards."""
     del donate
     pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=model.cfg)
     bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
@@ -195,16 +235,95 @@ def jit_train_step(model, tc: TrainConfig, mesh, params_like, *, multi_pod: bool
         return sharding.make_shardings(mesh, batch_like, bfn)
 
     def compile_for(batch_like):
-        b_sh = batch_shardings(batch_like)
+        shs = (param_sh, opt_sh, comp_sh, batch_shardings(batch_like))
 
         def step(params, opt_state, comp_state, batch, step):
-            mesh.device_mesh()  # raises unless the process group fits the mesh
+            dm = mesh.device_mesh()  # raises unless the process group fits the mesh
             dev = mesh.devices.flat[torch.distributed.get_rank()]
             args = (params, opt_state, comp_state, _to_batch(batch, dev))
-            placed = sharding.local_run(mesh, args, (param_sh, opt_sh, comp_sh, b_sh))
-            return step_fn(*placed, step)
+            if dm.size() > 1:
+                return _train_on_ranks(model, tc, mesh, shs, args, step,
+                                       policy=policy, multi_pod=multi_pod)
+            return step_fn(*sharding.local_run(mesh, args, shs), step)
 
         return step
 
     return compile_for, {"params": param_sh, "opt": opt_sh, "comp": comp_sh,
                          "batch_fn": batch_shardings}
+
+
+def _train_on_ranks(model, tc, mesh, shardings, args, step, *, policy, multi_pod):
+    """One rank's share of a sharded train step.
+
+    * The batch rows are this rank's, by the batch spec (its axes
+      ``rows``, the data-parallel ranks: the data axes, and ``model`` too
+      under ``fsdp``, ``fsdp2d`` and ``dp``); the strided microbatches of
+      those rows make up the global ones only if each rank's row count
+      divides by ``grad_accum``, so another count raises.
+    * The parameters are gathered whole (the FSDP gather, all at once).
+    * The loss is the global mean: each microbatch's gradient is weighted
+      by ``n_dp x`` (this rank's valid labels / the global count), the
+      gradients summed over ``rows`` and divided by ``n_dp``; the reported
+      loss is the sum of the ranks' label-weighted losses over the count.
+    * Compression, the clipping norm and the norm reported run on the full
+      gradient, as on one rank (the residual gathered, the threefry draw
+      the same); AdamW updates this rank's shards of the parameters and
+      moments, which come back as ``DTensor``s with the residual's shard.
+    """
+    param_sh, opt_sh, comp_sh, b_sh = shardings
+    params, opt_state, comp_state, batch = args
+    check_trainable(params)
+    rows = sharding.spec_axes(next(iter(b_sh.values())).spec[0])
+    n_dp = axis_index(rows, mesh)[1]
+    local = sharding.local_shards(sharding.place(batch, b_sh))
+    a = tc.grad_accum
+    n_rows = next(iter(local.values())).shape[0]
+    if n_rows % a:
+        raise ValueError(
+            f"a rank's {n_rows} batch rows do not split into grad_accum={a} strided "
+            "microbatches, so its microbatches would not make up the global ones")
+    p_full = sharding.whole_tree(params, param_sh)
+    p_local, opt_local = sharding.local_shards(sharding.place((params, opt_state),
+                                                              (param_sh, opt_sh)))
+    counts = torch.stack([(mb["labels"] >= 0).sum() for mb in _microbatches(local, a)])
+    total = torch.clamp_min(all_reduce_sum(counts, rows, mesh=mesh), 1)
+    weights = (n_dp * counts.double() / total.double()).float()
+    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows):
+        losses, grads = _accumulated_grads(model, tc, p_full, local, weights=list(weights))
+    sums = all_reduce_sum(torch.stack(losses) * counts, rows, mesh=mesh)
+    loss = _mean(list(sums / total))
+    grads = _tree.tree_map(lambda g: all_reduce_sum(g, rows, mesh=mesh) / n_dp, grads)
+
+    if comp_sh is not None:
+        residual = sharding.whole_tree(comp_state.residual, param_sh)
+        grads, comp = _compressed(model, tc, grads, CompressionState(residual=residual), step,
+                                  _tree.leaves(p_full)[0].device)
+        comp_state = CompressionState(residual=_placed(comp.residual, param_sh, p_full, full=True))
+    if tc.clip_norm is not None:
+        grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+    lr = cosine_schedule(step, peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps,
+                         total_steps=tc.total_steps)
+    new_p, new_opt, metrics = adamw_update(
+        sharding.shard_tree(grads, param_sh), opt_local, p_local, lr=lr,
+        weight_decay=tc.weight_decay, clip_norm=None,
+        decay=reference_decay_mask(p_full, model.cfg))
+    new_opt = AdamWState(
+        count=sharding.from_local(new_opt.count, opt_sh.count, ()),
+        mu=_placed(new_opt.mu, param_sh, p_full), nu=_placed(new_opt.nu, param_sh, p_full))
+    metrics.update(grad_norm=gnorm, loss=loss)
+    return _placed(new_p, param_sh, p_full), new_opt, comp_state, metrics
+
+
+def _placed(tree, shardings, like, *, full=False):
+    """``DTensor``s of this rank's shards in ``tree`` (or of its slices of
+    the full values, with ``full``), shaped as the leaves of ``like``."""
+    flat = dict(_tree.leaves_with_paths(shardings))
+    shapes = {path: t.shape for path, t in _tree.leaves_with_paths(like)}
+
+    def one(path, t):
+        sh = flat[path]
+        return sharding.from_local(sharding.shard_one(t, sh) if full else t, sh, shapes[path])
+
+    return _tree.map_with_paths(one, tree)

@@ -1,0 +1,309 @@
+"""The sharded steps run rank-locally on a ``torch.distributed`` group of
+several ranks, on the CPU: ``jit_serve_fns`` (prefill and decode, split-KV
+decode across ranks through K6's plain version), ``jit_train_step``,
+``reshard_train_state``, ``launch/train``'s data split, and the gathers
+and slices of ``runtime.sharding`` underneath.
+
+The ranks are spawned processes in a gloo group on a ``FileStore`` under
+the test's temporary directory (no port, so xdist workers cannot collide),
+one thread each; they import no JAX (``torch_ranks_worker``).  All cases
+of one world size run in one spawn (2 ranks: the 1 x 2 and 2 x 1 meshes;
+4 ranks: 2 x 2), each spawn bounded by ``JOIN_TIMEOUT`` after which its
+ranks are killed and the tests fail.  The JAX references run here, in
+this process, as a single-device ``jax.jit``, which has the semantics of
+the reference's sharded step.
+
+Bounds: ``seqkv`` decode across ranks is bit-equal to the one-process run
+on the logical mesh over the same rows (the same K6 slices, the partials
+gathered in coordinate order, the same merge), and within
+``tests/test_perf_paths.py``'s rtol/atol 2e-2 of the reference.  Other
+policies against the one-process run and the reference by
+``tests/test_torch_model.py``'s 2e-3 (fewer matmul rows per rank round
+differently on the CPU).  Training against ``make_train_step`` on one
+rank: the first step's loss, ``grad_norm`` and first moment (0.1 x the
+clipped gradient) within 1e-6 relative, the parameters by
+``tests/test_torch_train_loop.py``'s rule (Adam's first step turns a
+rounding-level gradient into +-lr); loss and ``grad_norm`` against the
+reference's step by that file's bounds.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.data.pipeline import SyntheticLMData as RefData
+from repro.models.model_zoo import build_model as ref_build_model
+from repro.optim import adamw as ref_adamw
+from repro.runtime import train_loop as ref_train_loop
+from repro_torch.configs import get_config
+from repro_torch.convert import convert_params
+from repro_torch.data.pipeline import SyntheticLMData
+from torch_ranks_worker import SPECS, run_ranks
+
+MODEL_TOL = 2e-3  # tests/test_torch_model.py
+SEQKV_TOL = 2e-2  # tests/test_perf_paths.py
+STEP_TOL = 1e-6  # rank step against the one-rank step
+LOSS_TOL, NORM_TOL = 1e-5, 1e-4  # tests/test_torch_train_loop.py, against the reference
+PARAM_TOL = 2e-3
+FLIP_SHARE = 1e-3  # int8 elements whose stochastic rounding lands the other way
+B, PROMPT, DECODE, MAX_LEN = 2, 12, 2, 16
+TRAIN = dict(peak_lr=3e-3, warmup_steps=2, total_steps=20, remat=False)
+
+
+def max_err(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(1.0, np.max(np.abs(b))))
+
+
+def ref_pair(arch):
+    """(reference model, its params, the port's converted params)."""
+    ref_model = ref_build_model(ref_get_config(arch, smoke=True))
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    return ref_model, ref_params, convert_params(ref_params, get_config(arch, smoke=True),
+                                                 device="cpu")
+
+
+def tokens_for(arch, seed=3):
+    vocab = get_config(arch, smoke=True).vocab_size
+    rng = np.random.default_rng(seed)
+    return rng.integers(2, vocab, size=(B, PROMPT)), rng.integers(2, vocab, size=(B, DECODE))
+
+
+def ref_serve(ref_model, ref_params, prompt, tokens):
+    """The reference's prefill and teacher-forced decode logits, each call a
+    single-device ``jax.jit``."""
+    prefill = jax.jit(lambda p, c, t: ref_model.prefill(p, c, t))
+    decode = jax.jit(lambda p, c, t, n: ref_model.decode_step(p, c, t, n))
+    cache = ref_model.init_cache(ref_params, B, MAX_LEN)
+    logits, cache = prefill(ref_params, cache, jnp.asarray(prompt))
+    out = [np.asarray(logits)]
+    for i in range(tokens.shape[1]):
+        logits, cache = decode(ref_params, cache, jnp.asarray(tokens[:, i:i + 1]),
+                               jnp.int32(PROMPT + i))
+        out.append(np.asarray(logits))
+    return out
+
+
+def train_batches(arch="qwen1.5-0.5b"):
+    cfg = get_config(arch, smoke=True)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0)
+    return [data.batch_at(0), data.batch_at(1)]
+
+
+SERVE = {  # name -> (arch, mesh, policy, world)
+    "seqkv 1x2": ("qwen2.5-3b", "1x2", "seqkv", 2),
+    "tp 1x2": ("qwen2.5-3b", "1x2", "tp", 2),
+    "tp_fsdp 2x1": ("qwen2.5-3b", "2x1", "tp_fsdp", 2),
+    "mla tp_fsdp 2x1": ("deepseek-v2-mla", "2x1", "tp_fsdp", 2),
+    "seqkv 2x2": ("qwen2.5-3b", "2x2", "seqkv", 4),
+    "tp_fsdp 2x2": ("qwen2.5-3b", "2x2", "tp_fsdp", 4),
+    "tp 2x2": ("qwen2.5-3b", "2x2", "tp", 4),
+}
+TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world)
+    "2x1 tp_fsdp none": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "none", 1, 2),
+    "2x1 tp_fsdp int8": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "int8", 1, 2),
+    "2x1 fsdp none accum2": ("qwen1.5-0.5b", "2x1", "fsdp", "none", 2, 2),
+    "2x2 tp_fsdp none": ("qwen1.5-0.5b", "2x2", "tp_fsdp", "none", 1, 4),
+    "2x2 fsdp int8 accum2": ("qwen1.5-0.5b", "2x2", "fsdp", "int8", 2, 4),
+    # MoE: the routing sees the gathered batch; its gradient flows back
+    # through the gather's adjoint (the cotangent summed over the ranks)
+    "moe 2x1 tp_fsdp none": ("qwen3-moe-30b-a3b", "2x1", "tp_fsdp", "none", 1, 2),
+}
+# The MoE layer's input cotangent is a sum over the ranks, added in another
+# order than one rank's backward adds it; upstream, attention rounds its
+# input gradients to bf16 (tests/test_torch_train_loop.py), and a rounding
+# that lands one step apart moves a first moment by up to one bf16 step of
+# its leaf's largest: that file's GRAD_TOL (measured 1.9e-4 of a leaf's
+# largest, 2.6e-5 of the whole moment's norm).  Loss and grad_norm stay 1e-6;
+# the gather's adjoint itself is exact (test_gather_rows_adjoint_is_exact).
+MU_TOL = {"qwen1.5-0.5b": STEP_TOL, "qwen3-moe-30b-a3b": 2.0**-8}
+
+
+@pytest.fixture(scope="module")
+def refs():
+    """Weights and inputs of every case, and the JAX references."""
+    out = {}
+    for arch in ("qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b"):
+        ref_model, ref_params, params = ref_pair(arch)
+        prompt, tokens = tokens_for(arch)
+        out[arch] = dict(params=params, prompt=prompt, tokens=tokens,
+                         want=ref_serve(ref_model, ref_params, prompt, tokens[:, :1]
+                                        if arch == "qwen3-moe-30b-a3b" else tokens))
+    ref_model, ref_params, params = ref_pair("qwen1.5-0.5b")
+    batch = train_batches()[0]
+    step = jax.jit(ref_train_loop.make_train_step(ref_model, ref_train_loop.TrainConfig(**TRAIN)))
+    *_, m = step(ref_params, ref_adamw.adamw_init(ref_params), None,
+                 {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(3))
+    out["train"] = dict(params=params, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    return out
+
+
+def cases_for(world, refs):
+    cases = []
+    for name, (arch, spec, policy, w) in SERVE.items():
+        if w == world:
+            r = refs[arch]
+            cases.append((name, dict(case="serve", arch=arch, params=r["params"], spec=spec,
+                                     policy=policy, prompt=r["prompt"], tokens=r["tokens"],
+                                     max_len=MAX_LEN)))
+    for name, (arch, spec, policy, comp, accum, w) in TRAIN_CASES.items():
+        if w == world:
+            params = refs["train" if arch == "qwen1.5-0.5b" else arch]["params"]
+            cases.append((name, dict(case="train", arch=arch, params=params,
+                                     batches=train_batches(arch), spec=spec, policy=policy,
+                                     compression=comp, grad_accum=accum)))
+    for spec in (["1x2", "2x1"] if world == 2 else ["2x2"]):
+        cases.append((f"round_trip {spec}", dict(case="round_trip", spec=spec)))
+    if world == 2:
+        r = refs["qwen3-moe-30b-a3b"]
+        cases += [("moe 2x1", dict(case="moe", params=r["params"], spec="2x1",
+                                   prompt=r["prompt"], tokens=r["tokens"], max_len=MAX_LEN)),
+                  ("reshard", dict(case="reshard", params=refs["train"]["params"], old="2x1",
+                                   new="1x2")),
+                  ("launch_train", dict(case="launch_train"))]
+    return cases
+
+
+@pytest.fixture(scope="module")
+def ranks(refs, tmp_path_factory):
+    """Every case's results, ``{name: [per rank]}``, from one spawn of 2
+    ranks and one of 4."""
+    out = {}
+    for world in (2, 4):
+        out.update(run_ranks(world, cases_for(world, refs),
+                             str(tmp_path_factory.mktemp(f"store{world}"))))
+    return out
+
+
+@pytest.mark.parametrize("name", list(SERVE))
+def test_serve_on_ranks(ranks, refs, name):
+    """Prefill (12 tokens: K7; under seqkv each rank attends over the
+    prompt's own K/V and keeps its slice of the rows) and two decode steps
+    at per-row lengths through ``jit_serve_fns`` on ranks: every rank
+    returns the whole batch's logits, the same on every rank; held against
+    the one-process run (seqkv: bit for bit, logits and each rank's cache
+    shard) and the reference."""
+    arch, spec, policy, _ = SERVE[name]
+    res = ranks[name]
+    want = refs[arch]["want"]
+    for r in res:
+        assert r["returned_cache"]
+        for g, g0 in zip(r["logits"], res[0]["logits"]):
+            assert g.shape == g0.shape and np.array_equal(g, g0)
+        if policy == "seqkv":
+            assert r["logits_equal"] and r["cache_equal"]
+        else:
+            assert r["logits_err"] <= MODEL_TOL and r["cache_err"] <= MODEL_TOL
+    for g, w in zip(res[0]["logits"], want, strict=True):
+        assert g.shape == w.shape
+        if policy == "seqkv":
+            np.testing.assert_allclose(g, w, rtol=SEQKV_TOL, atol=SEQKV_TOL)
+        else:
+            assert max_err(g, w) <= MODEL_TOL
+
+
+def test_moe_dispatch_on_ranks_equals_one_rank(ranks, refs):
+    """Smoke qwen3-moe on 2 x 1 ranks: each MoE layer routes the whole
+    batch (gathered over ``data``), so every expert product sees the
+    one-rank run's capacity and filled slots; logits within the model
+    bound of the one-rank run and the reference."""
+    for r in ranks["moe 2x1"]:
+        assert r["calls"] > 0 and r["same_capacity"] and r["same_slots"]
+        assert r["dispatch_err"] <= 1e-5 and r["logits_err"] <= MODEL_TOL
+    for g, w in zip(ranks["moe 2x1"][0]["logits"], refs["qwen3-moe-30b-a3b"]["want"],
+                    strict=True):
+        assert max_err(g, w) <= MODEL_TOL
+
+
+@pytest.mark.parametrize("name", list(TRAIN_CASES))
+def test_train_on_ranks(ranks, refs, name):
+    for r in ranks[name]:
+        m0 = r["metrics0"]
+        for k in ("loss", "grad_norm"):
+            got, want = m0[k]
+            assert abs(got - want) <= STEP_TOL * abs(want), (k, got, want)
+        assert m0["lr"][0] == m0["lr"][1]
+        if "e_err" in r:  # int8: the gradient tight, a rounding flip moves one step
+            assert r["e_err"] <= STEP_TOL
+            assert r["flip_steps"] <= 1 + 1e-3 and r["flip_share"] <= FLIP_SHARE
+        else:
+            tol = MU_TOL[TRAIN_CASES[name][0]]
+            assert r["mu_err"] <= tol and r["mu_norm_err"] <= tol
+        assert r["param_resolved_err"] <= PARAM_TOL and r["param_step_err"] <= 1 + 1e-4
+        assert r["shards_are_slices"] and r["is_dtensor"]
+        for k in ("loss", "grad_norm"):  # the second step, from states a step apart
+            got, want = r["metrics1"][k]
+            assert abs(got - want) <= LOSS_TOL * abs(want)
+        # every rank reports the same metrics
+        assert (m0, r["metrics1"]) == (ranks[name][0]["metrics0"], ranks[name][0]["metrics1"])
+    if name == "2x1 tp_fsdp none":  # the reference's step, same weights and batch
+        got = ranks[name][0]["metrics0"]
+        assert got["loss"][0] == pytest.approx(refs["train"]["loss"], rel=LOSS_TOL)
+        assert got["grad_norm"][0] == pytest.approx(refs["train"]["grad_norm"], rel=NORM_TOL)
+
+
+def test_reshard_train_state_across_ranks(ranks):
+    """2 x 1 -> 1 x 2: the gathered values bit-equal, each rank's shard the
+    new spec's slice, the leaves on the new mesh."""
+    for r in ranks["reshard"]:
+        assert r["equal"] and r["slices"] and r["sharded_leaves"] > 0
+        assert r["mesh"] == (1, 2)
+
+
+def test_launch_train_splits_data_by_rank(ranks):
+    """``launch/train`` under a group of 2: each rank builds its shard
+    (``num_shards=2``, ``shard_id=rank``: the reference's
+    ``jax.process_count()`` / ``process_index()``), whose batches are the
+    reference's shards bit for bit; the ranks train on their
+    concatenation (the global batch) as one rank does."""
+    res = ranks["launch_train"]
+    for rank, r in enumerate(res):
+        assert r["data_split"] == [(2, rank)]
+        ref = RefData(vocab_size=get_config("qwen1.5-0.5b", smoke=True).vocab_size, seq_len=32,
+                      global_batch=4, seed=0, num_shards=2, shard_id=rank).batch_at(0)
+        np.testing.assert_array_equal(r["own"], ref["tokens"])
+        assert r["losses"] == res[0]["losses"]
+        np.testing.assert_allclose(r["losses"], r["want"], rtol=LOSS_TOL)
+    assert not np.array_equal(res[0]["own"], res[1]["own"])
+
+
+def test_shards_of_a_global_batch_concatenate():
+    """A global batch of ``num_shards`` shards is their batches in shard
+    order: each shard's rows are ``global_batch / num_shards`` of the
+    reference's stream for that shard, so the launcher's gather over ranks
+    is the batch the reference's ``num_shards`` processes train on."""
+    kw = dict(vocab_size=100, seq_len=32, global_batch=8, seed=0)
+    shards = [SyntheticLMData(**kw, num_shards=2, shard_id=i) for i in range(2)]
+    for step in (0, 5):
+        glob = {k: np.concatenate([s.batch_at(step)[k] for s in shards]) for k in ("tokens",
+                                                                                   "labels")}
+        assert glob["tokens"].shape == (8, 32)
+        for i in range(2):
+            want = RefData(**kw, num_shards=2, shard_id=i).batch_at(step)
+            for k in glob:
+                np.testing.assert_array_equal(glob[k][4 * i:4 * (i + 1)], want[k])
+
+
+@pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])
+@pytest.mark.parametrize("shape", [repr(s) for s in SPECS])
+def test_gather_and_shard_round_trip(ranks, spec, shape):
+    """``place_one``'s local shard == ``shard_one`` of the value; its
+    ``gather_tree`` / ``full_value`` / ``whole_tree`` == the value (a plain
+    value passes ``whole_tree`` as it is); gathering all but the ``data``
+    dims and slicing them again gives the shard back; on every rank, bit
+    for bit."""
+    for r in ranks[f"round_trip {spec}"]:
+        assert r["round_trips"][shape]
+
+
+@pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])
+def test_gather_rows_adjoint_is_exact(ranks, spec):
+    """``gather_rows``' backward on every rank: each rank's loss weighs
+    the gathered rows by its own integer weights, and the gradient of its
+    local rows is the sum over the ranks of their weights on those rows,
+    exactly."""
+    for r in ranks[f"round_trip {spec}"]:
+        assert r["adjoint"]

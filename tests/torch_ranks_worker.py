@@ -1,0 +1,474 @@
+"""The rank side of ``test_torch_ranks.py``: cases that run in every rank
+of a gloo process group on the CPU, and :func:`run_ranks`, which spawns
+the ranks and collects what each case returns.
+
+This module imports no JAX (the ranks are spawned processes that import
+it, and the port must run without JAX): the test module computes the JAX
+references in its own process and holds the ranks' results against them.
+Every case runs on every rank in the same order (the collectives pair up
+across ranks) and returns plain numbers, bools and numpy arrays.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import time
+import traceback
+
+import numpy as np
+import torch
+
+JOIN_TIMEOUT = 110.0  # seconds for a whole spawn; a hung collective fails the test
+
+
+def run_ranks(world: int, cases: list, store_dir: str, timeout: float = JOIN_TIMEOUT) -> dict:
+    """Spawn ``world`` ranks that each run ``cases`` (``(name, kwargs)``,
+    in order) in a gloo group on a ``FileStore`` under ``store_dir`` (no
+    port opened).  Returns ``{name: [rank 0's result, rank 1's, ...]}``;
+    raises with the rank's traceback if a case raised, and kills every
+    rank and raises if the ranks have not finished within ``timeout``."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    path = os.path.join(store_dir, f"store-{world}-{time.monotonic_ns()}")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, path, cases, out), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results: dict = {name: [None] * world for name, _ in cases}
+    deadline = time.monotonic() + timeout
+    try:
+        for _ in range(world * len(cases)):
+            try:
+                rank, name, ok, value = out.get(timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                raise TimeoutError(
+                    f"{world} ranks did not finish {[n for n, _ in cases]} within {timeout} s; "
+                    "killed (a rank may wait in a collective its peer never reached)") from None
+            if not ok:
+                raise RuntimeError(f"rank {rank}, case {name!r} raised:\n{value}")
+            results[name][rank] = value
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+            if p.is_alive():
+                raise TimeoutError(f"rank {p.name} did not exit within {timeout} s")
+            if p.exitcode != 0:
+                raise RuntimeError(f"rank {p.name} exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return results
+
+
+def _rank_main(rank, world, path, cases, out):
+    os.dup2(2, 1)  # nothing a rank prints reaches the parent's stdout
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    init_process_group("gloo", rank=rank, world_size=world,
+                       store=dist.FileStore(path, world), device="cpu")
+    try:
+        for name, kw in cases:
+            try:
+                out.put((rank, name, True, CASES[kw.pop("case", name)](**kw)))
+            except Exception:  # reported to the parent, which fails the test
+                out.put((rank, name, False, traceback.format_exc()))
+                return
+    finally:
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
+# helpers
+# --------------------------------------------------------------------------- #
+def _rel(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _leaf_rel(a, b) -> float:
+    """max |a - b| over max |b| of one leaf."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-30))
+
+
+def _max_err(a, b) -> float:
+    """max |a - b| over max(1, max |b|): ``test_torch_model.py``'s measure."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def _mesh(spec):
+    from repro_torch.launch.mesh import rank_mesh
+
+    return rank_mesh(spec, "cpu")
+
+
+# --------------------------------------------------------------------------- #
+# cases
+# --------------------------------------------------------------------------- #
+def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len):
+    """Prefill ``prompt`` and decode ``tokens`` (teacher-forced, one column
+    a step, at per-row lengths) through ``jit_serve_fns`` on a ``spec``
+    mesh of ranks, the parameters and the cache placed as ``DTensor``s.
+    Held in the rank:
+
+    * ``seqkv``: the logits of every call and this rank's cache shard bit
+      for bit against the one-process run under the logical ``1 x M`` mesh
+      over this rank's rows (the same K6 slices and merge);
+    * other policies: against the one-process run without a mesh, by
+      ``test_torch_model.py``'s measure.
+
+    Returns the gathered logits of each call (for the JAX reference) and
+    those comparisons."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.distributed import axis_index
+    from repro_torch.launch.mesh import logical_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import serve_loop, sharding
+    from repro_torch.runtime.mesh_ctx import mesh_ctx
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    mesh = _mesh(spec)
+    prompt, tokens = torch.as_tensor(prompt), torch.as_tensor(tokens)
+    b, p_len = prompt.shape
+    cache = model.init_cache(params, b, max_len)
+    compile_prefill, compile_decode, sh = serve_loop.jit_serve_fns(
+        model, mesh, model.init(None, "meta"), cache, policy=policy)
+    placed_p = sharding.place(params, sh["params"])
+    placed_c = sharding.place(cache, sh["cache"])
+    got = []
+    with mesh_ctx(mesh, policy):
+        logits, ret = compile_prefill(prompt)(placed_p, placed_c, prompt)
+        got.append(logits)
+        for i in range(tokens.shape[1]):
+            tok = tokens[:, i:i + 1]
+            lens = np.full((b,), p_len + i, np.int32)  # per row: each rank takes its own
+            logits, ret = compile_decode(tok)(placed_p, placed_c, tok, lens)
+            got.append(logits)
+
+    # the one-process run: seqkv over this rank's data rows on the logical
+    # 1 x M mesh, otherwise the whole batch without a mesh
+    sel, ctx = slice(0, b), mesh_ctx(None)
+    if policy == "seqkv":
+        rows = sharding.batch_spec_fn(mesh, multi_pod=False, policy=policy)(("tokens",), prompt)
+        idx, n = axis_index(sharding.spec_axes(rows[0]), mesh)
+        sel = slice(idx * b // n, (idx + 1) * b // n)
+        ctx = mesh_ctx(logical_mesh({"data": 1, "model": mesh.shape["model"]}, "cpu"), "seqkv")
+    one = model.init_cache(params, sel.stop - sel.start, max_len)
+    want = []
+    with ctx:
+        want.append(model.prefill(params, one, prompt[sel])[0])
+        for i in range(tokens.shape[1]):
+            want.append(model.decode_step(params, one, tokens[sel, i:i + 1],
+                                          np.int32(p_len + i))[0])
+    # this rank's cache shard against its slice of the one-process cache
+    # (rows outside ``sel`` zero: a seqkv rank's shard holds only its rows)
+    one_full = model.init_cache(params, b, max_len)
+    for c_full, c_one in zip(one_full, one):
+        for k in c_full:
+            c_full[k][sel] = c_one[k]
+    flat_sh = dict(tree.leaves_with_paths(sh["cache"]))
+    flat_one = dict(tree.leaves_with_paths(one_full))
+    pairs = [(d.to_local(), sharding.shard_one(flat_one[path], flat_sh[path]))
+             for path, d in tree.leaves_with_paths(placed_c)]
+    return dict(
+        logits=[g.numpy() for g in got],
+        logits_equal=all(torch.equal(g[sel], w) for g, w in zip(got, want)),
+        logits_err=max(_max_err(g[sel], w) for g, w in zip(got, want)),
+        cache_equal=all(torch.equal(a, w) for a, w in pairs),
+        cache_err=max(_max_err(a, w) for a, w in pairs),
+        returned_cache=ret is placed_c)
+
+
+def moe_dispatch_case(*, params, spec, prompt, tokens, max_len):
+    """Smoke qwen3-moe on a ``spec`` mesh of ranks (tp_fsdp): every expert
+    product's dispatched tokens (``expert_products``' first argument) in
+    the rank run against the one-rank run's: the same capacity, the same
+    slots filled, the values within 1e-5 of the largest; and the logits
+    against the one-rank run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import serve_loop, sharding
+    from repro_torch.runtime.mesh_ctx import mesh_ctx
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    model = build_model(cfg)
+    mesh = _mesh(spec)
+    prompt, tokens = torch.as_tensor(prompt), torch.as_tensor(tokens)
+    b, p_len = prompt.shape
+    seen = {"ranks": [], "one": []}
+    orig = moe.expert_products
+    where = ["ranks"]
+
+    def spy(a, w):
+        if a.shape[1] and w.shape[-1] == cfg.d_ff_expert:  # the gate product: the dispatch
+            seen[where[0]].append(a.detach().clone())
+        return orig(a, w)
+
+    moe.expert_products = spy
+    try:
+        cache = model.init_cache(params, b, max_len)
+        compile_prefill, compile_decode, sh = serve_loop.jit_serve_fns(
+            model, mesh, model.init(None, "meta"), cache, policy="tp_fsdp")
+        got = []
+        with mesh_ctx(mesh, "tp_fsdp"):
+            got.append(compile_prefill(prompt)(params, cache, prompt)[0])
+            tok = tokens[:, :1]
+            got.append(compile_decode(tok)(params, cache, tok, np.int32(p_len))[0])
+        where[0] = "one"
+        one = model.init_cache(params, b, max_len)
+        want = [model.prefill(params, one, prompt)[0],
+                model.decode_step(params, one, tokens[:, :1], np.int32(p_len))[0]]
+    finally:
+        moe.expert_products = orig
+    pairs = list(zip(seen["ranks"], seen["one"], strict=True))
+    return dict(
+        calls=len(pairs),
+        same_capacity=all(a.shape == c.shape for a, c in pairs),
+        same_slots=all(torch.equal(a.abs().sum(-1) > 0, c.abs().sum(-1) > 0) for a, c in pairs),
+        dispatch_err=max(_leaf_rel(a, c) for a, c in pairs),
+        logits=[g.numpy() for g in got],
+        logits_err=max(_max_err(g, w) for g, w in zip(got, want)))
+
+
+def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=False,
+               arch="qwen1.5-0.5b"):
+    """Two steps of the smoke ``arch`` through ``jit_train_step`` on a
+    ``spec`` mesh of ranks against ``make_train_step``'s on one rank, from
+    the same state and batches.  Returns the first step's loss and
+    ``grad_norm`` relative errors, the first moment's (0.1 x the clipped
+    gradient) worst leaf error, the parameters' errors by
+    ``test_torch_train_loop.py``'s rule (where the one-rank gradient
+    exceeds 2^-8 of its leaf's largest, and everywhere against 2 lr),
+    the second step's metrics, and whether every returned shard is its
+    rank's slice of the gathered value."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.compression import compression_init
+    from repro_torch.runtime import sharding, train_loop
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    mesh = _mesh(spec)
+    tc = train_loop.TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=20, remat=remat,
+                                compression=compression, grad_accum=grad_accum)
+    compile_for, sh = train_loop.jit_train_step(
+        model, tc, mesh, model.init(None, "meta", dtype=torch.float32), policy=policy)
+    state = (params, adamw_init(params), compression_init(params, compression))
+    one = (params, adamw_init(params), compression_init(params, compression))
+    ref = train_loop.make_train_step(model, tc)
+    out = {}
+    for i, batch in enumerate(batches):
+        *state, m = compile_for(batch)(*state, batch, 3 + i)
+        *one, m_one = ref(*one, batch, 3 + i)
+        out[f"metrics{i}"] = {k: (float(m[k]), float(m_one[k]))
+                              for k in ("loss", "grad_norm", "lr")}
+        if i == 0:
+            gathered = [sharding.full_value(x) for x in tree.leaves(state[:3])]
+            out["shards_are_slices"] = _shards_are_slices(state[:3], sh, gathered)
+            mu = [sharding.full_value(x) for x in tree.leaves(state[1].mu)]
+            out["mu_err"] = max(_leaf_rel(a, b) for a, b in zip(mu, tree.leaves(one[1].mu)))
+            out["mu_norm_err"] = _rel(torch.cat([a.reshape(-1) for a in mu]), torch.cat(
+                [b.reshape(-1) for b in tree.leaves(one[1].mu)]))
+            lr = float(m_one["lr"])
+            resolved_err, step_err = 0.0, 0.0
+            for a, b, g in zip(tree.leaves(state[0]), tree.leaves(one[0]),
+                               tree.leaves(one[1].mu), strict=True):
+                d = (sharding.full_value(a) - b).abs()
+                resolved = g.abs() > 2.0**-8 * g.abs().max()
+                if resolved.any():
+                    resolved_err = max(resolved_err, float(d[resolved].max() / b.abs().max()))
+                step_err = max(step_err, float(d.max()) / (2 * lr))
+            out.update(param_resolved_err=resolved_err, param_step_err=step_err)
+            if compression != "none":
+                out.update(_int8_flips(cfg, params, state, one, m, m_one, tc.clip_norm))
+    out["is_dtensor"] = all(hasattr(x, "to_local") for x in tree.leaves(state[:3]))
+    return out
+
+
+def _int8_flips(cfg, params, state, one, m, m_one, clip) -> dict:
+    """Int8 compression of gradients a rounding apart: the error-feedback
+    input ``e = residual + compressed`` (the all-reduced gradient; after
+    the first step ``compressed = mu / (0.1 x clip scale)``) of the ranks
+    against one rank's, and the first moments' differences in units of
+    the int8 step of each element's reference leaf (``max |e| / 127``
+    over the stacked leaf): a stochastic rounding that lands the other
+    way moves one element by one step."""
+    from repro_torch.core import tree
+    from repro_torch.optim.adamw import reference_leaves
+    from repro_torch.runtime import sharding
+
+    def e_of(st, metrics):
+        scale = min(1.0, clip / float(metrics["grad_norm"]))
+        mu = {p: sharding.full_value(x) for p, x in tree.leaves_with_paths(st[1].mu)}
+        res = {p: sharding.full_value(x) for p, x in tree.leaves_with_paths(st[2].residual)}
+        return mu, {p: res[p] + mu[p] / (0.1 * scale) for p in mu}, scale
+
+    mu_r, e_r, _ = e_of(state, m)
+    mu_o, e_o, scale = e_of(one, m_one)
+    flat = lambda d: torch.cat([d[p].reshape(-1) for p in sorted(d, key=str)])
+    steps, flips, total = 0.0, 0, 0
+    for ref in reference_leaves(params, cfg):
+        step = max(float(e_o[p].abs().max()) for p in ref.paths) / 127 * 0.1 * scale
+        for p in ref.paths:
+            d = (mu_r[p] - mu_o[p]).abs()
+            steps = max(steps, float(d.max()) / step)
+            flips += int((d > 1e-3 * step).sum())
+            total += d.numel()
+    return dict(e_err=_rel(flat(e_r), flat(e_o)), flip_steps=steps, flip_share=flips / total)
+
+
+def _shards_are_slices(state, sh, gathered) -> bool:
+    """Every leaf's local shard equal to its spec slice of the gathered
+    value (the parameters', the moments' and the residuals' shardings)."""
+    from repro_torch.core import tree
+    from repro_torch.runtime import sharding
+
+    specs = [sh["params"], sh["opt"], sh["comp"]]
+    flat = []
+    for s, t in zip(specs, state):
+        if t is not None:
+            flat += [x for _, x in tree.leaves_with_paths(s)]
+    return all(torch.equal(x.to_local(), sharding.shard_one(g, s))
+               for x, g, s in zip(tree.leaves(state), gathered, flat, strict=True))
+
+
+def reshard_case(*, params, old, new):
+    """The initial train state placed on the ``old`` mesh of ranks,
+    resharded onto ``new``: every leaf's gathered value bit-equal to the
+    original, and each rank's shard the new spec's slice."""
+    from repro_torch.core import tree
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import elastic, sharding
+
+    mesh_a, mesh_b = _mesh(old), _mesh(new)
+    opt = adamw_init(params)
+    opt = opt._replace(mu=tree.tree_map(lambda p: p * 0.5 + 1.0, params))
+    pfn = sharding.param_spec_fn(mesh_a, multi_pod=False)
+    placed = sharding.place((params, opt.mu), sharding.make_shardings(mesh_a, (params, opt.mu),
+                                                                        pfn))
+    p2, o2 = elastic.reshard_train_state(placed[0], opt._replace(mu=placed[1]), mesh_a, mesh_b)
+    pfn_b = sharding.param_spec_fn(mesh_b, multi_pod=False)
+    equal = all(torch.equal(sharding.full_value(b), a)
+                for a, b in zip(tree.leaves((params, opt)), tree.leaves((p2, o2)), strict=True))
+    slices = all(
+        torch.equal(b.to_local(), sharding.shard_one(
+            a, sharding.NamedSharding(mesh_b, pfn_b(path, a))))
+        for (path, a), b in zip(tree.leaves_with_paths(params), tree.leaves(p2), strict=True))
+    moved = sum(int(b.to_local().numel() < a.numel())
+                for a, b in zip(tree.leaves(params), tree.leaves(p2)))
+    return dict(equal=equal, slices=slices, sharded_leaves=moved,
+                mesh=tuple(p2["embed"]["table"].device_mesh.shape))
+
+
+def launch_train_case(*, steps=2, batch=4, seq=32):
+    """``launch/train`` under the group: each rank's data is its shard
+    (``num_shards=world``, ``shard_id=rank``); the losses against
+    ``make_train_step`` on one rank over the concatenated shards."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch import train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime.train_loop import TrainConfig, init_train_state, make_train_step
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    seen = []
+    orig = SyntheticLMData.__init__
+
+    def spy(self, **kw):
+        orig(self, **kw)
+        seen.append((kw.get("num_shards"), kw.get("shard_id")))
+
+    SyntheticLMData.__init__ = spy
+    try:
+        history = train.main(["--device", "cpu", "--smoke", "--steps", str(steps), "--batch",
+                              str(batch), "--seq", str(seq), "--log-every", "100"])
+    finally:
+        SyntheticLMData.__init__ = orig
+    cfg = get_config("qwen1.5-0.5b", smoke=True)
+    model = build_model(cfg)
+    shards = [SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                              seed=0, num_shards=world, shard_id=r) for r in range(world)]
+    tc = TrainConfig(peak_lr=3e-3, warmup_steps=max(steps // 20, 1), total_steps=steps,
+                     remat=False)
+    state = init_train_state(model, torch.Generator("cpu").manual_seed(0), "cpu")
+    step = make_train_step(model, tc)
+    want = []
+    for s in range(steps):
+        glob = {k: np.concatenate([d.batch_at(s)[k] for d in shards]) for k in ("tokens", "labels")}
+        *state, m = step(*state, glob, s)
+        want.append(float(m["loss"]))
+    return dict(data_split=seen, losses=[float(m["loss"]) for _, m in history], want=want,
+                rank=rank, own=shards[rank].batch_at(0)["tokens"])
+
+
+SPECS = [("data", "model"), (("data", "model"), None), (None, None), ("model", None),
+         ("model", None, None), (None, "data", "model"), ("data", None, "model", None)]
+
+
+def round_trip_case(*, spec):
+    """``gather_tree`` / ``shard_tree`` / ``full_value`` on the ``spec``
+    mesh of ranks for every spec shape: exact round trips."""
+    from repro_torch.runtime import sharding
+
+    mesh = _mesh(spec)
+    gen = torch.Generator().manual_seed(7)
+    ok = {}
+    for s in SPECS:
+        shape = (8, 12, 4, 6)[:len(s)]
+        t = torch.randn(shape, generator=gen)
+        sh = sharding.NamedSharding(mesh, sharding.P(*s))
+        d = sharding.place_one(t, sh)
+        local = d.to_local()
+        tree_sh = {"a": sh}
+        ok[repr(s)] = (
+            torch.equal(sharding.shard_one(t, sh), local)
+            and torch.equal(sharding.gather_tree({"a": local}, tree_sh)["a"], t)
+            and torch.equal(sharding.shard_tree({"a": t}, tree_sh)["a"], local)
+            and torch.equal(sharding.full_value(d), t)
+            and torch.equal(sharding.whole_tree({"a": d}, tree_sh)["a"], t)
+            and sharding.whole_tree({"a": t}, tree_sh)["a"] is t
+            and torch.equal(sharding.shard_one(
+                sharding.gather_one(local, sh, keep=("data",)), sh, keep=("data",)), local))
+    return dict(round_trips=ok, adjoint=_gather_rows_adjoint(mesh))
+
+
+def _gather_rows_adjoint(mesh) -> bool:
+    """Rank r weighs the gathered rows of ``gather_rows`` over ``data`` by
+    ``(r + 1) x (row index + 1)``; the gradient of its own rows must be
+    the sum of every rank's weights there (integers: exact)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import axis_index, gather_rows
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    idx, n = axis_index(("data",), mesh)
+    x = torch.full((3, 2), float(rank), requires_grad=True)
+    y = gather_rows(x, ("data",), mesh=mesh)
+    rows = torch.arange(y.shape[0], dtype=torch.float32)[:, None] + 1
+    (y * rows * (rank + 1)).sum().backward()
+    # the ranks sharing this rank's data group: same model coordinate
+    peers = [r for r in range(world) if r % (world // n) == rank % (world // n)]
+    want = rows[idx * 3:(idx + 1) * 3] * sum(r + 1 for r in peers)
+    return y.shape[0] == 3 * n and torch.equal(x.grad, want.expand(3, 2))
+
+
+CASES = {
+    "serve": serve_case,
+    "moe": moe_dispatch_case,
+    "train": train_case,
+    "reshard": reshard_case,
+    "launch_train": launch_train_case,
+    "round_trip": round_trip_case,
+}
