@@ -260,6 +260,19 @@ root) and exits nonzero on any failure:
     at least its weights' bytes over 3.35 TB/s; then ``python -m
     repro_torch.launch.dryrun --archs qwen1.5-0.5b --shapes decode_32k
     --meshes single`` on the card's host: exit 0, ``[OK]``, ``0 failed``.
+31. **Tensor-parallel kernel check** (with the other kernel phases): K4
+    at G 64 (decode and the 64-token prompt over 64 of deepseek-v2-mla's
+    128 heads), K6 at 8 query heads over 1 kv head (+ K3: 4 splits of the
+    2048-row cache) and K7 at 8 heads, one rank's shapes in phase 32,
+    against their plain versions (bf16 and fp32, amla and base), timed
+    beside their bounds, the plain versions and SDPA.
+32. **Tensor-parallel phase** (after the ranks phase): ``jit_serve_fns``
+    split by ``model`` on 1 x 2 gloo ranks on the card: (c)
+    deepseek-v2-mla at full width (60 layers, bf16, amla) under ``tp``,
+    (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``; 4 prompts
+    of 64 tokens and 16 decode steps, held against the one-process run
+    from the same weights (:func:`tp_phase`): tokens, logits, each rank's
+    parameter bytes, split counts, launches at the rank's shapes.
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only`` (the build and phase 8), or ``--k6-ab OTHER_TREE/src``
@@ -5125,8 +5138,9 @@ def _rank_phases(rank, world, store_path, seqkv, train):
     return res
 
 
-def _spawn_ranks(world, args, timeout):
-    """``world`` processes of :func:`_rank_main` (spawn start mode) on a
+def _spawn_ranks(world, args, timeout, target=None):
+    """``world`` processes of ``target`` (default :func:`_rank_main`;
+    spawn start mode) on a
     ``FileStore`` under ``build/``; returns each rank's results, or exits
     nonzero with a rank's traceback, or after ``timeout`` seconds (every
     rank killed)."""
@@ -5139,8 +5153,8 @@ def _spawn_ranks(world, args, timeout):
     store_dir = tempfile.mkdtemp(dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                   "build"))
     path = os.path.join(store_dir, "store")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, path, *args, out), daemon=True)
-             for r in range(world)]
+    procs = [ctx.Process(target=target or _rank_main, args=(r, world, path, *args, out),
+                         daemon=True) for r in range(world)]
     for p in procs:
         p.start()
     results, deadline = {}, time.monotonic() + timeout
@@ -5293,6 +5307,355 @@ def ranks_phase(card, seqkv):
     return k6, k7, k3
 
 
+# --------------------------------------------------------------------------- #
+# tensor-parallel serve steps on ranks: heads, d_ff and vocabulary by model
+# --------------------------------------------------------------------------- #
+TP_TIMEOUT = 600.0  # s for the tensor-parallel phase's two processes; then they are killed
+TP_MIN_TOKENS = 60  # of the 4 x 16 decode steps' greedy tokens equal to one process's
+TP_LOGIT_TOL = 2e-2  # of the largest one-process logit of the call
+# Or: the split's logits at most this many times as far from the fp32
+# function of the same weights (the one-process model at fp32 compute) as
+# the one-process bf16 run's are.  Two bf16 runs whose products round apart
+# part by a share that grows with depth (3.3e-2 of the largest logit at
+# deepseek-v2-mla's 60 layers, while the one-process run is itself 2.9e-2
+# from the fp32 function; PERF.md, PR 30), so there the bound is the bf16
+# run's own error, not a fixed share.
+TP_F32_FACTOR = 1.5
+TP_RESIDENT_SHARE = 0.55  # a rank's parameter bytes over the whole model's
+TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
+# label -> (arch, policy, max_len): deepseek-v2-mla's latent cache needs no
+# more rows; qwen2.5-3b's 2048 give K6 four 512-key splits, so K3 runs
+TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128), "d": ("qwen2.5-3b", "tp_fsdp", 2048)}
+TP_GEOM = ("qwen2.5-3b rank", 8, 1, 128, None, None)  # one rank of 1 x 2: 8 / 1 heads
+
+
+def tp_kernel_cases(dtype):
+    """K4, K6 and K7 at the shapes one rank of the tensor-parallel phase
+    gives them: K4 over 64 of deepseek-v2-mla's 128 heads (decode after
+    16 steps, and the 64-token prompt, G = 64 x 64), K6 at 8 query heads
+    over 1 kv head (qwen2.5-3b on 1 x 2, the 2048-row cache: 4 splits +
+    K3), K7 at 8 heads over the 64-token prompt."""
+    kv = np.full(TP_BATCH, TP_PROMPT + TP_STEPS)
+    prompt_pos = np.tile(np.repeat(np.arange(TP_PROMPT), 64), (TP_BATCH, 1))
+    return [
+        ("K4 rank decode G 64", mla_case(TP_BATCH, 64, 128, kv,
+                                        np.repeat((kv - 1)[:, None], 64, 1), dtype, 70)),
+        ("K4 rank prefill 64 x 64", mla_case(TP_BATCH, 64 * TP_PROMPT, 128,
+                                            np.full(TP_BATCH, TP_PROMPT), prompt_pos, dtype, 71)),
+        ("K6 rank 8/1 decode", gqa_case("K6", TP_GEOM, TP_BATCH, 1, 2048, kv, dtype, 72)),
+        ("K7 rank 8 heads prefill 64", gqa_case("K7", TP_GEOM, TP_BATCH, TP_PROMPT, 2048,
+                                               np.full(TP_BATCH, TP_PROMPT), dtype, 73)),
+    ]
+
+
+def tp_kernel_phase(flush):
+    """Hold K4, K6 (+ K3) and K7 at one rank's shapes against their plain
+    versions, then time them (bf16, amla) beside their bounds, the plain
+    versions and SDPA."""
+    log("== kernel phase: K4 at G 64, K6 at 8 / 1 heads (+ K3), K7 at 8 heads: one rank's "
+        "shapes in the tensor-parallel phase ==")
+    worst = hold_dense_cases(tp_kernel_cases)
+    bf = torch.bfloat16
+    cases = dict(tp_kernel_cases(bf))
+    timed = [("K4", "rank decode G 64", cases["K4 rank decode G 64"]),
+             ("K4", "rank prefill 64 x 64", cases["K4 rank prefill 64 x 64"]),
+             ("K6", "rank 8/1 decode", cases["K6 rank 8/1 decode"]),
+             ("K7", "rank 8 heads prefill 64", cases["K7 rank 8 heads prefill 64"])]
+    del cases
+    return worst, time_dense_rows(timed, flush)
+
+
+def tp_serve(prefill, decode, params, cache, prompts, forced=None, dev="cuda"):
+    """The 64-token prompts prefilled in one call, then ``TP_STEPS`` decode
+    steps of one token: greedy, or fed ``forced[:, i]`` at step ``i`` (the
+    one-process run's tokens, so every call's logits are comparable).
+    Returns each call's last-position logits on the host, the greedy
+    tokens ``(B, 1 + steps)``, the prefill's ms and each step's ms (host
+    clock ending in a device sync)."""
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    p = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, cache, p)
+    out = [logits[:, -1].float().cpu()]
+    sync()
+    t_prefill = 1e3 * (time.perf_counter() - t0)
+    greedy = [out[-1].argmax(-1).numpy()]
+    times = []
+    for i in range(TP_STEPS):
+        tok = greedy[-1] if forced is None else forced[:, i]
+        t = torch.as_tensor(np.asarray(tok)[:, None], dtype=torch.int64, device=dev)
+        lens = np.full((len(tok),), TP_PROMPT + i, np.int32)
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = decode(params, cache, t, lens)
+        out.append(logits[:, -1].float().cpu())
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        greedy.append(out[-1].argmax(-1).numpy())
+    return out, np.stack(greedy, 1), t_prefill, times
+
+
+def tp_counters():
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import mla_decode_combine as mc
+
+    return (md.mla_decode_rows, gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials)
+
+
+def tp_reference(label, dev="cuda", smoke=False):
+    """One process, no mesh: the cell's model at full width (bf16 weights
+    from seed 0), 4 prompts of 64 tokens (seed 0) and 16 greedy decode
+    steps through ``prefill`` / ``decode_step``; what the ranks are held
+    against; then the same weights at fp32 compute fed those tokens (the
+    yardstick of the logits gate).  Frees its weights before it returns."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models.model_zoo import build_model
+
+    arch, policy, max_len = TP_CELLS[label]
+    cfg = get_config(arch, smoke=smoke)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0), dev)
+    whole = sum(t.nbytes for t in tree.leaves(params))
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, size=(TP_BATCH, TP_PROMPT))
+    cache = model.init_cache(params, TP_BATCH, max_len)
+    t_build = time.perf_counter() - t0
+    zero_counts(tp_counters())
+    logits, tokens, t_prefill, times = tp_serve(model.prefill, model.decode_step, params, cache,
+                                                prompts, dev=dev)
+    launches = [c for c, _ in read_counts(tp_counters())]
+    # the fp32 function of the same weights: fp32 compute (each weight cast
+    # at its product), an fp32 cache, fed the bf16 run's tokens
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    cache = model32.init_cache(params, TP_BATCH, max_len)
+    f32 = tp_serve(model32.prefill, model32.decode_step, params, cache, prompts, forced=tokens,
+                   dev=dev)[0]
+    err = logit_share(logits, f32)
+    log(f"({label}) one process: {cfg.name} {cfg.n_layers} layers, {cfg.n_heads} heads, "
+        f"{whole / 2**30:.2f} GiB of bf16 weights (the fp32 unembedding copy included) built "
+        f"in {t_build:.1f} s; prefill {TP_BATCH} x {TP_PROMPT} in {t_prefill:.1f} ms, "
+        f"{np.mean(times[2:]):.2f} ms/step steady (steps 3-{TP_STEPS}; first "
+        f"{times[0]:.1f} ms); K4, K6, K7, K3 launches {launches}; its logits within "
+        f"{err:.3e} of the largest logit of the fp32-compute run")
+    del params, cache
+    release()
+    return dict(label=label, arch=arch, policy=policy, max_len=max_len, prompts=prompts,
+                tokens=tokens, logits=logits, f32=f32, f32_err=err, whole=whole,
+                layers=cfg.n_layers)
+
+
+def logit_share(got, want) -> float:
+    """The largest ``|got - want|`` over the calls, each call's over its
+    largest ``|want|`` (at least 1)."""
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) / max(1.0, float(np.abs(
+        np.asarray(b)).max())) for a, b in zip(got, want, strict=True))
+
+
+def _tp_rank_main(rank, world, store_path, jobs, out):
+    """One rank of the tensor-parallel phase (a spawned process on
+    ``cuda:0`` in a gloo group): each job of ``jobs`` in turn.  Puts
+    ``(rank, results)`` or ``(rank, traceback)`` on ``out``."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_process_group
+
+        dev = jobs[0].get("dev", "cuda")
+        if dev != "cpu":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        init_process_group("gloo", rank=rank, world_size=world,
+                           store=dist.FileStore(store_path, world), device=dev)
+        res = {job["label"]: _tp_rank_cell(**job) for job in jobs}
+        dist.destroy_process_group()
+        out.put((rank, res))
+    except Exception:  # the parent fails the phase with this traceback
+        out.put((rank, traceback.format_exc()))
+
+
+def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smoke=False):
+    """One rank's run of a cell on the 1 x 2 mesh: this rank's shards of
+    the parameters drawn from seed 0 (each leaf drawn whole and sliced at
+    once, so the whole model is never resident here), the cache placed as
+    the specs lay it out, the prompts prefilled and the one-process run's
+    tokens fed through ``jit_serve_fns``' prefill and decode.  Records the
+    shapes K4, K6 and K7 launch at (their CUDA launch paths wrapped)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed, tree
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.launch.mesh import rank_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import mesh_ctx, sharding
+    from repro_torch.runtime.serve_loop import jit_serve_fns
+
+    cfg = get_config(arch, smoke=smoke)
+    model = build_model(cfg)
+    mesh = rank_mesh("1x2", dev)
+    like = model.init(None, "meta")
+    like_c = model.init_cache(like, TP_BATCH, max_len)
+    compile_prefill, compile_decode, sh = jit_serve_fns(model, mesh, like, like_c, policy=policy)
+    flat = dict(tree.leaves_with_paths(sh["params"]))
+    shapes = {p: t.shape for p, t in tree.leaves_with_paths(like)}
+    gpu = dev != "cpu"
+    if gpu:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    local = transformer.lm_init(torch.Generator(dev).manual_seed(0), cfg, device=torch.device(dev),
+                                dtype=model.dtype,
+                                keep=lambda p, t: sharding.shard_one(t, flat[p]).clone())
+    resident = sum(t.nbytes for t in tree.leaves(local))
+    params = tree.map_with_paths(lambda p, t: sharding.from_local(t, flat[p], shapes[p]), local)
+    full = model.init_cache(local, TP_BATCH, max_len)
+    cflat = dict(tree.leaves_with_paths(sh["cache"]))
+    cache = tree.map_with_paths(lambda p, t: sharding.from_local(
+        sharding.shard_one(t, cflat[p]).clone(), cflat[p], t.shape), full)
+    del full
+    t_build = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated() if gpu else resident
+    seen = {"K4": set(), "K6": set(), "K7": set()}
+    spied = [(md, "_rows_cuda", "K4", lambda q: q.shape[1]),
+             (gd, "_decode_cuda", "K6", lambda q: tuple(q.shape[1:3])),
+             (fp, "_prefill_cuda", "K7", lambda q: q.shape[1])]
+
+    def spy(fn, key, shape):
+        def call(q, *a, **k):
+            seen[key].add(shape(q))
+            return fn(q, *a, **k)
+
+        return call
+
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _, _ in spied]
+    for (mod, name, key, shape), (_, _, fn) in zip(spied, originals):
+        setattr(mod, name, spy(fn, key, shape))
+    calls = {}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            n0 = dict(distributed.COLLECTIVES)
+            out = fn(*a, **k)
+            calls.setdefault(name, []).append(
+                {c: distributed.COLLECTIVES[c] - n0[c] for c in n0})
+            return out
+
+        return call
+
+    try:
+        zero_counts(tp_counters())
+        mesh_ctx.TP_COUNTS.clear()
+        p_like = torch.zeros((TP_BATCH, TP_PROMPT), dtype=torch.int64, device=dev)
+        t_like = torch.zeros((TP_BATCH, 1), dtype=torch.int64, device=dev)
+        logits, tokens, t_prefill, times = tp_serve(
+            counted("prefill", compile_prefill(p_like)), counted("decode", compile_decode(t_like)),
+            params, cache, prompts, forced=forced, dev=dev)
+        launches = [c for c, _ in read_counts(tp_counters())]
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    peak = torch.cuda.max_memory_allocated() if gpu else 0
+    res = dict(logits=[x.numpy() for x in logits], tokens=tokens, t_prefill=t_prefill,
+               times=times,
+               t_build=t_build, resident=resident, allocated=allocated, peak=peak,
+               whole=sum(t.nbytes for t in tree.leaves(like)), launches=launches,
+               counts=dict(mesh_ctx.TP_COUNTS), seen={k: sorted(v) for k, v in seen.items()},
+               coll_prefill=calls["prefill"][0], coll_step=calls["decode"][-1],
+               device=str(torch.cuda.current_device()) if gpu else "cpu")
+    del params, cache, local
+    gc.collect()
+    if gpu:
+        torch.cuda.empty_cache()
+    return res
+
+
+def tp_phase(card, dev="cuda", smoke=False):
+    """Two ranks on ``cuda:0`` in a gloo group (NCCL refuses two ranks on
+    one device), spawned, running ``jit_serve_fns`` split by ``model`` on
+    a 1 x 2 mesh; the card's name and power limit ``card`` printed beside
+    every number.
+
+    (c) deepseek-v2-mla at full width (60 layers, bf16, amla) under
+    ``tp``; (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``.
+    For each, first the one-process run in this process (4 prompts of 64
+    tokens, 16 greedy decode steps; :func:`tp_reference`), its weights
+    freed; then each rank draws the same weights from seed 0 keeping only
+    its shards, prefills the prompts and decodes the one-process run's
+    tokens (:func:`_tp_rank_cell`).  Gates per rank: at least
+    ``TP_MIN_TOKENS`` of the 64 decode steps' greedy tokens equal to the
+    one-process run's, every call's logits within ``TP_LOGIT_TOL`` of its
+    largest one-process logit or, where the one-process bf16 run is
+    itself farther than that from the fp32-compute run, at most
+    ``TP_F32_FACTOR`` times as far from it, the rank's parameter bytes at most
+    ``TP_RESIDENT_SHARE`` of the whole model's, every attention layer,
+    MLP, lookup and logits split (``mesh_ctx.TP_COUNTS``), K4 at G 64
+    (c), K7 at 8 heads and K6 at 8 / 1 heads with K3 (d), layers x calls
+    launches; both ranks the same logits.  The step times are gloo on one
+    card: collectives through host memory, the two ranks sharing the
+    card's SMs; not a multi-card number.  Returns the ranks' (K4, K6,
+    K7, K3) launches."""
+    log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks (2 ranks on "
+        f"{dev}, spawned, gloo), card {card} ==")
+    t0 = time.perf_counter()
+    refs = {label: tp_reference(label, dev, smoke) for label in TP_CELLS}
+    jobs = [dict(label=r["label"], arch=r["arch"], policy=r["policy"], max_len=r["max_len"],
+                 prompts=r["prompts"], forced=r["tokens"], dev=dev, smoke=smoke)
+            for r in refs.values()]
+    ranks = _spawn_ranks(2, (jobs,), TP_TIMEOUT, _tp_rank_main)
+    log(f"two ranks spawned, ran (c) and (d) and exited; the phase {time.perf_counter() - t0:.1f} "
+        f"s")
+    total = [0, 0, 0, 0]
+    failed = []
+    for label, ref in refs.items():
+        n, calls = ref["layers"], 1 + TP_STEPS
+        for r, res in enumerate(ranks):
+            x = res[label]
+            err = logit_share(x["logits"], ref["logits"])
+            f32_err = logit_share(x["logits"], ref["f32"])
+            agree = int((x["tokens"][:, 1:] == ref["tokens"][:, 1:]).sum())
+            share = x["resident"] / ref["whole"]
+            k4, k6, k7, k3 = x["launches"]
+            split = {"attn": n * calls, "mlp": n * calls, "embed": calls, "logits": calls}
+            if label == "c":
+                kernels_ok = (k4, k6, k7, k3) == (n * calls, 0, 0, 0) and 64 in x["seen"]["K4"]
+            else:
+                kernels_ok = ((k4, k6, k7, k3) == (0, n * TP_STEPS, n, n * TP_STEPS)
+                              and x["seen"]["K6"] == [(1, 8)] and x["seen"]["K7"] == [8])
+            same = all(np.array_equal(a, b)
+                       for a, b in zip(x["logits"], ranks[0][label]["logits"]))
+            log(f"({label}) rank {r} ({ref['arch']}, {ref['policy']}): parameters held "
+                f"{x['resident'] / 2**30:.2f} GiB = {share:.4f} of the whole "
+                f"{ref['whole'] / 2**30:.2f} GiB (allocated after the build {x['allocated'] / 2**30:.2f} GiB, drawn in "
+                f"{x['t_build']:.1f} s), peak {x['peak'] / 2**30:.2f} GiB; prefill "
+                f"{x['t_prefill']:.1f} ms, {np.mean(x['times'][2:]):.2f} ms/step steady (steps "
+                f"3-{TP_STEPS}; first {x['times'][0]:.1f} ms); gloo calls per decode step "
+                f"{x['coll_step']}, at the prefill {x['coll_prefill']}; launches K4 {k4}, K6 "
+                f"{k6}, K7 {k7}, K3 {k3} at K4 G {x['seen']['K4']}, K6 (kv heads, rows) "
+                f"{x['seen']['K6']}, K7 heads {x['seen']['K7']}; split counts {x['counts']}; "
+                f"logits within {err:.3e} of the largest one-process logit ({TP_LOGIT_TOL}: "
+                f"{err <= TP_LOGIT_TOL}), within {f32_err:.3e} of the largest fp32-compute logit "
+                f"against the one-process run's {ref['f32_err']:.3e} (at most {TP_F32_FACTOR} x); "
+                f"greedy tokens equal {agree} of {TP_BATCH * TP_STEPS} (at least "
+                f"{TP_MIN_TOKENS}); rank 0's logits: {same}; card {card}")
+            close = err <= TP_LOGIT_TOL or f32_err <= TP_F32_FACTOR * ref["f32_err"]
+            if (not close or agree < TP_MIN_TOKENS
+                    or share > TP_RESIDENT_SHARE
+                    or x["counts"] != split or not kernels_ok or not same):
+                failed.append(f"({label}) rank {r}")
+            total = [a + b for a, b in zip(total, x["launches"])]
+    if failed:
+        raise SystemExit("tensor-parallel phase: outside its gates: " + ", ".join(failed))
+    return tuple(total)
+
+
 def mma_ptxas(log_text):
     """ptxas's spill and register lines for each instantiation of the
     tensor-core kernels: [((kernel, pool, kM, amla), spill line, register
@@ -5393,6 +5756,7 @@ def main(argv: list[str]) -> int:
     k3rows, k3err = k3_phase(flush)
     hworst, _ = head_chunk_kernel_check(flush)
     sworst, _, _ = split_kv_kernel_check(flush)
+    pworst, _ = tp_kernel_phase(flush)
     mworst = mma_rows_kernel_phase()
     del flush
     release()
@@ -5439,13 +5803,15 @@ def main(argv: list[str]) -> int:
     k6r, k7r, k3r = ranks_phase(smi, handoff)
     del handoff
     release()
+    k4p, k6p, k7p, k3p = tp_phase(smi)
+    release()
     _, (k7tr, k6tr, k3tr) = train_phases(smi)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     dryrun_cli_check(smi)
 
     err = lambda name: max(v for k, v in worst.items() if k[0] == name)
-    derr = lambda name: max(v for d in (dworst, fworst, vworst) for k, v in d.items()
+    derr = lambda name: max(v for d in (dworst, fworst, vworst, pworst) for k, v in d.items()
                             if k[0] == name)
     terr = lambda name: max(v for k, v in tworst.items() if k[0] == name)
     merr = lambda name: max(v for k, v in mworst.items() if k[0] == name)
@@ -5482,12 +5848,12 @@ def main(argv: list[str]) -> int:
              source="src/repro_torch/csrc/mla_decode_combine.cu",
              replaces="src/repro/kernels/mla_decode_combine.py:83",
              launches=k3 + k3b + k3i8 + k3g + k3t + k3s + k3l + k3c + k3f + k3v + k3tr + k3h
-             + k3q + k3r,
+             + k3q + k3r + k3p,
              max_abs_err=max(err("combine_split_partials"), k3err, nerr("combine_split_partials"),
                              nerr("K3 chain 2"), herr("combine_split_partials")), ms=d3[0], plain_ms=d3[1],
              bound_ms=d3[2], bound_by=d3[3], library_ms=None),
         dict(name="mla_decode_rows", route="cuda", source="src/repro_torch/csrc/mla_decode.cu",
-             replaces="src/repro/kernels/mla_decode.py:401", launches=k4,
+             replaces="src/repro/kernels/mla_decode.py:401", launches=k4 + k4p,
              max_abs_err=max(derr("K4"), merr("K4")), ms=t4[0], plain_ms=t4[1], bound_ms=t4[2],
              bound_by=t4[3], library_ms=t4[4]),
         dict(name="mla_decode_paged_rows", route="cuda",
@@ -5497,13 +5863,13 @@ def main(argv: list[str]) -> int:
              bound_by=t5[3], library_ms=t5[4]),
         dict(name="gqa_decode_rows", route="cuda", source=mma_src,
              replaces="src/repro/kernels/gqa_decode.py:147",
-             launches=k6 + k6f + k6v + k6tr + k6q + k6r,
+             launches=k6 + k6f + k6v + k6tr + k6q + k6r + k6p,
              max_abs_err=max(derr("K6"), sworst["plain"]), ms=t6[0], plain_ms=t6[1],
              bound_ms=t6[2],
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
              replaces="src/repro/kernels/flash_prefill.py:149",
-             launches=k7 + k7f + k7v + k7tr + k7r,
+             launches=k7 + k7f + k7v + k7tr + k7r + k7p,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),
     ]

@@ -29,7 +29,8 @@ the sequence axis in coordinate order, so the merge sees what the
 single-controller walk concatenates and gives the same bits.
 
 The collectives (:func:`all_gather_dim`, :func:`all_reduce_sum`) run over
-the per-axis groups of the mesh's ``DeviceMesh``.
+the per-axis groups of the mesh's ``DeviceMesh``; each call into the
+process group (of more than one rank) adds one to :data:`COLLECTIVES`.
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ from repro_torch.kernels.gqa_decode import DEFAULT_BLOCK_K, gqa_decode_rows
 # An lse at or below this marks a shard that saw no valid key (the
 # kernels' BIG_NEG, about -3e38, or -inf).
 EMPTY_LSE = -1.0e38
+
+# process-group calls made by this process: {"all_gather": n, "all_reduce": n}
+COLLECTIVES = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
 
 
 def combine_partials(acc, m, l) -> torch.Tensor:
@@ -119,6 +123,7 @@ def gather_group(t, dim, group):
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
+    COLLECTIVES["all_gather"] += 1
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -135,6 +140,22 @@ def all_gather_dim(t: torch.Tensor, dim: int, axes, *, mesh) -> torch.Tensor:
     return t
 
 
+def all_to_all(t: torch.Tensor, axis: str, *, mesh) -> torch.Tensor:
+    """``t (n, ...)``'s piece ``i`` sent to the rank at coordinate ``i``
+    along ``axis`` (``n`` ranks); returns ``(n, ...)``, piece ``i`` from
+    that rank."""
+    import torch.distributed as dist
+
+    group = mesh.device_mesh().get_group(axis)
+    if dist.get_world_size(group) == 1:
+        return t
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    COLLECTIVES["all_to_all"] += 1
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
 def all_reduce_sum(t: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     """The sum of ``t`` over the ranks along ``axes`` (a new tensor, the
     same bits on every rank of a group)."""
@@ -144,6 +165,7 @@ def all_reduce_sum(t: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     for ax in spec_axes(axes):
         group = mesh.device_mesh().get_group(ax)
         if dist.get_world_size(group) > 1:
+            COLLECTIVES["all_reduce"] += 1
             dist.all_reduce(t, group=group)
     return t
 

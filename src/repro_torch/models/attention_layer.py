@@ -23,6 +23,16 @@ on): a new row is written where this rank holds its position, a decode
 step runs K6 once over the slice and all-gathers the partials over
 ``model``, and a prefill from position 0 attends over the prompt's own
 K/V (K7, as in one process) and keeps its slice of the rows.
+
+Under a tensor-parallel plan (``tp``, the rank-local serve step under
+``tp`` / ``tp_fsdp``; :class:`~repro_torch.runtime.sharding.TPPlan`) the
+layer computes this rank's query heads only: ``wq`` gives their columns,
+``wk`` / ``wv`` the kv heads they read (their columns where the kv heads
+split over ``model``, else a slice of the whole weight), the cache holds
+those kv heads (the step writes every head's new rows into the rank's
+shard after the call), attention runs over the local heads and ``o`` is
+all-gathered into ``wo``, which gives this rank's d_model columns
+(:func:`~repro_torch.models.layers.dense_across`).
 """
 
 from __future__ import annotations
@@ -62,6 +72,26 @@ def init_kv_cache(cfg, batch, max_len, *, dtype, device):
     }
 
 
+def _rows_at(cache_len, b, s, max_len, device):
+    """The index of the ``s`` rows per batch row at ``cache_len`` in a
+    ``(B, max_len, ...)`` buffer: a slice for a scalar ``cache_len``, else
+    ``(batch, rows)`` index tensors; a start past ``max_len - s`` is
+    clamped, as the reference's dynamic-update-slice clamps it."""
+    if np.ndim(cache_len) == 0:
+        start = min(max(int(cache_len), 0), max_len - s)
+        return slice(None), slice(start, start + s)
+    start = torch.as_tensor(cache_len, device=device).reshape(b).to(torch.int64)
+    start = torch.clamp(start, 0, max_len - s)
+    rows = start[:, None] + torch.arange(s, device=device)[None, :]
+    return torch.arange(b, device=device)[:, None], rows
+
+
+def read_rows(buf, cache_len, s: int) -> torch.Tensor:
+    """The ``(B, s, ...)`` rows of ``buf`` that :func:`update_rows` writes
+    at ``cache_len`` (without ``total``)."""
+    return buf[_rows_at(cache_len, buf.shape[0], s, buf.shape[1], buf.device)]
+
+
 def update_rows(buf, new, cache_len, *, start: int = 0, total: int | None = None) -> None:
     """Write ``new (B, s, ...)`` into ``buf (B, max_len, ...)`` at rows
     ``cache_len ...``, in place; a start past ``max_len - s`` is clamped,
@@ -85,15 +115,11 @@ def update_rows(buf, new, cache_len, *, start: int = 0, total: int | None = None
         bi = torch.arange(b, device=buf.device)[:, None].expand(b, s)
         buf[bi[inside], rows[inside]] = new[inside].to(buf.dtype)
         return
-    max_len = buf.shape[1]
-    if np.ndim(cache_len) == 0:
-        start = min(max(int(cache_len), 0), max_len - s)
-        buf[:, start : start + s].copy_(new)
-        return
-    start = torch.as_tensor(cache_len, device=buf.device).reshape(b).to(torch.int64)
-    start = torch.clamp(start, 0, max_len - s)
-    rows = start[:, None] + torch.arange(s, device=buf.device)[None, :]
-    buf[torch.arange(b, device=buf.device)[:, None], rows] = new.to(buf.dtype)
+    at = _rows_at(cache_len, b, s, buf.shape[1], buf.device)
+    if isinstance(at[1], slice):
+        buf[at].copy_(new)
+    else:
+        buf[at] = new.to(buf.dtype)
 
 
 def as_batch_vec(x, b):
@@ -115,14 +141,18 @@ def gqa_apply(
     cache_len=None,  # (B,) or scalar, host array or tensor
     causal: bool = True,
     dtype=torch.bfloat16,
+    tp=None,
 ):
-    """Returns (y, cache); the cache (when given) is updated in place."""
+    """Returns (y, cache); the cache (when given) is updated in place.
+    ``tp``: this rank's heads only (the module docstring)."""
     b, s, _ = x.shape
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-    q = layers.dense(params["wq"], x, dtype=dtype).reshape(b, s, hq, dh)
-    k = layers.dense(params["wk"], x, dtype=dtype).reshape(b, s, hkv, dh)
-    v = layers.dense(params["wv"], x, dtype=dtype).reshape(b, s, hkv, dh)
+    dh = cfg.head_dim
+    wq, wk, wv = (params["wq"], params["wk"], params["wv"]) if tp is None else _tp_qkv(
+        params, cfg, tp)
+    q = layers.dense(wq, x, dtype=dtype).reshape(b, s, -1, dh)
+    k = layers.dense(wk, x, dtype=dtype).reshape(b, s, -1, dh)
+    v = layers.dense(wv, x, dtype=dtype).reshape(b, s, -1, dh)
+    hq = q.shape[2]
 
     if cfg.qk_norm:
         q = layers.rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
@@ -191,8 +221,28 @@ def gqa_apply(
         kv_len=kv_len,
         q_offset=q_offset,
     )
-    y = layers.dense(params["wo"], attn.reshape(b, s, hq * dh), dtype=dtype)
+    y = layers.dense_across(params["wo"], attn.reshape(b, s, hq * dh), dtype=dtype, tp=tp)
     return y, cache
+
+
+def _tp_qkv(params, cfg, tp):
+    """The q, k and v projections of this rank's heads: ``wq`` (and
+    ``wk`` / ``wv`` where the kv heads split over ``model``) hold their
+    columns already; a replicated ``wk`` / ``wv`` is sliced to the kv
+    heads the rank's query heads read.  A 1-D bias (replicated by the
+    specs) is sliced to the same columns."""
+    dh = cfg.head_dim
+    h0, h1 = tp.part(cfg.n_heads)
+    k0, k1 = tp.kv_heads
+
+    def cols(p, lo, hi, local):
+        out = {"w": p["w"] if local else p["w"][:, lo * dh:hi * dh]}
+        if "b" in p:
+            out["b"] = p["b"][lo * dh:hi * dh]
+        return out
+
+    return (cols(params["wq"], h0, h1, True), cols(params["wk"], k0, k1, tp.kv_local),
+            cols(params["wv"], k0, k1, tp.kv_local))
 
 
 def cross_attention_init(gen, cfg, *, device, dtype):

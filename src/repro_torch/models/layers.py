@@ -8,6 +8,15 @@ fp32 accumulation and one rounding of the result (the reference's
 Initialisers draw from an explicit ``torch.Generator`` on the target device
 in the target dtype, tensor by tensor; they do not reproduce
 ``jax.random`` (tests carry reference weights across instead).
+
+``tp`` (a :class:`~repro_torch.runtime.sharding.TPPlan`, given only inside
+the rank-local serve step under ``tp`` / ``tp_fsdp``) splits a function
+over the ``model`` ranks as the reference's partition specs lay the
+weights out: each weight holds this rank's output columns (an embedding
+table its vocabulary rows), an activation a product contracts over is
+all-gathered first, and each output element is computed by one rank over
+the whole contraction, then all-gathered: nothing is summed across ranks
+but the embedding lookup's one nonzero term.
 """
 
 from __future__ import annotations
@@ -62,8 +71,26 @@ def embed_init(gen, vocab, dim, *, device, dtype):
     return {"table": truncnorm(gen, (vocab, dim), 1.0, device=device, dtype=dtype)}
 
 
-def embed(params, tokens, *, dtype=torch.bfloat16):
-    return params["table"][tokens].to(dtype)
+def dense_across(params, x, *, dtype=torch.bfloat16, tp=None):
+    """:func:`dense` of ``x``; under ``tp`` ``x`` holds this rank's part
+    of its last dim (heads, d_ff columns): it is all-gathered, ``params``
+    give this rank's output columns, and those are all-gathered."""
+    if tp is None:
+        return dense(params, x, dtype=dtype)
+    return tp.gather(dense(params, tp.gather(x, -1), dtype=dtype), -1)
+
+
+def embed(params, tokens, *, dtype=torch.bfloat16, tp=None):
+    """Rows of the table at ``tokens``; under ``tp`` the table holds this
+    rank's vocabulary rows: a token outside them looks up zeros and the
+    lookups are summed over ``model`` (exact: one term is nonzero)."""
+    if tp is None:
+        return params["table"][tokens].to(dtype)
+    table = params["table"]
+    local = tokens - tp.idx * table.shape[0]
+    own = (local >= 0) & (local < table.shape[0])
+    rows = torch.where(own[..., None], table[torch.where(own, local, 0)], 0)
+    return tp.sum(rows).to(dtype)
 
 
 def keep_fp32_table(params) -> dict:
@@ -77,20 +104,22 @@ def keep_fp32_table(params) -> dict:
     return params
 
 
-def unembed(params, x, *, dtype=torch.bfloat16, softcap=None):
+def unembed(params, x, *, dtype=torch.bfloat16, softcap=None, tp=None):
     """Project to fp32 vocab logits (optionally soft-capped).  The product
     takes ``x`` and the table at ``dtype`` and runs in fp32 (the
     reference's bf16 dot with fp32 accumulation and output); fp32 logits
     keep greedy ties as rare as the reference's.  A table at ``dtype``
     multiplies through its fp32 copy where it has one
-    (:func:`keep_fp32_table`); any other is cast for the call."""
+    (:func:`keep_fp32_table`); any other is cast for the call.  Under
+    ``tp`` the table (and its copy) hold this rank's vocabulary rows: its
+    logit columns are all-gathered over ``model``."""
     table = params.get("table_f32") if params["table"].dtype == dtype else None
     if table is None:
         table = params["table"].to(dtype).to(torch.float32)
     logits = torch.matmul(x.to(dtype).to(torch.float32), table.T)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    return logits
+    return logits if tp is None else tp.gather(logits, -1)
 
 
 # -- MLP (SwiGLU / GeGLU) -------------------------------------------------- #
@@ -103,7 +132,9 @@ def mlp_init(gen, d_model, d_ff, *, device, dtype):
     }
 
 
-def mlp(params, x, *, act="silu", dtype=torch.bfloat16):
+def mlp(params, x, *, act="silu", dtype=torch.bfloat16, tp=None):
+    """Gated MLP; under ``tp`` ``gate`` / ``up`` give this rank's d_ff
+    columns and ``down`` its d_model columns (:func:`dense_across`)."""
     g = dense(params["gate"], x, dtype=dtype)
     u = dense(params["up"], x, dtype=dtype)
     if act == "silu":
@@ -112,7 +143,7 @@ def mlp(params, x, *, act="silu", dtype=torch.bfloat16):
         g = torch.nn.functional.gelu(g.to(torch.float32), approximate="tanh").to(dtype)
     else:
         raise ValueError(act)
-    return dense(params["down"], g * u, dtype=dtype)
+    return dense_across(params["down"], g * u, dtype=dtype, tp=tp)
 
 
 # -- rotary embeddings ------------------------------------------------------ #

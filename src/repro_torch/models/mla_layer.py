@@ -9,6 +9,13 @@ scores are taken directly against the latent (paper §2.2).  Weights keep
 the JAX package's layouts: ``wq_nope (d, h, n)``, ``wq_rope (d, h, r)``,
 ``w_uk (h, n, c)``, ``w_uv (h, c, v)``, ``wkv_down``/``wk_rope``/``wo``
 as dense ``(d_in, d_out)``.
+
+Under a tensor-parallel plan (``tp``; the rank-local serve step under
+``tp`` / ``tp_fsdp``) ``wq_nope``, ``wq_rope``, ``w_uk`` and ``w_uv`` hold
+this rank's heads, ``wkv_down`` / ``wk_rope`` its latent columns and
+``wo`` its d_model columns: the latent row is all-gathered before it is
+written and attended (every head reads the whole latent), K4 runs over
+the local heads, and ``o`` is all-gathered into ``wo``.
 """
 
 from __future__ import annotations
@@ -58,10 +65,14 @@ def _per_head_matmul(x, w, dtype):
     return y.transpose(0, 1).reshape(b, s, h, w.shape[-1])
 
 
-def mla_latents(params, x, *, cfg, positions, dtype=torch.bfloat16):
-    """Latent cache rows ``[c ; RoPE(k_rope)]`` — (B, S, d_latent + d_rope)."""
+def mla_latents(params, x, *, cfg, positions, dtype=torch.bfloat16, tp=None):
+    """Latent cache rows ``[c ; RoPE(k_rope)]`` — (B, S, d_latent + d_rope);
+    under ``tp`` from this rank's columns of both, all-gathered in one
+    call."""
     c = layers.dense(params["wkv_down"], x, dtype=dtype)
     k_rope = layers.dense(params["wk_rope"], x, dtype=dtype)
+    if tp is not None:
+        c, k_rope = tp.gather_last(c, k_rope)
     k_rope = layers.rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)[:, :, 0]
     return torch.cat([c, k_rope], dim=-1)
 
@@ -76,13 +87,13 @@ def mla_absorbed_queries(params, x, *, cfg, positions, dtype=torch.bfloat16):
     return torch.cat([q_c, q_rope], dim=-1)
 
 
-def mla_unabsorb_output(params, attn, *, cfg, dtype=torch.bfloat16):
+def mla_unabsorb_output(params, attn, *, cfg, dtype=torch.bfloat16, tp=None):
     """Un-absorb values (per-head latent -> d_vhead) and merge heads;
-    ``attn`` is (B, S, H, d_latent)."""
+    ``attn`` is (B, S, H, d_latent), this rank's heads under ``tp``."""
     m = cfg.mla
     b, s, h = attn.shape[:3]
     o = _per_head_matmul(attn, params["w_uv"], dtype)
-    return layers.dense(params["wo"], o.reshape(b, s, h * m.d_vhead), dtype=dtype)
+    return layers.dense_across(params["wo"], o.reshape(b, s, h * m.d_vhead), dtype=dtype, tp=tp)
 
 
 def _mla_apply_expanded(params, x, *, cfg, positions, causal=True, dtype=torch.bfloat16):
@@ -128,9 +139,11 @@ def mla_apply(
     cache_len=None,
     causal: bool = True,
     dtype=torch.bfloat16,
+    tp=None,
 ):
     """MLA over a dense latent cache (updated in place) in the absorbed
-    form; returns (y, cache).  Prefill and decode both attend through the
+    form; returns (y, cache); ``tp``: this rank's heads (the module
+    docstring).  Prefill and decode both attend through the
     contiguous AMLA kernel (``ops.mla_decode``).  Without a cache
     (training) it is the expanded form, :func:`_mla_apply_expanded`, as in
     the reference, unless the config sets ``mla_absorbed_train``: then the
@@ -141,7 +154,7 @@ def mla_apply(
     if cache is not None and cache_len is None:
         raise ValueError("a cache needs its cache_len")
     b, s, _ = x.shape
-    c_full = mla_latents(params, x, cfg=cfg, positions=positions, dtype=dtype)
+    c_full = mla_latents(params, x, cfg=cfg, positions=positions, dtype=dtype, tp=tp)
     q_full = mla_absorbed_queries(params, x, cfg=cfg, positions=positions, dtype=dtype)
     if cache is not None:
         update_rows(cache["c"], c_full, cache_len)
@@ -160,4 +173,4 @@ def mla_apply(
         kv_len=kv_len,
         q_offset=q_offset,
     )  # (B, S, H, d_latent) fp32
-    return mla_unabsorb_output(params, attn, cfg=cfg, dtype=dtype), cache
+    return mla_unabsorb_output(params, attn, cfg=cfg, dtype=dtype, tp=tp), cache

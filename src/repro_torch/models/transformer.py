@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core import tree as _tree
 from repro_torch.kernels import decode_schedule as _sched
 from repro_torch.kernels import ops
 from repro_torch.models import layers, moe
@@ -57,6 +58,7 @@ from repro_torch.models.recurrent import (
     rglru_block_init,
 )
 from repro_torch.models.ssm import init_ssm_cache, mamba2_block_apply, mamba2_block_init
+from repro_torch.runtime import mesh_ctx
 from repro_torch.runtime.kv_cache import OutOfPagesError
 
 LAYER_KINDS = ("global", "local", "recurrent", "ssm")
@@ -108,20 +110,31 @@ def layer_init(gen, cfg, kind, *, device, dtype):
     return p
 
 
-def lm_init(gen, cfg, *, device, dtype):
+def lm_init(gen, cfg, *, device, dtype, keep=None):
     """Random parameters, drawn tensor by tensor on ``device`` in ``dtype``
     (a full-width bf16 model is built on the card without an fp32 copy of
     its weights; the unembedding table gets one,
-    :func:`~repro_torch.models.layers.keep_fp32_table`)."""
+    :func:`~repro_torch.models.layers.keep_fp32_table`).  ``keep(path,
+    tensor)``, where given, is applied to each leaf as soon as its table
+    or layer is drawn, and what it returns is kept (one rank keeps its
+    shards: the whole model is never resident); the draws are the same."""
     check_supported(cfg)
     kw = dict(device=device, dtype=dtype)
+
+    def kept(prefix, tree):
+        if keep is None:
+            return tree
+        return _tree.map_with_paths(lambda path, t: keep(prefix + path, t), tree)
+
     params = {
-        "embed": layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw),
+        "embed": kept(("embed",), layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw)),
         "final_norm": layers.rmsnorm_init(cfg.d_model, device=device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw)
-    params["layers"] = [layer_init(gen, cfg, kind, **kw) for kind in cfg.layer_kinds()]
+        params["unembed"] = kept(("unembed",),
+                                 layers.embed_init(gen, cfg.vocab_size, cfg.d_model, **kw))
+    params["layers"] = [kept(("layers", l), layer_init(gen, cfg, kind, **kw))
+                        for l, kind in enumerate(cfg.layer_kinds())]
     layers.keep_fp32_table(params.get("unembed", params["embed"]))
     return params
 
@@ -148,7 +161,8 @@ def embed_tokens(params, tokens, *, cfg, embeds_override=None):
     """Token embeddings at the config's dtype; ``embeds_override (B, Nv,
     d)`` (the vision stub's patch embeddings) replaces the first ``Nv``
     positions before gemma-style scaling, in the reference's order."""
-    x = layers.embed(params["embed"], tokens, dtype=cfg_dtype(cfg))
+    x = layers.embed(params["embed"], tokens, dtype=cfg_dtype(cfg),
+                     tp=mesh_ctx.tp_split("embed"))
     if embeds_override is not None:
         nv = embeds_override.shape[1]
         x = torch.cat([embeds_override.to(x.dtype), x[:, nv:]], dim=1)
@@ -199,12 +213,13 @@ def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
         raise ValueError(kind)
     elif cfg.mla:
         y, cache = mla_apply(params["attn"], h, cfg=cfg, positions=positions,
-                             cache=cache, cache_len=cache_len, dtype=dtype)
+                             cache=cache, cache_len=cache_len, dtype=dtype,
+                             tp=mesh_ctx.tp_split("attn"))
     else:
         window = cfg.window if kind == "local" else None
         y, cache = gqa_apply(params["attn"], h, cfg=cfg, positions=positions,
                              window=window, cache=cache, cache_len=cache_len,
-                             dtype=dtype)
+                             dtype=dtype, tp=mesh_ctx.tp_split("attn"))
     if cfg.post_norms:
         y = layers.rmsnorm(params["post_ln1"], y, eps=cfg.norm_eps)
     x = x + y
@@ -220,10 +235,11 @@ def mlp_post(params, x, *, cfg, dtype):
     config says so), without its residual add: (y, aux), ``aux`` the MoE
     load-balancing loss (0.0 for a dense MLP)."""
     h = layers.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
+    tp = mesh_ctx.tp_split("mlp")  # None for a MoE MLP: its experts run whole
     if cfg.n_experts:
         y, aux = moe.moe_apply(params["mlp"], h, cfg=cfg, dtype=dtype)
     else:
-        y, aux = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype), 0.0
+        y, aux = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype, tp=tp), 0.0
     if cfg.post_norms:
         y = layers.rmsnorm(params["post_ln2"], y, eps=cfg.norm_eps)
     return y, aux
@@ -273,7 +289,7 @@ def lm_logits(params, hidden, *, cfg, dtype=None):
     says so)."""
     table = params.get("unembed", params["embed"])
     return layers.unembed(table, hidden, dtype=dtype or cfg_dtype(cfg),
-                          softcap=cfg.final_softcap)
+                          softcap=cfg.final_softcap, tp=mesh_ctx.tp_split("logits"))
 
 
 # --------------------------------------------------------------------------- #

@@ -13,27 +13,40 @@ or, inside a step run rank-locally on a mesh of processes
 which the batch rows are split across ranks (``()`` when every rank holds
 every row).  The step factories set it for the call; model code reads it
 through :func:`on_ranks` and :func:`rank_rows`.
+
+``tp_local`` is set only by the rank-local serve step under ``tp`` and
+``tp_fsdp`` on a ``model`` axis of several ranks: a
+:class:`~repro_torch.runtime.sharding.TPPlan` saying which modules this
+rank computes split (its heads, d_ff columns and vocabulary rows) and how.
+Everywhere else it is ``None`` and every layer computes whole.  The
+layers count what they did under a plan in :data:`TP_COUNTS` (``attn``,
+``mlp``, ``embed``, ``logits``, each split or ``*_whole``).
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
 
-_CURRENT: dict = {"mesh": None, "policy": "tp_fsdp", "multi_pod": False, "rank_rows": None}
+_CURRENT: dict = {"mesh": None, "policy": "tp_fsdp", "multi_pod": False, "rank_rows": None,
+                  "tp_local": None}
+TP_COUNTS: dict = {}
 
 
-def set_mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None):
-    _CURRENT.update(mesh=mesh, policy=policy, multi_pod=multi_pod, rank_rows=rank_rows)
+def set_mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None,
+                 tp_local=None):
+    _CURRENT.update(mesh=mesh, policy=policy, multi_pod=multi_pod, rank_rows=rank_rows,
+                    tp_local=tp_local)
 
 
 def clear_mesh_ctx():
-    _CURRENT.update(mesh=None, policy="tp_fsdp", multi_pod=False, rank_rows=None)
+    set_mesh_ctx(None)
 
 
 @contextmanager
-def mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None):
+def mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None,
+             tp_local=None):
     prev = dict(_CURRENT)
-    set_mesh_ctx(mesh, policy, multi_pod, rank_rows)
+    set_mesh_ctx(mesh, policy, multi_pod, rank_rows, tp_local)
     try:
         yield
     finally:
@@ -57,6 +70,20 @@ def rank_rows() -> tuple:
     """The mesh axes the batch rows are split over across ranks (``()``
     outside a rank-local step)."""
     return _CURRENT["rank_rows"] or ()
+
+
+def tp_split(module: str):
+    """The current :class:`~repro_torch.runtime.sharding.TPPlan` where it
+    splits ``module`` (``"attn"``, ``"mlp"``, ``"embed"`` or ``"logits"``),
+    else ``None``; under a plan the call is counted in :data:`TP_COUNTS`
+    either way, so a module that runs whole is never silent."""
+    plan = _CURRENT["tp_local"]
+    if plan is None:
+        return None
+    split = plan.splits(module)
+    key = module if split else module + "_whole"
+    TP_COUNTS[key] = TP_COUNTS.get(key, 0) + 1
+    return plan if split else None
 
 
 def data_axes_in_ctx():

@@ -100,7 +100,9 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
     same arguments, each leaf a full value or a placed ``DTensor``, and
     the call runs rank-locally (:func:`_serve_on_ranks`): it returns what
     the one-process call returns, the whole batch's logits on every rank,
-    and writes the cache's updated rows into each rank's own shard."""
+    and writes the cache's updated rows into each rank's own shard.  Under
+    ``tp`` and ``tp_fsdp`` with several ``model`` ranks it splits the
+    compute by ``model`` (:func:`~repro_torch.runtime.sharding.tp_plan`)."""
     pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=model.cfg)
     cfn = sharding.cache_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
     bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
@@ -113,7 +115,7 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
 
             def run(params, cache, tokens, *args, **kw):
                 if mesh.device_mesh().size() > 1:
-                    return _serve_on_ranks(call, mesh, policy, multi_pod, shs,
+                    return _serve_on_ranks(call, model.cfg, mesh, policy, multi_pod, shs,
                                            (params, cache, tokens), args, kw)
                 p, c, t = sharding.local_run(mesh, (params, cache, tokens), shs)
                 return call(p, c, t, *args, **kw)
@@ -126,19 +128,28 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
             {"params": param_sh, "cache": cache_sh})
 
 
-def _serve_on_ranks(call, mesh, policy, multi_pod, shardings, inputs, args, kw):
+def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args, kw):
     """One rank's share of a sharded prefill / decode call.
 
     * Parameters are made whole at the call (the FSDP gather done all at
-      once; it covers tensor-parallel leaves too: the compute is
-      replicated over ``model``).
+      once), except under a tensor-parallel plan
+      (:func:`~repro_torch.runtime.sharding.tp_plan`: ``tp`` / ``tp_fsdp``
+      with several ``model`` ranks), where the attention layers, dense
+      MLPs and embedding tables keep this rank's ``model`` shard and
+      compute only its heads, columns and vocabulary; any other leaf is
+      made whole.
     * Tokens, and a per-row ``cache_len``, are this rank's batch rows, by
       the tokens' batch spec (its axes ``rows``).
     * Cache leaves are this rank's rows; their other sharded dims are
       gathered (the ``tp_fsdp`` width: every step gathers the cache, the
       reference's naive baseline), except the ``seqkv`` sequence, which
-      stays this rank's slice.  The rows the call writes go back into
-      this rank's shard in place.
+      stays this rank's slice, and a split GQA layer's K/V, of which only
+      the rank's kv heads are gathered (one all-to-all for every layer,
+      :meth:`~repro_torch.runtime.sharding.TPPlan.kv_head_caches`).  The
+      rows the call writes go back into this rank's shard in place; a split GQA layer's new rows of
+      every kv head are all-gathered over ``model`` (one call for all
+      layers) and written into it, so that a replica or a width slice of
+      the cache is what the one-process call leaves there.
     * The logits are all-gathered over ``rows``: every rank returns the
       whole batch's, as the reference returns its global array.
     """
@@ -154,13 +165,20 @@ def _serve_on_ranks(call, mesh, policy, multi_pod, shardings, inputs, args, kw):
             return take_shard(x, 0, rows, mesh=mesh)
         return x
 
-    p_full = sharding.whole_tree(params, param_sh)
+    plan = sharding.tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows)
+    p_work = sharding.whole_tree(params, param_sh, plan)
     c_local = sharding.local_shards(sharding.place(cache, cache_sh))
     flat_sh = dict(_tree.leaves_with_paths(cache_sh))
     seq_local = {"model"} if policy == "seqkv" else set()
     work = {}
+    flat_local = dict(_tree.leaves_with_paths(c_local))
+    kv = [p for p in flat_local if plan is not None and plan.splits_cache(p)]
+    kv_work = dict(zip(kv, plan.kv_head_caches([(flat_local[p], flat_sh[p]) for p in kv])
+                       if kv else []))
 
     def to_work(path, local):
+        if path in kv_work:
+            return kv_work[path]
         sh = flat_sh[path]
         same_rows = sharding.spec_axes(sh.spec[0]) == rows
         keep = (set(rows) if same_rows else set()) | seq_local
@@ -175,14 +193,40 @@ def _serve_on_ranks(call, mesh, policy, multi_pod, shardings, inputs, args, kw):
     args = tuple(own_rows(a) for a in args)
     if "cache_len" in kw:
         kw = dict(kw, cache_len=own_rows(kw["cache_len"]))
-    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows):
-        logits, _ = call(p_full, c_work, tok, *args, **kw)
+    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows, tp_local=plan):
+        logits, _ = call(p_work, c_work, tok, *args, **kw)
     for path, (local, t, keep, same_rows) in work.items():
         if t is local:  # written in place
             continue
         full_rows = t if same_rows else all_gather_dim(t, 0, rows, mesh=mesh)
         local.copy_(sharding.shard_one(full_rows, flat_sh[path], keep))
+    if kv:
+        cache_len = kw.get("cache_len", args[0] if args else None)
+        _write_kv_heads(plan, [(flat_local[p], kv_work[p], flat_sh[p]) for p in kv],
+                        0 if cache_len is None else cache_len, tok.shape[1])
     return all_gather_dim(logits, 0, rows, mesh=mesh), cache
+
+
+def _write_kv_heads(plan, leaves, cache_len, s):
+    """After a split step: every rank's new K/V rows of its kv heads (read
+    from each ``(local shard, working cache, sharding)`` of ``leaves`` at
+    ``cache_len``), all-gathered over ``model`` in one call, and every kv
+    head's rows (from the first rank holding it) written into this rank's
+    shard: the width slice its spec gives (``tp_fsdp``), or the whole row
+    (``tp``, a replica)."""
+    from repro_torch.models.attention_layer import read_rows, update_rows
+
+    new = torch.stack([read_rows(t.transpose(1, 2), cache_len, s) for _, t, _ in leaves])
+    parts = plan.gather(new[None], 0)  # (m, leaves, B, s, kv heads of a rank, Dh)
+    owner = [next(r for r in range(plan.m) if j < plan.kv_heads_of(r)[1])
+             for j in range(plan.n_kv_heads)]
+    heads = [j - plan.kv_heads_of(r)[0] for j, r in enumerate(owner)]
+    rows = parts[torch.tensor(owner), :, :, :, torch.tensor(heads)]  # (Hkv, leaves, B, s, Dh)
+    for (local, _, sh), r in zip(leaves, rows.permute(1, 2, 3, 0, 4)):
+        width = sh.spec[3] if len(sh.spec) > 3 else None
+        if width is not None:
+            r = take_shard(r, -1, sharding.spec_axes(width), mesh=sh.mesh)
+        update_rows(local.transpose(1, 2), r, cache_len)
 
 
 def check_session_servable(cfg) -> None:

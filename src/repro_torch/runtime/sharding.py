@@ -39,6 +39,13 @@ run rank-locally: each rank gathers what it needs whole
 ``torch.chunk`` order), computes its own batch rows and keeps its own
 shard of every result (:func:`shard_tree`).
 
+Under ``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks the
+rank-local serve step splits its compute as the specs lay the weights
+out (:func:`tp_plan`, :class:`TPPlan`): the attention layers, the dense
+MLPs and the embedding tables keep this rank's ``model`` shard of every
+leaf whose spec names ``model`` (gathered over the data axes only), and
+compute only its heads, d_ff columns, d_model columns and vocabulary.
+
 Sharded paged serving routes each request (its pages and queue items) to
 ONE ``data`` shard; pools never straddle shards, so that placement is a
 copy of a whole tree onto the shard's anchor device
@@ -53,7 +60,15 @@ import re
 import torch
 
 from repro_torch.core import tree as _tree
-from repro_torch.core.distributed import all_gather_dim, gather_group, spec_axes, take_shard
+from repro_torch.core.distributed import (
+    all_gather_dim,
+    all_reduce_sum,
+    all_to_all,
+    axis_index,
+    gather_group,
+    spec_axes,
+    take_shard,
+)
 
 
 class PartitionSpec(tuple):
@@ -412,16 +427,183 @@ def shard_tree(full, shardings, keep=()):
     return _tree.map_with_paths(lambda p, t: shard_one(t, flat[p], keep), full)
 
 
-def whole_tree(tree, shardings):
+def whole_tree(tree, shardings, plan=None):
     """The full values a rank-local step computes on, from its caller's
     ``tree``: a placed ``DTensor``'s shard gathered (:func:`gather_one`),
     a plain tensor (the full value on every rank, as :func:`place_one`
-    reads it) as it is, without moving it."""
+    reads it) as it is, without moving it.  A leaf that ``plan`` (a
+    :class:`TPPlan`) keeps local is this rank's ``model`` shard instead:
+    a ``DTensor``'s gathered over its other axes only, a plain tensor's
+    ``model`` slice (a view)."""
     from torch.distributed.tensor import DTensor
 
     flat = dict(_tree.leaves_with_paths(shardings))
-    return _tree.map_with_paths(
-        lambda p, t: gather_one(t.to_local(), flat[p]) if isinstance(t, DTensor) else t, tree)
+
+    def one(path, t):
+        sh = flat[path]
+        local = plan is not None and plan.keeps(path_str(path), sh.spec)
+        if isinstance(t, DTensor):
+            return gather_one(t.to_local(), sh, ("model",) if local else ())
+        if local:
+            return shard_one(t, sh, tuple(a for a in sh.mesh.axis_names if a != "model"))
+        return t
+
+    return _tree.map_with_paths(one, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """How one rank splits a serve step over the ``model`` axis
+    (:func:`tp_plan`): ``m`` ranks along it, this rank at ``idx``; which
+    modules split (``attn``: every attention layer, ``mlp``: every dense
+    MLP, ``vocab``: the embedding lookup and the logits); ``kv_local``:
+    the GQA ``wk`` / ``wv`` hold this rank's kv heads (else they are
+    whole, the Megatron rule, and the rank slices the kv heads its query
+    heads read).  Set into ``mesh_ctx`` (``tp_local``) for the call."""
+
+    mesh: object
+    m: int
+    idx: int
+    kinds: tuple
+    n_heads: int
+    n_kv_heads: int
+    mla: bool
+    attn: bool
+    mlp: bool
+    vocab: bool
+    kv_local: bool
+
+    def splits(self, module: str) -> bool:
+        return {"attn": self.attn, "mlp": self.mlp, "embed": self.vocab,
+                "logits": self.vocab}[module]
+
+    def part(self, n: int, idx: int | None = None) -> tuple[int, int]:
+        """Rank ``idx``'s (default this rank's) ``[lo, hi)`` of ``n`` split
+        in ``m`` equal parts in coordinate order."""
+        i = self.idx if idx is None else idx
+        return i * n // self.m, (i + 1) * n // self.m
+
+    def kv_heads_of(self, idx: int) -> tuple[int, int]:
+        """The ``[lo, hi)`` kv heads rank ``idx``'s query heads read."""
+        group = self.n_heads // self.n_kv_heads
+        lo, hi = self.part(self.n_heads, idx)
+        return lo // group, (hi - 1) // group + 1
+
+    @property
+    def kv_heads(self) -> tuple[int, int]:
+        return self.kv_heads_of(self.idx)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' pieces of ``t`` along ``model``, concatenated on ``dim``."""
+        return all_gather_dim(t, dim, ("model",), mesh=self.mesh)
+
+    def gather_last(self, *ts):
+        """:meth:`gather` on the last dim of each of ``ts`` in one call."""
+        widths = [t.shape[-1] for t in ts]
+        parts = self.gather(torch.cat(ts, dim=-1)[None], 0)  # (m, ..., sum of widths)
+        return tuple(p.movedim(0, -2).reshape(*p.shape[1:-1], self.m * w)
+                     for p, w in zip(torch.split(parts, widths, dim=-1), widths))
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_sum(t, ("model",), mesh=self.mesh)
+
+    def kv_head_caches(self, leaves) -> list:
+        """The working caches of split GQA layers: for each ``(local
+        shard, sharding)`` of a ``k`` / ``v`` leaf, its rows of this
+        rank's kv heads, whole.  A replica (``tp``) gives views of its own
+        heads; a cache whose width is over ``model`` (``tp_fsdp``) trades
+        slices in one all-to-all for every leaf: each rank sends every
+        rank its width slice of that rank's kv heads."""
+        if all(len(sh.spec) < 4 or sh.spec[3] is None for _, sh in leaves):
+            return [t[:, slice(*self.kv_heads)] for t, _ in leaves]
+        send = torch.stack([torch.stack([t[:, slice(*self.kv_heads_of(r))] for t, _ in leaves])
+                            for r in range(self.m)])  # (m, leaves, B, kv heads, S, Dh / m)
+        got = all_to_all(send, "model", mesh=self.mesh)
+        m, n, b, h, s, w = got.shape
+        return list(got.permute(1, 2, 3, 4, 0, 5).reshape(n, b, h, s, m * w))
+
+    def keeps(self, name: str, spec) -> bool:
+        """Whether the parameter at ``name`` stays this rank's ``model``
+        shard: its spec names ``model`` and its module splits."""
+        if "model" not in {a for e in spec for a in spec_axes(e)}:
+            return False
+        parts = name.split("/")
+        if parts[0] in ("embed", "unembed"):
+            return self.vocab
+        if parts[0] == "layers" and len(parts) > 2:
+            return {"attn": self.attn, "mlp": self.mlp}.get(parts[2], False)
+        return False
+
+    def splits_cache(self, path) -> bool:
+        """Whether the cache leaf at ``path`` is a split GQA layer's ``k``
+        or ``v``: its working cache holds this rank's kv heads only."""
+        return (self.attn and not self.mla and self.kinds[path[0]] in ("global", "local")
+                and path[-1] in ("k", "v"))
+
+
+def tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows) -> TPPlan | None:
+    """The tensor-parallel split of a rank-local serve step, or ``None``
+    (every module whole) off ``tp`` / ``tp_fsdp`` or where ``model`` has
+    one rank.  A module splits where the specs give it the layout the
+    split computes on, checked leaf by leaf:
+
+    * GQA attention: ``n_heads % m == 0`` (``wq``'s columns fall on head
+      boundaries), ``wq`` and ``wo`` on ``model`` by their output dim;
+      ``wk`` / ``wv`` on ``model`` with ``n_kv_heads % m == 0``, or whole
+      with the rank's query heads reading whole kv groups (``H/m`` a
+      multiple or a divisor of ``n_heads / n_kv_heads``); the ``k`` /
+      ``v`` cache's heads and sequence not sharded, its width whole or over
+      ``model``, its batch over the tokens' ``rows``;
+    * MLA: ``n_heads % m == 0``, ``wq_nope`` / ``wq_rope`` / ``w_uk`` /
+      ``w_uv`` on ``model`` by heads, ``wkv_down`` / ``wk_rope`` / ``wo``
+      by their output dim;
+    * the MLP: dense, ``gate`` / ``up`` / ``down`` on ``model`` by their
+      output dim (a MoE layer's experts run whole);
+    * the vocabulary: every embedding table on ``model`` by its rows.
+
+    A module that fails its rule runs whole after the gather, counted as
+    such (``mesh_ctx.TP_COUNTS``)."""
+    m = mesh.shape["model"]
+    if policy not in ("tp", "tp_fsdp") or m < 2 or cfg.family == "encdec":
+        return None
+    specs = {path_str(p): sh.spec for p, sh in _tree.leaves_with_paths(param_sh)}
+    cspecs = dict((p, sh.spec) for p, sh in _tree.leaves_with_paths(cache_sh))
+
+    def on(name, dim):
+        spec = specs.get(name)
+        return spec is not None and len(spec) > dim and spec[dim] == "model"
+
+    kinds = tuple(cfg.layer_kinds())
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    attn_layers = [l for l, k in enumerate(kinds) if k in ("global", "local")]
+
+    def gqa(l):
+        a = f"layers/{l}/attn/"
+        kv = {on(a + "wk/w", 1), on(a + "wv/w", 1)}
+        group, per = hq // hkv, hq // m
+        kv_ok = (kv == {True} and hkv % m == 0) or (kv == {False} and (
+            per % group == 0 or group % per == 0))
+        cache_ok = all(c[1] is None and c[2] is None and c[3] in (None, "model")
+                       and spec_axes(c[0]) == tuple(rows)
+                       for c in (cspecs[(l, "k")], cspecs[(l, "v")]))
+        return on(a + "wq/w", 1) and on(a + "wo/w", 1) and kv_ok and cache_ok
+
+    def mla(l):
+        a = f"layers/{l}/attn/"
+        return (all(on(a + n, 1) for n in ("wq_nope", "wq_rope", "wkv_down/w", "wk_rope/w",
+                                            "wo/w"))
+                and all(on(a + n, 0) for n in ("w_uk", "w_uv")))
+
+    attn = bool(attn_layers) and hq % m == 0 and all(
+        (mla if cfg.mla else gqa)(l) for l in attn_layers)
+    mlp_layers = [l for l, k in enumerate(kinds) if f"layers/{l}/mlp/gate/w" in specs]
+    mlp = (not cfg.n_experts and bool(mlp_layers) and all(
+        on(f"layers/{l}/mlp/{n}/w", 1) for l in mlp_layers for n in ("gate", "up", "down")))
+    tables = [n for n in ("embed/table", "unembed/table") if n in specs]
+    kv_local = attn and not cfg.mla and on(f"layers/{attn_layers[0]}/attn/wk/w", 1)
+    return TPPlan(mesh=mesh, m=m, idx=axis_index(("model",), mesh)[0], kinds=kinds,
+                  n_heads=hq, n_kv_heads=hkv, mla=cfg.mla is not None, attn=attn, mlp=mlp,
+                  vocab=all(on(n, 0) for n in tables), kv_local=kv_local)
 
 
 def from_local(local: torch.Tensor, sh: NamedSharding, shape):

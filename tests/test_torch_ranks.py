@@ -13,13 +13,21 @@ ranks are killed and the tests fail.  The JAX references run here, in
 this process, as a single-device ``jax.jit``, which has the semantics of
 the reference's sharded step.
 
+Under ``tp`` and ``tp_fsdp`` with several ``model`` ranks the serve step
+splits its compute (heads, d_ff and d_model columns, vocabulary): each
+case also checks that every leaf the split keeps local is ``1 / m`` of its
+whole in what the model computed on, and that every attention layer, MLP,
+lookup and logits ran split (``mesh_ctx.TP_COUNTS``); 6 heads over 4 ranks
+run whole, counted so.
+
 Bounds: ``seqkv`` decode across ranks is bit-equal to the one-process run
 on the logical mesh over the same rows (the same K6 slices, the partials
 gathered in coordinate order, the same merge), and within
 ``tests/test_perf_paths.py``'s rtol/atol 2e-2 of the reference.  Other
 policies against the one-process run and the reference by
-``tests/test_torch_model.py``'s 2e-3 (fewer matmul rows per rank round
-differently on the CPU).  Training against ``make_train_step`` on one
+``tests/test_torch_model.py``'s 2e-3 (fewer matmul rows or columns per
+rank round differently on the CPU), greedy tokens at fp32 equal to the
+one-process run's.  Training against ``make_train_step`` on one
 rank: the first step's loss, ``grad_norm`` and first moment (0.1 x the
 clipped gradient) within 1e-6 relative, the parameters by
 ``tests/test_torch_train_loop.py``'s rule (Adam's first step turns a
@@ -98,10 +106,20 @@ SERVE = {  # name -> (arch, mesh, policy, world)
     "tp 1x2": ("qwen2.5-3b", "1x2", "tp", 2),
     "tp_fsdp 2x1": ("qwen2.5-3b", "2x1", "tp_fsdp", 2),
     "mla tp_fsdp 2x1": ("deepseek-v2-mla", "2x1", "tp_fsdp", 2),
+    "mla tp 1x2": ("deepseek-v2-mla", "1x2", "tp", 2),
+    "gemma tp 1x2": ("gemma2-2b", "1x2", "tp", 2),
     "seqkv 2x2": ("qwen2.5-3b", "2x2", "seqkv", 4),
     "tp_fsdp 2x2": ("qwen2.5-3b", "2x2", "tp_fsdp", 4),
     "tp 2x2": ("qwen2.5-3b", "2x2", "tp", 4),
+    "mla tp_fsdp 2x2": ("deepseek-v2-mla", "2x2", "tp_fsdp", 4),
+    # kv 2 over model 4: wk / wv stay whole (the Megatron rule), each rank
+    # slices the kv head its query head reads
+    "tp 1x4": ("qwen2.5-3b", "1x4", "tp", 4),
 }
+# 6 query heads do not split over model 4 (wq's 96 columns do, off head
+# boundaries): the attention runs whole after the gather, counted as such
+WHOLE_HEADS = dict(arch="qwen2.5-3b", spec="1x4", policy="tp", cfg_changes=dict(n_heads=6),
+                   whole=("attn",))
 TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world)
     "2x1 tp_fsdp none": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "none", 1, 2),
     "2x1 tp_fsdp int8": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "int8", 1, 2),
@@ -126,7 +144,7 @@ MU_TOL = {"qwen1.5-0.5b": STEP_TOL, "qwen3-moe-30b-a3b": 2.0**-8}
 def refs():
     """Weights and inputs of every case, and the JAX references."""
     out = {}
-    for arch in ("qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b"):
+    for arch in ("qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b", "gemma2-2b"):
         ref_model, ref_params, params = ref_pair(arch)
         prompt, tokens = tokens_for(arch)
         out[arch] = dict(params=params, prompt=prompt, tokens=tokens,
@@ -139,6 +157,28 @@ def refs():
                  {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(3))
     out["train"] = dict(params=params, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
     return out
+
+
+def whole_heads_params():
+    """The port's own fp32 weights (seed 0) of the smoke qwen2.5-3b with
+    ``WHOLE_HEADS``' config changes."""
+    import dataclasses
+
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), **WHOLE_HEADS["cfg_changes"])
+    return build_model(cfg).init(torch.Generator("cpu").manual_seed(0), "cpu",
+                                 dtype=torch.float32)
+
+
+def split_counts(arch, calls=1 + DECODE):
+    """The split counts a tensor-parallel serve run of ``calls`` calls
+    gives: every attention layer, every dense MLP, the embedding lookup
+    and the logits, once a call each."""
+    cfg = get_config(arch, smoke=True)
+    kinds = cfg.layer_kinds()
+    return {"attn": calls * sum(k in ("global", "local") for k in kinds),
+            "mlp": calls * sum(k != "ssm" for k in kinds), "embed": calls, "logits": calls}
 
 
 def cases_for(world, refs):
@@ -157,7 +197,15 @@ def cases_for(world, refs):
                                      compression=comp, grad_accum=accum)))
     for spec in (["1x2", "2x1"] if world == 2 else ["2x2"]):
         cases.append((f"round_trip {spec}", dict(case="round_trip", spec=spec)))
+    if world == 4:
+        r = refs["qwen2.5-3b"]
+        cases.append(("whole heads", dict(
+            WHOLE_HEADS, case="serve", params=whole_heads_params(), prompt=r["prompt"],
+            tokens=r["tokens"], max_len=MAX_LEN)))
     if world == 2:
+        cases.append(("count", dict(case="count", arch="qwen2.5-3b",
+                                    params=refs["qwen2.5-3b"]["params"], spec="1x2", policy="tp",
+                                    max_len=MAX_LEN)))
         r = refs["qwen3-moe-30b-a3b"]
         cases += [("moe 2x1", dict(case="moe", params=r["params"], spec="2x1",
                                    prompt=r["prompt"], tokens=r["tokens"], max_len=MAX_LEN)),
@@ -189,6 +237,7 @@ def test_serve_on_ranks(ranks, refs, name):
     arch, spec, policy, _ = SERVE[name]
     res = ranks[name]
     want = refs[arch]["want"]
+    split = policy in ("tp", "tp_fsdp") and spec.split("x")[1] != "1"
     for r in res:
         assert r["returned_cache"]
         for g, g0 in zip(r["logits"], res[0]["logits"]):
@@ -197,12 +246,65 @@ def test_serve_on_ranks(ranks, refs, name):
             assert r["logits_equal"] and r["cache_equal"]
         else:
             assert r["logits_err"] <= MODEL_TOL and r["cache_err"] <= MODEL_TOL
+            assert r["tokens_equal"]
+        # tensor-parallel: each local leaf 1 / m of its whole, every layer split
+        assert r["held_ok"] and (r["local_leaves"] > 0) == split
+        counts = {k: v for k, v in r["counts"].items() if k != "collectives"}
+        assert counts == (split_counts(arch) if split else {})
     for g, w in zip(res[0]["logits"], want, strict=True):
         assert g.shape == w.shape
         if policy == "seqkv":
             np.testing.assert_allclose(g, w, rtol=SEQKV_TOL, atol=SEQKV_TOL)
         else:
             assert max_err(g, w) <= MODEL_TOL
+
+
+def test_heads_that_do_not_divide_run_whole(ranks):
+    """6 query heads over ``model`` 4: every attention layer runs whole
+    after the gather (its leaves whole, counted ``attn_whole``), the MLPs
+    and the vocabulary split; logits and cache within the model bound of
+    the one-process run, greedy tokens equal."""
+    want = split_counts("qwen2.5-3b")
+    want["attn_whole"] = want.pop("attn")
+    for r in ranks["whole heads"]:
+        assert r["logits_err"] <= MODEL_TOL and r["cache_err"] <= MODEL_TOL and r["tokens_equal"]
+        assert r["held_ok"] and r["local_leaves"] > 0
+        assert {k: v for k, v in r["counts"].items() if k != "collectives"} == want
+
+
+def test_dry_run_counts_a_split_decode_step(ranks):
+    """One rank's ``OpCounter`` count of the ``tp`` decode step at 1 x 2
+    (smoke qwen2.5-3b) against the dry run's count of that step at
+    ``local_config(cfg, 2)``: the products (projections, MLP, logits and
+    the kernels' charges) are the same flops; the split step adds the
+    gathers' concatenations, the embedding's mask and the collectives (10
+    all-gathers: o, wo, the MLP's h and down in each of 2 layers, the
+    logits, the new K/V rows; 1 all-reduce: the embedding)."""
+    for r in ranks["count"]:
+        assert r["ranks"]["products"] == r["dry"]["products"] > 0
+        assert r["ranks"]["coll_counts"] == {"all-gather": 10, "all-reduce": 1}
+        assert r["dry"]["coll_counts"] == {}
+        assert r["ranks"]["flops"] >= r["dry"]["flops"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-mla"])
+def test_lm_init_keep_draws_the_same_weights(arch):
+    """``lm_init(keep=...)`` (how one rank draws only its shards of a
+    model it cannot hold whole) keeps what ``keep`` returns of the very
+    tensors a plain ``lm_init`` from the same seed draws, the fp32
+    unembedding copy made from the kept table."""
+    from repro_torch.core import tree
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch, smoke=True)
+    kw = dict(device=torch.device("cpu"), dtype=torch.bfloat16)
+    whole = transformer.lm_init(torch.Generator().manual_seed(5), cfg, **kw)
+    half = lambda t: torch.chunk(t, 2, dim=-1)[1].clone() if t.ndim > 1 else t
+    kept = transformer.lm_init(torch.Generator().manual_seed(5), cfg, **kw,
+                               keep=lambda path, t: half(t))
+    got = dict(tree.leaves_with_paths(kept))
+    for path, t in tree.leaves_with_paths(whole):
+        assert torch.equal(got[path], half(t)), path
 
 
 def test_moe_dispatch_on_ranks_equals_one_rank(ranks, refs):

@@ -110,7 +110,8 @@ def _mesh(spec):
 # --------------------------------------------------------------------------- #
 # cases
 # --------------------------------------------------------------------------- #
-def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len):
+def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_changes=None,
+               whole=()):
     """Prefill ``prompt`` and decode ``tokens`` (teacher-forced, one column
     a step, at per-row lengths) through ``jit_serve_fns`` on a ``spec``
     mesh of ranks, the parameters and the cache placed as ``DTensor``s.
@@ -122,27 +123,38 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len):
     * other policies: against the one-process run without a mesh, by
       ``test_torch_model.py``'s measure.
 
-    Returns the gathered logits of each call (for the JAX reference) and
-    those comparisons."""
+    Returns the gathered logits of each call (for the JAX reference),
+    those comparisons, the split counts (``mesh_ctx.TP_COUNTS``) and what
+    the model computed on (:func:`_held_params`; the modules in ``whole``
+    are expected whole).  ``cfg_changes`` replaces config fields (the
+    parameters must match)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core import tree
-    from repro_torch.core.distributed import axis_index
+    from repro_torch.core.distributed import COLLECTIVES, axis_index
     from repro_torch.launch.mesh import logical_mesh
     from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import mesh_ctx as ctx_mod
     from repro_torch.runtime import serve_loop, sharding
     from repro_torch.runtime.mesh_ctx import mesh_ctx
 
-    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **(cfg_changes or {}))
     model = build_model(cfg)
     mesh = _mesh(spec)
     prompt, tokens = torch.as_tensor(prompt), torch.as_tensor(tokens)
     b, p_len = prompt.shape
     cache = model.init_cache(params, b, max_len)
+    held = []
+    for name in ("prefill", "decode_step"):  # record the tree each call computes on
+        setattr(model, name, _recording(getattr(model, name), held))
     compile_prefill, compile_decode, sh = serve_loop.jit_serve_fns(
         model, mesh, model.init(None, "meta"), cache, policy=policy)
     placed_p = sharding.place(params, sh["params"])
     placed_c = sharding.place(cache, sh["cache"])
     got = []
+    ctx_mod.TP_COUNTS.clear()
+    n_coll = sum(COLLECTIVES.values())
     with mesh_ctx(mesh, policy):
         logits, ret = compile_prefill(prompt)(placed_p, placed_c, prompt)
         got.append(logits)
@@ -151,6 +163,8 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len):
             lens = np.full((b,), p_len + i, np.int32)  # per row: each rank takes its own
             logits, ret = compile_decode(tok)(placed_p, placed_c, tok, lens)
             got.append(logits)
+    counts = dict(ctx_mod.TP_COUNTS, collectives=sum(COLLECTIVES.values()) - n_coll)
+    model = build_model(cfg)
 
     # the one-process run: seqkv over this rank's data rows on the logical
     # 1 x M mesh, otherwise the whole batch without a mesh
@@ -181,9 +195,87 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len):
         logits=[g.numpy() for g in got],
         logits_equal=all(torch.equal(g[sel], w) for g, w in zip(got, want)),
         logits_err=max(_max_err(g[sel], w) for g, w in zip(got, want)),
+        tokens_equal=all(torch.equal(g[sel].argmax(-1), w.argmax(-1)) for g, w in zip(got, want)),
         cache_equal=all(torch.equal(a, w) for a, w in pairs),
         cache_err=max(_max_err(a, w) for a, w in pairs),
-        returned_cache=ret is placed_c)
+        returned_cache=ret is placed_c, counts=counts,
+        **_held_params(params, held, sh["params"], mesh, cfg, policy, whole))
+
+
+def _recording(fn, held):
+    def call(params, *a, **k):
+        held.append(params)
+        return fn(params, *a, **k)
+
+    return call
+
+
+def _held_params(params, held, shardings, mesh, cfg, policy, whole) -> dict:
+    """What each call computed on, against the whole parameters: the
+    leaves a split keeps local (the spec names ``model``; an attention
+    layer, a dense MLP or an embedding table) must be ``1 / m`` of their
+    whole elements and every other leaf whole, in every call.  Returns
+    that check, the count of local leaves and the computed-on share of
+    the whole model's bytes."""
+    from repro_torch.core import tree
+    from repro_torch.runtime import sharding
+
+    m = mesh.shape["model"] if policy in ("tp", "tp_fsdp") else 1
+    specs = {sharding.path_str(p): sh.spec for p, sh in tree.leaves_with_paths(shardings)}
+    full = {sharding.path_str(p): t for p, t in tree.leaves_with_paths(params)}
+
+    def local(name):
+        parts = name.split("/")
+        split_module = parts[0] in ("embed", "unembed") or (
+            parts[0] == "layers" and parts[2] in ("attn", "mlp") and not cfg.n_experts
+            and parts[2] not in whole)
+        return (m > 1 and split_module
+                and "model" in {a for e in specs[name] for a in sharding.spec_axes(e)})
+
+    ok, shares = True, []
+    for tree_ in held:
+        got = {sharding.path_str(p): t for p, t in tree.leaves_with_paths(tree_)}
+        for name, t in got.items():
+            ok = ok and t.numel() == full[name].numel() // (m if local(name) else 1)
+        shares.append(sum(t.nbytes for t in got.values())
+                      / sum(t.nbytes for t in full.values()))
+    return dict(held_ok=ok and bool(held), local_leaves=sum(map(local, full)),
+                held_share=max(shares))
+
+
+def count_case(*, arch, params, spec, policy, max_len):
+    """One ``tp`` decode step on a ``spec`` mesh of ranks (a batch of 2,
+    every cache row below ``max_len - 1`` live) counted by ``OpCounter``
+    in this rank, and the dry run's count of the same step: the model at
+    ``launch/dryrun.local_config``'s widths on meta stand-ins.  Returns
+    both counts' flops, bytes, products' flops, ops and collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import local_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.runtime import serve_loop, sharding
+    from repro_torch.runtime.mesh_ctx import mesh_ctx
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    mesh = _mesh(spec)
+    b, pos = 2, max_len - 1
+    cache = model.init_cache(params, b, max_len)
+    tok = torch.full((b, 1), 7, dtype=torch.int64)
+    _, compile_decode, sh = serve_loop.jit_serve_fns(model, mesh, model.init(None, "meta"), cache,
+                                                     policy=policy)
+    placed = sharding.place((params, cache), (sh["params"], sh["cache"]))
+    decode = compile_decode(tok)
+    with mesh_ctx(mesh, policy), OpCounter() as ranks:
+        decode(*placed, tok, np.full((b,), pos, np.int32))
+    lmodel = build_model(local_config(cfg, mesh.shape["model"]))
+    lparams = lmodel.init(None, "meta", dtype=torch.float32)
+    lcache = lmodel.init_cache(lparams, b, max_len)
+    with OpCounter() as dry:
+        lmodel.decode_step(lparams, lcache, tok.to("meta"), pos)
+    return {k: dict(flops=c.cost.flops, bytes=c.cost.bytes, products=c.products.flops,
+                    ops=c.n_ops, coll=dict(c.cost.coll), coll_counts=dict(c.cost.coll_counts))
+            for k, c in (("ranks", ranks), ("dry", dry))}
 
 
 def moe_dispatch_case(*, params, spec, prompt, tokens, max_len):
@@ -466,6 +558,7 @@ def _gather_rows_adjoint(mesh) -> bool:
 
 CASES = {
     "serve": serve_case,
+    "count": count_case,
     "moe": moe_dispatch_case,
     "train": train_case,
     "reshard": reshard_case,
