@@ -5188,37 +5188,49 @@ def _hold_rank_step(one_rank, before, after, m, batch, step):
     and ``grad_norm``, and the parameters' differences by
     ``tests/test_torch_train_loop.py``'s rule: where the one-rank first
     moment exceeds 2^-8 of its leaf's largest, against 2e-3 of the
-    leaf's largest parameter; everywhere, against 2 lr (Adam moves a
-    noise-level element by about lr either way)."""
+    leaf's largest parameter (``resolved``); everywhere, against 2 lr
+    (Adam moves a noise-level element by about lr either way).
+    ``resolved_model`` reads the first rule where the first moment exceeds
+    2^-8 of the model's largest instead (a leaf whose gradients are all
+    far below the model's, such as a zero-initialized bias or norm scale,
+    whose largest parameter after one step is lr, is then held by the 2 lr
+    rule).  The worst leaf of each rule is named."""
     from repro_torch.core import tree
+    from repro_torch.runtime.sharding import path_str
 
     p1, o1, _, m1 = one_rank(*before, None, batch, step)
-    resolved = anywhere = 0.0
-    for a, b, g in zip(tree.leaves(after), tree.leaves(p1), tree.leaves(o1.mu), strict=True):
+    top = max(float(g.abs().max()) for g in tree.leaves(o1.mu))
+    out = {"resolved": 0.0, "resolved_model": 0.0, "anywhere": 0.0}
+    worst = {}
+    for (path, a), b, g in zip(tree.leaves_with_paths(after), tree.leaves(p1), tree.leaves(o1.mu),
+                               strict=True):
         d = (a - b).abs()
-        big = g.abs() > 2.0**-8 * g.abs().max()
-        if big.any():
-            resolved = max(resolved, float(d[big].max() / b.abs().max()))
-        anywhere = max(anywhere, float(d.max()) / (2 * float(m1["lr"])))
+        errs = {"anywhere": float(d.max()) / (2 * float(m1["lr"]))}
+        for key, floor in (("resolved", g.abs().max()), ("resolved_model", top)):
+            big = g.abs() > 2.0**-8 * floor
+            if big.any():
+                errs[key] = float(d[big].max() / b.abs().max())
+        for key, err in errs.items():
+            if err > out[key]:
+                out[key], worst[key] = err, path_str(path)
     rel = {k: abs(m[k] - float(m1[k])) / abs(float(m1[k])) for k in ("loss", "grad_norm")}
-    return dict(rel, resolved=resolved, anywhere=anywhere,
-                one_rank={k: float(v) for k, v in m1.items()})
+    return dict(rel, **out, worst=worst, one_rank={k: float(v) for k, v in m1.items()})
 
 
-def rank_train_state(steps=RANK_TRAIN_STEPS):
+def rank_train_state(steps=RANK_TRAIN_STEPS, dev="cuda", smoke=False):
     """qwen1.5-0.5b at full width: the ranks' initial state (fp32 master
     from seed 0, as ``init_train_state`` makes it), the step's
     TrainConfig (remat) and ``steps`` global batches of 8 x 2048 from
-    seed 1."""
+    seed 1 (``smoke``: the smoke config, 8 x 32)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime.train_loop import TrainConfig, init_train_state
 
-    cfg = get_config("qwen1.5-0.5b")
-    params, opt, _ = init_train_state(build_model(cfg), torch.Generator("cuda").manual_seed(0),
-                                      "cuda")
-    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8, seed=1)
+    cfg = get_config("qwen1.5-0.5b", smoke=smoke)
+    params, opt, _ = init_train_state(build_model(cfg), torch.Generator(dev).manual_seed(0), dev)
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32 if smoke else 2048,
+                           global_batch=8, seed=1)
     return dict(tc=TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=20, remat=True),
                 params=params, opt=opt, batches=[data.batch_at(i) for i in range(steps)],
                 n_layers=cfg.n_layers)
@@ -5327,6 +5339,9 @@ TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
 # more rows; qwen2.5-3b's 2048 give K6 four 512-key splits, so K3 runs
 TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128), "d": ("qwen2.5-3b", "tp_fsdp", 2048)}
 TP_GEOM = ("qwen2.5-3b rank", 8, 1, 128, None, None)  # one rank of 1 x 2: 8 / 1 heads
+# one rank of the split train step: 8 of qwen1.5-0.5b's 16 heads (MHA, Dh 64)
+TP_TRAIN_GEOM = ("qwen1.5-0.5b rank", 8, 8, 64, None, None)
+TP_TRAIN_B, TP_TRAIN_S = 8, 2048
 
 
 def tp_kernel_cases(dtype):
@@ -5334,7 +5349,8 @@ def tp_kernel_cases(dtype):
     gives them: K4 over 64 of deepseek-v2-mla's 128 heads (decode after
     16 steps, and the 64-token prompt, G = 64 x 64), K6 at 8 query heads
     over 1 kv head (qwen2.5-3b on 1 x 2, the 2048-row cache: 4 splits +
-    K3), K7 at 8 heads over the 64-token prompt."""
+    K3), K7 at 8 heads over the 64-token prompt; K7 at 8 of qwen1.5-0.5b's
+    16 heads over the split train step's 8 x 2048 (causal, Dh 64)."""
     kv = np.full(TP_BATCH, TP_PROMPT + TP_STEPS)
     prompt_pos = np.tile(np.repeat(np.arange(TP_PROMPT), 64), (TP_BATCH, 1))
     return [
@@ -5345,6 +5361,9 @@ def tp_kernel_cases(dtype):
         ("K6 rank 8/1 decode", gqa_case("K6", TP_GEOM, TP_BATCH, 1, 2048, kv, dtype, 72)),
         ("K7 rank 8 heads prefill 64", gqa_case("K7", TP_GEOM, TP_BATCH, TP_PROMPT, 2048,
                                                np.full(TP_BATCH, TP_PROMPT), dtype, 73)),
+        ("K7 rank 8 heads train 8 x 2048", gqa_case(
+            "K7", TP_TRAIN_GEOM, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_S,
+            np.full(TP_TRAIN_B, TP_TRAIN_S), dtype, 74)),
     ]
 
 
@@ -5353,14 +5372,15 @@ def tp_kernel_phase(flush):
     versions, then time them (bf16, amla) beside their bounds, the plain
     versions and SDPA."""
     log("== kernel phase: K4 at G 64, K6 at 8 / 1 heads (+ K3), K7 at 8 heads: one rank's "
-        "shapes in the tensor-parallel phase ==")
+        "shapes in the tensor-parallel serve and train phases ==")
     worst = hold_dense_cases(tp_kernel_cases)
     bf = torch.bfloat16
     cases = dict(tp_kernel_cases(bf))
     timed = [("K4", "rank decode G 64", cases["K4 rank decode G 64"]),
              ("K4", "rank prefill 64 x 64", cases["K4 rank prefill 64 x 64"]),
              ("K6", "rank 8/1 decode", cases["K6 rank 8/1 decode"]),
-             ("K7", "rank 8 heads prefill 64", cases["K7 rank 8 heads prefill 64"])]
+             ("K7", "rank 8 heads prefill 64", cases["K7 rank 8 heads prefill 64"]),
+             ("K7", "rank 8 heads train 8 x 2048", cases["K7 rank 8 heads train 8 x 2048"])]
     del cases
     return worst, time_dense_rows(timed, flush)
 
@@ -5410,7 +5430,9 @@ def tp_reference(label, dev="cuda", smoke=False):
     from seed 0), 4 prompts of 64 tokens (seed 0) and 16 greedy decode
     steps through ``prefill`` / ``decode_step``; what the ranks are held
     against; then the same weights at fp32 compute fed those tokens (the
-    yardstick of the logits gate).  Frees its weights before it returns."""
+    yardstick of the logits gate), and at fp32 compute greedy (its own
+    tokens: what the ranks' fp32-compute run is held to, token for token).
+    Frees its weights before it returns."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5436,6 +5458,8 @@ def tp_reference(label, dev="cuda", smoke=False):
     cache = model32.init_cache(params, TP_BATCH, max_len)
     f32 = tp_serve(model32.prefill, model32.decode_step, params, cache, prompts, forced=tokens,
                    dev=dev)[0]
+    cache = model32.init_cache(params, TP_BATCH, max_len)
+    tokens32 = tp_serve(model32.prefill, model32.decode_step, params, cache, prompts, dev=dev)[1]
     err = logit_share(logits, f32)
     log(f"({label}) one process: {cfg.name} {cfg.n_layers} layers, {cfg.n_heads} heads, "
         f"{whole / 2**30:.2f} GiB of bf16 weights (the fp32 unembedding copy included) built "
@@ -5447,7 +5471,7 @@ def tp_reference(label, dev="cuda", smoke=False):
     release()
     return dict(label=label, arch=arch, policy=policy, max_len=max_len, prompts=prompts,
                 tokens=tokens, logits=logits, f32=f32, f32_err=err, whole=whole,
-                layers=cfg.n_layers)
+                layers=cfg.n_layers, tokens32=tokens32)
 
 
 def logit_share(got, want) -> float:
@@ -5486,7 +5510,11 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
     once, so the whole model is never resident here), the cache placed as
     the specs lay it out, the prompts prefilled and the one-process run's
     tokens fed through ``jit_serve_fns``' prefill and decode.  Records the
-    shapes K4, K6 and K7 launch at (their CUDA launch paths wrapped)."""
+    shapes K4, K6 and K7 launch at (their CUDA launch paths wrapped).
+    Then the same shards at fp32 compute (weights unchanged, an fp32
+    cache), greedy: its tokens and launches."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core import distributed, tree
     from repro_torch.kernels import flash_prefill as fp
@@ -5559,17 +5587,31 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
             counted("prefill", compile_prefill(p_like)), counted("decode", compile_decode(t_like)),
             params, cache, prompts, forced=forced, dev=dev)
         launches = [c for c, _ in read_counts(tp_counters())]
+        counts = dict(mesh_ctx.TP_COUNTS)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     peak = torch.cuda.max_memory_allocated() if gpu else 0
+    # fp32 compute on the same shards, greedy, from an fp32 cache
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    compile_prefill, compile_decode, sh32 = jit_serve_fns(
+        model32, mesh, like, model32.init_cache(like, TP_BATCH, max_len), policy=policy)
+    cflat = dict(tree.leaves_with_paths(sh32["cache"]))
+    cache = tree.map_with_paths(lambda p, t: sharding.from_local(
+        sharding.shard_one(t, cflat[p]).clone(), cflat[p], t.shape),
+        model32.init_cache(local, TP_BATCH, max_len))
+    zero_counts(tp_counters())
+    tokens32 = tp_serve(compile_prefill(p_like), compile_decode(t_like), params, cache, prompts,
+                        dev=dev)[1]
+    launches32 = [c for c, _ in read_counts(tp_counters())]
     res = dict(logits=[x.numpy() for x in logits], tokens=tokens, t_prefill=t_prefill,
                times=times,
                t_build=t_build, resident=resident, allocated=allocated, peak=peak,
                whole=sum(t.nbytes for t in tree.leaves(like)), launches=launches,
-               counts=dict(mesh_ctx.TP_COUNTS), seen={k: sorted(v) for k, v in seen.items()},
+               counts=counts, seen={k: sorted(v) for k, v in seen.items()},
                coll_prefill=calls["prefill"][0], coll_step=calls["decode"][-1],
-               device=str(torch.cuda.current_device()) if gpu else "cpu")
+               device=str(torch.cuda.current_device()) if gpu else "cpu", tokens32=tokens32,
+               launches32=launches32)
     del params, cache, local
     gc.collect()
     if gpu:
@@ -5589,7 +5631,10 @@ def tp_phase(card, dev="cuda", smoke=False):
     tokens, 16 greedy decode steps; :func:`tp_reference`), its weights
     freed; then each rank draws the same weights from seed 0 keeping only
     its shards, prefills the prompts and decodes the one-process run's
-    tokens (:func:`_tp_rank_cell`).  Gates per rank: at least
+    tokens (:func:`_tp_rank_cell`), then runs the same shards at fp32
+    compute, greedy.  Gates per rank: at fp32 compute all 64 decode steps'
+    greedy tokens (and the prefill's) equal to the one-process fp32-compute
+    run's, with the bf16 run's launches; at bf16 at least
     ``TP_MIN_TOKENS`` of the 64 decode steps' greedy tokens equal to the
     one-process run's, every call's logits within ``TP_LOGIT_TOL`` of its
     largest one-process logit or, where the one-process bf16 run is
@@ -5631,6 +5676,12 @@ def tp_phase(card, dev="cuda", smoke=False):
                               and x["seen"]["K6"] == [(1, 8)] and x["seen"]["K7"] == [8])
             same = all(np.array_equal(a, b)
                        for a, b in zip(x["logits"], ranks[0][label]["logits"]))
+            agree32 = int((x["tokens32"][:, 1:] == ref["tokens32"][:, 1:]).sum())
+            same32 = np.array_equal(x["tokens32"], ref["tokens32"])
+            log(f"({label}) rank {r} at fp32 compute (same shards, fp32 cache, greedy): tokens "
+                f"equal to the one-process fp32-compute run's {agree32} of {TP_BATCH * TP_STEPS} "
+                f"(all, the prefill's included: {same32}; must be all); launches K4, K6, K7, K3 "
+                f"{x['launches32']}; card {card}")
             log(f"({label}) rank {r} ({ref['arch']}, {ref['policy']}): parameters held "
                 f"{x['resident'] / 2**30:.2f} GiB = {share:.4f} of the whole "
                 f"{ref['whole'] / 2**30:.2f} GiB (allocated after the build {x['allocated'] / 2**30:.2f} GiB, drawn in "
@@ -5650,10 +5701,244 @@ def tp_phase(card, dev="cuda", smoke=False):
                     or share > TP_RESIDENT_SHARE
                     or x["counts"] != split or not kernels_ok or not same):
                 failed.append(f"({label}) rank {r}")
-            total = [a + b for a, b in zip(total, x["launches"])]
+            if not same32 or x["launches32"] != x["launches"]:
+                failed.append(f"({label}) rank {r} at fp32 compute: tokens not the one-process "
+                              "fp32-compute run's, or its launches not the bf16 run's")
+            total = [a + b + c for a, b, c in zip(total, x["launches"], x["launches32"])]
     if failed:
         raise SystemExit("tensor-parallel phase: outside its gates: " + ", ".join(failed))
     return tuple(total)
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel train steps on ranks: heads, d_ff and vocabulary by model
+# --------------------------------------------------------------------------- #
+TP_TRAIN_TIMEOUT = 540.0  # s for the phase's two processes; then they are killed
+TP_TRAIN_STEPS = 2
+# label -> (policy, compute dtype): (e) at fp32 compute (the fp32 master
+# state unchanged), (f) at the config's bf16
+TP_TRAIN_CELLS = {"e": ("tp", "float32"), "f": ("tp_fsdp", "bfloat16")}
+
+
+def _tp_train_rank_main(rank, world, store_path, train, dev, smoke, out):
+    """One rank of the tensor-parallel train phase (a spawned process on
+    ``cuda:0`` in a gloo group).  Puts ``(rank, results)`` or ``(rank,
+    traceback)`` on ``out``."""
+    import traceback
+
+    try:
+        out.put((rank, _tp_train_rank(rank, world, store_path, train, dev, smoke)))
+    except Exception:  # the parent fails the phase with this traceback
+        out.put((rank, traceback.format_exc()))
+
+
+def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
+    """Each cell of ``TP_TRAIN_CELLS``: ``TP_TRAIN_STEPS`` steps of
+    qwen1.5-0.5b through ``jit_train_step`` on the 1 x 2 mesh (the first
+    from the parent's full state, the next from this rank's shards).  Both
+    ranks gather the state before each step and the new parameters after
+    it; rank 0 holds the step against ``make_train_step`` on one rank from
+    that state (:func:`_hold_rank_step`), at the cell's compute dtype and,
+    for a bf16 cell, at fp32 compute too (the yardstick of its gate).
+    Records the step times, the gloo calls and bytes of each step, the
+    peak, the bytes of parameters + moments held, the split counts, what
+    the loss computed on (each kept leaf's share of its whole) and K7's
+    launches and head counts."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed, tree
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import mla_decode_combine as comb
+    from repro_torch.launch.mesh import init_process_group, rank_mesh
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import mesh_ctx, sharding
+    from repro_torch.runtime.train_loop import jit_train_step, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_process_group("gloo", rank=rank, world_size=world,
+                       store=dist.FileStore(store_path, world), device=dev)
+    gpu = dev != "cpu"
+    sync = torch.cuda.synchronize if gpu else (lambda: None)
+    counters = (gd.gqa_decode_rows, comb.combine_split_partials, fp.flash_prefill)
+    mesh = rank_mesh("1x2", dev)
+    base = get_config("qwen1.5-0.5b", smoke=smoke)
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    whole = {sharding.path_str(p): t.numel() for p, t in tree.leaves_with_paths(train["params"])}
+    heads = set()
+    prefill_cuda = fp._prefill_cuda
+
+    def spy(q, *a, **k):
+        heads.add(q.shape[1])
+        return prefill_cuda(q, *a, **k)
+
+    fp._prefill_cuda = spy
+    res = {}
+    try:
+        for label, (policy, dtype) in TP_TRAIN_CELLS.items():
+            cfg = dataclasses.replace(base, dtype=dtype)
+            model = build_model(cfg)
+            held = []
+            loss = model.loss
+
+            def recording(params, *a, **k):
+                if not held:
+                    held.append({sharding.path_str(p): t.numel()
+                                 for p, t in tree.leaves_with_paths(params)})
+                return loss(params, *a, **k)
+
+            model.loss = recording
+            compile_for, sh = jit_train_step(model, train["tc"], mesh, train["params"],
+                                             policy=policy)
+            plan = sharding.tp_plan(cfg, mesh, policy, sh["params"])
+            specs = {sharding.path_str(p): s.spec for p, s in tree.leaves_with_paths(sh["params"])}
+            one_rank = make_train_step(build_model(cfg), train["tc"])
+            one32 = None if dtype == "float32" else make_train_step(build_model(cfg32), train["tc"])
+            state = (train["params"], train["opt"], None)
+            heads.clear()
+            zero_counts(counters)
+            mesh_ctx.TP_COUNTS.clear()
+            sync()
+            if gpu:
+                torch.cuda.reset_peak_memory_stats()
+            metrics, times, holds, coll = [], [], [], []
+            for i, batch in enumerate(train["batches"][:TP_TRAIN_STEPS]):
+                before = [tree.tree_map(sharding.full_value, t) for t in state[:2]]  # gathered
+                step = compile_for(batch)
+                n0 = dict(distributed.COLLECTIVES), dict(distributed.COLLECTIVE_BYTES)
+                sync()
+                t0 = time.perf_counter()
+                *state, m = step(*state, batch, 10 + i)
+                metrics.append({k: float(v) for k, v in m.items()})
+                sync()
+                times.append(1e3 * (time.perf_counter() - t0))
+                coll.append((sum(distributed.COLLECTIVES.values()) - sum(n0[0].values()),
+                             sum(distributed.COLLECTIVE_BYTES.values()) - sum(n0[1].values())))
+                after = tree.tree_map(sharding.full_value, state[0])
+                if rank == 0:  # the peer waits in the next collective meanwhile
+                    counted, seen = read_counts(counters), set(heads)
+                    h = _hold_rank_step(one_rank, before, after, metrics[-1], batch, 10 + i)
+                    if one32 is not None:
+                        h["f32"] = {k: float(v) for k, v in one32(*before, None, batch,
+                                                                  10 + i)[3].items()}
+                    holds.append(h)
+                    for fn, (c, mma) in zip(counters, counted):  # the holds' launches not counted
+                        fn.launches = c
+                        if mma is not None:
+                            fn.mma_launches = mma
+                    heads.clear()
+                    heads.update(seen)
+                del before, after
+            local = sum(x.to_local().nbytes for x in tree.leaves(state[:2]))
+            kept = [n for n in whole if plan.keeps(n, specs[n])]
+            res[label] = dict(
+                metrics=metrics, times=times, holds=holds, coll=coll,
+                launches=[c for c, _ in read_counts(counters)], heads=sorted(heads),
+                peak=torch.cuda.max_memory_allocated() / 2**30 if gpu else 0.0, held_bytes=local,
+                whole_bytes=3 * 4 * sum(whole.values()), counts=dict(mesh_ctx.TP_COUNTS),
+                kept=len(kept), kept_halves=all(held[0][n] * 2 == whole[n] for n in kept),
+                rest_whole=all(held[0][n] == whole[n] for n in whole if n not in kept),
+                replicated=sorted(n for n in whole if not any(specs[n])))
+            del state, compile_for
+            gc.collect()
+            if gpu:
+                torch.cuda.empty_cache()
+    finally:
+        fp._prefill_cuda = prefill_cuda
+    dist.destroy_process_group()
+    return res
+
+
+def tp_train_phase(card, dev="cuda", smoke=False):
+    """Two ranks on ``cuda:0`` in a gloo group, spawned, running
+    ``jit_train_step`` split by ``model`` on a 1 x 2 mesh: qwen1.5-0.5b at
+    full width (24 layers, 16 heads x 64, d_ff 2816, vocabulary 151 936,
+    tied), the global batch 8 x 2048 (seed 1), remat, ``TP_TRAIN_STEPS``
+    steps of (e) ``tp`` at fp32 compute and (f) ``tp_fsdp`` at bf16, from
+    the fp32 master state of seed 0 (:func:`_tp_train_rank`).  Rank 0
+    holds each step against ``make_train_step`` on one rank from the same
+    gathered state and batch.  Gates: (e) loss and ``grad_norm`` within
+    ``RANK_TRAIN_REL``, the parameters by ``RANK_PARAM_TOL`` where the
+    gradient exceeds 2^-8 of the model's largest (``resolved_model``: the
+    zero-initialized biases and norm scales of this random model get
+    gradients near 1e-4 of the model's largest, which the split's sums
+    move by a fraction of the lr they step by) and within 2 lr
+    everywhere; (f) loss and
+    ``grad_norm`` within ``RANK_TRAIN_REL`` or no farther from the
+    one-rank fp32-compute step than ``TP_F32_FACTOR`` times the one-rank
+    bf16 step is; both ranks the same metrics; each kept leaf half its
+    whole in what the loss computed on, every other leaf whole; a rank's
+    parameters + moments at most ``TP_RESIDENT_SHARE`` of the whole; every
+    attention layer, MLP, lookup and loss split (``mesh_ctx.TP_COUNTS``,
+    the layers twice a step: remat); K7 = layers x 2 x steps a rank at 8
+    heads, no K6 or K3.  The step times are gloo through host memory on
+    one card (the two ranks share its SMs), not a multi-card number.
+    Returns the ranks' K7 launches.  ``tp_train_phase("x", dev="cpu",
+    smoke=True)`` runs the phase on the CPU at smoke widths (its K7 gate
+    fails there: the plain version counts no launches)."""
+    log(f"== tensor-parallel train phase: jit_train_step split by model on 1 x 2 ranks (2 ranks "
+        f"on {dev}, spawned, gloo), card {card} ==")
+    t0 = time.perf_counter()
+    train = rank_train_state(TP_TRAIN_STEPS, dev, smoke)
+    n = train["n_layers"]
+    ranks = _spawn_ranks(2, (train, dev, smoke), TP_TRAIN_TIMEOUT, _tp_train_rank_main)
+    log(f"two ranks spawned, ran (e) and (f) and exited; the phase {time.perf_counter() - t0:.1f} "
+        f"s")
+    steps, k7, failed = TP_TRAIN_STEPS, 0, []
+    split = {"attn": n * 2 * steps, "mlp": n * 2 * steps, "embed": steps, "logits": steps}
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for label, (policy, dtype) in TP_TRAIN_CELLS.items():
+        for r, res in enumerate(ranks):
+            x = res[label]
+            k6, k3, k7x = x["launches"]
+            share = x["held_bytes"] / x["whole_bytes"]
+            log(f"({label}) rank {r} qwen1.5-0.5b {policy} at {dtype} compute: " + "; ".join(
+                f"loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f}" for m in x["metrics"])
+                + f"; {', '.join(f'{t:.1f}' for t in x['times'])} ms/step (gloo through host "
+                f"memory on one card, not a multi-card number); gloo calls / GiB a step "
+                f"{[(c, round(b / 2**30, 3)) for c, b in x['coll']]}; peak {x['peak']:.2f} GiB; "
+                f"parameters + moments held {x['held_bytes'] / 2**30:.3f} GiB = {share:.4f} of "
+                f"the whole {x['whole_bytes'] / 2**30:.3f} GiB (replicated leaves: "
+                f"{len(x['replicated'])}); kept leaves {x['kept']}, each half its whole in what "
+                f"the loss computed on: {x['kept_halves']}, the rest whole: {x['rest_whole']}; "
+                f"split counts {x['counts']}; K7 {k7x} at heads {x['heads']}, K6 {k6}, K3 {k3}; "
+                f"card {card}")
+            for i, h in enumerate(x["holds"]):
+                one = h["one_rank"]
+                line = (f"    step {i}: one rank from the same state: loss {one['loss']:.6f} "
+                        f"grad_norm {one['grad_norm']:.6f}; relative: loss {h['loss']:.2e}, "
+                        f"grad_norm {h['grad_norm']:.2e} (tol {RANK_TRAIN_REL}); params where the "
+                        f"gradient exceeds 2^-8 of the model's largest {h['resolved_model']:.2e} of "
+                        f"the leaf max (tol {RANK_PARAM_TOL}; {h['worst']['resolved_model']}), of "
+                        f"the leaf's largest {h['resolved']:.2e} ({h['worst']['resolved']}), "
+                        f"everywhere {h['anywhere']:.3f} x 2 lr (tol 1; {h['worst']['anywhere']})")
+                ok = max(h["loss"], h["grad_norm"]) <= RANK_TRAIN_REL
+                if "f32" in h:
+                    m, f32 = x["metrics"][i], h["f32"]
+                    far = {k: (rel(m[k], f32[k]), rel(one[k], f32[k])) for k in ("loss", "grad_norm")}
+                    line += "; from the one-rank fp32-compute step: " + ", ".join(
+                        f"{k} split {a:.2e} vs one-rank bf16 {b:.2e}" for k, (a, b) in far.items())
+                    ok = ok or all(a <= TP_F32_FACTOR * b for a, b in far.values())
+                else:
+                    ok = ok and h["resolved_model"] <= RANK_PARAM_TOL and h["anywhere"] <= 1 + 1e-4
+                log(line)
+                if not ok:
+                    failed.append(f"({label}) step {i}: outside the one-rank step's bounds")
+            if (x["metrics"] != ranks[0][label]["metrics"] or share > TP_RESIDENT_SHARE
+                    or not (x["kept_halves"] and x["rest_whole"] and x["kept"] > 0)
+                    or x["counts"] != split or (k6, k3, k7x) != (0, 0, n * 2 * steps)
+                    or x["heads"] != [8] or (r == 0) != (len(x["holds"]) == steps)):
+                failed.append(f"({label}) rank {r}: metrics differ from rank 0's, or the split's "
+                              "leaves, counts, share or K7 launches are not as gated")
+            k7 += k7x
+    if failed:
+        raise SystemExit("tensor-parallel train phase: " + "; ".join(failed))
+    del train
+    return k7
 
 
 def mma_ptxas(log_text):
@@ -5805,6 +6090,8 @@ def main(argv: list[str]) -> int:
     release()
     k4p, k6p, k7p, k3p = tp_phase(smi)
     release()
+    k7tt = tp_train_phase(smi)
+    release()
     _, (k7tr, k6tr, k3tr) = train_phases(smi)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
@@ -5869,7 +6156,7 @@ def main(argv: list[str]) -> int:
              bound_by=t6[3], library_ms=t6[4]),
         dict(name="flash_prefill", route="cuda", source=mma_src,
              replaces="src/repro/kernels/flash_prefill.py:149",
-             launches=k7 + k7f + k7v + k7tr + k7r + k7p,
+             launches=k7 + k7f + k7v + k7tr + k7r + k7p + k7tt,
              max_abs_err=derr("K7"), ms=t7[0], plain_ms=t7[1], bound_ms=t7[2],
              bound_by=t7[3], library_ms=t7[4]),
     ]

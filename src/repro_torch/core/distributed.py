@@ -30,7 +30,13 @@ single-controller walk concatenates and gives the same bits.
 
 The collectives (:func:`all_gather_dim`, :func:`all_reduce_sum`) run over
 the per-axis groups of the mesh's ``DeviceMesh``; each call into the
-process group (of more than one rank) adds one to :data:`COLLECTIVES`.
+process group (of more than one rank) adds one to :data:`COLLECTIVES`
+and its result's bytes to :data:`COLLECTIVE_BYTES`.
+:func:`copy_to_model` (and :func:`products_from_model`, the same in
+front of products whose partial cotangents it keeps in fp32),
+:func:`gather_from_model` and :func:`reduce_from_model` are their
+differentiable forms over ``model`` that a tensor-parallel train step
+computes through.
 """
 
 from __future__ import annotations
@@ -46,8 +52,16 @@ from repro_torch.kernels.gqa_decode import DEFAULT_BLOCK_K, gqa_decode_rows
 # kernels' BIG_NEG, about -3e38, or -inf).
 EMPTY_LSE = -1.0e38
 
-# process-group calls made by this process: {"all_gather": n, "all_reduce": n}
+# process-group calls made by this process: {"all_gather": n, "all_reduce": n, ...},
+# and the bytes of their results (an all-gather's gathered tensor, an
+# all-reduce's or an all-to-all's tensor)
 COLLECTIVES = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
+COLLECTIVE_BYTES = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[kind] += nbytes
 
 
 def combine_partials(acc, m, l) -> torch.Tensor:
@@ -123,7 +137,7 @@ def gather_group(t, dim, group):
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
-    COLLECTIVES["all_gather"] += 1
+    _count("all_gather", n * t.nbytes)
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -134,7 +148,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, axes, *, mesh) -> torch.Tensor:
     inverse of ``torch.chunk`` over each axis in turn
     (:func:`repro_torch.runtime.sharding.place_one`'s order), so the
     minor axis is gathered first.  Not differentiable
-    (:func:`gather_rows` is)."""
+    (:func:`gather_rows` and :func:`gather_from_model` are)."""
     for ax in reversed(spec_axes(axes)):
         t = gather_group(t, dim, mesh.device_mesh().get_group(ax))
     return t
@@ -151,7 +165,7 @@ def all_to_all(t: torch.Tensor, axis: str, *, mesh) -> torch.Tensor:
         return t
     t = t.contiguous()
     out = torch.empty_like(t)
-    COLLECTIVES["all_to_all"] += 1
+    _count("all_to_all", t.nbytes)
     dist.all_to_all_single(out, t, group=group)
     return out
 
@@ -165,7 +179,7 @@ def all_reduce_sum(t: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     for ax in spec_axes(axes):
         group = mesh.device_mesh().get_group(ax)
         if dist.get_world_size(group) > 1:
-            COLLECTIVES["all_reduce"] += 1
+            _count("all_reduce", t.nbytes)
             dist.all_reduce(t, group=group)
     return t
 
@@ -197,6 +211,126 @@ def gather_rows(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     a layer that must see the whole batch (the MoE dispatch) runs on this
     and keeps its own rows after (:func:`take_shard`)."""
     return _GatherRows.apply(x, spec_axes(axes), mesh)
+
+
+def all_reduce_max(t: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the ranks along ``axes`` (a
+    new tensor; no gradient)."""
+    import torch.distributed as dist
+
+    t = t.detach().clone()
+    for ax in spec_axes(axes):
+        group = mesh.device_mesh().get_group(ax)
+        if dist.get_world_size(group) > 1:
+            _count("all_reduce", t.nbytes)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def _sum_fp32(g: torch.Tensor, mesh) -> torch.Tensor:
+    """``g`` summed over ``model`` in fp32 and cast back to its dtype: the
+    ranks' partial cotangents are added once, as one rank's fp32
+    accumulation adds them, and rounded once."""
+    return all_reduce_sum(g.float(), ("model",), mesh=mesh).to(g.dtype)
+
+
+# Megatron's f and g operators over ``model``.  Every rank holds the same
+# replicated residual stream; a rank's product over its own columns sees a
+# replicated input, so its input cotangent is a partial sum (f: summed in
+# the backward); a gathered output is replicated and its cotangent is the
+# same on every rank (its adjoint keeps the rank's slice, no sum).
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_fp32(g, ctx.mesh), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return all_gather_dim(x, dim, ("model",), mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return take_shard(g, ctx.dim, ("model",), mesh=ctx.mesh).contiguous(), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_sum(x, ("model",), mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ProductsFromModel(torch.autograd.Function):
+    """``ys`` (the products ``x @ w`` for each of ``ws``, computed from a
+    detached ``x``, so that autograd gives each weight its gradient) as
+    they are, with the backward of ``copy_to_model(x)`` in front of them
+    all: each product's input cotangent ``g @ w^T`` written in fp32, the
+    partials added and summed over ``model`` in fp32, and rounded to
+    ``x``'s dtype once, as one rank's product over every column rounds
+    its own once."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, n, *tensors):
+        ctx.mesh, ctx.n, ctx.dtype = mesh, n, x.dtype
+        ctx.save_for_backward(*tensors[:n])
+        return tuple(y.view_as(y) for y in tensors[n:])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ws = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            for g, w in zip(gs, ws):
+                g2 = g.reshape(-1, g.shape[-1])
+                if g.dtype == torch.float32:
+                    part = g2 @ w.t()
+                elif g.device.type == "cpu":  # no CPU kernel for out_dtype; the products are exact
+                    part = g2.float() @ w.float().t()
+                else:
+                    part = torch.mm(g2, w.t(), out_dtype=torch.float32)
+                dx = part if dx is None else dx + part
+            dx = all_reduce_sum(dx, ("model",), mesh=ctx.mesh).to(ctx.dtype)
+            dx = dx.reshape(*gs[0].shape[:-1], dx.shape[-1])
+        return (dx, None, None, *([None] * ctx.n), *gs)
+
+
+def products_from_model(x: torch.Tensor, ws, *, mesh) -> list:
+    """``[x @ w for w in ws]``, each ``w`` (2-D) this rank's columns and
+    ``x`` replicated over ``model``: :func:`copy_to_model` in front of the
+    products, with each rank's partial input cotangent kept in fp32 until
+    the sum over ``model`` (:class:`_ProductsFromModel`)."""
+    ys = [torch.matmul(x.detach(), w) for w in ws]
+    return list(_ProductsFromModel.apply(x, mesh, len(ws), *ws, *ys))
+
+
+def copy_to_model(x: torch.Tensor, *, mesh) -> torch.Tensor:
+    """``x`` (replicated over ``model``) as it is; the backward sums the
+    cotangent over ``model`` (fp32).  Put in front of a product over this
+    rank's columns."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, *, mesh) -> torch.Tensor:
+    """The ranks' pieces of ``x`` along ``model`` concatenated on ``dim``;
+    the backward keeps this rank's slice of the (replicated) cotangent."""
+    return _GatherFromModel.apply(x, dim, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, *, mesh) -> torch.Tensor:
+    """``x`` summed over ``model``; the backward passes the cotangent as it
+    is (every rank's term gets the sum's cotangent)."""
+    return _ReduceFromModel.apply(x, mesh)
 
 
 def _entry_device(mesh, index: dict[str, int]) -> torch.device:

@@ -32,7 +32,12 @@ split over ``model``, else a slice of the whole weight), the cache holds
 those kv heads (the step writes every head's new rows into the rank's
 shard after the call), attention runs over the local heads and ``o`` is
 all-gathered into ``wo``, which gives this rank's d_model columns
-(:func:`~repro_torch.models.layers.dense_across`).
+(:func:`~repro_torch.models.layers.dense_across`).  Without a cache (the
+train step) the same split runs under autograd: the input's cotangent is
+summed over ``model`` (``tp.products``), and the gradient of a whole leaf the
+rank reads in part (the q / k / v biases, a whole ``wk`` / ``wv``, the
+QK-norm scales) is this rank's term of a sum over ``model``, which the
+step adds up (:meth:`~repro_torch.runtime.sharding.TPPlan.partial`).
 """
 
 from __future__ import annotations
@@ -147,11 +152,8 @@ def gqa_apply(
     ``tp``: this rank's heads only (the module docstring)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    wq, wk, wv = (params["wq"], params["wk"], params["wv"]) if tp is None else _tp_qkv(
-        params, cfg, tp)
-    q = layers.dense(wq, x, dtype=dtype).reshape(b, s, -1, dh)
-    k = layers.dense(wk, x, dtype=dtype).reshape(b, s, -1, dh)
-    v = layers.dense(wv, x, dtype=dtype).reshape(b, s, -1, dh)
+    wqkv = [params["wq"], params["wk"], params["wv"]] if tp is None else _tp_qkv(params, cfg, tp)
+    q, k, v = (y.reshape(b, s, -1, dh) for y in layers.dense_many(wqkv, x, dtype=dtype, tp=tp))
     hq = q.shape[2]
 
     if cfg.qk_norm:

@@ -10,13 +10,18 @@ in the target dtype, tensor by tensor; they do not reproduce
 ``jax.random`` (tests carry reference weights across instead).
 
 ``tp`` (a :class:`~repro_torch.runtime.sharding.TPPlan`, given only inside
-the rank-local serve step under ``tp`` / ``tp_fsdp``) splits a function
-over the ``model`` ranks as the reference's partition specs lay the
-weights out: each weight holds this rank's output columns (an embedding
-table its vocabulary rows), an activation a product contracts over is
-all-gathered first, and each output element is computed by one rank over
-the whole contraction, then all-gathered: nothing is summed across ranks
-but the embedding lookup's one nonzero term.
+the rank-local serve and train steps under ``tp`` / ``tp_fsdp``) splits a
+function over the ``model`` ranks as the reference's partition specs lay
+the weights out: each weight holds this rank's output columns (an
+embedding table its vocabulary rows), an activation a product contracts
+over is all-gathered first, and each output element is computed by one
+rank over the whole contraction, then all-gathered: nothing is summed
+across ranks in the forward but the embedding lookup's one nonzero term
+and the vocabulary-parallel loss's exp-sum and label logit.  Under
+autograd every replicated input of a product over this rank's columns
+passes ``tp.copy`` or ``tp.products`` (its cotangent summed over
+``model``, the ranks' partials in fp32: :func:`dense_many`), and a
+gather's adjoint keeps this rank's slice.
 """
 
 from __future__ import annotations
@@ -59,12 +64,26 @@ def dense_init(gen, d_in, d_out, *, bias=False, std=None, device, dtype):
 
 
 def dense(params, x, *, dtype=torch.bfloat16):
-    y = torch.matmul(x.to(dtype), params["w"].to(dtype))
+    return _biased(params, torch.matmul(x.to(dtype), params["w"].to(dtype)), dtype)
+
+
+def _biased(params, y, dtype):
     if "b" in params:
         # fp32 bias on the product, as the reference adds it; at bf16 the
         # product is rounded once more before the add than there.
         y = (y.to(torch.float32) + params["b"]).to(dtype)
     return y
+
+
+def dense_many(ps, x, *, dtype=torch.bfloat16, tp=None):
+    """``[dense(p, x) for p in ps]``; under ``tp`` each ``p`` gives this
+    rank's output columns of a product whose input ``x`` is replicated
+    over ``model``: the ranks' partial input cotangents are summed in fp32
+    and rounded once (``tp.products``)."""
+    if tp is None:
+        return [dense(p, x, dtype=dtype) for p in ps]
+    ys = tp.products(x.to(dtype), [p["w"].to(dtype) for p in ps])
+    return [_biased(p, y, dtype) for p, y in zip(ps, ys)]
 
 
 def embed_init(gen, vocab, dim, *, device, dtype):
@@ -77,7 +96,7 @@ def dense_across(params, x, *, dtype=torch.bfloat16, tp=None):
     give this rank's output columns, and those are all-gathered."""
     if tp is None:
         return dense(params, x, dtype=dtype)
-    return tp.gather(dense(params, tp.gather(x, -1), dtype=dtype), -1)
+    return tp.gather(dense_many([params], tp.gather(x, -1), dtype=dtype, tp=tp)[0], -1)
 
 
 def embed(params, tokens, *, dtype=torch.bfloat16, tp=None):
@@ -91,6 +110,13 @@ def embed(params, tokens, *, dtype=torch.bfloat16, tp=None):
     own = (local >= 0) & (local < table.shape[0])
     rows = torch.where(own[..., None], table[torch.where(own, local, 0)], 0)
     return tp.sum(rows).to(dtype)
+
+
+def _unembed_table(params, dtype):
+    """The fp32 table the unembedding multiplies by: the fp32 copy of a
+    table at ``dtype`` where it has one, else the table cast for the call."""
+    table = params.get("table_f32") if params["table"].dtype == dtype else None
+    return params["table"].to(dtype).to(torch.float32) if table is None else table
 
 
 def keep_fp32_table(params) -> dict:
@@ -113,10 +139,7 @@ def unembed(params, x, *, dtype=torch.bfloat16, softcap=None, tp=None):
     (:func:`keep_fp32_table`); any other is cast for the call.  Under
     ``tp`` the table (and its copy) hold this rank's vocabulary rows: its
     logit columns are all-gathered over ``model``."""
-    table = params.get("table_f32") if params["table"].dtype == dtype else None
-    if table is None:
-        table = params["table"].to(dtype).to(torch.float32)
-    logits = torch.matmul(x.to(dtype).to(torch.float32), table.T)
+    logits = torch.matmul(x.to(dtype).to(torch.float32), _unembed_table(params, dtype).T)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     return logits if tp is None else tp.gather(logits, -1)
@@ -135,8 +158,7 @@ def mlp_init(gen, d_model, d_ff, *, device, dtype):
 def mlp(params, x, *, act="silu", dtype=torch.bfloat16, tp=None):
     """Gated MLP; under ``tp`` ``gate`` / ``up`` give this rank's d_ff
     columns and ``down`` its d_model columns (:func:`dense_across`)."""
-    g = dense(params["gate"], x, dtype=dtype)
-    u = dense(params["up"], x, dtype=dtype)
+    g, u = dense_many([params["gate"], params["up"]], x, dtype=dtype, tp=tp)
     if act == "silu":
         g = torch.nn.functional.silu(g.to(torch.float32)).to(dtype)
     elif act == "gelu":
@@ -191,23 +213,44 @@ def mrope(x, positions3, *, sections, theta: float = 10000.0):
 
 
 # -- losses ---------------------------------------------------------------- #
-def _chunk_nll(unembed_params, h, labels, softcap, dtype):
-    """Summed next-token NLL of one chunk (labels ``-1`` ignored)."""
-    logits = unembed(unembed_params, h, dtype=dtype, softcap=softcap).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    lab_logit = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
-    return torch.where(labels >= 0, lse - lab_logit, 0.0).sum()
+def _chunk_nll(unembed_params, h, labels, softcap, dtype, tp=None):
+    """Summed next-token NLL of one chunk (labels ``-1`` ignored).  Under
+    ``tp`` the table holds this rank's vocabulary rows and the whole
+    vocabulary's logits are never gathered: the row maximum is taken over
+    ``model`` (no gradient: the LSE does not depend on it), then the
+    exp-sum and the label's logit (taken on the rank that owns the label,
+    0 elsewhere) are summed over ``model`` in one call."""
+    h = h.to(dtype).to(torch.float32)
+    if tp is not None:  # after the cast: the ranks' fp32 partial cotangents
+        h = tp.copy(h)  # are summed before the one rounding to h's dtype
+    logits = torch.matmul(h, _unembed_table(unembed_params, dtype).T)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        lab_logit = torch.gather(logits, -1, torch.clamp_min(labels, 0)[..., None])[..., 0]
+        return torch.where(labels >= 0, lse - lab_logit, 0.0).sum()
+    v = logits.shape[-1]
+    m = tp.max(logits.detach().amax(dim=-1))
+    local = labels - tp.idx * v
+    own = (local >= 0) & (local < v)
+    lab = torch.gather(logits, -1, torch.where(own, local, 0)[..., None])[..., 0]
+    se, lab_logit = tp.sum(torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                                        torch.where(own, lab, 0.0)]))
+    return torch.where(labels >= 0, m + torch.log(se) - lab_logit, 0.0).sum()
 
 
 def chunked_cross_entropy(unembed_params, hidden, labels, *, n_chunks=8, softcap=None,
-                          dtype=torch.bfloat16):
+                          dtype=torch.bfloat16, tp=None):
     """Mean cross-entropy of ``hidden (B, S, d)`` against ``labels (B, S)``
     (``-1`` = ignore) without the full ``(B*S, vocab)`` logits: the
     sequence is cut into ``n_chunks`` chunks, each computes its logits,
     its LSE and the label logit and drops the logits.  Under autograd each
-    chunk is checkpointed (its logits made again in the backward), so only
-    one chunk's logits are alive at a time, as the reference's scan keeps
-    them."""
+    chunk is checkpointed (its logits made again in the backward, its
+    collectives under ``tp`` called again, in the same order on every
+    rank), so only one chunk's logits are alive at a time, as the
+    reference's scan keeps them.  ``tp``: vocabulary-parallel
+    (:func:`_chunk_nll`)."""
     b, s, _ = hidden.shape
     if s % n_chunks:
         raise ValueError(f"sequence {s} is not a multiple of n_chunks={n_chunks}")
@@ -217,8 +260,8 @@ def chunked_cross_entropy(unembed_params, hidden, labels, *, n_chunks=8, softcap
         h, lab = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if torch.is_grad_enabled():
             nll = torch.utils.checkpoint.checkpoint(
-                _chunk_nll, unembed_params, h, lab, softcap, dtype, use_reentrant=False)
+                _chunk_nll, unembed_params, h, lab, softcap, dtype, tp, use_reentrant=False)
         else:
-            nll = _chunk_nll(unembed_params, h, lab, softcap, dtype)
+            nll = _chunk_nll(unembed_params, h, lab, softcap, dtype, tp)
         total, count = total + nll, count + (lab >= 0).sum()
     return total / torch.clamp_min(count, 1)

@@ -15,7 +15,9 @@ Under a tensor-parallel plan (``tp``; the rank-local serve step under
 this rank's heads, ``wkv_down`` / ``wk_rope`` its latent columns and
 ``wo`` its d_model columns: the latent row is all-gathered before it is
 written and attended (every head reads the whole latent), K4 runs over
-the local heads, and ``o`` is all-gathered into ``wo``.
+the local heads, and ``o`` is all-gathered into ``wo``.  Training takes
+the expanded form the same way (:func:`_mla_apply_expanded`), under
+autograd.
 """
 
 from __future__ import annotations
@@ -68,13 +70,15 @@ def _per_head_matmul(x, w, dtype):
 def mla_latents(params, x, *, cfg, positions, dtype=torch.bfloat16, tp=None):
     """Latent cache rows ``[c ; RoPE(k_rope)]`` — (B, S, d_latent + d_rope);
     under ``tp`` from this rank's columns of both, all-gathered in one
-    call."""
+    call; every local head reads the whole row, so its cotangent is summed
+    over ``model`` (``tp.copy``)."""
     c = layers.dense(params["wkv_down"], x, dtype=dtype)
     k_rope = layers.dense(params["wk_rope"], x, dtype=dtype)
     if tp is not None:
         c, k_rope = tp.gather_last(c, k_rope)
     k_rope = layers.rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)[:, :, 0]
-    return torch.cat([c, k_rope], dim=-1)
+    lat = torch.cat([c, k_rope], dim=-1)
+    return lat if tp is None else tp.copy(lat)
 
 
 def mla_absorbed_queries(params, x, *, cfg, positions, dtype=torch.bfloat16):
@@ -96,29 +100,50 @@ def mla_unabsorb_output(params, attn, *, cfg, dtype=torch.bfloat16, tp=None):
     return layers.dense_across(params["wo"], o.reshape(b, s, h * m.d_vhead), dtype=dtype, tp=tp)
 
 
-def _mla_apply_expanded(params, x, *, cfg, positions, causal=True, dtype=torch.bfloat16):
+def _mla_apply_expanded(params, x, *, cfg, positions, causal=True, dtype=torch.bfloat16,
+                        tp=None):
     """Non-absorbed MLA (training): K/V expanded per head, attended with
     Dk = d_nope + d_rope and Dv = d_vhead.  Mathematically the absorbed
     form: ``[q_nope W_uk ; q_rope] . [c ; k_rope] = [q_nope ; q_rope] .
-    [c W_uk^T ; k_rope]`` and ``P (c W_uv)`` per head."""
+    [c W_uk^T ; k_rope]`` and ``P (c W_uv)`` per head.  ``tp``: this
+    rank's heads and latent columns; the latent row ``[c ; k_rope]`` is
+    all-gathered (every head reads all of it), and the products that
+    read ``x`` or ``c`` sum their partial cotangents over ``model``
+    (``tp.products``)."""
     m = cfg.mla
-    b, s, _ = x.shape
-    h = cfg.n_heads
-    c = layers.dense(params["wkv_down"], x, dtype=dtype)  # (B, S, Dc)
-    k_rope = layers.dense(params["wk_rope"], x, dtype=dtype)
+    b, s, d = x.shape
+    if tp is None:
+        c = layers.dense(params["wkv_down"], x, dtype=dtype)  # (B, S, Dc)
+        k_rope = layers.dense(params["wk_rope"], x, dtype=dtype)
+        q_nope = _heads_matmul(x, params["wq_nope"], dtype)
+        q_rope = _heads_matmul(x, params["wq_rope"], dtype)
+    else:
+        c, k_rope, q_nope, q_rope = tp.products(x.to(dtype), [
+            params["wkv_down"]["w"].to(dtype), params["wk_rope"]["w"].to(dtype),
+            params["wq_nope"].to(dtype).reshape(d, -1), params["wq_rope"].to(dtype).reshape(d, -1)])
+        c, k_rope = tp.gather_last(c, k_rope)
+        q_nope = q_nope.reshape(b, s, -1, m.d_nope)
+        q_rope = q_rope.reshape(b, s, -1, m.d_rope)
     k_rope = layers.rope(k_rope[:, :, None, :], positions, theta=cfg.rope_theta)  # (B, S, 1, Dr)
-    q_nope = _heads_matmul(x, params["wq_nope"], dtype)
-    q_rope = layers.rope(_heads_matmul(x, params["wq_rope"], dtype), positions,
-                         theta=cfg.rope_theta)
+    q_rope = layers.rope(q_rope, positions, theta=cfg.rope_theta)
     q = torch.cat([q_nope, q_rope], dim=-1)  # (B, S, H, Dn + Dr)
+    h = q.shape[2]
     # einsum('bsc,hnc->bshn') and einsum('bsc,hcv->bshv'): fp32 accumulation,
     # one rounding to ``dtype``
-    k_nope = _heads_matmul(c, params["w_uk"].permute(2, 0, 1), dtype)
+    w_uk, w_uv = params["w_uk"].permute(2, 0, 1), params["w_uv"].permute(1, 0, 2)
+    if tp is None:
+        k_nope = _heads_matmul(c, w_uk, dtype)
+        v = _heads_matmul(c, w_uv, dtype)  # (B, S, H, d_vhead)
+    else:
+        k_rope = tp.copy(k_rope)
+        k_nope, v = tp.products(c.to(dtype), [w.to(dtype).reshape(m.d_latent, -1)
+                                              for w in (w_uk, w_uv)])
+        k_nope, v = k_nope.reshape(b, s, h, m.d_nope), v.reshape(b, s, h, m.d_vhead)
     k = torch.cat([k_nope, k_rope.expand(b, s, h, m.d_rope)], dim=-1)
-    v = _heads_matmul(c, params["w_uv"].permute(1, 0, 2), dtype)  # (B, S, H, d_vhead)
     attn = multi_head_attention(q, k, v, variant=cfg.attn_variant, causal=causal,
                                 scale=mla_scale(cfg))
-    return layers.dense(params["wo"], attn.reshape(b, s, h * m.d_vhead), dtype=dtype), None
+    return layers.dense_across(params["wo"], attn.reshape(b, s, h * m.d_vhead), dtype=dtype,
+                               tp=tp), None
 
 
 def init_latent_cache(cfg, batch, max_len, *, dtype, device):
@@ -150,10 +175,12 @@ def mla_apply(
     absorbed form over the layer's own latent rows."""
     if cache is None and not cfg.mla_absorbed_train:
         return _mla_apply_expanded(params, x, cfg=cfg, positions=positions, causal=causal,
-                                   dtype=dtype)
+                                   dtype=dtype, tp=tp)
     if cache is not None and cache_len is None:
         raise ValueError("a cache needs its cache_len")
     b, s, _ = x.shape
+    if tp is not None:  # every product reads x over this rank's columns
+        x = tp.copy(x)
     c_full = mla_latents(params, x, cfg=cfg, positions=positions, dtype=dtype, tp=tp)
     q_full = mla_absorbed_queries(params, x, cfg=cfg, positions=positions, dtype=dtype)
     if cache is not None:

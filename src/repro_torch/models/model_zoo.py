@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec, layers, transformer, vlm
+from repro_torch.runtime import mesh_ctx
 
 MOE_AUX_COEF = 0.01
 
@@ -76,7 +77,9 @@ class LanguageModel:
         """Mean next-token cross-entropy of ``batch["labels"]`` (``-1``
         ignored; chunked, :func:`~repro_torch.models.layers.chunked_cross_entropy`),
         plus ``MOE_AUX_COEF`` times the summed load-balancing loss for a
-        MoE stack; ``remat`` runs each layer again in the backward."""
+        MoE stack; ``remat`` runs each layer again in the backward.  Under a
+        tensor-parallel plan the loss is vocabulary-parallel (the plan's
+        ``logits`` split)."""
         tokens = batch["tokens"]
         hidden, _, aux = transformer.lm_apply(
             params, tokens, cfg=self.cfg, positions=self._positions(batch, tokens),
@@ -85,7 +88,7 @@ class LanguageModel:
         ce = layers.chunked_cross_entropy(
             params.get("unembed", params["embed"]), hidden, batch["labels"],
             n_chunks=_loss_chunks(hidden.shape[1], n_loss_chunks),
-            softcap=self.cfg.final_softcap, dtype=self.dtype,
+            softcap=self.cfg.final_softcap, dtype=self.dtype, tp=mesh_ctx.tp_split("logits"),
         )
         if self.cfg.n_experts:
             ce = ce + MOE_AUX_COEF * aux

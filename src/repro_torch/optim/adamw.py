@@ -49,9 +49,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in _tree.leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm):
-    """(grads scaled to global norm at most ``max_norm``, the norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm, norm=None):
+    """(grads scaled to global norm at most ``max_norm``, the norm);
+    ``norm``, where given, is the global norm already taken (of a
+    gradient some of whose leaves are shards held elsewhere too)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     return _tree.tree_map(lambda g: g * scale, grads), norm
 

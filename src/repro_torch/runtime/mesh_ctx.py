@@ -14,13 +14,15 @@ which the batch rows are split across ranks (``()`` when every rank holds
 every row).  The step factories set it for the call; model code reads it
 through :func:`on_ranks` and :func:`rank_rows`.
 
-``tp_local`` is set only by the rank-local serve step under ``tp`` and
-``tp_fsdp`` on a ``model`` axis of several ranks: a
+``tp_local`` is set only by the rank-local serve and train steps under
+``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks: a
 :class:`~repro_torch.runtime.sharding.TPPlan` saying which modules this
 rank computes split (its heads, d_ff columns and vocabulary rows) and how.
 Everywhere else it is ``None`` and every layer computes whole.  The
 layers count what they did under a plan in :data:`TP_COUNTS` (``attn``,
-``mlp``, ``embed``, ``logits``, each split or ``*_whole``).
+``mlp``, ``embed``, ``logits`` (the serve step's logits or the train
+step's loss), each split or ``*_whole``), once per call: a layer that
+remat runs again in the backward is counted again there.
 """
 
 from __future__ import annotations

@@ -40,11 +40,13 @@ run rank-locally: each rank gathers what it needs whole
 shard of every result (:func:`shard_tree`).
 
 Under ``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks the
-rank-local serve step splits its compute as the specs lay the weights
-out (:func:`tp_plan`, :class:`TPPlan`): the attention layers, the dense
-MLPs and the embedding tables keep this rank's ``model`` shard of every
-leaf whose spec names ``model`` (gathered over the data axes only), and
-compute only its heads, d_ff columns, d_model columns and vocabulary.
+rank-local serve and train steps split their compute as the specs lay
+the weights out (:func:`tp_plan`, :class:`TPPlan`): the attention layers,
+the dense MLPs and the embedding tables keep this rank's ``model`` shard
+of every leaf whose spec names ``model`` (gathered over the data axes
+only), and compute only its heads, d_ff columns, d_model columns and
+vocabulary; the train step's gradients of those leaves are this rank's
+``model`` shards (:func:`shard_tree` with the plan leaves them so).
 
 Sharded paged serving routes each request (its pages and queue items) to
 ONE ``data`` shard; pools never straddle shards, so that placement is a
@@ -62,10 +64,14 @@ import torch
 from repro_torch.core import tree as _tree
 from repro_torch.core.distributed import (
     all_gather_dim,
-    all_reduce_sum,
+    all_reduce_max,
     all_to_all,
     axis_index,
+    copy_to_model,
+    gather_from_model,
     gather_group,
+    products_from_model,
+    reduce_from_model,
     spec_axes,
     take_shard,
 )
@@ -419,12 +425,20 @@ def gather_tree(local, shardings, keep=()):
     return _tree.map_with_paths(lambda p, t: gather_one(t, flat[p], keep), local)
 
 
-def shard_tree(full, shardings, keep=()):
+def shard_tree(full, shardings, keep=(), plan=None):
     """This rank's slices of every leaf of ``full`` (views), as
     :func:`place` would hold them; dims over the axes in ``keep`` are
-    left as they are."""
+    left as they are, and so are the ``model`` dims of a leaf that
+    ``plan`` (a :class:`TPPlan`) keeps local (already this rank's
+    ``model`` shard, as :func:`whole_tree` gave it)."""
     flat = dict(_tree.leaves_with_paths(shardings))
-    return _tree.map_with_paths(lambda p, t: shard_one(t, flat[p], keep), full)
+
+    def one(path, t):
+        sh = flat[path]
+        kept = plan is not None and plan.keeps(path_str(path), sh.spec)
+        return shard_one(t, sh, tuple(keep) + (("model",) if kept else ()))
+
+    return _tree.map_with_paths(one, full)
 
 
 def whole_tree(tree, shardings, plan=None):
@@ -453,13 +467,21 @@ def whole_tree(tree, shardings, plan=None):
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """How one rank splits a serve step over the ``model`` axis
+    """How one rank splits a serve or train step over the ``model`` axis
     (:func:`tp_plan`): ``m`` ranks along it, this rank at ``idx``; which
     modules split (``attn``: every attention layer, ``mlp``: every dense
-    MLP, ``vocab``: the embedding lookup and the logits); ``kv_local``:
-    the GQA ``wk`` / ``wv`` hold this rank's kv heads (else they are
-    whole, the Megatron rule, and the rank slices the kv heads its query
-    heads read).  Set into ``mesh_ctx`` (``tp_local``) for the call."""
+    MLP, ``vocab``: the embedding lookup and the logits or the loss);
+    ``kv_local``: the GQA ``wk`` / ``wv`` hold this rank's kv heads (else
+    they are whole, the Megatron rule, and the rank slices the kv heads
+    its query heads read).  Set into ``mesh_ctx`` (``tp_local``) for the
+    call.
+
+    Its collectives are differentiable (Megatron's operators,
+    :mod:`repro_torch.core.distributed`): :meth:`copy` (or
+    :meth:`products`) in front of a product over this rank's columns whose
+    input is replicated (the backward sums the cotangent over ``model``),
+    :meth:`gather` of the ranks' columns (the backward keeps this rank's
+    slice), :meth:`sum` (the backward passes the cotangent on)."""
 
     mesh: object
     m: int
@@ -495,7 +517,21 @@ class TPPlan:
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """The ranks' pieces of ``t`` along ``model``, concatenated on ``dim``."""
-        return all_gather_dim(t, dim, ("model",), mesh=self.mesh)
+        return gather_from_model(t, dim, mesh=self.mesh)
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (replicated) as it is, its cotangent summed over ``model``."""
+        return copy_to_model(t, mesh=self.mesh)
+
+    def products(self, x: torch.Tensor, ws) -> list:
+        """``x @ w`` for each of ``ws`` (this rank's columns), ``x``
+        replicated: :meth:`copy` in front of them, the partial cotangents
+        summed in fp32 (:func:`~repro_torch.core.distributed.products_from_model`)."""
+        return products_from_model(x, ws, mesh=self.mesh)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise maximum over ``model`` (no gradient)."""
+        return all_reduce_max(t, ("model",), mesh=self.mesh)
 
     def gather_last(self, *ts):
         """:meth:`gather` on the last dim of each of ``ts`` in one call."""
@@ -505,7 +541,7 @@ class TPPlan:
                      for p, w in zip(torch.split(parts, widths, dim=-1), widths))
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        return all_reduce_sum(t, ("model",), mesh=self.mesh)
+        return reduce_from_model(t, mesh=self.mesh)
 
     def kv_head_caches(self, leaves) -> list:
         """The working caches of split GQA layers: for each ``(local
@@ -534,6 +570,17 @@ class TPPlan:
             return {"attn": self.attn, "mlp": self.mlp}.get(parts[2], False)
         return False
 
+    def partial(self, name: str, spec) -> bool:
+        """Whether the whole (not kept) parameter at ``name`` is read only
+        in part by this rank under the split, so that its gradient here is
+        this rank's term of a sum over ``model``: a split attention
+        layer's every other leaf (the q / k / v biases and a whole ``wk`` /
+        ``wv`` sliced to the rank's heads, the QK-norm scales applied to
+        them)."""
+        parts = name.split("/")
+        return (self.attn and parts[0] == "layers" and len(parts) > 2 and parts[2] == "attn"
+                and not self.keeps(name, spec))
+
     def splits_cache(self, path) -> bool:
         """Whether the cache leaf at ``path`` is a split GQA layer's ``k``
         or ``v``: its working cache holds this rank's kv heads only."""
@@ -541,8 +588,9 @@ class TPPlan:
                 and path[-1] in ("k", "v"))
 
 
-def tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows) -> TPPlan | None:
-    """The tensor-parallel split of a rank-local serve step, or ``None``
+def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | None:
+    """The tensor-parallel split of a rank-local serve step (``cache_sh``
+    its cache's shardings) or train step (no cache), or ``None``
     (every module whole) off ``tp`` / ``tp_fsdp`` or where ``model`` has
     one rank.  A module splits where the specs give it the layout the
     split computes on, checked leaf by leaf:
@@ -553,7 +601,8 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows) -> TPPlan | None:
       with the rank's query heads reading whole kv groups (``H/m`` a
       multiple or a divisor of ``n_heads / n_kv_heads``); the ``k`` /
       ``v`` cache's heads and sequence not sharded, its width whole or over
-      ``model``, its batch over the tokens' ``rows``;
+      ``model``, its batch over the tokens' ``rows`` (a train step has no
+      cache);
     * MLA: ``n_heads % m == 0``, ``wq_nope`` / ``wq_rope`` / ``w_uk`` /
       ``w_uv`` on ``model`` by heads, ``wkv_down`` / ``wk_rope`` / ``wo``
       by their output dim;
@@ -567,7 +616,8 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows) -> TPPlan | None:
     if policy not in ("tp", "tp_fsdp") or m < 2 or cfg.family == "encdec":
         return None
     specs = {path_str(p): sh.spec for p, sh in _tree.leaves_with_paths(param_sh)}
-    cspecs = dict((p, sh.spec) for p, sh in _tree.leaves_with_paths(cache_sh))
+    cspecs = {} if cache_sh is None else dict(
+        (p, sh.spec) for p, sh in _tree.leaves_with_paths(cache_sh))
 
     def on(name, dim):
         spec = specs.get(name)
@@ -583,9 +633,9 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows) -> TPPlan | None:
         group, per = hq // hkv, hq // m
         kv_ok = (kv == {True} and hkv % m == 0) or (kv == {False} and (
             per % group == 0 or group % per == 0))
-        cache_ok = all(c[1] is None and c[2] is None and c[3] in (None, "model")
-                       and spec_axes(c[0]) == tuple(rows)
-                       for c in (cspecs[(l, "k")], cspecs[(l, "v")]))
+        cache_ok = cache_sh is None or all(
+            c[1] is None and c[2] is None and c[3] in (None, "model")
+            and spec_axes(c[0]) == tuple(rows) for c in (cspecs[(l, "k")], cspecs[(l, "v")]))
         return on(a + "wq/w", 1) and on(a + "wo/w", 1) and kv_ok and cache_ok
 
     def mla(l):

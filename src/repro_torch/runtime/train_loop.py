@@ -22,7 +22,9 @@ shardings of every parameter, moment, residual and batch leaf over a mesh
 by them and runs :func:`make_train_step`'s step on the local shards (a
 mesh of one rank), or runs rank-locally on a mesh of processes
 (:func:`_train_on_ranks`: this rank's batch rows, the gradient all-reduced
-over the data-parallel ranks, the update on this rank's shards).
+over the data-parallel ranks, the update on this rank's shards; under
+``tp`` / ``tp_fsdp`` with several ``model`` ranks, this rank's heads,
+d_ff columns and vocabulary rows only, with a vocabulary-parallel loss).
 """
 
 from __future__ import annotations
@@ -260,15 +262,28 @@ def _train_on_ranks(model, tc, mesh, shardings, args, step, *, policy, multi_pod
       under ``fsdp``, ``fsdp2d`` and ``dp``); the strided microbatches of
       those rows make up the global ones only if each rank's row count
       divides by ``grad_accum``, so another count raises.
-    * The parameters are gathered whole (the FSDP gather, all at once).
+    * The parameters are gathered whole (the FSDP gather, all at once),
+      except under a tensor-parallel plan (:func:`~repro_torch.runtime
+      .sharding.tp_plan`: ``tp`` / ``tp_fsdp`` with several ``model``
+      ranks), where the attention layers, dense MLPs and embedding tables
+      keep this rank's ``model`` shard (gathered over the data axes only)
+      and the model computes only its heads, columns and vocabulary
+      (``mesh_ctx.tp_local``); their gradients are this rank's ``model``
+      shards.  A whole leaf of a split attention layer that the rank reads
+      in part has a gradient that is this rank's term of a sum over
+      ``model``: those are summed in one all-reduce.
     * The loss is the global mean: each microbatch's gradient is weighted
       by ``n_dp x`` (this rank's valid labels / the global count), the
       gradients summed over ``rows`` and divided by ``n_dp``; the reported
       loss is the sum of the ranks' label-weighted losses over the count.
-    * Compression, the clipping norm and the norm reported run on the full
-      gradient, as on one rank (the residual gathered, the threefry draw
-      the same); AdamW updates this rank's shards of the parameters and
-      moments, which come back as ``DTensor``s with the residual's shard.
+    * Compression, the clipping norm and the norm reported are of the full
+      gradient, as on one rank.  Compression runs on it whole (the
+      residual gathered, the threefry draw the same; under a plan the kept
+      leaves' gradients are all-gathered over ``model`` for it, one call a
+      leaf).  Without compression the split norm sums the kept leaves'
+      squares over ``model`` and counts every other leaf once.  AdamW
+      updates this rank's shards of the parameters and moments, which
+      come back as ``DTensor``s with the residual's shard.
     """
     param_sh, opt_sh, comp_sh, b_sh = shardings
     params, opt_state, comp_state, batch = args
@@ -282,43 +297,93 @@ def _train_on_ranks(model, tc, mesh, shardings, args, step, *, policy, multi_pod
         raise ValueError(
             f"a rank's {n_rows} batch rows do not split into grad_accum={a} strided "
             "microbatches, so its microbatches would not make up the global ones")
-    p_full = sharding.whole_tree(params, param_sh)
+    plan = sharding.tp_plan(model.cfg, mesh, policy, param_sh)
+    p_full = sharding.whole_tree(params, param_sh, plan)
     p_local, opt_local = sharding.local_shards(sharding.place((params, opt_state),
                                                               (param_sh, opt_sh)))
     counts = torch.stack([(mb["labels"] >= 0).sum() for mb in _microbatches(local, a)])
     total = torch.clamp_min(all_reduce_sum(counts, rows, mesh=mesh), 1)
     weights = (n_dp * counts.double() / total.double()).float()
-    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows):
+    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows, tp_local=plan):
         losses, grads = _accumulated_grads(model, tc, p_full, local, weights=list(weights))
     sums = all_reduce_sum(torch.stack(losses) * counts, rows, mesh=mesh)
     loss = _mean(list(sums / total))
     grads = _tree.tree_map(lambda g: all_reduce_sum(g, rows, mesh=mesh) / n_dp, grads)
+    if plan is not None:
+        grads = _sum_partials(plan, grads, param_sh)
 
     if comp_sh is not None:
+        if plan is not None:  # compression takes the whole gradient
+            grads, plan = _model_whole(plan, grads, param_sh), None
         residual = sharding.whole_tree(comp_state.residual, param_sh)
         grads, comp = _compressed(model, tc, grads, CompressionState(residual=residual), step,
                                   _tree.leaves(p_full)[0].device)
-        comp_state = CompressionState(residual=_placed(comp.residual, param_sh, p_full, full=True))
+        comp_state = CompressionState(residual=_placed(comp.residual, param_sh, params, full=True))
+    gnorm = global_norm(grads) if plan is None else _split_norm(plan, grads, param_sh)
     if tc.clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
-    else:
-        gnorm = global_norm(grads)
+        grads, gnorm = clip_by_global_norm(grads, tc.clip_norm, norm=gnorm)
     lr = cosine_schedule(step, peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps,
                          total_steps=tc.total_steps)
     new_p, new_opt, metrics = adamw_update(
-        sharding.shard_tree(grads, param_sh), opt_local, p_local, lr=lr,
+        sharding.shard_tree(grads, param_sh, plan=plan), opt_local, p_local, lr=lr,
         weight_decay=tc.weight_decay, clip_norm=None,
         decay=reference_decay_mask(p_full, model.cfg))
     new_opt = AdamWState(
         count=sharding.from_local(new_opt.count, opt_sh.count, ()),
-        mu=_placed(new_opt.mu, param_sh, p_full), nu=_placed(new_opt.nu, param_sh, p_full))
+        mu=_placed(new_opt.mu, param_sh, params), nu=_placed(new_opt.nu, param_sh, params))
     metrics.update(grad_norm=gnorm, loss=loss)
-    return _placed(new_p, param_sh, p_full), new_opt, comp_state, metrics
+    return _placed(new_p, param_sh, params), new_opt, comp_state, metrics
+
+
+def _kept(plan, shardings) -> dict:
+    """``{path: (sharding, kept)}`` of every leaf: whether ``plan`` keeps
+    it this rank's ``model`` shard."""
+    return {p: (sh, plan.keeps(sharding.path_str(p), sh.spec))
+            for p, sh in _tree.leaves_with_paths(shardings)}
+
+
+def _sum_partials(plan, grads, shardings):
+    """``grads`` with the leaves whose gradient is this rank's term of a
+    sum over ``model`` (:meth:`~repro_torch.runtime.sharding.TPPlan.partial`)
+    summed, all in one all-reduce."""
+    flat = dict(_tree.leaves_with_paths(grads))
+    specs = {p: sh.spec for p, sh in _tree.leaves_with_paths(shardings)}
+    paths = [p for p in flat if plan.partial(sharding.path_str(p), specs[p])]
+    if not paths:
+        return grads
+    summed = all_reduce_sum(torch.cat([flat[p].reshape(-1) for p in paths]), ("model",),
+                            mesh=plan.mesh)
+    parts = dict(zip(paths, torch.split(summed, [flat[p].numel() for p in paths])))
+    return _tree.map_with_paths(lambda p, g: parts[p].view_as(g) if p in parts else g, grads)
+
+
+def _model_whole(plan, grads, shardings):
+    """The kept leaves' gradients all-gathered over ``model`` (their other
+    dims are whole already): the full gradient."""
+    kept = _kept(plan, shardings)
+    return _tree.map_with_paths(
+        lambda p, g: sharding.gather_one(g, kept[p][0], tuple(
+            a for a in kept[p][0].mesh.axis_names if a != "model")) if kept[p][1] else g, grads)
+
+
+def _split_norm(plan, grads, shardings) -> torch.Tensor:
+    """The full gradient's L2 norm (fp32) from ``grads`` whose kept leaves
+    are this rank's ``model`` shards: each leaf's sum of squares, the kept
+    leaves' summed over ``model`` (one all-reduce), every other leaf's
+    counted once, added in leaf order as :func:`global_norm` adds them."""
+    kept = _kept(plan, shardings)
+    flat = _tree.leaves_with_paths(grads)
+    sq = torch.stack([torch.sum(g.float() * g.float()) for _, g in flat])
+    mask = torch.tensor([kept[p][1] for p, _ in flat], device=sq.device)
+    sq = torch.where(mask, all_reduce_sum(torch.where(mask, sq, 0.0), ("model",),
+                                          mesh=plan.mesh), sq)
+    return torch.sqrt(sum(sq.unbind()))
 
 
 def _placed(tree, shardings, like, *, full=False):
     """``DTensor``s of this rank's shards in ``tree`` (or of its slices of
-    the full values, with ``full``), shaped as the leaves of ``like``."""
+    the full values, with ``full``), shaped as the leaves of ``like`` (the
+    step's arguments: full values or placed ``DTensor``s)."""
     flat = dict(_tree.leaves_with_paths(shardings))
     shapes = {path: t.shape for path, t in _tree.leaves_with_paths(like)}
 

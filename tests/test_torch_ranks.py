@@ -2,7 +2,8 @@
 several ranks, on the CPU: ``jit_serve_fns`` (prefill and decode, split-KV
 decode across ranks through K6's plain version), ``jit_train_step``,
 ``reshard_train_state``, ``launch/train``'s data split, and the gathers
-and slices of ``runtime.sharding`` underneath.
+and slices of ``runtime.sharding`` and the differentiable collectives
+over ``model`` underneath.
 
 The ranks are spawned processes in a gloo group on a ``FileStore`` under
 the test's temporary directory (no port, so xdist workers cannot collide),
@@ -32,7 +33,12 @@ rank: the first step's loss, ``grad_norm`` and first moment (0.1 x the
 clipped gradient) within 1e-6 relative, the parameters by
 ``tests/test_torch_train_loop.py``'s rule (Adam's first step turns a
 rounding-level gradient into +-lr); loss and ``grad_norm`` against the
-reference's step by that file's bounds.
+reference's step by that file's bounds.  The train step splits under
+``tp`` / ``tp_fsdp`` with several ``model`` ranks too (the same checks of
+what it computed on and of ``TP_COUNTS``); where it splits, attention's
+bf16-rounded input cotangents move the first moment by up to a bf16 step
+(``SPLIT_MU_TOL``), and controls with fp32 products there hold it within
+1e-6.
 """
 
 import jax
@@ -120,7 +126,7 @@ SERVE = {  # name -> (arch, mesh, policy, world)
 # boundaries): the attention runs whole after the gather, counted as such
 WHOLE_HEADS = dict(arch="qwen2.5-3b", spec="1x4", policy="tp", cfg_changes=dict(n_heads=6),
                    whole=("attn",))
-TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world)
+TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world[, options])
     "2x1 tp_fsdp none": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "none", 1, 2),
     "2x1 tp_fsdp int8": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "int8", 1, 2),
     "2x1 fsdp none accum2": ("qwen1.5-0.5b", "2x1", "fsdp", "none", 2, 2),
@@ -129,6 +135,24 @@ TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world)
     # MoE: the routing sees the gathered batch; its gradient flows back
     # through the gather's adjoint (the cotangent summed over the ranks)
     "moe 2x1 tp_fsdp none": ("qwen3-moe-30b-a3b", "2x1", "tp_fsdp", "none", 1, 2),
+    # split by model: heads, d_ff columns, vocabulary rows (a
+    # vocabulary-parallel loss); accum2 under remat (the collectives
+    # called again in the recompute)
+    "tp 1x2 none": ("qwen1.5-0.5b", "1x2", "tp", "none", 1, 2),
+    "tp 1x2 none accum2": ("qwen1.5-0.5b", "1x2", "tp", "none", 2, 2, dict(remat=True)),
+    "tp_fsdp 1x2 int8": ("qwen1.5-0.5b", "1x2", "tp_fsdp", "int8", 1, 2),
+    "mla tp 1x2 none": ("deepseek-v2-mla", "1x2", "tp", "none", 1, 2),
+    # 3 query heads do not split over model 2 (wq's 48 columns do, off
+    # head boundaries): attention runs whole, counted so; MLP and
+    # vocabulary split
+    "whole heads tp 1x2 none": ("qwen1.5-0.5b", "1x2", "tp", "none", 1, 2, dict(
+        cfg_changes=dict(n_heads=3, n_kv_heads=3), whole=("attn",))),
+    # the controls: the same splits with the blockwise attention's
+    # products at fp32 (no bf16 rounding of its inputs' cotangents)
+    "tp 1x2 none, fp32 products": ("qwen1.5-0.5b", "1x2", "tp", "none", 1, 2, dict(
+        f32_products=True)),
+    "mla tp 1x2 none, fp32 products": ("deepseek-v2-mla", "1x2", "tp", "none", 1, 2, dict(
+        f32_products=True)),
 }
 # The MoE layer's input cotangent is a sum over the ranks, added in another
 # order than one rank's backward adds it; upstream, attention rounds its
@@ -138,6 +162,30 @@ TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world)
 # largest, 2.6e-5 of the whole moment's norm).  Loss and grad_norm stay 1e-6;
 # the gather's adjoint itself is exact (test_gather_rows_adjoint_is_exact).
 MU_TOL = {"qwen1.5-0.5b": STEP_TOL, "qwen3-moe-30b-a3b": 2.0**-8}
+# Split cases (several model ranks): the ranks' partial input cotangents
+# are summed over model in another order than one rank's product adds
+# them, and the blockwise attention rounds its inputs' cotangents to bf16
+# (core/flash.matmul), so a few land one bf16 step apart.  The first
+# moment (int8: the error-feedback input) is held by the MoE case's 2^-8
+# of its leaf's largest: measured <= 8.3e-4 (7.9e-5 of the moment's norm;
+# int8's input 4.2e-5 of its norm).  The controls run the same splits
+# with fp32 products there: grad_norm bit-equal to one rank's, the moment
+# within STEP_TOL (measured <= 8.2e-7).
+SPLIT_MU_TOL = 2.0**-8
+# The same roundings move a split step's grad_norm: measured <= 8.1e-7 at
+# the first step (held by STEP_TOL), 1.1e-6 at the second from the rank's
+# own state, and 2.1e-6 / 1.5e-6 under int8 (2.8e-4 of the elements'
+# stochastic rounding lands one int8 step the other way, the flips
+# FLIP_SHARE bounds): those are held by chip_smoke.py's RANK_TRAIN_REL;
+# the controls by STEP_TOL.
+SPLIT_NORM_TOL = 1e-5
+# Adam's first step moves an element whose gradient is noise (<= 1e-7 of
+# its leaf's largest, e.g. layers/0/attn/w_uv of the mla case) by +-lr
+# either way: measured 0.81 (mla), 0.82 (whole heads) and 0.50 (int8) x
+# 2 lr, so these two trajectories' second steps part by up to 2.5e-5 and
+# are held by NORM_TOL; every case's second step from the rank's own
+# state is held too (held1).
+DIVERGE = {"mla tp 1x2 none", "whole heads tp 1x2 none", "tp_fsdp 1x2 int8"}
 
 
 @pytest.fixture(scope="module")
@@ -159,14 +207,14 @@ def refs():
     return out
 
 
-def whole_heads_params():
-    """The port's own fp32 weights (seed 0) of the smoke qwen2.5-3b with
-    ``WHOLE_HEADS``' config changes."""
+def own_params(arch, cfg_changes):
+    """The port's own fp32 weights (seed 0) of the smoke ``arch`` with
+    ``cfg_changes``."""
     import dataclasses
 
     from repro_torch.models.model_zoo import build_model
 
-    cfg = dataclasses.replace(get_config("qwen2.5-3b", smoke=True), **WHOLE_HEADS["cfg_changes"])
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **cfg_changes)
     return build_model(cfg).init(torch.Generator("cpu").manual_seed(0), "cpu",
                                  dtype=torch.float32)
 
@@ -189,23 +237,31 @@ def cases_for(world, refs):
             cases.append((name, dict(case="serve", arch=arch, params=r["params"], spec=spec,
                                      policy=policy, prompt=r["prompt"], tokens=r["tokens"],
                                      max_len=MAX_LEN)))
-    for name, (arch, spec, policy, comp, accum, w) in TRAIN_CASES.items():
+    for name, (arch, spec, policy, comp, accum, w, *opts) in TRAIN_CASES.items():
         if w == world:
-            params = refs["train" if arch == "qwen1.5-0.5b" else arch]["params"]
+            opts = opts[0] if opts else {}
+            if "cfg_changes" in opts:
+                params = own_params(arch, opts["cfg_changes"])
+            else:
+                params = refs["train" if arch == "qwen1.5-0.5b" else arch]["params"]
             cases.append((name, dict(case="train", arch=arch, params=params,
                                      batches=train_batches(arch), spec=spec, policy=policy,
-                                     compression=comp, grad_accum=accum)))
+                                     compression=comp, grad_accum=accum, **opts)))
     for spec in (["1x2", "2x1"] if world == 2 else ["2x2"]):
         cases.append((f"round_trip {spec}", dict(case="round_trip", spec=spec)))
     if world == 4:
         r = refs["qwen2.5-3b"]
         cases.append(("whole heads", dict(
-            WHOLE_HEADS, case="serve", params=whole_heads_params(), prompt=r["prompt"],
+            WHOLE_HEADS, case="serve", params=own_params("qwen2.5-3b", WHOLE_HEADS["cfg_changes"]),
+            prompt=r["prompt"],
             tokens=r["tokens"], max_len=MAX_LEN)))
     if world == 2:
         cases.append(("count", dict(case="count", arch="qwen2.5-3b",
                                     params=refs["qwen2.5-3b"]["params"], spec="1x2", policy="tp",
                                     max_len=MAX_LEN)))
+        cases.append(("train count", dict(case="train_count", arch="qwen1.5-0.5b",
+                                          params=refs["train"]["params"],
+                                          batch=train_batches()[0], spec="1x2", policy="tp")))
         r = refs["qwen3-moe-30b-a3b"]
         cases += [("moe 2x1", dict(case="moe", params=r["params"], spec="2x1",
                                    prompt=r["prompt"], tokens=r["tokens"], max_len=MAX_LEN)),
@@ -320,31 +376,88 @@ def test_moe_dispatch_on_ranks_equals_one_rank(ranks, refs):
         assert max_err(g, w) <= MODEL_TOL
 
 
+def train_split_counts(arch, accum, remat=False, whole=(), steps=2):
+    """The split counts of ``steps`` tensor-parallel train steps: every
+    attention layer and dense MLP once a microbatch (twice under remat:
+    the backward runs the layer again), the lookup and the loss once."""
+    kinds = get_config(arch, smoke=True).layer_kinds()
+    calls = steps * accum
+    layer = calls * (2 if remat else 1)
+    out = {"attn": layer * sum(k in ("global", "local") for k in kinds),
+           "mlp": layer * sum(k != "ssm" for k in kinds), "embed": calls, "logits": calls}
+    for module in whole:
+        out[module + "_whole"] = out.pop(module)
+    return out
+
+
 @pytest.mark.parametrize("name", list(TRAIN_CASES))
 def test_train_on_ranks(ranks, refs, name):
+    """Two steps through ``jit_train_step`` on ranks against
+    ``make_train_step`` on one rank.  Under ``tp`` / ``tp_fsdp`` with
+    several model ranks the step computes only the rank's heads, d_ff
+    columns and vocabulary rows: every leaf the split keeps is ``1 / m``
+    of its whole in what the loss computed on, every attention layer,
+    MLP, lookup and loss counted split (or whole, where the heads do not
+    divide)."""
+    arch, spec, policy, comp, accum, _, *opts = TRAIN_CASES[name]
+    opts = opts[0] if opts else {}
+    split = policy in ("tp", "tp_fsdp") and spec.split("x")[1] != "1"
+    control = opts.get("f32_products", False)
     for r in ranks[name]:
         m0 = r["metrics0"]
+        # grad_norm of a split step: STEP_TOL at the first step but under
+        # int8, SPLIT_NORM_TOL at the second from the rank's own state
+        norm_tol = [STEP_TOL, STEP_TOL]
+        if split and not control:
+            norm_tol = [SPLIT_NORM_TOL if comp == "int8" else STEP_TOL, SPLIT_NORM_TOL]
         for k in ("loss", "grad_norm"):
             got, want = m0[k]
-            assert abs(got - want) <= STEP_TOL * abs(want), (k, got, want)
+            tol = norm_tol[0] if k == "grad_norm" else STEP_TOL
+            assert abs(got - want) <= tol * abs(want), (k, got, want)
         assert m0["lr"][0] == m0["lr"][1]
         if "e_err" in r:  # int8: the gradient tight, a rounding flip moves one step
-            assert r["e_err"] <= STEP_TOL
+            assert r["e_err"] <= (SPLIT_MU_TOL if split else STEP_TOL)
             assert r["flip_steps"] <= 1 + 1e-3 and r["flip_share"] <= FLIP_SHARE
         else:
-            tol = MU_TOL[TRAIN_CASES[name][0]]
+            tol = STEP_TOL if control else SPLIT_MU_TOL if split else MU_TOL[arch]
             assert r["mu_err"] <= tol and r["mu_norm_err"] <= tol
         assert r["param_resolved_err"] <= PARAM_TOL and r["param_step_err"] <= 1 + 1e-4
         assert r["shards_are_slices"] and r["is_dtensor"]
         for k in ("loss", "grad_norm"):  # the second step, from states a step apart
             got, want = r["metrics1"][k]
-            assert abs(got - want) <= LOSS_TOL * abs(want)
+            assert abs(got - want) <= (NORM_TOL if name in DIVERGE else LOSS_TOL) * abs(want)
+            got, want = r["held1"][k]  # and from the rank's own state
+            tol = norm_tol[1] if k == "grad_norm" else STEP_TOL
+            assert abs(got - want) <= tol * abs(want), (k, got, want)
         # every rank reports the same metrics
         assert (m0, r["metrics1"]) == (ranks[name][0]["metrics0"], ranks[name][0]["metrics1"])
-    if name == "2x1 tp_fsdp none":  # the reference's step, same weights and batch
+        assert r["held_ok"] and (r["local_leaves"] > 0) == split
+        assert r["counts"] == (train_split_counts(arch, accum, opts.get("remat", False),
+                                                  opts.get("whole", ())) if split else {})
+    if name in ("2x1 tp_fsdp none", "tp 1x2 none"):  # the reference's step, same weights, batch
         got = ranks[name][0]["metrics0"]
         assert got["loss"][0] == pytest.approx(refs["train"]["loss"], rel=LOSS_TOL)
         assert got["grad_norm"][0] == pytest.approx(refs["train"]["grad_norm"], rel=NORM_TOL)
+
+
+def test_dry_run_counts_a_split_train_step(ranks):
+    """One rank's ``OpCounter`` count of the ``tp`` train step at 1 x 2
+    (smoke qwen1.5-0.5b, 8 x 32, no remat) against the dry run's count of
+    ``make_train_step`` at ``local_config(cfg, 2)``: the products (the
+    projections, MLP and loss forward and backward, K7's charges and the
+    blockwise backward) are the same flops; the split step adds the
+    collectives: 8 all-gathers (o, wo's output, the MLP's h and down's
+    output in each of 2 layers; the loss gathers no logits) and 51
+    all-reduces (the lookup; the loss's max and exp-sum / label logit in
+    each of 8 chunks, again in their recompute, and each chunk's input
+    cotangent; the input cotangents of q / k / v, wo, gate / up and down
+    in each layer; the partial leaves' gradients; the norm)."""
+    for r in ranks["train count"]:
+        assert r["ranks"]["products"] == r["dry"]["products"] > 0
+        assert r["calls"] == {"all_gather": 8, "all_reduce": 51, "all_to_all": 0}
+        assert r["ranks"]["coll_counts"] == {"all-gather": 8, "all-reduce": 51}
+        assert r["dry"]["coll_counts"] == {}
+        assert r["ranks"]["flops"] >= r["dry"]["flops"]
 
 
 def test_reshard_train_state_across_ranks(ranks):
@@ -399,6 +512,20 @@ def test_gather_and_shard_round_trip(ranks, spec, shape):
     for bit."""
     for r in ranks[f"round_trip {spec}"]:
         assert r["round_trips"][shape]
+
+
+@pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])
+def test_model_collectives_adjoints_are_exact(ranks, spec):
+    """``copy_to_model`` (backward: the cotangent summed over model),
+    ``gather_from_model`` (backward: this rank's slice, no sum) and
+    ``reduce_from_model`` (backward: the cotangent as it is) on every rank
+    against autograd of the same function in one process, exactly; the
+    vocabulary-parallel ``chunked_cross_entropy`` (softcap, ignored
+    labels, fp32) against the whole-vocabulary loss in value and in its
+    gradients for ``hidden`` and this rank's table rows, within 1e-6."""
+    for r in ranks[f"round_trip {spec}"]:
+        assert r["model_adjoints"] == {"copy": True, "gather": True, "reduce": True}
+        assert max(r["vocab_loss"].values()) <= STEP_TOL, r["vocab_loss"]
 
 
 @pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])

@@ -331,7 +331,7 @@ def moe_dispatch_case(*, params, spec, prompt, tokens, max_len):
 
 
 def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=False,
-               arch="qwen1.5-0.5b"):
+               arch="qwen1.5-0.5b", cfg_changes=None, whole=(), f32_products=False):
     """Two steps of the smoke ``arch`` through ``jit_train_step`` on a
     ``spec`` mesh of ranks against ``make_train_step``'s on one rank, from
     the same state and batches.  Returns the first step's loss and
@@ -339,17 +339,40 @@ def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=
     gradient) worst leaf error, the parameters' errors by
     ``test_torch_train_loop.py``'s rule (where the one-rank gradient
     exceeds 2^-8 of its leaf's largest, and everywhere against 2 lr),
-    the second step's metrics, and whether every returned shard is its
-    rank's slice of the gathered value."""
+    the second step's metrics (against one rank's second step, and
+    against one rank's step from the rank's own state), whether every
+    returned shard is its
+    rank's slice of the gathered value, the split counts
+    (``mesh_ctx.TP_COUNTS``) and what the loss computed on
+    (:func:`_held_params`; the modules in ``whole`` are expected whole).
+    ``cfg_changes`` replaces config fields (the parameters must match).
+    ``f32_products``: the blockwise attention (the backward of every
+    attention call) multiplies fp32 inputs, not bf16-rounded ones, in
+    both runs."""
+    if f32_products:
+        from repro_torch.core import amla, flash
+
+        saved = flash.matmul, amla.matmul
+        flash.matmul = amla.matmul = lambda a, b, matmul_dtype: torch.matmul(a.float(), b.float())
+        try:
+            return train_case(params=params, batches=batches, spec=spec, policy=policy,
+                              compression=compression, grad_accum=grad_accum, remat=remat,
+                              arch=arch, cfg_changes=cfg_changes, whole=whole)
+        finally:
+            flash.matmul, amla.matmul = saved
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.core import tree
     from repro_torch.models.model_zoo import build_model
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.optim.compression import compression_init
-    from repro_torch.runtime import sharding, train_loop
+    from repro_torch.runtime import mesh_ctx, sharding, train_loop
 
-    cfg = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **(cfg_changes or {}))
     model = build_model(cfg)
+    held = []
+    model.loss = _recording(model.loss, held)
     mesh = _mesh(spec)
     tc = train_loop.TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=20, remat=remat,
                                 compression=compression, grad_accum=grad_accum)
@@ -357,13 +380,18 @@ def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=
         model, tc, mesh, model.init(None, "meta", dtype=torch.float32), policy=policy)
     state = (params, adamw_init(params), compression_init(params, compression))
     one = (params, adamw_init(params), compression_init(params, compression))
-    ref = train_loop.make_train_step(model, tc)
+    ref = train_loop.make_train_step(build_model(cfg), tc)
+    mesh_ctx.TP_COUNTS.clear()
     out = {}
     for i, batch in enumerate(batches):
+        before = tree.tree_map(sharding.full_value, tuple(state))  # the rank state, gathered
         *state, m = compile_for(batch)(*state, batch, 3 + i)
         *one, m_one = ref(*one, batch, 3 + i)
         out[f"metrics{i}"] = {k: (float(m[k]), float(m_one[k]))
                               for k in ("loss", "grad_norm", "lr")}
+        if i:  # one rank's step from the same state
+            m_held = ref(*before, batch, 3 + i)[-1]
+            out[f"held{i}"] = {k: (float(m[k]), float(m_held[k])) for k in ("loss", "grad_norm")}
         if i == 0:
             gathered = [sharding.full_value(x) for x in tree.leaves(state[:3])]
             out["shards_are_slices"] = _shards_are_slices(state[:3], sh, gathered)
@@ -384,6 +412,8 @@ def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=
             if compression != "none":
                 out.update(_int8_flips(cfg, params, state, one, m, m_one, tc.clip_norm))
     out["is_dtensor"] = all(hasattr(x, "to_local") for x in tree.leaves(state[:3]))
+    out["counts"] = dict(mesh_ctx.TP_COUNTS)
+    out.update(_held_params(params, held, sh["params"], mesh, cfg, policy, whole))
     return out
 
 
@@ -533,7 +563,8 @@ def round_trip_case(*, spec):
             and sharding.whole_tree({"a": t}, tree_sh)["a"] is t
             and torch.equal(sharding.shard_one(
                 sharding.gather_one(local, sh, keep=("data",)), sh, keep=("data",)), local))
-    return dict(round_trips=ok, adjoint=_gather_rows_adjoint(mesh))
+    return dict(round_trips=ok, adjoint=_gather_rows_adjoint(mesh),
+                model_adjoints=_model_adjoints(mesh), vocab_loss=_vocab_parallel_loss(mesh))
 
 
 def _gather_rows_adjoint(mesh) -> bool:
@@ -556,9 +587,130 @@ def _gather_rows_adjoint(mesh) -> bool:
     return y.shape[0] == 3 * n and torch.equal(x.grad, want.expand(3, 2))
 
 
+def _model_adjoints(mesh) -> dict:
+    """``copy_to_model``, ``gather_from_model`` and ``reduce_from_model``
+    on every rank against autograd of the same function in one process,
+    on integer values (exact).  Every rank builds every rank's inputs (rank
+    ``j`` of ``model`` draws from seed ``j``); the cotangents are weights
+    of the rank (``copy``: each rank's own, as a product over its columns
+    gives it) or the same on every rank (``gather`` / ``reduce``: of a
+    replicated output).  Returns, per function, whether the gradient of
+    this rank's input equals the one-process gradient's part of it."""
+    from repro_torch.core.distributed import (
+        axis_index, copy_to_model, gather_from_model, reduce_from_model)
+
+    idx, m = axis_index(("model",), mesh)
+    ints = lambda seed, shape: torch.randint(-4, 5, shape, generator=torch.Generator()
+                                             .manual_seed(seed)).float()
+    shared, weights = ints(100, (3, 4)), [ints(200 + j, (3, 4)) for j in range(m)]
+    pieces = [ints(j, (3, 4)) for j in range(m)]
+    out = {}
+
+    # copy: y = x on every rank, rank j's loss sum(w_j * y); one process
+    # sums every rank's loss
+    x = shared.clone().requires_grad_()
+    (copy_to_model(x, mesh=mesh) * weights[idx]).sum().backward()
+    x1 = shared.clone().requires_grad_()
+    sum((x1 * w).sum() for w in weights).backward()
+    out["copy"] = torch.equal(x.grad, x1.grad)
+
+    # gather: y = cat(x_0 .. x_{m-1}) on every rank, the loss sum(W * y)
+    wide = ints(300, (3, 4 * m))
+    x = pieces[idx].clone().requires_grad_()
+    y = gather_from_model(x, -1, mesh=mesh)
+    (y * wide).sum().backward()
+    xs = [p.clone().requires_grad_() for p in pieces]
+    (torch.cat(xs, -1) * wide).sum().backward()
+    out["gather"] = torch.equal(y.detach(), torch.cat(pieces, -1)) and torch.equal(
+        x.grad, xs[idx].grad)
+
+    # reduce: y = x_0 + ... + x_{m-1} on every rank, the loss sum(W * y)
+    x = pieces[idx].clone().requires_grad_()
+    y = reduce_from_model(x, mesh=mesh)
+    (y * shared).sum().backward()
+    xs = [p.clone().requires_grad_() for p in pieces]
+    (sum(xs) * shared).sum().backward()
+    out["reduce"] = torch.equal(y.detach(), sum(pieces)) and torch.equal(x.grad, xs[idx].grad)
+    return out
+
+
+def _vocab_parallel_loss(mesh) -> dict:
+    """``chunked_cross_entropy`` under a plan splitting the vocabulary
+    over ``model`` (this rank's table rows) against the whole-vocabulary
+    loss in one process, fp32, with softcap and ignored labels: the
+    loss's relative error and the largest errors of its gradients with
+    respect to ``hidden`` and this rank's table rows (each over the
+    one-process gradient's largest)."""
+    from repro_torch.core.distributed import axis_index
+    from repro_torch.models.layers import chunked_cross_entropy
+    from repro_torch.runtime.sharding import TPPlan
+
+    idx, m = axis_index(("model",), mesh)
+    gen = torch.Generator().manual_seed(11)
+    vocab, d = 64, 16
+    table = torch.randn((vocab, d), generator=gen)
+    hidden = torch.randn((2, 8, d), generator=gen) * 2
+    labels = torch.randint(0, vocab, (2, 8), generator=gen)
+    labels[0, 3] = labels[1, 0] = -1
+    plan = TPPlan(mesh=mesh, m=m, idx=idx, kinds=(), n_heads=1, n_kv_heads=1, mla=False,
+                  attn=False, mlp=False, vocab=True, kv_local=False)
+    rows = slice(idx * vocab // m, (idx + 1) * vocab // m)
+    kw = dict(n_chunks=2, softcap=5.0, dtype=torch.float32)
+
+    t, h = table[rows].clone().requires_grad_(), hidden.clone().requires_grad_()
+    loss = chunked_cross_entropy({"table": t}, h, labels, tp=plan, **kw)
+    loss.backward()
+    t1, h1 = table.clone().requires_grad_(), hidden.clone().requires_grad_()
+    want = chunked_cross_entropy({"table": t1}, h1, labels, **kw)
+    want.backward()
+    loss, want = float(loss.detach()), float(want.detach())
+    return dict(loss=abs(loss - want) / abs(want),
+                hidden=_leaf_rel(h.grad, h1.grad), table=_leaf_rel(t.grad, t1.grad[rows]))
+
+
+def train_count_case(*, arch, params, batch, spec, policy):
+    """One split train step (``jit_train_step`` under ``policy`` on a
+    ``spec`` mesh of ranks) counted by ``OpCounter`` in this rank, and the
+    dry run's count of the same step: ``make_train_step`` at
+    ``launch/dryrun.local_config``'s widths on meta stand-ins.  Returns
+    both counts' flops, bytes, products' flops, ops and collectives, and
+    the process-group calls the rank step made
+    (``core/distributed.COLLECTIVES``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import COLLECTIVES
+    from repro_torch.launch.dryrun import local_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.roofline.op_cost import OpCounter
+    from repro_torch.runtime import train_loop
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    mesh = _mesh(spec)
+    tc = train_loop.TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=20, remat=False)
+    compile_for, _ = train_loop.jit_train_step(
+        model, tc, mesh, model.init(None, "meta", dtype=torch.float32), policy=policy)
+    step = compile_for(batch)
+    n0 = dict(COLLECTIVES)
+    with OpCounter() as ranks:
+        step(params, adamw_init(params), None, batch, 3)
+    calls = {k: COLLECTIVES[k] - n0[k] for k in n0}
+    lmodel = build_model(local_config(cfg, mesh.shape["model"]))
+    lparams = lmodel.init(None, "meta", dtype=torch.float32)
+    meta = {k: torch.as_tensor(v).to("meta") for k, v in batch.items()}
+    with OpCounter() as dry:
+        train_loop.make_train_step(lmodel, tc)(lparams, adamw_init(lparams), None, meta, 3)
+    out = {k: dict(flops=c.cost.flops, bytes=c.cost.bytes, products=c.products.flops,
+                   ops=c.n_ops, coll=dict(c.cost.coll), coll_counts=dict(c.cost.coll_counts))
+           for k, c in (("ranks", ranks), ("dry", dry))}
+    out["calls"] = calls
+    return out
+
+
 CASES = {
     "serve": serve_case,
     "count": count_case,
+    "train_count": train_count_case,
     "moe": moe_dispatch_case,
     "train": train_case,
     "reshard": reshard_case,
