@@ -272,7 +272,29 @@ root) and exits nonzero on any failure:
     (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``; 4 prompts
     of 64 tokens and 16 decode steps, held against the one-process run
     from the same weights (:func:`tp_phase`): tokens, logits, each rank's
-    parameter bytes, split counts, launches at the rank's shapes.
+    parameter bytes, split counts, launches at the rank's shapes; then
+    (g) qwen2.5-3b at full width under ``fsdp`` on 2 x 1 ranks, each rank
+    its data shards of (d)'s weights and 2 of the 4 rows, every layer
+    gathered at its use, 2 decode steps, held against the same steps of
+    (d)'s one-process runs: tokens,
+    logits, launches, layers x calls layer gathers, the gathered bytes
+    alive at once within what the step gathers of its largest layer plus
+    its largest gathered table, each rank's peak below 0.85 of the whole
+    model's parameter bytes.
+33. **Ranks phase** (after the seqkv phase; two gloo ranks on the card):
+    (a) qwen2.5-3b seqkv decode on 1 x 2 ranks from the seqkv phase's
+    cache (16 steps; the parameters handed whole, nothing gathered),
+    bit-equal to the logical 1 x 2 run; (b) qwen1.5-0.5b training on 2 x 1
+    ranks under ``fsdp`` and ``tp_fsdp`` (2 steps, remat), each step held
+    by rank 0 against ``make_train_step`` from the same gathered state,
+    the layers gathered at their use (again in the recompute): the
+    gathered bytes alive at once within what the step gathers of its
+    largest layer plus its largest gathered table; each rank's peak and
+    gloo calls and bytes a step printed (:func:`ranks_phase`).
+34. **Tensor-parallel train phase** (after phase 32): qwen1.5-0.5b at
+    full width (24 layers) split by ``model`` on 1 x 2 ranks, (e) ``tp``
+    at fp32 compute and (f) ``tp_fsdp`` at bf16, 1 step each, held
+    against the one-rank step (:func:`tp_train_phase`).
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
 ``--k3-only`` (the build and phase 8), or ``--k6-ab OTHER_TREE/src``
@@ -324,7 +346,14 @@ MMA_KERNELS = {
 GQA_MMA_KERNELS = ("gqa_decode_mma_kernel", "flash_prefill_mma_kernel")
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's header (``== ...``) after the seconds since
+    the script started."""
+    if msg.startswith("=="):
+        msg = f"[{time.perf_counter() - T0:.1f} s] {msg}"
     print(msg, flush=True)
 
 
@@ -5034,7 +5063,57 @@ def mesh_train_check(cfg, model, params, opt):
 RANKS_TIMEOUT = 600.0  # s for the ranks phase's two processes; then they are killed
 RANK_TRAIN_REL = 1e-5  # loss and grad_norm of a rank step against the one-rank step
 RANK_PARAM_TOL = 2e-3  # tests/test_torch_train_loop.py's PARAM_TOL
-RANK_TRAIN_STEPS = 3
+# (b)'s steps: 2, so that the whole script stays inside its 1200 s on slow
+# hosts; its gloo phases vary by host (on H100 hosts, with (b) at 3 and
+# (g) at 16: 1142 s; with (g) at 4: 1255 s on a slower one)
+RANK_TRAIN_STEPS = 2
+
+
+class GatherSpy:
+    """Inside the ``with``: every call of ``mesh_ctx.working`` in a
+    rank-local step, the layers' counted (``layers``), and the bytes of
+    what each call gathered (a leaf that came back as another tensor): the
+    most for one layer and for one leaf outside the layers (a table), whose
+    sum is the bound on the gathered bytes alive at once (:meth:`summary`);
+    ``core/distributed.GATHERED``'s peak from the start and the bytes
+    still alive after."""
+
+    def __enter__(self):
+        from repro_torch.core import distributed, tree
+        from repro_torch.runtime import mesh_ctx
+
+        self.layers = self.layer_bytes = self.table_bytes = 0
+        self._orig = orig = mesh_ctx.working
+
+        def spy(sub, prefix):
+            out = orig(sub, prefix)
+            if mesh_ctx._CURRENT["gather"] is not None:
+                got = [t.nbytes for t, t_in in zip(tree.leaves(out), tree.leaves(sub))
+                       if t is not t_in]
+                if str(prefix[0]).endswith("layers"):
+                    self.layers += 1
+                    self.layer_bytes = max(self.layer_bytes, sum(got))
+                else:
+                    self.table_bytes = max(self.table_bytes, *got, 0)
+            return out
+
+        mesh_ctx.working = spy
+        distributed.reset_gathered_peak()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import distributed
+        from repro_torch.runtime import mesh_ctx
+
+        mesh_ctx.working = self._orig
+        self.peak = distributed.GATHERED["peak"]
+        gc.collect()
+        self.live = distributed.GATHERED["live"]
+        return False
+
+    def summary(self) -> dict:
+        return dict(gathered_peak=self.peak, gathered_live=self.live, layer_gathers=self.layers,
+                    gather_bound=self.layer_bytes + self.table_bytes)
 
 
 def _rank_main(rank, world, store_path, seqkv, train, out):
@@ -5085,19 +5164,21 @@ def _rank_phases(rank, world, store_path, seqkv, train):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(counters)
     decode = compile_decode(torch.zeros((4, 1), dtype=torch.int64, device=dev))
-    toks, first, times = seqkv_decode(model, params, cache, seqkv["tokens"], seqkv["cache_len"],
-                                      16, decode, mesh)
-    torch.cuda.synchronize()
+    with GatherSpy() as gathers:  # the parameters come whole: nothing is gathered
+        toks, first, times = seqkv_decode(model, params, cache, seqkv["tokens"],
+                                          seqkv["cache_len"], 16, decode, mesh)
+        torch.cuda.synchronize()
     local = sum(c[k].to_local().nbytes for c in cache for k in c)
     res["a"] = dict(tokens=toks, first=first, times=times, launches=read_counts(counters),
                     peak=torch.cuda.max_memory_allocated() / 2**30, cache_gib=local / 2**30,
-                    rows=tuple(cache[0]["k"].to_local().shape))
+                    rows=tuple(cache[0]["k"].to_local().shape), **gathers.summary())
     del cache, decode, params, full
     gc.collect()
     torch.cuda.empty_cache()
 
     # (b) training on 2 x 1 ranks; rank 0 holds each step against the
     # one-rank step from the same (gathered) state and batch
+    from repro_torch.core import distributed
     from repro_torch.runtime.train_loop import make_train_step
 
     cfg = get_config("qwen1.5-0.5b")
@@ -5112,25 +5193,30 @@ def _rank_phases(rank, world, store_path, seqkv, train):
         state = (train["params"], train["opt"], None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        metrics, times, held, launches = [], [], [], [0, 0, 0]
-        for i, batch in enumerate(train["batches"]):
-            before = [tree.tree_map(sharding.full_value, t) for t in state[:2]]  # gathered
-            zero_counts(counters)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            *state, m = step(*state, batch, 10 + i)
-            metrics.append({k: float(v) for k, v in m.items()})
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            launches = [x + c for x, (c, _) in zip(launches, read_counts(counters))]
-            after = tree.tree_map(sharding.full_value, state[0])
-            if rank == 0:  # the peer waits in the next collective meanwhile
-                held.append(_hold_rank_step(one_rank, before, after, metrics[-1], batch, 10 + i))
-            del before, after
+        metrics, times, held, launches, coll = [], [], [], [0, 0, 0], []
+        with GatherSpy() as gathers:
+            for i, batch in enumerate(train["batches"]):
+                before = [tree.tree_map(sharding.full_value, t) for t in state[:2]]  # gathered
+                zero_counts(counters)
+                n0 = dict(distributed.COLLECTIVES), dict(distributed.COLLECTIVE_BYTES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                *state, m = step(*state, batch, 10 + i)
+                metrics.append({k: float(v) for k, v in m.items()})
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                coll.append((sum(distributed.COLLECTIVES.values()) - sum(n0[0].values()),
+                             sum(distributed.COLLECTIVE_BYTES.values()) - sum(n0[1].values())))
+                launches = [x + c for x, (c, _) in zip(launches, read_counts(counters))]
+                after = tree.tree_map(sharding.full_value, state[0])
+                if rank == 0:  # the peer waits in the next collective meanwhile
+                    held.append(_hold_rank_step(one_rank, before, after, metrics[-1], batch,
+                                                10 + i))
+                del before, after
         local = sum(x.to_local().nbytes for x in tree.leaves(state[:2]))
         res["b"][policy] = dict(metrics=metrics, times=times, launches=launches, held=held,
                                 peak=torch.cuda.max_memory_allocated() / 2**30,
-                                state_gib=local / 2**30)
+                                state_gib=local / 2**30, coll=coll, **gathers.summary())
         del state, step, compile_for
         gc.collect()
         torch.cuda.empty_cache()
@@ -5245,21 +5331,28 @@ def ranks_phase(card, seqkv):
     each rank holds its half of the seqkv phase's 32k cache (every layer's
     K/V rows ``[r x 16384, (r + 1) x 16384)``, copied from the parent's
     cache through CUDA IPC) and runs 16 greedy decode steps through
-    ``jit_serve_fns`` (the parameters the parent's, through CUDA IPC):
-    K6 once per layer over its slice, the partials all-gathered.  Gates:
-    the first step's logits bit-equal to the one-process logical 1 x 2
-    run's from the same cache bits, 64 of 64 tokens equal to its, K6 =
-    layers x steps on each rank and no K3.
+    ``jit_serve_fns`` (the parameters the parent's whole tensors, through
+    CUDA IPC, which the step uses as they are): K6 once per layer over its
+    slice, the partials all-gathered.  Gates: the first step's logits
+    bit-equal to the one-process logical 1 x 2 run's from the same cache
+    bits, 64 of 64 tokens equal to its, K6 = layers x steps on each rank
+    and no K3, no parameter bytes gathered.
 
     (b) qwen1.5-0.5b at full width on 2 x 1 ranks under ``fsdp`` and
-    ``tp_fsdp``, the global batch 8 x 2048, 3 steps through
-    ``jit_train_step`` (the first from full tensors, the next two from the
-    ranks' own shards, gathered).  Rank 0 holds every step against
+    ``tp_fsdp``, the global batch 8 x 2048, ``RANK_TRAIN_STEPS`` steps
+    through ``jit_train_step`` (the first from full tensors, the next from
+    the ranks' own shards, gathered); the model gathers each layer at its use
+    (and again in its remat recompute).  Rank 0 holds every step against
     ``make_train_step`` on one rank from the same state and batch
     (:func:`_hold_rank_step`).  Gates: loss and ``grad_norm`` within
     ``RANK_TRAIN_REL``, the parameters by ``RANK_PARAM_TOL`` where the
     gradient is resolved and within 2 lr everywhere, the same metrics on
-    both ranks, K7 = layers x 2 x steps on each rank.
+    both ranks, K7 = layers x 2 x steps on each rank; the gathered
+    parameter bytes alive at once at most what the step gathers of its
+    largest layer plus its largest gathered table (:class:`GatherSpy`:
+    under ``fsdp`` the table is replicated, so one layer), none alive
+    after, and layers x 2 x steps layer gathers.  Each rank's peak and its gloo calls
+    and bytes a step are printed.
 
     Every line is printed before a failed gate stops the run.  The step
     times are gloo on one card: the collectives move through host memory
@@ -5285,18 +5378,31 @@ def ranks_phase(card, seqkv):
             f"{a['times'][0]:.1f} ms), peak {a['peak']:.2f} GiB; first-step logits bit-equal "
             f"to the logical 1 x 2 run: {same_first} (max |diff| "
             f"{(a['first'] - seqkv['first']).abs().max().item():.3e}); tokens equal "
-            f"{agree} of {4 * steps}; K6 {k6a}, K3 {k3a}; card {card}")
+            f"{agree} of {4 * steps}; K6 {k6a}, K3 {k3a}; parameter bytes gathered "
+            f"{a['gathered_peak']} (handed whole); card {card}")
         if not same_first or agree != 4 * steps or (k6a, k3a, k7a) != (n_layers * steps, 0, 0):
             failed.append(f"(a) rank {r}: not the logical 1 x 2 run's logits / tokens, or "
                           f"launches K6 {k6a}, K3 {k3a}, K7 {k7a} not layers x steps, 0, 0")
+        if a["gathered_peak"] or a["layer_gathers"] != n_layers * steps:
+            failed.append(f"(a) rank {r}: parameters handed whole were gathered, or the layers "
+                          f"were not read through working once a step")
         k6, k3 = k6 + k6a, k3 + k3a
         for policy, b in res["b"].items():
             k7b, k6b, k3b = b["launches"][2], b["launches"][0], b["launches"][1]
             log(f"(b) rank {r} {policy}: " + "; ".join(
                 f"loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f}" for m in b["metrics"])
                 + f"; {', '.join(f'{t:.1f}' for t in b['times'])} ms/step, peak "
-                f"{b['peak']:.2f} GiB, params + moments held {b['state_gib']:.2f} GiB; K7 "
+                f"{b['peak']:.2f} GiB, params + moments held {b['state_gib']:.2f} GiB; gloo "
+                f"calls / GiB a step {[(c, round(x / 2**30, 3)) for c, x in b['coll']]}; "
+                f"gathered parameter bytes alive at once at most "
+                f"{b['gathered_peak'] / 2**20:.1f} MiB (bound {b['gather_bound'] / 2**20:.1f} "
+                f"MiB: the largest gathered layer plus the largest gathered table), "
+                f"{b['gathered_live']} B alive after; layer gathers {b['layer_gathers']}; K7 "
                 f"{k7b}, K6 {k6b}, K3 {k3b}; card {card}")
+            if (b["gathered_peak"] > b["gather_bound"] or b["gathered_live"]
+                    or b["layer_gathers"] != train["n_layers"] * 2 * RANK_TRAIN_STEPS):
+                failed.append(f"(b) rank {r} {policy}: gathered bytes alive past the bound or "
+                              "after the step, or layer gathers not layers x 2 x steps")
             for i, h in enumerate(b["held"]):
                 log(f"    step {i}: one rank from the same state: loss "
                     f"{h['one_rank']['loss']:.6f} grad_norm {h['one_rank']['grad_norm']:.6f}; "
@@ -5338,6 +5444,17 @@ TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
 # label -> (arch, policy, max_len): deepseek-v2-mla's latent cache needs no
 # more rows; qwen2.5-3b's 2048 give K6 four 512-key splits, so K3 runs
 TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128), "d": ("qwen2.5-3b", "tp_fsdp", 2048)}
+# label -> (the cell whose one-process references it reuses, mesh, policy,
+# decode steps): FSDP serving on 2 x 1 ranks, each rank its batch rows and
+# its data shards of the weights, every layer gathered at its use.  Its
+# first 2 of (d)'s 16 steps: every call gathers each layer through gloo
+# (5.2 GiB, 7-9.5 s on an H100 host), and at 16 the whole script took
+# 1142 s of its 1200
+FSDP_CELLS = {"g": ("d", "2x1", "fsdp", 2)}
+# a rank's peak allocated over the bytes of every parameter leaf of the
+# one-process model (the fp32 table copy included): the shards, one layer
+# and the table, not a whole copy (the all-at-once gather needs ~1.4x)
+FSDP_PEAK_SHARE = 0.85
 TP_GEOM = ("qwen2.5-3b rank", 8, 1, 128, None, None)  # one rank of 1 x 2: 8 / 1 heads
 # one rank of the split train step: 8 of qwen1.5-0.5b's 16 heads (MHA, Dh 64)
 TP_TRAIN_GEOM = ("qwen1.5-0.5b rank", 8, 8, 64, None, None)
@@ -5385,8 +5502,8 @@ def tp_kernel_phase(flush):
     return worst, time_dense_rows(timed, flush)
 
 
-def tp_serve(prefill, decode, params, cache, prompts, forced=None, dev="cuda"):
-    """The 64-token prompts prefilled in one call, then ``TP_STEPS`` decode
+def tp_serve(prefill, decode, params, cache, prompts, forced=None, dev="cuda", steps=TP_STEPS):
+    """The 64-token prompts prefilled in one call, then ``steps`` decode
     steps of one token: greedy, or fed ``forced[:, i]`` at step ``i`` (the
     one-process run's tokens, so every call's logits are comparable).
     Returns each call's last-position logits on the host, the greedy
@@ -5402,7 +5519,7 @@ def tp_serve(prefill, decode, params, cache, prompts, forced=None, dev="cuda"):
     t_prefill = 1e3 * (time.perf_counter() - t0)
     greedy = [out[-1].argmax(-1).numpy()]
     times = []
-    for i in range(TP_STEPS):
+    for i in range(steps):
         tok = greedy[-1] if forced is None else forced[:, i]
         t = torch.as_tensor(np.asarray(tok)[:, None], dtype=torch.int64, device=dev)
         lens = np.full((len(tok),), TP_PROMPT + i, np.int32)
@@ -5427,7 +5544,7 @@ def tp_counters():
 
 def tp_reference(label, dev="cuda", smoke=False):
     """One process, no mesh: the cell's model at full width (bf16 weights
-    from seed 0), 4 prompts of 64 tokens (seed 0) and 16 greedy decode
+    from seed 0), 4 prompts of 64 tokens (seed 0) and ``TP_STEPS`` greedy decode
     steps through ``prefill`` / ``decode_step``; what the ranks are held
     against; then the same weights at fp32 compute fed those tokens (the
     yardstick of the logits gate), and at fp32 compute greedy (its own
@@ -5504,15 +5621,18 @@ def _tp_rank_main(rank, world, store_path, jobs, out):
         out.put((rank, traceback.format_exc()))
 
 
-def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smoke=False):
-    """One rank's run of a cell on the 1 x 2 mesh: this rank's shards of
-    the parameters drawn from seed 0 (each leaf drawn whole and sliced at
-    once, so the whole model is never resident here), the cache placed as
-    the specs lay it out, the prompts prefilled and the one-process run's
-    tokens fed through ``jit_serve_fns``' prefill and decode.  Records the
-    shapes K4, K6 and K7 launch at (their CUDA launch paths wrapped).
-    Then the same shards at fp32 compute (weights unchanged, an fp32
-    cache), greedy: its tokens and launches."""
+def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smoke=False,
+                  spec="1x2", steps=TP_STEPS):
+    """One rank's run of a cell on the ``spec`` mesh: this rank's shards
+    of the parameters drawn from seed 0 (each leaf drawn whole and sliced
+    at once, so the whole model is never resident here), the cache placed
+    as the specs lay it out, the prompts prefilled and the one-process
+    run's first ``steps`` tokens fed through ``jit_serve_fns``' prefill
+    and decode (each layer gathered at its use).  Records the shapes K4, K6 and K7 launch at
+    (their CUDA launch paths wrapped), the gathered parameter bytes alive
+    at once and the layer gathers.  Then the same shards at fp32 compute
+    (weights unchanged, an fp32 cache), greedy: its tokens and
+    launches."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5528,7 +5648,7 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
 
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg)
-    mesh = rank_mesh("1x2", dev)
+    mesh = rank_mesh(spec, dev)
     like = model.init(None, "meta")
     like_c = model.init_cache(like, TP_BATCH, max_len)
     compile_prefill, compile_decode, sh = jit_serve_fns(model, mesh, like, like_c, policy=policy)
@@ -5566,14 +5686,15 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
     originals = [(mod, name, getattr(mod, name)) for mod, name, _, _ in spied]
     for (mod, name, key, shape), (_, _, fn) in zip(spied, originals):
         setattr(mod, name, spy(fn, key, shape))
-    calls = {}
+    calls, moved = {}, {}
 
     def counted(name, fn):
         def call(*a, **k):
-            n0 = dict(distributed.COLLECTIVES)
+            n0, b0 = dict(distributed.COLLECTIVES), sum(distributed.COLLECTIVE_BYTES.values())
             out = fn(*a, **k)
             calls.setdefault(name, []).append(
                 {c: distributed.COLLECTIVES[c] - n0[c] for c in n0})
+            moved.setdefault(name, []).append(sum(distributed.COLLECTIVE_BYTES.values()) - b0)
             return out
 
         return call
@@ -5583,9 +5704,11 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
         mesh_ctx.TP_COUNTS.clear()
         p_like = torch.zeros((TP_BATCH, TP_PROMPT), dtype=torch.int64, device=dev)
         t_like = torch.zeros((TP_BATCH, 1), dtype=torch.int64, device=dev)
-        logits, tokens, t_prefill, times = tp_serve(
-            counted("prefill", compile_prefill(p_like)), counted("decode", compile_decode(t_like)),
-            params, cache, prompts, forced=forced, dev=dev)
+        with GatherSpy() as gathers:
+            logits, tokens, t_prefill, times = tp_serve(
+                counted("prefill", compile_prefill(p_like)),
+                counted("decode", compile_decode(t_like)), params, cache, prompts, forced=forced,
+                dev=dev, steps=steps)
         launches = [c for c, _ in read_counts(tp_counters())]
         counts = dict(mesh_ctx.TP_COUNTS)
     finally:
@@ -5602,8 +5725,9 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
         model32.init_cache(local, TP_BATCH, max_len))
     zero_counts(tp_counters())
     tokens32 = tp_serve(compile_prefill(p_like), compile_decode(t_like), params, cache, prompts,
-                        dev=dev)[1]
+                        dev=dev, steps=steps)[1]
     launches32 = [c for c, _ in read_counts(tp_counters())]
+    gc.collect()
     res = dict(logits=[x.numpy() for x in logits], tokens=tokens, t_prefill=t_prefill,
                times=times,
                t_build=t_build, resident=resident, allocated=allocated, peak=peak,
@@ -5611,7 +5735,9 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
                counts=counts, seen={k: sorted(v) for k, v in seen.items()},
                coll_prefill=calls["prefill"][0], coll_step=calls["decode"][-1],
                device=str(torch.cuda.current_device()) if gpu else "cpu", tokens32=tokens32,
-               launches32=launches32)
+               launches32=launches32, **dict(gathers.summary(),
+                                             gathered_live=distributed.GATHERED["live"]),
+               bytes_prefill=moved["prefill"][0], bytes_step=moved["decode"][-1])
     del params, cache, local
     gc.collect()
     if gpu:
@@ -5628,14 +5754,14 @@ def tp_phase(card, dev="cuda", smoke=False):
     (c) deepseek-v2-mla at full width (60 layers, bf16, amla) under
     ``tp``; (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``.
     For each, first the one-process run in this process (4 prompts of 64
-    tokens, 16 greedy decode steps; :func:`tp_reference`), its weights
+    tokens, ``TP_STEPS`` greedy decode steps; :func:`tp_reference`), its weights
     freed; then each rank draws the same weights from seed 0 keeping only
     its shards, prefills the prompts and decodes the one-process run's
     tokens (:func:`_tp_rank_cell`), then runs the same shards at fp32
-    compute, greedy.  Gates per rank: at fp32 compute all 64 decode steps'
+    compute, greedy.  Gates per rank: at fp32 compute all the decode steps'
     greedy tokens (and the prefill's) equal to the one-process fp32-compute
     run's, with the bf16 run's launches; at bf16 at least
-    ``TP_MIN_TOKENS`` of the 64 decode steps' greedy tokens equal to the
+    ``TP_MIN_TOKENS`` of the decode steps' greedy tokens equal to the
     one-process run's, every call's logits within ``TP_LOGIT_TOL`` of its
     largest one-process logit or, where the one-process bf16 run is
     itself farther than that from the fp32-compute run, at most
@@ -5645,22 +5771,44 @@ def tp_phase(card, dev="cuda", smoke=False):
     (c), K7 at 8 heads and K6 at 8 / 1 heads with K3 (d), layers x calls
     launches; both ranks the same logits.  The step times are gloo on one
     card: collectives through host memory, the two ranks sharing the
-    card's SMs; not a multi-card number.  Returns the ranks' (K4, K6,
-    K7, K3) launches."""
-    log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks (2 ranks on "
-        f"{dev}, spawned, gloo), card {card} ==")
+    card's SMs; not a multi-card number.
+
+    (g) qwen2.5-3b at full width under ``fsdp`` on 2 x 1 ranks
+    (``FSDP_CELLS``): each rank draws its data shards of (d)'s weights and
+    serves its 2 of the 4 rows, every layer's leaves gathered at their use,
+    for the first 2 of (d)'s decode steps; held against those steps of
+    (d)'s one-process runs (none runs again) by (d)'s token and logit gates
+    (``TP_MIN_TOKENS`` in proportion), with K7 at 16 heads and K6 at 8 / 2 heads with K3,
+    layers x calls launches, layers x calls layer gathers, the gathered
+    bytes alive at once at most what the step gathers of its largest layer
+    plus its largest gathered table (:class:`GatherSpy`: the tables are
+    replicated under ``fsdp``, so one layer) and each rank's peak allocated below
+    ``FSDP_PEAK_SHARE`` of the whole model's parameter bytes (a whole copy
+    gathered at once could not meet it).  Returns the ranks' (K4, K6, K7,
+    K3) launches."""
+    log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks, and FSDP on "
+        f"2 x 1 ranks (2 ranks on {dev}, spawned, gloo), card {card} ==")
     t0 = time.perf_counter()
     refs = {label: tp_reference(label, dev, smoke) for label in TP_CELLS}
-    jobs = [dict(label=r["label"], arch=r["arch"], policy=r["policy"], max_len=r["max_len"],
-                 prompts=r["prompts"], forced=r["tokens"], dev=dev, smoke=smoke)
-            for r in refs.values()]
+    cells = {**{label: (label, "1x2", TP_CELLS[label][1], TP_STEPS) for label in TP_CELLS},
+             **FSDP_CELLS}
+    jobs = [dict(label=label, arch=refs[src]["arch"], policy=policy,
+                 max_len=refs[src]["max_len"], prompts=refs[src]["prompts"],
+                 forced=refs[src]["tokens"], dev=dev, smoke=smoke, spec=spec, steps=steps)
+            for label, (src, spec, policy, steps) in cells.items()]
     ranks = _spawn_ranks(2, (jobs,), TP_TIMEOUT, _tp_rank_main)
-    log(f"two ranks spawned, ran (c) and (d) and exited; the phase {time.perf_counter() - t0:.1f} "
-        f"s")
+    log(f"two ranks spawned, ran {', '.join(f'({c})' for c in cells)} and exited; the phase "
+        f"{time.perf_counter() - t0:.1f} s")
     total = [0, 0, 0, 0]
     failed = []
-    for label, ref in refs.items():
-        n, calls = ref["layers"], 1 + TP_STEPS
+    for label, (src, spec, policy, steps) in cells.items():
+        ref = refs[src]
+        n, calls = ref["layers"], 1 + steps
+        # the one-process run's first ``steps`` steps
+        ref = dict(ref, logits=ref["logits"][:calls], f32=ref["f32"][:calls],
+                   tokens=ref["tokens"][:, :calls], tokens32=ref["tokens32"][:, :calls],
+                   f32_err=logit_share(ref["logits"][:calls], ref["f32"][:calls]))
+        min_tokens = TP_MIN_TOKENS * steps // TP_STEPS
         for r, res in enumerate(ranks):
             x = res[label]
             err = logit_share(x["logits"], ref["logits"])
@@ -5671,35 +5819,53 @@ def tp_phase(card, dev="cuda", smoke=False):
             split = {"attn": n * calls, "mlp": n * calls, "embed": calls, "logits": calls}
             if label == "c":
                 kernels_ok = (k4, k6, k7, k3) == (n * calls, 0, 0, 0) and 64 in x["seen"]["K4"]
-            else:
-                kernels_ok = ((k4, k6, k7, k3) == (0, n * TP_STEPS, n, n * TP_STEPS)
+            elif label == "d":
+                kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
                               and x["seen"]["K6"] == [(1, 8)] and x["seen"]["K7"] == [8])
+            else:  # all heads, each rank its rows
+                kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
+                              and x["seen"]["K6"] == [(2, 8)] and x["seen"]["K7"] == [16])
             same = all(np.array_equal(a, b)
                        for a, b in zip(x["logits"], ranks[0][label]["logits"]))
             agree32 = int((x["tokens32"][:, 1:] == ref["tokens32"][:, 1:]).sum())
             same32 = np.array_equal(x["tokens32"], ref["tokens32"])
             log(f"({label}) rank {r} at fp32 compute (same shards, fp32 cache, greedy): tokens "
-                f"equal to the one-process fp32-compute run's {agree32} of {TP_BATCH * TP_STEPS} "
+                f"equal to the one-process fp32-compute run's {agree32} of {TP_BATCH * steps} "
                 f"(all, the prefill's included: {same32}; must be all); launches K4, K6, K7, K3 "
                 f"{x['launches32']}; card {card}")
-            log(f"({label}) rank {r} ({ref['arch']}, {ref['policy']}): parameters held "
+            peak_share = x["peak"] / ref["whole"]
+            gathers_ok = (x["gathered_peak"] <= x["gather_bound"] and not x["gathered_live"]
+                          and x["layer_gathers"] == n * calls)
+            log(f"({label}) rank {r} ({ref['arch']}, {policy} {spec}): gathered parameter bytes "
+                f"alive at once at most {x['gathered_peak'] / 2**20:.1f} MiB (bound "
+                f"{x['gather_bound'] / 2**20:.1f} MiB: the largest gathered layer plus the "
+                f"largest gathered table), {x['gathered_live']} B alive after; layer gathers "
+                f"{x['layer_gathers']} (layers x calls {n * calls}); peak "
+                f"{peak_share:.4f} of the whole model's parameter bytes; gloo GiB per decode "
+                f"step {x['bytes_step'] / 2**30:.3f}, at the prefill "
+                f"{x['bytes_prefill'] / 2**30:.3f}; card {card}")
+            log(f"({label}) rank {r} ({ref['arch']}, {policy} {spec}): parameters held "
                 f"{x['resident'] / 2**30:.2f} GiB = {share:.4f} of the whole "
                 f"{ref['whole'] / 2**30:.2f} GiB (allocated after the build {x['allocated'] / 2**30:.2f} GiB, drawn in "
                 f"{x['t_build']:.1f} s), peak {x['peak'] / 2**30:.2f} GiB; prefill "
-                f"{x['t_prefill']:.1f} ms, {np.mean(x['times'][2:]):.2f} ms/step steady (steps "
-                f"3-{TP_STEPS}; first {x['times'][0]:.1f} ms); gloo calls per decode step "
+                f"{x['t_prefill']:.1f} ms, {np.mean(x['times'][2:] or x['times']):.2f} ms/step "
+                f"steady (steps {3 if steps > 2 else 1}-{steps}; first {x['times'][0]:.1f} ms); "
+                f"gloo calls per decode step "
                 f"{x['coll_step']}, at the prefill {x['coll_prefill']}; launches K4 {k4}, K6 "
                 f"{k6}, K7 {k7}, K3 {k3} at K4 G {x['seen']['K4']}, K6 (kv heads, rows) "
                 f"{x['seen']['K6']}, K7 heads {x['seen']['K7']}; split counts {x['counts']}; "
                 f"logits within {err:.3e} of the largest one-process logit ({TP_LOGIT_TOL}: "
                 f"{err <= TP_LOGIT_TOL}), within {f32_err:.3e} of the largest fp32-compute logit "
                 f"against the one-process run's {ref['f32_err']:.3e} (at most {TP_F32_FACTOR} x); "
-                f"greedy tokens equal {agree} of {TP_BATCH * TP_STEPS} (at least "
-                f"{TP_MIN_TOKENS}); rank 0's logits: {same}; card {card}")
+                f"greedy tokens equal {agree} of {TP_BATCH * steps} (at least "
+                f"{min_tokens}); rank 0's logits: {same}; card {card}")
             close = err <= TP_LOGIT_TOL or f32_err <= TP_F32_FACTOR * ref["f32_err"]
-            if (not close or agree < TP_MIN_TOKENS
-                    or share > TP_RESIDENT_SHARE
-                    or x["counts"] != split or not kernels_ok or not same):
+            if label in FSDP_CELLS:  # no split; memory by the peak
+                layout_ok = x["counts"] == {} and peak_share < FSDP_PEAK_SHARE
+            else:
+                layout_ok = share <= TP_RESIDENT_SHARE and x["counts"] == split
+            if (not close or agree < min_tokens or not layout_ok or not gathers_ok
+                    or not kernels_ok or not same):
                 failed.append(f"({label}) rank {r}")
             if not same32 or x["launches32"] != x["launches"]:
                 failed.append(f"({label}) rank {r} at fp32 compute: tokens not the one-process "
@@ -5714,7 +5880,9 @@ def tp_phase(card, dev="cuda", smoke=False):
 # tensor-parallel train steps on ranks: heads, d_ff and vocabulary by model
 # --------------------------------------------------------------------------- #
 TP_TRAIN_TIMEOUT = 540.0  # s for the phase's two processes; then they are killed
-TP_TRAIN_STEPS = 2
+# one step a cell: the cells move 16.6-24.5 GiB a step through gloo
+# (28-52 s), and the whole script must stay inside 1200 s
+TP_TRAIN_STEPS = 1
 # label -> (policy, compute dtype): (e) at fp32 compute (the fp32 master
 # state unchanged), (f) at the config's bf16
 TP_TRAIN_CELLS = {"e": ("tp", "float32"), "f": ("tp_fsdp", "bfloat16")}

@@ -36,12 +36,17 @@ and its result's bytes to :data:`COLLECTIVE_BYTES`.
 front of products whose partial cotangents it keeps in fp32),
 :func:`gather_from_model` and :func:`reduce_from_model` are their
 differentiable forms over ``model`` that a tensor-parallel train step
-computes through.
+computes through.  :func:`gather_leaf` is the FSDP gather of one
+parameter leaf at its use (its backward the cotangent summed over the
+data-parallel axes it gathered, then this rank's slice); :data:`GATHERED`
+keeps the bytes of the gathered leaves still alive and the most alive at
+once.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -59,9 +64,36 @@ COLLECTIVES = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
 COLLECTIVE_BYTES = {"all_gather": 0, "all_reduce": 0, "all_to_all": 0}
 
 
+# the bytes of the storages of gathered parameter leaves (:func:`gather_leaf`)
+# alive in this process, and the most alive at once since the last
+# :func:`reset_gathered_peak`; a storage is alive until its last reference goes
+GATHERED = {"live": 0, "peak": 0}
+_GATHERED_LIVE: dict[int, int] = {}
+
+
 def _count(kind: str, nbytes: int) -> None:
     COLLECTIVES[kind] += 1
     COLLECTIVE_BYTES[kind] += nbytes
+
+
+def _release_gathered(key: int) -> None:
+    GATHERED["live"] -= _GATHERED_LIVE.pop(key, 0)
+
+
+def _track_gathered(t: torch.Tensor) -> None:
+    st = t.untyped_storage()
+    key = st._cdata
+    if key not in _GATHERED_LIVE:
+        n = st.nbytes()
+        _GATHERED_LIVE[key] = n
+        GATHERED["live"] += n
+        weakref.finalize(st, _release_gathered, key)
+    GATHERED["peak"] = max(GATHERED["peak"], GATHERED["live"])
+
+
+def reset_gathered_peak() -> None:
+    """Start :data:`GATHERED`'s peak again from the bytes alive now."""
+    GATHERED["peak"] = GATHERED["live"]
 
 
 def combine_partials(acc, m, l) -> torch.Tensor:
@@ -211,6 +243,46 @@ def gather_rows(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     a layer that must see the whole batch (the MoE dispatch) runs on this
     and keeps its own rows after (:func:`take_shard`)."""
     return _GatherRows.apply(x, spec_axes(axes), mesh)
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """A parameter leaf's shard gathered along each ``(dim, axes)`` of
+    ``dims``; the backward is the adjoint: the cotangent summed over
+    ``summed`` (the gathered axes the batch rows are split over, where each
+    rank's cotangent is its own rows' term), then this rank's slice along
+    every gathered dim (over an axis that is not summed the ranks compute
+    the same and the cotangent is replicated: sliced only)."""
+
+    @staticmethod
+    def forward(ctx, x, dims, summed, mesh):
+        ctx.dims, ctx.summed, ctx.mesh = dims, summed, mesh
+        for dim, axes in dims:
+            x = all_gather_dim(x, dim, axes, mesh=mesh)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_sum(g.contiguous(), ctx.summed, mesh=ctx.mesh)
+        for dim, axes in ctx.dims:
+            g = take_shard(g, dim, axes, mesh=ctx.mesh)
+        return g.contiguous(), None, None, None
+
+
+def gather_leaf(x: torch.Tensor, dims, summed, *, mesh) -> torch.Tensor:
+    """``x`` (this rank's shard of a parameter leaf) all-gathered along
+    each ``(dim, axes)`` of ``dims`` in turn (groups of one rank left
+    out: ``x`` itself where none is left), differentiable
+    (:class:`_GatherLeaf`: the cotangent summed over the axes ``summed``,
+    then sliced: an all-reduce and a slice where a reduce-scatter would
+    do).  The result's bytes count in :data:`GATHERED` while it lives."""
+    dims = [(d, a) for d, a in ((d, tuple(ax for ax in spec_axes(a) if mesh.shape[ax] > 1))
+                                for d, a in dims) if a]
+    if not dims:
+        return x
+    summed = tuple(a for a in spec_axes(summed) if mesh.shape[a] > 1)
+    out = _GatherLeaf.apply(x, tuple(dims), summed, mesh)
+    _track_gathered(out)
+    return out
 
 
 def all_reduce_max(t: torch.Tensor, axes, *, mesh) -> torch.Tensor:

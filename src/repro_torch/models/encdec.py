@@ -31,6 +31,7 @@ from repro_torch.models.attention_layer import (
     init_kv_cache,
 )
 from repro_torch.models.transformer import default_positions
+from repro_torch.runtime import mesh_ctx
 
 
 def _enc_layer_init(gen, cfg, *, device, dtype):
@@ -79,14 +80,16 @@ def encode(params, src_embeds, *, cfg, src_len=None, dtype=torch.bfloat16):
     b, ss, _ = src_embeds.shape
     positions = default_positions(b, ss, None, src_embeds.device)
     x = src_embeds.to(dtype)
-    for lp in params["enc_layers"]:
+    for i, lp in enumerate(params["enc_layers"]):
+        lp = mesh_ctx.working(lp, ("enc_layers", i))
         h = layers.rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
         y, _ = gqa_apply(lp["attn"], h, cfg=cfg, positions=positions, causal=False,
                          dtype=dtype)
         x = x + y
         h = layers.rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
         x = x + layers.mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
-    return layers.rmsnorm(params["enc_norm"], x, eps=cfg.norm_eps)
+    return layers.rmsnorm(mesh_ctx.working(params["enc_norm"], ("enc_norm",)), x,
+                          eps=cfg.norm_eps)
 
 
 def decode_stack(params, tokens, memory, *, cfg, cache=None, cache_len=None,
@@ -98,9 +101,11 @@ def decode_stack(params, tokens, memory, *, cfg, cache=None, cache_len=None,
     precomputed cross K/V (``memory`` None).  Returns (hidden (B, St, d)
     after the final norm, cache)."""
     b, st = tokens.shape
-    x = layers.embed(params["embed"], tokens, dtype=dtype)
+    x = layers.embed({"table": mesh_ctx.working(params["embed"]["table"], ("embed", "table"))},
+                     tokens, dtype=dtype)
     positions = default_positions(b, st, cache_len, x.device)
     for l, lp in enumerate(params["dec_layers"]):
+        lp = mesh_ctx.working(lp, ("dec_layers", l))
         h = layers.rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
         y, _ = gqa_apply(lp["self_attn"], h, cfg=cfg, positions=positions,
                          cache=cache["self"][l] if cache is not None else None,
@@ -113,7 +118,8 @@ def decode_stack(params, tokens, memory, *, cfg, cache=None, cache_len=None,
         x = x + y
         h = layers.rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
         x = x + layers.mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
-    return layers.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps), cache
+    return layers.rmsnorm(mesh_ctx.working(params["final_norm"], ("final_norm",)), x,
+                          eps=cfg.norm_eps), cache
 
 
 def encdec_cache_init(params, cfg, src_embeds, max_len, *, dtype=torch.bfloat16) -> dict:

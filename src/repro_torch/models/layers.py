@@ -112,11 +112,19 @@ def embed(params, tokens, *, dtype=torch.bfloat16, tp=None):
     return tp.sum(rows).to(dtype)
 
 
+def unembed_key(params, dtype) -> str:
+    """The leaf of an embedding table's dict that the unembedding at
+    ``dtype`` reads: ``"table_f32"``, the fp32 copy of a table at
+    ``dtype``, where it has one, else ``"table"``."""
+    return "table_f32" if "table_f32" in params and params["table"].dtype == dtype else "table"
+
+
 def _unembed_table(params, dtype):
     """The fp32 table the unembedding multiplies by: the fp32 copy of a
     table at ``dtype`` where it has one, else the table cast for the call."""
-    table = params.get("table_f32") if params["table"].dtype == dtype else None
-    return params["table"].to(dtype).to(torch.float32) if table is None else table
+    if unembed_key(params, dtype) == "table_f32":
+        return params["table_f32"]
+    return params["table"].to(dtype).to(torch.float32)
 
 
 def keep_fp32_table(params) -> dict:

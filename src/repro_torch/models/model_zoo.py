@@ -28,6 +28,13 @@ def _loss_chunks(s: int, n_loss_chunks: int) -> int:
     return max(n_loss_chunks, 1)
 
 
+def _loss_table(params, name) -> dict:
+    """The loss's unembedding table (a training tree's: no fp32 copy),
+    gathered once for the whole loss (``mesh_ctx.working``), not once a
+    chunk: the chunks' checkpoints keep it as their input."""
+    return {"table": mesh_ctx.working(params[name]["table"], (name, "table"))}
+
+
 class LanguageModel:
     """Decoder-only stacks: GQA or MLA attention (global or sliding-window
     layers, RoPE or qwen2-vl's M-RoPE), RG-LRU and Mamba-2 layers, dense or
@@ -86,7 +93,8 @@ class LanguageModel:
             embeds_override=batch.get("vision_embeds"), remat=remat, dtype=self.dtype,
         )
         ce = layers.chunked_cross_entropy(
-            params.get("unembed", params["embed"]), hidden, batch["labels"],
+            _loss_table(params, "unembed" if "unembed" in params else "embed"), hidden,
+            batch["labels"],
             n_chunks=_loss_chunks(hidden.shape[1], n_loss_chunks),
             softcap=self.cfg.final_softcap, dtype=self.dtype, tp=mesh_ctx.tp_split("logits"),
         )
@@ -203,12 +211,13 @@ class EncDecModel:
         del remat
         hidden = self.forward(params, batch)
         return layers.chunked_cross_entropy(
-            params["embed"], hidden, batch["labels"],
+            _loss_table(params, "embed"), hidden, batch["labels"],
             n_chunks=_loss_chunks(hidden.shape[1], n_loss_chunks), dtype=self.dtype,
         )
 
     def logits(self, params, hidden):
-        return layers.unembed(params["embed"], hidden, dtype=self.dtype)
+        return layers.unembed(transformer.working_table(params, "embed", self.dtype), hidden,
+                              dtype=self.dtype)
 
     def init_cache(self, params, src_embeds, max_len, dtype=None) -> dict:
         """Encode ``src_embeds (B, Ss, d)`` and precompute every layer's

@@ -161,7 +161,8 @@ def embed_tokens(params, tokens, *, cfg, embeds_override=None):
     """Token embeddings at the config's dtype; ``embeds_override (B, Nv,
     d)`` (the vision stub's patch embeddings) replaces the first ``Nv``
     positions before gemma-style scaling, in the reference's order."""
-    x = layers.embed(params["embed"], tokens, dtype=cfg_dtype(cfg),
+    table = mesh_ctx.working(params["embed"]["table"], ("embed", "table"))
+    x = layers.embed({"table": table}, tokens, dtype=cfg_dtype(cfg),
                      tp=mesh_ctx.tp_split("embed"))
     if embeds_override is not None:
         nv = embeds_override.shape[1]
@@ -230,6 +231,14 @@ def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
     return x, cache, aux
 
 
+def _layer_at_use(p_l, x, *, prefix, **kw):
+    """:func:`layer_apply` on the layer's working leaves, gathered here
+    (inside a checkpoint: again in its recompute, so the checkpoint keeps
+    only the rank's shards and ``x``) and dropped after it
+    (``mesh_ctx.working``)."""
+    return layer_apply(mesh_ctx.working(p_l, prefix), x, **kw)
+
+
 def mlp_post(params, x, *, cfg, dtype):
     """The MLP half of a layer (dense or MoE, sandwich-normed where the
     config says so), without its residual add: (y, aux), ``aux`` the MoE
@@ -265,7 +274,9 @@ def lm_apply(params, tokens, *, cfg, positions=None, cache=None, cache_len=None,
     embeddings (qwen2-vl's patch embeddings).  ``remat=True`` (no cache)
     keeps only each layer's input for the backward and runs the layer
     again there (``torch.utils.checkpoint``; the reference wraps each
-    layer group in ``jax.checkpoint``)."""
+    layer group in ``jax.checkpoint``).  Inside a rank-local step each
+    layer's leaves are gathered just before it runs, inside the
+    checkpoint (:func:`_layer_at_use`)."""
     b, s = tokens.shape
     dtype = dtype or cfg_dtype(cfg)
     x = embed_tokens(params, tokens, cfg=cfg, embeds_override=embeds_override).to(dtype)
@@ -273,23 +284,38 @@ def lm_apply(params, tokens, *, cfg, positions=None, cache=None, cache_len=None,
         positions = default_positions(b, s, cache_len, x.device)
     aux_total = 0.0
     for l, (p_l, kind) in enumerate(zip(params["layers"], cfg.layer_kinds())):
-        kw = dict(cfg=cfg, kind=kind, positions=positions, cache_len=cache_len, dtype=dtype)
+        kw = dict(cfg=cfg, kind=kind, positions=positions, cache_len=cache_len, dtype=dtype,
+                  prefix=("layers", l))
         if remat and cache is None:
             x, _, aux = torch.utils.checkpoint.checkpoint(
-                functools.partial(layer_apply, **kw), p_l, x, use_reentrant=False)
+                functools.partial(_layer_at_use, **kw), p_l, x, use_reentrant=False)
         else:
-            x, _, aux = layer_apply(p_l, x, cache=cache[l] if cache is not None else None, **kw)
+            x, _, aux = _layer_at_use(p_l, x, cache=cache[l] if cache is not None else None,
+                                      **kw)
         aux_total = aux_total + aux
-    x = layers.rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    x = layers.rmsnorm(mesh_ctx.working(params["final_norm"], ("final_norm",)), x,
+                       eps=cfg.norm_eps)
     return x, cache, aux_total
+
+
+def working_table(params, name, dtype):
+    """``params[name]`` (an embedding table's dict) with the leaf the
+    unembedding at ``dtype`` multiplies by (its fp32 copy, or the table:
+    :func:`~repro_torch.models.layers.unembed_key`) gathered at its use
+    (``mesh_ctx.working``); the other leaves as they are."""
+    work = dict(params[name])
+    key = layers.unembed_key(work, dtype)
+    work[key] = mesh_ctx.working(work[key], (name, key))
+    return work
 
 
 def lm_logits(params, hidden, *, cfg, dtype=None):
     """fp32 vocab logits of ``hidden`` (final-softcapped where the config
     says so)."""
-    table = params.get("unembed", params["embed"])
-    return layers.unembed(table, hidden, dtype=dtype or cfg_dtype(cfg),
-                          softcap=cfg.final_softcap, tp=mesh_ctx.tp_split("logits"))
+    dtype = dtype or cfg_dtype(cfg)
+    table = working_table(params, "unembed" if "unembed" in params else "embed", dtype)
+    return layers.unembed(table, hidden, dtype=dtype, softcap=cfg.final_softcap,
+                          tp=mesh_ctx.tp_split("logits"))
 
 
 # --------------------------------------------------------------------------- #

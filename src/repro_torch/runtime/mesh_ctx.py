@@ -23,6 +23,15 @@ layers count what they did under a plan in :data:`TP_COUNTS` (``attn``,
 ``mlp``, ``embed``, ``logits`` (the serve step's logits or the train
 step's loss), each split or ``*_whole``), once per call: a layer that
 remat runs again in the backward is counted again there.
+
+``gather`` is set by the rank-local serve and train steps, whose model
+receives this rank's shards of the parameters: a
+:class:`~repro_torch.runtime.sharding.ParamGather` holding each leaf's
+sharding and the axes it keeps.  Model code asks for a layer's, or a
+table's, leaves through :func:`working` just before it uses them (the
+FSDP gather of that layer only, inside a remat'd layer: again in its
+recompute) and drops them after; elsewhere :func:`working` returns them
+as they are.
 """
 
 from __future__ import annotations
@@ -30,14 +39,14 @@ from __future__ import annotations
 from contextlib import contextmanager
 
 _CURRENT: dict = {"mesh": None, "policy": "tp_fsdp", "multi_pod": False, "rank_rows": None,
-                  "tp_local": None}
+                  "tp_local": None, "gather": None}
 TP_COUNTS: dict = {}
 
 
 def set_mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None,
-                 tp_local=None):
+                 tp_local=None, gather=None):
     _CURRENT.update(mesh=mesh, policy=policy, multi_pod=multi_pod, rank_rows=rank_rows,
-                    tp_local=tp_local)
+                    tp_local=tp_local, gather=gather)
 
 
 def clear_mesh_ctx():
@@ -46,9 +55,9 @@ def clear_mesh_ctx():
 
 @contextmanager
 def mesh_ctx(mesh, policy: str = "tp_fsdp", multi_pod: bool = False, rank_rows=None,
-             tp_local=None):
+             tp_local=None, gather=None):
     prev = dict(_CURRENT)
-    set_mesh_ctx(mesh, policy, multi_pod, rank_rows, tp_local)
+    set_mesh_ctx(mesh, policy, multi_pod, rank_rows, tp_local, gather)
     try:
         yield
     finally:
@@ -86,6 +95,17 @@ def tp_split(module: str):
     key = module if split else module + "_whole"
     TP_COUNTS[key] = TP_COUNTS.get(key, 0) + 1
     return plan if split else None
+
+
+def working(tree, prefix: tuple):
+    """The leaves of ``tree`` (the subtree of the parameters at path
+    ``prefix``: a layer's dict, or one table leaf) that the model computes
+    on: inside a rank-local step this rank's shards gathered along every
+    sharded dim, differentiably (a leaf a tensor-parallel plan keeps stays
+    this rank's ``model`` shard, gathered over the data axes only);
+    elsewhere ``tree`` itself."""
+    gather = _CURRENT["gather"]
+    return tree if gather is None else gather.working(tree, tuple(prefix))
 
 
 def data_axes_in_ctx():

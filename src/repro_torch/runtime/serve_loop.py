@@ -131,13 +131,19 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
 def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args, kw):
     """One rank's share of a sharded prefill / decode call.
 
-    * Parameters are made whole at the call (the FSDP gather done all at
-      once), except under a tensor-parallel plan
-      (:func:`~repro_torch.runtime.sharding.tp_plan`: ``tp`` / ``tp_fsdp``
-      with several ``model`` ranks), where the attention layers, dense
-      MLPs and embedding tables keep this rank's ``model`` shard and
-      compute only its heads, columns and vocabulary; any other leaf is
-      made whole.
+    * The model receives this rank's shards of the parameters and
+      gathers each layer's leaves, and each table, just before it uses
+      them, dropping them after
+      (:class:`~repro_torch.runtime.sharding.ParamGather` in
+      ``mesh_ctx``): a rank holds its shards and about one layer.  A leaf
+      the caller hands as a plain tensor (the full value on every rank)
+      is used as it is, and not gathered
+      (:func:`~repro_torch.runtime.sharding.rank_params`).  Under
+      a tensor-parallel plan (:func:`~repro_torch.runtime.sharding.tp_plan`:
+      ``tp`` / ``tp_fsdp`` with several ``model`` ranks) the attention
+      layers, dense MLPs and embedding tables keep this rank's ``model``
+      shard (gathered over the data axes only) and compute only its
+      heads, columns and vocabulary; any other leaf is gathered whole.
     * Tokens, and a per-row ``cache_len``, are this rank's batch rows, by
       the tokens' batch spec (its axes ``rows``).
     * Cache leaves are this rank's rows; their other sharded dims are
@@ -166,7 +172,7 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
         return x
 
     plan = sharding.tp_plan(cfg, mesh, policy, param_sh, cache_sh, rows)
-    p_work = sharding.whole_tree(params, param_sh, plan)
+    p_local, whole = sharding.rank_params(params, param_sh, plan)
     c_local = sharding.local_shards(sharding.place(cache, cache_sh))
     flat_sh = dict(_tree.leaves_with_paths(cache_sh))
     seq_local = {"model"} if policy == "seqkv" else set()
@@ -193,8 +199,9 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
     args = tuple(own_rows(a) for a in args)
     if "cache_len" in kw:
         kw = dict(kw, cache_len=own_rows(kw["cache_len"]))
-    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows, tp_local=plan):
-        logits, _ = call(p_work, c_work, tok, *args, **kw)
+    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows, tp_local=plan,
+                           gather=sharding.param_gather(param_sh, plan, rows, whole)):
+        logits, _ = call(p_local, c_work, tok, *args, **kw)
     for path, (local, t, keep, same_rows) in work.items():
         if t is local:  # written in place
             continue

@@ -34,10 +34,17 @@ else ``Replicate()``), which exists for a mesh as large as the process
 group: a 1 x 1 mesh on one rank, or a mesh of several ranks (one process
 each, :func:`repro_torch.launch.mesh.rank_mesh`).  Rank ``r`` sits at
 ``np.unravel_index(r, mesh shape)``.  On several ranks the sharded steps
-run rank-locally: each rank gathers what it needs whole
-(:func:`gather_tree`, the exact inverse of :func:`place_one`'s
-``torch.chunk`` order), computes its own batch rows and keeps its own
-shard of every result (:func:`shard_tree`).
+run rank-locally: the model receives this rank's shards of the
+parameters and gathers each layer's leaves, and each table, at its use
+(:class:`ParamGather`, through ``mesh_ctx.working``: the reference's
+FSDP gather inside its scanned, remat'd layer group); the gathers are
+differentiable, so the train step's gradients come back as this rank's
+shards; a serve step uses a leaf its caller hands whole as it is
+(:func:`rank_params`).  A rank computes its own batch rows; what it needs whole besides
+(the cache's gathered dims, the compression residual) goes through
+:func:`gather_one` / :func:`gather_tree`, the exact inverse of
+:func:`place_one`'s ``torch.chunk`` order, and back through
+:func:`shard_tree`.
 
 Under ``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks the
 rank-local serve and train steps split their compute as the specs lay
@@ -45,8 +52,7 @@ the weights out (:func:`tp_plan`, :class:`TPPlan`): the attention layers,
 the dense MLPs and the embedding tables keep this rank's ``model`` shard
 of every leaf whose spec names ``model`` (gathered over the data axes
 only), and compute only its heads, d_ff columns, d_model columns and
-vocabulary; the train step's gradients of those leaves are this rank's
-``model`` shards (:func:`shard_tree` with the plan leaves them so).
+vocabulary.
 
 Sharded paged serving routes each request (its pages and queue items) to
 ONE ``data`` shard; pools never straddle shards, so that placement is a
@@ -70,6 +76,7 @@ from repro_torch.core.distributed import (
     copy_to_model,
     gather_from_model,
     gather_group,
+    gather_leaf,
     products_from_model,
     reduce_from_model,
     spec_axes,
@@ -425,44 +432,107 @@ def gather_tree(local, shardings, keep=()):
     return _tree.map_with_paths(lambda p, t: gather_one(t, flat[p], keep), local)
 
 
-def shard_tree(full, shardings, keep=(), plan=None):
+def shard_tree(full, shardings, keep=()):
     """This rank's slices of every leaf of ``full`` (views), as
     :func:`place` would hold them; dims over the axes in ``keep`` are
-    left as they are, and so are the ``model`` dims of a leaf that
-    ``plan`` (a :class:`TPPlan`) keeps local (already this rank's
-    ``model`` shard, as :func:`whole_tree` gave it)."""
+    left as they are."""
     flat = dict(_tree.leaves_with_paths(shardings))
-
-    def one(path, t):
-        sh = flat[path]
-        kept = plan is not None and plan.keeps(path_str(path), sh.spec)
-        return shard_one(t, sh, tuple(keep) + (("model",) if kept else ()))
-
-    return _tree.map_with_paths(one, full)
+    return _tree.map_with_paths(lambda p, t: shard_one(t, flat[p], keep), full)
 
 
-def whole_tree(tree, shardings, plan=None):
-    """The full values a rank-local step computes on, from its caller's
-    ``tree``: a placed ``DTensor``'s shard gathered (:func:`gather_one`),
-    a plain tensor (the full value on every rank, as :func:`place_one`
-    reads it) as it is, without moving it.  A leaf that ``plan`` (a
-    :class:`TPPlan`) keeps local is this rank's ``model`` shard instead:
-    a ``DTensor``'s gathered over its other axes only, a plain tensor's
-    ``model`` slice (a view)."""
+def whole_tree(tree, shardings):
+    """The full values of a caller's ``tree`` that a rank-local step needs
+    whole (the compression residual): a placed ``DTensor``'s shard
+    gathered (:func:`gather_one`), a plain tensor (the full value on
+    every rank, as :func:`place_one` reads it) as it is, without moving
+    it.  The parameters are never made whole: the model gathers each
+    layer at its use (:class:`ParamGather`)."""
     from torch.distributed.tensor import DTensor
 
     flat = dict(_tree.leaves_with_paths(shardings))
 
     def one(path, t):
-        sh = flat[path]
-        local = plan is not None and plan.keeps(path_str(path), sh.spec)
+        return gather_one(t.to_local(), flat[path]) if isinstance(t, DTensor) else t
+
+    return _tree.map_with_paths(one, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamGather:
+    """How a rank-local step's model gathers its parameters at their use
+    (set into ``mesh_ctx`` as ``gather``): for each leaf's path, the
+    ``(dim, axes)`` its shard is all-gathered along (every sharded dim
+    but those over the axes it keeps: ``model`` for a leaf a
+    :class:`TPPlan` keeps this rank's shard) and the axes its adjoint sums
+    the cotangent over (the gathered axes among the batch rows' axes,
+    ``rows``: there each rank's cotangent is its own rows' term).  A
+    gradient through it comes back as this rank's shard, summed over
+    those axes; :meth:`rest` names the rows' axes it is still to be
+    summed over.  A leaf the caller handed whole (:func:`rank_params`)
+    has no dims: it is used as it is."""
+
+    mesh: object
+    rows: tuple
+    leaves: dict  # path -> (((dim, axes), ...), summed axes)
+
+    def working(self, tree, prefix):
+        """The leaves of ``tree``, the subtree at path ``prefix``,
+        gathered (:func:`~repro_torch.core.distributed.gather_leaf`)."""
+        return _tree.map_with_paths(lambda p, t: self.leaf(prefix + p, t), tree)
+
+    def leaf(self, path, t: torch.Tensor) -> torch.Tensor:
+        dims, summed = self.leaves[path]
+        return gather_leaf(t, dims, summed, mesh=self.mesh)
+
+    def rest(self, path) -> tuple:
+        """The axes of ``rows`` (of more than one rank) over which the
+        gradient of the leaf at ``path`` has not been summed yet."""
+        summed = self.leaves[path][1]
+        return tuple(a for a in self.rows if a not in summed and self.mesh.shape[a] > 1)
+
+
+def rank_params(tree, shardings, plan=None):
+    """The parameters a rank-local serve step hands its model, from its
+    caller's ``tree``, and the paths of the leaves it hands whole: a placed
+    ``DTensor``'s local shard (gathered at its use, :class:`ParamGather`);
+    a plain tensor (the full value on every rank, as :func:`place_one`
+    reads it) as it is, without moving it, or its ``model`` slice (a
+    view) where ``plan`` (a :class:`TPPlan`) keeps the leaf local.  Nothing
+    is gathered for a leaf the caller already holds whole."""
+    from torch.distributed.tensor import DTensor
+
+    flat = dict(_tree.leaves_with_paths(shardings))
+    whole = set()
+
+    def one(path, t):
         if isinstance(t, DTensor):
-            return gather_one(t.to_local(), sh, ("model",) if local else ())
-        if local:
+            return t.to_local()
+        whole.add(path)
+        sh = flat[path]
+        if plan is not None and plan.keeps(path_str(path), sh.spec):
             return shard_one(t, sh, tuple(a for a in sh.mesh.axis_names if a != "model"))
         return t
 
-    return _tree.map_with_paths(one, tree)
+    return _tree.map_with_paths(one, tree), frozenset(whole)
+
+
+def param_gather(shardings, plan=None, rows=(), whole=()) -> ParamGather:
+    """The :class:`ParamGather` of the parameters placed by ``shardings``
+    in a step whose batch rows are split over ``rows`` under ``plan`` (a
+    :class:`TPPlan` or ``None``); the leaves at the paths in ``whole``
+    were handed whole (:func:`rank_params`) and are not gathered."""
+    leaves, mesh = {}, None
+    for path, sh in _tree.leaves_with_paths(shardings):
+        mesh = sh.mesh
+        if path in whole:
+            leaves[path] = ((), ())
+            continue
+        keep = ("model",) if plan is not None and plan.keeps(path_str(path), sh.spec) else ()
+        dims = tuple((d, spec_axes(e)) for d, e in enumerate(sh.spec)
+                     if e is not None and not _kept(e, keep))
+        gathered = {a for _, axes in dims for a in axes if sh.mesh.shape[a] > 1}
+        leaves[path] = (dims, tuple(a for a in rows if a in gathered))
+    return ParamGather(mesh=mesh, rows=tuple(rows), leaves=leaves)
 
 
 @dataclasses.dataclass(frozen=True)

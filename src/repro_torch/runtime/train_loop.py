@@ -21,10 +21,11 @@ shardings of every parameter, moment, residual and batch leaf over a mesh
 (:mod:`repro_torch.runtime.sharding`), and a step that places its inputs
 by them and runs :func:`make_train_step`'s step on the local shards (a
 mesh of one rank), or runs rank-locally on a mesh of processes
-(:func:`_train_on_ranks`: this rank's batch rows, the gradient all-reduced
-over the data-parallel ranks, the update on this rank's shards; under
-``tp`` / ``tp_fsdp`` with several ``model`` ranks, this rank's heads,
-d_ff columns and vocabulary rows only, with a vocabulary-parallel loss).
+(:func:`_train_on_ranks`: this rank's batch rows, each layer's
+parameters gathered at its use and their gradients reduced to this
+rank's shards, the update on this rank's shards; under ``tp`` /
+``tp_fsdp`` with several ``model`` ranks, this rank's heads, d_ff
+columns and vocabulary rows only, with a vocabulary-parallel loss).
 """
 
 from __future__ import annotations
@@ -262,28 +263,36 @@ def _train_on_ranks(model, tc, mesh, shardings, args, step, *, policy, multi_pod
       under ``fsdp``, ``fsdp2d`` and ``dp``); the strided microbatches of
       those rows make up the global ones only if each rank's row count
       divides by ``grad_accum``, so another count raises.
-    * The parameters are gathered whole (the FSDP gather, all at once),
-      except under a tensor-parallel plan (:func:`~repro_torch.runtime
-      .sharding.tp_plan`: ``tp`` / ``tp_fsdp`` with several ``model``
-      ranks), where the attention layers, dense MLPs and embedding tables
-      keep this rank's ``model`` shard (gathered over the data axes only)
-      and the model computes only its heads, columns and vocabulary
-      (``mesh_ctx.tp_local``); their gradients are this rank's ``model``
-      shards.  A whole leaf of a split attention layer that the rank reads
-      in part has a gradient that is this rank's term of a sum over
-      ``model``: those are summed in one all-reduce.
+    * The model receives this rank's shards of the parameters and
+      gathers each layer's leaves, and each table, at its use
+      (:class:`~repro_torch.runtime.sharding.ParamGather` in ``mesh_ctx``;
+      inside the checkpoint of a remat'd layer, so the recompute gathers
+      again); the gradient is taken with respect to the shards, and each
+      comes back as this rank's shard, summed over the rows' axes the
+      leaf was gathered over (the gather's adjoint).  Under a
+      tensor-parallel plan (:func:`~repro_torch.runtime.sharding.tp_plan`:
+      ``tp`` / ``tp_fsdp`` with several ``model`` ranks) the attention
+      layers, dense MLPs and embedding tables keep this rank's ``model``
+      shard (gathered over the data axes only) and the model computes
+      only its heads, columns and vocabulary (``mesh_ctx.tp_local``).  A
+      whole leaf of a split attention layer that the rank reads in part
+      has a gradient that is this rank's term of a sum over ``model``,
+      summed over it with the rows' sums below.
     * The loss is the global mean: each microbatch's gradient is weighted
       by ``n_dp x`` (this rank's valid labels / the global count), the
-      gradients summed over ``rows`` and divided by ``n_dp``; the reported
-      loss is the sum of the ranks' label-weighted losses over the count.
+      gradients summed over the ``rows`` axes the gathers did not sum
+      them over, and over ``model`` where they are partial (one
+      all-reduce for the leaves alike in those axes), and divided by
+      ``n_dp``; the reported loss is the sum of the ranks'
+      label-weighted losses over the count.
     * Compression, the clipping norm and the norm reported are of the full
       gradient, as on one rank.  Compression runs on it whole (the
-      residual gathered, the threefry draw the same; under a plan the kept
-      leaves' gradients are all-gathered over ``model`` for it, one call a
-      leaf).  Without compression the split norm sums the kept leaves'
-      squares over ``model`` and counts every other leaf once.  AdamW
-      updates this rank's shards of the parameters and moments, which
-      come back as ``DTensor``s with the residual's shard.
+      gradient and the residual gathered, the threefry draw the same).
+      Without compression the norm sums each leaf's squares over every
+      axis that shards it (one all-reduce an axis) and counts a
+      replicated leaf once.  AdamW updates this rank's shards of the
+      parameters and moments, which come back as ``DTensor``s with the
+      residual's shard.
     """
     param_sh, opt_sh, comp_sh, b_sh = shardings
     params, opt_state, comp_state, batch = args
@@ -298,36 +307,36 @@ def _train_on_ranks(model, tc, mesh, shardings, args, step, *, policy, multi_pod
             f"a rank's {n_rows} batch rows do not split into grad_accum={a} strided "
             "microbatches, so its microbatches would not make up the global ones")
     plan = sharding.tp_plan(model.cfg, mesh, policy, param_sh)
-    p_full = sharding.whole_tree(params, param_sh, plan)
+    gather = sharding.param_gather(param_sh, plan, rows)
     p_local, opt_local = sharding.local_shards(sharding.place((params, opt_state),
                                                               (param_sh, opt_sh)))
     counts = torch.stack([(mb["labels"] >= 0).sum() for mb in _microbatches(local, a)])
     total = torch.clamp_min(all_reduce_sum(counts, rows, mesh=mesh), 1)
     weights = (n_dp * counts.double() / total.double()).float()
-    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows, tp_local=plan):
-        losses, grads = _accumulated_grads(model, tc, p_full, local, weights=list(weights))
+    with mesh_ctx.mesh_ctx(mesh, policy, multi_pod, rank_rows=rows, tp_local=plan,
+                           gather=gather):
+        losses, grads = _accumulated_grads(model, tc, p_local, local, weights=list(weights))
     sums = all_reduce_sum(torch.stack(losses) * counts, rows, mesh=mesh)
     loss = _mean(list(sums / total))
-    grads = _tree.tree_map(lambda g: all_reduce_sum(g, rows, mesh=mesh) / n_dp, grads)
-    if plan is not None:
-        grads = _sum_partials(plan, grads, param_sh)
+    grads = _sum_rest(gather, plan, grads, param_sh, n_dp)
 
-    if comp_sh is not None:
-        if plan is not None:  # compression takes the whole gradient
-            grads, plan = _model_whole(plan, grads, param_sh), None
+    if comp_sh is not None:  # compression takes the whole gradient
         residual = sharding.whole_tree(comp_state.residual, param_sh)
-        grads, comp = _compressed(model, tc, grads, CompressionState(residual=residual), step,
-                                  _tree.leaves(p_full)[0].device)
+        whole, comp = _compressed(model, tc, sharding.gather_tree(grads, param_sh),
+                                  CompressionState(residual=residual), step,
+                                  _tree.leaves(p_local)[0].device)
         comp_state = CompressionState(residual=_placed(comp.residual, param_sh, params, full=True))
-    gnorm = global_norm(grads) if plan is None else _split_norm(plan, grads, param_sh)
+        gnorm = global_norm(whole)
+        grads = sharding.shard_tree(whole, param_sh)
+    else:
+        gnorm = _split_norm(grads, param_sh)
     if tc.clip_norm is not None:
         grads, gnorm = clip_by_global_norm(grads, tc.clip_norm, norm=gnorm)
     lr = cosine_schedule(step, peak_lr=tc.peak_lr, warmup_steps=tc.warmup_steps,
                          total_steps=tc.total_steps)
     new_p, new_opt, metrics = adamw_update(
-        sharding.shard_tree(grads, param_sh, plan=plan), opt_local, p_local, lr=lr,
-        weight_decay=tc.weight_decay, clip_norm=None,
-        decay=reference_decay_mask(p_full, model.cfg))
+        grads, opt_local, p_local, lr=lr, weight_decay=tc.weight_decay, clip_norm=None,
+        decay=reference_decay_mask(p_local, model.cfg))
     new_opt = AdamWState(
         count=sharding.from_local(new_opt.count, opt_sh.count, ()),
         mu=_placed(new_opt.mu, param_sh, params), nu=_placed(new_opt.nu, param_sh, params))
@@ -335,48 +344,51 @@ def _train_on_ranks(model, tc, mesh, shardings, args, step, *, policy, multi_pod
     return _placed(new_p, param_sh, params), new_opt, comp_state, metrics
 
 
-def _kept(plan, shardings) -> dict:
-    """``{path: (sharding, kept)}`` of every leaf: whether ``plan`` keeps
-    it this rank's ``model`` shard."""
-    return {p: (sh, plan.keeps(sharding.path_str(p), sh.spec))
-            for p, sh in _tree.leaves_with_paths(shardings)}
-
-
-def _sum_partials(plan, grads, shardings):
-    """``grads`` with the leaves whose gradient is this rank's term of a
-    sum over ``model`` (:meth:`~repro_torch.runtime.sharding.TPPlan.partial`)
-    summed, all in one all-reduce."""
+def _sum_rest(gather, plan, grads, shardings, n_dp):
+    """``grads`` (each this rank's shard, summed by its gather's adjoint
+    over the rows' axes it was gathered over) summed over what is left and
+    divided by ``n_dp``: for each leaf the rows' axes its gather did not
+    sum over (:meth:`~repro_torch.runtime.sharding.ParamGather.rest`: a
+    replicated leaf's every one, a leaf gathered over ``data`` only
+    ``model`` under ``fsdp``), and ``model`` too where its gradient is
+    this rank's term of a sum over ``model``
+    (:meth:`~repro_torch.runtime.sharding.TPPlan.partial`): one all-reduce
+    for all the leaves left the same axes."""
     flat = dict(_tree.leaves_with_paths(grads))
     specs = {p: sh.spec for p, sh in _tree.leaves_with_paths(shardings)}
-    paths = [p for p in flat if plan.partial(sharding.path_str(p), specs[p])]
-    if not paths:
-        return grads
-    summed = all_reduce_sum(torch.cat([flat[p].reshape(-1) for p in paths]), ("model",),
-                            mesh=plan.mesh)
-    parts = dict(zip(paths, torch.split(summed, [flat[p].numel() for p in paths])))
-    return _tree.map_with_paths(lambda p, g: parts[p].view_as(g) if p in parts else g, grads)
-
-
-def _model_whole(plan, grads, shardings):
-    """The kept leaves' gradients all-gathered over ``model`` (their other
-    dims are whole already): the full gradient."""
-    kept = _kept(plan, shardings)
+    groups: dict = {}
+    for p in flat:
+        axes = gather.rest(p)
+        if (plan is not None and "model" not in axes
+                and plan.partial(sharding.path_str(p), specs[p])):
+            axes += ("model",)
+        if axes:
+            groups.setdefault(axes, []).append(p)
+    parts = {}
+    for axes, paths in groups.items():
+        summed = all_reduce_sum(torch.cat([flat[p].reshape(-1) for p in paths]), axes,
+                                mesh=gather.mesh)
+        parts.update(zip(paths, torch.split(summed, [flat[p].numel() for p in paths])))
     return _tree.map_with_paths(
-        lambda p, g: sharding.gather_one(g, kept[p][0], tuple(
-            a for a in kept[p][0].mesh.axis_names if a != "model")) if kept[p][1] else g, grads)
+        lambda p, g: (parts[p].view_as(g) if p in parts else g) / n_dp, grads)
 
 
-def _split_norm(plan, grads, shardings) -> torch.Tensor:
-    """The full gradient's L2 norm (fp32) from ``grads`` whose kept leaves
-    are this rank's ``model`` shards: each leaf's sum of squares, the kept
-    leaves' summed over ``model`` (one all-reduce), every other leaf's
-    counted once, added in leaf order as :func:`global_norm` adds them."""
-    kept = _kept(plan, shardings)
+def _split_norm(grads, shardings) -> torch.Tensor:
+    """The full gradient's L2 norm (fp32) from ``grads``, each leaf this
+    rank's shard by its spec: each leaf's sum of squares summed over every
+    mesh axis that shards it (one all-reduce an axis, groups of one rank
+    left out), a replicated leaf's counted once, added in leaf order as
+    :func:`global_norm` adds them."""
     flat = _tree.leaves_with_paths(grads)
+    shs = dict(_tree.leaves_with_paths(shardings))
+    mesh = next(iter(shs.values())).mesh
     sq = torch.stack([torch.sum(g.float() * g.float()) for _, g in flat])
-    mask = torch.tensor([kept[p][1] for p, _ in flat], device=sq.device)
-    sq = torch.where(mask, all_reduce_sum(torch.where(mask, sq, 0.0), ("model",),
-                                          mesh=plan.mesh), sq)
+    for ax in mesh.axis_names:
+        on = [ax in {a for e in shs[p].spec for a in sharding.spec_axes(e)} for p, _ in flat]
+        if mesh.shape[ax] > 1 and any(on):
+            mask = torch.tensor(on, device=sq.device)
+            sq = torch.where(mask, all_reduce_sum(torch.where(mask, sq, 0.0), (ax,), mesh=mesh),
+                             sq)
     return torch.sqrt(sum(sq.unbind()))
 
 

@@ -14,6 +14,18 @@ ranks are killed and the tests fail.  The JAX references run here, in
 this process, as a single-device ``jax.jit``, which has the semantics of
 the reference's sharded step.
 
+Every rank step hands the model this rank's shards of the parameters,
+and the model gathers each layer's leaves, and each table, at its use
+(``mesh_ctx.working``; inside the remat'd layer, again in its
+recompute): each serve and train case also checks that the handed tree
+is the rank's shards, that every leaf the model computed on went through
+that gather, the layers' gather order, and, where no layer is kept for
+the backward, that the gathered bytes alive at once stay within the
+largest layer plus the largest table; the gather's adjoint (the
+cotangent summed over the gathered rows' axes, then this rank's slice) is
+exact over ``SPECS``.  A serve step handed the parameters as whole tensors
+uses them as they are and gathers nothing.
+
 Under ``tp`` and ``tp_fsdp`` with several ``model`` ranks the serve step
 splits its compute (heads, d_ff and d_model columns, vocabulary): each
 case also checks that every leaf the split keeps local is ``1 / m`` of its
@@ -109,6 +121,9 @@ def train_batches(arch="qwen1.5-0.5b"):
 
 SERVE = {  # name -> (arch, mesh, policy, world)
     "seqkv 1x2": ("qwen2.5-3b", "1x2", "seqkv", 2),
+    # FSDP: each layer's leaves gathered over data at their use
+    "fsdp 2x1": ("qwen2.5-3b", "2x1", "fsdp", 2),
+    "mla fsdp 2x1": ("deepseek-v2-mla", "2x1", "fsdp", 2),
     "tp 1x2": ("qwen2.5-3b", "1x2", "tp", 2),
     "tp_fsdp 2x1": ("qwen2.5-3b", "2x1", "tp_fsdp", 2),
     "mla tp_fsdp 2x1": ("deepseek-v2-mla", "2x1", "tp_fsdp", 2),
@@ -122,6 +137,10 @@ SERVE = {  # name -> (arch, mesh, policy, world)
     # slices the kv head its query head reads
     "tp 1x4": ("qwen2.5-3b", "1x4", "tp", 4),
 }
+# the same cases with the parameters handed as whole tensors, which a serve
+# step uses as they are (nothing gathered): name -> the placed case
+SERVE_WHOLE = {"seqkv 1x2 whole": "seqkv 1x2", "fsdp 2x1 whole": "fsdp 2x1",
+               "tp_fsdp 2x2 whole": "tp_fsdp 2x2"}
 # 6 query heads do not split over model 4 (wq's 96 columns do, off head
 # boundaries): the attention runs whole after the gather, counted as such
 WHOLE_HEADS = dict(arch="qwen2.5-3b", spec="1x4", policy="tp", cfg_changes=dict(n_heads=6),
@@ -132,6 +151,11 @@ TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world[,
     "2x1 fsdp none accum2": ("qwen1.5-0.5b", "2x1", "fsdp", "none", 2, 2),
     "2x2 tp_fsdp none": ("qwen1.5-0.5b", "2x2", "tp_fsdp", "none", 1, 4),
     "2x2 fsdp int8 accum2": ("qwen1.5-0.5b", "2x2", "fsdp", "int8", 2, 4),
+    # remat: each layer gathered inside its checkpoint, again in the
+    # recompute; the gathered bytes alive at once within a layer and a table
+    "2x1 fsdp none remat": ("qwen1.5-0.5b", "2x1", "fsdp", "none", 1, 2, dict(remat=True)),
+    "2x2 tp_fsdp none remat": ("qwen1.5-0.5b", "2x2", "tp_fsdp", "none", 1, 4,
+                               dict(remat=True)),
     # MoE: the routing sees the gathered batch; its gradient flows back
     # through the gather's adjoint (the cotangent summed over the ranks)
     "moe 2x1 tp_fsdp none": ("qwen3-moe-30b-a3b", "2x1", "tp_fsdp", "none", 1, 2),
@@ -237,6 +261,10 @@ def cases_for(world, refs):
             cases.append((name, dict(case="serve", arch=arch, params=r["params"], spec=spec,
                                      policy=policy, prompt=r["prompt"], tokens=r["tokens"],
                                      max_len=MAX_LEN)))
+    for name, placed in SERVE_WHOLE.items():
+        if SERVE[placed][3] == world:
+            cases.append((name, dict(cases[[n for n, _ in cases].index(placed)][1],
+                                     placed=False)))
     for name, (arch, spec, policy, comp, accum, w, *opts) in TRAIN_CASES.items():
         if w == world:
             opts = opts[0] if opts else {}
@@ -526,6 +554,75 @@ def test_model_collectives_adjoints_are_exact(ranks, spec):
     for r in ranks[f"round_trip {spec}"]:
         assert r["model_adjoints"] == {"copy": True, "gather": True, "reduce": True}
         assert max(r["vocab_loss"].values()) <= STEP_TOL, r["vocab_loss"]
+
+
+def layer_gathers(arch, name):
+    """The layers a serve or train case gathers, in call order: every
+    layer once a call (serve), or once a microbatch's forward and again,
+    last layer first, in its remat recompute (train)."""
+    n = get_config(arch, smoke=True).n_layers
+    if name not in TRAIN_CASES:
+        return list(range(n)) * (1 + DECODE)
+    accum = TRAIN_CASES[name][4]
+    back = list(reversed(range(n))) if train_remat(name) else []
+    return (list(range(n)) + back) * accum * len(train_batches(arch))
+
+
+def train_remat(name) -> bool:
+    _, _, _, _, _, _, *opts = TRAIN_CASES[name]
+    return bool(opts) and opts[0].get("remat", False)
+
+
+@pytest.mark.parametrize("name", list(SERVE) + ["whole heads"] + list(TRAIN_CASES))
+def test_layer_gathers_on_ranks(ranks, name):
+    """Each rank step hands the model this rank's shards (never a whole
+    parameter tree; ``held_ok``) and the model gathers each layer's
+    leaves just before the layer runs (``mesh_ctx.working``): the layers
+    in order once a call, again in reverse in the remat recompute of each
+    microbatch, every leaf of the model through it; the gathered bytes
+    alive at once at most the largest layer's leaves plus the largest
+    table where nothing keeps a layer for the backward (serving, remat),
+    and none alive after the call."""
+    arch = SERVE[name][0] if name in SERVE else (
+        WHOLE_HEADS["arch"] if name == "whole heads" else TRAIN_CASES[name][0])
+    for r in ranks[name]:
+        assert r["held_ok"]
+        assert r["layer_gathers"] == layer_gathers(arch, name)
+        if name not in TRAIN_CASES or train_remat(name):
+            assert r["gathered_peak"] <= r["gather_bound"], (r["gathered_peak"],
+                                                             r["gather_bound"])
+        assert r["gathered_live"] == 0
+
+
+@pytest.mark.parametrize("name", list(SERVE_WHOLE))
+def test_serve_uses_whole_tensors_as_they_are(ranks, name):
+    """A serve step whose caller hands the parameters as whole tensors
+    computes on them as they are (a leaf a split keeps local on its
+    ``model`` slice, a view): every call of ``mesh_ctx.working`` still in
+    layer order, nothing gathered, fewer collectives than from the placed
+    shards, and the logits bit-equal to the placed run's (the gathered
+    weights are the same bits)."""
+    placed = ranks[SERVE_WHOLE[name]]
+    arch = SERVE[SERVE_WHOLE[name]][0]
+    for r, p in zip(ranks[name], placed, strict=True):
+        assert r["held_ok"]
+        assert r["layer_gathers"] == layer_gathers(arch, name)
+        assert r["gathered_peak"] == 0 and r["gather_bound"] == 0
+        assert r["counts"]["collectives"] < p["counts"]["collectives"]
+        assert all(np.array_equal(a, b) for a, b in zip(r["logits"], p["logits"], strict=True))
+
+
+@pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])
+def test_gather_leaf_adjoint_is_exact(ranks, spec):
+    """``core/distributed.gather_leaf`` as ``sharding.ParamGather`` calls
+    it, for every spec shape, rows over ``data`` or ``data`` and
+    ``model``, a plan keeping ``model`` or not: the gathered value is the
+    leaf (whole but for the kept dims), and the gradient of this rank's
+    shard is its slice of the integer weights summed over the ranks of
+    the gathered rows' axes, exactly."""
+    for r in ranks[f"round_trip {spec}"]:
+        assert r["leaf_adjoints"] and all(r["leaf_adjoints"].values()), [
+            k for k, v in r["leaf_adjoints"].items() if not v]
 
 
 @pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])

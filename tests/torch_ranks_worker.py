@@ -111,10 +111,12 @@ def _mesh(spec):
 # cases
 # --------------------------------------------------------------------------- #
 def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_changes=None,
-               whole=()):
+               whole=(), placed=True):
     """Prefill ``prompt`` and decode ``tokens`` (teacher-forced, one column
     a step, at per-row lengths) through ``jit_serve_fns`` on a ``spec``
-    mesh of ranks, the parameters and the cache placed as ``DTensor``s.
+    mesh of ranks, the parameters (unless not ``placed``: the whole
+    tensors, which the step uses as they are) and the cache placed as
+    ``DTensor``s.
     Held in the rank:
 
     * ``seqkv``: the logits of every call and this rank's cache shard bit
@@ -124,10 +126,11 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
       ``test_torch_model.py``'s measure.
 
     Returns the gathered logits of each call (for the JAX reference),
-    those comparisons, the split counts (``mesh_ctx.TP_COUNTS``) and what
-    the model computed on (:func:`_held_params`; the modules in ``whole``
-    are expected whole).  ``cfg_changes`` replaces config fields (the
-    parameters must match)."""
+    those comparisons, the split counts (``mesh_ctx.TP_COUNTS``), what
+    the model was handed and what it computed on (:func:`_held_params`;
+    the modules in ``whole`` are expected whole) and its per-layer
+    gathers (:class:`_Gathers`).  ``cfg_changes`` replaces config fields
+    (the parameters must match)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -150,12 +153,12 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
         setattr(model, name, _recording(getattr(model, name), held))
     compile_prefill, compile_decode, sh = serve_loop.jit_serve_fns(
         model, mesh, model.init(None, "meta"), cache, policy=policy)
-    placed_p = sharding.place(params, sh["params"])
+    placed_p = sharding.place(params, sh["params"]) if placed else params
     placed_c = sharding.place(cache, sh["cache"])
     got = []
     ctx_mod.TP_COUNTS.clear()
     n_coll = sum(COLLECTIVES.values())
-    with mesh_ctx(mesh, policy):
+    with mesh_ctx(mesh, policy), _Gathers() as gathers:
         logits, ret = compile_prefill(prompt)(placed_p, placed_c, prompt)
         got.append(logits)
         for i in range(tokens.shape[1]):
@@ -199,7 +202,9 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
         cache_equal=all(torch.equal(a, w) for a, w in pairs),
         cache_err=max(_max_err(a, w) for a, w in pairs),
         returned_cache=ret is placed_c, counts=counts,
-        **_held_params(params, held, sh["params"], mesh, cfg, policy, whole))
+        **_held_params(params, held, sh["params"], mesh, cfg, policy, whole, gathers,
+                       handed_whole=not placed),
+        **gathers.summary(cfg))
 
 
 def _recording(fn, held):
@@ -210,18 +215,88 @@ def _recording(fn, held):
     return call
 
 
-def _held_params(params, held, shardings, mesh, cfg, policy, whole) -> dict:
-    """What each call computed on, against the whole parameters: the
-    leaves a split keeps local (the spec names ``model``; an attention
-    layer, a dense MLP or an embedding table) must be ``1 / m`` of their
-    whole elements and every other leaf whole, in every call.  Returns
-    that check, the count of local leaves and the computed-on share of
-    the whole model's bytes."""
+class _Gathers:
+    """Inside each ``with``: every call of ``mesh_ctx.working`` in a
+    rank-local step (its prefix, the elements and bytes of each leaf it
+    returned, the leaves the model computed on, and the bytes of those it
+    gathered) and the most bytes of gathered leaves alive at once
+    (``core/distributed.GATHERED``, its peak reset at the start), all
+    ``with`` blocks together; ``live``, the gathered bytes alive after the
+    last."""
+
+    def __init__(self):
+        self.calls, self.peak, self.live = [], 0, None
+
+    def __enter__(self):
+        from repro_torch.core import distributed, tree
+        from repro_torch.runtime import mesh_ctx, sharding
+
+        self._orig = orig = mesh_ctx.working
+
+        def spy(sub, prefix):
+            out = orig(sub, prefix)
+            if mesh_ctx._CURRENT["gather"] is not None:
+                pairs = [(sharding.path_str(tuple(prefix) + p), t, t_in) for (p, t), t_in in zip(
+                    tree.leaves_with_paths(out), tree.leaves(sub), strict=True)]
+                self.calls.append(("/".join(map(str, prefix)),
+                                   {name: (t.numel(), t.nbytes) for name, t, _ in pairs},
+                                   {name: t.nbytes for name, t, t_in in pairs if t is not t_in}))
+            return out
+
+        mesh_ctx.working = spy
+        distributed.reset_gathered_peak()
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        from repro_torch.core import distributed
+        from repro_torch.runtime import mesh_ctx
+
+        mesh_ctx.working = self._orig
+        self.peak = max(self.peak, distributed.GATHERED["peak"])
+        gc.collect()
+        self.live = distributed.GATHERED["live"]
+        return False
+
+    def summary(self, cfg) -> dict:
+        """The layers' gathers in call order (their indices), the peak of
+        gathered bytes alive at once against what the step gathers: its
+        largest layer's gathered leaves plus its largest gathered leaf
+        outside the layers (a table), at the size they were gathered to;
+        and the gathered bytes still alive after."""
+        layer = table = 0
+        for prefix, _, gathered in self.calls:
+            if prefix.startswith("layers/"):
+                layer = max(layer, sum(gathered.values()))
+            else:
+                table = max(table, *gathered.values(), 0)
+        return dict(layer_gathers=[int(k.split("/")[1]) for k, _, _ in self.calls
+                                   if k.startswith("layers/")],
+                    gathered_peak=self.peak, gather_bound=layer + table,
+                    gathered_live=self.live, n_layers=cfg.n_layers)
+
+
+def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
+                 handed_whole=False) -> dict:
+    """What each call was handed and what it computed on, against the
+    whole parameters.  Handed: every leaf this rank's shard under its
+    spec (no parameter tree is made whole at the call); with
+    ``handed_whole`` (the caller's whole tensors) every leaf as it
+    computes on it, each whole or, where a split keeps it local, its
+    ``model`` slice.  Computed on (the
+    leaves ``mesh_ctx.working`` returned, :class:`_Gathers`): every leaf
+    of the model, the leaves a split keeps local (the spec names
+    ``model``; an attention layer, a dense MLP or an embedding table)
+    ``1 / m`` of their whole elements and every other leaf whole.  Returns
+    that check, the count of local leaves and the largest share of the
+    whole model's bytes one call of ``working`` computed on."""
     from repro_torch.core import tree
     from repro_torch.runtime import sharding
 
     m = mesh.shape["model"] if policy in ("tp", "tp_fsdp") else 1
-    specs = {sharding.path_str(p): sh.spec for p, sh in tree.leaves_with_paths(shardings)}
+    flat_sh = {sharding.path_str(p): sh for p, sh in tree.leaves_with_paths(shardings)}
+    specs = {name: sh.spec for name, sh in flat_sh.items()}
     full = {sharding.path_str(p): t for p, t in tree.leaves_with_paths(params)}
 
     def local(name):
@@ -232,15 +307,22 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole) -> dict:
         return (m > 1 and split_module
                 and "model" in {a for e in specs[name] for a in sharding.spec_axes(e)})
 
-    ok, shares = True, []
+    ok = bool(held) and bool(gathers.calls)
     for tree_ in held:
         got = {sharding.path_str(p): t for p, t in tree.leaves_with_paths(tree_)}
-        for name, t in got.items():
-            ok = ok and t.numel() == full[name].numel() // (m if local(name) else 1)
-        shares.append(sum(t.nbytes for t in got.values())
-                      / sum(t.nbytes for t in full.values()))
-    return dict(held_ok=ok and bool(held), local_leaves=sum(map(local, full)),
-                held_share=max(shares))
+        ok = ok and got.keys() == full.keys() and all(
+            t.numel() == (full[n].numel() // (m if local(n) else 1) if handed_whole
+                          else sharding.shard_one(full[n], flat_sh[n]).numel())
+            for n, t in got.items())
+    seen = set()
+    for _, leaves, _ in gathers.calls:
+        for name, (numel, _) in leaves.items():
+            seen.add(name)
+            ok = ok and numel == full[name].numel() // (m if local(name) else 1)
+    share = max(sum(b for _, b in leaves.values()) for _, leaves, _ in gathers.calls) / sum(
+        t.nbytes for t in full.values())
+    return dict(held_ok=ok and seen == full.keys(), local_leaves=sum(map(local, full)),
+                held_share=share)
 
 
 def count_case(*, arch, params, spec, policy, max_len):
@@ -343,8 +425,9 @@ def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=
     against one rank's step from the rank's own state), whether every
     returned shard is its
     rank's slice of the gathered value, the split counts
-    (``mesh_ctx.TP_COUNTS``) and what the loss computed on
-    (:func:`_held_params`; the modules in ``whole`` are expected whole).
+    (``mesh_ctx.TP_COUNTS``), what the loss was handed and computed on
+    (:func:`_held_params`; the modules in ``whole`` are expected whole)
+    and its per-layer gathers (:class:`_Gathers`, the rank steps only).
     ``cfg_changes`` replaces config fields (the parameters must match).
     ``f32_products``: the blockwise attention (the backward of every
     attention call) multiplies fp32 inputs, not bf16-rounded ones, in
@@ -383,9 +466,11 @@ def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=
     ref = train_loop.make_train_step(build_model(cfg), tc)
     mesh_ctx.TP_COUNTS.clear()
     out = {}
+    gathers = _Gathers()
     for i, batch in enumerate(batches):
         before = tree.tree_map(sharding.full_value, tuple(state))  # the rank state, gathered
-        *state, m = compile_for(batch)(*state, batch, 3 + i)
+        with gathers:
+            *state, m = compile_for(batch)(*state, batch, 3 + i)
         *one, m_one = ref(*one, batch, 3 + i)
         out[f"metrics{i}"] = {k: (float(m[k]), float(m_one[k]))
                               for k in ("loss", "grad_norm", "lr")}
@@ -413,7 +498,8 @@ def train_case(*, params, batches, spec, policy, compression, grad_accum, remat=
                 out.update(_int8_flips(cfg, params, state, one, m, m_one, tc.clip_norm))
     out["is_dtensor"] = all(hasattr(x, "to_local") for x in tree.leaves(state[:3]))
     out["counts"] = dict(mesh_ctx.TP_COUNTS)
-    out.update(_held_params(params, held, sh["params"], mesh, cfg, policy, whole))
+    out.update(_held_params(params, held, sh["params"], mesh, cfg, policy, whole, gathers))
+    out.update(gathers.summary(cfg))
     return out
 
 
@@ -564,7 +650,63 @@ def round_trip_case(*, spec):
             and torch.equal(sharding.shard_one(
                 sharding.gather_one(local, sh, keep=("data",)), sh, keep=("data",)), local))
     return dict(round_trips=ok, adjoint=_gather_rows_adjoint(mesh),
-                model_adjoints=_model_adjoints(mesh), vocab_loss=_vocab_parallel_loss(mesh))
+                model_adjoints=_model_adjoints(mesh), vocab_loss=_vocab_parallel_loss(mesh),
+                leaf_adjoints=_gather_leaf_adjoints(mesh))
+
+
+def _gather_leaf_adjoints(mesh) -> dict:
+    """``ParamGather``'s gather of one leaf (``core/distributed.gather_leaf``)
+    for every spec shape of ``SPECS``, with the batch rows over ``data``
+    (``tp_fsdp``) or over ``data`` and ``model`` (``fsdp``), and with a
+    plan keeping ``model`` or not: the gathered value is the whole leaf
+    (its ``model`` shard where kept), and, each rank's loss weighing it by
+    integer weights that depend on the rank's rows coordinates only (the
+    ranks along any other axis compute the same), the gradient of this
+    rank's shard is its slice of the sum of those weights over the ranks
+    the adjoint sums over, exactly.  Returns ``{"rows | keep | spec":
+    bool}``."""
+    import itertools
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.runtime import sharding
+
+    names = mesh.axis_names
+    sizes = tuple(mesh.shape[a] for a in names)
+    me = tuple(int(c) for c in np.unravel_index(dist.get_rank(), sizes))
+    ints = lambda seed, shape: torch.randint(-4, 5, shape, generator=torch.Generator()
+                                             .manual_seed(seed)).float()
+    ok = {}
+    for rows in (("data",), ("data", "model")):
+        for keep in (False, True):
+            plan = types.SimpleNamespace(keeps=lambda name, spec, keep=keep: keep)
+            for s in SPECS:
+                shape = (8, 12, 4, 6)[:len(s)]
+                sh = sharding.NamedSharding(mesh, sharding.P(*s))
+                kept = ("model",) if keep else ()
+                t = ints(5, shape)
+                g = sharding.param_gather({"a": sh}, plan, rows)
+
+                def w(c):  # the weights of the rank at coordinates c: by its rows coordinates
+                    return ints(100 + sum(c[names.index(a)] * 7**j for j, a in enumerate(rows)),
+                                shape)
+
+                # what the gather gives: whole but along the dims it keeps
+                part = sharding.NamedSharding(mesh, sharding.P(*[
+                    e if e is not None and set(sharding.spec_axes(e)) <= set(kept) else None
+                    for e in s]))
+                x = sharding.shard_one(t, sh).clone().requires_grad_()
+                y = g.leaf(("a",), x)
+                (y * sharding.shard_one(w(me), part)).sum().backward()
+                summed = g.leaves[("a",)][1]
+                group = [c for c in itertools.product(*map(range, sizes))
+                         if all(c[i] == me[i] for i, a in enumerate(names) if a not in summed)]
+                want = sharding.shard_one(sum(w(c) for c in group), sh)
+                ok[f"{rows} | {keep} | {s}"] = (torch.equal(y.detach(),
+                                                            sharding.shard_one(t, part))
+                                               and torch.equal(x.grad, want))
+    return ok
 
 
 def _gather_rows_adjoint(mesh) -> bool:
