@@ -272,7 +272,11 @@ root) and exits nonzero on any failure:
     (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``; 4 prompts
     of 64 tokens and 16 decode steps, held against the one-process run
     from the same weights (:func:`tp_phase`): tokens, logits, each rank's
-    parameter bytes, split counts, launches at the rank's shapes; then
+    parameter bytes, split counts, launches at the rank's shapes; (h)
+    qwen3-moe-30b-a3b at full width (48 layers) under ``tp``, its experts
+    split by expert (each rank multiplies its 64 of 128), 8 decode steps,
+    the same gates (at fp32 compute: tokens in proportion and rerouted
+    tokens first at near-ties) and no expert stack gathered; then
     (g) qwen2.5-3b at full width under ``fsdp`` on 2 x 1 ranks, each rank
     its data shards of (d)'s weights and 2 of the 4 rows, every layer
     gathered at its use, 2 decode steps, held against the same steps of
@@ -293,7 +297,8 @@ root) and exits nonzero on any failure:
     gloo calls and bytes a step printed (:func:`ranks_phase`).
 34. **Tensor-parallel train phase** (after phase 32): qwen1.5-0.5b at
     full width (24 layers) split by ``model`` on 1 x 2 ranks, (e) ``tp``
-    at fp32 compute and (f) ``tp_fsdp`` at bf16, 1 step each, held
+    at fp32 compute and (f) ``tp_fsdp`` at bf16, and (i) smoke qwen3-moe
+    at bf16 under ``tp`` (its experts split by expert), 1 step each, held
     against the one-rank step (:func:`tp_train_phase`).
 
 Imports nothing of JAX or of the JAX package.  Takes no arguments, or
@@ -5074,22 +5079,27 @@ class GatherSpy:
     rank-local step, the layers' counted (``layers``), and the bytes of
     what each call gathered (a leaf that came back as another tensor): the
     most for one layer and for one leaf outside the layers (a table), whose
-    sum is the bound on the gathered bytes alive at once (:meth:`summary`);
+    sum is the bound on the gathered bytes alive at once (:meth:`summary`),
+    and all the MoE expert stacks' (``layers/<l>/mlp/gate|up|down``);
     ``core/distributed.GATHERED``'s peak from the start and the bytes
     still alive after."""
 
     def __enter__(self):
         from repro_torch.core import distributed, tree
         from repro_torch.runtime import mesh_ctx
+        from repro_torch.runtime.sharding import EXPERT_LEAVES
 
-        self.layers = self.layer_bytes = self.table_bytes = 0
+        self.layers = self.layer_bytes = self.table_bytes = self.expert_bytes = 0
         self._orig = orig = mesh_ctx.working
 
         def spy(sub, prefix):
             out = orig(sub, prefix)
             if mesh_ctx._CURRENT["gather"] is not None:
-                got = [t.nbytes for t, t_in in zip(tree.leaves(out), tree.leaves(sub))
-                       if t is not t_in]
+                pairs = [(tuple(prefix) + p, t) for (p, t), t_in in zip(
+                    tree.leaves_with_paths(out), tree.leaves(sub)) if t is not t_in]
+                got = [t.nbytes for _, t in pairs]
+                self.expert_bytes += sum(t.nbytes for p, t in pairs if len(p) == 4
+                                         and p[2] == "mlp" and p[3] in EXPERT_LEAVES)
                 if str(prefix[0]).endswith("layers"):
                     self.layers += 1
                     self.layer_bytes = max(self.layer_bytes, sum(got))
@@ -5113,7 +5123,8 @@ class GatherSpy:
 
     def summary(self) -> dict:
         return dict(gathered_peak=self.peak, gathered_live=self.live, layer_gathers=self.layers,
-                    gather_bound=self.layer_bytes + self.table_bytes)
+                    gather_bound=self.layer_bytes + self.table_bytes,
+                    expert_gathered=self.expert_bytes)
 
 
 def _rank_main(rank, world, store_path, seqkv, train, out):
@@ -5124,9 +5135,27 @@ def _rank_main(rank, world, store_path, seqkv, train, out):
     import traceback
 
     try:
-        out.put((rank, _rank_phases(rank, world, store_path, seqkv, train)))
+        res = _rank_phases(rank, world, store_path, seqkv, train)
+        del seqkv, train
+        _release_spawn_args()
+        out.put((rank, res))
     except Exception:  # the parent fails the phase with this traceback
         out.put((rank, traceback.format_exc()))
+
+
+def _release_spawn_args() -> None:
+    """In a spawned rank: drop what still holds the arguments it was
+    started with (its ``Process`` object, a module global until the
+    interpreter exits), and collect, so that the CUDA tensors the parent
+    shared with it are released now.  The parent's copies stay allocated
+    until every process it shared them with has released them (CUDA IPC);
+    released only at exit, they stayed allocated in the parent for the rest
+    of the script (the ranks phase's 32k cache, parameters and train state,
+    which left too little of the card for cell (h))."""
+    import multiprocessing
+
+    multiprocessing.current_process()._args = ()
+    gc.collect()
 
 
 def _rank_phases(rank, world, store_path, seqkv, train):
@@ -5303,17 +5332,17 @@ def _hold_rank_step(one_rank, before, after, m, batch, step):
     return dict(rel, **out, worst=worst, one_rank={k: float(v) for k, v in m1.items()})
 
 
-def rank_train_state(steps=RANK_TRAIN_STEPS, dev="cuda", smoke=False):
-    """qwen1.5-0.5b at full width: the ranks' initial state (fp32 master
-    from seed 0, as ``init_train_state`` makes it), the step's
-    TrainConfig (remat) and ``steps`` global batches of 8 x 2048 from
-    seed 1 (``smoke``: the smoke config, 8 x 32)."""
+def rank_train_state(steps=RANK_TRAIN_STEPS, dev="cuda", smoke=False, arch="qwen1.5-0.5b"):
+    """``arch`` (default qwen1.5-0.5b) at full width: the ranks' initial
+    state (fp32 master from seed 0, as ``init_train_state`` makes it), the
+    step's TrainConfig (remat) and ``steps`` global batches of 8 x 2048
+    from seed 1 (``smoke``: the smoke config, 8 x 32)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import build_model
     from repro_torch.runtime.train_loop import TrainConfig, init_train_state
 
-    cfg = get_config("qwen1.5-0.5b", smoke=smoke)
+    cfg = get_config(arch, smoke=smoke)
     params, opt, _ = init_train_state(build_model(cfg), torch.Generator(dev).manual_seed(0), dev)
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32 if smoke else 2048,
                            global_batch=8, seed=1)
@@ -5440,10 +5469,26 @@ TP_LOGIT_TOL = 2e-2  # of the largest one-process logit of the call
 # run's own error, not a fixed share.
 TP_F32_FACTOR = 1.5
 TP_RESIDENT_SHARE = 0.55  # a rank's parameter bytes over the whole model's
+# A MoE model at fp32 compute: the split's products round apart from one
+# process's at the ulp (cuBLAS picks its kernels by shape), AMLA's
+# rescale can make that a larger difference in a layer's output, and the
+# router sends a token whose k-th and next probabilities lie closer than
+# that to another expert, which moves its hidden state and its row's
+# later tokens far more (PERF.md, PR 33).  So where one process routes a token
+# and a rank does not, the first such tokens must be near-ties: their
+# one-process top-k margin at most this share of the call's median (a
+# wrong split moves the outputs by O(1) and reroutes at any margin), and
+# the greedy tokens are held by TP_MIN_TOKENS in proportion, as at bf16.
+MOE_NEAR_TIE = 1.0 / 16
 TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
-# label -> (arch, policy, max_len): deepseek-v2-mla's latent cache needs no
-# more rows; qwen2.5-3b's 2048 give K6 four 512-key splits, so K3 runs
-TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128), "d": ("qwen2.5-3b", "tp_fsdp", 2048)}
+# label -> (arch, policy, max_len, decode steps): deepseek-v2-mla's latent
+# cache needs no more rows; qwen2.5-3b's and qwen3-moe-30b-a3b's 2048 give
+# K6 four 512-key splits, so K3 runs.  (h): qwen3-moe's 128 experts split
+# by expert over the 2 ranks ("ep"), 8 steps (its one-process references
+# take ~58 GiB of weights a run, and the script must stay inside 1200 s)
+TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128, TP_STEPS),
+            "d": ("qwen2.5-3b", "tp_fsdp", 2048, TP_STEPS),
+            "h": ("qwen3-moe-30b-a3b", "tp", 2048, 8)}
 # label -> (the cell whose one-process references it reuses, mesh, policy,
 # decode steps): FSDP serving on 2 x 1 ranks, each rank its batch rows and
 # its data shards of the weights, every layer gathered at its use.  Its
@@ -5456,6 +5501,7 @@ FSDP_CELLS = {"g": ("d", "2x1", "fsdp", 2)}
 # and the table, not a whole copy (the all-at-once gather needs ~1.4x)
 FSDP_PEAK_SHARE = 0.85
 TP_GEOM = ("qwen2.5-3b rank", 8, 1, 128, None, None)  # one rank of 1 x 2: 8 / 1 heads
+TP_MOE_GEOM = ("qwen3-moe-30b-a3b rank", 16, 2, 128, None, None)  # (h)'s rank: 16 / 2 heads
 # one rank of the split train step: 8 of qwen1.5-0.5b's 16 heads (MHA, Dh 64)
 TP_TRAIN_GEOM = ("qwen1.5-0.5b rank", 8, 8, 64, None, None)
 TP_TRAIN_B, TP_TRAIN_S = 8, 2048
@@ -5466,8 +5512,10 @@ def tp_kernel_cases(dtype):
     gives them: K4 over 64 of deepseek-v2-mla's 128 heads (decode after
     16 steps, and the 64-token prompt, G = 64 x 64), K6 at 8 query heads
     over 1 kv head (qwen2.5-3b on 1 x 2, the 2048-row cache: 4 splits +
-    K3), K7 at 8 heads over the 64-token prompt; K7 at 8 of qwen1.5-0.5b's
-    16 heads over the split train step's 8 x 2048 (causal, Dh 64)."""
+    K3), K7 at 8 heads over the 64-token prompt; the same at (h)'s 16 query
+    heads over 2 kv heads (qwen3-moe-30b-a3b on 1 x 2); K7 at 8 of
+    qwen1.5-0.5b's 16 heads over the split train step's 8 x 2048 (causal,
+    Dh 64)."""
     kv = np.full(TP_BATCH, TP_PROMPT + TP_STEPS)
     prompt_pos = np.tile(np.repeat(np.arange(TP_PROMPT), 64), (TP_BATCH, 1))
     return [
@@ -5478,6 +5526,9 @@ def tp_kernel_cases(dtype):
         ("K6 rank 8/1 decode", gqa_case("K6", TP_GEOM, TP_BATCH, 1, 2048, kv, dtype, 72)),
         ("K7 rank 8 heads prefill 64", gqa_case("K7", TP_GEOM, TP_BATCH, TP_PROMPT, 2048,
                                                np.full(TP_BATCH, TP_PROMPT), dtype, 73)),
+        ("K6 rank 16/2 decode", gqa_case("K6", TP_MOE_GEOM, TP_BATCH, 1, 2048, kv, dtype, 75)),
+        ("K7 rank 16 heads prefill 64", gqa_case("K7", TP_MOE_GEOM, TP_BATCH, TP_PROMPT, 2048,
+                                                np.full(TP_BATCH, TP_PROMPT), dtype, 76)),
         ("K7 rank 8 heads train 8 x 2048", gqa_case(
             "K7", TP_TRAIN_GEOM, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_S,
             np.full(TP_TRAIN_B, TP_TRAIN_S), dtype, 74)),
@@ -5488,8 +5539,8 @@ def tp_kernel_phase(flush):
     """Hold K4, K6 (+ K3) and K7 at one rank's shapes against their plain
     versions, then time them (bf16, amla) beside their bounds, the plain
     versions and SDPA."""
-    log("== kernel phase: K4 at G 64, K6 at 8 / 1 heads (+ K3), K7 at 8 heads: one rank's "
-        "shapes in the tensor-parallel serve and train phases ==")
+    log("== kernel phase: K4 at G 64, K6 at 8 / 1 and 16 / 2 heads (+ K3), K7 at 8 and 16 "
+        "heads: one rank's shapes in the tensor-parallel serve and train phases ==")
     worst = hold_dense_cases(tp_kernel_cases)
     bf = torch.bfloat16
     cases = dict(tp_kernel_cases(bf))
@@ -5542,6 +5593,52 @@ def tp_counters():
     return (md.mla_decode_rows, gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials)
 
 
+class RouteSpy:
+    """Inside the ``with``: every MoE layer's routing (``moe.route``), in
+    call order: each token's sorted expert ids and the margin of its
+    top-k (the k-th largest probability less the next)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.top, self.margin = [], []
+        self._orig = orig = moe.route
+
+        def spy(router, xf, *, cfg, dtype):
+            r = orig(router, xf, cfg=cfg, dtype=dtype)
+            k = cfg.n_experts_active
+            probs = torch.topk(r.probs, k + 1, dim=-1).values
+            self.top.append(torch.sort(r.top_i, dim=-1).values.to(torch.int16).cpu().numpy())
+            self.margin.append((probs[:, k - 1] - probs[:, k]).float().cpu().numpy())
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._orig
+        return False
+
+
+def rerouted(one: RouteSpy, top: list, layers: int) -> dict:
+    """The tokens whose experts differ between one process's routing
+    (``one``) and a rank's (``top``, the same calls on the same input
+    tokens): in all, and at the first MoE layer call where any does
+    (call, layer), with one process's top-k margins there against the
+    median margin of that call."""
+    diff = [np.flatnonzero((a != b).any(-1)) for a, b in zip(one.top, top, strict=True)]
+    first = next((i for i, d in enumerate(diff) if len(d)), None)
+    out = dict(rerouted=int(sum(map(len, diff))), decisions=int(sum(len(a) for a in one.top)),
+               first=None)
+    if first is not None:
+        out.update(first=(first // layers, first % layers), first_tokens=len(diff[first]),
+                   first_margins=[float(m) for m in one.margin[first][diff[first]]],
+                   median_margin=float(np.median(one.margin[first])))
+    return out
+
+
 def tp_reference(label, dev="cuda", smoke=False):
     """One process, no mesh: the cell's model at full width (bf16 weights
     from seed 0), 4 prompts of 64 tokens (seed 0) and ``TP_STEPS`` greedy decode
@@ -5556,7 +5653,7 @@ def tp_reference(label, dev="cuda", smoke=False):
     from repro_torch.core import tree
     from repro_torch.models.model_zoo import build_model
 
-    arch, policy, max_len = TP_CELLS[label]
+    arch, policy, max_len, steps = TP_CELLS[label]
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -5567,28 +5664,31 @@ def tp_reference(label, dev="cuda", smoke=False):
     t_build = time.perf_counter() - t0
     zero_counts(tp_counters())
     logits, tokens, t_prefill, times = tp_serve(model.prefill, model.decode_step, params, cache,
-                                                prompts, dev=dev)
+                                                prompts, dev=dev, steps=steps)
     launches = [c for c, _ in read_counts(tp_counters())]
     # the fp32 function of the same weights: fp32 compute (each weight cast
     # at its product), an fp32 cache, fed the bf16 run's tokens
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
     cache = model32.init_cache(params, TP_BATCH, max_len)
     f32 = tp_serve(model32.prefill, model32.decode_step, params, cache, prompts, forced=tokens,
-                   dev=dev)[0]
+                   dev=dev, steps=steps)[0]
     cache = model32.init_cache(params, TP_BATCH, max_len)
-    tokens32 = tp_serve(model32.prefill, model32.decode_step, params, cache, prompts, dev=dev)[1]
+    with RouteSpy() as routes32:
+        logits32, tokens32 = tp_serve(model32.prefill, model32.decode_step, params, cache,
+                                      prompts, dev=dev, steps=steps)[:2]
     err = logit_share(logits, f32)
     log(f"({label}) one process: {cfg.name} {cfg.n_layers} layers, {cfg.n_heads} heads, "
         f"{whole / 2**30:.2f} GiB of bf16 weights (the fp32 unembedding copy included) built "
         f"in {t_build:.1f} s; prefill {TP_BATCH} x {TP_PROMPT} in {t_prefill:.1f} ms, "
-        f"{np.mean(times[2:]):.2f} ms/step steady (steps 3-{TP_STEPS}; first "
+        f"{np.mean(times[2:]):.2f} ms/step steady (steps 3-{steps}; first "
         f"{times[0]:.1f} ms); K4, K6, K7, K3 launches {launches}; its logits within "
         f"{err:.3e} of the largest logit of the fp32-compute run")
     del params, cache
     release()
     return dict(label=label, arch=arch, policy=policy, max_len=max_len, prompts=prompts,
                 tokens=tokens, logits=logits, f32=f32, f32_err=err, whole=whole,
-                layers=cfg.n_layers, tokens32=tokens32)
+                layers=cfg.n_layers, tokens32=tokens32, logits32=logits32, routes32=routes32,
+                moe=cfg.n_experts > 0)
 
 
 def logit_share(got, want) -> float:
@@ -5621,8 +5721,8 @@ def _tp_rank_main(rank, world, store_path, jobs, out):
         out.put((rank, traceback.format_exc()))
 
 
-def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smoke=False,
-                  spec="1x2", steps=TP_STEPS):
+def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="cuda",
+                  smoke=False, spec="1x2", steps=TP_STEPS):
     """One rank's run of a cell on the ``spec`` mesh: this rank's shards
     of the parameters drawn from seed 0 (each leaf drawn whole and sliced
     at once, so the whole model is never resident here), the cache placed
@@ -5631,8 +5731,9 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
     and decode (each layer gathered at its use).  Records the shapes K4, K6 and K7 launch at
     (their CUDA launch paths wrapped), the gathered parameter bytes alive
     at once and the layer gathers.  Then the same shards at fp32 compute
-    (weights unchanged, an fp32 cache), greedy: its tokens and
-    launches."""
+    (weights unchanged, an fp32 cache), fed the one-process fp32-compute
+    run's tokens ``forced32``: its greedy tokens, logits, launches and MoE
+    routing (:class:`RouteSpy`)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5715,7 +5816,7 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     peak = torch.cuda.max_memory_allocated() if gpu else 0
-    # fp32 compute on the same shards, greedy, from an fp32 cache
+    # fp32 compute on the same shards from an fp32 cache, fed the one-process fp32 tokens
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
     compile_prefill, compile_decode, sh32 = jit_serve_fns(
         model32, mesh, like, model32.init_cache(like, TP_BATCH, max_len), policy=policy)
@@ -5724,8 +5825,9 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
         sharding.shard_one(t, cflat[p]).clone(), cflat[p], t.shape),
         model32.init_cache(local, TP_BATCH, max_len))
     zero_counts(tp_counters())
-    tokens32 = tp_serve(compile_prefill(p_like), compile_decode(t_like), params, cache, prompts,
-                        dev=dev, steps=steps)[1]
+    with RouteSpy() as routes32:
+        logits32, tokens32 = tp_serve(compile_prefill(p_like), compile_decode(t_like), params,
+                                      cache, prompts, forced=forced32, dev=dev, steps=steps)[:2]
     launches32 = [c for c, _ in read_counts(tp_counters())]
     gc.collect()
     res = dict(logits=[x.numpy() for x in logits], tokens=tokens, t_prefill=t_prefill,
@@ -5735,6 +5837,7 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, dev="cuda", smo
                counts=counts, seen={k: sorted(v) for k, v in seen.items()},
                coll_prefill=calls["prefill"][0], coll_step=calls["decode"][-1],
                device=str(torch.cuda.current_device()) if gpu else "cpu", tokens32=tokens32,
+               logits32=[x.numpy() for x in logits32], top32=routes32.top,
                launches32=launches32, **dict(gathers.summary(),
                                              gathered_live=distributed.GATHERED["live"]),
                bytes_prefill=moved["prefill"][0], bytes_step=moved["decode"][-1])
@@ -5752,24 +5855,32 @@ def tp_phase(card, dev="cuda", smoke=False):
     every number.
 
     (c) deepseek-v2-mla at full width (60 layers, bf16, amla) under
-    ``tp``; (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``.
+    ``tp``; (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``;
+    (h) qwen3-moe-30b-a3b at full width (48 layers, 128 experts) under
+    ``tp``, each rank multiplying its 64 experts' slots (``"ep"``).
     For each, first the one-process run in this process (4 prompts of 64
-    tokens, ``TP_STEPS`` greedy decode steps; :func:`tp_reference`), its weights
-    freed; then each rank draws the same weights from seed 0 keeping only
-    its shards, prefills the prompts and decodes the one-process run's
-    tokens (:func:`_tp_rank_cell`), then runs the same shards at fp32
-    compute, greedy.  Gates per rank: at fp32 compute all the decode steps'
-    greedy tokens (and the prefill's) equal to the one-process fp32-compute
-    run's, with the bf16 run's launches; at bf16 at least
+    tokens, the cell's greedy decode steps: 16, (h) 8;
+    :func:`tp_reference`), its weights freed; then each rank draws the
+    same weights from seed 0 keeping only its shards, prefills the prompts
+    and decodes the one-process run's tokens (:func:`_tp_rank_cell`), then
+    runs the same shards at fp32
+    compute, fed the one-process fp32-compute run's tokens.  Gates per
+    rank: at fp32 compute all the decode steps' greedy tokens (and the
+    prefill's) equal to the one-process fp32-compute run's (for (h), whose
+    routing turns rounding into rerouted near-ties, ``TP_MIN_TOKENS`` in
+    proportion and the first rerouted tokens near-ties: ``MOE_NEAR_TIE``),
+    with the bf16 run's launches; at bf16 at least
     ``TP_MIN_TOKENS`` of the decode steps' greedy tokens equal to the
     one-process run's, every call's logits within ``TP_LOGIT_TOL`` of its
     largest one-process logit or, where the one-process bf16 run is
     itself farther than that from the fp32-compute run, at most
     ``TP_F32_FACTOR`` times as far from it, the rank's parameter bytes at most
     ``TP_RESIDENT_SHARE`` of the whole model's, every attention layer,
-    MLP, lookup and logits split (``mesh_ctx.TP_COUNTS``), K4 at G 64
-    (c), K7 at 8 heads and K6 at 8 / 1 heads with K3 (d), layers x calls
-    launches; both ranks the same logits.  The step times are gloo on one
+    MLP (or MoE layer's experts), lookup and logits split
+    (``mesh_ctx.TP_COUNTS``), no expert stack gathered
+    (:class:`GatherSpy`), K4 at G 64 (c), K7 at 8 heads and K6 at 8 / 1
+    heads with K3 (d), K7 at 16 heads and K6 at 16 / 2 heads with K3 (h),
+    layers x calls launches; both ranks the same logits.  The step times are gloo on one
     card: collectives through host memory, the two ranks sharing the
     card's SMs; not a multi-card number.
 
@@ -5786,15 +5897,18 @@ def tp_phase(card, dev="cuda", smoke=False):
     ``FSDP_PEAK_SHARE`` of the whole model's parameter bytes (a whole copy
     gathered at once could not meet it).  Returns the ranks' (K4, K6, K7,
     K3) launches."""
+    held = f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB" if dev != "cpu" else "(CPU)"
     log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks, and FSDP on "
-        f"2 x 1 ranks (2 ranks on {dev}, spawned, gloo), card {card} ==")
+        f"2 x 1 ranks (2 ranks on {dev}, spawned, gloo; {held} allocated in this process), card "
+        f"{card} ==")
     t0 = time.perf_counter()
     refs = {label: tp_reference(label, dev, smoke) for label in TP_CELLS}
-    cells = {**{label: (label, "1x2", TP_CELLS[label][1], TP_STEPS) for label in TP_CELLS},
-             **FSDP_CELLS}
+    cells = {**{label: (label, "1x2", TP_CELLS[label][1], TP_CELLS[label][3])
+                for label in TP_CELLS}, **FSDP_CELLS}
     jobs = [dict(label=label, arch=refs[src]["arch"], policy=policy,
                  max_len=refs[src]["max_len"], prompts=refs[src]["prompts"],
-                 forced=refs[src]["tokens"], dev=dev, smoke=smoke, spec=spec, steps=steps)
+                 forced=refs[src]["tokens"], forced32=refs[src]["tokens32"], dev=dev, smoke=smoke,
+                 spec=spec, steps=steps)
             for label, (src, spec, policy, steps) in cells.items()]
     ranks = _spawn_ranks(2, (jobs,), TP_TIMEOUT, _tp_rank_main)
     log(f"two ranks spawned, ran {', '.join(f'({c})' for c in cells)} and exited; the phase "
@@ -5807,6 +5921,7 @@ def tp_phase(card, dev="cuda", smoke=False):
         # the one-process run's first ``steps`` steps
         ref = dict(ref, logits=ref["logits"][:calls], f32=ref["f32"][:calls],
                    tokens=ref["tokens"][:, :calls], tokens32=ref["tokens32"][:, :calls],
+                   logits32=ref["logits32"][:calls],
                    f32_err=logit_share(ref["logits"][:calls], ref["f32"][:calls]))
         min_tokens = TP_MIN_TOKENS * steps // TP_STEPS
         for r, res in enumerate(ranks):
@@ -5816,12 +5931,16 @@ def tp_phase(card, dev="cuda", smoke=False):
             agree = int((x["tokens"][:, 1:] == ref["tokens"][:, 1:]).sum())
             share = x["resident"] / ref["whole"]
             k4, k6, k7, k3 = x["launches"]
-            split = {"attn": n * calls, "mlp": n * calls, "embed": calls, "logits": calls}
+            split = {"attn": n * calls, "moe" if ref["moe"] else "mlp": n * calls,
+                     "embed": calls, "logits": calls}
             if label == "c":
                 kernels_ok = (k4, k6, k7, k3) == (n * calls, 0, 0, 0) and 64 in x["seen"]["K4"]
             elif label == "d":
                 kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
                               and x["seen"]["K6"] == [(1, 8)] and x["seen"]["K7"] == [8])
+            elif label == "h":  # 16 of 32 heads, 2 of 4 kv heads a rank
+                kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
+                              and x["seen"]["K6"] == [(2, 8)] and x["seen"]["K7"] == [16])
             else:  # all heads, each rank its rows
                 kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
                               and x["seen"]["K6"] == [(2, 8)] and x["seen"]["K7"] == [16])
@@ -5829,17 +5948,33 @@ def tp_phase(card, dev="cuda", smoke=False):
                        for a, b in zip(x["logits"], ranks[0][label]["logits"]))
             agree32 = int((x["tokens32"][:, 1:] == ref["tokens32"][:, 1:]).sum())
             same32 = np.array_equal(x["tokens32"], ref["tokens32"])
-            log(f"({label}) rank {r} at fp32 compute (same shards, fp32 cache, greedy): tokens "
-                f"equal to the one-process fp32-compute run's {agree32} of {TP_BATCH * steps} "
-                f"(all, the prefill's included: {same32}; must be all); launches K4, K6, K7, K3 "
+            err32 = logit_share(x["logits32"], ref["logits32"])
+            if ref["moe"]:  # a rerouted token first appears at a near-tie (MOE_NEAR_TIE)
+                flips = rerouted(ref["routes32"], x["top32"], n)
+                ok32 = agree32 >= min_tokens and (flips["first"] is None or max(
+                    flips["first_margins"]) <= MOE_NEAR_TIE * flips["median_margin"])
+                must = (f"at least {min_tokens}; tokens rerouted {flips['rerouted']} of "
+                        f"{flips['decisions']} routed, first at (call, layer) {flips['first']}"
+                        + ("" if flips["first"] is None else
+                           f": {flips['first_tokens']} tokens, one process's top-k margins "
+                           f"{[f'{m:.2e}' for m in flips['first_margins'][:8]]} against that "
+                           f"call's median {flips['median_margin']:.2e} (each at most "
+                           f"{MOE_NEAR_TIE} x)"))
+            else:
+                ok32, must = same32, "must be all"
+            log(f"({label}) rank {r} at fp32 compute (same shards, fp32 cache, fed the "
+                f"one-process fp32-compute run's tokens): greedy tokens equal to its "
+                f"{agree32} of {TP_BATCH * steps} (all, the prefill's included: {same32}; "
+                f"{must}); logits within {err32:.3e} of its largest; launches K4, K6, K7, K3 "
                 f"{x['launches32']}; card {card}")
             peak_share = x["peak"] / ref["whole"]
             gathers_ok = (x["gathered_peak"] <= x["gather_bound"] and not x["gathered_live"]
-                          and x["layer_gathers"] == n * calls)
+                          and x["layer_gathers"] == n * calls and x["expert_gathered"] == 0)
             log(f"({label}) rank {r} ({ref['arch']}, {policy} {spec}): gathered parameter bytes "
                 f"alive at once at most {x['gathered_peak'] / 2**20:.1f} MiB (bound "
                 f"{x['gather_bound'] / 2**20:.1f} MiB: the largest gathered layer plus the "
-                f"largest gathered table), {x['gathered_live']} B alive after; layer gathers "
+                f"largest gathered table), expert stacks gathered {x['expert_gathered']} B "
+                f"(must be 0), {x['gathered_live']} B alive after; layer gathers "
                 f"{x['layer_gathers']} (layers x calls {n * calls}); peak "
                 f"{peak_share:.4f} of the whole model's parameter bytes; gloo GiB per decode "
                 f"step {x['bytes_step'] / 2**30:.3f}, at the prefill "
@@ -5867,9 +6002,9 @@ def tp_phase(card, dev="cuda", smoke=False):
             if (not close or agree < min_tokens or not layout_ok or not gathers_ok
                     or not kernels_ok or not same):
                 failed.append(f"({label}) rank {r}")
-            if not same32 or x["launches32"] != x["launches"]:
-                failed.append(f"({label}) rank {r} at fp32 compute: tokens not the one-process "
-                              "fp32-compute run's, or its launches not the bf16 run's")
+            if not ok32 or x["launches32"] != x["launches"]:
+                failed.append(f"({label}) rank {r} at fp32 compute: tokens (or routing) not the "
+                              "one-process fp32-compute run's, or its launches not the bf16 run's")
             total = [a + b + c for a, b, c in zip(total, x["launches"], x["launches32"])]
     if failed:
         raise SystemExit("tensor-parallel phase: outside its gates: " + ", ".join(failed))
@@ -5883,9 +6018,13 @@ TP_TRAIN_TIMEOUT = 540.0  # s for the phase's two processes; then they are kille
 # one step a cell: the cells move 16.6-24.5 GiB a step through gloo
 # (28-52 s), and the whole script must stay inside 1200 s
 TP_TRAIN_STEPS = 1
-# label -> (policy, compute dtype): (e) at fp32 compute (the fp32 master
-# state unchanged), (f) at the config's bf16
-TP_TRAIN_CELLS = {"e": ("tp", "float32"), "f": ("tp_fsdp", "bfloat16")}
+# label -> (arch, smoke widths, policy, compute dtype): (e) at fp32
+# compute (the fp32 master state unchanged), (f) at the config's bf16;
+# (i) smoke qwen3-moe at bf16, its experts split by expert: the expert
+# products' fp32-output gradient (moe._WideProducts) on each rank's experts
+TP_TRAIN_CELLS = {"e": ("qwen1.5-0.5b", False, "tp", "float32"),
+                  "f": ("qwen1.5-0.5b", False, "tp_fsdp", "bfloat16"),
+                  "i": ("qwen3-moe-30b-a3b", True, "tp", "bfloat16")}
 
 
 def _tp_train_rank_main(rank, world, store_path, train, dev, smoke, out):
@@ -5895,14 +6034,17 @@ def _tp_train_rank_main(rank, world, store_path, train, dev, smoke, out):
     import traceback
 
     try:
-        out.put((rank, _tp_train_rank(rank, world, store_path, train, dev, smoke)))
+        res = _tp_train_rank(rank, world, store_path, train, dev, smoke)
+        del train
+        _release_spawn_args()
+        out.put((rank, res))
     except Exception:  # the parent fails the phase with this traceback
         out.put((rank, traceback.format_exc()))
 
 
 def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
-    """Each cell of ``TP_TRAIN_CELLS``: ``TP_TRAIN_STEPS`` steps of
-    qwen1.5-0.5b through ``jit_train_step`` on the 1 x 2 mesh (the first
+    """Each cell of ``TP_TRAIN_CELLS``: ``TP_TRAIN_STEPS`` steps of its
+    model (``train[arch]``'s state) through ``jit_train_step`` on the 1 x 2 mesh (the first
     from the parent's full state, the next from this rank's shards).  Both
     ranks gather the state before each step and the new parameters after
     it; rank 0 holds the step against ``make_train_step`` on one rank from
@@ -5910,8 +6052,8 @@ def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
     for a bf16 cell, at fp32 compute too (the yardstick of its gate).
     Records the step times, the gloo calls and bytes of each step, the
     peak, the bytes of parameters + moments held, the split counts, what
-    the loss computed on (each kept leaf's share of its whole) and K7's
-    launches and head counts."""
+    the loss computed on (the leaves ``mesh_ctx.working`` returned: each
+    kept leaf's share of its whole) and K7's launches and head counts."""
     import dataclasses
 
     import torch.distributed as dist
@@ -5934,9 +6076,6 @@ def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
     sync = torch.cuda.synchronize if gpu else (lambda: None)
     counters = (gd.gqa_decode_rows, comb.combine_split_partials, fp.flash_prefill)
     mesh = rank_mesh("1x2", dev)
-    base = get_config("qwen1.5-0.5b", smoke=smoke)
-    cfg32 = dataclasses.replace(base, dtype="float32")
-    whole = {sharding.path_str(p): t.numel() for p, t in tree.leaves_with_paths(train["params"])}
     heads = set()
     prefill_cuda = fp._prefill_cuda
 
@@ -5945,28 +6084,34 @@ def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
         return prefill_cuda(q, *a, **k)
 
     fp._prefill_cuda = spy
+    working = mesh_ctx.working
     res = {}
     try:
-        for label, (policy, dtype) in TP_TRAIN_CELLS.items():
+        for label, (arch, cell_smoke, policy, dtype) in TP_TRAIN_CELLS.items():
+            state0 = train[arch]
+            base = get_config(arch, smoke=smoke or cell_smoke)
             cfg = dataclasses.replace(base, dtype=dtype)
+            cfg32 = dataclasses.replace(base, dtype="float32")
+            whole = {sharding.path_str(p): t.numel()
+                     for p, t in tree.leaves_with_paths(state0["params"])}
             model = build_model(cfg)
-            held = []
-            loss = model.loss
+            held = {}  # each leaf's elements in what the loss computed on
 
-            def recording(params, *a, **k):
-                if not held:
-                    held.append({sharding.path_str(p): t.numel()
-                                 for p, t in tree.leaves_with_paths(params)})
-                return loss(params, *a, **k)
+            def computed_on(sub, prefix):
+                out = working(sub, prefix)
+                for p, t in tree.leaves_with_paths(out):
+                    held.setdefault(sharding.path_str(tuple(prefix) + p), t.numel())
+                return out
 
-            model.loss = recording
-            compile_for, sh = jit_train_step(model, train["tc"], mesh, train["params"],
+            mesh_ctx.working = computed_on
+            compile_for, sh = jit_train_step(model, state0["tc"], mesh, state0["params"],
                                              policy=policy)
             plan = sharding.tp_plan(cfg, mesh, policy, sh["params"])
             specs = {sharding.path_str(p): s.spec for p, s in tree.leaves_with_paths(sh["params"])}
-            one_rank = make_train_step(build_model(cfg), train["tc"])
-            one32 = None if dtype == "float32" else make_train_step(build_model(cfg32), train["tc"])
-            state = (train["params"], train["opt"], None)
+            one_rank = make_train_step(build_model(cfg), state0["tc"])
+            one32 = (None if dtype == "float32"
+                     else make_train_step(build_model(cfg32), state0["tc"]))
+            state = (state0["params"], state0["opt"], None)
             heads.clear()
             zero_counts(counters)
             mesh_ctx.TP_COUNTS.clear()
@@ -5974,7 +6119,7 @@ def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
             if gpu:
                 torch.cuda.reset_peak_memory_stats()
             metrics, times, holds, coll = [], [], [], []
-            for i, batch in enumerate(train["batches"][:TP_TRAIN_STEPS]):
+            for i, batch in enumerate(state0["batches"][:TP_TRAIN_STEPS]):
                 before = [tree.tree_map(sharding.full_value, t) for t in state[:2]]  # gathered
                 step = compile_for(batch)
                 n0 = dict(distributed.COLLECTIVES), dict(distributed.COLLECTIVE_BYTES)
@@ -6008,15 +6153,18 @@ def _tp_train_rank(rank, world, store_path, train, dev="cuda", smoke=False):
                 launches=[c for c, _ in read_counts(counters)], heads=sorted(heads),
                 peak=torch.cuda.max_memory_allocated() / 2**30 if gpu else 0.0, held_bytes=local,
                 whole_bytes=3 * 4 * sum(whole.values()), counts=dict(mesh_ctx.TP_COUNTS),
-                kept=len(kept), kept_halves=all(held[0][n] * 2 == whole[n] for n in kept),
-                rest_whole=all(held[0][n] == whole[n] for n in whole if n not in kept),
-                replicated=sorted(n for n in whole if not any(specs[n])))
+                kept=len(kept), kept_halves=all(held[n] * 2 == whole[n] for n in kept),
+                rest_whole=held.keys() == whole.keys() and all(
+                    held[n] == whole[n] for n in whole if n not in kept),
+                replicated=sorted(n for n in whole if not any(specs[n])), moe=plan.moe,
+                n_layers=cfg.n_layers, rank_heads=cfg.n_heads // 2)
             del state, compile_for
             gc.collect()
             if gpu:
                 torch.cuda.empty_cache()
     finally:
         fp._prefill_cuda = prefill_cuda
+        mesh_ctx.working = working
     dist.destroy_process_group()
     return res
 
@@ -6027,7 +6175,9 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     full width (24 layers, 16 heads x 64, d_ff 2816, vocabulary 151 936,
     tied), the global batch 8 x 2048 (seed 1), remat, ``TP_TRAIN_STEPS``
     steps of (e) ``tp`` at fp32 compute and (f) ``tp_fsdp`` at bf16, from
-    the fp32 master state of seed 0 (:func:`_tp_train_rank`).  Rank 0
+    the fp32 master state of seed 0, and of (i) smoke qwen3-moe-30b-a3b
+    (2 layers, 8 experts over the 2 ranks by expert, 8 x 32) under
+    ``tp`` at bf16 (:func:`_tp_train_rank`).  Rank 0
     holds each step against ``make_train_step`` on one rank from the same
     gathered state and batch.  Gates: (e) loss and ``grad_norm`` within
     ``RANK_TRAIN_REL``, the parameters by ``RANK_PARAM_TOL`` where the
@@ -6035,36 +6185,41 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     zero-initialized biases and norm scales of this random model get
     gradients near 1e-4 of the model's largest, which the split's sums
     move by a fraction of the lr they step by) and within 2 lr
-    everywhere; (f) loss and
+    everywhere; (f) and (i) loss and
     ``grad_norm`` within ``RANK_TRAIN_REL`` or no farther from the
     one-rank fp32-compute step than ``TP_F32_FACTOR`` times the one-rank
     bf16 step is; both ranks the same metrics; each kept leaf half its
     whole in what the loss computed on, every other leaf whole; a rank's
     parameters + moments at most ``TP_RESIDENT_SHARE`` of the whole; every
-    attention layer, MLP, lookup and loss split (``mesh_ctx.TP_COUNTS``,
-    the layers twice a step: remat); K7 = layers x 2 x steps a rank at 8
-    heads, no K6 or K3.  The step times are gloo through host memory on
-    one card (the two ranks share its SMs), not a multi-card number.
+    attention layer, MLP (or MoE layer's experts), lookup and loss split
+    (``mesh_ctx.TP_COUNTS``, the layers twice a step: remat); K7 = layers
+    x 2 x steps a rank at half the heads (8; (i) 2), no K6 or K3.  The
+    step times are gloo through host memory on one card (the two ranks
+    share its SMs), not a multi-card number.
     Returns the ranks' K7 launches.  ``tp_train_phase("x", dev="cpu",
     smoke=True)`` runs the phase on the CPU at smoke widths (its K7 gate
     fails there: the plain version counts no launches)."""
     log(f"== tensor-parallel train phase: jit_train_step split by model on 1 x 2 ranks (2 ranks "
         f"on {dev}, spawned, gloo), card {card} ==")
     t0 = time.perf_counter()
-    train = rank_train_state(TP_TRAIN_STEPS, dev, smoke)
-    n = train["n_layers"]
+    train = {}  # each model's initial state, once
+    for arch, cell_smoke, _, _ in TP_TRAIN_CELLS.values():
+        if arch not in train:
+            train[arch] = rank_train_state(TP_TRAIN_STEPS, dev, smoke or cell_smoke, arch=arch)
     ranks = _spawn_ranks(2, (train, dev, smoke), TP_TRAIN_TIMEOUT, _tp_train_rank_main)
-    log(f"two ranks spawned, ran (e) and (f) and exited; the phase {time.perf_counter() - t0:.1f} "
-        f"s")
+    log(f"two ranks spawned, ran {', '.join(f'({c})' for c in TP_TRAIN_CELLS)} and exited; the "
+        f"phase {time.perf_counter() - t0:.1f} s")
     steps, k7, failed = TP_TRAIN_STEPS, 0, []
-    split = {"attn": n * 2 * steps, "mlp": n * 2 * steps, "embed": steps, "logits": steps}
     rel = lambda a, b: abs(a - b) / abs(b)
-    for label, (policy, dtype) in TP_TRAIN_CELLS.items():
+    for label, (arch, _, policy, dtype) in TP_TRAIN_CELLS.items():
         for r, res in enumerate(ranks):
             x = res[label]
+            n = x["n_layers"]
+            split = {"attn": n * 2 * steps, "moe" if x["moe"] else "mlp": n * 2 * steps,
+                     "embed": steps, "logits": steps}
             k6, k3, k7x = x["launches"]
             share = x["held_bytes"] / x["whole_bytes"]
-            log(f"({label}) rank {r} qwen1.5-0.5b {policy} at {dtype} compute: " + "; ".join(
+            log(f"({label}) rank {r} {arch} {policy} at {dtype} compute: " + "; ".join(
                 f"loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f}" for m in x["metrics"])
                 + f"; {', '.join(f'{t:.1f}' for t in x['times'])} ms/step (gloo through host "
                 f"memory on one card, not a multi-card number); gloo calls / GiB a step "
@@ -6073,8 +6228,8 @@ def tp_train_phase(card, dev="cuda", smoke=False):
                 f"the whole {x['whole_bytes'] / 2**30:.3f} GiB (replicated leaves: "
                 f"{len(x['replicated'])}); kept leaves {x['kept']}, each half its whole in what "
                 f"the loss computed on: {x['kept_halves']}, the rest whole: {x['rest_whole']}; "
-                f"split counts {x['counts']}; K7 {k7x} at heads {x['heads']}, K6 {k6}, K3 {k3}; "
-                f"card {card}")
+                f"split counts {x['counts']} (experts {x['moe']}); K7 {k7x} at heads "
+                f"{x['heads']}, K6 {k6}, K3 {k3}; card {card}")
             for i, h in enumerate(x["holds"]):
                 one = h["one_rank"]
                 line = (f"    step {i}: one rank from the same state: loss {one['loss']:.6f} "
@@ -6099,7 +6254,7 @@ def tp_train_phase(card, dev="cuda", smoke=False):
             if (x["metrics"] != ranks[0][label]["metrics"] or share > TP_RESIDENT_SHARE
                     or not (x["kept_halves"] and x["rest_whole"] and x["kept"] > 0)
                     or x["counts"] != split or (k6, k3, k7x) != (0, 0, n * 2 * steps)
-                    or x["heads"] != [8] or (r == 0) != (len(x["holds"]) == steps)):
+                    or x["heads"] != [x["rank_heads"]] or (r == 0) != (len(x["holds"]) == steps)):
                 failed.append(f"({label}) rank {r}: metrics differ from rank 0's, or the split's "
                               "leaves, counts, share or K7 launches are not as gated")
             k7 += k7x
@@ -6169,8 +6324,12 @@ def build_phase() -> None:
 def release() -> None:
     """Free what the last phase left: its sessions (in reference cycles
     through the timing and hold wrappers, so only a collection frees them,
-    and with them their CUDA graphs' memory pools) and the cached blocks."""
+    and with them their CUDA graphs' memory pools), the tensors it shared
+    with spawned ranks that have released them (``ipc_collect``) and the
+    cached blocks."""
     gc.collect()
+    if torch.cuda.is_initialized():
+        torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
 
 

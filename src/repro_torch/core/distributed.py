@@ -224,25 +224,27 @@ def take_shard(t: torch.Tensor, dim: int, axes, *, mesh) -> torch.Tensor:
 
 
 class _GatherRows(torch.autograd.Function):
-    """:func:`all_gather_dim` along dim 0 whose backward is the adjoint:
-    the cotangent summed over the ranks, this rank's rows kept."""
+    """:func:`all_gather_dim` along ``dim`` whose backward is the adjoint:
+    the cotangent summed over the ranks, this rank's piece kept."""
 
     @staticmethod
-    def forward(ctx, x, axes, mesh):
-        ctx.axes, ctx.mesh = axes, mesh
-        return all_gather_dim(x, 0, axes, mesh=mesh)
+    def forward(ctx, x, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return all_gather_dim(x, dim, axes, mesh=mesh)
 
     @staticmethod
     def backward(ctx, g):
         g = all_reduce_sum(g.contiguous(), ctx.axes, mesh=ctx.mesh)
-        return take_shard(g, 0, ctx.axes, mesh=ctx.mesh), None, None
+        return take_shard(g, ctx.dim, ctx.axes, mesh=ctx.mesh), None, None, None
 
 
-def gather_rows(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
-    """Every rank's rows of ``x`` along ``axes`` (dim 0), differentiable:
-    a layer that must see the whole batch (the MoE dispatch) runs on this
-    and keeps its own rows after (:func:`take_shard`)."""
-    return _GatherRows.apply(x, spec_axes(axes), mesh)
+def gather_rows(x: torch.Tensor, axes, *, mesh, dim: int = 0) -> torch.Tensor:
+    """Every rank's rows of ``x`` along ``axes`` (on ``dim``, default the
+    batch's), differentiable for a value each rank's own rows weigh in: a
+    layer that must see the whole batch (the MoE dispatch) runs on this
+    and keeps its own rows after (:func:`take_shard`), and its backward
+    sums the ranks' cotangents."""
+    return _GatherRows.apply(x, spec_axes(axes), mesh, dim)
 
 
 class _GatherLeaf(torch.autograd.Function):
@@ -347,10 +349,10 @@ class _ProductsFromModel(torch.autograd.Function):
     """``ys`` (the products ``x @ w`` for each of ``ws``, computed from a
     detached ``x``, so that autograd gives each weight its gradient) as
     they are, with the backward of ``copy_to_model(x)`` in front of them
-    all: each product's input cotangent ``g @ w^T`` written in fp32, the
-    partials added and summed over ``model`` in fp32, and rounded to
-    ``x``'s dtype once, as one rank's product over every column rounds
-    its own once."""
+    all: each product's input cotangent ``g @ w^T`` (batched for 3-D
+    ``ws``) written in fp32, the partials added and summed over ``model``
+    in fp32, and rounded to ``x``'s dtype once, as one rank's product over
+    every column rounds its own once."""
 
     @staticmethod
     def forward(ctx, x, mesh, n, *tensors):
@@ -364,25 +366,29 @@ class _ProductsFromModel(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             for g, w in zip(gs, ws):
-                g2 = g.reshape(-1, g.shape[-1])
-                if g.dtype == torch.float32:
-                    part = g2 @ w.t()
-                elif g.device.type == "cpu":  # no CPU kernel for out_dtype; the products are exact
-                    part = g2.float() @ w.float().t()
+                if w.ndim == 3:  # (E, C, y) x (E, x, y)^T: the expert products' fp32 cotangents
+                    part = torch.bmm(g.float(), w.float().transpose(1, 2))
                 else:
-                    part = torch.mm(g2, w.t(), out_dtype=torch.float32)
+                    g2 = g.reshape(-1, g.shape[-1])
+                    if g.dtype == torch.float32:
+                        part = g2 @ w.t()
+                    elif g.device.type == "cpu":  # no CPU kernel for out_dtype; exact products
+                        part = g2.float() @ w.float().t()
+                    else:
+                        part = torch.mm(g2, w.t(), out_dtype=torch.float32)
+                    part = part.reshape(*g.shape[:-1], part.shape[-1])
                 dx = part if dx is None else dx + part
             dx = all_reduce_sum(dx, ("model",), mesh=ctx.mesh).to(ctx.dtype)
-            dx = dx.reshape(*gs[0].shape[:-1], dx.shape[-1])
         return (dx, None, None, *([None] * ctx.n), *gs)
 
 
-def products_from_model(x: torch.Tensor, ws, *, mesh) -> list:
-    """``[x @ w for w in ws]``, each ``w`` (2-D) this rank's columns and
-    ``x`` replicated over ``model``: :func:`copy_to_model` in front of the
-    products, with each rank's partial input cotangent kept in fp32 until
-    the sum over ``model`` (:class:`_ProductsFromModel`)."""
-    ys = [torch.matmul(x.detach(), w) for w in ws]
+def products_from_model(x: torch.Tensor, ws, *, mesh, product=torch.matmul) -> list:
+    """``[product(x, w) for w in ws]`` (default ``x @ w``), each ``w`` this
+    rank's columns (2-D, or 3-D: a batch of matrices, ``x`` batched alike)
+    and ``x`` replicated over ``model``: :func:`copy_to_model` in front of
+    the products, with each rank's partial input cotangent kept in fp32
+    until the sum over ``model`` (:class:`_ProductsFromModel`)."""
+    ys = [product(x.detach(), w) for w in ws]
     return list(_ProductsFromModel.apply(x, mesh, len(ws), *ws, *ys))
 
 

@@ -26,7 +26,12 @@ state after its prompts are admitted:
 * ``train`` (not by default): a training step, not a decode step:
   ``chip_smoke.py``'s train phase (c), qwen1.5-0.5b at full width, fp32
   master parameters from seed 0, ``SyntheticLMData`` batches of 8 x 2048
-  tokens, remat, amla (:func:`train_cell`); its window is ``train_step``.
+  tokens, remat, amla (:func:`train_cell`); its window is ``train_step``;
+* ``moe-ranks`` (not by default): no trace, the host clock only:
+  ``chip_smoke.py``'s cell (h), qwen3-moe-30b-a3b's tensor-parallel
+  serve step on 1 x 2 gloo ranks of this card, prefill and ``--timed``
+  decode steps, with each call's gloo calls and bytes
+  (:func:`moe_ranks_cell`; one JSON line per rank).
 
 Each cell runs ``--warm`` decode steps, then times ``--timed`` steps by the
 host clock (each ending in a device sync), then traces ``--steps`` steps.
@@ -328,12 +333,118 @@ def train_cell(args):
     return res
 
 
+def _moe_rank(rank, src, store, steps, out):
+    """One of :func:`moe_ranks_cell`'s two ranks (a spawned process on
+    ``cuda:0``): puts ``(rank, results)`` or ``(rank, traceback)`` on
+    ``out``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, os.path.abspath(src))
+        import torch.distributed as dist
+
+        from repro_torch.configs import get_config
+        from repro_torch.core import distributed, tree
+        from repro_torch.launch.mesh import init_process_group, rank_mesh
+        from repro_torch.models import transformer
+        from repro_torch.models.model_zoo import build_model
+        from repro_torch.runtime import mesh_ctx, sharding
+        from repro_torch.runtime.serve_loop import jit_serve_fns
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_process_group("gloo", rank=rank, world_size=2, store=dist.FileStore(store, 2),
+                           device="cuda")
+        cfg = get_config("qwen3-moe-30b-a3b")
+        model = build_model(cfg)
+        mesh = rank_mesh("1x2", "cuda")
+        like = model.init(None, "meta")
+        prefill, decode, sh = jit_serve_fns(model, mesh, like, model.init_cache(like, 4, 2048),
+                                            policy="tp")
+        flat = dict(tree.leaves_with_paths(sh["params"]))
+        local = transformer.lm_init(torch.Generator("cuda").manual_seed(0), cfg,
+                                    device=torch.device("cuda"), dtype=model.dtype,
+                                    keep=lambda p, t: sharding.shard_one(t, flat[p]).clone())
+        shapes = {p: t.shape for p, t in tree.leaves_with_paths(like)}
+        params = tree.map_with_paths(lambda p, t: sharding.from_local(t, flat[p], shapes[p]),
+                                     local)
+        cflat = dict(tree.leaves_with_paths(sh["cache"]))
+        cache = tree.map_with_paths(lambda p, t: sharding.from_local(
+            sharding.shard_one(t, cflat[p]).clone(), cflat[p], t.shape),
+            model.init_cache(local, 4, 2048))
+        prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, size=(4, 64))
+        tokens = [torch.as_tensor(prompts, dtype=torch.int64, device="cuda")]
+        mesh_ctx.TP_COUNTS.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, calls, gib = [], [], []
+        for i in range(1 + steps):  # the prefill, then one token a step at per-row lengths
+            call = prefill(tokens[0]) if i == 0 else decode(tokens[-1])
+            extra = () if i == 0 else (np.full((4,), 63 + i, np.int32),)
+            n0 = sum(distributed.COLLECTIVES.values())
+            b0 = sum(distributed.COLLECTIVE_BYTES.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = call(params, cache, tokens[-1], *extra)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            calls.append(sum(distributed.COLLECTIVES.values()) - n0)
+            gib.append((sum(distributed.COLLECTIVE_BYTES.values()) - b0) / 2**30)
+            tokens.append(logits[:, -1].argmax(-1)[:, None])
+        out.put((rank, dict(ms=ms, gloo_calls=calls, gloo_gib=gib,
+                            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                            resident_gib=sum(t.nbytes for t in tree.leaves(local)) / 2**30,
+                            counts=dict(mesh_ctx.TP_COUNTS),
+                            tokens=torch.cat(tokens[1:], 1).cpu().tolist())))
+        dist.destroy_process_group()
+    except Exception:  # the parent reports the rank's traceback
+        out.put((rank, traceback.format_exc()))
+
+
+def moe_ranks_cell(args) -> list:
+    """``chip_smoke.py``'s cell (h), timed on its own: qwen3-moe-30b-a3b
+    at full width under ``tp`` on 1 x 2 gloo ranks of this card (two
+    spawned processes, each drawing its shards from seed 0), 4 prompts of
+    64 tokens (seed 0) prefilled into a 2048-row cache, then ``--timed``
+    greedy decode steps; each call timed by the host clock ending in a
+    device sync, with its gloo calls and bytes.  No trace: the step is
+    gloo-bound.  Runs on any tree whose ``jit_serve_fns`` and
+    ``lm_init(keep=)`` take these arguments (``--src``: a parent's, whose
+    ranks gather the experts at their use).  Returns each rank's
+    results."""
+    import queue
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    procs = [ctx.Process(target=_moe_rank, args=(r, args.src, store, args.timed, out),
+                         daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    res = {}
+    try:
+        while len(res) < 2:
+            rank, value = out.get(timeout=1800)
+            if isinstance(value, str):
+                raise RuntimeError(f"moe-ranks: rank {rank} failed:\n{value}")
+            res[rank] = value
+    except queue.Empty:
+        raise RuntimeError("moe-ranks: the ranks did not finish in 1800 s") from None
+    finally:
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    return [res[0], res[1]]
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                                   os.pardir, os.pardir))
     ap.add_argument("--cells", nargs="+", default=["paged", "gemma", "dense-mla"],
-                    choices=["paged", "gemma", "dense-mla", "k2-pad", "train", *FAMILY_CELLS])
+                    choices=["paged", "gemma", "dense-mla", "k2-pad", "train", "moe-ranks",
+                             *FAMILY_CELLS])
     ap.add_argument("--warm", type=int, default=3)
     ap.add_argument("--timed", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
@@ -358,6 +469,10 @@ def main(argv) -> int:
         print(json.dumps({"cell": "qwen1.5-0.5b train", "label": args.label, "card": smi,
                           **train_cell(args)}), flush=True)
         torch.cuda.empty_cache()
+    if "moe-ranks" in args.cells:
+        for rank, res in enumerate(moe_ranks_cell(args)):
+            print(json.dumps({"cell": "qwen3-moe-30b-a3b tp 1x2 ranks", "rank": rank,
+                              "label": args.label, "card": smi, **res}), flush=True)
     if "gemma" in args.cells:
         cfg = get_config("gemma2-2b")
         model = build_model(cfg)

@@ -206,9 +206,11 @@ def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
     any other layer: no tensor, so a serving step launches nothing for
     it)."""
     h = layers.rmsnorm(params["ln1"], x, eps=cfg.norm_eps)
-    if kind == "recurrent":
+    if kind == "recurrent":  # no split yet: run whole under a plan, counted so
+        mesh_ctx.tp_split("rec")
         y, cache = rglru_block_apply(params["rec"], h, cfg=cfg, cache=cache, dtype=dtype)
     elif kind == "ssm":
+        mesh_ctx.tp_split("ssm")
         y, cache = mamba2_block_apply(params["ssm"], h, cfg=cfg, cache=cache, dtype=dtype)
     elif kind not in ("global", "local"):
         raise ValueError(kind)
@@ -244,11 +246,12 @@ def mlp_post(params, x, *, cfg, dtype):
     config says so), without its residual add: (y, aux), ``aux`` the MoE
     load-balancing loss (0.0 for a dense MLP)."""
     h = layers.rmsnorm(params["ln2"], x, eps=cfg.norm_eps)
-    tp = mesh_ctx.tp_split("mlp")  # None for a MoE MLP: its experts run whole
-    if cfg.n_experts:
-        y, aux = moe.moe_apply(params["mlp"], h, cfg=cfg, dtype=dtype)
+    if cfg.n_experts:  # the plan's split of the experts: by expert or within each by d_ff
+        y, aux = moe.moe_apply(params["mlp"], h, cfg=cfg, dtype=dtype,
+                               tp=mesh_ctx.tp_split("moe"))
     else:
-        y, aux = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype, tp=tp), 0.0
+        y, aux = layers.mlp(params["mlp"], h, act=cfg.act, dtype=dtype,
+                            tp=mesh_ctx.tp_split("mlp")), 0.0
     if cfg.post_norms:
         y = layers.rmsnorm(params["post_ln2"], y, eps=cfg.norm_eps)
     return y, aux

@@ -20,8 +20,9 @@ through :func:`on_ranks` and :func:`rank_rows`.
 rank computes split (its heads, d_ff columns and vocabulary rows) and how.
 Everywhere else it is ``None`` and every layer computes whole.  The
 layers count what they did under a plan in :data:`TP_COUNTS` (``attn``,
-``mlp``, ``embed``, ``logits`` (the serve step's logits or the train
-step's loss), each split or ``*_whole``), once per call: a layer that
+``mlp``, ``moe``, ``embed``, ``logits`` (the serve step's logits or the
+train step's loss), each split or ``*_whole``; ``ssm_whole`` and
+``rec_whole``: those blocks do not split), once per call: a layer that
 remat runs again in the backward is counted again there.
 
 ``gather`` is set by the rank-local serve and train steps, whose model
@@ -85,9 +86,10 @@ def rank_rows() -> tuple:
 
 def tp_split(module: str):
     """The current :class:`~repro_torch.runtime.sharding.TPPlan` where it
-    splits ``module`` (``"attn"``, ``"mlp"``, ``"embed"`` or ``"logits"``),
-    else ``None``; under a plan the call is counted in :data:`TP_COUNTS`
-    either way, so a module that runs whole is never silent."""
+    splits ``module`` (``"attn"``, ``"mlp"``, ``"moe"``, ``"embed"``,
+    ``"logits"``, ``"ssm"`` or ``"rec"``), else ``None``; under a plan the
+    call is counted in :data:`TP_COUNTS` either way, so a module that runs
+    whole is never silent."""
     plan = _CURRENT["tp_local"]
     if plan is None:
         return None

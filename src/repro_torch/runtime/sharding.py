@@ -535,12 +535,18 @@ def param_gather(shardings, plan=None, rows=(), whole=()) -> ParamGather:
     return ParamGather(mesh=mesh, rows=tuple(rows), leaves=leaves)
 
 
+# a MoE layer's expert stacks: (E, d, ff), (E, d, ff), (E, ff, d)
+EXPERT_LEAVES = ("gate", "up", "down")
+
+
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
     """How one rank splits a serve or train step over the ``model`` axis
     (:func:`tp_plan`): ``m`` ranks along it, this rank at ``idx``; which
     modules split (``attn``: every attention layer, ``mlp``: every dense
-    MLP, ``vocab``: the embedding lookup and the logits or the loss);
+    MLP, ``vocab``: the embedding lookup and the logits or the loss,
+    ``moe``: every MoE layer's experts, ``"ep"`` by expert or ``"ff"``
+    within each expert by d_ff, else ``None``);
     ``kv_local``: the GQA ``wk`` / ``wv`` hold this rank's kv heads (else
     they are whole, the Megatron rule, and the rank slices the kv heads
     its query heads read).  Set into ``mesh_ctx`` (``tp_local``) for the
@@ -564,10 +570,11 @@ class TPPlan:
     mlp: bool
     vocab: bool
     kv_local: bool
+    moe: str | None = None
 
     def splits(self, module: str) -> bool:
-        return {"attn": self.attn, "mlp": self.mlp, "embed": self.vocab,
-                "logits": self.vocab}[module]
+        return {"attn": self.attn, "mlp": self.mlp, "embed": self.vocab, "logits": self.vocab,
+                "moe": self.moe is not None, "ssm": False, "rec": False}[module]
 
     def part(self, n: int, idx: int | None = None) -> tuple[int, int]:
         """Rank ``idx``'s (default this rank's) ``[lo, hi)`` of ``n`` split
@@ -593,11 +600,12 @@ class TPPlan:
         """``t`` (replicated) as it is, its cotangent summed over ``model``."""
         return copy_to_model(t, mesh=self.mesh)
 
-    def products(self, x: torch.Tensor, ws) -> list:
-        """``x @ w`` for each of ``ws`` (this rank's columns), ``x``
-        replicated: :meth:`copy` in front of them, the partial cotangents
-        summed in fp32 (:func:`~repro_torch.core.distributed.products_from_model`)."""
-        return products_from_model(x, ws, mesh=self.mesh)
+    def products(self, x: torch.Tensor, ws, product=torch.matmul) -> list:
+        """``product(x, w)`` (default ``x @ w``) for each of ``ws`` (this
+        rank's columns; 3-D: a batch of them), ``x`` replicated: :meth:`copy`
+        in front of them, the partial cotangents summed in fp32
+        (:func:`~repro_torch.core.distributed.products_from_model`)."""
+        return products_from_model(x, ws, mesh=self.mesh, product=product)
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum over ``model`` (no gradient)."""
@@ -630,13 +638,16 @@ class TPPlan:
 
     def keeps(self, name: str, spec) -> bool:
         """Whether the parameter at ``name`` stays this rank's ``model``
-        shard: its spec names ``model`` and its module splits."""
+        shard: its spec names ``model`` and its module splits (of a split
+        MoE layer, the expert stacks; its router is read whole)."""
         if "model" not in {a for e in spec for a in spec_axes(e)}:
             return False
         parts = name.split("/")
         if parts[0] in ("embed", "unembed"):
             return self.vocab
         if parts[0] == "layers" and len(parts) > 2:
+            if parts[2] == "mlp" and self.moe is not None:
+                return parts[3] in EXPERT_LEAVES
             return {"attn": self.attn, "mlp": self.mlp}.get(parts[2], False)
         return False
 
@@ -677,7 +688,13 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
       ``w_uv`` on ``model`` by heads, ``wkv_down`` / ``wk_rope`` / ``wo``
       by their output dim;
     * the MLP: dense, ``gate`` / ``up`` / ``down`` on ``model`` by their
-      output dim (a MoE layer's experts run whole);
+      output dim;
+    * the MoE experts, the same layout in every MoE layer: ``"ep"`` where
+      the ``(E, d, ff)`` / ``(E, ff, d)`` stacks are on ``model`` by
+      expert (dim 0), each rank multiplying its ``E / m`` experts' slots;
+      ``"ff"`` where ``gate`` / ``up`` are on ``model`` by their last dim
+      and ``down`` by its dim 1, each rank multiplying its d_ff columns of
+      every expert (the router is read whole either way);
     * the vocabulary: every embedding table on ``model`` by its rows.
 
     A module that fails its rule runs whole after the gather, counted as
@@ -719,11 +736,19 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
     mlp_layers = [l for l, k in enumerate(kinds) if f"layers/{l}/mlp/gate/w" in specs]
     mlp = (not cfg.n_experts and bool(mlp_layers) and all(
         on(f"layers/{l}/mlp/{n}/w", 1) for l in mlp_layers for n in ("gate", "up", "down")))
+    moe_layers = [l for l in range(len(kinds)) if f"layers/{l}/mlp/router" in specs]
+    moe = None
+    if moe_layers and all(on(f"layers/{l}/mlp/{n}", 0) for l in moe_layers
+                          for n in EXPERT_LEAVES):
+        moe = "ep"
+    elif moe_layers and all(on(f"layers/{l}/mlp/gate", 2) and on(f"layers/{l}/mlp/up", 2)
+                            and on(f"layers/{l}/mlp/down", 1) for l in moe_layers):
+        moe = "ff"
     tables = [n for n in ("embed/table", "unembed/table") if n in specs]
     kv_local = attn and not cfg.mla and on(f"layers/{attn_layers[0]}/attn/wk/w", 1)
     return TPPlan(mesh=mesh, m=m, idx=axis_index(("model",), mesh)[0], kinds=kinds,
                   n_heads=hq, n_kv_heads=hkv, mla=cfg.mla is not None, attn=attn, mlp=mlp,
-                  vocab=all(on(n, 0) for n in tables), kv_local=kv_local)
+                  vocab=all(on(n, 0) for n in tables), kv_local=kv_local, moe=moe)
 
 
 def from_local(local: torch.Tensor, sh: NamedSharding, shape):

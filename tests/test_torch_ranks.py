@@ -31,7 +31,15 @@ splits its compute (heads, d_ff and d_model columns, vocabulary): each
 case also checks that every leaf the split keeps local is ``1 / m`` of its
 whole in what the model computed on, and that every attention layer, MLP,
 lookup and logits ran split (``mesh_ctx.TP_COUNTS``); 6 heads over 4 ranks
-run whole, counted so.
+run whole, counted so, and so do Mamba-2 blocks (``ssm_whole``).  A MoE
+layer's experts split by ``model`` as the specs lay them out: by expert
+(``"ep"``, qwen3-moe's 8 over 2; under ``tp_fsdp`` each rank also takes
+its share of the capacity over ``data``) or within each expert by d_ff
+(``"ff"``, granite-moe with 6 experts over 4): every rank routes the
+gathered batch exactly as one process does, computes on ``1 / m`` of each
+expert stack, gathers none of them, and its layer output at fp32 is held
+against one process's on the same tokens by ``STEP_TOL``; the expert
+outputs' gather has an exact adjoint.
 
 Bounds: ``seqkv`` decode across ranks is bit-equal to the one-process run
 on the logical mesh over the same rows (the same K6 slices, the partials
@@ -84,12 +92,16 @@ def max_err(a, b) -> float:
     return float(np.max(np.abs(a - b)) / max(1.0, np.max(np.abs(b))))
 
 
-def ref_pair(arch):
-    """(reference model, its params, the port's converted params)."""
-    ref_model = ref_build_model(ref_get_config(arch, smoke=True))
+def ref_pair(arch, changes=None):
+    """(reference model, its params, the port's converted params) of the
+    smoke ``arch`` with the config ``changes``."""
+    import dataclasses
+
+    changes = changes or {}
+    ref_model = ref_build_model(dataclasses.replace(ref_get_config(arch, smoke=True), **changes))
     ref_params = ref_model.init(jax.random.PRNGKey(0))
-    return ref_model, ref_params, convert_params(ref_params, get_config(arch, smoke=True),
-                                                 device="cpu")
+    return ref_model, ref_params, convert_params(
+        ref_params, dataclasses.replace(get_config(arch, smoke=True), **changes), device="cpu")
 
 
 def tokens_for(arch, seed=3):
@@ -119,7 +131,23 @@ def train_batches(arch="qwen1.5-0.5b"):
     return [data.batch_at(0), data.batch_at(1)]
 
 
-SERVE = {  # name -> (arch, mesh, policy, world)
+# reference key -> (arch, config changes), for a serve case whose model is
+# the smoke config changed (the JAX reference is given the same change)
+VARIANTS = {
+    # capacity factor 0.6: the prefill's 48 routed choices take 4 slots an
+    # expert (half the mean: tokens dropped; 4 splits over data 2, where
+    # 0.5's 3 would not) and a decode step's 1
+    "qwen3-moe drops": ("qwen3-moe-30b-a3b", dict(capacity_factor=0.6)),
+    # 6 experts do not split over model 4; their d_ff of 32 does
+    "granite-moe 6 experts": ("granite-moe-3b-a800m", dict(n_experts=6)),
+}
+
+
+def arch_of(key):
+    return VARIANTS[key][0] if key in VARIANTS else key
+
+
+SERVE = {  # name -> (arch or VARIANTS key, mesh, policy, world)
     "seqkv 1x2": ("qwen2.5-3b", "1x2", "seqkv", 2),
     # FSDP: each layer's leaves gathered over data at their use
     "fsdp 2x1": ("qwen2.5-3b", "2x1", "fsdp", 2),
@@ -129,6 +157,10 @@ SERVE = {  # name -> (arch, mesh, policy, world)
     "mla tp_fsdp 2x1": ("deepseek-v2-mla", "2x1", "tp_fsdp", 2),
     "mla tp 1x2": ("deepseek-v2-mla", "1x2", "tp", 2),
     "gemma tp 1x2": ("gemma2-2b", "1x2", "tp", 2),
+    # MoE: each rank multiplies its experts (8 over model 2: "ep")
+    "moe tp 1x2": ("qwen3-moe-30b-a3b", "1x2", "tp", 2),
+    # Mamba-2 blocks do not split: run whole under the plan, counted so
+    "mamba2 tp 1x2": ("mamba2-370m", "1x2", "tp", 2),
     "seqkv 2x2": ("qwen2.5-3b", "2x2", "seqkv", 4),
     "tp_fsdp 2x2": ("qwen2.5-3b", "2x2", "tp_fsdp", 4),
     "tp 2x2": ("qwen2.5-3b", "2x2", "tp", 4),
@@ -136,7 +168,13 @@ SERVE = {  # name -> (arch, mesh, policy, world)
     # kv 2 over model 4: wk / wv stay whole (the Megatron rule), each rank
     # slices the kv head its query head reads
     "tp 1x4": ("qwen2.5-3b", "1x4", "tp", 4),
+    # "ep" with the capacity split over data too, and tokens dropped
+    "moe tp_fsdp 2x2 drops": ("qwen3-moe drops", "2x2", "tp_fsdp", 4),
+    # "ff": each rank multiplies its 8 of every expert's 32 d_ff columns
+    "granite ff tp 1x4": ("granite-moe 6 experts", "1x4", "tp", 4),
 }
+# the MoE serve cases: name -> the split of the experts
+MOE_SERVE = {"moe tp 1x2": "ep", "moe tp_fsdp 2x2 drops": "ep", "granite ff tp 1x4": "ff"}
 # the same cases with the parameters handed as whole tensors, which a serve
 # step uses as they are (nothing gathered): name -> the placed case
 SERVE_WHOLE = {"seqkv 1x2 whole": "seqkv 1x2", "fsdp 2x1 whole": "fsdp 2x1",
@@ -159,6 +197,12 @@ TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world[,
     # MoE: the routing sees the gathered batch; its gradient flows back
     # through the gather's adjoint (the cotangent summed over the ranks)
     "moe 2x1 tp_fsdp none": ("qwen3-moe-30b-a3b", "2x1", "tp_fsdp", "none", 1, 2),
+    # the experts split by model ("ep"): each rank's experts' gradients
+    # whole for its slots, summed over the rows' axes only; under tp_fsdp
+    # each rank multiplies its share of the capacity too
+    "moe tp 1x2 none": ("qwen3-moe-30b-a3b", "1x2", "tp", "none", 1, 2),
+    "moe tp_fsdp 2x2 none remat": ("qwen3-moe-30b-a3b", "2x2", "tp_fsdp", "none", 1, 4,
+                                   dict(remat=True)),
     # split by model: heads, d_ff columns, vocabulary rows (a
     # vocabulary-parallel loss); accum2 under remat (the collectives
     # called again in the recompute)
@@ -205,23 +249,27 @@ SPLIT_MU_TOL = 2.0**-8
 SPLIT_NORM_TOL = 1e-5
 # Adam's first step moves an element whose gradient is noise (<= 1e-7 of
 # its leaf's largest, e.g. layers/0/attn/w_uv of the mla case) by +-lr
-# either way: measured 0.81 (mla), 0.82 (whole heads) and 0.50 (int8) x
-# 2 lr, so these two trajectories' second steps part by up to 2.5e-5 and
-# are held by NORM_TOL; every case's second step from the rank's own
-# state is held too (held1).
-DIVERGE = {"mla tp 1x2 none", "whole heads tp 1x2 none", "tp_fsdp 1x2 int8"}
+# either way: measured 0.81 (mla), 0.82 (whole heads), 0.50 (int8) and
+# 0.92 / 0.91 (the moe splits) x 2 lr, so these trajectories' second steps
+# part by up to 2.5e-5 (the moe splits: 1.6e-5 / 1.5e-5 in the loss) and
+# are held by NORM_TOL; every case's second step from the rank's own state
+# is held too (held1).
+DIVERGE = {"mla tp 1x2 none", "whole heads tp 1x2 none", "tp_fsdp 1x2 int8", "moe tp 1x2 none",
+           "moe tp_fsdp 2x2 none remat"}
 
 
 @pytest.fixture(scope="module")
 def refs():
     """Weights and inputs of every case, and the JAX references."""
     out = {}
-    for arch in ("qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b", "gemma2-2b"):
-        ref_model, ref_params, params = ref_pair(arch)
+    for key in ("qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b", "gemma2-2b",
+                "mamba2-370m", *VARIANTS):
+        arch, changes = VARIANTS.get(key, (key, {}))
+        ref_model, ref_params, params = ref_pair(arch, changes)
         prompt, tokens = tokens_for(arch)
-        out[arch] = dict(params=params, prompt=prompt, tokens=tokens,
-                         want=ref_serve(ref_model, ref_params, prompt, tokens[:, :1]
-                                        if arch == "qwen3-moe-30b-a3b" else tokens))
+        out[key] = dict(params=params, prompt=prompt, tokens=tokens,
+                        want=ref_serve(ref_model, ref_params, prompt, tokens),
+                        changes=changes)
     ref_model, ref_params, params = ref_pair("qwen1.5-0.5b")
     batch = train_batches()[0]
     step = jax.jit(ref_train_loop.make_train_step(ref_model, ref_train_loop.TrainConfig(**TRAIN)))
@@ -245,22 +293,28 @@ def own_params(arch, cfg_changes):
 
 def split_counts(arch, calls=1 + DECODE):
     """The split counts a tensor-parallel serve run of ``calls`` calls
-    gives: every attention layer, every dense MLP, the embedding lookup
-    and the logits, once a call each."""
+    gives: every attention layer, every dense MLP or MoE layer's experts,
+    the embedding lookup and the logits, once a call each; a Mamba-2 or
+    RG-LRU block whole, once a call."""
     cfg = get_config(arch, smoke=True)
     kinds = cfg.layer_kinds()
-    return {"attn": calls * sum(k in ("global", "local") for k in kinds),
-            "mlp": calls * sum(k != "ssm" for k in kinds), "embed": calls, "logits": calls}
+    out = {"attn": calls * sum(k in ("global", "local") for k in kinds),
+           "moe" if cfg.n_experts else "mlp": calls * sum(k != "ssm" for k in kinds),
+           "ssm_whole": calls * sum(k == "ssm" for k in kinds),
+           "rec_whole": calls * sum(k == "recurrent" for k in kinds),
+           "embed": calls, "logits": calls}
+    return {k: v for k, v in out.items() if v}
 
 
 def cases_for(world, refs):
     cases = []
-    for name, (arch, spec, policy, w) in SERVE.items():
+    for name, (key, spec, policy, w) in SERVE.items():
         if w == world:
-            r = refs[arch]
-            cases.append((name, dict(case="serve", arch=arch, params=r["params"], spec=spec,
-                                     policy=policy, prompt=r["prompt"], tokens=r["tokens"],
-                                     max_len=MAX_LEN)))
+            r = refs[key]
+            cases.append((name, dict(case="serve", arch=arch_of(key), params=r["params"],
+                                     spec=spec, policy=policy, prompt=r["prompt"],
+                                     tokens=r["tokens"], max_len=MAX_LEN,
+                                     cfg_changes=r["changes"])))
     for name, placed in SERVE_WHOLE.items():
         if SERVE[placed][3] == world:
             cases.append((name, dict(cases[[n for n, _ in cases].index(placed)][1],
@@ -318,9 +372,10 @@ def test_serve_on_ranks(ranks, refs, name):
     returns the whole batch's logits, the same on every rank; held against
     the one-process run (seqkv: bit for bit, logits and each rank's cache
     shard) and the reference."""
-    arch, spec, policy, _ = SERVE[name]
+    key, spec, policy, _ = SERVE[name]
+    arch = arch_of(key)
     res = ranks[name]
-    want = refs[arch]["want"]
+    want = refs[key]["want"]
     split = policy in ("tp", "tp_fsdp") and spec.split("x")[1] != "1"
     for r in res:
         assert r["returned_cache"]
@@ -371,12 +426,13 @@ def test_dry_run_counts_a_split_decode_step(ranks):
         assert r["ranks"]["flops"] >= r["dry"]["flops"]
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-mla"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b"])
 def test_lm_init_keep_draws_the_same_weights(arch):
     """``lm_init(keep=...)`` (how one rank draws only its shards of a
     model it cannot hold whole) keeps what ``keep`` returns of the very
     tensors a plain ``lm_init`` from the same seed draws, the fp32
-    unembedding copy made from the kept table."""
+    unembedding copy made from the kept table (qwen3-moe: the ``(E, d,
+    ff)`` / ``(E, ff, d)`` expert stacks too)."""
     from repro_torch.core import tree
     from repro_torch.models import transformer
 
@@ -399,20 +455,23 @@ def test_moe_dispatch_on_ranks_equals_one_rank(ranks, refs):
     for r in ranks["moe 2x1"]:
         assert r["calls"] > 0 and r["same_capacity"] and r["same_slots"]
         assert r["dispatch_err"] <= 1e-5 and r["logits_err"] <= MODEL_TOL
-    for g, w in zip(ranks["moe 2x1"][0]["logits"], refs["qwen3-moe-30b-a3b"]["want"],
+    for g, w in zip(ranks["moe 2x1"][0]["logits"], refs["qwen3-moe-30b-a3b"]["want"][:2],
                     strict=True):
         assert max_err(g, w) <= MODEL_TOL
 
 
 def train_split_counts(arch, accum, remat=False, whole=(), steps=2):
     """The split counts of ``steps`` tensor-parallel train steps: every
-    attention layer and dense MLP once a microbatch (twice under remat:
-    the backward runs the layer again), the lookup and the loss once."""
-    kinds = get_config(arch, smoke=True).layer_kinds()
+    attention layer and dense MLP or MoE layer's experts once a
+    microbatch (twice under remat: the backward runs the layer again),
+    the lookup and the loss once."""
+    cfg = get_config(arch, smoke=True)
+    kinds = cfg.layer_kinds()
     calls = steps * accum
     layer = calls * (2 if remat else 1)
     out = {"attn": layer * sum(k in ("global", "local") for k in kinds),
-           "mlp": layer * sum(k != "ssm" for k in kinds), "embed": calls, "logits": calls}
+           "moe" if cfg.n_experts else "mlp": layer * sum(k != "ssm" for k in kinds),
+           "embed": calls, "logits": calls}
     for module in whole:
         out[module + "_whole"] = out.pop(module)
     return out
@@ -583,7 +642,7 @@ def test_layer_gathers_on_ranks(ranks, name):
     alive at once at most the largest layer's leaves plus the largest
     table where nothing keeps a layer for the backward (serving, remat),
     and none alive after the call."""
-    arch = SERVE[name][0] if name in SERVE else (
+    arch = arch_of(SERVE[name][0]) if name in SERVE else (
         WHOLE_HEADS["arch"] if name == "whole heads" else TRAIN_CASES[name][0])
     for r in ranks[name]:
         assert r["held_ok"]
@@ -603,7 +662,7 @@ def test_serve_uses_whole_tensors_as_they_are(ranks, name):
     shards, and the logits bit-equal to the placed run's (the gathered
     weights are the same bits)."""
     placed = ranks[SERVE_WHOLE[name]]
-    arch = SERVE[SERVE_WHOLE[name]][0]
+    arch = arch_of(SERVE[SERVE_WHOLE[name]][0])
     for r, p in zip(ranks[name], placed, strict=True):
         assert r["held_ok"]
         assert r["layer_gathers"] == layer_gathers(arch, name)
@@ -633,3 +692,63 @@ def test_gather_rows_adjoint_is_exact(ranks, spec):
     exactly."""
     for r in ranks[f"round_trip {spec}"]:
         assert r["adjoint"]
+
+
+def expert_shapes(arch, changes, mode, m):
+    """The shapes of the expert stacks one rank computes on under the
+    split ``mode``: ``E / m`` experts (``"ep"``) or ``d_ff / m`` columns of
+    each (``"ff"``)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **changes)
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    e, ff = (e // m, ff) if mode == "ep" else (e, ff // m)
+    return [(("down", (e, ff, d)), ("gate", (e, d, ff)), ("router", (d, cfg.n_experts)),
+             ("up", (e, d, ff)))]
+
+
+@pytest.mark.parametrize("name", list(MOE_SERVE))
+def test_moe_experts_split_on_ranks(ranks, refs, name):
+    """Smoke qwen3-moe on 1 x 2 (``tp``) and on 2 x 2 (``tp_fsdp``,
+    capacity factor 0.6: tokens dropped, the prefill's capacity split over
+    ``data``), granite-moe with 6 experts on 1 x 4 (``tp``, split
+    by d_ff): in every MoE call of prefill and decode on every rank, the
+    routing (probabilities, top-k weights and indices, capacity, sort,
+    drops, slot tables) equal to one process's on the same gathered
+    tokens; the expert stacks computed on ``1 / m`` of their whole (by E,
+    or by d_ff), the router whole; no expert stack gathered (nor over
+    ``model``); the layer output at fp32 within ``STEP_TOL`` of one
+    process's on the same tokens (measured 0: bit-equal).  The logits,
+    tokens and split counts (``moe`` split, no ``moe_whole``) are
+    :func:`test_serve_on_ranks`'."""
+    key, spec, _, _ = SERVE[name]
+    m = int(spec.split("x")[1])
+    n_layers = get_config(arch_of(key), smoke=True).n_layers
+    for r in ranks[name]:
+        assert r["moe_calls"] == n_layers * (1 + DECODE)
+        assert r["routing_equal"], name
+        assert r["moe_out_err"] <= STEP_TOL, r["moe_out_err"]
+        assert r["moe_modes"] == [MOE_SERVE[name]]
+        assert r["expert_shapes"] == expert_shapes(arch_of(key), refs[key]["changes"],
+                                                   MOE_SERVE[name], m)
+        assert r["expert_gathered"] == 0
+        assert r["counts"]["moe"] == n_layers * (1 + DECODE) and "moe_whole" not in r["counts"]
+    caps = ranks[name][0]["moe_cap_axes"]
+    if name == "moe tp_fsdp 2x2 drops":  # drops, and the prefill's capacity split over data
+        assert sum(ranks[name][0]["moe_drops"]) > 0
+        assert caps == [("data",)] * n_layers + [()] * n_layers * DECODE
+    else:
+        assert not any(caps)
+
+
+@pytest.mark.parametrize("spec", ["1x2", "2x1", "2x2"])
+def test_gather_slots_adjoint_is_exact(ranks, spec):
+    """``moe.gather_slots``, the gather of an ``"ep"`` rank's expert
+    outputs over ``model`` (and over ``data`` where the capacity is split
+    over it), on every rank: the value the whole outputs, the gradient of
+    the rank's piece the sum of the ``data`` ranks' integer weights on it
+    where the capacity is split (each rank's cotangent holds its own rows'
+    terms), the rank's own where it is not, with no sum over ``model``
+    (the ranks there hold the same rows), exactly."""
+    for r in ranks[f"round_trip {spec}"]:
+        assert r["slots_adjoint"] == {"cap": True, "whole": True}

@@ -128,9 +128,10 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
     Returns the gathered logits of each call (for the JAX reference),
     those comparisons, the split counts (``mesh_ctx.TP_COUNTS``), what
     the model was handed and what it computed on (:func:`_held_params`;
-    the modules in ``whole`` are expected whole) and its per-layer
-    gathers (:class:`_Gathers`).  ``cfg_changes`` replaces config fields
-    (the parameters must match)."""
+    the modules in ``whole`` are expected whole), its per-layer
+    gathers (:class:`_Gathers`) and, for a MoE model, each MoE call's
+    routing and output against one process's (:class:`_MoECalls`).
+    ``cfg_changes`` replaces config fields (the parameters must match)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -158,7 +159,7 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
     got = []
     ctx_mod.TP_COUNTS.clear()
     n_coll = sum(COLLECTIVES.values())
-    with mesh_ctx(mesh, policy), _Gathers() as gathers:
+    with mesh_ctx(mesh, policy), _Gathers() as gathers, _MoECalls() as moe_calls:
         logits, ret = compile_prefill(prompt)(placed_p, placed_c, prompt)
         got.append(logits)
         for i in range(tokens.shape[1]):
@@ -204,7 +205,76 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
         returned_cache=ret is placed_c, counts=counts,
         **_held_params(params, held, sh["params"], mesh, cfg, policy, whole, gathers,
                        handed_whole=not placed),
-        **gathers.summary(cfg))
+        **gathers.summary(cfg), **moe_calls.against_one_process(params, cfg))
+
+
+class _MoECalls:
+    """Inside the ``with``: every call of ``moe.moe_tokens`` (the MoE MLP
+    of a call's whole batch: this rank's working leaves, the gathered
+    tokens, the plan) and the routing it computed (``moe.route``), in
+    call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self.routes = [], []
+        self._orig = orig_tokens, orig_route = moe.moe_tokens, moe.route
+
+        def tokens(params, xf, **kw):
+            out = orig_tokens(params, xf, **kw)
+            tp = kw.get("tp")
+            ep = tp is not None and tp.moe == "ep"
+            self.calls.append(dict(shapes={n: tuple(params[n].shape) for n in params},
+                                   xf=xf.detach().clone(), out=out[0].detach().clone(),
+                                   dtype=kw["dtype"], mode=None if tp is None else tp.moe,
+                                   cap=moe.slot_axes(self.routes[-1].capacity, tp) if ep else ()))
+            return out
+
+        def route(*a, **kw):
+            r = orig_route(*a, **kw)
+            self.routes.append(r)
+            return r
+
+        moe.moe_tokens, moe.route = tokens, route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_tokens, moe.route = self._orig
+        return False
+
+    def against_one_process(self, params, cfg) -> dict:
+        """Each call's routing and output against ``moe_tokens`` of the
+        same tokens in one process (no mesh, no plan, the whole layer's
+        leaves; call ``i`` is MoE layer ``i mod`` their count): the
+        routing's every field equal (``routing_equal``), the tokens
+        dropped, the output's largest error over its largest
+        (``moe_out_err``), the plan's mode, the axes an ``"ep"`` rank split
+        the capacity over, and the expert stacks' shapes the rank computed
+        on.  Empty without MoE calls."""
+        from repro_torch.models import moe
+        from repro_torch.runtime.mesh_ctx import mesh_ctx
+
+        if not self.calls:
+            return {}
+        layers = [l for l, p in enumerate(params["layers"]) if "router" in p.get("mlp", {})]
+        equal, errs, drops = True, [], []
+        with mesh_ctx(None):
+            for i, (call, r) in enumerate(zip(self.calls, self.routes, strict=True)):
+                p = params["layers"][layers[i % len(layers)]]["mlp"]
+                one = moe.route(p["router"], call["xf"], cfg=cfg, dtype=call["dtype"])
+                equal = equal and r.capacity == one.capacity and all(
+                    torch.equal(a, b) for a, b in zip(r, one) if isinstance(a, torch.Tensor))
+                out = moe.moe_tokens(p, call["xf"], cfg=cfg, dtype=call["dtype"])[0]
+                errs.append(_leaf_rel(call["out"], out))
+                drops.append(int((~r.keep).sum()))
+        return dict(moe_calls=len(self.calls), routing_equal=equal, moe_out_err=max(errs),
+                    moe_drops=drops,
+                    moe_modes=sorted({c["mode"] for c in self.calls}, key=str),
+                    moe_cap_axes=[c["cap"] for c in self.calls],
+                    expert_shapes=sorted({tuple(sorted(c["shapes"].items()))
+                                          for c in self.calls}))
 
 
 def _recording(fn, held):
@@ -271,10 +341,19 @@ class _Gathers:
                 layer = max(layer, sum(gathered.values()))
             else:
                 table = max(table, *gathered.values(), 0)
+        experts = sum(b for _, _, gathered in self.calls for name, b in gathered.items()
+                      if _is_expert(name))
         return dict(layer_gathers=[int(k.split("/")[1]) for k, _, _ in self.calls
                                    if k.startswith("layers/")],
                     gathered_peak=self.peak, gather_bound=layer + table,
-                    gathered_live=self.live, n_layers=cfg.n_layers)
+                    gathered_live=self.live, n_layers=cfg.n_layers, expert_gathered=experts)
+
+
+def _is_expert(name) -> bool:
+    """A MoE layer's expert stack: ``layers/<l>/mlp/gate|up|down`` (a
+    dense MLP's leaves end in ``/w``)."""
+    parts = name.split("/")
+    return len(parts) == 4 and parts[2] == "mlp" and parts[3] in ("gate", "up", "down")
 
 
 def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
@@ -287,8 +366,9 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
     ``model`` slice.  Computed on (the
     leaves ``mesh_ctx.working`` returned, :class:`_Gathers`): every leaf
     of the model, the leaves a split keeps local (the spec names
-    ``model``; an attention layer, a dense MLP or an embedding table)
-    ``1 / m`` of their whole elements and every other leaf whole.  Returns
+    ``model``; an attention layer, a dense MLP, a MoE layer's expert
+    stacks or an embedding table) ``1 / m`` of their whole elements and
+    every other leaf whole.  Returns
     that check, the count of local leaves and the largest share of the
     whole model's bytes one call of ``working`` computed on."""
     from repro_torch.core import tree
@@ -302,8 +382,8 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
     def local(name):
         parts = name.split("/")
         split_module = parts[0] in ("embed", "unembed") or (
-            parts[0] == "layers" and parts[2] in ("attn", "mlp") and not cfg.n_experts
-            and parts[2] not in whole)
+            parts[0] == "layers" and parts[2] in ("attn", "mlp") and parts[2] not in whole
+            and (parts[2] == "attn" or not cfg.n_experts or _is_expert(name)))
         return (m > 1 and split_module
                 and "model" in {a for e in specs[name] for a in sharding.spec_axes(e)})
 
@@ -651,7 +731,46 @@ def round_trip_case(*, spec):
                 sharding.gather_one(local, sh, keep=("data",)), sh, keep=("data",)), local))
     return dict(round_trips=ok, adjoint=_gather_rows_adjoint(mesh),
                 model_adjoints=_model_adjoints(mesh), vocab_loss=_vocab_parallel_loss(mesh),
-                leaf_adjoints=_gather_leaf_adjoints(mesh))
+                leaf_adjoints=_gather_leaf_adjoints(mesh),
+                slots_adjoint=_gather_slots_adjoint(mesh))
+
+
+def _gather_slots_adjoint(mesh) -> dict:
+    """``moe.gather_slots`` (an ``"ep"`` rank's expert outputs gathered
+    back to ``(E, C, d)``) with the capacity split over ``data`` or not:
+    the gathered value is the whole, and, each rank's loss weighing it by
+    integer weights that depend on its ``data`` coordinate only (its
+    rows: the ranks along ``model`` hold the same rows and the same
+    cotangent), the gradient of this rank's piece is its slice of the sum
+    of the weights over the ``data`` ranks where the capacity is split
+    (each rank's cotangent its own rows' terms), of its own weights where
+    it is not (the data ranks hold the same piece; the sum over them comes
+    after, as for any replicated input), exactly.  Returns ``{"cap": bool,
+    "whole": bool}``."""
+    from repro_torch.core.distributed import axis_index
+    from repro_torch.models.moe import gather_slots
+    from repro_torch.runtime.sharding import TPPlan
+
+    idx, m = axis_index(("model",), mesh)
+    row, n = axis_index(("data",), mesh)
+    ints = lambda seed, shape: torch.randint(-4, 5, shape, generator=torch.Generator()
+                                             .manual_seed(seed)).float()
+    plan = TPPlan(mesh=mesh, m=m, idx=idx, kinds=(), n_heads=1, n_kv_heads=1, mla=False,
+                  attn=False, mlp=False, vocab=False, kv_local=False, moe="ep")
+    e, c, d = 4 * m, 3 * n, 5
+    whole = ints(1, (e, c, d))
+    experts = slice(idx * e // m, (idx + 1) * e // m)
+    out = {}
+    for name, cap in (("cap", ("data",)), ("whole", ())):
+        cols = slice(row * c // n, (row + 1) * c // n) if cap else slice(0, c)
+        x = whole[experts, cols].clone().requires_grad_()
+        y = gather_slots(x, cap, plan)
+        (y * ints(100 + row, (e, c, d))).sum().backward()
+        weights = sum(ints(100 + j, (e, c, d)) for j in range(n)) if cap else ints(100 + row,
+                                                                                   (e, c, d))
+        out[name] = torch.equal(y.detach(), whole) and torch.equal(x.grad,
+                                                                   weights[experts, cols])
+    return out
 
 
 def _gather_leaf_adjoints(mesh) -> dict:
