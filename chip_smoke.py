@@ -263,7 +263,9 @@ root) and exits nonzero on any failure:
 31. **Tensor-parallel kernel check** (with the other kernel phases): K4
     at G 64 (decode and the 64-token prompt over 64 of deepseek-v2-mla's
     128 heads), K6 at 8 query heads over 1 kv head (+ K3: 4 splits of the
-    2048-row cache) and K7 at 8 heads, one rank's shapes in phase 32,
+    2048-row cache) and K7 at 8 heads, and at 5 query heads over 1 kv head
+    at Dh 256 in a 2048-key window (recurrentgemma-2b's rank), one rank's
+    shapes in phase 32,
     against their plain versions (bf16 and fp32, amla and base), timed
     beside their bounds, the plain versions and SDPA.
 32. **Tensor-parallel phase** (after the ranks phase): ``jit_serve_fns``
@@ -276,7 +278,11 @@ root) and exits nonzero on any failure:
     qwen3-moe-30b-a3b at full width (48 layers) under ``tp``, its experts
     split by expert (each rank multiplies its 64 of 128), 8 decode steps,
     the same gates (at fp32 compute: tokens in proportion and rerouted
-    tokens first at near-ties) and no expert stack gathered; then
+    tokens first at near-ties) and no expert stack gathered; (j)
+    mamba2-370m (48 Mamba-2 layers) under ``tp_fsdp`` and (k)
+    recurrentgemma-2b (26 layers: RG-LRU and local attention) under
+    ``tp``, their blocks split by heads and channels, 4 decode steps, the
+    same gates and no block leaf gathered; then
     (g) qwen2.5-3b at full width under ``fsdp`` on 2 x 1 ranks, each rank
     its data shards of (d)'s weights and 2 of the 4 rows, every layer
     gathered at its use, 2 decode steps, held against the same steps of
@@ -5080,7 +5086,8 @@ class GatherSpy:
     what each call gathered (a leaf that came back as another tensor): the
     most for one layer and for one leaf outside the layers (a table), whose
     sum is the bound on the gathered bytes alive at once (:meth:`summary`),
-    and all the MoE expert stacks' (``layers/<l>/mlp/gate|up|down``);
+    all the MoE expert stacks' (``layers/<l>/mlp/gate|up|down``) and all the
+    Mamba-2 and RG-LRU blocks' leaves (``layers/<l>/ssm|rec/...``);
     ``core/distributed.GATHERED``'s peak from the start and the bytes
     still alive after."""
 
@@ -5090,6 +5097,7 @@ class GatherSpy:
         from repro_torch.runtime.sharding import EXPERT_LEAVES
 
         self.layers = self.layer_bytes = self.table_bytes = self.expert_bytes = 0
+        self.block_bytes = 0
         self._orig = orig = mesh_ctx.working
 
         def spy(sub, prefix):
@@ -5100,6 +5108,8 @@ class GatherSpy:
                 got = [t.nbytes for _, t in pairs]
                 self.expert_bytes += sum(t.nbytes for p, t in pairs if len(p) == 4
                                          and p[2] == "mlp" and p[3] in EXPERT_LEAVES)
+                self.block_bytes += sum(t.nbytes for p, t in pairs if len(p) > 2
+                                        and p[2] in ("ssm", "rec"))
                 if str(prefix[0]).endswith("layers"):
                     self.layers += 1
                     self.layer_bytes = max(self.layer_bytes, sum(got))
@@ -5124,7 +5134,7 @@ class GatherSpy:
     def summary(self) -> dict:
         return dict(gathered_peak=self.peak, gathered_live=self.live, layer_gathers=self.layers,
                     gather_bound=self.layer_bytes + self.table_bytes,
-                    expert_gathered=self.expert_bytes)
+                    expert_gathered=self.expert_bytes, block_gathered=self.block_bytes)
 
 
 def _rank_main(rank, world, store_path, seqkv, train, out):
@@ -5485,10 +5495,18 @@ TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
 # cache needs no more rows; qwen2.5-3b's and qwen3-moe-30b-a3b's 2048 give
 # K6 four 512-key splits, so K3 runs.  (h): qwen3-moe's 128 experts split
 # by expert over the 2 ranks ("ep"), 8 steps (its one-process references
-# take ~58 GiB of weights a run, and the script must stay inside 1200 s)
+# take ~58 GiB of weights a run, and the script must stay inside 1200 s).
+# (j): mamba2-370m's 32 SSM heads, 16 a rank, its state's ds over model
+# (one all-to-all each way a call); (k): recurrentgemma-2b's 2560 RG-LRU
+# channels, 1280 a rank, and its local attention's 5 of 10 query heads on
+# the one kv head, over the 2048-row window (K6 splits, K3 runs).  (j)
+# and (k) run 4 steps, their token gate TP_MIN_TOKENS in proportion: on a
+# slow host the whole script took 1115.8 s with them at 8 (PERF.md)
 TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128, TP_STEPS),
             "d": ("qwen2.5-3b", "tp_fsdp", 2048, TP_STEPS),
-            "h": ("qwen3-moe-30b-a3b", "tp", 2048, 8)}
+            "h": ("qwen3-moe-30b-a3b", "tp", 2048, 8),
+            "j": ("mamba2-370m", "tp_fsdp", 128, 4),
+            "k": ("recurrentgemma-2b", "tp", 2048, 4)}
 # label -> (the cell whose one-process references it reuses, mesh, policy,
 # decode steps): FSDP serving on 2 x 1 ranks, each rank its batch rows and
 # its data shards of the weights, every layer gathered at its use.  Its
@@ -5502,6 +5520,9 @@ FSDP_CELLS = {"g": ("d", "2x1", "fsdp", 2)}
 FSDP_PEAK_SHARE = 0.85
 TP_GEOM = ("qwen2.5-3b rank", 8, 1, 128, None, None)  # one rank of 1 x 2: 8 / 1 heads
 TP_MOE_GEOM = ("qwen3-moe-30b-a3b rank", 16, 2, 128, None, None)  # (h)'s rank: 16 / 2 heads
+# (k)'s rank: 5 of recurrentgemma-2b's 10 query heads on its one kv head,
+# Dh 256, the 2048-key window: 5 rows a kv head in K6, 5 heads in K7
+TP_REC_GEOM = ("recurrentgemma-2b rank", 5, 1, 256, 2048, None)
 # one rank of the split train step: 8 of qwen1.5-0.5b's 16 heads (MHA, Dh 64)
 TP_TRAIN_GEOM = ("qwen1.5-0.5b rank", 8, 8, 64, None, None)
 TP_TRAIN_B, TP_TRAIN_S = 8, 2048
@@ -5513,9 +5534,11 @@ def tp_kernel_cases(dtype):
     16 steps, and the 64-token prompt, G = 64 x 64), K6 at 8 query heads
     over 1 kv head (qwen2.5-3b on 1 x 2, the 2048-row cache: 4 splits +
     K3), K7 at 8 heads over the 64-token prompt; the same at (h)'s 16 query
-    heads over 2 kv heads (qwen3-moe-30b-a3b on 1 x 2); K7 at 8 of
-    qwen1.5-0.5b's 16 heads over the split train step's 8 x 2048 (causal,
-    Dh 64)."""
+    heads over 2 kv heads (qwen3-moe-30b-a3b on 1 x 2) and at (k)'s 5
+    query heads over 1 kv head, Dh 256, window 2048 (recurrentgemma-2b on
+    1 x 2: 5 rows a kv head, which no other phase gives the tensor-core
+    body); K7 at 8 of qwen1.5-0.5b's 16 heads over the split train step's
+    8 x 2048 (causal, Dh 64)."""
     kv = np.full(TP_BATCH, TP_PROMPT + TP_STEPS)
     prompt_pos = np.tile(np.repeat(np.arange(TP_PROMPT), 64), (TP_BATCH, 1))
     return [
@@ -5529,6 +5552,9 @@ def tp_kernel_cases(dtype):
         ("K6 rank 16/2 decode", gqa_case("K6", TP_MOE_GEOM, TP_BATCH, 1, 2048, kv, dtype, 75)),
         ("K7 rank 16 heads prefill 64", gqa_case("K7", TP_MOE_GEOM, TP_BATCH, TP_PROMPT, 2048,
                                                 np.full(TP_BATCH, TP_PROMPT), dtype, 76)),
+        ("K6 rank 5/1 decode", gqa_case("K6", TP_REC_GEOM, TP_BATCH, 1, 2048, kv, dtype, 77)),
+        ("K7 rank 5 heads prefill 64", gqa_case("K7", TP_REC_GEOM, TP_BATCH, TP_PROMPT, 2048,
+                                               np.full(TP_BATCH, TP_PROMPT), dtype, 78)),
         ("K7 rank 8 heads train 8 x 2048", gqa_case(
             "K7", TP_TRAIN_GEOM, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_S,
             np.full(TP_TRAIN_B, TP_TRAIN_S), dtype, 74)),
@@ -5539,8 +5565,8 @@ def tp_kernel_phase(flush):
     """Hold K4, K6 (+ K3) and K7 at one rank's shapes against their plain
     versions, then time them (bf16, amla) beside their bounds, the plain
     versions and SDPA."""
-    log("== kernel phase: K4 at G 64, K6 at 8 / 1 and 16 / 2 heads (+ K3), K7 at 8 and 16 "
-        "heads: one rank's shapes in the tensor-parallel serve and train phases ==")
+    log("== kernel phase: K4 at G 64, K6 at 8 / 1, 16 / 2 and 5 / 1 heads (+ K3), K7 at 8, 16 "
+        "and 5 heads: one rank's shapes in the tensor-parallel serve and train phases ==")
     worst = hold_dense_cases(tp_kernel_cases)
     bf = torch.bfloat16
     cases = dict(tp_kernel_cases(bf))
@@ -5548,9 +5574,34 @@ def tp_kernel_phase(flush):
              ("K4", "rank prefill 64 x 64", cases["K4 rank prefill 64 x 64"]),
              ("K6", "rank 8/1 decode", cases["K6 rank 8/1 decode"]),
              ("K7", "rank 8 heads prefill 64", cases["K7 rank 8 heads prefill 64"]),
+             ("K6", "rank 5/1 decode", cases["K6 rank 5/1 decode"]),
+             ("K7", "rank 5 heads prefill 64", cases["K7 rank 5 heads prefill 64"]),
              ("K7", "rank 8 heads train 8 x 2048", cases["K7 rank 8 heads train 8 x 2048"])]
     del cases
     return worst, time_dense_rows(timed, flush)
+
+
+def tp_split_counts(arch, calls, smoke=False, layer_calls=None):
+    """``mesh_ctx.TP_COUNTS`` of a tensor-parallel run of ``arch`` that
+    splits every module: each attention layer, dense MLP or MoE layer's
+    experts, Mamba-2 and RG-LRU block ``layer_calls`` times (default
+    ``calls``), the lookup and the logits (or loss) ``calls`` times."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=smoke)
+    kinds = cfg.layer_kinds()
+    per = calls if layer_calls is None else layer_calls
+    out = {"attn": per * sum(k in ("global", "local") for k in kinds),
+           "moe" if cfg.n_experts else "mlp": per * sum(k != "ssm" for k in kinds),
+           "ssm": per * kinds.count("ssm"), "rec": per * kinds.count("recurrent"),
+           "embed": calls, "logits": calls}
+    return {k: v for k, v in out.items() if v}
+
+
+def attention_layers(arch, smoke=False) -> int:
+    from repro_torch.configs import get_config
+
+    return sum(k in ("global", "local") for k in get_config(arch, smoke=smoke).layer_kinds())
 
 
 def tp_serve(prefill, decode, params, cache, prompts, forced=None, dev="cuda", steps=TP_STEPS):
@@ -5857,9 +5908,15 @@ def tp_phase(card, dev="cuda", smoke=False):
     (c) deepseek-v2-mla at full width (60 layers, bf16, amla) under
     ``tp``; (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``;
     (h) qwen3-moe-30b-a3b at full width (48 layers, 128 experts) under
-    ``tp``, each rank multiplying its 64 experts' slots (``"ep"``).
-    For each, first the one-process run in this process (4 prompts of 64
-    tokens, the cell's greedy decode steps: 16, (h) 8;
+    ``tp``, each rank multiplying its 64 experts' slots (``"ep"``); (j)
+    mamba2-370m at full width (48 layers, 32 heads x 64, state 128) under
+    ``tp_fsdp``, each rank its 16 heads (its state's ds over ``model``:
+    one all-to-all each way a call); (k) recurrentgemma-2b at full width
+    (26 layers, 2560 RG-LRU channels, local attention 10 / 1 heads x 256
+    over a 2048-key window) under ``tp``, each rank its 1280 channels and
+    5 query heads.  For each, first the one-process run in this process
+    (4 prompts of 64 tokens, the cell's greedy decode steps: 16, (h) 8,
+    (j) and (k) 4;
     :func:`tp_reference`), its weights freed; then each rank draws the
     same weights from seed 0 keeping only its shards, prefills the prompts
     and decodes the one-process run's tokens (:func:`_tp_rank_cell`), then
@@ -5877,10 +5934,12 @@ def tp_phase(card, dev="cuda", smoke=False):
     ``TP_F32_FACTOR`` times as far from it, the rank's parameter bytes at most
     ``TP_RESIDENT_SHARE`` of the whole model's, every attention layer,
     MLP (or MoE layer's experts), lookup and logits split
-    (``mesh_ctx.TP_COUNTS``), no expert stack gathered
-    (:class:`GatherSpy`), K4 at G 64 (c), K7 at 8 heads and K6 at 8 / 1
-    heads with K3 (d), K7 at 16 heads and K6 at 16 / 2 heads with K3 (h),
-    layers x calls launches; both ranks the same logits.  The step times are gloo on one
+    (``mesh_ctx.TP_COUNTS``: Mamba-2 and RG-LRU blocks too), no expert
+    stack and no Mamba-2 or RG-LRU leaf gathered (:class:`GatherSpy`), K4
+    at G 64 (c), K7 at 8 heads and K6 at 8 / 1 heads with K3 (d), K7 at 16
+    heads and K6 at 16 / 2 heads with K3 (h), none (j), K7 at 5 heads and
+    K6 at 5 / 1 heads with K3 (k), (attention) layers x calls launches;
+    both ranks the same logits.  The step times are gloo on one
     card: collectives through host memory, the two ranks sharing the
     card's SMs; not a multi-card number.
 
@@ -5898,8 +5957,8 @@ def tp_phase(card, dev="cuda", smoke=False):
     gathered at once could not meet it).  Returns the ranks' (K4, K6, K7,
     K3) launches."""
     held = f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB" if dev != "cpu" else "(CPU)"
-    log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks, and FSDP on "
-        f"2 x 1 ranks (2 ranks on {dev}, spawned, gloo; {held} allocated in this process), card "
+    log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks (attention, "
+        f"MLP, MoE experts, Mamba-2 and RG-LRU blocks, vocabulary), and FSDP on 2 x 1 ranks (2 ranks on {dev}, spawned, gloo; {held} allocated in this process), card "
         f"{card} ==")
     t0 = time.perf_counter()
     refs = {label: tp_reference(label, dev, smoke) for label in TP_CELLS}
@@ -5931,8 +5990,8 @@ def tp_phase(card, dev="cuda", smoke=False):
             agree = int((x["tokens"][:, 1:] == ref["tokens"][:, 1:]).sum())
             share = x["resident"] / ref["whole"]
             k4, k6, k7, k3 = x["launches"]
-            split = {"attn": n * calls, "moe" if ref["moe"] else "mlp": n * calls,
-                     "embed": calls, "logits": calls}
+            split = tp_split_counts(ref["arch"], calls, smoke)
+            na = attention_layers(ref["arch"], smoke)
             if label == "c":
                 kernels_ok = (k4, k6, k7, k3) == (n * calls, 0, 0, 0) and 64 in x["seen"]["K4"]
             elif label == "d":
@@ -5941,6 +6000,11 @@ def tp_phase(card, dev="cuda", smoke=False):
             elif label == "h":  # 16 of 32 heads, 2 of 4 kv heads a rank
                 kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
                               and x["seen"]["K6"] == [(2, 8)] and x["seen"]["K7"] == [16])
+            elif label == "j":  # no attention layer
+                kernels_ok = (k4, k6, k7, k3) == (0, 0, 0, 0)
+            elif label == "k":  # 5 of 10 query heads on the one kv head, in the local layers
+                kernels_ok = ((k4, k6, k7, k3) == (0, na * steps, na, na * steps)
+                              and x["seen"]["K6"] == [(1, 5)] and x["seen"]["K7"] == [5])
             else:  # all heads, each rank its rows
                 kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
                               and x["seen"]["K6"] == [(2, 8)] and x["seen"]["K7"] == [16])
@@ -5969,12 +6033,14 @@ def tp_phase(card, dev="cuda", smoke=False):
                 f"{x['launches32']}; card {card}")
             peak_share = x["peak"] / ref["whole"]
             gathers_ok = (x["gathered_peak"] <= x["gather_bound"] and not x["gathered_live"]
-                          and x["layer_gathers"] == n * calls and x["expert_gathered"] == 0)
+                          and x["layer_gathers"] == n * calls and x["expert_gathered"] == 0
+                          and x["block_gathered"] == 0)
             log(f"({label}) rank {r} ({ref['arch']}, {policy} {spec}): gathered parameter bytes "
                 f"alive at once at most {x['gathered_peak'] / 2**20:.1f} MiB (bound "
                 f"{x['gather_bound'] / 2**20:.1f} MiB: the largest gathered layer plus the "
-                f"largest gathered table), expert stacks gathered {x['expert_gathered']} B "
-                f"(must be 0), {x['gathered_live']} B alive after; layer gathers "
+                f"largest gathered table), expert stacks gathered {x['expert_gathered']} B, "
+                f"Mamba-2 / RG-LRU leaves gathered {x['block_gathered']} B (both must be 0), "
+                f"{x['gathered_live']} B alive after; layer gathers "
                 f"{x['layer_gathers']} (layers x calls {n * calls}); peak "
                 f"{peak_share:.4f} of the whole model's parameter bytes; gloo GiB per decode "
                 f"step {x['bytes_step'] / 2**30:.3f}, at the prefill "
@@ -6021,10 +6087,16 @@ TP_TRAIN_STEPS = 1
 # label -> (arch, smoke widths, policy, compute dtype): (e) at fp32
 # compute (the fp32 master state unchanged), (f) at the config's bf16;
 # (i) smoke qwen3-moe at bf16, its experts split by expert: the expert
-# products' fp32-output gradient (moe._WideProducts) on each rank's experts
+# products' fp32-output gradient (moe._WideProducts) on each rank's experts;
+# (l1) / (l2) smoke mamba2 (4 of 8 heads a rank) and smoke recurrentgemma
+# (64 of 128 RG-LRU channels, 2 of 4 query heads) at bf16: the split
+# blocks' gradients (their gathered projections' cotangents summed over
+# model, the partial leaves' gradients summed after)
 TP_TRAIN_CELLS = {"e": ("qwen1.5-0.5b", False, "tp", "float32"),
                   "f": ("qwen1.5-0.5b", False, "tp_fsdp", "bfloat16"),
-                  "i": ("qwen3-moe-30b-a3b", True, "tp", "bfloat16")}
+                  "i": ("qwen3-moe-30b-a3b", True, "tp", "bfloat16"),
+                  "l1": ("mamba2-370m", True, "tp", "bfloat16"),
+                  "l2": ("recurrentgemma-2b", True, "tp", "bfloat16")}
 
 
 def _tp_train_rank_main(rank, world, store_path, train, dev, smoke, out):
@@ -6176,8 +6248,11 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     tied), the global batch 8 x 2048 (seed 1), remat, ``TP_TRAIN_STEPS``
     steps of (e) ``tp`` at fp32 compute and (f) ``tp_fsdp`` at bf16, from
     the fp32 master state of seed 0, and of (i) smoke qwen3-moe-30b-a3b
-    (2 layers, 8 experts over the 2 ranks by expert, 8 x 32) under
-    ``tp`` at bf16 (:func:`_tp_train_rank`).  Rank 0
+    (2 layers, 8 experts over the 2 ranks by expert, 8 x 32), (l1) smoke
+    mamba2-370m (2 Mamba-2 blocks, 4 of 8 heads a rank) and (l2) smoke
+    recurrentgemma-2b (5 RG-LRU blocks, 64 of 128 channels a rank, and 2
+    local attention layers) under ``tp`` at bf16 (:func:`_tp_train_rank`).
+    Rank 0
     holds each step against ``make_train_step`` on one rank from the same
     gathered state and batch.  Gates: (e) loss and ``grad_norm`` within
     ``RANK_TRAIN_REL``, the parameters by ``RANK_PARAM_TOL`` where the
@@ -6185,15 +6260,17 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     zero-initialized biases and norm scales of this random model get
     gradients near 1e-4 of the model's largest, which the split's sums
     move by a fraction of the lr they step by) and within 2 lr
-    everywhere; (f) and (i) loss and
+    everywhere; (f), (i), (l1) and (l2) loss and
     ``grad_norm`` within ``RANK_TRAIN_REL`` or no farther from the
     one-rank fp32-compute step than ``TP_F32_FACTOR`` times the one-rank
     bf16 step is; both ranks the same metrics; each kept leaf half its
     whole in what the loss computed on, every other leaf whole; a rank's
     parameters + moments at most ``TP_RESIDENT_SHARE`` of the whole; every
-    attention layer, MLP (or MoE layer's experts), lookup and loss split
-    (``mesh_ctx.TP_COUNTS``, the layers twice a step: remat); K7 = layers
-    x 2 x steps a rank at half the heads (8; (i) 2), no K6 or K3.  The
+    attention layer, MLP (or MoE layer's experts), Mamba-2 and RG-LRU
+    block, lookup and loss split
+    (``mesh_ctx.TP_COUNTS``, the layers twice a step: remat); K7 =
+    attention layers x 2 x steps a rank at half the heads (8; (i), (l2) 2;
+    none in (l1)), no K6 or K3.  The
     step times are gloo through host memory on one card (the two ranks
     share its SMs), not a multi-card number.
     Returns the ranks' K7 launches.  ``tp_train_phase("x", dev="cpu",
@@ -6211,12 +6288,11 @@ def tp_train_phase(card, dev="cuda", smoke=False):
         f"phase {time.perf_counter() - t0:.1f} s")
     steps, k7, failed = TP_TRAIN_STEPS, 0, []
     rel = lambda a, b: abs(a - b) / abs(b)
-    for label, (arch, _, policy, dtype) in TP_TRAIN_CELLS.items():
+    for label, (arch, cell_smoke, policy, dtype) in TP_TRAIN_CELLS.items():
         for r, res in enumerate(ranks):
             x = res[label]
-            n = x["n_layers"]
-            split = {"attn": n * 2 * steps, "moe" if x["moe"] else "mlp": n * 2 * steps,
-                     "embed": steps, "logits": steps}
+            split = tp_split_counts(arch, steps, smoke or cell_smoke, layer_calls=2 * steps)
+            n = attention_layers(arch, smoke or cell_smoke)
             k6, k3, k7x = x["launches"]
             share = x["held_bytes"] / x["whole_bytes"]
             log(f"({label}) rank {r} {arch} {policy} at {dtype} compute: " + "; ".join(
@@ -6254,7 +6330,8 @@ def tp_train_phase(card, dev="cuda", smoke=False):
             if (x["metrics"] != ranks[0][label]["metrics"] or share > TP_RESIDENT_SHARE
                     or not (x["kept_halves"] and x["rest_whole"] and x["kept"] > 0)
                     or x["counts"] != split or (k6, k3, k7x) != (0, 0, n * 2 * steps)
-                    or x["heads"] != [x["rank_heads"]] or (r == 0) != (len(x["holds"]) == steps)):
+                    or x["heads"] != ([x["rank_heads"]] if n else [])
+                    or (r == 0) != (len(x["holds"]) == steps)):
                 failed.append(f"({label}) rank {r}: metrics differ from rank 0's, or the split's "
                               "leaves, counts, share or K7 launches are not as gated")
             k7 += k7x

@@ -26,16 +26,21 @@ where the specs split its sequence).  Under a policy with tensor
 parallelism (``tp_fsdp``, ``tp``, ``seqkv``) it is counted at the widths
 one card of ``m = mesh.shape["model"]`` runs, as Megatron-style tensor
 parallelism splits them (:func:`local_config`): query heads, the d_ff
-columns (an expert's too), the recurrent and SSM inner width (whole SSM
-heads) and the vocabulary (the embedding table, unembedding and loss)
-each become ``ceil(width / m)``, the busiest card's share; KV heads
-become ``ceil(n_kv / m)``, one replicated head where there are fewer
-than ``m``.  So every per-head op (projections, attention and its
-backward, the kernels' work) and every op over d_ff falls with ``m``,
-and the d_model-wide work (norms, residuals, the embedding lookup's
-output) is counted whole, as every card of the group runs it.  Griffin's
-RG-LRU gates are dense ``d_inner x d_inner`` products in this port and
-are counted at the local width like a block-diagonal gate.  A train
+columns (an expert's too) and the vocabulary (the embedding table,
+unembedding and loss) each become ``ceil(width / m)``, the busiest card's
+share; KV heads become ``ceil(n_kv / m)``, one replicated head where
+there are fewer than ``m``.  So every per-head op (projections, attention
+and its backward, the kernels' work) and every op over d_ff falls with
+``m``, and the d_model-wide work (norms, residuals, the embedding
+lookup's output) is counted whole, as every card of the group runs it.
+The Mamba-2 and RG-LRU blocks are counted as a card computes them under
+the split step's plan (:class:`CardShare`: the blocks' own split code on
+the card's shares of their leaves and state, the gathers free stand-ins,
+the blocks' collectives charged by the collective model like every
+other sublayer's): their products read whole widths (Mamba-2's
+in-projection row ``[z, x, B, C, dt]``, Griffin's ``d_inner x d_inner``
+gates) that no smaller config reproduces, so ``local_config`` keeps
+``d_inner`` whole.  A train
 step's microbatches dispatch the same ops, so one is counted and taken
 ``accum`` times (the accumulation's own sums, under 1 % of the bytes,
 are left out); the AdamW update is counted once, on each leaf's local
@@ -71,6 +76,7 @@ import math
 import os
 import time
 import traceback
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import torch
@@ -87,7 +93,7 @@ from repro_torch.optim.adamw import (
 )
 from repro_torch.roofline import analysis
 from repro_torch.roofline.op_cost import Cost, OpCounter
-from repro_torch.runtime import sharding
+from repro_torch.runtime import mesh_ctx, sharding
 from repro_torch.runtime.train_loop import TrainConfig, make_train_step
 
 F32 = torch.float32
@@ -241,20 +247,101 @@ def model_shards(mesh, policy) -> int:
 
 def local_config(cfg, m: int):
     """``cfg`` at the widths one of ``m`` tensor-parallel cards runs (the
-    module docstring's rule); ``cfg`` itself where ``m`` is 1."""
+    module docstring's rule: ``d_inner`` stays whole, the Mamba-2 and
+    RG-LRU blocks take their share through :func:`card_share`); ``cfg``
+    itself where ``m`` is 1."""
     if m == 1:
         return cfg
     per = lambda n: -(-n // m)
     kv = per(cfg.n_kv_heads)
     heads = (kv * (cfg.n_heads // cfg.n_kv_heads) if cfg.n_kv_heads >= m
              else per(cfg.n_heads))
-    if cfg.family == "ssm":  # whole SSM heads
-        d_inner = per(cfg.d_inner // cfg.ssm_head_dim) * cfg.ssm_head_dim
-    else:
-        d_inner = per(cfg.d_inner)
     return dataclasses.replace(
         cfg, n_heads=heads, n_kv_heads=kv, d_ff=per(cfg.d_ff),
-        d_ff_expert=per(cfg.d_ff_expert), d_inner=d_inner, vocab_size=per(cfg.vocab_size))
+        d_ff_expert=per(cfg.d_ff_expert), vocab_size=per(cfg.vocab_size))
+
+
+class _StandIn(torch.autograd.Function):
+    """A gather's stand-in: an uninitialized tensor of the gathered shape
+    (no bytes counted); its backward keeps the card's piece (a view)."""
+
+    @staticmethod
+    def forward(ctx, t, m, dim):
+        ctx.n, ctx.dim = t.shape[dim], dim
+        return t.new_empty(t.shape[:dim] + (m * t.shape[dim],) + t.shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.split(ctx.n, ctx.dim)[0], None, None
+
+
+class CardShare(sharding.TPPlan):
+    """The first of ``m`` cards computing its share of the Mamba-2 and
+    RG-LRU blocks on meta stand-ins: the blocks' split code
+    (:class:`~repro_torch.runtime.sharding.TPPlan` with ``ssm`` / ``rec``
+    set, every other module at :func:`local_config`'s widths).  Its
+    collectives cost the card nothing here, as no other layer's does: a
+    gather is a tensor of the gathered shape that nothing writes,
+    ``copy`` and the products' cotangent sum are nothing.  The collective
+    model charges each split block as it charges any tensor-parallel
+    sublayer (:func:`collective_cost`)."""
+
+    def gather(self, t, dim):
+        return _StandIn.apply(t, self.m, dim % t.ndim)
+
+    def copy(self, t):
+        return t
+
+    def products(self, x, ws, product=torch.matmul):
+        return [product(x, w) for w in ws]
+
+
+def card_share(cfg, params, mesh, policy, multi_pod=False) -> CardShare | None:
+    """The split of the Mamba-2 and RG-LRU blocks one card of ``mesh``
+    computes under ``policy``, by ``sharding.block_splits`` (the rule the
+    steps on ranks split by) from ``params``' specs; ``None`` where neither
+    splits (a block that does not runs whole on every card)."""
+    m = model_shards(mesh, policy)
+    if m == 1:
+        return None
+    pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=cfg)
+    specs = {sharding.path_str(p): pfn(p, t) for p, t in _tree.leaves_with_paths(params)}
+    ssm, rec = sharding.block_splits(cfg, m, specs)
+    if not (ssm or rec):
+        return None
+    return CardShare(mesh=None, m=m, idx=0, kinds=tuple(cfg.layer_kinds()), n_heads=cfg.n_heads,
+                     n_kv_heads=cfg.n_kv_heads, mla=False, attn=False, mlp=False, vocab=False,
+                     kv_local=False, ssm=ssm, rec=rec)
+
+
+def card_leaves(tree, plan: CardShare | None, state: bool = False):
+    """``tree`` (meta parameters, or with ``state`` a cache) with the
+    card's share of each split block's leaves: of a parameter its first
+    ``1 / m`` of a 2-D leaf's last dim (the rest whole); of a state leaf
+    the part the block computes (``TPPlan.state_dim``)."""
+    if plan is None:
+        return tree
+
+    def one(path, t):
+        if state:
+            if not plan.splits_state(path):
+                return t
+            dim = plan.state_dim(path, t.ndim)
+        else:
+            parts = sharding.path_str(path).split("/")
+            if not (parts[0] == "layers" and len(parts) > 3 and t.ndim == 2
+                    and parts[2] in sharding.BLOCK_KINDS and plan.splits(parts[2])):
+                return t
+            dim = 1
+        return t.narrow(dim, 0, t.shape[dim] // plan.m)
+
+    return _tree.map_with_paths(one, tree)
+
+
+def card_context(plan: CardShare | None):
+    """The context a card's count runs in: its :class:`CardShare` set as
+    the plan (``mesh_ctx.tp_local``), or nothing."""
+    return nullcontext() if plan is None else mesh_ctx.mesh_ctx(None, tp_local=plan)
 
 
 def _memory(args_local, out_local, alias, peak, args_full) -> dict:
@@ -284,7 +371,8 @@ def count_train(arch, shape_name, mesh, multi_pod, *, policy="tp_fsdp", accum=No
     params = build_model(cfg).init(None, "meta", dtype=F32)
     lcfg = local_config(cfg, model_shards(mesh, policy))
     model = build_model(lcfg)
-    lparams = model.init(None, "meta", dtype=F32)
+    plan = card_share(cfg, params, mesh, policy, multi_pod)
+    lparams = card_leaves(model.init(None, "meta", dtype=F32), plan)
     specs = input_specs(arch, shape_name, smoke=smoke)
     bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
     pfn = sharding.param_spec_fn(mesh, multi_pod=multi_pod, policy=policy, cfg=cfg)
@@ -296,7 +384,7 @@ def count_train(arch, shape_name, mesh, multi_pod, *, policy="tp_fsdp", accum=No
     accum = max(a for a in range(1, min(accum, b) + 1) if b % a == 0)
     tc = TrainConfig(grad_accum=1, remat=remat, n_loss_chunks=loss_chunks)
     micro = {k: v[: b // accum] for k, v in batch.items()}
-    with OpCounter() as counter:
+    with card_context(plan), OpCounter() as counter:
         make_train_step(model, tc)(lparams, adamw_init(lparams), None, micro, 0)
     cost = Cost()
     cost += counter.cost
@@ -331,15 +419,17 @@ def _adamw_cost(params, cfg, tc, like) -> Cost:
 
 def _serve_setup(arch, shape_name, mesh, multi_pod, policy, smoke):
     """The full-width config and weights (what the specs shard), the
-    model and weights at one card's widths (what it runs), the inputs'
-    stand-ins and the local batch."""
+    model and weights at one card's widths (what it runs), its
+    :class:`CardShare` (or ``None``), the inputs' stand-ins and the local
+    batch."""
     cfg = get_config(arch, smoke=smoke)
     params = build_model(cfg).init(None, "meta")  # weights at the config's dtype
     model = build_model(local_config(cfg, model_shards(mesh, policy)))
+    plan = card_share(cfg, params, mesh, policy, multi_pod)
     specs = input_specs(arch, shape_name, smoke=smoke)
     bfn = sharding.batch_spec_fn(mesh, multi_pod=multi_pod, policy=policy)
     b = _local_batch(specs, bfn, mesh)
-    return cfg, params, model, model.init(None, "meta"), specs, b
+    return cfg, params, model, card_leaves(model.init(None, "meta"), plan), plan, specs, b
 
 
 def _serve_count(counter, cfg, params, lparams, cache, logits, mesh, multi_pod, policy, kind,
@@ -364,16 +454,16 @@ def count_decode(arch, shape_name, mesh, multi_pod, *, policy="tp_fsdp", smoke=F
     """Count one card's decode step: ``decode_step`` of ``s_q`` tokens on a
     meta cache of the shape's length, at the last position (every key
     below the cache length live)."""
-    cfg, params, model, lparams, specs, b = _serve_setup(arch, shape_name, mesh, multi_pod,
-                                                         policy, smoke)
+    cfg, params, model, lparams, plan, specs, b = _serve_setup(arch, shape_name, mesh,
+                                                               multi_pod, policy, smoke)
     shape = LM_SHAPES[shape_name]
     s = shape.seq_len
     if cfg.family == "encdec":
         cache = model.init_cache(lparams, meta((b, 1024, cfg.d_model), BF16), s)
     else:
-        cache = model.init_cache(lparams, b, s)
+        cache = card_leaves(model.init_cache(lparams, b, s), plan, state=True)
     tokens = meta((b, shape.s_q), torch.int64)
-    with OpCounter() as counter:
+    with card_context(plan), OpCounter() as counter:
         logits, cache = model.decode_step(lparams, cache, tokens, s - shape.s_q)
     cost, memory = _serve_count(counter, cfg, params, lparams, cache, logits, mesh, multi_pod,
                                 policy, "decode", b * shape.s_q, [tokens])
@@ -387,8 +477,8 @@ def count_prefill(arch, shape_name, mesh, multi_pod, *, policy="tp_fsdp", smoke=
     from repro_torch.models import vlm
     from repro_torch.models.transformer import lm_apply, lm_logits
 
-    cfg, params, model, lparams, specs, b = _serve_setup(arch, shape_name, mesh, multi_pod,
-                                                         policy, smoke)
+    cfg, params, model, lparams, plan, specs, b = _serve_setup(arch, shape_name, mesh,
+                                                               multi_pod, policy, smoke)
     lcfg = model.cfg
     tokens = meta((b, specs["tokens"].shape[1]), torch.int64)
     s = tokens.shape[1]
@@ -400,8 +490,8 @@ def count_prefill(arch, shape_name, mesh, multi_pod, *, policy="tp_fsdp", smoke=
             cache = model.init_cache(lparams, src, s)
             logits, cache = model.decode_step(lparams, cache, tokens, 0)
     else:
-        cache = model.init_cache(lparams, b, s)
-        with OpCounter() as counter:
+        cache = card_leaves(model.init_cache(lparams, b, s), plan, state=True)
+        with card_context(plan), OpCounter() as counter:
             if cfg.family == "vlm":
                 vis = meta((b, *specs["vision_embeds"].shape[1:]), BF16)
                 inputs.append(vis)

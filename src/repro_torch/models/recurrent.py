@@ -20,6 +20,16 @@ step (S = 1) takes none.  The cache (``h`` and the conv's last
 ``conv_width - 1`` inputs, both fp32 as the reference keeps them) is
 updated in place with ``copy_``: a serving slot's batch-1 view and a
 captured decode graph both write through it.
+
+Under ``tp`` (a :class:`~repro_torch.runtime.sharding.TPPlan` splitting
+the block over the ``model`` ranks, as the reference's specs lay out its
+weights) a rank computes its ``d_inner / m`` channels: ``w_gate`` and
+``w_main`` give its columns, the depthwise conv, the gates, ``lam``, the
+scan and the state are per channel; ``w_r`` and ``w_i`` (d_inner x
+d_inner) give its columns of the gathered conv output; ``w_out``'s output
+``d`` is on ``model``, so ``h * gate`` is gathered, multiplied by the
+rank's columns and the outputs gathered (:func:`layers.dense_across`).
+Three gathers a block; its cache is the rank's channels.
 """
 
 from __future__ import annotations
@@ -91,26 +101,29 @@ def rglru_scan(a, b, h0):
     return a * h0[:, None] + b
 
 
-def rglru_block_apply(params, x, *, cfg, cache=None, dtype=torch.bfloat16):
-    """Returns (y, cache); the cache (when given) is updated in place."""
-    gate = layers.dense(params["w_gate"], x, dtype=dtype)
+def rglru_block_apply(params, x, *, cfg, cache=None, dtype=torch.bfloat16, tp=None):
+    """Returns (y, cache); the cache (when given) is updated in place.
+    ``tp``: this rank's channels only (the module docstring); ``cache``
+    then holds its channels."""
+    own = slice(None) if tp is None else slice(*tp.part(cfg.d_inner))
+    gate, main = layers.dense_many([params["w_gate"], params["w_main"]], x, dtype=dtype, tp=tp)
     gate = F.gelu(gate.float(), approximate="tanh").to(dtype)
 
-    main = layers.dense(params["w_main"], x, dtype=dtype)
     conv_state = cache["conv"] if cache is not None else None
-    main, new_conv = causal_conv(main, params["conv_w"], params["conv_b"], conv_state)
+    main, new_conv = causal_conv(main, params["conv_w"], params["conv_b"][own], conv_state)
 
     # RG-LRU gates (fp32 for the recurrence)
     mf = main.float()
-    r = torch.sigmoid(layers.dense(params["w_r"], main, dtype=dtype).float())
-    i = torch.sigmoid(layers.dense(params["w_i"], main, dtype=dtype).float())
-    a = torch.exp(-_C * F.softplus(params["lam"]) * r)  # (B, S, dl)
+    r, i = layers.dense_many([params["w_r"], params["w_i"]],
+                             main if tp is None else tp.gather(main, -1), dtype=dtype, tp=tp)
+    r, i = torch.sigmoid(r.float()), torch.sigmoid(i.float())
+    a = torch.exp(-_C * F.softplus(params["lam"][own]) * r)  # (B, S, dl)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * mf)
 
     h0 = cache["h"] if cache is not None else torch.zeros_like(a[:, 0])
     h = rglru_scan(a, b, h0)  # (B, S, dl)
 
-    y = layers.dense(params["w_out"], h.to(dtype) * gate, dtype=dtype)
+    y = layers.dense_across(params["w_out"], h.to(dtype) * gate, dtype=dtype, tp=tp)
     if cache is not None:
         cache["h"].copy_(h[:, -1])
         cache["conv"].copy_(new_conv)

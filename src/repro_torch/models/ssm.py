@@ -15,6 +15,23 @@ state; the conv state is taken before the padding.  Decode (S = 1 with a
 cache) is the exact single-step recurrence.  The cache (``h`` and the
 conv's last ``conv_width - 1`` inputs, fp32 as the reference keeps them)
 is updated in place with ``copy_``.
+
+Under ``tp`` (a :class:`~repro_torch.runtime.sharding.TPPlan` splitting
+the block over the ``model`` ranks, as the reference's specs lay out its
+weights) a rank computes its ``nh / m`` whole heads.  ``in_proj``'s and
+``conv_w``'s columns are on ``model`` by their last dim, whose halves or
+quarters do not fall on the ``[z, x, B, C, dt]`` boundaries: the rank
+multiplies its columns and the projection is gathered, the depthwise conv
+runs on the rank's conv channels (its cache's ``conv`` holds those) and
+its output is gathered.  The SSD and the decode recurrence run on the
+rank's heads with ``B`` and ``C`` whole (its cache's ``h`` holds its
+heads), ``d_skip`` and the gate at its heads; the gated output is gathered
+and normalized over the whole ``d_inner`` on every rank, and
+``out_proj``'s output ``d`` is on ``model``: the rank multiplies its
+columns and those are gathered.  Four gathers a block.  Under autograd
+each gathered tensor whose uses are the rank's own passes ``tp.copy`` (the
+ranks' cotangents summed over ``model``), so the gather's adjoint keeps
+this rank's slice of the whole cotangent.
 """
 
 from __future__ import annotations
@@ -116,35 +133,46 @@ def ssd_chunked(x, dt, a, b, c, h0):
     return (y_intra + y_inter).reshape(bs, s, nh, hd), h
 
 
-def mamba2_block_apply(params, x, *, cfg, cache=None, dtype=torch.bfloat16):
-    """Returns (y, cache); the cache (when given) is updated in place."""
+def mamba2_block_apply(params, x, *, cfg, cache=None, dtype=torch.bfloat16, tp=None):
+    """Returns (y, cache); the cache (when given) is updated in place.
+    ``tp``: this rank's heads only (the module docstring); ``cache`` then
+    holds its heads' ``h`` and its conv channels' ``conv``."""
     bsz, s, _ = x.shape
     dl, ds = cfg.d_inner, cfg.ssm_state
     nh, hd = dl // cfg.ssm_head_dim, cfg.ssm_head_dim
+    heads = slice(0, nh) if tp is None else slice(*tp.part(nh))
+    cols = slice(heads.start * hd, heads.stop * hd)
 
-    proj = layers.dense(params["in_proj"], x, dtype=dtype)
+    proj = layers.dense_many([params["in_proj"]], x, dtype=dtype, tp=tp)[0]
+    if tp is not None:
+        proj = tp.copy(tp.gather(proj, -1))
     z, xin, b, c, dt = split_proj(cfg, proj)
 
     conv_in = torch.cat([xin, b, c], dim=-1)
+    channels = slice(None) if tp is None else slice(*tp.part(conv_in.shape[-1]))
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = causal_conv(conv_in, params["conv_w"], params["conv_b"], conv_state)
+    conv_out, new_conv = causal_conv(conv_in[..., channels], params["conv_w"],
+                                     params["conv_b"][channels], conv_state)
     conv_out = F.silu(conv_out.float())
+    if tp is not None:
+        conv_out = tp.copy(tp.gather(conv_out, -1))
     xin, b, c = torch.split(conv_out, [dl, ds, ds], dim=-1)
 
-    dt = F.softplus(dt.float() + params["dt_bias"])  # (B, S, nh)
-    a = torch.exp(params["a_log"])  # (nh,) positive
-    xh = xin.reshape(bsz, s, nh, hd)
+    dt = F.softplus(dt[..., heads].float() + params["dt_bias"][heads])  # (B, S, heads)
+    a = torch.exp(params["a_log"][heads])  # (heads,) positive
+    xh = xin[..., cols].reshape(bsz, s, -1, hd)
+    nl = xh.shape[2]
 
     h0 = cache["h"] if cache is not None else torch.zeros(
-        (bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
+        (bsz, nl, hd, ds), dtype=torch.float32, device=x.device)
 
     if s == 1 and cache is not None:
         # exact single-step recurrence (decode)
-        la = -(a[None, :] * dt[:, 0])  # (B, nh)
-        xdt = xh[:, 0] * dt[:, 0, :, None]  # (B, nh, hd)
+        la = -(a[None, :] * dt[:, 0])  # (B, heads)
+        xdt = xh[:, 0] * dt[:, 0, :, None]  # (B, heads, hd)
         h_final = h0 * torch.exp(la)[:, :, None, None] + torch.einsum(
             "bhd,bs->bhds", xdt, b[:, 0])
-        y = torch.einsum("bs,bhds->bhd", c[:, 0], h_final)[:, None]  # (B, 1, nh, hd)
+        y = torch.einsum("bs,bhds->bhd", c[:, 0], h_final)[:, None]  # (B, 1, heads, hd)
     else:
         pad = (-s) % CHUNK if s > CHUNK else 0
         xp, dtp, bp, cp = xh, dt, b, c
@@ -156,11 +184,15 @@ def mamba2_block_apply(params, x, *, cfg, cache=None, dtype=torch.bfloat16):
         y, h_final = ssd_chunked(xp, dtp, a, bp, cp, h0)
         y = y[:, :s]
 
-    y = y + xh * params["d_skip"][None, None, :, None]  # skip path
-    y = y.reshape(bsz, s, dl).to(dtype)
-    y = y * F.silu(z.float()).to(dtype)  # gated
-    y = layers.rmsnorm(params["norm"], y, eps=cfg.norm_eps)
-    y = layers.dense(params["out_proj"], y, dtype=dtype)
+    y = y + xh * params["d_skip"][heads][None, None, :, None]  # skip path
+    y = y.reshape(bsz, s, nl * hd).to(dtype)
+    y = y * F.silu(z[..., cols].float()).to(dtype)  # gated
+    if tp is None:
+        y = layers.rmsnorm(params["norm"], y, eps=cfg.norm_eps)
+        y = layers.dense(params["out_proj"], y, dtype=dtype)
+    else:  # normalized over the whole d_inner: gathered first
+        y = layers.rmsnorm(params["norm"], tp.gather(y, -1), eps=cfg.norm_eps)
+        y = tp.gather(layers.dense_many([params["out_proj"]], y, dtype=dtype, tp=tp)[0], -1)
     if cache is not None:
         cache["h"].copy_(h_final)
         cache["conv"].copy_(new_conv)

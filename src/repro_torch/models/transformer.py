@@ -206,12 +206,12 @@ def layer_apply(params, x, *, cfg, kind, positions, cache=None, cache_len=None,
     any other layer: no tensor, so a serving step launches nothing for
     it)."""
     h = layers.rmsnorm(params["ln1"], x, eps=cfg.norm_eps)
-    if kind == "recurrent":  # no split yet: run whole under a plan, counted so
-        mesh_ctx.tp_split("rec")
-        y, cache = rglru_block_apply(params["rec"], h, cfg=cfg, cache=cache, dtype=dtype)
+    if kind == "recurrent":
+        y, cache = rglru_block_apply(params["rec"], h, cfg=cfg, cache=cache, dtype=dtype,
+                                     tp=mesh_ctx.tp_split("rec"))
     elif kind == "ssm":
-        mesh_ctx.tp_split("ssm")
-        y, cache = mamba2_block_apply(params["ssm"], h, cfg=cfg, cache=cache, dtype=dtype)
+        y, cache = mamba2_block_apply(params["ssm"], h, cfg=cfg, cache=cache, dtype=dtype,
+                                      tp=mesh_ctx.tp_split("ssm"))
     elif kind not in ("global", "local"):
         raise ValueError(kind)
     elif cfg.mla:

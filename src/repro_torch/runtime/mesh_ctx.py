@@ -17,13 +17,14 @@ through :func:`on_ranks` and :func:`rank_rows`.
 ``tp_local`` is set only by the rank-local serve and train steps under
 ``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks: a
 :class:`~repro_torch.runtime.sharding.TPPlan` saying which modules this
-rank computes split (its heads, d_ff columns and vocabulary rows) and how.
-Everywhere else it is ``None`` and every layer computes whole.  The
-layers count what they did under a plan in :data:`TP_COUNTS` (``attn``,
-``mlp``, ``moe``, ``embed``, ``logits`` (the serve step's logits or the
-train step's loss), each split or ``*_whole``; ``ssm_whole`` and
-``rec_whole``: those blocks do not split), once per call: a layer that
-remat runs again in the backward is counted again there.
+rank computes split (its heads, d_ff columns, Mamba-2 heads, RG-LRU
+channels and vocabulary rows) and how.  Everywhere else it is ``None``
+and every layer computes whole.  The layers count what they did under a
+plan in :data:`TP_COUNTS` (``attn``, ``mlp``, ``moe``, ``ssm``, ``rec``,
+``embed``, ``logits`` (the serve step's logits or the train step's loss),
+each split or ``*_whole``: ``ssm_whole`` where the heads do not divide
+over ``model``), once per call: a layer that remat runs again in the
+backward is counted again there.
 
 ``gather`` is set by the rank-local serve and train steps, whose model
 receives this rank's shards of the parameters: a

@@ -143,7 +143,8 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
       ``tp`` / ``tp_fsdp`` with several ``model`` ranks) the attention
       layers, dense MLPs and embedding tables keep this rank's ``model``
       shard (gathered over the data axes only) and compute only its
-      heads, columns and vocabulary; any other leaf is gathered whole.
+      heads, columns and vocabulary (so do the Mamba-2 and RG-LRU
+      blocks and MoE experts); any other leaf is gathered whole.
     * Tokens, and a per-row ``cache_len``, are this rank's batch rows, by
       the tokens' batch spec (its axes ``rows``).
     * Cache leaves are this rank's rows; their other sharded dims are
@@ -155,7 +156,10 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
       rows the call writes go back into this rank's shard in place; a split GQA layer's new rows of
       every kv head are all-gathered over ``model`` (one call for all
       layers) and written into it, so that a replica or a width slice of
-      the cache is what the one-process call leaves there.
+      the cache is what the one-process call leaves there.  A split
+      Mamba-2 or RG-LRU block's state is the rank's heads or channels
+      (:class:`~repro_torch.runtime.sharding.BlockStates`), put back
+      after the call.
     * The logits are all-gathered over ``rows``: every rank returns the
       whole batch's, as the reference returns its global array.
     """
@@ -181,6 +185,10 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
     kv = [p for p in flat_local if plan is not None and plan.splits_cache(p)]
     kv_work = dict(zip(kv, plan.kv_head_caches([(flat_local[p], flat_sh[p]) for p in kv])
                        if kv else []))
+    states = [p for p in flat_local if plan is not None and plan.splits_state(p)]
+    block_states = (plan.state_caches([(p, flat_local[p], flat_sh[p]) for p in states])
+                    if states else None)
+    kv_work.update(zip(states, block_states.work if states else []))
 
     def to_work(path, local):
         if path in kv_work:
@@ -211,6 +219,8 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
         cache_len = kw.get("cache_len", args[0] if args else None)
         _write_kv_heads(plan, [(flat_local[p], kv_work[p], flat_sh[p]) for p in kv],
                         0 if cache_len is None else cache_len, tok.shape[1])
+    if states:
+        block_states.write_back()
     return all_gather_dim(logits, 0, rows, mesh=mesh), cache
 
 

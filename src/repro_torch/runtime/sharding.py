@@ -537,6 +537,11 @@ def param_gather(shardings, plan=None, rows=(), whole=()) -> ParamGather:
 
 # a MoE layer's expert stacks: (E, d, ff), (E, d, ff), (E, ff, d)
 EXPERT_LEAVES = ("gate", "up", "down")
+# a Mamba-2 / RG-LRU block's subtree name -> its layer kind
+BLOCK_KINDS = {"ssm": "ssm", "rec": "recurrent"}
+# the whole 1-D leaves of a split block that a rank reads only at its heads
+# or channels (their gradients are partial over ``model``)
+BLOCK_PARTIAL = {"ssm": ("conv_b", "a_log", "dt_bias", "d_skip"), "rec": ("conv_b", "lam")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -549,8 +554,10 @@ class TPPlan:
     within each expert by d_ff, else ``None``);
     ``kv_local``: the GQA ``wk`` / ``wv`` hold this rank's kv heads (else
     they are whole, the Megatron rule, and the rank slices the kv heads
-    its query heads read).  Set into ``mesh_ctx`` (``tp_local``) for the
-    call.
+    its query heads read); ``ssm`` / ``rec``: every Mamba-2 block computes
+    its ``nh / m`` heads, every RG-LRU block its ``d_inner / m`` channels
+    (their state too: :meth:`state_caches`).  Set into ``mesh_ctx``
+    (``tp_local``) for the call.
 
     Its collectives are differentiable (Megatron's operators,
     :mod:`repro_torch.core.distributed`): :meth:`copy` (or
@@ -571,10 +578,12 @@ class TPPlan:
     vocab: bool
     kv_local: bool
     moe: str | None = None
+    ssm: bool = False
+    rec: bool = False
 
     def splits(self, module: str) -> bool:
         return {"attn": self.attn, "mlp": self.mlp, "embed": self.vocab, "logits": self.vocab,
-                "moe": self.moe is not None, "ssm": False, "rec": False}[module]
+                "moe": self.moe is not None, "ssm": self.ssm, "rec": self.rec}[module]
 
     def part(self, n: int, idx: int | None = None) -> tuple[int, int]:
         """Rank ``idx``'s (default this rank's) ``[lo, hi)`` of ``n`` split
@@ -648,7 +657,8 @@ class TPPlan:
         if parts[0] == "layers" and len(parts) > 2:
             if parts[2] == "mlp" and self.moe is not None:
                 return parts[3] in EXPERT_LEAVES
-            return {"attn": self.attn, "mlp": self.mlp}.get(parts[2], False)
+            return {"attn": self.attn, "mlp": self.mlp, "ssm": self.ssm,
+                    "rec": self.rec}.get(parts[2], False)
         return False
 
     def partial(self, name: str, spec) -> bool:
@@ -657,16 +667,159 @@ class TPPlan:
         this rank's term of a sum over ``model``: a split attention
         layer's every other leaf (the q / k / v biases and a whole ``wk`` /
         ``wv`` sliced to the rank's heads, the QK-norm scales applied to
-        them)."""
+        them); a split Mamba-2 block's ``conv_b`` (at its conv channels),
+        ``a_log``, ``dt_bias`` and ``d_skip`` (at its heads), a split
+        RG-LRU block's ``conv_b`` and ``lam`` (at its channels).  A
+        Mamba-2 block's norm scale is applied to the gathered output on
+        every rank alike, so its gradient is whole."""
         parts = name.split("/")
-        return (self.attn and parts[0] == "layers" and len(parts) > 2 and parts[2] == "attn"
-                and not self.keeps(name, spec))
+        if parts[0] != "layers" or len(parts) < 4:
+            return False
+        if parts[2] in BLOCK_PARTIAL:
+            return self.splits(parts[2]) and parts[3] in BLOCK_PARTIAL[parts[2]]
+        return self.attn and parts[2] == "attn" and not self.keeps(name, spec)
 
     def splits_cache(self, path) -> bool:
         """Whether the cache leaf at ``path`` is a split GQA layer's ``k``
         or ``v``: its working cache holds this rank's kv heads only."""
         return (self.attn and not self.mla and self.kinds[path[0]] in ("global", "local")
                 and path[-1] in ("k", "v"))
+
+    def splits_state(self, path) -> bool:
+        """Whether the cache leaf at ``path`` is a split Mamba-2 or RG-LRU
+        block's ``h`` or ``conv``: its working state holds this rank's
+        heads or channels only (:meth:`state_caches`)."""
+        kind = self.kinds[path[0]]
+        return (((self.ssm and kind == "ssm") or (self.rec and kind == "recurrent"))
+                and path[-1] in ("h", "conv"))
+
+    def state_dim(self, path, ndim: int) -> int:
+        """The dim of the state leaf at ``path`` that the split divides: a
+        Mamba-2 ``h`` ``(B, nh, hd, ds)`` by heads, every other leaf by
+        its last (channels)."""
+        return 1 if self.kinds[path[0]] == "ssm" and path[-1] == "h" else ndim - 1
+
+    def state_caches(self, leaves) -> "BlockStates":
+        """The working states of split Mamba-2 / RG-LRU blocks, for each
+        ``(path, local shard, sharding)`` of an ``h`` / ``conv`` leaf
+        (:class:`BlockStates`)."""
+        return BlockStates(self, leaves)
+
+    def trade(self, ts, split: int, cat: int, out=None) -> list:
+        """One all-to-all over ``model`` for all of ``ts`` (one shape):
+        each cut in ``m`` parts along ``split``, part ``r`` sent to rank
+        ``r``; what each rank sent back concatenated along ``cat`` in
+        coordinate order, into new tensors or, given ``out`` (one a
+        leaf), written into those in place."""
+        n = ts[0].shape[split]
+        send = torch.stack([torch.stack([t.narrow(split, *self._span(n, r)) for t in ts])
+                            for r in range(self.m)])  # (m, leaves, ...)
+        got = all_to_all(send, "model", mesh=self.mesh)
+        if out is None:
+            return list(torch.cat(list(got), dim=cat + 1).unbind(0))
+        for r, pieces in enumerate(got):
+            for t, x in zip(out, pieces):
+                t.narrow(cat, *self._span(t.shape[cat], r)).copy_(x)
+        return out
+
+    def _span(self, n: int, idx: int | None = None) -> tuple[int, int]:
+        lo, hi = self.part(n, idx)
+        return lo, hi - lo
+
+
+class BlockStates:
+    """The working states of split Mamba-2 / RG-LRU blocks, and their way
+    back after the call.  ``work`` holds, for each ``(path, local shard,
+    sharding)`` of ``leaves``, this rank's heads or channels
+    (:meth:`TPPlan.state_dim`) with their whole other dims; the block
+    writes its new state into them in place.  Each leaf is one of:
+
+    * ``"shard"``: the split dim is on ``model`` (``tp_fsdp``): the shard
+      is the rank's part, worked on and written in place;
+    * ``"replica"`` (``tp``): a view of the rank's part; :meth:`write_back`
+      all-gathers every rank's part over ``model`` (one call for every
+      such leaf) and writes the others', so that each replica is what the
+      one-process call leaves;
+    * ``"swap"``: a Mamba-2 ``h`` whose state dim ``ds`` is on ``model``
+      (``tp_fsdp``): one all-to-all for every such leaf each way
+      (:meth:`TPPlan.trade`), heads to ``ds`` slices and back."""
+
+    def __init__(self, plan: TPPlan, leaves):
+        self.plan, self.leaves, self.work, swap = plan, [], [], []
+        for path, t, sh in leaves:
+            dim = plan.state_dim(path, t.ndim)
+            kind = ("shard" if sh.spec[dim] == "model" else "swap" if "model" in sh.spec
+                    else "replica")
+            self.leaves.append((kind, dim, t))
+            self.work.append(t.narrow(dim, *plan._span(t.shape[dim])) if kind == "replica"
+                             else t)
+            if kind == "swap":
+                swap.append(len(self.work) - 1)
+        if swap:
+            for i, x in zip(swap, plan.trade([self.work[i] for i in swap], 1, 3)):
+                self.work[i] = x
+
+    def write_back(self) -> None:
+        """Put the new states where the shards keep them (the class
+        docstring)."""
+        plan = self.plan
+        rep = [(dim, t, w) for (kind, dim, t), w in zip(self.leaves, self.work)
+               if kind == "replica"]
+        swap = [(t, w) for (kind, _, t), w in zip(self.leaves, self.work) if kind == "swap"]
+        if rep:
+            parts = plan.gather(torch.cat([w.reshape(-1) for _, _, w in rep])[None], 0)
+            for r, part in enumerate(parts):
+                if r == plan.idx:
+                    continue
+                for (dim, t, w), flat in zip(rep, torch.split(part, [w.numel() for *_, w
+                                                                     in rep])):
+                    t.narrow(dim, *plan._span(t.shape[dim], r)).copy_(flat.view(w.shape))
+        if swap:
+            plan.trade([w for _, w in swap], 3, 1, out=[t for t, _ in swap])
+
+
+def _on_model(specs, name: str, dim: int) -> bool:
+    """Whether the parameter leaf ``name``'s spec puts ``dim`` on ``model``."""
+    spec = specs.get(name)
+    return spec is not None and len(spec) > dim and spec[dim] == "model"
+
+
+def block_splits(cfg, m: int, specs, cspecs=None, rows=()) -> tuple[bool, bool]:
+    """Whether the Mamba-2 and the RG-LRU blocks split over ``m``
+    ``model`` ranks (:func:`tp_plan`'s rule for them), from ``specs`` (the
+    parameter leaves' specs by name) and ``cspecs`` (the cache's by
+    ``(layer, leaf)``; ``None``: no cache, as in a train step): a Mamba-2
+    block with ``nh % m == 0`` and ``in_proj``, ``conv_w`` and ``out_proj``
+    on ``model`` by their last dim; an RG-LRU block with ``d_inner % m ==
+    0`` and ``w_gate``, ``w_main``, ``w_r``, ``w_i``, ``w_out`` and
+    ``conv_w`` so; for both, the ``h`` / ``conv`` state's batch over
+    ``rows`` and its other dims whole or over ``model`` (a Mamba-2 ``h`` by
+    its heads or its state dim, not both).  The launch's dry run reads the
+    same rule (``launch/dryrun.card_share``)."""
+    kinds = tuple(cfg.layer_kinds())
+
+    def state_ok(l, kind):
+        if cspecs is None:
+            return True
+        for leaf in ("h", "conv"):
+            c = cspecs[(l, leaf)]
+            split = {i for i, e in enumerate(c) if i and e is not None}
+            where = {1, 3} if (kind, leaf) == ("ssm", "h") else {len(c) - 1}
+            if (spec_axes(c[0]) != tuple(rows) or len(split) > 1 or not split <= where
+                    or any(c[i] != "model" for i in split)):
+                return False
+        return True
+
+    def block(kind, leaves, divides):
+        ls = [l for l, k in enumerate(kinds) if k == BLOCK_KINDS[kind]]
+        return bool(ls) and divides and all(
+            _on_model(specs, f"layers/{l}/{kind}/{n}", 1) and state_ok(l, kind)
+            for l in ls for n in leaves)
+
+    nh = cfg.d_inner // cfg.ssm_head_dim if cfg.ssm_head_dim else 0
+    return (block("ssm", ("in_proj/w", "conv_w", "out_proj/w"), nh > 0 and nh % m == 0),
+            block("rec", ("w_gate/w", "w_main/w", "w_r/w", "w_i/w", "w_out/w", "conv_w"),
+                  cfg.d_inner > 0 and cfg.d_inner % m == 0))
 
 
 def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | None:
@@ -695,7 +848,9 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
       ``"ff"`` where ``gate`` / ``up`` are on ``model`` by their last dim
       and ``down`` by its dim 1, each rank multiplying its d_ff columns of
       every expert (the router is read whole either way);
-    * the vocabulary: every embedding table on ``model`` by its rows.
+    * the vocabulary: every embedding table on ``model`` by its rows;
+    * Mamba-2 and RG-LRU blocks: whole heads or channels a rank, their
+      leaves and state laid out as :func:`block_splits` checks.
 
     A module that fails its rule runs whole after the gather, counted as
     such (``mesh_ctx.TP_COUNTS``)."""
@@ -707,8 +862,7 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
         (p, sh.spec) for p, sh in _tree.leaves_with_paths(cache_sh))
 
     def on(name, dim):
-        spec = specs.get(name)
-        return spec is not None and len(spec) > dim and spec[dim] == "model"
+        return _on_model(specs, name, dim)
 
     kinds = tuple(cfg.layer_kinds())
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
@@ -746,9 +900,12 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
         moe = "ff"
     tables = [n for n in ("embed/table", "unembed/table") if n in specs]
     kv_local = attn and not cfg.mla and on(f"layers/{attn_layers[0]}/attn/wk/w", 1)
+
+    ssm, rec = block_splits(cfg, m, specs, None if cache_sh is None else cspecs, rows)
     return TPPlan(mesh=mesh, m=m, idx=axis_index(("model",), mesh)[0], kinds=kinds,
                   n_heads=hq, n_kv_heads=hkv, mla=cfg.mla is not None, attn=attn, mlp=mlp,
-                  vocab=all(on(n, 0) for n in tables), kv_local=kv_local, moe=moe)
+                  vocab=all(on(n, 0) for n in tables), kv_local=kv_local, moe=moe, ssm=ssm,
+                  rec=rec)
 
 
 def from_local(local: torch.Tensor, sh: NamedSharding, shape):

@@ -102,8 +102,10 @@ def test_collectives_serving_gathers_once():
     ("internlm2-20b", (3, 1, 1024, 0, 0, 5784)),  # 8 KV heads < 16: one replicated
     ("qwen3-moe-30b-a3b", (2, 1, 0, 48, 0, 9496)),
     ("deepseek-v2-mla", (8, 1, 768, 0, 0, 6400)),
-    ("mamba2-370m", (1, 1, 0, 0, 128, 3143)),  # 32 SSM heads of 64: 2; vocab rounded up
-    ("recurrentgemma-2b", (1, 1, 480, 0, 160, 16000)),
+    # d_inner whole: the blocks take their share through card_share (2 of
+    # 32 SSM heads of 64; 160 RG-LRU channels); vocab rounded up
+    ("mamba2-370m", (1, 1, 0, 0, 2048, 3143)),
+    ("recurrentgemma-2b", (1, 1, 480, 0, 2560, 16000)),
 ])
 def test_local_config_is_one_tensor_parallel_cards_widths(arch, widths):
     cfg = get_config(arch)
@@ -112,6 +114,14 @@ def test_local_config_is_one_tensor_parallel_cards_widths(arch, widths):
             local.vocab_size) == widths
     assert local.d_model == cfg.d_model and local.head_dim == cfg.head_dim
     assert dryrun.local_config(cfg, 1) is cfg
+    plan = dryrun.card_share(cfg, build_model(cfg).init(None, "meta"),
+                             dryrun.make_production_mesh(multi_pod=False, device="cpu"), "tp_fsdp")
+    kinds = set(cfg.layer_kinds())
+    assert (plan is not None) == bool(kinds & {"ssm", "recurrent"})
+    if plan is not None:  # a card's heads / channels of the split blocks
+        assert (plan.ssm, plan.rec) == ("ssm" in kinds, "recurrent" in kinds)
+        nh = cfg.d_inner // cfg.ssm_head_dim
+        assert plan.part(nh if plan.ssm else cfg.d_inner) == (0, 2 if plan.ssm else 160)
 
 
 def _step_bytes(cfg, m):

@@ -27,11 +27,16 @@ exact over ``SPECS``.  A serve step handed the parameters as whole tensors
 uses them as they are and gathers nothing.
 
 Under ``tp`` and ``tp_fsdp`` with several ``model`` ranks the serve step
-splits its compute (heads, d_ff and d_model columns, vocabulary): each
-case also checks that every leaf the split keeps local is ``1 / m`` of its
-whole in what the model computed on, and that every attention layer, MLP,
-lookup and logits ran split (``mesh_ctx.TP_COUNTS``); 6 heads over 4 ranks
-run whole, counted so, and so do Mamba-2 blocks (``ssm_whole``).  A MoE
+splits its compute (heads, d_ff and d_model columns, vocabulary, Mamba-2
+heads, RG-LRU channels): each case also checks that every leaf the split
+keeps local is ``1 / m`` of its whole in what the model computed on, and
+that every attention layer, MLP, Mamba-2 or RG-LRU block, lookup and
+logits ran split (``mesh_ctx.TP_COUNTS``); 6 query heads over 4 ranks run
+whole, counted so, and so do 6 Mamba-2 heads over 4 (``ssm_whole``).  A
+split Mamba-2 or RG-LRU block computes its heads or channels and keeps
+its state there (``TPPlan.state_caches``); one block on 2 ranks is held
+against one process's and the reference's at a prefill of SSD chunks
+and at one decode row.  A MoE
 layer's experts split by ``model`` as the specs lay them out: by expert
 (``"ep"``, qwen3-moe's 8 over 2; under ``tp_fsdp`` each rank also takes
 its share of the capacity over ``data``) or within each expert by d_ff
@@ -74,7 +79,9 @@ from repro.optim import adamw as ref_adamw
 from repro.runtime import train_loop as ref_train_loop
 from repro_torch.configs import get_config
 from repro_torch.convert import convert_params
+from repro_torch.core.tree import leaves_with_paths
 from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.runtime.sharding import path_str
 from torch_ranks_worker import SPECS, run_ranks
 
 MODEL_TOL = 2e-3  # tests/test_torch_model.py
@@ -159,8 +166,14 @@ SERVE = {  # name -> (arch or VARIANTS key, mesh, policy, world)
     "gemma tp 1x2": ("gemma2-2b", "1x2", "tp", 2),
     # MoE: each rank multiplies its experts (8 over model 2: "ep")
     "moe tp 1x2": ("qwen3-moe-30b-a3b", "1x2", "tp", 2),
-    # Mamba-2 blocks do not split: run whole under the plan, counted so
+    # Mamba-2: each rank its 4 of 8 heads (the state a replica: each rank
+    # writes its heads', the others' gathered after the call)
     "mamba2 tp 1x2": ("mamba2-370m", "1x2", "tp", 2),
+    # the state's ds over model: one all-to-all to the rank's heads and back
+    "mamba2 tp_fsdp 1x2": ("mamba2-370m", "1x2", "tp_fsdp", 2),
+    # RG-LRU: each rank its 64 of 128 channels; the local attention's 2 of 4
+    # query heads on the whole kv head
+    "recurrentgemma tp 1x2": ("recurrentgemma-2b", "1x2", "tp", 2),
     "seqkv 2x2": ("qwen2.5-3b", "2x2", "seqkv", 4),
     "tp_fsdp 2x2": ("qwen2.5-3b", "2x2", "tp_fsdp", 4),
     "tp 2x2": ("qwen2.5-3b", "2x2", "tp", 4),
@@ -172,6 +185,8 @@ SERVE = {  # name -> (arch or VARIANTS key, mesh, policy, world)
     "moe tp_fsdp 2x2 drops": ("qwen3-moe drops", "2x2", "tp_fsdp", 4),
     # "ff": each rank multiplies its 8 of every expert's 32 d_ff columns
     "granite ff tp 1x4": ("granite-moe 6 experts", "1x4", "tp", 4),
+    # the state's channels over model (the rank's part in place), rows over data
+    "recurrentgemma tp_fsdp 2x2": ("recurrentgemma-2b", "2x2", "tp_fsdp", 4),
 }
 # the MoE serve cases: name -> the split of the experts
 MOE_SERVE = {"moe tp 1x2": "ep", "moe tp_fsdp 2x2 drops": "ep", "granite ff tp 1x4": "ff"}
@@ -183,6 +198,16 @@ SERVE_WHOLE = {"seqkv 1x2 whole": "seqkv 1x2", "fsdp 2x1 whole": "fsdp 2x1",
 # boundaries): the attention runs whole after the gather, counted as such
 WHOLE_HEADS = dict(arch="qwen2.5-3b", spec="1x4", policy="tp", cfg_changes=dict(n_heads=6),
                    whole=("attn",))
+# 6 Mamba-2 heads (d_inner 96) do not split over model 4: every block runs
+# whole after the gather, counted ssm_whole; the vocabulary splits
+WHOLE_SSM = dict(arch="mamba2-370m", spec="1x4", policy="tp", cfg_changes=dict(d_inner=96),
+                 whole=("ssm",))
+# the block-level cases: name -> (arch, block, sequence length): a prefill
+# past the SSD chunk (300: padded to 512) and one decode row, from a
+# nonzero state
+BLOCKS = {f"block {kind} {s}": (arch, kind, s) for arch, kind in (("mamba2-370m", "ssm"),
+                                                                 ("recurrentgemma-2b", "rec"))
+          for s in (300, 1)}
 TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world[, options])
     "2x1 tp_fsdp none": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "none", 1, 2),
     "2x1 tp_fsdp int8": ("qwen1.5-0.5b", "2x1", "tp_fsdp", "int8", 1, 2),
@@ -221,6 +246,12 @@ TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world[,
         f32_products=True)),
     "mla tp 1x2 none, fp32 products": ("deepseek-v2-mla", "1x2", "tp", "none", 1, 2, dict(
         f32_products=True)),
+    # the Mamba-2 blocks split by heads, the RG-LRU blocks by channels (the
+    # gathered projections' uses are the rank's own: tp.copy sums their
+    # cotangents); conv_b, a_log, dt_bias, d_skip, lam partial
+    "mamba2 1x2 tp none": ("mamba2-370m", "1x2", "tp", "none", 1, 2),
+    "recurrentgemma 1x2 tp_fsdp none remat": ("recurrentgemma-2b", "1x2", "tp_fsdp", "none", 1,
+                                              2, dict(remat=True)),
 }
 # The MoE layer's input cotangent is a sum over the ranks, added in another
 # order than one rank's backward adds it; upstream, attention rounds its
@@ -263,7 +294,7 @@ def refs():
     """Weights and inputs of every case, and the JAX references."""
     out = {}
     for key in ("qwen2.5-3b", "deepseek-v2-mla", "qwen3-moe-30b-a3b", "gemma2-2b",
-                "mamba2-370m", *VARIANTS):
+                "mamba2-370m", "recurrentgemma-2b", *VARIANTS):
         arch, changes = VARIANTS.get(key, (key, {}))
         ref_model, ref_params, params = ref_pair(arch, changes)
         prompt, tokens = tokens_for(arch)
@@ -276,7 +307,35 @@ def refs():
     *_, m = step(ref_params, ref_adamw.adamw_init(ref_params), None,
                  {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(3))
     out["train"] = dict(params=params, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    out["blocks"] = {name: ref_block(*case) for name, case in BLOCKS.items()}
     return out
+
+
+def ref_block(arch, kind, s):
+    """One smoke block's weights (the reference's init, converted), its
+    input and nonzero state (numpy, seed 7), and the reference block's
+    output and new state at fp32."""
+    from repro.models import recurrent as ref_recurrent
+    from repro.models import ssm as ref_ssm
+    from repro_torch.convert import _tree_map
+
+    ref_cfg, cfg = ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
+    mod = ref_ssm if kind == "ssm" else ref_recurrent
+    init, apply = ((mod.mamba2_block_init, mod.mamba2_block_apply) if kind == "ssm"
+                   else (mod.rglru_block_init, mod.rglru_block_apply))
+    ref_params = init(jax.random.PRNGKey(6), ref_cfg)
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 1, (B, s, cfg.d_model)).astype(np.float32)
+    nh = cfg.d_inner // cfg.ssm_head_dim
+    h_shape = (B, nh, cfg.ssm_head_dim, cfg.ssm_state) if kind == "ssm" else (B, cfg.d_inner)
+    width = cfg.d_inner + (2 * cfg.ssm_state if kind == "ssm" else 0)
+    h0 = rng.normal(0, 1, h_shape).astype(np.float32)
+    conv = rng.normal(0, 1, (B, cfg.conv_width - 1, width)).astype(np.float32)
+    y, new = apply(ref_params, jnp.asarray(x), cfg=ref_cfg,
+                   cache={"h": jnp.asarray(h0), "conv": jnp.asarray(conv)}, dtype=jnp.float32)
+    params = _tree_map(lambda a: torch.from_numpy(np.array(np.asarray(a))), ref_params)
+    return dict(params=params, x=x, h0=h0, conv=conv, want_y=np.asarray(y),
+                want={k: np.asarray(v) for k, v in new.items()})
 
 
 def own_params(arch, cfg_changes):
@@ -294,14 +353,14 @@ def own_params(arch, cfg_changes):
 def split_counts(arch, calls=1 + DECODE):
     """The split counts a tensor-parallel serve run of ``calls`` calls
     gives: every attention layer, every dense MLP or MoE layer's experts,
-    the embedding lookup and the logits, once a call each; a Mamba-2 or
-    RG-LRU block whole, once a call."""
+    every Mamba-2 and RG-LRU block, the embedding lookup and the logits,
+    once a call each."""
     cfg = get_config(arch, smoke=True)
     kinds = cfg.layer_kinds()
     out = {"attn": calls * sum(k in ("global", "local") for k in kinds),
            "moe" if cfg.n_experts else "mlp": calls * sum(k != "ssm" for k in kinds),
-           "ssm_whole": calls * sum(k == "ssm" for k in kinds),
-           "rec_whole": calls * sum(k == "recurrent" for k in kinds),
+           "ssm": calls * sum(k == "ssm" for k in kinds),
+           "rec": calls * sum(k == "recurrent" for k in kinds),
            "embed": calls, "logits": calls}
     return {k: v for k, v in out.items() if v}
 
@@ -337,10 +396,19 @@ def cases_for(world, refs):
             WHOLE_HEADS, case="serve", params=own_params("qwen2.5-3b", WHOLE_HEADS["cfg_changes"]),
             prompt=r["prompt"],
             tokens=r["tokens"], max_len=MAX_LEN)))
+        r = refs["mamba2-370m"]
+        cases.append(("whole ssm", dict(
+            WHOLE_SSM, case="serve", params=own_params("mamba2-370m", WHOLE_SSM["cfg_changes"]),
+            prompt=r["prompt"], tokens=r["tokens"], max_len=MAX_LEN)))
     if world == 2:
-        cases.append(("count", dict(case="count", arch="qwen2.5-3b",
-                                    params=refs["qwen2.5-3b"]["params"], spec="1x2", policy="tp",
-                                    max_len=MAX_LEN)))
+        for name, (arch, kind, _) in BLOCKS.items():
+            blk = refs["blocks"][name]
+            cases.append((name, dict(case="block", arch=arch, kind=kind, params=blk["params"],
+                                     x=blk["x"], h0=blk["h0"], conv=blk["conv"])))
+        for arch in COUNT_ARCHS:
+            cases.append((f"count {arch}", dict(case="count", arch=arch,
+                                                params=refs[arch]["params"], spec="1x2",
+                                                policy="tp", max_len=MAX_LEN)))
         cases.append(("train count", dict(case="train_count", arch="qwen1.5-0.5b",
                                           params=refs["train"]["params"],
                                           batch=train_batches()[0], spec="1x2", policy="tp")))
@@ -398,6 +466,46 @@ def test_serve_on_ranks(ranks, refs, name):
             assert max_err(g, w) <= MODEL_TOL
 
 
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_split_blocks_on_ranks(ranks, refs, name):
+    """One smoke Mamba-2 (4 of 8 heads a rank) or RG-LRU block (64 of 128
+    channels) split over ``model`` on 1 x 2 ranks at fp32, at a prefill of
+    300 (two SSD chunks, padded) and at one decode row from a nonzero
+    state: every 2-D leaf at ``1 / m`` of its last dim, the output (whole on
+    every rank) and the rank's part of the new state within ``STEP_TOL``
+    of one process's (measured 0), the output and the ranks' parts put
+    together within ``MODEL_TOL`` of the reference's block."""
+    arch, kind, s = BLOCKS[name]
+    blk = refs["blocks"][name]
+    res = ranks[name]
+    whole = {path_str(p): tuple(t.shape) for p, t in leaves_with_paths(blk["params"])}
+    for r in res:
+        assert r["y_err"] <= STEP_TOL and r["state_err"] <= STEP_TOL, (r["y_err"], r["state_err"])
+        assert np.array_equal(r["y"], res[0]["y"])
+        for path, shape in r["own_shapes"]:
+            want = whole[path]
+            assert shape == (want[:-1] + (want[-1] // 2,) if len(want) == 2 else want), path
+        assert r["y"].shape == (B, s, get_config(arch, smoke=True).d_model)
+    assert max_err(res[0]["y"], blk["want_y"]) <= MODEL_TOL
+    for k, want in blk["want"].items():
+        dim = 1 if (kind, k) == ("ssm", "h") else want.ndim - 1
+        got = np.concatenate([r["state"][k] for r in res], axis=dim)
+        assert max_err(got, want) <= MODEL_TOL, k
+
+
+def test_ssm_heads_that_do_not_divide_run_whole(ranks):
+    """6 Mamba-2 heads (d_inner 96) over ``model`` 4: every block runs
+    whole after the gather (its leaves whole, counted ``ssm_whole``), the
+    vocabulary splits; logits and cache within the model bound of the
+    one-process run, greedy tokens equal."""
+    want = split_counts("mamba2-370m")
+    want["ssm_whole"] = want.pop("ssm")
+    for r in ranks["whole ssm"]:
+        assert r["logits_err"] <= MODEL_TOL and r["cache_err"] <= MODEL_TOL and r["tokens_equal"]
+        assert r["held_ok"] and r["local_leaves"] > 0
+        assert {k: v for k, v in r["counts"].items() if k != "collectives"} == want
+
+
 def test_heads_that_do_not_divide_run_whole(ranks):
     """6 query heads over ``model`` 4: every attention layer runs whole
     after the gather (its leaves whole, counted ``attn_whole``), the MLPs
@@ -411,17 +519,35 @@ def test_heads_that_do_not_divide_run_whole(ranks):
         assert {k: v for k, v in r["counts"].items() if k != "collectives"} == want
 
 
-def test_dry_run_counts_a_split_decode_step(ranks):
+# the dry-run check's models: arch -> the split decode step's all-gathers
+COUNT_ARCHS = {
+    # o, wo, the MLP's h and down in each of 2 layers, the logits, the new K/V rows
+    "qwen2.5-3b": 10,
+    # the projection, the conv output, the gated output and out_proj's in each
+    # of 2 blocks, the logits, the state's heads and channels (a replica)
+    "mamba2-370m": 10,
+    # conv output, h * gate and w_out's in each of 5 RG-LRU blocks, o and wo in
+    # each of 2 attention layers, the MLP's 2 in each of 7, the logits, the
+    # new K/V rows, the states
+    "recurrentgemma-2b": 36,
+}
+
+
+@pytest.mark.parametrize("arch", list(COUNT_ARCHS))
+def test_dry_run_counts_a_split_decode_step(ranks, arch):
     """One rank's ``OpCounter`` count of the ``tp`` decode step at 1 x 2
-    (smoke qwen2.5-3b) against the dry run's count of that step at
-    ``local_config(cfg, 2)``: the products (projections, MLP, logits and
-    the kernels' charges) are the same flops; the split step adds the
-    gathers' concatenations, the embedding's mask and the collectives (10
-    all-gathers: o, wo, the MLP's h and down in each of 2 layers, the
-    logits, the new K/V rows; 1 all-reduce: the embedding)."""
-    for r in ranks["count"]:
+    (smoke qwen2.5-3b, mamba2, recurrentgemma) against the dry run's count
+    of that step at ``local_config(cfg, 2)``, its Mamba-2 and RG-LRU blocks
+    on the card's share (``dryrun.card_share``: the blocks' split code,
+    each gather a stand-in that costs nothing): the products (projections,
+    MLP, the SSM recurrence, logits and the kernels' charges) are the same
+    flops; the split step adds the gathers' concatenations, the
+    embedding's mask and the collectives (``COUNT_ARCHS`` all-gathers; 1
+    all-reduce: the embedding), which the dry run's collective model
+    charges apart."""
+    for r in ranks[f"count {arch}"]:
         assert r["ranks"]["products"] == r["dry"]["products"] > 0
-        assert r["ranks"]["coll_counts"] == {"all-gather": 10, "all-reduce": 1}
+        assert r["ranks"]["coll_counts"] == {"all-gather": COUNT_ARCHS[arch], "all-reduce": 1}
         assert r["dry"]["coll_counts"] == {}
         assert r["ranks"]["flops"] >= r["dry"]["flops"]
 
@@ -471,10 +597,12 @@ def train_split_counts(arch, accum, remat=False, whole=(), steps=2):
     layer = calls * (2 if remat else 1)
     out = {"attn": layer * sum(k in ("global", "local") for k in kinds),
            "moe" if cfg.n_experts else "mlp": layer * sum(k != "ssm" for k in kinds),
+           "ssm": layer * sum(k == "ssm" for k in kinds),
+           "rec": layer * sum(k == "recurrent" for k in kinds),
            "embed": calls, "logits": calls}
     for module in whole:
         out[module + "_whole"] = out.pop(module)
-    return out
+    return {k: v for k, v in out.items() if v}
 
 
 @pytest.mark.parametrize("name", list(TRAIN_CASES))
@@ -632,7 +760,7 @@ def train_remat(name) -> bool:
     return bool(opts) and opts[0].get("remat", False)
 
 
-@pytest.mark.parametrize("name", list(SERVE) + ["whole heads"] + list(TRAIN_CASES))
+@pytest.mark.parametrize("name", list(SERVE) + ["whole heads", "whole ssm"] + list(TRAIN_CASES))
 def test_layer_gathers_on_ranks(ranks, name):
     """Each rank step hands the model this rank's shards (never a whole
     parameter tree; ``held_ok``) and the model gathers each layer's
@@ -642,8 +770,9 @@ def test_layer_gathers_on_ranks(ranks, name):
     alive at once at most the largest layer's leaves plus the largest
     table where nothing keeps a layer for the backward (serving, remat),
     and none alive after the call."""
+    whole = {"whole heads": WHOLE_HEADS, "whole ssm": WHOLE_SSM}
     arch = arch_of(SERVE[name][0]) if name in SERVE else (
-        WHOLE_HEADS["arch"] if name == "whole heads" else TRAIN_CASES[name][0])
+        whole[name]["arch"] if name in whole else TRAIN_CASES[name][0])
     for r in ranks[name]:
         assert r["held_ok"]
         assert r["layer_gathers"] == layer_gathers(arch, name)

@@ -382,8 +382,9 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
     def local(name):
         parts = name.split("/")
         split_module = parts[0] in ("embed", "unembed") or (
-            parts[0] == "layers" and parts[2] in ("attn", "mlp") and parts[2] not in whole
-            and (parts[2] == "attn" or not cfg.n_experts or _is_expert(name)))
+            parts[0] == "layers" and parts[2] in ("attn", "mlp", "ssm", "rec")
+            and parts[2] not in whole
+            and (parts[2] != "mlp" or not cfg.n_experts or _is_expert(name)))
         return (m > 1 and split_module
                 and "model" in {a for e in specs[name] for a in sharding.spec_axes(e)})
 
@@ -409,10 +410,12 @@ def count_case(*, arch, params, spec, policy, max_len):
     """One ``tp`` decode step on a ``spec`` mesh of ranks (a batch of 2,
     every cache row below ``max_len - 1`` live) counted by ``OpCounter``
     in this rank, and the dry run's count of the same step: the model at
-    ``launch/dryrun.local_config``'s widths on meta stand-ins.  Returns
-    both counts' flops, bytes, products' flops, ops and collectives."""
+    ``launch/dryrun.local_config``'s widths on meta stand-ins, its Mamba-2
+    and RG-LRU blocks on the card's share (``dryrun.card_share``).
+    Returns both counts' flops, bytes, products' flops, ops and
+    collectives."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import local_config
+    from repro_torch.launch.dryrun import card_context, card_leaves, card_share, local_config
     from repro_torch.models.model_zoo import build_model
     from repro_torch.roofline.op_cost import OpCounter
     from repro_torch.runtime import serve_loop, sharding
@@ -431,9 +434,10 @@ def count_case(*, arch, params, spec, policy, max_len):
     with mesh_ctx(mesh, policy), OpCounter() as ranks:
         decode(*placed, tok, np.full((b,), pos, np.int32))
     lmodel = build_model(local_config(cfg, mesh.shape["model"]))
-    lparams = lmodel.init(None, "meta", dtype=torch.float32)
-    lcache = lmodel.init_cache(lparams, b, max_len)
-    with OpCounter() as dry:
+    card = card_share(cfg, model.init(None, "meta"), mesh, policy)
+    lparams = card_leaves(lmodel.init(None, "meta", dtype=torch.float32), card)
+    lcache = card_leaves(lmodel.init_cache(lparams, b, max_len), card, state=True)
+    with card_context(card), OpCounter() as dry:
         lmodel.decode_step(lparams, lcache, tok.to("meta"), pos)
     return {k: dict(flops=c.cost.flops, bytes=c.cost.bytes, products=c.products.flops,
                     ops=c.n_ops, coll=dict(c.cost.coll), coll_counts=dict(c.cost.coll_counts))
@@ -968,7 +972,57 @@ def train_count_case(*, arch, params, batch, spec, policy):
     return out
 
 
+def block_case(*, arch, kind, params, x, h0, conv):
+    """One Mamba-2 (``kind="ssm"``) or RG-LRU (``"rec"``) block of the
+    smoke ``arch`` at fp32 split over ``model`` on a 1 x ``world`` mesh:
+    each rank computes on its shares of the block's leaves (every 2-D
+    leaf's last dim) from its part of the state (``h0``, ``conv``) through
+    ``TPPlan``'s collectives.  Returns the output (whole on every rank),
+    this rank's part of the new state, and both against the one-process
+    block on the whole leaves and state (largest error over largest)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.distributed import axis_index
+    from repro_torch.models import recurrent, ssm
+    from repro_torch.runtime.sharding import TPPlan, path_str
+
+    cfg = get_config(arch, smoke=True)
+    mesh = _mesh(f"1x{dist.get_world_size()}")
+    idx, m = axis_index(("model",), mesh)
+    layer = {"ssm": "ssm", "rec": "recurrent"}[kind]
+    plan = TPPlan(mesh=mesh, m=m, idx=idx, kinds=(layer,), n_heads=1, n_kv_heads=1, mla=False,
+                  attn=False, mlp=False, vocab=False, kv_local=False, ssm=kind == "ssm",
+                  rec=kind == "rec")
+    apply = {"ssm": ssm.mamba2_block_apply, "rec": recurrent.rglru_block_apply}[kind]
+    own = tree.tree_map(lambda t: t.narrow(1, *_span(plan, t.shape[1])) if t.ndim == 2 else t,
+                        params)
+    whole = {"h": torch.as_tensor(h0), "conv": torch.as_tensor(conv)}
+    part = {k: t.narrow(plan.state_dim((0, k), t.ndim),
+                        *_span(plan, t.shape[plan.state_dim((0, k), t.ndim)])).clone()
+            for k, t in whole.items()}
+    x = torch.as_tensor(x)
+    y, _ = apply(own, x, cfg=cfg, cache=part, dtype=torch.float32, tp=plan)
+    one = {k: t.clone() for k, t in whole.items()}
+    y1, _ = apply(params, x, cfg=cfg, cache=one, dtype=torch.float32)
+    want = {k: t.narrow(plan.state_dim((0, k), t.ndim),
+                        *_span(plan, t.shape[plan.state_dim((0, k), t.ndim)]))
+            for k, t in one.items()}
+    return dict(y=y.numpy(), state={k: t.numpy() for k, t in part.items()},
+                own_shapes=sorted((path_str(p), tuple(t.shape))
+                                  for p, t in tree.leaves_with_paths(own)),
+                y_err=_leaf_rel(y, y1), state_err=max(_leaf_rel(part[k], want[k]) for k in part))
+
+
+def _span(plan, n):
+    """``(start, length)`` of this rank's part of ``n``."""
+    lo, hi = plan.part(n)
+    return lo, hi - lo
+
+
 CASES = {
+    "block": block_case,
     "serve": serve_case,
     "count": count_case,
     "train_count": train_count_case,
