@@ -3353,6 +3353,15 @@ def vision_serve(cfg, model, params, batch=4, n_text=768, steps=16):
     return k6, k7, k3
 
 
+def encdec_src(cfg, batch, dev):
+    """``batch`` requests of ``ENCDEC_FRAMES`` stub frame embeddings (a
+    normal draw from seed 0 on ``dev``, x 0.02, bf16): the source the
+    encdec phase and cell (m) serve."""
+    gen = torch.Generator(dev).manual_seed(0)
+    return (torch.randn((batch, ENCDEC_FRAMES, cfg.d_model), generator=gen, device=dev)
+            * 0.02).to(torch.bfloat16)
+
+
 def encdec_serve(batch=4, steps=16):
     """seamless-m4t-medium at published widths (12 + 12 layers, random bf16
     weights, seed 0): 4 requests of ``ENCDEC_FRAMES`` seeded frames (x
@@ -3382,9 +3391,7 @@ def encdec_serve(batch=4, steps=16):
     log(f"random bf16 weights built on the card in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     unembed_table_phase(model, params)
-    gen = torch.Generator("cuda").manual_seed(0)
-    src = (torch.randn((batch, ENCDEC_FRAMES, cfg.d_model), generator=gen, device="cuda")
-           * 0.02).to(torch.bfloat16)
+    src = encdec_src(cfg, batch, "cuda")
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         2, cfg.vocab_size, (batch, ENCDEC_PROMPT))).cuda()
     counters = (gd.gqa_decode_rows, fp.flash_prefill, mc.combine_split_partials)
@@ -5086,8 +5093,9 @@ class GatherSpy:
     what each call gathered (a leaf that came back as another tensor): the
     most for one layer and for one leaf outside the layers (a table), whose
     sum is the bound on the gathered bytes alive at once (:meth:`summary`),
-    all the MoE expert stacks' (``layers/<l>/mlp/gate|up|down``) and all the
-    Mamba-2 and RG-LRU blocks' leaves (``layers/<l>/ssm|rec/...``);
+    all the MoE expert stacks' (``layers/<l>/mlp/gate|up|down``), all the
+    Mamba-2 and RG-LRU blocks' leaves (``layers/<l>/ssm|rec/...``) and all
+    the attention, dense MLP and embedding table leaves (``module_bytes``);
     ``core/distributed.GATHERED``'s peak from the start and the bytes
     still alive after."""
 
@@ -5097,7 +5105,7 @@ class GatherSpy:
         from repro_torch.runtime.sharding import EXPERT_LEAVES
 
         self.layers = self.layer_bytes = self.table_bytes = self.expert_bytes = 0
-        self.block_bytes = 0
+        self.block_bytes = self.module_bytes = 0
         self._orig = orig = mesh_ctx.working
 
         def spy(sub, prefix):
@@ -5110,6 +5118,10 @@ class GatherSpy:
                                          and p[2] == "mlp" and p[3] in EXPERT_LEAVES)
                 self.block_bytes += sum(t.nbytes for p, t in pairs if len(p) > 2
                                         and p[2] in ("ssm", "rec"))
+                self.module_bytes += sum(t.nbytes for p, t in pairs if p[0] in ("embed", "unembed")
+                                         or (len(p) > 2 and p[2] in ("attn", "self_attn",
+                                                                     "cross_attn"))
+                                         or (len(p) == 5 and p[2] == "mlp"))
                 if str(prefix[0]).endswith("layers"):
                     self.layers += 1
                     self.layer_bytes = max(self.layer_bytes, sum(got))
@@ -5134,7 +5146,8 @@ class GatherSpy:
     def summary(self) -> dict:
         return dict(gathered_peak=self.peak, gathered_live=self.live, layer_gathers=self.layers,
                     gather_bound=self.layer_bytes + self.table_bytes,
-                    expert_gathered=self.expert_bytes, block_gathered=self.block_bytes)
+                    expert_gathered=self.expert_bytes, block_gathered=self.block_bytes,
+                    module_gathered=self.module_bytes)
 
 
 def _rank_main(rank, world, store_path, seqkv, train, out):
@@ -5346,7 +5359,8 @@ def rank_train_state(steps=RANK_TRAIN_STEPS, dev="cuda", smoke=False, arch="qwen
     """``arch`` (default qwen1.5-0.5b) at full width: the ranks' initial
     state (fp32 master from seed 0, as ``init_train_state`` makes it), the
     step's TrainConfig (remat) and ``steps`` global batches of 8 x 2048
-    from seed 1 (``smoke``: the smoke config, 8 x 32)."""
+    from seed 1 (``smoke``: the smoke config, 8 x 32; an encoder-decoder's
+    with source frames and ``src_len``)."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import build_model
@@ -5356,9 +5370,15 @@ def rank_train_state(steps=RANK_TRAIN_STEPS, dev="cuda", smoke=False, arch="qwen
     params, opt, _ = init_train_state(build_model(cfg), torch.Generator(dev).manual_seed(0), dev)
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32 if smoke else 2048,
                            global_batch=8, seed=1)
+    batches = [data.batch_at(i) for i in range(steps)]
+    if cfg.family == "encdec":  # 16 source frames a row (seed 1, x 0.02), some rows shorter
+        rng = np.random.default_rng(1)
+        for batch in batches:
+            batch["src_embeds"] = (rng.standard_normal((8, 16, cfg.d_model))
+                                   * 0.02).astype(np.float32)
+            batch["src_len"] = rng.integers(9, 17, size=8).astype(np.int32)
     return dict(tc=TrainConfig(peak_lr=3e-4, warmup_steps=2, total_steps=20, remat=True),
-                params=params, opt=opt, batches=[data.batch_at(i) for i in range(steps)],
-                n_layers=cfg.n_layers)
+                params=params, opt=opt, batches=batches, n_layers=cfg.n_layers)
 
 
 def ranks_phase(card, seqkv):
@@ -5501,12 +5521,19 @@ TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
 # channels, 1280 a rank, and its local attention's 5 of 10 query heads on
 # the one kv head, over the 2048-row window (K6 splits, K3 runs).  (j)
 # and (k) run 4 steps, their token gate TP_MIN_TOKENS in proportion: on a
-# slow host the whole script took 1115.8 s with them at 8 (PERF.md)
+# slow host the whole script took 1115.8 s with them at 8 (PERF.md).  (m):
+# seamless-m4t-medium in the reference's serving form: the caller's
+# init_cache over 4 x ENCDEC_FRAMES frames (the encoder, whole, in each
+# rank), the 64-token target prompt through the decode step at cache_len 0,
+# then 2 steps (4 took the script to 1097.1 s on a slow host, PERF.md); each
+# rank its 8 of 16 heads of every self- and cross-attention (the cross K/V's
+# width over model: one all-to-all a call)
 TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128, TP_STEPS),
             "d": ("qwen2.5-3b", "tp_fsdp", 2048, TP_STEPS),
             "h": ("qwen3-moe-30b-a3b", "tp", 2048, 8),
             "j": ("mamba2-370m", "tp_fsdp", 128, 4),
-            "k": ("recurrentgemma-2b", "tp", 2048, 4)}
+            "k": ("recurrentgemma-2b", "tp", 2048, 4),
+            "m": ("seamless-m4t-medium", "tp_fsdp", 128, 2)}
 # label -> (the cell whose one-process references it reuses, mesh, policy,
 # decode steps): FSDP serving on 2 x 1 ranks, each rank its batch rows and
 # its data shards of the weights, every layer gathered at its use.  Its
@@ -5525,6 +5552,9 @@ TP_MOE_GEOM = ("qwen3-moe-30b-a3b rank", 16, 2, 128, None, None)  # (h)'s rank: 
 TP_REC_GEOM = ("recurrentgemma-2b rank", 5, 1, 256, 2048, None)
 # one rank of the split train step: 8 of qwen1.5-0.5b's 16 heads (MHA, Dh 64)
 TP_TRAIN_GEOM = ("qwen1.5-0.5b rank", 8, 8, 64, None, None)
+# (m)'s rank: 8 of seamless-m4t-medium's 16 heads (MHA, Dh 64), self and cross
+TP_ENCDEC_GEOM = ("seamless-m4t-medium rank", 8, 8, 64, None, None)
+TP_ENCDEC_MAX_LEN = TP_CELLS["m"][2]
 TP_TRAIN_B, TP_TRAIN_S = 8, 2048
 
 
@@ -5538,9 +5568,13 @@ def tp_kernel_cases(dtype):
     query heads over 1 kv head, Dh 256, window 2048 (recurrentgemma-2b on
     1 x 2: 5 rows a kv head, which no other phase gives the tensor-core
     body); K7 at 8 of qwen1.5-0.5b's 16 heads over the split train step's
-    8 x 2048 (causal, Dh 64)."""
+    8 x 2048 (causal, Dh 64); at (m)'s 8 of seamless-m4t-medium's 16 heads
+    (MHA, Dh 64): K6 over the 128-row self cache after its steps and
+    over the 1024 frames of the cross K/V (2 splits + K3), K7 non-causal
+    over the frames at the 64-token prompt and causal over its own rows."""
     kv = np.full(TP_BATCH, TP_PROMPT + TP_STEPS)
     prompt_pos = np.tile(np.repeat(np.arange(TP_PROMPT), 64), (TP_BATCH, 1))
+    f, m, steps = ENCDEC_FRAMES, TP_ENCDEC_MAX_LEN, TP_CELLS["m"][3]
     return [
         ("K4 rank decode G 64", mla_case(TP_BATCH, 64, 128, kv,
                                         np.repeat((kv - 1)[:, None], 64, 1), dtype, 70)),
@@ -5558,6 +5592,15 @@ def tp_kernel_cases(dtype):
         ("K7 rank 8 heads train 8 x 2048", gqa_case(
             "K7", TP_TRAIN_GEOM, TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_S,
             np.full(TP_TRAIN_B, TP_TRAIN_S), dtype, 74)),
+        ("K6 rank 8/8 encdec self decode", gqa_case(
+            "K6", TP_ENCDEC_GEOM, TP_BATCH, 1, m, np.full(TP_BATCH, TP_PROMPT + steps), dtype, 79)),
+        ("K6 rank 8/8 encdec cross decode", gqa_case(
+            "K6", TP_ENCDEC_GEOM, TP_BATCH, 1, f, np.full(TP_BATCH, f), dtype, 80)),
+        ("K7 rank 8 heads encdec cross prompt 64", gqa_case(
+            "K7", TP_ENCDEC_GEOM, TP_BATCH, TP_PROMPT, f, np.full(TP_BATCH, f), dtype, 81,
+            causal=False)),
+        ("K7 rank 8 heads encdec self prompt 64", gqa_case(
+            "K7", TP_ENCDEC_GEOM, TP_BATCH, TP_PROMPT, m, np.full(TP_BATCH, TP_PROMPT), dtype, 82)),
     ]
 
 
@@ -5565,8 +5608,9 @@ def tp_kernel_phase(flush):
     """Hold K4, K6 (+ K3) and K7 at one rank's shapes against their plain
     versions, then time them (bf16, amla) beside their bounds, the plain
     versions and SDPA."""
-    log("== kernel phase: K4 at G 64, K6 at 8 / 1, 16 / 2 and 5 / 1 heads (+ K3), K7 at 8, 16 "
-        "and 5 heads: one rank's shapes in the tensor-parallel serve and train phases ==")
+    log("== kernel phase: K4 at G 64, K6 at 8 / 1, 16 / 2, 5 / 1 and 8 / 8 heads (+ K3), K7 at 8, "
+        "16 and 5 heads and 8 non-causal: one rank's shapes in the tensor-parallel serve and "
+        "train phases ==")
     worst = hold_dense_cases(tp_kernel_cases)
     bf = torch.bfloat16
     cases = dict(tp_kernel_cases(bf))
@@ -5576,21 +5620,34 @@ def tp_kernel_phase(flush):
              ("K7", "rank 8 heads prefill 64", cases["K7 rank 8 heads prefill 64"]),
              ("K6", "rank 5/1 decode", cases["K6 rank 5/1 decode"]),
              ("K7", "rank 5 heads prefill 64", cases["K7 rank 5 heads prefill 64"]),
-             ("K7", "rank 8 heads train 8 x 2048", cases["K7 rank 8 heads train 8 x 2048"])]
+             ("K7", "rank 8 heads train 8 x 2048", cases["K7 rank 8 heads train 8 x 2048"]),
+             ("K6", "rank 8/8 encdec self decode", cases["K6 rank 8/8 encdec self decode"]),
+             ("K6", "rank 8/8 encdec cross decode", cases["K6 rank 8/8 encdec cross decode"]),
+             ("K7", "rank 8 heads encdec cross prompt 64",
+              cases["K7 rank 8 heads encdec cross prompt 64"]),
+             ("K7", "rank 8 heads encdec self prompt 64",
+              cases["K7 rank 8 heads encdec self prompt 64"])]
     del cases
     return worst, time_dense_rows(timed, flush)
 
 
-def tp_split_counts(arch, calls, smoke=False, layer_calls=None):
+def tp_split_counts(arch, calls, smoke=False, layer_calls=None, encoder=False):
     """``mesh_ctx.TP_COUNTS`` of a tensor-parallel run of ``arch`` that
     splits every module: each attention layer, dense MLP or MoE layer's
     experts, Mamba-2 and RG-LRU block ``layer_calls`` times (default
-    ``calls``), the lookup and the logits (or loss) ``calls`` times."""
+    ``calls``), the lookup and the logits (or loss) ``calls`` times.  An
+    encoder-decoder's: every decoder layer's self-attention,
+    cross-attention and MLP a call (``encoder`` also every encoder layer's
+    attention and MLP: a train step, whose encoder runs split)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch, smoke=smoke)
     kinds = cfg.layer_kinds()
     per = calls if layer_calls is None else layer_calls
+    if cfg.family == "encdec":
+        n = per * (cfg.n_layers + (cfg.encoder_layers if encoder else 0))
+        return {"attn": n, "cross": per * cfg.n_layers, "mlp": n, "embed": calls,
+                "logits": calls}
     out = {"attn": per * sum(k in ("global", "local") for k in kinds),
            "moe" if cfg.n_experts else "mlp": per * sum(k != "ssm" for k in kinds),
            "ssm": per * kinds.count("ssm"), "rec": per * kinds.count("recurrent"),
@@ -5690,10 +5747,30 @@ def rerouted(one: RouteSpy, top: list, layers: int) -> dict:
     return out
 
 
+def serve_cache(model, params, src, max_len):
+    """A serve cell's cache: zeroed rows for ``TP_BATCH`` (a decoder-only
+    model), or an encoder-decoder's ``init_cache`` over the source frames
+    ``src`` (the encoder and every layer's cross K/V)."""
+    return model.init_cache(params, TP_BATCH if src is None else src, max_len)
+
+
+def prompt_call(model, decode=None):
+    """``(params, cache, prompts) -> (logits, cache)``: ``model.prefill``,
+    or for an encoder-decoder (no prefill: the reference's serving form)
+    the decode step over the target prompt at ``cache_len`` 0 (``decode``,
+    a compiled one, or ``model.decode_step``)."""
+    if model.cfg.family != "encdec":
+        return model.prefill
+    decode = decode or model.decode_step
+    return lambda params, cache, p: decode(params, cache, p, np.zeros((len(p),), np.int32))
+
+
 def tp_reference(label, dev="cuda", smoke=False):
     """One process, no mesh: the cell's model at full width (bf16 weights
     from seed 0), 4 prompts of 64 tokens (seed 0) and ``TP_STEPS`` greedy decode
-    steps through ``prefill`` / ``decode_step``; what the ranks are held
+    steps through ``prefill`` / ``decode_step`` (an encoder-decoder: its
+    ``init_cache`` over :func:`encdec_src`'s frames, the prompt through
+    ``decode_step`` at ``cache_len`` 0); what the ranks are held
     against; then the same weights at fp32 compute fed those tokens (the
     yardstick of the logits gate), and at fp32 compute greedy (its own
     tokens: what the ranks' fp32-compute run is held to, token for token).
@@ -5711,30 +5788,31 @@ def tp_reference(label, dev="cuda", smoke=False):
     params = model.init(torch.Generator(dev).manual_seed(0), dev)
     whole = sum(t.nbytes for t in tree.leaves(params))
     prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, size=(TP_BATCH, TP_PROMPT))
-    cache = model.init_cache(params, TP_BATCH, max_len)
+    src = encdec_src(cfg, TP_BATCH, dev) if cfg.family == "encdec" else None
+    cache = serve_cache(model, params, src, max_len)
     t_build = time.perf_counter() - t0
     zero_counts(tp_counters())
-    logits, tokens, t_prefill, times = tp_serve(model.prefill, model.decode_step, params, cache,
-                                                prompts, dev=dev, steps=steps)
+    logits, tokens, t_prefill, times = tp_serve(prompt_call(model), model.decode_step, params,
+                                                cache, prompts, dev=dev, steps=steps)
     launches = [c for c, _ in read_counts(tp_counters())]
     # the fp32 function of the same weights: fp32 compute (each weight cast
     # at its product), an fp32 cache, fed the bf16 run's tokens
     model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
-    cache = model32.init_cache(params, TP_BATCH, max_len)
-    f32 = tp_serve(model32.prefill, model32.decode_step, params, cache, prompts, forced=tokens,
-                   dev=dev, steps=steps)[0]
-    cache = model32.init_cache(params, TP_BATCH, max_len)
+    cache = serve_cache(model32, params, src, max_len)
+    f32 = tp_serve(prompt_call(model32), model32.decode_step, params, cache, prompts,
+                   forced=tokens, dev=dev, steps=steps)[0]
+    cache = serve_cache(model32, params, src, max_len)
     with RouteSpy() as routes32:
-        logits32, tokens32 = tp_serve(model32.prefill, model32.decode_step, params, cache,
+        logits32, tokens32 = tp_serve(prompt_call(model32), model32.decode_step, params, cache,
                                       prompts, dev=dev, steps=steps)[:2]
     err = logit_share(logits, f32)
     log(f"({label}) one process: {cfg.name} {cfg.n_layers} layers, {cfg.n_heads} heads, "
         f"{whole / 2**30:.2f} GiB of bf16 weights (the fp32 unembedding copy included) built "
         f"in {t_build:.1f} s; prefill {TP_BATCH} x {TP_PROMPT} in {t_prefill:.1f} ms, "
-        f"{np.mean(times[2:]):.2f} ms/step steady (steps 3-{steps}; first "
-        f"{times[0]:.1f} ms); K4, K6, K7, K3 launches {launches}; its logits within "
+        f"{np.mean(times[2:] or times):.2f} ms/step steady (steps {3 if steps > 2 else 1}-"
+        f"{steps}; first {times[0]:.1f} ms); K4, K6, K7, K3 launches {launches}; its logits within "
         f"{err:.3e} of the largest logit of the fp32-compute run")
-    del params, cache
+    del params, cache, src
     release()
     return dict(label=label, arch=arch, policy=policy, max_len=max_len, prompts=prompts,
                 tokens=tokens, logits=logits, f32=f32, f32_err=err, whole=whole,
@@ -5776,7 +5854,10 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="
                   smoke=False, spec="1x2", steps=TP_STEPS):
     """One rank's run of a cell on the ``spec`` mesh: this rank's shards
     of the parameters drawn from seed 0 (each leaf drawn whole and sliced
-    at once, so the whole model is never resident here), the cache placed
+    at once, so the whole model is never resident here; an
+    encoder-decoder's drawn whole, its ``init_cache`` run over the source
+    frames at bf16 and at fp32 compute, as the caller runs it, and then
+    only the shards kept), the cache placed
     as the specs lay it out, the prompts prefilled and the one-process
     run's first ``steps`` tokens fed through ``jit_serve_fns``' prefill
     and decode (each layer gathered at its use).  Records the shapes K4, K6 and K7 launch at
@@ -5800,9 +5881,12 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="
 
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    encdec = cfg.family == "encdec"
     mesh = rank_mesh(spec, dev)
+    src = encdec_src(cfg, TP_BATCH, dev) if encdec else None
     like = model.init(None, "meta")
-    like_c = model.init_cache(like, TP_BATCH, max_len)
+    like_c = serve_cache(model, like, None if src is None else src.to("meta"), max_len)
     compile_prefill, compile_decode, sh = jit_serve_fns(model, mesh, like, like_c, policy=policy)
     flat = dict(tree.leaves_with_paths(sh["params"]))
     shapes = {p: t.shape for p, t in tree.leaves_with_paths(like)}
@@ -5811,12 +5895,19 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    local = transformer.lm_init(torch.Generator(dev).manual_seed(0), cfg, device=torch.device(dev),
-                                dtype=model.dtype,
-                                keep=lambda p, t: sharding.shard_one(t, flat[p]).clone())
+    if encdec:  # the caller's init_cache (the encoder, whole) from whole weights, then the shards
+        whole_p = model.init(torch.Generator(dev).manual_seed(0), dev)
+        full, full32 = (serve_cache(m, whole_p, src, max_len) for m in (model, model32))
+        local = tree.map_with_paths(lambda p, t: sharding.shard_one(t, flat[p]).clone(), whole_p)
+        del whole_p
+        gc.collect()
+    else:
+        local = transformer.lm_init(torch.Generator(dev).manual_seed(0), cfg,
+                                    device=torch.device(dev), dtype=model.dtype,
+                                    keep=lambda p, t: sharding.shard_one(t, flat[p]).clone())
+        full = model.init_cache(local, TP_BATCH, max_len)
     resident = sum(t.nbytes for t in tree.leaves(local))
     params = tree.map_with_paths(lambda p, t: sharding.from_local(t, flat[p], shapes[p]), local)
-    full = model.init_cache(local, TP_BATCH, max_len)
     cflat = dict(tree.leaves_with_paths(sh["cache"]))
     cache = tree.map_with_paths(lambda p, t: sharding.from_local(
         sharding.shard_one(t, cflat[p]).clone(), cflat[p], t.shape), full)
@@ -5858,7 +5949,8 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="
         t_like = torch.zeros((TP_BATCH, 1), dtype=torch.int64, device=dev)
         with GatherSpy() as gathers:
             logits, tokens, t_prefill, times = tp_serve(
-                counted("prefill", compile_prefill(p_like)),
+                counted("prefill", prompt_call(model, compile_decode(p_like)) if encdec
+                        else compile_prefill(p_like)),
                 counted("decode", compile_decode(t_like)), params, cache, prompts, forced=forced,
                 dev=dev, steps=steps)
         launches = [c for c, _ in read_counts(tp_counters())]
@@ -5868,17 +5960,20 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="
             setattr(mod, name, fn)
     peak = torch.cuda.max_memory_allocated() if gpu else 0
     # fp32 compute on the same shards from an fp32 cache, fed the one-process fp32 tokens
-    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
     compile_prefill, compile_decode, sh32 = jit_serve_fns(
-        model32, mesh, like, model32.init_cache(like, TP_BATCH, max_len), policy=policy)
+        model32, mesh, like, serve_cache(model32, like, None if src is None else src.to("meta"),
+                                         max_len), policy=policy)
     cflat = dict(tree.leaves_with_paths(sh32["cache"]))
     cache = tree.map_with_paths(lambda p, t: sharding.from_local(
         sharding.shard_one(t, cflat[p]).clone(), cflat[p], t.shape),
-        model32.init_cache(local, TP_BATCH, max_len))
+        full32 if encdec else model32.init_cache(local, TP_BATCH, max_len))
+    full32 = None
     zero_counts(tp_counters())
     with RouteSpy() as routes32:
-        logits32, tokens32 = tp_serve(compile_prefill(p_like), compile_decode(t_like), params,
-                                      cache, prompts, forced=forced32, dev=dev, steps=steps)[:2]
+        logits32, tokens32 = tp_serve(
+            prompt_call(model32, compile_decode(p_like)) if encdec else compile_prefill(p_like),
+            compile_decode(t_like), params, cache, prompts, forced=forced32, dev=dev,
+            steps=steps)[:2]
     launches32 = [c for c, _ in read_counts(tp_counters())]
     gc.collect()
     res = dict(logits=[x.numpy() for x in logits], tokens=tokens, t_prefill=t_prefill,
@@ -5892,7 +5987,7 @@ def _tp_rank_cell(label, arch, policy, max_len, prompts, forced, forced32, dev="
                launches32=launches32, **dict(gathers.summary(),
                                              gathered_live=distributed.GATHERED["live"]),
                bytes_prefill=moved["prefill"][0], bytes_step=moved["decode"][-1])
-    del params, cache, local
+    del params, cache, local, src
     gc.collect()
     if gpu:
         torch.cuda.empty_cache()
@@ -5914,9 +6009,14 @@ def tp_phase(card, dev="cuda", smoke=False):
     one all-to-all each way a call); (k) recurrentgemma-2b at full width
     (26 layers, 2560 RG-LRU channels, local attention 10 / 1 heads x 256
     over a 2048-key window) under ``tp``, each rank its 1280 channels and
-    5 query heads.  For each, first the one-process run in this process
-    (4 prompts of 64 tokens, the cell's greedy decode steps: 16, (h) 8,
-    (j) and (k) 4;
+    5 query heads; (m) seamless-m4t-medium at full width (12 + 12 layers,
+    16 / 16 heads x 64, d_ff 4096, vocabulary 256 206, tied) under
+    ``tp_fsdp`` in the reference's serving form: the caller's
+    ``init_cache`` over 4 x 1024 frames, the prompts through the decode
+    step at ``cache_len`` 0, each rank its 8 heads of every self- and
+    cross-attention, its d_ff columns and vocabulary rows.  For each,
+    first the one-process run in this process (4 prompts of 64 tokens, the cell's greedy decode steps: 16, (h) 8,
+    (j) and (k) 4, (m) 2;
     :func:`tp_reference`), its weights freed; then each rank draws the
     same weights from seed 0 keeping only its shards, prefills the prompts
     and decodes the one-process run's tokens (:func:`_tp_rank_cell`), then
@@ -5939,7 +6039,9 @@ def tp_phase(card, dev="cuda", smoke=False):
     at G 64 (c), K7 at 8 heads and K6 at 8 / 1 heads with K3 (d), K7 at 16
     heads and K6 at 16 / 2 heads with K3 (h), none (j), K7 at 5 heads and
     K6 at 5 / 1 heads with K3 (k), (attention) layers x calls launches;
-    both ranks the same logits.  The step times are gloo on one
+    (m) K7 at 8 heads twice a layer at the prompt, K6 at 8 / 8 heads twice
+    a layer a step, K3 after the split ones, and no attention, MLP or
+    table leaf gathered; both ranks the same logits.  The step times are gloo on one
     card: collectives through host memory, the two ranks sharing the
     card's SMs; not a multi-card number.
 
@@ -5958,7 +6060,8 @@ def tp_phase(card, dev="cuda", smoke=False):
     K3) launches."""
     held = f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB" if dev != "cpu" else "(CPU)"
     log(f"== tensor-parallel phase: jit_serve_fns split by model on 1 x 2 ranks (attention, "
-        f"MLP, MoE experts, Mamba-2 and RG-LRU blocks, vocabulary), and FSDP on 2 x 1 ranks (2 ranks on {dev}, spawned, gloo; {held} allocated in this process), card "
+        f"cross-attention, MLP, MoE experts, Mamba-2 and RG-LRU blocks, vocabulary), and FSDP "
+        f"on 2 x 1 ranks (2 ranks on {dev}, spawned, gloo; {held} allocated in this process), card "
         f"{card} ==")
     t0 = time.perf_counter()
     refs = {label: tp_reference(label, dev, smoke) for label in TP_CELLS}
@@ -5973,7 +6076,14 @@ def tp_phase(card, dev="cuda", smoke=False):
     log(f"two ranks spawned, ran {', '.join(f'({c})' for c in cells)} and exited; the phase "
         f"{time.perf_counter() - t0:.1f} s")
     total = [0, 0, 0, 0]
-    failed = []
+    failed, k3_encdec = [], 0
+    if dev != "cpu":  # (m)'s K6 calls merged by K3: the self cache's 128 rows, the 1024 frames
+        from repro_torch.kernels import gqa_decode as gd
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = lambda rows: gd.decode_splits(sms, TP_BATCH * TP_ENCDEC_GEOM[2],
+                                               -(-rows // 512)) > 1
+        k3_encdec = int(splits(TP_ENCDEC_MAX_LEN)) + int(splits(ENCDEC_FRAMES))
     for label, (src, spec, policy, steps) in cells.items():
         ref = refs[src]
         n, calls = ref["layers"], 1 + steps
@@ -6005,6 +6115,11 @@ def tp_phase(card, dev="cuda", smoke=False):
             elif label == "k":  # 5 of 10 query heads on the one kv head, in the local layers
                 kernels_ok = ((k4, k6, k7, k3) == (0, na * steps, na, na * steps)
                               and x["seen"]["K6"] == [(1, 5)] and x["seen"]["K7"] == [5])
+            elif label == "m":  # 8 of 16 heads: the prompt's self- and cross-attention (K7), each
+                # step's (K6); no attention, MLP or table leaf gathered
+                kernels_ok = ((k4, k6, k7, k3) == (0, 2 * n * steps, 2 * n, n * steps * k3_encdec)
+                              and x["seen"]["K6"] == [(8, 1)] and x["seen"]["K7"] == [8]
+                              and x["module_gathered"] == 0)
             else:  # all heads, each rank its rows
                 kernels_ok = ((k4, k6, k7, k3) == (0, n * steps, n, n * steps)
                               and x["seen"]["K6"] == [(2, 8)] and x["seen"]["K7"] == [16])
@@ -6040,6 +6155,7 @@ def tp_phase(card, dev="cuda", smoke=False):
                 f"{x['gather_bound'] / 2**20:.1f} MiB: the largest gathered layer plus the "
                 f"largest gathered table), expert stacks gathered {x['expert_gathered']} B, "
                 f"Mamba-2 / RG-LRU leaves gathered {x['block_gathered']} B (both must be 0), "
+                f"attention, dense MLP and table leaves {x['module_gathered']} B ((m): must be 0), "
                 f"{x['gathered_live']} B alive after; layer gathers "
                 f"{x['layer_gathers']} (layers x calls {n * calls}); peak "
                 f"{peak_share:.4f} of the whole model's parameter bytes; gloo GiB per decode "
@@ -6091,12 +6207,16 @@ TP_TRAIN_STEPS = 1
 # (l1) / (l2) smoke mamba2 (4 of 8 heads a rank) and smoke recurrentgemma
 # (64 of 128 RG-LRU channels, 2 of 4 query heads) at bf16: the split
 # blocks' gradients (their gathered projections' cotangents summed over
-# model, the partial leaves' gradients summed after)
+# model, the partial leaves' gradients summed after); (n) smoke
+# seamless-m4t-medium at bf16: the encoder's, the decoder's and the
+# cross-attention's heads (2 of 4 a rank), MLPs and the tied table split
+# (the full-width encoder-decoder train step would not fit the script's time)
 TP_TRAIN_CELLS = {"e": ("qwen1.5-0.5b", False, "tp", "float32"),
                   "f": ("qwen1.5-0.5b", False, "tp_fsdp", "bfloat16"),
                   "i": ("qwen3-moe-30b-a3b", True, "tp", "bfloat16"),
                   "l1": ("mamba2-370m", True, "tp", "bfloat16"),
-                  "l2": ("recurrentgemma-2b", True, "tp", "bfloat16")}
+                  "l2": ("recurrentgemma-2b", True, "tp", "bfloat16"),
+                  "n": ("seamless-m4t-medium", True, "tp", "bfloat16")}
 
 
 def _tp_train_rank_main(rank, world, store_path, train, dev, smoke, out):
@@ -6251,7 +6371,10 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     (2 layers, 8 experts over the 2 ranks by expert, 8 x 32), (l1) smoke
     mamba2-370m (2 Mamba-2 blocks, 4 of 8 heads a rank) and (l2) smoke
     recurrentgemma-2b (5 RG-LRU blocks, 64 of 128 channels a rank, and 2
-    local attention layers) under ``tp`` at bf16 (:func:`_tp_train_rank`).
+    local attention layers) and (n) smoke seamless-m4t-medium (2 + 2
+    layers, 2 of 4 heads of every encoder, decoder and cross-attention a
+    rank, source frames bounded by ``src_len``) under ``tp`` at bf16
+    (:func:`_tp_train_rank`).
     Rank 0
     holds each step against ``make_train_step`` on one rank from the same
     gathered state and batch.  Gates: (e) loss and ``grad_norm`` within
@@ -6268,9 +6391,11 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     parameters + moments at most ``TP_RESIDENT_SHARE`` of the whole; every
     attention layer, MLP (or MoE layer's experts), Mamba-2 and RG-LRU
     block, lookup and loss split
-    (``mesh_ctx.TP_COUNTS``, the layers twice a step: remat); K7 =
+    (``mesh_ctx.TP_COUNTS``, the layers twice a step: remat; (n) once:
+    the encoder-decoder ignores remat, as the reference does); K7 =
     attention layers x 2 x steps a rank at half the heads (8; (i), (l2) 2;
-    none in (l1)), no K6 or K3.  The
+    none in (l1); (n) encoder layers + 2 x decoder layers a step, 2
+    heads), no K6 or K3.  The
     step times are gloo through host memory on one card (the two ranks
     share its SMs), not a multi-card number.
     Returns the ranks' K7 launches.  ``tp_train_phase("x", dev="cpu",
@@ -6286,13 +6411,21 @@ def tp_train_phase(card, dev="cuda", smoke=False):
     ranks = _spawn_ranks(2, (train, dev, smoke), TP_TRAIN_TIMEOUT, _tp_train_rank_main)
     log(f"two ranks spawned, ran {', '.join(f'({c})' for c in TP_TRAIN_CELLS)} and exited; the "
         f"phase {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs import get_config
+
     steps, k7, failed = TP_TRAIN_STEPS, 0, []
     rel = lambda a, b: abs(a - b) / abs(b)
     for label, (arch, cell_smoke, policy, dtype) in TP_TRAIN_CELLS.items():
+        cfg = get_config(arch, smoke=smoke or cell_smoke)
+        n = attention_layers(arch, smoke or cell_smoke)
+        if cfg.family == "encdec":  # remat ignored; K7 once an encoder layer, twice a decoder layer
+            split = tp_split_counts(arch, steps, smoke or cell_smoke, encoder=True)
+            want7 = (cfg.encoder_layers + 2 * cfg.n_layers) * steps
+        else:
+            split = tp_split_counts(arch, steps, smoke or cell_smoke, layer_calls=2 * steps)
+            want7 = n * 2 * steps
         for r, res in enumerate(ranks):
             x = res[label]
-            split = tp_split_counts(arch, steps, smoke or cell_smoke, layer_calls=2 * steps)
-            n = attention_layers(arch, smoke or cell_smoke)
             k6, k3, k7x = x["launches"]
             share = x["held_bytes"] / x["whole_bytes"]
             log(f"({label}) rank {r} {arch} {policy} at {dtype} compute: " + "; ".join(
@@ -6329,7 +6462,7 @@ def tp_train_phase(card, dev="cuda", smoke=False):
                     failed.append(f"({label}) step {i}: outside the one-rank step's bounds")
             if (x["metrics"] != ranks[0][label]["metrics"] or share > TP_RESIDENT_SHARE
                     or not (x["kept_halves"] and x["rest_whole"] and x["kept"] > 0)
-                    or x["counts"] != split or (k6, k3, k7x) != (0, 0, n * 2 * steps)
+                    or x["counts"] != split or (k6, k3, k7x) != (0, 0, want7)
                     or x["heads"] != ([x["rank_heads"]] if n else [])
                     or (r == 0) != (len(x["holds"]) == steps)):
                 failed.append(f"({label}) rank {r}: metrics differ from rank 0's, or the split's "

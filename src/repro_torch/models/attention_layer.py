@@ -32,7 +32,9 @@ split over ``model``, else a slice of the whole weight), the cache holds
 those kv heads (the step writes every head's new rows into the rank's
 shard after the call), attention runs over the local heads and ``o`` is
 all-gathered into ``wo``, which gives this rank's d_model columns
-(:func:`~repro_torch.models.layers.dense_across`).  Without a cache (the
+(:func:`~repro_torch.models.layers.dense_across`); the cross-attention
+splits so too, over its precomputed K/V's heads
+(:func:`cross_attention_apply`).  Without a cache (the
 train step) the same split runs under autograd: the input's cotangent is
 summed over ``model`` (``tp.products``), and the gradient of a whole leaf the
 rank reads in part (the q / k / v biases, a whole ``wk`` / ``wv``, the
@@ -258,15 +260,15 @@ def cross_attention_init(gen, cfg, *, device, dtype):
     }
 
 
-def cross_kv(params, memory, *, cfg, dtype=torch.bfloat16):
+def cross_kv(params, memory, *, cfg, dtype=torch.bfloat16, tp=None):
     """``{"k", "v"}`` of shape ``(B, Ss, H, Dh)``: the cross-attention's
-    keys and values of the encoder output ``memory (B, Ss, d)``."""
+    keys and values of the encoder output ``memory (B, Ss, d)``.  Under
+    ``tp`` ``wk`` / ``wv`` hold this rank's heads' columns and ``memory``
+    is replicated (its cotangent summed over ``model``): this rank's
+    ``H / m`` heads."""
     b, ss, _ = memory.shape
-    hq, dh = cfg.n_heads, cfg.head_dim
-    return {
-        "k": layers.dense(params["wk"], memory, dtype=dtype).reshape(b, ss, hq, dh),
-        "v": layers.dense(params["wv"], memory, dtype=dtype).reshape(b, ss, hq, dh),
-    }
+    k, v = layers.dense_many([params["wk"], params["wv"]], memory, dtype=dtype, tp=tp)
+    return {"k": k.reshape(b, ss, -1, cfg.head_dim), "v": v.reshape(b, ss, -1, cfg.head_dim)}
 
 
 def cross_attention_apply(
@@ -278,17 +280,28 @@ def cross_attention_apply(
     cfg,
     memory_len=None,  # (B,) valid frames; None: all of them
     dtype=torch.bfloat16,
+    tp=None,
 ):
     """Encoder-decoder cross-attention over a static memory: every query
     sees every frame below ``memory_len`` (``causal=False``), through K6
-    for St <= 8 rows and K7 above.  Returns (y, memory_kv)."""
+    for St <= 8 rows and K7 above.  Returns (y, memory_kv).
+
+    Under ``tp`` (MHA: a rank's query heads read their own kv heads)
+    this rank computes its ``H / m`` heads: ``q`` from its ``wq``
+    columns, ``k`` / ``v`` from its ``wk`` / ``wv`` columns (a
+    precomputed ``memory_kv`` is already its heads), each replicated
+    input (``x``, ``memory``) behind ``tp.products``; ``o`` is gathered
+    into ``wo``, which gives this rank's d_model columns
+    (:func:`~repro_torch.models.layers.dense_across`), as in
+    :func:`gqa_apply`."""
     b, st, _ = x.shape
-    hq, dh = cfg.n_heads, cfg.head_dim
-    q = layers.dense(params["wq"], x, dtype=dtype).reshape(b, st, hq, dh)
+    dh = cfg.head_dim
+    q = layers.dense_many([params["wq"]], x, dtype=dtype, tp=tp)[0].reshape(b, st, -1, dh)
+    hq = q.shape[2]
     if memory_kv is None:
         if memory is None:
             raise ValueError("cross-attention needs memory_kv or memory")
-        memory_kv = cross_kv(params, memory, cfg=cfg, dtype=dtype)
+        memory_kv = cross_kv(params, memory, cfg=cfg, dtype=dtype, tp=tp)
     attn = multi_head_attention(
         q,
         memory_kv["k"],
@@ -298,5 +311,5 @@ def cross_attention_apply(
         scale=1.0 / math.sqrt(dh),
         kv_len=memory_len,
     )
-    y = layers.dense(params["wo"], attn.reshape(b, st, hq * dh), dtype=dtype)
+    y = layers.dense_across(params["wo"], attn.reshape(b, st, hq * dh), dtype=dtype, tp=tp)
     return y, memory_kv

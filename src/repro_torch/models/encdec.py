@@ -15,6 +15,12 @@ and ``final_norm``.  The cache is ``{"self": [per-layer {"k", "v"} of
 (B, H, max_len, Dh)], "cross": [per-layer {"k", "v"} of (B, Ss, H,
 Dh)]}``; the self-attention rows are written in place, as the dense
 decoder's are.
+
+Inside a rank-local step under a tensor-parallel plan (``mesh_ctx``
+``tp_split``) every encoder self-attention, decoder self- and
+cross-attention computes this rank's heads, every MLP its d_ff columns,
+and the tied table's lookup and logits its vocabulary rows; each layer's
+leaves come through ``mesh_ctx.working`` just before it runs.
 """
 
 from __future__ import annotations
@@ -84,10 +90,10 @@ def encode(params, src_embeds, *, cfg, src_len=None, dtype=torch.bfloat16):
         lp = mesh_ctx.working(lp, ("enc_layers", i))
         h = layers.rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
         y, _ = gqa_apply(lp["attn"], h, cfg=cfg, positions=positions, causal=False,
-                         dtype=dtype)
+                         dtype=dtype, tp=mesh_ctx.tp_split("attn"))
         x = x + y
         h = layers.rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-        x = x + layers.mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+        x = x + layers.mlp(lp["mlp"], h, act=cfg.act, dtype=dtype, tp=mesh_ctx.tp_split("mlp"))
     return layers.rmsnorm(mesh_ctx.working(params["enc_norm"], ("enc_norm",)), x,
                           eps=cfg.norm_eps)
 
@@ -102,22 +108,23 @@ def decode_stack(params, tokens, memory, *, cfg, cache=None, cache_len=None,
     after the final norm, cache)."""
     b, st = tokens.shape
     x = layers.embed({"table": mesh_ctx.working(params["embed"]["table"], ("embed", "table"))},
-                     tokens, dtype=dtype)
+                     tokens, dtype=dtype, tp=mesh_ctx.tp_split("embed"))
     positions = default_positions(b, st, cache_len, x.device)
     for l, lp in enumerate(params["dec_layers"]):
         lp = mesh_ctx.working(lp, ("dec_layers", l))
         h = layers.rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
         y, _ = gqa_apply(lp["self_attn"], h, cfg=cfg, positions=positions,
                          cache=cache["self"][l] if cache is not None else None,
-                         cache_len=cache_len, dtype=dtype)
+                         cache_len=cache_len, dtype=dtype, tp=mesh_ctx.tp_split("attn"))
         x = x + y
         h = layers.rmsnorm(lp["ln_x"], x, eps=cfg.norm_eps)
         y, _ = cross_attention_apply(
             lp["cross_attn"], h, memory_kv=cache["cross"][l] if cache is not None else None,
-            memory=memory, cfg=cfg, memory_len=memory_len, dtype=dtype)
+            memory=memory, cfg=cfg, memory_len=memory_len, dtype=dtype,
+            tp=mesh_ctx.tp_split("cross"))
         x = x + y
         h = layers.rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-        x = x + layers.mlp(lp["mlp"], h, act=cfg.act, dtype=dtype)
+        x = x + layers.mlp(lp["mlp"], h, act=cfg.act, dtype=dtype, tp=mesh_ctx.tp_split("mlp"))
     return layers.rmsnorm(mesh_ctx.working(params["final_norm"], ("final_norm",)), x,
                           eps=cfg.norm_eps), cache
 

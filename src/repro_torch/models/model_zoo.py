@@ -207,17 +207,21 @@ class EncDecModel:
     def loss(self, params, batch, *, remat=False, n_loss_chunks=8):
         """Mean cross-entropy of the decoder's ``batch["labels"]`` (``-1``
         ignored, chunked) over the tied table; ``remat`` is accepted and
-        ignored, as in the reference."""
+        ignored, as in the reference.  Under a tensor-parallel plan the
+        loss is vocabulary-parallel (the plan's ``logits`` split)."""
         del remat
         hidden = self.forward(params, batch)
         return layers.chunked_cross_entropy(
             _loss_table(params, "embed"), hidden, batch["labels"],
             n_chunks=_loss_chunks(hidden.shape[1], n_loss_chunks), dtype=self.dtype,
+            tp=mesh_ctx.tp_split("logits"),
         )
 
     def logits(self, params, hidden):
+        """fp32 vocabulary logits of ``hidden`` over the tied table (under a
+        tensor-parallel plan this rank's rows, gathered)."""
         return layers.unembed(transformer.working_table(params, "embed", self.dtype), hidden,
-                              dtype=self.dtype)
+                              dtype=self.dtype, tp=mesh_ctx.tp_split("logits"))
 
     def init_cache(self, params, src_embeds, max_len, dtype=None) -> dict:
         """Encode ``src_embeds (B, Ss, d)`` and precompute every layer's

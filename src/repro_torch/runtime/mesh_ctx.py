@@ -18,13 +18,14 @@ through :func:`on_ranks` and :func:`rank_rows`.
 ``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks: a
 :class:`~repro_torch.runtime.sharding.TPPlan` saying which modules this
 rank computes split (its heads, d_ff columns, Mamba-2 heads, RG-LRU
-channels and vocabulary rows) and how.  Everywhere else it is ``None``
-and every layer computes whole.  The layers count what they did under a
-plan in :data:`TP_COUNTS` (``attn``, ``mlp``, ``moe``, ``ssm``, ``rec``,
-``embed``, ``logits`` (the serve step's logits or the train step's loss),
-each split or ``*_whole``: ``ssm_whole`` where the heads do not divide
-over ``model``), once per call: a layer that remat runs again in the
-backward is counted again there.
+channels, cross-attention heads and vocabulary rows) and how.
+Everywhere else it is ``None`` and every layer computes whole.  The
+layers count what they did under a plan in :data:`TP_COUNTS` (``attn``,
+``cross`` (an encoder-decoder's cross-attention), ``mlp``, ``moe``,
+``ssm``, ``rec``, ``embed``, ``logits`` (the serve step's logits or the
+train step's loss), each split or ``*_whole``: ``ssm_whole`` where the
+heads do not divide over ``model``), once per call: a layer that remat
+runs again in the backward is counted again there.
 
 ``gather`` is set by the rank-local serve and train steps, whose model
 receives this rank's shards of the parameters: a
@@ -87,8 +88,8 @@ def rank_rows() -> tuple:
 
 def tp_split(module: str):
     """The current :class:`~repro_torch.runtime.sharding.TPPlan` where it
-    splits ``module`` (``"attn"``, ``"mlp"``, ``"moe"``, ``"embed"``,
-    ``"logits"``, ``"ssm"`` or ``"rec"``), else ``None``; under a plan the
+    splits ``module`` (``"attn"``, ``"cross"``, ``"mlp"``, ``"moe"``,
+    ``"embed"``, ``"logits"``, ``"ssm"`` or ``"rec"``), else ``None``; under a plan the
     call is counted in :data:`TP_COUNTS` either way, so a module that runs
     whole is never silent."""
     plan = _CURRENT["tp_local"]

@@ -94,7 +94,11 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
     model on the local shards (on a one-rank mesh the tensors themselves,
     so the cache is written in place, as the model writes it).  ``cache_len``
     is the replicated host value and passes as it is.  ``params_like`` and
-    ``cache_like`` are read for their shapes only.
+    ``cache_like`` are read for their shapes only.  The model's method is
+    read when the compiled function is called: an encoder-decoder (whose
+    ``init_cache`` the caller runs over the source frames) gets a working
+    ``compile_decode``, and its prefill raises at use
+    (:func:`_model_call`).
 
     On a mesh of several ranks every rank calls the function with the
     same arguments, each leaf a full value or a placed ``DTensor``, and
@@ -109,11 +113,12 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
     param_sh = sharding.make_shardings(mesh, params_like, pfn)
     cache_sh = sharding.make_shardings(mesh, cache_like, cfn)
 
-    def compiler(call):
+    def compiler(name):
         def compile_for(tokens_like):
             shs = (param_sh, cache_sh, sharding.make_shardings(mesh, tokens_like, bfn))
 
             def run(params, cache, tokens, *args, **kw):
+                call = _model_call(model, name)
                 if mesh.device_mesh().size() > 1:
                     return _serve_on_ranks(call, model.cfg, mesh, policy, multi_pod, shs,
                                            (params, cache, tokens), args, kw)
@@ -124,8 +129,23 @@ def jit_serve_fns(model, mesh, params_like, cache_like, *, multi_pod=False,
 
         return compile_for
 
-    return (compiler(model.prefill), compiler(model.decode_step),
+    return (compiler("prefill"), compiler("decode_step"),
             {"params": param_sh, "cache": cache_sh})
+
+
+def _model_call(model, name):
+    """``model``'s method ``name``, read when a compiled function is
+    called (as the reference's ``prefill_fn`` reads ``model.prefill`` only
+    when traced): an encoder-decoder has no ``prefill``, so its
+    ``compile_prefill`` raises at use and its ``compile_decode`` works."""
+    call = getattr(model, name, None)
+    if call is None:
+        raise ValueError(
+            f"{model.cfg.name!r} has no {name}: an encoder-decoder is served through "
+            "EncDecModel.init_cache(params, src_embeds, max_len) (the encoder and every "
+            "layer's cross K/V) and EncDecModel.decode_step (the target prompt at "
+            "cache_len 0, then one token a step)")
+    return call
 
 
 def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args, kw):
@@ -159,7 +179,11 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
       the cache is what the one-process call leaves there.  A split
       Mamba-2 or RG-LRU block's state is the rank's heads or channels
       (:class:`~repro_torch.runtime.sharding.BlockStates`), put back
-      after the call.
+      after the call.  A split encoder-decoder's cross-attention K/V
+      (precomputed by the caller's ``init_cache``, read-only) are the
+      rank's heads (:meth:`~repro_torch.runtime.sharding.TPPlan.cross_caches`:
+      views of a replica, or one all-to-all for every layer under
+      ``tp_fsdp``), neither gathered whole nor written back.
     * The logits are all-gathered over ``rows``: every rank returns the
       whole batch's, as the reference returns its global array.
     """
@@ -189,6 +213,11 @@ def _serve_on_ranks(call, cfg, mesh, policy, multi_pod, shardings, inputs, args,
     block_states = (plan.state_caches([(p, flat_local[p], flat_sh[p]) for p in states])
                     if states else None)
     kv_work.update(zip(states, block_states.work if states else []))
+    # a split cross-attention's K/V: read-only, this rank's heads, never written back
+    cross = [p for p in flat_local if plan is not None and plan.splits_cross(p)]
+    if cross:
+        kv_work.update(zip(cross, plan.cross_caches([(flat_local[p], flat_sh[p])
+                                                     for p in cross])))
 
     def to_work(path, local):
         if path in kv_work:

@@ -48,7 +48,8 @@ shards; a serve step uses a leaf its caller hands whole as it is
 
 Under ``tp`` and ``tp_fsdp`` on a ``model`` axis of several ranks the
 rank-local serve and train steps split their compute as the specs lay
-the weights out (:func:`tp_plan`, :class:`TPPlan`): the attention layers,
+the weights out (:func:`tp_plan`, :class:`TPPlan`): the attention layers
+(an encoder-decoder's cross-attention too),
 the dense MLPs and the embedding tables keep this rank's ``model`` shard
 of every leaf whose spec names ``model`` (gathered over the data axes
 only), and compute only its heads, d_ff columns, d_model columns and
@@ -542,6 +543,11 @@ BLOCK_KINDS = {"ssm": "ssm", "rec": "recurrent"}
 # the whole 1-D leaves of a split block that a rank reads only at its heads
 # or channels (their gradients are partial over ``model``)
 BLOCK_PARTIAL = {"ssm": ("conv_b", "a_log", "dt_bias", "d_skip"), "rec": ("conv_b", "lam")}
+# the per-layer parameter lists: a decoder-only stack's, an encoder-decoder's
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+# a layer's subtree name -> the module (``TPPlan.splits``) it belongs to
+SUBLAYERS = {"attn": "attn", "self_attn": "attn", "cross_attn": "cross", "mlp": "mlp",
+             "ssm": "ssm", "rec": "rec"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -556,8 +562,11 @@ class TPPlan:
     they are whole, the Megatron rule, and the rank slices the kv heads
     its query heads read); ``ssm`` / ``rec``: every Mamba-2 block computes
     its ``nh / m`` heads, every RG-LRU block its ``d_inner / m`` channels
-    (their state too: :meth:`state_caches`).  Set into ``mesh_ctx``
-    (``tp_local``) for the call.
+    (their state too: :meth:`state_caches`); ``cross``: every
+    encoder-decoder cross-attention layer its ``n_heads / m`` heads (its
+    precomputed K/V too: :meth:`cross_caches`).  ``attn`` covers an
+    encoder-decoder's encoder and decoder self-attention.  Set into
+    ``mesh_ctx`` (``tp_local``) for the call.
 
     Its collectives are differentiable (Megatron's operators,
     :mod:`repro_torch.core.distributed`): :meth:`copy` (or
@@ -580,10 +589,12 @@ class TPPlan:
     moe: str | None = None
     ssm: bool = False
     rec: bool = False
+    cross: bool = False
 
     def splits(self, module: str) -> bool:
         return {"attn": self.attn, "mlp": self.mlp, "embed": self.vocab, "logits": self.vocab,
-                "moe": self.moe is not None, "ssm": self.ssm, "rec": self.rec}[module]
+                "moe": self.moe is not None, "ssm": self.ssm, "rec": self.rec,
+                "cross": self.cross}[module]
 
     def part(self, n: int, idx: int | None = None) -> tuple[int, int]:
         """Rank ``idx``'s (default this rank's) ``[lo, hi)`` of ``n`` split
@@ -632,18 +643,34 @@ class TPPlan:
 
     def kv_head_caches(self, leaves) -> list:
         """The working caches of split GQA layers: for each ``(local
-        shard, sharding)`` of a ``k`` / ``v`` leaf, its rows of this
-        rank's kv heads, whole.  A replica (``tp``) gives views of its own
-        heads; a cache whose width is over ``model`` (``tp_fsdp``) trades
-        slices in one all-to-all for every leaf: each rank sends every
-        rank its width slice of that rank's kv heads."""
+        shard, sharding)`` of a ``(B, Hkv, S, Dh)`` ``k`` / ``v`` leaf,
+        its rows of this rank's kv heads, whole (:meth:`_head_caches`)."""
+        return self._head_caches(leaves, 1, self.kv_heads_of)
+
+    def cross_caches(self, leaves) -> list:
+        """The working K/V of split cross-attention layers: for each
+        ``(local shard, sharding)`` of a ``(B, Ss, H, Dh)`` ``k`` / ``v``
+        leaf, this rank's ``n_heads / m`` heads over every frame
+        (:meth:`_head_caches`).  Read-only: nothing goes back."""
+        return self._head_caches(leaves, 2, lambda r: self.part(self.n_heads, r))
+
+    def _head_caches(self, leaves, dim: int, heads_of) -> list:
+        """Each leaf's heads ``heads_of(this rank)`` (on ``dim``), whole.
+        A replica (``tp``) gives views of its own heads; a cache whose
+        width (its last dim) is over ``model`` (``tp_fsdp``) trades slices
+        in one all-to-all for every leaf: each rank sends every rank its
+        width slice of that rank's heads."""
+        def span(r):  # (start, length) of rank r's heads
+            lo, hi = heads_of(r)
+            return lo, hi - lo
+
         if all(len(sh.spec) < 4 or sh.spec[3] is None for _, sh in leaves):
-            return [t[:, slice(*self.kv_heads)] for t, _ in leaves]
-        send = torch.stack([torch.stack([t[:, slice(*self.kv_heads_of(r))] for t, _ in leaves])
-                            for r in range(self.m)])  # (m, leaves, B, kv heads, S, Dh / m)
+            return [t.narrow(dim, *span(self.idx)) for t, _ in leaves]
+        send = torch.stack([torch.stack([t.narrow(dim, *span(r)) for t, _ in leaves])
+                            for r in range(self.m)])  # (m, leaves, B, ..., width / m)
         got = all_to_all(send, "model", mesh=self.mesh)
-        m, n, b, h, s, w = got.shape
-        return list(got.permute(1, 2, 3, 4, 0, 5).reshape(n, b, h, s, m * w))
+        # each rank's width slice next to the others': (leaves, B, ..., m, width / m)
+        return list(got.movedim(0, -2).reshape(*got.shape[1:-1], self.m * got.shape[-1]))
 
     def keeps(self, name: str, spec) -> bool:
         """Whether the parameter at ``name`` stays this rank's ``model``
@@ -654,11 +681,10 @@ class TPPlan:
         parts = name.split("/")
         if parts[0] in ("embed", "unembed"):
             return self.vocab
-        if parts[0] == "layers" and len(parts) > 2:
+        if parts[0] in LAYER_STACKS and len(parts) > 2:
             if parts[2] == "mlp" and self.moe is not None:
                 return parts[3] in EXPERT_LEAVES
-            return {"attn": self.attn, "mlp": self.mlp, "ssm": self.ssm,
-                    "rec": self.rec}.get(parts[2], False)
+            return parts[2] in SUBLAYERS and self.splits(SUBLAYERS[parts[2]])
         return False
 
     def partial(self, name: str, spec) -> bool:
@@ -667,28 +693,42 @@ class TPPlan:
         this rank's term of a sum over ``model``: a split attention
         layer's every other leaf (the q / k / v biases and a whole ``wk`` /
         ``wv`` sliced to the rank's heads, the QK-norm scales applied to
-        them); a split Mamba-2 block's ``conv_b`` (at its conv channels),
-        ``a_log``, ``dt_bias`` and ``d_skip`` (at its heads), a split
+        them; an encoder-decoder's layers have none of these); a split
+        Mamba-2 block's ``conv_b`` (at its conv channels), ``a_log``, ``dt_bias`` and ``d_skip`` (at its heads), a split
         RG-LRU block's ``conv_b`` and ``lam`` (at its channels).  A
         Mamba-2 block's norm scale is applied to the gathered output on
         every rank alike, so its gradient is whole."""
         parts = name.split("/")
-        if parts[0] != "layers" or len(parts) < 4:
+        if parts[0] not in LAYER_STACKS or len(parts) < 4:
             return False
         if parts[2] in BLOCK_PARTIAL:
             return self.splits(parts[2]) and parts[3] in BLOCK_PARTIAL[parts[2]]
-        return self.attn and parts[2] == "attn" and not self.keeps(name, spec)
+        module = SUBLAYERS.get(parts[2])
+        return (module in ("attn", "cross") and self.splits(module)
+                and not self.keeps(name, spec))
 
     def splits_cache(self, path) -> bool:
         """Whether the cache leaf at ``path`` is a split GQA layer's ``k``
-        or ``v``: its working cache holds this rank's kv heads only."""
-        return (self.attn and not self.mla and self.kinds[path[0]] in ("global", "local")
+        or ``v`` (a decoder-only layer's, or an encoder-decoder's
+        ``("self", l, ...)``): its working cache holds this rank's kv
+        heads only."""
+        if path[0] == "cross":
+            return False
+        layer = path[1] if path[0] == "self" else path[0]
+        return (self.attn and not self.mla and self.kinds[layer] in ("global", "local")
                 and path[-1] in ("k", "v"))
+
+    def splits_cross(self, path) -> bool:
+        """Whether the cache leaf at ``path`` is a split cross-attention
+        layer's ``k`` or ``v`` (``("cross", l, ...)``, :meth:`cross_caches`)."""
+        return self.cross and path[0] == "cross" and path[-1] in ("k", "v")
 
     def splits_state(self, path) -> bool:
         """Whether the cache leaf at ``path`` is a split Mamba-2 or RG-LRU
         block's ``h`` or ``conv``: its working state holds this rank's
         heads or channels only (:meth:`state_caches`)."""
+        if path[0] in ("self", "cross"):
+            return False
         kind = self.kinds[path[0]]
         return (((self.ssm and kind == "ssm") or (self.rec and kind == "recurrent"))
                 and path[-1] in ("h", "conv"))
@@ -850,12 +890,24 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
       every expert (the router is read whole either way);
     * the vocabulary: every embedding table on ``model`` by its rows;
     * Mamba-2 and RG-LRU blocks: whole heads or channels a rank, their
-      leaves and state laid out as :func:`block_splits` checks.
+      leaves and state laid out as :func:`block_splits` checks;
+    * an encoder-decoder: ``attn`` by the GQA rule in every encoder layer
+      (``enc_layers/<i>/attn``, no cache) and every decoder self-attention
+      (``dec_layers/<l>/self_attn``, its cache ``("self", l, "k" | "v")``
+      ``(B, H, S, Dh)``), the dense MLP rule in both stacks, the tied
+      table by its rows; ``cross`` where every cross-attention
+      (``dec_layers/<l>/cross_attn``) has ``n_heads % m == 0`` and ``wq``
+      / ``wk`` / ``wv`` / ``wo`` on ``model`` by their output dim, and its
+      precomputed K/V ``("cross", l, "k" | "v")`` ``(B, Ss, H, Dh)`` the
+      cache rule's layout (frames and heads not sharded, the width whole
+      or over ``model``, the batch over ``rows``).  seamless-m4t-medium's
+      256 206 rows split over ``model`` 2 but not 4: there the specs put
+      the table on its columns, and the lookup and the logits run whole.
 
     A module that fails its rule runs whole after the gather, counted as
     such (``mesh_ctx.TP_COUNTS``)."""
     m = mesh.shape["model"]
-    if policy not in ("tp", "tp_fsdp") or m < 2 or cfg.family == "encdec":
+    if policy not in ("tp", "tp_fsdp") or m < 2:
         return None
     specs = {path_str(p): sh.spec for p, sh in _tree.leaves_with_paths(param_sh)}
     cspecs = {} if cache_sh is None else dict(
@@ -866,30 +918,42 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
 
     kinds = tuple(cfg.layer_kinds())
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
-    attn_layers = [l for l, k in enumerate(kinds) if k in ("global", "local")]
+    encdec = cfg.family == "encdec"
+    # each self-attention layer's parameter prefix and its cache's key (None: no cache)
+    if encdec:
+        attn_layers = ([(f"enc_layers/{i}/attn/", None) for i in range(cfg.encoder_layers)]
+                       + [(f"dec_layers/{l}/self_attn/", ("self", l))
+                          for l in range(cfg.n_layers)])
+    else:
+        attn_layers = [(f"layers/{l}/attn/", (l,)) for l, k in enumerate(kinds)
+                       if k in ("global", "local")]
 
-    def gqa(l):
-        a = f"layers/{l}/attn/"
+    def laid_out(key):  # a k / v cache the split computes on, or no cache
+        return cache_sh is None or key is None or all(
+            c[1] is None and c[2] is None and c[3] in (None, "model")
+            and spec_axes(c[0]) == tuple(rows)
+            for c in (cspecs[key + ("k",)], cspecs[key + ("v",)]))
+
+    def gqa(a, key):
         kv = {on(a + "wk/w", 1), on(a + "wv/w", 1)}
         group, per = hq // hkv, hq // m
         kv_ok = (kv == {True} and hkv % m == 0) or (kv == {False} and (
             per % group == 0 or group % per == 0))
-        cache_ok = cache_sh is None or all(
-            c[1] is None and c[2] is None and c[3] in (None, "model")
-            and spec_axes(c[0]) == tuple(rows) for c in (cspecs[(l, "k")], cspecs[(l, "v")]))
-        return on(a + "wq/w", 1) and on(a + "wo/w", 1) and kv_ok and cache_ok
+        return on(a + "wq/w", 1) and on(a + "wo/w", 1) and kv_ok and laid_out(key)
 
-    def mla(l):
-        a = f"layers/{l}/attn/"
+    def mla(a, key):
         return (all(on(a + n, 1) for n in ("wq_nope", "wq_rope", "wkv_down/w", "wk_rope/w",
                                             "wo/w"))
                 and all(on(a + n, 0) for n in ("w_uk", "w_uv")))
 
     attn = bool(attn_layers) and hq % m == 0 and all(
-        (mla if cfg.mla else gqa)(l) for l in attn_layers)
-    mlp_layers = [l for l, k in enumerate(kinds) if f"layers/{l}/mlp/gate/w" in specs]
+        (mla if cfg.mla else gqa)(a, key) for a, key in attn_layers)
+    cross = encdec and hq % m == 0 and all(
+        all(on(f"dec_layers/{l}/cross_attn/{n}/w", 1) for n in ("wq", "wk", "wv", "wo"))
+        and laid_out(("cross", l)) for l in range(cfg.n_layers))
+    mlp_layers = [n[:-len("gate/w")] for n in specs if n.endswith("/mlp/gate/w")]
     mlp = (not cfg.n_experts and bool(mlp_layers) and all(
-        on(f"layers/{l}/mlp/{n}/w", 1) for l in mlp_layers for n in ("gate", "up", "down")))
+        on(f"{a}{n}/w", 1) for a in mlp_layers for n in ("gate", "up", "down")))
     moe_layers = [l for l in range(len(kinds)) if f"layers/{l}/mlp/router" in specs]
     moe = None
     if moe_layers and all(on(f"layers/{l}/mlp/{n}", 0) for l in moe_layers
@@ -899,13 +963,13 @@ def tp_plan(cfg, mesh, policy, param_sh, cache_sh=None, rows=()) -> TPPlan | Non
                             and on(f"layers/{l}/mlp/down", 1) for l in moe_layers):
         moe = "ff"
     tables = [n for n in ("embed/table", "unembed/table") if n in specs]
-    kv_local = attn and not cfg.mla and on(f"layers/{attn_layers[0]}/attn/wk/w", 1)
+    kv_local = attn and not cfg.mla and on(attn_layers[0][0] + "wk/w", 1)
 
     ssm, rec = block_splits(cfg, m, specs, None if cache_sh is None else cspecs, rows)
     return TPPlan(mesh=mesh, m=m, idx=axis_index(("model",), mesh)[0], kinds=kinds,
                   n_heads=hq, n_kv_heads=hkv, mla=cfg.mla is not None, attn=attn, mlp=mlp,
                   vocab=all(on(n, 0) for n in tables), kv_local=kv_local, moe=moe, ssm=ssm,
-                  rec=rec)
+                  rec=rec, cross=cross)
 
 
 def from_local(local: torch.Tensor, sh: NamedSharding, shape):

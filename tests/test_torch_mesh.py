@@ -304,6 +304,40 @@ def test_jit_serve_fns_equal_the_models_calls(group):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("policy", ["tp", "tp_fsdp"])
+def test_jit_serve_fns_serve_an_encoder_decoder(group, policy):
+    """``jit_serve_fns`` of an ``EncDecModel`` (no ``prefill``) on the 1 x 1
+    mesh: it returns; its decode of the target prompt at ``cache_len`` 0
+    and of one token after it, over the caller's ``init_cache``, is
+    bit-equal to ``decode_step``'s, logits and caches; its
+    ``compile_prefill`` raises at use, naming the serving form, as the
+    reference's fails only when traced."""
+    cfg = get_config("seamless-m4t-medium", smoke=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(2)
+    src = torch.from_numpy((rng.standard_normal((2, 10, cfg.d_model)) * 0.02).astype(np.float32))
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 6)))
+    nxt = torch.tensor([[7], [9]])
+    caches = [model.init_cache(params, src, 16) for _ in range(2)]
+    mesh = port_mesh.make_debug_mesh("cpu")
+    compile_prefill, compile_decode, sh = serve_loop.jit_serve_fns(
+        model, mesh, model.init(None, "meta"), caches[0], policy=policy)
+    assert set(sh) == {"params", "cache"}
+    zeros, six = np.zeros((2,), np.int32), np.full((2,), 6, np.int32)
+    got = [compile_decode(prompt)(params, caches[0], prompt, zeros),
+           compile_decode(nxt)(params, caches[0], nxt, six)]
+    want = [model.decode_step(params, caches[1], prompt, zeros),
+            model.decode_step(params, caches[1], nxt, six)]
+    for g, w in zip(got, want):
+        assert torch.equal(g[0], w[0])
+    for a, b in zip(tree.leaves(caches[0]), tree.leaves(caches[1]), strict=True):
+        assert torch.equal(a, b)
+    prefill = compile_prefill(prompt)
+    with pytest.raises(ValueError, match=r"init_cache.*decode_step"):
+        prefill(params, caches[0], prompt)
+
+
 def test_reshard_train_state_preserves_values(group):
     """``test_runtime.py``'s elastic case: 1 x 1 -> 1 x 1, every leaf
     bit-equal, placed by the new mesh's specs."""

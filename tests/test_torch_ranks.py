@@ -133,9 +133,19 @@ def ref_serve(ref_model, ref_params, prompt, tokens):
 
 
 def train_batches(arch="qwen1.5-0.5b"):
+    """Two global batches of 8 x 32 (seed 0); an encoder-decoder's also
+    carry 16 source frames a row (numpy seed 4, x 0.02) and ``src_len``
+    (some rows shorter: the cross-attention's bound)."""
     cfg = get_config(arch, smoke=True)
     data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8, seed=0)
-    return [data.batch_at(0), data.batch_at(1)]
+    batches = [data.batch_at(0), data.batch_at(1)]
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(4)
+        for batch in batches:
+            batch["src_embeds"] = (rng.standard_normal((8, 16, cfg.d_model))
+                                   * 0.02).astype(np.float32)
+            batch["src_len"] = rng.integers(9, 17, size=8).astype(np.int32)
+    return batches
 
 
 # reference key -> (arch, config changes), for a serve case whose model is
@@ -190,6 +200,18 @@ SERVE = {  # name -> (arch or VARIANTS key, mesh, policy, world)
 }
 # the MoE serve cases: name -> the split of the experts
 MOE_SERVE = {"moe tp 1x2": "ep", "moe tp_fsdp 2x2 drops": "ep", "granite ff tp 1x4": "ff"}
+# the encoder-decoder's serve cases: name -> (mesh, policy, world); smoke
+# seamless-m4t-medium (MHA 4 / 4 heads): each rank its 2 heads of every
+# self- and cross-attention (tp_fsdp: the cross K/V's width over model, one
+# all-to-all a call to the rank's heads)
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_SERVE = {"seamless tp 1x2": ("1x2", "tp", 2), "seamless tp_fsdp 1x2": ("1x2", "tp_fsdp", 2),
+                "seamless tp_fsdp 2x2": ("2x2", "tp_fsdp", 4)}
+SRC_LEN = 20  # source frames of the encoder-decoder's serve cases
+# 6 heads do not split over model 4: every encoder and decoder attention
+# and every cross-attention runs whole, counted so; MLPs and vocabulary split
+WHOLE_ENCDEC = dict(spec="1x4", policy="tp", cfg_changes=dict(n_heads=6, n_kv_heads=6),
+                    whole=("attn", "cross"))
 # the same cases with the parameters handed as whole tensors, which a serve
 # step uses as they are (nothing gathered): name -> the placed case
 SERVE_WHOLE = {"seqkv 1x2 whole": "seqkv 1x2", "fsdp 2x1 whole": "fsdp 2x1",
@@ -252,6 +274,13 @@ TRAIN_CASES = {  # name -> (arch, mesh, policy, compression, grad_accum, world[,
     "mamba2 1x2 tp none": ("mamba2-370m", "1x2", "tp", "none", 1, 2),
     "recurrentgemma 1x2 tp_fsdp none remat": ("recurrentgemma-2b", "1x2", "tp_fsdp", "none", 1,
                                               2, dict(remat=True)),
+    # the encoder-decoder: encoder and decoder self-attention, cross-attention
+    # (its K/V from the encoder output, replicated: tp.products), MLPs and the
+    # tied table split; source frames bounded by src_len; fp32 products in the
+    # attention backward (F32_SPLIT)
+    "seamless 1x2 tp none": (ENCDEC, "1x2", "tp", "none", 1, 2, dict(f32_products=True)),
+    "seamless 2x2 tp_fsdp none": (ENCDEC, "2x2", "tp_fsdp", "none", 1, 4, dict(
+        f32_products=True)),
 }
 # The MoE layer's input cotangent is a sum over the ranks, added in another
 # order than one rank's backward adds it; upstream, attention rounds its
@@ -278,6 +307,22 @@ SPLIT_MU_TOL = 2.0**-8
 # FLIP_SHARE bounds): those are held by chip_smoke.py's RANK_TRAIN_REL;
 # the controls by STEP_TOL.
 SPLIT_NORM_TOL = 1e-5
+# The encoder-decoder chains six attention backwards (each decoder
+# layer's self- and cross-attention, the cross-attention's K / V into the
+# encoder's), and on its smoke model (loss ~31) the bf16 roundings of
+# their products (core/flash.matmul) move grad_norm by 7.6e-6 at the first
+# step, 3.2e-5 at the second from the rank's own state and 8.9e-4 after
+# two steps: that is those roundings, not the split.  So its train cases
+# run the blockwise backward's products at fp32 in both runs (the
+# controls' form), where what is left is the split's fp32 summation order,
+# and are held by the split cases' bounds: grad_norm measured 0 from one
+# rank's at the first step and from the rank's own state; the first moment
+# 1.3e-6 of a leaf's largest.  After two steps 6.9e-7 on 1 x 2; on 2 x 2
+# the gradient's sum over the data ranks moves the first step's parameters
+# by 2.3e-7 of a leaf's largest (no element flips sign: 0.0045 x 2 lr), and
+# this model's grad_norm moves 1.6e-5 for it (from the rank's own state: 0),
+# so that trajectory is held as the DIVERGE ones are.
+F32_SPLIT = {"seamless 1x2 tp none", "seamless 2x2 tp_fsdp none"}
 # Adam's first step moves an element whose gradient is noise (<= 1e-7 of
 # its leaf's largest, e.g. layers/0/attn/w_uv of the mla case) by +-lr
 # either way: measured 0.81 (mla), 0.82 (whole heads), 0.50 (int8) and
@@ -286,7 +331,7 @@ SPLIT_NORM_TOL = 1e-5
 # are held by NORM_TOL; every case's second step from the rank's own state
 # is held too (held1).
 DIVERGE = {"mla tp 1x2 none", "whole heads tp 1x2 none", "tp_fsdp 1x2 int8", "moe tp 1x2 none",
-           "moe tp_fsdp 2x2 none remat"}
+           "moe tp_fsdp 2x2 none remat", "seamless 2x2 tp_fsdp none"}
 
 
 @pytest.fixture(scope="module")
@@ -308,7 +353,39 @@ def refs():
                  {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(3))
     out["train"] = dict(params=params, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
     out["blocks"] = {name: ref_block(*case) for name, case in BLOCKS.items()}
+    out[ENCDEC] = ref_encdec()
     return out
+
+
+def ref_encdec():
+    """Smoke seamless-m4t-medium: the reference's weights (converted),
+    numpy-seeded source frames (x 0.02), a target prompt and teacher-forced
+    tokens, and the reference's serving form (``init_cache`` over the
+    frames, ``decode_step`` over the prompt at ``cache_len`` 0, then one
+    column a step), its attention in ``pallas_interpret`` as
+    ``tests/test_torch_encdec.py`` runs it, each call a single-device
+    ``jax.jit``: the logits of each call and the self cache after."""
+    import dataclasses
+
+    ref_cfg = dataclasses.replace(ref_get_config(ENCDEC, smoke=True), attn_impl="pallas_interpret")
+    ref_model = ref_build_model(ref_cfg)
+    ref_params = ref_model.init(jax.random.PRNGKey(0))
+    cfg = get_config(ENCDEC, smoke=True)
+    rng = np.random.default_rng(5)
+    src = (rng.standard_normal((B, SRC_LEN, cfg.d_model)) * 0.02).astype(np.float32)
+    prompt, tokens = tokens_for(ENCDEC)
+    init = jax.jit(lambda p, x: ref_model.init_cache(p, x, MAX_LEN))
+    decode = jax.jit(lambda p, c, t, n: ref_model.decode_step(p, c, t, n))
+    cache = init(ref_params, jnp.asarray(src))
+    want = []
+    for lo, hi in ((0, PROMPT),) + tuple((PROMPT + i, PROMPT + i + 1) for i in range(DECODE)):
+        toks = prompt if lo == 0 else tokens[:, lo - PROMPT:hi - PROMPT]
+        logits, cache = decode(ref_params, cache, jnp.asarray(toks),
+                               jnp.full((B,), lo, jnp.int32))
+        want.append(np.asarray(logits))
+    return dict(params=convert_params(ref_params, cfg, device="cpu"), src=src, prompt=prompt,
+                tokens=tokens, want=want, self_cache={k: np.asarray(v)
+                                                      for k, v in cache["self"].items()})
 
 
 def ref_block(arch, kind, s):
@@ -354,8 +431,12 @@ def split_counts(arch, calls=1 + DECODE):
     """The split counts a tensor-parallel serve run of ``calls`` calls
     gives: every attention layer, every dense MLP or MoE layer's experts,
     every Mamba-2 and RG-LRU block, the embedding lookup and the logits,
-    once a call each."""
+    once a call each (an encoder-decoder's decode step: every decoder
+    layer's self-attention, cross-attention and MLP)."""
     cfg = get_config(arch, smoke=True)
+    if cfg.family == "encdec":
+        n = calls * cfg.n_layers
+        return {"attn": n, "cross": n, "mlp": n, "embed": calls, "logits": calls}
     kinds = cfg.layer_kinds()
     out = {"attn": calls * sum(k in ("global", "local") for k in kinds),
            "moe" if cfg.n_experts else "mlp": calls * sum(k != "ssm" for k in kinds),
@@ -388,6 +469,17 @@ def cases_for(world, refs):
             cases.append((name, dict(case="train", arch=arch, params=params,
                                      batches=train_batches(arch), spec=spec, policy=policy,
                                      compression=comp, grad_accum=accum, **opts)))
+    r = refs[ENCDEC]
+    for name, (spec, policy, w) in ENCDEC_SERVE.items():
+        if w == world:
+            cases.append((name, dict(case="encdec_serve", params=r["params"], spec=spec,
+                                     policy=policy, src=r["src"], prompt=r["prompt"],
+                                     tokens=r["tokens"], max_len=MAX_LEN)))
+    if world == 4:
+        cases.append(("whole encdec", dict(
+            WHOLE_ENCDEC, case="encdec_serve", params=own_params(ENCDEC,
+                                                                 WHOLE_ENCDEC["cfg_changes"]),
+            src=r["src"], prompt=r["prompt"], tokens=r["tokens"], max_len=MAX_LEN)))
     for spec in (["1x2", "2x1"] if world == 2 else ["2x2"]):
         cases.append((f"round_trip {spec}", dict(case="round_trip", spec=spec)))
     if world == 4:
@@ -519,6 +611,57 @@ def test_heads_that_do_not_divide_run_whole(ranks):
         assert {k: v for k, v in r["counts"].items() if k != "collectives"} == want
 
 
+@pytest.mark.parametrize("name", list(ENCDEC_SERVE))
+def test_encdec_serve_on_ranks(ranks, refs, name):
+    """Smoke seamless-m4t-medium in the reference's serving form on ranks:
+    the caller's ``init_cache`` (the encoder and every layer's cross K/V,
+    whole), then ``jit_serve_fns``' decode of the 12-token target prompt
+    at ``cache_len`` 0 (K7) and two teacher-forced steps (K6).  Every rank
+    returns the whole batch's logits, the same on every rank, within the
+    model bound of the one-process run and of the reference (greedy tokens
+    equal), its shard of the self cache within that bound of the
+    one-process run's, the gathered self cache within it of the
+    reference's, and its shard of the cross K/V bit-equal to the caller's
+    (never written); every kept leaf ``1 / m`` of its whole in what the
+    decode computed on (each decoder layer gathered in order at its use,
+    no encoder leaf used), and every self- and cross-attention, MLP,
+    lookup and logits split."""
+    r_ref = refs[ENCDEC]
+    res = ranks[name]
+    for r in res:
+        assert r["returned_cache"]
+        for g, g0 in zip(r["logits"], res[0]["logits"]):
+            assert g.shape == g0.shape and np.array_equal(g, g0)
+        assert r["logits_err"] <= MODEL_TOL and r["cache_err"] <= MODEL_TOL
+        assert r["tokens_equal"] and r["cross_equal"]
+        assert r["held_ok"] and r["local_leaves"] > 0
+        assert r["layer_gathers"] == layer_gathers(ENCDEC, name)
+        assert r["gathered_peak"] <= r["gather_bound"] and r["gathered_live"] == 0
+        assert {k: v for k, v in r["counts"].items() if k != "collectives"} == split_counts(
+            ENCDEC)
+    for g, w in zip(res[0]["logits"], r_ref["want"], strict=True):
+        assert g.shape == w.shape and max_err(g, w) <= MODEL_TOL
+    rows = PROMPT + DECODE
+    for l, c in enumerate(res[0]["self_cache"]):  # port (B, H, S, Dh), reference (L, B, S, H, Dh)
+        for k in ("k", "v"):
+            assert max_err(c[k].transpose(0, 2, 1, 3)[:, :rows],
+                           r_ref["self_cache"][k][l][:, :rows]) <= MODEL_TOL
+
+
+def test_encdec_heads_that_do_not_divide_run_whole(ranks):
+    """Smoke seamless-m4t-medium with 6 heads over ``model`` 4: every
+    decoder self- and cross-attention runs whole after the gather (its
+    leaves whole, counted ``attn_whole`` / ``cross_whole``), the MLPs and
+    the vocabulary split; logits and self cache within the model bound of
+    the one-process run, greedy tokens equal, the cross K/V untouched."""
+    want = split_counts(ENCDEC)
+    want["attn_whole"], want["cross_whole"] = want.pop("attn"), want.pop("cross")
+    for r in ranks["whole encdec"]:
+        assert r["logits_err"] <= MODEL_TOL and r["cache_err"] <= MODEL_TOL and r["tokens_equal"]
+        assert r["cross_equal"] and r["held_ok"] and r["local_leaves"] > 0
+        assert {k: v for k, v in r["counts"].items() if k != "collectives"} == want
+
+
 # the dry-run check's models: arch -> the split decode step's all-gathers
 COUNT_ARCHS = {
     # o, wo, the MLP's h and down in each of 2 layers, the logits, the new K/V rows
@@ -530,13 +673,16 @@ COUNT_ARCHS = {
     # each of 2 attention layers, the MLP's 2 in each of 7, the logits, the
     # new K/V rows, the states
     "recurrentgemma-2b": 36,
+    # o, wo, the cross-attention's o and wo, the MLP's 2 in each of 2 decoder
+    # layers, the logits, the new self-attention K/V rows (the cross K/V: views)
+    "seamless-m4t-medium": 14,
 }
 
 
 @pytest.mark.parametrize("arch", list(COUNT_ARCHS))
 def test_dry_run_counts_a_split_decode_step(ranks, arch):
     """One rank's ``OpCounter`` count of the ``tp`` decode step at 1 x 2
-    (smoke qwen2.5-3b, mamba2, recurrentgemma) against the dry run's count
+    (smoke qwen2.5-3b, mamba2, recurrentgemma, seamless-m4t-medium) against the dry run's count
     of that step at ``local_config(cfg, 2)``, its Mamba-2 and RG-LRU blocks
     on the card's share (``dryrun.card_share``: the blocks' split code,
     each gather a stand-in that costs nothing): the products (projections,
@@ -590,10 +736,16 @@ def train_split_counts(arch, accum, remat=False, whole=(), steps=2):
     """The split counts of ``steps`` tensor-parallel train steps: every
     attention layer and dense MLP or MoE layer's experts once a
     microbatch (twice under remat: the backward runs the layer again),
-    the lookup and the loss once."""
+    the lookup and the loss once (an encoder-decoder's attention in every
+    encoder and decoder layer, its cross-attention in every decoder layer,
+    remat ignored, as in the reference)."""
     cfg = get_config(arch, smoke=True)
     kinds = cfg.layer_kinds()
     calls = steps * accum
+    if cfg.family == "encdec":
+        n = calls * (cfg.encoder_layers + cfg.n_layers)
+        return {"attn": n, "cross": calls * cfg.n_layers, "mlp": n, "embed": calls,
+                "logits": calls}
     layer = calls * (2 if remat else 1)
     out = {"attn": layer * sum(k in ("global", "local") for k in kinds),
            "moe" if cfg.n_experts else "mlp": layer * sum(k != "ssm" for k in kinds),
@@ -617,7 +769,7 @@ def test_train_on_ranks(ranks, refs, name):
     arch, spec, policy, comp, accum, _, *opts = TRAIN_CASES[name]
     opts = opts[0] if opts else {}
     split = policy in ("tp", "tp_fsdp") and spec.split("x")[1] != "1"
-    control = opts.get("f32_products", False)
+    control = opts.get("f32_products", False) and name not in F32_SPLIT
     for r in ranks[name]:
         m0 = r["metrics0"]
         # grad_norm of a split step: STEP_TOL at the first step but under
@@ -746,11 +898,16 @@ def test_model_collectives_adjoints_are_exact(ranks, spec):
 def layer_gathers(arch, name):
     """The layers a serve or train case gathers, in call order: every
     layer once a call (serve), or once a microbatch's forward and again,
-    last layer first, in its remat recompute (train)."""
-    n = get_config(arch, smoke=True).n_layers
+    last layer first, in its remat recompute (train; an encoder-decoder:
+    the encoder's layers, then the decoder's, no recompute)."""
+    cfg = get_config(arch, smoke=True)
+    n = cfg.n_layers
     if name not in TRAIN_CASES:
         return list(range(n)) * (1 + DECODE)
     accum = TRAIN_CASES[name][4]
+    if cfg.family == "encdec":
+        return (list(range(cfg.encoder_layers)) + list(range(n))) * accum * len(
+            train_batches(arch))
     back = list(reversed(range(n))) if train_remat(name) else []
     return (list(range(n)) + back) * accum * len(train_batches(arch))
 

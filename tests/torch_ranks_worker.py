@@ -208,6 +208,84 @@ def serve_case(*, arch, params, spec, policy, prompt, tokens, max_len, cfg_chang
         **gathers.summary(cfg), **moe_calls.against_one_process(params, cfg))
 
 
+ENCODER = ("enc_layers/", "enc_norm/")  # what an encoder-decoder's decode step never runs
+
+
+def encdec_serve_case(*, params, spec, policy, src, prompt, tokens, max_len, cfg_changes=None,
+                      whole=()):
+    """Smoke seamless-m4t-medium in the reference's serving form on a
+    ``spec`` mesh of ranks: the caller's ``init_cache`` over the source
+    frames ``src`` (whole, in every rank), then ``jit_serve_fns``'
+    decode of the target ``prompt`` at ``cache_len`` 0 and of ``tokens``
+    (teacher-forced, one column a step, at per-row lengths), the
+    parameters and the cache placed as ``DTensor``s.  Held in the rank
+    against the one-process run without a mesh by ``test_torch_model.py``'s
+    measure: logits, greedy tokens, this rank's shard of the self cache
+    (and of the cross K/V, which the step never writes: bit for bit).
+    Returns the gathered logits of each call, those comparisons, the
+    gathered self cache, the split
+    counts, what the model was handed and computed on
+    (:func:`_held_params`; the modules in ``whole`` are expected whole)
+    and its per-layer gathers (:class:`_Gathers`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.distributed import COLLECTIVES
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.runtime import mesh_ctx as ctx_mod
+    from repro_torch.runtime import serve_loop, sharding
+    from repro_torch.runtime.mesh_ctx import mesh_ctx
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium", smoke=True),
+                              **(cfg_changes or {}))
+    model = build_model(cfg)
+    mesh = _mesh(spec)
+    src, prompt, tokens = (torch.as_tensor(x) for x in (src, prompt, tokens))
+    b, p_len = prompt.shape
+    cache = model.init_cache(params, src, max_len)  # the caller's: the encoder, whole
+    held = []
+    model.decode_step = _recording(model.decode_step, held)
+    _, compile_decode, sh = serve_loop.jit_serve_fns(model, mesh, model.init(None, "meta"),
+                                                     cache, policy=policy)
+    placed_p = sharding.place(params, sh["params"])
+    placed_c = sharding.place(cache, sh["cache"])
+    got = []
+    ctx_mod.TP_COUNTS.clear()
+    n_coll = sum(COLLECTIVES.values())
+    with mesh_ctx(mesh, policy), _Gathers() as gathers:
+        logits, ret = compile_decode(prompt)(placed_p, placed_c, prompt, np.zeros((b,), np.int32))
+        got.append(logits)
+        for i in range(tokens.shape[1]):
+            tok = tokens[:, i:i + 1]
+            logits, ret = compile_decode(tok)(placed_p, placed_c, tok,
+                                              np.full((b,), p_len + i, np.int32))
+            got.append(logits)
+    counts = dict(ctx_mod.TP_COUNTS, collectives=sum(COLLECTIVES.values()) - n_coll)
+    model = build_model(cfg)
+    one = model.init_cache(params, src, max_len)
+    want = [model.decode_step(params, one, prompt, np.zeros((b,), np.int32))[0]]
+    for i in range(tokens.shape[1]):
+        want.append(model.decode_step(params, one, tokens[:, i:i + 1],
+                                      np.full((b,), p_len + i, np.int32))[0])
+    flat_sh = dict(tree.leaves_with_paths(sh["cache"]))
+    flat_one = dict(tree.leaves_with_paths(one))
+    pairs = {path: (d.to_local(), sharding.shard_one(flat_one[path], flat_sh[path]))
+             for path, d in tree.leaves_with_paths(placed_c)}
+    self_cache = [{k: sharding.full_value(c[k]).numpy() for k in c} for c in placed_c["self"]]
+    return dict(
+        self_cache=self_cache,
+        logits=[g.numpy() for g in got],
+        logits_err=max(_max_err(g, w) for g, w in zip(got, want)),
+        tokens_equal=all(torch.equal(g.argmax(-1), w.argmax(-1)) for g, w in zip(got, want)),
+        cache_err=max(_max_err(a, w) for p, (a, w) in pairs.items() if p[0] == "self"),
+        cross_equal=all(torch.equal(a, w) for p, (a, w) in pairs.items() if p[0] == "cross"),
+        returned_cache=ret is placed_c, counts=counts,
+        **_held_params(params, held, sh["params"], mesh, cfg, policy, whole, gathers,
+                       unused=ENCODER),
+        **gathers.summary(cfg))
+
+
 class _MoECalls:
     """Inside the ``with``: every call of ``moe.moe_tokens`` (the MoE MLP
     of a call's whole batch: this rank's working leaves, the gathered
@@ -337,16 +415,22 @@ class _Gathers:
         and the gathered bytes still alive after."""
         layer = table = 0
         for prefix, _, gathered in self.calls:
-            if prefix.startswith("layers/"):
+            if _is_layer(prefix):
                 layer = max(layer, sum(gathered.values()))
             else:
                 table = max(table, *gathered.values(), 0)
         experts = sum(b for _, _, gathered in self.calls for name, b in gathered.items()
                       if _is_expert(name))
         return dict(layer_gathers=[int(k.split("/")[1]) for k, _, _ in self.calls
-                                   if k.startswith("layers/")],
+                                   if _is_layer(k)],
                     gathered_peak=self.peak, gather_bound=layer + table,
                     gathered_live=self.live, n_layers=cfg.n_layers, expert_gathered=experts)
+
+
+def _is_layer(prefix) -> bool:
+    """A layer's prefix: ``layers/<l>`` (decoder-only), ``enc_layers/<i>``
+    or ``dec_layers/<l>`` (encoder-decoder)."""
+    return prefix.split("/")[0] in ("layers", "enc_layers", "dec_layers") and "/" in prefix
 
 
 def _is_expert(name) -> bool:
@@ -357,7 +441,7 @@ def _is_expert(name) -> bool:
 
 
 def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
-                 handed_whole=False) -> dict:
+                 handed_whole=False, unused=()) -> dict:
     """What each call was handed and what it computed on, against the
     whole parameters.  Handed: every leaf this rank's shard under its
     spec (no parameter tree is made whole at the call); with
@@ -368,7 +452,9 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
     of the model, the leaves a split keeps local (the spec names
     ``model``; an attention layer, a dense MLP, a MoE layer's expert
     stacks or an embedding table) ``1 / m`` of their whole elements and
-    every other leaf whole.  Returns
+    every other leaf whole; every leaf computed on but those under the
+    prefixes ``unused`` (an encoder-decoder's decode step runs no
+    encoder).  Returns
     that check, the count of local leaves and the largest share of the
     whole model's bytes one call of ``working`` computed on."""
     from repro_torch.core import tree
@@ -379,12 +465,15 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
     specs = {name: sh.spec for name, sh in flat_sh.items()}
     full = {sharding.path_str(p): t for p, t in tree.leaves_with_paths(params)}
 
+    modules = {"attn": "attn", "self_attn": "attn", "cross_attn": "cross", "mlp": "mlp",
+               "ssm": "ssm", "rec": "rec"}
+
     def local(name):
         parts = name.split("/")
+        module = modules.get(parts[2]) if _is_layer(name) else None
         split_module = parts[0] in ("embed", "unembed") or (
-            parts[0] == "layers" and parts[2] in ("attn", "mlp", "ssm", "rec")
-            and parts[2] not in whole
-            and (parts[2] != "mlp" or not cfg.n_experts or _is_expert(name)))
+            module is not None and module not in whole
+            and (module != "mlp" or not cfg.n_experts or _is_expert(name)))
         return (m > 1 and split_module
                 and "model" in {a for e in specs[name] for a in sharding.spec_axes(e)})
 
@@ -402,13 +491,15 @@ def _held_params(params, held, shardings, mesh, cfg, policy, whole, gathers,
             ok = ok and numel == full[name].numel() // (m if local(name) else 1)
     share = max(sum(b for _, b in leaves.values()) for _, leaves, _ in gathers.calls) / sum(
         t.nbytes for t in full.values())
-    return dict(held_ok=ok and seen == full.keys(), local_leaves=sum(map(local, full)),
+    used = {n for n in full if not n.startswith(tuple(unused))}
+    return dict(held_ok=ok and seen == used, local_leaves=sum(map(local, full)),
                 held_share=share)
 
 
 def count_case(*, arch, params, spec, policy, max_len):
     """One ``tp`` decode step on a ``spec`` mesh of ranks (a batch of 2,
-    every cache row below ``max_len - 1`` live) counted by ``OpCounter``
+    every cache row below ``max_len - 1`` live; an encoder-decoder's cross
+    K/V over 8 frames) counted by ``OpCounter``
     in this rank, and the dry run's count of the same step: the model at
     ``launch/dryrun.local_config``'s widths on meta stand-ins, its Mamba-2
     and RG-LRU blocks on the card's share (``dryrun.card_share``).
@@ -425,7 +516,10 @@ def count_case(*, arch, params, spec, policy, max_len):
     model = build_model(cfg)
     mesh = _mesh(spec)
     b, pos = 2, max_len - 1
-    cache = model.init_cache(params, b, max_len)
+    encdec = cfg.family == "encdec"
+    # an encoder-decoder's cache: the caller's init_cache over 8 frames
+    src = torch.randn((b, 8, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.02
+    cache = model.init_cache(params, src if encdec else b, max_len)
     tok = torch.full((b, 1), 7, dtype=torch.int64)
     _, compile_decode, sh = serve_loop.jit_serve_fns(model, mesh, model.init(None, "meta"), cache,
                                                      policy=policy)
@@ -436,7 +530,8 @@ def count_case(*, arch, params, spec, policy, max_len):
     lmodel = build_model(local_config(cfg, mesh.shape["model"]))
     card = card_share(cfg, model.init(None, "meta"), mesh, policy)
     lparams = card_leaves(lmodel.init(None, "meta", dtype=torch.float32), card)
-    lcache = card_leaves(lmodel.init_cache(lparams, b, max_len), card, state=True)
+    lcache = card_leaves(lmodel.init_cache(lparams, src.to("meta") if encdec else b, max_len),
+                         card, state=True)
     with card_context(card), OpCounter() as dry:
         lmodel.decode_step(lparams, lcache, tok.to("meta"), pos)
     return {k: dict(flops=c.cost.flops, bytes=c.cost.bytes, products=c.products.flops,
@@ -1024,6 +1119,7 @@ def _span(plan, n):
 CASES = {
     "block": block_case,
     "serve": serve_case,
+    "encdec_serve": encdec_serve_case,
     "count": count_case,
     "train_count": train_count_case,
     "moe": moe_dispatch_case,
