@@ -272,7 +272,7 @@ root) and exits nonzero on any failure:
     split by ``model`` on 1 x 2 gloo ranks on the card: (c)
     deepseek-v2-mla at full width (60 layers, bf16, amla) under ``tp``,
     (d) qwen2.5-3b at full width (36 layers) under ``tp_fsdp``; 4 prompts
-    of 64 tokens and 16 decode steps, held against the one-process run
+    of 64 tokens and 16 decode steps ((d): 8), held against the one-process run
     from the same weights (:func:`tp_phase`): tokens, logits, each rank's
     parameter bytes, split counts, launches at the rank's shapes; (h)
     qwen3-moe-30b-a3b at full width (48 layers) under ``tp``, its experts
@@ -300,7 +300,12 @@ root) and exits nonzero on any failure:
     the layers gathered at their use (again in the recompute): the
     gathered bytes alive at once within what the step gathers of its
     largest layer plus its largest gathered table; each rank's peak and
-    gloo calls and bytes a step printed (:func:`ranks_phase`).
+    gloo calls and bytes a step printed; between the ``tp_fsdp`` steps
+    the state saved by rank (``CheckpointManager(async_save=True)``, each
+    rank its shards) and restored against the whole initial state, every
+    shard and placement bit-equal, the second step run from the restored
+    state, each rank's save and restore seconds and shard bytes printed
+    (:func:`ranks_phase`).
 34. **Tensor-parallel train phase** (after phase 32): qwen1.5-0.5b at
     full width (24 layers) split by ``model`` on 1 x 2 ranks, (e) ``tp``
     at fp32 compute and (f) ``tp_fsdp`` at bf16, and (i) smoke qwen3-moe
@@ -5248,6 +5253,9 @@ def _rank_phases(rank, world, store_path, seqkv, train):
         metrics, times, held, launches, coll = [], [], [], [0, 0, 0], []
         with GatherSpy() as gathers:
             for i, batch in enumerate(train["batches"]):
+                if policy == "tp_fsdp" and i == 1:  # the second step from the restored state
+                    state, res["ckpt"] = rank_ckpt_round_trip(
+                        rank, state, train, os.path.join(os.path.dirname(store_path), "ckpt"))
                 before = [tree.tree_map(sharding.full_value, t) for t in state[:2]]  # gathered
                 zero_counts(counters)
                 n0 = dict(distributed.COLLECTIVES), dict(distributed.COLLECTIVE_BYTES)
@@ -5274,6 +5282,49 @@ def _rank_phases(rank, world, store_path, seqkv, train):
         torch.cuda.empty_cache()
     dist.destroy_process_group()
     return res
+
+
+def rank_ckpt_round_trip(rank, state, train, directory):
+    """On every rank: the train state ``(params, opt, comp)`` (this rank's
+    ``DTensor`` shards) saved as step 1 by a ``CheckpointManager(directory,
+    async_save=True)`` and waited for (each rank its shard file, rank 0
+    commits), then restored by a fresh manager against the whole initial
+    state (the supervisor's first call, before any step), and the
+    directory removed.  Returns the restored state and this rank's save
+    and restore seconds, its shard file's bytes, and whether every
+    restored local shard, placement and mesh equals the saved one."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import tree
+
+    saved = {"params": state[0], "opt": state[1], "comp": state[2]}
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(directory, async_save=True)
+    mgr.save(1, saved)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    shard = os.path.getsize(os.path.join(directory, "step_00000001", f"shard_{rank:05d}.npz"))
+    dist.barrier()
+    t0 = time.perf_counter()
+    step, got = CheckpointManager(directory).restore_latest(
+        {"params": train["params"], "opt": train["opt"], "comp": None})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(tree.leaves(got), tree.leaves(saved), strict=True))
+    equal = step == 1 and all(
+        a.placements == b.placements and a.device_mesh is b.device_mesh and a.shape == b.shape
+        and torch.equal(a.to_local(), b.to_local()) for a, b in pairs)
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(directory)
+    return (got["params"], got["opt"], got["comp"]), dict(
+        save_s=save_s, restore_s=restore_s, shard_bytes=shard, equal=equal,
+        state_bytes=sum(b.to_local().nbytes for _, b in pairs))
 
 
 def _spawn_ranks(world, args, timeout, target=None):
@@ -5401,7 +5452,12 @@ def ranks_phase(card, seqkv):
     ``tp_fsdp``, the global batch 8 x 2048, ``RANK_TRAIN_STEPS`` steps
     through ``jit_train_step`` (the first from full tensors, the next from
     the ranks' own shards, gathered); the model gathers each layer at its use
-    (and again in its remat recompute).  Rank 0 holds every step against
+    (and again in its remat recompute).  Between the ``tp_fsdp`` steps
+    every rank saves its shards of the state, restores them against the
+    whole initial state and runs the second step from what it restored
+    (:func:`rank_ckpt_round_trip`: every shard, placement and mesh
+    bit-equal; each rank's save and restore seconds and shard bytes
+    printed).  Rank 0 holds every step against
     ``make_train_step`` on one rank from the same state and batch
     (:func:`_hold_rank_step`).  Gates: loss and ``grad_norm`` within
     ``RANK_TRAIN_REL``, the parameters by ``RANK_PARAM_TOL`` where the
@@ -5427,6 +5483,14 @@ def ranks_phase(card, seqkv):
     steps = len(seqkv["tokens_out"])
     failed = []
     for r, res in enumerate(ranks):
+        c = res["ckpt"]
+        log(f"(b) rank {r} tp_fsdp checkpoint between its steps: saved "
+            f"{c['state_bytes'] / 1e9:.3f} GB of shards in {c['save_s']:.2f} s (host copy, shard "
+            f"file of {c['shard_bytes'] / 1e9:.3f} GB, commit), restored in "
+            f"{c['restore_s']:.2f} s; every shard, placement and mesh bit-equal: {c['equal']}; "
+            f"card {card}")
+        if not c["equal"]:
+            failed.append(f"(b) rank {r}: the restored checkpoint differs from the saved state")
         a = res["a"]
         (k6a, _), (k3a, _), (k7a, _) = a["launches"]
         same_first = torch.equal(a["first"], seqkv["first"])
@@ -5527,9 +5591,11 @@ TP_BATCH, TP_PROMPT, TP_STEPS = 4, 64, 16
 # rank), the 64-token target prompt through the decode step at cache_len 0,
 # then 2 steps (4 took the script to 1097.1 s on a slow host, PERF.md); each
 # rank its 8 of 16 heads of every self- and cross-attention (the cross K/V's
-# width over model: one all-to-all a call)
+# width over model: one all-to-all a call).  (d) runs 8 steps, its token gate
+# in proportion: the time it gives up pays for the ranks phase's checkpoint
+# round trip (about 13 s on an H100), with the script near its limit on a slow host
 TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128, TP_STEPS),
-            "d": ("qwen2.5-3b", "tp_fsdp", 2048, TP_STEPS),
+            "d": ("qwen2.5-3b", "tp_fsdp", 2048, 8),
             "h": ("qwen3-moe-30b-a3b", "tp", 2048, 8),
             "j": ("mamba2-370m", "tp_fsdp", 128, 4),
             "k": ("recurrentgemma-2b", "tp", 2048, 4),
@@ -5537,7 +5603,7 @@ TP_CELLS = {"c": ("deepseek-v2-mla", "tp", 128, TP_STEPS),
 # label -> (the cell whose one-process references it reuses, mesh, policy,
 # decode steps): FSDP serving on 2 x 1 ranks, each rank its batch rows and
 # its data shards of the weights, every layer gathered at its use.  Its
-# first 2 of (d)'s 16 steps: every call gathers each layer through gloo
+# first 2 of (d)'s steps: every call gathers each layer through gloo
 # (5.2 GiB, 7-9.5 s on an H100 host), and at 16 the whole script took
 # 1142 s of its 1200
 FSDP_CELLS = {"g": ("d", "2x1", "fsdp", 2)}

@@ -12,6 +12,11 @@ shard_id=rank)``, the reference's ``jax.process_count()`` /
 ``jax.process_index()``), the global batch is their concatenation in rank
 order, and the steps run rank-locally through ``jit_train_step`` on a
 ``world_size x 1`` mesh of the ranks (the gradient all-reduced over them).
+With ``--ckpt-dir`` every rank runs the supervisor with its own
+``CheckpointManager`` over the same directory, as the reference's
+processes do: each rank saves and restores its own shards, and rank 0
+commits each step once every rank's shard is written
+(:mod:`repro_torch.checkpoint.checkpoint`).  Only rank 0 prints.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke \\
@@ -81,9 +86,6 @@ def main(argv=None):
                            global_batch=args.batch, seed=args.seed, num_shards=world,
                            shard_id=rank)
     if world > 1:
-        if args.ckpt_dir:
-            raise SystemExit("--ckpt-dir: checkpoints of a state sharded over ranks are not "
-                             "supported; run one process to checkpoint")
         mesh = rank_mesh(f"{world}x1", dev.type)
         compile_for, _ = jit_train_step(model, tc, mesh, params)
 
@@ -119,7 +121,8 @@ def main(argv=None):
             return state, m
 
         state, last, history = sup.run(logged_step, state, start_step=0, num_steps=args.steps)
-        print(f"finished at step {last} ({sup.restarts} restarts)")
+        if rank == 0:
+            print(f"finished at step {last} ({sup.restarts} restarts)")
     else:
         history = []
         for s in range(args.steps):

@@ -13,6 +13,15 @@ it checkpoints every ``ckpt_every`` steps, and on a failed step restores
 the newest committed checkpoint and reseeks the (deterministic) data
 stream to the restored step, retrying with exponential backoff up to
 ``max_retries`` consecutive failures.
+
+On a group of several ranks every rank runs its own supervisor with its
+own manager over one directory: the manager saves and restores each
+rank's shards (:mod:`repro_torch.checkpoint.checkpoint`), and its
+``restore_latest`` waits for the save in flight, so every rank restores
+the same committed step.  A failure is taken as job-wide: every rank
+raises at the same step, before that step's collectives, as a preemption
+does.  A failure on one rank alone would leave its peers waiting in a
+collective it never reaches; recovering from that is not supported.
 """
 
 from __future__ import annotations

@@ -3,7 +3,11 @@ several ranks, on the CPU: ``jit_serve_fns`` (prefill and decode, split-KV
 decode across ranks through K6's plain version), ``jit_train_step``,
 ``reshard_train_state``, ``launch/train``'s data split, and the gathers
 and slices of ``runtime.sharding`` and the differentiable collectives
-over ``model`` underneath.
+over ``model`` underneath.  Checkpoints of the sharded train state: each
+rank saves and restores its own shards into one step directory, committed
+once (``CKPT_CASES``; a missing shard, another mesh, one process), through
+``TrainingSupervisor`` and ``launch/train --ckpt-dir``, and the
+reference's manager reads each rank's file.
 
 The ranks are spawned processes in a gloo group on a ``FileStore`` under
 the test's temporary directory (no port, so xdist workers cannot collide),
@@ -72,6 +76,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.checkpoint.checkpoint import CheckpointManager as RefCheckpointManager
 from repro.configs import get_config as ref_get_config
 from repro.data.pipeline import SyntheticLMData as RefData
 from repro.models.model_zoo import build_model as ref_build_model
@@ -446,8 +451,37 @@ def split_counts(arch, calls=1 + DECODE):
     return {k: v for k, v in out.items() if v}
 
 
-def cases_for(world, refs):
-    cases = []
+# name -> (mesh, policy, compression, world): a checkpoint of the state
+# after one sharded step, saved and restored by rank (smoke qwen1.5-0.5b)
+CKPT_CASES = {
+    "fsdp 2x1 int8": ("2x1", "fsdp", "int8", 2),
+    "tp 1x2": ("1x2", "tp", "none", 2),
+    "tp_fsdp 2x2": ("2x2", "tp_fsdp", "none", 4),
+}
+
+
+def ckpt_cases(world, refs, root):
+    """The checkpoint cases of a spawn of ``world`` ranks, each in its own
+    directory under ``root``."""
+    import os
+
+    params, batches = refs["train"]["params"], train_batches()
+    cases = [(f"ckpt {name}", dict(case="ckpt", params=params, batches=batches, spec=spec,
+                                   policy=policy, compression=comp,
+                                   directory=os.path.join(root, name.replace(" ", "_"))))
+             for name, (spec, policy, comp, w) in CKPT_CASES.items() if w == world]
+    if world == 2:
+        cases += [
+            ("ckpt faults", dict(case="ckpt_faults", params=params, batches=batches,
+                                 directory=os.path.join(root, "faults"), other="1x2")),
+            ("supervisor", dict(case="supervisor", params=params, batches=batches,
+                                directory=os.path.join(root, "supervisor"))),
+            ("launch ckpt", dict(case="launch_ckpt", directory=os.path.join(root, "launch")))]
+    return cases
+
+
+def cases_for(world, refs, root):
+    cases = ckpt_cases(world, refs, root)
     for name, (key, spec, policy, w) in SERVE.items():
         if w == world:
             r = refs[key]
@@ -519,8 +553,8 @@ def ranks(refs, tmp_path_factory):
     ranks and one of 4."""
     out = {}
     for world in (2, 4):
-        out.update(run_ranks(world, cases_for(world, refs),
-                             str(tmp_path_factory.mktemp(f"store{world}"))))
+        root = str(tmp_path_factory.mktemp(f"store{world}"))
+        out.update(run_ranks(world, cases_for(world, refs, root), root))
     return out
 
 
@@ -1038,3 +1072,86 @@ def test_gather_slots_adjoint_is_exact(ranks, spec):
     (the ranks there hold the same rows), exactly."""
     for r in ranks[f"round_trip {spec}"]:
         assert r["slots_adjoint"] == {"cap": True, "whole": True}
+
+
+@pytest.mark.parametrize("name", list(CKPT_CASES))
+def test_checkpoint_round_trip_on_ranks(ranks, name):
+    """The state after one sharded step (an int8 residual under ``fsdp``),
+    saved by every rank into one step directory (``async_save``; each rank
+    its ``shard_{rank:05d}.npz``, one ``COMMIT``) and restored by a fresh
+    manager: each rank's shards, placements, global shapes and mesh
+    bit-equal to what it saved, from a ``DTensor`` like-tree and from the
+    whole initial state (the supervisor's first call); the step from the
+    restored state bit-equal to the step from the state in memory (loss,
+    ``grad_norm``, parameters, moments, residuals)."""
+    world = CKPT_CASES[name][3]
+    for r in ranks[f"ckpt {name}"]:
+        assert r["step"] == 1
+        assert r["saved_by_dtensors"] and r["saved_by_whole"]
+        assert r["metrics_equal"] and r["resumed_equal"]
+        assert r["files"] == ["COMMIT", "manifest.json"] + [f"shard_{i:05d}.npz"
+                                                             for i in range(world)]
+
+
+@pytest.mark.parametrize("name", list(CKPT_CASES))
+def test_checkpoint_on_ranks_reads_through_reference(ranks, name):
+    """The reference's ``CheckpointManager.restore(step, like,
+    process_index=r)`` reads rank ``r``'s file of the port's checkpoint,
+    given a like-tree of that rank's local shapes: its shards bit for bit;
+    the port's manager refuses the checkpoint in one process (a world of 1,
+    not the 2 or 4 ranks that saved it)."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+
+    res = ranks[f"ckpt {name}"]
+    mgr = RefCheckpointManager(res[0]["directory"])
+    assert mgr.committed_steps() == [1]
+    for rank, r in enumerate(res):
+        like = [jnp.zeros(a.shape, a.dtype) for a in r["local"]]
+        got = mgr.restore(1, like, process_index=rank)
+        assert len(got) == len(r["local"])
+        for a, b in zip(got, r["local"]):
+            assert np.asarray(a).dtype == b.dtype
+            np.testing.assert_array_equal(np.asarray(a), b)
+    with pytest.raises(ValueError, match="saved by"):
+        CheckpointManager(res[0]["directory"]).restore_latest(
+            [torch.zeros(a.shape) for a in res[0]["local"]])
+
+
+def test_uncommitted_step_is_skipped_on_ranks(ranks):
+    """Rank 1 cannot write step 3: its ``wait()`` raises its error, rank 0's
+    raises ``TimeoutError`` (it waited for rank 1's shard), step 3 is never
+    committed (its ``.tmp`` stays), both ranks see steps [1, 2] and restore
+    step 2; after step 4, ``keep=2`` leaves [2, 4] on both.  A restore onto
+    the 1 x 2 mesh of what 2 x 1 saved raises ``ValueError``."""
+    res = ranks["ckpt faults"]
+    assert [r["raised"] for r in res] == ["TimeoutError", "OSError"]
+    for r in res:
+        assert r["after3"] == [1, 2] and r["latest"] == 2 and r["after4"] == [2, 4]
+        assert r["stale"] == ["step_00000003.tmp"]
+        assert "no resharding" in r["other_mesh"]
+
+
+def test_supervisor_recovers_on_ranks(ranks):
+    """``TrainingSupervisor`` over the 2 x 1 ``fsdp`` step, a checkpoint
+    every 2 steps, a job-wide failure at step 3 (both ranks raise): it
+    restores step 2 and replays; the history is steps 0-5 once each, its
+    metrics and the final shards bit-equal to 6 uninterrupted steps."""
+    for r in ranks["supervisor"]:
+        assert r["steps"] == list(range(6)) and r["last"] == 6 and r["restarts"] == 1
+        assert r["metrics_equal"] and r["state_equal"]
+
+
+def test_launch_train_ckpt_resumes_on_ranks(ranks):
+    """``launch/train --ckpt-dir --ckpt-every 2`` on 2 ranks, 4 steps, then
+    ``--steps 2``: the second run resumes at step 4 and runs 4 and 5;
+    ``keep=3`` leaves steps 2, 4 and 6, each with one shard a rank; only
+    rank 0 prints."""
+    res = ranks["launch ckpt"]
+    for rank, r in enumerate(res):
+        assert r["runs"] == [[0, 1, 2, 3], [4, 5]]
+        assert r["files"] == {f"step_{s:08d}": ["COMMIT", "manifest.json", "shard_00000.npz",
+                                                "shard_00001.npz"] for s in (2, 4, 6)}
+        if rank:
+            assert r["printed"] == ["", ""]
+    assert "finished at step 4 (0 restarts)" in res[0]["printed"][0]
+    assert "finished at step 6 (0 restarts)" in res[0]["printed"][1]

@@ -800,6 +800,201 @@ def launch_train_case(*, steps=2, batch=4, seq=32):
                 rank=rank, own=shards[rank].batch_at(0)["tokens"])
 
 
+def _train_setup(spec, policy, compression, params):
+    """Smoke qwen1.5-0.5b's sharded step on the ``spec`` mesh of ranks, its
+    shardings and its whole initial state ``{"params", "opt", "comp"}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.compression import compression_init
+    from repro_torch.runtime import train_loop
+
+    model = build_model(get_config("qwen1.5-0.5b", smoke=True))
+    tc = train_loop.TrainConfig(peak_lr=3e-3, warmup_steps=2, total_steps=20, remat=False,
+                                compression=compression)
+    compile_for, sh = train_loop.jit_train_step(
+        model, tc, _mesh(spec), model.init(None, "meta", dtype=torch.float32), policy=policy)
+    whole = {"params": params, "opt": adamw_init(params),
+             "comp": compression_init(params, compression)}
+    return compile_for, sh, whole
+
+
+def _equal(a, b) -> bool:
+    return torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _same_shards(a, b) -> bool:
+    """Two trees' leaves bit-equal: each ``DTensor`` in its local shard,
+    placements, global shape and mesh, each plain tensor whole."""
+    from repro_torch.core import tree
+
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if hasattr(x, "to_local") != hasattr(y, "to_local") or x.shape != y.shape:
+            return False
+        if hasattr(x, "to_local"):
+            if (x.placements != y.placements or x.device_mesh is not y.device_mesh
+                    or x.to_local().dtype != y.to_local().dtype
+                    or not torch.equal(x.to_local(), y.to_local())):
+                return False
+        elif x.dtype != y.dtype or not torch.equal(x, y):
+            return False
+    return True
+
+
+def ckpt_case(*, params, batches, spec, policy, compression, directory):
+    """A checkpoint of the train state after one sharded step on the
+    ``spec`` mesh of ranks (``async_save``, every rank its own shards), and
+    the second step from what a fresh manager restores against the second
+    step from the state in memory.  Returns whether the restored trees
+    (from a ``DTensor`` like-tree and from the whole initial state) equal
+    the saved one shard by shard and in their placements and meshes,
+    whether the resumed step's metrics, parameters, moments and residuals
+    are bit-equal to the uninterrupted step's, the step directory's files,
+    this rank's saved local shards (numpy, in flattening order) and the
+    directory."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import tree
+
+    compile_for, _, whole = _train_setup(spec, policy, compression, params)
+    step = compile_for(batches[0])
+    p, o, c, _ = step(whole["params"], whole["opt"], whole["comp"], batches[0], 3)
+    # a plain tensor too: each rank writes it whole and gets it back so
+    saved = {"params": p, "opt": o, "comp": c, "step": torch.tensor(1, dtype=torch.int32)}
+    whole["step"] = torch.tensor(0, dtype=torch.int32)
+    *want, m_want = step(p, o, c, batches[1], 4)
+    mgr = CheckpointManager(directory, async_save=True)
+    mgr.save(1, saved)
+    mgr.wait()
+    from_dtensors = CheckpointManager(directory).restore_latest(saved)
+    step_no, got = CheckpointManager(directory).restore_latest(whole)
+    *resumed, m = step(got["params"], got["opt"], got["comp"], batches[1], 4)
+    return dict(
+        step=step_no, saved_by_dtensors=_same_shards(from_dtensors[1], saved),
+        saved_by_whole=_same_shards(got, saved),
+        metrics_equal=all(_equal(m[k], m_want[k]) for k in ("loss", "grad_norm", "lr")),
+        resumed_equal=_same_shards(tuple(resumed), tuple(want)),
+        files=sorted(os.listdir(os.path.join(directory, "step_00000001"))),
+        local=[getattr(x, "to_local", lambda: x)().numpy() for x in tree.leaves(saved)],
+        directory=directory)
+
+
+def ckpt_faults_case(*, params, batches, directory, other):
+    """On 2 x 1 ``fsdp``: steps 1, 2, 3 and 4 saved by a manager with
+    ``keep=2`` where rank 1 cannot write step 3 (its writer raises before
+    its shard is on disk).  Returns what each rank's ``wait()`` raised at
+    step 3, the committed steps each rank sees after step 3 and after
+    step 4, the step ``restore_latest`` gives after step 3, and what
+    restoring the 2 x 1 checkpoint onto the ``other`` mesh (a ``DTensor``
+    like-tree placed there) raises."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import tree
+    from repro_torch.runtime import sharding
+
+    compile_for, _, whole = _train_setup("2x1", "fsdp", "none", params)
+    p, o, c, _ = compile_for(batches[0])(whole["params"], whole["opt"], None, batches[0], 3)
+    state = {"params": p, "opt": o, "comp": c}
+    rank = dist.get_rank()
+
+    class Failing(CheckpointManager):
+        def _write(self, step, host, process_index, meta):
+            if step == 3 and rank == 1:
+                raise OSError("rank 1 cannot write step 3")
+            return super()._write(step, host, process_index, meta)
+
+    mgr = Failing(directory, keep=2, async_save=True)
+    mgr.commit_timeout = 2.0  # rank 0 stops waiting for rank 1's shard
+    out = {}
+    for s in (1, 2, 3):
+        mgr.save(s, state)
+        try:
+            mgr.wait()
+        except Exception as e:
+            out["raised"] = type(e).__name__
+    out["after3"] = mgr.committed_steps()
+    out["latest"], _ = mgr.restore_latest(whole)
+    mgr.save(4, state)
+    mgr.wait()
+    out["after4"] = mgr.committed_steps()
+    _, sh, _ = _train_setup(other, "fsdp", "none", params)
+    placed = sharding.place((whole["params"], whole["opt"]), (sh["params"], sh["opt"]))
+    try:
+        mgr.restore(4, {"params": placed[0], "opt": placed[1], "comp": None})
+        out["other_mesh"] = None
+    except ValueError as e:
+        out["other_mesh"] = str(e)
+    out["stale"] = sorted(n for n in os.listdir(directory) if n.endswith(".tmp"))
+    out["leaves"] = len(tree.leaves(state))
+    return out
+
+
+def supervisor_case(*, params, batches, directory, steps=6, fail_at=3, every=2):
+    """``TrainingSupervisor`` over the sharded step on 2 x 1 ``fsdp`` with
+    ``ckpt_every=every`` and a failure on every rank the first time step
+    ``fail_at`` comes (a job-wide failure), against ``steps`` uninterrupted
+    steps from the same state: the history's steps, whether its metrics
+    and the final state are bit-equal, and the restarts."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault_tolerance import TrainingSupervisor
+
+    compile_for, _, whole = _train_setup("2x1", "fsdp", "none", params)
+    step = compile_for(batches[0])
+
+    class Data:
+        def batch_at(self, s):
+            return batches[s % len(batches)]
+
+    def step_fn(state, batch, s):
+        p, o, c, m = step(state["params"], state["opt"], state["comp"], batch, s)
+        return {"params": p, "opt": o, "comp": c}, m
+
+    want, state = [], whole
+    for s in range(steps):
+        state, m = step_fn(state, Data().batch_at(s), s)
+        want.append(m)
+    failed = []
+
+    def hook(s):
+        if s == fail_at and not failed:
+            failed.append(s)
+            raise RuntimeError(f"injected failure at step {s}")
+
+    sup = TrainingSupervisor(ckpt_manager=CheckpointManager(directory, async_save=True),
+                             data=Data(), ckpt_every=every, failure_hook=hook)
+    got, last, history = sup.run(step_fn, whole, start_step=0, num_steps=steps)
+    return dict(steps=[s for s, _ in history], last=last, restarts=sup.restarts,
+                metrics_equal=all(_equal(m[k], w[k]) for (_, m), w in zip(history, want)
+                                  for k in ("loss", "grad_norm", "lr")),
+                state_equal=_same_shards(got, state))
+
+
+def launch_ckpt_case(*, directory, steps=4, every=2, more=2):
+    """``launch/train --ckpt-dir DIR --ckpt-every every`` under the group,
+    ``steps`` steps, then again with ``--steps more``: the second run's
+    steps and what each run printed (a rank other than 0 prints
+    nothing), the committed steps and each one's files."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    argv = ["--device", "cpu", "--smoke", "--batch", "4", "--seq", "32", "--log-every", "100",
+            "--ckpt-dir", directory, "--ckpt-every", str(every)]
+    runs, printed = [], []
+    for n in (steps, more):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            runs.append([s for s, _ in train.main(argv + ["--steps", str(n)])])
+        printed.append(buf.getvalue())
+    committed = sorted(n for n in os.listdir(directory) if n.startswith("step_"))
+    return dict(runs=runs, printed=printed,
+                files={n: sorted(os.listdir(os.path.join(directory, n))) for n in committed})
+
+
 SPECS = [("data", "model"), (("data", "model"), None), (None, None), ("model", None),
          ("model", None, None), (None, "data", "model"), ("data", None, "model", None)]
 
@@ -1126,5 +1321,9 @@ CASES = {
     "train": train_case,
     "reshard": reshard_case,
     "launch_train": launch_train_case,
+    "ckpt": ckpt_case,
+    "ckpt_faults": ckpt_faults_case,
+    "supervisor": supervisor_case,
+    "launch_ckpt": launch_ckpt_case,
     "round_trip": round_trip_case,
 }
